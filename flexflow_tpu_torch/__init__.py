@@ -1,0 +1,14 @@
+"""flexflow_tpu_torch: the PyTorch/CUDA port of flexflow_tpu.
+
+It imports torch, numpy and the standard library, never jax or anything of
+flexflow_tpu: where it needs a module of the JAX package that holds no JAX
+(graph, op attrs, builder, initializer and optimizer attrs) it keeps its
+own trimmed copy with the same names and layout. Its kernels are CUDA C++
+for Hopper under csrc/, built with nvcc at first use on a machine with a
+card.
+
+This slice covers the flagship transformer's training step on one device:
+models.build_flagship_cg, local_execution.ModelTrainingInstance, and the
+flash-attention kernels of kernels/flash_attention.py. Entry points run on
+CUDA unless the caller passes device="cpu".
+"""

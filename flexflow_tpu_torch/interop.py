@@ -1,0 +1,55 @@
+"""Carry the JAX package's training state into the port.
+
+Parameters cross as numpy arrays keyed `n{idx}` (the weight node's index,
+which both packages' builders assign in the same order), so a run of the
+port can start from exactly the state of a run of the JAX package. The
+graph is the port's own; keys and shapes are checked against it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from flexflow_tpu_torch.local_execution.training_backing import param_key, weight_nodes
+from flexflow_tpu_torch.pcg.computation_graph import ComputationGraph
+
+
+def params_from_numpy(
+    cg: ComputationGraph, params: Dict[str, np.ndarray], device
+) -> Dict[str, torch.Tensor]:
+    """Copies of `params` on `device`, one per weight node of `cg`; raises
+    on a missing or extra key or a shape that differs from the graph's."""
+    expected = {}
+    for n in weight_nodes(cg):
+        (out,) = cg.outputs_of(n)
+        expected[param_key(n)] = cg.tensor_shape(out)
+    missing, extra = set(expected) - set(params), set(params) - set(expected)
+    if missing or extra:
+        raise ValueError(
+            f"parameter keys differ from the graph's: missing {sorted(missing)}, "
+            f"extra {sorted(extra)}"
+        )
+    out = {}
+    for k, shape in expected.items():
+        arr = np.asarray(params[k])
+        if tuple(arr.shape) != tuple(shape.dims):
+            raise ValueError(f"parameter {k}: shape {arr.shape}, graph has {shape.dims}")
+        out[k] = torch.tensor(arr, dtype=shape.dtype.to_torch(), device=device)
+    return out
+
+
+def opt_state_from_numpy(cg: ComputationGraph, opt_state: Dict, device) -> Dict:
+    """The optimizer state {m, v, step} (the slots the optimizer has) with
+    each slot checked and copied as params_from_numpy does."""
+    out = {"step": int(np.asarray(opt_state["step"]))}
+    for slot in ("m", "v"):
+        if slot in opt_state:
+            out[slot] = params_from_numpy(cg, opt_state[slot], device)
+    return out
+
+
+def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {k: v.detach().float().cpu().numpy() for k, v in params.items()}

@@ -1,0 +1,60 @@
+"""Loss functions (port of flexflow_tpu/kernels/loss.py: the fused sparse
+categorical cross-entropy; the other losses are not ported yet).
+
+The fused SCCE never keeps a [rows, classes] f32 array: the forward saves
+only the per-row logsumexp (f32) and returns the mean over all rows; the
+backward emits (softmax - onehot) * g/N in the logit dtype. Both walk the
+rows in chunks so the f32 temporaries stay bounded."""
+
+from __future__ import annotations
+
+import torch
+
+from flexflow_tpu_torch.op_attrs.ops.loss_functions import LossAttrs, LossFunction
+
+_CHUNK_ELEMENTS = 1 << 27  # f32 temporaries of at most 512 MB
+
+
+def _row_chunks(rows: int, classes: int):
+    step = max(1, _CHUNK_ELEMENTS // classes)
+    for r0 in range(0, rows, step):
+        yield r0, min(rows, r0 + step)
+
+
+class FusedSparseCrossEntropy(torch.autograd.Function):
+    """mean over rows of lse(logit) - logit[label], in f32."""
+
+    @staticmethod
+    def forward(ctx, logit: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+        classes = logit.shape[-1]
+        flat = logit.reshape(-1, classes)
+        lse = torch.empty(flat.shape[0], dtype=torch.float32, device=logit.device)
+        for r0, r1 in _row_chunks(flat.shape[0], classes):
+            lse[r0:r1] = torch.logsumexp(flat[r0:r1].float(), dim=-1)
+        label = label.reshape(-1).long()
+        # gathered from the logits as stored: the picked values are exact in
+        # the storage dtype and the subtraction happens in f32
+        picked = flat.gather(1, label[:, None])[:, 0].float()
+        ctx.save_for_backward(logit, label, lse)
+        return (lse - picked).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        logit, label, lse = ctx.saved_tensors
+        classes = logit.shape[-1]
+        flat = logit.reshape(-1, classes)
+        dlogit = torch.empty_like(flat)
+        scale = (g / lse.numel()).to(logit.dtype)
+        for r0, r1 in _row_chunks(flat.shape[0], classes):
+            p = torch.exp((flat[r0:r1].float() - lse[r0:r1, None]).to(logit.dtype))
+            rows = torch.arange(r1 - r0, device=logit.device)
+            p[rows, label[r0:r1]] -= 1
+            dlogit[r0:r1] = p * scale
+        return dlogit.reshape(logit.shape), None
+
+
+def loss_forward(attrs: LossAttrs, logit: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    """Scalar f32 loss. logit: [batch..., classes]; label: int [batch...]."""
+    if attrs.loss_type == LossFunction.SPARSE_CATEGORICAL_CROSSENTROPY:
+        return FusedSparseCrossEntropy.apply(logit, label)
+    raise NotImplementedError(f"loss {attrs.loss_type} is not ported yet")

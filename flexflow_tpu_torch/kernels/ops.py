@@ -1,0 +1,200 @@
+"""Per-op forward functions on tensors, for the slice's ops (trimmed copy of
+flexflow_tpu/kernels/ops.py). The backward comes from autograd, and through
+FlashAttentionBSHF's hand-written kernels for attention.
+
+Uniform signature:
+    forward(attrs, inputs, weights) -> [outputs]
+inputs/weights: lists of tensors in slot order (roles from
+op_attrs.core.get_incoming_tensor_roles).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from flexflow_tpu_torch.kernels.flash_attention import (
+    flash_attention_bshf,
+    flash_attention_supported,
+)
+from flexflow_tpu_torch.op_attrs.activation import gelu
+from flexflow_tpu_torch.op_attrs.core import OpAttrs
+from flexflow_tpu_torch.op_attrs.ops import (
+    ElementBinaryAttrs,
+    ElementBinaryOpType,
+    ElementUnaryAttrs,
+    ElementUnaryOpType,
+    InputAttrs,
+    LayerNormAttrs,
+    LinearAttrs,
+    MultiHeadAttentionAttrs,
+    WeightAttrs,
+)
+
+_UNARY_FNS = {
+    ElementUnaryOpType.EXP: torch.exp,
+    ElementUnaryOpType.LOG: torch.log,
+    ElementUnaryOpType.SIN: torch.sin,
+    ElementUnaryOpType.COS: torch.cos,
+    ElementUnaryOpType.IDENTITY: lambda x: x,
+    ElementUnaryOpType.RELU: torch.relu,
+    ElementUnaryOpType.SIGMOID: torch.sigmoid,
+    ElementUnaryOpType.TANH: torch.tanh,
+    ElementUnaryOpType.GELU: gelu,
+    ElementUnaryOpType.ELU: F.elu,
+    ElementUnaryOpType.RSQRT: torch.rsqrt,
+    ElementUnaryOpType.SQRT: torch.sqrt,
+}
+
+_SCALAR_FNS = {
+    ElementUnaryOpType.SCALAR_MULTIPLY: lambda x, c: x * c,
+    ElementUnaryOpType.SCALAR_ADD: lambda x, c: x + c,
+    ElementUnaryOpType.SCALAR_SUB: lambda x, c: x - c,
+    ElementUnaryOpType.SCALAR_TRUE_DIV: lambda x, c: x / c,
+    ElementUnaryOpType.POW: torch.pow,
+}
+
+_BINARY_FNS = {
+    ElementBinaryOpType.ADD: torch.add,
+    ElementBinaryOpType.SUB: torch.sub,
+    ElementBinaryOpType.MUL: torch.mul,
+    ElementBinaryOpType.DIV: torch.div,
+    ElementBinaryOpType.MAX: torch.maximum,
+    ElementBinaryOpType.MIN: torch.minimum,
+    ElementBinaryOpType.POW: torch.pow,
+}
+
+
+def unpack_mha_weights(
+    attrs: MultiHeadAttentionAttrs, qsize: int, ksize: int, vsize: int, weight
+):
+    """Split the flat weight [per_head_params, num_heads] (wq|wk|wv|wo
+    concatenated per head) into wq [q, kd, H], wk [k, kd, H], wv [v, vd, H]
+    and wo [vd, e, H]."""
+    H = attrs.num_heads
+    kd, vd, e = attrs.q_proj_size, attrs.v_proj_size, attrs.embed_dim
+    sizes = [qsize * kd, ksize * kd, vsize * vd, vd * e]
+    offs = [0]
+    for s in sizes:
+        offs.append(offs[-1] + s)
+    wq = weight[offs[0]:offs[1], :].reshape(qsize, kd, H)
+    wk = weight[offs[1]:offs[2], :].reshape(ksize, kd, H)
+    wv = weight[offs[2]:offs[3], :].reshape(vsize, vd, H)
+    wo = weight[offs[3]:offs[4], :].reshape(vd, e, H)
+    return wq, wk, wv, wo
+
+
+def mha_project_qkv(attrs: MultiHeadAttentionAttrs, q, k, v, weight, input_bias=None):
+    """q/k/v projections -> per-head tensors [b, h, s, d] plus wo."""
+    wq, wk, wv, wo = unpack_mha_weights(attrs, q.shape[-1], k.shape[-1], v.shape[-1], weight)
+    qp = torch.einsum("bsq,qkh->bhsk", q, wq)
+    kp = torch.einsum("btq,qkh->bhtk", k, wk)
+    vp = torch.einsum("btq,qvh->bhtv", v, wv)
+    if input_bias is not None:
+        kd = attrs.q_proj_size
+        qp = qp + input_bias[:kd]
+        kp = kp + input_bias[kd:2 * kd]
+        vp = vp + input_bias[2 * kd:]
+    return qp, kp, vp, wo
+
+
+def _bshf_weights(attrs: MultiHeadAttentionAttrs, qsize, ksize, vsize, weight):
+    """Per-projection weights [e, h*d] with head-major columns, plus wo as
+    [h*v, e]: the lane order the bshf flash kernels index into."""
+    wq, wk, wv, wo = unpack_mha_weights(attrs, qsize, ksize, vsize, weight)
+    H = attrs.num_heads
+    kd, vd, e = attrs.q_proj_size, attrs.v_proj_size, attrs.embed_dim
+    wq2 = wq.transpose(1, 2).reshape(qsize, H * kd)
+    wk2 = wk.transpose(1, 2).reshape(ksize, H * kd)
+    wv2 = wv.transpose(1, 2).reshape(vsize, H * vd)
+    wo2 = wo.permute(2, 0, 1).reshape(H * vd, e)
+    return wq2, wk2, wv2, wo2
+
+
+def mha_project_qkv_bshf(attrs: MultiHeadAttentionAttrs, q, k, v, weight, input_bias=None):
+    """q/k/v projections -> seq-major fused-head tensors [b, s, h*d] plus wo
+    as [h*v, e]: every projection is one plain matmul whose output is the
+    flash kernels' operand layout."""
+    wq2, wk2, wv2, wo2 = _bshf_weights(attrs, q.shape[-1], k.shape[-1], v.shape[-1], weight)
+    H, kd = attrs.num_heads, attrs.q_proj_size
+    qp, kp, vp = q @ wq2, k @ wk2, v @ wv2
+    if input_bias is not None:
+        qp = qp + input_bias[:kd].repeat(H)
+        kp = kp + input_bias[kd:2 * kd].repeat(H)
+        vp = vp + input_bias[2 * kd:].repeat(H)
+    return qp, kp, vp, wo2
+
+
+def dense_attention(attrs: MultiHeadAttentionAttrs, q, k, v, weight, input_bias=None,
+                    causal=False):
+    """Attention through the per-head projections and a materialized [s, t]
+    softmax, in the operands' dtype."""
+    qp, kp, vp, wo = mha_project_qkv(attrs, q, k, v, weight, input_bias)
+    scores = torch.einsum("bhsk,bhtk->bhst", qp, kp) / math.sqrt(attrs.q_proj_size)
+    if causal:
+        s, t = scores.shape[-2:]
+        mask = torch.ones(s, t, dtype=torch.bool, device=scores.device).tril()
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    ctx = torch.einsum("bhst,bhtv->bhsv", torch.softmax(scores, dim=-1), vp)
+    return torch.einsum("bhsv,veh->bse", ctx, wo)
+
+
+def _mha_forward(attrs: MultiHeadAttentionAttrs, q, k, v, weight, input_bias=None,
+                 causal=False):
+    """Self-attention-shaped operands the kernels take ride the seq-major
+    flash path; everything else takes the dense path."""
+    kd, vd, H = attrs.q_proj_size, attrs.v_proj_size, attrs.num_heads
+    proj_shape = (q.shape[0], q.shape[1], H * kd)
+    if (
+        kd == vd
+        and q.shape == k.shape == v.shape
+        and flash_attention_supported(proj_shape, H, q.dtype, q.device)
+    ):
+        qp, kp, vp, wo2 = mha_project_qkv_bshf(attrs, q, k, v, weight, input_bias)
+        return flash_attention_bshf(qp, kp, vp, H, causal) @ wo2
+    return dense_attention(attrs, q, k, v, weight, input_bias, causal)
+
+
+def _layer_norm(attrs: LayerNormAttrs, x, weights):
+    axes = tuple(attrs.axes)
+    gamma, beta = (weights[0], weights[1]) if attrs.elementwise_affine else (None, None)
+    if axes == tuple(range(x.ndim - len(axes), x.ndim)):
+        return F.layer_norm(x, x.shape[x.ndim - len(axes):], gamma, beta, attrs.eps)
+    mean = x.mean(dim=axes, keepdim=True)
+    var = x.var(dim=axes, keepdim=True, unbiased=False)
+    out = (x - mean) * torch.rsqrt(var + attrs.eps)
+    if attrs.elementwise_affine:
+        bshape = tuple(x.shape[i] if i in axes else 1 for i in range(x.ndim))
+        out = out * gamma.reshape(bshape) + beta.reshape(bshape)
+    return out
+
+
+def forward(attrs: OpAttrs, inputs: Sequence[torch.Tensor],
+            weights: Sequence[torch.Tensor] = ()) -> List[torch.Tensor]:
+    inputs, weights = list(inputs), list(weights)
+    if isinstance(attrs, (InputAttrs, WeightAttrs)):
+        raise ValueError("input/weight nodes have no kernel; bind their values")
+    if isinstance(attrs, ElementUnaryAttrs):
+        if attrs.op_type in _SCALAR_FNS:
+            return [_SCALAR_FNS[attrs.op_type](inputs[0], attrs.scalar)]
+        return [_UNARY_FNS[attrs.op_type](inputs[0])]
+    if isinstance(attrs, ElementBinaryAttrs):
+        return [_BINARY_FNS[attrs.op_type](inputs[0], inputs[1])]
+    if isinstance(attrs, LinearAttrs):
+        out = inputs[0] @ weights[0]
+        if attrs.use_bias:
+            out = out + weights[1]
+        return [attrs.activation.apply(out) if attrs.activation else out]
+    if isinstance(attrs, LayerNormAttrs):
+        return [_layer_norm(attrs, inputs[0], weights)]
+    if isinstance(attrs, MultiHeadAttentionAttrs):
+        q, k, v = inputs
+        input_bias = weights[1] if attrs.bias else None
+        out = _mha_forward(attrs, q, k, v, weights[0], input_bias)
+        if attrs.bias:
+            out = out + weights[2]
+        return [out]
+    raise TypeError(f"no kernel for {type(attrs).__name__}")

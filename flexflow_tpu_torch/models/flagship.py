@@ -1,0 +1,43 @@
+"""The flagship transformer: a copy of `build_flagship_cg` and
+`_model_step_flops` from the repository's bench.py (12 layers, hidden 1024,
+8 heads of 128, seq 512, vocab 32000, batch 64).
+
+The attention has no bias (the builder's default is bias=False); the FFN is
+bias-free with GELU, and every block ends in a post-LayerNorm.
+"""
+
+from __future__ import annotations
+
+from flexflow_tpu_torch.pcg import ComputationGraphBuilder
+
+FLAGSHIP = dict(batch=64, seq=512, embed=1024, heads=8, layers=12, vocab=32000)
+
+
+def build_flagship_cg(
+    batch=64, seq=512, embed=1024, heads=8, layers=12, vocab=32000
+):
+    b = ComputationGraphBuilder()
+    x = b.create_input([batch, seq, embed], name="x")
+    h = x
+    for i in range(layers):
+        attn = b.multihead_attention(h, h, h, embed, heads, name=f"attn{i}")
+        h = b.add(h, attn)
+        h = b.layer_norm(h, axes=[-1], name=f"ln1_{i}")
+        ff = b.dense(h, 4 * embed, use_bias=False, name=f"ff1_{i}")
+        ff = b.gelu(ff)
+        ff = b.dense(ff, embed, use_bias=False, name=f"ff2_{i}")
+        h = b.add(h, ff)
+        h = b.layer_norm(h, axes=[-1], name=f"ln2_{i}")
+    logits = b.dense(h, vocab, use_bias=False, name="head")
+    return b.graph, logits
+
+
+def model_step_flops(batch, seq, embed, heads, layers, vocab) -> int:
+    """Matmul FLOPs of one training step (forward + backward = 3x forward)."""
+    d_ff = 4 * embed
+    per_layer = (
+        2 * batch * seq * embed * embed * 4
+        + 2 * batch * heads * seq * seq * (embed // heads) * 2
+        + 2 * batch * seq * embed * d_ff * 2
+    )
+    return 3 * (layers * per_layer + 2 * batch * seq * embed * vocab)

@@ -1,0 +1,28 @@
+"""Input / Weight ops (copy of flexflow_tpu/op_attrs/ops/io.py)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
+
+
+@dataclass(frozen=True)
+class InputAttrs:
+    """A graph input; carries its own shape."""
+
+    shape: TensorShape
+
+    def output_shape(self) -> TensorShape:
+        return self.shape
+
+
+@dataclass(frozen=True)
+class WeightAttrs:
+    """A trainable weight; carries its own shape (its initializer lives on
+    the tensor attrs of the graph)."""
+
+    shape: TensorShape
+
+    def output_shape(self) -> TensorShape:
+        return self.shape

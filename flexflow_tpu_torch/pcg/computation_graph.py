@@ -1,0 +1,44 @@
+"""ComputationGraph: a labelled dataflow graph of operators (copy of
+flexflow_tpu/pcg/computation_graph.py)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+from flexflow_tpu_torch.op_attrs.core import OpAttrs
+from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
+from flexflow_tpu_torch.utils.graph import DataflowGraph, DataflowOutput, Node
+
+
+@dataclass(frozen=True)
+class LayerAttrs:
+    """Node label: op attrs plus an optional user-facing name."""
+
+    attrs: OpAttrs
+    name: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class TensorAttrs:
+    """Value label."""
+
+    shape: TensorShape
+    create_grad: bool = True
+    initializer: Optional[object] = None  # InitializerAttrs, for weights
+
+
+class ComputationGraph(DataflowGraph):
+    """DataflowGraph[LayerAttrs, TensorAttrs] with CG-specific queries."""
+
+    def layer_attrs(self, n: Node) -> LayerAttrs:
+        return self.node_label(n)
+
+    def op_attrs(self, n: Node) -> OpAttrs:
+        return self.node_label(n).attrs
+
+    def tensor_attrs(self, v: DataflowOutput) -> TensorAttrs:
+        return self.value_label(v)
+
+    def tensor_shape(self, v: DataflowOutput) -> TensorShape:
+        return self.value_label(v).shape

@@ -1,0 +1,179 @@
+"""Eager ComputationGraph builder with automatic weight creation (trimmed
+copy of flexflow_tpu/pcg/computation_graph_builder.py).
+
+Covers create_input, create_weight, dense, multihead_attention, add, gelu
+and layer_norm. Each op creates its weight nodes first and then the op
+node, in the JAX builder's order, so that parameter keys `n{idx}` name the
+same weights in both packages.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+from flexflow_tpu_torch.op_attrs.activation import Activation
+from flexflow_tpu_torch.op_attrs.core import (
+    OpAttrs,
+    get_default_weight_initializers,
+    get_output_shapes,
+    get_weight_shapes,
+)
+from flexflow_tpu_torch.op_attrs.datatype import DataType
+from flexflow_tpu_torch.op_attrs.ops import (
+    ElementBinaryAttrs,
+    ElementBinaryOpType,
+    ElementUnaryAttrs,
+    ElementUnaryOpType,
+    InputAttrs,
+    LayerNormAttrs,
+    LinearAttrs,
+    MultiHeadAttentionAttrs,
+    WeightAttrs,
+)
+from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
+from flexflow_tpu_torch.pcg.computation_graph import (
+    ComputationGraph,
+    LayerAttrs,
+    TensorAttrs,
+)
+from flexflow_tpu_torch.pcg.initializer import (
+    GlorotUniformAttrs,
+    InitializerAttrs,
+    ZeroInitializerAttrs,
+)
+from flexflow_tpu_torch.utils.graph import DataflowOutput
+
+Tensor = DataflowOutput
+
+
+class ComputationGraphBuilder:
+    def __init__(self) -> None:
+        self.graph = ComputationGraph()
+
+    def add_layer(
+        self,
+        attrs: OpAttrs,
+        inputs: Sequence[Tensor],
+        weight_initializers: Sequence[Optional[InitializerAttrs]] = (),
+        name: Optional[str] = None,
+    ) -> List[Tensor]:
+        """Create weight nodes for the op (if any), then the op node."""
+        input_shapes = [self.graph.tensor_shape(t) for t in inputs]
+        weight_shapes = get_weight_shapes(attrs, input_shapes)
+        op_defaults = get_default_weight_initializers(attrs, len(weight_shapes))
+        weight_tensors: List[Tensor] = []
+        for i, ws in enumerate(weight_shapes):
+            init = (
+                weight_initializers[i]
+                if i < len(weight_initializers) and weight_initializers[i] is not None
+                else op_defaults[i]
+                or (GlorotUniformAttrs() if len(ws.dims) > 1 else ZeroInitializerAttrs())
+            )
+            wname = f"{name}.weight{i}" if name else None
+            _, (w,) = self.graph.add_node(
+                LayerAttrs(WeightAttrs(ws), wname),
+                [],
+                [TensorAttrs(ws, create_grad=True, initializer=init)],
+            )
+            weight_tensors.append(w)
+        out_shapes = get_output_shapes(attrs, input_shapes)
+        _, outs = self.graph.add_node(
+            LayerAttrs(attrs, name),
+            list(inputs) + weight_tensors,
+            [TensorAttrs(s) for s in out_shapes],
+        )
+        return outs
+
+    def create_input(
+        self,
+        dims: Sequence[int],
+        dtype: DataType = DataType.FLOAT,
+        name: Optional[str] = None,
+    ) -> Tensor:
+        shape = TensorShape(tuple(dims), dtype)
+        _, (t,) = self.graph.add_node(
+            LayerAttrs(InputAttrs(shape), name),
+            [],
+            [TensorAttrs(shape, create_grad=False)],
+        )
+        return t
+
+    def create_weight(
+        self,
+        dims: Sequence[int],
+        dtype: DataType = DataType.FLOAT,
+        initializer: Optional[InitializerAttrs] = None,
+        name: Optional[str] = None,
+    ) -> Tensor:
+        shape = TensorShape(tuple(dims), dtype)
+        _, (t,) = self.graph.add_node(
+            LayerAttrs(WeightAttrs(shape), name),
+            [],
+            [TensorAttrs(shape, create_grad=True, initializer=initializer or GlorotUniformAttrs())],
+        )
+        return t
+
+    def dense(
+        self,
+        input: Tensor,
+        out_channels: int,
+        activation: Optional[Activation] = None,
+        use_bias: bool = True,
+        dtype: Optional[DataType] = None,
+        kernel_initializer: Optional[InitializerAttrs] = None,
+        bias_initializer: Optional[InitializerAttrs] = None,
+        name: Optional[str] = None,
+    ) -> Tensor:
+        attrs = LinearAttrs(
+            out_channels=out_channels,
+            use_bias=use_bias,
+            dtype=dtype or self.graph.tensor_shape(input).dtype,
+            activation=activation,
+        )
+        (out,) = self.add_layer(
+            attrs, [input], [kernel_initializer, bias_initializer], name
+        )
+        return out
+
+    def multihead_attention(
+        self,
+        query: Tensor,
+        key: Tensor,
+        value: Tensor,
+        embed_dim: int,
+        num_heads: int,
+        kdim: int = 0,
+        vdim: int = 0,
+        dropout: float = 0.0,
+        bias: bool = False,
+        add_bias_kv: bool = False,
+        add_zero_attn: bool = False,
+        initializer: Optional[InitializerAttrs] = None,
+        name: Optional[str] = None,
+    ) -> Tensor:
+        attrs = MultiHeadAttentionAttrs(
+            embed_dim, num_heads, kdim, vdim, dropout, bias, add_bias_kv, add_zero_attn
+        )
+        (out,) = self.add_layer(attrs, [query, key, value], [initializer], name)
+        return out
+
+    def layer_norm(
+        self,
+        input: Tensor,
+        axes: Sequence[int],
+        elementwise_affine: bool = True,
+        eps: float = 1e-5,
+        name: Optional[str] = None,
+    ) -> Tensor:
+        nd = self.graph.tensor_shape(input).num_dims
+        attrs = LayerNormAttrs(tuple(a % nd for a in axes), elementwise_affine, eps)
+        (out,) = self.add_layer(attrs, [input], [], name)
+        return out
+
+    def gelu(self, x: Tensor, name: Optional[str] = None) -> Tensor:
+        (out,) = self.add_layer(ElementUnaryAttrs(ElementUnaryOpType.GELU), [x], [], name)
+        return out
+
+    def add(self, a: Tensor, b: Tensor, name: Optional[str] = None) -> Tensor:
+        (out,) = self.add_layer(ElementBinaryAttrs(ElementBinaryOpType.ADD), [a, b], [], name)
+        return out

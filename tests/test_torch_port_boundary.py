@@ -1,0 +1,103 @@
+"""The PyTorch port stands alone: it imports nothing of jax or of the JAX
+package, and its entry points run on CUDA unless told otherwise."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+from flexflow_tpu_torch.kernels import flash_attention as tfa
+from flexflow_tpu_torch.local_execution import ModelTrainingInstance, resolve_device
+from flexflow_tpu_torch.models import build_flagship_cg
+from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
+from flexflow_tpu_torch.pcg import AdamOptimizerAttrs
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flexflow_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_port_runs_a_step_with_jax_and_the_jax_package_refused():
+    script = textwrap.dedent(
+        """
+        import sys
+        import importlib.abc
+
+        class Refuse(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if any(name == f or name.startswith(f + ".") for f in %r):
+                    raise ImportError(f"refused import of {name}")
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        import numpy as np
+        from flexflow_tpu_torch.local_execution import ModelTrainingInstance
+        from flexflow_tpu_torch.models import build_flagship_cg
+        from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
+        from flexflow_tpu_torch.pcg import AdamOptimizerAttrs
+        import flexflow_tpu_torch.interop  # noqa: F401
+
+        graph, logits = build_flagship_cg(batch=2, seq=64, embed=256, heads=2, layers=1, vocab=64)
+        inst = ModelTrainingInstance(graph, logits, SparseCategoricalCrossEntropyLossAttrs(),
+                                     AdamOptimizerAttrs(alpha=1e-3), device="cpu")
+        params, opt = inst.initialize(seed=0)
+        rs = np.random.RandomState(0)
+        x = rs.randn(2, 64, 256).astype(np.float32)
+        y = rs.randint(0, 64, (2, 64))
+        _, _, loss, _ = inst.train_step(params, opt, {"x": x}, y)
+        assert np.isfinite(float(loss))
+        assert not any(m == "jax" or m.startswith(("jax.", "flexflow_tpu."))
+                       or m == "flexflow_tpu" for m in sys.modules)
+        print("ok", float(loss))
+        """ % (FORBIDDEN,)
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_sources_import_nothing_of_jax_or_the_jax_package():
+    files = sorted((REPO / "flexflow_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f) if _forbidden(m)]
+    assert bad == []
+
+
+def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    graph, logits = build_flagship_cg(batch=2, seq=64, embed=256, heads=2, layers=1, vocab=64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ModelTrainingInstance(graph, logits, SparseCategoricalCrossEntropyLossAttrs(),
+                              AdamOptimizerAttrs(alpha=1e-3))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_wrappers_raise_off_the_cpu_instead_of_falling_back():
+    q = torch.empty(1, 64, 128, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        tfa.flash_fwd(q, q, q, 1)
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        tfa.flash_delta(q, q, 1)

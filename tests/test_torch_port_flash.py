@@ -1,0 +1,141 @@
+"""Flash-attention kernel module of the PyTorch port against the JAX
+package's Pallas kernels run in interpret mode, on the same numpy inputs.
+
+The port's wrappers run their plain PyTorch versions on CPU tensors; the
+CUDA kernels themselves are held against those plain versions on the card
+by chip_smoke.py. Tolerances are the JAX package's own bounds for these
+kernels (tests/test_flash_attention.py): atol 1e-5 for o, lse and delta,
+2e-4 for the gradients."""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flexflow_tpu.kernels import flash_attention as jfa
+from flexflow_tpu_torch.kernels import build
+from flexflow_tpu_torch.kernels import flash_attention as tfa
+
+B, H, S, D = 2, 2, 256, 128
+LN2 = math.log(2.0)
+
+
+def _inputs(seed):
+    rs = np.random.RandomState(seed)
+    return [rs.randn(B, S, H * D).astype(np.float32) for _ in range(4)]
+
+
+def _jax_fwd(q, k, v, causal):
+    o, lse2 = jfa._fwd_bshf(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), H, causal, S, S, interpret=True
+    )
+    # base-2 [b, h, 1, s] -> natural log [b, h, s]
+    return np.array(o), np.array(lse2)[:, :, 0, :] * LN2, (o, lse2)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_forward_matches_pallas(causal):
+    q, k, v, _ = _inputs(0)
+    o_ref, lse_ref, _ = _jax_fwd(q, k, v, causal)
+    o, lse = tfa.flash_fwd_plain(*map(torch.from_numpy, (q, k, v)), H, causal)
+    np.testing.assert_allclose(o.numpy(), o_ref, atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), lse_ref, atol=1e-5)
+
+
+def test_delta_matches_pallas():
+    q, k, v, do = _inputs(1)
+    o = _jax_fwd(q, k, v, False)[0]
+    ref = jfa._delta_bshf(jnp.asarray(do), jnp.asarray(o), B, S, H, D, interpret=True)
+    got = tfa.flash_delta_plain(torch.from_numpy(do), torch.from_numpy(o), H)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref)[:, :, 0, :], atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_matches_pallas(causal):
+    q, k, v, do = _inputs(2)
+    o, lse_nat, (o_j, lse2_j) = _jax_fwd(q, k, v, causal)
+    ref = jfa._bwd_bshf_fused(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), o_j, lse2_j, jnp.asarray(do),
+        H, causal, interpret=True,
+    )
+    tq, tk, tv, tdo, to = map(torch.from_numpy, (q, k, v, do, o))
+    delta = tfa.flash_delta_plain(tdo, to, H)
+    got = tfa.flash_bwd_plain(tq, tk, tv, tdo, torch.from_numpy(lse_nat), delta, H, causal)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-4)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_autograd_gradients_match_jax_grad(causal):
+    q, k, v, w = _inputs(3)
+
+    def jloss(q, k, v):
+        o = jfa.flash_attention_bshf(q, k, v, H, causal=causal, interpret=True)
+        return jnp.sum(o * jnp.asarray(w))
+
+    ref = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    o = tfa.flash_attention_bshf(tq, tk, tv, H, causal)
+    (o * torch.from_numpy(w)).sum().backward()
+    for t, r in zip((tq, tk, tv), ref):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), atol=2e-4)
+
+
+def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
+    q, k, v, do = map(torch.from_numpy, _inputs(4))
+    before = [fn.launches for fn in tfa.KERNEL_WRAPPERS]
+    o, lse = tfa.flash_fwd(q, k, v, H, True)
+    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, H, True)
+    assert torch.equal(o, o_p) and torch.equal(lse, lse_p)
+    delta = tfa.flash_delta(do, o, H)
+    assert torch.equal(delta, tfa.flash_delta_plain(do, o, H))
+    for a, b in zip(tfa.flash_bwd(q, k, v, do, lse, delta, H, True),
+                    tfa.flash_bwd_plain(q, k, v, do, lse, delta, H, True)):
+        assert torch.equal(a, b)
+    assert [fn.launches for fn in tfa.KERNEL_WRAPPERS] == before
+
+
+@pytest.mark.parametrize(
+    "shape,heads,dtype,device,ok",
+    [
+        ((2, 512, 1024), 8, torch.bfloat16, "cuda", True),
+        ((2, 512, 1024), 8, torch.float32, "cuda", False),  # kernels take bf16
+        ((2, 512, 1024), 16, torch.bfloat16, "cuda", False),  # d=64
+        ((2, 100, 256), 2, torch.bfloat16, "cuda", False),  # s not a tile multiple
+        ((2, 512, 1024), 8, torch.float32, "cpu", True),  # plain versions
+    ],
+)
+def test_flash_gate_follows_the_kernels(shape, heads, dtype, device, ok):
+    assert tfa.flash_attention_supported(shape, heads, dtype, device) is ok
+
+
+def test_gate_constants_match_the_cuda_source():
+    src = (build.CSRC_DIR / "flash_attention.cu").read_text()
+    assert f"constexpr int D = {tfa.HEAD_DIM};" in src
+    assert f"constexpr int BM = {tfa.TILE};" in src
+    assert f"constexpr int BN = {tfa.TILE};" in src
+
+
+def test_library_name_tracks_source_and_flags():
+    path = build.library_path("flash_attention.cu")
+    assert path.parent == build.BUILD_DIR
+    assert path.name.startswith("libflash_attention_") and path.suffix == ".so"
+    assert build.library_path("flash_attention.cu") == path  # stable
+
+
+def test_ptxas_report_parses_per_kernel():
+    log = (
+        "ptxas info    : Compiling entry function 'ff_flash_fwd_kernel' for 'sm_90a'\n"
+        "ptxas info    : Function properties for ff_flash_fwd_kernel\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers, 400 bytes cmem[0]\n"
+    )
+    assert build.parse_ptxas(log) == {
+        "ff_flash_fwd_kernel": {
+            "stack_bytes": 0, "spill_store_bytes": 8, "spill_load_bytes": 4,
+            "registers": 168, "static_smem_bytes": 0,
+        }
+    }
