@@ -5,20 +5,28 @@
 
 Phases, each printing one JSON line:
 
-1. device   the card's name and power limit (nvidia-smi) and the versions;
-2. build    nvcc builds every kernel from the checkout's sources; build
-            time and each kernel's registers, shared memory and spills;
-3. kernels  at the flagship shapes in bf16 (and a small causal case), each
-            kernel against its plain PyTorch version on the same inputs,
-            and timed beside its plain version, its bound and one PyTorch
-            call that computes the same function (never used by the port);
-4. parity   a small flagship trained two steps on the card (bf16, through
-            the kernels) and on the CPU (f32, plain versions) from the same
-            parameters: the losses must agree;
-5. train    the full-width flagship (12 layers, hidden 1024, 8 heads of 128,
-            seq 512, vocab 32000, batch 64), bf16 compute, Adam(1e-4):
-            one warm-up step, then five timed steps with every launch count
-            set to 0 just before and read just after.
+1. device         the card's name and power limit (nvidia-smi) and the
+                  versions;
+2. build          nvcc builds every kernel from the checkout's sources; build
+                  time and each kernel's registers, shared memory and spills;
+3. kernels        each kernel against its plain PyTorch version on the same
+                  bf16 inputs, and timed beside its plain version, its bound
+                  and one PyTorch call that computes the same function (never
+                  used by the port): the d=128 kernels at the flagship's
+                  attention (b=64, h=8, s=512) and at the seq-2048 flagship's
+                  (b=16, h=8, s=2048), the d=64 kernels at the 16-head
+                  config's (b=64, h=16, s=512) on the interleaved-QKV and on
+                  separate operands, plus small causal cases;
+4. parity         two small flagships (heads of 128, and heads of 64) trained
+                  two steps on the card (bf16, through the kernels) and on
+                  the CPU (f32, plain versions) from the same parameters: the
+                  losses must agree;
+5. train          the full-width flagship (12 layers, hidden 1024, 8 heads of
+                  128, seq 512, vocab 32000, batch 64), bf16 compute,
+                  Adam(1e-4): one warm-up step, then five timed steps with
+                  every launch count set to 0 just before and read just after;
+6. train_heads16  the same for the 16-head config (16 heads of 64), whose
+                  attention runs the d=64 kernels on the fused projection.
 
 Then the kernel table as one {"kernels": [...]} line, and last the line
 {"ok": true, "device": {...}}. Any failed check raises and the script exits
@@ -47,6 +55,10 @@ REL_BOUND = 2e-2  # o, dq, dk, dv: the JAX package's own bf16 backward bound
 LSE_BOUND = 1e-3  # max abs, f32 from the same bf16 inputs
 DELTA_BOUND = 1e-4  # norm-relative, exact bf16 products summed in f32
 PARITY_BOUND = 1e-2  # relative loss difference, bf16 card vs f32 CPU
+STEPS = 5  # timed steps of each train phase
+
+SOURCE = "flexflow_tpu_torch/csrc/flash_attention.cu"
+TPU_KERNELS = "flexflow_tpu/kernels/flash_attention.py"
 
 
 def emit(obj) -> None:
@@ -91,17 +103,16 @@ def phase_build() -> None:
     infos = build.build()
     seconds = time.perf_counter() - start
     lib = fa.library()
+    names = ("ff_flash_fwd_kernel", "ff_flash_bwd_dkv_kernel", "ff_flash_bwd_dq_kernel",
+             "ff_flash_fwd_d64_kernel", "ff_flash_bwd_dkv_d64_kernel",
+             "ff_flash_bwd_dq_d64_kernel")
     emit({
         "phase": "build", "seconds": seconds,
         "sources": {
             src: {"nvcc_seconds": info.seconds, "kernels": build.parse_ptxas(info.ptxas_log)}
             for src, info in infos.items()
         },
-        "dynamic_smem_bytes": {
-            "ff_flash_fwd_kernel": lib.ff_flash_smem_bytes(0),
-            "ff_flash_bwd_dkv_kernel": lib.ff_flash_smem_bytes(1),
-            "ff_flash_bwd_dq_kernel": lib.ff_flash_smem_bytes(2),
-        },
+        "dynamic_smem_bytes": {name: lib.ff_flash_smem_bytes(i) for i, name in enumerate(names)},
     })
 
 
@@ -136,22 +147,75 @@ def _check(name: str, errs: dict, key: str, bound: float) -> dict:
     return errs
 
 
-def _compare(b: int, h: int, s: int, causal: bool, seed: int):
+class Flash:
+    """One kernel family at one layout: `x` is the tuple of operands, three
+    [b, s, h*d] tensors (d=128, or d=64 separate) or one interleaved
+    [b, s, 3*h*64] projection (d=64, qkv); `grads` turns what bwd returns
+    into (dq, dk, dv) either way."""
+
+    def __init__(self, h: int, d: int, interleaved: bool = False):
+        from flexflow_tpu_torch.kernels import flash_attention as fa
+
+        self.fa, self.h, self.d, self.interleaved = fa, h, d, interleaved
+
+    def operands(self, b, s, gen):
+        import torch
+
+        shape = (b, s, 3 * self.h * self.d) if self.interleaved else (b, s, self.h * self.d)
+        n = 1 if self.interleaved else 3
+        return tuple(torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+                     for _ in range(n))
+
+    def _views(self, x):
+        fa = self.fa
+        return fa.qkv_views(x[0]) if self.interleaved else [fa.lane_groups(t) for t in x]
+
+    def fwd(self, x, causal=False):
+        if self.d == 128:
+            return self.fa.flash_fwd(*x, self.h, causal)
+        return self.fa.flash_fwd_d64(*self._views(x), self.h, causal)
+
+    def delta(self, do, o):
+        fn = self.fa.flash_delta if self.d == 128 else self.fa.flash_delta_d64
+        return fn(do, o, self.h)
+
+    def bwd(self, x, do, lse, delta, causal=False):
+        import torch
+
+        if self.d == 128:
+            return self.fa.flash_bwd(*x, do, lse, delta, self.h, causal)
+        out = [torch.empty_like(t) for t in x]
+        self.fa.flash_bwd_d64(*self._views(x), do, lse, delta, *self._views(out), self.h, causal)
+        return out
+
+    def grads(self, out):
+        """(dq, dk, dv) of what bwd or bwd_plain returned."""
+        return self.fa.split_qkv(out[0]) if self.interleaved else out
+
+    def fwd_plain(self, x, causal=False):
+        if self.interleaved:
+            return self.fa.flash_fwd_qkv_plain(x[0], self.h, causal)
+        return self.fa.flash_fwd_plain(*x, self.h, causal)
+
+    def bwd_plain(self, x, do, lse, delta, causal=False):
+        if self.interleaved:
+            return (self.fa.flash_bwd_qkv_plain(x[0], do, lse, delta, self.h, causal),)
+        return self.fa.flash_bwd_plain(*x, do, lse, delta, self.h, causal)
+
+
+def _compare(flash: Flash, b: int, s: int, causal: bool, seed: int):
     """Each kernel against its plain version on the same bf16 inputs."""
     import torch
-    from flexflow_tpu_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, do = (
-        torch.randn(b, s, h * fa.HEAD_DIM, generator=gen, device="cuda").to(torch.bfloat16)
-        for _ in range(4)
-    )
-    o, lse = fa.flash_fwd(q, k, v, h, causal)
-    o_p, lse_p = fa.flash_fwd_plain(q, k, v, h, causal)
-    delta = fa.flash_delta(do, o, h)
-    delta_p = fa.flash_delta_plain(do, o, h)
-    grads = fa.flash_bwd(q, k, v, do, lse, delta, h, causal)
-    grads_p = fa.flash_bwd_plain(q, k, v, do, lse, delta, h, causal)
+    x = flash.operands(b, s, gen)
+    do = torch.randn(b, s, flash.h * flash.d, generator=gen, device="cuda").to(torch.bfloat16)
+    o, lse = flash.fwd(x, causal)
+    o_p, lse_p = flash.fwd_plain(x, causal)
+    delta = flash.delta(do, o)
+    delta_p = flash.fa.flash_delta_plain(do, o, flash.h)
+    grads = flash.grads(flash.bwd(x, do, lse, delta, causal))
+    grads_p = flash.grads(flash.bwd_plain(x, do, lse, delta, causal))
     torch.cuda.synchronize()
     checks = {
         "o": _check("o", _errors(o, o_p), "rel_err", REL_BOUND),
@@ -164,12 +228,12 @@ def _compare(b: int, h: int, s: int, causal: bool, seed: int):
         if not bool(torch.isfinite(t).all()):
             raise AssertionError("kernel output is not finite")
     # no atomics anywhere: a second launch gives the same bits
-    again = (*fa.flash_fwd(q, k, v, h, causal), fa.flash_delta(do, o, h),
-             *fa.flash_bwd(q, k, v, do, lse, delta, h, causal))
+    again = (*flash.fwd(x, causal), flash.delta(do, o),
+             *flash.grads(flash.bwd(x, do, lse, delta, causal)))
     if not all(torch.equal(a, b) for a, b in zip(again, (o, lse, delta, *grads))):
         raise AssertionError("kernels do not repeat bitwise")
     checks["repeat_bitwise"] = True
-    return (q, k, v, do, o, lse, delta), checks
+    return (x, do, o, lse, delta), checks
 
 
 def _bound_ms(nbytes: float, ops: float, peak_ops: float):
@@ -177,65 +241,121 @@ def _bound_ms(nbytes: float, ops: float, peak_ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernels(b=64, h=8, s=512):
-    """Compare and time the kernels at the flagship's attention shapes."""
+def _grad_err(checks) -> float:
+    return max(checks[g]["max_abs_err"] for g in ("dq", "dk", "dv"))
+
+
+def _measure(flash: Flash, b: int, s: int, seed: int = 0, iters: int = 20, plain_iters: int = 3):
+    """Compare, then time each kernel of `flash` beside its plain version,
+    its bound and the library yardstick at (b, h, s, d), non-causal."""
     import torch
     import torch.nn.functional as F
-    from flexflow_tpu_torch.kernels import flash_attention as fa
 
-    d = fa.HEAD_DIM
-    _, causal_checks = _compare(2, 2, 256, causal=True, seed=1)
-    (q, k, v, do, o, lse, delta), checks = _compare(b, h, s, causal=False, seed=0)
-
-    iters, plain_iters = 20, 3
-    fwd_ms = time_ms(lambda: fa.flash_fwd(q, k, v, h), iters)
-    delta_ms = time_ms(lambda: fa.flash_delta(do, o, h), iters)
-    bwd_ms = time_ms(lambda: fa.flash_bwd(q, k, v, do, lse, delta, h), iters)
-    fwd_plain = time_ms(lambda: fa.flash_fwd_plain(q, k, v, h), plain_iters, 1)
-    delta_plain = time_ms(lambda: fa.flash_delta_plain(do, o, h), plain_iters, 1)
-    bwd_plain = time_ms(lambda: fa.flash_bwd_plain(q, k, v, do, lse, delta, h), plain_iters, 1)
-
-    # the library yardstick: one PyTorch call, timed here and never used by the port
-    heads = lambda x: x.view(b, s, h, d).transpose(1, 2)  # noqa: E731
-    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)), iters)
-    ql, kl, vl = (heads(x).detach().requires_grad_(True) for x in (q, k, v))
+    h, d = flash.h, flash.d
+    (x, do, o, lse, delta), checks = _compare(flash, b, s, causal=False, seed=seed)
+    ms = {
+        "fwd": time_ms(lambda: flash.fwd(x), iters),
+        "delta": time_ms(lambda: flash.delta(do, o), iters),
+        "bwd": time_ms(lambda: flash.bwd(x, do, lse, delta), iters),
+        "fwd_plain": time_ms(lambda: flash.fwd_plain(x), plain_iters, 1),
+        "delta_plain": time_ms(lambda: flash.fa.flash_delta_plain(do, o, h), plain_iters, 1),
+        "bwd_plain": time_ms(lambda: flash.bwd_plain(x, do, lse, delta), plain_iters, 1),
+    }
+    # the library yardsticks: one PyTorch call each, timed here and never used by the port
+    q, k, v = flash.fa.split_qkv(x[0]) if flash.interleaved else x
+    heads = lambda t: t.view(b, s, h, d).transpose(1, 2)  # noqa: E731
+    ms["sdpa_fwd"] = time_ms(lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)),
+                             iters)
+    ql, kl, vl = (heads(t).detach().requires_grad_(True) for t in (q, k, v))
     do4 = heads(do)
 
     def sdpa_fwd_bwd():
         F.scaled_dot_product_attention(ql, kl, vl).backward(do4)
 
-    sdpa_fwd_bwd_ms = time_ms(sdpa_fwd_bwd, iters)
+    ms["sdpa_fwd_bwd"] = time_ms(sdpa_fwd_bwd, iters)
+    do_h, o_h = do.view(b, s, h, d), o.view(b, s, h, d)
+    ms["einsum_delta"] = time_ms(lambda: torch.einsum("bshd,bshd->bhs", do_h, o_h), iters)
 
     elems = b * s * h * d  # one [b, s, h*d] operand
     rows = b * h * s  # one lse/delta vector
-    fwd_bound = _bound_ms(4 * elems * 2 + rows * 4, 4 * b * h * s * s * d, PEAK_BF16)
-    delta_bound = _bound_ms(2 * elems * 2 + rows * 4, 2 * elems, PEAK_F32)
-    bwd_bound = _bound_ms(7 * elems * 2 + 2 * rows * 4, 10 * b * h * s * s * d, PEAK_BF16)
-    source = "flexflow_tpu_torch/csrc/flash_attention.cu"
+    bounds = {
+        "fwd": _bound_ms(4 * elems * 2 + rows * 4, 4 * b * h * s * s * d, PEAK_BF16),
+        "delta": _bound_ms(2 * elems * 2 + rows * 4, 2 * elems, PEAK_F32),
+        "bwd": _bound_ms(7 * elems * 2 + 2 * rows * 4, 10 * b * h * s * s * d, PEAK_BF16),
+    }
+    return ms, bounds, checks
+
+
+_OUTPUTS = {"fwd": ("o", "lse"), "delta": ("delta",), "bwd": ("dq", "dk", "dv")}
+
+
+def _numbers(ms, bounds, checks, which, library_ms) -> dict:
+    """One kernel's time, plain time, bound, library time and error."""
+    first = _OUTPUTS[which][0]
+    err = _grad_err(checks) if which == "bwd" else checks[first]["max_abs_err"]
+    return dict(ms=ms[which], plain_ms=ms[f"{which}_plain"], bound_ms=bounds[which][0],
+                bound_by=bounds[which][1], library_ms=library_ms, max_abs_err=err)
+
+
+def _entry(name, replaces, ms, bounds, checks, which, library_ms, library_call, **extra):
+    return dict(name=name, route="cuda", source=SOURCE, replaces=f"{TPU_KERNELS}:{replaces}",
+                **_numbers(ms, bounds, checks, which, library_ms), library_call=library_call,
+                checks={k: checks[k] for k in _OUTPUTS[which]}, **extra)
+
+
+def _side(ms, bounds, checks, which, library_ms, shape):
+    """The numbers of one kernel at a second shape or layout."""
+    return dict(shape=shape, **_numbers(ms, bounds, checks, which, library_ms))
+
+
+def phase_kernels():
+    """Compare and time the kernels at the main paths' attention shapes."""
+    sdpa_f, sdpa_fb = "F.scaled_dot_product_attention forward", \
+        "F.scaled_dot_product_attention forward+backward"
+    einsum = 'torch.einsum("bshd,bshd->bhs", dO, O)'
+    causal = {
+        "d128": _compare(Flash(2, 128), 2, 256, causal=True, seed=1)[1],
+        "d64_separate": _compare(Flash(4, 64), 2, 256, causal=True, seed=2)[1],
+        "d64_qkv": _compare(Flash(4, 64, interleaved=True), 2, 256, causal=True, seed=3)[1],
+    }
+
+    # d=128: the flagship (b=64, h=8, s=512), and the seq-2048 flagship of
+    # bench.py:3431-3435 (b=16, h=8, s=2048), whose backward the JAX package
+    # computes with _bwd_onepass_kernel (rows 4-5 of the kernel table)
+    ms, bounds, checks = _measure(Flash(8, 128), 64, 512)
+    ms2k, bounds2k, checks2k = _measure(Flash(8, 128), 16, 2048, seed=4, iters=10)
+    s2k = dict(b=16, h=8, s=2048, d=128)
     kernels = [
-        dict(name="flash_fwd", route="cuda", source=source,
-             replaces="flexflow_tpu/kernels/flash_attention.py:674",
-             max_abs_err=checks["o"]["max_abs_err"], ms=fwd_ms, plain_ms=fwd_plain,
-             bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=sdpa_fwd,
-             library_call="F.scaled_dot_product_attention forward",
-             checks={k: checks[k] for k in ("o", "lse")}),
-        dict(name="flash_delta", route="cuda", source=source,
-             replaces="flexflow_tpu/kernels/flash_attention.py:1203",
-             max_abs_err=checks["delta"]["max_abs_err"], ms=delta_ms, plain_ms=delta_plain,
-             bound_ms=delta_bound[0], bound_by=delta_bound[1], library_ms=None,
-             checks={"delta": checks["delta"]}),
-        dict(name="flash_bwd", route="cuda", source=source,
-             replaces="flexflow_tpu/kernels/flash_attention.py:976",
-             max_abs_err=max(checks[g]["max_abs_err"] for g in ("dq", "dk", "dv")),
-             ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
-             library_ms=sdpa_fwd_bwd_ms,
-             library_call="F.scaled_dot_product_attention forward+backward",
-             port_fwd_delta_bwd_ms=fwd_ms + delta_ms + bwd_ms,
-             checks={g: checks[g] for g in ("dq", "dk", "dv")}),
+        _entry("flash_fwd", 674, ms, bounds, checks, "fwd", ms["sdpa_fwd"], sdpa_f,
+               seq2048=_side(ms2k, bounds2k, checks2k, "fwd", ms2k["sdpa_fwd"], s2k)),
+        _entry("flash_delta", 1203, ms, bounds, checks, "delta", ms["einsum_delta"], einsum),
+        _entry("flash_bwd", 976, ms, bounds, checks, "bwd", ms["sdpa_fwd_bwd"], sdpa_fb,
+               port_fwd_delta_bwd_ms=ms["fwd"] + ms["delta"] + ms["bwd"],
+               seq2048=dict(_side(ms2k, bounds2k, checks2k, "bwd", ms2k["sdpa_fwd_bwd"], s2k),
+                            replaces=[f"{TPU_KERNELS}:1286", f"{TPU_KERNELS}:324",
+                                      f"{TPU_KERNELS}:375"])),
     ]
-    emit({"phase": "kernels", "shape": {"b": b, "h": h, "s": s, "d": d, "dtype": "bf16"},
-          "repeat_bitwise": checks["repeat_bitwise"],
-          "causal_check": {"shape": {"b": 2, "h": 2, "s": 256}, "checks": causal_checks}})
+
+    # d=64: the 16-head config (b=64, h=16, s=512) on the interleaved-QKV
+    # projection (its main path) and on separate operands
+    ms, bounds, checks = _measure(Flash(16, 64, interleaved=True), 64, 512, seed=5)
+    ms_sep, bounds_sep, checks_sep = _measure(Flash(16, 64), 64, 512, seed=6)
+    sep = dict(b=64, h=16, s=512, d=64, layout="separate q, k, v")
+    kernels += [
+        _entry("flash_fwd_d64", 1032, ms, bounds, checks, "fwd", ms["sdpa_fwd"], sdpa_f,
+               layout="interleaved qkv",
+               separate=_side(ms_sep, bounds_sep, checks_sep, "fwd", ms_sep["sdpa_fwd"], sep)),
+        _entry("flash_delta_d64", 1134, ms, bounds, checks, "delta", ms["einsum_delta"], einsum),
+        _entry("flash_bwd_d64", 1189, ms, bounds, checks, "bwd", ms["sdpa_fwd_bwd"], sdpa_fb,
+               layout="interleaved qkv", port_fwd_delta_bwd_ms=ms["fwd"] + ms["delta"] + ms["bwd"],
+               separate=dict(_side(ms_sep, bounds_sep, checks_sep, "bwd",
+                                   ms_sep["sdpa_fwd_bwd"], sep),
+                             replaces=f"{TPU_KERNELS}:1179")),
+    ]
+    emit({"phase": "kernels",
+          "shapes": {"d128": {"b": 64, "h": 8, "s": 512}, "d128_seq2048": s2k,
+                     "d64": {"b": 64, "h": 16, "s": 512}, "dtype": "bf16"},
+          "repeat_bitwise": True, "causal_checks": {"shape": {"b": 2, "s": 256}, **causal}})
     return kernels
 
 
@@ -255,43 +375,46 @@ def _train(inst, params, opt_state, x, y, steps):
 
 
 def phase_parity():
-    """A small flagship on the card (bf16, kernels) and on the CPU (f32,
-    plain versions) from the same parameters and batch."""
+    """Small flagships on the card (bf16, kernels) and on the CPU (f32,
+    plain versions) from the same parameters and batch: heads of 128, and
+    heads of 64 (the 16-head config's attention)."""
     import torch
     from flexflow_tpu_torch.local_execution import ModelTrainingInstance
     from flexflow_tpu_torch.models import build_flagship_cg
     from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
     from flexflow_tpu_torch.pcg import AdamOptimizerAttrs
 
-    cfg = dict(batch=2, seq=128, embed=256, heads=2, layers=2, vocab=512)
-    graph, logits = build_flagship_cg(**cfg)
-    gen = torch.Generator().manual_seed(1)
-    x = torch.randn(cfg["batch"], cfg["seq"], cfg["embed"], generator=gen)
-    y = torch.randint(0, cfg["vocab"], (cfg["batch"], cfg["seq"]), generator=gen)
-    losses = {}
-    for device, dtype in (("cpu", None), ("cuda", torch.bfloat16)):
-        inst = ModelTrainingInstance(
-            graph, logits, SparseCategoricalCrossEntropyLossAttrs(),
-            AdamOptimizerAttrs(alpha=1e-3), compute_dtype=dtype, device=device,
-        )
-        params, opt_state = inst.initialize(seed=0)
-        losses[device] = _train(inst, params, opt_state, x.to(device), y.to(device), 2)[2]
-    rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
-    if not max(rel) < PARITY_BOUND:
-        raise AssertionError(f"card losses {losses['cuda']} vs CPU {losses['cpu']}")
-    emit({"phase": "parity", "config": cfg, "losses": losses, "rel_err": rel,
-          "bound": PARITY_BOUND})
+    for name, heads in (("d128", 2), ("d64", 4)):
+        cfg = dict(batch=2, seq=128, embed=256, heads=heads, layers=2, vocab=512)
+        graph, logits = build_flagship_cg(**cfg)
+        gen = torch.Generator().manual_seed(1)
+        x = torch.randn(cfg["batch"], cfg["seq"], cfg["embed"], generator=gen)
+        y = torch.randint(0, cfg["vocab"], (cfg["batch"], cfg["seq"]), generator=gen)
+        losses = {}
+        for device, dtype in (("cpu", None), ("cuda", torch.bfloat16)):
+            inst = ModelTrainingInstance(
+                graph, logits, SparseCategoricalCrossEntropyLossAttrs(),
+                AdamOptimizerAttrs(alpha=1e-3), compute_dtype=dtype, device=device,
+            )
+            params, opt_state = inst.initialize(seed=0)
+            losses[device] = _train(inst, params, opt_state, x.to(device), y.to(device), 2)[2]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
+        if not max(rel) < PARITY_BOUND:
+            raise AssertionError(f"{name}: card losses {losses['cuda']} vs CPU {losses['cpu']}")
+        emit({"phase": "parity", "head_dim": 256 // heads, "config": cfg, "losses": losses,
+              "rel_err": rel, "bound": PARITY_BOUND})
 
 
-def phase_train(smi: str, steps: int = 5):
+def phase_train(smi: str, cfg: dict, phase: str, on_path, steps: int = STEPS):
+    """Train `cfg` at full width; the wrappers named in `on_path` must each
+    launch once per layer per step, and every other one never."""
     import torch
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.local_execution import ModelTrainingInstance
-    from flexflow_tpu_torch.models import FLAGSHIP, build_flagship_cg, model_step_flops
+    from flexflow_tpu_torch.models import build_flagship_cg, model_step_flops
     from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
     from flexflow_tpu_torch.pcg import AdamOptimizerAttrs
 
-    cfg = FLAGSHIP
     graph, logits = build_flagship_cg(**cfg)
     inst = ModelTrainingInstance(
         graph, logits, SparseCategoricalCrossEntropyLossAttrs(),
@@ -310,36 +433,42 @@ def phase_train(smi: str, steps: int = 5):
     fa.reset_launch_counts()
     params, opt_state, losses, step_ms = _train(inst, params, opt_state, x, y, steps)
     launches = {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS}
-    want = cfg["layers"] * steps
-    if any(n != want for n in launches.values()):
-        raise AssertionError(f"launches {launches}, expected {want} of each")
+    want = {name: cfg["layers"] * steps if name in on_path else 0 for name in launches}
+    if launches != want:
+        raise AssertionError(f"{phase}: launches {launches}, expected {want}")
 
     median_ms = statistics.median(step_ms)
     flops = model_step_flops(**cfg)
     emit({
-        "phase": "train", "config": cfg, "card": smi, "compute_dtype": "bf16",
+        "phase": phase, "config": cfg, "card": smi, "compute_dtype": "bf16",
         "optimizer": "adam(alpha=1e-4)", "params": sum(p.numel() for p in params.values()),
         "setup_s": setup_s, "warmup_step_ms": warm_ms[0], "warmup_loss": warm_losses[0],
         "losses": losses, "step_ms": step_ms, "median_step_ms": median_ms,
         "tokens_per_s": cfg["batch"] * cfg["seq"] / (median_ms / 1e3),
         "step_flops": flops, "mfu": flops / (median_ms / 1e3) / PEAK_BF16,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-        "launches": launches, "launches_per_step_each": want // steps,
+        "launches": launches, "launches_per_step_each": cfg["layers"],
     })
-    return launches
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return {name: n for name, n in launches.items() if name in on_path}
 
 
 def main() -> None:
     require_card_and_repo()
     import torch
+    from flexflow_tpu_torch.models import FLAGSHIP, REF_HEADS16
 
     smi = phase_device()
     phase_build()
     kernels = phase_kernels()
     phase_parity()
-    launches = phase_train(smi)
+    launches = phase_train(smi, FLAGSHIP, "train", ("flash_fwd", "flash_delta", "flash_bwd"))
+    launches.update(phase_train(smi, REF_HEADS16, "train_heads16",
+                                ("flash_fwd_d64", "flash_delta_d64", "flash_bwd_d64")))
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
+        entry["launches_per_step"] = launches[entry["name"]] // STEPS
     emit({"kernels": kernels, "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,29 +1,52 @@
-// Flash attention on seq-major [b, s, h*d] bf16 tensors for Hopper (sm_90a).
+// Flash attention on seq-major bf16 operands for Hopper (sm_90a), at head
+// dim 128 and at head dim 64.
 //
-// Replaces three Pallas kernels of flexflow_tpu/kernels/flash_attention.py:
-//   ff_flash_fwd_kernel      <- _fwd_kernel_b (via _fwd_bshf), single-k-block
-//                               and online-softmax paths alike
-//   ff_flash_delta_kernel    <- _delta_kernel (via _delta_bshf)
-//   ff_flash_bwd_dkv_kernel  <- _bwd_fused_kernel_b (via _bwd_bshf_fused),
-//   ff_flash_bwd_dq_kernel      split in two
+// Replaces these Pallas kernels of flexflow_tpu/kernels/flash_attention.py:
+//   ff_flash_fwd_kernel          <- _fwd_kernel_b (via _fwd_bshf), single-k-block
+//                                   and online-softmax paths alike
+//   ff_flash_delta_kernel        <- _delta_kernel (via _delta_bshf)
+//   ff_flash_bwd_dkv_kernel      <- _bwd_fused_kernel_b (via _bwd_bshf_fused),
+//   ff_flash_bwd_dq_kernel          split in two; the same pair also computes
+//                                   the tiled backwards of s > block
+//                                   (_bwd_onepass_kernel, _bwd_dq_kernel and
+//                                   _bwd_dkv_kernel via _bwd_bshf_onepass and
+//                                   _bwd_bshf)
+//   ff_flash_fwd_d64_kernel      <- _fwd_kernel_pair (via _fwd_bshf_pair and
+//                                   _fwd_bshf_pair_qkv)
+//   ff_flash_delta_d64_kernel    <- the delta that _bwd_pair_core computes inline
+//   ff_flash_bwd_dkv_d64_kernel  <- _bwd_pair_core (via _bwd_fused_kernel_pair and
+//   ff_flash_bwd_dq_d64_kernel      _bwd_fused_kernel_pair_qkv), split in two
 //
-// What bounds them on an H100 (b=64, h=8, s=512, d=128): the forward and the
-// backward do 4*b*h*s^2*d and 10*b*h*s^2*d flops on ~270 MB and ~470 MB, so
-// at full tensor-core rate they sit near the ridge (forward) and above it
-// (backward); delta is a pure read of dO and O and is bound by bytes.
+// What bounds them on an H100 (b=64, s=512, h*d=1024, at either head dim):
+// the forward and the backward do 4*b*h*s^2*d and 10*b*h*s^2*d flops on
+// ~270 MB and ~470 MB, so at full tensor-core rate they sit near the ridge
+// (forward) and above it (backward); delta is a pure read of dO and O and is
+// bound by bytes.
 //
 // Design. Each block owns one 64-row tile of one (batch, head) and reads its
-// tiles straight from [b, s, h*d] by stride: no transpose anywhere. Four
-// warps each own 16 rows of the tile; products run on the tensor cores
-// through nvcuda::wmma (bf16 in, f32 accumulate), and the softmax runs in
-// f32 on the rows a warp owns, so the only block-wide barriers are around
-// the shared K/V (or Q/dO) tile loads. The TPU kernel holds the whole
-// [s, s] f32 score tile of a (b, h) in VMEM; at s=512 that is 1 MB, far
-// beyond the 227 KB of shared memory a block gets, so the backward is two
-// kernels that both rebuild P from the saved lse: one block per k tile for
-// dK/dV (looping over q tiles) and one block per q tile for dQ (looping over
-// k tiles). No atomics: every output element is written by one block, so
-// results repeat bitwise. lse is kept in natural log.
+// tiles straight from the seq-major operands by stride: no transpose
+// anywhere. Four warps each own 16 rows of the tile; products run on the
+// tensor cores through nvcuda::wmma (bf16 in, f32 accumulate), and the
+// softmax runs in f32 on the rows a warp owns, so the only block-wide
+// barriers are around the shared K/V (or Q/dO) tile loads. The TPU kernel
+// holds the whole [s, s] f32 score tile of a (b, h) in VMEM; at s=512 that
+// is 1 MB, far beyond the 227 KB of shared memory a block gets, so the
+// backward is two kernels that both rebuild P from the saved lse: one block
+// per k tile for dK/dV (looping over q tiles) and one block per q tile for
+// dQ (looping over k tiles). No atomics: every output element is written by
+// one block, so results repeat bitwise. lse is kept in natural log.
+//
+// Operand layout. Every operand is read as rows of 128-lane groups, each
+// group holding 128 / D heads side by side: head h starts at column
+// (h / (128 / D)) * group + (h % (128 / D)) * D of its row, and rows lie ld
+// elements apart (struct Layout). At d=128 the operands are contiguous
+// [b, s, h*128] (ld = h*128, group = 128). At d=64 the same kernel reads
+// either separate q/k/v [b, s, h*64] (ld = h*64, group = 128) or the
+// interleaved projection [b, s, 3*h*64] whose pair-group g holds
+// [q_pair | k_pair | v_pair] in 384 lanes (q, k, v at +0, +128, +256;
+// ld = 3*h*64, group = 384), and the backward writes dq/dk/dv into one dqkv
+// of the same interleave. Every head starts at a multiple of 64 elements,
+// so the 16-byte tile loads stay aligned (the wrappers check it).
 //
 // Each exported C function launches on the given stream and returns
 // cudaGetLastError() (0 on success).
@@ -37,28 +60,38 @@
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
+struct Layout {
+  int ld;     // elements between consecutive rows
+  int group;  // elements between consecutive 128-lane groups of a row
+};
+
 namespace {
 
-constexpr int D = 128;           // head dim
+constexpr int LANES = 128;       // width of a lane group
 constexpr int BM = 64;           // rows of the tile a block owns
 constexpr int BN = 64;           // rows of the tiles it streams
 constexpr int NWARPS = 4;        // each warp owns 16 rows of the tile
 constexpr int NTHREADS = NWARPS * 32;
-constexpr int LDH = D + 8;       // pitch of a bf16 [rows][D] tile
 constexpr int LDS = BN + 4;      // pitch of an f32 [rows][64] tile
 constexpr int LDP = BN + 8;      // pitch of a bf16 [rows][64] tile
-constexpr int LDO = D + 4;       // pitch of the f32 [rows][D] output tile
 constexpr float NEG_INF = -1e30f;
 
-constexpr size_t TILE_H = sizeof(bf16) * BM * LDH;   // 17408 B
 constexpr size_t TILE_S = sizeof(float) * BM * LDS;  // 17408 B
 constexpr size_t TILE_P = sizeof(bf16) * BM * LDP;   // 9216 B
-constexpr size_t TILE_O = sizeof(float) * BM * LDO;  // 33792 B
 constexpr size_t ROWS_F = sizeof(float) * BM;        // 256 B
 
-constexpr size_t FWD_SMEM = 3 * TILE_H + TILE_S + TILE_P + TILE_O + 2 * ROWS_F;
-constexpr size_t DKV_SMEM = 4 * TILE_H + TILE_S + 2 * TILE_P + 2 * ROWS_F;
-constexpr size_t DQ_SMEM = 4 * TILE_H + TILE_S + TILE_P + 2 * ROWS_F;
+// Shared-memory shapes that follow the head dim D.
+template <int D>
+struct Tiles {
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static constexpr int LDH = D + 8;  // pitch of a bf16 [rows][D] tile
+  static constexpr int LDO = D + 4;  // pitch of the f32 [rows][D] output tile
+  static constexpr size_t H = sizeof(bf16) * BM * LDH;   // 17408 B at 128, 9216 B at 64
+  static constexpr size_t O = sizeof(float) * BM * LDO;  // 33792 B at 128, 17408 B at 64
+  static constexpr size_t FWD_SMEM = 3 * H + TILE_S + TILE_P + O + 2 * ROWS_F;
+  static constexpr size_t DKV_SMEM = 4 * H + TILE_S + 2 * TILE_P + 2 * ROWS_F;
+  static constexpr size_t DQ_SMEM = 4 * H + TILE_S + TILE_P + 2 * ROWS_F;
+};
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
@@ -66,13 +99,21 @@ typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
+// Offset of row 0 of head h of batch b in an operand of layout l.
+template <int D>
+__device__ __forceinline__ size_t head_base(const Layout& l, int b, int S, int h) {
+  constexpr int PER = LANES / D;
+  return (size_t)b * S * l.ld + (size_t)(h / PER) * l.group + (h % PER) * D;
+}
+
 // Copy rows [0, 64) x cols [0, D) of a row-major global tile with row
 // stride `ld` into shared memory at pitch LDH, 16 bytes per thread per step.
+template <int D>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int ld) {
   constexpr int CHUNKS = D / 8;
   for (int i = threadIdx.x; i < BM * CHUNKS; i += NTHREADS) {
     const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) =
+    *reinterpret_cast<uint4*>(dst + r * Tiles<D>::LDH + c) =
         *reinterpret_cast<const uint4*>(src + (size_t)r * ld + c);
   }
 }
@@ -84,7 +125,9 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src) {
 
 // out[16 x 64] (f32, pitch LDS) = A[16 x D] * B where B's 64 columns are the
 // rows of X[64 x D]: i.e. A X^T, both operands bf16 at pitch LDH.
+template <int D>
 __device__ __forceinline__ void gemm_abt(float* out, const bf16* a, const bf16* x) {
+  constexpr int LDH = Tiles<D>::LDH;
 #pragma unroll
   for (int j = 0; j < BN / 16; ++j) {
     FragC acc;
@@ -101,9 +144,11 @@ __device__ __forceinline__ void gemm_abt(float* out, const bf16* a, const bf16* 
   }
 }
 
-// acc[j] (16 x D in 8 fragments) += A[16 x 64] (bf16, pitch LDP) * X[64 x D]
-// (bf16, pitch LDH).
+// acc[j] (16 x D in D/16 fragments) += A[16 x 64] (bf16, pitch LDP) *
+// X[64 x D] (bf16, pitch LDH).
+template <int D>
 __device__ __forceinline__ void gemm_acc(FragC (&acc)[D / 16], const bf16* a, const bf16* x) {
+  constexpr int LDH = Tiles<D>::LDH;
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk) {
     FragA fa;
@@ -118,13 +163,14 @@ __device__ __forceinline__ void gemm_acc(FragC (&acc)[D / 16], const bf16* a, co
 }
 
 // Write a warp's 16 x D accumulator rows, times `mul`, as bf16 to global
-// rows `dst` (row stride ld), staging through the warp's own 16 x 64 strip
-// of an f32 tile at pitch LDS.
+// rows `dst` (row stride ld), staging 64 columns at a time through the
+// warp's own 16 x 64 strip of an f32 tile at pitch LDS.
+template <int D>
 __device__ __forceinline__ void store_rows(bf16* dst, int ld, FragC (&acc)[D / 16],
                                            float* stage, float mul) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
+  for (int half = 0; half < D / 64; ++half) {
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       wmma::store_matrix_sync(stage + j * 16, acc[half * 4 + j], LDS, wmma::mem_row_major);
@@ -138,31 +184,33 @@ __device__ __forceinline__ void store_rows(bf16* dst, int ld, FragC (&acc)[D / 1
   }
 }
 
-}  // namespace
-
-// o[b, s, h*D] and lse[b, h, s] (natural log) of softmax(scale * q k^T) v.
+// o and lse[b, h, s] (natural log) of softmax(scale * q k^T) v.
 // Grid (s/BM, h, b); one block per (q tile, head, batch).
-extern "C" __global__ void __launch_bounds__(NTHREADS)
-ff_flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o,
-                    float* __restrict__ lse, int S, int H, int causal, float scale) {
+template <int D>
+__device__ __forceinline__ void fwd_body(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                         const bf16* __restrict__ v, Layout in,
+                                         bf16* __restrict__ o, Layout out,
+                                         float* __restrict__ lse, int S, int H, int causal,
+                                         float scale) {
+  typedef Tiles<D> T;
+  constexpr int LDH = T::LDH, LDO = T::LDO;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = reinterpret_cast<bf16*>(smem + TILE_H);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 2 * TILE_H);
-  float* sS = reinterpret_cast<float*>(smem + 3 * TILE_H);
-  bf16* sP = reinterpret_cast<bf16*>(smem + 3 * TILE_H + TILE_S);
-  float* sO = reinterpret_cast<float*>(smem + 3 * TILE_H + TILE_S + TILE_P);
-  float* sM = reinterpret_cast<float*>(smem + 3 * TILE_H + TILE_S + TILE_P + TILE_O);
+  bf16* sK = reinterpret_cast<bf16*>(smem + T::H);
+  bf16* sV = reinterpret_cast<bf16*>(smem + 2 * T::H);
+  float* sS = reinterpret_cast<float*>(smem + 3 * T::H);
+  bf16* sP = reinterpret_cast<bf16*>(smem + 3 * T::H + TILE_S);
+  float* sO = reinterpret_cast<float*>(smem + 3 * T::H + TILE_S + TILE_P);
+  float* sM = reinterpret_cast<float*>(smem + 3 * T::H + TILE_S + TILE_P + T::O);
   float* sL = sM + BM;
 
   const int q0 = blockIdx.x * BM, hi = blockIdx.y, bi = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = warp * 16;
-  const int ld = H * D;
-  const size_t base = (size_t)bi * S * ld + (size_t)hi * D;
+  const int ld = in.ld;
+  const size_t base = head_base<D>(in, bi, S, hi);
 
-  load_tile(sQ, q + base + (size_t)q0 * ld, ld);
+  load_tile<D>(sQ, q + base + (size_t)q0 * ld, ld);
   for (int i = threadIdx.x; i < BM * LDO; i += NTHREADS) sO[i] = 0.f;
   if (threadIdx.x < BM) {
     sM[threadIdx.x] = NEG_INF;
@@ -173,11 +221,11 @@ ff_flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * BN;
     __syncthreads();  // every warp is done with the previous K/V tiles
-    load_tile(sK, k + base + (size_t)k0 * ld, ld);
-    load_tile(sV, v + base + (size_t)k0 * ld, ld);
+    load_tile<D>(sK, k + base + (size_t)k0 * ld, ld);
+    load_tile<D>(sV, v + base + (size_t)k0 * ld, ld);
     __syncthreads();
 
-    gemm_abt(sS + r0 * LDS, sQ + r0 * LDH, sK);
+    gemm_abt<D>(sS + r0 * LDS, sQ + r0 * LDH, sK);
     __syncwarp();
     // online softmax over this warp's rows; lane owns columns lane, lane+32
     for (int r = r0; r < r0 + 16; ++r) {
@@ -226,28 +274,34 @@ ff_flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncwarp();
   }
 
+  const size_t obase = head_base<D>(out, bi, S, hi);
   for (int r = r0; r < r0 + 16; ++r) {
     const float inv = 1.f / sL[r];
-    bf16* row = o + base + (size_t)(q0 + r) * ld;
+    bf16* row = o + obase + (size_t)(q0 + r) * out.ld;
     for (int c = lane; c < D; c += 32) row[c] = __float2bfloat16(sO[r * LDO + c] * inv);
     if (lane == 0) lse[((size_t)bi * H + hi) * S + q0 + r] = sM[r] + logf(sL[r]);
   }
 }
 
-// delta[b, h, s] = sum_d dO * O in f32, one warp per (b, s, h) row of D values.
-extern "C" __global__ void ff_flash_delta_kernel(const bf16* __restrict__ dout,
-                                                 const bf16* __restrict__ o,
-                                                 float* __restrict__ delta, int B, int S,
-                                                 int H) {
+// delta[b, h, s] = sum_d dO * O in f32, one warp per (b, s, h) row of D
+// values of contiguous [b, s, h*D] operands.
+template <int D>
+__device__ __forceinline__ void delta_body(const bf16* __restrict__ dout,
+                                           const bf16* __restrict__ o,
+                                           float* __restrict__ delta, int B, int S, int H) {
+  constexpr int PAIRS = D / 64;  // bf16 pairs per lane
   const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;  // over (b, s, h)
   const int lane = threadIdx.x % 32;
   if (row >= B * S * H) return;  // uniform across the warp
-  const size_t off = (size_t)row * D + lane * 4;
+  const size_t off = (size_t)row * D + lane * 2 * PAIRS;
   const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(dout + off);
   const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(o + off);
-  const float2 a0 = __bfloat1622float2(a[0]), a1 = __bfloat1622float2(a[1]);
-  const float2 b0 = __bfloat1622float2(b[0]), b1 = __bfloat1622float2(b[1]);
-  float acc = a0.x * b0.x + a0.y * b0.y + a1.x * b1.x + a1.y * b1.y;
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < PAIRS; ++i) {
+    const float2 x = __bfloat1622float2(a[i]), y = __bfloat1622float2(b[i]);
+    acc += x.x * y.x + x.y * y.y;
+  }
 #pragma unroll
   for (int off2 = 16; off2 > 0; off2 >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off2);
   if (lane == 0) {
@@ -258,32 +312,36 @@ extern "C" __global__ void ff_flash_delta_kernel(const bf16* __restrict__ dout,
 
 // dK, dV for one k tile, looping over the q tiles that see it.
 // Grid (s/BN, h, b). Works on transposed scores: ST[k, q] = K Q^T.
-extern "C" __global__ void __launch_bounds__(NTHREADS)
-ff_flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H,
-                        int causal, float scale) {
+template <int D>
+__device__ __forceinline__ void dkv_body(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                         const bf16* __restrict__ v, Layout in,
+                                         const bf16* __restrict__ dout, Layout od,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ delta,
+                                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                         Layout grad, int S, int H, int causal, float scale) {
+  typedef Tiles<D> T;
+  constexpr int LDH = T::LDH;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = reinterpret_cast<bf16*>(smem + TILE_H);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + 2 * TILE_H);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + 3 * TILE_H);
-  float* sS = reinterpret_cast<float*>(smem + 4 * TILE_H);
-  bf16* sP = reinterpret_cast<bf16*>(smem + 4 * TILE_H + TILE_S);
-  bf16* sdS = reinterpret_cast<bf16*>(smem + 4 * TILE_H + TILE_S + TILE_P);
-  float* sLse = reinterpret_cast<float*>(smem + 4 * TILE_H + TILE_S + 2 * TILE_P);
+  bf16* sV = reinterpret_cast<bf16*>(smem + T::H);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + 2 * T::H);
+  bf16* sdO = reinterpret_cast<bf16*>(smem + 3 * T::H);
+  float* sS = reinterpret_cast<float*>(smem + 4 * T::H);
+  bf16* sP = reinterpret_cast<bf16*>(smem + 4 * T::H + TILE_S);
+  bf16* sdS = reinterpret_cast<bf16*>(smem + 4 * T::H + TILE_S + TILE_P);
+  float* sLse = reinterpret_cast<float*>(smem + 4 * T::H + TILE_S + 2 * TILE_P);
   float* sDelta = sLse + BM;
 
   const int k0 = blockIdx.x * BN, hi = blockIdx.y, bi = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = warp * 16;  // this warp's k rows
-  const int ld = H * D;
-  const size_t base = (size_t)bi * S * ld + (size_t)hi * D;
+  const size_t base = head_base<D>(in, bi, S, hi);
+  const size_t obase = head_base<D>(od, bi, S, hi);
   const size_t rows = ((size_t)bi * H + hi) * S;
 
-  load_tile(sK, k + base + (size_t)k0 * ld, ld);
-  load_tile(sV, v + base + (size_t)k0 * ld, ld);
+  load_tile<D>(sK, k + base + (size_t)k0 * in.ld, in.ld);
+  load_tile<D>(sV, v + base + (size_t)k0 * in.ld, in.ld);
   FragC dk_acc[D / 16], dv_acc[D / 16];
 #pragma unroll
   for (int j = 0; j < D / 16; ++j) {
@@ -295,13 +353,13 @@ ff_flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int qt = qt0; qt < S / BM; ++qt) {
     const int q0 = qt * BM;
     __syncthreads();
-    load_tile(sQ, q + base + (size_t)q0 * ld, ld);
-    load_tile(sdO, dout + base + (size_t)q0 * ld, ld);
+    load_tile<D>(sQ, q + base + (size_t)q0 * in.ld, in.ld);
+    load_tile<D>(sdO, dout + obase + (size_t)q0 * od.ld, od.ld);
     load_rows(sLse, lse + rows + q0);
     load_rows(sDelta, delta + rows + q0);
     __syncthreads();
 
-    gemm_abt(sS + r0 * LDS, sK + r0 * LDH, sQ);  // ST = K Q^T
+    gemm_abt<D>(sS + r0 * LDS, sK + r0 * LDH, sQ);  // ST = K Q^T
     __syncwarp();
     for (int r = r0; r < r0 + 16; ++r) {
       for (int c = lane; c < BM; c += 32) {
@@ -311,7 +369,7 @@ ff_flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
     __syncwarp();
-    gemm_abt(sS + r0 * LDS, sV + r0 * LDH, sdO);  // dPT = V dO^T
+    gemm_abt<D>(sS + r0 * LDS, sV + r0 * LDH, sdO);  // dPT = V dO^T
     __syncwarp();
     for (int r = r0; r < r0 + 16; ++r) {
       for (int c = lane; c < BM; c += 32) {
@@ -320,39 +378,44 @@ ff_flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
     __syncwarp();
-    gemm_acc(dv_acc, sP + r0 * LDP, sdO);  // dV += PT dO
-    gemm_acc(dk_acc, sdS + r0 * LDP, sQ);  // dK += dST Q
+    gemm_acc<D>(dv_acc, sP + r0 * LDP, sdO);  // dV += PT dO
+    gemm_acc<D>(dk_acc, sdS + r0 * LDP, sQ);  // dK += dST Q
   }
 
-  store_rows(dk + base + (size_t)(k0 + r0) * ld, ld, dk_acc, sS + r0 * LDS, scale);
-  store_rows(dv + base + (size_t)(k0 + r0) * ld, ld, dv_acc, sS + r0 * LDS, 1.f);
+  const size_t gbase = head_base<D>(grad, bi, S, hi) + (size_t)(k0 + r0) * grad.ld;
+  store_rows<D>(dk + gbase, grad.ld, dk_acc, sS + r0 * LDS, scale);
+  store_rows<D>(dv + gbase, grad.ld, dv_acc, sS + r0 * LDS, 1.f);
 }
 
 // dQ for one q tile, looping over the k tiles it sees. Grid (s/BM, h, b).
-extern "C" __global__ void __launch_bounds__(NTHREADS)
-ff_flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       bf16* __restrict__ dq, int S, int H, int causal, float scale) {
+template <int D>
+__device__ __forceinline__ void dq_body(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                        const bf16* __restrict__ v, Layout in,
+                                        const bf16* __restrict__ dout, Layout od,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ delta,
+                                        bf16* __restrict__ dq, Layout grad, int S, int H,
+                                        int causal, float scale) {
+  typedef Tiles<D> T;
+  constexpr int LDH = T::LDH;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + TILE_H);
-  bf16* sK = reinterpret_cast<bf16*>(smem + 2 * TILE_H);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 3 * TILE_H);
-  float* sS = reinterpret_cast<float*>(smem + 4 * TILE_H);
-  bf16* sP = reinterpret_cast<bf16*>(smem + 4 * TILE_H + TILE_S);
-  float* sLse = reinterpret_cast<float*>(smem + 4 * TILE_H + TILE_S + TILE_P);
+  bf16* sdO = reinterpret_cast<bf16*>(smem + T::H);
+  bf16* sK = reinterpret_cast<bf16*>(smem + 2 * T::H);
+  bf16* sV = reinterpret_cast<bf16*>(smem + 3 * T::H);
+  float* sS = reinterpret_cast<float*>(smem + 4 * T::H);
+  bf16* sP = reinterpret_cast<bf16*>(smem + 4 * T::H + TILE_S);
+  float* sLse = reinterpret_cast<float*>(smem + 4 * T::H + TILE_S + TILE_P);
   float* sDelta = sLse + BM;
 
   const int q0 = blockIdx.x * BM, hi = blockIdx.y, bi = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = warp * 16;  // this warp's q rows
-  const int ld = H * D;
-  const size_t base = (size_t)bi * S * ld + (size_t)hi * D;
+  const size_t base = head_base<D>(in, bi, S, hi);
   const size_t rows = ((size_t)bi * H + hi) * S;
 
-  load_tile(sQ, q + base + (size_t)q0 * ld, ld);
-  load_tile(sdO, dout + base + (size_t)q0 * ld, ld);
+  load_tile<D>(sQ, q + base + (size_t)q0 * in.ld, in.ld);
+  load_tile<D>(sdO, dout + head_base<D>(od, bi, S, hi) + (size_t)q0 * od.ld, od.ld);
   load_rows(sLse, lse + rows + q0);
   load_rows(sDelta, delta + rows + q0);
   FragC dq_acc[D / 16];
@@ -363,11 +426,11 @@ ff_flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * BN;
     __syncthreads();
-    load_tile(sK, k + base + (size_t)k0 * ld, ld);
-    load_tile(sV, v + base + (size_t)k0 * ld, ld);
+    load_tile<D>(sK, k + base + (size_t)k0 * in.ld, in.ld);
+    load_tile<D>(sV, v + base + (size_t)k0 * in.ld, in.ld);
     __syncthreads();
 
-    gemm_abt(sS + r0 * LDS, sQ + r0 * LDH, sK);  // S = Q K^T
+    gemm_abt<D>(sS + r0 * LDS, sQ + r0 * LDH, sK);  // S = Q K^T
     __syncwarp();
     for (int r = r0; r < r0 + 16; ++r) {
       const float l = sLse[r];
@@ -378,7 +441,7 @@ ff_flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
     __syncwarp();
-    gemm_abt(sS + r0 * LDS, sdO + r0 * LDH, sV);  // dP = dO V^T
+    gemm_abt<D>(sS + r0 * LDS, sdO + r0 * LDH, sV);  // dP = dO V^T
     __syncwarp();
     for (int r = r0; r < r0 + 16; ++r) {
       const float dl = sDelta[r];
@@ -388,37 +451,151 @@ ff_flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
     __syncwarp();
-    gemm_acc(dq_acc, sP + r0 * LDP, sK);  // dQ += dS K
+    gemm_acc<D>(dq_acc, sP + r0 * LDP, sK);  // dQ += dS K
   }
 
-  store_rows(dq + base + (size_t)(q0 + r0) * ld, ld, dq_acc, sS + r0 * LDS, scale);
+  const size_t gbase = head_base<D>(grad, bi, S, hi) + (size_t)(q0 + r0) * grad.ld;
+  store_rows<D>(dq + gbase, grad.ld, dq_acc, sS + r0 * LDS, scale);
+}
+
+// The layout of contiguous [b, s, h*D] operands.
+template <int D>
+__host__ __device__ __forceinline__ Layout dense(int H) {
+  return Layout{H * D, LANES};
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// Kernels: head dim 128 on contiguous [b, s, h*128] operands, and head dim
+// 64 on operands of any Layout (the gradients and dout of theirs).
+// ---------------------------------------------------------------------------
+
+extern "C" __global__ void __launch_bounds__(NTHREADS)
+ff_flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o,
+                    float* __restrict__ lse, int S, int H, int causal, float scale) {
+  fwd_body<128>(q, k, v, dense<128>(H), o, dense<128>(H), lse, S, H, causal, scale);
+}
+
+extern "C" __global__ void __launch_bounds__(NTHREADS)
+ff_flash_fwd_d64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, Layout in, bf16* __restrict__ o,
+                        float* __restrict__ lse, int S, int H, int causal, float scale) {
+  fwd_body<64>(q, k, v, in, o, dense<64>(H), lse, S, H, causal, scale);
+}
+
+extern "C" __global__ void ff_flash_delta_kernel(const bf16* __restrict__ dout,
+                                                 const bf16* __restrict__ o,
+                                                 float* __restrict__ delta, int B, int S,
+                                                 int H) {
+  delta_body<128>(dout, o, delta, B, S, H);
+}
+
+extern "C" __global__ void ff_flash_delta_d64_kernel(const bf16* __restrict__ dout,
+                                                     const bf16* __restrict__ o,
+                                                     float* __restrict__ delta, int B, int S,
+                                                     int H) {
+  delta_body<64>(dout, o, delta, B, S, H);
+}
+
+extern "C" __global__ void __launch_bounds__(NTHREADS)
+ff_flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H,
+                        int causal, float scale) {
+  const Layout l = dense<128>(H);
+  dkv_body<128>(q, k, v, l, dout, l, lse, delta, dk, dv, l, S, H, causal, scale);
+}
+
+extern "C" __global__ void __launch_bounds__(NTHREADS)
+ff_flash_bwd_dkv_d64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, Layout in,
+                            const bf16* __restrict__ dout, const float* __restrict__ lse,
+                            const float* __restrict__ delta, bf16* __restrict__ dk,
+                            bf16* __restrict__ dv, Layout grad, int S, int H, int causal,
+                            float scale) {
+  dkv_body<64>(q, k, v, in, dout, dense<64>(H), lse, delta, dk, dv, grad, S, H, causal, scale);
+}
+
+extern "C" __global__ void __launch_bounds__(NTHREADS)
+ff_flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       bf16* __restrict__ dq, int S, int H, int causal, float scale) {
+  const Layout l = dense<128>(H);
+  dq_body<128>(q, k, v, l, dout, l, lse, delta, dq, l, S, H, causal, scale);
+}
+
+extern "C" __global__ void __launch_bounds__(NTHREADS)
+ff_flash_bwd_dq_d64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, Layout in,
+                           const bf16* __restrict__ dout, const float* __restrict__ lse,
+                           const float* __restrict__ delta, bf16* __restrict__ dq,
+                           Layout grad, int S, int H, int causal, float scale) {
+  dq_body<64>(q, k, v, in, dout, dense<64>(H), lse, delta, dq, grad, S, H, causal, scale);
 }
 
 // ---------------------------------------------------------------------------
-// C interface (ctypes). Shapes: q, k, v, o, dout, dq, dk, dv are contiguous
-// [B, S, H*128] bf16; lse and delta are contiguous [B, H, S] f32; S is a
-// multiple of 64. The caller checks all of this.
+// C interface (ctypes). lse and delta are contiguous [B, H, S] f32; S is a
+// multiple of 64. At d=128 every other operand is a contiguous
+// [B, S, H*128] bf16. At d=64, q/k/v (and the gradients) are read (and
+// written) at rows `ld` apart with 128-lane groups `group` apart, while o
+// and dout are contiguous [B, S, H*64]. The caller checks all of this.
 // ---------------------------------------------------------------------------
 
-static float softmax_scale() { return 1.0f / sqrtf((float)D); }
+template <int D>
+static float softmax_scale() {
+  return 1.0f / sqrtf((float)D);
+}
+
+template <typename K>
+static cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+constexpr int DELTA_WARPS = 8;
+
+static int delta_blocks(int B, int S, int H) {
+  const long rows = (long)B * S * H;
+  return (int)((rows + DELTA_WARPS - 1) / DELTA_WARPS);
+}
 
 extern "C" int ff_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                             int B, int S, int H, int causal, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      ff_flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
+  cudaError_t err = allow_smem(ff_flash_fwd_kernel, Tiles<128>::FWD_SMEM);
   if (err != cudaSuccess) return (int)err;
-  ff_flash_fwd_kernel<<<dim3(S / BM, H, B), NTHREADS, FWD_SMEM, (cudaStream_t)stream>>>(
+  ff_flash_fwd_kernel<<<dim3(S / BM, H, B), NTHREADS, Tiles<128>::FWD_SMEM,
+                        (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, S, H, causal,
-      softmax_scale());
+      softmax_scale<128>());
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ff_flash_fwd_d64(const void* q, const void* k, const void* v, int ld, int group,
+                                void* o, void* lse, int B, int S, int H, int causal,
+                                void* stream) {
+  cudaError_t err = allow_smem(ff_flash_fwd_d64_kernel, Tiles<64>::FWD_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  ff_flash_fwd_d64_kernel<<<dim3(S / BM, H, B), NTHREADS, Tiles<64>::FWD_SMEM,
+                            (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, Layout{ld, group}, (bf16*)o,
+      (float*)lse, S, H, causal, softmax_scale<64>());
   return (int)cudaGetLastError();
 }
 
 extern "C" int ff_flash_delta(const void* dout, const void* o, void* delta, int B, int S, int H,
                               void* stream) {
-  constexpr int WARPS = 8;
-  const long rows = (long)B * S * H;
-  const int blocks = (int)((rows + WARPS - 1) / WARPS);
-  ff_flash_delta_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
+  ff_flash_delta_kernel<<<delta_blocks(B, S, H), DELTA_WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const bf16*)dout, (const bf16*)o, (float*)delta, B, S, H);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ff_flash_delta_d64(const void* dout, const void* o, void* delta, int B, int S,
+                                  int H, void* stream) {
+  ff_flash_delta_d64_kernel<<<delta_blocks(B, S, H), DELTA_WARPS * 32, 0,
+                              (cudaStream_t)stream>>>(
       (const bf16*)dout, (const bf16*)o, (float*)delta, B, S, H);
   return (int)cudaGetLastError();
 }
@@ -426,21 +603,40 @@ extern "C" int ff_flash_delta(const void* dout, const void* o, void* delta, int 
 extern "C" int ff_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, void* dk, void* dv,
                             int B, int S, int H, int causal, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      ff_flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DKV_SMEM);
+  cudaError_t err = allow_smem(ff_flash_bwd_dkv_kernel, Tiles<128>::DKV_SMEM);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      ff_flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DQ_SMEM);
+  err = allow_smem(ff_flash_bwd_dq_kernel, Tiles<128>::DQ_SMEM);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  ff_flash_bwd_dkv_kernel<<<dim3(S / BN, H, B), NTHREADS, DKV_SMEM, s>>>(
+  ff_flash_bwd_dkv_kernel<<<dim3(S / BN, H, B), NTHREADS, Tiles<128>::DKV_SMEM, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dk, (bf16*)dv, S, H, causal, softmax_scale());
+      (const float*)delta, (bf16*)dk, (bf16*)dv, S, H, causal, softmax_scale<128>());
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ff_flash_bwd_dq_kernel<<<dim3(S / BM, H, B), NTHREADS, DQ_SMEM, s>>>(
+  ff_flash_bwd_dq_kernel<<<dim3(S / BM, H, B), NTHREADS, Tiles<128>::DQ_SMEM, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dq, S, H, causal, softmax_scale());
+      (const float*)delta, (bf16*)dq, S, H, causal, softmax_scale<128>());
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ff_flash_bwd_d64(const void* q, const void* k, const void* v, int ld, int group,
+                                const void* dout, const void* lse, const void* delta, void* dq,
+                                void* dk, void* dv, int grad_ld, int grad_group, int B, int S,
+                                int H, int causal, void* stream) {
+  cudaError_t err = allow_smem(ff_flash_bwd_dkv_d64_kernel, Tiles<64>::DKV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  err = allow_smem(ff_flash_bwd_dq_d64_kernel, Tiles<64>::DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  const Layout in{ld, group}, grad{grad_ld, grad_group};
+  ff_flash_bwd_dkv_d64_kernel<<<dim3(S / BN, H, B), NTHREADS, Tiles<64>::DKV_SMEM, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, in, (const bf16*)dout, (const float*)lse,
+      (const float*)delta, (bf16*)dk, (bf16*)dv, grad, S, H, causal, softmax_scale<64>());
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ff_flash_bwd_dq_d64_kernel<<<dim3(S / BM, H, B), NTHREADS, Tiles<64>::DQ_SMEM, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, in, (const bf16*)dout, (const float*)lse,
+      (const float*)delta, (bf16*)dq, grad, S, H, causal, softmax_scale<64>());
   return (int)cudaGetLastError();
 }
 
@@ -448,12 +644,16 @@ extern "C" const char* ff_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Dynamic shared memory of each kernel, for the build report.
+// Dynamic shared memory of each kernel, for the build report: 0-2 the
+// d=128 fwd, dkv and dq kernels, 3-5 the d=64 ones.
 extern "C" int ff_flash_smem_bytes(int which) {
   switch (which) {
-    case 0: return (int)FWD_SMEM;
-    case 1: return (int)DKV_SMEM;
-    case 2: return (int)DQ_SMEM;
+    case 0: return (int)Tiles<128>::FWD_SMEM;
+    case 1: return (int)Tiles<128>::DKV_SMEM;
+    case 2: return (int)Tiles<128>::DQ_SMEM;
+    case 3: return (int)Tiles<64>::FWD_SMEM;
+    case 4: return (int)Tiles<64>::DKV_SMEM;
+    case 5: return (int)Tiles<64>::DQ_SMEM;
     default: return 0;
   }
 }

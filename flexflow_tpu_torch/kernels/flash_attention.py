@@ -1,19 +1,35 @@
 """Flash attention on seq-major [b, s, h*d] tensors: hand-written CUDA
-kernels for Hopper, their plain PyTorch versions, and the autograd Function
-that ties them together.
+kernels for Hopper, their plain PyTorch versions, and the autograd
+Functions that tie them together.
 
 Replaces the bshf Pallas path of flexflow_tpu/kernels/flash_attention.py:
 
-- flash_fwd   <- _fwd_kernel_b via _fwd_bshf (the single-k-block path the
-                 flagship takes at s=512, and the online-softmax loop)
-- flash_delta <- _delta_kernel via _delta_bshf
-- flash_bwd   <- _bwd_fused_kernel_b via _bwd_bshf_fused, split into a dK/dV
-                 and a dQ kernel (csrc/flash_attention.cu says why)
+- flash_fwd       <- _fwd_kernel_b via _fwd_bshf (the single-k-block path the
+                     flagship takes at s=512, and the online-softmax loop)
+- flash_delta     <- _delta_kernel via _delta_bshf
+- flash_bwd       <- _bwd_fused_kernel_b via _bwd_bshf_fused, split into a
+                     dK/dV and a dQ kernel (csrc/flash_attention.cu says why);
+                     the same two kernels take any s that is a multiple of 64,
+                     so they also compute what _bwd_onepass_kernel and
+                     _bwd_dq_kernel/_bwd_dkv_kernel compute for s > block
+- flash_fwd_d64   <- _fwd_kernel_pair via _fwd_bshf_pair and _fwd_bshf_pair_qkv
+- flash_delta_d64 <- the delta _bwd_pair_core computes inline
+- flash_bwd_d64   <- _bwd_pair_core via _bwd_bshf_pair_fused and
+                     _bwd_bshf_pair_fused_qkv, split as flash_bwd is
+
+The d=128 wrappers take contiguous [b, s, h*128] operands. The d=64 ones
+take q, k and v (and write dq, dk and dv) as lane-group views
+[b, s, h/2, 128] with free row and group strides: `lane_groups` of separate
+[b, s, h*64] tensors, or `qkv_views` of the interleaved projection
+[b, s, 3*h*64] that `ops.mha_project_qkv_bshf_fused` makes, whose pair-group
+g holds [q_pair | k_pair | v_pair] in 384 lanes. So one kernel serves both
+layouts and the fused projection needs no slicing copy, and its gradient
+no concat.
 
 Each wrapper runs its plain version for tensors on the CPU, and launches its
 kernel for tensors on a CUDA device, or raises: there is no fallback. The
-kernels take bf16, head dim 128 and a sequence that is a multiple of 64;
-`flash_attention_supported` is the gate callers use. What bounds each
+kernels take bf16, head dim 64 or 128, and a sequence that is a multiple of
+64; `flash_attention_supported` is the gate callers use. What bounds each
 kernel on the card, and what its design does about it, is in the note at
 the top of csrc/flash_attention.cu.
 
@@ -31,7 +47,8 @@ import torch
 
 from flexflow_tpu_torch.kernels import build
 
-HEAD_DIM = 128  # the kernels' head dim
+HEAD_DIMS = (64, 128)  # the kernels' head dims
+LANES = 128  # width of the lane groups the d=64 kernels read (two heads each)
 TILE = 64  # the kernels' sequence tile
 _SOURCE = "flash_attention.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -39,6 +56,11 @@ _SIGNATURES = {
     "ff_flash_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "ff_flash_delta": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "ff_flash_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "ff_flash_fwd_d64": ([_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P], _I),
+    "ff_flash_delta_d64": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "ff_flash_bwd_d64": (
+        [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I
+    ),
     "ff_flash_smem_bytes": ([_I], _I),
     "ff_error_string": ([_I], ctypes.c_char_p),
 }
@@ -64,26 +86,29 @@ def _stream(t: torch.Tensor) -> int:
 
 def flash_attention_supported(shape, num_heads: int, dtype: torch.dtype, device) -> bool:
     """Can the flash path take self-attention operands of this [b, s, h*d]
-    shape? On a CUDA device the kernels need bf16, d == 128 and s a multiple
-    of the 64-row tile; on the CPU the plain versions take the same shapes
-    in any float dtype."""
-    if len(shape) != 3 or shape[2] != num_heads * HEAD_DIM or shape[1] % TILE:
+    shape? On a CUDA device the kernels need bf16, d of 128, or of 64 with
+    an even head count, and s a multiple of the 64-row tile; on the CPU the
+    plain versions take the same shapes in any float dtype."""
+    if len(shape) != 3 or shape[1] % TILE or shape[2] % num_heads:
+        return False
+    d = shape[2] // num_heads
+    if d not in HEAD_DIMS or (d == 64 and num_heads % 2):
         return False
     if torch.device(device).type == "cuda":
         return dtype == torch.bfloat16
     return dtype.is_floating_point
 
 
-def _check_cuda(name: str, num_heads: int, *tensors: torch.Tensor) -> Tuple[int, int, int]:
-    """Raise unless every tensor is a contiguous bf16 [b, s, h*128] on the
+def _check_cuda(name: str, num_heads: int, d: int, *tensors: torch.Tensor) -> Tuple[int, int, int]:
+    """Raise unless every tensor is a contiguous bf16 [b, s, h*d] on the
     CUDA device of the first; return (b, s, h)."""
     b, s, f = tensors[0].shape
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: tensors must lie on the CPU or a CUDA device, got {dev}")
-    if f != num_heads * HEAD_DIM or s % TILE:
+    if f != num_heads * d or s % TILE:
         raise ValueError(
-            f"{name}: kernel takes [b, s, h*{HEAD_DIM}] with s a multiple of {TILE}, "
+            f"{name}: kernel takes [b, s, h*{d}] with s a multiple of {TILE}, "
             f"got {tuple(tensors[0].shape)} with {num_heads} heads"
         )
     for t in tensors:
@@ -95,10 +120,71 @@ def _check_cuda(name: str, num_heads: int, *tensors: torch.Tensor) -> Tuple[int,
     return b, s, num_heads
 
 
+def _check_groups(name: str, num_heads: int, *views: torch.Tensor) -> Tuple[int, int]:
+    """Raise unless the views are bf16 lane groups [b, s, h/2, 128] on the
+    CUDA device of the first, sharing one row stride and one group stride,
+    with every head starting 16-byte aligned; return (row stride, group
+    stride) in elements."""
+    b, s = views[0].shape[:2]
+    dev = views[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: tensors must lie on the CPU or a CUDA device, got {dev}")
+    if num_heads % 2 or s % TILE:
+        raise ValueError(f"{name}: kernel takes an even head count and s a multiple of "
+                         f"{TILE}, got {num_heads} heads and s={s}")
+    want = (b, s, num_heads // 2, LANES)
+    ld, group = views[0].stride(1), views[0].stride(2)
+    for t in views:
+        if t.shape != want or t.dtype != torch.bfloat16 or t.device != dev:
+            raise ValueError(f"{name}: operands must be bf16 {want} lane groups on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if t.stride() != (s * ld, ld, group, 1):
+            raise ValueError(f"{name}: operands must share row stride {ld} and group stride "
+                             f"{group} with rows packed by batch, got strides {t.stride()}")
+        # 16-byte tile loads: every head starts at a multiple of 64 elements
+        if ld % 8 or group % 8 or t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must start 16-byte aligned with strides a "
+                             f"multiple of 8, got strides {t.stride()}")
+    return ld, group
+
+
 def _check_rows(name: str, t: torch.Tensor, b: int, h: int, s: int, dev) -> None:
     if t.shape != (b, h, s) or t.dtype != torch.float32 or t.device != dev or not t.is_contiguous():
         raise ValueError(f"{name}: expected contiguous f32 {(b, h, s)} on {dev}, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+# -- layouts ----------------------------------------------------------------
+
+
+def lane_groups(x: torch.Tensor) -> torch.Tensor:
+    """[b, s, f] -> the view [b, s, f/128, 128]."""
+    b, s, f = x.shape
+    return x.view(b, s, f // LANES, LANES)
+
+
+def qkv_views(qkv: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The q, k and v lane-group views [b, s, f/128, 128] of an interleaved
+    [b, s, 3f] projection (pair-group g: [q_pair | k_pair | v_pair])."""
+    b, s, f3 = qkv.shape
+    return qkv.view(b, s, f3 // (3 * LANES), 3, LANES).unbind(3)
+
+
+def _ungroup(x: torch.Tensor) -> torch.Tensor:
+    """Lane groups [b, s, g, 128] -> [b, s, g*128] (a copy if strided)."""
+    return x.reshape(x.shape[0], x.shape[1], -1)
+
+
+def interleave_qkv(q, k, v) -> torch.Tensor:
+    """Three [b, s, f] tensors -> the interleaved [b, s, 3f] layout."""
+    b, s, f = q.shape
+    groups = [x.reshape(b, s, f // LANES, LANES) for x in (q, k, v)]
+    return torch.stack(groups, dim=3).reshape(b, s, 3 * f)
+
+
+def split_qkv(qkv):
+    """The interleaved [b, s, 3f] layout -> three contiguous [b, s, f]."""
+    return tuple(map(_ungroup, qkv_views(qkv)))
 
 
 # -- plain versions ---------------------------------------------------------
@@ -151,14 +237,24 @@ def flash_bwd_plain(q, k, v, do, lse, delta, num_heads: int, causal: bool = Fals
     return _bshf(dq, q.dtype), _bshf(dk, k.dtype), _bshf(dv, v.dtype)
 
 
+def flash_fwd_qkv_plain(qkv, num_heads: int, causal: bool = False):
+    """(o, lse) of attention over the interleaved [b, s, 3f] projection."""
+    return flash_fwd_plain(*split_qkv(qkv), num_heads, causal)
+
+
+def flash_bwd_qkv_plain(qkv, do, lse, delta, num_heads: int, causal: bool = False):
+    """dqkv [b, s, 3f] in the interleaved layout of qkv."""
+    return interleave_qkv(*flash_bwd_plain(*split_qkv(qkv), do, lse, delta, num_heads, causal))
+
+
 # -- wrappers ---------------------------------------------------------------
 
 
 def flash_fwd(q, k, v, num_heads: int, causal: bool = False):
-    """(o, lse) of softmax(q k^T / sqrt(d)) v per head."""
+    """(o, lse) of softmax(q k^T / sqrt(d)) v per head, d = 128."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, num_heads, causal)
-    b, s, h = _check_cuda("flash_fwd", num_heads, q, k, v)
+    b, s, h = _check_cuda("flash_fwd", num_heads, 128, q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     _launch("ff_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -171,10 +267,10 @@ flash_fwd.launches = 0
 
 
 def flash_delta(do, o, num_heads: int):
-    """delta [b, h, s] f32 = rowsum(dO * O) per head."""
+    """delta [b, h, s] f32 = rowsum(dO * O) per head, d = 128."""
     if do.device.type == "cpu":
         return flash_delta_plain(do, o, num_heads)
-    b, s, h = _check_cuda("flash_delta", num_heads, do, o)
+    b, s, h = _check_cuda("flash_delta", num_heads, 128, do, o)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=do.device)
     _launch("ff_flash_delta", do.data_ptr(), o.data_ptr(), delta.data_ptr(), b, s, h,
             _stream(do))
@@ -186,10 +282,10 @@ flash_delta.launches = 0
 
 
 def flash_bwd(q, k, v, do, lse, delta, num_heads: int, causal: bool = False):
-    """(dq, dk, dv) from the saved forward and delta."""
+    """(dq, dk, dv) from the saved forward and delta, d = 128."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, do, lse, delta, num_heads, causal)
-    b, s, h = _check_cuda("flash_bwd", num_heads, q, k, v, do)
+    b, s, h = _check_cuda("flash_bwd", num_heads, 128, q, k, v, do)
     _check_rows("flash_bwd lse", lse, b, h, s, q.device)
     _check_rows("flash_bwd delta", delta, b, h, s, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -202,7 +298,66 @@ def flash_bwd(q, k, v, do, lse, delta, num_heads: int, causal: bool = False):
 
 flash_bwd.launches = 0
 
-KERNEL_WRAPPERS = (flash_fwd, flash_delta, flash_bwd)
+
+def flash_fwd_d64(q, k, v, num_heads: int, causal: bool = False):
+    """(o [b, s, h*64] contiguous, lse) from q, k, v given as lane-group
+    views [b, s, h/2, 128] (`lane_groups` or `qkv_views`)."""
+    if q.device.type == "cpu":
+        return flash_fwd_plain(*map(_ungroup, (q, k, v)), num_heads, causal)
+    ld, group = _check_groups("flash_fwd_d64", num_heads, q, k, v)
+    b, s = q.shape[:2]
+    o = torch.empty((b, s, num_heads * 64), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, num_heads, s), dtype=torch.float32, device=q.device)
+    _launch("ff_flash_fwd_d64", q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, group,
+            o.data_ptr(), lse.data_ptr(), b, s, num_heads, int(causal), _stream(q))
+    flash_fwd_d64.launches += 1
+    return o, lse
+
+
+flash_fwd_d64.launches = 0
+
+
+def flash_delta_d64(do, o, num_heads: int):
+    """delta [b, h, s] f32 = rowsum(dO * O) per head of contiguous
+    [b, s, h*64] operands."""
+    if do.device.type == "cpu":
+        return flash_delta_plain(do, o, num_heads)
+    b, s, h = _check_cuda("flash_delta_d64", num_heads, 64, do, o)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=do.device)
+    _launch("ff_flash_delta_d64", do.data_ptr(), o.data_ptr(), delta.data_ptr(), b, s, h,
+            _stream(do))
+    flash_delta_d64.launches += 1
+    return delta
+
+
+flash_delta_d64.launches = 0
+
+
+def flash_bwd_d64(q, k, v, do, lse, delta, dq, dk, dv, num_heads: int, causal: bool = False):
+    """Write the gradients of the saved forward into dq, dk and dv, which,
+    like q, k and v, are lane-group views [b, s, h/2, 128] of the caller's
+    buffers; do is a contiguous [b, s, h*64]."""
+    if q.device.type == "cpu":
+        grads = flash_bwd_plain(*map(_ungroup, (q, k, v)), do, lse, delta, num_heads, causal)
+        for out, g in zip((dq, dk, dv), grads):
+            out.copy_(lane_groups(g))
+        return
+    ld, group = _check_groups("flash_bwd_d64", num_heads, q, k, v)
+    grad_ld, grad_group = _check_groups("flash_bwd_d64 gradients", num_heads, dq, dk, dv)
+    b, s, h = _check_cuda("flash_bwd_d64 do", num_heads, 64, do)
+    if q.shape[:2] != (b, s) or do.device != q.device:
+        raise ValueError(f"flash_bwd_d64: do {tuple(do.shape)} does not match q {tuple(q.shape)}")
+    _check_rows("flash_bwd_d64 lse", lse, b, h, s, q.device)
+    _check_rows("flash_bwd_d64 delta", delta, b, h, s, q.device)
+    _launch("ff_flash_bwd_d64", q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, group,
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), grad_ld, grad_group, b, s, h, int(causal), _stream(q))
+    flash_bwd_d64.launches += 1
+
+
+flash_bwd_d64.launches = 0
+
+KERNEL_WRAPPERS = (flash_fwd, flash_delta, flash_bwd, flash_fwd_d64, flash_delta_d64, flash_bwd_d64)
 
 
 def reset_launch_counts() -> None:
@@ -210,13 +365,20 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
+# -- autograd ---------------------------------------------------------------
+
+
 class FlashAttentionBSHF(torch.autograd.Function):
-    """Attention on [b, s, h*d] operands whose gradient runs the delta and
-    backward kernels. The forward saves (q, k, v, o, lse)."""
+    """Attention on separate [b, s, h*d] operands (d = 64 or 128) whose
+    gradient runs the delta and backward kernels. The forward saves
+    (q, k, v, o, lse)."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads: int, causal: bool = False):
-        o, lse = flash_fwd(q, k, v, num_heads, causal)
+        if q.shape[-1] == num_heads * 128:
+            o, lse = flash_fwd(q, k, v, num_heads, causal)
+        else:
+            o, lse = flash_fwd_d64(*map(lane_groups, (q, k, v)), num_heads, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.num_heads, ctx.causal = num_heads, causal
         return o
@@ -224,12 +386,51 @@ class FlashAttentionBSHF(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
+        h, causal = ctx.num_heads, ctx.causal
         do = do.contiguous()
-        delta = flash_delta(do, o, ctx.num_heads)
-        dq, dk, dv = flash_bwd(q, k, v, do, lse, delta, ctx.num_heads, ctx.causal)
+        if q.shape[-1] == h * 128:
+            delta = flash_delta(do, o, h)
+            dq, dk, dv = flash_bwd(q, k, v, do, lse, delta, h, causal)
+        else:
+            delta = flash_delta_d64(do, o, h)
+            dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+            flash_bwd_d64(*map(lane_groups, (q, k, v)), do, lse, delta,
+                          *map(lane_groups, (dq, dk, dv)), h, causal)
         return dq, dk, dv, None, None
+
+
+class FlashAttentionQKV(torch.autograd.Function):
+    """Attention (d = 64) on one interleaved [b, s, 3f] projection; the
+    backward returns one dqkv in the same interleave (counterpart of the JAX
+    package's _flash_bshf_qkv). The forward saves (qkv, o, lse)."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads: int, causal: bool = False):
+        o, lse = flash_fwd_d64(*qkv_views(qkv), num_heads, causal)
+        ctx.save_for_backward(qkv, o, lse)
+        ctx.num_heads, ctx.causal = num_heads, causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = flash_delta_d64(do, o, ctx.num_heads)
+        dqkv = torch.empty_like(qkv)
+        flash_bwd_d64(*qkv_views(qkv), do, lse, delta, *qkv_views(dqkv), ctx.num_heads,
+                      ctx.causal)
+        return dqkv, None, None
 
 
 def flash_attention_bshf(q, k, v, num_heads: int, causal: bool = False):
     """Self-attention on seq-major [b, s, h*d] tensors; returns [b, s, h*d]."""
     return FlashAttentionBSHF.apply(q, k, v, num_heads, causal)
+
+
+def flash_attention_bshf_qkv(qkv, num_heads: int, causal: bool = False):
+    """Self-attention (d = 64, an even head count) on one interleaved
+    [b, s, 3*h*64] projection; returns [b, s, h*64]."""
+    if qkv.shape[-1] != 3 * 64 * num_heads or num_heads % 2:
+        raise ValueError(f"flash_attention_bshf_qkv: takes [b, s, 3*h*64] with h even, got "
+                         f"{tuple(qkv.shape)} with {num_heads} heads")
+    return FlashAttentionQKV.apply(qkv, num_heads, causal)

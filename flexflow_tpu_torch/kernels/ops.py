@@ -1,6 +1,6 @@
 """Per-op forward functions on tensors, for the slice's ops (trimmed copy of
 flexflow_tpu/kernels/ops.py). The backward comes from autograd, and through
-FlashAttentionBSHF's hand-written kernels for attention.
+the flash-attention Functions' hand-written kernels for attention.
 
 Uniform signature:
     forward(attrs, inputs, weights) -> [outputs]
@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from flexflow_tpu_torch.kernels.flash_attention import (
     flash_attention_bshf,
+    flash_attention_bshf_qkv,
     flash_attention_supported,
 )
 from flexflow_tpu_torch.op_attrs.activation import gelu
@@ -128,6 +129,26 @@ def mha_project_qkv_bshf(attrs: MultiHeadAttentionAttrs, q, k, v, weight, input_
     return qp, kp, vp, wo2
 
 
+def mha_project_qkv_bshf_fused(attrs: MultiHeadAttentionAttrs, x, weight, input_bias=None):
+    """Self-attention projections as one matmul into the head-pair
+    interleaved layout: qkv [b, s, 3f] whose pair-group g holds
+    [q_pair(128) | k_pair(128) | v_pair(128)], the operand layout of
+    flash_attention_bshf_qkv. Returns (qkv, wo2)."""
+    e = x.shape[-1]
+    wq2, wk2, wv2, wo2 = _bshf_weights(attrs, e, e, e, weight)
+    H, kd, vd = attrs.num_heads, attrs.q_proj_size, attrs.v_proj_size
+    if kd != vd or (H * kd) % 128 or H % 2:
+        raise ValueError(f"fused QKV projection needs kd == vd, h*kd % 128 == 0 and h even; "
+                         f"got h={H}, kd={kd}, vd={vd}")
+    f = H * kd
+    wf = torch.stack([w.reshape(e, f // 128, 128) for w in (wq2, wk2, wv2)], dim=2)
+    qkv = x @ wf.reshape(e, 3 * f)
+    if input_bias is not None:
+        group = torch.cat([input_bias[i * kd:(i + 1) * kd].repeat(128 // kd) for i in range(3)])
+        qkv = qkv + group.repeat(f // 128)
+    return qkv, wo2
+
+
 def dense_attention(attrs: MultiHeadAttentionAttrs, q, k, v, weight, input_bias=None,
                     causal=False):
     """Attention through the per-head projections and a materialized [s, t]
@@ -145,7 +166,9 @@ def dense_attention(attrs: MultiHeadAttentionAttrs, q, k, v, weight, input_bias=
 def _mha_forward(attrs: MultiHeadAttentionAttrs, q, k, v, weight, input_bias=None,
                  causal=False):
     """Self-attention-shaped operands the kernels take ride the seq-major
-    flash path; everything else takes the dense path."""
+    flash path; everything else takes the dense path. At d=64 with q, k and
+    v one tensor, as in the JAX package, one fused projection feeds the
+    interleaved-QKV entry and one dqkv flows back."""
     kd, vd, H = attrs.q_proj_size, attrs.v_proj_size, attrs.num_heads
     proj_shape = (q.shape[0], q.shape[1], H * kd)
     if (
@@ -153,6 +176,9 @@ def _mha_forward(attrs: MultiHeadAttentionAttrs, q, k, v, weight, input_bias=Non
         and q.shape == k.shape == v.shape
         and flash_attention_supported(proj_shape, H, q.dtype, q.device)
     ):
+        if kd % 128 and q is k and k is v:
+            qkv, wo2 = mha_project_qkv_bshf_fused(attrs, q, weight, input_bias)
+            return flash_attention_bshf_qkv(qkv, H, causal) @ wo2
         qp, kp, vp, wo2 = mha_project_qkv_bshf(attrs, q, k, v, weight, input_bias)
         return flash_attention_bshf(qp, kp, vp, H, causal) @ wo2
     return dense_attention(attrs, q, k, v, weight, input_bias, causal)

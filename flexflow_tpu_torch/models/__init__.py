@@ -1,7 +1,8 @@
 from flexflow_tpu_torch.models.flagship import (
     FLAGSHIP,
+    REF_HEADS16,
     build_flagship_cg,
     model_step_flops,
 )
 
-__all__ = ["FLAGSHIP", "build_flagship_cg", "model_step_flops"]
+__all__ = ["FLAGSHIP", "REF_HEADS16", "build_flagship_cg", "model_step_flops"]

@@ -1,6 +1,7 @@
 """The flagship transformer: a copy of `build_flagship_cg` and
 `_model_step_flops` from the repository's bench.py (12 layers, hidden 1024,
-8 heads of 128, seq 512, vocab 32000, batch 64).
+8 heads of 128, seq 512, vocab 32000, batch 64), and its second config,
+REF_HEADS16.
 
 The attention has no bias (the builder's default is bias=False); the FFN is
 bias-free with GELU, and every block ends in a post-LayerNorm.
@@ -11,6 +12,12 @@ from __future__ import annotations
 from flexflow_tpu_torch.pcg import ComputationGraphBuilder
 
 FLAGSHIP = dict(batch=64, seq=512, embed=1024, heads=8, layers=12, vocab=32000)
+
+# The reference-default config that bench.py:3437-3447 measures beside the
+# flagship (ref_heads16_mfu): the same model with the reference
+# TransformerConfig's 16 heads of 64. Its attention rides the d=64 kernels
+# on the interleaved fused-QKV projection.
+REF_HEADS16 = dict(FLAGSHIP, heads=16)
 
 
 def build_flagship_cg(

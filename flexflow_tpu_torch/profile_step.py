@@ -1,12 +1,14 @@
 """Where the flagship's training step spends its device time, on one card.
 
-    python3 -m flexflow_tpu_torch.profile_step [--out FILE]
+    python3 -m flexflow_tpu_torch.profile_step [--heads N] [--out FILE]
 
 Trains the full-width flagship (bf16 compute, Adam) for two warm-up steps,
 records two more under torch.profiler (CPU and CUDA activity), and prints
 one JSON line: host time per step, the device time of every kernel summed
 by group and by name, and the device's idle share (1 - kernel time / host
-time). With --out the same object is also written to FILE.
+time). --heads sets the head count at the same width: 8 (heads of 128, the
+default) or 16 (heads of 64, the reference-default config REF_HEADS16).
+With --out the same object is also written to FILE.
 """
 
 from __future__ import annotations
@@ -46,8 +48,8 @@ def group_of(name: str) -> str:
     return "other"
 
 
-def profile_flagship(warmup: int = 2, steps: int = 2) -> dict:
-    cfg = FLAGSHIP
+def profile_flagship(heads: int = FLAGSHIP["heads"], warmup: int = 2, steps: int = 2) -> dict:
+    cfg = dict(FLAGSHIP, heads=heads)
     graph, logits = build_flagship_cg(**cfg)
     inst = ModelTrainingInstance(
         graph, logits, SparseCategoricalCrossEntropyLossAttrs(),
@@ -94,9 +96,11 @@ def profile_flagship(warmup: int = 2, steps: int = 2) -> dict:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--heads", type=int, default=FLAGSHIP["heads"],
+                        help="attention heads at hidden 1024 (default %(default)s)")
     parser.add_argument("--out", type=Path, help="also write the JSON object here")
     args = parser.parse_args()
-    result = profile_flagship()
+    result = profile_flagship(args.heads)
     line = json.dumps(result)
     print(line)
     if args.out:

@@ -84,6 +84,34 @@ def test_autograd_gradients_match_jax_grad(causal):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), atol=2e-4)
 
 
+def _jax_bwd_inputs(seed, causal):
+    q, k, v, do = _inputs(seed)
+    _, lse_nat, (o_j, lse2_j) = _jax_fwd(q, k, v, causal)
+    tq, tk, tv, tdo, to = map(torch.from_numpy, (q, k, v, do, np.array(o_j)))
+    delta = tfa.flash_delta_plain(tdo, to, H)
+    got = tfa.flash_bwd_plain(tq, tk, tv, tdo, torch.from_numpy(lse_nat), delta, H, causal)
+    return [jnp.asarray(x) for x in (q, k, v)] + [o_j, lse2_j, jnp.asarray(do)], got
+
+
+def test_backward_matches_onepass_pallas():
+    """The seq-2048 flagship's backward (_bwd_onepass_kernel, non-causal,
+    nq <= 2): the port computes it with the same split kernels."""
+    args, got = _jax_bwd_inputs(5, False)
+    ref = jfa._bwd_bshf_onepass(*args, H, False, 128, 64, interpret=True)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-4)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_matches_tiled_pallas(causal):
+    """The tiled dq and dk/dv kernels (_bwd_dq_kernel, _bwd_dkv_kernel),
+    here with nq = 4 tiles."""
+    args, got = _jax_bwd_inputs(6, causal)
+    ref = jfa._bwd_bshf(*args, H, causal, 64, 64, interpret=True)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-4)
+
+
 def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
     q, k, v, do = map(torch.from_numpy, _inputs(4))
     before = [fn.launches for fn in tfa.KERNEL_WRAPPERS]
@@ -103,9 +131,11 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
     [
         ((2, 512, 1024), 8, torch.bfloat16, "cuda", True),
         ((2, 512, 1024), 8, torch.float32, "cuda", False),  # kernels take bf16
-        ((2, 512, 1024), 16, torch.bfloat16, "cuda", False),  # d=64
+        ((2, 512, 1024), 16, torch.bfloat16, "cuda", True),  # d=64 kernels
         ((2, 100, 256), 2, torch.bfloat16, "cuda", False),  # s not a tile multiple
         ((2, 512, 1024), 8, torch.float32, "cpu", True),  # plain versions
+        ((2, 512, 1024), 32, torch.bfloat16, "cuda", False),  # d=32
+        ((2, 512, 192), 3, torch.bfloat16, "cuda", False),  # d=64, odd head count
     ],
 )
 def test_flash_gate_follows_the_kernels(shape, heads, dtype, device, ok):
@@ -114,7 +144,10 @@ def test_flash_gate_follows_the_kernels(shape, heads, dtype, device, ok):
 
 def test_gate_constants_match_the_cuda_source():
     src = (build.CSRC_DIR / "flash_attention.cu").read_text()
-    assert f"constexpr int D = {tfa.HEAD_DIM};" in src
+    for d in tfa.HEAD_DIMS:
+        assert f"fwd_body<{d}>" in src and f"dkv_body<{d}>" in src and f"dq_body<{d}>" in src
+        assert f"delta_body<{d}>" in src
+    assert f"constexpr int LANES = {tfa.LANES};" in src
     assert f"constexpr int BM = {tfa.TILE};" in src
     assert f"constexpr int BN = {tfa.TILE};" in src
 
