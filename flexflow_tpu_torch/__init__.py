@@ -7,8 +7,10 @@ own trimmed copy with the same names and layout. Its kernels are CUDA C++
 for Hopper under csrc/, built with nvcc at first use on a machine with a
 card.
 
-This slice covers the flagship transformer's training step on one device:
-models.build_flagship_cg, local_execution.ModelTrainingInstance, and the
-flash-attention kernels of kernels/flash_attention.py. Entry points run on
-CUDA unless the caller passes device="cpu".
+The port covers the flagship transformer's training step on one device
+(models.build_flagship_cg, local_execution.ModelTrainingInstance) and data
+parallel over a torch.distributed process group
+(parallel.DataParallelTrainingInstance), with the flash-attention kernels
+of kernels/flash_attention.py. Entry points run on CUDA unless the caller
+passes device="cpu".
 """

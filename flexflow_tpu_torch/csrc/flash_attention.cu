@@ -16,6 +16,13 @@
 //   ff_flash_delta_d64_kernel    <- the delta that _bwd_pair_core computes inline
 //   ff_flash_bwd_dkv_d64_kernel  <- _bwd_pair_core (via _bwd_fused_kernel_pair and
 //   ff_flash_bwd_dq_d64_kernel      _bwd_fused_kernel_pair_qkv), split in two
+//   ff_flash_fwd_bhsd[_d64]_kernel      <- _fwd_kernel_b and _fwd_kernel via _fwd (the
+//                                          per-head [b*h, s, d] entry, batch-folded
+//                                          or looped)
+//   ff_flash_delta_bhsd[_d64]_kernel    <- _delta_kernel via _delta_rows
+//   ff_flash_bwd_dkv_bhsd[_d64]_kernel  <- _bwd_fused_kernel_b via _bwd_rows_fused
+//   ff_flash_bwd_dq_bhsd[_d64]_kernel      (s <= block) and _bwd_dq_kernel and
+//                                          _bwd_dkv_kernel via _bwd (s > block)
 //
 // What bounds them on an H100 (b=64, s=512, h*d=1024, at either head dim):
 // the forward and the backward do 4*b*h*s^2*d and 10*b*h*s^2*d flops on
@@ -36,17 +43,22 @@
 // dQ (looping over k tiles). No atomics: every output element is written by
 // one block, so results repeat bitwise. lse is kept in natural log.
 //
-// Operand layout. Every operand is read as rows of 128-lane groups, each
-// group holding 128 / D heads side by side: head h starts at column
-// (h / (128 / D)) * group + (h % (128 / D)) * D of its row, and rows lie ld
-// elements apart (struct Layout). At d=128 the operands are contiguous
-// [b, s, h*128] (ld = h*128, group = 128). At d=64 the same kernel reads
-// either separate q/k/v [b, s, h*64] (ld = h*64, group = 128) or the
-// interleaved projection [b, s, 3*h*64] whose pair-group g holds
+// Operand layout. Every operand is read through a Layout: head h of batch b
+// starts at element b * batch + (h / PER) * group + (h % PER) * sub, with
+// PER = 128 / D heads to a group, and its rows lie ld elements apart. At
+// d=128 the bshf operands are contiguous [b, s, h*128] (ld = h*128,
+// group = sub = 128, batch = s*h*128). At d=64 the same kernel reads
+// either separate q/k/v [b, s, h*64] (ld = h*64, group = 128, sub = 64) or
+// the interleaved projection [b, s, 3*h*64] whose pair-group g holds
 // [q_pair | k_pair | v_pair] in 384 lanes (q, k, v at +0, +128, +256;
-// ld = 3*h*64, group = 384), and the backward writes dq/dk/dv into one dqkv
-// of the same interleave. Every head starts at a multiple of 64 elements,
-// so the 16-byte tile loads stay aligned (the wrappers check it).
+// ld = 3*h*64, group = 384, sub = 64), and the backward writes dq/dk/dv
+// into one dqkv of the same interleave. The per-head entries read
+// [b, h, s, d] operands by their strides: contiguous ones have ld = d,
+// sub = s*d, group = PER*s*d, batch = h*s*d, and the per-head projection
+// einsum's output (a [b, s, h, d] buffer viewed as [b, h, s, d]) has
+// ld = h*d, sub = d, group = PER*d, batch = s*h*d, the bshf numbers, so it
+// is read in place. Every row starts at a multiple of 8 elements, so the
+// 16-byte tile loads stay aligned (the wrappers check it).
 //
 // Each exported C function launches on the given stream and returns
 // cudaGetLastError() (0 on success).
@@ -62,7 +74,9 @@ typedef __nv_bfloat16 bf16;
 
 struct Layout {
   int ld;     // elements between consecutive rows
-  int group;  // elements between consecutive 128-lane groups of a row
+  int group;  // elements between consecutive groups of 128 / D heads
+  int sub;    // elements between consecutive heads of one group
+  int batch;  // elements between consecutive batch entries
 };
 
 namespace {
@@ -101,9 +115,9 @@ typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
 // Offset of row 0 of head h of batch b in an operand of layout l.
 template <int D>
-__device__ __forceinline__ size_t head_base(const Layout& l, int b, int S, int h) {
+__device__ __forceinline__ size_t head_base(const Layout& l, int b, int h) {
   constexpr int PER = LANES / D;
-  return (size_t)b * S * l.ld + (size_t)(h / PER) * l.group + (h % PER) * D;
+  return (size_t)b * l.batch + (size_t)(h / PER) * l.group + (size_t)(h % PER) * l.sub;
 }
 
 // Copy rows [0, 64) x cols [0, D) of a row-major global tile with row
@@ -208,7 +222,7 @@ __device__ __forceinline__ void fwd_body(const bf16* __restrict__ q, const bf16*
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = warp * 16;
   const int ld = in.ld;
-  const size_t base = head_base<D>(in, bi, S, hi);
+  const size_t base = head_base<D>(in, bi, hi);
 
   load_tile<D>(sQ, q + base + (size_t)q0 * ld, ld);
   for (int i = threadIdx.x; i < BM * LDO; i += NTHREADS) sO[i] = 0.f;
@@ -274,7 +288,7 @@ __device__ __forceinline__ void fwd_body(const bf16* __restrict__ q, const bf16*
     __syncwarp();
   }
 
-  const size_t obase = head_base<D>(out, bi, S, hi);
+  const size_t obase = head_base<D>(out, bi, hi);
   for (int r = r0; r < r0 + 16; ++r) {
     const float inv = 1.f / sL[r];
     bf16* row = o + obase + (size_t)(q0 + r) * out.ld;
@@ -336,8 +350,8 @@ __device__ __forceinline__ void dkv_body(const bf16* __restrict__ q, const bf16*
   const int k0 = blockIdx.x * BN, hi = blockIdx.y, bi = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = warp * 16;  // this warp's k rows
-  const size_t base = head_base<D>(in, bi, S, hi);
-  const size_t obase = head_base<D>(od, bi, S, hi);
+  const size_t base = head_base<D>(in, bi, hi);
+  const size_t obase = head_base<D>(od, bi, hi);
   const size_t rows = ((size_t)bi * H + hi) * S;
 
   load_tile<D>(sK, k + base + (size_t)k0 * in.ld, in.ld);
@@ -382,7 +396,7 @@ __device__ __forceinline__ void dkv_body(const bf16* __restrict__ q, const bf16*
     gemm_acc<D>(dk_acc, sdS + r0 * LDP, sQ);  // dK += dST Q
   }
 
-  const size_t gbase = head_base<D>(grad, bi, S, hi) + (size_t)(k0 + r0) * grad.ld;
+  const size_t gbase = head_base<D>(grad, bi, hi) + (size_t)(k0 + r0) * grad.ld;
   store_rows<D>(dk + gbase, grad.ld, dk_acc, sS + r0 * LDS, scale);
   store_rows<D>(dv + gbase, grad.ld, dv_acc, sS + r0 * LDS, 1.f);
 }
@@ -411,11 +425,11 @@ __device__ __forceinline__ void dq_body(const bf16* __restrict__ q, const bf16* 
   const int q0 = blockIdx.x * BM, hi = blockIdx.y, bi = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = warp * 16;  // this warp's q rows
-  const size_t base = head_base<D>(in, bi, S, hi);
+  const size_t base = head_base<D>(in, bi, hi);
   const size_t rows = ((size_t)bi * H + hi) * S;
 
   load_tile<D>(sQ, q + base + (size_t)q0 * in.ld, in.ld);
-  load_tile<D>(sdO, dout + head_base<D>(od, bi, S, hi) + (size_t)q0 * od.ld, od.ld);
+  load_tile<D>(sdO, dout + head_base<D>(od, bi, hi) + (size_t)q0 * od.ld, od.ld);
   load_rows(sLse, lse + rows + q0);
   load_rows(sDelta, delta + rows + q0);
   FragC dq_acc[D / 16];
@@ -454,35 +468,95 @@ __device__ __forceinline__ void dq_body(const bf16* __restrict__ q, const bf16* 
     gemm_acc<D>(dq_acc, sP + r0 * LDP, sK);  // dQ += dS K
   }
 
-  const size_t gbase = head_base<D>(grad, bi, S, hi) + (size_t)(q0 + r0) * grad.ld;
+  const size_t gbase = head_base<D>(grad, bi, hi) + (size_t)(q0 + r0) * grad.ld;
   store_rows<D>(dq + gbase, grad.ld, dq_acc, sS + r0 * LDS, scale);
+}
+
+// delta[b, h, s] = sum_d dO * O in f32, one warp per (b, h, s) row of D
+// values, each operand read through its own layout.
+template <int D>
+__device__ __forceinline__ void delta_rows_body(const bf16* __restrict__ dout, Layout od,
+                                                const bf16* __restrict__ o, Layout ol,
+                                                float* __restrict__ delta, int B, int S, int H) {
+  constexpr int PAIRS = D / 64;  // bf16 pairs per lane
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;  // over (b, h, s)
+  const int lane = threadIdx.x % 32;
+  if (row >= B * H * S) return;  // uniform across the warp
+  const int si = row % S, hi = (row / S) % H, bi = row / (S * H);
+  const int col = lane * 2 * PAIRS;
+  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(
+      dout + head_base<D>(od, bi, hi) + (size_t)si * od.ld + col);
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(
+      o + head_base<D>(ol, bi, hi) + (size_t)si * ol.ld + col);
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < PAIRS; ++i) {
+    const float2 x = __bfloat1622float2(a[i]), y = __bfloat1622float2(b[i]);
+    acc += x.x * y.x + x.y * y.y;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
 }
 
 // The layout of contiguous [b, s, h*D] operands.
 template <int D>
-__host__ __device__ __forceinline__ Layout dense(int H) {
-  return Layout{H * D, LANES};
+__host__ __device__ __forceinline__ Layout dense(int S, int H) {
+  return Layout{H * D, LANES, D, S * H * D};
+}
+
+// The layout of lane-group operands (rows `ld` apart, 128-lane groups
+// `group` apart, rows packed by batch).
+template <int D>
+__host__ __device__ __forceinline__ Layout lane_grouped(int ld, int group, int S) {
+  return Layout{ld, group, D, S * ld};
+}
+
+// The layout of a per-head [b, h, s, D] operand with unit stride along D
+// and the given row, head and batch strides (contiguous: D, S*D, H*S*D).
+template <int D>
+__host__ __device__ __forceinline__ Layout per_head(int ld, int head, int batch) {
+  return Layout{ld, (LANES / D) * head, head, batch};
 }
 
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// Kernels: head dim 128 on contiguous [b, s, h*128] operands, and head dim
-// 64 on operands of any Layout (the gradients and dout of theirs).
+// Kernels: head dim 128 on contiguous [b, s, h*128] operands; head dim 64 on
+// lane-group operands (the gradients and dout of theirs); and, at either
+// head dim, per-head [b, h, s, d] operands of any row, head and batch
+// strides (the _bhsd kernels).
 // ---------------------------------------------------------------------------
 
 extern "C" __global__ void __launch_bounds__(NTHREADS)
 ff_flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
                     float* __restrict__ lse, int S, int H, int causal, float scale) {
-  fwd_body<128>(q, k, v, dense<128>(H), o, dense<128>(H), lse, S, H, causal, scale);
+  const Layout l = dense<128>(S, H);
+  fwd_body<128>(q, k, v, l, o, l, lse, S, H, causal, scale);
 }
 
 extern "C" __global__ void __launch_bounds__(NTHREADS)
 ff_flash_fwd_d64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, Layout in, bf16* __restrict__ o,
                         float* __restrict__ lse, int S, int H, int causal, float scale) {
-  fwd_body<64>(q, k, v, in, o, dense<64>(H), lse, S, H, causal, scale);
+  fwd_body<64>(q, k, v, in, o, dense<64>(S, H), lse, S, H, causal, scale);
+}
+
+extern "C" __global__ void __launch_bounds__(NTHREADS)
+ff_flash_fwd_bhsd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, Layout in, bf16* __restrict__ o,
+                         Layout out, float* __restrict__ lse, int S, int H, int causal,
+                         float scale) {
+  fwd_body<128>(q, k, v, in, o, out, lse, S, H, causal, scale);
+}
+
+extern "C" __global__ void __launch_bounds__(NTHREADS)
+ff_flash_fwd_bhsd_d64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, Layout in, bf16* __restrict__ o,
+                             Layout out, float* __restrict__ lse, int S, int H, int causal,
+                             float scale) {
+  fwd_body<64>(q, k, v, in, o, out, lse, S, H, causal, scale);
 }
 
 extern "C" __global__ void ff_flash_delta_kernel(const bf16* __restrict__ dout,
@@ -499,13 +573,27 @@ extern "C" __global__ void ff_flash_delta_d64_kernel(const bf16* __restrict__ do
   delta_body<64>(dout, o, delta, B, S, H);
 }
 
+extern "C" __global__ void ff_flash_delta_bhsd_kernel(const bf16* __restrict__ dout, Layout od,
+                                                      const bf16* __restrict__ o, Layout ol,
+                                                      float* __restrict__ delta, int B, int S,
+                                                      int H) {
+  delta_rows_body<128>(dout, od, o, ol, delta, B, S, H);
+}
+
+extern "C" __global__ void ff_flash_delta_bhsd_d64_kernel(const bf16* __restrict__ dout,
+                                                          Layout od, const bf16* __restrict__ o,
+                                                          Layout ol, float* __restrict__ delta,
+                                                          int B, int S, int H) {
+  delta_rows_body<64>(dout, od, o, ol, delta, B, S, H);
+}
+
 extern "C" __global__ void __launch_bounds__(NTHREADS)
 ff_flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H,
                         int causal, float scale) {
-  const Layout l = dense<128>(H);
+  const Layout l = dense<128>(S, H);
   dkv_body<128>(q, k, v, l, dout, l, lse, delta, dk, dv, l, S, H, causal, scale);
 }
 
@@ -516,7 +604,29 @@ ff_flash_bwd_dkv_d64_kernel(const bf16* __restrict__ q, const bf16* __restrict__
                             const float* __restrict__ delta, bf16* __restrict__ dk,
                             bf16* __restrict__ dv, Layout grad, int S, int H, int causal,
                             float scale) {
-  dkv_body<64>(q, k, v, in, dout, dense<64>(H), lse, delta, dk, dv, grad, S, H, causal, scale);
+  dkv_body<64>(q, k, v, in, dout, dense<64>(S, H), lse, delta, dk, dv, grad, S, H, causal,
+               scale);
+}
+
+extern "C" __global__ void __launch_bounds__(NTHREADS)
+ff_flash_bwd_dkv_bhsd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, Layout in,
+                             const bf16* __restrict__ dout, Layout od,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             bf16* __restrict__ dk, bf16* __restrict__ dv, Layout grad, int S,
+                             int H, int causal, float scale) {
+  dkv_body<128>(q, k, v, in, dout, od, lse, delta, dk, dv, grad, S, H, causal, scale);
+}
+
+extern "C" __global__ void __launch_bounds__(NTHREADS)
+ff_flash_bwd_dkv_bhsd_d64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v, Layout in,
+                                 const bf16* __restrict__ dout, Layout od,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ delta, bf16* __restrict__ dk,
+                                 bf16* __restrict__ dv, Layout grad, int S, int H, int causal,
+                                 float scale) {
+  dkv_body<64>(q, k, v, in, dout, od, lse, delta, dk, dv, grad, S, H, causal, scale);
 }
 
 extern "C" __global__ void __launch_bounds__(NTHREADS)
@@ -524,7 +634,7 @@ ff_flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ delta,
                        bf16* __restrict__ dq, int S, int H, int causal, float scale) {
-  const Layout l = dense<128>(H);
+  const Layout l = dense<128>(S, H);
   dq_body<128>(q, k, v, l, dout, l, lse, delta, dq, l, S, H, causal, scale);
 }
 
@@ -534,15 +644,39 @@ ff_flash_bwd_dq_d64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
                            const bf16* __restrict__ dout, const float* __restrict__ lse,
                            const float* __restrict__ delta, bf16* __restrict__ dq,
                            Layout grad, int S, int H, int causal, float scale) {
-  dq_body<64>(q, k, v, in, dout, dense<64>(H), lse, delta, dq, grad, S, H, causal, scale);
+  dq_body<64>(q, k, v, in, dout, dense<64>(S, H), lse, delta, dq, grad, S, H, causal, scale);
+}
+
+extern "C" __global__ void __launch_bounds__(NTHREADS)
+ff_flash_bwd_dq_bhsd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, Layout in,
+                            const bf16* __restrict__ dout, Layout od,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            bf16* __restrict__ dq, Layout grad, int S, int H, int causal,
+                            float scale) {
+  dq_body<128>(q, k, v, in, dout, od, lse, delta, dq, grad, S, H, causal, scale);
+}
+
+extern "C" __global__ void __launch_bounds__(NTHREADS)
+ff_flash_bwd_dq_bhsd_d64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                const bf16* __restrict__ v, Layout in,
+                                const bf16* __restrict__ dout, Layout od,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta, bf16* __restrict__ dq,
+                                Layout grad, int S, int H, int causal, float scale) {
+  dq_body<64>(q, k, v, in, dout, od, lse, delta, dq, grad, S, H, causal, scale);
 }
 
 // ---------------------------------------------------------------------------
 // C interface (ctypes). lse and delta are contiguous [B, H, S] f32; S is a
-// multiple of 64. At d=128 every other operand is a contiguous
-// [B, S, H*128] bf16. At d=64, q/k/v (and the gradients) are read (and
-// written) at rows `ld` apart with 128-lane groups `group` apart, while o
-// and dout are contiguous [B, S, H*64]. The caller checks all of this.
+// multiple of 64. At d=128 every other operand of the bshf entries is a
+// contiguous [B, S, H*128] bf16. At d=64, q/k/v (and the gradients) are
+// read (and written) at rows `ld` apart with 128-lane groups `group` apart,
+// while o and dout are contiguous [B, S, H*64]. The _bhsd entries take
+// d = 64 or 128 and per-head [B, H, S, d] operands, each given by its row,
+// head and batch strides in elements (unit stride along d); q, k and v
+// share one set, as do dq, dk and dv. The caller checks all of this,
+// including 16-byte alignment of every row.
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -580,9 +714,35 @@ extern "C" int ff_flash_fwd_d64(const void* q, const void* k, const void* v, int
   if (err != cudaSuccess) return (int)err;
   ff_flash_fwd_d64_kernel<<<dim3(S / BM, H, B), NTHREADS, Tiles<64>::FWD_SMEM,
                             (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, Layout{ld, group}, (bf16*)o,
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, lane_grouped<64>(ld, group, S), (bf16*)o,
       (float*)lse, S, H, causal, softmax_scale<64>());
   return (int)cudaGetLastError();
+}
+
+template <int D, typename K>
+static int fwd_bhsd(K kernel, const void* q, const void* k, const void* v, Layout in, void* o,
+                    Layout out, void* lse, int B, int S, int H, int causal,
+                    cudaStream_t stream) {
+  cudaError_t err = allow_smem(kernel, Tiles<D>::FWD_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(S / BM, H, B), NTHREADS, Tiles<D>::FWD_SMEM, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, in, (bf16*)o, out, (float*)lse, S, H,
+      causal, softmax_scale<D>());
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ff_flash_fwd_bhsd(int d, const void* q, const void* k, const void* v, int ld,
+                                 int head, int batch, void* o, int o_ld, int o_head,
+                                 int o_batch, void* lse, int B, int S, int H, int causal,
+                                 void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d == 128)
+    return fwd_bhsd<128>(ff_flash_fwd_bhsd_kernel, q, k, v, per_head<128>(ld, head, batch), o,
+                         per_head<128>(o_ld, o_head, o_batch), lse, B, S, H, causal, s);
+  if (d == 64)
+    return fwd_bhsd<64>(ff_flash_fwd_bhsd_d64_kernel, q, k, v, per_head<64>(ld, head, batch), o,
+                        per_head<64>(o_ld, o_head, o_batch), lse, B, S, H, causal, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int ff_flash_delta(const void* dout, const void* o, void* delta, int B, int S, int H,
@@ -597,6 +757,25 @@ extern "C" int ff_flash_delta_d64(const void* dout, const void* o, void* delta, 
   ff_flash_delta_d64_kernel<<<delta_blocks(B, S, H), DELTA_WARPS * 32, 0,
                               (cudaStream_t)stream>>>(
       (const bf16*)dout, (const bf16*)o, (float*)delta, B, S, H);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ff_flash_delta_bhsd(int d, const void* dout, int ld, int head, int batch,
+                                   const void* o, int o_ld, int o_head, int o_batch, void* delta,
+                                   int B, int S, int H, void* stream) {
+  const int blocks = delta_blocks(B, S, H);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d == 128) {
+    ff_flash_delta_bhsd_kernel<<<blocks, DELTA_WARPS * 32, 0, s>>>(
+        (const bf16*)dout, per_head<128>(ld, head, batch), (const bf16*)o,
+        per_head<128>(o_ld, o_head, o_batch), (float*)delta, B, S, H);
+  } else if (d == 64) {
+    ff_flash_delta_bhsd_d64_kernel<<<blocks, DELTA_WARPS * 32, 0, s>>>(
+        (const bf16*)dout, per_head<64>(ld, head, batch), (const bf16*)o,
+        per_head<64>(o_ld, o_head, o_batch), (float*)delta, B, S, H);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -628,7 +807,7 @@ extern "C" int ff_flash_bwd_d64(const void* q, const void* k, const void* v, int
   err = allow_smem(ff_flash_bwd_dq_d64_kernel, Tiles<64>::DQ_SMEM);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  const Layout in{ld, group}, grad{grad_ld, grad_group};
+  const Layout in = lane_grouped<64>(ld, group, S), grad = lane_grouped<64>(grad_ld, grad_group, S);
   ff_flash_bwd_dkv_d64_kernel<<<dim3(S / BN, H, B), NTHREADS, Tiles<64>::DKV_SMEM, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, in, (const bf16*)dout, (const float*)lse,
       (const float*)delta, (bf16*)dk, (bf16*)dv, grad, S, H, causal, softmax_scale<64>());
@@ -640,12 +819,53 @@ extern "C" int ff_flash_bwd_d64(const void* q, const void* k, const void* v, int
   return (int)cudaGetLastError();
 }
 
+template <int D, typename KDKV, typename KDQ>
+static int bwd_bhsd(KDKV dkv, KDQ dqk, const void* q, const void* k, const void* v, Layout in,
+                    const void* dout, Layout od, const void* lse, const void* delta, void* dq,
+                    void* dk, void* dv, Layout grad, int B, int S, int H, int causal,
+                    cudaStream_t s) {
+  cudaError_t err = allow_smem(dkv, Tiles<D>::DKV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  err = allow_smem(dqk, Tiles<D>::DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dkv<<<dim3(S / BN, H, B), NTHREADS, Tiles<D>::DKV_SMEM, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, in, (const bf16*)dout, od,
+      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, grad, S, H, causal,
+      softmax_scale<D>());
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dqk<<<dim3(S / BM, H, B), NTHREADS, Tiles<D>::DQ_SMEM, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, in, (const bf16*)dout, od,
+      (const float*)lse, (const float*)delta, (bf16*)dq, grad, S, H, causal, softmax_scale<D>());
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ff_flash_bwd_bhsd(int d, const void* q, const void* k, const void* v, int ld,
+                                 int head, int batch, const void* dout, int o_ld, int o_head,
+                                 int o_batch, const void* lse, const void* delta, void* dq,
+                                 void* dk, void* dv, int g_ld, int g_head, int g_batch, int B,
+                                 int S, int H, int causal, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d == 128)
+    return bwd_bhsd<128>(ff_flash_bwd_dkv_bhsd_kernel, ff_flash_bwd_dq_bhsd_kernel, q, k, v,
+                         per_head<128>(ld, head, batch), dout,
+                         per_head<128>(o_ld, o_head, o_batch), lse, delta, dq, dk, dv,
+                         per_head<128>(g_ld, g_head, g_batch), B, S, H, causal, s);
+  if (d == 64)
+    return bwd_bhsd<64>(ff_flash_bwd_dkv_bhsd_d64_kernel, ff_flash_bwd_dq_bhsd_d64_kernel, q, k,
+                        v, per_head<64>(ld, head, batch), dout,
+                        per_head<64>(o_ld, o_head, o_batch), lse, delta, dq, dk, dv,
+                        per_head<64>(g_ld, g_head, g_batch), B, S, H, causal, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 extern "C" const char* ff_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
 // Dynamic shared memory of each kernel, for the build report: 0-2 the
-// d=128 fwd, dkv and dq kernels, 3-5 the d=64 ones.
+// d=128 fwd, dkv and dq kernels, 3-5 the d=64 ones (the _bhsd kernels of
+// each head dim use the same).
 extern "C" int ff_flash_smem_bytes(int which) {
   switch (which) {
     case 0: return (int)Tiles<128>::FWD_SMEM;

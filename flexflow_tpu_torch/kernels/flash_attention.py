@@ -1,6 +1,6 @@
-"""Flash attention on seq-major [b, s, h*d] tensors: hand-written CUDA
-kernels for Hopper, their plain PyTorch versions, and the autograd
-Functions that tie them together.
+"""Flash attention on seq-major [b, s, h*d] and on per-head [b, h, s, d]
+tensors: hand-written CUDA kernels for Hopper, their plain PyTorch
+versions, and the autograd Functions that tie them together.
 
 Replaces the bshf Pallas path of flexflow_tpu/kernels/flash_attention.py:
 
@@ -17,6 +17,16 @@ Replaces the bshf Pallas path of flexflow_tpu/kernels/flash_attention.py:
 - flash_bwd_d64   <- _bwd_pair_core via _bwd_bshf_pair_fused and
                      _bwd_bshf_pair_fused_qkv, split as flash_bwd is
 
+and the per-head path (`flash_attention`, the counterpart of the JAX
+package's entry of that name), at d = 64 or 128:
+
+- flash_fwd_bhsd   <- _fwd_kernel_b (batch-folded) and _fwd_kernel (the
+                      online-softmax loop) via _fwd
+- flash_delta_bhsd <- _delta_kernel via _delta_rows
+- flash_bwd_bhsd   <- _bwd_fused_kernel_b via _bwd_rows_fused (s <= block)
+                      and _bwd_dq_kernel/_bwd_dkv_kernel via _bwd (s >
+                      block), split as flash_bwd is
+
 The d=128 wrappers take contiguous [b, s, h*128] operands. The d=64 ones
 take q, k and v (and write dq, dk and dv) as lane-group views
 [b, s, h/2, 128] with free row and group strides: `lane_groups` of separate
@@ -26,12 +36,23 @@ g holds [q_pair | k_pair | v_pair] in 384 lanes. So one kernel serves both
 layouts and the fused projection needs no slicing copy, and its gradient
 no concat.
 
+The per-head wrappers take [b, h, s, d] operands by their strides (unit
+stride along d, rows 16-byte aligned): contiguous tensors, and the view
+that the per-head projection einsum returns, which lies in memory as
+[b, s, h, d]. `FlashAttentionBHSD` makes one contiguous copy of an operand
+only when the kernels cannot read it as it is.
+
 Each wrapper runs its plain version for tensors on the CPU, and launches its
 kernel for tensors on a CUDA device, or raises: there is no fallback. The
 kernels take bf16, head dim 64 or 128, and a sequence that is a multiple of
-64; `flash_attention_supported` is the gate callers use. What bounds each
-kernel on the card, and what its design does about it, is in the note at
-the top of csrc/flash_attention.cu.
+64; `flash_attention_bshf_supported` and `flash_attention_supported` are the
+gates callers use. What bounds each kernel on the card, and what its design
+does about it, is in the note at the top of csrc/flash_attention.cu.
+
+`flash_mesh(group)` declares that the code traced within runs on one rank
+of a data-parallel process group (the port's copy of the JAX package's
+SPMD context); `kernels/ops.py` then routes attention through
+`sharded_flash_attention`.
 
 lse is kept in natural log ([b, h, s], f32); the TPU kernels keep it in
 base 2 ([b, h, 1, s]), which is lse·log2(e).
@@ -39,8 +60,10 @@ base 2 ([b, h, 1, s]), which is lse·log2(e).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
+import threading
 from typing import Tuple
 
 import torch
@@ -60,6 +83,12 @@ _SIGNATURES = {
     "ff_flash_delta_d64": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "ff_flash_bwd_d64": (
         [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I
+    ),
+    "ff_flash_fwd_bhsd": ([_I, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P], _I),
+    "ff_flash_delta_bhsd": ([_I, _P, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P], _I),
+    "ff_flash_bwd_bhsd": (
+        [_I, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+         _I, _I, _I, _I, _P], _I
     ),
     "ff_flash_smem_bytes": ([_I], _I),
     "ff_error_string": ([_I], ctypes.c_char_p),
@@ -84,19 +113,36 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def flash_attention_supported(shape, num_heads: int, dtype: torch.dtype, device) -> bool:
-    """Can the flash path take self-attention operands of this [b, s, h*d]
-    shape? On a CUDA device the kernels need bf16, d of 128, or of 64 with
-    an even head count, and s a multiple of the 64-row tile; on the CPU the
-    plain versions take the same shapes in any float dtype."""
+def _dtype_ok(dtype: torch.dtype, device) -> bool:
+    """bf16 for the kernels on a CUDA device; any float dtype for the plain
+    versions on the CPU."""
+    if torch.device(device).type == "cuda":
+        return dtype == torch.bfloat16
+    return dtype.is_floating_point
+
+
+def flash_attention_bshf_supported(shape, num_heads: int, dtype: torch.dtype, device) -> bool:
+    """Can the seq-major flash path take self-attention operands of this
+    [b, s, h*d] shape? The kernels need d of 128, or of 64 with an even head
+    count, and s a multiple of the 64-row tile."""
     if len(shape) != 3 or shape[1] % TILE or shape[2] % num_heads:
         return False
     d = shape[2] // num_heads
     if d not in HEAD_DIMS or (d == 64 and num_heads % 2):
         return False
-    if torch.device(device).type == "cuda":
-        return dtype == torch.bfloat16
-    return dtype.is_floating_point
+    return _dtype_ok(dtype, device)
+
+
+def flash_attention_supported(q_shape, k_shape, v_shape, dtype: torch.dtype, device) -> bool:
+    """Can the per-head flash path take q, k and v of these [b, h, s, d]
+    shapes? The kernels need one shape for all three, d of 64 or 128, and s
+    a multiple of the 64-row tile."""
+    q_shape = tuple(q_shape)
+    if len(q_shape) != 4 or tuple(k_shape) != q_shape or tuple(v_shape) != q_shape:
+        return False
+    if q_shape[3] not in HEAD_DIMS or q_shape[2] % TILE:
+        return False
+    return _dtype_ok(dtype, device)
 
 
 def _check_cuda(name: str, num_heads: int, d: int, *tensors: torch.Tensor) -> Tuple[int, int, int]:
@@ -146,6 +192,43 @@ def _check_groups(name: str, num_heads: int, *views: torch.Tensor) -> Tuple[int,
             raise ValueError(f"{name}: operands must start 16-byte aligned with strides a "
                              f"multiple of 8, got strides {t.stride()}")
     return ld, group
+
+
+def _readable_strides(strides) -> bool:
+    """Unit stride along d; row, head and batch strides multiples of 8
+    elements (16-byte tile loads) that fit the kernels' int."""
+    return strides[3] == 1 and all(x % 8 == 0 and 0 <= x < 2**31 for x in strides[:3])
+
+
+def bhsd_readable(t: torch.Tensor) -> bool:
+    """Can the per-head kernels read this [b, h, s, d] tensor in place?"""
+    return t.dim() == 4 and _readable_strides(t.stride()) and t.data_ptr() % 16 == 0
+
+
+def _check_bhsd(name: str, shape, *tensors: torch.Tensor) -> Tuple[int, int, int]:
+    """Raise unless the tensors are bf16 [b, h, s, d] of `shape` with d in
+    HEAD_DIMS and s a multiple of the tile, readable in place, sharing one
+    set of strides, on the CUDA device of the first; return its (row, head,
+    batch) strides in elements."""
+    if shape[3] not in HEAD_DIMS or shape[2] % TILE:
+        raise ValueError(f"{name}: kernel takes [b, h, s, d] with d in {HEAD_DIMS} and s a "
+                         f"multiple of {TILE}, got {tuple(shape)}")
+    strides = tensors[0].stride()
+    for t in tensors:
+        if tuple(t.shape) != tuple(shape) or t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: operands must be bf16 {tuple(shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.stride() != strides or not _readable_strides(strides):
+            raise ValueError(f"{name}: operands must share strides with unit stride along d and "
+                             f"the others multiples of 8, got {[x.stride() for x in tensors]}")
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: tensors must lie on the CPU or a CUDA device, got "
+                             f"{t.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must start 16-byte aligned")
+    return strides[2], strides[1], strides[0]
 
 
 def _check_rows(name: str, t: torch.Tensor, b: int, h: int, s: int, dev) -> None:
@@ -211,12 +294,26 @@ def _scores(q4: torch.Tensor, k4: torch.Tensor, causal: bool) -> torch.Tensor:
     return scores
 
 
+def _attend(q4, k4, v4, causal: bool):
+    """(o, lse) of f32 [b, h, s, d] operands."""
+    scores = _scores(q4, k4, causal)
+    lse = torch.logsumexp(scores, dim=-1)
+    return torch.exp(scores - lse[..., None]) @ v4, lse
+
+
+def _attend_bwd(q4, k4, v4, do4, lse, delta, causal: bool):
+    """(dq, dk, dv) of f32 [b, h, s, d] operands, with P rebuilt from lse."""
+    scale = 1.0 / math.sqrt(q4.shape[-1])
+    p = torch.exp(_scores(q4, k4, causal) - lse[..., None])
+    dv = p.transpose(-1, -2) @ do4
+    ds = p * (do4 @ v4.transpose(-1, -2) - delta[..., None])
+    return (ds @ k4) * scale, (ds.transpose(-1, -2) @ q4) * scale, dv
+
+
 def flash_fwd_plain(q, k, v, num_heads: int, causal: bool = False):
     """(o [b, s, h*d] in q's dtype, lse [b, h, s] f32), computed in f32."""
-    scores = _scores(_heads(q, num_heads), _heads(k, num_heads), causal)
-    lse = torch.logsumexp(scores, dim=-1)
-    p = torch.exp(scores - lse[..., None])
-    return _bshf(p @ _heads(v, num_heads), q.dtype), lse
+    o, lse = _attend(*(_heads(t, num_heads) for t in (q, k, v)), causal)
+    return _bshf(o, q.dtype), lse
 
 
 def flash_delta_plain(do, o, num_heads: int):
@@ -227,14 +324,26 @@ def flash_delta_plain(do, o, num_heads: int):
 def flash_bwd_plain(q, k, v, do, lse, delta, num_heads: int, causal: bool = False):
     """(dq, dk, dv) in the operands' dtypes, computed in f32 with P rebuilt
     from lse."""
-    q4, k4, v4, do4 = (_heads(t, num_heads) for t in (q, k, v, do))
-    scale = 1.0 / math.sqrt(q4.shape[-1])
-    p = torch.exp(_scores(q4, k4, causal) - lse[..., None])
-    dv = p.transpose(-1, -2) @ do4
-    ds = p * (do4 @ v4.transpose(-1, -2) - delta[..., None])
-    dq = (ds @ k4) * scale
-    dk = (ds.transpose(-1, -2) @ q4) * scale
-    return _bshf(dq, q.dtype), _bshf(dk, k.dtype), _bshf(dv, v.dtype)
+    grads = _attend_bwd(*(_heads(t, num_heads) for t in (q, k, v, do)), lse, delta, causal)
+    return tuple(_bshf(g, t.dtype) for g, t in zip(grads, (q, k, v)))
+
+
+def flash_fwd_bhsd_plain(q, k, v, causal: bool = False):
+    """(o [b, h, s, d] in q's dtype, lse [b, h, s] f32) of per-head
+    operands, computed in f32."""
+    o, lse = _attend(q.float(), k.float(), v.float(), causal)
+    return o.to(q.dtype), lse
+
+
+def flash_delta_bhsd_plain(do, o):
+    """delta [b, h, s] = sum over d of dO*O of per-head operands, in f32."""
+    return (do.float() * o.float()).sum(-1)
+
+
+def flash_bwd_bhsd_plain(q, k, v, do, lse, delta, causal: bool = False):
+    """(dq, dk, dv) of per-head operands in their dtypes, computed in f32."""
+    grads = _attend_bwd(q.float(), k.float(), v.float(), do.float(), lse, delta, causal)
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
 
 
 def flash_fwd_qkv_plain(qkv, num_heads: int, causal: bool = False):
@@ -357,7 +466,74 @@ def flash_bwd_d64(q, k, v, do, lse, delta, dq, dk, dv, num_heads: int, causal: b
 
 flash_bwd_d64.launches = 0
 
-KERNEL_WRAPPERS = (flash_fwd, flash_delta, flash_bwd, flash_fwd_d64, flash_delta_d64, flash_bwd_d64)
+def _strides(t: torch.Tensor) -> Tuple[int, int, int]:
+    """(row, head, batch) strides of a [b, h, s, d] tensor."""
+    return t.stride(2), t.stride(1), t.stride(0)
+
+
+def flash_fwd_bhsd(q, k, v, causal: bool = False):
+    """(o, lse [b, h, s] f32) of softmax(q k^T / sqrt(d)) v on per-head
+    [b, h, s, d] operands sharing one set of strides; o takes q's."""
+    if q.device.type == "cpu":
+        return flash_fwd_bhsd_plain(q, k, v, causal)
+    b, h, s, d = q.shape
+    layout = _check_bhsd("flash_fwd_bhsd", q.shape, q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    _launch("ff_flash_fwd_bhsd", d, q.data_ptr(), k.data_ptr(), v.data_ptr(), *layout,
+            o.data_ptr(), *_strides(o), lse.data_ptr(), b, s, h, int(causal), _stream(q))
+    flash_fwd_bhsd.launches += 1
+    return o, lse
+
+
+flash_fwd_bhsd.launches = 0
+
+
+def flash_delta_bhsd(do, o):
+    """delta [b, h, s] f32 = rowsum(dO * O) of per-head [b, h, s, d]
+    operands, each read by its own strides."""
+    if do.device.type == "cpu":
+        return flash_delta_bhsd_plain(do, o)
+    b, h, s, d = do.shape
+    do_layout = _check_bhsd("flash_delta_bhsd do", do.shape, do)
+    o_layout = _check_bhsd("flash_delta_bhsd o", do.shape, o)
+    if o.device != do.device:
+        raise ValueError(f"flash_delta_bhsd: do on {do.device}, o on {o.device}")
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=do.device)
+    _launch("ff_flash_delta_bhsd", d, do.data_ptr(), *do_layout, o.data_ptr(), *o_layout,
+            delta.data_ptr(), b, s, h, _stream(do))
+    flash_delta_bhsd.launches += 1
+    return delta
+
+
+flash_delta_bhsd.launches = 0
+
+
+def flash_bwd_bhsd(q, k, v, do, lse, delta, causal: bool = False):
+    """(dq, dk, dv), each with its operand's strides, from the saved
+    forward and delta; q, k and v share one set of strides, do has its
+    own."""
+    if q.device.type == "cpu":
+        return flash_bwd_bhsd_plain(q, k, v, do, lse, delta, causal)
+    b, h, s, d = q.shape
+    layout = _check_bhsd("flash_bwd_bhsd", q.shape, q, k, v)
+    do_layout = _check_bhsd("flash_bwd_bhsd do", q.shape, do)
+    if do.device != q.device:
+        raise ValueError(f"flash_bwd_bhsd: do on {do.device}, q on {q.device}")
+    _check_rows("flash_bwd_bhsd lse", lse, b, h, s, q.device)
+    _check_rows("flash_bwd_bhsd delta", delta, b, h, s, q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _launch("ff_flash_bwd_bhsd", d, q.data_ptr(), k.data_ptr(), v.data_ptr(), *layout,
+            do.data_ptr(), *do_layout, lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), *_strides(dq), b, s, h, int(causal), _stream(q))
+    flash_bwd_bhsd.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd_bhsd.launches = 0
+
+KERNEL_WRAPPERS = (flash_fwd, flash_delta, flash_bwd, flash_fwd_d64, flash_delta_d64, flash_bwd_d64,
+                   flash_fwd_bhsd, flash_delta_bhsd, flash_bwd_bhsd)
 
 
 def reset_launch_counts() -> None:
@@ -434,3 +610,73 @@ def flash_attention_bshf_qkv(qkv, num_heads: int, causal: bool = False):
         raise ValueError(f"flash_attention_bshf_qkv: takes [b, s, 3*h*64] with h even, got "
                          f"{tuple(qkv.shape)} with {num_heads} heads")
     return FlashAttentionQKV.apply(qkv, num_heads, causal)
+
+
+class FlashAttentionBHSD(torch.autograd.Function):
+    """Attention on per-head [b, h, s, d] operands (d = 64 or 128) whose
+    gradient runs the delta and backward kernels. On a CUDA device an
+    operand the kernels cannot read in place (`bhsd_readable`), or q, k and
+    v of differing strides, costs one contiguous copy. The forward saves
+    (q, k, v, o, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool = False):
+        if q.device.type == "cuda" and not (
+            all(map(bhsd_readable, (q, k, v))) and q.stride() == k.stride() == v.stride()
+        ):
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_fwd_bhsd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.device.type == "cuda" and not bhsd_readable(do):
+            do = do.contiguous()
+        delta = flash_delta_bhsd(do, o)
+        dq, dk, dv = flash_bwd_bhsd(q, k, v, do, lse, delta, ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, causal: bool = False):
+    """Self-attention on per-head [b, h, s, d] tensors; returns [b, h, s, d]
+    (the counterpart of the JAX package's flash_attention)."""
+    return FlashAttentionBHSD.apply(q, k, v, causal)
+
+
+# -- data-parallel context --------------------------------------------------
+
+_tls = threading.local()
+
+
+@contextlib.contextmanager
+def flash_mesh(group):
+    """Declare that attention traced within runs on one rank of the
+    data-parallel process group `group` (None: the default group), on the
+    rank's own block of the batch: `kernels/ops.py` then routes it through
+    sharded_flash_attention."""
+    prev = getattr(_tls, "group", None)
+    _tls.group = (group,)
+    try:
+        yield
+    finally:
+        _tls.group = prev
+
+
+def current_flash_mesh():
+    """The `(group,)` of the innermost flash_mesh, or None outside one."""
+    return getattr(_tls, "group", None)
+
+
+def sharded_flash_supported(q_shape, k_shape, v_shape, dtype: torch.dtype, device) -> bool:
+    """The gate of sharded_flash_attention. Each rank already holds its
+    local block of the batch, so the local shape is the shape it is given."""
+    return flash_attention_supported(q_shape, k_shape, v_shape, dtype, device)
+
+
+def sharded_flash_attention(q, k, v, causal: bool = False):
+    """Attention on this rank's [b/N, h, s, d] block. Attention is parallel
+    over batch and heads, so no collective is needed, as on the TPU."""
+    return flash_attention(q, k, v, causal)

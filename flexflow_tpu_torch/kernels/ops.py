@@ -17,9 +17,12 @@ import torch
 import torch.nn.functional as F
 
 from flexflow_tpu_torch.kernels.flash_attention import (
+    current_flash_mesh,
     flash_attention_bshf,
     flash_attention_bshf_qkv,
-    flash_attention_supported,
+    flash_attention_bshf_supported,
+    sharded_flash_attention,
+    sharded_flash_supported,
 )
 from flexflow_tpu_torch.op_attrs.activation import gelu
 from flexflow_tpu_torch.op_attrs.core import OpAttrs
@@ -149,32 +152,47 @@ def mha_project_qkv_bshf_fused(attrs: MultiHeadAttentionAttrs, x, weight, input_
     return qkv, wo2
 
 
+def _dense_context(qp, kp, vp, causal=False):
+    """softmax(qp kp^T / sqrt(d)) vp on per-head tensors, through a
+    materialized [s, t] softmax in the operands' dtype."""
+    scores = torch.einsum("bhsk,bhtk->bhst", qp, kp) / math.sqrt(qp.shape[-1])
+    if causal:
+        s, t = scores.shape[-2:]
+        mask = torch.ones(s, t, dtype=torch.bool, device=scores.device).tril()
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    return torch.einsum("bhst,bhtv->bhsv", torch.softmax(scores, dim=-1), vp)
+
+
 def dense_attention(attrs: MultiHeadAttentionAttrs, q, k, v, weight, input_bias=None,
                     causal=False):
     """Attention through the per-head projections and a materialized [s, t]
     softmax, in the operands' dtype."""
     qp, kp, vp, wo = mha_project_qkv(attrs, q, k, v, weight, input_bias)
-    scores = torch.einsum("bhsk,bhtk->bhst", qp, kp) / math.sqrt(attrs.q_proj_size)
-    if causal:
-        s, t = scores.shape[-2:]
-        mask = torch.ones(s, t, dtype=torch.bool, device=scores.device).tril()
-        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
-    ctx = torch.einsum("bhst,bhtv->bhsv", torch.softmax(scores, dim=-1), vp)
-    return torch.einsum("bhsv,veh->bse", ctx, wo)
+    return torch.einsum("bhsv,veh->bse", _dense_context(qp, kp, vp, causal), wo)
 
 
 def _mha_forward(attrs: MultiHeadAttentionAttrs, q, k, v, weight, input_bias=None,
                  causal=False):
-    """Self-attention-shaped operands the kernels take ride the seq-major
-    flash path; everything else takes the dense path. At d=64 with q, k and
-    v one tensor, as in the JAX package, one fused projection feeds the
+    """Under a flash_mesh (the data-parallel trainer), as in the JAX
+    package, the per-head projections feed sharded_flash_attention on the
+    rank's own block, or the dense path where the kernels do not take the
+    shapes. Otherwise self-attention-shaped operands the kernels take ride
+    the seq-major flash path, and everything else the dense path. At d=64
+    with q, k and v one tensor, one fused projection feeds the
     interleaved-QKV entry and one dqkv flows back."""
+    if current_flash_mesh() is not None:
+        qp, kp, vp, wo = mha_project_qkv(attrs, q, k, v, weight, input_bias)
+        if sharded_flash_supported(qp.shape, kp.shape, vp.shape, qp.dtype, qp.device):
+            ctx = sharded_flash_attention(qp, kp, vp, causal)
+        else:
+            ctx = _dense_context(qp, kp, vp, causal)
+        return torch.einsum("bhsv,veh->bse", ctx, wo)
     kd, vd, H = attrs.q_proj_size, attrs.v_proj_size, attrs.num_heads
     proj_shape = (q.shape[0], q.shape[1], H * kd)
     if (
         kd == vd
         and q.shape == k.shape == v.shape
-        and flash_attention_supported(proj_shape, H, q.dtype, q.device)
+        and flash_attention_bshf_supported(proj_shape, H, q.dtype, q.device)
     ):
         if kd % 128 and q is k and k is v:
             qkv, wo2 = mha_project_qkv_bshf_fused(attrs, q, weight, input_bias)

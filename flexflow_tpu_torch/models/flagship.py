@@ -1,7 +1,7 @@
 """The flagship transformer: a copy of `build_flagship_cg` and
 `_model_step_flops` from the repository's bench.py (12 layers, hidden 1024,
-8 heads of 128, seq 512, vocab 32000, batch 64), and its second config,
-REF_HEADS16.
+8 heads of 128, seq 512, vocab 32000, batch 64), and its other configs,
+REF_HEADS16 and LONGCTX.
 
 The attention has no bias (the builder's default is bias=False); the FFN is
 bias-free with GELU, and every block ends in a post-LayerNorm.
@@ -18,6 +18,12 @@ FLAGSHIP = dict(batch=64, seq=512, embed=1024, heads=8, layers=12, vocab=32000)
 # TransformerConfig's 16 heads of 64. Its attention rides the d=64 kernels
 # on the interleaved fused-QKV projection.
 REF_HEADS16 = dict(FLAGSHIP, heads=16)
+
+# The seq-2048 flagship that bench.py:3429-3435 measures beside the flagship
+# (its longctx subject): the same model and token count per step at
+# batch * seq / 2048 = 16 sequences of 2048. On the per-head path its
+# attention runs the tiled backward (s > block) of the JAX package.
+LONGCTX = dict(FLAGSHIP, batch=16, seq=2048)
 
 
 def build_flagship_cg(

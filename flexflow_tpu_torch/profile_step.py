@@ -1,6 +1,6 @@
 """Where the flagship's training step spends its device time, on one card.
 
-    python3 -m flexflow_tpu_torch.profile_step [--heads N] [--out FILE]
+    python3 -m flexflow_tpu_torch.profile_step [--heads N] [--dp] [--seq 2048] [--out FILE]
 
 Trains the full-width flagship (bf16 compute, Adam) for two warm-up steps,
 records two more under torch.profiler (CPU and CUDA activity), and prints
@@ -8,15 +8,24 @@ one JSON line: host time per step, the device time of every kernel summed
 by group and by name, and the device's idle share (1 - kernel time / host
 time). --heads sets the head count at the same width: 8 (heads of 128, the
 default) or 16 (heads of 64, the reference-default config REF_HEADS16).
-With --out the same object is also written to FILE.
+--seq 2048 trains the seq-2048 flagship (LONGCTX) instead. --dp trains
+through the data-parallel trainer at world size 1, in a one-rank NCCL group
+over a file:// store, whose attention runs the per-head kernels; the NCCL
+all-reduce then has a group of its own. Copy kernels are also split by the
+operator that launched them: casts (aten::_to_copy) and layout copies
+(everything else, e.g. the per-head projections' permutes). With --out the
+same object is also written to FILE.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import re
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -25,13 +34,15 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from flexflow_tpu_torch.local_execution import ModelTrainingInstance
-from flexflow_tpu_torch.models import FLAGSHIP, build_flagship_cg
+from flexflow_tpu_torch.models import FLAGSHIP, LONGCTX, build_flagship_cg
 from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
+from flexflow_tpu_torch.parallel import DataParallelTrainingInstance, init_file_group
 from flexflow_tpu_torch.pcg import AdamOptimizerAttrs
 
 # kernel-name patterns, first match wins
 GROUPS = (
     ("flash attention (port kernels)", r"^ff_flash"),
+    ("all-reduce (NCCL)", r"nccl"),
     ("matmul", r"gemm|xmma|cutlass|nvjet|cublas|sm90_"),
     ("layer norm", r"layer_norm"),
     ("loss (logsumexp, gather, scatter)", r"logsumexp|gather|scatter|index"),
@@ -48,27 +59,73 @@ def group_of(name: str) -> str:
     return "other"
 
 
-def profile_flagship(heads: int = FLAGSHIP["heads"], warmup: int = 2, steps: int = 2) -> dict:
-    cfg = dict(FLAGSHIP, heads=heads)
+# copy kernels by the operator that launched them, first match wins
+COPY_LAUNCHERS = (
+    ("cast (aten::_to_copy)", "aten::_to_copy"),
+    ("concatenation (aten::cat, e.g. the gradient bucket)", "aten::cat"),
+)
+LAYOUT_COPY = "layout copy (other ops)"
+
+
+def copy_split(prof, steps: int) -> dict:
+    """Device ms per step of copy kernels, by the operator that launched
+    them: casts, concatenations and layout copies (the rest)."""
+    out = {key: 0.0 for key, _ in COPY_LAUNCHERS}
+    out[LAYOUT_COPY] = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        names, parent = {e.name}, e.cpu_parent
+        while parent is not None:
+            names.add(parent.name)
+            parent = parent.cpu_parent
+        key = next((k for k, op in COPY_LAUNCHERS if op in names), LAYOUT_COPY)
+        for k in e.kernels:
+            if "copy" in k.name.lower():
+                out[key] += k.duration / 1e3 / steps
+    return out
+
+
+@contextlib.contextmanager
+def _one_rank_group(dp: bool):
+    if not dp:
+        yield
+        return
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        init_file_group(os.path.join(tmp, "store"))
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def profile_flagship(heads: int = FLAGSHIP["heads"], dp: bool = False, seq: int = 512,
+                     warmup: int = 2, steps: int = 2) -> dict:
+    cfg = dict(LONGCTX if seq == LONGCTX["seq"] else FLAGSHIP, heads=heads)
     graph, logits = build_flagship_cg(**cfg)
-    inst = ModelTrainingInstance(
-        graph, logits, SparseCategoricalCrossEntropyLossAttrs(),
-        AdamOptimizerAttrs(alpha=1e-4), compute_dtype=torch.bfloat16,
-    )
-    params, opt_state = inst.initialize(seed=0)
-    gen = torch.Generator(device=inst.device).manual_seed(0)
-    x = torch.randn(cfg["batch"], cfg["seq"], cfg["embed"], generator=gen, device=inst.device)
-    y = torch.randint(0, cfg["vocab"], (cfg["batch"], cfg["seq"]), generator=gen,
-                      device=inst.device)
-    for _ in range(warmup):
-        inst.train_step(params, opt_state, {"x": x}, y)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        for _ in range(steps):
+    with _one_rank_group(dp):
+        trainer = DataParallelTrainingInstance if dp else ModelTrainingInstance
+        inst = trainer(
+            graph, logits, SparseCategoricalCrossEntropyLossAttrs(),
+            AdamOptimizerAttrs(alpha=1e-4), compute_dtype=torch.bfloat16,
+        )
+        params, opt_state = inst.initialize(seed=0)
+        gen = torch.Generator(device=inst.device).manual_seed(0)
+        x = torch.randn(cfg["batch"], cfg["seq"], cfg["embed"], generator=gen,
+                        device=inst.device)
+        y = torch.randint(0, cfg["vocab"], (cfg["batch"], cfg["seq"]), generator=gen,
+                          device=inst.device)
+        for _ in range(warmup):
             inst.train_step(params, opt_state, {"x": x}, y)
         torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - start) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            for _ in range(steps):
+                inst.train_step(params, opt_state, {"x": x}, y)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - start) * 1e3 / steps
 
     by_name, by_group = {}, {}
     for e in prof.key_averages():
@@ -81,7 +138,7 @@ def profile_flagship(heads: int = FLAGSHIP["heads"], warmup: int = 2, steps: int
     busy = sum(by_group.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1]["ms_per_step"])[:25]
     return {
-        "config": cfg, "steps": steps,
+        "config": cfg, "trainer": type(inst).__name__, "steps": steps,
         "card": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True, timeout=60,
@@ -90,6 +147,7 @@ def profile_flagship(heads: int = FLAGSHIP["heads"], warmup: int = 2, steps: int
         "idle_share": (1.0 - busy / host_ms) if busy else None,
         "kernels_captured": len(by_name),
         "by_group_ms": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
+        "copy_kernels_by_launcher_ms": copy_split(prof, steps),
         "top_kernels": [dict(name=k, **v) for k, v in top],
     }
 
@@ -98,9 +156,13 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--heads", type=int, default=FLAGSHIP["heads"],
                         help="attention heads at hidden 1024 (default %(default)s)")
+    parser.add_argument("--dp", action="store_true",
+                        help="train through the data-parallel trainer at world size 1")
+    parser.add_argument("--seq", type=int, choices=(FLAGSHIP["seq"], LONGCTX["seq"]),
+                        default=FLAGSHIP["seq"], help="512 (the flagship) or 2048 (LONGCTX)")
     parser.add_argument("--out", type=Path, help="also write the JSON object here")
     args = parser.parse_args()
-    result = profile_flagship(args.heads)
+    result = profile_flagship(args.heads, args.dp, args.seq)
     line = json.dumps(result)
     print(line)
     if args.out:

@@ -26,6 +26,8 @@ def _forbidden(module: str) -> bool:
 
 
 def test_port_runs_a_step_with_jax_and_the_jax_package_refused():
+    """A single-device step, then a data-parallel one in a one-rank gloo
+    group, from the same parameters and batch."""
     script = textwrap.dedent(
         """
         import sys
@@ -54,6 +56,17 @@ def test_port_runs_a_step_with_jax_and_the_jax_package_refused():
         y = rs.randint(0, 64, (2, 64))
         _, _, loss, _ = inst.train_step(params, opt, {"x": x}, y)
         assert np.isfinite(float(loss))
+
+        import os, tempfile
+        import torch.distributed as dist
+        from flexflow_tpu_torch.parallel import DataParallelTrainingInstance, init_file_group
+
+        init_file_group(os.path.join(tempfile.mkdtemp(), "store"), 0, 1, device="cpu")
+        dp = DataParallelTrainingInstance(graph, logits, SparseCategoricalCrossEntropyLossAttrs(),
+                                          AdamOptimizerAttrs(alpha=1e-3), device="cpu")
+        _, _, dp_loss, _ = dp.train_step(*dp.initialize(seed=0), {"x": x}, y)
+        dist.destroy_process_group()
+        assert abs(float(dp_loss) - float(loss)) < 1e-5 and dp.all_reduces == 1
         assert not any(m == "jax" or m.startswith(("jax.", "flexflow_tpu."))
                        or m == "flexflow_tpu" for m in sys.modules)
         print("ok", float(loss))

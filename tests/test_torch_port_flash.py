@@ -139,7 +139,7 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
     ],
 )
 def test_flash_gate_follows_the_kernels(shape, heads, dtype, device, ok):
-    assert tfa.flash_attention_supported(shape, heads, dtype, device) is ok
+    assert tfa.flash_attention_bshf_supported(shape, heads, dtype, device) is ok
 
 
 def test_gate_constants_match_the_cuda_source():
