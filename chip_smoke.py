@@ -36,20 +36,33 @@ then, in a one-rank NCCL process group opened over a file:// store:
 8. train_dp       the flagship through the data-parallel trainer, whose
                   attention runs the per-head [b, h, s, d] kernels;
 9. train_dp_seq2048  the same for the seq-2048 flagship (batch 16, seq 2048),
-                  whose attention runs the same kernels at s > block.
+                  whose attention runs the same kernels at s > block;
+10. ring_replay   the ring schedule of 4 ranks replayed on the card through
+                  the ring-flash step kernels at the long-context shape (b=4,
+                  h=8, s=8192, d=128, causal; and b=1 non-causal), held
+                  against the full-sequence per-head kernels;
+11. parity_sp     two small causal parallel transformers (seq 1024, heads of
+                  128 and of 64) trained two steps by the sequence-parallel
+                  trainer on the card (bf16, ring kernels) and on the CPU
+                  (f32, plain versions, over a one-rank gloo group);
+12. train_sp      SP_LONGCTX (the flagship's widths, causal, batch 4, seq
+                  8192) through the sequence-parallel trainer at world size
+                  1, whose attention runs the ring-flash step kernels.
 
 The kernels phase also holds the per-head kernels at the attention shapes of
 train_dp, of train_dp_seq2048 and of the 16-head config, on contiguous
-operands and on the projection einsum's strided view. Then the kernel table
-as one {"kernels": [...]} line, and last the line {"ok": true, "device":
-{...}}. Any failed check raises and the script exits non-zero. Without a
-CUDA device, or away from a checkout of the repository, it exits non-zero
-before printing anything.
+operands and on the projection einsum's strided view, and the ring-flash
+step kernels at train_sp's shape, at the replay's and at d=64. Then the
+kernel table as one {"kernels": [...]} line, and last the line {"ok": true,
+"device": {...}}. Any failed check raises and the script exits non-zero.
+Without a CUDA device, or away from a checkout of the repository, it exits
+non-zero before printing anything.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -74,6 +87,8 @@ STEPS = 5  # timed steps of each train phase
 
 SOURCE = "flexflow_tpu_torch/csrc/flash_attention.cu"
 TPU_KERNELS = "flexflow_tpu/kernels/flash_attention.py"
+RING_SOURCE = "flexflow_tpu_torch/csrc/ring_flash.cu"
+RING_TPU_KERNELS = "flexflow_tpu/kernels/ring_flash.py"
 
 
 def emit(obj) -> None:
@@ -114,10 +129,13 @@ def phase_build() -> None:
     from flexflow_tpu_torch.kernels import build
     from flexflow_tpu_torch.kernels import flash_attention as fa
 
+    from flexflow_tpu_torch.kernels import ring_flash as rf
+
     start = time.perf_counter()
     infos = build.build()
     seconds = time.perf_counter() - start
     lib = fa.library()
+    rf.library()  # the ring kernels share the tile shapes, so their smem is as below
     names = ("ff_flash_fwd_kernel", "ff_flash_bwd_dkv_kernel", "ff_flash_bwd_dq_kernel",
              "ff_flash_fwd_d64_kernel", "ff_flash_bwd_dkv_d64_kernel",
              "ff_flash_bwd_dq_d64_kernel")
@@ -446,6 +464,7 @@ def phase_kernels():
                              replaces=f"{TPU_KERNELS}:1179")),
     ]
     kernels += _per_head_kernels(causal)
+    kernels += _ring_kernels()
     emit({"phase": "kernels",
           "shapes": {"d128": {"b": 64, "h": 8, "s": 512}, "d128_seq2048": s2k,
                      "d64": {"b": 64, "h": 16, "s": 512}, "dtype": "bf16"},
@@ -513,6 +532,270 @@ def _per_head_kernels(causal: dict):
     ]
 
 
+RING_WRAPPERS = ("ring_fwd_step", "ring_dq_step", "ring_dkv_step")
+
+
+def _unmasked_pairs(s: int, t: int, q_off: int, k_off: int, causal: bool) -> int:
+    """(query, key) pairs of one step that the causal mask leaves."""
+    if not causal:
+        return s * t
+    return sum(min(t, max(0, q_off + i - k_off + 1)) for i in range(s))
+
+
+def _ring_bound(kind: str, b, h, s, t, d, pairs):
+    """The least time of one ring step on these inputs: each input read and
+    each output written once (the f32 state or accumulators in and out), and
+    the products it must do on the unmasked pairs (fwd: QK^T and PV; dq:
+    QK^T, dO V^T and dS K; dkv: those two and P^T dO, dS^T Q). A step with
+    no unmasked pair needs nothing."""
+    if pairs == 0:
+        return 0.0, "bytes"
+    qs, kv, rows = b * h * s * d, b * h * t * d, b * h * s
+    nbytes = {"fwd": 2 * qs + 4 * kv + 8 * (qs + 2 * rows),
+              "dq": 4 * qs + 4 * kv + 8 * rows + 8 * qs,
+              "dkv": 4 * qs + 4 * kv + 8 * rows + 16 * kv}[kind]
+    flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * b * h * pairs * d
+    return _bound_ms(nbytes, flops, PEAK_BF16)
+
+
+class RingCase:
+    """One ring step at one shape: q [b, h, s, d] at global offset q_off
+    against a key/value block [b, h, t, d] at k_off, carrying `carry`
+    (acc, m, l) or the empty state. `strided` lays the operands out as the
+    projection einsum returns them ([b, s, h, d] memory)."""
+
+    def __init__(self, b, h, s, t, d, q_off, k_off, causal, seed, carry=None, strided=False):
+        import torch
+        from flexflow_tpu_torch.kernels import ring_flash as rf
+
+        self.rf, self.causal = rf, causal
+        self.shape = dict(b=b, h=h, s_blk=s, t_blk=t, d=d, q_off=q_off, k_off=k_off,
+                          causal=causal, carry="carried" if carry else "empty")
+        self.dims, self.offs = (b, h, s, t, d), (q_off, k_off)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+
+        def operand(rows):
+            if strided:
+                x = torch.randn(b, rows, h, d, generator=gen, device="cuda")
+                return x.to(torch.bfloat16).transpose(1, 2)
+            return torch.randn(b, h, rows, d, generator=gen, device="cuda").to(torch.bfloat16)
+
+        self.q, self.k, self.v, self.do = operand(s), operand(t), operand(t), operand(s)
+        if carry is None:
+            carry = (torch.zeros(b, h, s, d, device="cuda"),
+                     torch.full((b, h, s), rf.NEG_INF, device="cuda"),
+                     torch.zeros(b, h, s, device="cuda"))
+        self.carry = carry
+
+    def fwd(self, plain=False, state=None):
+        state = tuple(x.clone() for x in self.carry) if state is None else state
+        fn = self.rf.ring_fwd_step_plain if plain else self.rf.ring_fwd_step
+        fn(self.q, self.k, self.v, *state, *self.offs, self.causal)
+        return state
+
+    def grads(self, lse, delta, plain=False, out=None):
+        import torch
+
+        if out is None:
+            out = (torch.zeros(self.q.shape, device="cuda"), torch.zeros(self.k.shape, device="cuda"),
+                   torch.zeros(self.v.shape, device="cuda"))
+        dq_fn = self.rf.ring_dq_step_plain if plain else self.rf.ring_dq_step
+        dkv_fn = self.rf.ring_dkv_step_plain if plain else self.rf.ring_dkv_step
+        args = (self.q, self.k, self.v, self.do, lse, delta)
+        dq_fn(*args, out[0], *self.offs, self.causal)
+        dkv_fn(*args, out[1], out[2], *self.offs, self.causal)
+        return out
+
+    def check(self, measure: bool, iters: int = 10):
+        """Kernels against plain versions (and, for a step whose keys are all
+        masked, against the state it was given), a repeat that must give
+        the same bits; with `measure`, times, plain times and bounds."""
+        import torch
+
+        state, state_p = self.fwd(), self.fwd(plain=True)
+        acc, m, l = state
+        o, lse = acc / l[..., None], m + torch.log(l)
+        o_p = state_p[0] / state_p[2][..., None]
+        lse_p = state_p[1] + torch.log(state_p[2])
+        delta = (self.do.float() * o.to(torch.bfloat16).float()).sum(-1)
+        grads, grads_p = self.grads(lse, delta), self.grads(lse, delta, plain=True)
+        torch.cuda.synchronize()
+        checks = {"o": _check("o", _errors(o, o_p), "rel_err", REL_BOUND),
+                  "lse": _check("lse", _errors(lse, lse_p), "max_abs_err", LSE_BOUND)}
+        for t in (*state, *grads):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError("ring kernel output is not finite")
+        if self.pairs() == 0:  # every key masked: nothing may change
+            if not all(torch.equal(a, c) for a, c in zip(state, self.carry)):
+                raise AssertionError("a fully masked ring step changed the carried state")
+            if any(bool(g.any()) or bool(gp.any()) for g, gp in zip(grads, grads_p)):
+                raise AssertionError("a fully masked ring step added to the gradients")
+            checks.update(state_bitwise_unchanged=True, gradients_zero=True)
+        else:
+            for name, g, gp in zip(("dq", "dk", "dv"), grads, grads_p):
+                checks[name] = _check(name, _errors(g, gp), "rel_err", REL_BOUND)
+        again = (*self.fwd(), *self.grads(lse, delta))
+        if not all(torch.equal(a, c) for a, c in zip(again, (*state, *grads))):
+            raise AssertionError("ring kernels do not repeat bitwise")
+        checks["repeat_bitwise"] = True
+        self.checks, self.lse, self.delta = checks, lse, delta
+        if not measure:
+            return checks
+        scratch = self.fwd()
+        grads_out = self.grads(lse, delta)
+        rf, args = self.rf, (self.q, self.k, self.v, self.do, lse, delta)
+        self.ms = {
+            "fwd": time_ms(lambda: rf.ring_fwd_step(self.q, self.k, self.v, *scratch, *self.offs,
+                                                    self.causal), iters),
+            "dq": time_ms(lambda: rf.ring_dq_step(*args, grads_out[0], *self.offs, self.causal),
+                          iters),
+            "dkv": time_ms(lambda: rf.ring_dkv_step(*args, *grads_out[1:], *self.offs,
+                                                    self.causal), iters),
+            "fwd_plain": time_ms(lambda: self.fwd(plain=True), 2, 1),
+            "dq_plain": time_ms(lambda: rf.ring_dq_step_plain(*args, grads_out[0], *self.offs,
+                                                              self.causal), 2, 1),
+            "dkv_plain": time_ms(lambda: rf.ring_dkv_step_plain(*args, *grads_out[1:], *self.offs,
+                                                                self.causal), 2, 1),
+        }
+        return checks
+
+    def pairs(self) -> int:
+        b, h, s, t, d = self.dims
+        return _unmasked_pairs(s, t, *self.offs, self.causal)
+
+    def numbers(self, kind: str, library_ms=None) -> dict:
+        b, h, s, t, d = self.dims
+        bound = _ring_bound(kind, b, h, s, t, d, self.pairs())
+        names = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}[kind]
+        checks = {n: self.checks[n] for n in names if n in self.checks}
+        err = max((c["max_abs_err"] for c in checks.values()), default=0.0)
+        return dict(ms=self.ms[kind], plain_ms=self.ms[f"{kind}_plain"], bound_ms=bound[0],
+                    bound_by=bound[1], library_ms=library_ms, max_abs_err=err, checks=checks)
+
+
+def _ring_kernels():
+    """The ring-flash step kernels (rows 13-15 of the kernel table) at
+    train_sp's attention shape (b=4, h=8, s_blk = t_blk = 8192, d=128,
+    causal, offsets 0, empty carry, on the projection einsum's layout), at
+    the replay's shapes (s_blk = t_blk = 2048 with (q_off, k_off) = (2048,
+    0) carrying the diagonal step's state, (2048, 2048) empty, and (0, 2048)
+    fully masked, carrying), and at d=64 (b=2, h=4, 256, causal). With an
+    empty carry at t = s, the forward step plus finalisation is causal
+    attention, so F.scaled_dot_product_attention(is_causal=True) on the same
+    tensors is its yardstick; no single PyTorch call computes a step with a
+    carry, or one step's dq or dk/dv."""
+    import torch.nn.functional as F
+
+    main = RingCase(4, 8, 8192, 8192, 128, 0, 0, True, seed=20, strided=True)
+    main.check(measure=True, iters=5)
+    sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(main.q, main.k, main.v,
+                                                             is_causal=True), 5)
+    diag = RingCase(4, 8, 2048, 2048, 128, 2048, 2048, True, seed=21)
+    diag.check(measure=True)
+    below = RingCase(4, 8, 2048, 2048, 128, 2048, 0, True, seed=22, carry=diag.fwd())
+    below.check(measure=True)
+    zero = RingCase(4, 8, 2048, 2048, 128, 0, 2048, True, seed=23,
+                    carry=RingCase(4, 8, 2048, 2048, 128, 0, 0, True, seed=24).fwd())
+    zero.check(measure=True)
+    d64 = RingCase(2, 4, 256, 256, 64, 0, 0, True, seed=25)
+    d64.check(measure=True)
+    no_lib = "none: no single PyTorch call computes this step"
+    entries = []
+    for kind, line, name in (("fwd", 58, "ring_fwd_step"), ("dq", 121, "ring_dq_step"),
+                             ("dkv", 177, "ring_dkv_step")):
+        lib = sdpa_ms if kind == "fwd" else None
+        nums = main.numbers(kind, lib)
+        sides = {}
+        for key, case in (("replay_diagonal", diag), ("replay_below", below),
+                          ("replay_masked", zero), ("d64", d64)):
+            sides[key] = dict(shape=case.shape, **case.numbers(kind))
+        entries.append(dict(
+            name=name, route="cuda", source=RING_SOURCE,
+            replaces=f"{RING_TPU_KERNELS}:{line}", shape=main.shape, **nums,
+            library_call=("F.scaled_dot_product_attention(is_causal=True), with the "
+                          "finalisation acc / l" if lib is not None else no_lib),
+            **sides))
+    return entries
+
+
+def phase_ring_replay():
+    """The ring schedule of 4 ranks on one card (16 forward steps,
+    finalisation, delta, then 16 dq and 16 dk/dv steps, each at its global
+    offsets) against the full-sequence per-head kernels on the same inputs:
+    b=4, h=8, s=8192, d=128 causal, and b=1 non-causal."""
+    import torch
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import ring_flash as rf
+
+    for b, causal in ((4, True), (1, False)):
+        gen = torch.Generator(device="cuda").manual_seed(30 + b)
+        q, k, v, do = (torch.randn(b, 8, 8192, 128, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        got = rf.replay_ring(q, k, v, do, 4, causal)
+        o, lse = fa.flash_fwd_bhsd(q, k, v, causal)
+        delta = fa.flash_delta_bhsd(do, o)
+        want = (o, *fa.flash_bwd_bhsd(q, k, v, do, lse, delta, causal))
+        torch.cuda.synchronize()
+        checks = {name: _check(f"ring_replay {name}", _errors(g, w), "rel_err", REL_BOUND)
+                  for name, g, w in zip(("o", "dq", "dk", "dv"), got, want)}
+
+        def full():
+            o, lse = fa.flash_fwd_bhsd(q, k, v, causal)
+            fa.flash_bwd_bhsd(q, k, v, do, lse, fa.flash_delta_bhsd(do, o), causal)
+
+        emit({"phase": "ring_replay", "shape": dict(b=b, h=8, s=8192, d=128, causal=causal),
+              "ranks": 4, "shard": 2048, "checks": checks,
+              "replay_ms": time_ms(lambda: rf.replay_ring(q, k, v, do, 4, causal), 3, 1),
+              "full_sequence_kernels_ms": time_ms(full, 3, 1)})
+
+
+def _sp_model(heads: int, **kw):
+    from flexflow_tpu_torch.models import ParallelTransformerConfig
+
+    return ParallelTransformerConfig(**dict(dict(
+        batch_size=2, sequence_length=1024, num_features=256, num_heads=heads, num_layers=2,
+        vocab_size=512, data_parallel_degree=1, tensor_parallel_degree=1, causal=True), **kw))
+
+
+def phase_parity_sp():
+    """Two small causal parallel transformers trained two steps by the
+    sequence-parallel trainer on the card (NCCL, bf16, ring kernels) and on
+    the CPU (f32, plain versions, over a one-rank gloo group)."""
+    import torch
+    import torch.distributed as dist
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.models import build_parallel_transformer
+    from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
+    from flexflow_tpu_torch.parallel import DistributedTrainingInstance, MachineMesh
+    from flexflow_tpu_torch.pcg import AdamOptimizerAttrs
+
+    for heads in (2, 4):
+        cfg = _sp_model(heads)
+        pcg, logits = build_parallel_transformer(cfg)
+        gen = torch.Generator().manual_seed(1)
+        x = torch.randn(cfg.batch_size, cfg.sequence_length, cfg.num_features, generator=gen)
+        y = torch.randint(0, cfg.vocab_size, (cfg.batch_size, cfg.sequence_length), generator=gen)
+        args = (pcg, logits, SparseCategoricalCrossEntropyLossAttrs(),
+                AdamOptimizerAttrs(alpha=1e-3))
+        gloo = dist.new_group([0], backend="gloo")
+        cpu = DistributedTrainingInstance(*args, MachineMesh(1, 1, base_group=gloo), device="cpu")
+        losses = {"cpu": _train(cpu, *cpu.initialize(seed=0), x, y, 2)[2]}
+        card = DistributedTrainingInstance(*args, MachineMesh(1, 1), compute_dtype=torch.bfloat16)
+        fa.reset_launch_counts()
+        losses["cuda_sp"] = _train(card, *card.initialize(seed=0), x.cuda(), y.cuda(), 2)[2]
+        launches = {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS}
+        want = {n: 2 * cfg.num_layers if n in SP_WRAPPERS else 0 for n in launches}
+        if launches != want:
+            raise AssertionError(f"parity_sp heads={heads}: launches {launches}, expected {want}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda_sp"], losses["cpu"])]
+        if not max(rel) < PARITY_BOUND:
+            raise AssertionError(f"parity_sp heads={heads}: card losses {losses['cuda_sp']} vs "
+                                 f"CPU {losses['cpu']}")
+        emit({"phase": "parity_sp", "head_dim": 256 // heads, "config": dataclasses.asdict(cfg),
+              "world_size": 1, "backends": {"cuda_sp": "nccl", "cpu": "gloo"}, "losses": losses,
+              "rel_err": rel, "bound": PARITY_BOUND, "launches": launches})
+
+
 def _train(inst, params, opt_state, x, y, steps):
     import torch
 
@@ -575,6 +858,7 @@ def dp_group():
 
 
 BHSD_WRAPPERS = ("flash_fwd_bhsd", "flash_delta_bhsd", "flash_bwd_bhsd")
+SP_WRAPPERS = (*RING_WRAPPERS, "flash_delta_bhsd")  # what train_sp's attention launches
 
 
 def phase_parity_dp():
@@ -616,12 +900,9 @@ def phase_parity_dp():
 
 
 def phase_train(smi: str, cfg: dict, phase: str, on_path, steps: int = STEPS, dp: bool = False):
-    """Train `cfg` at full width, with the single-device trainer or (dp) the
-    data-parallel one; the wrappers named in `on_path` must each launch once
-    per layer per step, every other one never, and the data-parallel trainer
-    must issue one all-reduce per step."""
+    """Train the flagship config `cfg` at full width, with the single-device
+    trainer or (dp) the data-parallel one."""
     import torch
-    from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.local_execution import ModelTrainingInstance
     from flexflow_tpu_torch.models import build_flagship_cg, model_step_flops
     from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
@@ -634,43 +915,75 @@ def phase_train(smi: str, cfg: dict, phase: str, on_path, steps: int = STEPS, dp
         graph, logits, SparseCategoricalCrossEntropyLossAttrs(),
         AdamOptimizerAttrs(alpha=1e-4), compute_dtype=torch.bfloat16,
     )
+    return _train_phase(smi, phase, inst, cfg, (cfg["batch"], cfg["seq"], cfg["embed"]),
+                        cfg["vocab"], cfg["layers"], model_step_flops(**cfg), on_path, steps, dp)
+
+
+def phase_train_sp(smi: str, steps: int = STEPS):
+    """Train SP_LONGCTX at full width and depth through the
+    sequence-parallel trainer at world size 1."""
+    import torch
+    from flexflow_tpu_torch.models import SP_LONGCTX, build_parallel_transformer
+    from flexflow_tpu_torch.models.parallel_transformer import model_step_flops
+    from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
+    from flexflow_tpu_torch.parallel import DistributedTrainingInstance, MachineMesh
+    from flexflow_tpu_torch.pcg import AdamOptimizerAttrs
+
+    cfg = SP_LONGCTX
+    pcg, logits = build_parallel_transformer(cfg)
+    inst = DistributedTrainingInstance(
+        pcg, logits, SparseCategoricalCrossEntropyLossAttrs(), AdamOptimizerAttrs(alpha=1e-4),
+        MachineMesh(1, 1), compute_dtype=torch.bfloat16,
+    )
+    shape = (cfg.batch_size, cfg.sequence_length, cfg.num_features)
+    return _train_phase(smi, "train_sp", inst, dataclasses.asdict(cfg), shape, cfg.vocab_size,
+                        cfg.num_layers, model_step_flops(cfg), SP_WRAPPERS, steps, True,
+                        flops_note="causal attention counted as half of the s^2 term")
+
+
+def _train_phase(smi, phase, inst, config, x_shape, vocab, layers, flops, on_path, steps,
+                 distributed, **extra):
+    """One warm-up step, then `steps` timed ones with every launch count
+    set to 0 just before and read just after; the wrappers named in
+    `on_path` must each launch once per layer per step, every other one
+    never, and a distributed trainer must issue one all-reduce per step."""
+    import torch
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
     start = time.perf_counter()
     params, opt_state = inst.initialize(seed=0)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn(cfg["batch"], cfg["seq"], cfg["embed"], generator=gen, device="cuda")
-    y = torch.randint(0, cfg["vocab"], (cfg["batch"], cfg["seq"]), generator=gen, device="cuda")
+    x = torch.randn(*x_shape, generator=gen, device="cuda")
+    y = torch.randint(0, vocab, x_shape[:2], generator=gen, device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - start
 
     params, opt_state, warm_losses, warm_ms = _train(inst, params, opt_state, x, y, 1)
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
-    all_reduces = inst.all_reduces if dp else 0
+    all_reduces = inst.all_reduces if distributed else 0
     params, opt_state, losses, step_ms = _train(inst, params, opt_state, x, y, steps)
     launches = {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS}
-    want = {name: cfg["layers"] * steps if name in on_path else 0 for name in launches}
+    want = {name: layers * steps if name in on_path else 0 for name in launches}
     if launches != want:
         raise AssertionError(f"{phase}: launches {launches}, expected {want}")
-    extra = {}
-    if dp:
+    if distributed:
         all_reduces = inst.all_reduces - all_reduces
         if all_reduces != steps:
             raise AssertionError(f"{phase}: {all_reduces} all-reduces in {steps} steps")
-        extra = {"world_size": inst.world_size, "backend": "nccl",
-                 "all_reduces_per_step": all_reduces / steps,
-                 "all_reduce_bytes": 4 * (1 + sum(p.numel() for p in params.values()))}
+        extra.update(world_size=1, backend="nccl", all_reduces_per_step=all_reduces / steps,
+                     all_reduce_bytes=4 * (1 + sum(p.numel() for p in params.values())))
 
     median_ms = statistics.median(step_ms)
-    flops = model_step_flops(**cfg)
     emit({
-        "phase": phase, "config": cfg, "card": smi, "compute_dtype": "bf16",
+        "phase": phase, "config": config, "card": smi, "compute_dtype": "bf16",
         "optimizer": "adam(alpha=1e-4)", "params": sum(p.numel() for p in params.values()),
         "setup_s": setup_s, "warmup_step_ms": warm_ms[0], "warmup_loss": warm_losses[0],
         "losses": losses, "step_ms": step_ms, "median_step_ms": median_ms,
-        "tokens_per_s": cfg["batch"] * cfg["seq"] / (median_ms / 1e3),
+        "tokens_per_s": x_shape[0] * x_shape[1] / (median_ms / 1e3),
         "step_flops": flops, "mfu": flops / (median_ms / 1e3) / PEAK_BF16,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-        "launches": launches, "launches_per_step_each": cfg["layers"], **extra,
+        "launches": launches, "launches_per_step_each": layers, **extra,
     })
     del params, opt_state
     torch.cuda.empty_cache()
@@ -696,6 +1009,9 @@ def main() -> None:
         launches["train_dp"] = phase_train(smi, FLAGSHIP, "train_dp", BHSD_WRAPPERS, dp=True)
         launches["train_dp_seq2048"] = phase_train(smi, LONGCTX, "train_dp_seq2048",
                                                    BHSD_WRAPPERS, dp=True)
+        phase_ring_replay()
+        phase_parity_sp()
+        launches["train_sp"] = phase_train_sp(smi)
     for entry in kernels:
         by_phase = {p: n[entry["name"]] for p, n in launches.items() if entry["name"] in n}
         entry["launches"] = sum(by_phase.values())

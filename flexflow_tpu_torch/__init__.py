@@ -8,9 +8,12 @@ for Hopper under csrc/, built with nvcc at first use on a machine with a
 card.
 
 The port covers the flagship transformer's training step on one device
-(models.build_flagship_cg, local_execution.ModelTrainingInstance) and data
+(models.build_flagship_cg, local_execution.ModelTrainingInstance), data
 parallel over a torch.distributed process group
 (parallel.DataParallelTrainingInstance), with the flash-attention kernels
-of kernels/flash_attention.py. Entry points run on CUDA unless the caller
+of kernels/flash_attention.py, and sequence (and data) parallel training
+of the parallel transformer PCG (models.build_parallel_transformer,
+parallel.DistributedTrainingInstance) through the ring-flash step kernels
+of kernels/ring_flash.py. Entry points run on CUDA unless the caller
 passes device="cpu".
 """

@@ -13,7 +13,11 @@ from typing import Dict
 import numpy as np
 import torch
 
-from flexflow_tpu_torch.local_execution.training_backing import param_key, weight_nodes
+from flexflow_tpu_torch.local_execution.training_backing import (
+    param_key,
+    weight_nodes,
+    weight_shape,
+)
 from flexflow_tpu_torch.pcg.computation_graph import ComputationGraph
 
 
@@ -22,10 +26,7 @@ def params_from_numpy(
 ) -> Dict[str, torch.Tensor]:
     """Copies of `params` on `device`, one per weight node of `cg`; raises
     on a missing or extra key or a shape that differs from the graph's."""
-    expected = {}
-    for n in weight_nodes(cg):
-        (out,) = cg.outputs_of(n)
-        expected[param_key(n)] = cg.tensor_shape(out)
+    expected = {param_key(n): weight_shape(cg, n) for n in weight_nodes(cg)}
     missing, extra = set(expected) - set(params), set(params) - set(expected)
     if missing or extra:
         raise ValueError(

@@ -3,9 +3,9 @@
 Each source under `csrc/` compiles with nvcc into its own shared library
 with a plain C interface, loaded with ctypes. The build runs at first use
 (never at import), writes into `flexflow_tpu_torch/_build/`, and names each
-library after a hash of its source and flags, so an edited source builds
-anew and an unchanged one is reused. Several sources build in parallel, one
-nvcc process each, all started together.
+library after a hash of its source, the shared headers and the flags, so an
+edited source builds anew and an unchanged one is reused. Several sources
+build in parallel, one nvcc process each, all started together.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from typing import Dict, Sequence, Tuple
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("flash_attention.cu",)
+SOURCES = ("flash_attention.cu", "ring_flash.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -40,7 +40,8 @@ class BuildInfo:
 
 
 def library_path(source: str) -> Path:
-    text = (CSRC_DIR / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    text = (CSRC_DIR / source).read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
 
@@ -100,6 +101,16 @@ def load(source: str, signatures: Dict[str, Tuple[list, object]]) -> ctypes.CDLL
             fn.restype = restype
         _LOADED[source] = lib
     return _LOADED[source]
+
+
+def launch(lib: ctypes.CDLL, name: str, *args) -> None:
+    """Call the C entry `name` of `lib`, which launches a kernel and returns
+    cudaGetLastError(); raise if that is not 0."""
+    code = getattr(lib, name)(*args)
+    if code != 0:
+        raise RuntimeError(
+            f"{name} failed: CUDA error {code} ({lib.ff_error_string(code).decode()})"
+        )
 
 
 _ENTRY = re.compile(r"(?:Compiling entry function|Function properties for) '?(\w+)'?")

@@ -101,12 +101,7 @@ def library() -> ctypes.CDLL:
 
 
 def _launch(name: str, *args) -> None:
-    lib = library()
-    code = getattr(lib, name)(*args)
-    if code != 0:
-        raise RuntimeError(
-            f"{name} failed: CUDA error {code} ({lib.ff_error_string(code).decode()})"
-        )
+    build.launch(library(), name, *args)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -532,8 +527,15 @@ def flash_bwd_bhsd(q, k, v, do, lse, delta, causal: bool = False):
 
 flash_bwd_bhsd.launches = 0
 
+# Every kernel wrapper of the port, each with its launch count: these, and
+# the ring-flash step wrappers, which kernels/ring_flash.py registers.
 KERNEL_WRAPPERS = (flash_fwd, flash_delta, flash_bwd, flash_fwd_d64, flash_delta_d64, flash_bwd_d64,
                    flash_fwd_bhsd, flash_delta_bhsd, flash_bwd_bhsd)
+
+
+def register_wrappers(*fns) -> None:
+    global KERNEL_WRAPPERS
+    KERNEL_WRAPPERS += fns
 
 
 def reset_launch_counts() -> None:

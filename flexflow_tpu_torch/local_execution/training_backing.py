@@ -31,6 +31,11 @@ from flexflow_tpu_torch.op_attrs.core import (
     get_incoming_tensor_roles,
 )
 from flexflow_tpu_torch.op_attrs.ops import InputAttrs, LossAttrs, WeightAttrs
+from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
+    ParallelTensorShape,
+    get_reduced_shape,
+)
+from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
 from flexflow_tpu_torch.pcg.computation_graph import ComputationGraph
 from flexflow_tpu_torch.pcg.initializer import initialize
 from flexflow_tpu_torch.pcg.optimizer import OptimizerAttrs
@@ -72,10 +77,19 @@ def weight_nodes(cg: ComputationGraph) -> List[Node]:
     return [n for n in cg.topological_ordering() if isinstance(cg.op_attrs(n), WeightAttrs)]
 
 
+def weight_shape(graph, n: Node) -> TensorShape:
+    """The global shape of weight node n's value; a PCG's tensors carry
+    parallel degrees beside it."""
+    (out,) = graph.outputs_of(n)
+    shape = graph.tensor_shape(out)
+    return get_reduced_shape(shape) if isinstance(shape, ParallelTensorShape) else shape
+
+
 def init_params(cg: ComputationGraph, seed: int, device) -> Dict[ParamKey, torch.Tensor]:
-    """Materialize every weight node from its initializer attrs. Each weight
-    draws from its own CPU generator seeded from (seed, node index), so the
-    values do not depend on the device or on the order of creation."""
+    """Materialize every weight node of a CG or a PCG from its initializer
+    attrs, at its global shape. Each weight draws from its own CPU generator
+    seeded from (seed, node index), so the values do not depend on the
+    device or on the order of creation."""
     params: Dict[ParamKey, torch.Tensor] = {}
     for n in weight_nodes(cg):
         (out,) = cg.outputs_of(n)
@@ -83,7 +97,8 @@ def init_params(cg: ComputationGraph, seed: int, device) -> Dict[ParamKey, torch
         if ta.initializer is None:
             raise ValueError(f"weight node {n} has no initializer")
         gen = torch.Generator().manual_seed(seed * 1_000_003 + n.idx)
-        value = initialize(ta.initializer, gen, ta.shape.dims, ta.shape.dtype.to_torch())
+        shape = weight_shape(cg, n)
+        value = initialize(ta.initializer, gen, shape.dims, shape.dtype.to_torch())
         params[param_key(n)] = value.to(device)
     return params
 

@@ -1,9 +1,11 @@
-"""Uniform shape-inference dispatch over the slice's op attrs (trimmed copy
-of flexflow_tpu/op_attrs/core.py: sequential rules only).
+"""Operator types and uniform shape-inference dispatch over the slices' op
+attrs (trimmed copy of flexflow_tpu/op_attrs/core.py).
 
-  get_output_shapes(attrs, inputs)  -> [TensorShape]
-  get_weight_shapes(attrs, inputs)  -> [TensorShape]
-  get_incoming_tensor_roles(attrs)  -> [IncomingTensorRole] in slot order
+  get_output_shapes(attrs, inputs)           -> [TensorShape]
+  get_weight_shapes(attrs, inputs)           -> [TensorShape]
+  get_parallel_output_shapes(attrs, inputs)  -> [ParallelTensorShape]
+  get_parallel_weight_shapes(attrs, inputs)  -> [ParallelTensorShape]
+  get_incoming_tensor_roles(attrs)           -> [IncomingTensorRole] in slot order
 """
 
 from __future__ import annotations
@@ -12,15 +14,40 @@ import enum
 from typing import List, Sequence, Union
 
 from flexflow_tpu_torch.op_attrs.ops import (
+    CombineAttrs,
     ElementBinaryAttrs,
     ElementUnaryAttrs,
     InputAttrs,
     LayerNormAttrs,
     LinearAttrs,
     MultiHeadAttentionAttrs,
+    ReductionAttrs,
+    RepartitionAttrs,
+    ReplicateAttrs,
+    RingAttentionAttrs,
     WeightAttrs,
 )
+from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
+    ParallelTensorShape,
+    get_reduced_shape,
+    lift_to_parallel,
+)
 from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
+
+
+class OperatorType(enum.Enum):
+    INPUT = "input"
+    WEIGHT = "weight"
+    ELEMENT_UNARY = "element_unary"
+    ELEMENT_BINARY = "element_binary"
+    LINEAR = "linear"
+    LAYER_NORM = "layer_norm"
+    MULTIHEAD_ATTENTION = "multihead_attention"
+    RING_ATTENTION = "ring_attention"
+    REPARTITION = "repartition"
+    COMBINE = "combine"
+    REPLICATE = "replicate"
+    REDUCTION = "reduction"
 
 
 class IncomingTensorRole(enum.Enum):
@@ -30,8 +57,37 @@ class IncomingTensorRole(enum.Enum):
 
 OpAttrs = Union[
     InputAttrs, WeightAttrs, ElementUnaryAttrs, ElementBinaryAttrs,
-    LinearAttrs, LayerNormAttrs, MultiHeadAttentionAttrs,
+    LinearAttrs, LayerNormAttrs, MultiHeadAttentionAttrs, RingAttentionAttrs,
+    RepartitionAttrs, CombineAttrs, ReplicateAttrs, ReductionAttrs,
 ]
+
+_OP_TYPE_BY_ATTRS = {
+    InputAttrs: OperatorType.INPUT,
+    WeightAttrs: OperatorType.WEIGHT,
+    ElementUnaryAttrs: OperatorType.ELEMENT_UNARY,
+    ElementBinaryAttrs: OperatorType.ELEMENT_BINARY,
+    LinearAttrs: OperatorType.LINEAR,
+    LayerNormAttrs: OperatorType.LAYER_NORM,
+    MultiHeadAttentionAttrs: OperatorType.MULTIHEAD_ATTENTION,
+    RingAttentionAttrs: OperatorType.RING_ATTENTION,
+    RepartitionAttrs: OperatorType.REPARTITION,
+    CombineAttrs: OperatorType.COMBINE,
+    ReplicateAttrs: OperatorType.REPLICATE,
+    ReductionAttrs: OperatorType.REDUCTION,
+}
+
+PARALLEL_OP_TYPES = frozenset({
+    OperatorType.REPARTITION, OperatorType.COMBINE, OperatorType.REPLICATE,
+    OperatorType.REDUCTION,
+})
+
+
+def op_type_of(attrs: OpAttrs) -> OperatorType:
+    return _OP_TYPE_BY_ATTRS[type(attrs)]
+
+
+def is_parallel_op(attrs: OpAttrs) -> bool:
+    return op_type_of(attrs) in PARALLEL_OP_TYPES
 
 
 def get_incoming_tensor_roles(attrs: OpAttrs) -> List[IncomingTensorRole]:
@@ -76,6 +132,37 @@ def get_weight_shapes(
         return ws
     if isinstance(attrs, LayerNormAttrs) and attrs.elementwise_affine:
         return [attrs.gamma_shape(inputs[0]), attrs.beta_shape(inputs[0])]
+    return []
+
+
+def get_parallel_output_shapes(
+    attrs: OpAttrs, inputs: Sequence[ParallelTensorShape]
+) -> List[ParallelTensorShape]:
+    if isinstance(attrs, (InputAttrs, WeightAttrs)):
+        return [attrs.parallel_output_shape()]
+    return [attrs.parallel_output_shape(*inputs)]
+
+
+def get_parallel_weight_shapes(
+    attrs: OpAttrs, inputs: Sequence[ParallelTensorShape]
+) -> List[ParallelTensorShape]:
+    """Parallel weight shapes in slot order (after the data inputs)."""
+    inputs = list(inputs)
+    if isinstance(attrs, LinearAttrs):
+        ws = [attrs.parallel_projection_shape(inputs[0])]
+        if attrs.use_bias:
+            ws.append(attrs.parallel_bias_shape(inputs[0]))
+        return ws
+    if isinstance(attrs, MultiHeadAttentionAttrs):
+        ws = [attrs.parallel_weights_shape(*inputs)]
+        if attrs.bias:
+            reduced = [get_reduced_shape(s) for s in inputs]
+            ws += [lift_to_parallel(attrs.input_bias_shape(*reduced)),
+                   lift_to_parallel(attrs.output_bias_shape(*reduced))]
+        return ws
+    if isinstance(attrs, LayerNormAttrs) and attrs.elementwise_affine:
+        g = attrs.parallel_gamma_shape(inputs[0])
+        return [g, g]
     return []
 
 

@@ -1,5 +1,6 @@
-"""Operator attrs of the slice: Input, Weight, Linear, MultiHeadAttention,
-ElementUnary, ElementBinary, LayerNorm, and the loss attrs."""
+"""Operator attrs of the slices: Input, Weight, Linear, MultiHeadAttention,
+RingAttention, ElementUnary, ElementBinary, LayerNorm, the four parallel
+ops, and the loss attrs."""
 
 from flexflow_tpu_torch.op_attrs.ops.attention import MultiHeadAttentionAttrs
 from flexflow_tpu_torch.op_attrs.ops.elementwise import (
@@ -17,8 +18,16 @@ from flexflow_tpu_torch.op_attrs.ops.loss_functions import (
     SparseCategoricalCrossEntropyLossAttrs,
 )
 from flexflow_tpu_torch.op_attrs.ops.norm_ops import LayerNormAttrs
+from flexflow_tpu_torch.op_attrs.ops.parallel_ops import (
+    CombineAttrs,
+    ReductionAttrs,
+    RepartitionAttrs,
+    ReplicateAttrs,
+)
+from flexflow_tpu_torch.op_attrs.ops.ring_attention import RingAttentionAttrs
 
 __all__ = [
+    "CombineAttrs",
     "ElementBinaryAttrs",
     "ElementBinaryOpType",
     "ElementUnaryAttrs",
@@ -30,6 +39,10 @@ __all__ = [
     "LossFunction",
     "MultiHeadAttentionAttrs",
     "NonconfigurableLossAttrs",
+    "ReductionAttrs",
+    "RepartitionAttrs",
+    "ReplicateAttrs",
+    "RingAttentionAttrs",
     "SparseCategoricalCrossEntropyLossAttrs",
     "WeightAttrs",
 ]

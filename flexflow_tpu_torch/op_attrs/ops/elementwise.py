@@ -1,5 +1,9 @@
 """ElementUnary / ElementBinary attrs (trimmed copy of
-flexflow_tpu/op_attrs/ops/elementwise.py: the sequential shape rules only)."""
+flexflow_tpu/op_attrs/ops/elementwise.py: the sequential and the parallel
+shape rules).
+
+Elementwise ops keep shard degrees. A sum degree passes only through ops
+that are linear in their input; nonlinear ops need it to be 1."""
 
 from __future__ import annotations
 
@@ -7,6 +11,10 @@ import enum
 from dataclasses import dataclass
 from typing import Optional
 
+from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
+    ParallelTensorDims,
+    ParallelTensorShape,
+)
 from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
 
 
@@ -29,6 +37,15 @@ class ElementUnaryOpType(enum.Enum):
     POW = "pow"
     SQRT = "sqrt"
 
+    @property
+    def is_linear(self) -> bool:
+        """Linear ops commute with summation, so sum_degree passes through."""
+        return self in (
+            ElementUnaryOpType.IDENTITY,
+            ElementUnaryOpType.SCALAR_MULTIPLY,
+            ElementUnaryOpType.SCALAR_TRUE_DIV,
+        )
+
 
 class ElementBinaryOpType(enum.Enum):
     ADD = "add"
@@ -39,6 +56,10 @@ class ElementBinaryOpType(enum.Enum):
     MIN = "min"
     POW = "pow"
 
+    @property
+    def is_linear(self) -> bool:
+        return self in (ElementBinaryOpType.ADD, ElementBinaryOpType.SUB)
+
 
 @dataclass(frozen=True)
 class ElementUnaryAttrs:
@@ -46,6 +67,11 @@ class ElementUnaryAttrs:
     scalar: Optional[float] = None
 
     def output_shape(self, input: TensorShape) -> TensorShape:
+        return input
+
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        if not self.op_type.is_linear and input.sum_degree != 1:
+            raise ValueError(f"nonlinear unary op {self.op_type} over partial sums")
         return input
 
 
@@ -57,3 +83,22 @@ class ElementBinaryAttrs:
         if lhs.dims != rhs.dims:
             raise ValueError(f"elementwise shape mismatch: {lhs} vs {rhs}")
         return lhs
+
+    def parallel_output_shape(
+        self, lhs: ParallelTensorShape, rhs: ParallelTensorShape
+    ) -> ParallelTensorShape:
+        if lhs.sizes() != rhs.sizes() or lhs.shard_degrees() != rhs.shard_degrees():
+            raise ValueError(f"elementwise binary needs matching shapes and degrees: {lhs} vs {rhs}")
+        if self.op_type.is_linear:
+            if lhs.sum_degree != rhs.sum_degree:
+                raise ValueError(f"{self.op_type} of differing sum degrees: {lhs} vs {rhs}")
+        elif lhs.sum_degree != 1 or rhs.sum_degree != 1:
+            raise ValueError(f"nonlinear binary op {self.op_type} over partial sums")
+        return ParallelTensorShape(
+            ParallelTensorDims(
+                lhs.dims.shard_dims,
+                lhs.sum_degree,
+                min(lhs.discard_copy_degree, rhs.discard_copy_degree),
+            ),
+            lhs.dtype,
+        )

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import ParallelTensorShape, lift_to_parallel
 from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
 
 
@@ -16,6 +17,9 @@ class InputAttrs:
     def output_shape(self) -> TensorShape:
         return self.shape
 
+    def parallel_output_shape(self) -> ParallelTensorShape:
+        return lift_to_parallel(self.shape)
+
 
 @dataclass(frozen=True)
 class WeightAttrs:
@@ -26,3 +30,6 @@ class WeightAttrs:
 
     def output_shape(self) -> TensorShape:
         return self.shape
+
+    def parallel_output_shape(self) -> ParallelTensorShape:
+        return lift_to_parallel(self.shape)

@@ -1,11 +1,17 @@
 """LayerNorm attrs (trimmed copy of flexflow_tpu/op_attrs/ops/norm_ops.py:
-the sequential shape rules only)."""
+the sequential and the parallel shape rules)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from math import prod
 from typing import Tuple
 
+from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
+    ParallelTensorShape,
+    get_reduced_shape,
+    lift_to_parallel_with_degrees,
+)
 from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
 
 
@@ -23,3 +29,15 @@ class LayerNormAttrs:
 
     def beta_shape(self, input: TensorShape) -> TensorShape:
         return self.gamma_shape(input)
+
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        if input.sum_degree != 1 or any(input.shard_dim_at(a).degree != 1 for a in self.axes):
+            raise ValueError(f"layer norm needs whole sums and unsharded normalized axes: {input}")
+        return input
+
+    def parallel_gamma_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        unpar = self.gamma_shape(get_reduced_shape(input))
+        others = prod(d.degree for i, d in enumerate(input.dims.shard_dims) if i not in self.axes)
+        return lift_to_parallel_with_degrees(
+            unpar, 1, others * input.discard_copy_degree, (1,) * len(self.axes)
+        )

@@ -1,0 +1,64 @@
+"""The four Unity parallel operators (trimmed copy of
+flexflow_tpu/op_attrs/ops/parallel_ops.py): nodes whose only effect is on
+the parallel layout.
+
+  Repartition(dim, degree): shard degree of dim *= degree   (scatter)
+  Combine(dim, degree):     shard degree of dim /= degree   (gather)
+  Replicate(degree):        discard_copy_degree *= degree   (broadcast)
+  Reduction(degree):        sum_degree /= degree            (all-reduce)
+
+The port's builder creates them; its trainers do not lower them yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
+    ParallelTensorShape,
+    with_discard_copy_degree,
+    with_shard_degree,
+    with_sum_degree,
+)
+
+
+@dataclass(frozen=True)
+class RepartitionAttrs:
+    repartition_dim: int
+    repartition_degree: int
+
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        d = self.repartition_dim % input.num_dims
+        return with_shard_degree(input, d, input.shard_dim_at(d).degree * self.repartition_degree)
+
+
+@dataclass(frozen=True)
+class CombineAttrs:
+    combine_dim: int
+    combine_degree: int
+
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        d = self.combine_dim % input.num_dims
+        degree = input.shard_dim_at(d).degree
+        if degree % self.combine_degree:
+            raise ValueError(f"cannot combine degree {degree} by {self.combine_degree}")
+        return with_shard_degree(input, d, degree // self.combine_degree)
+
+
+@dataclass(frozen=True)
+class ReplicateAttrs:
+    replicate_degree: int
+
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        return with_discard_copy_degree(input, input.discard_copy_degree * self.replicate_degree)
+
+
+@dataclass(frozen=True)
+class ReductionAttrs:
+    reduction_degree: int
+
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        if input.sum_degree % self.reduction_degree:
+            raise ValueError(f"cannot reduce sum degree {input.sum_degree} by "
+                             f"{self.reduction_degree}")
+        return with_sum_degree(input, input.sum_degree // self.reduction_degree)

@@ -119,17 +119,19 @@ class DataParallelTrainingInstance(ModelTrainingInstance):
         local = {k: self._local_rows(v) for k, v in batch_inputs.items()}
         with flash_mesh(self.group):
             loss, grads = super().loss_and_grads(params, local, self._local_rows(label))
-        return self._all_reduce_mean(loss, grads)
-
-    def _all_reduce_mean(self, loss, grads: Dict[ParamKey, torch.Tensor]):
-        """One all-reduce of the loss and every gradient, flattened into one
-        f32 bucket; returns their means over the group as views of it."""
-        bucket = torch.cat([loss.reshape(1).float()] + [g.reshape(-1) for g in grads.values()])
-        dist.all_reduce(bucket, group=self.group)
         self.all_reduces += 1
-        bucket.div_(self.world_size)
-        out, offset = {}, 1
-        for key, g in grads.items():
-            out[key] = bucket[offset:offset + g.numel()].view_as(g)
-            offset += g.numel()
-        return bucket[0], out
+        return all_reduce_mean(loss, grads, self.group, self.world_size)
+
+
+def all_reduce_mean(loss, grads: Dict[ParamKey, torch.Tensor], group, world_size: int):
+    """One all-reduce of the loss and every gradient over `group`, flattened
+    into one f32 bucket; returns their means over the group's `world_size`
+    ranks as views of it."""
+    bucket = torch.cat([loss.reshape(1).float()] + [g.reshape(-1) for g in grads.values()])
+    dist.all_reduce(bucket, group=group)
+    bucket.div_(world_size)
+    out, offset = {}, 1
+    for key, g in grads.items():
+        out[key] = bucket[offset:offset + g.numel()].view_as(g)
+        offset += g.numel()
+    return bucket[0], out

@@ -1,4 +1,5 @@
-"""Computation graph, its builder, initializers and optimizer attrs."""
+"""Computation graphs (sequential and parallel), their builders,
+initializers and optimizer attrs."""
 
 from flexflow_tpu_torch.pcg.computation_graph import (
     ComputationGraph,
@@ -11,6 +12,14 @@ from flexflow_tpu_torch.pcg.optimizer import (
     OptimizerAttrs,
     SGDOptimizerAttrs,
 )
+from flexflow_tpu_torch.pcg.parallel_computation_graph import (
+    ParallelComputationGraph,
+    ParallelLayerAttrs,
+    ParallelTensorAttrs,
+)
+from flexflow_tpu_torch.pcg.parallel_computation_graph_builder import (
+    ParallelComputationGraphBuilder,
+)
 
 __all__ = [
     "AdamOptimizerAttrs",
@@ -18,6 +27,10 @@ __all__ = [
     "ComputationGraphBuilder",
     "LayerAttrs",
     "OptimizerAttrs",
+    "ParallelComputationGraph",
+    "ParallelComputationGraphBuilder",
+    "ParallelLayerAttrs",
+    "ParallelTensorAttrs",
     "SGDOptimizerAttrs",
     "TensorAttrs",
 ]

@@ -1,6 +1,6 @@
 """Where the flagship's training step spends its device time, on one card.
 
-    python3 -m flexflow_tpu_torch.profile_step [--heads N] [--dp] [--seq 2048] [--out FILE]
+    python3 -m flexflow_tpu_torch.profile_step [--heads N] [--dp] [--seq 2048] [--sp] [--out FILE]
 
 Trains the full-width flagship (bf16 compute, Adam) for two warm-up steps,
 records two more under torch.profiler (CPU and CUDA activity), and prints
@@ -11,7 +11,10 @@ default) or 16 (heads of 64, the reference-default config REF_HEADS16).
 --seq 2048 trains the seq-2048 flagship (LONGCTX) instead. --dp trains
 through the data-parallel trainer at world size 1, in a one-rank NCCL group
 over a file:// store, whose attention runs the per-head kernels; the NCCL
-all-reduce then has a group of its own. Copy kernels are also split by the
+all-reduce then has a group of its own. --sp trains SP_LONGCTX (the
+flagship's widths, causal, batch 4, seq 8192) through the sequence-parallel
+trainer at world size 1, in the same kind of group, whose attention runs
+the ring-flash step kernels (grouped with the other port kernels). Copy kernels are also split by the
 operator that launched them: casts (aten::_to_copy) and layout copies
 (everything else, e.g. the per-head projections' permutes). With --out the
 same object is also written to FILE.
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -34,14 +38,25 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from flexflow_tpu_torch.local_execution import ModelTrainingInstance
-from flexflow_tpu_torch.models import FLAGSHIP, LONGCTX, build_flagship_cg
+from flexflow_tpu_torch.models import (
+    FLAGSHIP,
+    LONGCTX,
+    SP_LONGCTX,
+    build_flagship_cg,
+    build_parallel_transformer,
+)
 from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
-from flexflow_tpu_torch.parallel import DataParallelTrainingInstance, init_file_group
+from flexflow_tpu_torch.parallel import (
+    DataParallelTrainingInstance,
+    DistributedTrainingInstance,
+    MachineMesh,
+    init_file_group,
+)
 from flexflow_tpu_torch.pcg import AdamOptimizerAttrs
 
 # kernel-name patterns, first match wins
 GROUPS = (
-    ("flash attention (port kernels)", r"^ff_flash"),
+    ("flash attention (port kernels)", r"^ff_(flash|ring)_"),
     ("all-reduce (NCCL)", r"nccl"),
     ("matmul", r"gemm|xmma|cutlass|nvjet|cublas|sm90_"),
     ("layer norm", r"layer_norm"),
@@ -101,22 +116,29 @@ def _one_rank_group(dp: bool):
             dist.destroy_process_group()
 
 
-def profile_flagship(heads: int = FLAGSHIP["heads"], dp: bool = False, seq: int = 512,
-                     warmup: int = 2, steps: int = 2) -> dict:
+def _trainer(heads: int, dp: bool, seq: int, sp: bool):
+    """(instance, config, [batch, seq, embed], vocab) of the run asked for."""
+    args = (SparseCategoricalCrossEntropyLossAttrs(), AdamOptimizerAttrs(alpha=1e-4))
+    if sp:
+        cfg = SP_LONGCTX
+        inst = DistributedTrainingInstance(*build_parallel_transformer(cfg), *args,
+                                           MachineMesh(1, 1), compute_dtype=torch.bfloat16)
+        shape = (cfg.batch_size, cfg.sequence_length, cfg.num_features)
+        return inst, dataclasses.asdict(cfg), shape, cfg.vocab_size
     cfg = dict(LONGCTX if seq == LONGCTX["seq"] else FLAGSHIP, heads=heads)
-    graph, logits = build_flagship_cg(**cfg)
-    with _one_rank_group(dp):
-        trainer = DataParallelTrainingInstance if dp else ModelTrainingInstance
-        inst = trainer(
-            graph, logits, SparseCategoricalCrossEntropyLossAttrs(),
-            AdamOptimizerAttrs(alpha=1e-4), compute_dtype=torch.bfloat16,
-        )
+    trainer = DataParallelTrainingInstance if dp else ModelTrainingInstance
+    inst = trainer(*build_flagship_cg(**cfg), *args, compute_dtype=torch.bfloat16)
+    return inst, cfg, (cfg["batch"], cfg["seq"], cfg["embed"]), cfg["vocab"]
+
+
+def profile_flagship(heads: int = FLAGSHIP["heads"], dp: bool = False, seq: int = 512,
+                     sp: bool = False, warmup: int = 2, steps: int = 2) -> dict:
+    with _one_rank_group(dp or sp):
+        inst, cfg, shape, vocab = _trainer(heads, dp, seq, sp)
         params, opt_state = inst.initialize(seed=0)
         gen = torch.Generator(device=inst.device).manual_seed(0)
-        x = torch.randn(cfg["batch"], cfg["seq"], cfg["embed"], generator=gen,
-                        device=inst.device)
-        y = torch.randint(0, cfg["vocab"], (cfg["batch"], cfg["seq"]), generator=gen,
-                          device=inst.device)
+        x = torch.randn(*shape, generator=gen, device=inst.device)
+        y = torch.randint(0, vocab, shape[:2], generator=gen, device=inst.device)
         for _ in range(warmup):
             inst.train_step(params, opt_state, {"x": x}, y)
         torch.cuda.synchronize()
@@ -160,9 +182,11 @@ def main() -> None:
                         help="train through the data-parallel trainer at world size 1")
     parser.add_argument("--seq", type=int, choices=(FLAGSHIP["seq"], LONGCTX["seq"]),
                         default=FLAGSHIP["seq"], help="512 (the flagship) or 2048 (LONGCTX)")
+    parser.add_argument("--sp", action="store_true",
+                        help="train SP_LONGCTX through the sequence-parallel trainer at world size 1")
     parser.add_argument("--out", type=Path, help="also write the JSON object here")
     args = parser.parse_args()
-    result = profile_flagship(args.heads, args.dp, args.seq)
+    result = profile_flagship(args.heads, args.dp, args.seq, args.sp)
     line = json.dumps(result)
     print(line)
     if args.out:

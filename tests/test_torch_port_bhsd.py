@@ -243,8 +243,9 @@ def test_wrappers_refuse_operands_of_differing_strides():
 
 def test_c_interface_matches_the_declared_signatures():
     """Every exported function the wrappers call is declared with as many
-    ctypes arguments as the CUDA source gives it parameters."""
-    src = (build.CSRC_DIR / "flash_attention.cu").read_text()
+    ctypes arguments as the CUDA source (with its shared header) gives it
+    parameters."""
+    src = "".join((build.CSRC_DIR / f).read_text() for f in ("flash_attention.cu", "flash_tiles.cuh"))
     for name, (argtypes, _) in tfa._SIGNATURES.items():
         m = re.search(r'extern "C" [\w\s\*]+?\b' + name + r"\(([^)]*)\)", src)
         assert m, name

@@ -27,7 +27,8 @@ def _forbidden(module: str) -> bool:
 
 def test_port_runs_a_step_with_jax_and_the_jax_package_refused():
     """A single-device step, then a data-parallel one in a one-rank gloo
-    group, from the same parameters and batch."""
+    group, from the same parameters and batch, then a sequence-parallel
+    step of a causal parallel transformer through its ring of one."""
     script = textwrap.dedent(
         """
         import sys
@@ -67,6 +68,23 @@ def test_port_runs_a_step_with_jax_and_the_jax_package_refused():
         _, _, dp_loss, _ = dp.train_step(*dp.initialize(seed=0), {"x": x}, y)
         dist.destroy_process_group()
         assert abs(float(dp_loss) - float(loss)) < 1e-5 and dp.all_reduces == 1
+
+        from flexflow_tpu_torch.models import ParallelTransformerConfig, build_parallel_transformer
+        from flexflow_tpu_torch.parallel import DistributedTrainingInstance, MachineMesh
+
+        init_file_group(os.path.join(tempfile.mkdtemp(), "store"), 0, 1, device="cpu")
+        cfg = ParallelTransformerConfig(batch_size=2, sequence_length=128, num_features=128,
+                                        num_heads=2, num_layers=1, vocab_size=64,
+                                        data_parallel_degree=1, tensor_parallel_degree=1,
+                                        causal=True)
+        pcg, logits = build_parallel_transformer(cfg)
+        sp = DistributedTrainingInstance(pcg, logits, SparseCategoricalCrossEntropyLossAttrs(),
+                                         AdamOptimizerAttrs(alpha=1e-3), MachineMesh(1, 1),
+                                         device="cpu")
+        xs = rs.randn(2, 128, 128).astype(np.float32)
+        _, _, sp_loss, _ = sp.train_step(*sp.initialize(seed=0), {"x": xs}, rs.randint(0, 64, (2, 128)))
+        dist.destroy_process_group()
+        assert np.isfinite(float(sp_loss)) and sp.all_reduces == 1
         assert not any(m == "jax" or m.startswith(("jax.", "flexflow_tpu."))
                        or m == "flexflow_tpu" for m in sys.modules)
         print("ok", float(loss))

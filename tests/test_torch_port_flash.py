@@ -143,7 +143,7 @@ def test_flash_gate_follows_the_kernels(shape, heads, dtype, device, ok):
 
 
 def test_gate_constants_match_the_cuda_source():
-    src = (build.CSRC_DIR / "flash_attention.cu").read_text()
+    src = "".join((build.CSRC_DIR / f).read_text() for f in ("flash_attention.cu", "flash_tiles.cuh"))
     for d in tfa.HEAD_DIMS:
         assert f"fwd_body<{d}>" in src and f"dkv_body<{d}>" in src and f"dq_body<{d}>" in src
         assert f"delta_body<{d}>" in src
