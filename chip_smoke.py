@@ -571,6 +571,8 @@ class RingCase:
         self.rf, self.causal = rf, causal
         self.shape = dict(b=b, h=h, s_blk=s, t_blk=t, d=d, q_off=q_off, k_off=k_off,
                           causal=causal, carry="carried" if carry else "empty")
+        if strided:
+            self.shape["layout"] = "einsum view of [b, s, h, d]"
         self.dims, self.offs = (b, h, s, t, d), (q_off, k_off)
         gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -679,17 +681,28 @@ def _ring_kernels():
     causal, offsets 0, empty carry, on the projection einsum's layout), at
     the replay's shapes (s_blk = t_blk = 2048 with (q_off, k_off) = (2048,
     0) carrying the diagonal step's state, (2048, 2048) empty, and (0, 2048)
-    fully masked, carrying), and at d=64 (b=2, h=4, 256, causal). With an
-    empty carry at t = s, the forward step plus finalisation is causal
-    attention, so F.scaled_dot_product_attention(is_causal=True) on the same
-    tensors is its yardstick; no single PyTorch call computes a step with a
-    carry, or one step's dq or dk/dv."""
+    fully masked, carrying), and at d=64: b=2, h=4, 256, causal, and
+    parity_sp's shape (b=2, h=4, 1024) on the projection einsum's layout.
+    With an empty carry at t = s, the forward step plus finalisation is
+    causal attention, so F.scaled_dot_product_attention(is_causal=True) on
+    the same tensors is its yardstick, and the dq and dk/dv pair is the
+    causal flash backward from the saved logsumexp, which
+    aten::_scaled_dot_product_flash_attention_backward computes in one call
+    (dq, dk and dv together, its own delta included). No single PyTorch
+    call computes a step with a carry or at other offsets."""
+    import torch
     import torch.nn.functional as F
 
     main = RingCase(4, 8, 8192, 8192, 128, 0, 0, True, seed=20, strided=True)
     main.check(measure=True, iters=5)
     sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(main.q, main.k, main.v,
                                                              is_causal=True), 5)
+    flash = torch.ops.aten
+    out, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = \
+        flash._scaled_dot_product_flash_attention(main.q, main.k, main.v, 0.0, True)
+    sdpa_bwd_ms = time_ms(lambda: flash._scaled_dot_product_flash_attention_backward(
+        main.do, main.q, main.k, main.v, out, lse, cum_q, cum_k, max_q, max_k, 0.0, True, seed,
+        offset), 5)
     diag = RingCase(4, 8, 2048, 2048, 128, 2048, 2048, True, seed=21)
     diag.check(measure=True)
     below = RingCase(4, 8, 2048, 2048, 128, 2048, 0, True, seed=22, carry=diag.fwd())
@@ -699,22 +712,29 @@ def _ring_kernels():
     zero.check(measure=True)
     d64 = RingCase(2, 4, 256, 256, 64, 0, 0, True, seed=25)
     d64.check(measure=True)
-    no_lib = "none: no single PyTorch call computes this step"
+    d64_sp = RingCase(2, 4, 1024, 1024, 64, 0, 0, True, seed=26, strided=True)
+    d64_sp.check(measure=True)
+    library = {
+        "fwd": (sdpa_ms, "F.scaled_dot_product_attention(is_causal=True), with the "
+                         "finalisation acc / l"),
+        "dq": (sdpa_bwd_ms, "aten::_scaled_dot_product_flash_attention_backward(is_causal="
+                            "True): dq, dk and dv in one call, against the dq + dk/dv pair"),
+    }
+    library["dkv"] = library["dq"]
+    pair_ms = main.ms["dq"] + main.ms["dkv"]
     entries = []
     for kind, line, name in (("fwd", 58, "ring_fwd_step"), ("dq", 121, "ring_dq_step"),
                              ("dkv", 177, "ring_dkv_step")):
-        lib = sdpa_ms if kind == "fwd" else None
-        nums = main.numbers(kind, lib)
+        lib_ms, lib_call = library[kind]
+        extra = {} if kind == "fwd" else {"pair_ms": pair_ms}
         sides = {}
         for key, case in (("replay_diagonal", diag), ("replay_below", below),
-                          ("replay_masked", zero), ("d64", d64)):
+                          ("replay_masked", zero), ("d64", d64), ("d64_parity_sp", d64_sp)):
             sides[key] = dict(shape=case.shape, **case.numbers(kind))
         entries.append(dict(
             name=name, route="cuda", source=RING_SOURCE,
-            replaces=f"{RING_TPU_KERNELS}:{line}", shape=main.shape, **nums,
-            library_call=("F.scaled_dot_product_attention(is_causal=True), with the "
-                          "finalisation acc / l" if lib is not None else no_lib),
-            **sides))
+            replaces=f"{RING_TPU_KERNELS}:{line}", shape=main.shape,
+            **main.numbers(kind, lib_ms), library_call=lib_call, **extra, **sides))
     return entries
 
 

@@ -16,7 +16,6 @@ on a single device the op still runs the ring-flash step kernels.
 
 from __future__ import annotations
 
-import dataclasses
 import math
 from typing import Optional
 
@@ -72,51 +71,21 @@ def ring_attention_block(qp, kp, vp, ring: SequenceRing, causal: bool):
     return (o / l[..., None]).to(qp.dtype)
 
 
-def _local_attrs(attrs: RingAttentionAttrs, tp: int) -> RingAttentionAttrs:
-    """Attrs for one head-parallel shard: num_heads/tp local heads with the
-    per-head projection sizes pinned."""
-    if tp == 1:
-        return attrs
-    if attrs.num_heads % tp:
-        raise ValueError(f"{attrs.num_heads} heads cannot split over tp={tp}")
-    return dataclasses.replace(attrs, num_heads=attrs.num_heads // tp, kdim=attrs.q_proj_size,
-                               vdim=attrs.v_proj_size)
-
-
-def ring_mha_shard_fn(attrs: RingAttentionAttrs, ring: SequenceRing, tp: int = 1):
-    """The function each rank runs on its blocks: the local projections,
-    ring attention (the ring-flash steps where ring_flash_supported takes
-    the blocks, else the dense ring) and the local output projection."""
-    local = _local_attrs(attrs, tp)
-
-    def fn(q_blk, k_blk, v_blk, weight, input_bias=None, output_bias=None):
-        qp, kp, vp, wo = mha_project_qkv(local, q_blk, k_blk, v_blk, weight, input_bias)
-        if ring_flash.ring_flash_supported(qp.shape, kp.shape, vp.shape, qp.dtype, qp.device):
-            ctx = ring_flash.ring_flash_attention_block(qp, kp, vp, ring, attrs.causal)
-        else:
-            ctx = ring_attention_block(qp, kp, vp, ring, attrs.causal)
-        out = torch.einsum("bhsv,veh->bse", ctx, wo)
-        return out if output_bias is None else out + output_bias
-
-    return fn
-
-
-def seq_parallel_mha_forward(shard_fn_factory, attrs: RingAttentionAttrs, q, k, v, weight,
-                             ring: Optional[SequenceRing] = None, input_bias=None,
-                             output_bias=None):
-    """Sequence-parallel attention of this rank's blocks q, k, v
-    ([b, s_blk, e]). Each rank already holds its own blocks, so the JAX
-    package's shard_map plumbing reduces to calling the per-rank body;
-    `ring` None is a ring of one (module note: there is no dense
-    fallback). `shard_fn_factory(attrs, ring)` returns the body."""
-    if (input_bias is None) != (output_bias is None):
-        raise ValueError("MHA bias weights come in (input, output) pairs")
-    fn = shard_fn_factory(attrs, ring if ring is not None else SequenceRing())
-    return fn(q, k, v, weight, input_bias, output_bias)
-
-
 def ring_mha_forward(attrs: RingAttentionAttrs, q, k, v, weight, ring: Optional[SequenceRing] = None,
                      input_bias=None, output_bias=None):
-    """RingAttention of this rank's blocks over the ring."""
-    return seq_parallel_mha_forward(ring_mha_shard_fn, attrs, q, k, v, weight, ring,
-                                    input_bias=input_bias, output_bias=output_bias)
+    """RingAttention of this rank's blocks q, k, v ([b, s_blk, e]) over the
+    ring (None: a ring of one; module note: there is no dense fallback).
+    Each rank already holds its own blocks, so the JAX package's shard_map
+    plumbing reduces to this per-rank body: the projections, ring attention
+    (the ring-flash steps where ring_flash_supported takes the blocks, else
+    the dense ring) and the output projection."""
+    if (input_bias is None) != (output_bias is None):
+        raise ValueError("MHA bias weights come in (input, output) pairs")
+    ring = ring if ring is not None else SequenceRing()
+    qp, kp, vp, wo = mha_project_qkv(attrs, q, k, v, weight, input_bias)
+    if ring_flash.ring_flash_supported(qp.shape, kp.shape, vp.shape, qp.dtype, qp.device):
+        ctx = ring_flash.ring_flash_attention_block(qp, kp, vp, ring, attrs.causal)
+    else:
+        ctx = ring_attention_block(qp, kp, vp, ring, attrs.causal)
+    out = torch.einsum("bhsv,veh->bse", ctx, wo)
+    return out if output_bias is None else out + output_bias

@@ -8,7 +8,6 @@ from flexflow_tpu_torch.parallel.data_parallel import (
 )
 from flexflow_tpu_torch.parallel.executor import (
     DistributedTrainingInstance,
-    init_pcg_params,
     pcg_forward_interpreter,
 )
 from flexflow_tpu_torch.parallel.mesh import MachineMesh
@@ -18,6 +17,5 @@ __all__ = [
     "DistributedTrainingInstance",
     "MachineMesh",
     "init_file_group",
-    "init_pcg_params",
     "pcg_forward_interpreter",
 ]

@@ -1,6 +1,6 @@
 """Training over a PCG on a dp x sp mesh of ranks (port of
-flexflow_tpu/parallel/executor.py: init_pcg_params,
-pcg_forward_interpreter and DistributedTrainingInstance).
+flexflow_tpu/parallel/executor.py: pcg_forward_interpreter and
+DistributedTrainingInstance).
 
 The JAX package traces one global-view program over a device mesh: values
 are global arrays, sharding constraints place them, GSPMD partitions the
@@ -37,7 +37,6 @@ from flexflow_tpu_torch.kernels.ring_flash import SequenceRing
 from flexflow_tpu_torch.local_execution.training_backing import (
     ModelTrainingInstance,
     ParamKey,
-    init_params,
     param_key,
     split_slot_values,
 )
@@ -49,13 +48,6 @@ from flexflow_tpu_torch.parallel.sharding import local_block, pcg_shardings
 from flexflow_tpu_torch.pcg.optimizer import OptimizerAttrs
 from flexflow_tpu_torch.pcg.parallel_computation_graph import ParallelComputationGraph
 from flexflow_tpu_torch.utils.graph import DataflowOutput
-
-
-def init_pcg_params(pcg: ParallelComputationGraph, seed: int, device) -> Dict[ParamKey, torch.Tensor]:
-    """Every weight node's GLOBAL value from its initializer, drawn as the
-    single-device init draws it (same keys, same values), so distributed and
-    single-device runs start alike."""
-    return init_params(pcg, seed, device)
 
 
 def _parallel_op_error(n, attrs) -> NotImplementedError:

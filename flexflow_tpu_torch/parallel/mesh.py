@@ -6,9 +6,9 @@ sequence-parallel degree (sequence shards, the ring). Rank r of the base
 group sits at (dp_index, sp_index) = (r // sp, r % sp): the sp ranks of
 one batch shard are neighbours, as the JAX package's mesh puts the
 sequence axis minor to the batch axis. The mesh opens one subgroup per
-ring (the ranks of one batch shard) and one per data-parallel column (the
-ranks at one sequence shard), over the base group's backend. Every rank
-opens every subgroup, in the same order, as torch.distributed requires.
+ring (the ranks of one batch shard) over the base group's backend; the
+gradient all-reduce runs over the base group itself. Every rank opens
+every subgroup, in the same order, as torch.distributed requires.
 """
 
 from __future__ import annotations
@@ -41,15 +41,10 @@ class MachineMesh:
             return r if base_group is None else dist.get_global_rank(base_group, r)
 
         self.sp_group: Optional[object] = None
-        self.dp_group: Optional[object] = None
         for i in range(dp):
             g = dist.new_group([global_rank(i * sp + j) for j in range(sp)], backend=backend)
             if i == self.dp_index:
                 self.sp_group = g
-        for j in range(sp):
-            g = dist.new_group([global_rank(i * sp + j) for i in range(dp)], backend=backend)
-            if j == self.sp_index:
-                self.dp_group = g
 
     @property
     def world_size(self) -> int:
