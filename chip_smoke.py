@@ -8,7 +8,8 @@ Phases, each printing one JSON line:
 1. device         the card's name and power limit (nvidia-smi) and the
                   versions;
 2. build          nvcc builds every kernel from the checkout's sources; build
-                  time and each kernel's registers, shared memory and spills;
+                  time and each kernel's registers, shared memory and spills
+                  (the Hopper forwards must not spill) and ptxas's warnings;
 3. kernels        each kernel against its plain PyTorch version on the same
                   bf16 inputs, and timed beside its plain version, its bound
                   and one PyTorch call that computes the same function (never
@@ -16,7 +17,8 @@ Phases, each printing one JSON line:
                   attention (b=64, h=8, s=512) and at the seq-2048 flagship's
                   (b=16, h=8, s=2048), the d=64 kernels at the 16-head
                   config's (b=64, h=16, s=512) on the interleaved-QKV and on
-                  separate operands, plus small causal cases;
+                  separate operands, the d=128 pair causal at seq 2048, plus
+                  small causal cases and the forward's tiling edges (s=192);
 4. parity         two small flagships (heads of 128, and heads of 64) trained
                   two steps on the card (bf16, through the kernels) and on
                   the CPU (f32, plain versions) from the same parameters: the
@@ -52,8 +54,10 @@ then, in a one-rank NCCL process group opened over a file:// store:
 The kernels phase also holds the per-head kernels at the attention shapes of
 train_dp, of train_dp_seq2048 and of the 16-head config, on contiguous
 operands and on the projection einsum's strided view, and the ring-flash
-step kernels at train_sp's shape, at the replay's and at d=64. Then the
-kernel table as one {"kernels": [...]} line, and last the line {"ok": true,
+step kernels at train_sp's shape, at the replay's (one with the first
+64-row warpgroup of each block blind) and at d=64. Then the kernel table
+as one {"kernels": [...]} line (the redesigned forwards with their design
+and ptxas figures), and last the line {"ok": true,
 "device": {...}}. Any failed check raises and the script exits non-zero.
 Without a CUDA device, or away from a checkout of the repository, it exits
 non-zero before printing anything.
@@ -89,6 +93,15 @@ SOURCE = "flexflow_tpu_torch/csrc/flash_attention.cu"
 TPU_KERNELS = "flexflow_tpu/kernels/flash_attention.py"
 RING_SOURCE = "flexflow_tpu_torch/csrc/ring_flash.cu"
 RING_TPU_KERNELS = "flexflow_tpu/kernels/ring_flash.py"
+# the wrappers whose kernels run the Hopper forward mainloop of
+# csrc/flash_fwd_sm90.cuh (wgmma products, TMA tile loads, S, P and O in
+# registers), with the kernels that carry each
+REDESIGNED = {
+    "flash_fwd": ("ff_flash_fwd_kernel",),
+    "flash_fwd_d64": ("ff_flash_fwd_d64_kernel",),
+    "flash_fwd_bhsd": ("ff_flash_fwd_bhsd_kernel", "ff_flash_fwd_bhsd_d64_kernel"),
+    "ring_fwd_step": ("ff_ring_fwd_step_kernel", "ff_ring_fwd_step_d64_kernel"),
+}
 
 
 def emit(obj) -> None:
@@ -125,7 +138,7 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     from flexflow_tpu_torch.kernels import build
     from flexflow_tpu_torch.kernels import flash_attention as fa
 
@@ -134,6 +147,15 @@ def phase_build() -> None:
     start = time.perf_counter()
     infos = build.build()
     seconds = time.perf_counter() - start
+    ptxas = {}
+    for info in infos.values():
+        ptxas.update(build.parse_ptxas(info.ptxas_log))
+    warnings = [line.strip() for info in infos.values() for line in info.ptxas_log.splitlines()
+                if "warning" in line.lower()]
+    for names in REDESIGNED.values():
+        for name in names:
+            if ptxas[name].get("spill_store_bytes", 0) or ptxas[name].get("spill_load_bytes", 0):
+                raise AssertionError(f"{name} spills: {ptxas[name]}")
     lib = fa.library()
     rf.library()  # the ring kernels share the tile shapes, so their smem is as below
     names = ("ff_flash_fwd_kernel", "ff_flash_bwd_dkv_kernel", "ff_flash_bwd_dq_kernel",
@@ -146,7 +168,9 @@ def phase_build() -> None:
             for src, info in infos.items()
         },
         "dynamic_smem_bytes": {name: lib.ff_flash_smem_bytes(i) for i, name in enumerate(names)},
+        "ptxas_warnings": warnings,
     })
+    return ptxas
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -359,40 +383,44 @@ def _grad_err(checks) -> float:
     return max(checks[g]["max_abs_err"] for g in ("dq", "dk", "dv"))
 
 
-def _measure(flash, b: int, s: int, seed: int = 0, iters: int = 20, plain_iters: int = 3):
+def _measure(flash, b: int, s: int, seed: int = 0, iters: int = 20, plain_iters: int = 3,
+             causal: bool = False):
     """Compare, then time each kernel of `flash` beside its plain version,
-    its bound and the library yardstick at (b, h, s, d), non-causal."""
+    its bound and the library yardstick at (b, h, s, d). The bound of a
+    causal run counts the unmasked pairs only."""
     import torch
     import torch.nn.functional as F
 
     h, d = flash.h, flash.d
-    (x, do, o, lse, delta), checks = _compare(flash, b, s, causal=False, seed=seed)
+    (x, do, o, lse, delta), checks = _compare(flash, b, s, causal=causal, seed=seed)
     ms = {
-        "fwd": time_ms(lambda: flash.fwd(x), iters),
+        "fwd": time_ms(lambda: flash.fwd(x, causal), iters),
         "delta": time_ms(lambda: flash.delta(do, o), iters),
-        "bwd": time_ms(lambda: flash.bwd(x, do, lse, delta), iters),
-        "fwd_plain": time_ms(lambda: flash.fwd_plain(x), plain_iters, 1),
+        "bwd": time_ms(lambda: flash.bwd(x, do, lse, delta, causal), iters),
+        "fwd_plain": time_ms(lambda: flash.fwd_plain(x, causal), plain_iters, 1),
         "delta_plain": time_ms(lambda: flash.delta_plain(do, o), plain_iters, 1),
-        "bwd_plain": time_ms(lambda: flash.bwd_plain(x, do, lse, delta), plain_iters, 1),
+        "bwd_plain": time_ms(lambda: flash.bwd_plain(x, do, lse, delta, causal), plain_iters, 1),
     }
     # the library yardsticks: one PyTorch call each on [b, h, s, d] views of
     # the same tensors, timed here and never used by the port
     q, k, v, do4 = flash.heads(x, do)
-    ms["sdpa_fwd"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters)
+    ms["sdpa_fwd"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
+                             iters)
     ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
 
     def sdpa_fwd_bwd():
-        F.scaled_dot_product_attention(ql, kl, vl).backward(do4)
+        F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal).backward(do4)
 
     ms["sdpa_fwd_bwd"] = time_ms(sdpa_fwd_bwd, iters)
     ms["einsum_delta"] = time_ms(lambda: flash.einsum_delta(do, o), iters)
 
     elems = b * s * h * d  # one [b, s, h*d] operand
     rows = b * h * s  # one lse/delta vector
+    pairs = _unmasked_pairs(s, s, 0, 0, causal)
     bounds = {
-        "fwd": _bound_ms(4 * elems * 2 + rows * 4, 4 * b * h * s * s * d, PEAK_BF16),
+        "fwd": _bound_ms(4 * elems * 2 + rows * 4, 4 * b * h * pairs * d, PEAK_BF16),
         "delta": _bound_ms(2 * elems * 2 + rows * 4, 2 * elems, PEAK_F32),
-        "bwd": _bound_ms(7 * elems * 2 + 2 * rows * 4, 10 * b * h * s * s * d, PEAK_BF16),
+        "bwd": _bound_ms(7 * elems * 2 + 2 * rows * 4, 10 * b * h * pairs * d, PEAK_BF16),
     }
     return ms, bounds, checks
 
@@ -433,18 +461,35 @@ def phase_kernels():
     # d=128: the flagship (b=64, h=8, s=512), and the seq-2048 flagship of
     # bench.py:3431-3435 (b=16, h=8, s=2048), whose backward the JAX package
     # computes with _bwd_onepass_kernel (rows 4-5 of the kernel table)
+    # the forward's tiling edges: s % 128 == 64 leaves the last block's
+    # second warpgroup without rows
+    edges = {f"{name}_{'causal' if c else 'full'}": _compare(flash, 2, 192, causal=c, seed=40 + i)[1]
+             for i, (name, flash) in enumerate((
+                 ("d128", Flash(2, 128)), ("d64_qkv", Flash(4, 64, interleaved=True)),
+                 ("bhsd_d128_strided", FlashBHSD(2, 128, strided=True))))
+             for c in (False, True)}
+
     ms, bounds, checks = _measure(Flash(8, 128), 64, 512)
     ms2k, bounds2k, checks2k = _measure(Flash(8, 128), 16, 2048, seed=4, iters=10)
     s2k = dict(b=16, h=8, s=2048, d=128)
+    # causal at seq 2048: the JAX package's _bwd_bshf (row 5) and a causal
+    # forward at a real shape
+    msc, boundsc, checksc = _measure(Flash(8, 128), 16, 2048, seed=14, iters=10, causal=True)
+    s2kc = dict(s2k, causal=True, bound="unmasked pairs only")
     kernels = [
         _entry("flash_fwd", 674, ms, bounds, checks, "fwd", ms["sdpa_fwd"], sdpa_f,
-               seq2048=_side(ms2k, bounds2k, checks2k, "fwd", ms2k["sdpa_fwd"], s2k)),
+               seq2048=_side(ms2k, bounds2k, checks2k, "fwd", ms2k["sdpa_fwd"], s2k),
+               seq2048_causal=_side(msc, boundsc, checksc, "fwd", msc["sdpa_fwd"], s2kc)),
         _entry("flash_delta", 1203, ms, bounds, checks, "delta", ms["einsum_delta"], einsum),
         _entry("flash_bwd", 976, ms, bounds, checks, "bwd", ms["sdpa_fwd_bwd"], sdpa_fb,
                port_fwd_delta_bwd_ms=ms["fwd"] + ms["delta"] + ms["bwd"],
                seq2048=dict(_side(ms2k, bounds2k, checks2k, "bwd", ms2k["sdpa_fwd_bwd"], s2k),
                             replaces=[f"{TPU_KERNELS}:1286", f"{TPU_KERNELS}:324",
-                                      f"{TPU_KERNELS}:375"])),
+                                      f"{TPU_KERNELS}:375"]),
+               seq2048_causal=dict(_side(msc, boundsc, checksc, "bwd", msc["sdpa_fwd_bwd"], s2kc),
+                                   sdpa_fwd_ms=msc["sdpa_fwd"],
+                                   replaces=[f"{TPU_KERNELS}:1395", f"{TPU_KERNELS}:324",
+                                             f"{TPU_KERNELS}:375"])),
     ]
 
     # d=64: the 16-head config (b=64, h=16, s=512) on the interleaved-QKV
@@ -469,7 +514,8 @@ def phase_kernels():
           "shapes": {"d128": {"b": 64, "h": 8, "s": 512}, "d128_seq2048": s2k,
                      "d64": {"b": 64, "h": 16, "s": 512}, "dtype": "bf16"},
           "projection_view": _projection_view(),
-          "repeat_bitwise": True, "causal_checks": {"shape": {"b": 2, "s": 256}, **causal}})
+          "repeat_bitwise": True, "causal_checks": {"shape": {"b": 2, "s": 256}, **causal},
+          "tiling_edges": {"shape": {"b": 2, "s": 192}, **edges}})
     return kernels
 
 
@@ -627,6 +673,12 @@ class RingCase:
         for t in (*state, *grads):
             if not bool(torch.isfinite(t).all()):
                 raise AssertionError("ring kernel output is not finite")
+        blind = self.blind_rows()
+        if blind and self.pairs():  # rows that see no key keep their carried state bitwise
+            if not all(torch.equal(a[:, :, :blind], c[:, :, :blind])
+                       for a, c in zip(state, self.carry)):
+                raise AssertionError("rows that see no key changed their carried state")
+            checks["blind_rows_bitwise_unchanged"] = blind
         if self.pairs() == 0:  # every key masked: nothing may change
             if not all(torch.equal(a, c) for a, c in zip(state, self.carry)):
                 raise AssertionError("a fully masked ring step changed the carried state")
@@ -665,6 +717,11 @@ class RingCase:
         b, h, s, t, d = self.dims
         return _unmasked_pairs(s, t, *self.offs, self.causal)
 
+    def blind_rows(self) -> int:
+        """Leading query rows that the causal mask lets see no key here."""
+        q_off, k_off = self.offs
+        return min(self.dims[2], max(0, k_off - q_off)) if self.causal else 0
+
     def numbers(self, kind: str, library_ms=None) -> dict:
         b, h, s, t, d = self.dims
         bound = _ring_bound(kind, b, h, s, t, d, self.pairs())
@@ -680,8 +737,9 @@ def _ring_kernels():
     train_sp's attention shape (b=4, h=8, s_blk = t_blk = 8192, d=128,
     causal, offsets 0, empty carry, on the projection einsum's layout), at
     the replay's shapes (s_blk = t_blk = 2048 with (q_off, k_off) = (2048,
-    0) carrying the diagonal step's state, (2048, 2048) empty, and (0, 2048)
-    fully masked, carrying), and at d=64: b=2, h=4, 256, causal, and
+    0) carrying the diagonal step's state, (2048, 2048) empty, (0, 2048)
+    fully masked, carrying, and (0, 64) carrying, whose rows 0-63 see no
+    key), and at d=64: b=2, h=4, 256, causal, and
     parity_sp's shape (b=2, h=4, 1024) on the projection einsum's layout.
     With an empty carry at t = s, the forward step plus finalisation is
     causal attention, so F.scaled_dot_product_attention(is_causal=True) on
@@ -710,6 +768,9 @@ def _ring_kernels():
     zero = RingCase(4, 8, 2048, 2048, 128, 0, 2048, True, seed=23,
                     carry=RingCase(4, 8, 2048, 2048, 128, 0, 0, True, seed=24).fwd())
     zero.check(measure=True)
+    # the first 64-row warpgroup of the first block sees no key, the second does
+    split = RingCase(4, 8, 2048, 2048, 128, 0, 64, True, seed=27, carry=diag.fwd())
+    split.check(measure=True)
     d64 = RingCase(2, 4, 256, 256, 64, 0, 0, True, seed=25)
     d64.check(measure=True)
     d64_sp = RingCase(2, 4, 1024, 1024, 64, 0, 0, True, seed=26, strided=True)
@@ -729,7 +790,8 @@ def _ring_kernels():
         extra = {} if kind == "fwd" else {"pair_ms": pair_ms}
         sides = {}
         for key, case in (("replay_diagonal", diag), ("replay_below", below),
-                          ("replay_masked", zero), ("d64", d64), ("d64_parity_sp", d64_sp)):
+                          ("replay_masked", zero), ("split_warpgroups", split), ("d64", d64),
+                          ("d64_parity_sp", d64_sp)):
             sides[key] = dict(shape=case.shape, **case.numbers(kind))
         entries.append(dict(
             name=name, route="cuda", source=RING_SOURCE,
@@ -1016,8 +1078,12 @@ def main() -> None:
     from flexflow_tpu_torch.models import FLAGSHIP, LONGCTX, REF_HEADS16
 
     smi = phase_device()
-    phase_build()
+    ptxas = phase_build()
     kernels = phase_kernels()
+    for entry in kernels:
+        if entry["name"] in REDESIGNED:
+            entry["design"] = "wgmma+tma"
+            entry["ptxas"] = {k: ptxas[k] for k in REDESIGNED[entry["name"]]}
     phase_parity()
     launches = {  # per train phase, the launches of each wrapper on its path
         "train": phase_train(smi, FLAGSHIP, "train", ("flash_fwd", "flash_delta", "flash_bwd")),

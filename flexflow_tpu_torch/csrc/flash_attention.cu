@@ -24,17 +24,29 @@
 //   ff_flash_bwd_dq_bhsd[_d64]_kernel      (s <= block) and _bwd_dq_kernel and
 //                                          _bwd_dkv_kernel via _bwd (s > block)
 //
-// What bounds them on an H100 (b=64, s=512, h*d=1024, at either head dim):
-// the forward and the backward do 4*b*h*s^2*d and 10*b*h*s^2*d flops on
-// ~270 MB and ~470 MB, so at full tensor-core rate they sit near the ridge
-// (forward) and above it (backward); delta is a pure read of dO and O and is
-// bound by bytes.
+// What bounds them on an H100. The forward does 4*b*h*s^2*d flops: at the
+// flagship's b=64, s=512, h*d=1024 that is 6.9e10 on ~270 MB, the ridge,
+// bound by bytes (0.080 ms); at the seq-2048 flagship's b=16, s=2048 it is
+// 2.7e11 on the same bytes, bound by operations (0.278 ms). The backward's
+// 10*b*h*s^2*d flops on ~470 MB sit above the ridge; delta is a pure read
+// of dO and O and is bound by bytes.
 //
-// Design. Each block owns one 64-row tile of one (batch, head) and reads its
-// tiles straight from the seq-major operands by stride: no transpose
-// anywhere. Four warps each own 16 rows of the tile; products run on the
-// tensor cores through nvcuda::wmma (bf16 in, f32 accumulate), and the
-// softmax runs in f32 on the rows a warp owns, so the only block-wide
+// Forward design (the four _fwd kernels, rows 1, 6 and 9 of the port's
+// kernel table): fwd_body is the Hopper mainloop of flash_fwd_sm90.cuh with
+// the flash epilogue. Where the wmma forward it replaces stored every score
+// fragment to an f32 shared tile, walked the softmax one row at a time per
+// warp, kept P and the f32 output tile in shared memory and loaded K/V
+// synchronously between two block barriers, it runs S = Q K^T and O += P V
+// on wgmma with S, P and O in registers, takes a row's max and sum from a
+// thread-local pass and two quad shuffles, and streams K/V by TMA through a
+// ring of stages that one producer thread keeps full while two 64-row
+// consumer warpgroups compute. That header's note has the details.
+//
+// Backward design. Each block owns one 64-row tile of one (batch, head) and
+// reads its tiles straight from the seq-major operands by stride: no
+// transpose anywhere. Four warps each own 16 rows of the tile; products run
+// on the tensor cores through nvcuda::wmma (bf16 in, f32 accumulate), and
+// the softmax runs in f32 on the rows a warp owns, so the only block-wide
 // barriers are around the shared K/V (or Q/dO) tile loads. The TPU kernel
 // holds the whole [s, s] f32 score tile of a (b, h) in VMEM; at s=512 that
 // is 1 MB, far beyond the 227 KB of shared memory a block gets, so the
@@ -58,114 +70,30 @@
 // einsum's output (a [b, s, h, d] buffer viewed as [b, h, s, d]) has
 // ld = h*d, sub = d, group = PER*d, batch = s*h*d, the bshf numbers, so it
 // is read in place. Every row starts at a multiple of 8 elements, so the
-// 16-byte tile loads stay aligned (the wrappers check it).
+// 16-byte tile loads and the forward's TMA boxes stay aligned (the wrappers
+// check it); the forward turns the Layout into 5-D tensor maps
+// (fwd_tensor_map).
 //
-// The Layout, the tile shapes and the tile loads and products live in
-// flash_tiles.cuh, which ring_flash.cu shares. Each exported C function
+// The Layout and the backward's tile shapes, loads and products live in
+// flash_tiles.cuh, the forward's mainloop in flash_fwd_sm90.cuh; ring_flash.cu
+// shares both. Each exported C function
 // launches on the given stream and returns cudaGetLastError() (0 on
 // success).
 
-#include "flash_tiles.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 
-// o and lse[b, h, s] (natural log) of softmax(scale * q k^T) v.
-// Grid (s/BM, h, b); one block per (q tile, head, batch).
+// o and lse[b, h, s] (natural log) of softmax(scale * q k^T) v: the Hopper
+// forward mainloop of flash_fwd_sm90.cuh with the flash epilogue. Grid
+// fwd_grid(S, H, B); q, k and v come as tensor maps, o goes out through `out`.
 template <int D>
-__device__ __forceinline__ void fwd_body(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                         const bf16* __restrict__ v, Layout in,
-                                         bf16* __restrict__ o, Layout out,
+__device__ __forceinline__ void fwd_body(const CUtensorMap* tq, const CUtensorMap* tk,
+                                         const CUtensorMap* tv, bf16* __restrict__ o, Layout out,
                                          float* __restrict__ lse, int S, int H, int causal,
                                          float scale) {
-  typedef Tiles<D> T;
-  constexpr int LDH = T::LDH, LDO = T::LDO;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = reinterpret_cast<bf16*>(smem + T::H);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 2 * T::H);
-  float* sS = reinterpret_cast<float*>(smem + 3 * T::H);
-  bf16* sP = reinterpret_cast<bf16*>(smem + 3 * T::H + TILE_S);
-  float* sO = reinterpret_cast<float*>(smem + 3 * T::H + TILE_S + TILE_P);
-  float* sM = reinterpret_cast<float*>(smem + 3 * T::H + TILE_S + TILE_P + T::O);
-  float* sL = sM + BM;
-
-  const int q0 = blockIdx.x * BM, hi = blockIdx.y, bi = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-  const int ld = in.ld;
-  const size_t base = head_base<D>(in, bi, hi);
-
-  load_tile<D>(sQ, q + base + (size_t)q0 * ld, ld);
-  for (int i = threadIdx.x; i < BM * LDO; i += NTHREADS) sO[i] = 0.f;
-  if (threadIdx.x < BM) {
-    sM[threadIdx.x] = NEG_INF;
-    sL[threadIdx.x] = 0.f;
-  }
-
-  const int nk = causal ? (q0 + BM - 1) / BN + 1 : S / BN;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();  // every warp is done with the previous K/V tiles
-    load_tile<D>(sK, k + base + (size_t)k0 * ld, ld);
-    load_tile<D>(sV, v + base + (size_t)k0 * ld, ld);
-    __syncthreads();
-
-    gemm_abt<D>(sS + r0 * LDS, sQ + r0 * LDH, sK);
-    __syncwarp();
-    // online softmax over this warp's rows; lane owns columns lane, lane+32
-    for (int r = r0; r < r0 + 16; ++r) {
-      const int qi = q0 + r;
-      float s0 = sS[r * LDS + lane] * scale;
-      float s1 = sS[r * LDS + lane + 32] * scale;
-      if (causal) {
-        if (k0 + lane > qi) s0 = NEG_INF;
-        if (k0 + lane + 32 > qi) s1 = NEG_INF;
-      }
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = __expf(s0 - m_new), p1 = __expf(s1 - m_new);
-      sP[r * LDP + lane] = __float2bfloat16(p0);
-      sP[r * LDP + lane + 32] = __float2bfloat16(p1);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = __expf(m_old - m_new);
-      for (int c = lane; c < D; c += 32) sO[r * LDO + c] *= alpha;
-      __syncwarp();  // every lane has read sM[r]
-      if (lane == 0) {
-        sM[r] = m_new;
-        sL[r] = sL[r] * alpha + sum;
-      }
-    }
-    __syncwarp();
-    // O[rows] += P V, accumulating through the f32 tile rescaled above
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      FragC acc;
-      wmma::load_matrix_sync(acc, sO + r0 * LDO + j * 16, LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        FragA fa;
-        FragB fb;
-        wmma::load_matrix_sync(fa, sP + r0 * LDP + kk * 16, LDP);
-        wmma::load_matrix_sync(fb, sV + kk * 16 * LDH + j * 16, LDH);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sO + r0 * LDO + j * 16, acc, LDO, wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-
-  const size_t obase = head_base<D>(out, bi, hi);
-  for (int r = r0; r < r0 + 16; ++r) {
-    const float inv = 1.f / sL[r];
-    bf16* row = o + obase + (size_t)(q0 + r) * out.ld;
-    for (int c = lane; c < D; c += 32) row[c] = __float2bfloat16(sO[r * LDO + c] * inv);
-    if (lane == 0) lse[((size_t)bi * H + hi) * S + q0 + r] = sM[r] + logf(sL[r]);
-  }
+  fwd_mainloop<D>(tq, tk, tv, FlashEpilogue<D>{o, out, lse},
+                  FwdShape{S, S, H, 0, 0, causal, scale});
 }
 
 // delta[b, h, s] = sum_d dO * O in f32, one warp per (b, s, h) row of D
@@ -392,36 +320,18 @@ __host__ __device__ __forceinline__ Layout lane_grouped(int ld, int group, int S
 // strides (the _bhsd kernels).
 // ---------------------------------------------------------------------------
 
-extern "C" __global__ void __launch_bounds__(NTHREADS)
-ff_flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o,
-                    float* __restrict__ lse, int S, int H, int causal, float scale) {
-  const Layout l = dense<128>(S, H);
-  fwd_body<128>(q, k, v, l, o, l, lse, S, H, causal, scale);
-}
+#define FLASH_FWD_KERNEL(NAME, D)                                                          \
+  extern "C" __global__ void __launch_bounds__(FWD_THREADS, 1) NAME(                       \
+      const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,      \
+      const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, Layout out,            \
+      float* __restrict__ lse, int S, int H, int causal, float scale) {                    \
+    fwd_body<D>(&tq, &tk, &tv, o, out, lse, S, H, causal, scale);                          \
+  }
 
-extern "C" __global__ void __launch_bounds__(NTHREADS)
-ff_flash_fwd_d64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, Layout in, bf16* __restrict__ o,
-                        float* __restrict__ lse, int S, int H, int causal, float scale) {
-  fwd_body<64>(q, k, v, in, o, dense<64>(S, H), lse, S, H, causal, scale);
-}
-
-extern "C" __global__ void __launch_bounds__(NTHREADS)
-ff_flash_fwd_bhsd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, Layout in, bf16* __restrict__ o,
-                         Layout out, float* __restrict__ lse, int S, int H, int causal,
-                         float scale) {
-  fwd_body<128>(q, k, v, in, o, out, lse, S, H, causal, scale);
-}
-
-extern "C" __global__ void __launch_bounds__(NTHREADS)
-ff_flash_fwd_bhsd_d64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, Layout in, bf16* __restrict__ o,
-                             Layout out, float* __restrict__ lse, int S, int H, int causal,
-                             float scale) {
-  fwd_body<64>(q, k, v, in, o, out, lse, S, H, causal, scale);
-}
+FLASH_FWD_KERNEL(ff_flash_fwd_kernel, 128)
+FLASH_FWD_KERNEL(ff_flash_fwd_d64_kernel, 64)
+FLASH_FWD_KERNEL(ff_flash_fwd_bhsd_kernel, 128)
+FLASH_FWD_KERNEL(ff_flash_fwd_bhsd_d64_kernel, 64)
 
 extern "C" __global__ void ff_flash_delta_kernel(const bf16* __restrict__ dout,
                                                  const bf16* __restrict__ o,
@@ -550,39 +460,33 @@ static int delta_blocks(int B, int S, int H) {
   return (int)((rows + DELTA_WARPS - 1) / DELTA_WARPS);
 }
 
+// The forward of q, k, v (Layout in) into o (Layout out) and lse.
+template <int D, typename K>
+static int launch_fwd(K kernel, const void* q, const void* k, const void* v, Layout in, void* o,
+                      Layout out, void* lse, int B, int S, int H, int causal,
+                      cudaStream_t stream) {
+  CUtensorMap maps[3];
+  cudaError_t err = fwd_tensor_maps<D>(maps, q, in, S, k, in, v, in, S, H, B);
+  if (err != cudaSuccess) return (int)err;
+  err = allow_smem(kernel, FwdTiles<D>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<fwd_grid(S, H, B), FWD_THREADS, FwdTiles<D>::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], (bf16*)o, out, (float*)lse, S, H, causal, softmax_scale<D>());
+  return (int)cudaGetLastError();
+}
+
 extern "C" int ff_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                             int B, int S, int H, int causal, void* stream) {
-  cudaError_t err = allow_smem(ff_flash_fwd_kernel, Tiles<128>::FWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  ff_flash_fwd_kernel<<<dim3(S / BM, H, B), NTHREADS, Tiles<128>::FWD_SMEM,
-                        (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, S, H, causal,
-      softmax_scale<128>());
-  return (int)cudaGetLastError();
+  const Layout l = dense<128>(S, H);
+  return launch_fwd<128>(ff_flash_fwd_kernel, q, k, v, l, o, l, lse, B, S, H, causal,
+                         (cudaStream_t)stream);
 }
 
 extern "C" int ff_flash_fwd_d64(const void* q, const void* k, const void* v, int ld, int group,
                                 void* o, void* lse, int B, int S, int H, int causal,
                                 void* stream) {
-  cudaError_t err = allow_smem(ff_flash_fwd_d64_kernel, Tiles<64>::FWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  ff_flash_fwd_d64_kernel<<<dim3(S / BM, H, B), NTHREADS, Tiles<64>::FWD_SMEM,
-                            (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, lane_grouped<64>(ld, group, S), (bf16*)o,
-      (float*)lse, S, H, causal, softmax_scale<64>());
-  return (int)cudaGetLastError();
-}
-
-template <int D, typename K>
-static int fwd_bhsd(K kernel, const void* q, const void* k, const void* v, Layout in, void* o,
-                    Layout out, void* lse, int B, int S, int H, int causal,
-                    cudaStream_t stream) {
-  cudaError_t err = allow_smem(kernel, Tiles<D>::FWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(S / BM, H, B), NTHREADS, Tiles<D>::FWD_SMEM, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, in, (bf16*)o, out, (float*)lse, S, H,
-      causal, softmax_scale<D>());
-  return (int)cudaGetLastError();
+  return launch_fwd<64>(ff_flash_fwd_d64_kernel, q, k, v, lane_grouped<64>(ld, group, S), o,
+                        dense<64>(S, H), lse, B, S, H, causal, (cudaStream_t)stream);
 }
 
 extern "C" int ff_flash_fwd_bhsd(int d, const void* q, const void* k, const void* v, int ld,
@@ -591,11 +495,11 @@ extern "C" int ff_flash_fwd_bhsd(int d, const void* q, const void* k, const void
                                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (d == 128)
-    return fwd_bhsd<128>(ff_flash_fwd_bhsd_kernel, q, k, v, per_head<128>(ld, head, batch), o,
-                         per_head<128>(o_ld, o_head, o_batch), lse, B, S, H, causal, s);
+    return launch_fwd<128>(ff_flash_fwd_bhsd_kernel, q, k, v, per_head<128>(ld, head, batch), o,
+                           per_head<128>(o_ld, o_head, o_batch), lse, B, S, H, causal, s);
   if (d == 64)
-    return fwd_bhsd<64>(ff_flash_fwd_bhsd_d64_kernel, q, k, v, per_head<64>(ld, head, batch), o,
-                        per_head<64>(o_ld, o_head, o_batch), lse, B, S, H, causal, s);
+    return launch_fwd<64>(ff_flash_fwd_bhsd_d64_kernel, q, k, v, per_head<64>(ld, head, batch), o,
+                          per_head<64>(o_ld, o_head, o_batch), lse, B, S, H, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -718,10 +622,10 @@ extern "C" int ff_flash_bwd_bhsd(int d, const void* q, const void* k, const void
 // each head dim use the same).
 extern "C" int ff_flash_smem_bytes(int which) {
   switch (which) {
-    case 0: return (int)Tiles<128>::FWD_SMEM;
+    case 0: return (int)FwdTiles<128>::SMEM;
     case 1: return (int)Tiles<128>::DKV_SMEM;
     case 2: return (int)Tiles<128>::DQ_SMEM;
-    case 3: return (int)Tiles<64>::FWD_SMEM;
+    case 3: return (int)FwdTiles<64>::SMEM;
     case 4: return (int)Tiles<64>::DKV_SMEM;
     case 5: return (int)Tiles<64>::DQ_SMEM;
     default: return 0;

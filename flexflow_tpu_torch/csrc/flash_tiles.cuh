@@ -1,8 +1,9 @@
 // Tile helpers shared by the port's attention kernels (flash_attention.cu
-// and ring_flash.cu): the operand Layout, the shared-memory tile shapes of
-// head dim D, 16-byte tile loads, the wmma products over 64-row tiles and
-// the bf16 row stores, plus the host-side launch helpers. Every kernel runs
-// NWARPS warps per block, each owning 16 rows of the block's 64-row tile.
+// and ring_flash.cu): the operand Layout, the backward kernels' shared-memory
+// tile shapes of head dim D, 16-byte tile loads, the wmma products over
+// 64-row tiles and the bf16 row stores, plus the host-side launch helpers.
+// Every backward kernel runs NWARPS warps per block, each owning 16 rows of
+// the block's 64-row tile; the forward's mainloop is flash_fwd_sm90.cuh.
 
 #pragma once
 
@@ -42,10 +43,7 @@ template <int D>
 struct Tiles {
   static_assert(D == 64 || D == 128, "head dim 64 or 128");
   static constexpr int LDH = D + 8;  // pitch of a bf16 [rows][D] tile
-  static constexpr int LDO = D + 4;  // pitch of the f32 [rows][D] output tile
   static constexpr size_t H = sizeof(bf16) * BM * LDH;   // 17408 B at 128, 9216 B at 64
-  static constexpr size_t O = sizeof(float) * BM * LDO;  // 33792 B at 128, 17408 B at 64
-  static constexpr size_t FWD_SMEM = 3 * H + TILE_S + TILE_P + O + 2 * ROWS_F;
   static constexpr size_t DKV_SMEM = 4 * H + TILE_S + 2 * TILE_P + 2 * ROWS_F;
   static constexpr size_t DQ_SMEM = 4 * H + TILE_S + TILE_P + 2 * ROWS_F;
 };

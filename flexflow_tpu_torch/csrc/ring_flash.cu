@@ -24,22 +24,32 @@
 // s*t*d flops per (b, h) over the unmasked pairs, as the split backward of
 // flash_attention.cu does (6 in dQ, 8 in dK/dV), and is bound the same way.
 //
-// Design. Each block owns one 64-row tile of one (batch, head), as in
-// flash_attention.cu, and reads its tiles by stride through a Layout, so the
+// Forward design. fwd_step_body is the Hopper mainloop of flash_fwd_sm90.cuh
+// (the one flash_attention.cu's forward runs) with the ring epilogue: each
+// block owns 128 query rows as two 64-row consumer warpgroups, which read
+// their rows' carried (acc, m, l) into registers, run S = Q K^T and
+// O += P V on wgmma over K/V tiles that one producer thread brings by TMA
+// into a ring of stages, keep S, P and O in registers throughout (the wmma
+// step it replaces kept the state, the scores and P in shared memory, walked
+// the softmax row by row and loaded tiles synchronously), and write the
+// state back once. The tensor maps read q, k and v by their strides, so the
 // projection einsum's [b, s, h, d] view and a contiguous rotated block are
-// both read in place. The forward keeps its rows' f32 state in shared
-// memory for the whole step: the state is read once and written once. The
-// k-tile loop stops at the last tile the causal mask lets the q tile see
-// (q tiles start at the first tile that sees the k tile in dK/dV), so a
-// fully masked step costs no products, and a block with nothing to see
-// returns before touching memory: the state stays bitwise as it was. The
-// backward kernels load their f32 accumulator rows into the wmma
-// accumulators, add the step's products and store them back; one block owns
-// each row, so there are no atomics and results repeat bitwise. Masked
-// entries get p = 0 outright, so a row that sees no key in a step keeps its
-// state whatever tiles are visited. lse and m are in natural log.
+// both read in place. Each warpgroup's key loop stops at the last tile the
+// causal mask lets its rows see, so a fully masked step costs no products; a
+// block with nothing to see returns before touching memory, and a
+// warpgroup whose rows see nothing leaves their state bitwise as it was.
+//
+// Backward design. Each block owns one 64-row tile of one (batch, head) and
+// reads its tiles by stride through a Layout. The dQ and dK/dV kernels load
+// their f32 accumulator rows into the wmma accumulators, add the step's
+// products and store them back; the k-tile loop stops at the last tile the
+// causal mask lets the q tile see (q tiles start at the first tile that sees
+// the k tile in dK/dV). One block owns each row, so there are no atomics
+// and results repeat bitwise. Masked entries get p = 0 outright, so a row
+// that sees no key in a step keeps its state whatever tiles are visited. lse
+// and m are in natural log.
 
-#include "flash_tiles.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 
@@ -58,103 +68,17 @@ __device__ __forceinline__ int causal_first_q_tile(int q_off, int k_off, int k0,
   return first <= 0 ? 0 : min(first / BM, S / BM);
 }
 
-// Forward step: (acc, m, l) of the q tile updated in place with the keys
-// of this block. Grid (S/BM, h, b).
+// Forward step: (acc, m, l) of the block's rows updated in place with the
+// keys of this block: the Hopper forward mainloop of flash_fwd_sm90.cuh with
+// the ring epilogue. Grid fwd_grid(S, H, B).
 template <int D>
-__device__ __forceinline__ void fwd_step_body(
-    const bf16* __restrict__ q, Layout lq, const bf16* __restrict__ k, Layout lk,
-    const bf16* __restrict__ v, Layout lv, float* __restrict__ acc, float* __restrict__ m,
-    float* __restrict__ l, int S, int T, int H, int q_off, int k_off, int causal, float scale) {
-  typedef Tiles<D> Ti;
-  constexpr int LDH = Ti::LDH, LDO = Ti::LDO;
-  const int q0 = blockIdx.x * BM, hi = blockIdx.y, bi = blockIdx.z;
-  const int nk = causal ? causal_k_tiles(q_off, q0, k_off, T) : T / BN;
-  if (nk == 0) return;  // every row of the tile sees only masked keys
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = reinterpret_cast<bf16*>(smem + Ti::H);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 2 * Ti::H);
-  float* sS = reinterpret_cast<float*>(smem + 3 * Ti::H);
-  bf16* sP = reinterpret_cast<bf16*>(smem + 3 * Ti::H + TILE_S);
-  float* sO = reinterpret_cast<float*>(smem + 3 * Ti::H + TILE_S + TILE_P);
-  float* sM = reinterpret_cast<float*>(smem + 3 * Ti::H + TILE_S + TILE_P + Ti::O);
-  float* sL = sM + BM;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-  const size_t rows = ((size_t)bi * H + hi) * S + q0;  // first row of the tile in m, l, acc
-  float* acc_rows = acc + rows * D;
-
-  load_tile<D>(sQ, q + head_base<D>(lq, bi, hi) + (size_t)q0 * lq.ld, lq.ld);
-  for (int i = threadIdx.x; i < BM * D; i += NTHREADS) sO[(i / D) * LDO + i % D] = acc_rows[i];
-  if (threadIdx.x < BM) {
-    sM[threadIdx.x] = m[rows + threadIdx.x];
-    sL[threadIdx.x] = l[rows + threadIdx.x];
-  }
-  const size_t kbase = head_base<D>(lk, bi, hi), vbase = head_base<D>(lv, bi, hi);
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();  // the carried state is loaded; every warp is done with the last tiles
-    load_tile<D>(sK, k + kbase + (size_t)k0 * lk.ld, lk.ld);
-    load_tile<D>(sV, v + vbase + (size_t)k0 * lv.ld, lv.ld);
-    __syncthreads();
-
-    gemm_abt<D>(sS + r0 * LDS, sQ + r0 * LDH, sK);
-    __syncwarp();
-    // online softmax over this warp's rows; lane owns columns lane, lane+32
-    for (int r = r0; r < r0 + 16; ++r) {
-      const int qi = q_off + q0 + r, kj = k_off + k0 + lane;  // global positions
-      const bool ok0 = !causal || kj <= qi, ok1 = !causal || kj + 32 <= qi;
-      const float s0 = ok0 ? sS[r * LDS + lane] * scale : NEG_INF;
-      const float s1 = ok1 ? sS[r * LDS + lane + 32] * scale : NEG_INF;
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = ok0 ? __expf(s0 - m_new) : 0.f, p1 = ok1 ? __expf(s1 - m_new) : 0.f;
-      sP[r * LDP + lane] = __float2bfloat16(p0);
-      sP[r * LDP + lane + 32] = __float2bfloat16(p1);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = __expf(m_old - m_new);
-      for (int c = lane; c < D; c += 32) sO[r * LDO + c] *= alpha;
-      __syncwarp();  // every lane has read sM[r]
-      if (lane == 0) {
-        sM[r] = m_new;
-        sL[r] = sL[r] * alpha + sum;
-      }
-    }
-    __syncwarp();
-    // acc[rows] += P V, through the f32 tile rescaled above
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      FragC o_acc;
-      wmma::load_matrix_sync(o_acc, sO + r0 * LDO + j * 16, LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        FragA fa;
-        FragB fb;
-        wmma::load_matrix_sync(fa, sP + r0 * LDP + kk * 16, LDP);
-        wmma::load_matrix_sync(fb, sV + kk * 16 * LDH + j * 16, LDH);
-        wmma::mma_sync(o_acc, fa, fb, o_acc);
-      }
-      wmma::store_matrix_sync(sO + r0 * LDO + j * 16, o_acc, LDO, wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-
-  // each warp writes back the rows it owns
-  for (int r = r0; r < r0 + 16; ++r) {
-    for (int c = lane; c < D; c += 32) acc_rows[(size_t)r * D + c] = sO[r * LDO + c];
-    if (lane == 0) {
-      m[rows + r] = sM[r];
-      l[rows + r] = sL[r];
-    }
-  }
+__device__ __forceinline__ void fwd_step_body(const CUtensorMap* tq, const CUtensorMap* tk,
+                                              const CUtensorMap* tv, float* __restrict__ acc,
+                                              float* __restrict__ m, float* __restrict__ l, int S,
+                                              int T, int H, int q_off, int k_off, int causal,
+                                              float scale) {
+  fwd_mainloop<D>(tq, tk, tv, RingEpilogue<D>{acc, m, l},
+                  FwdShape{S, T, H, q_off, k_off, causal, scale});
 }
 
 // dQ step: dq[rows] += scale * dS K over this block's keys, dS = P * (dP -
@@ -321,12 +245,12 @@ __device__ __forceinline__ void dkv_step_body(
 // ---------------------------------------------------------------------------
 
 #define RING_FWD_KERNEL(NAME, D)                                                              \
-  extern "C" __global__ void __launch_bounds__(NTHREADS) NAME(                                \
-      const bf16* __restrict__ q, Layout lq, const bf16* __restrict__ k, Layout lk,           \
-      const bf16* __restrict__ v, Layout lv, float* __restrict__ acc, float* __restrict__ m,  \
+  extern "C" __global__ void __launch_bounds__(FWD_THREADS, 1) NAME(                          \
+      const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,         \
+      const __grid_constant__ CUtensorMap tv, float* __restrict__ acc, float* __restrict__ m, \
       float* __restrict__ l, int S, int T, int H, int q_off, int k_off, int causal,           \
       float scale) {                                                                          \
-    fwd_step_body<D>(q, lq, k, lk, v, lv, acc, m, l, S, T, H, q_off, k_off, causal, scale);   \
+    fwd_step_body<D>(&tq, &tk, &tv, acc, m, l, S, T, H, q_off, k_off, causal, scale);         \
   }
 
 #define RING_DQ_KERNEL(NAME, D)                                                                \
@@ -374,11 +298,14 @@ template <int D, typename K>
 static int ring_fwd(K kernel, const void* q, Layout lq, const void* k, Layout lk, const void* v,
                     Layout lv, void* acc, void* m, void* l, int B, int S, int T, int H,
                     int q_off, int k_off, int causal, cudaStream_t s) {
-  cudaError_t err = allow_smem(kernel, Tiles<D>::FWD_SMEM);
+  CUtensorMap maps[3];
+  cudaError_t err = fwd_tensor_maps<D>(maps, q, lq, S, k, lk, v, lv, T, H, B);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(S / BM, H, B), NTHREADS, Tiles<D>::FWD_SMEM, s>>>(
-      (const bf16*)q, lq, (const bf16*)k, lk, (const bf16*)v, lv, (float*)acc, (float*)m,
-      (float*)l, S, T, H, q_off, k_off, causal, softmax_scale<D>());
+  err = allow_smem(kernel, FwdTiles<D>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<fwd_grid(S, H, B), FWD_THREADS, FwdTiles<D>::SMEM, s>>>(
+      maps[0], maps[1], maps[2], (float*)acc, (float*)m, (float*)l, S, T, H, q_off, k_off, causal,
+      softmax_scale<D>());
   return (int)cudaGetLastError();
 }
 

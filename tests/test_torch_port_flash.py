@@ -8,6 +8,7 @@ kernels (tests/test_flash_attention.py): atol 1e-5 for o, lse and delta,
 2e-4 for the gradients."""
 
 import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -143,13 +144,27 @@ def test_flash_gate_follows_the_kernels(shape, heads, dtype, device, ok):
 
 
 def test_gate_constants_match_the_cuda_source():
-    src = "".join((build.CSRC_DIR / f).read_text() for f in ("flash_attention.cu", "flash_tiles.cuh"))
+    src = "".join((build.CSRC_DIR / f).read_text()
+                  for f in ("flash_attention.cu", "flash_tiles.cuh", "flash_fwd_sm90.cuh"))
     for d in tfa.HEAD_DIMS:
-        assert f"fwd_body<{d}>" in src and f"dkv_body<{d}>" in src and f"dq_body<{d}>" in src
+        assert re.search(rf"FLASH_FWD_KERNEL\(ff_flash_fwd_\w*kernel, {d}\)", src), d
+        assert f"dkv_body<{d}>" in src and f"dq_body<{d}>" in src
         assert f"delta_body<{d}>" in src
+    assert "fwd_mainloop<D>(tq, tk, tv, FlashEpilogue<D>" in src
     assert f"constexpr int LANES = {tfa.LANES};" in src
+    # the backward's 64-row tiles
     assert f"constexpr int BM = {tfa.TILE};" in src
     assert f"constexpr int BN = {tfa.TILE};" in src
+    # the forward's: warpgroups of TILE rows, two to a block, key tiles a
+    # multiple of TILE whose tail (s % FWD_BN == TILE, which the gate
+    # admits) the forward masks
+    assert f"constexpr int FWD_WG_ROWS = {tfa.TILE};" in src
+    assert "constexpr int FWD_BM = 2 * FWD_WG_ROWS;" in src
+    bn = int(re.search(r"constexpr int FWD_BN = (\d+);", src).group(1))
+    assert bn % tfa.TILE == 0 and bn > tfa.TILE
+    assert "k0 + FWD_BN > sh.T" in src and "col < sh.T" in src
+    assert tfa.flash_attention_bshf_supported((2, bn + tfa.TILE, 256), 2, torch.bfloat16, "cuda")
+    assert "flash_fwd_sm90.cuh" in {p.name for p in build.CSRC_DIR.glob("*.cuh")}  # in the hash
 
 
 def test_library_name_tracks_source_and_flags():

@@ -198,8 +198,10 @@ def test_profile_step_groups_the_ring_kernels_with_the_port_kernels():
 def test_c_interface_matches_the_declared_signatures():
     """Every exported function the ring wrappers call is declared with as
     many ctypes arguments as the CUDA source (with its shared header) gives
-    it parameters, and both head dims have their kernels."""
-    src = "".join((build.CSRC_DIR / f).read_text() for f in ("ring_flash.cu", "flash_tiles.cuh"))
+    it parameters, and both head dims have their kernels; the forward step
+    is the shared Hopper mainloop with the ring epilogue, fed tensor maps."""
+    src = "".join((build.CSRC_DIR / f).read_text()
+                  for f in ("ring_flash.cu", "flash_tiles.cuh", "flash_fwd_sm90.cuh"))
     for name, (argtypes, _) in trf._SIGNATURES.items():
         m = re.search(r'extern "C" [\w\s\*]+?\b' + name + r"\(([^)]*)\)", src)
         assert m, name
@@ -207,4 +209,6 @@ def test_c_interface_matches_the_declared_signatures():
     for kind in ("FWD", "DQ", "DKV"):
         for d in tfa.HEAD_DIMS:
             assert re.search(rf"RING_{kind}_KERNEL\(ff_ring_\w+, {d}\)", src), (kind, d)
+    assert "fwd_mainloop<D>(tq, tk, tv, RingEpilogue<D>" in src
+    assert re.search(r"RING_FWD_KERNEL\(NAME, D\)[^}]*__grid_constant__ CUtensorMap tq", src)
     assert "ring_flash.cu" in build.SOURCES
