@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
                   versions;
 2. build          nvcc builds every kernel from the checkout's sources; build
                   time and each kernel's registers, shared memory and spills
-                  (the Hopper forwards must not spill) and ptxas's warnings;
+                  (the Hopper forwards and backwards must not spill) and
+                  ptxas's warnings;
 3. kernels        each kernel against its plain PyTorch version on the same
                   bf16 inputs, and timed beside its plain version, its bound
                   and one PyTorch call that computes the same function (never
@@ -17,8 +18,9 @@ Phases, each printing one JSON line:
                   attention (b=64, h=8, s=512) and at the seq-2048 flagship's
                   (b=16, h=8, s=2048), the d=64 kernels at the 16-head
                   config's (b=64, h=16, s=512) on the interleaved-QKV and on
-                  separate operands, the d=128 pair causal at seq 2048, plus
-                  small causal cases and the forward's tiling edges (s=192);
+                  separate operands, the d=128 pair causal at seq 2048 and
+                  the d=64 interleaved pair causal at seq 512, plus small
+                  causal cases and the tiling edges (s=192 and 320);
 4. parity         two small flagships (heads of 128, and heads of 64) trained
                   two steps on the card (bf16, through the kernels) and on
                   the CPU (f32, plain versions) from the same parameters: the
@@ -56,8 +58,8 @@ train_dp, of train_dp_seq2048 and of the 16-head config, on contiguous
 operands and on the projection einsum's strided view, and the ring-flash
 step kernels at train_sp's shape, at the replay's (one with the first
 64-row warpgroup of each block blind) and at d=64. Then the kernel table
-as one {"kernels": [...]} line (the redesigned forwards with their design
-and ptxas figures), and last the line {"ok": true,
+as one {"kernels": [...]} line (the redesigned forwards and backwards with
+their design and ptxas figures), and last the line {"ok": true,
 "device": {...}}. Any failed check raises and the script exits non-zero.
 Without a CUDA device, or away from a checkout of the repository, it exits
 non-zero before printing anything.
@@ -93,14 +95,19 @@ SOURCE = "flexflow_tpu_torch/csrc/flash_attention.cu"
 TPU_KERNELS = "flexflow_tpu/kernels/flash_attention.py"
 RING_SOURCE = "flexflow_tpu_torch/csrc/ring_flash.cu"
 RING_TPU_KERNELS = "flexflow_tpu/kernels/ring_flash.py"
-# the wrappers whose kernels run the Hopper forward mainloop of
-# csrc/flash_fwd_sm90.cuh (wgmma products, TMA tile loads, S, P and O in
-# registers), with the kernels that carry each
+# the wrappers whose kernels run a Hopper mainloop (wgmma products, TMA tile
+# loads, scores and accumulators in registers): the forward's of
+# csrc/flash_fwd_sm90.cuh or the backward pair's of csrc/flash_bwd_sm90.cuh,
+# with the kernels that carry each
 REDESIGNED = {
     "flash_fwd": ("ff_flash_fwd_kernel",),
     "flash_fwd_d64": ("ff_flash_fwd_d64_kernel",),
     "flash_fwd_bhsd": ("ff_flash_fwd_bhsd_kernel", "ff_flash_fwd_bhsd_d64_kernel"),
     "ring_fwd_step": ("ff_ring_fwd_step_kernel", "ff_ring_fwd_step_d64_kernel"),
+    "flash_bwd": ("ff_flash_bwd_dkv_kernel", "ff_flash_bwd_dq_kernel"),
+    "flash_bwd_d64": ("ff_flash_bwd_dkv_d64_kernel", "ff_flash_bwd_dq_d64_kernel"),
+    "flash_bwd_bhsd": ("ff_flash_bwd_dkv_bhsd_kernel", "ff_flash_bwd_dq_bhsd_kernel",
+                       "ff_flash_bwd_dkv_bhsd_d64_kernel", "ff_flash_bwd_dq_bhsd_d64_kernel"),
 }
 
 
@@ -374,6 +381,22 @@ def _compare(flash: Flash, b: int, s: int, causal: bool, seed: int):
     return (x, do, o, lse, delta), checks
 
 
+ATEN_BWD = "aten::_scaled_dot_product_flash_attention_backward"
+
+
+def _aten_flash_bwd_ms(q, k, v, do, causal: bool, iters: int) -> float:
+    """The flash backward from a saved logsumexp as one PyTorch call on
+    [b, h, s, d] views: aten's flash-attention backward (dq, dk and dv
+    together, its own delta included), after its own forward."""
+    import torch
+
+    aten = torch.ops.aten
+    out, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = \
+        aten._scaled_dot_product_flash_attention(q, k, v, 0.0, causal)
+    return time_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
+        do, q, k, v, out, lse, cum_q, cum_k, max_q, max_k, 0.0, causal, seed, offset), iters)
+
+
 def _bound_ms(nbytes: float, ops: float, peak_ops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -388,7 +411,6 @@ def _measure(flash, b: int, s: int, seed: int = 0, iters: int = 20, plain_iters:
     """Compare, then time each kernel of `flash` beside its plain version,
     its bound and the library yardstick at (b, h, s, d). The bound of a
     causal run counts the unmasked pairs only."""
-    import torch
     import torch.nn.functional as F
 
     h, d = flash.h, flash.d
@@ -412,6 +434,7 @@ def _measure(flash, b: int, s: int, seed: int = 0, iters: int = 20, plain_iters:
         F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal).backward(do4)
 
     ms["sdpa_fwd_bwd"] = time_ms(sdpa_fwd_bwd, iters)
+    ms["aten_bwd"] = _aten_flash_bwd_ms(q, k, v, do4, causal, iters)
     ms["einsum_delta"] = time_ms(lambda: flash.einsum_delta(do, o), iters)
 
     elems = b * s * h * d  # one [b, s, h*d] operand
@@ -442,15 +465,21 @@ def _entry(name, replaces, ms, bounds, checks, which, library_ms, library_call, 
                 checks={k: checks[k] for k in _OUTPUTS[which]}, **extra)
 
 
-def _side(ms, bounds, checks, which, library_ms, shape):
+def _side(ms, bounds, checks, which, library_ms, shape, **extra):
     """The numbers of one kernel at a second shape or layout."""
-    return dict(shape=shape, **_numbers(ms, bounds, checks, which, library_ms))
+    return dict(shape=shape, **_numbers(ms, bounds, checks, which, library_ms), **extra)
+
+
+def _bwd_side(ms, bounds, checks, shape, **extra):
+    """The backward pair's numbers at a second shape or layout: the aten
+    backward as its library call, SDPA forward+backward beside it."""
+    return _side(ms, bounds, checks, "bwd", ms["aten_bwd"], shape,
+                 sdpa_fwd_bwd_ms=ms["sdpa_fwd_bwd"], **extra)
 
 
 def phase_kernels():
     """Compare and time the kernels at the main paths' attention shapes."""
-    sdpa_f, sdpa_fb = "F.scaled_dot_product_attention forward", \
-        "F.scaled_dot_product_attention forward+backward"
+    sdpa_f = "F.scaled_dot_product_attention forward"
     einsum = Flash.EINSUM_DELTA
     causal = {
         "d128": _compare(Flash(2, 128), 2, 256, causal=True, seed=1)[1],
@@ -461,9 +490,12 @@ def phase_kernels():
     # d=128: the flagship (b=64, h=8, s=512), and the seq-2048 flagship of
     # bench.py:3431-3435 (b=16, h=8, s=2048), whose backward the JAX package
     # computes with _bwd_onepass_kernel (rows 4-5 of the kernel table)
-    # the forward's tiling edges: s % 128 == 64 leaves the last block's
-    # second warpgroup without rows
-    edges = {f"{name}_{'causal' if c else 'full'}": _compare(flash, 2, 192, causal=c, seed=40 + i)[1]
+    # the tiling edges: s % 128 == 64 leaves the last 128-row block's
+    # second warpgroup without rows, in the forward and in both backward
+    # kernels; at s = 320 after two full blocks
+    edges = {f"s{s}_{name}_{'causal' if c else 'full'}":
+             _compare(flash, 2, s, causal=c, seed=40 + 10 * (s == 320) + i)[1]
+             for s in (192, 320)
              for i, (name, flash) in enumerate((
                  ("d128", Flash(2, 128)), ("d64_qkv", Flash(4, 64, interleaved=True)),
                  ("bhsd_d128_strided", FlashBHSD(2, 128, strided=True))))
@@ -481,32 +513,37 @@ def phase_kernels():
                seq2048=_side(ms2k, bounds2k, checks2k, "fwd", ms2k["sdpa_fwd"], s2k),
                seq2048_causal=_side(msc, boundsc, checksc, "fwd", msc["sdpa_fwd"], s2kc)),
         _entry("flash_delta", 1203, ms, bounds, checks, "delta", ms["einsum_delta"], einsum),
-        _entry("flash_bwd", 976, ms, bounds, checks, "bwd", ms["sdpa_fwd_bwd"], sdpa_fb,
+        _entry("flash_bwd", 976, ms, bounds, checks, "bwd", ms["aten_bwd"], ATEN_BWD,
+               sdpa_fwd_bwd_ms=ms["sdpa_fwd_bwd"],
                port_fwd_delta_bwd_ms=ms["fwd"] + ms["delta"] + ms["bwd"],
-               seq2048=dict(_side(ms2k, bounds2k, checks2k, "bwd", ms2k["sdpa_fwd_bwd"], s2k),
-                            replaces=[f"{TPU_KERNELS}:1286", f"{TPU_KERNELS}:324",
-                                      f"{TPU_KERNELS}:375"]),
-               seq2048_causal=dict(_side(msc, boundsc, checksc, "bwd", msc["sdpa_fwd_bwd"], s2kc),
-                                   sdpa_fwd_ms=msc["sdpa_fwd"],
-                                   replaces=[f"{TPU_KERNELS}:1395", f"{TPU_KERNELS}:324",
-                                             f"{TPU_KERNELS}:375"])),
+               seq2048=_bwd_side(ms2k, bounds2k, checks2k, s2k,
+                                 replaces=[f"{TPU_KERNELS}:1286", f"{TPU_KERNELS}:324",
+                                           f"{TPU_KERNELS}:375"]),
+               seq2048_causal=_bwd_side(msc, boundsc, checksc, s2kc, sdpa_fwd_ms=msc["sdpa_fwd"],
+                                        replaces=[f"{TPU_KERNELS}:1395", f"{TPU_KERNELS}:324",
+                                                  f"{TPU_KERNELS}:375"])),
     ]
 
     # d=64: the 16-head config (b=64, h=16, s=512) on the interleaved-QKV
-    # projection (its main path) and on separate operands
+    # projection (its main path), causal too, and on separate operands
     ms, bounds, checks = _measure(Flash(16, 64, interleaved=True), 64, 512, seed=5)
     ms_sep, bounds_sep, checks_sep = _measure(Flash(16, 64), 64, 512, seed=6)
+    ms_qc, bounds_qc, checks_qc = _measure(Flash(16, 64, interleaved=True), 64, 512, seed=15,
+                                           causal=True)
     sep = dict(b=64, h=16, s=512, d=64, layout="separate q, k, v")
+    qkv_causal = dict(b=64, h=16, s=512, d=64, layout="interleaved qkv", causal=True,
+                      bound="unmasked pairs only")
     kernels += [
         _entry("flash_fwd_d64", 1032, ms, bounds, checks, "fwd", ms["sdpa_fwd"], sdpa_f,
                layout="interleaved qkv",
                separate=_side(ms_sep, bounds_sep, checks_sep, "fwd", ms_sep["sdpa_fwd"], sep)),
         _entry("flash_delta_d64", 1134, ms, bounds, checks, "delta", ms["einsum_delta"], einsum),
-        _entry("flash_bwd_d64", 1189, ms, bounds, checks, "bwd", ms["sdpa_fwd_bwd"], sdpa_fb,
-               layout="interleaved qkv", port_fwd_delta_bwd_ms=ms["fwd"] + ms["delta"] + ms["bwd"],
-               separate=dict(_side(ms_sep, bounds_sep, checks_sep, "bwd",
-                                   ms_sep["sdpa_fwd_bwd"], sep),
-                             replaces=f"{TPU_KERNELS}:1179")),
+        _entry("flash_bwd_d64", 1189, ms, bounds, checks, "bwd", ms["aten_bwd"], ATEN_BWD,
+               layout="interleaved qkv", sdpa_fwd_bwd_ms=ms["sdpa_fwd_bwd"],
+               port_fwd_delta_bwd_ms=ms["fwd"] + ms["delta"] + ms["bwd"],
+               separate=_bwd_side(ms_sep, bounds_sep, checks_sep, sep,
+                                  replaces=f"{TPU_KERNELS}:1179"),
+               causal=_bwd_side(ms_qc, bounds_qc, checks_qc, qkv_causal)),
     ]
     kernels += _per_head_kernels(causal)
     kernels += _ring_kernels()
@@ -539,8 +576,7 @@ def _per_head_kernels(causal: dict):
     (16x8x2048x128) and of the 16-head config (64x16x512x64), on contiguous
     operands, and at train_dp's on the projection einsum's strided view,
     the layout the data-parallel path hands them; plus causal cases."""
-    sdpa_f, sdpa_fb = "F.scaled_dot_product_attention forward", \
-        "F.scaled_dot_product_attention forward+backward"
+    sdpa_f = "F.scaled_dot_product_attention forward"
     einsum = FlashBHSD.EINSUM_DELTA
     causal["bhsd_d128"] = _compare(FlashBHSD(2, 128), 2, 256, causal=True, seed=7)[1]
     causal["bhsd_d64"] = _compare(FlashBHSD(4, 64), 2, 256, causal=True, seed=8)[1]
@@ -560,10 +596,11 @@ def _per_head_kernels(causal: dict):
         out = {}
         for key in ("strided", "seq2048", "d64"):
             (ms_k, bounds_k, checks_k), shape = runs[key]
-            out[key] = _side(ms_k, bounds_k, checks_k, which, ms_k[library], shape)
+            out[key] = (_bwd_side(ms_k, bounds_k, checks_k, shape) if which == "bwd" else
+                        _side(ms_k, bounds_k, checks_k, which, ms_k[library], shape))
         return out
 
-    fwd_sides, bwd_sides = sides("fwd", "sdpa_fwd"), sides("bwd", "sdpa_fwd_bwd")
+    fwd_sides, bwd_sides = sides("fwd", "sdpa_fwd"), sides("bwd", "aten_bwd")
     fwd_sides["seq2048"]["replaces"] = f"{TPU_KERNELS}:164"  # _fwd_kernel, the loop
     bwd_sides["seq2048"]["replaces"] = [f"{TPU_KERNELS}:492", f"{TPU_KERNELS}:324",
                                         f"{TPU_KERNELS}:375"]  # _bwd, tiled
@@ -572,8 +609,8 @@ def _per_head_kernels(causal: dict):
                layout="contiguous [b, h, s, d]", **fwd_sides),
         _entry("flash_delta_bhsd", 433, ms, bounds, checks, "delta", ms["einsum_delta"], einsum,
                layout="contiguous [b, h, s, d]", **sides("delta", "einsum_delta")),
-        _entry("flash_bwd_bhsd", 454, ms, bounds, checks, "bwd", ms["sdpa_fwd_bwd"], sdpa_fb,
-               layout="contiguous [b, h, s, d]",
+        _entry("flash_bwd_bhsd", 454, ms, bounds, checks, "bwd", ms["aten_bwd"], ATEN_BWD,
+               layout="contiguous [b, h, s, d]", sdpa_fwd_bwd_ms=ms["sdpa_fwd_bwd"],
                port_fwd_delta_bwd_ms=ms["fwd"] + ms["delta"] + ms["bwd"], **bwd_sides),
     ]
 
@@ -748,19 +785,13 @@ def _ring_kernels():
     aten::_scaled_dot_product_flash_attention_backward computes in one call
     (dq, dk and dv together, its own delta included). No single PyTorch
     call computes a step with a carry or at other offsets."""
-    import torch
     import torch.nn.functional as F
 
     main = RingCase(4, 8, 8192, 8192, 128, 0, 0, True, seed=20, strided=True)
     main.check(measure=True, iters=5)
     sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(main.q, main.k, main.v,
                                                              is_causal=True), 5)
-    flash = torch.ops.aten
-    out, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = \
-        flash._scaled_dot_product_flash_attention(main.q, main.k, main.v, 0.0, True)
-    sdpa_bwd_ms = time_ms(lambda: flash._scaled_dot_product_flash_attention_backward(
-        main.do, main.q, main.k, main.v, out, lse, cum_q, cum_k, max_q, max_k, 0.0, True, seed,
-        offset), 5)
+    sdpa_bwd_ms = _aten_flash_bwd_ms(main.q, main.k, main.v, main.do, True, 5)
     diag = RingCase(4, 8, 2048, 2048, 128, 2048, 2048, True, seed=21)
     diag.check(measure=True)
     below = RingCase(4, 8, 2048, 2048, 128, 2048, 0, True, seed=22, carry=diag.fwd())
@@ -778,8 +809,8 @@ def _ring_kernels():
     library = {
         "fwd": (sdpa_ms, "F.scaled_dot_product_attention(is_causal=True), with the "
                          "finalisation acc / l"),
-        "dq": (sdpa_bwd_ms, "aten::_scaled_dot_product_flash_attention_backward(is_causal="
-                            "True): dq, dk and dv in one call, against the dq + dk/dv pair"),
+        "dq": (sdpa_bwd_ms, f"{ATEN_BWD}(is_causal=True): dq, dk and dv in one call, "
+                            "against the dq + dk/dv pair"),
     }
     library["dkv"] = library["dq"]
     pair_ms = main.ms["dq"] + main.ms["dkv"]

@@ -27,9 +27,10 @@
 // What bounds them on an H100. The forward does 4*b*h*s^2*d flops: at the
 // flagship's b=64, s=512, h*d=1024 that is 6.9e10 on ~270 MB, the ridge,
 // bound by bytes (0.080 ms); at the seq-2048 flagship's b=16, s=2048 it is
-// 2.7e11 on the same bytes, bound by operations (0.278 ms). The backward's
-// 10*b*h*s^2*d flops on ~470 MB sit above the ridge; delta is a pure read
-// of dO and O and is bound by bytes.
+// 2.7e11 on the same bytes, bound by operations (0.278 ms). The backward
+// pair's 14*b*h*s^2*d flops on ~470 MB lie near the ridge at s=512 and are
+// bound by operations at s=2048; delta is a pure read of dO and O and is
+// bound by bytes.
 //
 // Forward design (the four _fwd kernels, rows 1, 6 and 9 of the port's
 // kernel table): fwd_body is the Hopper mainloop of flash_fwd_sm90.cuh with
@@ -42,18 +43,23 @@
 // ring of stages that one producer thread keeps full while two 64-row
 // consumer warpgroups compute. That header's note has the details.
 //
-// Backward design. Each block owns one 64-row tile of one (batch, head) and
-// reads its tiles straight from the seq-major operands by stride: no
-// transpose anywhere. Four warps each own 16 rows of the tile; products run
-// on the tensor cores through nvcuda::wmma (bf16 in, f32 accumulate), and
-// the softmax runs in f32 on the rows a warp owns, so the only block-wide
-// barriers are around the shared K/V (or Q/dO) tile loads. The TPU kernel
-// holds the whole [s, s] f32 score tile of a (b, h) in VMEM; at s=512 that
-// is 1 MB, far beyond the 227 KB of shared memory a block gets, so the
-// backward is two kernels that both rebuild P from the saved lse: one block
-// per k tile for dK/dV (looping over q tiles) and one block per q tile for
-// dQ (looping over k tiles). No atomics: every output element is written by
-// one block, so results repeat bitwise. lse is kept in natural log.
+// Backward design (the dK/dV and dQ kernels of rows 3-5, 7, 8, 11 and 12 of
+// the port's kernel table): dkv_body and dq_body are the two Hopper
+// mainloops of flash_bwd_sm90.cuh with the flash epilogue. The TPU kernels
+// hold the whole [s, s] f32 score tile of a (b, h) in VMEM; at s=512 that is
+// 1 MB, far beyond the 227 KB of shared memory a block gets, so the
+// backward is two kernels that both rebuild P from the saved lse: one that
+// owns 128 key rows and streams the query tiles for dK/dV, one that owns
+// 128 query rows and streams the key tiles for dQ. No atomics: every output
+// element is written by one block, so results repeat bitwise. lse is kept
+// in natural log. Where the wmma backward it replaces stored every score
+// fragment to an f32 shared tile, walked the exp and dS passes one row at a
+// time per warp, staged P, dS and the outputs through shared memory and
+// loaded tiles synchronously between two block barriers, the new kernels
+// run every product on wgmma with S, P, dP, dS and the accumulators in
+// registers, compute the element-wise passes on each thread's own fragment,
+// and stream tiles by TMA through mbarrier-guarded stages that one producer
+// thread keeps full. That header's note has the details.
 //
 // Operand layout. Every operand is read through a Layout: head h of batch b
 // starts at element b * batch + (h / PER) * group + (h % PER) * sub, with
@@ -70,17 +76,16 @@
 // einsum's output (a [b, s, h, d] buffer viewed as [b, h, s, d]) has
 // ld = h*d, sub = d, group = PER*d, batch = s*h*d, the bshf numbers, so it
 // is read in place. Every row starts at a multiple of 8 elements, so the
-// 16-byte tile loads and the forward's TMA boxes stay aligned (the wrappers
-// check it); the forward turns the Layout into 5-D tensor maps
-// (fwd_tensor_map).
+// TMA boxes stay aligned (the wrappers check it); the forward and the
+// backward turn the Layout into 5-D tensor maps (fwd_tensor_map).
 //
-// The Layout and the backward's tile shapes, loads and products live in
-// flash_tiles.cuh, the forward's mainloop in flash_fwd_sm90.cuh; ring_flash.cu
-// shares both. Each exported C function
+// The Layout lives in flash_tiles.cuh, the forward's mainloop in
+// flash_fwd_sm90.cuh (ring_flash.cu shares both) and the backward's in
+// flash_bwd_sm90.cuh. Each exported C function
 // launches on the given stream and returns cudaGetLastError() (0 on
 // success).
 
-#include "flash_fwd_sm90.cuh"
+#include "flash_bwd_sm90.cuh"
 
 namespace {
 
@@ -123,152 +128,32 @@ __device__ __forceinline__ void delta_body(const bf16* __restrict__ dout,
   }
 }
 
-// dK, dV for one k tile, looping over the q tiles that see it.
-// Grid (s/BN, h, b). Works on transposed scores: ST[k, q] = K Q^T.
+// dK and dV of 128 key rows of one (batch, head), streaming the query
+// tiles that reach them: the Hopper dK/dV mainloop of flash_bwd_sm90.cuh
+// with the flash epilogue. Grid bwd_grid(S, H, B); q, k, v and dout come as
+// tensor maps of 64-row boxes, dk and dv go out through `grad`.
 template <int D>
-__device__ __forceinline__ void dkv_body(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                         const bf16* __restrict__ v, Layout in,
-                                         const bf16* __restrict__ dout, Layout od,
+__device__ __forceinline__ void dkv_body(const CUtensorMap* tq, const CUtensorMap* tk,
+                                         const CUtensorMap* tv, const CUtensorMap* tdo,
                                          const float* __restrict__ lse,
-                                         const float* __restrict__ delta,
-                                         bf16* __restrict__ dk, bf16* __restrict__ dv,
-                                         Layout grad, int S, int H, int causal, float scale) {
-  typedef Tiles<D> T;
-  constexpr int LDH = T::LDH;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = reinterpret_cast<bf16*>(smem + T::H);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + 2 * T::H);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + 3 * T::H);
-  float* sS = reinterpret_cast<float*>(smem + 4 * T::H);
-  bf16* sP = reinterpret_cast<bf16*>(smem + 4 * T::H + TILE_S);
-  bf16* sdS = reinterpret_cast<bf16*>(smem + 4 * T::H + TILE_S + TILE_P);
-  float* sLse = reinterpret_cast<float*>(smem + 4 * T::H + TILE_S + 2 * TILE_P);
-  float* sDelta = sLse + BM;
-
-  const int k0 = blockIdx.x * BN, hi = blockIdx.y, bi = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;  // this warp's k rows
-  const size_t base = head_base<D>(in, bi, hi);
-  const size_t obase = head_base<D>(od, bi, hi);
-  const size_t rows = ((size_t)bi * H + hi) * S;
-
-  load_tile<D>(sK, k + base + (size_t)k0 * in.ld, in.ld);
-  load_tile<D>(sV, v + base + (size_t)k0 * in.ld, in.ld);
-  FragC dk_acc[D / 16], dv_acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fill_fragment(dk_acc[j], 0.f);
-    wmma::fill_fragment(dv_acc[j], 0.f);
-  }
-
-  const int qt0 = causal ? k0 / BM : 0;  // q tiles wholly above the diagonal see no k here
-  for (int qt = qt0; qt < S / BM; ++qt) {
-    const int q0 = qt * BM;
-    __syncthreads();
-    load_tile<D>(sQ, q + base + (size_t)q0 * in.ld, in.ld);
-    load_tile<D>(sdO, dout + obase + (size_t)q0 * od.ld, od.ld);
-    load_rows(sLse, lse + rows + q0);
-    load_rows(sDelta, delta + rows + q0);
-    __syncthreads();
-
-    gemm_abt<D>(sS + r0 * LDS, sK + r0 * LDH, sQ);  // ST = K Q^T
-    __syncwarp();
-    for (int r = r0; r < r0 + 16; ++r) {
-      for (int c = lane; c < BM; c += 32) {
-        float p = __expf(sS[r * LDS + c] * scale - sLse[c]);
-        if (causal && k0 + r > q0 + c) p = 0.f;
-        sP[r * LDP + c] = __float2bfloat16(p);
-      }
-    }
-    __syncwarp();
-    gemm_abt<D>(sS + r0 * LDS, sV + r0 * LDH, sdO);  // dPT = V dO^T
-    __syncwarp();
-    for (int r = r0; r < r0 + 16; ++r) {
-      for (int c = lane; c < BM; c += 32) {
-        const float p = __bfloat162float(sP[r * LDP + c]);
-        sdS[r * LDP + c] = __float2bfloat16(p * (sS[r * LDS + c] - sDelta[c]));
-      }
-    }
-    __syncwarp();
-    gemm_acc<D>(dv_acc, sP + r0 * LDP, sdO);  // dV += PT dO
-    gemm_acc<D>(dk_acc, sdS + r0 * LDP, sQ);  // dK += dST Q
-  }
-
-  const size_t gbase = head_base<D>(grad, bi, hi) + (size_t)(k0 + r0) * grad.ld;
-  store_rows<D>(dk + gbase, grad.ld, dk_acc, sS + r0 * LDS, scale);
-  store_rows<D>(dv + gbase, grad.ld, dv_acc, sS + r0 * LDS, 1.f);
+                                         const float* __restrict__ delta, bf16* __restrict__ dk,
+                                         bf16* __restrict__ dv, Layout grad, int S, int H,
+                                         int causal, float scale) {
+  dkv_mainloop<D>(tq, tk, tv, tdo, lse, delta, FlashGradEpilogue<D>{dk, grad},
+                  FlashGradEpilogue<D>{dv, grad}, FwdShape{S, S, H, 0, 0, causal, scale});
 }
 
-// dQ for one q tile, looping over the k tiles it sees. Grid (s/BM, h, b).
+// dQ of 128 query rows, streaming the key tiles they reach: the Hopper dQ
+// mainloop of flash_bwd_sm90.cuh with the flash epilogue. Grid
+// bwd_grid(S, H, B).
 template <int D>
-__device__ __forceinline__ void dq_body(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                        const bf16* __restrict__ v, Layout in,
-                                        const bf16* __restrict__ dout, Layout od,
+__device__ __forceinline__ void dq_body(const CUtensorMap* tq, const CUtensorMap* tk,
+                                        const CUtensorMap* tv, const CUtensorMap* tdo,
                                         const float* __restrict__ lse,
-                                        const float* __restrict__ delta,
-                                        bf16* __restrict__ dq, Layout grad, int S, int H,
-                                        int causal, float scale) {
-  typedef Tiles<D> T;
-  constexpr int LDH = T::LDH;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + T::H);
-  bf16* sK = reinterpret_cast<bf16*>(smem + 2 * T::H);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 3 * T::H);
-  float* sS = reinterpret_cast<float*>(smem + 4 * T::H);
-  bf16* sP = reinterpret_cast<bf16*>(smem + 4 * T::H + TILE_S);
-  float* sLse = reinterpret_cast<float*>(smem + 4 * T::H + TILE_S + TILE_P);
-  float* sDelta = sLse + BM;
-
-  const int q0 = blockIdx.x * BM, hi = blockIdx.y, bi = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;  // this warp's q rows
-  const size_t base = head_base<D>(in, bi, hi);
-  const size_t rows = ((size_t)bi * H + hi) * S;
-
-  load_tile<D>(sQ, q + base + (size_t)q0 * in.ld, in.ld);
-  load_tile<D>(sdO, dout + head_base<D>(od, bi, hi) + (size_t)q0 * od.ld, od.ld);
-  load_rows(sLse, lse + rows + q0);
-  load_rows(sDelta, delta + rows + q0);
-  FragC dq_acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(dq_acc[j], 0.f);
-
-  const int nk = causal ? (q0 + BM - 1) / BN + 1 : S / BN;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();
-    load_tile<D>(sK, k + base + (size_t)k0 * in.ld, in.ld);
-    load_tile<D>(sV, v + base + (size_t)k0 * in.ld, in.ld);
-    __syncthreads();
-
-    gemm_abt<D>(sS + r0 * LDS, sQ + r0 * LDH, sK);  // S = Q K^T
-    __syncwarp();
-    for (int r = r0; r < r0 + 16; ++r) {
-      const float l = sLse[r];
-      for (int c = lane; c < BN; c += 32) {
-        float p = __expf(sS[r * LDS + c] * scale - l);
-        if (causal && k0 + c > q0 + r) p = 0.f;
-        sP[r * LDP + c] = __float2bfloat16(p);
-      }
-    }
-    __syncwarp();
-    gemm_abt<D>(sS + r0 * LDS, sdO + r0 * LDH, sV);  // dP = dO V^T
-    __syncwarp();
-    for (int r = r0; r < r0 + 16; ++r) {
-      const float dl = sDelta[r];
-      for (int c = lane; c < BN; c += 32) {
-        const float p = __bfloat162float(sP[r * LDP + c]);
-        sP[r * LDP + c] = __float2bfloat16(p * (sS[r * LDS + c] - dl));  // dS, in place
-      }
-    }
-    __syncwarp();
-    gemm_acc<D>(dq_acc, sP + r0 * LDP, sK);  // dQ += dS K
-  }
-
-  const size_t gbase = head_base<D>(grad, bi, hi) + (size_t)(q0 + r0) * grad.ld;
-  store_rows<D>(dq + gbase, grad.ld, dq_acc, sS + r0 * LDS, scale);
+                                        const float* __restrict__ delta, bf16* __restrict__ dq,
+                                        Layout grad, int S, int H, int causal, float scale) {
+  dq_mainloop<D>(tq, tk, tv, tdo, lse, delta, FlashGradEpilogue<D>{dq, grad},
+                 FwdShape{S, S, H, 0, 0, causal, scale});
 }
 
 // delta[b, h, s] = sum_d dO * O in f32, one warp per (b, h, s) row of D
@@ -361,85 +246,26 @@ extern "C" __global__ void ff_flash_delta_bhsd_d64_kernel(const bf16* __restrict
   delta_rows_body<64>(dout, od, o, ol, delta, B, S, H);
 }
 
-extern "C" __global__ void __launch_bounds__(NTHREADS)
-ff_flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H,
-                        int causal, float scale) {
-  const Layout l = dense<128>(S, H);
-  dkv_body<128>(q, k, v, l, dout, l, lse, delta, dk, dv, l, S, H, causal, scale);
-}
+#define FLASH_BWD_KERNELS(DKV, DQ, D)                                                      \
+  extern "C" __global__ void __launch_bounds__(BWD_THREADS, 1) DKV(                        \
+      const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,      \
+      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,     \
+      const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dk, \
+      bf16* __restrict__ dv, Layout grad, int S, int H, int causal, float scale) {         \
+    dkv_body<D>(&tq, &tk, &tv, &tdo, lse, delta, dk, dv, grad, S, H, causal, scale);       \
+  }                                                                                        \
+  extern "C" __global__ void __launch_bounds__(BWD_THREADS, 1) DQ(                         \
+      const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,      \
+      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,     \
+      const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq, \
+      Layout grad, int S, int H, int causal, float scale) {                                \
+    dq_body<D>(&tq, &tk, &tv, &tdo, lse, delta, dq, grad, S, H, causal, scale);            \
+  }
 
-extern "C" __global__ void __launch_bounds__(NTHREADS)
-ff_flash_bwd_dkv_d64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, Layout in,
-                            const bf16* __restrict__ dout, const float* __restrict__ lse,
-                            const float* __restrict__ delta, bf16* __restrict__ dk,
-                            bf16* __restrict__ dv, Layout grad, int S, int H, int causal,
-                            float scale) {
-  dkv_body<64>(q, k, v, in, dout, dense<64>(S, H), lse, delta, dk, dv, grad, S, H, causal,
-               scale);
-}
-
-extern "C" __global__ void __launch_bounds__(NTHREADS)
-ff_flash_bwd_dkv_bhsd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, Layout in,
-                             const bf16* __restrict__ dout, Layout od,
-                             const float* __restrict__ lse, const float* __restrict__ delta,
-                             bf16* __restrict__ dk, bf16* __restrict__ dv, Layout grad, int S,
-                             int H, int causal, float scale) {
-  dkv_body<128>(q, k, v, in, dout, od, lse, delta, dk, dv, grad, S, H, causal, scale);
-}
-
-extern "C" __global__ void __launch_bounds__(NTHREADS)
-ff_flash_bwd_dkv_bhsd_d64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                 const bf16* __restrict__ v, Layout in,
-                                 const bf16* __restrict__ dout, Layout od,
-                                 const float* __restrict__ lse,
-                                 const float* __restrict__ delta, bf16* __restrict__ dk,
-                                 bf16* __restrict__ dv, Layout grad, int S, int H, int causal,
-                                 float scale) {
-  dkv_body<64>(q, k, v, in, dout, od, lse, delta, dk, dv, grad, S, H, causal, scale);
-}
-
-extern "C" __global__ void __launch_bounds__(NTHREADS)
-ff_flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       bf16* __restrict__ dq, int S, int H, int causal, float scale) {
-  const Layout l = dense<128>(S, H);
-  dq_body<128>(q, k, v, l, dout, l, lse, delta, dq, l, S, H, causal, scale);
-}
-
-extern "C" __global__ void __launch_bounds__(NTHREADS)
-ff_flash_bwd_dq_d64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, Layout in,
-                           const bf16* __restrict__ dout, const float* __restrict__ lse,
-                           const float* __restrict__ delta, bf16* __restrict__ dq,
-                           Layout grad, int S, int H, int causal, float scale) {
-  dq_body<64>(q, k, v, in, dout, dense<64>(S, H), lse, delta, dq, grad, S, H, causal, scale);
-}
-
-extern "C" __global__ void __launch_bounds__(NTHREADS)
-ff_flash_bwd_dq_bhsd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, Layout in,
-                            const bf16* __restrict__ dout, Layout od,
-                            const float* __restrict__ lse, const float* __restrict__ delta,
-                            bf16* __restrict__ dq, Layout grad, int S, int H, int causal,
-                            float scale) {
-  dq_body<128>(q, k, v, in, dout, od, lse, delta, dq, grad, S, H, causal, scale);
-}
-
-extern "C" __global__ void __launch_bounds__(NTHREADS)
-ff_flash_bwd_dq_bhsd_d64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                const bf16* __restrict__ v, Layout in,
-                                const bf16* __restrict__ dout, Layout od,
-                                const float* __restrict__ lse,
-                                const float* __restrict__ delta, bf16* __restrict__ dq,
-                                Layout grad, int S, int H, int causal, float scale) {
-  dq_body<64>(q, k, v, in, dout, od, lse, delta, dq, grad, S, H, causal, scale);
-}
+FLASH_BWD_KERNELS(ff_flash_bwd_dkv_kernel, ff_flash_bwd_dq_kernel, 128)
+FLASH_BWD_KERNELS(ff_flash_bwd_dkv_d64_kernel, ff_flash_bwd_dq_d64_kernel, 64)
+FLASH_BWD_KERNELS(ff_flash_bwd_dkv_bhsd_kernel, ff_flash_bwd_dq_bhsd_kernel, 128)
+FLASH_BWD_KERNELS(ff_flash_bwd_dkv_bhsd_d64_kernel, ff_flash_bwd_dq_bhsd_d64_kernel, 64)
 
 // ---------------------------------------------------------------------------
 // C interface (ctypes). lse and delta are contiguous [B, H, S] f32; S is a
@@ -537,65 +363,50 @@ extern "C" int ff_flash_delta_bhsd(int d, const void* dout, int ld, int head, in
   return (int)cudaGetLastError();
 }
 
+// The backward pair of q, k, v (Layout in) and dout (Layout od) into dq,
+// dk and dv (Layout grad): dK/dV, then dQ, on one stream.
+template <int D, typename KDKV, typename KDQ>
+static int launch_bwd(KDKV dkv, KDQ dqk, const void* q, const void* k, const void* v, Layout in,
+                      const void* dout, Layout od, const void* lse, const void* delta, void* dq,
+                      void* dk, void* dv, Layout grad, int B, int S, int H, int causal,
+                      cudaStream_t s) {
+  CUtensorMap maps[4];
+  const bool ok = fwd_tensor_map<D>(&maps[0], q, in, S, H, B, BWD_BN) &&
+                  fwd_tensor_map<D>(&maps[1], k, in, S, H, B, BWD_BN) &&
+                  fwd_tensor_map<D>(&maps[2], v, in, S, H, B, BWD_BN) &&
+                  fwd_tensor_map<D>(&maps[3], dout, od, S, H, B, BWD_BN);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(dkv, BwdTiles<D>::DKV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  err = allow_smem(dqk, BwdTiles<D>::DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dkv<<<bwd_grid(S, H, B), BWD_THREADS, BwdTiles<D>::DKV_SMEM, s>>>(
+      maps[0], maps[1], maps[2], maps[3], (const float*)lse, (const float*)delta, (bf16*)dk,
+      (bf16*)dv, grad, S, H, causal, softmax_scale<D>());
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dqk<<<bwd_grid(S, H, B), BWD_THREADS, BwdTiles<D>::DQ_SMEM, s>>>(
+      maps[0], maps[1], maps[2], maps[3], (const float*)lse, (const float*)delta, (bf16*)dq, grad,
+      S, H, causal, softmax_scale<D>());
+  return (int)cudaGetLastError();
+}
+
 extern "C" int ff_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, void* dk, void* dv,
                             int B, int S, int H, int causal, void* stream) {
-  cudaError_t err = allow_smem(ff_flash_bwd_dkv_kernel, Tiles<128>::DKV_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  err = allow_smem(ff_flash_bwd_dq_kernel, Tiles<128>::DQ_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
-  ff_flash_bwd_dkv_kernel<<<dim3(S / BN, H, B), NTHREADS, Tiles<128>::DKV_SMEM, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dk, (bf16*)dv, S, H, causal, softmax_scale<128>());
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ff_flash_bwd_dq_kernel<<<dim3(S / BM, H, B), NTHREADS, Tiles<128>::DQ_SMEM, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dq, S, H, causal, softmax_scale<128>());
-  return (int)cudaGetLastError();
+  const Layout l = dense<128>(S, H);
+  return launch_bwd<128>(ff_flash_bwd_dkv_kernel, ff_flash_bwd_dq_kernel, q, k, v, l, dout, l,
+                         lse, delta, dq, dk, dv, l, B, S, H, causal, (cudaStream_t)stream);
 }
 
 extern "C" int ff_flash_bwd_d64(const void* q, const void* k, const void* v, int ld, int group,
                                 const void* dout, const void* lse, const void* delta, void* dq,
                                 void* dk, void* dv, int grad_ld, int grad_group, int B, int S,
                                 int H, int causal, void* stream) {
-  cudaError_t err = allow_smem(ff_flash_bwd_dkv_d64_kernel, Tiles<64>::DKV_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  err = allow_smem(ff_flash_bwd_dq_d64_kernel, Tiles<64>::DQ_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
-  const Layout in = lane_grouped<64>(ld, group, S), grad = lane_grouped<64>(grad_ld, grad_group, S);
-  ff_flash_bwd_dkv_d64_kernel<<<dim3(S / BN, H, B), NTHREADS, Tiles<64>::DKV_SMEM, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, in, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dk, (bf16*)dv, grad, S, H, causal, softmax_scale<64>());
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ff_flash_bwd_dq_d64_kernel<<<dim3(S / BM, H, B), NTHREADS, Tiles<64>::DQ_SMEM, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, in, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dq, grad, S, H, causal, softmax_scale<64>());
-  return (int)cudaGetLastError();
-}
-
-template <int D, typename KDKV, typename KDQ>
-static int bwd_bhsd(KDKV dkv, KDQ dqk, const void* q, const void* k, const void* v, Layout in,
-                    const void* dout, Layout od, const void* lse, const void* delta, void* dq,
-                    void* dk, void* dv, Layout grad, int B, int S, int H, int causal,
-                    cudaStream_t s) {
-  cudaError_t err = allow_smem(dkv, Tiles<D>::DKV_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  err = allow_smem(dqk, Tiles<D>::DQ_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dkv<<<dim3(S / BN, H, B), NTHREADS, Tiles<D>::DKV_SMEM, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, in, (const bf16*)dout, od,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, grad, S, H, causal,
-      softmax_scale<D>());
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dqk<<<dim3(S / BM, H, B), NTHREADS, Tiles<D>::DQ_SMEM, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, in, (const bf16*)dout, od,
-      (const float*)lse, (const float*)delta, (bf16*)dq, grad, S, H, causal, softmax_scale<D>());
-  return (int)cudaGetLastError();
+  return launch_bwd<64>(ff_flash_bwd_dkv_d64_kernel, ff_flash_bwd_dq_d64_kernel, q, k, v,
+                        lane_grouped<64>(ld, group, S), dout, dense<64>(S, H), lse, delta, dq, dk,
+                        dv, lane_grouped<64>(grad_ld, grad_group, S), B, S, H, causal,
+                        (cudaStream_t)stream);
 }
 
 extern "C" int ff_flash_bwd_bhsd(int d, const void* q, const void* k, const void* v, int ld,
@@ -605,15 +416,15 @@ extern "C" int ff_flash_bwd_bhsd(int d, const void* q, const void* k, const void
                                  int S, int H, int causal, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (d == 128)
-    return bwd_bhsd<128>(ff_flash_bwd_dkv_bhsd_kernel, ff_flash_bwd_dq_bhsd_kernel, q, k, v,
-                         per_head<128>(ld, head, batch), dout,
-                         per_head<128>(o_ld, o_head, o_batch), lse, delta, dq, dk, dv,
-                         per_head<128>(g_ld, g_head, g_batch), B, S, H, causal, s);
+    return launch_bwd<128>(ff_flash_bwd_dkv_bhsd_kernel, ff_flash_bwd_dq_bhsd_kernel, q, k, v,
+                           per_head<128>(ld, head, batch), dout,
+                           per_head<128>(o_ld, o_head, o_batch), lse, delta, dq, dk, dv,
+                           per_head<128>(g_ld, g_head, g_batch), B, S, H, causal, s);
   if (d == 64)
-    return bwd_bhsd<64>(ff_flash_bwd_dkv_bhsd_d64_kernel, ff_flash_bwd_dq_bhsd_d64_kernel, q, k,
-                        v, per_head<64>(ld, head, batch), dout,
-                        per_head<64>(o_ld, o_head, o_batch), lse, delta, dq, dk, dv,
-                        per_head<64>(g_ld, g_head, g_batch), B, S, H, causal, s);
+    return launch_bwd<64>(ff_flash_bwd_dkv_bhsd_d64_kernel, ff_flash_bwd_dq_bhsd_d64_kernel, q, k,
+                          v, per_head<64>(ld, head, batch), dout,
+                          per_head<64>(o_ld, o_head, o_batch), lse, delta, dq, dk, dv,
+                          per_head<64>(g_ld, g_head, g_batch), B, S, H, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -623,11 +434,11 @@ extern "C" int ff_flash_bwd_bhsd(int d, const void* q, const void* k, const void
 extern "C" int ff_flash_smem_bytes(int which) {
   switch (which) {
     case 0: return (int)FwdTiles<128>::SMEM;
-    case 1: return (int)Tiles<128>::DKV_SMEM;
-    case 2: return (int)Tiles<128>::DQ_SMEM;
+    case 1: return (int)BwdTiles<128>::DKV_SMEM;
+    case 2: return (int)BwdTiles<128>::DQ_SMEM;
     case 3: return (int)FwdTiles<64>::SMEM;
-    case 4: return (int)Tiles<64>::DKV_SMEM;
-    case 5: return (int)Tiles<64>::DQ_SMEM;
+    case 4: return (int)BwdTiles<64>::DKV_SMEM;
+    case 5: return (int)BwdTiles<64>::DQ_SMEM;
     default: return 0;
   }
 }

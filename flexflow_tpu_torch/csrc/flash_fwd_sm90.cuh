@@ -95,15 +95,17 @@ struct FwdShape {
   float scale;
 };
 
-// Key tiles the rows [r0, r0 + FWD_WG_ROWS) of the query block may attend:
-// every tile, or under the causal mask ceil((q_off + r0 + 64 - k_off) / BN)
-// clamped to [0, ceil(T / BN)]; none for rows past S.
+// Key tiles of BN rows that the rows [r0, r0 + FWD_WG_ROWS) of the query
+// block may attend: every tile, or under the causal mask
+// ceil((q_off + r0 + 64 - k_off) / BN) clamped to [0, ceil(T / BN)]; none
+// for rows past S. The backward's dQ streams tiles of 64 rows.
+template <int BN = FWD_BN>
 __device__ __forceinline__ int fwd_k_tiles(const FwdShape& sh, int r0) {
   if (r0 >= sh.S) return 0;
-  const int all = (sh.T + FWD_BN - 1) / FWD_BN;
+  const int all = (sh.T + BN - 1) / BN;
   if (!sh.causal) return all;
   const int cols = sh.q_off + r0 + FWD_WG_ROWS - sh.k_off;
-  return cols <= 0 ? 0 : min((cols + FWD_BN - 1) / FWD_BN, all);
+  return cols <= 0 ? 0 : min((cols + BN - 1) / BN, all);
 }
 
 // -- barriers, TMA and wgmma -------------------------------------------------
@@ -521,10 +523,11 @@ static EncodeTiled tensor_map_encoder() {
 
 // The tensor map of a bf16 operand of Layout l with `rows` rows per head:
 // 5-D (column, row, head in its group, group, batch), boxes of 64 columns
-// by FWD_BN rows (FWD_BM == FWD_BN serves Q too), 128-byte swizzle; rows
-// past `rows` read as zeros.
+// by box_rows rows (FWD_BN, which serves Q too as FWD_BM == FWD_BN; the
+// backward's are 64), 128-byte swizzle; rows past `rows` read as zeros.
 template <int D>
-static bool fwd_tensor_map(CUtensorMap* map, const void* base, Layout l, int rows, int H, int B) {
+static bool fwd_tensor_map(CUtensorMap* map, const void* base, Layout l, int rows, int H, int B,
+                           int box_rows = FWD_BN) {
   static_assert(FWD_BM == FWD_BN, "one box shape for Q and K/V");
   EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
@@ -535,7 +538,7 @@ static bool fwd_tensor_map(CUtensorMap* map, const void* base, Layout l, int row
   cuuint64_t strides[4];
   for (int i = 0; i < 4; ++i)  // a stride of 0 (a dim of one) is not a valid map stride
     strides[i] = (cuuint64_t)(el[i] > 0 ? el[i] * 2 : 16);
-  const cuuint32_t box[5] = {(cuuint32_t)PANEL, (cuuint32_t)FWD_BN, 1, 1, 1};
+  const cuuint32_t box[5] = {(cuuint32_t)PANEL, (cuuint32_t)box_rows, 1, 1, 1};
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,

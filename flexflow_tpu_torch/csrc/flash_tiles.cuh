@@ -1,9 +1,10 @@
 // Tile helpers shared by the port's attention kernels (flash_attention.cu
-// and ring_flash.cu): the operand Layout, the backward kernels' shared-memory
-// tile shapes of head dim D, 16-byte tile loads, the wmma products over
-// 64-row tiles and the bf16 row stores, plus the host-side launch helpers.
-// Every backward kernel runs NWARPS warps per block, each owning 16 rows of
-// the block's 64-row tile; the forward's mainloop is flash_fwd_sm90.cuh.
+// and ring_flash.cu): the operand Layout and the host-side launch helpers;
+// and, for ring_flash.cu's backward step kernels, their shared-memory tile
+// shapes of head dim D, 16-byte tile loads and the wmma products over
+// 64-row tiles. Every such kernel runs NWARPS warps per block, each owning
+// 16 rows of the block's 64-row tile. The forward's mainloop is
+// flash_fwd_sm90.cuh, the flash backward's flash_bwd_sm90.cuh.
 
 #pragma once
 
@@ -114,28 +115,6 @@ __device__ __forceinline__ void gemm_acc(FragC (&acc)[D / 16], const bf16* a, co
       wmma::load_matrix_sync(fb, x + kk * 16 * LDH + j * 16, LDH);
       wmma::mma_sync(acc[j], fa, fb, acc[j]);
     }
-  }
-}
-
-// Write a warp's 16 x D accumulator rows, times `mul`, as bf16 to global
-// rows `dst` (row stride ld), staging 64 columns at a time through the
-// warp's own 16 x 64 strip of an f32 tile at pitch LDS.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, int ld, FragC (&acc)[D / 16],
-                                           float* stage, float mul) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int half = 0; half < D / 64; ++half) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(stage + j * 16, acc[half * 4 + j], LDS, wmma::mem_row_major);
-    __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      bf16* row = dst + (size_t)r * ld + half * 64;
-      row[lane] = __float2bfloat16(stage[r * LDS + lane] * mul);
-      row[lane + 32] = __float2bfloat16(stage[r * LDS + lane + 32] * mul);
-    }
-    __syncwarp();
   }
 }
 

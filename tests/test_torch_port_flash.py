@@ -145,26 +145,38 @@ def test_flash_gate_follows_the_kernels(shape, heads, dtype, device, ok):
 
 def test_gate_constants_match_the_cuda_source():
     src = "".join((build.CSRC_DIR / f).read_text()
-                  for f in ("flash_attention.cu", "flash_tiles.cuh", "flash_fwd_sm90.cuh"))
+                  for f in ("flash_attention.cu", "flash_tiles.cuh", "flash_fwd_sm90.cuh",
+                            "flash_bwd_sm90.cuh"))
     for d in tfa.HEAD_DIMS:
         assert re.search(rf"FLASH_FWD_KERNEL\(ff_flash_fwd_\w*kernel, {d}\)", src), d
-        assert f"dkv_body<{d}>" in src and f"dq_body<{d}>" in src
+        assert re.search(rf"FLASH_BWD_KERNELS\(ff_flash_bwd_dkv_\w*kernel, "
+                         rf"ff_flash_bwd_dq_\w*kernel, {d}\)", src), d
         assert f"delta_body<{d}>" in src
+    # each FLASH_BWD_KERNELS pair calls the two bodies at its head dim
+    assert "dkv_body<D>(&tq, &tk, &tv, &tdo," in src and "dq_body<D>(&tq, &tk, &tv, &tdo," in src
     assert "fwd_mainloop<D>(tq, tk, tv, FlashEpilogue<D>" in src
+    assert "dkv_mainloop<D>(tq, tk, tv, tdo, lse, delta, FlashGradEpilogue<D>" in src
+    assert "dq_mainloop<D>(tq, tk, tv, tdo, lse, delta, FlashGradEpilogue<D>" in src
     assert f"constexpr int LANES = {tfa.LANES};" in src
-    # the backward's 64-row tiles
-    assert f"constexpr int BM = {tfa.TILE};" in src
-    assert f"constexpr int BN = {tfa.TILE};" in src
-    # the forward's: warpgroups of TILE rows, two to a block, key tiles a
-    # multiple of TILE whose tail (s % FWD_BN == TILE, which the gate
-    # admits) the forward masks
-    assert f"constexpr int FWD_WG_ROWS = {tfa.TILE};" in src
-    assert "constexpr int FWD_BM = 2 * FWD_WG_ROWS;" in src
-    bn = int(re.search(r"constexpr int FWD_BN = (\d+);", src).group(1))
-    assert bn % tfa.TILE == 0 and bn > tfa.TILE
+    # the forward's and the backward's blocks: warpgroups of TILE rows, two to
+    # a block; streamed tiles a multiple of TILE whose tail (s % 128 == TILE,
+    # which the gate admits) each kernel masks, and a warpgroup past the end
+    # stores nothing
+    for pre in ("FWD", "BWD"):
+        assert f"constexpr int {pre}_WG_ROWS = {tfa.TILE};" in src
+        assert f"constexpr int {pre}_BM = 2 * {pre}_WG_ROWS;" in src
+        bn = int(re.search(rf"constexpr int {pre}_BN = (\d+);", src).group(1))
+        assert bn % tfa.TILE == 0, pre
     assert "k0 + FWD_BN > sh.T" in src and "col < sh.T" in src
-    assert tfa.flash_attention_bshf_supported((2, bn + tfa.TILE, 256), 2, torch.bfloat16, "cuda")
-    assert "flash_fwd_sm90.cuh" in {p.name for p in build.CSRC_DIR.glob("*.cuh")}  # in the hash
+    assert "q0 + BWD_BN > sh.S" in src and "query >= sh.S" in src  # dK/dV: query columns
+    assert "k0 + BWD_BN > sh.T" in src and "key >= sh.T" in src  # dQ: key columns
+    assert "if (r0 < sh.T) {" in src and "if (r0 < sh.S) epi.store" in src
+    assert "if (r0 >= sh.T) return tiles;" in src and "if (r0 >= sh.S) return 0;" in src
+    assert tfa.flash_attention_bshf_supported((2, 2 * tfa.TILE + tfa.TILE, 256), 2,
+                                              torch.bfloat16, "cuda")
+    assert tfa.flash_attention_bshf_supported((2, 5 * tfa.TILE, 256), 2, torch.bfloat16, "cuda")
+    hashed = {p.name for p in build.CSRC_DIR.glob("*.cuh")}
+    assert {"flash_fwd_sm90.cuh", "flash_bwd_sm90.cuh"} <= hashed  # in the library's hash
 
 
 def test_library_name_tracks_source_and_flags():
