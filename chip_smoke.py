@@ -382,19 +382,34 @@ def _compare(flash: Flash, b: int, s: int, causal: bool, seed: int):
 
 
 ATEN_BWD = "aten::_scaled_dot_product_flash_attention_backward"
+CUDNN_BWD = "aten::_scaled_dot_product_cudnn_attention_backward"
 
 
-def _aten_flash_bwd_ms(q, k, v, do, causal: bool, iters: int) -> float:
+def _library_bwd_ms(q, k, v, do, causal: bool, iters: int) -> dict:
     """The flash backward from a saved logsumexp as one PyTorch call on
-    [b, h, s, d] views: aten's flash-attention backward (dq, dk and dv
-    together, its own delta included), after its own forward."""
+    [b, h, s, d] views, by both backends that have one: aten's
+    flash-attention backward, and cuDNN's, which is the one that
+    F.scaled_dot_product_attention's autograd launches on an H100. Each runs
+    after its own forward and computes dq, dk and dv together, its own delta
+    included. Returns {call: ms}."""
     import torch
 
     aten = torch.ops.aten
     out, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = \
         aten._scaled_dot_product_flash_attention(q, k, v, 0.0, causal)
-    return time_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
+    flash_ms = time_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
         do, q, k, v, out, lse, cum_q, cum_k, max_q, max_k, 0.0, causal, seed, offset), iters)
+    out, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = \
+        aten._scaled_dot_product_cudnn_attention(q, k, v, None, True, 0.0, causal, False)
+    cudnn_ms = time_ms(lambda: aten._scaled_dot_product_cudnn_attention_backward(
+        do, q, k, v, out, lse, seed, offset, None, cum_q, cum_k, max_q, max_k, 0.0, causal), iters)
+    return {ATEN_BWD: flash_ms, CUDNN_BWD: cudnn_ms}
+
+
+def _fastest(times: dict):
+    """(ms, call) of the fastest of {call: ms}."""
+    call = min(times, key=times.get)
+    return times[call], call
 
 
 def _bound_ms(nbytes: float, ops: float, peak_ops: float):
@@ -434,7 +449,8 @@ def _measure(flash, b: int, s: int, seed: int = 0, iters: int = 20, plain_iters:
         F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal).backward(do4)
 
     ms["sdpa_fwd_bwd"] = time_ms(sdpa_fwd_bwd, iters)
-    ms["aten_bwd"] = _aten_flash_bwd_ms(q, k, v, do4, causal, iters)
+    library_bwd = _library_bwd_ms(q, k, v, do4, causal, iters)
+    ms["aten_bwd"], ms["cudnn_bwd"] = library_bwd[ATEN_BWD], library_bwd[CUDNN_BWD]
     ms["einsum_delta"] = time_ms(lambda: flash.einsum_delta(do, o), iters)
 
     elems = b * s * h * d  # one [b, s, h*d] operand
@@ -470,11 +486,26 @@ def _side(ms, bounds, checks, which, library_ms, shape, **extra):
     return dict(shape=shape, **_numbers(ms, bounds, checks, which, library_ms), **extra)
 
 
+def _bwd_library(ms) -> dict:
+    """The backward pair's library numbers: the faster of the aten flash and
+    the cuDNN backward as its library call, both and SDPA forward+backward
+    beside it."""
+    library_ms, call = _fastest({ATEN_BWD: ms["aten_bwd"], CUDNN_BWD: ms["cudnn_bwd"]})
+    return dict(library_ms=library_ms, library_call=call, aten_flash_bwd_ms=ms["aten_bwd"],
+                cudnn_bwd_ms=ms["cudnn_bwd"], sdpa_fwd_bwd_ms=ms["sdpa_fwd_bwd"])
+
+
+def _bwd_entry(name, replaces, ms, bounds, checks, **extra):
+    lib = _bwd_library(ms)
+    return _entry(name, replaces, ms, bounds, checks, "bwd", lib.pop("library_ms"),
+                  lib.pop("library_call"), **lib,
+                  port_fwd_delta_bwd_ms=ms["fwd"] + ms["delta"] + ms["bwd"], **extra)
+
+
 def _bwd_side(ms, bounds, checks, shape, **extra):
-    """The backward pair's numbers at a second shape or layout: the aten
-    backward as its library call, SDPA forward+backward beside it."""
-    return _side(ms, bounds, checks, "bwd", ms["aten_bwd"], shape,
-                 sdpa_fwd_bwd_ms=ms["sdpa_fwd_bwd"], **extra)
+    """The backward pair's numbers at a second shape or layout."""
+    lib = _bwd_library(ms)
+    return _side(ms, bounds, checks, "bwd", lib.pop("library_ms"), shape, **lib, **extra)
 
 
 def phase_kernels():
@@ -513,9 +544,7 @@ def phase_kernels():
                seq2048=_side(ms2k, bounds2k, checks2k, "fwd", ms2k["sdpa_fwd"], s2k),
                seq2048_causal=_side(msc, boundsc, checksc, "fwd", msc["sdpa_fwd"], s2kc)),
         _entry("flash_delta", 1203, ms, bounds, checks, "delta", ms["einsum_delta"], einsum),
-        _entry("flash_bwd", 976, ms, bounds, checks, "bwd", ms["aten_bwd"], ATEN_BWD,
-               sdpa_fwd_bwd_ms=ms["sdpa_fwd_bwd"],
-               port_fwd_delta_bwd_ms=ms["fwd"] + ms["delta"] + ms["bwd"],
+        _bwd_entry("flash_bwd", 976, ms, bounds, checks,
                seq2048=_bwd_side(ms2k, bounds2k, checks2k, s2k,
                                  replaces=[f"{TPU_KERNELS}:1286", f"{TPU_KERNELS}:324",
                                            f"{TPU_KERNELS}:375"]),
@@ -538,9 +567,7 @@ def phase_kernels():
                layout="interleaved qkv",
                separate=_side(ms_sep, bounds_sep, checks_sep, "fwd", ms_sep["sdpa_fwd"], sep)),
         _entry("flash_delta_d64", 1134, ms, bounds, checks, "delta", ms["einsum_delta"], einsum),
-        _entry("flash_bwd_d64", 1189, ms, bounds, checks, "bwd", ms["aten_bwd"], ATEN_BWD,
-               layout="interleaved qkv", sdpa_fwd_bwd_ms=ms["sdpa_fwd_bwd"],
-               port_fwd_delta_bwd_ms=ms["fwd"] + ms["delta"] + ms["bwd"],
+        _bwd_entry("flash_bwd_d64", 1189, ms, bounds, checks, layout="interleaved qkv",
                separate=_bwd_side(ms_sep, bounds_sep, checks_sep, sep,
                                   replaces=f"{TPU_KERNELS}:1179"),
                causal=_bwd_side(ms_qc, bounds_qc, checks_qc, qkv_causal)),
@@ -600,7 +627,7 @@ def _per_head_kernels(causal: dict):
                         _side(ms_k, bounds_k, checks_k, which, ms_k[library], shape))
         return out
 
-    fwd_sides, bwd_sides = sides("fwd", "sdpa_fwd"), sides("bwd", "aten_bwd")
+    fwd_sides, bwd_sides = sides("fwd", "sdpa_fwd"), sides("bwd", None)
     fwd_sides["seq2048"]["replaces"] = f"{TPU_KERNELS}:164"  # _fwd_kernel, the loop
     bwd_sides["seq2048"]["replaces"] = [f"{TPU_KERNELS}:492", f"{TPU_KERNELS}:324",
                                         f"{TPU_KERNELS}:375"]  # _bwd, tiled
@@ -609,9 +636,8 @@ def _per_head_kernels(causal: dict):
                layout="contiguous [b, h, s, d]", **fwd_sides),
         _entry("flash_delta_bhsd", 433, ms, bounds, checks, "delta", ms["einsum_delta"], einsum,
                layout="contiguous [b, h, s, d]", **sides("delta", "einsum_delta")),
-        _entry("flash_bwd_bhsd", 454, ms, bounds, checks, "bwd", ms["aten_bwd"], ATEN_BWD,
-               layout="contiguous [b, h, s, d]", sdpa_fwd_bwd_ms=ms["sdpa_fwd_bwd"],
-               port_fwd_delta_bwd_ms=ms["fwd"] + ms["delta"] + ms["bwd"], **bwd_sides),
+        _bwd_entry("flash_bwd_bhsd", 454, ms, bounds, checks, layout="contiguous [b, h, s, d]",
+                   **bwd_sides),
     ]
 
 
@@ -781,17 +807,18 @@ def _ring_kernels():
     With an empty carry at t = s, the forward step plus finalisation is
     causal attention, so F.scaled_dot_product_attention(is_causal=True) on
     the same tensors is its yardstick, and the dq and dk/dv pair is the
-    causal flash backward from the saved logsumexp, which
-    aten::_scaled_dot_product_flash_attention_backward computes in one call
-    (dq, dk and dv together, its own delta included). No single PyTorch
-    call computes a step with a carry or at other offsets."""
+    causal flash backward from the saved logsumexp, which aten's flash and
+    cuDNN backwards each compute in one call (dq, dk and dv together, its own
+    delta included): the faster is the yardstick. No single PyTorch call
+    computes a step with a carry or at other offsets."""
     import torch.nn.functional as F
 
     main = RingCase(4, 8, 8192, 8192, 128, 0, 0, True, seed=20, strided=True)
     main.check(measure=True, iters=5)
     sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(main.q, main.k, main.v,
                                                              is_causal=True), 5)
-    sdpa_bwd_ms = _aten_flash_bwd_ms(main.q, main.k, main.v, main.do, True, 5)
+    library_bwd = _library_bwd_ms(main.q, main.k, main.v, main.do, True, 5)
+    bwd_ms, bwd_call = _fastest(library_bwd)
     diag = RingCase(4, 8, 2048, 2048, 128, 2048, 2048, True, seed=21)
     diag.check(measure=True)
     below = RingCase(4, 8, 2048, 2048, 128, 2048, 0, True, seed=22, carry=diag.fwd())
@@ -809,8 +836,8 @@ def _ring_kernels():
     library = {
         "fwd": (sdpa_ms, "F.scaled_dot_product_attention(is_causal=True), with the "
                          "finalisation acc / l"),
-        "dq": (sdpa_bwd_ms, f"{ATEN_BWD}(is_causal=True): dq, dk and dv in one call, "
-                            "against the dq + dk/dv pair"),
+        "dq": (bwd_ms, f"{bwd_call}(is_causal=True): dq, dk and dv in one call, "
+                       "against the dq + dk/dv pair"),
     }
     library["dkv"] = library["dq"]
     pair_ms = main.ms["dq"] + main.ms["dkv"]
@@ -818,7 +845,9 @@ def _ring_kernels():
     for kind, line, name in (("fwd", 58, "ring_fwd_step"), ("dq", 121, "ring_dq_step"),
                              ("dkv", 177, "ring_dkv_step")):
         lib_ms, lib_call = library[kind]
-        extra = {} if kind == "fwd" else {"pair_ms": pair_ms}
+        extra = {} if kind == "fwd" else {"pair_ms": pair_ms,
+                                          "aten_flash_bwd_ms": library_bwd[ATEN_BWD],
+                                          "cudnn_bwd_ms": library_bwd[CUDNN_BWD]}
         sides = {}
         for key, case in (("replay_diagonal", diag), ("replay_below", below),
                           ("replay_masked", zero), ("split_warpgroups", split), ("d64", d64),

@@ -202,7 +202,11 @@ __host__ __device__ __forceinline__ Layout lane_grouped(int ld, int group, int S
 // Kernels: head dim 128 on contiguous [b, s, h*128] operands; head dim 64 on
 // lane-group operands (the gradients and dout of theirs); and, at either
 // head dim, per-head [b, h, s, d] operands of any row, head and batch
-// strides (the _bhsd kernels).
+// strides (the _bhsd kernels). The forward and backward kernels read their
+// layout from the tensor maps and the Layout arguments, so the bshf and
+// _bhsd kernels of one head dim have the same body: they are instantiated
+// under separate names only so that a profile and the kernel table keep
+// one row per entry point.
 // ---------------------------------------------------------------------------
 
 #define FLASH_FWD_KERNEL(NAME, D)                                                          \

@@ -81,7 +81,6 @@ constexpr int BWD_WG_ROWS = 64;          // rows of a consumer warpgroup: wgmma'
 constexpr int BWD_BM = 2 * BWD_WG_ROWS;  // rows a block owns: keys in dK/dV, queries in dQ
 constexpr int BWD_BN = 64;               // rows of a streamed tile: the scores are wgmma's N = 64
 constexpr int BWD_THREADS = 3 * 128;     // two consumer warpgroups, then the producer
-constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory of head dim D: the block's two operands [BWD_BM x D], then
 // STAGES stages of two streamed tiles [BWD_BN x D], each as D/64 panels of
@@ -114,69 +113,6 @@ __device__ __forceinline__ int bwd_first_q_tile(const FwdShape& sh, int r0) {
   return x <= 0 ? 0 : min(x / BWD_BN, tiles);
 }
 
-// -- the backward's own shapes of the forward's helpers ------------------------
-
-// `bytes` of global memory at src into shared memory at dst (both 16-byte
-// aligned); the bytes count towards the barrier's transaction.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// Wait until at most one committed wgmma group is still in flight.
-__device__ __forceinline__ void wgmma_wait_one() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
-
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory (K-major).
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-}
-
-// A 64-row score tile of the fragment layout the forward's note describes
-// (element i: row + 8 * ((i >> 1) & 1), column 8 * (i / 4) + c + (i & 1))
-// as the A fragments of a product over its 64 columns: 16 columns each.
-__device__ __forceinline__ void pack_a(uint32_t (&a)[BWD_BN / 16][4], const float (&x)[BWD_BN / 2]) {
-#pragma unroll
-  for (int kb = 0; kb < BWD_BN / 16; ++kb)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a[kb][j] = pack_bf16(x[8 * kb + 2 * j], x[8 * kb + 2 * j + 1]);
-}
-
-// The K-major descriptor of the 16 columns kk of a bf16 operand kept as
-// 128-byte-swizzled panels of 64 columns, `panel` bytes apart, from the
-// row at byte offset `rows` of each panel.
-__device__ __forceinline__ uint64_t kmajor(uint32_t base, uint32_t panel, uint32_t rows, int kk) {
-  return sw128_desc(base + (kk / 4) * panel + rows + (kk % 4) * 32, 16, SWIZZLE_ATOM);
-}
-
-// The 16 rows kb of a 64-row tile as the MN-major B operand (N = D across
-// the tile's panels, `panel` bytes apart).
-__device__ __forceinline__ uint64_t mnmajor(uint32_t base, uint32_t panel, int kb) {
-  return sw128_desc(base + kb * 16 * ROW_BYTES, panel, SWIZZLE_ATOM);
-}
-
 // -- the flash epilogue ------------------------------------------------------------
 // load() sets a thread's accumulator rows before the loop and store() writes
 // them, times mul, after it; row is the thread's first row of the block.
@@ -193,16 +129,8 @@ struct FlashGradEpilogue {
 
   __device__ __forceinline__ void store(const FwdShape&, int bi, int hi, int row,
                                         const float (&acc)[D / 2], float mul) const {
-    const int c = (threadIdx.x % 4) * 2;
-    const size_t base = head_base<D>(grad, bi, hi);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      bf16* dst = g + base + (size_t)(row + 8 * h) * grad.ld + c;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
-    }
+    const float both[2] = {mul, mul};
+    store_bf16_rows<D>(g + head_base<D>(grad, bi, hi), grad.ld, row, acc, both);
   }
 };
 
@@ -235,16 +163,7 @@ __device__ __forceinline__ void dkv_mainloop(const CUtensorMap* tq, const CUtens
   const uint32_t sR = sK + rows_off;
   const uint32_t bars = sR + F::STAGES * 2 * F::ROWS_BYTES;
   const uint32_t kv_bar = bars + 16 * F::STAGES;
-  // full barrier of stage s at bars + 8 s, its empty barrier at bars + 8 (STAGES + s)
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < F::STAGES; ++s) {
-      mbar_init(bars + 8 * s, 1);
-      mbar_init(bars + 8 * (F::STAGES + s), 8);  // each warp of both consumer warpgroups
-    }
-    mbar_init(kv_bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  init_stages(bars, F::STAGES, kv_bar);
 
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
@@ -326,7 +245,7 @@ __device__ __forceinline__ void dkv_mainloop(const CUtensorMap* tq, const CUtens
           }
         }
         uint32_t pa[BWD_BN / 16][4];
-        pack_a(pa, st);
+        pack_a<BWD_BN>(pa, st);
         // dV += P^T dO; dP^T = V dO^T into S^T's registers
         wgmma_fence();
 #pragma unroll
@@ -397,15 +316,7 @@ __device__ __forceinline__ void dq_mainloop(const CUtensorMap* tq, const CUtenso
   const uint32_t sT = sdO + F::BLOCK_BYTES;  // stage s: K, then V
   const uint32_t bars = sT + F::STAGES * F::STAGE_BYTES;
   const uint32_t q_bar = bars + 16 * F::STAGES;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < F::STAGES; ++s) {
-      mbar_init(bars + 8 * s, 1);
-      mbar_init(bars + 8 * (F::STAGES + s), 8);
-    }
-    mbar_init(q_bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  init_stages(bars, F::STAGES, q_bar);
 
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
@@ -495,7 +406,7 @@ __device__ __forceinline__ void dq_mainloop(const CUtensorMap* tq, const CUtenso
 #pragma unroll
         for (int i = 0; i < BWD_BN / 2; ++i) sc[i] *= dp[i] - dl[(i >> 1) & 1];
         uint32_t da[BWD_BN / 16][4];
-        pack_a(da, sc);
+        pack_a<BWD_BN>(da, sc);
         wgmma_fence();
 #pragma unroll
         for (int kb = 0; kb < BWD_BN / 16; ++kb)

@@ -108,7 +108,7 @@ __device__ __forceinline__ int fwd_k_tiles(const FwdShape& sh, int r0) {
   return cols <= 0 ? 0 : min((cols + BN - 1) / BN, all);
 }
 
-// -- barriers, TMA and wgmma -------------------------------------------------
+// -- barriers, TMA and wgmma (flash_bwd_sm90.cuh uses them too) ---------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -141,6 +141,22 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   } while (!done);
 }
 
+// The full (one arrival: the producer's) and empty (eight: each warp of
+// both consumer warpgroups) barriers of `stages` stages, at bars + 8 s and
+// bars + 8 (stages + s), and one barrier of one arrival at `once` for the
+// block's own operands; then the block syncs.
+__device__ __forceinline__ void init_stages(uint32_t bars, int stages, uint32_t once) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (stages + s), 8);
+    }
+    mbar_init(once, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
 // One box of `map` at (c0, c1, c2, c3, c4) into shared memory at dst; the
 // bytes count towards the barrier's transaction.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
@@ -149,6 +165,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// `bytes` of global memory at src into shared memory at dst (both 16-byte
+// aligned); the bytes count towards the barrier's transaction.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -171,6 +197,24 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Wait until at most one committed wgmma group is still in flight.
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// The K-major descriptor of the 16 columns kk of a bf16 operand kept as
+// 128-byte-swizzled panels of 64 columns, `panel` bytes apart, from the
+// row at byte offset `rows` of each panel.
+__device__ __forceinline__ uint64_t kmajor(uint32_t base, uint32_t panel, uint32_t rows, int kk) {
+  return sw128_desc(base + (kk / 4) * panel + rows + (kk % 4) * 32, 16, SWIZZLE_ATOM);
+}
+
+// The 16 rows kb of a tile as the MN-major B operand (N = D across the
+// tile's panels, `panel` bytes apart).
+__device__ __forceinline__ uint64_t mnmajor(uint32_t base, uint32_t panel, int kb) {
+  return sw128_desc(base + kb * 16 * ROW_BYTES, panel, SWIZZLE_ATOM);
 }
 
 // Keep the compiler from moving reads or writes of wgmma operands across
@@ -201,6 +245,19 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory (K-major).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory (K-major).
@@ -248,11 +305,50 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // -- the online softmax on the accumulator fragment ----------------------------
 // Thread t of a consumer warpgroup holds rows row and row + 8 of its
 // warpgroup (row = 16 * warp + lane / 4) and, of each 8-column block j,
 // columns 8j + c and 8j + c + 1 (c = 2 * (lane % 4)): fragment element i is
 // row + 8 * ((i >> 1) & 1), column 8 * (i / 4) + c + (i & 1).
+
+// A score tile of N columns as the A fragments of a product over those
+// columns: 16 columns each.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kb = 0; kb < N / 16; ++kb)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[kb][j] = pack_bf16(x[8 * kb + 2 * j], x[8 * kb + 2 * j + 1]);
+}
+
+// The thread's rows row and row + 8 of an accumulator of D columns, times
+// mul[0] and mul[1], as bf16 pairs into dst (row 0 of a head, rows ld
+// elements apart).
+template <int D>
+__device__ __forceinline__ void store_bf16_rows(bf16* dst, int ld, int row,
+                                                const float (&acc)[D / 2], const float (&mul)[2]) {
+  const int c = (threadIdx.x % 4) * 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    bf16* r = dst + (size_t)(row + 8 * h) * ld + c;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(r + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h] * mul[h], acc[4 * j + 2 * h + 1] * mul[h]);
+  }
+}
 
 // Scale and (MASK) mask the score tile sc in place into p; update the row
 // state m, l and rescale the output rows o. k0 is the tile's first key of
@@ -324,18 +420,10 @@ struct FlashEpilogue {
   __device__ __forceinline__ void store(const FwdShape& sh, int bi, int hi, int row,
                                         const float (&acc)[D / 2], const float (&m)[2],
                                         const float (&l)[2]) const {
-    const int c = (threadIdx.x % 4) * 2;
-    const size_t base = head_base<D>(out, bi, hi);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float inv = 1.f / l[h];
-      bf16* dst = o + base + (size_t)(row + 8 * h) * out.ld + c;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
-      if (c == 0) lse[((size_t)bi * sh.H + hi) * sh.S + row + 8 * h] = m[h] + logf(l[h]);
-    }
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+    store_bf16_rows<D>(o + head_base<D>(out, bi, hi), out.ld, row, acc, inv);
+    if (threadIdx.x % 4 == 0)
+      for (int h = 0; h < 2; ++h) lse[((size_t)bi * sh.H + hi) * sh.S + row + 8 * h] = m[h] + logf(l[h]);
   }
 };
 
@@ -406,16 +494,7 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
   const uint32_t sKV = sQ + F::Q_BYTES;
   const uint32_t bars = sKV + F::STAGES * F::STAGE_BYTES;
   const uint32_t q_bar = bars + 16 * F::STAGES;
-  // full barrier of stage s at bars + 8 s, its empty barrier at bars + 8 (STAGES + s)
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < F::STAGES; ++s) {
-      mbar_init(bars + 8 * s, 1);
-      mbar_init(bars + 8 * (F::STAGES + s), 8);  // each warp of both consumer warpgroups
-    }
-    mbar_init(q_bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  init_stages(bars, F::STAGES, q_bar);
 
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
@@ -447,7 +526,7 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
     const int n_mine = wg == 0 ? n0 : n1;
     const int row = r0 + (t / 32) * 16 + lane / 4;  // the thread's rows: row and row + 8
     const int c = (lane % 4) * 2;
-    const uint32_t sQw = sQ + wg * FWD_WG_ROWS * ROW_BYTES;
+    const uint32_t wrows = wg * FWD_WG_ROWS * ROW_BYTES;  // the warpgroup's rows in the Q panels
     float o[D / 2], m[2], l[2];
     if (n_mine > 0) epi.load(sh, bi, hi, row, o, m, l);
     mbar_wait(q_bar, 0);
@@ -462,11 +541,9 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
         float sc[FWD_BN / 2];
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t off = (kk % 4) * 32;  // 16 columns within the panel
-          wgmma_ss_n128(sc, sw128_desc(sQw + (kk / 4) * F::Q_PANEL + off, 16, SWIZZLE_ATOM),
-                           sw128_desc(sK + (kk / 4) * F::KV_PANEL + off, 16, SWIZZLE_ATOM), kk > 0);
-        }
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n128(sc, kmajor(sQ, F::Q_PANEL, wrows, kk), kmajor(sK, F::KV_PANEL, 0, kk),
+                        kk > 0);
         wgmma_commit();
         wgmma_wait_all();
         hold(sc);
@@ -476,16 +553,12 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
         else online_softmax<false, D>(sc, o, m, l, sh, row, k0, c);
         // P in bf16 as the A fragments of O += P V: 16 keys each
         uint32_t pa[FWD_BN / 16][4];
-#pragma unroll
-        for (int kb = 0; kb < FWD_BN / 16; ++kb) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) pa[kb][j] = pack_bf16(sc[8 * kb + 2 * j], sc[8 * kb + 2 * j + 1]);
-        }
+        pack_a<FWD_BN>(pa, sc);
         hold(o);
         wgmma_fence();
 #pragma unroll
         for (int kb = 0; kb < FWD_BN / 16; ++kb)
-          wgmma_rs<D>(o, pa[kb], sw128_desc(sV + kb * 16 * ROW_BYTES, F::KV_PANEL, SWIZZLE_ATOM));
+          wgmma_rs<D>(o, pa[kb], mnmajor(sV, F::KV_PANEL, kb));
         wgmma_commit();
         wgmma_wait_all();
         hold(o);

@@ -227,9 +227,13 @@ def _check_bhsd(name: str, shape, *tensors: torch.Tensor) -> Tuple[int, int, int
 
 
 def _check_rows(name: str, t: torch.Tensor, b: int, h: int, s: int, dev) -> None:
+    """Raise unless t is a contiguous f32 [b, h, s] on dev starting 16-byte
+    aligned (the backward copies its rows in bulk)."""
     if t.shape != (b, h, s) or t.dtype != torch.float32 or t.device != dev or not t.is_contiguous():
         raise ValueError(f"{name}: expected contiguous f32 {(b, h, s)} on {dev}, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: rows must start 16-byte aligned")
 
 
 # -- layouts ----------------------------------------------------------------

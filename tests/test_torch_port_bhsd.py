@@ -234,6 +234,19 @@ def test_wrappers_raise_on_a_layout_the_kernels_cannot_read(make, match):
         tfa.flash_bwd_bhsd(q, q, q, q, rows, rows)
 
 
+@pytest.mark.parametrize("offset,match", [(0, None), (1, "16-byte aligned"), (4, None)])
+def test_lse_and_delta_rows_must_start_16_byte_aligned(offset, match):
+    """The backward copies lse and delta rows in bulk, which needs a
+    16-byte-aligned start: a view at an odd f32 offset is refused."""
+    rows = torch.zeros(4 + 2 * 2 * 64)[offset:offset + 2 * 2 * 64].view(2, 2, 64)
+    assert rows.is_contiguous()
+    if match is None:
+        tfa._check_rows("lse", rows, 2, 2, 64, rows.device)
+    else:
+        with pytest.raises(ValueError, match=match):
+            tfa._check_rows("lse", rows, 2, 2, 64, rows.device)
+
+
 def test_wrappers_refuse_operands_of_differing_strides():
     q = _meta(2, 2, 64, 128)
     k = _meta(2, 64, 2, 128).transpose(1, 2)

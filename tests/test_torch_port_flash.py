@@ -158,21 +158,27 @@ def test_gate_constants_match_the_cuda_source():
     assert "dkv_mainloop<D>(tq, tk, tv, tdo, lse, delta, FlashGradEpilogue<D>" in src
     assert "dq_mainloop<D>(tq, tk, tv, tdo, lse, delta, FlashGradEpilogue<D>" in src
     assert f"constexpr int LANES = {tfa.LANES};" in src
+    # the 64-row tiles of ring_flash.cu's wmma backward step kernels, whose
+    # gate (ring_flash_supported) admits blocks of any multiple of TILE
+    assert f"constexpr int BM = {tfa.TILE};" in src
+    assert f"constexpr int BN = {tfa.TILE};" in src
     # the forward's and the backward's blocks: warpgroups of TILE rows, two to
     # a block; streamed tiles a multiple of TILE whose tail (s % 128 == TILE,
     # which the gate admits) each kernel masks, and a warpgroup past the end
     # stores nothing
+    bn = {}
     for pre in ("FWD", "BWD"):
         assert f"constexpr int {pre}_WG_ROWS = {tfa.TILE};" in src
         assert f"constexpr int {pre}_BM = 2 * {pre}_WG_ROWS;" in src
-        bn = int(re.search(rf"constexpr int {pre}_BN = (\d+);", src).group(1))
-        assert bn % tfa.TILE == 0, pre
+        bn[pre] = int(re.search(rf"constexpr int {pre}_BN = (\d+);", src).group(1))
+        assert bn[pre] % tfa.TILE == 0, pre
+    assert bn["FWD"] > tfa.TILE  # the forward's key tiles span two warpgroups' rows
     assert "k0 + FWD_BN > sh.T" in src and "col < sh.T" in src
     assert "q0 + BWD_BN > sh.S" in src and "query >= sh.S" in src  # dK/dV: query columns
     assert "k0 + BWD_BN > sh.T" in src and "key >= sh.T" in src  # dQ: key columns
     assert "if (r0 < sh.T) {" in src and "if (r0 < sh.S) epi.store" in src
     assert "if (r0 >= sh.T) return tiles;" in src and "if (r0 >= sh.S) return 0;" in src
-    assert tfa.flash_attention_bshf_supported((2, 2 * tfa.TILE + tfa.TILE, 256), 2,
+    assert tfa.flash_attention_bshf_supported((2, bn["FWD"] + tfa.TILE, 256), 2,
                                               torch.bfloat16, "cuda")
     assert tfa.flash_attention_bshf_supported((2, 5 * tfa.TILE, 256), 2, torch.bfloat16, "cuda")
     hashed = {p.name for p in build.CSRC_DIR.glob("*.cuh")}
