@@ -57,8 +57,9 @@ The kernels phase also holds the per-head kernels at the attention shapes of
 train_dp, of train_dp_seq2048 and of the 16-head config, on contiguous
 operands and on the projection einsum's strided view, and the ring-flash
 step kernels at train_sp's shape, at the replay's (one with the first
-64-row warpgroup of each block blind) and at d=64. Then the kernel table
-as one {"kernels": [...]} line (the redesigned forwards and backwards with
+64-row warpgroup of each block blind), at d=64, and with s_blk != t_blk,
+each carried step adding into random accumulators. Then the kernel table
+as one {"kernels": [...]} line (the Hopper forwards and backwards with
 their design and ptxas figures), and last the line {"ok": true,
 "device": {...}}. Any failed check raises and the script exits non-zero.
 Without a CUDA device, or away from a checkout of the repository, it exits
@@ -96,9 +97,10 @@ TPU_KERNELS = "flexflow_tpu/kernels/flash_attention.py"
 RING_SOURCE = "flexflow_tpu_torch/csrc/ring_flash.cu"
 RING_TPU_KERNELS = "flexflow_tpu/kernels/ring_flash.py"
 # the wrappers whose kernels run a Hopper mainloop (wgmma products, TMA tile
-# loads, scores and accumulators in registers): the forward's of
-# csrc/flash_fwd_sm90.cuh or the backward pair's of csrc/flash_bwd_sm90.cuh,
-# with the kernels that carry each
+# loads, scores and accumulators in registers), with the kernels that carry
+# each: every attention wrapper but the delta ones, on the forward's
+# mainloop of csrc/flash_fwd_sm90.cuh or the backward pair's of
+# csrc/flash_bwd_sm90.cuh
 REDESIGNED = {
     "flash_fwd": ("ff_flash_fwd_kernel",),
     "flash_fwd_d64": ("ff_flash_fwd_d64_kernel",),
@@ -108,6 +110,8 @@ REDESIGNED = {
     "flash_bwd_d64": ("ff_flash_bwd_dkv_d64_kernel", "ff_flash_bwd_dq_d64_kernel"),
     "flash_bwd_bhsd": ("ff_flash_bwd_dkv_bhsd_kernel", "ff_flash_bwd_dq_bhsd_kernel",
                        "ff_flash_bwd_dkv_bhsd_d64_kernel", "ff_flash_bwd_dq_bhsd_d64_kernel"),
+    "ring_dq_step": ("ff_ring_dq_step_kernel", "ff_ring_dq_step_d64_kernel"),
+    "ring_dkv_step": ("ff_ring_dkv_step_kernel", "ff_ring_dkv_step_d64_kernel"),
 }
 
 
@@ -149,8 +153,6 @@ def phase_build() -> dict:
     from flexflow_tpu_torch.kernels import build
     from flexflow_tpu_torch.kernels import flash_attention as fa
 
-    from flexflow_tpu_torch.kernels import ring_flash as rf
-
     start = time.perf_counter()
     infos = build.build()
     seconds = time.perf_counter() - start
@@ -164,17 +166,21 @@ def phase_build() -> dict:
             if ptxas[name].get("spill_store_bytes", 0) or ptxas[name].get("spill_load_bytes", 0):
                 raise AssertionError(f"{name} spills: {ptxas[name]}")
     lib = fa.library()
-    rf.library()  # the ring kernels share the tile shapes, so their smem is as below
-    names = ("ff_flash_fwd_kernel", "ff_flash_bwd_dkv_kernel", "ff_flash_bwd_dq_kernel",
-             "ff_flash_fwd_d64_kernel", "ff_flash_bwd_dkv_d64_kernel",
-             "ff_flash_bwd_dq_d64_kernel")
+    # ff_flash_smem_bytes gives the forward's, dK/dV's and dQ's at d=128
+    # (0-2) and d=64 (3-5); the ring kernels run the same mainloops
+    smem = {}
+    for i, (flash, ring) in enumerate((("fwd", "fwd_step"), ("bwd_dkv", "dkv_step"),
+                                       ("bwd_dq", "dq_step"))):
+        for suffix, which in (("", i), ("_d64", i + 3)):
+            smem[f"ff_flash_{flash}{suffix}_kernel"] = smem[f"ff_ring_{ring}{suffix}_kernel"] = \
+                lib.ff_flash_smem_bytes(which)
     emit({
         "phase": "build", "seconds": seconds,
         "sources": {
             src: {"nvcc_seconds": info.seconds, "kernels": build.parse_ptxas(info.ptxas_log)}
             for src, info in infos.items()
         },
-        "dynamic_smem_bytes": {name: lib.ff_flash_smem_bytes(i) for i, name in enumerate(names)},
+        "dynamic_smem_bytes": smem,
         "ptxas_warnings": warnings,
     })
     return ptxas
@@ -670,8 +676,10 @@ def _ring_bound(kind: str, b, h, s, t, d, pairs):
 class RingCase:
     """One ring step at one shape: q [b, h, s, d] at global offset q_off
     against a key/value block [b, h, t, d] at k_off, carrying `carry`
-    (acc, m, l) or the empty state. `strided` lays the operands out as the
-    projection einsum returns them ([b, s, h, d] memory)."""
+    (acc, m, l) and seeded random f32 dq, dk, dv accumulators (the sums of
+    earlier steps), or the empty state and zero accumulators. `strided`
+    lays the operands out as the projection einsum returns them
+    ([b, s, h, d] memory)."""
 
     def __init__(self, b, h, s, t, d, q_off, k_off, causal, seed, carry=None, strided=False):
         import torch
@@ -696,6 +704,10 @@ class RingCase:
             carry = (torch.zeros(b, h, s, d, device="cuda"),
                      torch.full((b, h, s), rf.NEG_INF, device="cuda"),
                      torch.zeros(b, h, s, device="cuda"))
+            self.acc0 = tuple(torch.zeros(b, h, rows, d, device="cuda") for rows in (s, t, t))
+        else:
+            self.acc0 = tuple(torch.randn(b, h, rows, d, generator=gen, device="cuda")
+                              for rows in (s, t, t))
         self.carry = carry
 
     def fwd(self, plain=False, state=None):
@@ -704,12 +716,9 @@ class RingCase:
         fn(self.q, self.k, self.v, *state, *self.offs, self.causal)
         return state
 
-    def grads(self, lse, delta, plain=False, out=None):
-        import torch
-
-        if out is None:
-            out = (torch.zeros(self.q.shape, device="cuda"), torch.zeros(self.k.shape, device="cuda"),
-                   torch.zeros(self.v.shape, device="cuda"))
+    def grads(self, lse, delta, plain=False):
+        """dq, dk and dv: this step added into copies of the accumulators."""
+        out = tuple(x.clone() for x in self.acc0)
         dq_fn = self.rf.ring_dq_step_plain if plain else self.rf.ring_dq_step
         dkv_fn = self.rf.ring_dkv_step_plain if plain else self.rf.ring_dkv_step
         args = (self.q, self.k, self.v, self.do, lse, delta)
@@ -718,9 +727,12 @@ class RingCase:
         return out
 
     def check(self, measure: bool, iters: int = 10):
-        """Kernels against plain versions (and, for a step whose keys are all
-        masked, against the state it was given), a repeat that must give
-        the same bits; with `measure`, times, plain times and bounds."""
+        """Kernels against plain versions, on the totals and on what the
+        step added to the accumulators (and, for a step whose keys are all
+        masked, against the state and accumulators it was given; rows that
+        see no key, or keys that no query reaches, against theirs), a
+        repeat that must give the same bits; with `measure`, times, plain
+        times and bounds."""
         import torch
 
         state, state_p = self.fwd(), self.fwd(plain=True)
@@ -736,21 +748,30 @@ class RingCase:
         for t in (*state, *grads):
             if not bool(torch.isfinite(t).all()):
                 raise AssertionError("ring kernel output is not finite")
-        blind = self.blind_rows()
-        if blind and self.pairs():  # rows that see no key keep their carried state bitwise
+        blind, unreached = self.blind_rows(), self.unreached_keys()
+        if blind and self.pairs():  # rows that see no key keep their state and dq bitwise
             if not all(torch.equal(a[:, :, :blind], c[:, :, :blind])
-                       for a, c in zip(state, self.carry)):
-                raise AssertionError("rows that see no key changed their carried state")
+                       for a, c in zip((*state, grads[0]), (*self.carry, self.acc0[0]))):
+                raise AssertionError("rows that see no key changed their carried state or dq")
             checks["blind_rows_bitwise_unchanged"] = blind
+        if unreached and self.pairs():  # keys no query reaches keep their dk, dv bitwise
+            t = self.dims[3]
+            if not all(torch.equal(g[:, :, t - unreached:], g0[:, :, t - unreached:])
+                       for g, g0 in zip(grads[1:], self.acc0[1:])):
+                raise AssertionError("keys that no query reaches changed their dk or dv")
+            checks["unreached_keys_bitwise_unchanged"] = unreached
         if self.pairs() == 0:  # every key masked: nothing may change
             if not all(torch.equal(a, c) for a, c in zip(state, self.carry)):
                 raise AssertionError("a fully masked ring step changed the carried state")
-            if any(bool(g.any()) or bool(gp.any()) for g, gp in zip(grads, grads_p)):
-                raise AssertionError("a fully masked ring step added to the gradients")
-            checks.update(state_bitwise_unchanged=True, gradients_zero=True)
+            if not all(torch.equal(g, g0) for out in (grads, grads_p)
+                       for g, g0 in zip(out, self.acc0)):
+                raise AssertionError("a fully masked ring step changed the accumulators")
+            checks.update(state_bitwise_unchanged=True, accumulators_bitwise_unchanged=True)
         else:
-            for name, g, gp in zip(("dq", "dk", "dv"), grads, grads_p):
+            for name, g, gp, g0 in zip(("dq", "dk", "dv"), grads, grads_p, self.acc0):
                 checks[name] = _check(name, _errors(g, gp), "rel_err", REL_BOUND)
+                checks[name]["added"] = _check(f"{name} added", _errors(g - g0, gp - g0),
+                                               "rel_err", REL_BOUND)
         again = (*self.fwd(), *self.grads(lse, delta))
         if not all(torch.equal(a, c) for a, c in zip(again, (*state, *grads))):
             raise AssertionError("ring kernels do not repeat bitwise")
@@ -785,6 +806,11 @@ class RingCase:
         q_off, k_off = self.offs
         return min(self.dims[2], max(0, k_off - q_off)) if self.causal else 0
 
+    def unreached_keys(self) -> int:
+        """Trailing key rows that the causal mask lets no query reach here."""
+        (q_off, k_off), s, t = self.offs, self.dims[2], self.dims[3]
+        return min(t, max(0, k_off + t - q_off - s)) if self.causal else 0
+
     def numbers(self, kind: str, library_ms=None) -> dict:
         b, h, s, t, d = self.dims
         bound = _ring_bound(kind, b, h, s, t, d, self.pairs())
@@ -801,9 +827,13 @@ def _ring_kernels():
     causal, offsets 0, empty carry, on the projection einsum's layout), at
     the replay's shapes (s_blk = t_blk = 2048 with (q_off, k_off) = (2048,
     0) carrying the diagonal step's state, (2048, 2048) empty, (0, 2048)
-    fully masked, carrying, and (0, 64) carrying, whose rows 0-63 see no
-    key), and at d=64: b=2, h=4, 256, causal, and
-    parity_sp's shape (b=2, h=4, 1024) on the projection einsum's layout.
+    fully masked, carrying, and (0, 64) carrying, whose query rows 0-63 see
+    no key and whose last 64 key rows no query reaches), at d=64: b=2, h=4,
+    256, causal, and parity_sp's shape (b=2, h=4, 1024) on the projection
+    einsum's layout; and at both head dims a carried, partly masked step
+    with s_blk = 320 != t_blk = 192, each 64 mod 128, so that the dK/dV
+    grid runs over T and the last block of each side is half full. Every
+    case that carries state adds into seeded random dq, dk, dv.
     With an empty carry at t = s, the forward step plus finalisation is
     causal attention, so F.scaled_dot_product_attention(is_causal=True) on
     the same tensors is its yardstick, and the dq and dk/dv pair is the
@@ -833,6 +863,11 @@ def _ring_kernels():
     d64.check(measure=True)
     d64_sp = RingCase(2, 4, 1024, 1024, 64, 0, 0, True, seed=26, strided=True)
     d64_sp.check(measure=True)
+    uneven = {}
+    for d in (128, 64):
+        carry = RingCase(2, 4, 320, 192, d, 192, 0, True, seed=28 + d).fwd()
+        uneven[d] = RingCase(2, 4, 320, 192, d, 192, 64, True, seed=29 + d, carry=carry)
+        uneven[d].check(measure=True)
     library = {
         "fwd": (sdpa_ms, "F.scaled_dot_product_attention(is_causal=True), with the "
                          "finalisation acc / l"),
@@ -851,7 +886,8 @@ def _ring_kernels():
         sides = {}
         for key, case in (("replay_diagonal", diag), ("replay_below", below),
                           ("replay_masked", zero), ("split_warpgroups", split), ("d64", d64),
-                          ("d64_parity_sp", d64_sp)):
+                          ("d64_parity_sp", d64_sp), ("uneven_d128", uneven[128]),
+                          ("uneven_d64", uneven[64])):
             sides[key] = dict(shape=case.shape, **case.numbers(kind))
         entries.append(dict(
             name=name, route="cuda", source=RING_SOURCE,

@@ -34,7 +34,7 @@
 //
 // Forward design (the four _fwd kernels, rows 1, 6 and 9 of the port's
 // kernel table): fwd_body is the Hopper mainloop of flash_fwd_sm90.cuh with
-// the flash epilogue. Where the wmma forward it replaces stored every score
+// the flash epilogue. Where the shared-tile forward it replaced stored every score
 // fragment to an f32 shared tile, walked the softmax one row at a time per
 // warp, kept P and the f32 output tile in shared memory and loaded K/V
 // synchronously between two block barriers, it runs S = Q K^T and O += P V
@@ -52,7 +52,7 @@
 // owns 128 key rows and streams the query tiles for dK/dV, one that owns
 // 128 query rows and streams the key tiles for dQ. No atomics: every output
 // element is written by one block, so results repeat bitwise. lse is kept
-// in natural log. Where the wmma backward it replaces stored every score
+// in natural log. Where the shared-tile backward it replaced stored every score
 // fragment to an f32 shared tile, walked the exp and dS passes one row at a
 // time per warp, staged P, dS and the outputs through shared memory and
 // loaded tiles synchronously between two block barriers, the new kernels
@@ -80,8 +80,8 @@
 // backward turn the Layout into 5-D tensor maps (fwd_tensor_map).
 //
 // The Layout lives in flash_tiles.cuh, the forward's mainloop in
-// flash_fwd_sm90.cuh (ring_flash.cu shares both) and the backward's in
-// flash_bwd_sm90.cuh. Each exported C function
+// flash_fwd_sm90.cuh and the backward's in flash_bwd_sm90.cuh (ring_flash.cu
+// shares all three). Each exported C function
 // launches on the given stream and returns cudaGetLastError() (0 on
 // success).
 
@@ -375,11 +375,8 @@ static int launch_bwd(KDKV dkv, KDQ dqk, const void* q, const void* k, const voi
                       void* dk, void* dv, Layout grad, int B, int S, int H, int causal,
                       cudaStream_t s) {
   CUtensorMap maps[4];
-  const bool ok = fwd_tensor_map<D>(&maps[0], q, in, S, H, B, BWD_BN) &&
-                  fwd_tensor_map<D>(&maps[1], k, in, S, H, B, BWD_BN) &&
-                  fwd_tensor_map<D>(&maps[2], v, in, S, H, B, BWD_BN) &&
-                  fwd_tensor_map<D>(&maps[3], dout, od, S, H, B, BWD_BN);
-  if (!ok) return (int)cudaErrorInvalidValue;
+  if (!bwd_tensor_maps<D>(maps, q, in, k, in, v, in, dout, od, S, S, H, B))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem(dkv, BwdTiles<D>::DKV_SMEM);
   if (err != cudaSuccess) return (int)err;
   err = allow_smem(dqk, BwdTiles<D>::DQ_SMEM);

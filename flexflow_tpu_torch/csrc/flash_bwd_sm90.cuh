@@ -5,26 +5,31 @@
 // atomics, so results repeat bitwise; the pair does 14 s*t*d products per
 // (batch, head) (8 in dK/dV, 6 in dQ) where one fused kernel would do 10
 // and need atomics or a dQ scratch. Their epilogue is the caller's: the
-// flash epilogue here writes the gradients as bf16 through a Layout
-// (flash_attention.cu: ff_flash_bwd_{dkv,dq}[_d64|_bhsd|_bhsd_d64]_kernel).
+// flash epilogue writes the gradients as bf16 through a Layout
+// (flash_attention.cu: ff_flash_bwd_{dkv,dq}[_d64|_bhsd|_bhsd_d64]_kernel);
+// the ring epilogue adds them into the f32 accumulators that a ring step
+// carries (ring_flash.cu: ff_ring_{dq,dkv}_step[_d64]_kernel).
 //
 // Replaces, through those kernels, the Pallas kernels _bwd_fused_kernel_b
 // (:976), _bwd_onepass_kernel (:1286), _bwd_dq_kernel (:324),
 // _bwd_dkv_kernel (:375) and _bwd_pair_core (:1105) of
-// flexflow_tpu/kernels/flash_attention.py.
+// flexflow_tpu/kernels/flash_attention.py, and _ring_dq_step_kernel (:121)
+// and _ring_dkv_step_kernel (:177) of flexflow_tpu/kernels/ring_flash.py.
 //
 // What bounds it on an H100: 14*d flops per unmasked (query, key) pair on
 // bf16 tensor cores against q, k, v, dO, dq, dk, dv and lse/delta read or
 // written once. At s=512 (b=64, h=8, d=128) that is 2.4e11 flops on
 // ~0.47 GB: 0.24 ms of products against 0.14 ms of bytes, near the ridge.
 // At s=2048 (b=16, h=8) it is bound by operations (0.97 ms at 989 TFLOP/s;
-// the chip_smoke bound counts the fused kernel's 10*d, 0.69 ms).
+// the chip_smoke bound counts the fused kernel's 10*d, 0.69 ms), and so is
+// the ring step at 4x8x8192x128 causal (1.95 ms), where the f32
+// accumulators' read and write add ~0.8 GB.
 //
 // Design. A block owns BWD_BM = 128 rows of one (batch, head) as two
 // consumer warpgroups of 64 rows (wgmma's M) plus one producer warpgroup,
 // and streams tiles of BWD_BN = 64 rows. What each piece does about the
-// wmma design it replaces (products through an f32 shared tile, serial
-// row-by-row softmax passes, synchronous tile loads, wmma fragments
+// shared-tile design it replaced (products through an f32 shared
+// tile, serial row-by-row softmax passes, synchronous tile loads, fragments
 // reloaded from shared memory, outputs staged through shared memory):
 // - Products on wgmma. dK/dV: S^T = K Q^T and dP^T = V dO^T are SS
 //   m64n64k16 (K or V as A, the Q or dO tile as the K-major B); dV += P^T dO
@@ -49,27 +54,32 @@
 //   full barrier that counts its bytes and an empty barrier that counts the
 //   eight consumer warps after their wgmma on it retired. The tensor maps
 //   are the forward's (fwd_tensor_map, boxes of 64 rows).
-// - Outputs go from the accumulator registers to global memory, bf16 pairs,
-//   once, through the epilogue.
+// - Outputs go from the accumulator registers to global memory once,
+//   through the epilogue: bf16 pairs (flash), or f32 pairs added into the
+//   carried rows (ring).
 // - Occupancy. One block a SM (up to ~166 KB of shared memory at d=128);
 //   setmaxnreg gives the consumers 232 registers and the producer 40. With
 //   dP^T in S^T's registers and dS^T in P^T's, ptxas reports 0 spill bytes
-//   for all eight backward kernels (168 registers at entry), so the 32-row
+//   for every backward kernel, flash and ring, so the 32-row
 //   query tiles that would halve the score registers are not needed.
 // Masking and edges. Every loop bound follows 64-row warpgroups: in dK/dV a
 // warpgroup's first query tile is the first that reaches its key rows, in
 // dQ its last key tile is the last its query rows reach (the diagonal one),
 // so a warpgroup may skip a tile of the block's stream; it still waits for
-// and releases the stage, so the producer's barrier counts stay right.
+// and releases the stage, so the producer's barrier counts stay right. A
+// block with no tile to stream returns before touching memory, and a
+// warpgroup that ran no tile stores nothing: in a ring step, rows that see
+// no key (dQ) or that no query reaches (dK/dV) keep their accumulators
+// bitwise, and a fully masked step writes nothing.
 // Only tiles that cross the diagonal are masked, by global positions
 // (q_off + row >= k_off + col), and so are streamed tiles that would pass
 // the end of the sequence (none do while S and T are multiples of 64);
 // masked entries give p = 0 outright. Where S % 128 == 64 the last block's
-// second warpgroup has no rows: the producer loads only the rows that
-// exist, and that warpgroup computes and stores nothing, so no store
-// reaches the next head or batch, and no store covers more than its own
-// head's D lanes (the d=64 interleave's dq, dk and dv are disjoint lanes
-// of one buffer).
+// second warpgroup has no rows (its loop bound is then no tile): the
+// producer loads only the rows that exist, and that warpgroup computes and
+// stores nothing, so no store reaches the next head or batch, and no store
+// covers more than its own head's D lanes (the d=64 interleave's dq, dk
+// and dv are disjoint lanes of one buffer).
 
 #pragma once
 
@@ -113,9 +123,10 @@ __device__ __forceinline__ int bwd_first_q_tile(const FwdShape& sh, int r0) {
   return x <= 0 ? 0 : min(x / BWD_BN, tiles);
 }
 
-// -- the flash epilogue ------------------------------------------------------------
+// -- epilogues ---------------------------------------------------------------------
 // load() sets a thread's accumulator rows before the loop and store() writes
 // them, times mul, after it; row is the thread's first row of the block.
+// store() runs only in a warpgroup that ran at least one tile.
 
 template <int D>
 struct FlashGradEpilogue {
@@ -131,6 +142,38 @@ struct FlashGradEpilogue {
                                         const float (&acc)[D / 2], float mul) const {
     const float both[2] = {mul, mul};
     store_bf16_rows<D>(g + head_base<D>(grad, bi, hi), grad.ld, row, acc, both);
+  }
+};
+
+// A ring step: g is a contiguous f32 accumulator [b, h, rows, D] (dq: S
+// rows; dk, dv: T rows). The registers start at 0 and store() adds mul
+// times them into the thread's rows: the carried values are read once and
+// never divided by the scale.
+template <int D>
+struct RingGradEpilogue {
+  float* g;
+  int rows;
+
+  __device__ __forceinline__ void load(const FwdShape&, int, int, int, float (&acc)[D / 2]) const {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  }
+
+  __device__ __forceinline__ void store(const FwdShape& sh, int bi, int hi, int row,
+                                        const float (&acc)[D / 2], float mul) const {
+    const int c = (threadIdx.x % 4) * 2;
+    const size_t r = ((size_t)bi * sh.H + hi) * rows + row;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* dst = g + (r + 8 * h) * D + c;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        float2 x = *reinterpret_cast<const float2*>(dst + 8 * j);
+        x.x += mul * acc[4 * j + 2 * h];
+        x.y += mul * acc[4 * j + 2 * h + 1];
+        *reinterpret_cast<float2*>(dst + 8 * j) = x;
+      }
+    }
   }
 };
 
@@ -152,6 +195,7 @@ __device__ __forceinline__ void dkv_mainloop(const CUtensorMap* tq, const CUtens
   const int tiles = (sh.S + BWD_BN - 1) / BWD_BN;
   const int f0 = bwd_first_q_tile(sh, k0), f1 = bwd_first_q_tile(sh, k0 + BWD_WG_ROWS);
   const int nq = tiles - f0;  // the block streams query tiles [f0, tiles); f1 >= f0
+  if (nq == 0) return;        // no query reaches the block's key rows
   const int kv_boxes = min(BWD_BM, sh.T - k0) / BWD_WG_ROWS;  // 64-row boxes that exist
 
   extern __shared__ unsigned char bwd_smem[];
@@ -169,7 +213,7 @@ __device__ __forceinline__ void dkv_mainloop(const CUtensorMap* tq, const CUtens
   if (wg == 2) {
     // producer: one thread loads K and V once and keeps the stages full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    if (threadIdx.x == 256 && nq > 0) {
+    if (threadIdx.x == 256) {
       const int hs = hi % PER, hg = hi / PER;
       const size_t rows = ((size_t)bi * sh.H + hi) * sh.S;
       mbar_expect_tx(kv_bar, 2 * kv_boxes * F::PANELS * F::TILE_PANEL);
@@ -208,7 +252,7 @@ __device__ __forceinline__ void dkv_mainloop(const CUtensorMap* tq, const CUtens
     float dk[D / 2], dv[D / 2];
     dk_epi.load(sh, bi, hi, row, dk);
     dv_epi.load(sh, bi, hi, row, dv);
-    if (nq > 0) mbar_wait(kv_bar, 0);
+    mbar_wait(kv_bar, 0);
 
     for (int i = 0; i < nq; ++i) {
       const int s = i % F::STAGES, qt = f0 + i, q0 = qt * BWD_BN;
@@ -283,7 +327,7 @@ __device__ __forceinline__ void dkv_mainloop(const CUtensorMap* tq, const CUtens
       __syncwarp();
       if (lane == 0) mbar_arrive(bars + 8 * (F::STAGES + s));  // this warp is done with stage s
     }
-    if (r0 < sh.T) {
+    if (first < tiles) {  // it ran a tile: its rows lie before T and a query reaches them
       dk_epi.store(sh, bi, hi, row, dk, sh.scale);
       dv_epi.store(sh, bi, hi, row, dv, 1.f);
     }
@@ -308,6 +352,7 @@ __device__ __forceinline__ void dq_mainloop(const CUtensorMap* tq, const CUtenso
   const int n0 = fwd_k_tiles<BWD_BN>(sh, q0);
   const int n1 = fwd_k_tiles<BWD_BN>(sh, q0 + BWD_WG_ROWS);
   const int nk = max(n0, n1);
+  if (nk == 0) return;  // no query row of the block sees a key
   const int q_boxes = min(BWD_BM, sh.S - q0) / BWD_WG_ROWS;  // 64-row boxes that exist
 
   extern __shared__ unsigned char bwd_smem[];
@@ -322,7 +367,7 @@ __device__ __forceinline__ void dq_mainloop(const CUtensorMap* tq, const CUtenso
   if (wg == 2) {
     // producer: one thread loads Q and dO once and keeps the stages full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    if (threadIdx.x == 256 && nk > 0) {
+    if (threadIdx.x == 256) {
       const int hs = hi % PER, hg = hi / PER;
       mbar_expect_tx(q_bar, 2 * q_boxes * F::PANELS * F::TILE_PANEL);
 #pragma unroll
@@ -365,7 +410,7 @@ __device__ __forceinline__ void dq_mainloop(const CUtensorMap* tq, const CUtenso
         dl[h] = delta[rows + 8 * h];
       }
     }
-    if (nk > 0) mbar_wait(q_bar, 0);
+    mbar_wait(q_bar, 0);
 
     for (int kt = 0; kt < nk; ++kt) {
       const int s = kt % F::STAGES;
@@ -419,12 +464,26 @@ __device__ __forceinline__ void dq_mainloop(const CUtensorMap* tq, const CUtenso
       __syncwarp();
       if (lane == 0) mbar_arrive(bars + 8 * (F::STAGES + s));  // this warp is done with stage s
     }
-    if (r0 < sh.S) epi.store(sh, bi, hi, row, dq, sh.scale);
+    if (n_mine > 0) epi.store(sh, bi, hi, row, dq, sh.scale);  // rows before S that see a key
   }
 }
 
 }  // namespace
 
+// -- host --------------------------------------------------------------------------
+
 static inline dim3 bwd_grid(int rows, int H, int B) {
   return dim3((rows + BWD_BM - 1) / BWD_BM, H, B);
+}
+
+// The tensor maps of q and dout (S rows) and of k and v (T rows), in the
+// backward's 64-row boxes.
+template <int D>
+static bool bwd_tensor_maps(CUtensorMap (&maps)[4], const void* q, Layout lq, const void* k,
+                            Layout lk, const void* v, Layout lv, const void* dout, Layout lo,
+                            int S, int T, int H, int B) {
+  return fwd_tensor_map<D>(&maps[0], q, lq, S, H, B, BWD_BN) &&
+         fwd_tensor_map<D>(&maps[1], k, lk, T, H, B, BWD_BN) &&
+         fwd_tensor_map<D>(&maps[2], v, lv, T, H, B, BWD_BN) &&
+         fwd_tensor_map<D>(&maps[3], dout, lo, S, H, B, BWD_BN);
 }

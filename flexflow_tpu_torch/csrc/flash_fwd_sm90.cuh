@@ -20,7 +20,7 @@
 //
 // Design. A block owns FWD_BM = 128 query rows of one (batch, head) and runs
 // three warpgroups: two consumers of 64 rows each (wgmma's M) and one
-// producer. What each piece does about the wmma design it replaces:
+// producer. What each piece does about the shared-tile design it replaced:
 // - Products on wgmma. S = Q K^T is wgmma m64n128k16 with Q and the K tile
 //   read from shared memory through descriptors over 128-byte-swizzled
 //   panels (64 columns of 128 bytes each); O += P V is m64nDk16 with P as

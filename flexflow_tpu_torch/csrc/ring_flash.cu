@@ -24,53 +24,33 @@
 // s*t*d flops per (b, h) over the unmasked pairs, as the split backward of
 // flash_attention.cu does (6 in dQ, 8 in dK/dV), and is bound the same way.
 //
-// Forward design. fwd_step_body is the Hopper mainloop of flash_fwd_sm90.cuh
-// (the one flash_attention.cu's forward runs) with the ring epilogue: each
-// block owns 128 query rows as two 64-row consumer warpgroups, which read
-// their rows' carried (acc, m, l) into registers, run S = Q K^T and
-// O += P V on wgmma over K/V tiles that one producer thread brings by TMA
-// into a ring of stages, keep S, P and O in registers throughout (the wmma
-// step it replaces kept the state, the scores and P in shared memory, walked
-// the softmax row by row and loaded tiles synchronously), and write the
-// state back once. The tensor maps read q, k and v by their strides, so the
-// projection einsum's [b, s, h, d] view and a contiguous rotated block are
-// both read in place. Each warpgroup's key loop stops at the last tile the
-// causal mask lets its rows see, so a fully masked step costs no products; a
-// block with nothing to see returns before touching memory, and a
-// warpgroup whose rows see nothing leaves their state bitwise as it was.
-//
-// Backward design. Each block owns one 64-row tile of one (batch, head) and
-// reads its tiles by stride through a Layout. The dQ and dK/dV kernels load
-// their f32 accumulator rows into the wmma accumulators, add the step's
-// products and store them back; the k-tile loop stops at the last tile the
-// causal mask lets the q tile see (q tiles start at the first tile that sees
-// the k tile in dK/dV). One block owns each row, so there are no atomics
-// and results repeat bitwise. Masked entries get p = 0 outright, so a row
-// that sees no key in a step keeps its state whatever tiles are visited. lse
-// and m are in natural log.
+// Design. Each step kernel is a Hopper mainloop with the ring's epilogue:
+// the forward runs fwd_mainloop of flash_fwd_sm90.cuh, the dQ and dK/dV
+// steps dq_mainloop and dkv_mainloop of flash_bwd_sm90.cuh, the same
+// mainloops that flash_attention.cu's forward and backward run. A block owns
+// 128 rows of one (batch, head) as two 64-row consumer warpgroups on wgmma,
+// with the scores, P, dP, dS and the accumulators in registers, and one
+// producer thread streams the other side's tiles by TMA into a ring of
+// mbarrier-guarded stages. The tensor maps read q, k, v and dout by their
+// strides, so the projection einsum's [b, s, h, d] view and a contiguous
+// rotated block are both read in place. The forward's ring epilogue reads
+// the rows' carried (acc, m, l) into registers before the key loop and
+// writes them back after it; the backward's starts its registers at 0 and
+// after the loop adds them (dQ and dK times the softmax scale) into the
+// carried f32 dq (S rows) or dk, dv (T rows), one block owning each row,
+// so there are no atomics and results repeat bitwise. The mainloops mask by
+// global positions and bound their loops per 64-row warpgroup: a fully
+// masked step costs no products, a block with nothing to do returns before
+// touching memory, and a warpgroup whose rows see no key (forward, dQ) or
+// that no query reaches (dK/dV) leaves its rows' state and accumulators
+// bitwise as they were. lse and m are in natural log.
 
-#include "flash_fwd_sm90.cuh"
+#include "flash_bwd_sm90.cuh"
 
 namespace {
 
-// k tiles of a T-row key block that rows [q_off + q0, q_off + q0 + BM) may
-// attend under the causal mask: ceil((q_off + q0 + BM - k_off) / BN),
-// clamped to [0, T / BN].
-__device__ __forceinline__ int causal_k_tiles(int q_off, int q0, int k_off, int T) {
-  const int cols = q_off + q0 + BM - k_off;
-  return cols <= 0 ? 0 : min((cols + BN - 1) / BN, T / BN);
-}
-
-// The first q tile of an S-row query block whose rows reach key row
-// k_off + k0 under the causal mask, clamped to [0, S / BM].
-__device__ __forceinline__ int causal_first_q_tile(int q_off, int k_off, int k0, int S) {
-  const int first = k_off + k0 - q_off;
-  return first <= 0 ? 0 : min(first / BM, S / BM);
-}
-
 // Forward step: (acc, m, l) of the block's rows updated in place with the
-// keys of this block: the Hopper forward mainloop of flash_fwd_sm90.cuh with
-// the ring epilogue. Grid fwd_grid(S, H, B).
+// keys of this block. Grid fwd_grid(S, H, B).
 template <int D>
 __device__ __forceinline__ void fwd_step_body(const CUtensorMap* tq, const CUtensorMap* tk,
                                               const CUtensorMap* tv, float* __restrict__ acc,
@@ -82,160 +62,30 @@ __device__ __forceinline__ void fwd_step_body(const CUtensorMap* tq, const CUten
 }
 
 // dQ step: dq[rows] += scale * dS K over this block's keys, dS = P * (dP -
-// delta) with P rebuilt from lse. Grid (S/BM, h, b).
+// delta) with P rebuilt from lse. Grid bwd_grid(S, H, B).
 template <int D>
-__device__ __forceinline__ void dq_step_body(
-    const bf16* __restrict__ q, Layout lq, const bf16* __restrict__ k, Layout lk,
-    const bf16* __restrict__ v, Layout lv, const bf16* __restrict__ dout, Layout lo,
-    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq,
-    int S, int T, int H, int q_off, int k_off, int causal, float scale) {
-  typedef Tiles<D> Ti;
-  constexpr int LDH = Ti::LDH;
-  const int q0 = blockIdx.x * BM, hi = blockIdx.y, bi = blockIdx.z;
-  const int nk = causal ? causal_k_tiles(q_off, q0, k_off, T) : T / BN;
-  if (nk == 0) return;
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + Ti::H);
-  bf16* sK = reinterpret_cast<bf16*>(smem + 2 * Ti::H);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 3 * Ti::H);
-  float* sS = reinterpret_cast<float*>(smem + 4 * Ti::H);
-  bf16* sP = reinterpret_cast<bf16*>(smem + 4 * Ti::H + TILE_S);
-  float* sLse = reinterpret_cast<float*>(smem + 4 * Ti::H + TILE_S + TILE_P);
-  float* sDelta = sLse + BM;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;  // this warp's q rows
-  const size_t rows = ((size_t)bi * H + hi) * S + q0;
-
-  load_tile<D>(sQ, q + head_base<D>(lq, bi, hi) + (size_t)q0 * lq.ld, lq.ld);
-  load_tile<D>(sdO, dout + head_base<D>(lo, bi, hi) + (size_t)q0 * lo.ld, lo.ld);
-  load_rows(sLse, lse + rows);
-  load_rows(sDelta, delta + rows);
-  float* dq_rows = dq + (rows + r0) * D;
-  FragC dq_acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j)
-    wmma::load_matrix_sync(dq_acc[j], dq_rows + j * 16, D, wmma::mem_row_major);
-  const size_t kbase = head_base<D>(lk, bi, hi), vbase = head_base<D>(lv, bi, hi);
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();
-    load_tile<D>(sK, k + kbase + (size_t)k0 * lk.ld, lk.ld);
-    load_tile<D>(sV, v + vbase + (size_t)k0 * lv.ld, lv.ld);
-    __syncthreads();
-
-    gemm_abt<D>(sS + r0 * LDS, sQ + r0 * LDH, sK);  // S = Q K^T
-    __syncwarp();
-    for (int r = r0; r < r0 + 16; ++r) {
-      const float ls = sLse[r];
-      const int qi = q_off + q0 + r;
-      for (int c = lane; c < BN; c += 32) {
-        const bool ok = !causal || k_off + k0 + c <= qi;
-        sP[r * LDP + c] = __float2bfloat16(ok ? __expf(sS[r * LDS + c] * scale - ls) : 0.f);
-      }
-    }
-    __syncwarp();
-    gemm_abt<D>(sS + r0 * LDS, sdO + r0 * LDH, sV);  // dP = dO V^T
-    __syncwarp();
-    for (int r = r0; r < r0 + 16; ++r) {
-      const float dl = sDelta[r];
-      for (int c = lane; c < BN; c += 32) {
-        const float p = __bfloat162float(sP[r * LDP + c]);
-        sP[r * LDP + c] = __float2bfloat16(p * (sS[r * LDS + c] - dl) * scale);  // dS, in place
-      }
-    }
-    __syncwarp();
-    gemm_acc<D>(dq_acc, sP + r0 * LDP, sK);  // dQ += dS K
-  }
-
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j)
-    wmma::store_matrix_sync(dq_rows + j * 16, dq_acc[j], D, wmma::mem_row_major);
+__device__ __forceinline__ void dq_step_body(const CUtensorMap* tq, const CUtensorMap* tk,
+                                             const CUtensorMap* tv, const CUtensorMap* tdo,
+                                             const float* __restrict__ lse,
+                                             const float* __restrict__ delta,
+                                             float* __restrict__ dq, int S, int T, int H,
+                                             int q_off, int k_off, int causal, float scale) {
+  dq_mainloop<D>(tq, tk, tv, tdo, lse, delta, RingGradEpilogue<D>{dq, S},
+                 FwdShape{S, T, H, q_off, k_off, causal, scale});
 }
 
 // dK/dV step: dk[rows] += scale * dS^T Q and dv[rows] += P^T dO over the
-// query tiles that see this k tile. Grid (T/BN, h, b); works on transposed
-// scores ST[k, q] = K Q^T.
+// query tiles that reach this block's keys. Grid bwd_grid(T, H, B).
 template <int D>
-__device__ __forceinline__ void dkv_step_body(
-    const bf16* __restrict__ q, Layout lq, const bf16* __restrict__ k, Layout lk,
-    const bf16* __restrict__ v, Layout lv, const bf16* __restrict__ dout, Layout lo,
-    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
-    float* __restrict__ dv, int S, int T, int H, int q_off, int k_off, int causal, float scale) {
-  typedef Tiles<D> Ti;
-  constexpr int LDH = Ti::LDH;
-  const int k0 = blockIdx.x * BN, hi = blockIdx.y, bi = blockIdx.z;
-  const int qt0 = causal ? causal_first_q_tile(q_off, k_off, k0, S) : 0;
-  if (qt0 == S / BM) return;  // no query of the block sees this k tile
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = reinterpret_cast<bf16*>(smem + Ti::H);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + 2 * Ti::H);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + 3 * Ti::H);
-  float* sS = reinterpret_cast<float*>(smem + 4 * Ti::H);
-  bf16* sP = reinterpret_cast<bf16*>(smem + 4 * Ti::H + TILE_S);
-  bf16* sdS = reinterpret_cast<bf16*>(smem + 4 * Ti::H + TILE_S + TILE_P);
-  float* sLse = reinterpret_cast<float*>(smem + 4 * Ti::H + TILE_S + 2 * TILE_P);
-  float* sDelta = sLse + BM;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;  // this warp's k rows
-  const size_t qbase = head_base<D>(lq, bi, hi), obase = head_base<D>(lo, bi, hi);
-  const size_t qrows = ((size_t)bi * H + hi) * S;
-
-  load_tile<D>(sK, k + head_base<D>(lk, bi, hi) + (size_t)k0 * lk.ld, lk.ld);
-  load_tile<D>(sV, v + head_base<D>(lv, bi, hi) + (size_t)k0 * lv.ld, lv.ld);
-  const size_t krow = ((size_t)bi * H + hi) * T + k0 + r0;
-  float* dk_rows = dk + krow * D;
-  float* dv_rows = dv + krow * D;
-  FragC dk_acc[D / 16], dv_acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::load_matrix_sync(dk_acc[j], dk_rows + j * 16, D, wmma::mem_row_major);
-    wmma::load_matrix_sync(dv_acc[j], dv_rows + j * 16, D, wmma::mem_row_major);
-  }
-
-  for (int qt = qt0; qt < S / BM; ++qt) {
-    const int q0 = qt * BM;
-    __syncthreads();
-    load_tile<D>(sQ, q + qbase + (size_t)q0 * lq.ld, lq.ld);
-    load_tile<D>(sdO, dout + obase + (size_t)q0 * lo.ld, lo.ld);
-    load_rows(sLse, lse + qrows + q0);
-    load_rows(sDelta, delta + qrows + q0);
-    __syncthreads();
-
-    gemm_abt<D>(sS + r0 * LDS, sK + r0 * LDH, sQ);  // ST = K Q^T
-    __syncwarp();
-    for (int r = r0; r < r0 + 16; ++r) {
-      const int kj = k_off + k0 + r;
-      for (int c = lane; c < BM; c += 32) {
-        const bool ok = !causal || kj <= q_off + q0 + c;
-        sP[r * LDP + c] = __float2bfloat16(ok ? __expf(sS[r * LDS + c] * scale - sLse[c]) : 0.f);
-      }
-    }
-    __syncwarp();
-    gemm_abt<D>(sS + r0 * LDS, sV + r0 * LDH, sdO);  // dPT = V dO^T
-    __syncwarp();
-    for (int r = r0; r < r0 + 16; ++r) {
-      for (int c = lane; c < BM; c += 32) {
-        const float p = __bfloat162float(sP[r * LDP + c]);
-        sdS[r * LDP + c] = __float2bfloat16(p * (sS[r * LDS + c] - sDelta[c]) * scale);
-      }
-    }
-    __syncwarp();
-    gemm_acc<D>(dv_acc, sP + r0 * LDP, sdO);  // dV += PT dO
-    gemm_acc<D>(dk_acc, sdS + r0 * LDP, sQ);  // dK += dST Q
-  }
-
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::store_matrix_sync(dk_rows + j * 16, dk_acc[j], D, wmma::mem_row_major);
-    wmma::store_matrix_sync(dv_rows + j * 16, dv_acc[j], D, wmma::mem_row_major);
-  }
+__device__ __forceinline__ void dkv_step_body(const CUtensorMap* tq, const CUtensorMap* tk,
+                                              const CUtensorMap* tv, const CUtensorMap* tdo,
+                                              const float* __restrict__ lse,
+                                              const float* __restrict__ delta,
+                                              float* __restrict__ dk, float* __restrict__ dv,
+                                              int S, int T, int H, int q_off, int k_off,
+                                              int causal, float scale) {
+  dkv_mainloop<D>(tq, tk, tv, tdo, lse, delta, RingGradEpilogue<D>{dk, T},
+                  RingGradEpilogue<D>{dv, T}, FwdShape{S, T, H, q_off, k_off, causal, scale});
 }
 
 }  // namespace
@@ -253,25 +103,25 @@ __device__ __forceinline__ void dkv_step_body(
     fwd_step_body<D>(&tq, &tk, &tv, acc, m, l, S, T, H, q_off, k_off, causal, scale);         \
   }
 
-#define RING_DQ_KERNEL(NAME, D)                                                                \
-  extern "C" __global__ void __launch_bounds__(NTHREADS) NAME(                                 \
-      const bf16* __restrict__ q, Layout lq, const bf16* __restrict__ k, Layout lk,            \
-      const bf16* __restrict__ v, Layout lv, const bf16* __restrict__ dout, Layout lo,         \
-      const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq,  \
-      int S, int T, int H, int q_off, int k_off, int causal, float scale) {                    \
-    dq_step_body<D>(q, lq, k, lk, v, lv, dout, lo, lse, delta, dq, S, T, H, q_off, k_off,      \
-                    causal, scale);                                                            \
+#define RING_DQ_KERNEL(NAME, D)                                                               \
+  extern "C" __global__ void __launch_bounds__(BWD_THREADS, 1) NAME(                          \
+      const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,         \
+      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,        \
+      const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq, \
+      int S, int T, int H, int q_off, int k_off, int causal, float scale) {                   \
+    dq_step_body<D>(&tq, &tk, &tv, &tdo, lse, delta, dq, S, T, H, q_off, k_off, causal,       \
+                    scale);                                                                   \
   }
 
-#define RING_DKV_KERNEL(NAME, D)                                                               \
-  extern "C" __global__ void __launch_bounds__(NTHREADS) NAME(                                 \
-      const bf16* __restrict__ q, Layout lq, const bf16* __restrict__ k, Layout lk,            \
-      const bf16* __restrict__ v, Layout lv, const bf16* __restrict__ dout, Layout lo,         \
-      const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,  \
-      float* __restrict__ dv, int S, int T, int H, int q_off, int k_off, int causal,           \
-      float scale) {                                                                           \
-    dkv_step_body<D>(q, lq, k, lk, v, lv, dout, lo, lse, delta, dk, dv, S, T, H, q_off, k_off, \
-                     causal, scale);                                                           \
+#define RING_DKV_KERNEL(NAME, D)                                                              \
+  extern "C" __global__ void __launch_bounds__(BWD_THREADS, 1) NAME(                          \
+      const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,         \
+      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,        \
+      const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk, \
+      float* __restrict__ dv, int S, int T, int H, int q_off, int k_off, int causal,          \
+      float scale) {                                                                          \
+    dkv_step_body<D>(&tq, &tk, &tv, &tdo, lse, delta, dk, dv, S, T, H, q_off, k_off, causal,  \
+                     scale);                                                                  \
   }
 
 RING_FWD_KERNEL(ff_ring_fwd_step_kernel, 128)
@@ -288,8 +138,9 @@ RING_DKV_KERNEL(ff_ring_dkv_step_d64_kernel, 64)
 // are contiguous f32 [B, H, rows, d]; m, l, lse and delta contiguous f32
 // [B, H, S]. d is 64 or 128, S and T are multiples of 64, and q_off, k_off
 // are the global positions of the blocks' first rows. The caller checks all
-// of this, including 16-byte alignment of every row and 32-byte alignment of
-// the f32 accumulators (the wmma loads and stores of their rows).
+// of this, including 16-byte alignment of every row (the TMA boxes) and
+// 32-byte alignment of the f32 buffers (the dK/dV step bulk-copies lse and
+// delta in 64-row pieces, which needs 16).
 // ---------------------------------------------------------------------------
 
 #define PER_HEAD(D, NAME) per_head<D>(NAME##_ld, NAME##_head, NAME##_batch)
@@ -329,12 +180,14 @@ static int ring_dq(K kernel, const void* q, Layout lq, const void* k, Layout lk,
                    Layout lv, const void* dout, Layout lo, const void* lse, const void* delta,
                    void* dq, int B, int S, int T, int H, int q_off, int k_off, int causal,
                    cudaStream_t s) {
-  cudaError_t err = allow_smem(kernel, Tiles<D>::DQ_SMEM);
+  CUtensorMap maps[4];
+  if (!bwd_tensor_maps<D>(maps, q, lq, k, lk, v, lv, dout, lo, S, T, H, B))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(kernel, BwdTiles<D>::DQ_SMEM);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(S / BM, H, B), NTHREADS, Tiles<D>::DQ_SMEM, s>>>(
-      (const bf16*)q, lq, (const bf16*)k, lk, (const bf16*)v, lv, (const bf16*)dout, lo,
-      (const float*)lse, (const float*)delta, (float*)dq, S, T, H, q_off, k_off, causal,
-      softmax_scale<D>());
+  kernel<<<bwd_grid(S, H, B), BWD_THREADS, BwdTiles<D>::DQ_SMEM, s>>>(
+      maps[0], maps[1], maps[2], maps[3], (const float*)lse, (const float*)delta, (float*)dq, S,
+      T, H, q_off, k_off, causal, softmax_scale<D>());
   return (int)cudaGetLastError();
 }
 
@@ -361,12 +214,14 @@ static int ring_dkv(K kernel, const void* q, Layout lq, const void* k, Layout lk
                     Layout lv, const void* dout, Layout lo, const void* lse, const void* delta,
                     void* dk, void* dv, int B, int S, int T, int H, int q_off, int k_off,
                     int causal, cudaStream_t s) {
-  cudaError_t err = allow_smem(kernel, Tiles<D>::DKV_SMEM);
+  CUtensorMap maps[4];
+  if (!bwd_tensor_maps<D>(maps, q, lq, k, lk, v, lv, dout, lo, S, T, H, B))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(kernel, BwdTiles<D>::DKV_SMEM);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(T / BN, H, B), NTHREADS, Tiles<D>::DKV_SMEM, s>>>(
-      (const bf16*)q, lq, (const bf16*)k, lk, (const bf16*)v, lv, (const bf16*)dout, lo,
-      (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, S, T, H, q_off, k_off,
-      causal, softmax_scale<D>());
+  kernel<<<bwd_grid(T, H, B), BWD_THREADS, BwdTiles<D>::DKV_SMEM, s>>>(
+      maps[0], maps[1], maps[2], maps[3], (const float*)lse, (const float*)delta, (float*)dk,
+      (float*)dv, S, T, H, q_off, k_off, causal, softmax_scale<D>());
   return (int)cudaGetLastError();
 }
 

@@ -103,7 +103,9 @@ def _check_operands(name: str, q, k, v, do=None) -> None:
 
 def _check_f32(name: str, t: torch.Tensor, shape, dev) -> None:
     """Raise unless `t` is a contiguous f32 of `shape` on `dev` whose start
-    is 32-byte aligned (the kernels' wmma loads of its rows)."""
+    is 32-byte aligned: the dK/dV step bulk-copies lse and delta in 64-row
+    pieces, which needs 16 bytes, and the kernels read and write the state
+    and accumulator rows as float2."""
     if (tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 or t.device != dev
             or not t.is_contiguous() or t.data_ptr() % 32):
         raise ValueError(f"{name}: expected a contiguous, 32-byte aligned f32 {tuple(shape)} on "

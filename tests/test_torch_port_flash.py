@@ -19,6 +19,7 @@ import torch
 from flexflow_tpu.kernels import flash_attention as jfa
 from flexflow_tpu_torch.kernels import build
 from flexflow_tpu_torch.kernels import flash_attention as tfa
+from flexflow_tpu_torch.kernels import ring_flash as trf
 
 B, H, S, D = 2, 2, 256, 128
 LN2 = math.log(2.0)
@@ -158,10 +159,11 @@ def test_gate_constants_match_the_cuda_source():
     assert "dkv_mainloop<D>(tq, tk, tv, tdo, lse, delta, FlashGradEpilogue<D>" in src
     assert "dq_mainloop<D>(tq, tk, tv, tdo, lse, delta, FlashGradEpilogue<D>" in src
     assert f"constexpr int LANES = {tfa.LANES};" in src
-    # the 64-row tiles of ring_flash.cu's wmma backward step kernels, whose
-    # gate (ring_flash_supported) admits blocks of any multiple of TILE
-    assert f"constexpr int BM = {tfa.TILE};" in src
-    assert f"constexpr int BN = {tfa.TILE};" in src
+    # every kernel of the port runs a Hopper mainloop: no source keeps the
+    # warp-level tile API of the kernels they replaced
+    for path in build.CSRC_DIR.glob("*.cu*"):
+        text = path.read_text()
+        assert "wmma" not in text and "<mma.h>" not in text, path.name
     # the forward's and the backward's blocks: warpgroups of TILE rows, two to
     # a block; streamed tiles a multiple of TILE whose tail (s % 128 == TILE,
     # which the gate admits) each kernel masks, and a warpgroup past the end
@@ -176,8 +178,20 @@ def test_gate_constants_match_the_cuda_source():
     assert "k0 + FWD_BN > sh.T" in src and "col < sh.T" in src
     assert "q0 + BWD_BN > sh.S" in src and "query >= sh.S" in src  # dK/dV: query columns
     assert "k0 + BWD_BN > sh.T" in src and "key >= sh.T" in src  # dQ: key columns
-    assert "if (r0 < sh.T) {" in src and "if (r0 < sh.S) epi.store" in src
+    # a warpgroup stores only if it ran a tile (rows past the end run none),
+    # and a block with no tile returns before touching memory
+    assert "if (first < tiles) {" in src and "if (n_mine > 0) epi.store" in src
+    assert "if (nq == 0) return;" in src and "if (nk == 0) return;" in src
     assert "if (r0 >= sh.T) return tiles;" in src and "if (r0 >= sh.S) return 0;" in src
+    # the ring gate admits blocks of any multiple of the backward's warpgroup
+    # rows, which the ring steps' mainloops bound their loops by
+    wg = int(re.search(r"constexpr int BWD_WG_ROWS = (\d+);", src).group(1))
+    bf16 = torch.bfloat16
+    for rows, ok in ((wg, True), (3 * wg, True), (5 * wg, True), (wg + wg // 2, False)):
+        assert trf.ring_flash_supported((1, 2, rows, 128), (1, 2, 2 * wg, 128),
+                                        (1, 2, 2 * wg, 128), bf16, "cuda") is ok, rows
+        assert trf.ring_flash_supported((1, 2, 2 * wg, 64), (1, 2, rows, 64), (1, 2, rows, 64),
+                                        bf16, "cuda") is ok, rows
     assert tfa.flash_attention_bshf_supported((2, bn["FWD"] + tfa.TILE, 256), 2,
                                               torch.bfloat16, "cuda")
     assert tfa.flash_attention_bshf_supported((2, 5 * tfa.TILE, 256), 2, torch.bfloat16, "cuda")

@@ -4,7 +4,9 @@ interpret mode on the CPU), from the same numpy inputs in f32:
 
 - each step's plain version against its Pallas kernel, at d = 64 and 128,
   causal and not, with the key block below the query block, on its
-  diagonal, partly masked with another length, and fully masked;
+  diagonal, partly masked with another length (T > S, and S != T with both
+  = 64 mod 128), and fully masked; a step that carries state adds its dq,
+  dk and dv into seeded nonzero accumulators, as the kernels must;
 - the ring schedule of 4 ranks replayed in one process through the step
   functions, against the JAX ring on a 4-device virtual mesh, for the
   output and the gradients of q, k and v;
@@ -44,9 +46,10 @@ CASES = {
     "diagonal": (128, 128, 128, 128, False),
     "partial": (128, 256, 128, 0, True),  # t_blk != s_blk, rows see part of the block
     "masked": (128, 128, 0, 128, True),  # every key in the masked future
+    "uneven": (320, 192, 192, 64, True),  # s_blk != t_blk, each a half-full 128-row block
 }
 PARAMS = [(d, causal, case) for d in (64, 128) for causal in (True, False)
-          for case in CASES if causal or case in ("diagonal", "partial")]
+          for case in CASES if causal or case in ("diagonal", "partial", "uneven")]
 
 
 def _inputs(d, s_blk, t_blk, carry, seed):
@@ -68,11 +71,18 @@ def _inputs(d, s_blk, t_blk, carry, seed):
     lse = (np.log(np.exp(scores - scores.max(-1, keepdims=True)).sum(-1))
            + scores.max(-1) + 0.5).astype(np.float32)
     delta = rs.randn(B, H, s_blk).astype(np.float32)
-    return dict(q=q, k=k, v=v, do=do, acc=acc, m=m, l=l, lse=lse, delta=delta)
+    x = dict(q=q, k=k, v=v, do=do, acc=acc, m=m, l=l, lse=lse, delta=delta)
+    # the gradient accumulators the steps add into: earlier steps' sums, or 0
+    for name, rows in (("dq", s_blk), ("dk", t_blk), ("dv", t_blk)):
+        x[name] = (rs.randn(B, H, rows, d) if carry else np.zeros((B, H, rows, d))).astype(
+            np.float32)
+    return x
 
 
 def _jax_steps(x, q_off, k_off, causal):
-    """(acc, m, l, dq, dk, dv) of the Pallas step kernels, m in natural log."""
+    """(acc, m, l, dq, dk, dv) of the Pallas step kernels, m in natural log;
+    the Pallas dq and dk/dv steps return this step's part alone, so the
+    carried accumulators are added to it."""
     bh = lambda a: jnp.asarray(a.reshape(B * H, *a.shape[2:]))  # noqa: E731
     rows = lambda a: jnp.asarray(a.reshape(B * H, 1, a.shape[-1]))  # noqa: E731
     q, k, v, do = (bh(x[n]) for n in ("q", "k", "v", "do"))
@@ -84,7 +94,7 @@ def _jax_steps(x, q_off, k_off, causal):
     dk, dv = jrf._ring_dkv_step(q, k, v, do, lse, delta, *args)
     back = lambda a: np.asarray(a).reshape(B, H, *a.shape[1:])  # noqa: E731
     return (back(acc), np.asarray(m).reshape(B, H, -1) / LOG2E, np.asarray(l).reshape(B, H, -1),
-            back(dq), back(dk), back(dv))
+            x["dq"] + back(dq), x["dk"] + back(dk), x["dv"] + back(dv))
 
 
 def _port_steps(x, q_off, k_off, causal):
@@ -92,8 +102,7 @@ def _port_steps(x, q_off, k_off, causal):
     acc, m, l = t["acc"].clone(), t["m"].clone(), t["l"].clone()
     trf.ring_fwd_step(t["q"], t["k"], t["v"], acc, m, l, q_off, k_off, causal)
     args = (t["q"], t["k"], t["v"], t["do"], t["lse"], t["delta"])
-    dq = torch.zeros_like(t["q"])
-    dk, dv = torch.zeros_like(t["k"]), torch.zeros_like(t["v"])
+    dq, dk, dv = t["dq"].clone(), t["dk"].clone(), t["dv"].clone()
     trf.ring_dq_step(*args, dq, q_off, k_off, causal)
     trf.ring_dkv_step(*args, dk, dv, q_off, k_off, causal)
     return tuple(a.numpy() for a in (acc, m, l, dq, dk, dv))
@@ -108,11 +117,10 @@ def test_step_plain_versions_match_the_pallas_kernels(d, causal, case):
     for name, g, w in zip(("acc", "m", "l", "dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g, w, err_msg=name, **TOL)
     if case == "masked":
-        # a step that sees only masked keys leaves the state as it was and
-        # adds nothing to the gradients
-        for name, g in zip(("acc", "m", "l"), got[:3]):
+        # a step that sees only masked keys leaves the state and the
+        # gradient accumulators as they were
+        for name, g in zip(("acc", "m", "l", "dq", "dk", "dv"), got):
             assert np.array_equal(g, x[name]), name
-        assert not any(g.any() for g in got[3:])
 
 
 def _jax_ring(q, k, v, w, causal, sp):
@@ -197,11 +205,14 @@ def test_profile_step_groups_the_ring_kernels_with_the_port_kernels():
 
 def test_c_interface_matches_the_declared_signatures():
     """Every exported function the ring wrappers call is declared with as
-    many ctypes arguments as the CUDA source (with its shared header) gives
-    it parameters, and both head dims have their kernels; the forward step
-    is the shared Hopper mainloop with the ring epilogue, fed tensor maps."""
+    many ctypes arguments as the CUDA source (with its shared headers) gives
+    it parameters, and both head dims have their kernels; each step is a
+    shared Hopper mainloop with a ring epilogue, fed tensor maps: the
+    forward's, and the backward's dQ (a grid over the S query rows) and
+    dK/dV (over the T key rows) adding into the f32 accumulators."""
     src = "".join((build.CSRC_DIR / f).read_text()
-                  for f in ("ring_flash.cu", "flash_tiles.cuh", "flash_fwd_sm90.cuh"))
+                  for f in ("ring_flash.cu", "flash_tiles.cuh", "flash_fwd_sm90.cuh",
+                            "flash_bwd_sm90.cuh"))
     for name, (argtypes, _) in trf._SIGNATURES.items():
         m = re.search(r'extern "C" [\w\s\*]+?\b' + name + r"\(([^)]*)\)", src)
         assert m, name
@@ -211,4 +222,18 @@ def test_c_interface_matches_the_declared_signatures():
             assert re.search(rf"RING_{kind}_KERNEL\(ff_ring_\w+, {d}\)", src), (kind, d)
     assert "fwd_mainloop<D>(tq, tk, tv, RingEpilogue<D>" in src
     assert re.search(r"RING_FWD_KERNEL\(NAME, D\)[^}]*__grid_constant__ CUtensorMap tq", src)
+    assert "dq_mainloop<D>(tq, tk, tv, tdo, lse, delta, RingGradEpilogue<D>{dq, S}," in src
+    assert ("dkv_mainloop<D>(tq, tk, tv, tdo, lse, delta, RingGradEpilogue<D>{dk, T},\n"
+            "                  RingGradEpilogue<D>{dv, T}, FwdShape{S, T, H, q_off, k_off") in src
+    for kind in ("DQ", "DKV"):
+        macro = re.search(rf"#define RING_{kind}_KERNEL\(NAME, D\)(.*?)\n\n", src, re.S).group(1)
+        assert "__launch_bounds__(BWD_THREADS, 1)" in macro, kind
+        assert macro.count("const __grid_constant__ CUtensorMap") == 4, kind
+        assert "__grid_constant__ CUtensorMap tdo" in macro, kind
+    # q and dout map S rows, k and v T rows; dQ's grid covers S, dK/dV's T
+    for i, operand in enumerate(("q, lq, S", "k, lk, T", "v, lv, T", "dout, lo, S")):
+        assert f"fwd_tensor_map<D>(&maps[{i}], {operand}, H, B, BWD_BN)" in src
+    assert src.count("bwd_tensor_maps<D>(maps, q, lq, k, lk, v, lv, dout, lo, S, T, H, B)") == 2
+    assert "bwd_grid(S, H, B), BWD_THREADS, BwdTiles<D>::DQ_SMEM" in src
+    assert "bwd_grid(T, H, B), BWD_THREADS, BwdTiles<D>::DKV_SMEM" in src
     assert "ring_flash.cu" in build.SOURCES
