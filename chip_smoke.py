@@ -20,7 +20,8 @@ Phases, each printing one JSON line:
                   config's (b=64, h=16, s=512) on the interleaved-QKV and on
                   separate operands, the d=128 pair causal at seq 2048 and
                   the d=64 interleaved pair causal at seq 512, plus small
-                  causal cases and the tiling edges (s=192 and 320);
+                  causal cases, the tiling edges (s=192 and 320) and the
+                  delta kernels' tails (delta_tails);
 4. parity         two small flagships (heads of 128, and heads of 64) trained
                   two steps on the card (bf16, through the kernels) and on
                   the CPU (f32, plain versions) from the same parameters: the
@@ -55,12 +56,14 @@ then, in a one-rank NCCL process group opened over a file:// store:
 
 The kernels phase also holds the per-head kernels at the attention shapes of
 train_dp, of train_dp_seq2048 and of the 16-head config, on contiguous
-operands and on the projection einsum's strided view, and the ring-flash
+operands and (train_dp's and the 16-head config's) on the projection
+einsum's strided view, and the ring-flash
 step kernels at train_sp's shape, at the replay's (one with the first
 64-row warpgroup of each block blind), at d=64, and with s_blk != t_blk,
 each carried step adding into random accumulators. Then the kernel table
-as one {"kernels": [...]} line (the Hopper forwards and backwards with
-their design and ptxas figures), and last the line {"ok": true,
+as one {"kernels": [...]} line (the redesigned kernels, forwards,
+backwards and deltas, with their design and ptxas figures), and last the
+line {"ok": true,
 "device": {...}}. Any failed check raises and the script exits non-zero.
 Without a CUDA device, or away from a checkout of the repository, it exits
 non-zero before printing anything.
@@ -96,12 +99,19 @@ SOURCE = "flexflow_tpu_torch/csrc/flash_attention.cu"
 TPU_KERNELS = "flexflow_tpu/kernels/flash_attention.py"
 RING_SOURCE = "flexflow_tpu_torch/csrc/ring_flash.cu"
 RING_TPU_KERNELS = "flexflow_tpu/kernels/ring_flash.py"
-# the wrappers whose kernels run a Hopper mainloop (wgmma products, TMA tile
-# loads, scores and accumulators in registers), with the kernels that carry
-# each: every attention wrapper but the delta ones, on the forward's
-# mainloop of csrc/flash_fwd_sm90.cuh or the backward pair's of
-# csrc/flash_bwd_sm90.cuh
+# the wrappers whose kernels were redesigned for Hopper, with the kernels
+# that carry each: the delta wrappers run delta_body of
+# csrc/flash_attention.cu (16-byte loads, several rows a thread in flight,
+# coalesced [b, h, s] stores), every other attention wrapper a Hopper
+# mainloop (wgmma products, TMA tile loads, scores and accumulators in
+# registers), the forward's of csrc/flash_fwd_sm90.cuh or the backward
+# pair's of csrc/flash_bwd_sm90.cuh
+DELTA_DESIGN = "16-byte loads, rows in flight, coalesced stores"
+DELTA_WRAPPERS = ("flash_delta", "flash_delta_d64", "flash_delta_bhsd")
 REDESIGNED = {
+    "flash_delta": ("ff_flash_delta_kernel",),
+    "flash_delta_d64": ("ff_flash_delta_d64_kernel",),
+    "flash_delta_bhsd": ("ff_flash_delta_bhsd_kernel", "ff_flash_delta_bhsd_d64_kernel"),
     "flash_fwd": ("ff_flash_fwd_kernel",),
     "flash_fwd_d64": ("ff_flash_fwd_d64_kernel",),
     "flash_fwd_bhsd": ("ff_flash_fwd_bhsd_kernel", "ff_flash_fwd_bhsd_d64_kernel"),
@@ -529,13 +539,15 @@ def phase_kernels():
     # computes with _bwd_onepass_kernel (rows 4-5 of the kernel table)
     # the tiling edges: s % 128 == 64 leaves the last 128-row block's
     # second warpgroup without rows, in the forward and in both backward
-    # kernels; at s = 320 after two full blocks
+    # kernels; at s = 320 after two full blocks. Three heads of 64 leave
+    # the delta's last pass over a tile half past its rows.
     edges = {f"s{s}_{name}_{'causal' if c else 'full'}":
              _compare(flash, 2, s, causal=c, seed=40 + 10 * (s == 320) + i)[1]
              for s in (192, 320)
              for i, (name, flash) in enumerate((
                  ("d128", Flash(2, 128)), ("d64_qkv", Flash(4, 64, interleaved=True)),
-                 ("bhsd_d128_strided", FlashBHSD(2, 128, strided=True))))
+                 ("bhsd_d128_strided", FlashBHSD(2, 128, strided=True)),
+                 ("bhsd_d64_h3_strided", FlashBHSD(3, 64, strided=True))))
              for c in (False, True)}
 
     ms, bounds, checks = _measure(Flash(8, 128), 64, 512)
@@ -585,8 +597,55 @@ def phase_kernels():
                      "d64": {"b": 64, "h": 16, "s": 512}, "dtype": "bf16"},
           "projection_view": _projection_view(),
           "repeat_bitwise": True, "causal_checks": {"shape": {"b": 2, "s": 256}, **causal},
-          "tiling_edges": {"shape": {"b": 2, "s": 192}, **edges}})
+          "tiling_edges": {"shape": {"b": 2, "s": 192}, **edges},
+          "delta_tails": _delta_tails()})
     return kernels
+
+
+def _delta_tails() -> dict:
+    """Every delta kernel against its plain version, at DELTA_BOUND and
+    bitwise on repeat, at shapes that reach delta_body's tails: a last
+    head tile of fewer heads (h > 16, no multiple of 16), a pass past the
+    tile's rows (d=64 with an odd head count in a tile), and b*h*s no
+    multiple of a block's rows (s = 192 and 320, b*h odd); the bshf
+    layout (dO and O are contiguous [b, s, h*d] on the interleaved d=64
+    path too), contiguous per-head operands, the einsum's view, and dO on
+    the view with O contiguous (as the ring's backward may hand them). A
+    misaligned operand must raise."""
+    import torch
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    cases = {
+        "d64_h18_s192": (Flash(18, 64), Flash(18, 64), 192),
+        "d128_h20_s192": (Flash(20, 128), Flash(20, 128), 192),
+        "d128_h3_s320": (Flash(3, 128), Flash(3, 128), 320),
+        "bhsd_d64_h3_s192": (FlashBHSD(3, 64), FlashBHSD(3, 64), 192),
+        "bhsd_d64_h3_s192_strided": (FlashBHSD(3, 64, True), FlashBHSD(3, 64, True), 192),
+        "bhsd_d64_h19_s320_strided": (FlashBHSD(19, 64, True), FlashBHSD(19, 64, True), 320),
+        "bhsd_d128_h20_s192_strided": (FlashBHSD(20, 128, True), FlashBHSD(20, 128, True), 192),
+        "bhsd_d128_h3_s320": (FlashBHSD(3, 128), FlashBHSD(3, 128), 320),
+        "bhsd_d64_h5_s192_do_strided": (FlashBHSD(5, 64, True), FlashBHSD(5, 64), 192),
+    }
+    out = {"shape": {"b": 1}}
+    for i, (name, (flash, o_layout, s)) in enumerate(cases.items()):
+        gen = torch.Generator(device="cuda").manual_seed(60 + i)
+        do, o = flash.grad_out(1, s, gen), o_layout.grad_out(1, s, gen)
+        delta = flash.delta(do, o)
+        checks = _check(name, _errors(delta, flash.delta_plain(do, o)), "rel_err", DELTA_BOUND)
+        if not bool(torch.isfinite(delta).all()):
+            raise AssertionError(f"{name}: delta is not finite")
+        if not torch.equal(flash.delta(do, o), delta):
+            raise AssertionError(f"{name}: delta does not repeat bitwise")
+        out[name] = dict(checks, repeat_bitwise=True)
+    buf = torch.zeros(2 * 64 * 128 + 1, dtype=torch.bfloat16, device="cuda")
+    misaligned = buf[1:].view(1, 64, 256)  # contiguous, 2 bytes past a 16-byte boundary
+    try:
+        fa.flash_delta_d64(misaligned, misaligned, 4)
+    except ValueError as e:
+        out["misaligned_raises"] = str(e)
+    else:
+        raise AssertionError("flash_delta_d64 took an operand that is not 16-byte aligned")
+    return out
 
 
 def _projection_view() -> dict:
@@ -607,8 +666,9 @@ def _per_head_kernels(causal: dict):
     """The per-head [b, h, s, d] kernels (rows 9-12 of the kernel table) at
     the attention shapes of train_dp (64x8x512x128), of train_dp_seq2048
     (16x8x2048x128) and of the 16-head config (64x16x512x64), on contiguous
-    operands, and at train_dp's on the projection einsum's strided view,
-    the layout the data-parallel path hands them; plus causal cases."""
+    operands, and at train_dp's and the 16-head config's on the projection
+    einsum's strided view, the layout the data-parallel path hands them;
+    plus causal cases."""
     sdpa_f = "F.scaled_dot_product_attention forward"
     einsum = FlashBHSD.EINSUM_DELTA
     causal["bhsd_d128"] = _compare(FlashBHSD(2, 128), 2, 256, causal=True, seed=7)[1]
@@ -622,12 +682,14 @@ def _per_head_kernels(causal: dict):
         "seq2048": (_measure(FlashBHSD(8, 128), 16, 2048, seed=12, iters=10),
                     dict(b=16, h=8, s=2048, d=128)),
         "d64": (_measure(FlashBHSD(16, 64), 64, 512, seed=13), dict(b=64, h=16, s=512, d=64)),
+        "d64_strided": (_measure(FlashBHSD(16, 64, strided=True), 64, 512, seed=16),
+                        dict(b=64, h=16, s=512, d=64, layout="einsum view of [b, s, h, d]")),
     }
     ms, bounds, checks = runs["main"][0]
 
     def sides(which, library):
         out = {}
-        for key in ("strided", "seq2048", "d64"):
+        for key in ("strided", "seq2048", "d64", "d64_strided"):
             (ms_k, bounds_k, checks_k), shape = runs[key]
             out[key] = (_bwd_side(ms_k, bounds_k, checks_k, shape) if which == "bwd" else
                         _side(ms_k, bounds_k, checks_k, which, ms_k[library], shape))
@@ -1178,7 +1240,7 @@ def main() -> None:
     kernels = phase_kernels()
     for entry in kernels:
         if entry["name"] in REDESIGNED:
-            entry["design"] = "wgmma+tma"
+            entry["design"] = DELTA_DESIGN if entry["name"] in DELTA_WRAPPERS else "wgmma+tma"
             entry["ptxas"] = {k: ptxas[k] for k in REDESIGNED[entry["name"]]}
     phase_parity()
     launches = {  # per train phase, the launches of each wrapper on its path

@@ -14,6 +14,7 @@
 //   ff_flash_fwd_d64_kernel      <- _fwd_kernel_pair (via _fwd_bshf_pair and
 //                                   _fwd_bshf_pair_qkv)
 //   ff_flash_delta_d64_kernel    <- the delta that _bwd_pair_core computes inline
+//                                   (:1105)
 //   ff_flash_bwd_dkv_d64_kernel  <- _bwd_pair_core (via _bwd_fused_kernel_pair and
 //   ff_flash_bwd_dq_d64_kernel      _bwd_fused_kernel_pair_qkv), split in two
 //   ff_flash_fwd_bhsd[_d64]_kernel      <- _fwd_kernel_b and _fwd_kernel via _fwd (the
@@ -31,6 +32,15 @@
 // pair's 14*b*h*s^2*d flops on ~470 MB lie near the ridge at s=512 and are
 // bound by operations at s=2048; delta is a pure read of dO and O and is
 // bound by bytes.
+//
+// Delta design (the four delta kernels, rows 2 and 10 and row 7's delta):
+// one body, delta_body, reads dO and O through their Layouts with 16-byte
+// loads, several rows a thread in flight, a block a tile of (one b, 64
+// consecutive s, up to 16 heads), and stores each head's run of sums
+// contiguously into [b, h, s] from shared memory. Where the one-warp-a-row
+// kernels it replaced made 4-byte loads, launched a block for every 8 rows
+// and (bshf) scattered 4-byte stores S*4 bytes apart, it keeps enough bytes
+// in flight to run at the card's memory rate. Its note has the details.
 //
 // Forward design (the four _fwd kernels, rows 1, 6 and 9 of the port's
 // kernel table): fwd_body is the Hopper mainloop of flash_fwd_sm90.cuh with
@@ -101,33 +111,6 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* tq, const CUtensorMa
                   FwdShape{S, S, H, 0, 0, causal, scale});
 }
 
-// delta[b, h, s] = sum_d dO * O in f32, one warp per (b, s, h) row of D
-// values of contiguous [b, s, h*D] operands.
-template <int D>
-__device__ __forceinline__ void delta_body(const bf16* __restrict__ dout,
-                                           const bf16* __restrict__ o,
-                                           float* __restrict__ delta, int B, int S, int H) {
-  constexpr int PAIRS = D / 64;  // bf16 pairs per lane
-  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;  // over (b, s, h)
-  const int lane = threadIdx.x % 32;
-  if (row >= B * S * H) return;  // uniform across the warp
-  const size_t off = (size_t)row * D + lane * 2 * PAIRS;
-  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(dout + off);
-  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(o + off);
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < PAIRS; ++i) {
-    const float2 x = __bfloat1622float2(a[i]), y = __bfloat1622float2(b[i]);
-    acc += x.x * y.x + x.y * y.y;
-  }
-#pragma unroll
-  for (int off2 = 16; off2 > 0; off2 >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off2);
-  if (lane == 0) {
-    const int hi = row % H, si = (row / H) % S, bi = row / (H * S);
-    delta[((size_t)bi * H + hi) * S + si] = acc;
-  }
-}
-
 // dK and dV of 128 key rows of one (batch, head), streaming the query
 // tiles that reach them: the Hopper dK/dV mainloop of flash_bwd_sm90.cuh
 // with the flash epilogue. Grid bwd_grid(S, H, B); q, k, v and dout come as
@@ -156,31 +139,150 @@ __device__ __forceinline__ void dq_body(const CUtensorMap* tq, const CUtensorMap
                  FwdShape{S, S, H, 0, 0, causal, scale});
 }
 
-// delta[b, h, s] = sum_d dO * O in f32, one warp per (b, h, s) row of D
-// values, each operand read through its own layout.
+// Delta: delta[b, h, s] = sum_d dO * O, the bf16 products summed in f32.
+//
+// Replaces _delta_kernel (flexflow_tpu/kernels/flash_attention.py:1203) via
+// _delta_bshf (:1222) and _delta_rows (:433), and the delta that
+// _bwd_pair_core (:1105) computes inline; all four delta kernels of this
+// file run delta_body. The port's backward pair needs every row's delta
+// before its dK/dV mainloop streams, so delta stays a pass of its own.
+//
+// What bounds it on an H100: bytes. It reads 2*b*s*h*d*2 bytes, writes
+// b*h*s*4 and does 2*b*s*h*d flops: at the flagship's attention shape
+// 136 MB in 41 us at 3.35 TB/s against 67 MFLOP in 1 us at 67 TFLOP/s f32.
+// So it is fast exactly when the card has enough bytes in flight and every
+// sector it touches is used whole. The design:
+// - 16-byte loads: a thread loads 8 bf16 of dO and 8 of O with one
+//   16-byte load each, through the read-only path and not kept in L1, so
+//   a row of D values is D/8 neighbouring lanes (8 at d=64, 16 at d=128)
+//   and a warp covers 256/D rows at once; every load instruction reads
+//   whole 128-byte lines.
+// - Several rows a thread: each thread issues the loads of DELTA_ROWS rows
+//   before any arithmetic (2*DELTA_ROWS loads, 128 bytes, in flight), then
+//   reduces each row's partial sums within its lane group in log2(D/8)
+//   xor shuffles.
+// - Few blocks, each with a large tile: a block owns (one b, DELTA_S_TILE
+//   consecutive s, up to DELTA_HEAD_TILE heads), at most 1024 rows, 128 KB
+//   (d=64) or 256 KB (d=128) of operands, and walks it in passes of
+//   DELTA_THREADS * DELTA_ROWS / (D/8) rows. At the train paths' shapes that
+//   is 512 blocks of 256 threads, which the card holds in one wave, and
+//   some 16 MB in flight at once. A persistent grid would add a loop over
+//   tiles and change nothing at these shapes, so the grid is one block a
+//   tile.
+// - Coalesced stores: the block stages its sums in shared memory as
+//   [head][s] and writes each head's run of DELTA_S_TILE floats as 16-byte
+//   stores into [b, h, s], whether the rows came in (b, s, h) order (bshf,
+//   and the per-head einsum view) or in (b, h, s) order (contiguous
+//   per-head operands). Only the load walk follows the layout: heads
+//   fastest where heads of one row lie closer than rows of one head, so a
+//   pass reads the tile's memory in order.
+// - Tails are masked, not padded: s is a multiple of 64 = DELTA_S_TILE, so
+//   no tile has a ragged s; a last head tile of fewer heads (H > 16, no
+//   multiple of 16) and a pass past the tile's rows (d=64 with an odd head
+//   count in the tile) load nothing and store nothing.
+// Every output is written by one thread, with no atomics, so results repeat
+// bitwise. Every 16-byte load is aligned because every operand starts
+// 16-byte aligned and all its strides are multiples of 8 elements (the
+// wrappers check both).
+constexpr int DELTA_THREADS = 256;
+constexpr int DELTA_ROWS = 4;        // rows a thread has in flight
+constexpr int DELTA_S_TILE = 64;     // consecutive s a block owns
+constexpr int DELTA_HEAD_TILE = 16;  // heads a block owns, at most
+constexpr int DELTA_SUMS_LD = DELTA_S_TILE + 4;  // padded: no bank conflicts, 16-byte rows
+
 template <int D>
-__device__ __forceinline__ void delta_rows_body(const bf16* __restrict__ dout, Layout od,
-                                                const bf16* __restrict__ o, Layout ol,
-                                                float* __restrict__ delta, int B, int S, int H) {
-  constexpr int PAIRS = D / 64;  // bf16 pairs per lane
-  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;  // over (b, h, s)
-  const int lane = threadIdx.x % 32;
-  if (row >= B * H * S) return;  // uniform across the warp
-  const int si = row % S, hi = (row / S) % H, bi = row / (S * H);
-  const int col = lane * 2 * PAIRS;
-  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(
-      dout + head_base<D>(od, bi, hi) + (size_t)si * od.ld + col);
-  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(
-      o + head_base<D>(ol, bi, hi) + (size_t)si * ol.ld + col);
-  float acc = 0.f;
+struct DeltaTile {
+  static constexpr int LANES_PER_ROW = D / 8;               // 8 bf16, 16 bytes, a lane
+  static constexpr int SLOTS = DELTA_THREADS / LANES_PER_ROW;  // rows a block covers at once
+  static constexpr int PASS = SLOTS * DELTA_ROWS;            // rows a pass of the block
+  static_assert(32 % LANES_PER_ROW == 0, "a row's lanes lie within one warp");
+};
+
+__host__ __device__ __forceinline__ int delta_head_tile(int H) {
+  return H < DELTA_HEAD_TILE ? H : DELTA_HEAD_TILE;
+}
+
+// One block a (s tile, head tile, batch) triple, s tiles fastest.
+static inline dim3 delta_grid(int B, int S, int H) {
+  const int ht = delta_head_tile(H);
+  return dim3((unsigned)((long)B * (S / DELTA_S_TILE) * ((H + ht - 1) / ht)));
+}
+
+// acc + the 8 products of two 16-byte words of bf16 pairs, in f32 (each
+// product of two bf16 values is exact in f32).
+__device__ __forceinline__ float dot8(const uint4& a, const uint4& b, float acc) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-  for (int i = 0; i < PAIRS; ++i) {
-    const float2 x = __bfloat1622float2(a[i]), y = __bfloat1622float2(b[i]);
-    acc += x.x * y.x + x.y * y.y;
+  for (int i = 0; i < 4; ++i) {
+    acc = fmaf(__uint_as_float(x[i] << 16), __uint_as_float(y[i] << 16), acc);
+    acc = fmaf(__uint_as_float(x[i] & 0xffff0000u), __uint_as_float(y[i] & 0xffff0000u), acc);
   }
+  return acc;
+}
+
+// 16 bytes at p (16-byte aligned) through the read-only path, not kept in
+// L1: delta reads every byte once.
+__device__ __forceinline__ uint4 ld_once16(const bf16* p) {
+  uint4 r;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+      : "l"(p));
+  return r;
+}
+
+// delta[b, h, s] of one tile, dO and O each read through its own layout.
+// Grid delta_grid(B, S, H), DELTA_THREADS threads.
+template <int D>
+__device__ __forceinline__ void delta_body(const bf16* __restrict__ dout, Layout od,
+                                           const bf16* __restrict__ o, Layout ol,
+                                           float* __restrict__ delta, int S, int H) {
+  using T = DeltaTile<D>;
+  __shared__ __align__(16) float sums[DELTA_HEAD_TILE * DELTA_SUMS_LD];
+  const int ht = delta_head_tile(H);
+  const int s_tiles = S / DELTA_S_TILE, h_tiles = (H + ht - 1) / ht;
+  const int s0 = (blockIdx.x % s_tiles) * DELTA_S_TILE;
+  const int h0 = (blockIdx.x / s_tiles % h_tiles) * ht;
+  const int b = blockIdx.x / s_tiles / h_tiles;
+  const int heads = min(ht, H - h0);
+  const int rows = heads * DELTA_S_TILE;
+  const bool heads_fastest = od.sub < od.ld;  // walk the rows in memory order
+  const int lane = threadIdx.x % T::LANES_PER_ROW, slot = threadIdx.x / T::LANES_PER_ROW;
+  const int col = lane * 8;
+
+  for (int pass = 0; pass < rows; pass += T::PASS) {
+    uint4 x[DELTA_ROWS], y[DELTA_ROWS];
+    int at[DELTA_ROWS];  // where each row's sum goes in `sums`, or -1 past the tile
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
+    for (int r = 0; r < DELTA_ROWS; ++r) {
+      const int t = pass + r * T::SLOTS + slot;  // uniform across the row's lanes
+      x[r] = y[r] = make_uint4(0u, 0u, 0u, 0u);
+      at[r] = -1;
+      if (t < rows) {
+        const int hl = heads_fastest ? t % heads : t / DELTA_S_TILE;
+        const int sl = heads_fastest ? t / heads : t % DELTA_S_TILE;
+        const int h = h0 + hl, s = s0 + sl;
+        x[r] = ld_once16(dout + head_base<D>(od, b, h) + (size_t)s * od.ld + col);
+        y[r] = ld_once16(o + head_base<D>(ol, b, h) + (size_t)s * ol.ld + col);
+        at[r] = hl * DELTA_SUMS_LD + sl;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < DELTA_ROWS; ++r) {
+      float acc = dot8(x[r], y[r], 0.f);
+#pragma unroll
+      for (int off = T::LANES_PER_ROW / 2; off > 0; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (lane == 0 && at[r] >= 0) sums[at[r]] = acc;
+    }
+  }
+  __syncthreads();
+
+  constexpr int VECS = DELTA_S_TILE / 4;  // float4s a head's run
+  for (int i = threadIdx.x; i < heads * VECS; i += DELTA_THREADS) {
+    const int hl = i / VECS, v = i % VECS;
+    float4* out = reinterpret_cast<float4*>(delta + ((size_t)b * H + h0 + hl) * S + s0);
+    out[v] = *reinterpret_cast<const float4*>(&sums[hl * DELTA_SUMS_LD + 4 * v]);
+  }
 }
 
 // The layout of contiguous [b, s, h*D] operands.
@@ -222,33 +324,19 @@ FLASH_FWD_KERNEL(ff_flash_fwd_d64_kernel, 64)
 FLASH_FWD_KERNEL(ff_flash_fwd_bhsd_kernel, 128)
 FLASH_FWD_KERNEL(ff_flash_fwd_bhsd_d64_kernel, 64)
 
-extern "C" __global__ void ff_flash_delta_kernel(const bf16* __restrict__ dout,
-                                                 const bf16* __restrict__ o,
-                                                 float* __restrict__ delta, int B, int S,
-                                                 int H) {
-  delta_body<128>(dout, o, delta, B, S, H);
-}
+// The four delta kernels run one body; a bshf kernel reads its operands
+// through dense<D>, a per-head one through the per-head Layouts it is given.
+#define FLASH_DELTA_KERNEL(NAME, D)                                                        \
+  extern "C" __global__ void __launch_bounds__(DELTA_THREADS) NAME(                        \
+      const bf16* __restrict__ dout, Layout od, const bf16* __restrict__ o, Layout ol,     \
+      float* __restrict__ delta, int S, int H) {                                           \
+    delta_body<D>(dout, od, o, ol, delta, S, H);                                           \
+  }
 
-extern "C" __global__ void ff_flash_delta_d64_kernel(const bf16* __restrict__ dout,
-                                                     const bf16* __restrict__ o,
-                                                     float* __restrict__ delta, int B, int S,
-                                                     int H) {
-  delta_body<64>(dout, o, delta, B, S, H);
-}
-
-extern "C" __global__ void ff_flash_delta_bhsd_kernel(const bf16* __restrict__ dout, Layout od,
-                                                      const bf16* __restrict__ o, Layout ol,
-                                                      float* __restrict__ delta, int B, int S,
-                                                      int H) {
-  delta_rows_body<128>(dout, od, o, ol, delta, B, S, H);
-}
-
-extern "C" __global__ void ff_flash_delta_bhsd_d64_kernel(const bf16* __restrict__ dout,
-                                                          Layout od, const bf16* __restrict__ o,
-                                                          Layout ol, float* __restrict__ delta,
-                                                          int B, int S, int H) {
-  delta_rows_body<64>(dout, od, o, ol, delta, B, S, H);
-}
+FLASH_DELTA_KERNEL(ff_flash_delta_kernel, 128)
+FLASH_DELTA_KERNEL(ff_flash_delta_d64_kernel, 64)
+FLASH_DELTA_KERNEL(ff_flash_delta_bhsd_kernel, 128)
+FLASH_DELTA_KERNEL(ff_flash_delta_bhsd_d64_kernel, 64)
 
 #define FLASH_BWD_KERNELS(DKV, DQ, D)                                                      \
   extern "C" __global__ void __launch_bounds__(BWD_THREADS, 1) DKV(                        \
@@ -282,13 +370,6 @@ FLASH_BWD_KERNELS(ff_flash_bwd_dkv_bhsd_d64_kernel, ff_flash_bwd_dq_bhsd_d64_ker
 // share one set, as do dq, dk and dv. The caller checks all of this,
 // including 16-byte alignment of every row.
 // ---------------------------------------------------------------------------
-
-constexpr int DELTA_WARPS = 8;
-
-static int delta_blocks(int B, int S, int H) {
-  const long rows = (long)B * S * H;
-  return (int)((rows + DELTA_WARPS - 1) / DELTA_WARPS);
-}
 
 // The forward of q, k, v (Layout in) into o (Layout out) and lse.
 template <int D, typename K>
@@ -333,38 +414,39 @@ extern "C" int ff_flash_fwd_bhsd(int d, const void* q, const void* k, const void
   return (int)cudaErrorInvalidValue;
 }
 
+// delta of dout (Layout od) and o (Layout ol) into contiguous [B, H, S] f32.
+template <typename K>
+static int launch_delta(K kernel, const void* dout, Layout od, const void* o, Layout ol,
+                        void* delta, int B, int S, int H, cudaStream_t stream) {
+  kernel<<<delta_grid(B, S, H), DELTA_THREADS, 0, stream>>>((const bf16*)dout, od, (const bf16*)o,
+                                                            ol, (float*)delta, S, H);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int ff_flash_delta(const void* dout, const void* o, void* delta, int B, int S, int H,
                               void* stream) {
-  ff_flash_delta_kernel<<<delta_blocks(B, S, H), DELTA_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const bf16*)dout, (const bf16*)o, (float*)delta, B, S, H);
-  return (int)cudaGetLastError();
+  const Layout l = dense<128>(S, H);
+  return launch_delta(ff_flash_delta_kernel, dout, l, o, l, delta, B, S, H, (cudaStream_t)stream);
 }
 
 extern "C" int ff_flash_delta_d64(const void* dout, const void* o, void* delta, int B, int S,
                                   int H, void* stream) {
-  ff_flash_delta_d64_kernel<<<delta_blocks(B, S, H), DELTA_WARPS * 32, 0,
-                              (cudaStream_t)stream>>>(
-      (const bf16*)dout, (const bf16*)o, (float*)delta, B, S, H);
-  return (int)cudaGetLastError();
+  const Layout l = dense<64>(S, H);
+  return launch_delta(ff_flash_delta_d64_kernel, dout, l, o, l, delta, B, S, H,
+                      (cudaStream_t)stream);
 }
 
 extern "C" int ff_flash_delta_bhsd(int d, const void* dout, int ld, int head, int batch,
                                    const void* o, int o_ld, int o_head, int o_batch, void* delta,
                                    int B, int S, int H, void* stream) {
-  const int blocks = delta_blocks(B, S, H);
   cudaStream_t s = (cudaStream_t)stream;
-  if (d == 128) {
-    ff_flash_delta_bhsd_kernel<<<blocks, DELTA_WARPS * 32, 0, s>>>(
-        (const bf16*)dout, per_head<128>(ld, head, batch), (const bf16*)o,
-        per_head<128>(o_ld, o_head, o_batch), (float*)delta, B, S, H);
-  } else if (d == 64) {
-    ff_flash_delta_bhsd_d64_kernel<<<blocks, DELTA_WARPS * 32, 0, s>>>(
-        (const bf16*)dout, per_head<64>(ld, head, batch), (const bf16*)o,
-        per_head<64>(o_ld, o_head, o_batch), (float*)delta, B, S, H);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (d == 128)
+    return launch_delta(ff_flash_delta_bhsd_kernel, dout, per_head<128>(ld, head, batch), o,
+                        per_head<128>(o_ld, o_head, o_batch), delta, B, S, H, s);
+  if (d == 64)
+    return launch_delta(ff_flash_delta_bhsd_d64_kernel, dout, per_head<64>(ld, head, batch), o,
+                        per_head<64>(o_ld, o_head, o_batch), delta, B, S, H, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The backward pair of q, k, v (Layout in) and dout (Layout od) into dq,

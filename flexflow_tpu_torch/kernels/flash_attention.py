@@ -142,7 +142,8 @@ def flash_attention_supported(q_shape, k_shape, v_shape, dtype: torch.dtype, dev
 
 def _check_cuda(name: str, num_heads: int, d: int, *tensors: torch.Tensor) -> Tuple[int, int, int]:
     """Raise unless every tensor is a contiguous bf16 [b, s, h*d] on the
-    CUDA device of the first; return (b, s, h)."""
+    CUDA device of the first, starting 16-byte aligned (tile and delta
+    loads of 16 bytes); return (b, s, h)."""
     b, s, f = tensors[0].shape
     dev = tensors[0].device
     if dev.type != "cuda":
@@ -158,6 +159,8 @@ def _check_cuda(name: str, num_heads: int, d: int, *tensors: torch.Tensor) -> Tu
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must start 16-byte aligned")
     return b, s, num_heads
 
 

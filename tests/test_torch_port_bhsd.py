@@ -80,12 +80,19 @@ def test_forward_matches_looped_pallas(d, causal, looped):
 
 
 @DIMS
-def test_delta_matches_pallas_rows(d):
-    q, k, v, do = _inputs(2, d)
-    o = _jax_fwd(q, k, v, False, S)[2]
-    ref = jfa._delta_rows(_rows(do), _rows(o), interpret=True)
+@pytest.mark.parametrize("s", [S, 192])
+def test_delta_matches_pallas_rows(d, s):
+    """_delta_rows, at s = 192 too; at s = S o is the forward's output."""
+    if s == S:
+        q, k, v, do = _inputs(2, d)
+        o = _jax_fwd(q, k, v, False, S)[2]
+    else:
+        rs = np.random.RandomState(2)
+        do, o = (rs.randn(B, H, s, d).astype(np.float32) for _ in range(2))
+    ref = jfa._delta_rows(*(jnp.asarray(x.reshape(B * H, s, d)) for x in (do, o)),
+                          interpret=True)
     got = tfa.flash_delta_bhsd_plain(torch.from_numpy(do), torch.from_numpy(o))
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref).reshape(B, H, S), atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref).reshape(B, H, s), atol=1e-5)
 
 
 def _port_bwd(q, k, v, do, o, lse_nat, causal):
@@ -264,4 +271,5 @@ def test_c_interface_matches_the_declared_signatures():
         assert m, name
         assert len(m.group(1).split(",")) == len(argtypes), name
     for d in tfa.HEAD_DIMS:
-        assert f"delta_rows_body<{d}>" in src
+        suffix = "" if d == 128 else "_d64"
+        assert f"FLASH_DELTA_KERNEL(ff_flash_delta_bhsd{suffix}_kernel, {d})" in src

@@ -47,11 +47,20 @@ def test_forward_matches_pallas(causal):
     np.testing.assert_allclose(lse.numpy(), lse_ref, atol=1e-5)
 
 
-def test_delta_matches_pallas():
-    q, k, v, do = _inputs(1)
-    o = _jax_fwd(q, k, v, False)[0]
-    ref = jfa._delta_bshf(jnp.asarray(do), jnp.asarray(o), B, S, H, D, interpret=True)
-    got = tfa.flash_delta_plain(torch.from_numpy(do), torch.from_numpy(o), H)
+@pytest.mark.parametrize("d,s", [(D, S), (D, 192), (64, S), (64, 192)])
+def test_delta_matches_pallas(d, s):
+    """_delta_bshf at both head dims (h*d = 256), at s = 192 too, which the
+    card's delta tiles take as three 64-row runs; at (128, 256) o is the
+    forward's output."""
+    h = H * D // d
+    if (d, s) == (D, S):
+        q, k, v, do = _inputs(1)
+        o = _jax_fwd(q, k, v, False)[0]
+    else:
+        rs = np.random.RandomState(1)
+        do, o = (rs.randn(B, s, h * d).astype(np.float32) for _ in range(2))
+    ref = jfa._delta_bshf(jnp.asarray(do), jnp.asarray(o), B, s, h, d, interpret=True)
+    got = tfa.flash_delta_plain(torch.from_numpy(do), torch.from_numpy(o), h)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref)[:, :, 0, :], atol=1e-5)
 
 
@@ -152,7 +161,12 @@ def test_gate_constants_match_the_cuda_source():
         assert re.search(rf"FLASH_FWD_KERNEL\(ff_flash_fwd_\w*kernel, {d}\)", src), d
         assert re.search(rf"FLASH_BWD_KERNELS\(ff_flash_bwd_dkv_\w*kernel, "
                          rf"ff_flash_bwd_dq_\w*kernel, {d}\)", src), d
-        assert f"delta_body<{d}>" in src
+        assert re.search(rf"FLASH_DELTA_KERNEL\(ff_flash_delta_\w*kernel, {d}\)", src), d
+    # one delta body for all four delta kernels; its s tile is the gate's
+    # tile, so no delta tile has a ragged s
+    assert src.count("delta_body<D>(dout, od, o, ol, delta, S, H);") == 1
+    assert "delta_rows_body" not in src
+    assert f"constexpr int DELTA_S_TILE = {tfa.TILE};" in src
     # each FLASH_BWD_KERNELS pair calls the two bodies at its head dim
     assert "dkv_body<D>(&tq, &tk, &tv, &tdo," in src and "dq_body<D>(&tq, &tk, &tv, &tdo," in src
     assert "fwd_mainloop<D>(tq, tk, tv, FlashEpilogue<D>" in src
