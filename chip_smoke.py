@@ -52,7 +52,26 @@ then, in a one-rank NCCL process group opened over a file:// store:
                   (f32, plain versions, over a one-rank gloo group);
 12. train_sp      SP_LONGCTX (the flagship's widths, causal, batch 4, seq
                   8192) through the sequence-parallel trainer at world size
-                  1, whose attention runs the ring-flash step kernels.
+                  1, whose attention runs the ring-flash step kernels;
+
+then serving, whose attention is dense f32 as in the JAX package (every
+flash and ring launch count must stay at 0):
+
+13. parity_serve  two small serving LMs (ServingLMConfig(), and 2 layers of
+                  embed 256 in 2 heads of 128) from the same numpy
+                  parameters on the card and on the CPU (f32 both): prefill
+                  logits and caches, the tokens of 8 seeded requests through
+                  ServingEngine in continuous and static mode, and one fused
+                  decode window bitwise equal to one-step windows;
+14. serve         the serving LM at the flagship's widths (SERVE_LM) serving
+                  SERVE_TRAFFIC (64 slots of 1024 positions, 128 requests,
+                  continuous batching, windows of 8) after one warm-up
+                  request: requests/s, output tokens/s, ms/token p50/p99,
+                  prefill ms, decode ms a step beside its bound, the host
+                  and device split of a decode window, peak memory; the
+                  cache's bytes equal per_device_cache_bytes, every request
+                  gets its budget of tokens, and 4 requests match a
+                  teacher-forced prefill.
 
 The kernels phase also holds the per-head kernels at the attention shapes of
 train_dp, of train_dp_seq2048 and of the 16-head config, on contiguous
@@ -1230,6 +1249,360 @@ def _train_phase(smi, phase, inst, config, x_shape, vocab, layers, flops, on_pat
     return {name: n for name, n in launches.items() if name in on_path}
 
 
+# the serving LM at the flagship's widths (bench.py:37), and its traffic on one card
+SERVE_LM = dict(vocab_size=32000, embed_dim=1024, num_heads=8, num_layers=12, ffn_dim=4096)
+SERVE_TRAFFIC = dict(slots=64, max_seq_len=1024, requests=128, prompt_len=(64, 512),
+                     max_new_tokens=(32, 128), window_steps=8, mode="continuous", seed=0)
+SERVE_PARITY_BOUND = 1e-4  # relative, f32 card vs f32 CPU (prefill logits, caches)
+NEAR_TIE = 1e-4  # a teacher-forced logit this close below the max counts as a near-tie
+
+
+def _flash_launches() -> dict:
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    return {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS}
+
+
+def _no_flash_launches(phase: str) -> None:
+    """Serving attention is dense, as in the JAX package: no flash or ring
+    kernel may have launched since the counts were last set to 0."""
+    moved = {name: n for name, n in _flash_launches().items() if n}
+    if moved:
+        raise AssertionError(f"{phase}: flash kernels launched while serving: {moved}")
+
+
+def _seeded_params(pcg, seed: int) -> dict:
+    """Serving parameters drawn with numpy from `seed`, keyed by ordinal:
+    glorot-uniform matrices, vectors at their initializer's constant (1 for
+    LayerNorm's gamma, else 0) plus N(0, 0.1) noise."""
+    import numpy as np
+    from flexflow_tpu_torch.local_execution.training_backing import weight_shape
+    from flexflow_tpu_torch.pcg.initializer import ConstantInitializerAttrs
+    from flexflow_tpu_torch.serving.program import weight_ordinals
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for n, key in weight_ordinals(pcg).items():
+        dims = weight_shape(pcg, n).dims
+        if len(dims) == 2:
+            limit = math.sqrt(6.0 / (dims[0] + dims[1]))
+            out[key] = rng.uniform(-limit, limit, dims).astype(np.float32)
+        else:
+            (o,) = pcg.outputs_of(n)
+            init = pcg.tensor_attrs(o).initializer
+            base = init.value if isinstance(init, ConstantInitializerAttrs) else 0.0
+            out[key] = (base + 0.1 * rng.standard_normal(dims)).astype(np.float32)
+    return out
+
+
+def _serve_requests(n, vocab, prompt_len, max_new_tokens, seed):
+    """`n` requests with seeded prompt tokens, prompt lengths and budgets,
+    each drawn uniformly from its inclusive range."""
+    import numpy as np
+    from flexflow_tpu_torch.serving import ServeRequest
+
+    rng = np.random.default_rng(seed)
+    return [
+        ServeRequest(rid=f"r{i}",
+                     prompt=rng.integers(0, vocab, int(rng.integers(prompt_len[0], prompt_len[1] + 1)))
+                     .astype(np.int32),
+                     max_new_tokens=int(rng.integers(max_new_tokens[0], max_new_tokens[1] + 1)))
+        for i in range(n)
+    ]
+
+
+def _serve_trace(program, mode: str, requests, window_steps: int) -> dict:
+    from flexflow_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(program, mode=mode, window_steps=window_steps)
+    try:
+        for r in requests:
+            eng.submit(r)
+        return {r.rid: list(r.tokens) for r in eng.run()}
+    finally:
+        eng.close()
+
+
+def _rel(got, want) -> float:
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def phase_parity_serve():
+    """Small serving LMs (ServingLMConfig(), and 2 layers of embed 256 in 2
+    heads of 128) from the same numpy parameters on the card (f32) and on
+    the CPU (f32, the port's own code): prefill logits and caches within
+    SERVE_PARITY_BOUND, the same tokens per request through the engine in
+    continuous and static mode, and one fused window of W steps bitwise
+    equal to W one-step windows on the card."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.interop import serving_params_from_numpy
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.serving import (
+        ServingLMConfig,
+        ServingMemorySpec,
+        ServingProgram,
+        build_serving_lm,
+    )
+    from flexflow_tpu_torch.serving.program import as_pcg
+
+    start = time.perf_counter()
+    fa.reset_launch_counts()
+    slots, cap, window = 4, 24, 4
+    mem = ServingMemorySpec(max_concurrent_seqs=slots, max_seq_len=cap)
+    for name, cfg in (("tiny", ServingLMConfig()),
+                      ("d128", ServingLMConfig(vocab_size=512, embed_dim=256, num_heads=2,
+                                               num_layers=2, ffn_dim=1024))):
+        cg, _ = build_serving_lm(cfg, slots, 1)
+        np_params = _seeded_params(as_pcg(cg), seed=1)
+        progs = {dev: ServingProgram(cg, mem, params=serving_params_from_numpy(cg, np_params, dev),
+                                     device=dev) for dev in ("cpu", "cuda")}
+        rng = np.random.default_rng(2)
+        prompts = rng.integers(0, cfg.vocab_size, (slots, 12)).astype(np.int32)
+        lengths = rng.integers(4, 13, slots).astype(np.int32)
+        fresh = np.ones(slots, bool)
+        out = {dev: p.prefill(p.init_cache(), prompts, lengths, fresh) for dev, p in progs.items()}
+        (c_cache, c_tok, c_last), (g_cache, g_tok, g_last) = out["cpu"], out["cuda"]
+        logits_rel = _rel(g_last.cpu(), c_last)
+        cache_rel = max(
+            _rel(g_cache[layer][part][i, :, :lengths[i]].cpu(), c_cache[layer][part][i, :, :lengths[i]])
+            for layer in c_cache for part in ("k", "v") for i in range(slots)
+        )
+        if not (logits_rel < SERVE_PARITY_BOUND and cache_rel < SERVE_PARITY_BOUND):
+            raise AssertionError(f"parity_serve {name}: prefill logits rel {logits_rel}, "
+                                 f"cache rel {cache_rel} (bound {SERVE_PARITY_BOUND})")
+        if not torch.equal(g_tok.cpu(), c_tok):
+            raise AssertionError(f"parity_serve {name}: first tokens {g_tok} vs CPU {c_tok}")
+
+        # one fused window == `window` one-step windows, bitwise, on the card
+        card = progs["cuda"]
+        runs = []
+        for steps in (window, 1):
+            cache, tok, _ = card.prefill(card.init_cache(), prompts, lengths, fresh)
+            lens, toks = lengths, []
+            for _ in range(window // steps):
+                cache, tok, lens, t = card.decode_window(cache, tok, lens, fresh, steps)
+                toks.append(t)
+            runs.append((torch.cat(toks, dim=1), lens, cache))
+        (f_toks, f_lens, f_cache), (s_toks, s_lens, s_cache) = runs
+        fused_bitwise = (torch.equal(f_toks, s_toks) and torch.equal(f_lens, s_lens) and all(
+            torch.equal(f_cache[layer][part], s_cache[layer][part])
+            for layer in f_cache for part in ("k", "v")))
+        if not fused_bitwise:
+            raise AssertionError(f"parity_serve {name}: a fused window of {window} steps differs "
+                                 f"from {window} one-step windows")
+
+        traces = {}
+        for mode in ("continuous", "static"):
+            requests = _serve_requests(8, cfg.vocab_size, (4, 12), (6, 10), seed=3)
+            got = {dev: _serve_trace(p, mode, requests, window) for dev, p in progs.items()}
+            if got["cuda"] != got["cpu"] or len(got["cpu"]) != 8:
+                raise AssertionError(f"parity_serve {name} {mode}: card tokens {got['cuda']} "
+                                     f"vs CPU {got['cpu']}")
+            traces[mode] = sum(len(t) for t in got["cpu"].values())
+        emit({"phase": "parity_serve", "model": name, "config": dataclasses.asdict(cfg),
+              "slots": slots, "max_seq_len": cap, "window_steps": window,
+              "prefill_logits_rel_err": logits_rel, "cache_rel_err": cache_rel,
+              "bound": SERVE_PARITY_BOUND, "fused_window_bitwise": fused_bitwise,
+              "tokens_equal": True, "tokens_per_mode": traces})
+    _no_flash_launches("parity_serve")
+    emit({"phase": "parity_serve", "seconds": time.perf_counter() - start,
+          "launches": _flash_launches()})
+
+
+def _timed(fn, log: list):
+    """`fn` (whose first argument is the cache) with each call's host time,
+    to its synchronized end, appended to `log` as (ms, the other args)."""
+    import torch
+
+    def wrapped(cache, *args):
+        start = time.perf_counter()
+        out = fn(cache, *args)
+        torch.cuda.synchronize()
+        log.append(((time.perf_counter() - start) * 1e3, args))
+        return out
+
+    return wrapped
+
+
+def _teacher_forced(program, records, requests, cfg) -> dict:
+    """Prefill each request's prompt and generated tokens (but the last) in
+    one causal pass on the card: every generated token must be the argmax
+    of the logits before it, or within NEAR_TIE of their max."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.serving import ServingMemorySpec, ServingProgram, build_serving_lm
+
+    n, cap = len(records), program.serving.max_seq_len
+    cg, _ = build_serving_lm(cfg, n, 1)
+    tf = ServingProgram(cg, ServingMemorySpec(n, cap), params=program.params)
+    prompts = [requests[r.rid].prompt for r in records]
+    seqs = [np.concatenate([p, np.asarray(r.tokens[:-1], np.int32)]) for p, r in zip(prompts, records)]
+    width = max(len(s) for s in seqs)
+    tokens = np.zeros((n, width), np.int32)
+    for i, s in enumerate(seqs):
+        tokens[i, :len(s)] = s
+    lengths = torch.tensor([len(s) for s in seqs], dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        logits, _ = tf._forward(tf.params, torch.as_tensor(tokens, device="cuda"), tf.init_cache(),
+                                lengths, torch.ones(n, dtype=torch.bool, device="cuda"), "prefill")
+    argmax_hits = near_ties = 0
+    worst_gap = 0.0
+    for i, (p, r) in enumerate(zip(prompts, records)):
+        rows = logits[i, len(p) - 1:len(p) - 1 + len(r.tokens)]
+        picked = rows[torch.arange(len(r.tokens), device="cuda"),
+                      torch.as_tensor(r.tokens, device="cuda").long()]
+        gap = (rows.max(dim=-1).values - picked).cpu()
+        hits = int((rows.argmax(dim=-1).cpu() == torch.as_tensor(r.tokens)).sum())
+        argmax_hits += hits
+        near_ties += len(r.tokens) - hits
+        worst_gap = max(worst_gap, float(gap.max()))
+    if not worst_gap <= NEAR_TIE:
+        raise AssertionError(f"serve: a generated token sits {worst_gap} below the teacher-forced "
+                             f"max logit (near-tie bound {NEAR_TIE})")
+    return {"requests": n, "tokens": argmax_hits + near_ties, "argmax": argmax_hits,
+            "near_ties": near_ties, "max_gap_below_max_logit": worst_gap, "bound": NEAR_TIE}
+
+
+def _decode_split(program, cache, steps: int) -> dict:
+    """A decode window of `steps` at every slot active, timed on the host
+    (to its return, and to its synchronized end), then the same window
+    traced for its device (kernel) time: the device's idle share is what
+    the host costs it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    slots = program.serving.max_concurrent_seqs
+    token = torch.zeros(slots, dtype=torch.int32, device="cuda")
+    lengths = torch.full((slots,), program.serving.max_seq_len // 2, dtype=torch.int32,
+                         device="cuda")
+    active = torch.ones(slots, dtype=torch.bool, device="cuda")
+    program.decode_window(cache, token, lengths, active, steps)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    program.decode_window(cache, token, lengths, active, steps)
+    enqueued_ms = (time.perf_counter() - start) * 1e3
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - start) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        program.decode_window(cache, token, lengths, active, steps)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - start) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"steps": steps, "host_ms_per_step": host_ms / steps,
+            "enqueue_ms_per_step": enqueued_ms / steps,
+            "traced_host_ms_per_step": traced_ms / steps,
+            "kernel_ms_per_step": kernel_ms / steps,
+            "kernels_per_step": sum(e.count for e in kernels) / steps,
+            "idle_share": 1.0 - kernel_ms / host_ms if kernel_ms else None,
+            "top_kernels": [{"name": e.key[:120], "ms_per_step": e.self_device_time_total / 1e3 / steps,
+                             "calls_per_step": e.count / steps} for e in top]}
+
+
+def phase_serve(smi: str) -> None:
+    """The serving LM at the flagship's widths on one card: SERVE_TRAFFIC's
+    requests through the continuous-batching engine after one warm-up
+    request, the cache's bytes held against per_device_cache_bytes, 4
+    requests held against a teacher-forced prefill, and no flash kernel
+    launched."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.serving import (
+        ServeRequest,
+        ServingEngine,
+        ServingLMConfig,
+        ServingMemorySpec,
+        ServingProgram,
+        build_serving_lm,
+        per_device_cache_bytes,
+    )
+
+    start = time.perf_counter()
+    fa.reset_launch_counts()
+    t = SERVE_TRAFFIC
+    cfg = ServingLMConfig(**SERVE_LM)
+    mem = ServingMemorySpec(max_concurrent_seqs=t["slots"], max_seq_len=t["max_seq_len"])
+    cg, _ = build_serving_lm(cfg, t["slots"], 1)
+    program = ServingProgram(cg, mem, params_seed=t["seed"])
+    param_bytes = sum(p.numel() * p.element_size() for p in program.params.values())
+    cache_bytes = per_device_cache_bytes(program.pcg, program.layers, mem)
+    setup_s = time.perf_counter() - start
+
+    warm = ServingEngine(program, mode=t["mode"], window_steps=t["window_steps"])
+    warm.submit(ServeRequest("warmup", np.arange(t["prompt_len"][0], dtype=np.int32),
+                             t["window_steps"] * 2))
+    warm.run()
+    warm.close()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    before = torch.cuda.memory_allocated()
+    eng = ServingEngine(program, mode=t["mode"], window_steps=t["window_steps"])
+    allocated = torch.cuda.memory_allocated() - before
+    if allocated != cache_bytes:
+        raise AssertionError(f"serve: the cache allocated {allocated} B, per_device_cache_bytes "
+                             f"says {cache_bytes}")
+    prefills, windows = [], []
+    program.prefill = _timed(program.prefill, prefills)
+    program.decode_window = _timed(program.decode_window, windows)
+    requests = _serve_requests(t["requests"], cfg.vocab_size, t["prompt_len"],
+                               t["max_new_tokens"], t["seed"])
+    torch.cuda.reset_peak_memory_stats()
+    run_start = time.perf_counter()
+    for r in requests:
+        eng.submit(r)
+    records = eng.run()
+    run_s = time.perf_counter() - run_start
+    summary = eng.summary()
+    peak = torch.cuda.max_memory_allocated()
+    del program.prefill, program.decode_window
+    eng.close()
+
+    by_rid = {r.rid: r for r in requests}
+    if sorted(r.rid for r in records) != sorted(by_rid):
+        raise AssertionError(f"serve: {len(records)} of {len(requests)} requests completed")
+    for r in records:
+        if len(r.tokens) != by_rid[r.rid].max_new_tokens or not all(
+                0 <= tok < cfg.vocab_size for tok in r.tokens):
+            raise AssertionError(f"serve: request {r.rid} generated {len(r.tokens)} tokens "
+                                 f"(budget {by_rid[r.rid].max_new_tokens}) or one out of range")
+    teacher = _teacher_forced(program, sorted(records, key=lambda r: int(r.rid[1:]))[:4],
+                              by_rid, cfg)
+    split = _decode_split(program, eng.replicas[0].cache, t["window_steps"])
+    _no_flash_launches("serve")
+
+    tokens = summary["tokens_generated"]
+    decode_ms = [ms / args[3] for ms, args in windows]
+    bound_ms = (param_bytes + cache_bytes) / PEAK_BYTES * 1e3
+    emit({
+        "phase": "serve", "card": smi, "config": SERVE_LM, "traffic": t, "dtype": "f32",
+        "float32_matmul_precision": torch.get_float32_matmul_precision(),
+        "params": sum(p.numel() for p in program.params.values()), "param_bytes": param_bytes,
+        "cache_bytes": cache_bytes, "cache_bytes_allocated": allocated,
+        "requests_completed": len(records), "tokens_generated": tokens,
+        "run_s": run_s, "requests_per_s": len(records) / run_s, "output_tokens_per_s": tokens / run_s,
+        "summary": summary, "p50_ms_per_token": summary["p50_ms_per_token"],
+        "p99_ms_per_token": summary["p99_ms_per_token"],
+        "prefills": len(prefills), "median_prefill_ms": statistics.median(ms for ms, _ in prefills),
+        "prefill_ms": [ms for ms, _ in prefills],
+        "prefill_widths": [int(np.asarray(args[0]).shape[1]) for _, args in prefills],
+        "windows": len(windows), "decode_steps": sum(args[3] for _, args in windows),
+        "median_decode_ms_per_step": statistics.median(decode_ms),
+        "decode_step_bound_ms": bound_ms, "decode_bound_by": "bytes",
+        "decode_split": split, "teacher_forced": teacher, "peak_memory_bytes": peak,
+        "launches": _flash_launches(), "setup_s": setup_s,
+        "seconds": time.perf_counter() - start,
+    })
+    del program, eng
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     require_card_and_repo()
     import torch
@@ -1256,6 +1629,8 @@ def main() -> None:
         phase_ring_replay()
         phase_parity_sp()
         launches["train_sp"] = phase_train_sp(smi)
+    phase_parity_serve()
+    phase_serve(smi)
     for entry in kernels:
         by_phase = {p: n[entry["name"]] for p, n in launches.items() if entry["name"] in n}
         entry["launches"] = sum(by_phase.values())

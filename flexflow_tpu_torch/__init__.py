@@ -2,8 +2,10 @@
 
 It imports torch, numpy and the standard library, never jax or anything of
 flexflow_tpu: where it needs a module of the JAX package that holds no JAX
-(graph, op attrs, builder, initializer and optimizer attrs) it keeps its
-own trimmed copy with the same names and layout. Its kernels are CUDA C++
+(graph, op attrs, builder, initializer and optimizer attrs, the serving
+memory accounting, the run-event stream, the fault schedule and the
+window watchdog) it keeps its own trimmed copy with the same names and
+layout. Its kernels are CUDA C++
 for Hopper under csrc/, built with nvcc at first use on a machine with a
 card.
 
@@ -14,6 +16,8 @@ parallel over a torch.distributed process group
 of kernels/flash_attention.py, and sequence (and data) parallel training
 of the parallel transformer PCG (models.build_parallel_transformer,
 parallel.DistributedTrainingInstance) through the ring-flash step kernels
-of kernels/ring_flash.py. Entry points run on CUDA unless the caller
-passes device="cpu".
+of kernels/ring_flash.py; and single-device serving (serving.ServingProgram,
+serving.ServingEngine: a KV cache, prefill, decode windows, continuous
+batching under watchdog supervision). Entry points run on CUDA unless the
+caller passes device="cpu".
 """

@@ -1,9 +1,11 @@
-"""Carry the JAX package's training state into the port.
+"""Carry the JAX package's training and serving state into the port.
 
 Parameters cross as numpy arrays keyed `n{idx}` (the weight node's index,
-which both packages' builders assign in the same order), so a run of the
-port can start from exactly the state of a run of the JAX package. The
-graph is the port's own; keys and shapes are checked against it.
+which both packages' builders assign in the same order), or, for serving,
+`w{i}` (the weight's ordinal in topological order, the JAX package's
+`init_serving_params` keys), so a run of the port can start from exactly
+the state of a run of the JAX package. The graph is the port's own; keys
+and shapes are checked against it.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from flexflow_tpu_torch.local_execution.training_backing import (
     weight_shape,
 )
 from flexflow_tpu_torch.pcg.computation_graph import ComputationGraph
+from flexflow_tpu_torch.serving.program import as_pcg, weight_ordinals
 
 
 def params_from_numpy(
@@ -26,7 +29,22 @@ def params_from_numpy(
 ) -> Dict[str, torch.Tensor]:
     """Copies of `params` on `device`, one per weight node of `cg`; raises
     on a missing or extra key or a shape that differs from the graph's."""
-    expected = {param_key(n): weight_shape(cg, n) for n in weight_nodes(cg)}
+    return _checked_copies({param_key(n): weight_shape(cg, n) for n in weight_nodes(cg)},
+                           params, device)
+
+
+def serving_params_from_numpy(
+    pcg, params: Dict[str, np.ndarray], device
+) -> Dict[str, torch.Tensor]:
+    """Copies of serving `params` (keyed by weight ordinal `w{i}`) on
+    `device`, checked against the weights of the port's (P)CG `pcg` as
+    params_from_numpy checks."""
+    pcg = as_pcg(pcg)
+    return _checked_copies({key: weight_shape(pcg, n) for n, key in weight_ordinals(pcg).items()},
+                           params, device)
+
+
+def _checked_copies(expected, params: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     missing, extra = set(expected) - set(params), set(params) - set(expected)
     if missing or extra:
         raise ValueError(

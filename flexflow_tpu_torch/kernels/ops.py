@@ -27,10 +27,12 @@ from flexflow_tpu_torch.kernels.flash_attention import (
 from flexflow_tpu_torch.op_attrs.activation import gelu
 from flexflow_tpu_torch.op_attrs.core import OpAttrs
 from flexflow_tpu_torch.op_attrs.ops import (
+    AggregateSpec,
     ElementBinaryAttrs,
     ElementBinaryOpType,
     ElementUnaryAttrs,
     ElementUnaryOpType,
+    EmbeddingAttrs,
     InputAttrs,
     LayerNormAttrs,
     LinearAttrs,
@@ -232,6 +234,13 @@ def forward(attrs: OpAttrs, inputs: Sequence[torch.Tensor],
         if attrs.use_bias:
             out = out + weights[1]
         return [attrs.activation.apply(out) if attrs.activation else out]
+    if isinstance(attrs, EmbeddingAttrs):
+        out = F.embedding(inputs[0], weights[0])
+        if attrs.aggr == AggregateSpec.SUM:
+            out = out.sum(dim=-2)
+        elif attrs.aggr == AggregateSpec.AVG:
+            out = out.mean(dim=-2)
+        return [out]
     if isinstance(attrs, LayerNormAttrs):
         return [_layer_norm(attrs, inputs[0], weights)]
     if isinstance(attrs, MultiHeadAttentionAttrs):

@@ -62,12 +62,21 @@ def param_key(n: Node) -> ParamKey:
     return f"n{n.idx}"
 
 
+def slot_roles(attrs: OpAttrs, n_slots: int) -> List[IncomingTensorRole]:
+    """Effective per-slot roles for an op with n_slots wired inputs: the
+    op's declared IncomingTensorRole order, or all-INPUT when the counts
+    differ. The one definition behind split_slot_values and the serving
+    cache's weight-slot lookups."""
+    roles = get_incoming_tensor_roles(attrs)
+    if len(roles) != n_slots:
+        return [IncomingTensorRole.INPUT] * n_slots
+    return list(roles)
+
+
 def split_slot_values(attrs: OpAttrs, slot_values: List) -> Tuple[List, List]:
     """Split an op node's input-slot values into (data inputs, weights) by
     the op's IncomingTensorRole order (all inputs when the counts differ)."""
-    roles = get_incoming_tensor_roles(attrs)
-    if len(roles) != len(slot_values):
-        roles = [IncomingTensorRole.INPUT] * len(slot_values)
+    roles = slot_roles(attrs, len(slot_values))
     inputs = [v for v, r in zip(slot_values, roles) if r == IncomingTensorRole.INPUT]
     weights = [v for v, r in zip(slot_values, roles) if r == IncomingTensorRole.WEIGHT]
     return inputs, weights

@@ -17,6 +17,7 @@ from flexflow_tpu_torch.op_attrs.ops import (
     CombineAttrs,
     ElementBinaryAttrs,
     ElementUnaryAttrs,
+    EmbeddingAttrs,
     InputAttrs,
     LayerNormAttrs,
     LinearAttrs,
@@ -41,6 +42,7 @@ class OperatorType(enum.Enum):
     ELEMENT_UNARY = "element_unary"
     ELEMENT_BINARY = "element_binary"
     LINEAR = "linear"
+    EMBEDDING = "embedding"
     LAYER_NORM = "layer_norm"
     MULTIHEAD_ATTENTION = "multihead_attention"
     RING_ATTENTION = "ring_attention"
@@ -57,7 +59,7 @@ class IncomingTensorRole(enum.Enum):
 
 OpAttrs = Union[
     InputAttrs, WeightAttrs, ElementUnaryAttrs, ElementBinaryAttrs,
-    LinearAttrs, LayerNormAttrs, MultiHeadAttentionAttrs, RingAttentionAttrs,
+    LinearAttrs, EmbeddingAttrs, LayerNormAttrs, MultiHeadAttentionAttrs, RingAttentionAttrs,
     RepartitionAttrs, CombineAttrs, ReplicateAttrs, ReductionAttrs,
 ]
 
@@ -67,6 +69,7 @@ _OP_TYPE_BY_ATTRS = {
     ElementUnaryAttrs: OperatorType.ELEMENT_UNARY,
     ElementBinaryAttrs: OperatorType.ELEMENT_BINARY,
     LinearAttrs: OperatorType.LINEAR,
+    EmbeddingAttrs: OperatorType.EMBEDDING,
     LayerNormAttrs: OperatorType.LAYER_NORM,
     MultiHeadAttentionAttrs: OperatorType.MULTIHEAD_ATTENTION,
     RingAttentionAttrs: OperatorType.RING_ATTENTION,
@@ -95,6 +98,8 @@ def get_incoming_tensor_roles(attrs: OpAttrs) -> List[IncomingTensorRole]:
     I, W = IncomingTensorRole.INPUT, IncomingTensorRole.WEIGHT
     if isinstance(attrs, LinearAttrs):
         return [I, W, W] if attrs.use_bias else [I, W]
+    if isinstance(attrs, EmbeddingAttrs):
+        return [I, W]
     if isinstance(attrs, MultiHeadAttentionAttrs):
         return [I, I, I, W] + ([W, W] if attrs.bias else [])
     if isinstance(attrs, LayerNormAttrs):
@@ -124,6 +129,8 @@ def get_weight_shapes(
         if attrs.use_bias:
             ws.append(attrs.bias_shape(inputs[0]))
         return ws
+    if isinstance(attrs, EmbeddingAttrs):
+        return [attrs.weight_shape(inputs[0])]
     if isinstance(attrs, MultiHeadAttentionAttrs):
         q, k, v = inputs
         ws = [attrs.weights_shape(q, k, v)]
@@ -153,6 +160,8 @@ def get_parallel_weight_shapes(
         if attrs.use_bias:
             ws.append(attrs.parallel_bias_shape(inputs[0]))
         return ws
+    if isinstance(attrs, EmbeddingAttrs):
+        return [attrs.parallel_weight_shape(inputs[0])]
     if isinstance(attrs, MultiHeadAttentionAttrs):
         ws = [attrs.parallel_weights_shape(*inputs)]
         if attrs.bias:
@@ -169,7 +178,8 @@ def get_parallel_weight_shapes(
 def get_default_weight_initializers(attrs: OpAttrs, num_weights: int):
     """Per-weight-slot default initializers (None = the builder's generic
     default: glorot for matrices, zero for vectors). LayerNorm's gamma
-    starts at one and its beta at zero."""
+    starts at one and its beta at zero; the embedding table takes the
+    generic glorot, as in the JAX package."""
     from flexflow_tpu_torch.pcg.initializer import (
         ConstantInitializerAttrs,
         ZeroInitializerAttrs,

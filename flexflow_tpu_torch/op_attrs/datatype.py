@@ -27,3 +27,7 @@ class DataType(enum.Enum):
             DataType.FLOAT: torch.float32,
             DataType.DOUBLE: torch.float64,
         }[self]
+
+    @property
+    def is_floating(self) -> bool:
+        return self in (DataType.HALF, DataType.BFLOAT16, DataType.FLOAT, DataType.DOUBLE)

@@ -1,6 +1,6 @@
-"""Operator attrs of the slices: Input, Weight, Linear, MultiHeadAttention,
-RingAttention, ElementUnary, ElementBinary, LayerNorm, the four parallel
-ops, and the loss attrs."""
+"""Operator attrs of the slices: Input, Weight, Linear, Embedding,
+MultiHeadAttention, RingAttention, ElementUnary, ElementBinary, LayerNorm,
+the four parallel ops, and the loss attrs."""
 
 from flexflow_tpu_torch.op_attrs.ops.attention import MultiHeadAttentionAttrs
 from flexflow_tpu_torch.op_attrs.ops.elementwise import (
@@ -10,7 +10,7 @@ from flexflow_tpu_torch.op_attrs.ops.elementwise import (
     ElementUnaryOpType,
 )
 from flexflow_tpu_torch.op_attrs.ops.io import InputAttrs, WeightAttrs
-from flexflow_tpu_torch.op_attrs.ops.linear_ops import LinearAttrs
+from flexflow_tpu_torch.op_attrs.ops.linear_ops import AggregateSpec, EmbeddingAttrs, LinearAttrs
 from flexflow_tpu_torch.op_attrs.ops.loss_functions import (
     LossAttrs,
     LossFunction,
@@ -27,11 +27,13 @@ from flexflow_tpu_torch.op_attrs.ops.parallel_ops import (
 from flexflow_tpu_torch.op_attrs.ops.ring_attention import RingAttentionAttrs
 
 __all__ = [
+    "AggregateSpec",
     "CombineAttrs",
     "ElementBinaryAttrs",
     "ElementBinaryOpType",
     "ElementUnaryAttrs",
     "ElementUnaryOpType",
+    "EmbeddingAttrs",
     "InputAttrs",
     "LayerNormAttrs",
     "LinearAttrs",

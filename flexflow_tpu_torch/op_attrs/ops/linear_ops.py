@@ -1,5 +1,6 @@
-"""Linear attrs (trimmed copy of flexflow_tpu/op_attrs/ops/linear_ops.py:
-the sequential and the parallel shape rules).
+"""Linear and Embedding attrs (trimmed copy of
+flexflow_tpu/op_attrs/ops/linear_ops.py: the sequential and the parallel
+shape rules).
 
 Parallel rule (reference linear.cc:120-141):
   input      [.. batch dims .., in_c/dc], sum=si, copy=ri
@@ -10,6 +11,7 @@ Parallel rule (reference linear.cc:120-141):
 
 from __future__ import annotations
 
+import enum
 from dataclasses import dataclass
 from math import prod
 from typing import Optional
@@ -62,4 +64,53 @@ class LinearAttrs:
         sum_degree = input.sum_degree * in_degrees[-1]
         return lift_to_parallel_with_degrees(
             unpar, sum_degree, prod(in_degrees[:-1]), (input.discard_copy_degree,)
+        )
+
+
+class AggregateSpec(enum.Enum):
+    """Embedding aggregation (reference: op-attrs/ops/embedding.h AggregateOp)."""
+
+    NONE = "none"
+    SUM = "sum"
+    AVG = "avg"
+
+
+@dataclass(frozen=True)
+class EmbeddingAttrs:
+    num_entries: int
+    out_channels: int
+    aggr: AggregateSpec = AggregateSpec.NONE
+    dtype: DataType = DataType.FLOAT
+
+    def output_shape(self, input: TensorShape) -> TensorShape:
+        """input [.., seq] of ints -> output [.., seq, out_channels] (aggr NONE)
+        or [.., out_channels] (SUM/AVG over the last input dim)."""
+        if input.dtype.is_floating:
+            raise ValueError("embedding input must be integral")
+        if self.aggr == AggregateSpec.NONE:
+            return TensorShape(input.dims + (self.out_channels,), self.dtype)
+        return TensorShape(input.dims[:-1] + (self.out_channels,), self.dtype)
+
+    def weight_shape(self, input: TensorShape) -> TensorShape:
+        return TensorShape((self.num_entries, self.out_channels), self.dtype)
+
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        """Reference embedding.cc:60-85: the out_channels dim inherits the
+        input's discard-copy degree; aggregation needs an unsharded last dim."""
+        unpar = self.output_shape(get_reduced_shape(input))
+        in_degrees = input.shard_degrees()
+        if self.aggr == AggregateSpec.NONE:
+            out_degrees = in_degrees + (input.discard_copy_degree,)
+        else:
+            if in_degrees[-1] != 1:
+                raise ValueError("cannot aggregate over a sharded dim")
+            out_degrees = in_degrees[:-1] + (input.discard_copy_degree,)
+        return lift_to_parallel_with_degrees(unpar, input.sum_degree, 1, out_degrees)
+
+    def parallel_weight_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        """weight [vocab/1, out_c/ri], replicated across the input's shard dims
+        (reference embedding.cc:88-111)."""
+        unpar = self.weight_shape(get_reduced_shape(input))
+        return lift_to_parallel_with_degrees(
+            unpar, 1, prod(input.shard_degrees()), (1, input.discard_copy_degree)
         )

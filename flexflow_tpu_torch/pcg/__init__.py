@@ -16,6 +16,7 @@ from flexflow_tpu_torch.pcg.parallel_computation_graph import (
     ParallelComputationGraph,
     ParallelLayerAttrs,
     ParallelTensorAttrs,
+    pcg_from_computation_graph,
 )
 from flexflow_tpu_torch.pcg.parallel_computation_graph_builder import (
     ParallelComputationGraphBuilder,
@@ -33,4 +34,5 @@ __all__ = [
     "ParallelTensorAttrs",
     "SGDOptimizerAttrs",
     "TensorAttrs",
+    "pcg_from_computation_graph",
 ]

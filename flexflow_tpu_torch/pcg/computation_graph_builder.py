@@ -1,10 +1,10 @@
 """Eager ComputationGraph builder with automatic weight creation (trimmed
 copy of flexflow_tpu/pcg/computation_graph_builder.py).
 
-Covers create_input, create_weight, dense, multihead_attention, add, gelu
-and layer_norm. Each op creates its weight nodes first and then the op
-node, in the JAX builder's order, so that parameter keys `n{idx}` name the
-same weights in both packages.
+Covers create_input, create_weight, dense, embedding, multihead_attention,
+add, gelu and layer_norm. Each op creates its weight nodes first and then
+the op node, in the JAX builder's order, so that parameter keys `n{idx}`
+name the same weights in both packages.
 """
 
 from __future__ import annotations
@@ -20,10 +20,12 @@ from flexflow_tpu_torch.op_attrs.core import (
 )
 from flexflow_tpu_torch.op_attrs.datatype import DataType
 from flexflow_tpu_torch.op_attrs.ops import (
+    AggregateSpec,
     ElementBinaryAttrs,
     ElementBinaryOpType,
     ElementUnaryAttrs,
     ElementUnaryOpType,
+    EmbeddingAttrs,
     InputAttrs,
     LayerNormAttrs,
     LinearAttrs,
@@ -133,6 +135,20 @@ class ComputationGraphBuilder:
         (out,) = self.add_layer(
             attrs, [input], [kernel_initializer, bias_initializer], name
         )
+        return out
+
+    def embedding(
+        self,
+        input: Tensor,
+        num_entries: int,
+        out_channels: int,
+        aggr: AggregateSpec = AggregateSpec.NONE,
+        dtype: DataType = DataType.FLOAT,
+        kernel_initializer: Optional[InitializerAttrs] = None,
+        name: Optional[str] = None,
+    ) -> Tensor:
+        attrs = EmbeddingAttrs(num_entries, out_channels, aggr, dtype)
+        (out,) = self.add_layer(attrs, [input], [kernel_initializer], name)
         return out
 
     def multihead_attention(

@@ -5,10 +5,14 @@ The four parallel ops appear as nodes of their own."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 from flexflow_tpu_torch.op_attrs.core import OpAttrs
-from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import ParallelTensorShape
+from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
+    ParallelTensorShape,
+    lift_to_parallel,
+)
+from flexflow_tpu_torch.pcg.computation_graph import ComputationGraph
 from flexflow_tpu_torch.utils.graph import DataflowGraph, DataflowOutput, Node
 
 
@@ -37,3 +41,23 @@ class ParallelComputationGraph(DataflowGraph):
 
     def tensor_shape(self, v: DataflowOutput) -> ParallelTensorShape:
         return self.value_label(v).shape
+
+
+def pcg_from_computation_graph(cg: ComputationGraph) -> ParallelComputationGraph:
+    """Lift a CG into a trivially-parallel PCG (all degrees 1), node for
+    node in the CG's topological order."""
+    pcg = ParallelComputationGraph()
+    value_map: Dict[DataflowOutput, DataflowOutput] = {}
+    for n in cg.topological_ordering():
+        la = cg.layer_attrs(n)
+        inputs = [value_map[v] for v in cg.inputs_of(n)]
+        out_labels = []
+        for o in cg.outputs_of(n):
+            ta = cg.tensor_attrs(o)
+            out_labels.append(
+                ParallelTensorAttrs(lift_to_parallel(ta.shape), ta.create_grad, ta.initializer)
+            )
+        _, outs = pcg.add_node(ParallelLayerAttrs(la.attrs, la.name), inputs, out_labels)
+        for old, new in zip(cg.outputs_of(n), outs):
+            value_map[old] = new
+    return pcg

@@ -16,6 +16,12 @@ from flexflow_tpu_torch.local_execution import ModelTrainingInstance, resolve_de
 from flexflow_tpu_torch.models import build_flagship_cg
 from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
 from flexflow_tpu_torch.pcg import AdamOptimizerAttrs
+from flexflow_tpu_torch.serving import (
+    ServingLMConfig,
+    ServingMemorySpec,
+    ServingProgram,
+    build_serving_lm,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flexflow_tpu")
@@ -28,7 +34,9 @@ def _forbidden(module: str) -> bool:
 def test_port_runs_a_step_with_jax_and_the_jax_package_refused():
     """A single-device step, then a data-parallel one in a one-rank gloo
     group, from the same parameters and batch, then a sequence-parallel
-    step of a causal parallel transformer through its ring of one."""
+    step of a causal parallel transformer through its ring of one, then a
+    few requests served through the serving engine with its watchdog and
+    a metrics stream."""
     script = textwrap.dedent(
         """
         import sys
@@ -85,6 +93,25 @@ def test_port_runs_a_step_with_jax_and_the_jax_package_refused():
         _, _, sp_loss, _ = sp.train_step(*sp.initialize(seed=0), {"x": xs}, rs.randint(0, 64, (2, 128)))
         dist.destroy_process_group()
         assert np.isfinite(float(sp_loss)) and sp.all_reduces == 1
+
+        from flexflow_tpu_torch.observability.metrics import read_run_events
+        from flexflow_tpu_torch.runtime.fault import FaultSchedule
+        from flexflow_tpu_torch.serving import (ServeRequest, ServingEngine, ServingLMConfig,
+                                                ServingMemorySpec, ServingProgram,
+                                                build_serving_lm)
+
+        cg, _ = build_serving_lm(ServingLMConfig(), 2, 1)
+        prog = ServingProgram(cg, ServingMemorySpec(2, 16), device="cpu")
+        metrics = tempfile.mkdtemp()
+        eng = ServingEngine(prog, window_steps=2, watchdog_factor=50.0,
+                            watchdog_min_budget_ms=1000.0, metrics_dir=metrics)
+        for i in range(3):
+            eng.submit(ServeRequest(f"r{i}", rs.randint(0, 64, 5).astype(np.int32), 4))
+        recs = eng.run()
+        eng.close()
+        assert sorted(len(r.tokens) for r in recs) == [4, 4, 4]
+        assert len(read_run_events(metrics, "serve_request")) == 3
+        assert FaultSchedule.parse("seed=1;sites=hang;rate=0.5").fire_steps("hang", 1, 10)
         assert not any(m == "jax" or m.startswith(("jax.", "flexflow_tpu."))
                        or m == "flexflow_tpu" for m in sys.modules)
         print("ok", float(loss))
@@ -111,6 +138,11 @@ def _imports(path: Path):
 def test_sources_import_nothing_of_jax_or_the_jax_package():
     files = sorted((REPO / "flexflow_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    scanned = {str(f.relative_to(REPO / "flexflow_tpu_torch")) for f in files[:-1]}
+    for module in ("serving/kv_cache.py", "serving/model.py", "serving/program.py",
+                   "serving/engine.py", "runtime/fault.py", "runtime/supervisor.py",
+                   "observability/metrics.py", "analysis/memory_accounting.py"):
+        assert module in scanned
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []
 
@@ -123,6 +155,9 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
                               AdamOptimizerAttrs(alpha=1e-3))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
+    cg, _ = build_serving_lm(ServingLMConfig(), 2, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingProgram(cg, ServingMemorySpec(2, 16))
     assert resolve_device("cpu") == torch.device("cpu")
 
 
