@@ -33,37 +33,55 @@ Phases, each printing one JSON line:
 6. train_heads16  the same for the 16-head config (16 heads of 64), whose
                   attention runs the d=64 kernels on the fused projection;
 
+then the user API, FFModel (flexflow_tpu_torch.core):
+
+7. parity_fit     tests/test_ffmodel_api.py's MLP (32 -> 16 relu -> 4, batch
+                  8) fit 30 shuffled epochs on a seeded 64-sample set and
+                  evaluated, on the card and on the CPU (f32, TF32 off): the
+                  same PerfMetrics counts and final parameters within 1e-5;
+8. stepped        the small flagship (bf16) through forward / zero_gradients
+                  / backward / update: its weight gradients against the
+                  whole step's, a second backward accumulating to twice the
+                  first, and each flash kernel launched once per layer per
+                  forward or backward;
+9. fit            the flagship built by build_flagship_cg, compiled through
+                  FFModel (bf16, Adam(1e-4)) and fit on 5 seeded batches of
+                  host data after a one-batch warm-up fit: step ms, the
+                  batch's host gather and copy ms, peak memory, PerfMetrics,
+                  launches; the final parameters bitwise equal to the same
+                  batches driven through train_step directly;
+
 then, in a one-rank NCCL process group opened over a file:// store:
 
-7. parity_dp      the two small flagships trained two steps by the
+10. parity_dp     the two small flagships trained two steps by the
                   data-parallel trainer on the card (bf16, per-head kernels)
                   and by the single-device trainer on the CPU (f32);
-8. train_dp       the flagship through the data-parallel trainer, whose
+11. train_dp      the flagship through the data-parallel trainer, whose
                   attention runs the per-head [b, h, s, d] kernels;
-9. train_dp_seq2048  the same for the seq-2048 flagship (batch 16, seq 2048),
+12. train_dp_seq2048  the same for the seq-2048 flagship (batch 16, seq 2048),
                   whose attention runs the same kernels at s > block;
-10. ring_replay   the ring schedule of 4 ranks replayed on the card through
+13. ring_replay   the ring schedule of 4 ranks replayed on the card through
                   the ring-flash step kernels at the long-context shape (b=4,
                   h=8, s=8192, d=128, causal; and b=1 non-causal), held
                   against the full-sequence per-head kernels;
-11. parity_sp     two small causal parallel transformers (seq 1024, heads of
+14. parity_sp     two small causal parallel transformers (seq 1024, heads of
                   128 and of 64) trained two steps by the sequence-parallel
                   trainer on the card (bf16, ring kernels) and on the CPU
                   (f32, plain versions, over a one-rank gloo group);
-12. train_sp      SP_LONGCTX (the flagship's widths, causal, batch 4, seq
+15. train_sp      SP_LONGCTX (the flagship's widths, causal, batch 4, seq
                   8192) through the sequence-parallel trainer at world size
                   1, whose attention runs the ring-flash step kernels;
 
 then serving, whose attention is dense f32 as in the JAX package (every
 flash and ring launch count must stay at 0):
 
-13. parity_serve  two small serving LMs (ServingLMConfig(), and 2 layers of
+16. parity_serve  two small serving LMs (ServingLMConfig(), and 2 layers of
                   embed 256 in 2 heads of 128) from the same numpy
                   parameters on the card and on the CPU (f32 both): prefill
                   logits and caches, the tokens of 8 seeded requests through
                   ServingEngine in continuous and static mode, and one fused
                   decode window bitwise equal to one-step windows;
-14. serve         the serving LM at the flagship's widths (SERVE_LM) serving
+17. serve         the serving LM at the flagship's widths (SERVE_LM) serving
                   SERVE_TRAFFIC (64 slots of 1024 positions, 128 requests,
                   continuous batching, windows of 8) after one warm-up
                   request: requests/s, output tokens/s, ms/token p50/p99,
@@ -112,6 +130,7 @@ REL_BOUND = 2e-2  # o, dq, dk, dv: the JAX package's own bf16 backward bound
 LSE_BOUND = 1e-3  # max abs, f32 from the same bf16 inputs
 DELTA_BOUND = 1e-4  # norm-relative, exact bf16 products summed in f32
 PARITY_BOUND = 1e-2  # relative loss difference, bf16 card vs f32 CPU
+FIT_PARITY_BOUND = 1e-5  # relative parameter difference, f32 card vs f32 CPU (parity_fit)
 STEPS = 5  # timed steps of each train phase
 
 SOURCE = "flexflow_tpu_torch/csrc/flash_attention.cu"
@@ -1249,6 +1268,208 @@ def _train_phase(smi, phase, inst, config, x_shape, vocab, layers, flops, on_pat
     return {name: n for name, n in launches.items() if name in on_path}
 
 
+FLASH_WRAPPERS = ("flash_fwd", "flash_delta", "flash_bwd")  # the d=128 bshf path's
+FIT_METRICS = ["accuracy", "sparse_categorical_crossentropy"]
+
+
+def _spec_mlp(device: str):
+    """tests/test_ffmodel_api.py's MLP through FFModel on `device`."""
+    from flexflow_tpu_torch.core import Activation, FFConfig, FFModel, SGDOptimizer
+
+    m = FFModel(FFConfig(batch_size=8, print_freq=0, seed=0), device=device)
+    x = m.create_tensor([8, 32], name="x")
+    m.dense(m.dense(x, 16, activation=Activation.RELU, name="fc1"), 4, name="out")
+    m.compile(SGDOptimizer(lr=0.1), "sparse_categorical_crossentropy", metrics=FIT_METRICS)
+    return m
+
+
+def phase_parity_fit():
+    """The spec MLP fit 30 shuffled epochs and evaluated through FFModel on
+    the card and on the CPU, f32 both (TF32 off): equal PerfMetrics counts,
+    final parameters within FIT_PARITY_BOUND."""
+    import numpy as np
+    from flexflow_tpu_torch.interop import params_to_numpy
+
+    rs = np.random.RandomState(0)
+    xs, ys = rs.randn(64, 32).astype(np.float32), rs.randint(0, 4, 64)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        start = time.perf_counter()
+        m = _spec_mlp(device)
+        fit = m.fit(xs, ys, epochs=30, shuffle=True, verbose=False)
+        ev = m.eval(xs, ys)
+        runs[device] = dict(fit=dataclasses.asdict(fit), eval=dataclasses.asdict(ev),
+                            eval_accuracy=ev.accuracy, params=params_to_numpy(m.params),
+                            seconds=time.perf_counter() - start)
+    cpu, card = runs["cpu"], runs["cuda"]
+    counts = lambda perf: (perf["train_all"], perf["train_correct"])  # noqa: E731
+    if counts(card["fit"]) != counts(cpu["fit"]) or counts(card["eval"]) != counts(cpu["eval"]):
+        raise AssertionError(f"parity_fit: card {card['fit']} {card['eval']} vs CPU "
+                             f"{cpu['fit']} {cpu['eval']}")
+    rel = {k: float(np.linalg.norm(card["params"][k] - v) / np.linalg.norm(v))
+           for k, v in cpu["params"].items()}
+    if not max(rel.values()) < FIT_PARITY_BOUND:
+        raise AssertionError(f"parity_fit: parameters differ by {rel}")
+    if not card["eval_accuracy"] > 0.5:
+        raise AssertionError(f"parity_fit: eval accuracy {card['eval_accuracy']}")
+    emit({"phase": "parity_fit", "model": "mlp 32-16-4, batch 8", "epochs": 30,
+          "optimizer": "sgd(lr=0.1)", **{d: {k: v for k, v in r.items() if k != "params"}
+                                          for d, r in runs.items()},
+          "param_rel_err": rel, "bound": FIT_PARITY_BOUND})
+
+
+def phase_stepped():
+    """The small flagship (bf16, heads of 128) through FFModel's stepped
+    API on the card: weight gradients against the whole step's, gradient
+    accumulation, and one launch of each flash kernel per layer per
+    forward or backward."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.core import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.models import build_flagship_cg
+
+    cfg = dict(batch=2, seq=128, embed=256, heads=2, layers=2, vocab=512)
+    m = FFModel.from_computation_graph(*build_flagship_cg(**cfg),
+                                       config=FFConfig(batch_size=2, seed=0, print_freq=0))
+    m.compile(AdamOptimizer(alpha=1e-3), "sparse_categorical_crossentropy",
+              compute_dtype=torch.bfloat16)
+    rs = np.random.RandomState(1)
+    x = rs.randn(cfg["batch"], cfg["seq"], cfg["embed"]).astype(np.float32)
+    y = rs.randint(0, cfg["vocab"], (cfg["batch"], cfg["seq"])).astype(np.int32)
+    _, want = m.instance.loss_and_grads(m.params, {"x": x}, y)
+    layers = cfg["layers"]
+
+    def expect(fwd, bwd, when):
+        got = {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS}
+        exp = {n: 0 for n in got}
+        exp.update(flash_fwd=fwd * layers, flash_delta=bwd * layers, flash_bwd=bwd * layers)
+        if got != exp:
+            raise AssertionError(f"stepped, {when}: launches {got}, expected {exp}")
+        return got
+
+    fa.reset_launch_counts()
+    m.forward({"x": x})
+    expect(1, 0, "after a forward")
+    m.zero_gradients()
+    m.backward(y)
+    expect(1, 1, "after a backward")
+    first = {k: g.clone() for k, g in m._backing.param_grads.items()}
+    rel = {k: float((first[k] - g).norm() / g.norm()) for k, g in want.items()}
+    if first.keys() != want.keys() or not max(rel.values()) < PARITY_BOUND:
+        raise AssertionError(f"stepped: gradients against the whole step's: {rel}")
+    m.forward({"x": x})
+    m.backward(y)
+    launches = expect(2, 2, "after two forwards and backwards")
+    acc = {k: float((g - 2 * first[k]).norm() / (2 * first[k]).norm())
+           for k, g in m._backing.param_grads.items()}
+    if not max(acc.values()) < 1e-2:
+        raise AssertionError(f"stepped: accumulated gradients against twice the first: {acc}")
+    before = {k: p.clone() for k, p in m.params.items()}
+    m.update()
+    if not all(torch.isfinite(p).all() and not torch.equal(p, before[k])
+               for k, p in m.params.items()):
+        raise AssertionError("stepped: update left a parameter unchanged or non-finite")
+    emit({"phase": "stepped", "config": cfg, "compute_dtype": "bf16",
+          "grad_rel_err_max": max(rel.values()), "bound": PARITY_BOUND,
+          "accumulated_rel_err_max": max(acc.values()), "accumulated_bound": 1e-2,
+          "launches": launches})
+
+
+def _host_batch_ms(x, batch: int, reps: int = 3) -> dict:
+    """One batch drawn as fit draws it, timed alone: the host gather of its
+    rows and the pageable copy to the card (median of reps)."""
+    import torch
+    from flexflow_tpu_torch.core import SingleDataLoader
+
+    dl = SingleDataLoader(None, x, batch, device="cuda")
+    gather, copy = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        host = dl.next_batch_host()
+        t1 = time.perf_counter()
+        torch.as_tensor(host, device="cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        gather.append((t1 - t0) * 1e3)
+        copy.append((t2 - t1) * 1e3)
+    return {"gather_ms": statistics.median(gather), "copy_ms": statistics.median(copy),
+            "batch_bytes": host.nbytes}
+
+
+def phase_fit(smi: str, steps: int = STEPS):
+    """The flagship through FFModel: from_computation_graph, compile (bf16,
+    Adam(1e-4)), one warm-up fit on the first batch, then one timed fit
+    over the next `steps` batches with every launch count set to 0 just
+    before and read just after. Then the same batches from the parameters
+    right after compile, driven through train_step directly, must end
+    bitwise equal."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.core import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels.optimizer import make_optimizer_state
+    from flexflow_tpu_torch.models import FLAGSHIP, build_flagship_cg, model_step_flops
+
+    cfg, b = FLAGSHIP, FLAGSHIP["batch"]
+    start = time.perf_counter()
+    m = FFModel.from_computation_graph(*build_flagship_cg(**cfg),
+                                       config=FFConfig(batch_size=b, seed=0, print_freq=0))
+    m.compile(AdamOptimizer(alpha=1e-4), "sparse_categorical_crossentropy", metrics=FIT_METRICS,
+              compute_dtype=torch.bfloat16)
+    init = {k: p.cpu() for k, p in m.params.items()}  # on the host: off fit's peak memory
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(((steps + 1) * b, cfg["seq"], cfg["embed"]), dtype=np.float32)
+    y = rng.integers(0, cfg["vocab"], ((steps + 1) * b, cfg["seq"]), dtype=np.int32)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+
+    t0 = time.perf_counter()
+    warm = m.fit(x[:b], y[:b], epochs=1, shuffle=False, verbose=False)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    perf = m.fit(x[b:], y[b:], epochs=1, shuffle=False, verbose=False)
+    elapsed = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS}
+    peak = torch.cuda.max_memory_allocated()
+    want = {n: cfg["layers"] * steps if n in FLASH_WRAPPERS else 0 for n in launches}
+    if launches != want:
+        raise AssertionError(f"fit: launches {launches}, expected {want}")
+    tokens = b * cfg["seq"]
+    if perf.train_all != steps * tokens or not math.isfinite(perf.sparse_cce_loss):
+        raise AssertionError(f"fit: {perf}")
+    host = _host_batch_ms(x, b)
+
+    params = {k: p.to(m.device) for k, p in init.items()}
+    opt_state = make_optimizer_state(m.instance.optimizer_attrs, params)
+    for i in range(steps + 1):
+        rows = slice(i * b, (i + 1) * b)
+        params, opt_state, _, _ = m.instance.train_step(params, opt_state, {"x": x[rows]}, y[rows])
+    differ = [k for k, p in params.items() if not torch.equal(p, m.params[k])]
+    if differ:
+        raise AssertionError(f"fit: parameters differ from train_step driven directly: {differ}")
+    step_ms = elapsed * 1e3 / steps
+    flops = model_step_flops(**cfg)
+    emit({
+        "phase": "fit", "config": cfg, "card": smi, "compute_dtype": "bf16",
+        "optimizer": "adam(alpha=1e-4)", "metrics": FIT_METRICS, "setup_s": setup_s,
+        "warmup_fit_ms": warm_ms, "warmup_perf": dataclasses.asdict(warm),
+        "steps": steps, "fit_elapsed_s": elapsed, "step_ms": step_ms,
+        "step_ms_is": "the timed fit call's elapsed / steps, ending in one synchronize",
+        "tokens_per_s": tokens / (step_ms / 1e3), "step_flops": flops,
+        "mfu": flops / (step_ms / 1e3) / PEAK_BF16, "host_batch": host,
+        "peak_memory_bytes": peak, "perf": dataclasses.asdict(perf),
+        "accuracy": perf.accuracy, "mean_sparse_cce": perf.sparse_cce_loss / perf.train_all,
+        "launches": launches, "launches_per_step_each": cfg["layers"],
+        "bitwise_equal_to_train_step": True,
+    })
+    del m, params, opt_state, init
+    torch.cuda.empty_cache()
+    return {name: n for name, n in launches.items() if name in FLASH_WRAPPERS}
+
+
 # the serving LM at the flagship's widths (bench.py:37), and its traffic on one card
 SERVE_LM = dict(vocab_size=32000, embed_dim=1024, num_heads=8, num_layers=12, ffn_dim=4096)
 SERVE_TRAFFIC = dict(slots=64, max_seq_len=1024, requests=128, prompt_len=(64, 512),
@@ -1617,10 +1838,13 @@ def main() -> None:
             entry["ptxas"] = {k: ptxas[k] for k in REDESIGNED[entry["name"]]}
     phase_parity()
     launches = {  # per train phase, the launches of each wrapper on its path
-        "train": phase_train(smi, FLAGSHIP, "train", ("flash_fwd", "flash_delta", "flash_bwd")),
+        "train": phase_train(smi, FLAGSHIP, "train", FLASH_WRAPPERS),
         "train_heads16": phase_train(smi, REF_HEADS16, "train_heads16",
                                      ("flash_fwd_d64", "flash_delta_d64", "flash_bwd_d64")),
     }
+    phase_parity_fit()
+    phase_stepped()
+    launches["fit"] = phase_fit(smi)
     with dp_group():
         phase_parity_dp()
         launches["train_dp"] = phase_train(smi, FLAGSHIP, "train_dp", BHSD_WRAPPERS, dp=True)

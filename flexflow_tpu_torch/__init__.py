@@ -2,7 +2,7 @@
 
 It imports torch, numpy and the standard library, never jax or anything of
 flexflow_tpu: where it needs a module of the JAX package that holds no JAX
-(graph, op attrs, builder, initializer and optimizer attrs, the serving
+(graph, op attrs, builder, initializer and optimizer attrs, FFConfig, the serving
 memory accounting, the run-event stream, the fault schedule and the
 window watchdog) it keeps its own trimmed copy with the same names and
 layout. Its kernels are CUDA C++
@@ -18,6 +18,9 @@ of the parallel transformer PCG (models.build_parallel_transformer,
 parallel.DistributedTrainingInstance) through the ring-flash step kernels
 of kernels/ring_flash.py; and single-device serving (serving.ServingProgram,
 serving.ServingEngine: a KV cache, prefill, decode windows, continuous
-batching under watchdog supervision). Entry points run on CUDA unless the
-caller passes device="cpu".
+batching under watchdog supervision); and the user API on one device
+(core.FFModel: build, compile, fit, eval and the stepped
+forward/backward/update, with FFConfig, the optimizers, initializers and
+data loaders). Entry points run on CUDA unless the caller passes
+device="cpu".
 """

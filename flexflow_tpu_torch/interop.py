@@ -10,7 +10,7 @@ and shapes are checked against it.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -68,6 +68,19 @@ def opt_state_from_numpy(cg: ComputationGraph, opt_state: Dict, device) -> Dict:
         if slot in opt_state:
             out[slot] = params_from_numpy(cg, opt_state[slot], device)
     return out
+
+
+def ffmodel_state_from_numpy(model, params: Dict[str, np.ndarray], opt_state: Optional[Dict] = None) -> None:
+    """Carry a compiled JAX FFModel's state (numpy, keyed `n{idx}`) into the
+    compiled port FFModel `model`, in place of what its compile drew; its
+    stepped backing, if any, follows."""
+    if model.params is None:
+        raise RuntimeError("compile the port's FFModel before carrying state into it")
+    model.params = params_from_numpy(model.cg, params, model.device)
+    if opt_state is not None:
+        model.opt_state = opt_state_from_numpy(model.cg, opt_state, model.device)
+    if model._backing is not None:
+        model._backing.params = dict(model.params)
 
 
 def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:

@@ -1,7 +1,8 @@
-"""Loss functions (port of flexflow_tpu/kernels/loss.py: the fused sparse
-categorical cross-entropy; the other losses are not ported yet).
+"""Loss functions (port of flexflow_tpu/kernels/loss.py).
 
-The fused SCCE never keeps a [rows, classes] f32 array: the forward saves
+Every loss is a scalar f32 function of the logits whatever their dtype;
+autograd gives the reference's gradients (mean over the batch: 1/batch,
+and 2/volume for MSE, as loss_grad_scale says). The fused SCCE never keeps a [rows, classes] f32 array: the forward saves
 only the per-row logsumexp (f32) and returns the mean over all rows; the
 backward emits (softmax - onehot) * g/N in the logit dtype. Both walk the
 rows in chunks so the f32 temporaries stay bounded."""
@@ -54,7 +55,28 @@ class FusedSparseCrossEntropy(torch.autograd.Function):
 
 
 def loss_forward(attrs: LossAttrs, logit: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
-    """Scalar f32 loss. logit: [batch..., classes]; label: int [batch...]."""
-    if attrs.loss_type == LossFunction.SPARSE_CATEGORICAL_CROSSENTROPY:
+    """Scalar f32 loss. logit: [batch..., classes] (any shape for MSE, MAE
+    and identity); label: int [batch...] for SCCE, one-hot or dense for
+    the others."""
+    fn = attrs.loss_type
+    if fn == LossFunction.SPARSE_CATEGORICAL_CROSSENTROPY:
         return FusedSparseCrossEntropy.apply(logit, label)
-    raise NotImplementedError(f"loss {attrs.loss_type} is not ported yet")
+    if logit.is_floating_point():
+        logit = logit.float()
+    if fn == LossFunction.CATEGORICAL_CROSSENTROPY:
+        return -(label * torch.log_softmax(logit, dim=-1)).sum(dim=-1).mean()
+    if fn == LossFunction.MEAN_SQUARED_ERROR:
+        return (logit - label).square().mean()
+    if fn == LossFunction.MEAN_ABSOLUTE_ERROR:
+        return (logit - label).abs().mean()
+    if fn == LossFunction.IDENTITY:
+        return logit.mean()
+    raise ValueError(f"unknown loss {fn}")
+
+
+def loss_grad_scale(attrs: LossAttrs, batch_size: int, volume: int) -> float:
+    """The scale the reference applies in its loss backward: 1/batch, or
+    2/volume for MSE."""
+    if attrs.loss_type == LossFunction.MEAN_SQUARED_ERROR:
+        return 2.0 / volume
+    return 1.0 / batch_size

@@ -3,15 +3,16 @@ flexflow_tpu/kernels/ops.py). The backward comes from autograd, and through
 the flash-attention Functions' hand-written kernels for attention.
 
 Uniform signature:
-    forward(attrs, inputs, weights) -> [outputs]
+    forward(attrs, inputs, weights, train=False, rng=None) -> [outputs]
 inputs/weights: lists of tensors in slot order (roles from
-op_attrs.core.get_incoming_tensor_roles).
+op_attrs.core.get_incoming_tensor_roles). `train` and `rng` (a
+torch.Generator on the inputs' device) reach Dropout only.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +29,7 @@ from flexflow_tpu_torch.op_attrs.activation import gelu
 from flexflow_tpu_torch.op_attrs.core import OpAttrs
 from flexflow_tpu_torch.op_attrs.ops import (
     AggregateSpec,
+    DropoutAttrs,
     ElementBinaryAttrs,
     ElementBinaryOpType,
     ElementUnaryAttrs,
@@ -37,6 +39,7 @@ from flexflow_tpu_torch.op_attrs.ops import (
     LayerNormAttrs,
     LinearAttrs,
     MultiHeadAttentionAttrs,
+    SoftmaxAttrs,
     WeightAttrs,
 )
 
@@ -218,8 +221,38 @@ def _layer_norm(attrs: LayerNormAttrs, x, weights):
     return out
 
 
+def embedding_lookup(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Rows of `table` at `idx`, as the JAX package's `jnp.take(table, idx,
+    axis=0)` in its default fill mode: ids in [-V, V) are taken (negative
+    ids wrap), every other id gives a NaN row and sends no gradient to the
+    table. The index is wrapped and clamped, the rows gathered, and the
+    rows of out-of-range ids replaced, with no read on the host."""
+    rows = table.shape[0]
+    idx = idx.long()
+    valid = (idx >= -rows) & (idx < rows)
+    safe = torch.where(idx < 0, idx + rows, idx).clamp(0, rows - 1)
+    out = F.embedding(safe, table)
+    nan = torch.full((), float("nan"), dtype=out.dtype, device=out.device)
+    return torch.where(valid[..., None], out, nan)
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            rng: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: the identity outside training or at rate 0; else
+    each element kept with probability 1 - rate (a uniform draw from `rng`
+    below it, as jax.random.bernoulli draws) and scaled by 1 / (1 - rate)."""
+    if not train or rate == 0.0:
+        return x
+    if rng is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def forward(attrs: OpAttrs, inputs: Sequence[torch.Tensor],
-            weights: Sequence[torch.Tensor] = ()) -> List[torch.Tensor]:
+            weights: Sequence[torch.Tensor] = (), train: bool = False,
+            rng: Optional[torch.Generator] = None) -> List[torch.Tensor]:
     inputs, weights = list(inputs), list(weights)
     if isinstance(attrs, (InputAttrs, WeightAttrs)):
         raise ValueError("input/weight nodes have no kernel; bind their values")
@@ -235,7 +268,7 @@ def forward(attrs: OpAttrs, inputs: Sequence[torch.Tensor],
             out = out + weights[1]
         return [attrs.activation.apply(out) if attrs.activation else out]
     if isinstance(attrs, EmbeddingAttrs):
-        out = F.embedding(inputs[0], weights[0])
+        out = embedding_lookup(inputs[0], weights[0])
         if attrs.aggr == AggregateSpec.SUM:
             out = out.sum(dim=-2)
         elif attrs.aggr == AggregateSpec.AVG:
@@ -243,6 +276,10 @@ def forward(attrs: OpAttrs, inputs: Sequence[torch.Tensor],
         return [out]
     if isinstance(attrs, LayerNormAttrs):
         return [_layer_norm(attrs, inputs[0], weights)]
+    if isinstance(attrs, SoftmaxAttrs):
+        return [torch.softmax(inputs[0], dim=attrs.dim)]
+    if isinstance(attrs, DropoutAttrs):
+        return [dropout(inputs[0], attrs.rate, train, rng)]
     if isinstance(attrs, MultiHeadAttentionAttrs):
         q, k, v = inputs
         input_bias = weights[1] if attrs.bias else None

@@ -1,5 +1,6 @@
-"""Single-device training: the graph interpreter and the train step (port
-of flexflow_tpu/local_execution/training_backing.py:101-163, 241-436).
+"""Single-device training: the graph interpreter, the train step and the
+stepped per-op execution (port of
+flexflow_tpu/local_execution/training_backing.py:101-163, 241-560).
 
 The JAX package composes forward, loss, backward and update into one jitted
 program with donated buffers. Here the step runs eagerly: the interpreter
@@ -10,11 +11,23 @@ parameters in place.
 Mixed precision works as in the JAX package: parameters and optimizer
 state stay f32; parameters and float inputs are cast to `compute_dtype`
 for the forward; loss math is f32.
+
+LocalTrainingBacking is the reference's stepped API (execute_init, forward,
+backward, update), one op at a time. The JAX package recomputes each op
+under jax.vjp in its backward; here the forward runs each op on detached
+leaves of its inputs with autograd on and keeps the op's graph, and the
+backward asks autograd for each op's input gradients in reverse
+topological order. Nothing is recomputed, so a flash-attention op launches
+its forward kernel once per forward and its delta and backward kernels
+once per backward. The price is memory: each op holds what autograd saves
+for it, and every op's output, from the forward until the next forward
+(as one autograd graph of the whole step would until its backward).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import time
+from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -24,6 +37,7 @@ from flexflow_tpu_torch.kernels import (
     loss_forward,
     make_optimizer_state,
 )
+from flexflow_tpu_torch.kernels.metrics import compute_metrics
 from flexflow_tpu_torch.kernels.precision import cast_for_compute
 from flexflow_tpu_torch.op_attrs.core import (
     IncomingTensorRole,
@@ -112,34 +126,46 @@ def init_params(cg: ComputationGraph, seed: int, device) -> Dict[ParamKey, torch
     return params
 
 
+def input_binding(cg: ComputationGraph, n: Node, inputs: Dict[str, torch.Tensor]):
+    """The value bound to input node n: by its layer name, else by its
+    param_key."""
+    la = cg.layer_attrs(n)
+    key = la.name if la.name is not None and la.name in inputs else param_key(n)
+    if key not in inputs:
+        raise KeyError(f"missing input binding for {la.name or key}")
+    return inputs[key]
+
+
 def forward_interpreter(
     cg: ComputationGraph,
     params: Dict[ParamKey, torch.Tensor],
     inputs: Dict[str, torch.Tensor],
+    train: bool = False,
+    rng: Optional[torch.Generator] = None,
 ) -> Dict[DataflowOutput, torch.Tensor]:
     """Evaluate the graph: every tensor value keyed by DataflowOutput.
-    inputs: keyed by input-layer name (or param_key of the input node)."""
+    inputs: keyed by input-layer name (or param_key of the input node).
+    train and rng reach the stochastic ops (Dropout), which draw from rng
+    in topological order."""
     env: Dict[DataflowOutput, torch.Tensor] = {}
     for n in cg.topological_ordering():
         la = cg.layer_attrs(n)
         outs = cg.outputs_of(n)
         if isinstance(la.attrs, InputAttrs):
-            key = la.name if la.name is not None and la.name in inputs else param_key(n)
-            if key not in inputs:
-                raise KeyError(f"missing input binding for {la.name or key}")
-            env[outs[0]] = inputs[key]
+            env[outs[0]] = input_binding(cg, n, inputs)
         elif isinstance(la.attrs, WeightAttrs):
             env[outs[0]] = params[param_key(n)]
         else:
             slot_vals = [env[v] for v in cg.inputs_of(n)]
             data_vals, weight_vals = split_slot_values(la.attrs, slot_vals)
-            for o, r in zip(outs, kernel_forward(la.attrs, data_vals, weight_vals)):
+            results = kernel_forward(la.attrs, data_vals, weight_vals, train=train, rng=rng)
+            for o, r in zip(outs, results):
                 env[o] = r
     return env
 
 
 class ModelTrainingInstance:
-    """Graph + loss + optimizer -> a train step on one device."""
+    """Graph + loss + optimizer + metrics -> a train step on one device."""
 
     def __init__(
         self,
@@ -149,16 +175,22 @@ class ModelTrainingInstance:
         optimizer_attrs: OptimizerAttrs,
         compute_dtype: Optional[torch.dtype] = None,
         device=None,
+        metrics: FrozenSet[str] = frozenset(),
+        aux_loss_tensors: Sequence[DataflowOutput] = (),
     ) -> None:
         """compute_dtype: params and optimizer state stay f32, and the
         forward/backward run in this dtype (None = the params' dtype).
-        device: CUDA unless given; see resolve_device."""
+        device: CUDA unless given; see resolve_device. metrics: the names
+        compute_metrics evaluates on each step's logits. aux_loss_tensors:
+        graph outputs whose sums join the loss."""
         self.cg = cg
         self.logit_tensor = logit_tensor
         self.loss_attrs = loss_attrs
         self.optimizer_attrs = optimizer_attrs
         self.compute_dtype = compute_dtype
         self.device = resolve_device(device)
+        self.metrics = frozenset(metrics)
+        self.aux_loss_tensors = tuple(aux_loss_tensors)
 
     def initialize(self, seed: int = 0):
         params = init_params(self.cg, seed, self.device)
@@ -167,36 +199,181 @@ class ModelTrainingInstance:
     def _to_device(self, batch_inputs) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v, device=self.device) for k, v in batch_inputs.items()}
 
-    def loss_fn(self, params, batch_inputs, label):
+    def loss_fn(self, params, batch_inputs, label, rng=None):
+        """(f32 loss, logits) of a training forward; rng feeds Dropout."""
         env = forward_interpreter(
             self.cg,
             cast_for_compute(params, self.compute_dtype),
             cast_for_compute(self._to_device(batch_inputs), self.compute_dtype),
+            train=True,
+            rng=rng,
         )
         logit = env[self.logit_tensor]
         loss = loss_forward(self.loss_attrs, logit, torch.as_tensor(label, device=self.device))
+        for t in self.aux_loss_tensors:
+            loss = loss + env[t].to(loss.dtype).sum()
         return loss, logit
 
-    def loss_and_grads(self, params, batch_inputs, label):
-        """(loss, {key: f32 gradient}) at `params`, which are not modified."""
+    def loss_and_grads(self, params, batch_inputs, label, rng=None, metrics=None):
+        """(loss, {key: f32 gradient}) at `params`, which are not modified.
+        metrics: a dict that receives compute_metrics of the logits, taken
+        between the forward and the backward."""
         leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
-        loss, _ = self.loss_fn(leaves, batch_inputs, label)
+        loss, logit = self.loss_fn(leaves, batch_inputs, label, rng)
+        if metrics is not None:
+            metrics.update(compute_metrics(
+                self.metrics, logit.detach(), torch.as_tensor(label, device=self.device)))
+        del logit
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
         return loss.detach(), {
             k: torch.zeros_like(leaves[k]) if g is None else g for k, g in zip(leaves, grads)
         }
 
-    def train_step(self, params, opt_state, batch_inputs, label):
+    def train_step(self, params, opt_state, batch_inputs, label, rng=None):
         """One forward, backward and update. Updates params and opt_state in
-        place and returns (params, opt_state, loss, metrics); the metrics
-        dict is empty in this port so far."""
-        loss, grads = self.loss_and_grads(params, batch_inputs, label)
+        place and returns (params, opt_state, loss, metrics): the metric
+        values of this step's logits, on the device (empty for the
+        distributed trainers so far). Without an rng, Dropout draws from a
+        generator seeded 0, as the JAX package's default key."""
+        if rng is None:
+            rng = torch.Generator(device=self.device).manual_seed(0)
+        mvals: Dict = {}
+        loss, grads = self.loss_and_grads(params, batch_inputs, label, rng=rng, metrics=mvals)
         apply_optimizer_(self.optimizer_attrs, params, grads, opt_state)
-        return params, opt_state, loss, {}
+        return params, opt_state, loss, mvals
 
     @torch.no_grad()
     def forward(self, params, batch_inputs) -> torch.Tensor:
         """Logits at `params`, in the params' dtype (as the JAX package's
-        forward, which applies no compute_dtype)."""
+        forward, which applies no compute_dtype), Dropout off."""
         env = forward_interpreter(self.cg, params, self._to_device(batch_inputs))
         return env[self.logit_tensor]
+
+
+PerLayerElapsedTime = Dict[Node, float]
+
+
+class LocalTrainingBacking:
+    """Stepped per-op execution with per-layer timing (the reference's
+    execute_init/forward/backward/update). See the module docstring for how
+    the backward reuses each op's forward graph.
+
+    compute_dtype: as ModelTrainingInstance's. The JAX package's stepped
+    path runs at the parameters' dtype; the port's runs at the compiled
+    compute dtype (the same thing in f32), so that a bf16 model's stepped
+    attention reaches the flash kernels. Weight gradients stay in the
+    parameters' dtype."""
+
+    def __init__(self, cg: ComputationGraph, profiling: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None, device=None) -> None:
+        self.cg = cg
+        self.profiling = profiling
+        self.compute_dtype = compute_dtype
+        self.device = resolve_device(device)
+        self.params: Dict[ParamKey, torch.Tensor] = {}
+        self.env: Dict[DataflowOutput, torch.Tensor] = {}
+        self.grad_env: Dict[DataflowOutput, torch.Tensor] = {}
+        self.param_grads: Dict[ParamKey, torch.Tensor] = {}
+        self.fwd_elapsed: PerLayerElapsedTime = {}
+        self.bwd_elapsed: PerLayerElapsedTime = {}
+        # per op node: (a leaf per distinct input value, the op's outputs)
+        self._graphs: Dict[Node, Tuple[Dict[DataflowOutput, torch.Tensor],
+                                       List[torch.Tensor]]] = {}
+
+    def execute_init(self, seed: int = 0) -> None:
+        self.params = init_params(self.cg, seed, self.device)
+
+    def _timed(self, node: Node, table: PerLayerElapsedTime, fn):
+        """fn(), and with profiling its ms into table[node]: by CUDA events
+        on the card, by the host clock on the CPU."""
+        if not self.profiling:
+            return fn()
+        if self.device.type == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            end.synchronize()
+            table[node] = start.elapsed_time(end)
+            return out
+        t0 = time.perf_counter()
+        out = fn()
+        table[node] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def _compute_dtype(self, t: torch.Tensor) -> torch.dtype:
+        return self.compute_dtype if t.is_floating_point() and self.compute_dtype else t.dtype
+
+    def execute_forward(self, inputs: Dict[str, torch.Tensor]) -> None:
+        """Every op on detached leaves of its inputs, with autograd on. A
+        weight's value is a copy at the compute dtype, so an update before
+        the backward does not change what the backward differentiates (the
+        JAX package's arrays are immutable)."""
+        self.env, self._graphs = {}, {}
+        for n in self.cg.topological_ordering():
+            la = self.cg.layer_attrs(n)
+            outs = self.cg.outputs_of(n)
+            if isinstance(la.attrs, InputAttrs):
+                x = torch.as_tensor(input_binding(self.cg, n, inputs), device=self.device)
+                self.env[outs[0]] = x.to(self._compute_dtype(x))
+            elif isinstance(la.attrs, WeightAttrs):
+                p = self.params[param_key(n)].detach()
+                self.env[outs[0]] = p.to(self._compute_dtype(p), copy=True)
+            else:
+                # one leaf per distinct input value (self-attention's q, k
+                # and v are one tensor, as in the whole-graph step)
+                leaves = {v: self.env[v].detach().requires_grad_(self.env[v].is_floating_point())
+                          for v in dict.fromkeys(self.cg.inputs_of(n))}
+                data, weights = split_slot_values(
+                    la.attrs, [leaves[v] for v in self.cg.inputs_of(n)])
+
+                def run(a=la.attrs, data=data, weights=weights):
+                    with torch.enable_grad():
+                        return kernel_forward(a, data, weights)
+
+                results = self._timed(n, self.fwd_elapsed, run)
+                self._graphs[n] = (leaves, results)
+                for o, r in zip(outs, results):
+                    self.env[o] = r
+
+    def execute_backward(self, output_grads: Dict[DataflowOutput, torch.Tensor]) -> None:
+        """Reverse-topological per-op gradients from each op's forward graph.
+        Weight gradients accumulate across calls until zeroed (the
+        reference's zero_gradients semantics); the activation gradients are
+        per call. The graphs are kept, so backward may run again on the same
+        forward, as the JAX package's recomputing backward may."""
+        self.grad_env = dict(output_grads)
+        for n in reversed(self.cg.topological_ordering()):
+            attrs = self.cg.op_attrs(n)
+            if isinstance(attrs, InputAttrs):
+                continue
+            outs = self.cg.outputs_of(n)
+            if isinstance(attrs, WeightAttrs):
+                if outs[0] in self.grad_env:
+                    k = param_key(n)
+                    g = self.grad_env[outs[0]].to(self.params[k].dtype)
+                    self.param_grads[k] = self.param_grads[k] + g if k in self.param_grads else g
+                continue
+            leaves, results = self._graphs[n]
+            wanted = [v for v, leaf in leaves.items() if leaf.requires_grad]
+            out_grads = [self.grad_env.get(o, torch.zeros_like(r)) for o, r in zip(outs, results)]
+
+            def run(leaves=leaves, results=results, wanted=wanted, out_grads=out_grads):
+                return torch.autograd.grad(results, [leaves[v] for v in wanted], out_grads,
+                                           retain_graph=True, allow_unused=True)
+
+            in_grads = self._timed(n, self.bwd_elapsed, run)
+            for v, g in zip(wanted, in_grads):
+                if g is not None:
+                    self.grad_env[v] = self.grad_env[v] + g if v in self.grad_env else g
+
+    @torch.no_grad()
+    def execute_update(self, optimizer_attrs: OptimizerAttrs, opt_state=None):
+        """The optimizer step on the accumulated gradients (zero where a
+        parameter has none), in place on the parameters and the state,
+        which it returns."""
+        if opt_state is None:
+            opt_state = make_optimizer_state(optimizer_attrs, self.params)
+        grads = {k: self.param_grads.get(k, torch.zeros_like(v)) for k, v in self.params.items()}
+        apply_optimizer_(optimizer_attrs, self.params, grads, opt_state)
+        return opt_state

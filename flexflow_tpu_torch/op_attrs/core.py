@@ -15,6 +15,7 @@ from typing import List, Sequence, Union
 
 from flexflow_tpu_torch.op_attrs.ops import (
     CombineAttrs,
+    DropoutAttrs,
     ElementBinaryAttrs,
     ElementUnaryAttrs,
     EmbeddingAttrs,
@@ -26,6 +27,7 @@ from flexflow_tpu_torch.op_attrs.ops import (
     RepartitionAttrs,
     ReplicateAttrs,
     RingAttentionAttrs,
+    SoftmaxAttrs,
     WeightAttrs,
 )
 from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
@@ -44,6 +46,8 @@ class OperatorType(enum.Enum):
     LINEAR = "linear"
     EMBEDDING = "embedding"
     LAYER_NORM = "layer_norm"
+    SOFTMAX = "softmax"
+    DROPOUT = "dropout"
     MULTIHEAD_ATTENTION = "multihead_attention"
     RING_ATTENTION = "ring_attention"
     REPARTITION = "repartition"
@@ -59,7 +63,8 @@ class IncomingTensorRole(enum.Enum):
 
 OpAttrs = Union[
     InputAttrs, WeightAttrs, ElementUnaryAttrs, ElementBinaryAttrs,
-    LinearAttrs, EmbeddingAttrs, LayerNormAttrs, MultiHeadAttentionAttrs, RingAttentionAttrs,
+    LinearAttrs, EmbeddingAttrs, LayerNormAttrs, SoftmaxAttrs, DropoutAttrs,
+    MultiHeadAttentionAttrs, RingAttentionAttrs,
     RepartitionAttrs, CombineAttrs, ReplicateAttrs, ReductionAttrs,
 ]
 
@@ -71,6 +76,8 @@ _OP_TYPE_BY_ATTRS = {
     LinearAttrs: OperatorType.LINEAR,
     EmbeddingAttrs: OperatorType.EMBEDDING,
     LayerNormAttrs: OperatorType.LAYER_NORM,
+    SoftmaxAttrs: OperatorType.SOFTMAX,
+    DropoutAttrs: OperatorType.DROPOUT,
     MultiHeadAttentionAttrs: OperatorType.MULTIHEAD_ATTENTION,
     RingAttentionAttrs: OperatorType.RING_ATTENTION,
     RepartitionAttrs: OperatorType.REPARTITION,

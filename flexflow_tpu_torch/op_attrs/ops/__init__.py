@@ -1,6 +1,6 @@
 """Operator attrs of the slices: Input, Weight, Linear, Embedding,
 MultiHeadAttention, RingAttention, ElementUnary, ElementBinary, LayerNorm,
-the four parallel ops, and the loss attrs."""
+Softmax, Dropout, the four parallel ops, and the loss attrs."""
 
 from flexflow_tpu_torch.op_attrs.ops.attention import MultiHeadAttentionAttrs
 from flexflow_tpu_torch.op_attrs.ops.elementwise import (
@@ -16,8 +16,9 @@ from flexflow_tpu_torch.op_attrs.ops.loss_functions import (
     LossFunction,
     NonconfigurableLossAttrs,
     SparseCategoricalCrossEntropyLossAttrs,
+    loss_attrs_for,
 )
-from flexflow_tpu_torch.op_attrs.ops.norm_ops import LayerNormAttrs
+from flexflow_tpu_torch.op_attrs.ops.norm_ops import DropoutAttrs, LayerNormAttrs, SoftmaxAttrs
 from flexflow_tpu_torch.op_attrs.ops.parallel_ops import (
     CombineAttrs,
     ReductionAttrs,
@@ -29,6 +30,7 @@ from flexflow_tpu_torch.op_attrs.ops.ring_attention import RingAttentionAttrs
 __all__ = [
     "AggregateSpec",
     "CombineAttrs",
+    "DropoutAttrs",
     "ElementBinaryAttrs",
     "ElementBinaryOpType",
     "ElementUnaryAttrs",
@@ -45,6 +47,8 @@ __all__ = [
     "RepartitionAttrs",
     "ReplicateAttrs",
     "RingAttentionAttrs",
+    "SoftmaxAttrs",
     "SparseCategoricalCrossEntropyLossAttrs",
     "WeightAttrs",
+    "loss_attrs_for",
 ]

@@ -30,3 +30,9 @@ class NonconfigurableLossAttrs:
 
 
 LossAttrs = Union[SparseCategoricalCrossEntropyLossAttrs, NonconfigurableLossAttrs]
+
+
+def loss_attrs_for(fn: LossFunction) -> LossAttrs:
+    if fn == LossFunction.SPARSE_CATEGORICAL_CROSSENTROPY:
+        return SparseCategoricalCrossEntropyLossAttrs()
+    return NonconfigurableLossAttrs(fn)

@@ -1,5 +1,6 @@
-"""LayerNorm attrs (trimmed copy of flexflow_tpu/op_attrs/ops/norm_ops.py:
-the sequential and the parallel shape rules)."""
+"""LayerNorm, Softmax and Dropout attrs (trimmed copy of
+flexflow_tpu/op_attrs/ops/norm_ops.py: the sequential and the parallel
+shape rules)."""
 
 from __future__ import annotations
 
@@ -41,3 +42,30 @@ class LayerNormAttrs:
         return lift_to_parallel_with_degrees(
             unpar, 1, others * input.discard_copy_degree, (1,) * len(self.axes)
         )
+
+
+@dataclass(frozen=True)
+class SoftmaxAttrs:
+    dim: int = -1
+
+    def output_shape(self, input: TensorShape) -> TensorShape:
+        return input
+
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        if input.sum_degree != 1 or input.shard_dim_at(self.dim % input.num_dims).degree != 1:
+            raise ValueError(f"softmax needs whole sums and an unsharded softmax dim: {input}")
+        return input
+
+
+@dataclass(frozen=True)
+class DropoutAttrs:
+    rate: float
+    seed: int = 0
+
+    def output_shape(self, input: TensorShape) -> TensorShape:
+        return input
+
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        if input.sum_degree != 1:
+            raise ValueError(f"dropout over partial sums: {input}")
+        return input

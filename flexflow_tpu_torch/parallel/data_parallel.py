@@ -113,12 +113,13 @@ class DataParallelTrainingInstance(ModelTrainingInstance):
         n = b // self.world_size
         return x[self.rank * n:(self.rank + 1) * n]
 
-    def loss_and_grads(self, params, batch_inputs, label):
+    def loss_and_grads(self, params, batch_inputs, label, rng=None, metrics=None):
         """(global mean loss, {key: f32 gradient averaged over the ranks})
-        from the global batch; `params` are not modified."""
+        from the global batch; `params` are not modified. `metrics` stays
+        empty: summing metrics over ranks waits for A7."""
         local = {k: self._local_rows(v) for k, v in batch_inputs.items()}
         with flash_mesh(self.group):
-            loss, grads = super().loss_and_grads(params, local, self._local_rows(label))
+            loss, grads = super().loss_and_grads(params, local, self._local_rows(label), rng)
         self.all_reduces += 1
         return all_reduce_mean(loss, grads, self.group, self.world_size)
 

@@ -154,8 +154,10 @@ class DistributedTrainingInstance(ModelTrainingInstance):
     def _local_inputs(self, batch_inputs) -> Dict[str, torch.Tensor]:
         return {k: self._local(v, self._inputs[k], f"input {k!r}") for k, v in batch_inputs.items()}
 
-    def loss_fn(self, params, batch_inputs, label):
-        """(mean loss over this rank's tokens, this rank's logits)."""
+    def loss_fn(self, params, batch_inputs, label, rng=None):
+        """(mean loss over this rank's tokens, this rank's logits). rng is
+        unused: the PCG interpreter runs no stochastic op (the parallel
+        builder makes none)."""
         # labels shard like the logits, without the class dim
         label = local_block(torch.as_tensor(label, device=self.device),
                             self.shardings[self.logit_tensor][:-1], self.machine_mesh, "label")
@@ -169,11 +171,12 @@ class DistributedTrainingInstance(ModelTrainingInstance):
         logit = env[self.logit_tensor]
         return loss_forward(self.loss_attrs, logit, label), logit
 
-    def loss_and_grads(self, params, batch_inputs, label):
+    def loss_and_grads(self, params, batch_inputs, label, rng=None, metrics=None):
         """(global mean loss, {key: f32 gradient of it}) from the global
         batch, after one all-reduce over the mesh; `params` are not
-        modified."""
-        loss, grads = super().loss_and_grads(params, batch_inputs, label)
+        modified. `metrics` stays empty: summing metrics over ranks waits
+        for A7."""
+        loss, grads = super().loss_and_grads(params, batch_inputs, label, rng)
         self.all_reduces += 1
         mesh = self.machine_mesh
         return all_reduce_mean(loss, grads, mesh.group, mesh.world_size)

@@ -2,9 +2,11 @@
 copy of flexflow_tpu/pcg/computation_graph_builder.py).
 
 Covers create_input, create_weight, dense, embedding, multihead_attention,
-add, gelu and layer_norm. Each op creates its weight nodes first and then
-the op node, in the JAX builder's order, so that parameter keys `n{idx}`
-name the same weights in both packages.
+layer_norm, softmax, dropout, and the element-wise unary, scalar and binary
+ops. Each op creates its weight nodes first and then the op node, in the
+JAX builder's order, so that parameter keys `n{idx}` name the same weights
+in both packages. A binary op on operands of different shapes needs the
+Broadcast op the JAX builder inserts, which is not ported yet (A2).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from flexflow_tpu_torch.op_attrs.core import (
 from flexflow_tpu_torch.op_attrs.datatype import DataType
 from flexflow_tpu_torch.op_attrs.ops import (
     AggregateSpec,
+    DropoutAttrs,
     ElementBinaryAttrs,
     ElementBinaryOpType,
     ElementUnaryAttrs,
@@ -30,6 +33,7 @@ from flexflow_tpu_torch.op_attrs.ops import (
     LayerNormAttrs,
     LinearAttrs,
     MultiHeadAttentionAttrs,
+    SoftmaxAttrs,
     WeightAttrs,
 )
 from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
@@ -186,10 +190,96 @@ class ComputationGraphBuilder:
         (out,) = self.add_layer(attrs, [input], [], name)
         return out
 
-    def gelu(self, x: Tensor, name: Optional[str] = None) -> Tensor:
-        (out,) = self.add_layer(ElementUnaryAttrs(ElementUnaryOpType.GELU), [x], [], name)
+    def softmax(self, input: Tensor, dim: int = -1, name: Optional[str] = None) -> Tensor:
+        (out,) = self.add_layer(SoftmaxAttrs(dim), [input], [], name)
         return out
 
-    def add(self, a: Tensor, b: Tensor, name: Optional[str] = None) -> Tensor:
-        (out,) = self.add_layer(ElementBinaryAttrs(ElementBinaryOpType.ADD), [a, b], [], name)
+    def dropout(self, input: Tensor, rate: float, seed: int = 0,
+                name: Optional[str] = None) -> Tensor:
+        (out,) = self.add_layer(DropoutAttrs(rate, seed), [input], [], name)
         return out
+
+    # -- elementwise ------------------------------------------------------
+
+    def _unary(self, op: ElementUnaryOpType, input: Tensor, scalar=None, name=None) -> Tensor:
+        (out,) = self.add_layer(ElementUnaryAttrs(op, scalar), [input], [], name)
+        return out
+
+    def exp(self, x, name=None):
+        return self._unary(ElementUnaryOpType.EXP, x, name=name)
+
+    def log(self, x, name=None):
+        return self._unary(ElementUnaryOpType.LOG, x, name=name)
+
+    def sin(self, x, name=None):
+        return self._unary(ElementUnaryOpType.SIN, x, name=name)
+
+    def cos(self, x, name=None):
+        return self._unary(ElementUnaryOpType.COS, x, name=name)
+
+    def relu(self, x, name=None):
+        return self._unary(ElementUnaryOpType.RELU, x, name=name)
+
+    def sigmoid(self, x, name=None):
+        return self._unary(ElementUnaryOpType.SIGMOID, x, name=name)
+
+    def tanh(self, x, name=None):
+        return self._unary(ElementUnaryOpType.TANH, x, name=name)
+
+    def gelu(self, x, name=None):
+        return self._unary(ElementUnaryOpType.GELU, x, name=name)
+
+    def elu(self, x, name=None):
+        return self._unary(ElementUnaryOpType.ELU, x, name=name)
+
+    def rsqrt(self, x, name=None):
+        return self._unary(ElementUnaryOpType.RSQRT, x, name=name)
+
+    def sqrt(self, x, name=None):
+        return self._unary(ElementUnaryOpType.SQRT, x, name=name)
+
+    def identity(self, x, name=None):
+        return self._unary(ElementUnaryOpType.IDENTITY, x, name=name)
+
+    def scalar_multiply(self, x, scalar: float, name=None):
+        return self._unary(ElementUnaryOpType.SCALAR_MULTIPLY, x, scalar, name)
+
+    def scalar_add(self, x, scalar: float, name=None):
+        return self._unary(ElementUnaryOpType.SCALAR_ADD, x, scalar, name)
+
+    def scalar_sub(self, x, scalar: float, name=None):
+        return self._unary(ElementUnaryOpType.SCALAR_SUB, x, scalar, name)
+
+    def scalar_truediv(self, x, scalar: float, name=None):
+        return self._unary(ElementUnaryOpType.SCALAR_TRUE_DIV, x, scalar, name)
+
+    def pow(self, x, exponent: float, name=None):
+        return self._unary(ElementUnaryOpType.POW, x, exponent, name)
+
+    def _binary(self, op: ElementBinaryOpType, a: Tensor, b: Tensor, name=None) -> Tensor:
+        sa, sb = self.graph.tensor_shape(a), self.graph.tensor_shape(b)
+        if sa.dims != sb.dims:
+            raise NotImplementedError(
+                f"{op.value} of shapes {sa.dims} and {sb.dims} needs the Broadcast op, "
+                "which is not ported yet (A2)"
+            )
+        (out,) = self.add_layer(ElementBinaryAttrs(op), [a, b], [], name)
+        return out
+
+    def add(self, a, b, name=None):
+        return self._binary(ElementBinaryOpType.ADD, a, b, name)
+
+    def subtract(self, a, b, name=None):
+        return self._binary(ElementBinaryOpType.SUB, a, b, name)
+
+    def multiply(self, a, b, name=None):
+        return self._binary(ElementBinaryOpType.MUL, a, b, name)
+
+    def divide(self, a, b, name=None):
+        return self._binary(ElementBinaryOpType.DIV, a, b, name)
+
+    def max(self, a, b, name=None):
+        return self._binary(ElementBinaryOpType.MAX, a, b, name)
+
+    def min(self, a, b, name=None):
+        return self._binary(ElementBinaryOpType.MIN, a, b, name)

@@ -11,6 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from flexflow_tpu_torch.core import FFConfig, FFModel
 from flexflow_tpu_torch.kernels import flash_attention as tfa
 from flexflow_tpu_torch.local_execution import ModelTrainingInstance, resolve_device
 from flexflow_tpu_torch.models import build_flagship_cg
@@ -36,7 +37,8 @@ def test_port_runs_a_step_with_jax_and_the_jax_package_refused():
     group, from the same parameters and batch, then a sequence-parallel
     step of a causal parallel transformer through its ring of one, then a
     few requests served through the serving engine with its watchdog and
-    a metrics stream."""
+    a metrics stream, then an MLP built, compiled, fit and evaluated
+    through FFModel."""
     script = textwrap.dedent(
         """
         import sys
@@ -112,6 +114,17 @@ def test_port_runs_a_step_with_jax_and_the_jax_package_refused():
         assert sorted(len(r.tokens) for r in recs) == [4, 4, 4]
         assert len(read_run_events(metrics, "serve_request")) == 3
         assert FaultSchedule.parse("seed=1;sites=hang;rate=0.5").fire_steps("hang", 1, 10)
+
+        from flexflow_tpu_torch.core import Activation, FFConfig, FFModel, SGDOptimizer
+
+        m = FFModel(FFConfig(batch_size=8, print_freq=0), device="cpu")
+        t = m.dense(m.create_tensor([8, 32], name="x"), 16, activation=Activation.RELU)
+        m.softmax(m.dense(m.dropout(t, 0.1), 4))
+        m.compile(SGDOptimizer(lr=0.1), "categorical_crossentropy", metrics=["accuracy"])
+        xs = rs.randn(32, 32).astype(np.float32)
+        ys = np.eye(4, dtype=np.float32)[rs.randint(0, 4, 32)]
+        perf = m.fit(xs, ys, epochs=2, verbose=False)
+        assert perf.train_all == 64 and m.eval(xs, ys).train_all == 32
         assert not any(m == "jax" or m.startswith(("jax.", "flexflow_tpu."))
                        or m == "flexflow_tpu" for m in sys.modules)
         print("ok", float(loss))
@@ -141,7 +154,10 @@ def test_sources_import_nothing_of_jax_or_the_jax_package():
     scanned = {str(f.relative_to(REPO / "flexflow_tpu_torch")) for f in files[:-1]}
     for module in ("serving/kv_cache.py", "serving/model.py", "serving/program.py",
                    "serving/engine.py", "runtime/fault.py", "runtime/supervisor.py",
-                   "observability/metrics.py", "analysis/memory_accounting.py"):
+                   "observability/metrics.py", "analysis/memory_accounting.py",
+                   "core/ffmodel.py", "core/dataloader.py", "core/optimizers.py",
+                   "core/initializers.py", "core/__init__.py", "kernels/metrics.py",
+                   "local_execution/config.py"):
         assert module in scanned
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []
@@ -158,6 +174,10 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
     cg, _ = build_serving_lm(ServingLMConfig(), 2, 1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingProgram(cg, ServingMemorySpec(2, 16))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FFModel(FFConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FFModel.from_computation_graph(graph, logits)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -1,6 +1,7 @@
 """Per-op parity of the PyTorch port against the JAX package on the same
 numpy inputs, in f32 on the CPU: the MHA projections and dense attention,
-GELU, LayerNorm, the fused sparse cross-entropy and the optimizer updates.
+GELU, LayerNorm, the embedding on ids in and out of range, the fused sparse
+cross-entropy and the optimizer updates.
 Tolerances are f32 roundoff of the same arithmetic (1e-5 relative, looser
 where sums over hundreds of terms are reordered)."""
 
@@ -84,6 +85,42 @@ def test_layer_norm_matches(axes):
     got = tops.forward(tattrs.LayerNormAttrs(axes), [torch.from_numpy(x)],
                        [torch.from_numpy(gamma), torch.from_numpy(beta)])
     np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("aggr", ["NONE", "SUM", "AVG"])
+def test_embedding_out_of_range_ids_match_jnp_take(aggr):
+    """The JAX package's jnp.take fill mode: ids in [-V, V) taken (negative
+    ones wrapping), a NaN row for any other id, and no gradient to the
+    table from it. Row 0 of the ids is in range (with -V and -1), row 1
+    holds V, row 2 an id below -V and one above V."""
+    rows, width = 6, 3
+    rs = np.random.RandomState(9)
+    table = rs.randn(rows, width).astype(np.float32)
+    ids = np.array([[1, -rows, -1, 0], [rows, 2, 3, 1], [-rows - 1, 2, rows + 2, 0]],
+                   dtype=np.int32)
+    ja = jattrs.EmbeddingAttrs(rows, width, getattr(jattrs.AggregateSpec, aggr))
+    ta = tattrs.EmbeddingAttrs(rows, width, getattr(tattrs.AggregateSpec, aggr))
+
+    def jfwd(t):
+        return jops.forward(ja, [jnp.asarray(ids)], [t])[0]
+
+    ref, pull = jax.vjp(jfwd, jnp.asarray(table))
+    ref = np.asarray(ref)
+    tt = torch.tensor(table, requires_grad=True)
+    got = tops.forward(ta, [torch.from_numpy(ids)], [tt])[0]
+    np.testing.assert_array_equal(np.isnan(got.detach().numpy()), np.isnan(ref))
+    assert np.isnan(ref).any() and not np.isnan(ref[0]).any()
+    np.testing.assert_allclose(got.detach().numpy(), ref, rtol=1e-6, atol=1e-6)
+
+    cot = rs.randn(*ref.shape).astype(np.float32)
+    (jgrad,) = pull(jnp.asarray(cot))
+    (tgrad,) = torch.autograd.grad(got, tt, torch.from_numpy(cot))
+    np.testing.assert_allclose(tgrad.numpy(), np.asarray(jgrad), rtol=1e-6, atol=1e-6)
+    if aggr == "NONE":  # only the ids in range carry their rows' cotangents
+        valid = (ids >= -rows) & (ids < rows)
+        want = np.zeros_like(table)
+        np.add.at(want, ids[valid] % rows, cot[valid])
+        np.testing.assert_allclose(tgrad.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
 def test_fused_scce_value_and_gradient_match():
