@@ -48,45 +48,67 @@ then the user API, FFModel (flexflow_tpu_torch.core):
                   FFModel (bf16, Adam(1e-4)) and fit on 5 seeded batches of
                   host data after a one-batch warm-up fit: step ms, the
                   batch's host gather and copy ms, peak memory, PerfMetrics,
-                  launches; the final parameters bitwise equal to the same
-                  batches driven through train_step directly;
+                  launches, the profiled fit's kernel ms and idle share; the
+                  final parameters bitwise equal to the same batches driven
+                  through train_step directly;
+10. parity_fit_window  tests/test_fused_dispatch.py's Dropout MLP fit on
+                  the card at steps_per_dispatch 4 and 3 (the tail window)
+                  against the per-step loop, two epochs, then
+                  set_learning_rate and one more: every step's loss and the
+                  parameters bitwise equal, the CUDA graphs captured and
+                  dropped as the window lengths and the learning rate say;
+11. fit_window    the flagship through FFModel at steps_per_dispatch=8: a
+                  one-window warm-up fit, where the graph is captured; the
+                  state put back in place; a timed fit of two windows of
+                  seeded host batches (step ms, the pipeline's fill, capture
+                  ms, peak memory allocated and reserved); a profiled fit
+                  whose trace must count 96 launches a window of each of
+                  rows 1-3's four kernels and no other flash or ring kernel
+                  (a replayed graph runs no wrapper, so the wrappers' counts
+                  stay 0); the parameters and step losses bitwise equal to
+                  the 16 batches through train_step (or within the window
+                  bounds, saying so), the optimizer's step count 16;
 
 then, in a one-rank NCCL process group opened over a file:// store:
 
-10. parity_dp     the two small flagships trained two steps by the
+12. parity_dp     the two small flagships trained two steps by the
                   data-parallel trainer on the card (bf16, per-head kernels)
                   and by the single-device trainer on the CPU (f32);
-11. train_dp      the flagship through the data-parallel trainer, whose
+13. train_dp      the flagship through the data-parallel trainer, whose
                   attention runs the per-head [b, h, s, d] kernels;
-12. train_dp_seq2048  the same for the seq-2048 flagship (batch 16, seq 2048),
+14. train_dp_seq2048  the same for the seq-2048 flagship (batch 16, seq 2048),
                   whose attention runs the same kernels at s > block;
-13. ring_replay   the ring schedule of 4 ranks replayed on the card through
+15. ring_replay   the ring schedule of 4 ranks replayed on the card through
                   the ring-flash step kernels at the long-context shape (b=4,
                   h=8, s=8192, d=128, causal; and b=1 non-causal), held
                   against the full-sequence per-head kernels;
-14. parity_sp     two small causal parallel transformers (seq 1024, heads of
+16. parity_sp     two small causal parallel transformers (seq 1024, heads of
                   128 and of 64) trained two steps by the sequence-parallel
                   trainer on the card (bf16, ring kernels) and on the CPU
                   (f32, plain versions, over a one-rank gloo group);
-15. train_sp      SP_LONGCTX (the flagship's widths, causal, batch 4, seq
+17. train_sp      SP_LONGCTX (the flagship's widths, causal, batch 4, seq
                   8192) through the sequence-parallel trainer at world size
                   1, whose attention runs the ring-flash step kernels;
 
 then serving, whose attention is dense f32 as in the JAX package (every
 flash and ring launch count must stay at 0):
 
-16. parity_serve  two small serving LMs (ServingLMConfig(), and 2 layers of
+18. parity_serve  two small serving LMs (ServingLMConfig(), and 2 layers of
                   embed 256 in 2 heads of 128) from the same numpy
                   parameters on the card and on the CPU (f32 both): prefill
                   logits and caches, the tokens of 8 seeded requests through
-                  ServingEngine in continuous and static mode, and one fused
-                  decode window bitwise equal to one-step windows;
-17. serve         the serving LM at the flagship's widths (SERVE_LM) serving
+                  ServingEngine in continuous and static mode, one fused
+                  decode window bitwise equal to one-step windows, and two
+                  captured windows bitwise equal to the eager body;
+19. serve         the serving LM at the flagship's widths (SERVE_LM) serving
                   SERVE_TRAFFIC (64 slots of 1024 positions, 128 requests,
                   continuous batching, windows of 8) after one warm-up
                   request: requests/s, output tokens/s, ms/token p50/p99,
-                  prefill ms, decode ms a step beside its bound, the host
-                  and device split of a decode window, peak memory; the
+                  prefill ms, decode ms a step beside its bound (the decode
+                  windows are CUDA graphs, one per step count and cache),
+                  the host and device split of a captured and of an eager
+                  decode window, peak memory allocated and reserved; a
+                  captured window bitwise equal to the eager body, the
                   cache's bytes equal per_device_cache_bytes, every request
                   gets its budget of tokens, and 4 requests match a
                   teacher-forced prefill.
@@ -99,7 +121,9 @@ step kernels at train_sp's shape, at the replay's (one with the first
 64-row warpgroup of each block blind), at d=64, and with s_blk != t_blk,
 each carried step adding into random accumulators. Then the kernel table
 as one {"kernels": [...]} line (the redesigned kernels, forwards,
-backwards and deltas, with their design and ptxas figures), and last the
+backwards and deltas, with their design and ptxas figures; each kernel's
+launches are its wrapper's counts in the train phases and fit, and the
+profiler's count in fit_window), and last the
 line {"ok": true,
 "device": {...}}. Any failed check raises and the script exits non-zero.
 Without a CUDA device, or away from a checkout of the repository, it exits
@@ -1450,6 +1474,8 @@ def phase_fit(smi: str, steps: int = STEPS):
     differ = [k for k, p in params.items() if not torch.equal(p, m.params[k])]
     if differ:
         raise AssertionError(f"fit: parameters differ from train_step driven directly: {differ}")
+    del params, opt_state
+    trace = _profiled_fit(m, x[b:], y[b:])
     step_ms = elapsed * 1e3 / steps
     flops = model_step_flops(**cfg)
     emit({
@@ -1460,14 +1486,280 @@ def phase_fit(smi: str, steps: int = STEPS):
         "step_ms_is": "the timed fit call's elapsed / steps, ending in one synchronize",
         "tokens_per_s": tokens / (step_ms / 1e3), "step_flops": flops,
         "mfu": flops / (step_ms / 1e3) / PEAK_BF16, "host_batch": host,
+        "profiled_fit": {"host_ms_per_step": trace["host_ms"] / steps,
+                         "kernel_ms_per_step": trace["kernel_ms"] / steps,
+                         "idle_share": 1.0 - trace["kernel_ms"] / trace["host_ms"],
+                         "top_kernels": trace["top_kernels"]},
         "peak_memory_bytes": peak, "perf": dataclasses.asdict(perf),
         "accuracy": perf.accuracy, "mean_sparse_cce": perf.sparse_cce_loss / perf.train_all,
         "launches": launches, "launches_per_step_each": cfg["layers"],
         "bitwise_equal_to_train_step": True,
     })
-    del m, params, opt_state, init
+    del m, init
     torch.cuda.empty_cache()
     return {name: n for name, n in launches.items() if name in FLASH_WRAPPERS}
+
+
+FIT_WINDOW_K, FIT_WINDOW_WINDOWS = 8, 2  # fit_window's steps_per_dispatch and timed windows
+FIT_WINDOW_KERNELS = {  # what rows 1-3 launch, by the wrapper whose launches each counts
+    "ff_flash_fwd_kernel": "flash_fwd", "ff_flash_delta_kernel": "flash_delta",
+    "ff_flash_bwd_dkv_kernel": "flash_bwd", "ff_flash_bwd_dq_kernel": "flash_bwd",
+}
+WINDOW_LOSS_BOUND = 1e-3  # relative, each step's loss, where a window is not bitwise
+WINDOW_PARAM_BOUND = 1e-2  # relative, each parameter, likewise
+
+
+def _record_window_losses(m, arrivals=None) -> list:
+    """The losses of every step m's fused windows run, as the windows
+    return them (on the card until read); `arrivals` gets the host clock
+    at each window's dispatch. The wrapper sits on the instance, which it
+    refers to: `del m.instance.multi_train_step` when done, so that no
+    reference cycle holds the instance's graphs."""
+    losses, multi = [], m.instance.multi_train_step
+
+    def multi_train_step(*args):
+        if arrivals is not None:
+            arrivals.append(time.perf_counter())
+        out = multi(*args)
+        losses.append(out[3])
+        return out
+
+    m.instance.multi_train_step = multi_train_step
+    return losses
+
+
+def _window_parity(phase: str, got_params, want_params, got_losses, want_losses) -> dict:
+    """Bitwise equality of a fused run with its eager reference, or, where
+    a captured op took another path than the eager one, every step's loss
+    within WINDOW_LOSS_BOUND and every parameter within WINDOW_PARAM_BOUND
+    (relative); raises if neither holds."""
+    import torch
+
+    differ = [k for k, p in want_params.items() if not torch.equal(got_params[k], p)]
+    losses_equal = torch.equal(got_losses, want_losses)
+    if not differ and losses_equal:
+        return {"bitwise": True}
+    loss_rel = float(((got_losses - want_losses).abs() / want_losses.abs()).max())
+    param_rel = max(float((got_params[k] - want_params[k]).norm() / want_params[k].norm())
+                    for k in want_params)
+    out = {"bitwise": False, "params_not_bitwise": differ, "losses_bitwise": losses_equal,
+           "max_loss_rel": loss_rel, "loss_bound": WINDOW_LOSS_BOUND,
+           "max_param_rel": param_rel, "param_bound": WINDOW_PARAM_BOUND}
+    if not (loss_rel < WINDOW_LOSS_BOUND and param_rel < WINDOW_PARAM_BOUND):
+        raise AssertionError(f"{phase}: the fused run differs from the eager steps: {out}")
+    return out
+
+
+def _fused_mlp(k: int):
+    """tests/test_fused_dispatch.py's model (32 -> 32 relu -> Dropout 0.1
+    -> 10, batch 16, Adam(1e-2)) through FFModel on the card, fused at K."""
+    from flexflow_tpu_torch.core import AdamOptimizer, FFConfig, FFModel
+
+    m = FFModel(FFConfig(batch_size=16, seed=0, steps_per_dispatch=k, print_freq=0),
+                device="cuda")
+    x = m.create_tensor([16, 32], name="x")
+    h = m.dropout(m.relu(m.dense(x, 32, use_bias=False, name="fc1")), 0.1)
+    m.dense(h, 10, use_bias=False, name="head")
+    m.compile(AdamOptimizer(alpha=1e-2), "sparse_categorical_crossentropy", metrics=["accuracy"])
+    return m
+
+
+def phase_parity_fit_window():
+    """The Dropout model fit on the card, f32, two epochs of 8 shuffled
+    batches, then set_learning_rate and one more fit: at K=4 (two windows
+    an epoch) and K=3 (3 + 3 + 2, the tail) bitwise equal to the per-step
+    loop (K=1, eager), step losses and parameters, with the graphs
+    captured and dropped as the window lengths and the learning rate
+    say. Replayed windows that repeated a Dropout mask (an unregistered
+    generator) or kept the old learning rate (a graph not dropped) would
+    differ."""
+    import numpy as np
+    import torch
+
+    start = time.perf_counter()
+    rs = np.random.RandomState(0)
+    data = [(rs.randn(128, 32).astype(np.float32), rs.randint(0, 10, 128)) for _ in range(2)]
+    runs = {}
+    for k in (1, 4, 3):
+        m = _fused_mlp(k)
+        steps = []
+        if k == 1:
+            step = m.instance.train_step
+
+            def train_step(*args, _step=step):
+                out = _step(*args)
+                steps.append(out[2].reshape(1))
+                return out
+
+            m.instance.train_step = train_step
+        else:
+            steps = _record_window_losses(m)
+        m.fit(*data[0], epochs=2, shuffle=True, verbose=False)
+        first = {key: p.clone() for key, p in m.params.items()}
+        captures = m.instance.graphs.captures
+        m.set_learning_rate(3e-3)
+        dropped = len(m.instance.graphs) == 0
+        m.fit(*data[1], epochs=1, shuffle=True, verbose=False, epoch_offset=1)
+        runs[k] = dict(first=first, final=m.params, losses=torch.cat(steps),
+                       step=int(m.opt_state["step"]), captures=(captures, m.instance.graphs.captures),
+                       dropped=dropped)
+        del m.instance.__dict__["train_step" if k == 1 else "multi_train_step"]
+        m.invalidate_graphs()
+    ref = runs[1]
+    out = {}
+    for k, want_captures in ((4, (1, 2)), (3, (2, 4))):
+        r = runs[k]
+        if not (r["step"] == ref["step"] == 24) or r["captures"] != want_captures or \
+                not r["dropped"]:
+            raise AssertionError(f"parity_fit_window K={k}: step {r['step']}, captures "
+                                 f"{r['captures']} (expected {want_captures}), dropped "
+                                 f"{r['dropped']}")
+        out[k] = {
+            "before_set_learning_rate": _window_parity(
+                f"parity_fit_window K={k}", r["first"], ref["first"], r["losses"][:16],
+                ref["losses"][:16]),
+            "after": _window_parity(f"parity_fit_window K={k}", r["final"], ref["final"],
+                                    r["losses"], ref["losses"]),
+            "captures": r["captures"], "opt_step": r["step"],
+        }
+    emit({"phase": "parity_fit_window", "model": "32-32 relu dropout(0.1)-10, batch 16",
+          "optimizer": "adam(alpha=1e-2), then set_learning_rate(3e-3)",
+          "epochs": "2, then 1 after set_learning_rate", "reference": "K=1, eager",
+          "windows": {str(k): v for k, v in out.items()}, "seconds": time.perf_counter() - start})
+
+
+def _profiled_fit(m, x, y) -> dict:
+    """One fit under torch.profiler: host ms to its synchronized end, the
+    card's kernel ms, and each flash and ring kernel's launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        m.fit(x, y, epochs=1, shuffle=False, verbose=False)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - start) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return {"host_ms": host_ms, "kernel_ms": kernel_ms,
+            "flash": {e.key: e.count for e in kernels if e.key.startswith(("ff_flash_", "ff_ring_"))},
+            "top_kernels": [{"name": e.key[:120], "ms": e.self_device_time_total / 1e3,
+                             "calls": e.count}
+                            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]]}
+
+
+def phase_fit_window(smi: str, k: int = FIT_WINDOW_K, windows: int = FIT_WINDOW_WINDOWS):
+    """The flagship through FFModel with steps_per_dispatch=k (bf16,
+    Adam(1e-4)): a one-window warm-up fit, where the k-step graph is
+    captured; the state put back to compile's in place; one timed fit of
+    `windows` windows of seeded host batches, unshuffled; one profiled fit
+    of the same, whose trace counts each kernel's launches (a replay runs
+    no Python, so the wrappers' counts stay at 0); then the same batches
+    from compile's parameters through train_step, eagerly, which the timed
+    fit must equal bitwise (or within the window bounds, saying so)."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.core import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels.optimizer import make_optimizer_state
+    from flexflow_tpu_torch.models import FLAGSHIP, build_flagship_cg, model_step_flops
+
+    cfg, b = FLAGSHIP, FLAGSHIP["batch"]
+    steps = k * windows
+    start = time.perf_counter()
+    m = FFModel.from_computation_graph(
+        *build_flagship_cg(**cfg),
+        config=FFConfig(batch_size=b, seed=0, print_freq=0, steps_per_dispatch=k))
+    m.compile(AdamOptimizer(alpha=1e-4), "sparse_categorical_crossentropy", metrics=FIT_METRICS,
+              compute_dtype=torch.bfloat16)
+    init = {key: p.cpu() for key, p in m.params.items()}
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((steps * b, cfg["seq"], cfg["embed"]), dtype=np.float32)
+    y = rng.integers(0, cfg["vocab"], (steps * b, cfg["seq"]), dtype=np.int32)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+
+    graphs = m.instance.graphs
+    t0 = time.perf_counter()
+    m.fit(x[:k * b], y[:k * b], epochs=1, shuffle=False, verbose=False)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():  # compile's state again, written in place: the graph stays valid
+        for key, p in m.params.items():
+            p.copy_(init[key])
+        for slot in ("m", "v"):
+            for t in m.opt_state[slot].values():
+                t.zero_()
+        m.opt_state["step"].zero_()
+    arrivals = []
+    losses = _record_window_losses(m, arrivals)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    perf = m.fit(x, y, epochs=1, shuffle=False, verbose=False)
+    elapsed = time.perf_counter() - t0
+    dispatch_ms = [(t - t0) * 1e3 for t in arrivals]
+    counters = _flash_launches()
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    opt_step = int(m.opt_state["step"])
+    if graphs.captures != 1 or any(counters.values()) or opt_step != steps:
+        raise AssertionError(f"fit_window: {graphs.captures} captures, wrapper counts {counters}, "
+                             f"optimizer step {opt_step} (expected 1, all 0, {steps})")
+    tokens = b * cfg["seq"]
+    if perf.train_all != steps * tokens or not math.isfinite(perf.sparse_cce_loss):
+        raise AssertionError(f"fit_window: {perf}")
+    fitted = {key: p.clone() for key, p in m.params.items()}
+    fitted_losses = torch.cat(losses)
+
+    trace = _profiled_fit(m, x, y)
+    want = {name: cfg["layers"] * steps for name in FIT_WINDOW_KERNELS}
+    if trace["flash"] != want:
+        raise AssertionError(f"fit_window: the trace of {windows} windows counts {trace['flash']} "
+                             f"flash and ring launches, expected {want}")
+    capture_ms = graphs.capture_ms[0]
+    del m.instance.multi_train_step
+    m.invalidate_graphs()
+    torch.cuda.empty_cache()
+
+    params = {key: p.to(m.device) for key, p in init.items()}
+    opt_state = make_optimizer_state(m.instance.optimizer_attrs, params)
+    ref_losses = []
+    for i in range(steps):
+        rows = slice(i * b, (i + 1) * b)
+        params, opt_state, loss, _ = m.instance.train_step(params, opt_state, {"x": x[rows]}, y[rows])
+        ref_losses.append(loss.reshape(1))
+    parity = _window_parity("fit_window", fitted, params, fitted_losses, torch.cat(ref_losses))
+    step_ms = elapsed * 1e3 / steps
+    flops = model_step_flops(**cfg)
+    per_window = {name: n // windows for name, n in trace["flash"].items()}
+    emit({
+        "phase": "fit_window", "config": cfg, "card": smi, "compute_dtype": "bf16",
+        "optimizer": "adam(alpha=1e-4)", "metrics": FIT_METRICS, "steps_per_dispatch": k,
+        "windows": windows, "steps": steps, "setup_s": setup_s, "warmup_fit_ms": warm_ms,
+        "capture_ms": capture_ms, "fit_elapsed_s": elapsed, "step_ms": step_ms,
+        "window_dispatch_ms": dispatch_ms,
+        "window_dispatch_ms_is": "host ms from the timed fit's start to each window's dispatch "
+                                 "(the first: the pipeline's fill, the first window's gather "
+                                 "and copy)",
+        "step_ms_is": "the timed fit's elapsed / steps, ending in one synchronize",
+        "tokens_per_s": tokens / (step_ms / 1e3), "step_flops": flops,
+        "mfu": flops / (step_ms / 1e3) / PEAK_BF16,
+        "profiled_fit": {"host_ms_per_window": trace["host_ms"] / windows,
+                         "kernel_ms_per_window": trace["kernel_ms"] / windows,
+                         "idle_share": 1.0 - trace["kernel_ms"] / trace["host_ms"],
+                         "top_kernels": trace["top_kernels"]},
+        "launches_per_window": per_window, "launches_per_step_each": cfg["layers"],
+        "wrapper_counts_in_timed_fit": counters,
+        "peak_memory_allocated_bytes": peak, "peak_memory_reserved_bytes": reserved,
+        "perf": dataclasses.asdict(perf), "mean_sparse_cce": perf.sparse_cce_loss / perf.train_all,
+        "opt_step": opt_step, "equal_to_train_step": parity,
+        "last_losses": fitted_losses[-2:].tolist(),
+    })
+    del m, params, opt_state, fitted, init
+    torch.cuda.empty_cache()
+    return {wrapper: trace["flash"][name] for name, wrapper in FIT_WINDOW_KERNELS.items()}
 
 
 # the serving LM at the flagship's widths (bench.py:37), and its traffic on one card
@@ -1612,6 +1904,13 @@ def phase_parity_serve():
         if not fused_bitwise:
             raise AssertionError(f"parity_serve {name}: a fused window of {window} steps differs "
                                  f"from {window} one-step windows")
+        cache, tok, _ = card.prefill(card.init_cache(), prompts, lengths, fresh)
+        graph_bitwise = _graph_window_bitwise(
+            card, cache, tok, torch.as_tensor(lengths, device="cuda"),
+            torch.as_tensor(fresh, device="cuda"), window, windows=2)
+        if not graph_bitwise:
+            raise AssertionError(f"parity_serve {name}: the captured decode window differs from "
+                                 "the eager body")
 
         traces = {}
         for mode in ("continuous", "static"):
@@ -1625,15 +1924,42 @@ def phase_parity_serve():
               "slots": slots, "max_seq_len": cap, "window_steps": window,
               "prefill_logits_rel_err": logits_rel, "cache_rel_err": cache_rel,
               "bound": SERVE_PARITY_BOUND, "fused_window_bitwise": fused_bitwise,
+              "graph_window_bitwise_to_eager": graph_bitwise,
               "tokens_equal": True, "tokens_per_mode": traces})
     _no_flash_launches("parity_serve")
     emit({"phase": "parity_serve", "seconds": time.perf_counter() - start,
           "launches": _flash_launches()})
 
 
-def _timed(fn, log: list):
+def _graph_window_bitwise(program, cache, token, lengths, active, steps: int,
+                          windows: int) -> bool:
+    """`windows` decode windows of `steps` from one state, through the
+    captured graph (decode_window) on `cache` and through the eager body
+    (decode_window_eager) on a copy of it: the same tokens, lengths and
+    cache, bit for bit."""
+    import torch
+
+    copy = {layer: {part: t.clone() for part, t in kv.items()} for layer, kv in cache.items()}
+    runs = []
+    for decode, kv in ((program.decode_window, cache), (program.decode_window_eager, copy)):
+        tok, lens, toks = token, lengths, []
+        for _ in range(windows):
+            kv, tok, lens, t = decode(kv, tok, lens, active, steps)
+            toks.append(t)
+        runs.append((torch.cat(toks, dim=1), tok, lens))
+    same = all(torch.equal(a, b) for a, b in zip(*runs)) and all(
+        torch.equal(cache[layer][part], copy[layer][part])
+        for layer in cache for part in ("k", "v"))
+    del copy
+    torch.cuda.empty_cache()
+    return same
+
+
+def _timed(fn, log: list, peaks: list):
     """`fn` (whose first argument is the cache) with each call's host time,
-    to its synchronized end, appended to `log` as (ms, the other args)."""
+    to its synchronized end, appended to `log` as (ms, the other args), and
+    the peak memory allocated and reserved since the last call's end to
+    `peaks`."""
     import torch
 
     def wrapped(cache, *args):
@@ -1641,6 +1967,8 @@ def _timed(fn, log: list):
         out = fn(cache, *args)
         torch.cuda.synchronize()
         log.append(((time.perf_counter() - start) * 1e3, args))
+        peaks.append((torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()))
+        torch.cuda.reset_peak_memory_stats()
         return out
 
     return wrapped
@@ -1685,11 +2013,12 @@ def _teacher_forced(program, records, requests, cfg) -> dict:
             "near_ties": near_ties, "max_gap_below_max_logit": worst_gap, "bound": NEAR_TIE}
 
 
-def _decode_split(program, cache, steps: int) -> dict:
-    """A decode window of `steps` at every slot active, timed on the host
-    (to its return, and to its synchronized end), then the same window
-    traced for its device (kernel) time: the device's idle share is what
-    the host costs it."""
+def _decode_split(program, cache, steps: int, decode) -> dict:
+    """A decode window of `steps` at every slot active through `decode`
+    (the captured window, or the eager body), timed on the host (to its
+    return, and to its synchronized end), then the same window traced for
+    its device (kernel) time: the device's idle share is what the host
+    costs it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1699,16 +2028,16 @@ def _decode_split(program, cache, steps: int) -> dict:
     lengths = torch.full((slots,), program.serving.max_seq_len // 2, dtype=torch.int32,
                          device="cuda")
     active = torch.ones(slots, dtype=torch.bool, device="cuda")
-    program.decode_window(cache, token, lengths, active, steps)
+    decode(cache, token, lengths, active, steps)
     torch.cuda.synchronize()
     start = time.perf_counter()
-    program.decode_window(cache, token, lengths, active, steps)
+    decode(cache, token, lengths, active, steps)
     enqueued_ms = (time.perf_counter() - start) * 1e3
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - start) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        program.decode_window(cache, token, lengths, active, steps)
+        decode(cache, token, lengths, active, steps)
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - start) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -1769,9 +2098,9 @@ def phase_serve(smi: str) -> None:
     if allocated != cache_bytes:
         raise AssertionError(f"serve: the cache allocated {allocated} B, per_device_cache_bytes "
                              f"says {cache_bytes}")
-    prefills, windows = [], []
-    program.prefill = _timed(program.prefill, prefills)
-    program.decode_window = _timed(program.decode_window, windows)
+    prefills, windows, prefill_peaks, window_peaks = [], [], [], []
+    program.prefill = _timed(program.prefill, prefills, prefill_peaks)
+    program.decode_window = _timed(program.decode_window, windows, window_peaks)
     requests = _serve_requests(t["requests"], cfg.vocab_size, t["prompt_len"],
                                t["max_new_tokens"], t["seed"])
     torch.cuda.reset_peak_memory_stats()
@@ -1781,7 +2110,9 @@ def phase_serve(smi: str) -> None:
     records = eng.run()
     run_s = time.perf_counter() - run_start
     summary = eng.summary()
-    peak = torch.cuda.max_memory_allocated()
+    peaks = prefill_peaks + window_peaks + [
+        (torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved())]
+    peak, reserved = max(a for a, _ in peaks), max(r for _, r in peaks)
     del program.prefill, program.decode_window
     eng.close()
 
@@ -1795,7 +2126,23 @@ def phase_serve(smi: str) -> None:
                                  f"(budget {by_rid[r.rid].max_new_tokens}) or one out of range")
     teacher = _teacher_forced(program, sorted(records, key=lambda r: int(r.rid[1:]))[:4],
                               by_rid, cfg)
-    split = _decode_split(program, eng.replicas[0].cache, t["window_steps"])
+    cache = eng.replicas[0].cache
+    captured = {"captures": program.graphs.captures, "graphs": len(program.graphs),
+                "capture_ms": program.graphs.capture_ms}
+    if not program.graphs.captures or len(program.graphs) > 2 * t["window_steps"]:
+        raise AssertionError(f"serve: decode graphs {captured}; at most {t['window_steps']} step "
+                             "counts for each of the two engines' caches")
+    slots = t["slots"]
+    graph_bitwise = _graph_window_bitwise(
+        program, cache, torch.arange(slots, dtype=torch.int32, device="cuda"),
+        torch.full((slots,), t["max_seq_len"] // 4, dtype=torch.int32, device="cuda"),
+        torch.ones(slots, dtype=torch.bool, device="cuda"), t["window_steps"], windows=1)
+    if not graph_bitwise:
+        raise AssertionError("serve: the captured decode window differs from the eager body")
+    # the eager window first: its timing is the host's, and no trace of
+    # the captured one runs before it
+    eager_split = _decode_split(program, cache, t["window_steps"], program.decode_window_eager)
+    split = _decode_split(program, cache, t["window_steps"], program.decode_window)
     _no_flash_launches("serve")
 
     tokens = summary["tokens_generated"]
@@ -1816,11 +2163,17 @@ def phase_serve(smi: str) -> None:
         "windows": len(windows), "decode_steps": sum(args[3] for _, args in windows),
         "median_decode_ms_per_step": statistics.median(decode_ms),
         "decode_step_bound_ms": bound_ms, "decode_bound_by": "bytes",
-        "decode_split": split, "teacher_forced": teacher, "peak_memory_bytes": peak,
+        "decode_split": split, "eager_decode_split": eager_split,
+        "decode_graphs": captured, "graph_window_bitwise_to_eager": graph_bitwise,
+        "teacher_forced": teacher, "peak_memory_bytes": peak,
+        "peak_memory_bytes_in_prefill": max(a for a, _ in prefill_peaks),
+        "peak_memory_bytes_in_decode_windows": max(a for a, _ in window_peaks),
+        "peak_memory_reserved_bytes": reserved,
         "launches": _flash_launches(), "setup_s": setup_s,
         "seconds": time.perf_counter() - start,
     })
-    del program, eng
+    program.graphs.invalidate()
+    del program, eng, cache
     torch.cuda.empty_cache()
 
 
@@ -1837,28 +2190,34 @@ def main() -> None:
             entry["design"] = DELTA_DESIGN if entry["name"] in DELTA_WRAPPERS else "wgmma+tma"
             entry["ptxas"] = {k: ptxas[k] for k in REDESIGNED[entry["name"]]}
     phase_parity()
-    launches = {  # per train phase, the launches of each wrapper on its path
-        "train": phase_train(smi, FLAGSHIP, "train", FLASH_WRAPPERS),
-        "train_heads16": phase_train(smi, REF_HEADS16, "train_heads16",
-                                     ("flash_fwd_d64", "flash_delta_d64", "flash_bwd_d64")),
+    launches = {  # per train phase: the launches of each wrapper on its path, and the steps
+        "train": (phase_train(smi, FLAGSHIP, "train", FLASH_WRAPPERS), STEPS),
+        "train_heads16": (phase_train(smi, REF_HEADS16, "train_heads16",
+                                      ("flash_fwd_d64", "flash_delta_d64", "flash_bwd_d64")),
+                          STEPS),
     }
     phase_parity_fit()
     phase_stepped()
-    launches["fit"] = phase_fit(smi)
+    launches["fit"] = (phase_fit(smi), STEPS)
+    phase_parity_fit_window()
+    # the windowed fit's count is the profiler's: a replayed graph runs no wrapper
+    launches["fit_window"] = (phase_fit_window(smi), FIT_WINDOW_K * FIT_WINDOW_WINDOWS)
     with dp_group():
         phase_parity_dp()
-        launches["train_dp"] = phase_train(smi, FLAGSHIP, "train_dp", BHSD_WRAPPERS, dp=True)
-        launches["train_dp_seq2048"] = phase_train(smi, LONGCTX, "train_dp_seq2048",
-                                                   BHSD_WRAPPERS, dp=True)
+        launches["train_dp"] = (phase_train(smi, FLAGSHIP, "train_dp", BHSD_WRAPPERS, dp=True),
+                                STEPS)
+        launches["train_dp_seq2048"] = (phase_train(smi, LONGCTX, "train_dp_seq2048",
+                                                    BHSD_WRAPPERS, dp=True), STEPS)
         phase_ring_replay()
         phase_parity_sp()
-        launches["train_sp"] = phase_train_sp(smi)
+        launches["train_sp"] = (phase_train_sp(smi), STEPS)
     phase_parity_serve()
     phase_serve(smi)
     for entry in kernels:
-        by_phase = {p: n[entry["name"]] for p, n in launches.items() if entry["name"] in n}
-        entry["launches"] = sum(by_phase.values())
-        entry["launches_per_step"] = {p: n // STEPS for p, n in by_phase.items()}
+        by_phase = {p: (n[entry["name"]], steps) for p, (n, steps) in launches.items()
+                    if entry["name"] in n}
+        entry["launches"] = sum(n for n, _ in by_phase.values())
+        entry["launches_per_step"] = {p: n // steps for p, (n, steps) in by_phase.items()}
     emit({"kernels": kernels, "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

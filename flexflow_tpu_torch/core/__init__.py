@@ -10,7 +10,11 @@
 >>> ffmodel.fit(x=images, y=labels, epochs=1)
 """
 
-from flexflow_tpu_torch.core.dataloader import BatchIterator, SingleDataLoader
+from flexflow_tpu_torch.core.dataloader import (
+    BatchIterator,
+    SingleDataLoader,
+    WindowedBatchIterator,
+)
 from flexflow_tpu_torch.core.ffmodel import (
     CompMode,
     FFModel,
@@ -51,5 +55,6 @@ __all__ = [
     "Tensor",
     "TruncatedNormalInitializer",
     "UniformInitializer",
+    "WindowedBatchIterator",
     "ZeroInitializer",
 ]

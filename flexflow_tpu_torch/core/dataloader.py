@@ -1,24 +1,29 @@
 """Host-side data loading (trimmed copy of flexflow_tpu/core/dataloader.py:
-SingleDataLoader and BatchIterator).
+SingleDataLoader, BatchIterator and WindowedBatchIterator).
 
 The full dataset lives in host memory and each batch is copied to the
 device as it is drawn, where the JAX package `device_put`s it with the
 input's sharding. Shuffling draws the same `np.random.RandomState(seed)`
 permutation per epoch, so a shuffled run sees the JAX package's batches in
-the JAX package's order. The copy is a plain `torch.as_tensor` from
-pageable memory, which blocks the host; pinned buffers on a side stream and
-the windowed iterator come with the step windows (A5 part 2), resume
-cursors with checkpointing (A8).
+the JAX package's order. The per-step copy is a plain `torch.as_tensor`
+from pageable memory, which blocks the host. The windowed iterator of the
+fused step windows instead gathers on a producer thread into pinned
+buffers and copies on a side stream. Resume cursors come with
+checkpointing (A8).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional
+import itertools
+import queue
+import threading
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
 from flexflow_tpu_torch.local_execution.training_backing import resolve_device
+from flexflow_tpu_torch.runtime.supervisor import BackgroundFault
 
 
 class SingleDataLoader:
@@ -117,6 +122,7 @@ class BatchIterator:
         order = np.arange(self.num_samples)
         if self.shuffle:
             self._rs.shuffle(order)
+        self._order = order
         for dl in [*self.loaders.values(), self.label_loader]:
             if dl is not None:
                 dl.reset()
@@ -128,3 +134,184 @@ class BatchIterator:
             batch = {k: dl.next_batch() for k, dl in self.loaders.items()}
             label = self.label_loader.next_batch() if self.label_loader is not None else None
             yield batch, label
+
+    def iter_rows(self) -> Iterator[np.ndarray]:
+        """The row indices of each batch of one new epoch, in __iter__'s
+        order (the windowed iterator gathers them itself)."""
+        self.reset()
+        b = self.batch_size
+        for i in range(self.num_batches):
+            yield self._order[i * b:(i + 1) * b]
+
+
+class _ProducerError:
+    def __init__(self, exc: BaseException) -> None:
+        self.exc = exc
+
+
+_PRODUCER_DONE = object()
+_LABEL = object()  # the label's key among a window's tensors
+
+
+class WindowedBatchIterator:
+    """Windows of `window` consecutive batches of a BatchIterator, stacked
+    [k, ...] per tensor: the fused step window's input pipeline.
+
+    One iteration is one epoch: the BatchIterator's batches in its order,
+    grouped into windows; the epoch's tail (num_batches % window) comes out
+    as one smaller window, so a window never spans a reshuffle. With
+    `prefetch`, a producer thread builds window n+1 while the consumer
+    trains on window n (a queue of one: one window in flight beyond the
+    one executing).
+
+    On a CUDA device the producer gathers a window's rows (np.take, which
+    releases the interpreter lock) into one of two pinned host buffers,
+    allocated at first use and reused for the iterator's life (one fit),
+    and copies it to the card on a side stream, recording an event; the
+    consumer's stream waits on that event before the window is used. On
+    the CPU each window is gathered into a new array.
+
+    The JAX package's `window_sharding` exists here for no mesh (A7); its
+    `keep_host` stacks feed the health monitor (A9) and its fault sites the
+    fault schedule (A8), neither of them ported.
+
+    Yields (inputs_stack, label_stack or None, k)."""
+
+    def __init__(self, it: BatchIterator, window: int, prefetch: bool = True) -> None:
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        self.it = it
+        self.window = int(window)
+        self.prefetch = prefetch
+        self.device = it.device
+        self._stop = threading.Event()
+        self._queue: Optional[queue.Queue] = None
+        self._thread: Optional[threading.Thread] = None
+        self._sources = {name: dl.data for name, dl in it.loaders.items()}
+        if it.label_loader is not None:
+            self._sources[_LABEL] = it.label_loader.data
+        # CUDA only: the two pinned host buffers, the copy stream, and the
+        # event of the last copy out of each buffer
+        self._pinned: List[Dict[str, torch.Tensor]] = []
+        self._stream = None
+        self._copied: List[Optional[torch.cuda.Event]] = [None, None]
+
+    def _host_window(self, slot: int, k: int) -> Dict[str, torch.Tensor]:
+        """Host tensors [k, batch, ...] to gather a window into."""
+        b = self.it.batch_size
+        if self.device.type != "cuda":
+            return {name: torch.from_numpy(np.empty((k, b, *src.shape[1:]), src.dtype))
+                    for name, src in self._sources.items()}
+        if not self._pinned:
+            self._pinned = [
+                {name: torch.empty((self.window, b, *src.shape[1:]),
+                                   dtype=torch.from_numpy(src[:0]).dtype, pin_memory=True)
+                 for name, src in self._sources.items()}
+                for _ in range(2)
+            ]
+        if self._copied[slot] is not None:
+            self._copied[slot].synchronize()  # its last window has left it
+        return {name: buf[:k] for name, buf in self._pinned[slot].items()}
+
+    def _windows(self):
+        """(stacks by name, the event the copy to the device recorded or
+        None, k) per window of one epoch."""
+        rows_iter = self.it.iter_rows()
+        slot = 0
+        while not self._stop.is_set():
+            rows = list(itertools.islice(rows_iter, self.window))
+            if not rows:
+                return
+            k = len(rows)
+            host = self._host_window(slot, k)
+            for name, src in self._sources.items():
+                out = host[name].numpy()
+                for j, r in enumerate(rows):
+                    np.take(src, r, axis=0, out=out[j], mode="clip")
+            if self.device.type != "cuda":
+                yield host, None, k
+                continue
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(self._stream):
+                stacks = {name: t.to(self.device, non_blocking=True) for name, t in host.items()}
+                event = torch.cuda.Event()
+                event.record(self._stream)
+            self._copied[slot] = event
+            slot ^= 1
+            yield stacks, event, k
+
+    def _ready(self, item):
+        """The consumer's side of a window: its stream waits for the copy,
+        and the copy's memory is kept until that stream is done with it."""
+        stacks, event, k = item
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            for t in stacks.values():
+                t.record_stream(stream)
+        label = stacks.pop(_LABEL, None)
+        return stacks, label, k
+
+    def _producer(self) -> None:
+        try:
+            for item in self._windows():
+                while not self._stop.is_set():
+                    try:
+                        self._queue.put(item, timeout=0.05)
+                        break
+                    except queue.Full:
+                        continue
+                if self._stop.is_set():
+                    return
+            self._queue.put(_PRODUCER_DONE)
+        except BaseException as e:  # surfaces in the consumer
+            try:
+                self._queue.put(_ProducerError(e), timeout=5.0)
+            except queue.Full:
+                pass  # the consumer is gone or stalled
+
+    def __iter__(self):
+        self._stop.clear()
+        if not self.prefetch:
+            for item in self._windows():
+                yield self._ready(item)
+            return
+        self._queue = queue.Queue(maxsize=1)
+        t = self._thread = threading.Thread(
+            target=self._producer, name="ff-input-pipeline", daemon=True)
+        t.start()
+        try:
+            while True:
+                try:
+                    item = self._queue.get(timeout=0.5)
+                except queue.Empty:
+                    # a producer that died without posting (a hard kill, an
+                    # error while building the error item) would leave this
+                    # get() waiting forever
+                    if not t.is_alive():
+                        raise BackgroundFault("h2d_producer", RuntimeError(
+                            "input-pipeline producer thread died without posting a result"))
+                    continue
+                if item is _PRODUCER_DONE:
+                    return
+                if isinstance(item, _ProducerError):
+                    raise item.exc
+                yield self._ready(item)
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        """Unblock and retire the producer (on an early exit of the
+        consumer, or at the epoch's end)."""
+        self._stop.set()
+        q = self._queue
+        if q is not None:
+            try:
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+        t = self._thread
+        if t is not None and t is not threading.current_thread():
+            t.join(timeout=5.0)

@@ -16,10 +16,12 @@ and with them the parameter keys `n{idx}` and names like "fc1.weight0",
 name the same tensors in both packages. `compile` on one device builds the
 ModelTrainingInstance the JAX package builds there (CUDA unless the model
 was made with device="cpu"); `fit` drives its train_step, the same step a
-direct caller drives. What reaches a slice that is not ported yet raises
-NotImplementedError naming it, at the call: the layer methods of unported
-ops (A2), more than one device (A7; with a search budget, A6), fused step
-windows (A5 part 2), checkpoints, recompiles and fit-loop supervision (A8),
+direct caller drives. With `FFConfig(steps_per_dispatch=K)`, `fit` runs
+windows of K steps through `multi_train_step` (on a card, one CUDA graph
+replay a window), fed by the windowed input pipeline. What reaches a slice
+that is not ported yet raises NotImplementedError naming it, at the call:
+the layer methods of unported ops (A2), more than one device (A7; with a
+search budget, A6), checkpoints, recompiles and fit-loop supervision (A8),
 telemetry, traces and plan audits (A9), sub-mesh branches (A10).
 """
 
@@ -34,7 +36,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from flexflow_tpu_torch.core.dataloader import BatchIterator
+from flexflow_tpu_torch.core.dataloader import BatchIterator, WindowedBatchIterator
 from flexflow_tpu_torch.core.optimizers import optimizer_attrs_of
 from flexflow_tpu_torch.kernels.loss import loss_forward
 from flexflow_tpu_torch.kernels.metrics import PerfMetrics, compute_metrics
@@ -138,7 +140,10 @@ class FFModel:
         self.device = resolve_device(device)
         self._builder = ComputationGraphBuilder()
         self._num_inputs = 0
-        self._last_tensor: Optional[Tensor] = None
+        # the newest layer's output handle, not its Tensor: a Tensor refers
+        # back to the model, and that cycle would hold the model's device
+        # memory until the garbage collector's next full pass
+        self._last_output: Optional[DataflowOutput] = None
         # set by compile():
         self.instance: Optional[ModelTrainingInstance] = None
         self.params: Optional[Dict[str, torch.Tensor]] = None
@@ -151,6 +156,9 @@ class FFModel:
         self._label_dtype = np.int32
         self._step_count = 0
         self._aux_loss_tensors: List[DataflowOutput] = []
+        # fit's generator, reseeded by each fit: one object, so that the
+        # fused windows' CUDA graphs, which register it, outlive a fit
+        self._rng: Optional[torch.Generator] = None
 
     @classmethod
     def from_computation_graph(
@@ -168,8 +176,7 @@ class FFModel:
         m._builder.graph = cg.graph if isinstance(cg, ComputationGraphBuilder) else cg
         for t in aux_loss_tensors:
             m._aux_loss_tensors.append(t.handle if isinstance(t, Tensor) else t)
-        m._last_tensor = m._wrap(
-            logit_tensor.handle if isinstance(logit_tensor, Tensor) else logit_tensor)
+        m._wrap(logit_tensor.handle if isinstance(logit_tensor, Tensor) else logit_tensor)
         return m
 
     # ------------------------------------------------------------------
@@ -181,9 +188,8 @@ class FFModel:
         return self._builder.graph
 
     def _wrap(self, h: DataflowOutput) -> Tensor:
-        t = Tensor(self, h)
-        self._last_tensor = t
-        return t
+        self._last_output = h
+        return Tensor(self, h)
 
     def _unwrap(self, t: Union[Tensor, DataflowOutput]) -> DataflowOutput:
         return t.handle if isinstance(t, Tensor) else t
@@ -424,7 +430,7 @@ class FFModel:
         self._validate_config_flags()
         self.metrics = frozenset(metrics)
         self.comp_mode = comp_mode
-        logit = self._unwrap(logit_tensor or self._last_tensor)
+        logit = self._unwrap(logit_tensor) if logit_tensor is not None else self._last_output
         self._label_dtype = (
             np.int32 if loss_type == LossFunction.SPARSE_CATEGORICAL_CROSSENTROPY else np.float32)
         ndev = self._device_count()
@@ -436,6 +442,7 @@ class FFModel:
             raise NotImplementedError(
                 f"a compile over {ndev} devices is not ported yet (A7); "
                 "set max_devices=1 to compile for one")
+        self.invalidate_graphs()
         self.instance = ModelTrainingInstance(
             self.cg, logit, self.loss_attrs, self.optimizer_attrs,
             compute_dtype=compute_dtype, device=self.device, metrics=self.metrics,
@@ -479,8 +486,6 @@ class FFModel:
                 "compile_cache_dir configures the JAX package's persistent XLA compilation "
                 "cache; the port compiles no XLA program, so unset it")
         unported = (
-            (cfg.steps_per_dispatch > 1, "steps_per_dispatch > 1 (fused step windows)",
-             "A5 part 2"),
             (bool(cfg.checkpoint_dir), "checkpoint_dir (fit-loop checkpointing)", "A8"),
             (cfg.watchdog_factor > 0, "watchdog_factor (the window watchdog)", "A8"),
             (bool(cfg.metrics_dir), "metrics_dir (the step event stream)", "A9"),
@@ -565,26 +570,55 @@ class FFModel:
         epochs = epochs or self.config.epochs
         batch_size = batch_size or self.config.batch_size
         it = self._make_iterator(x, y, batch_size, shuffle=shuffle, seed_offset=epoch_offset)
-        rng = torch.Generator(device=self.device).manual_seed(
-            self.config.seed * 1_000_003 + epoch_offset)
+        if self._rng is None:
+            self._rng = torch.Generator(device=self.device)
+        rng = self._rng.manual_seed(self.config.seed * 1_000_003 + epoch_offset)
         return self._fit_epochs(epochs, batch_size, verbose, it, rng)
 
+    def _effective_steps_per_dispatch(self) -> int:
+        """The fused window length this fit runs. FF_TPU_FUSED_BASELINE=1
+        reverts to the per-step loop, and says so."""
+        k = int(self.config.steps_per_dispatch)
+        if k <= 1:
+            return 1
+        if os.environ.get("FF_TPU_FUSED_BASELINE") == "1":
+            print("[flexflow_tpu_torch] FF_TPU_FUSED_BASELINE=1: steps_per_dispatch "
+                  f"{k} reverted to the per-step loop")
+            return 1
+        return k
+
     def _fit_epochs(self, epochs, batch_size, verbose, it, rng) -> PerfMetrics:
+        """The per-step loop, or with steps_per_dispatch = K > 1 the windowed
+        one: each window of K batches (the epoch's tail a smaller one)
+        trains through one multi_train_step, its input gathered and copied
+        while the window before it runs."""
         start = time.perf_counter()
         num_samples = 0
         loss = None
         macc: Optional[Dict[str, object]] = None
-        for epoch in range(epochs):
-            for batch, label in it:
-                self.params, self.opt_state, loss, mvals = self.instance.train_step(
-                    self.params, self.opt_state, batch, label, rng)
-                self._step_count += 1
-                num_samples += batch_size
-                macc = mvals if macc is None else {k: macc[k] + v for k, v in mvals.items()}
-                if verbose and self.config.print_freq and (
-                    self._step_count % self.config.print_freq == 0
-                ):
-                    print(f"epoch {epoch} step {self._step_count}: loss {float(loss):.4f}")
+        pf = self.config.print_freq if verbose else 0
+        k = self._effective_steps_per_dispatch()
+        windows = WindowedBatchIterator(it, k) if k > 1 else None
+        try:
+            for epoch in range(epochs):
+                if windows is not None:
+                    for inputs_stack, label_stack, kk in windows:
+                        loss, macc = self._run_fused_window(
+                            inputs_stack, label_stack, kk, rng, macc, pf, epoch)
+                        num_samples += batch_size * kk
+                    continue
+                for batch, label in it:
+                    self.params, self.opt_state, loss, mvals = self.instance.train_step(
+                        self.params, self.opt_state, batch, label, rng)
+                    self._step_count += 1
+                    num_samples += batch_size
+                    macc = mvals if macc is None else {key: macc[key] + v
+                                                      for key, v in mvals.items()}
+                    if pf and self._step_count % pf == 0:
+                        print(f"epoch {epoch} step {self._step_count}: loss {float(loss):.4f}")
+        finally:
+            if windows is not None:
+                windows.close()
         if loss is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         elapsed = time.perf_counter() - start
@@ -594,9 +628,33 @@ class FFModel:
                   f"THROUGHPUT = {num_samples / max(elapsed, 1e-9):.2f} samples/s")
         return perf
 
+    def _run_fused_window(self, inputs_stack, label_stack, kk, rng, macc, pf, epoch):
+        """One window: its dispatch, the metric fold (one add a window), and
+        the print_freq lines from the window's loss vector, read back once
+        and only when a print falls in the window. Returns (the window's
+        last loss, macc)."""
+        self.params, self.opt_state, rng, losses, mvals = self.instance.multi_train_step(
+            self.params, self.opt_state, inputs_stack, label_stack, rng)
+        base_step = self._step_count
+        self._step_count += kk
+        macc = mvals if macc is None else {key: macc[key] + v for key, v in mvals.items()}
+        if pf and base_step // pf != (base_step + kk) // pf:
+            host = losses.tolist()
+            for i in range(kk):
+                if (base_step + i + 1) % pf == 0:
+                    print(f"epoch {epoch} step {base_step + i + 1}: loss {host[i]:.4f}")
+        return losses[kk - 1], macc
+
+    def invalidate_graphs(self) -> None:
+        """Drop the fused windows' CUDA graphs: they bake in the optimizer's
+        hyperparameters and the addresses of the parameter and state
+        tensors, so whatever changes either calls this."""
+        if self.instance is not None:
+            self.instance.graphs.invalidate()
+
     def set_learning_rate(self, lr: float) -> None:
         """Update the optimizer's learning rate mid-training; the next step
-        uses it."""
+        uses it (the captured windows are dropped: they bake it in)."""
         attrs = self.optimizer_attrs
         if attrs is None:
             raise RuntimeError("compile the model before setting the lr")
@@ -604,6 +662,7 @@ class FFModel:
         self.optimizer_attrs = dataclasses.replace(attrs, **{field: lr})
         if self.instance is not None:
             self.instance.optimizer_attrs = self.optimizer_attrs
+        self.invalidate_graphs()
 
     def eval(self, x=None, y=None, batch_size: Optional[int] = None) -> PerfMetrics:
         """Forward-only metric evaluation."""
@@ -632,6 +691,7 @@ class FFModel:
             else:
                 self._backing.execute_init(self.config.seed)
                 self.params = self._backing.params
+                self.invalidate_graphs()
         return self._backing
 
     def init_operators(self) -> None:
@@ -670,6 +730,7 @@ class FFModel:
             raise RuntimeError("call compile() first")
         self.opt_state = b.execute_update(self.optimizer_attrs, self.opt_state)
         self.params = b.params
+        self.invalidate_graphs()
 
     # ------------------------------------------------------------------
     # checkpoint / resume (A8)

@@ -62,8 +62,10 @@ def _checked_copies(expected, params: Dict[str, np.ndarray], device) -> Dict[str
 
 def opt_state_from_numpy(cg: ComputationGraph, opt_state: Dict, device) -> Dict:
     """The optimizer state {m, v, step} (the slots the optimizer has) with
-    each slot checked and copied as params_from_numpy does."""
-    out = {"step": int(np.asarray(opt_state["step"]))}
+    each slot checked and copied as params_from_numpy does; the step count
+    becomes the 0-d int32 tensor the port's optimizer advances."""
+    out = {"step": torch.tensor(int(np.asarray(opt_state["step"])), dtype=torch.int32,
+                                device=device)}
     for slot in ("m", "v"):
         if slot in opt_state:
             out[slot] = params_from_numpy(cg, opt_state[slot], device)
@@ -73,7 +75,8 @@ def opt_state_from_numpy(cg: ComputationGraph, opt_state: Dict, device) -> Dict:
 def ffmodel_state_from_numpy(model, params: Dict[str, np.ndarray], opt_state: Optional[Dict] = None) -> None:
     """Carry a compiled JAX FFModel's state (numpy, keyed `n{idx}`) into the
     compiled port FFModel `model`, in place of what its compile drew; its
-    stepped backing, if any, follows."""
+    stepped backing, if any, follows, and the graphs captured on the tensors
+    it replaces are dropped."""
     if model.params is None:
         raise RuntimeError("compile the port's FFModel before carrying state into it")
     model.params = params_from_numpy(model.cg, params, model.device)
@@ -81,6 +84,7 @@ def ffmodel_state_from_numpy(model, params: Dict[str, np.ndarray], opt_state: Op
         model.opt_state = opt_state_from_numpy(model.cg, opt_state, model.device)
     if model._backing is not None:
         model._backing.params = dict(model.params)
+    model.invalidate_graphs()
 
 
 def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:

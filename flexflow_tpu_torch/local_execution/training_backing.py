@@ -1,6 +1,6 @@
-"""Single-device training: the graph interpreter, the train step and the
-stepped per-op execution (port of
-flexflow_tpu/local_execution/training_backing.py:101-163, 241-560).
+"""Single-device training: the graph interpreter, the train step, the fused
+K-step window and the stepped per-op execution (port of
+flexflow_tpu/local_execution/training_backing.py:101-560).
 
 The JAX package composes forward, loss, backward and update into one jitted
 program with donated buffers. Here the step runs eagerly: the interpreter
@@ -11,6 +11,11 @@ parameters in place.
 Mixed precision works as in the JAX package: parameters and optimizer
 state stay f32; parameters and float inputs are cast to `compute_dtype`
 for the forward; loss math is f32.
+
+The fused window (`steps_per_dispatch > 1`) runs K train steps as one
+call: on a CUDA device one captured CUDA graph of the K steps, replayed with
+one launch (runtime/cuda_graph.py), where the JAX package jits a donated
+`lax.scan` of them; on the CPU the same K steps run eagerly.
 
 LocalTrainingBacking is the reference's stepped API (execute_init, forward,
 backward, update), one op at a time. The JAX package recomputes each op
@@ -53,6 +58,7 @@ from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
 from flexflow_tpu_torch.pcg.computation_graph import ComputationGraph
 from flexflow_tpu_torch.pcg.initializer import initialize
 from flexflow_tpu_torch.pcg.optimizer import OptimizerAttrs
+from flexflow_tpu_torch.runtime.cuda_graph import CapturedGraphs, layout_key, shape_key
 from flexflow_tpu_torch.utils.graph import DataflowOutput, Node
 
 # Parameters are keyed by weight-node index ("n3"), as in the JAX package.
@@ -164,6 +170,42 @@ def forward_interpreter(
     return env
 
 
+def fused_multi_step(instance, params, opt_state, batch_stack, label_stack, rng):
+    """K training steps over a stacked window: batch_stack maps each input
+    name to a [k, ...] tensor, label_stack is [k, ...]. Step i trains on
+    row i through instance.train_step, drawing Dropout from `rng`, so K
+    steps here end bitwise where K train_step calls on the same batches and
+    generator end. Updates params and opt_state in place.
+
+    Returns (params, opt_state, rng, losses [k], mvals): mvals are the
+    window's metric values left-folded in step order, the f32 and int
+    device adds of the per-step loop. The JAX package's version also
+    returns the window's run-health stat stacks; they belong to the health
+    monitor, which is not ported (A9)."""
+    k = next(iter(batch_stack.values())).shape[0]
+    losses = []
+    mvals = None
+    for i in range(k):
+        batch = {name: t[i] for name, t in batch_stack.items()}
+        label = None if label_stack is None else label_stack[i]
+        params, opt_state, loss, step_mvals = instance.train_step(
+            params, opt_state, batch, label, rng)
+        losses.append(loss)
+        mvals = step_mvals if mvals is None else {
+            key: mvals[key] + v for key, v in step_mvals.items()}
+    return params, opt_state, rng, torch.stack(losses), mvals
+
+
+def _state_tensors(params, opt_state) -> List[torch.Tensor]:
+    """Every tensor a step writes in place: the parameters, the optimizer's
+    slots and its step count."""
+    out = list(params.values())
+    for key in sorted(opt_state):
+        v = opt_state[key]
+        out.extend(v.values() if isinstance(v, dict) else [v])
+    return out
+
+
 class ModelTrainingInstance:
     """Graph + loss + optimizer + metrics -> a train step on one device."""
 
@@ -191,6 +233,8 @@ class ModelTrainingInstance:
         self.device = resolve_device(device)
         self.metrics = frozenset(metrics)
         self.aux_loss_tensors = tuple(aux_loss_tensors)
+        # the fused windows' CUDA graphs, one per window length and state
+        self.graphs = CapturedGraphs(self.device)
 
     def initialize(self, seed: int = 0):
         params = init_params(self.cg, seed, self.device)
@@ -241,6 +285,34 @@ class ModelTrainingInstance:
         loss, grads = self.loss_and_grads(params, batch_inputs, label, rng=rng, metrics=mvals)
         apply_optimizer_(self.optimizer_attrs, params, grads, opt_state)
         return params, opt_state, loss, mvals
+
+    def multi_train_step(self, params, opt_state, batch_stack, label_stack, rng):
+        """K fused steps in one dispatch (fused_multi_step's contract): on a
+        CUDA device the replay of one CUDA graph of the K steps, captured at
+        the first window of each length over these parameter and state
+        tensors and this generator, which it registers, so each replay
+        draws the Dropout masks K train_step calls would. Whoever changes
+        what a graph baked in (the optimizer's hyperparameters, a tensor
+        replaced rather than written in place) calls graphs.invalidate().
+        The losses and metric values returned are the caller's own."""
+        if rng is None:
+            raise ValueError("multi_train_step needs the generator the steps draw from")
+        inputs = {f"input:{name}": t for name, t in batch_stack.items()}
+        if label_stack is not None:
+            inputs["label"] = label_stack
+        names = list(batch_stack)
+        state = _state_tensors(params, opt_state)
+
+        def body(window):
+            return fused_multi_step(self, params, opt_state,
+                                    {name: window[f"input:{name}"] for name in names},
+                                    window.get("label"), rng)
+
+        key = (shape_key(inputs), layout_key(state), id(rng))
+        out = self.graphs.run(key, body, inputs, state=state, generators=(rng,))
+        losses, mvals = out[3], out[4]
+        return params, opt_state, rng, losses.clone(), {
+            name: v.clone() if isinstance(v, torch.Tensor) else v for name, v in mvals.items()}
 
     @torch.no_grad()
     def forward(self, params, batch_inputs) -> torch.Tensor:

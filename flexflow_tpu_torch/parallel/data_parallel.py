@@ -113,6 +113,11 @@ class DataParallelTrainingInstance(ModelTrainingInstance):
         n = b // self.world_size
         return x[self.rank * n:(self.rank + 1) * n]
 
+    def multi_train_step(self, params, opt_state, batch_stack, label_stack, rng):
+        """The fused K-step window of the data-parallel trainer is not ported yet."""
+        raise NotImplementedError(
+            "multi_train_step of the data-parallel trainer is not ported yet (A7)")
+
     def loss_and_grads(self, params, batch_inputs, label, rng=None, metrics=None):
         """(global mean loss, {key: f32 gradient averaged over the ranks})
         from the global batch; `params` are not modified. `metrics` stays

@@ -171,6 +171,11 @@ class DistributedTrainingInstance(ModelTrainingInstance):
         logit = env[self.logit_tensor]
         return loss_forward(self.loss_attrs, logit, label), logit
 
+    def multi_train_step(self, params, opt_state, batch_stack, label_stack, rng):
+        """The fused K-step window of the distributed trainer is not ported yet."""
+        raise NotImplementedError(
+            "multi_train_step of the distributed trainer is not ported yet (A7)")
+
     def loss_and_grads(self, params, batch_inputs, label, rng=None, metrics=None):
         """(global mean loss, {key: f32 gradient of it}) from the global
         batch, after one all-reduce over the mesh; `params` are not

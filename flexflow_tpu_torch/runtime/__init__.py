@@ -1,2 +1,2 @@
 """Runtime supervision (trimmed: the seeded fault schedule and the window
-watchdog)."""
+watchdog) and the CUDA-graph capture of step and decode windows."""

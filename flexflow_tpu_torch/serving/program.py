@@ -11,7 +11,11 @@ KV-cached causal attention:
 - **decode window**: W single-token greedy steps in one call, the
   counterpart of the JAX package's `lax.scan` window: the cache is written
   in place, and the per-slot tokens, lengths and argmax stay on the device
-  until the window ends.
+  until the window ends. On a CUDA device the window is one CUDA graph per
+  step count and cache, captured at its first use and replayed with one
+  launch (runtime/cuda_graph.py), as the JAX package jits the scan into one
+  dispatch; `decode_window_eager` is the body it captures, and what runs on
+  the CPU.
 
 Every other op runs `kernels.ops.forward`. The math is the JAX package's,
 in the parameters' dtype (f32): serving attention is dense, as there, and
@@ -46,6 +50,7 @@ from flexflow_tpu_torch.pcg.parallel_computation_graph import (
     ParallelComputationGraph,
     pcg_from_computation_graph,
 )
+from flexflow_tpu_torch.runtime.cuda_graph import CapturedGraphs, layout_key, shape_key
 from flexflow_tpu_torch.serving.kv_cache import (
     CacheLayer,
     attention_layers,
@@ -144,6 +149,8 @@ class ServingProgram:
             if params is not None
             else init_serving_params(self.pcg, params_seed, self.device)
         )
+        # the decode windows' CUDA graphs, one per step count and cache
+        self.graphs = CapturedGraphs(self.device)
 
     def init_cache(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """The zeroed per-layer K/V cache on this program's device."""
@@ -251,11 +258,31 @@ class ServingProgram:
         nxt = last.argmax(dim=-1).to(torch.int32)
         return cache, nxt, last
 
-    @torch.no_grad()
     def decode_window(self, cache, token, lengths, active, steps: int):
         """`steps` greedy decode steps in one call, with nothing read back
-        to the host until it returns. Returns (cache, token, lengths,
-        generated tokens [slots, steps]), all on the device."""
+        to the host until it returns: on a CUDA device the replay of the
+        graph of decode_window_eager for this step count and these cache
+        tensors (captured at its first window; its warm-up runs with no
+        slot active, which writes nothing), on the CPU that body. Returns
+        (cache, token, lengths, generated tokens [slots, steps]), all on
+        the device; the cache is written in place."""
+        steps = int(steps)
+        inputs = {"token": self._ids(token), "lengths": self._ids(lengths),
+                  "active": self._mask(active)}
+        kv = [t for layer in cache.values() for t in layer.values()]
+        key = (steps, shape_key(inputs), layout_key(kv), layout_key(self.params.values()))
+
+        def body(x):
+            return self.decode_window_eager(cache, x["token"], x["lengths"], x["active"], steps)[1:]
+
+        idle = dict(inputs, active=torch.zeros_like(inputs["active"]))
+        token, lengths, toks = self.graphs.run(key, body, inputs, warmup_inputs=idle)
+        return cache, token.clone(), lengths.clone(), toks.clone()
+
+    @torch.no_grad()
+    def decode_window_eager(self, cache, token, lengths, active, steps: int):
+        """decode_window's body, run as it is: `steps` forward passes, each
+        writing the cache in place."""
         token, lengths, active = self._ids(token), self._ids(lengths), self._mask(active)
         toks = []
         for _ in range(int(steps)):

@@ -38,7 +38,8 @@ def test_port_runs_a_step_with_jax_and_the_jax_package_refused():
     step of a causal parallel transformer through its ring of one, then a
     few requests served through the serving engine with its watchdog and
     a metrics stream, then an MLP built, compiled, fit and evaluated
-    through FFModel."""
+    through FFModel, and fit again in fused windows of 3 steps through the
+    windowed input pipeline (runtime/cuda_graph.py's CPU path)."""
     script = textwrap.dedent(
         """
         import sys
@@ -125,6 +126,10 @@ def test_port_runs_a_step_with_jax_and_the_jax_package_refused():
         ys = np.eye(4, dtype=np.float32)[rs.randint(0, 4, 32)]
         perf = m.fit(xs, ys, epochs=2, verbose=False)
         assert perf.train_all == 64 and m.eval(xs, ys).train_all == 32
+        m.config.steps_per_dispatch = 3
+        perf = m.fit(xs, ys, epochs=2, verbose=False)
+        assert perf.train_all == 64 and int(m.opt_state["step"]) == 16
+        import flexflow_tpu_torch.runtime.cuda_graph  # noqa: F401
         assert not any(m == "jax" or m.startswith(("jax.", "flexflow_tpu."))
                        or m == "flexflow_tpu" for m in sys.modules)
         print("ok", float(loss))
@@ -157,7 +162,7 @@ def test_sources_import_nothing_of_jax_or_the_jax_package():
                    "observability/metrics.py", "analysis/memory_accounting.py",
                    "core/ffmodel.py", "core/dataloader.py", "core/optimizers.py",
                    "core/initializers.py", "core/__init__.py", "kernels/metrics.py",
-                   "local_execution/config.py"):
+                   "local_execution/config.py", "runtime/cuda_graph.py"):
         assert module in scanned
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []

@@ -234,7 +234,7 @@ def heads16_runs():
         jgrads={k: np.asarray(v) for k, v in jgrads.items()},
         grads={k: v.numpy() for k, v in grads.items()},
         jparams={k: np.asarray(v) for k, v in jparams.items()},
-        params=params_to_numpy(params), opt_step=opt["step"], jopt_step=int(jopt["step"]),
+        params=params_to_numpy(params), opt_step=int(opt["step"]), jopt_step=int(jopt["step"]),
     )
 
 

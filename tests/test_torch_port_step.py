@@ -71,7 +71,7 @@ def runs():
         jgrads={k: np.asarray(v) for k, v in jgrads.items()},
         grads={k: v.numpy() for k, v in grads.items()},
         jparams={k: np.asarray(v) for k, v in jparams.items()},
-        params=params_to_numpy(params), opt_step=opt["step"], jopt_step=int(jopt["step"]),
+        params=params_to_numpy(params), opt_step=int(opt["step"]), jopt_step=int(jopt["step"]),
     )
 
 
@@ -136,4 +136,4 @@ def test_interop_rejects_mismatched_state():
     with pytest.raises(ValueError, match="shape"):
         params_from_numpy(graph, dict(good, n1=good["n1"][:-1]), "cpu")
     state = opt_state_from_numpy(graph, {"m": good, "v": good, "step": np.int32(4)}, "cpu")
-    assert state["step"] == 4 and torch.equal(state["m"]["n1"], torch.from_numpy(good["n1"]))
+    assert int(state["step"]) == 4 and state["step"].dtype == torch.int32 and torch.equal(state["m"]["n1"], torch.from_numpy(good["n1"]))
