@@ -19,9 +19,10 @@ Phases, each printing one JSON line:
                   (b=16, h=8, s=2048), the d=64 kernels at the 16-head
                   config's (b=64, h=16, s=512) on the interleaved-QKV and on
                   separate operands, the d=128 pair causal at seq 2048 and
-                  the d=64 interleaved pair causal at seq 512, plus small
-                  causal cases, the tiling edges (s=192 and 320) and the
-                  delta kernels' tails (delta_tails);
+                  the d=64 interleaved pair causal at seq 512, the d=256
+                  kernels at BERT-base's attention (b=64, h=12, s=512), plus
+                  small causal cases, the tiling edges (s=192 and 320) and
+                  the delta kernels' tails (delta_tails);
 4. parity         two small flagships (heads of 128, and heads of 64) trained
                   two steps on the card (bf16, through the kernels) and on
                   the CPU (f32, plain versions) from the same parameters: the
@@ -69,38 +70,63 @@ then the user API, FFModel (flexflow_tpu_torch.core):
                   the 16 batches through train_step (or within the window
                   bounds, saying so), the optimizer's step count 16;
 
+then the example zoo:
+
+12. parity_zoo    a 2-layer BERT with heads of 256 trained two SGD steps on
+                  the card (bf16, the d=256 kernels) and on the CPU (f32)
+                  from the same parameters: the losses within 1e-2, and
+                  each attention layer's update (q, k, v, o weight pieces,
+                  q and v input bias) within 0.2, a bound that two broken
+                  d=256 paths run on the CPU (dS dropped; scores at twice
+                  the scale) must each exceed; a small
+                  CNN of the zoo's ops (conv2d with groups and bias, max and
+                  avg pool with padding, batch_norm, flat, concat, dense)
+                  fit one batch through FFModel on the card and on the CPU
+                  (f32, TF32 off): loss and parameters within 1e-4;
+13. fit_bert      BERT-base at examples/bert.py's defaults (12 layers,
+                  hidden 768, 12 heads of 256, seq 512, vocab 30522, batch
+                  64, dropout 0.1) through FFModel in bf16 with SGD(0.01):
+                  a warm-up batch, then a fit of 5 seeded host batches with
+                  the launch counts set to 0 just before: step ms, tokens/s,
+                  MFU (op_forward_flops x 3), peak memory allocated and
+                  reserved, each d=256 wrapper 12 times a step and no other
+                  flash or ring kernel, a profiled fit's kernel ms and idle
+                  share, a finite loss;
+14. examples      the 11 port examples at tests/test_examples.py's sizes on
+                  the card, each printing finite step losses;
+
 then, in a one-rank NCCL process group opened over a file:// store:
 
-12. parity_dp     the two small flagships trained two steps by the
+15. parity_dp     the two small flagships trained two steps by the
                   data-parallel trainer on the card (bf16, per-head kernels)
                   and by the single-device trainer on the CPU (f32);
-13. train_dp      the flagship through the data-parallel trainer, whose
+16. train_dp      the flagship through the data-parallel trainer, whose
                   attention runs the per-head [b, h, s, d] kernels;
-14. train_dp_seq2048  the same for the seq-2048 flagship (batch 16, seq 2048),
+17. train_dp_seq2048  the same for the seq-2048 flagship (batch 16, seq 2048),
                   whose attention runs the same kernels at s > block;
-15. ring_replay   the ring schedule of 4 ranks replayed on the card through
+18. ring_replay   the ring schedule of 4 ranks replayed on the card through
                   the ring-flash step kernels at the long-context shape (b=4,
                   h=8, s=8192, d=128, causal; and b=1 non-causal), held
                   against the full-sequence per-head kernels;
-16. parity_sp     two small causal parallel transformers (seq 1024, heads of
+19. parity_sp     two small causal parallel transformers (seq 1024, heads of
                   128 and of 64) trained two steps by the sequence-parallel
                   trainer on the card (bf16, ring kernels) and on the CPU
                   (f32, plain versions, over a one-rank gloo group);
-17. train_sp      SP_LONGCTX (the flagship's widths, causal, batch 4, seq
+20. train_sp      SP_LONGCTX (the flagship's widths, causal, batch 4, seq
                   8192) through the sequence-parallel trainer at world size
                   1, whose attention runs the ring-flash step kernels;
 
 then serving, whose attention is dense f32 as in the JAX package (every
 flash and ring launch count must stay at 0):
 
-18. parity_serve  two small serving LMs (ServingLMConfig(), and 2 layers of
+21. parity_serve  two small serving LMs (ServingLMConfig(), and 2 layers of
                   embed 256 in 2 heads of 128) from the same numpy
                   parameters on the card and on the CPU (f32 both): prefill
                   logits and caches, the tokens of 8 seeded requests through
                   ServingEngine in continuous and static mode, one fused
                   decode window bitwise equal to one-step windows, and two
                   captured windows bitwise equal to the eager body;
-19. serve         the serving LM at the flagship's widths (SERVE_LM) serving
+22. serve         the serving LM at the flagship's widths (SERVE_LM) serving
                   SERVE_TRAFFIC (64 slots of 1024 positions, 128 requests,
                   continuous batching, windows of 8) after one warm-up
                   request: requests/s, output tokens/s, ms/token p50/p99,
@@ -169,6 +195,14 @@ RING_TPU_KERNELS = "flexflow_tpu/kernels/ring_flash.py"
 # registers), the forward's of csrc/flash_fwd_sm90.cuh or the backward
 # pair's of csrc/flash_bwd_sm90.cuh
 DELTA_DESIGN = "16-byte loads, rows in flight, coalesced stores"
+# rows 1-3 at head dim 256 (BERT's heads): the mma.sync bodies of
+# csrc/flash_d256.cuh, and delta_body for the delta
+D256_KERNELS = {
+    "flash_fwd_d256": ("ff_flash_fwd_d256_kernel",),
+    "flash_delta_d256": ("ff_flash_delta_d256_kernel",),
+    "flash_bwd_d256": ("ff_flash_bwd_dkv_d256_kernel", "ff_flash_bwd_dq_d256_kernel"),
+}
+D256_DESIGN = "mma.sync m16n8k16, cp.async tiles, padded shared rows"
 DELTA_WRAPPERS = ("flash_delta", "flash_delta_d64", "flash_delta_bhsd")
 REDESIGNED = {
     "flash_delta": ("ff_flash_delta_kernel",),
@@ -233,7 +267,7 @@ def phase_build() -> dict:
         ptxas.update(build.parse_ptxas(info.ptxas_log))
     warnings = [line.strip() for info in infos.values() for line in info.ptxas_log.splitlines()
                 if "warning" in line.lower()]
-    for names in REDESIGNED.values():
+    for names in (*REDESIGNED.values(), *D256_KERNELS.values()):
         for name in names:
             if ptxas[name].get("spill_store_bytes", 0) or ptxas[name].get("spill_load_bytes", 0):
                 raise AssertionError(f"{name} spills: {ptxas[name]}")
@@ -246,6 +280,9 @@ def phase_build() -> dict:
         for suffix, which in (("", i), ("_d64", i + 3)):
             smem[f"ff_flash_{flash}{suffix}_kernel"] = smem[f"ff_ring_{ring}{suffix}_kernel"] = \
                 lib.ff_flash_smem_bytes(which)
+    # 6-8: the d=256 forward, dK/dV and dQ kernels
+    for which, name in enumerate(("fwd", "bwd_dkv", "bwd_dq"), start=6):
+        smem[f"ff_flash_{name}_d256_kernel"] = lib.ff_flash_smem_bytes(which)
     emit({
         "phase": "build", "seconds": seconds,
         "sources": {
@@ -291,7 +328,7 @@ def _check(name: str, errs: dict, key: str, bound: float) -> dict:
 
 class Flash:
     """One kernel family at one layout: `x` is the tuple of operands, three
-    [b, s, h*d] tensors (d=128, or d=64 separate) or one interleaved
+    [b, s, h*d] tensors (d=128 or 256, or d=64 separate) or one interleaved
     [b, s, 3*h*64] projection (d=64, qkv); `grads` turns what bwd returns
     into (dq, dk, dv) either way."""
 
@@ -299,6 +336,8 @@ class Flash:
         from flexflow_tpu_torch.kernels import flash_attention as fa
 
         self.fa, self.h, self.d, self.interleaved = fa, h, d, interleaved
+        # the contiguous [b, s, h*d] wrappers (forward, delta, backward), or None at d=64
+        self.dense = fa._BSHF_KERNELS.get(d)
 
     def operands(self, b, s, gen):
         import torch
@@ -313,19 +352,19 @@ class Flash:
         return fa.qkv_views(x[0]) if self.interleaved else [fa.lane_groups(t) for t in x]
 
     def fwd(self, x, causal=False):
-        if self.d == 128:
-            return self.fa.flash_fwd(*x, self.h, causal)
+        if self.dense:
+            return self.dense[0](*x, self.h, causal)
         return self.fa.flash_fwd_d64(*self._views(x), self.h, causal)
 
     def delta(self, do, o):
-        fn = self.fa.flash_delta if self.d == 128 else self.fa.flash_delta_d64
+        fn = self.dense[1] if self.dense else self.fa.flash_delta_d64
         return fn(do, o, self.h)
 
     def bwd(self, x, do, lse, delta, causal=False):
         import torch
 
-        if self.d == 128:
-            return self.fa.flash_bwd(*x, do, lse, delta, self.h, causal)
+        if self.dense:
+            return self.dense[2](*x, do, lse, delta, self.h, causal)
         out = [torch.empty_like(t) for t in x]
         self.fa.flash_bwd_d64(*self._views(x), do, lse, delta, *self._views(out), self.h, causal)
         return out
@@ -586,6 +625,9 @@ def _bwd_side(ms, bounds, checks, shape, **extra):
     return _side(ms, bounds, checks, "bwd", lib.pop("library_ms"), shape, **lib, **extra)
 
 
+BERT_ATTENTION = {"b": 64, "h": 12, "s": 512, "d": 256}
+
+
 def phase_kernels():
     """Compare and time the kernels at the main paths' attention shapes."""
     sdpa_f = "F.scaled_dot_product_attention forward"
@@ -594,6 +636,7 @@ def phase_kernels():
         "d128": _compare(Flash(2, 128), 2, 256, causal=True, seed=1)[1],
         "d64_separate": _compare(Flash(4, 64), 2, 256, causal=True, seed=2)[1],
         "d64_qkv": _compare(Flash(4, 64, interleaved=True), 2, 256, causal=True, seed=3)[1],
+        "d256": _compare(Flash(2, 256), 2, 256, causal=True, seed=16)[1],
     }
 
     # d=128: the flagship (b=64, h=8, s=512), and the seq-2048 flagship of
@@ -609,7 +652,8 @@ def phase_kernels():
              for i, (name, flash) in enumerate((
                  ("d128", Flash(2, 128)), ("d64_qkv", Flash(4, 64, interleaved=True)),
                  ("bhsd_d128_strided", FlashBHSD(2, 128, strided=True)),
-                 ("bhsd_d64_h3_strided", FlashBHSD(3, 64, strided=True))))
+                 ("bhsd_d64_h3_strided", FlashBHSD(3, 64, strided=True)),
+                 ("d256", Flash(2, 256))))
              for c in (False, True)}
 
     ms, bounds, checks = _measure(Flash(8, 128), 64, 512)
@@ -652,11 +696,26 @@ def phase_kernels():
                                   replaces=f"{TPU_KERNELS}:1179"),
                causal=_bwd_side(ms_qc, bounds_qc, checks_qc, qkv_causal)),
     ]
+    # d=256: BERT-base's attention (b=64, h=12, s=512; hidden 768 over 12
+    # heads with kdim = 3072 / 12), non-causal as BERT runs it, and causal
+    ms, bounds, checks = _measure(Flash(12, 256), 64, 512, seed=7, iters=10)
+    msc, boundsc, checksc = _measure(Flash(12, 256), 64, 512, seed=17, iters=10, causal=True)
+    bert_causal = dict(b=64, h=12, s=512, d=256, causal=True, bound="unmasked pairs only")
+    kernels += [
+        _entry("flash_fwd_d256", 674, ms, bounds, checks, "fwd", ms["sdpa_fwd"], sdpa_f,
+               shape=BERT_ATTENTION,
+               causal=_side(msc, boundsc, checksc, "fwd", msc["sdpa_fwd"], bert_causal)),
+        _entry("flash_delta_d256", 1203, ms, bounds, checks, "delta", ms["einsum_delta"], einsum,
+               shape=BERT_ATTENTION),
+        _bwd_entry("flash_bwd_d256", 976, ms, bounds, checks, shape=BERT_ATTENTION,
+                   causal=_bwd_side(msc, boundsc, checksc, bert_causal)),
+    ]
     kernels += _per_head_kernels(causal)
     kernels += _ring_kernels()
     emit({"phase": "kernels",
           "shapes": {"d128": {"b": 64, "h": 8, "s": 512}, "d128_seq2048": s2k,
-                     "d64": {"b": 64, "h": 16, "s": 512}, "dtype": "bf16"},
+                     "d64": {"b": 64, "h": 16, "s": 512}, "d256": BERT_ATTENTION,
+                     "dtype": "bf16"},
           "projection_view": _projection_view(),
           "repeat_bitwise": True, "causal_checks": {"shape": {"b": 2, "s": 256}, **causal},
           "tiling_edges": {"shape": {"b": 2, "s": 192}, **edges},
@@ -1098,13 +1157,13 @@ def phase_parity_sp():
               "rel_err": rel, "bound": PARITY_BOUND, "launches": launches})
 
 
-def _train(inst, params, opt_state, x, y, steps):
+def _train(inst, params, opt_state, x, y, steps, input_name="x"):
     import torch
 
     losses, step_ms = [], []
     for _ in range(steps):
         start = time.perf_counter()
-        params, opt_state, loss, _ = inst.train_step(params, opt_state, {"x": x}, y)
+        params, opt_state, loss, _ = inst.train_step(params, opt_state, {input_name: x}, y)
         losses.append(float(loss))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - start) * 1e3)
@@ -2177,6 +2236,281 @@ def phase_serve(smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+D256_WRAPPERS = tuple(D256_KERNELS)  # the d=256 path's wrappers: BERT's attention
+ZOO_CNN_BOUND = 1e-4  # relative, loss and parameters, f32 card (TF32 off) vs f32 CPU
+# relative, each attention piece's two-step update, bf16 card vs f32 CPU; every
+# control (a broken d=256 forward or backward, run on the CPU) must exceed it
+ZOO_BERT_UPDATE_BOUND = 0.2
+
+
+def _attention_updates(graph, init, params):
+    """Each attention layer's update (parameters after the steps minus
+    before), cut into the q, k, v and o pieces of its weight and the q and v
+    slices of its input bias, as f32 CPU tensors. The k bias is left out: a
+    constant added to every key shifts a softmax row uniformly, so its
+    gradient is zero but for roundoff."""
+    from flexflow_tpu_torch.kernels.ops import unpack_mha_weights
+    from flexflow_tpu_torch.op_attrs.ops import MultiHeadAttentionAttrs
+
+    pieces = {}
+    for layer, n in enumerate(n for n in graph.topological_ordering()
+                              if isinstance(graph.op_attrs(n), MultiHeadAttentionAttrs)):
+        attrs = graph.op_attrs(n)
+        w, b = (f"n{t.node.idx}" for t in graph.inputs_of(n)[3:5])
+        dw, db = (params[k].detach().float().cpu() - init[k].float() for k in (w, b))
+        e, kd = attrs.embed_dim, attrs.q_proj_size
+        for name, piece in zip("qkvo", unpack_mha_weights(attrs, e, e, e, dw)):
+            pieces[f"layer{layer}.w{name}"] = piece
+        pieces[f"layer{layer}.bq"], pieces[f"layer{layer}.bv"] = db[:kd], db[2 * kd:]
+    return pieces
+
+
+def _zoo_cnn(device: str):
+    """A small CNN of the example zoo's ops through FFModel: conv2d with
+    groups and bias, max and avg pool with padding (one above kernel/2),
+    batch_norm, flat, concat and dense."""
+    from flexflow_tpu_torch.core import Activation, FFConfig, FFModel, SGDOptimizer
+
+    m = FFModel(FFConfig(batch_size=8, print_freq=0, seed=0), device=device)
+    x = m.create_tensor([8, 4, 16, 16], name="image")
+    a = m.conv2d(x, 8, 3, 3, 1, 1, 1, 1, activation=Activation.RELU, groups=2)
+    a = m.pool2d(a, 3, 3, 2, 2, 1, 1)
+    b = m.batch_norm(m.conv2d(x, 8, 5, 5, 2, 2, 2, 2, use_bias=False))
+    b = m.pool2d(b, 2, 2, 1, 1, 2, 2, pool_type="avg")
+    b = m.pool2d(b, 4, 4, 2, 2, 0, 0)
+    t = m.concat([m.flat(a), m.flat(b)], axis=1)
+    m.dense(m.dense(t, 32, activation=Activation.RELU), 5)
+    m.compile(SGDOptimizer(lr=0.05, momentum=0.9), "sparse_categorical_crossentropy",
+              metrics=FIT_METRICS)
+    return m
+
+
+def phase_parity_zoo():
+    """The example zoo on the card against the CPU. A 2-layer BERT with
+    heads of 256 trained two SGD steps on the card (bf16, the d=256 kernels,
+    each launched once a layer a step) and on the CPU (f32, plain versions)
+    from the same parameters: losses within PARITY_BOUND, and each piece of
+    every attention layer's update within ZOO_BERT_UPDATE_BOUND, a bound two
+    broken d=256 paths (on the CPU) must each exceed. The small CNN fit
+    one batch through FFModel on the card and on the CPU (f32 both, TF32
+    off) from the same state: loss and parameters within ZOO_CNN_BOUND."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.interop import ffmodel_state_from_numpy, params_to_numpy
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.local_execution import ModelTrainingInstance
+    from flexflow_tpu_torch.models import BertConfig, build_bert
+    from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
+    from flexflow_tpu_torch.pcg import SGDOptimizerAttrs
+
+    # heads of 256: kdim = dim_feedforward / num_heads. initializer_range
+    # 0.1 (BERT's is 0.02) gives scores of O(1), so attention is far from
+    # uniform and what the kernels return shows in the updates.
+    cfg = BertConfig(vocab_size=512, hidden_size=256, num_encoder_layers=2, num_heads=1,
+                     dim_feedforward=256, hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0, sequence_length=128, batch_size=4,
+                     initializer_range=0.1)
+    graph, out = build_bert(cfg)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(cfg.batch_size, cfg.sequence_length, cfg.hidden_size, generator=gen)
+    y = torch.randint(0, cfg.vocab_size, (cfg.batch_size, cfg.sequence_length), generator=gen)
+    init = None
+
+    def run(device, dtype):
+        nonlocal init
+        inst = ModelTrainingInstance(graph, out, SparseCategoricalCrossEntropyLossAttrs(),
+                                     SGDOptimizerAttrs(lr=0.01), compute_dtype=dtype,
+                                     device=device)
+        params, opt_state = inst.initialize(seed=0)
+        if init is None:
+            init = {k: p.detach().clone() for k, p in params.items()}
+        params = {k: p.to(device, copy=True) for k, p in init.items()}  # SGD steps in place
+        params, _, step_losses, _ = _train(inst, params, opt_state, x.to(device),
+                                           y.to(device), 2, input_name="input")
+        return step_losses, _attention_updates(graph, init, params)
+
+    def rel_errs(pieces, want):
+        return {k: float(torch.linalg.norm(v - want[k]) / torch.linalg.norm(want[k]))
+                for k, v in pieces.items()}
+
+    losses, updates = run("cpu", None)
+    fa.reset_launch_counts()
+    card_losses, card_updates = run("cuda", torch.bfloat16)
+    launches = {n: getattr(fa, n).launches for n in D256_WRAPPERS}
+    if launches != {n: 2 * cfg.num_encoder_layers for n in D256_WRAPPERS}:
+        raise AssertionError(f"parity_zoo bert: d=256 launches {launches}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(card_losses, losses)]
+    update_rel = rel_errs(card_updates, updates)
+    if not max(rel) < PARITY_BOUND or not max(update_rel.values()) < ZOO_BERT_UPDATE_BOUND:
+        raise AssertionError(f"parity_zoo bert: card {card_losses} vs CPU {losses}, "
+                             f"updates {update_rel}")
+
+    # controls, on the CPU in f32: a d=256 path that drops dS (dq = dk = 0)
+    # and one whose forward scores at twice the scale must each fail the bound
+    fwd, delta, bwd = fa._BSHF_KERNELS[256]
+
+    def bwd_without_ds(q, k, v, do, lse, dl, h, causal):
+        dq, dk, dv = bwd(q, k, v, do, lse, dl, h, causal)
+        return torch.zeros_like(dq), torch.zeros_like(dk), dv
+
+    controls = {}
+    for name, broken in (("dS dropped", (fwd, delta, bwd_without_ds)),
+                         ("scores at twice the scale",
+                          (lambda q, k, v, h, causal: fwd(2 * q, k, v, h, causal), delta, bwd))):
+        fa._BSHF_KERNELS[256] = broken
+        try:
+            controls[name] = max(rel_errs(run("cpu", None)[1], updates).values())
+        finally:
+            fa._BSHF_KERNELS[256] = (fwd, delta, bwd)
+    if not min(controls.values()) > ZOO_BERT_UPDATE_BOUND:
+        raise AssertionError(f"parity_zoo bert: a broken d=256 path passes the bound: "
+                             f"{controls}")
+
+    rs = np.random.RandomState(5)
+    xs, ys = rs.randn(8, 4, 16, 16).astype(np.float32), rs.randint(0, 5, 8)
+    cpu, card = _zoo_cnn("cpu"), _zoo_cnn("cuda")
+    ffmodel_state_from_numpy(card, params_to_numpy(cpu.params))  # momentum starts at 0 on both
+    perf = {d: m.fit(xs, ys, epochs=1, shuffle=False, verbose=False)
+            for d, m in (("cpu", cpu), ("cuda", card))}
+    loss_rel = abs(perf["cuda"].sparse_cce_loss - perf["cpu"].sparse_cce_loss) / \
+        abs(perf["cpu"].sparse_cce_loss)
+    got, want = params_to_numpy(card.params), params_to_numpy(cpu.params)
+    param_rel = {k: float(np.linalg.norm(got[k] - v) / max(np.linalg.norm(v), 1e-30))
+                 for k, v in want.items()}
+    counts = {d: (p.train_all, p.train_correct) for d, p in perf.items()}
+    if counts["cuda"] != counts["cpu"] or not loss_rel < ZOO_CNN_BOUND or \
+            not max(param_rel.values()) < ZOO_CNN_BOUND:
+        raise AssertionError(f"parity_zoo cnn: counts {counts}, loss {loss_rel}, params "
+                             f"{param_rel}")
+    emit({"phase": "parity_zoo",
+          "bert": {"config": dataclasses.asdict(cfg) | {"hidden_act": cfg.hidden_act.name},
+                   "head_dim": cfg.dim_feedforward // cfg.num_heads,
+                   "losses": {"cpu": losses, "cuda": card_losses}, "rel_err": rel,
+                   "bound": PARITY_BOUND, "update_rel_err": update_rel,
+                   "update_bound": ZOO_BERT_UPDATE_BOUND,
+                   "controls_max_update_rel_err": controls, "launches": launches},
+          "cnn": {"ops": "conv2d (groups, bias), max/avg pool with padding, batch_norm, flat, "
+                         "concat, dense", "counts": counts, "loss_rel_err": loss_rel,
+                  "param_rel_err": param_rel, "bound": ZOO_CNN_BOUND, "tf32": False}})
+
+
+def _graph_forward_flops(cg) -> int:
+    """op_forward_flops summed over every op of a computation graph."""
+    from flexflow_tpu_torch.kernels.ops import op_forward_flops
+    from flexflow_tpu_torch.op_attrs.ops import InputAttrs, WeightAttrs
+
+    total = 0
+    for n in cg.topological_ordering():
+        attrs = cg.op_attrs(n)
+        if isinstance(attrs, (InputAttrs, WeightAttrs)):
+            continue
+        total += op_forward_flops(attrs, [cg.tensor_shape(t) for t in cg.inputs_of(n)],
+                                  [cg.tensor_shape(t) for t in cg.outputs_of(n)])
+    return total
+
+
+def phase_fit_bert(smi: str, steps: int = STEPS):
+    """BERT-base at examples/bert.py's defaults (models.build_bert(BertConfig()):
+    12 layers, hidden 768, 12 heads of 256, FFN 3072, seq 512, vocab 30522,
+    batch 64, dropout 0.1) compiled through FFModel in bf16 with SGD(0.01),
+    one warm-up batch, then one timed fit of `steps` seeded host batches with
+    every launch count set to 0 just before and read just after: each d=256
+    wrapper 12 times a step and no other flash or ring kernel."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.core import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.models import BertConfig, build_bert
+
+    bcfg = BertConfig()
+    b, seq = bcfg.batch_size, bcfg.sequence_length
+    start = time.perf_counter()
+    graph, out = build_bert(bcfg)
+    m = FFModel.from_computation_graph(graph, out, FFConfig(batch_size=b, seed=0, print_freq=0))
+    m.compile(SGDOptimizer(lr=0.01), "sparse_categorical_crossentropy", metrics=["accuracy"],
+              compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(((steps + 1) * b, seq, bcfg.hidden_size), dtype=np.float32)
+    y = rng.integers(0, bcfg.vocab_size, ((steps + 1) * b, seq), dtype=np.int32)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+
+    t0 = time.perf_counter()
+    m.fit(x[:b], y[:b], epochs=1, shuffle=False, verbose=False)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    perf = m.fit(x[b:], y[b:], epochs=1, shuffle=False, verbose=False)
+    elapsed = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS}
+    peak = {"allocated": torch.cuda.max_memory_allocated(),
+            "reserved": torch.cuda.max_memory_reserved()}
+    layers = bcfg.num_encoder_layers
+    want = {n: layers * steps if n in D256_WRAPPERS else 0 for n in launches}
+    if launches != want:
+        raise AssertionError(f"fit_bert: launches {launches}, expected {want}")
+    tokens = b * seq
+    # the training loss (Dropout on) at the fitted parameters, read once
+    with torch.no_grad():
+        loss = float(m.instance.loss_fn(m.params, {"input": x[:b]}, y[:b],
+                                        torch.Generator(device="cuda").manual_seed(0))[0])
+    if perf.train_all != steps * tokens or not math.isfinite(loss):
+        raise AssertionError(f"fit_bert: loss {loss}, {perf}")
+    trace = _profiled_fit(m, x[b:], y[b:])
+    expected = {k: layers * steps for names in D256_KERNELS.values() for k in names}
+    if trace["flash"] != expected:
+        raise AssertionError(f"fit_bert: profiled launches {trace['flash']}, expected {expected}")
+    step_ms = elapsed * 1e3 / steps
+    flops = 3 * _graph_forward_flops(graph)
+    emit({
+        "phase": "fit_bert", "card": smi,
+        "config": dataclasses.asdict(bcfg) | {"hidden_act": bcfg.hidden_act.name},
+        "head_dim": bcfg.dim_feedforward // bcfg.num_heads, "compute_dtype": "bf16",
+        "optimizer": "sgd(lr=0.01)", "setup_s": setup_s, "warmup_fit_ms": warm_ms,
+        "steps": steps, "fit_elapsed_s": elapsed, "step_ms": step_ms,
+        "step_ms_is": "the timed fit call's elapsed / steps, ending in one synchronize",
+        "tokens_per_s": tokens / (step_ms / 1e3),
+        "step_flops": flops, "step_flops_are": "3 x op_forward_flops summed over the graph",
+        "mfu": flops / (step_ms / 1e3) / PEAK_BF16, "peak_memory_bytes": peak,
+        "loss_after_fit": loss, "accuracy": perf.accuracy, "perf": dataclasses.asdict(perf),
+        "profiled_fit": {"host_ms_per_step": trace["host_ms"] / steps,
+                         "kernel_ms_per_step": trace["kernel_ms"] / steps,
+                         "idle_share": 1.0 - trace["kernel_ms"] / trace["host_ms"],
+                         "flash_launches": trace["flash"], "top_kernels": trace["top_kernels"]},
+        "launches": launches, "launches_per_step_each": layers,
+    })
+    del m
+    torch.cuda.empty_cache()
+    return {n: launches[n] for n in D256_WRAPPERS}
+
+
+def phase_examples():
+    """Every port example run in-process on the card through its main() at
+    tests/test_examples.py's sizes with --print-freq 1: each ends without
+    error and prints its step losses, all finite."""
+    import importlib
+    import io
+    import re
+
+    from flexflow_tpu_torch.examples import SMOKE_ARGV
+
+    results = {}
+    for name, argv in SMOKE_ARGV:
+        module = importlib.import_module(f"flexflow_tpu_torch.examples.{name}")
+        buf = io.StringIO()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            module.main([*argv, "-p", "1", "--device", "cuda"])
+        printed = buf.getvalue()
+        losses = [float(v) for v in re.findall(r"loss (\S+)", printed)]
+        if not losses or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"examples: {name} printed no finite loss:\n{printed}")
+        results[name] = {"argv": list(argv), "losses": losses, "seconds": time.perf_counter() - start,
+                         "last_line": printed.strip().splitlines()[-1]}
+    emit({"phase": "examples", "device": "cuda", "examples": results})
+
+
 def main() -> None:
     require_card_and_repo()
     import torch
@@ -2189,6 +2523,9 @@ def main() -> None:
         if entry["name"] in REDESIGNED:
             entry["design"] = DELTA_DESIGN if entry["name"] in DELTA_WRAPPERS else "wgmma+tma"
             entry["ptxas"] = {k: ptxas[k] for k in REDESIGNED[entry["name"]]}
+        if entry["name"] in D256_KERNELS:
+            entry["design"] = DELTA_DESIGN if entry["name"] == "flash_delta_d256" else D256_DESIGN
+            entry["ptxas"] = {k: ptxas[k] for k in D256_KERNELS[entry["name"]]}
     phase_parity()
     launches = {  # per train phase: the launches of each wrapper on its path, and the steps
         "train": (phase_train(smi, FLAGSHIP, "train", FLASH_WRAPPERS), STEPS),
@@ -2202,6 +2539,9 @@ def main() -> None:
     phase_parity_fit_window()
     # the windowed fit's count is the profiler's: a replayed graph runs no wrapper
     launches["fit_window"] = (phase_fit_window(smi), FIT_WINDOW_K * FIT_WINDOW_WINDOWS)
+    phase_parity_zoo()
+    launches["fit_bert"] = (phase_fit_bert(smi), STEPS)
+    phase_examples()
     with dp_group():
         phase_parity_dp()
         launches["train_dp"] = (phase_train(smi, FLAGSHIP, "train_dp", BHSD_WRAPPERS, dp=True),

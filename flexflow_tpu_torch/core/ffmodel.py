@@ -52,6 +52,7 @@ from flexflow_tpu_torch.op_attrs.ops import (
     AggregateSpec,
     InputAttrs,
     LossFunction,
+    PoolOp,
     WeightAttrs,
     loss_attrs_for,
 )
@@ -262,13 +263,49 @@ class FFModel:
     def dropout(self, input, rate, seed=0, name=None) -> Tensor:
         return self._wrap(self._builder.dropout(self._unwrap(input), rate, seed=seed, name=name))
 
-    conv2d = _unported("conv2d", "Conv2D")
-    pool2d = _unported("pool2d", "Pool2D")
-    batch_norm = _unported("batch_norm", "BatchNorm")
-    flat = _unported("flat", "Flat")
-    concat = _unported("concat", "Concat")
-    split = _unported("split", "Split")
-    reshape = _unported("reshape", "Reshape")
+    def conv2d(
+        self, input, out_channels, kernel_h, kernel_w, stride_h, stride_w,
+        padding_h, padding_w, activation=None, groups=1, use_bias=True,
+        kernel_initializer=None, bias_initializer=None, name=None,
+    ) -> Tensor:
+        return self._wrap(self._builder.conv2d(
+            self._unwrap(input), out_channels, (kernel_h, kernel_w),
+            (stride_h, stride_w), (padding_h, padding_w), groups=groups,
+            activation=activation, use_bias=use_bias,
+            kernel_initializer=kernel_initializer,
+            bias_initializer=bias_initializer, name=name,
+        ))
+
+    def pool2d(
+        self, input, kernel_h, kernel_w, stride_h, stride_w,
+        padding_h, padding_w, pool_type=None, activation=None, name=None,
+    ) -> Tensor:
+        """pool_type: a PoolOp or its name, "max" (the default) or "avg"."""
+        if isinstance(pool_type, str):
+            pool_type = PoolOp(pool_type.lower())
+        return self._wrap(self._builder.pool2d(
+            self._unwrap(input), (kernel_h, kernel_w), (stride_h, stride_w),
+            (padding_h, padding_w), pool_type=pool_type or PoolOp.MAX,
+            activation=activation, name=name,
+        ))
+
+    def batch_norm(self, input, relu=True, name=None) -> Tensor:
+        return self._wrap(self._builder.batch_norm(self._unwrap(input), relu=relu, name=name))
+
+    def flat(self, input, name=None) -> Tensor:
+        return self._wrap(self._builder.flat(self._unwrap(input), name=name))
+
+    def concat(self, tensors, axis, name=None) -> Tensor:
+        return self._wrap(self._builder.concat([self._unwrap(t) for t in tensors], axis,
+                                               name=name))
+
+    def split(self, input, sizes, axis, name=None) -> List[Tensor]:
+        outs = self._builder.split(self._unwrap(input), sizes, axis, name=name)
+        return [self._wrap(o) for o in outs]
+
+    def reshape(self, input, shape, name=None) -> Tensor:
+        return self._wrap(self._builder.reshape(self._unwrap(input), shape, name=name))
+
     transpose = _unported("transpose", "Transpose")
     reverse = _unported("reverse", "Reverse")
     gather = _unported("gather", "Gather")

@@ -1,5 +1,5 @@
 // Flash attention on seq-major bf16 operands for Hopper (sm_90a), at head
-// dim 128 and at head dim 64.
+// dims 128, 64 and 256.
 //
 // Replaces these Pallas kernels of flexflow_tpu/kernels/flash_attention.py:
 //   ff_flash_fwd_kernel          <- _fwd_kernel_b (via _fwd_bshf), single-k-block
@@ -24,6 +24,13 @@
 //   ff_flash_bwd_dkv_bhsd[_d64]_kernel  <- _bwd_fused_kernel_b via _bwd_rows_fused
 //   ff_flash_bwd_dq_bhsd[_d64]_kernel      (s <= block) and _bwd_dq_kernel and
 //                                          _bwd_dkv_kernel via _bwd (s > block)
+//   ff_flash_fwd_d256_kernel     <- _fwd_kernel_b (via _fwd_bshf) at d=256
+//   ff_flash_delta_d256_kernel   <- _delta_kernel (via _delta_bshf) at d=256
+//   ff_flash_bwd_dkv_d256_kernel <- _bwd_fused_kernel_b (via _bwd_bshf_fused) at
+//   ff_flash_bwd_dq_d256_kernel     d=256, split in two as at d=128
+//   (the d=256 forward and backward run the mma.sync bodies of
+//   flash_d256.cuh, whose note says what bounds them and why they are not
+//   the Hopper mainloops; the delta runs delta_body)
 //
 // What bounds them on an H100. The forward does 4*b*h*s^2*d flops: at the
 // flagship's b=64, s=512, h*d=1024 that is 6.9e10 on ~270 MB, the ridge,
@@ -96,6 +103,7 @@
 // success).
 
 #include "flash_bwd_sm90.cuh"
+#include "flash_d256.cuh"
 
 namespace {
 
@@ -337,6 +345,7 @@ FLASH_DELTA_KERNEL(ff_flash_delta_kernel, 128)
 FLASH_DELTA_KERNEL(ff_flash_delta_d64_kernel, 64)
 FLASH_DELTA_KERNEL(ff_flash_delta_bhsd_kernel, 128)
 FLASH_DELTA_KERNEL(ff_flash_delta_bhsd_d64_kernel, 64)
+FLASH_DELTA_KERNEL(ff_flash_delta_d256_kernel, 256)
 
 #define FLASH_BWD_KERNELS(DKV, DQ, D)                                                      \
   extern "C" __global__ void __launch_bounds__(BWD_THREADS, 1) DKV(                        \
@@ -358,6 +367,31 @@ FLASH_BWD_KERNELS(ff_flash_bwd_dkv_kernel, ff_flash_bwd_dq_kernel, 128)
 FLASH_BWD_KERNELS(ff_flash_bwd_dkv_d64_kernel, ff_flash_bwd_dq_d64_kernel, 64)
 FLASH_BWD_KERNELS(ff_flash_bwd_dkv_bhsd_kernel, ff_flash_bwd_dq_bhsd_kernel, 128)
 FLASH_BWD_KERNELS(ff_flash_bwd_dkv_bhsd_d64_kernel, ff_flash_bwd_dq_bhsd_d64_kernel, 64)
+
+// Head dim 256 on contiguous [b, s, h*256] operands: the mma.sync bodies of
+// flash_d256.cuh (that header says why they are not the Hopper mainloops).
+extern "C" __global__ void __launch_bounds__(D256_FWD_THREADS) ff_flash_fwd_d256_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, float* __restrict__ lse, Layout l, int S, int H, int causal,
+    float scale) {
+  fwd_d256_body(q, k, v, o, lse, l, S, H, causal, scale);
+}
+
+extern "C" __global__ void __launch_bounds__(D256_DKV_THREADS, 1) ff_flash_bwd_dkv_d256_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, Layout l,
+    int S, int H, int causal, float scale) {
+  dkv_d256_body(q, k, v, dout, lse, delta, dk, dv, l, S, H, causal, scale);
+}
+
+extern "C" __global__ void __launch_bounds__(D256_DQ_THREADS) ff_flash_bwd_dq_d256_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq, Layout l, int S, int H, int causal,
+    float scale) {
+  dq_d256_body(q, k, v, dout, lse, delta, dq, l, S, H, causal, scale);
+}
 
 // ---------------------------------------------------------------------------
 // C interface (ctypes). lse and delta are contiguous [B, H, S] f32; S is a
@@ -511,9 +545,50 @@ extern "C" int ff_flash_bwd_bhsd(int d, const void* q, const void* k, const void
   return (int)cudaErrorInvalidValue;
 }
 
+// Head dim 256, contiguous [B, S, H*256] operands: the forward, the delta,
+// and the backward pair (dK/dV, then dQ, on one stream).
+extern "C" int ff_flash_fwd_d256(const void* q, const void* k, const void* v, void* o, void* lse,
+                                 int B, int S, int H, int causal, void* stream) {
+  cudaError_t err = allow_smem(ff_flash_fwd_d256_kernel, D256_FWD_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  ff_flash_fwd_d256_kernel<<<dim3(S / D256_TILE, H, B), D256_FWD_THREADS, D256_FWD_SMEM,
+                             (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, dense<256>(S, H), S,
+      H, causal, softmax_scale<256>());
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ff_flash_delta_d256(const void* dout, const void* o, void* delta, int B, int S,
+                                   int H, void* stream) {
+  const Layout l = dense<256>(S, H);
+  return launch_delta(ff_flash_delta_d256_kernel, dout, l, o, l, delta, B, S, H,
+                      (cudaStream_t)stream);
+}
+
+extern "C" int ff_flash_bwd_d256(const void* q, const void* k, const void* v, const void* dout,
+                                 const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                                 int B, int S, int H, int causal, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const Layout l = dense<256>(S, H);
+  const dim3 grid(S / D256_TILE, H, B);
+  cudaError_t err = allow_smem(ff_flash_bwd_dkv_d256_kernel, D256_DKV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  err = allow_smem(ff_flash_bwd_dq_d256_kernel, D256_DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  ff_flash_bwd_dkv_d256_kernel<<<grid, D256_DKV_THREADS, D256_DKV_SMEM, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
+      (const float*)delta, (bf16*)dk, (bf16*)dv, l, S, H, causal, softmax_scale<256>());
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ff_flash_bwd_dq_d256_kernel<<<grid, D256_DQ_THREADS, D256_DQ_SMEM, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
+      (const float*)delta, (bf16*)dq, l, S, H, causal, softmax_scale<256>());
+  return (int)cudaGetLastError();
+}
+
 // Dynamic shared memory of each kernel, for the build report: 0-2 the
 // d=128 fwd, dkv and dq kernels, 3-5 the d=64 ones (the _bhsd kernels of
-// each head dim use the same).
+// each head dim use the same), 6-8 the d=256 ones.
 extern "C" int ff_flash_smem_bytes(int which) {
   switch (which) {
     case 0: return (int)FwdTiles<128>::SMEM;
@@ -522,6 +597,9 @@ extern "C" int ff_flash_smem_bytes(int which) {
     case 3: return (int)FwdTiles<64>::SMEM;
     case 4: return (int)BwdTiles<64>::DKV_SMEM;
     case 5: return (int)BwdTiles<64>::DQ_SMEM;
+    case 6: return (int)D256_FWD_SMEM;
+    case 7: return (int)D256_DKV_SMEM;
+    case 8: return (int)D256_DQ_SMEM;
     default: return 0;
   }
 }

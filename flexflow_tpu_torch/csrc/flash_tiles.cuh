@@ -25,11 +25,16 @@ namespace {
 constexpr int LANES = 128;  // width of a lane group
 constexpr float NEG_INF = -1e30f;
 
-// Offset of row 0 of head h of batch b in an operand of layout l.
+// Offset of row 0 of head h of batch b in an operand of layout l. A head
+// of D > 128 spans groups: its heads lie `sub` apart and `group` is unused.
 template <int D>
 __device__ __forceinline__ size_t head_base(const Layout& l, int b, int h) {
-  constexpr int PER = LANES / D;
-  return (size_t)b * l.batch + (size_t)(h / PER) * l.group + (size_t)(h % PER) * l.sub;
+  if constexpr (D > LANES) {
+    return (size_t)b * l.batch + (size_t)h * l.sub;
+  } else {
+    constexpr int PER = LANES / D;
+    return (size_t)b * l.batch + (size_t)(h / PER) * l.group + (size_t)(h % PER) * l.sub;
+  }
 }
 
 // The layout of a per-head [b, h, s, D] operand with unit stride along D

@@ -16,6 +16,10 @@ Replaces the bshf Pallas path of flexflow_tpu/kernels/flash_attention.py:
 - flash_delta_d64 <- the delta _bwd_pair_core computes inline
 - flash_bwd_d64   <- _bwd_pair_core via _bwd_bshf_pair_fused and
                      _bwd_bshf_pair_fused_qkv, split as flash_bwd is
+- flash_fwd_d256, flash_delta_d256, flash_bwd_d256
+                  <- the same three as flash_fwd, flash_delta and flash_bwd,
+                     at head dim 256 (BERT's heads: kdim = 3072 / 12), where
+                     the JAX package runs them too
 
 and the per-head path (`flash_attention`, the counterpart of the JAX
 package's entry of that name), at d = 64 or 128:
@@ -27,7 +31,7 @@ package's entry of that name), at d = 64 or 128:
                       and _bwd_dq_kernel/_bwd_dkv_kernel via _bwd (s >
                       block), split as flash_bwd is
 
-The d=128 wrappers take contiguous [b, s, h*128] operands. The d=64 ones
+The d=128 and d=256 wrappers take contiguous [b, s, h*d] operands. The d=64 ones
 take q, k and v (and write dq, dk and dv) as lane-group views
 [b, s, h/2, 128] with free row and group strides: `lane_groups` of separate
 [b, s, h*64] tensors, or `qkv_views` of the interleaved projection
@@ -44,10 +48,11 @@ only when the kernels cannot read it as it is.
 
 Each wrapper runs its plain version for tensors on the CPU, and launches its
 kernel for tensors on a CUDA device, or raises: there is no fallback. The
-kernels take bf16, head dim 64 or 128, and a sequence that is a multiple of
-64; `flash_attention_bshf_supported` and `flash_attention_supported` are the
-gates callers use. What bounds each kernel on the card, and what its design
-does about it, is in the note at the top of csrc/flash_attention.cu.
+kernels take bf16, head dim 64 or 128 (the seq-major ones also 256), and a
+sequence that is a multiple of 64; `flash_attention_bshf_supported` and
+`flash_attention_supported` are the gates callers use. What bounds each
+kernel on the card, and what its design does about it, is in the note at
+the top of csrc/flash_attention.cu (at d=256, csrc/flash_d256.cuh).
 
 `flash_mesh(group)` declares that the code traced within runs on one rank
 of a data-parallel process group (the port's copy of the JAX package's
@@ -70,7 +75,8 @@ import torch
 
 from flexflow_tpu_torch.kernels import build
 
-HEAD_DIMS = (64, 128)  # the kernels' head dims
+HEAD_DIMS = (64, 128)  # the per-head kernels' head dims
+BSHF_HEAD_DIMS = (64, 128, 256)  # the seq-major kernels' head dims
 LANES = 128  # width of the lane groups the d=64 kernels read (two heads each)
 TILE = 64  # the kernels' sequence tile
 _SOURCE = "flash_attention.cu"
@@ -90,6 +96,9 @@ _SIGNATURES = {
         [_I, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
          _I, _I, _I, _I, _P], _I
     ),
+    "ff_flash_fwd_d256": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "ff_flash_delta_d256": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "ff_flash_bwd_d256": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "ff_flash_smem_bytes": ([_I], _I),
     "ff_error_string": ([_I], ctypes.c_char_p),
 }
@@ -118,12 +127,12 @@ def _dtype_ok(dtype: torch.dtype, device) -> bool:
 
 def flash_attention_bshf_supported(shape, num_heads: int, dtype: torch.dtype, device) -> bool:
     """Can the seq-major flash path take self-attention operands of this
-    [b, s, h*d] shape? The kernels need d of 128, or of 64 with an even head
-    count, and s a multiple of the 64-row tile."""
+    [b, s, h*d] shape? The kernels need d of 128 or 256, or of 64 with an
+    even head count, and s a multiple of the 64-row tile."""
     if len(shape) != 3 or shape[1] % TILE or shape[2] % num_heads:
         return False
     d = shape[2] // num_heads
-    if d not in HEAD_DIMS or (d == 64 and num_heads % 2):
+    if d not in BSHF_HEAD_DIMS or (d == 64 and num_heads % 2):
         return False
     return _dtype_ok(dtype, device)
 
@@ -468,6 +477,55 @@ def flash_bwd_d64(q, k, v, do, lse, delta, dq, dk, dv, num_heads: int, causal: b
 
 flash_bwd_d64.launches = 0
 
+
+def flash_fwd_d256(q, k, v, num_heads: int, causal: bool = False):
+    """(o, lse) of softmax(q k^T / sqrt(d)) v per head, d = 256."""
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, num_heads, causal)
+    b, s, h = _check_cuda("flash_fwd_d256", num_heads, 256, q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    _launch("ff_flash_fwd_d256", q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, s, h, int(causal), _stream(q))
+    flash_fwd_d256.launches += 1
+    return o, lse
+
+
+flash_fwd_d256.launches = 0
+
+
+def flash_delta_d256(do, o, num_heads: int):
+    """delta [b, h, s] f32 = rowsum(dO * O) per head, d = 256."""
+    if do.device.type == "cpu":
+        return flash_delta_plain(do, o, num_heads)
+    b, s, h = _check_cuda("flash_delta_d256", num_heads, 256, do, o)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=do.device)
+    _launch("ff_flash_delta_d256", do.data_ptr(), o.data_ptr(), delta.data_ptr(), b, s, h,
+            _stream(do))
+    flash_delta_d256.launches += 1
+    return delta
+
+
+flash_delta_d256.launches = 0
+
+
+def flash_bwd_d256(q, k, v, do, lse, delta, num_heads: int, causal: bool = False):
+    """(dq, dk, dv) from the saved forward and delta, d = 256."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, do, lse, delta, num_heads, causal)
+    b, s, h = _check_cuda("flash_bwd_d256", num_heads, 256, q, k, v, do)
+    _check_rows("flash_bwd_d256 lse", lse, b, h, s, q.device)
+    _check_rows("flash_bwd_d256 delta", delta, b, h, s, q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _launch("ff_flash_bwd_d256", q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, s, h, int(causal), _stream(q))
+    flash_bwd_d256.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd_d256.launches = 0
+
 def _strides(t: torch.Tensor) -> Tuple[int, int, int]:
     """(row, head, batch) strides of a [b, h, s, d] tensor."""
     return t.stride(2), t.stride(1), t.stride(0)
@@ -537,7 +595,8 @@ flash_bwd_bhsd.launches = 0
 # Every kernel wrapper of the port, each with its launch count: these, and
 # the ring-flash step wrappers, which kernels/ring_flash.py registers.
 KERNEL_WRAPPERS = (flash_fwd, flash_delta, flash_bwd, flash_fwd_d64, flash_delta_d64, flash_bwd_d64,
-                   flash_fwd_bhsd, flash_delta_bhsd, flash_bwd_bhsd)
+                   flash_fwd_bhsd, flash_delta_bhsd, flash_bwd_bhsd, flash_fwd_d256,
+                   flash_delta_d256, flash_bwd_d256)
 
 
 def register_wrappers(*fns) -> None:
@@ -553,15 +612,21 @@ def reset_launch_counts() -> None:
 # -- autograd ---------------------------------------------------------------
 
 
+# The contiguous [b, s, h*d] wrappers of each head dim: forward, delta, backward.
+_BSHF_KERNELS = {128: (flash_fwd, flash_delta, flash_bwd),
+                 256: (flash_fwd_d256, flash_delta_d256, flash_bwd_d256)}
+
+
 class FlashAttentionBSHF(torch.autograd.Function):
-    """Attention on separate [b, s, h*d] operands (d = 64 or 128) whose
+    """Attention on separate [b, s, h*d] operands (d = 64, 128 or 256) whose
     gradient runs the delta and backward kernels. The forward saves
     (q, k, v, o, lse)."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads: int, causal: bool = False):
-        if q.shape[-1] == num_heads * 128:
-            o, lse = flash_fwd(q, k, v, num_heads, causal)
+        d = q.shape[-1] // num_heads
+        if d in _BSHF_KERNELS:
+            o, lse = _BSHF_KERNELS[d][0](q, k, v, num_heads, causal)
         else:
             o, lse = flash_fwd_d64(*map(lane_groups, (q, k, v)), num_heads, causal)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -573,9 +638,11 @@ class FlashAttentionBSHF(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         h, causal = ctx.num_heads, ctx.causal
         do = do.contiguous()
-        if q.shape[-1] == h * 128:
-            delta = flash_delta(do, o, h)
-            dq, dk, dv = flash_bwd(q, k, v, do, lse, delta, h, causal)
+        d = q.shape[-1] // h
+        if d in _BSHF_KERNELS:
+            _, delta_fn, bwd_fn = _BSHF_KERNELS[d]
+            delta = delta_fn(do, o, h)
+            dq, dk, dv = bwd_fn(q, k, v, do, lse, delta, h, causal)
         else:
             delta = flash_delta_d64(do, o, h)
             dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

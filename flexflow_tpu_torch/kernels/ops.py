@@ -7,6 +7,16 @@ Uniform signature:
 inputs/weights: lists of tensors in slot order (roles from
 op_attrs.core.get_incoming_tensor_roles). `train` and `rng` (a
 torch.Generator on the inputs' device) reach Dropout only.
+
+The example zoo's ops follow the JAX package's semantics, not PyTorch's
+defaults: Conv2D is NCHW x OIHW (F.conv2d, as the JAX package leaves it to
+lax.conv_general_dilated, outside any Pallas kernel); max pooling pads with
+-inf and average pooling divides by the whole window, padding included, at
+any padding; BatchNorm normalizes by the batch's own mean and biased
+variance in training and evaluation alike (no running statistics).
+
+`op_forward_flops` is the JAX package's analytic forward count, which MFU
+divides by.
 """
 
 from __future__ import annotations
@@ -29,17 +39,25 @@ from flexflow_tpu_torch.op_attrs.activation import gelu
 from flexflow_tpu_torch.op_attrs.core import OpAttrs
 from flexflow_tpu_torch.op_attrs.ops import (
     AggregateSpec,
+    BatchNormAttrs,
+    ConcatAttrs,
+    Conv2DAttrs,
     DropoutAttrs,
     ElementBinaryAttrs,
     ElementBinaryOpType,
     ElementUnaryAttrs,
     ElementUnaryOpType,
     EmbeddingAttrs,
+    FlatAttrs,
     InputAttrs,
     LayerNormAttrs,
     LinearAttrs,
     MultiHeadAttentionAttrs,
+    Pool2DAttrs,
+    PoolOp,
+    ReshapeAttrs,
     SoftmaxAttrs,
+    SplitAttrs,
     WeightAttrs,
 )
 
@@ -207,6 +225,51 @@ def _mha_forward(attrs: MultiHeadAttentionAttrs, q, k, v, weight, input_bias=Non
     return dense_attention(attrs, q, k, v, weight, input_bias, causal)
 
 
+def _activate(activation, x):
+    return activation.apply(x) if activation else x
+
+
+def _conv2d(attrs: Conv2DAttrs, x, weights):
+    """NCHW input, OIHW kernel, symmetric padding per spatial dim."""
+    out = F.conv2d(x, weights[0], stride=(attrs.stride_h, attrs.stride_w),
+                   padding=(attrs.padding_h, attrs.padding_w), groups=attrs.groups)
+    if attrs.use_bias:
+        out = out + weights[1][None, :, None, None]
+    return _activate(attrs.activation, out)
+
+
+def _pool2d(attrs: Pool2DAttrs, x):
+    """lax.reduce_window's pooling: max pads with -inf, avg sums a window of
+    the zero-padded input and divides by kernel_h * kernel_w. PyTorch's pools
+    take at most half the kernel as padding, so wider padding is applied
+    explicitly first (the same values either way)."""
+    kernel, stride = (attrs.kernel_h, attrs.kernel_w), (attrs.stride_h, attrs.stride_w)
+    padding = (attrs.padding_h, attrs.padding_w)
+    is_max = attrs.pool_type == PoolOp.MAX
+    if any(2 * p > k for p, k in zip(padding, kernel)):
+        fill = float("-inf") if is_max else 0.0
+        x = F.pad(x, (padding[1], padding[1], padding[0], padding[0]), value=fill)
+        padding = (0, 0)
+    if is_max:
+        out = F.max_pool2d(x, kernel, stride, padding)
+    else:
+        out = F.avg_pool2d(x, kernel, stride, padding, count_include_pad=True)
+    return _activate(attrs.activation, out)
+
+
+def _batch_norm(attrs: BatchNormAttrs, x, weights):
+    """Normalize by the batch's mean and biased variance over every axis but
+    the channels (axis 1), then the affine, then an optional ReLU."""
+    axes = (0, 2, 3) if x.ndim == 4 else (0,)
+    mean = x.mean(dim=axes, keepdim=True)
+    var = x.var(dim=axes, keepdim=True, unbiased=False)
+    out = (x - mean) * torch.rsqrt(var + attrs.eps)
+    if attrs.affine:
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        out = out * weights[0].reshape(shape) + weights[1].reshape(shape)
+    return torch.relu(out) if attrs.relu else out
+
+
 def _layer_norm(attrs: LayerNormAttrs, x, weights):
     axes = tuple(attrs.axes)
     gamma, beta = (weights[0], weights[1]) if attrs.elementwise_affine else (None, None)
@@ -274,6 +337,14 @@ def forward(attrs: OpAttrs, inputs: Sequence[torch.Tensor],
         elif attrs.aggr == AggregateSpec.AVG:
             out = out.mean(dim=-2)
         return [out]
+    if isinstance(attrs, Conv2DAttrs):
+        return [_conv2d(attrs, inputs[0], weights)]
+    if isinstance(attrs, Pool2DAttrs):
+        return [_pool2d(attrs, inputs[0])]
+    if isinstance(attrs, FlatAttrs):
+        return [inputs[0].reshape(inputs[0].shape[0], -1)]
+    if isinstance(attrs, BatchNormAttrs):
+        return [_batch_norm(attrs, inputs[0], weights)]
     if isinstance(attrs, LayerNormAttrs):
         return [_layer_norm(attrs, inputs[0], weights)]
     if isinstance(attrs, SoftmaxAttrs):
@@ -287,4 +358,37 @@ def forward(attrs: OpAttrs, inputs: Sequence[torch.Tensor],
         if attrs.bias:
             out = out + weights[2]
         return [out]
+    if isinstance(attrs, ConcatAttrs):
+        return [torch.cat(inputs, dim=attrs.axis)]
+    if isinstance(attrs, SplitAttrs):
+        return list(torch.split(inputs[0], list(attrs.sizes), dim=attrs.axis))
+    if isinstance(attrs, ReshapeAttrs):
+        return [inputs[0].reshape(attrs.shape)]
     raise TypeError(f"no kernel for {type(attrs).__name__}")
+
+
+def op_forward_flops(attrs: OpAttrs, input_shapes, output_shapes) -> int:
+    """Analytic forward FLOPs of one op on one device (copy of the JAX
+    package's, for MFU): matmul-class ops count 2*M*N*K, every other op one
+    flop per output element."""
+
+    def nelem(shape):
+        return math.prod(shape.dims)
+
+    if isinstance(attrs, LinearAttrs):
+        x = input_shapes[0]
+        batch = nelem(x) // x.dims[-1]
+        return 2 * batch * x.dims[-1] * attrs.out_channels
+    if isinstance(attrs, Conv2DAttrs):
+        cin = input_shapes[0].dims[1]
+        window = (cin // attrs.groups) * attrs.kernel_h * attrs.kernel_w
+        return 2 * nelem(output_shapes[0]) * window
+    if isinstance(attrs, MultiHeadAttentionAttrs):
+        b, s, e = input_shapes[0].dims
+        kd, vd, H = attrs.q_proj_size, attrs.v_proj_size, attrs.num_heads
+        proj = 2 * b * s * e * (kd + kd + vd) * H + 2 * b * s * vd * attrs.embed_dim * H
+        scores = 2 * b * H * s * s * kd + 2 * b * H * s * s * vd
+        return proj + scores
+    if isinstance(attrs, EmbeddingAttrs):
+        return 0
+    return sum(nelem(s) for s in output_shapes)

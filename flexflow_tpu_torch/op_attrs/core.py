@@ -14,20 +14,27 @@ import enum
 from typing import List, Sequence, Union
 
 from flexflow_tpu_torch.op_attrs.ops import (
+    BatchNormAttrs,
     CombineAttrs,
+    ConcatAttrs,
+    Conv2DAttrs,
     DropoutAttrs,
     ElementBinaryAttrs,
     ElementUnaryAttrs,
     EmbeddingAttrs,
+    FlatAttrs,
     InputAttrs,
     LayerNormAttrs,
     LinearAttrs,
     MultiHeadAttentionAttrs,
+    Pool2DAttrs,
     ReductionAttrs,
     RepartitionAttrs,
     ReplicateAttrs,
+    ReshapeAttrs,
     RingAttentionAttrs,
     SoftmaxAttrs,
+    SplitAttrs,
     WeightAttrs,
 )
 from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
@@ -50,6 +57,13 @@ class OperatorType(enum.Enum):
     DROPOUT = "dropout"
     MULTIHEAD_ATTENTION = "multihead_attention"
     RING_ATTENTION = "ring_attention"
+    CONV2D = "conv2d"
+    POOL2D = "pool2d"
+    FLAT = "flat"
+    BATCH_NORM = "batch_norm"
+    CONCAT = "concat"
+    SPLIT = "split"
+    RESHAPE = "reshape"
     REPARTITION = "repartition"
     COMBINE = "combine"
     REPLICATE = "replicate"
@@ -65,6 +79,8 @@ OpAttrs = Union[
     InputAttrs, WeightAttrs, ElementUnaryAttrs, ElementBinaryAttrs,
     LinearAttrs, EmbeddingAttrs, LayerNormAttrs, SoftmaxAttrs, DropoutAttrs,
     MultiHeadAttentionAttrs, RingAttentionAttrs,
+    Conv2DAttrs, Pool2DAttrs, FlatAttrs, BatchNormAttrs,
+    ConcatAttrs, SplitAttrs, ReshapeAttrs,
     RepartitionAttrs, CombineAttrs, ReplicateAttrs, ReductionAttrs,
 ]
 
@@ -80,6 +96,13 @@ _OP_TYPE_BY_ATTRS = {
     DropoutAttrs: OperatorType.DROPOUT,
     MultiHeadAttentionAttrs: OperatorType.MULTIHEAD_ATTENTION,
     RingAttentionAttrs: OperatorType.RING_ATTENTION,
+    Conv2DAttrs: OperatorType.CONV2D,
+    Pool2DAttrs: OperatorType.POOL2D,
+    FlatAttrs: OperatorType.FLAT,
+    BatchNormAttrs: OperatorType.BATCH_NORM,
+    ConcatAttrs: OperatorType.CONCAT,
+    SplitAttrs: OperatorType.SPLIT,
+    ReshapeAttrs: OperatorType.RESHAPE,
     RepartitionAttrs: OperatorType.REPARTITION,
     CombineAttrs: OperatorType.COMBINE,
     ReplicateAttrs: OperatorType.REPLICATE,
@@ -103,12 +126,14 @@ def is_parallel_op(attrs: OpAttrs) -> bool:
 def get_incoming_tensor_roles(attrs: OpAttrs) -> List[IncomingTensorRole]:
     """Role (INPUT vs WEIGHT) of each incoming tensor, in slot order."""
     I, W = IncomingTensorRole.INPUT, IncomingTensorRole.WEIGHT
-    if isinstance(attrs, LinearAttrs):
+    if isinstance(attrs, (LinearAttrs, Conv2DAttrs)):
         return [I, W, W] if attrs.use_bias else [I, W]
     if isinstance(attrs, EmbeddingAttrs):
         return [I, W]
     if isinstance(attrs, MultiHeadAttentionAttrs):
         return [I, I, I, W] + ([W, W] if attrs.bias else [])
+    if isinstance(attrs, BatchNormAttrs):
+        return [I, W, W] if attrs.affine else [I]
     if isinstance(attrs, LayerNormAttrs):
         return [I, W, W] if attrs.elementwise_affine else [I]
     if isinstance(attrs, (InputAttrs, WeightAttrs)):
@@ -123,6 +148,8 @@ def get_output_shapes(
 ) -> List[TensorShape]:
     if isinstance(attrs, (InputAttrs, WeightAttrs)):
         return [attrs.output_shape()]
+    if isinstance(attrs, SplitAttrs):
+        return list(attrs.output_shapes(inputs[0]))
     return [attrs.output_shape(*inputs)]
 
 
@@ -136,6 +163,11 @@ def get_weight_shapes(
         if attrs.use_bias:
             ws.append(attrs.bias_shape(inputs[0]))
         return ws
+    if isinstance(attrs, Conv2DAttrs):
+        ws = [attrs.kernel_shape(inputs[0])]
+        if attrs.use_bias:
+            ws.append(attrs.bias_shape(inputs[0]))
+        return ws
     if isinstance(attrs, EmbeddingAttrs):
         return [attrs.weight_shape(inputs[0])]
     if isinstance(attrs, MultiHeadAttentionAttrs):
@@ -144,6 +176,8 @@ def get_weight_shapes(
         if attrs.bias:
             ws += [attrs.input_bias_shape(q, k, v), attrs.output_bias_shape(q, k, v)]
         return ws
+    if isinstance(attrs, BatchNormAttrs) and attrs.affine:
+        return [attrs.gamma_shape(inputs[0]), attrs.beta_shape(inputs[0])]
     if isinstance(attrs, LayerNormAttrs) and attrs.elementwise_affine:
         return [attrs.gamma_shape(inputs[0]), attrs.beta_shape(inputs[0])]
     return []
@@ -184,14 +218,14 @@ def get_parallel_weight_shapes(
 
 def get_default_weight_initializers(attrs: OpAttrs, num_weights: int):
     """Per-weight-slot default initializers (None = the builder's generic
-    default: glorot for matrices, zero for vectors). LayerNorm's gamma
-    starts at one and its beta at zero; the embedding table takes the
+    default: glorot for matrices, zero for vectors). LayerNorm's and
+    BatchNorm's gamma start at one and their beta at zero; the embedding table takes the
     generic glorot, as in the JAX package."""
     from flexflow_tpu_torch.pcg.initializer import (
         ConstantInitializerAttrs,
         ZeroInitializerAttrs,
     )
 
-    if isinstance(attrs, LayerNormAttrs):
+    if isinstance(attrs, (BatchNormAttrs, LayerNormAttrs)):
         return [ConstantInitializerAttrs(1.0), ZeroInitializerAttrs()][:num_weights]
     return [None] * num_weights

@@ -1,8 +1,16 @@
 """Operator attrs of the slices: Input, Weight, Linear, Embedding,
 MultiHeadAttention, RingAttention, ElementUnary, ElementBinary, LayerNorm,
-Softmax, Dropout, the four parallel ops, and the loss attrs."""
+Softmax, Dropout, the example zoo's Conv2D, Pool2D, Flat, BatchNorm, Concat,
+Split and Reshape, the four parallel ops, and the loss attrs."""
 
 from flexflow_tpu_torch.op_attrs.ops.attention import MultiHeadAttentionAttrs
+from flexflow_tpu_torch.op_attrs.ops.conv_ops import (
+    BatchNormAttrs,
+    Conv2DAttrs,
+    FlatAttrs,
+    Pool2DAttrs,
+    PoolOp,
+)
 from flexflow_tpu_torch.op_attrs.ops.elementwise import (
     ElementBinaryAttrs,
     ElementBinaryOpType,
@@ -26,16 +34,21 @@ from flexflow_tpu_torch.op_attrs.ops.parallel_ops import (
     ReplicateAttrs,
 )
 from flexflow_tpu_torch.op_attrs.ops.ring_attention import RingAttentionAttrs
+from flexflow_tpu_torch.op_attrs.ops.shape_ops import ConcatAttrs, ReshapeAttrs, SplitAttrs
 
 __all__ = [
     "AggregateSpec",
+    "BatchNormAttrs",
     "CombineAttrs",
+    "ConcatAttrs",
+    "Conv2DAttrs",
     "DropoutAttrs",
     "ElementBinaryAttrs",
     "ElementBinaryOpType",
     "ElementUnaryAttrs",
     "ElementUnaryOpType",
     "EmbeddingAttrs",
+    "FlatAttrs",
     "InputAttrs",
     "LayerNormAttrs",
     "LinearAttrs",
@@ -43,12 +56,16 @@ __all__ = [
     "LossFunction",
     "MultiHeadAttentionAttrs",
     "NonconfigurableLossAttrs",
+    "Pool2DAttrs",
+    "PoolOp",
     "ReductionAttrs",
     "RepartitionAttrs",
     "ReplicateAttrs",
+    "ReshapeAttrs",
     "RingAttentionAttrs",
     "SoftmaxAttrs",
     "SparseCategoricalCrossEntropyLossAttrs",
+    "SplitAttrs",
     "WeightAttrs",
     "loss_attrs_for",
 ]

@@ -2,16 +2,17 @@
 copy of flexflow_tpu/pcg/computation_graph_builder.py).
 
 Covers create_input, create_weight, dense, embedding, multihead_attention,
-layer_norm, softmax, dropout, and the element-wise unary, scalar and binary
-ops. Each op creates its weight nodes first and then the op node, in the
-JAX builder's order, so that parameter keys `n{idx}` name the same weights
-in both packages. A binary op on operands of different shapes needs the
+conv2d, pool2d, flat, batch_norm, layer_norm, softmax, dropout, concat,
+split, reshape, and the element-wise unary, scalar and binary ops. Each op
+creates its weight nodes first and then the op node, in the JAX builder's
+order, so that parameter keys `n{idx}` name the same weights in both
+packages. A binary op on operands of different shapes needs the
 Broadcast op the JAX builder inserts, which is not ported yet (A2).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 from flexflow_tpu_torch.op_attrs.activation import Activation
 from flexflow_tpu_torch.op_attrs.core import (
@@ -23,17 +24,25 @@ from flexflow_tpu_torch.op_attrs.core import (
 from flexflow_tpu_torch.op_attrs.datatype import DataType
 from flexflow_tpu_torch.op_attrs.ops import (
     AggregateSpec,
+    BatchNormAttrs,
+    ConcatAttrs,
+    Conv2DAttrs,
     DropoutAttrs,
     ElementBinaryAttrs,
     ElementBinaryOpType,
     ElementUnaryAttrs,
     ElementUnaryOpType,
     EmbeddingAttrs,
+    FlatAttrs,
     InputAttrs,
     LayerNormAttrs,
     LinearAttrs,
     MultiHeadAttentionAttrs,
+    Pool2DAttrs,
+    PoolOp,
+    ReshapeAttrs,
     SoftmaxAttrs,
+    SplitAttrs,
     WeightAttrs,
 )
 from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
@@ -177,6 +186,57 @@ class ComputationGraphBuilder:
         (out,) = self.add_layer(attrs, [query, key, value], [initializer], name)
         return out
 
+    def conv2d(
+        self,
+        input: Tensor,
+        out_channels: int,
+        kernel: Tuple[int, int],
+        stride: Tuple[int, int] = (1, 1),
+        padding: Tuple[int, int] = (0, 0),
+        groups: int = 1,
+        activation: Optional[Activation] = None,
+        use_bias: bool = True,
+        kernel_initializer: Optional[InitializerAttrs] = None,
+        bias_initializer: Optional[InitializerAttrs] = None,
+        name: Optional[str] = None,
+    ) -> Tensor:
+        attrs = Conv2DAttrs(
+            out_channels, kernel[0], kernel[1], stride[0], stride[1],
+            padding[0], padding[1], groups, activation, use_bias,
+        )
+        (out,) = self.add_layer(attrs, [input], [kernel_initializer, bias_initializer], name)
+        return out
+
+    def pool2d(
+        self,
+        input: Tensor,
+        kernel: Tuple[int, int],
+        stride: Tuple[int, int] = (1, 1),
+        padding: Tuple[int, int] = (0, 0),
+        pool_type: PoolOp = PoolOp.MAX,
+        activation: Optional[Activation] = None,
+        name: Optional[str] = None,
+    ) -> Tensor:
+        attrs = Pool2DAttrs(
+            kernel[0], kernel[1], stride[0], stride[1], padding[0], padding[1],
+            pool_type, activation,
+        )
+        (out,) = self.add_layer(attrs, [input], [], name)
+        return out
+
+    def flat(self, input: Tensor, name: Optional[str] = None) -> Tensor:
+        (out,) = self.add_layer(FlatAttrs(), [input], [], name)
+        return out
+
+    def batch_norm(
+        self, input: Tensor, relu: bool = False, affine: bool = True,
+        eps: float = 1e-5, momentum: float = 0.1, name: Optional[str] = None,
+    ) -> Tensor:
+        """gamma (ones) and beta (zeros) are weight nodes made before the op
+        node when `affine`, as the JAX builder makes them."""
+        (out,) = self.add_layer(BatchNormAttrs(relu, affine, eps, momentum), [input], [], name)
+        return out
+
     def layer_norm(
         self,
         input: Tensor,
@@ -283,3 +343,16 @@ class ComputationGraphBuilder:
 
     def min(self, a, b, name=None):
         return self._binary(ElementBinaryOpType.MIN, a, b, name)
+
+    # -- shape ops ------------------------------------------------------------
+
+    def concat(self, tensors: Sequence[Tensor], axis: int, name=None) -> Tensor:
+        (out,) = self.add_layer(ConcatAttrs(axis), list(tensors), [], name)
+        return out
+
+    def split(self, input: Tensor, sizes: Sequence[int], axis: int, name=None) -> List[Tensor]:
+        return self.add_layer(SplitAttrs(tuple(sizes), axis), [input], [], name)
+
+    def reshape(self, input: Tensor, shape: Sequence[int], name=None) -> Tensor:
+        (out,) = self.add_layer(ReshapeAttrs(tuple(shape)), [input], [], name)
+        return out

@@ -25,6 +25,8 @@ from flexflow_tpu_torch.serving import (
 )
 
 REPO = Path(__file__).resolve().parent.parent
+PORT_EXAMPLES = ("mlp", "transformer", "bert", "split_test", "candle_uno", "dlrm", "xdl",
+                 "alexnet", "resnet", "resnext50", "inception")
 FORBIDDEN = ("jax", "jaxlib", "flexflow_tpu")
 
 
@@ -130,6 +132,23 @@ def test_port_runs_a_step_with_jax_and_the_jax_package_refused():
         perf = m.fit(xs, ys, epochs=2, verbose=False)
         assert perf.train_all == 64 and int(m.opt_state["step"]) == 16
         import flexflow_tpu_torch.runtime.cuda_graph  # noqa: F401
+
+        cnn = FFModel(FFConfig(batch_size=2, print_freq=0), device="cpu")
+        img = cnn.create_tensor([2, 3, 8, 8], name="image")
+        a = cnn.pool2d(cnn.conv2d(img, 4, 3, 3, 1, 1, 1, 1, groups=1), 2, 2, 2, 2, 0, 0)
+        b = cnn.pool2d(cnn.batch_norm(cnn.conv2d(img, 4, 3, 3, 2, 2, 1, 1)), 1, 1, 1, 1, 0, 0,
+                       pool_type="avg")
+        t = cnn.flat(cnn.concat([a, b], axis=1))
+        cnn.dense(cnn.reshape(cnn.split(t, [64, 64], axis=1)[0], [2, 64]), 3)
+        cnn.compile(SGDOptimizer(lr=0.1), "sparse_categorical_crossentropy")
+        assert cnn.fit(rs.randn(4, 3, 8, 8).astype(np.float32), rs.randint(0, 3, 4),
+                       verbose=False).train_all == 4
+
+        import contextlib, io
+        from flexflow_tpu_torch.examples import split_test
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            split_test.main(["-b", "4", "--steps", "1", "--device", "cpu"])
+        assert "THROUGHPUT" in printed.getvalue()
         assert not any(m == "jax" or m.startswith(("jax.", "flexflow_tpu."))
                        or m == "flexflow_tpu" for m in sys.modules)
         print("ok", float(loss))
@@ -162,7 +181,11 @@ def test_sources_import_nothing_of_jax_or_the_jax_package():
                    "observability/metrics.py", "analysis/memory_accounting.py",
                    "core/ffmodel.py", "core/dataloader.py", "core/optimizers.py",
                    "core/initializers.py", "core/__init__.py", "kernels/metrics.py",
-                   "local_execution/config.py", "runtime/cuda_graph.py"):
+                   "local_execution/config.py", "runtime/cuda_graph.py",
+                   "op_attrs/ops/conv_ops.py", "op_attrs/ops/shape_ops.py",
+                   "models/transformer.py", "models/bert.py", "models/candle_uno.py",
+                   "models/inception_v3.py", "models/split_test.py", "examples/__init__.py",
+                   *(f"examples/{name}.py" for name in PORT_EXAMPLES)):
         assert module in scanned
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []

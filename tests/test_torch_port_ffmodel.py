@@ -406,7 +406,7 @@ def test_small_flagship_fits_three_steps_like_the_jax_ffmodel():
 def test_unported_paths_raise_naming_their_slice():
     m, x, out = build_mlp()
     with pytest.raises(NotImplementedError, match=r"\(A2\)"):
-        m.conv2d(x, 4, 3, 3, 1, 1, 0, 0)
+        m.transpose(x, (1, 0))  # the example zoo's ops are ported; transpose is not
     with pytest.raises(NotImplementedError, match=r"\(A2\)"):
         m.add(x, out)  # differing shapes need the Broadcast op
     m2, _, _ = build_mlp(_cfg(tcore, metrics_dir="unused"))
