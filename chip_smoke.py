@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
                   versions;
 2. build          nvcc builds every kernel from the checkout's sources; build
                   time and each kernel's registers, shared memory and spills
-                  (the Hopper forwards and backwards must not spill) and
+                  (the Hopper forwards and backwards must not spill; the
+                  d=256 forward and backward pair's again on their own) and
                   ptxas's warnings;
 3. kernels        each kernel against its plain PyTorch version on the same
                   bf16 inputs, and timed beside its plain version, its bound
@@ -195,14 +196,16 @@ RING_TPU_KERNELS = "flexflow_tpu/kernels/ring_flash.py"
 # registers), the forward's of csrc/flash_fwd_sm90.cuh or the backward
 # pair's of csrc/flash_bwd_sm90.cuh
 DELTA_DESIGN = "16-byte loads, rows in flight, coalesced stores"
-# rows 1-3 at head dim 256 (BERT's heads): the mma.sync bodies of
-# csrc/flash_d256.cuh, and delta_body for the delta
+# rows 1-3 at head dim 256 (BERT's heads): the forward mainloop of
+# csrc/flash_fwd_sm90.cuh at 64-key tiles, the head-split dK/dV and dQ
+# mainloops of csrc/flash_bwd_sm90.cuh, and delta_body for the delta
 D256_KERNELS = {
     "flash_fwd_d256": ("ff_flash_fwd_d256_kernel",),
     "flash_delta_d256": ("ff_flash_delta_d256_kernel",),
     "flash_bwd_d256": ("ff_flash_bwd_dkv_d256_kernel", "ff_flash_bwd_dq_d256_kernel"),
 }
-D256_DESIGN = "mma.sync m16n8k16, cp.async tiles, padded shared rows"
+D256_DESIGN = ("wgmma+tma: forward at 64-key tiles; backward pair of 64-row blocks, the head "
+               "dim split between warpgroups, score tiles shared through shared memory")
 DELTA_WRAPPERS = ("flash_delta", "flash_delta_d64", "flash_delta_bhsd")
 REDESIGNED = {
     "flash_delta": ("ff_flash_delta_kernel",),
@@ -283,6 +286,10 @@ def phase_build() -> dict:
     # 6-8: the d=256 forward, dK/dV and dQ kernels
     for which, name in enumerate(("fwd", "bwd_dkv", "bwd_dq"), start=6):
         smem[f"ff_flash_{name}_d256_kernel"] = lib.ff_flash_smem_bytes(which)
+    # rows 1 and 3 at d=256 (the forward mainloop and the head-split backward
+    # pair): ptxas's registers and spills beside each kernel's shared memory
+    d256 = {name: dict(ptxas[name], dynamic_smem_bytes=smem[name])
+            for wrapper in ("flash_fwd_d256", "flash_bwd_d256") for name in D256_KERNELS[wrapper]}
     emit({
         "phase": "build", "seconds": seconds,
         "sources": {
@@ -290,6 +297,7 @@ def phase_build() -> dict:
             for src, info in infos.items()
         },
         "dynamic_smem_bytes": smem,
+        "d256_kernels": {"design": D256_DESIGN, **d256},
         "ptxas_warnings": warnings,
     })
     return ptxas
@@ -1689,21 +1697,23 @@ def phase_parity_fit_window():
 
 def _profiled_fit(m, x, y) -> dict:
     """One fit under torch.profiler: host ms to its synchronized end, the
-    card's kernel ms, and each flash and ring kernel's launches."""
+    card's kernel ms, and each flash and ring kernel's launches and ms."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from flexflow_tpu_torch.profile_step import device_trace
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:  # closing at the fit's end could drop its last records
         start = time.perf_counter()
         m.fit(x, y, epochs=1, shuffle=False, verbose=False)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - start) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    flash = [e for e in kernels if e.key.startswith(("ff_flash_", "ff_ring_"))]
     return {"host_ms": host_ms, "kernel_ms": kernel_ms,
-            "flash": {e.key: e.count for e in kernels if e.key.startswith(("ff_flash_", "ff_ring_"))},
+            "flash": {e.key: e.count for e in flash},
+            "flash_ms": {e.key: e.self_device_time_total / 1e3 for e in flash},
             "top_kernels": [{"name": e.key[:120], "ms": e.self_device_time_total / 1e3,
                              "calls": e.count}
                             for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]]}
@@ -2080,7 +2090,7 @@ def _decode_split(program, cache, steps: int, decode) -> dict:
     costs it."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from flexflow_tpu_torch.profile_step import device_trace
 
     slots = program.serving.max_concurrent_seqs
     token = torch.zeros(slots, dtype=torch.int32, device="cuda")
@@ -2094,7 +2104,7 @@ def _decode_split(program, cache, steps: int, decode) -> dict:
     enqueued_ms = (time.perf_counter() - start) * 1e3
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - start) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         start = time.perf_counter()
         decode(cache, token, lengths, active, steps)
         torch.cuda.synchronize()
@@ -2477,7 +2487,10 @@ def phase_fit_bert(smi: str, steps: int = STEPS):
         "profiled_fit": {"host_ms_per_step": trace["host_ms"] / steps,
                          "kernel_ms_per_step": trace["kernel_ms"] / steps,
                          "idle_share": 1.0 - trace["kernel_ms"] / trace["host_ms"],
-                         "flash_launches": trace["flash"], "top_kernels": trace["top_kernels"]},
+                         "flash_launches": trace["flash"],
+                         "d256_kernel_ms_per_step": {k: v / steps
+                                                     for k, v in trace["flash_ms"].items()},
+                         "top_kernels": trace["top_kernels"]},
         "launches": launches, "launches_per_step_each": layers,
     })
     del m

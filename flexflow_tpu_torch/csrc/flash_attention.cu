@@ -28,9 +28,9 @@
 //   ff_flash_delta_d256_kernel   <- _delta_kernel (via _delta_bshf) at d=256
 //   ff_flash_bwd_dkv_d256_kernel <- _bwd_fused_kernel_b (via _bwd_bshf_fused) at
 //   ff_flash_bwd_dq_d256_kernel     d=256, split in two as at d=128
-//   (the d=256 forward and backward run the mma.sync bodies of
-//   flash_d256.cuh, whose note says what bounds them and why they are not
-//   the Hopper mainloops; the delta runs delta_body)
+//   (the d=256 forward runs the forward mainloop at 64-key tiles, the d=256
+//   backward the head-split mainloops of flash_bwd_sm90.cuh, whose note says
+//   why d=256 needs them; the delta runs delta_body)
 //
 // What bounds them on an H100. The forward does 4*b*h*s^2*d flops: at the
 // flagship's b=64, s=512, h*d=1024 that is 6.9e10 on ~270 MB, the ridge,
@@ -49,20 +49,21 @@
 // and (bshf) scattered 4-byte stores S*4 bytes apart, it keeps enough bytes
 // in flight to run at the card's memory rate. Its note has the details.
 //
-// Forward design (the four _fwd kernels, rows 1, 6 and 9 of the port's
-// kernel table): fwd_body is the Hopper mainloop of flash_fwd_sm90.cuh with
-// the flash epilogue. Where the shared-tile forward it replaced stored every score
-// fragment to an f32 shared tile, walked the softmax one row at a time per
-// warp, kept P and the f32 output tile in shared memory and loaded K/V
-// synchronously between two block barriers, it runs S = Q K^T and O += P V
-// on wgmma with S, P and O in registers, takes a row's max and sum from a
-// thread-local pass and two quad shuffles, and streams K/V by TMA through a
-// ring of stages that one producer thread keeps full while two 64-row
-// consumer warpgroups compute. That header's note has the details.
+// Forward design (the five _fwd kernels, rows 1, 6 and 9 of the port's
+// kernel table, row 1 at d=128 and 256): fwd_body is the Hopper mainloop of
+// flash_fwd_sm90.cuh with the flash epilogue. Where the shared-tile forward
+// it replaced stored every score fragment to an f32 shared tile, walked
+// the softmax one row at a time per warp, kept P and the f32 output tile in
+// shared memory and loaded K/V synchronously between two block barriers, it
+// runs S = Q K^T and O += P V on wgmma with S, P and O in registers, takes
+// a row's max and sum from a thread-local pass and two quad shuffles, and
+// streams K/V by TMA through a ring of stages that one producer thread
+// keeps full while two 64-row consumer warpgroups compute. That header's note has the details.
 //
 // Backward design (the dK/dV and dQ kernels of rows 3-5, 7, 8, 11 and 12 of
-// the port's kernel table): dkv_body and dq_body are the two Hopper
-// mainloops of flash_bwd_sm90.cuh with the flash epilogue. The TPU kernels
+// the port's kernel table, row 3 at d=128 and 256): dkv_body and dq_body are
+// the two Hopper mainloops of flash_bwd_sm90.cuh with the flash epilogue (at
+// d=256 the head-split pair, which owns 64 rows a block). The TPU kernels
 // hold the whole [s, s] f32 score tile of a (b, h) in VMEM; at s=512 that is
 // 1 MB, far beyond the 227 KB of shared memory a block gets, so the
 // backward is two kernels that both rebuild P from the saved lse: one that
@@ -80,7 +81,8 @@
 //
 // Operand layout. Every operand is read through a Layout: head h of batch b
 // starts at element b * batch + (h / PER) * group + (h % PER) * sub, with
-// PER = 128 / D heads to a group, and its rows lie ld elements apart. At
+// PER = 128 / D heads to a group (one at d=256, whose head is its own
+// group: group = sub = 256), and its rows lie ld elements apart. At
 // d=128 the bshf operands are contiguous [b, s, h*128] (ld = h*128,
 // group = sub = 128, batch = s*h*128). At d=64 the same kernel reads
 // either separate q/k/v [b, s, h*64] (ld = h*64, group = 128, sub = 64) or
@@ -103,7 +105,6 @@
 // success).
 
 #include "flash_bwd_sm90.cuh"
-#include "flash_d256.cuh"
 
 namespace {
 
@@ -130,8 +131,12 @@ __device__ __forceinline__ void dkv_body(const CUtensorMap* tq, const CUtensorMa
                                          const float* __restrict__ delta, bf16* __restrict__ dk,
                                          bf16* __restrict__ dv, Layout grad, int S, int H,
                                          int causal, float scale) {
-  dkv_mainloop<D>(tq, tk, tv, tdo, lse, delta, FlashGradEpilogue<D>{dk, grad},
-                  FlashGradEpilogue<D>{dv, grad}, FwdShape{S, S, H, 0, 0, causal, scale});
+  const FwdShape sh{S, S, H, 0, 0, causal, scale};
+  if constexpr (D == 256)
+    dkv_mainloop_d256(tq, tk, tv, tdo, lse, delta, dk, dv, grad, sh);
+  else
+    dkv_mainloop<D>(tq, tk, tv, tdo, lse, delta, FlashGradEpilogue<D>{dk, grad},
+                    FlashGradEpilogue<D>{dv, grad}, sh);
 }
 
 // dQ of 128 query rows, streaming the key tiles they reach: the Hopper dQ
@@ -143,8 +148,11 @@ __device__ __forceinline__ void dq_body(const CUtensorMap* tq, const CUtensorMap
                                         const float* __restrict__ lse,
                                         const float* __restrict__ delta, bf16* __restrict__ dq,
                                         Layout grad, int S, int H, int causal, float scale) {
-  dq_mainloop<D>(tq, tk, tv, tdo, lse, delta, FlashGradEpilogue<D>{dq, grad},
-                 FwdShape{S, S, H, 0, 0, causal, scale});
+  const FwdShape sh{S, S, H, 0, 0, causal, scale};
+  if constexpr (D == 256)
+    dq_mainloop_d256(tq, tk, tv, tdo, lse, delta, dq, grad, sh);
+  else
+    dq_mainloop<D>(tq, tk, tv, tdo, lse, delta, FlashGradEpilogue<D>{dq, grad}, sh);
 }
 
 // Delta: delta[b, h, s] = sum_d dO * O, the bf16 products summed in f32.
@@ -296,7 +304,7 @@ __device__ __forceinline__ void delta_body(const bf16* __restrict__ dout, Layout
 // The layout of contiguous [b, s, h*D] operands.
 template <int D>
 __host__ __device__ __forceinline__ Layout dense(int S, int H) {
-  return Layout{H * D, LANES, D, S * H * D};
+  return Layout{H * D, group_heads<D>() * D, D, S * H * D};
 }
 
 // The layout of lane-group operands (rows `ld` apart, 128-lane groups
@@ -309,11 +317,11 @@ __host__ __device__ __forceinline__ Layout lane_grouped(int ld, int group, int S
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// Kernels: head dim 128 on contiguous [b, s, h*128] operands; head dim 64 on
-// lane-group operands (the gradients and dout of theirs); and, at either
-// head dim, per-head [b, h, s, d] operands of any row, head and batch
-// strides (the _bhsd kernels). The forward and backward kernels read their
-// layout from the tensor maps and the Layout arguments, so the bshf and
+// Kernels: head dims 128 and 256 on contiguous [b, s, h*d] operands; head
+// dim 64 on lane-group operands (the gradients and dout of theirs); and, at
+// head dims 64 and 128, per-head [b, h, s, d] operands of any row, head and
+// batch strides (the _bhsd kernels). The forward and backward kernels read
+// their layout from the tensor maps and the Layout arguments, so the bshf and
 // _bhsd kernels of one head dim have the same body: they are instantiated
 // under separate names only so that a profile and the kernel table keep
 // one row per entry point.
@@ -331,6 +339,7 @@ FLASH_FWD_KERNEL(ff_flash_fwd_kernel, 128)
 FLASH_FWD_KERNEL(ff_flash_fwd_d64_kernel, 64)
 FLASH_FWD_KERNEL(ff_flash_fwd_bhsd_kernel, 128)
 FLASH_FWD_KERNEL(ff_flash_fwd_bhsd_d64_kernel, 64)
+FLASH_FWD_KERNEL(ff_flash_fwd_d256_kernel, 256)
 
 // The four delta kernels run one body; a bshf kernel reads its operands
 // through dense<D>, a per-head one through the per-head Layouts it is given.
@@ -368,35 +377,12 @@ FLASH_BWD_KERNELS(ff_flash_bwd_dkv_d64_kernel, ff_flash_bwd_dq_d64_kernel, 64)
 FLASH_BWD_KERNELS(ff_flash_bwd_dkv_bhsd_kernel, ff_flash_bwd_dq_bhsd_kernel, 128)
 FLASH_BWD_KERNELS(ff_flash_bwd_dkv_bhsd_d64_kernel, ff_flash_bwd_dq_bhsd_d64_kernel, 64)
 
-// Head dim 256 on contiguous [b, s, h*256] operands: the mma.sync bodies of
-// flash_d256.cuh (that header says why they are not the Hopper mainloops).
-extern "C" __global__ void __launch_bounds__(D256_FWD_THREADS) ff_flash_fwd_d256_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, float* __restrict__ lse, Layout l, int S, int H, int causal,
-    float scale) {
-  fwd_d256_body(q, k, v, o, lse, l, S, H, causal, scale);
-}
-
-extern "C" __global__ void __launch_bounds__(D256_DKV_THREADS, 1) ff_flash_bwd_dkv_d256_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, Layout l,
-    int S, int H, int causal, float scale) {
-  dkv_d256_body(q, k, v, dout, lse, delta, dk, dv, l, S, H, causal, scale);
-}
-
-extern "C" __global__ void __launch_bounds__(D256_DQ_THREADS) ff_flash_bwd_dq_d256_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dq, Layout l, int S, int H, int causal,
-    float scale) {
-  dq_d256_body(q, k, v, dout, lse, delta, dq, l, S, H, causal, scale);
-}
+FLASH_BWD_KERNELS(ff_flash_bwd_dkv_d256_kernel, ff_flash_bwd_dq_d256_kernel, 256)
 
 // ---------------------------------------------------------------------------
 // C interface (ctypes). lse and delta are contiguous [B, H, S] f32; S is a
-// multiple of 64. At d=128 every other operand of the bshf entries is a
-// contiguous [B, S, H*128] bf16. At d=64, q/k/v (and the gradients) are
+// multiple of 64. At d=128 and 256 every other operand of the bshf entries
+// is a contiguous [B, S, H*d] bf16. At d=64, q/k/v (and the gradients) are
 // read (and written) at rows `ld` apart with 128-lane groups `group` apart,
 // while o and dout are contiguous [B, S, H*64]. The _bhsd entries take
 // d = 64 or 128 and per-head [B, H, S, d] operands, each given by its row,
@@ -483,6 +469,14 @@ extern "C" int ff_flash_delta_bhsd(int d, const void* dout, int ld, int head, in
   return (int)cudaErrorInvalidValue;
 }
 
+// Dynamic shared memory of the dK/dV (dkv) or dQ kernel at head dim D: the
+// mainloops of 128-row blocks, or at D = 256 the head-split ones.
+template <int D>
+static constexpr size_t bwd_smem_bytes(bool dkv) {
+  if constexpr (D == 256) return dkv ? SplitTiles::DKV_SMEM : SplitTiles::DQ_SMEM;
+  else return dkv ? BwdTiles<D>::DKV_SMEM : BwdTiles<D>::DQ_SMEM;
+}
+
 // The backward pair of q, k, v (Layout in) and dout (Layout od) into dq,
 // dk and dv (Layout grad): dK/dV, then dQ, on one stream.
 template <int D, typename KDKV, typename KDQ>
@@ -493,16 +487,18 @@ static int launch_bwd(KDKV dkv, KDQ dqk, const void* q, const void* k, const voi
   CUtensorMap maps[4];
   if (!bwd_tensor_maps<D>(maps, q, in, k, in, v, in, dout, od, S, S, H, B))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(dkv, BwdTiles<D>::DKV_SMEM);
+  const size_t dkv_smem = bwd_smem_bytes<D>(true), dq_smem = bwd_smem_bytes<D>(false);
+  const dim3 grid = D == 256 ? split_grid(S, H, B) : bwd_grid(S, H, B);
+  cudaError_t err = allow_smem(dkv, dkv_smem);
   if (err != cudaSuccess) return (int)err;
-  err = allow_smem(dqk, BwdTiles<D>::DQ_SMEM);
+  err = allow_smem(dqk, dq_smem);
   if (err != cudaSuccess) return (int)err;
-  dkv<<<bwd_grid(S, H, B), BWD_THREADS, BwdTiles<D>::DKV_SMEM, s>>>(
+  dkv<<<grid, BWD_THREADS, dkv_smem, s>>>(
       maps[0], maps[1], maps[2], maps[3], (const float*)lse, (const float*)delta, (bf16*)dk,
       (bf16*)dv, grad, S, H, causal, softmax_scale<D>());
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dqk<<<bwd_grid(S, H, B), BWD_THREADS, BwdTiles<D>::DQ_SMEM, s>>>(
+  dqk<<<grid, BWD_THREADS, dq_smem, s>>>(
       maps[0], maps[1], maps[2], maps[3], (const float*)lse, (const float*)delta, (bf16*)dq, grad,
       S, H, causal, softmax_scale<D>());
   return (int)cudaGetLastError();
@@ -549,13 +545,9 @@ extern "C" int ff_flash_bwd_bhsd(int d, const void* q, const void* k, const void
 // and the backward pair (dK/dV, then dQ, on one stream).
 extern "C" int ff_flash_fwd_d256(const void* q, const void* k, const void* v, void* o, void* lse,
                                  int B, int S, int H, int causal, void* stream) {
-  cudaError_t err = allow_smem(ff_flash_fwd_d256_kernel, D256_FWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  ff_flash_fwd_d256_kernel<<<dim3(S / D256_TILE, H, B), D256_FWD_THREADS, D256_FWD_SMEM,
-                             (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, dense<256>(S, H), S,
-      H, causal, softmax_scale<256>());
-  return (int)cudaGetLastError();
+  const Layout l = dense<256>(S, H);
+  return launch_fwd<256>(ff_flash_fwd_d256_kernel, q, k, v, l, o, l, lse, B, S, H, causal,
+                         (cudaStream_t)stream);
 }
 
 extern "C" int ff_flash_delta_d256(const void* dout, const void* o, void* delta, int B, int S,
@@ -568,22 +560,10 @@ extern "C" int ff_flash_delta_d256(const void* dout, const void* o, void* delta,
 extern "C" int ff_flash_bwd_d256(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq, void* dk, void* dv,
                                  int B, int S, int H, int causal, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
   const Layout l = dense<256>(S, H);
-  const dim3 grid(S / D256_TILE, H, B);
-  cudaError_t err = allow_smem(ff_flash_bwd_dkv_d256_kernel, D256_DKV_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  err = allow_smem(ff_flash_bwd_dq_d256_kernel, D256_DQ_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  ff_flash_bwd_dkv_d256_kernel<<<grid, D256_DKV_THREADS, D256_DKV_SMEM, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dk, (bf16*)dv, l, S, H, causal, softmax_scale<256>());
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ff_flash_bwd_dq_d256_kernel<<<grid, D256_DQ_THREADS, D256_DQ_SMEM, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dq, l, S, H, causal, softmax_scale<256>());
-  return (int)cudaGetLastError();
+  return launch_bwd<256>(ff_flash_bwd_dkv_d256_kernel, ff_flash_bwd_dq_d256_kernel, q, k, v, l,
+                         dout, l, lse, delta, dq, dk, dv, l, B, S, H, causal,
+                         (cudaStream_t)stream);
 }
 
 // Dynamic shared memory of each kernel, for the build report: 0-2 the
@@ -597,9 +577,9 @@ extern "C" int ff_flash_smem_bytes(int which) {
     case 3: return (int)FwdTiles<64>::SMEM;
     case 4: return (int)BwdTiles<64>::DKV_SMEM;
     case 5: return (int)BwdTiles<64>::DQ_SMEM;
-    case 6: return (int)D256_FWD_SMEM;
-    case 7: return (int)D256_DKV_SMEM;
-    case 8: return (int)D256_DQ_SMEM;
+    case 6: return (int)FwdTiles<256>::SMEM;
+    case 7: return (int)SplitTiles::DKV_SMEM;
+    case 8: return (int)SplitTiles::DQ_SMEM;
     default: return 0;
   }
 }

@@ -1,9 +1,9 @@
 // The attention forward for Hopper (sm_90a): one mainloop over streamed
 // key/value tiles with two epilogues. The flash epilogue writes o (bf16,
 // normalised by 1/l) through an output Layout and lse in natural log
-// (flash_attention.cu: ff_flash_fwd[_d64|_bhsd|_bhsd_d64]_kernel). The ring
-// epilogue reads the carried f32 (acc, m, l) of its rows into registers
-// before the loop and writes them back after it (ring_flash.cu:
+// (flash_attention.cu: ff_flash_fwd[_d64|_bhsd|_bhsd_d64|_d256]_kernel).
+// The ring epilogue reads the carried f32 (acc, m, l) of its rows into
+// registers before the loop and writes them back after it (ring_flash.cu:
 // ff_ring_fwd_step[_d64]_kernel).
 //
 // Replaces, through those kernels, the Pallas kernels _fwd_kernel_b (:674),
@@ -16,16 +16,19 @@
 // (b=64, h=8, d=128) that is 6.9e10 flops on 268 MB: the ridge, bound by
 // bytes (0.080 ms). At s=2048 (b=16, h=8) and at the ring step's
 // 4x8x8192x128 causal shape it is bound by operations (0.278 and 0.556 ms at
-// 989 TFLOP/s).
+// 989 TFLOP/s). At d=256, BERT-base's b=64, h=12, s=512 does 2.1e11 flops on
+// 805 MB: 0.208 ms of products against 0.241 ms of bytes.
 //
 // Design. A block owns FWD_BM = 128 query rows of one (batch, head) and runs
 // three warpgroups: two consumers of 64 rows each (wgmma's M) and one
 // producer. What each piece does about the shared-tile design it replaced:
-// - Products on wgmma. S = Q K^T is wgmma m64n128k16 with Q and the K tile
-//   read from shared memory through descriptors over 128-byte-swizzled
-//   panels (64 columns of 128 bytes each); O += P V is m64nDk16 with P as
-//   the register A operand and V from shared memory as the MN-major B
-//   operand (transpose bit set).
+// - Products on wgmma. S = Q K^T is wgmma m64nBNk16 (BN = 128 key rows a
+//   tile, 64 at d=256) with Q and the K tile read from shared memory through
+//   descriptors over 128-byte-swizzled panels (64 columns of 128 bytes
+//   each); O += P V is m64nDk16 (at d=256 two m64n128k16 on V's column
+//   halves, each over two of V's four panels) with P as the register A
+//   operand and V from shared memory as the MN-major B operand (transpose
+//   bit set).
 // - Registers, not shared memory, hold S, P and O. The score tile stays in
 //   the wgmma accumulator; the online softmax runs on that fragment, a
 //   row's max and sum being a pass over the thread's values plus two
@@ -36,7 +39,8 @@
 // - Asynchronous tile loads. One thread of the producer warpgroup issues
 //   TMA loads (cp.async.bulk.tensor, 5-D: column, row, head in its group,
 //   group, batch) of Q once and of K/V tiles into a ring of
-//   FwdTiles<D>::STAGES stages (2 at d=128, 3 at d=64) guarded by mbarriers: a stage's full barrier counts its bytes, its
+//   FwdTiles<D>::STAGES stages (2 at d=128 and 256, 3 at d=64) guarded by
+//   mbarriers: a stage's full barrier counts its bytes, its
 //   empty barrier the four warps of each consumer warpgroup after their
 //   wgmma on it has retired. Loads of the next tiles run under the products
 //   of this one. The tensor maps are built on the host from the kernel's
@@ -44,11 +48,12 @@
 //   multiple of 16 bytes apart) through cudaGetDriverEntryPoint, so the
 //   library links only the runtime, and they reach the kernel as
 //   __grid_constant__ parameters.
-// - Occupancy. Shared memory: Q (128 x D) plus the stages' K and V tiles,
-//   1 block a SM; setmaxnreg gives the consumers 232 registers and the
+// - Occupancy. Shared memory: Q (128 x D) plus the stages' K and V tiles
+//   (193 KB at d=256), 1 block a SM; setmaxnreg gives the consumers 232
+//   registers (at d=256 O's 128 f32, S's 32 and P's 16 packed) and the
 //   producer 40.
 // Causal and ring semantics: only tiles that cross the diagonal (or the end
-// of the key block, where s % 128 == 64) are masked, by global positions
+// of the key block, where s % BN == 64) are masked, by global positions
 // (q_off + row >= k_off + col); each consumer warpgroup's loop bound skips
 // the tiles wholly masked for its rows; masked entries give p = 0; a block
 // whose rows see no key returns before touching memory, and a warpgroup
@@ -65,7 +70,6 @@ namespace {
 
 constexpr int FWD_WG_ROWS = 64;          // rows of a consumer warpgroup: wgmma's M
 constexpr int FWD_BM = 2 * FWD_WG_ROWS;  // query rows of a block
-constexpr int FWD_BN = 128;              // key rows of a streamed tile: S is wgmma's N = 128
 constexpr int FWD_THREADS = 3 * 128;     // two consumer warpgroups, then the producer
 constexpr int PANEL = 64;                // bf16 columns of a 128-byte swizzled panel
 constexpr uint32_t ROW_BYTES = 128;      // one panel row
@@ -73,15 +77,19 @@ constexpr uint32_t SWIZZLE_ATOM = 8 * ROW_BYTES;
 constexpr int CONSUMER_REGS = 232, PRODUCER_REGS = 40;
 
 // Shared memory of head dim D: Q [FWD_BM x D] and STAGES stages of K
-// and V [FWD_BN x D], each as D/64 panels of [rows x 64], 1024-byte
-// aligned; then the barriers.
+// and V [BN x D], each as D/64 panels of [rows x 64], 1024-byte aligned;
+// then the barriers. A key tile is BN = 128 rows (S is wgmma's N = 128),
+// but 64 at D = 256, where S and P for 128 keys beside O's 128 f32 a
+// thread would pass the consumers' registers and one 128-row stage of K and
+// V (128 KB) beside Q (64 KB) would leave no room for a second stage.
 template <int D>
 struct FwdTiles {
-  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static_assert(D == 64 || D == 128 || D == 256, "head dim 64, 128 or 256");
+  static constexpr int BN = D == 256 ? 64 : 128;  // key rows of a streamed tile
   static constexpr int PANELS = D / PANEL;
-  static constexpr int STAGES = D == 128 ? 2 : 3;
+  static constexpr int STAGES = D == 64 ? 3 : 2;
   static constexpr uint32_t Q_PANEL = FWD_BM * ROW_BYTES;
-  static constexpr uint32_t KV_PANEL = FWD_BN * ROW_BYTES;
+  static constexpr uint32_t KV_PANEL = BN * ROW_BYTES;
   static constexpr uint32_t Q_BYTES = PANELS * Q_PANEL;
   static constexpr uint32_t KV_BYTES = PANELS * KV_PANEL;  // one of K or V
   static constexpr uint32_t STAGE_BYTES = 2 * KV_BYTES;
@@ -98,8 +106,8 @@ struct FwdShape {
 // Key tiles of BN rows that the rows [r0, r0 + FWD_WG_ROWS) of the query
 // block may attend: every tile, or under the causal mask
 // ceil((q_off + r0 + 64 - k_off) / BN) clamped to [0, ceil(T / BN)]; none
-// for rows past S. The backward's dQ streams tiles of 64 rows.
-template <int BN = FWD_BN>
+// for rows past S.
+template <int BN>
 __device__ __forceinline__ int fwd_k_tiles(const FwdShape& sh, int r0) {
   if (r0 >= sh.S) return 0;
   const int all = (sh.T + BN - 1) / BN;
@@ -260,12 +268,14 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory (K-major).
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory: A
+// K-major, B K-major or, with TRANS_B, MN-major.
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -274,7 +284,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
 }
 
 // D[64 x 128] += A[64 x 16] B[16 x 128], A from registers, B from shared memory (MN-major).
@@ -294,10 +304,27 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D[64 x N] += A[64 x 16] B[16 x N], A from registers, B from shared memory
+// (MN-major, descriptor b). N = 256 is two m64n128k16 on B's column halves,
+// the second `half` bytes past the first.
 template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (N == 128) wgmma_rs_n128(d, a, b);
-  else wgmma_rs_n64(d, a, b);
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                         uint32_t half = 0) {
+  if constexpr (N == 256) {
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[0]), a, b);
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[64]), a, b + (half >> 4));
+  } else if constexpr (N == 128) {
+    wgmma_rs_n128(d, a, b);
+  } else {
+    wgmma_rs_n64(d, a, b);
+  }
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], A and B from shared memory (K-major).
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int accumulate) {
+  if constexpr (N == 128) wgmma_ss_n128(d, a, b, accumulate);
+  else wgmma_ss_n64(d, a, b, accumulate);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -350,16 +377,16 @@ __device__ __forceinline__ void store_bf16_rows(bf16* dst, int ld, int row,
   }
 }
 
-// Scale and (MASK) mask the score tile sc in place into p; update the row
-// state m, l and rescale the output rows o. k0 is the tile's first key of
-// the block, qrow the thread's first row of the block.
-template <bool MASK, int D>
-__device__ __forceinline__ void online_softmax(float (&sc)[FWD_BN / 2], float (&o)[D / 2],
+// Scale and (MASK) mask the score tile sc of BN keys in place into p;
+// update the row state m, l and rescale the output rows o. k0 is the
+// tile's first key of the block, qrow the thread's first row of the block.
+template <bool MASK, int D, int BN>
+__device__ __forceinline__ void online_softmax(float (&sc)[BN / 2], float (&o)[D / 2],
                                                float (&m)[2], float (&l)[2], const FwdShape& sh,
                                                int qrow, int k0, int c) {
   float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-  for (int i = 0; i < FWD_BN / 2; ++i) {
+  for (int i = 0; i < BN / 2; ++i) {
     const int h = (i >> 1) & 1;
     float x = sc[i] * sh.scale;
     if (MASK) {
@@ -380,7 +407,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[FWD_BN / 2], float (&
     m[h] = m_new;
   }
 #pragma unroll
-  for (int i = 0; i < FWD_BN / 2; ++i) {
+  for (int i = 0; i < BN / 2; ++i) {
     const int h = (i >> 1) & 1;
     float p = __expf(sc[i] - m[h]);
     if (MASK && sc[i] == NEG_INF) p = 0.f;  // masked: p = 0 outright
@@ -481,11 +508,10 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
                                              const CUtensorMap* tv, const Epi& epi,
                                              const FwdShape& sh) {
   typedef FwdTiles<D> F;
-  static_assert(FWD_BN == 128, "S = Q K^T is one m64n128k16 wgmma per 16 columns of d");
-  constexpr int PER = LANES / D;
+  constexpr int BN = F::BN, PER = group_heads<D>();
   const int q0 = (gridDim.x - 1 - blockIdx.x) * FWD_BM;  // the longest causal rows first
   const int hi = blockIdx.y, bi = blockIdx.z;
-  const int n0 = fwd_k_tiles(sh, q0), n1 = fwd_k_tiles(sh, q0 + FWD_WG_ROWS);
+  const int n0 = fwd_k_tiles<BN>(sh, q0), n1 = fwd_k_tiles<BN>(sh, q0 + FWD_WG_ROWS);
   const int nk = max(n0, n1);
   if (nk == 0) return;  // no row of the block sees a key
 
@@ -513,8 +539,8 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
         mbar_expect_tx(full, F::STAGE_BYTES);
 #pragma unroll
         for (int p = 0; p < F::PANELS; ++p) {
-          tma_load(sK + p * F::KV_PANEL, tk, full, p * PANEL, kt * FWD_BN, hs, hg, bi);
-          tma_load(sK + F::KV_BYTES + p * F::KV_PANEL, tv, full, p * PANEL, kt * FWD_BN, hs, hg, bi);
+          tma_load(sK + p * F::KV_PANEL, tk, full, p * PANEL, kt * BN, hs, hg, bi);
+          tma_load(sK + F::KV_BYTES + p * F::KV_PANEL, tv, full, p * PANEL, kt * BN, hs, hg, bi);
         }
       }
     }
@@ -536,29 +562,29 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
       mbar_wait(bars + 8 * s, (kt / F::STAGES) & 1);
       if (kt < n_mine) {
         const uint32_t sK = sKV + s * F::STAGE_BYTES, sV = sK + F::KV_BYTES;
-        const int k0 = kt * FWD_BN;
+        const int k0 = kt * BN;
         // S = Q K^T, in registers
-        float sc[FWD_BN / 2];
+        float sc[BN / 2];
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_n128(sc, kmajor(sQ, F::Q_PANEL, wrows, kk), kmajor(sK, F::KV_PANEL, 0, kk),
-                        kk > 0);
+          wgmma_ss<BN>(sc, kmajor(sQ, F::Q_PANEL, wrows, kk), kmajor(sK, F::KV_PANEL, 0, kk),
+                       kk > 0);
         wgmma_commit();
         wgmma_wait_all();
         hold(sc);
-        const bool masked = (sh.causal && sh.k_off + k0 + FWD_BN - 1 > sh.q_off + r0) ||
-                            k0 + FWD_BN > sh.T;
-        if (masked) online_softmax<true, D>(sc, o, m, l, sh, row, k0, c);
-        else online_softmax<false, D>(sc, o, m, l, sh, row, k0, c);
+        const bool masked = (sh.causal && sh.k_off + k0 + BN - 1 > sh.q_off + r0) ||
+                            k0 + BN > sh.T;
+        if (masked) online_softmax<true, D, BN>(sc, o, m, l, sh, row, k0, c);
+        else online_softmax<false, D, BN>(sc, o, m, l, sh, row, k0, c);
         // P in bf16 as the A fragments of O += P V: 16 keys each
-        uint32_t pa[FWD_BN / 16][4];
-        pack_a<FWD_BN>(pa, sc);
+        uint32_t pa[BN / 16][4];
+        pack_a<BN>(pa, sc);
         hold(o);
         wgmma_fence();
 #pragma unroll
-        for (int kb = 0; kb < FWD_BN / 16; ++kb)
-          wgmma_rs<D>(o, pa[kb], mnmajor(sV, F::KV_PANEL, kb));
+        for (int kb = 0; kb < BN / 16; ++kb)
+          wgmma_rs<D>(o, pa[kb], mnmajor(sV, F::KV_PANEL, kb), 2 * F::KV_PANEL);
         wgmma_commit();
         wgmma_wait_all();
         hold(o);
@@ -596,15 +622,15 @@ static EncodeTiled tensor_map_encoder() {
 
 // The tensor map of a bf16 operand of Layout l with `rows` rows per head:
 // 5-D (column, row, head in its group, group, batch), boxes of 64 columns
-// by box_rows rows (FWD_BN, which serves Q too as FWD_BM == FWD_BN; the
-// backward's are 64), 128-byte swizzle; rows past `rows` read as zeros.
+// by box_rows rows (the forward's FWD_BM for Q and FwdTiles<D>::BN for K
+// and V; the backward's 64), 128-byte swizzle; rows past `rows` read as
+// zeros.
 template <int D>
 static bool fwd_tensor_map(CUtensorMap* map, const void* base, Layout l, int rows, int H, int B,
-                           int box_rows = FWD_BN) {
-  static_assert(FWD_BM == FWD_BN, "one box shape for Q and K/V");
+                           int box_rows) {
   EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
-  constexpr int PER = LANES / D;
+  constexpr int PER = group_heads<D>();
   const cuuint64_t dims[5] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)PER,
                               (cuuint64_t)((H + PER - 1) / PER), (cuuint64_t)B};
   const long long el[4] = {l.ld, l.sub, l.group, l.batch};
@@ -623,9 +649,10 @@ template <int D>
 static cudaError_t fwd_tensor_maps(CUtensorMap (&maps)[3], const void* q, Layout lq, int S,
                                    const void* k, Layout lk, const void* v, Layout lv, int T, int H,
                                    int B) {
-  const bool ok = fwd_tensor_map<D>(&maps[0], q, lq, S, H, B) &&
-                  fwd_tensor_map<D>(&maps[1], k, lk, T, H, B) &&
-                  fwd_tensor_map<D>(&maps[2], v, lv, T, H, B);
+  constexpr int BN = FwdTiles<D>::BN;
+  const bool ok = fwd_tensor_map<D>(&maps[0], q, lq, S, H, B, FWD_BM) &&
+                  fwd_tensor_map<D>(&maps[1], k, lk, T, H, B, BN) &&
+                  fwd_tensor_map<D>(&maps[2], v, lv, T, H, B, BN);
   return ok ? cudaSuccess : cudaErrorInvalidValue;
 }
 

@@ -25,6 +25,13 @@ namespace {
 constexpr int LANES = 128;  // width of a lane group
 constexpr float NEG_INF = -1e30f;
 
+// Heads of dim D in one 128-lane group: a head of D > 128 spans groups and
+// is a group of its own.
+template <int D>
+__host__ __device__ constexpr int group_heads() {
+  return D > LANES ? 1 : LANES / D;
+}
+
 // Offset of row 0 of head h of batch b in an operand of layout l. A head
 // of D > 128 spans groups: its heads lie `sub` apart and `group` is unused.
 template <int D>
@@ -32,7 +39,7 @@ __device__ __forceinline__ size_t head_base(const Layout& l, int b, int h) {
   if constexpr (D > LANES) {
     return (size_t)b * l.batch + (size_t)h * l.sub;
   } else {
-    constexpr int PER = LANES / D;
+    constexpr int PER = group_heads<D>();
     return (size_t)b * l.batch + (size_t)(h / PER) * l.group + (size_t)(h % PER) * l.sub;
   }
 }
@@ -41,7 +48,7 @@ __device__ __forceinline__ size_t head_base(const Layout& l, int b, int h) {
 // and the given row, head and batch strides (contiguous: D, S*D, H*S*D).
 template <int D>
 __host__ __device__ __forceinline__ Layout per_head(int ld, int head, int batch) {
-  return Layout{ld, (LANES / D) * head, head, batch};
+  return Layout{ld, group_heads<D>() * head, head, batch};
 }
 
 }  // namespace

@@ -52,7 +52,7 @@ kernels take bf16, head dim 64 or 128 (the seq-major ones also 256), and a
 sequence that is a multiple of 64; `flash_attention_bshf_supported` and
 `flash_attention_supported` are the gates callers use. What bounds each
 kernel on the card, and what its design does about it, is in the note at
-the top of csrc/flash_attention.cu (at d=256, csrc/flash_d256.cuh).
+the top of csrc/flash_attention.cu and of the mainloops it names.
 
 `flash_mesh(group)` declares that the code traced within runs on one rank
 of a data-parallel process group (the port's copy of the JAX package's

@@ -81,6 +81,26 @@ COPY_LAUNCHERS = (
 )
 LAYOUT_COPY = "layout copy (other ops)"
 
+# torch.profiler keeps a device record only if the record's own timestamps
+# fall inside the trace's capture window, and those run apart from the host's
+# clock: a trace that closes right after its work's synchronize can lose the
+# work's last records (`python3 -m flexflow_tpu_torch.trace_edges` counts the
+# loss). So a trace idles this long after opening and before closing.
+TRACE_EDGE_S = 0.5
+
+
+@contextlib.contextmanager
+def device_trace():
+    """torch.profiler (CPU and CUDA activity) around the block, with
+    TRACE_EDGE_S of idle host time at each end: the block runs after the
+    first, and the card is synchronized before the second. Host times
+    taken inside the block exclude both."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_EDGE_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_EDGE_S)
+
 
 def copy_split(prof, steps: int) -> dict:
     """Device ms per step of copy kernels, by the operator that launched
@@ -142,7 +162,7 @@ def profile_flagship(heads: int = FLAGSHIP["heads"], dp: bool = False, seq: int 
         for _ in range(warmup):
             inst.train_step(params, opt_state, {"x": x}, y)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with device_trace() as prof:
             start = time.perf_counter()
             for _ in range(steps):
                 inst.train_step(params, opt_state, {"x": x}, y)

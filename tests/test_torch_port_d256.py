@@ -6,11 +6,14 @@ flash_attention_bshf with its jax.vjp), non-causal and causal, at s = 256
 and at s = 192 (the 64-row tile's edge). Also: on the CPU, _mha_forward
 takes d=256 self-attention through the flash path's plain versions as it
 does d=128, never through dense_attention; and the seq-major gate admits
-d=256 on a CUDA device for bf16 only. Tolerances are
+d=256 on a CUDA device for bf16 only; and the d=256 kernels are the
+Hopper mainloops (the forward's at 64-key tiles, the head-split backward
+pair). Tolerances are
 tests/test_torch_port_flash.py's: atol 1e-5 for o, lse and delta, 2e-4 for
 the gradients."""
 
 import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +24,7 @@ import torch
 from flexflow_tpu.kernels import flash_attention as jfa
 from flexflow_tpu.kernels import ops as jops
 from flexflow_tpu.op_attrs import ops as jattrs
+from flexflow_tpu_torch.kernels import build
 from flexflow_tpu_torch.kernels import flash_attention as tfa
 from flexflow_tpu_torch.kernels import ops as tops
 from flexflow_tpu_torch.op_attrs import ops as tattrs
@@ -126,3 +130,32 @@ def test_mha_forward_routes_through_the_flash_path(kd, monkeypatch):
 )
 def test_gate_admits_d256_on_cuda_for_bf16_only(shape, heads, dtype, device, ok):
     assert tfa.flash_attention_bshf_supported(shape, heads, dtype, device) is ok
+
+
+def test_d256_kernels_are_the_hopper_mainloops():
+    """The d=256 forward is the one forward mainloop at 64-key tiles; the
+    backward pair is the head-split mainloops: 64-row blocks (the gate's
+    tile), each warpgroup half of a streamed tile's 64 score columns and
+    half of the 256 output columns, the scores shared through shared
+    memory between two named barriers and made visible to wgmma; no
+    mma.sync body is left."""
+    src = "".join((build.CSRC_DIR / f).read_text()
+                  for f in ("flash_attention.cu", "flash_fwd_sm90.cuh", "flash_bwd_sm90.cuh"))
+    assert not (build.CSRC_DIR / "flash_d256.cuh").exists()
+    assert "FLASH_FWD_KERNEL(ff_flash_fwd_d256_kernel, 256)" in src
+    assert "FLASH_BWD_KERNELS(ff_flash_bwd_dkv_d256_kernel, ff_flash_bwd_dq_d256_kernel, 256)" in src
+    assert re.search(r"static constexpr int BN = D == 256 \? 64 : 128;", src)
+    assert f"constexpr int SPLIT_ROWS = {tfa.TILE};" in src
+    assert "constexpr int SPLIT_COLS = 32;" in src and "constexpr int SPLIT_HALF = 128;" in src
+    for body, mainloop in (("dkv_body", "dkv_mainloop_d256"), ("dq_body", "dq_mainloop_d256")):
+        head = src[src.index(f"__device__ __forceinline__ void {body}("):]
+        assert mainloop + "(tq, tk, tv, tdo, lse, delta," in head[:head.index("\n}")], body
+    for mainloop in ("dkv_mainloop_d256", "dq_mainloop_d256"):
+        body = src[src.index(f"__device__ __forceinline__ void {mainloop}("):]
+        body = body[:body.index("\n}\n")]
+        assert body.count("consumers_sync();") == 2, mainloop
+        assert body.count("fence_to_wgmma();") == 1, mainloop
+        assert "atom" not in body and "mma.sync" not in body, mainloop
+        assert "wgmma_ss_n32(" in body and "wgmma_ss_n128<1>(" in body, mainloop
+    assert "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16" in src
+    assert "bar.sync 1, 256;" in src and "fence.proxy.async.shared::cta;" in src

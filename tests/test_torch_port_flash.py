@@ -178,18 +178,22 @@ def test_gate_constants_match_the_cuda_source():
     for path in build.CSRC_DIR.glob("*.cu*"):
         text = path.read_text()
         assert "wmma" not in text and "<mma.h>" not in text, path.name
+        assert "mma.sync" not in text and "ldmatrix" not in text, path.name
     # the forward's and the backward's blocks: warpgroups of TILE rows, two to
     # a block; streamed tiles a multiple of TILE whose tail (s % 128 == TILE,
     # which the gate admits) each kernel masks, and a warpgroup past the end
     # stores nothing
-    bn = {}
     for pre in ("FWD", "BWD"):
         assert f"constexpr int {pre}_WG_ROWS = {tfa.TILE};" in src
         assert f"constexpr int {pre}_BM = 2 * {pre}_WG_ROWS;" in src
-        bn[pre] = int(re.search(rf"constexpr int {pre}_BN = (\d+);", src).group(1))
-        assert bn[pre] % tfa.TILE == 0, pre
+    # the forward's key tile (FwdTiles<D>::BN) is 64 rows at d=256, else 128
+    fwd_bn = re.search(r"static constexpr int BN = D == 256 \? (\d+) : (\d+);", src)
+    bn = {"FWD_D256": int(fwd_bn.group(1)), "FWD": int(fwd_bn.group(2)),
+          "BWD": int(re.search(r"constexpr int BWD_BN = (\d+);", src).group(1))}
+    for pre, rows in bn.items():
+        assert rows % tfa.TILE == 0, pre
     assert bn["FWD"] > tfa.TILE  # the forward's key tiles span two warpgroups' rows
-    assert "k0 + FWD_BN > sh.T" in src and "col < sh.T" in src
+    assert "k0 + BN > sh.T" in src and "col < sh.T" in src
     assert "q0 + BWD_BN > sh.S" in src and "query >= sh.S" in src  # dK/dV: query columns
     assert "k0 + BWD_BN > sh.T" in src and "key >= sh.T" in src  # dQ: key columns
     # a warpgroup stores only if it ran a tile (rows past the end run none),
