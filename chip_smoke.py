@@ -34,32 +34,50 @@ Phases, each printing one JSON line:
                   every launch count set to 0 just before and read just after;
 6. train_heads16  the same for the 16-head config (16 heads of 64), whose
                   attention runs the d=64 kernels on the fused projection;
+7. search         the Unity search (flexflow_tpu_torch.compiler) plans the
+                  full flagship for one node of 8 H100s (NVLink and
+                  InfiniBand at datasheet rates): the card's calibrated bf16
+                  matmul FLOP/s and memory GB/s, then graph_optimize over the
+                  159 rules at degrees 2, 4, 8 with budget 4, each leaf timed
+                  on this card with CUDA events through kernels.ops.forward
+                  and autograd in bf16 (attention leaves through rows 1-3's
+                  d=128 flash kernels): search seconds by phase, explored,
+                  the winner, the serial plan and every seed, the leaves
+                  measured and priced inf, the launches (each leaf's CUDA-
+                  graph replays counted); the winner finite and no worse
+                  than the serial plan and every seed, the dp8 seed and
+                  every attention leaf at a flash shape finite, rows 1-3
+                  launched and no ring kernel, the phase under 3 minutes,
+                  and rows 1-3 against their plain versions at every flash
+                  shape the search measured; then the unrewritten
+                  flagship's 1-device estimate, measured and analytic (at
+                  the calibrated rates), beside train's median step;
 
 then the user API, FFModel (flexflow_tpu_torch.core):
 
-7. parity_fit     tests/test_ffmodel_api.py's MLP (32 -> 16 relu -> 4, batch
+8. parity_fit     tests/test_ffmodel_api.py's MLP (32 -> 16 relu -> 4, batch
                   8) fit 30 shuffled epochs on a seeded 64-sample set and
                   evaluated, on the card and on the CPU (f32, TF32 off): the
                   same PerfMetrics counts and final parameters within 1e-5;
-8. stepped        the small flagship (bf16) through forward / zero_gradients
+9. stepped        the small flagship (bf16) through forward / zero_gradients
                   / backward / update: its weight gradients against the
                   whole step's, a second backward accumulating to twice the
                   first, and each flash kernel launched once per layer per
                   forward or backward;
-9. fit            the flagship built by build_flagship_cg, compiled through
+10. fit           the flagship built by build_flagship_cg, compiled through
                   FFModel (bf16, Adam(1e-4)) and fit on 5 seeded batches of
                   host data after a one-batch warm-up fit: step ms, the
                   batch's host gather and copy ms, peak memory, PerfMetrics,
                   launches, the profiled fit's kernel ms and idle share; the
                   final parameters bitwise equal to the same batches driven
                   through train_step directly;
-10. parity_fit_window  tests/test_fused_dispatch.py's Dropout MLP fit on
+11. parity_fit_window  tests/test_fused_dispatch.py's Dropout MLP fit on
                   the card at steps_per_dispatch 4 and 3 (the tail window)
                   against the per-step loop, two epochs, then
                   set_learning_rate and one more: every step's loss and the
                   parameters bitwise equal, the CUDA graphs captured and
                   dropped as the window lengths and the learning rate say;
-11. fit_window    the flagship through FFModel at steps_per_dispatch=8: a
+12. fit_window    the flagship through FFModel at steps_per_dispatch=8: a
                   one-window warm-up fit, where the graph is captured; the
                   state put back in place; a timed fit of two windows of
                   seeded host batches (step ms, the pipeline's fill, capture
@@ -73,7 +91,7 @@ then the user API, FFModel (flexflow_tpu_torch.core):
 
 then the example zoo:
 
-12. parity_zoo    a 2-layer BERT with heads of 256 trained two SGD steps on
+13. parity_zoo    a 2-layer BERT with heads of 256 trained two SGD steps on
                   the card (bf16, the d=256 kernels) and on the CPU (f32)
                   from the same parameters: the losses within 1e-2, and
                   each attention layer's update (q, k, v, o weight pieces,
@@ -84,7 +102,7 @@ then the example zoo:
                   avg pool with padding, batch_norm, flat, concat, dense)
                   fit one batch through FFModel on the card and on the CPU
                   (f32, TF32 off): loss and parameters within 1e-4;
-13. fit_bert      BERT-base at examples/bert.py's defaults (12 layers,
+14. fit_bert      BERT-base at examples/bert.py's defaults (12 layers,
                   hidden 768, 12 heads of 256, seq 512, vocab 30522, batch
                   64, dropout 0.1) through FFModel in bf16 with SGD(0.01):
                   a warm-up batch, then a fit of 5 seeded host batches with
@@ -93,41 +111,41 @@ then the example zoo:
                   reserved, each d=256 wrapper 12 times a step and no other
                   flash or ring kernel, a profiled fit's kernel ms and idle
                   share, a finite loss;
-14. examples      the 11 port examples at tests/test_examples.py's sizes on
+15. examples      the 11 port examples at tests/test_examples.py's sizes on
                   the card, each printing finite step losses;
 
 then, in a one-rank NCCL process group opened over a file:// store:
 
-15. parity_dp     the two small flagships trained two steps by the
+16. parity_dp     the two small flagships trained two steps by the
                   data-parallel trainer on the card (bf16, per-head kernels)
                   and by the single-device trainer on the CPU (f32);
-16. train_dp      the flagship through the data-parallel trainer, whose
+17. train_dp      the flagship through the data-parallel trainer, whose
                   attention runs the per-head [b, h, s, d] kernels;
-17. train_dp_seq2048  the same for the seq-2048 flagship (batch 16, seq 2048),
+18. train_dp_seq2048  the same for the seq-2048 flagship (batch 16, seq 2048),
                   whose attention runs the same kernels at s > block;
-18. ring_replay   the ring schedule of 4 ranks replayed on the card through
+19. ring_replay   the ring schedule of 4 ranks replayed on the card through
                   the ring-flash step kernels at the long-context shape (b=4,
                   h=8, s=8192, d=128, causal; and b=1 non-causal), held
                   against the full-sequence per-head kernels;
-19. parity_sp     two small causal parallel transformers (seq 1024, heads of
+20. parity_sp     two small causal parallel transformers (seq 1024, heads of
                   128 and of 64) trained two steps by the sequence-parallel
                   trainer on the card (bf16, ring kernels) and on the CPU
                   (f32, plain versions, over a one-rank gloo group);
-20. train_sp      SP_LONGCTX (the flagship's widths, causal, batch 4, seq
+21. train_sp      SP_LONGCTX (the flagship's widths, causal, batch 4, seq
                   8192) through the sequence-parallel trainer at world size
                   1, whose attention runs the ring-flash step kernels;
 
 then serving, whose attention is dense f32 as in the JAX package (every
 flash and ring launch count must stay at 0):
 
-21. parity_serve  two small serving LMs (ServingLMConfig(), and 2 layers of
+22. parity_serve  two small serving LMs (ServingLMConfig(), and 2 layers of
                   embed 256 in 2 heads of 128) from the same numpy
                   parameters on the card and on the CPU (f32 both): prefill
                   logits and caches, the tokens of 8 seeded requests through
                   ServingEngine in continuous and static mode, one fused
                   decode window bitwise equal to one-step windows, and two
                   captured windows bitwise equal to the eager body;
-22. serve         the serving LM at the flagship's widths (SERVE_LM) serving
+23. serve         the serving LM at the flagship's widths (SERVE_LM) serving
                   SERVE_TRAFFIC (64 slots of 1024 positions, 128 requests,
                   continuous batching, windows of 8) after one warm-up
                   request: requests/s, output tokens/s, ms/token p50/p99,
@@ -149,7 +167,8 @@ step kernels at train_sp's shape, at the replay's (one with the first
 each carried step adding into random accumulators. Then the kernel table
 as one {"kernels": [...]} line (the redesigned kernels, forwards,
 backwards and deltas, with their design and ptxas figures; each kernel's
-launches are its wrapper's counts in the train phases and fit, and the
+launches are its wrapper's counts in the train phases and fit, the
+search's wrapper counts with each leaf's graph replays added, and the
 profiler's count in fit_window), and last the
 line {"ok": true,
 "device": {...}}. Any failed check raises and the script exits non-zero.
@@ -1344,6 +1363,7 @@ def _train_phase(smi, phase, inst, config, x_shape, vocab, layers, flops, on_pat
                      all_reduce_bytes=4 * (1 + sum(p.numel() for p in params.values())))
 
     median_ms = statistics.median(step_ms)
+    MEDIAN_STEP_MS[phase] = median_ms
     emit({
         "phase": phase, "config": config, "card": smi, "compute_dtype": "bf16",
         "optimizer": "adam(alpha=1e-4)", "params": sum(p.numel() for p in params.values()),
@@ -1360,6 +1380,198 @@ def _train_phase(smi, phase, inst, config, x_shape, vocab, layers, flops, on_pat
 
 
 FLASH_WRAPPERS = ("flash_fwd", "flash_delta", "flash_bwd")  # the d=128 bshf path's
+MEDIAN_STEP_MS = {}  # train phase -> its median step ms, read by the search phase
+
+# The Unity search's planning problem: the flagship on one node of 8 H100s
+# (the links are calibration.py's datasheet figures), rules at the node's
+# degrees, bench.py's cost-database session settings.
+SEARCH_NODE_GPUS = 8
+SEARCH_DEGREES = [2, 4, 8]
+SEARCH_BUDGET = 4
+SEARCH_LIMIT_S = 180.0
+
+
+def _launch_counting_estimator(settings):
+    """A LocalCostEstimator on the card that counts each flash wrapper's
+    device launches. profile_fn calls a leaf's step warmup_iters times
+    eagerly and once under CUDA-graph capture, each through the wrappers
+    (the capture launches nothing), then replays the graph measure_iters
+    times, which no wrapper sees: per leaf, a wrapper launches its kernel
+    (its calls per step) x (warmup_iters + measure_iters) times."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.local_execution.cost_estimator import LocalCostEstimator
+
+    class Counting(LocalCostEstimator):
+        def __init__(self):
+            super().__init__(settings, device="cuda")
+            self.device_launches = {fn.__name__: 0 for fn in fa.KERNEL_WRAPPERS}
+
+        def estimate_operator_cost(self, *args, **kwargs):
+            before = {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS}
+            cost = super().estimate_operator_cost(*args, **kwargs)
+            for fn in fa.KERNEL_WRAPPERS:
+                calls = fn.launches - before[fn.__name__]
+                per_step, rest = divmod(calls, settings.warmup_iters + 1)
+                if rest:
+                    raise AssertionError(f"search: {fn.__name__} called {calls} times in "
+                                         "one leaf's profile, no whole number of steps")
+                self.device_launches[fn.__name__] += per_step * (
+                    settings.warmup_iters + settings.measure_iters)
+            return cost
+
+    return Counting()
+
+
+def run_search(cfg: dict, settings=(2, 5)):
+    """graph_optimize over the flagship config `cfg` for one node of
+    SEARCH_NODE_GPUS cards, each leaf measured on the card; then the
+    unrewritten flagship priced for one device with the same leaves, and by
+    the analytic roofline at the card's calibrated rates."""
+    from flexflow_tpu_torch.compiler import (
+        AnalyticGPUCostEstimator,
+        GPUCostEstimator,
+        MachineMappingCache,
+        MachineMappingContext,
+        OptimizerConfig,
+        evaluate_pcg,
+        graph_optimize,
+        make_default_allowed_machine_views,
+    )
+    from flexflow_tpu_torch.compiler.calibration import (
+        H100_NVLINK_GBPS,
+        NDR_INFINIBAND_GBPS,
+        calibrate,
+    )
+    from flexflow_tpu_torch.kernels.profiling import ProfilingSettings
+    from flexflow_tpu_torch.models import build_flagship_pcg
+    from flexflow_tpu_torch.pcg.machine_view import MachineSpecification
+    from flexflow_tpu_torch.substitutions.rules import generate_parallelization_rules
+
+    pcg = build_flagship_pcg(**cfg)
+    start = time.perf_counter()
+    cal = calibrate(device="cuda")
+    calibrate_s = time.perf_counter() - start
+    local = _launch_counting_estimator(ProfilingSettings(*settings))
+    spec = MachineSpecification(1, 1, SEARCH_NODE_GPUS, NDR_INFINIBAND_GBPS, H100_NVLINK_GBPS)
+    est = GPUCostEstimator(spec, local_cost_estimator=local)
+    ctx = MachineMappingContext(est, make_default_allowed_machine_views())
+    rules = generate_parallelization_rules(SEARCH_DEGREES)
+    start = time.perf_counter()
+    result = graph_optimize(pcg, ctx, spec, rules,
+                            OptimizerConfig(alpha=1.2, budget=SEARCH_BUDGET))
+    search_s = time.perf_counter() - start
+    one = MachineSpecification(1, 1, 1, NDR_INFINIBAND_GBPS, H100_NVLINK_GBPS)
+    views = make_default_allowed_machine_views()
+    serial = evaluate_pcg(pcg, MachineMappingContext(
+        GPUCostEstimator(one, local_cost_estimator=local), views), one, MachineMappingCache())
+    analytic = evaluate_pcg(pcg, MachineMappingContext(
+        AnalyticGPUCostEstimator(one, cal.peak_flops, cal.hbm_gbps), views), one,
+        MachineMappingCache())
+    return dict(result=result, local=local, cal=cal, spec=spec, rules=len(rules),
+                calibrate_s=calibrate_s, search_s=search_s, one_device=serial,
+                one_device_analytic=analytic)
+
+
+def _flash_leaf_shape(key):
+    """(b, s, h, d, causal) of an attention leaf that runs the d=128 bshf
+    flash kernels on the card, else None."""
+    import torch
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.op_attrs.ops import MultiHeadAttentionAttrs, RingAttentionAttrs
+
+    attrs, inputs, _ = key
+    if not isinstance(attrs, MultiHeadAttentionAttrs) or not inputs[0] == inputs[1] == inputs[2]:
+        return None
+    b, s, _ = inputs[0].dims
+    h, d = attrs.num_heads, attrs.q_proj_size
+    if d != attrs.v_proj_size or d != 128 or not fa.flash_attention_bshf_supported(
+            (b, s, h * d), h, torch.bfloat16, "cuda"):
+        return None
+    return b, s, h, d, isinstance(attrs, RingAttentionAttrs) and attrs.causal
+
+
+def _leaf_row(key, cost):
+    attrs, inputs, weights = key
+    return {"op": type(attrs).__name__, "inputs": [list(s.dims) for s in inputs],
+            "weights": [list(s.dims) for s in weights or ()], "ms": cost.elapsed_ms}
+
+
+def phase_search(smi: str, train_step_ms: float) -> dict:
+    """The Unity search over the full flagship planned for one node of 8
+    H100s, each leaf timed on this card (attention leaves through the flash
+    kernels): the winner finite and no worse than the serial plan and every
+    seed, the dp8 seed finite, every attention leaf at a flash shape finite,
+    rows 1-3's d=128 wrappers launched and no ring wrapper, and those kernels
+    against their plain versions at every flash shape the search measured;
+    then the unrewritten flagship's 1-device estimate beside train's
+    measured step. `launches` are device launches (the leaves' graph
+    replays counted), `wrapper_calls` the wrappers' own counts."""
+    import torch
+    from flexflow_tpu_torch.compiler import parallel_degree_summary
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.models import FLAGSHIP
+    from flexflow_tpu_torch.op_attrs.ops import MultiHeadAttentionAttrs
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    run = run_search(FLAGSHIP)
+    calls = {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS}
+    peak = torch.cuda.max_memory_allocated()
+    r, local = run["result"], run["local"]
+    launches = local.device_launches
+    seeds = r.seed_runtimes
+    attn = [(k, c) for k, c in local._cache.items()
+            if isinstance(k[0], MultiHeadAttentionAttrs)]
+    flash_attn = [(k, c) for k, c in attn if _flash_leaf_shape(k)]
+    # rows 1-3 at each shape the search ran them, against the plain versions
+    leaf_kernels = {
+        "b{}_s{}_h{}_d{}{}".format(*shape[:4], "_causal" if shape[4] else ""):
+            _compare(Flash(shape[2], shape[3]), shape[0], shape[1], causal=shape[4],
+                     seed=60 + i)[1]
+        for i, shape in enumerate(sorted({_flash_leaf_shape(k) for k, _ in flash_attn}))}
+    checks = {
+        "winner_finite": math.isfinite(r.runtime),
+        "winner_le_serial": r.runtime <= r.serial_runtime,
+        "winner_le_seeds": bool(seeds) and r.runtime <= min(seeds.values()),
+        "explored": r.explored > 0,
+        "dp8_seed_finite": math.isfinite(seeds.get("dp8xtp1xsp1", math.inf)),
+        "flash_attention_leaves_finite": bool(flash_attn) and all(
+            math.isfinite(c.elapsed_ms) for _, c in flash_attn),
+        "rows_1_3_launched": all(calls[n] > 0 and launches[n] > 0 for n in FLASH_WRAPPERS),
+        "no_ring_launch": all(calls.get(n, 0) == 0 for n in RING_WRAPPERS),
+        "under_limit": run["calibrate_s"] + run["search_s"] < SEARCH_LIMIT_S,
+    }
+    one_ms = run["one_device"].runtime
+    leaves = sorted(local._cache.items(), key=lambda kc: -kc[1].elapsed_ms)
+    emit({
+        "phase": "search", "card": smi, "config": FLAGSHIP,
+        "calibration": run["cal"].as_dict(),
+        "machine": {"num_nodes": 1, "gpus_per_node": SEARCH_NODE_GPUS,
+                    "intra_node_gbps": run["spec"].intra_node_bandwidth,
+                    "inter_node_gbps": run["spec"].inter_node_bandwidth,
+                    "link_source": "datasheet (NVLink 4, NDR InfiniBand), not measured"},
+        "rules": run["rules"], "budget": SEARCH_BUDGET, "calibrate_s": run["calibrate_s"],
+        "search_s": run["search_s"], "phase_ms": r.telemetry["phase_ms"],
+        "evaluations": r.telemetry["evaluations"], "explored": r.explored,
+        "runtime_ms": r.runtime, "serial_runtime_ms": r.serial_runtime,
+        "seed_runtimes_ms": seeds, "parallel_degree_summary": parallel_degree_summary(r.pcg),
+        "leaves_measured": len(local._cache) - len(local.inf_leaves),
+        "inf_leaves": [_leaf_row(k, local._cache[k]) for k in local.inf_leaves],
+        "attention_leaves": [_leaf_row(k, c) for k, c in attn],
+        "slowest_leaves": [_leaf_row(k, c) for k, c in leaves[:8]],
+        "launches": {n: v for n, v in launches.items() if v},
+        "wrapper_calls": {n: v for n, v in calls.items() if v},
+        "leaf_kernel_checks": leaf_kernels, "peak_memory_bytes": peak,
+        "one_device_estimate_ms": one_ms,
+        "one_device_analytic_estimate_ms": run["one_device_analytic"].runtime,
+        "train_median_step_ms": train_step_ms,
+        "estimate_over_measured": one_ms / train_step_ms, "checks": checks,
+    })
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"search: failed checks {failed}")
+    torch.cuda.empty_cache()
+    return {name: launches[name] for name in FLASH_WRAPPERS}
 FIT_METRICS = ["accuracy", "sparse_categorical_crossentropy"]
 
 
@@ -2546,6 +2758,7 @@ def main() -> None:
                                       ("flash_fwd_d64", "flash_delta_d64", "flash_bwd_d64")),
                           STEPS),
     }
+    launches["search"] = (phase_search(smi, MEDIAN_STEP_MS["train"]), 1)
     phase_parity_fit()
     phase_stepped()
     launches["fit"] = (phase_fit(smi), STEPS)

@@ -1,6 +1,8 @@
-"""Serving memory accounting (trimmed copy of
+"""Per-op step memory accounting (trimmed copy of
 flexflow_tpu/analysis/memory_accounting.py: the serving regime's KV-cache
-terms).
+terms, one op's training-step residency `estimate_memory`, and the
+machine-mapping DP's leaf predicate `leaf_step_memory_bytes`; the pipeline
+stash scaling waits for A10).
 
 The KV cache is a parallel tensor [seqs, heads, max_seq_len, head_dim] per
 attention op whose degrees are bound to the op's own sharding. One formula,
@@ -14,6 +16,8 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import lru_cache
+from typing import Optional, Sequence
 
 from flexflow_tpu_torch.local_execution.training_backing import slot_roles
 from flexflow_tpu_torch.op_attrs.core import IncomingTensorRole
@@ -77,3 +81,120 @@ def _weight_slot_shape(attrs, input_parallel_shapes):
         if role == IncomingTensorRole.WEIGHT:
             return s
     return None
+
+
+# the optimizer regime the search plans for: Adam's m and v per weight
+OPTIMIZER_STATE_SLOTS = 2
+
+
+@dataclass(frozen=True)
+class OpStepMemory:
+    """Per-category step residency of one op, in bytes (one device's
+    share when built from piece shapes)."""
+
+    activations: int = 0  # data inputs
+    activation_grads: int = 0  # their gradients (live during backward)
+    weights: int = 0
+    weight_grads: int = 0
+    optimizer_state: int = 0
+    outputs: int = 0
+    output_grads: int = 0
+    window_buffer: int = 0  # the input layer's per-step batch
+
+    @property
+    def total(self) -> int:
+        return (
+            self.activations
+            + self.activation_grads
+            + self.weights
+            + self.weight_grads
+            + self.optimizer_state
+            + self.outputs
+            + self.output_grads
+            + self.window_buffer
+        )
+
+
+def estimate_memory(
+    attrs,
+    input_shapes: Sequence,
+    weight_shapes: Optional[Sequence] = None,
+    output_shapes: Optional[Sequence] = None,
+) -> OpStepMemory:
+    """Training-step residency of one op from its (piece) TensorShapes,
+    one step per dispatch under Adam (the JAX function at its defaults; the
+    fused-window and serving regimes are not planned for yet).
+
+    `input_shapes` carries the DATA slots only; weight slots go in
+    `weight_shapes` (the split_slot_values convention). `output_shapes`
+    may be omitted for Input/Weight layers (their outputs are the attrs'
+    own shape)."""
+    from flexflow_tpu_torch.op_attrs.ops import InputAttrs, WeightAttrs
+
+    if isinstance(attrs, InputAttrs):
+        out_bytes = (
+            sum(s.size_bytes for s in output_shapes)
+            if output_shapes
+            else attrs.shape.size_bytes
+        )
+        return OpStepMemory(window_buffer=out_bytes)
+    if isinstance(attrs, WeightAttrs):
+        # charged at the consuming op's weight slots
+        return OpStepMemory()
+    in_bytes = sum(s.size_bytes for s in input_shapes)
+    w_bytes = sum(s.size_bytes for s in (weight_shapes or ()))
+    out_bytes = sum(s.size_bytes for s in (output_shapes or ()))
+    return OpStepMemory(
+        activations=in_bytes,
+        activation_grads=in_bytes,
+        weights=w_bytes,
+        weight_grads=w_bytes,
+        optimizer_state=OPTIMIZER_STATE_SLOTS * w_bytes,
+        outputs=out_bytes,
+        output_grads=out_bytes,
+    )
+
+
+@lru_cache(maxsize=65536)
+def leaf_step_memory_bytes(leaf) -> int:
+    """Per-device step residency of ONE machine-mapping leaf
+    (UnmappedOpCostEstimateKey), from its piece shapes — the quantity the
+    DP's feasibility pruner compares against the device capacity. View
+    independent: a piece shape depends only on the degrees.
+
+    Parallel ops on ACTIVATION values charge their collective staging (the
+    source piece plus the destination piece); weight layers and weight-chain
+    reshards charge zero (the parameter is accounted at the consuming op's
+    weight slots)."""
+    from flexflow_tpu_torch.local_execution.training_backing import split_slot_values
+    from flexflow_tpu_torch.op_attrs.core import (
+        get_output_shapes,
+        get_weight_shapes,
+        is_parallel_op,
+    )
+    from flexflow_tpu_torch.op_attrs.ops import InputAttrs, WeightAttrs
+    from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import get_piece_shape
+
+    out_pieces = [get_piece_shape(s) for s in leaf.output_shapes]
+    out_bytes = sum(s.size_bytes for s in out_pieces)
+    attrs = leaf.op_attrs
+    if isinstance(attrs, InputAttrs):
+        return out_bytes
+    if isinstance(attrs, WeightAttrs):
+        return 0
+    in_pieces = [get_piece_shape(s) for s in leaf.input_shapes]
+    if is_parallel_op(attrs):
+        if all(leaf.weight_inputs) and leaf.weight_inputs:
+            return 0
+        return sum(s.size_bytes for s in in_pieces) + out_bytes
+    data, weights = split_slot_values(attrs, in_pieces)
+    if not weights:
+        try:
+            weights = get_weight_shapes(attrs, list(data))
+        except (AssertionError, IndexError, ValueError, TypeError):
+            weights = []
+    try:
+        outs = out_pieces or get_output_shapes(attrs, list(data))
+    except (AssertionError, IndexError, ValueError, TypeError):
+        outs = []
+    return estimate_memory(attrs, data, weights, outs).total

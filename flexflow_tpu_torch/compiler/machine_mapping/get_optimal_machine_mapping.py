@@ -1,0 +1,403 @@
+"""The memoized machine-mapping DP (copy of
+flexflow_tpu/compiler/machine_mapping/get_optimal_machine_mapping.py, the
+pure-Python DP only) — reference
+lib/compiler/src/compiler/machine_mapping/get_optimal_machine_mapping.cc:28-254.
+
+Structure (SURVEY.md §3.3):
+- SERIES split: enumerate machine-view assignments for the *boundary layers
+  only* (sources/destinations of the split's tensor movement), recurse
+  left/right under those constraints, add the concretized comm cost
+  (series_combine). Also reached from PARALLEL splits via the serializing
+  transformation.
+- PARALLEL split: try every machine resource split (power-of-two slices along
+  each machine axis), combine with max (parallel_combine); also try running
+  both children in series on the full resources.
+- LEAF: min over allowed machine views (or the constrained view) of the
+  measured op cost.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, FrozenSet, List, Optional, Tuple
+
+from flexflow_tpu_torch.compiler.machine_mapping.cost_estimator import (
+    CostEstimator,
+    SingleTensorMovement,
+    TensorSetMovement,
+)
+from flexflow_tpu_torch.compiler.machine_mapping.problem_tree import (
+    AbstractedTensorSetMovement,
+    BinaryTreePath,
+    EMPTY_ABSTRACTED_MOVEMENT,
+    MachineMappingProblemTree,
+    MMProblemTreeParallelSplit,
+    MMProblemTreeSeriesSplit,
+    UnmappedOpCostEstimateKey,
+    map_unmapped_op_cost_estimate_key,
+    mm_problem_tree_get_subtree_at_path,
+)
+from flexflow_tpu_torch.compiler.machine_mapping.result import (
+    INFEASIBLE,
+    MachineMappingResult,
+    ParallelSplitTransformation,
+    make_singleton_result,
+    minimize_runtime,
+    parallel_combine,
+    series_combine,
+)
+from flexflow_tpu_torch.observability.search_phases import search_phase
+from flexflow_tpu_torch.pcg.machine_view import MachineSpecification, MachineView
+from flexflow_tpu_torch.utils.containers import get_all_assignments
+
+# Constraints: partial assignment of machine views to leaf paths (relative to
+# the current subtree root). reference: machine_mapping_constraints.cc.
+MachineMappingConstraints = Dict[BinaryTreePath, MachineView]
+
+
+def restrict_to_child(
+    constraints: MachineMappingConstraints, step: str
+) -> MachineMappingConstraints:
+    return {p[1:]: v for p, v in constraints.items() if p and p[0] == step}
+
+
+def with_additional_constraints(
+    constraints: MachineMappingConstraints, more: MachineMappingConstraints
+) -> MachineMappingConstraints:
+    out = dict(constraints)
+    for p, v in more.items():
+        assert out.get(p, v) == v, f"conflicting constraint at {p}"
+        out[p] = v
+    return out
+
+
+def require_only_root(
+    constraints: MachineMappingConstraints,
+) -> Optional[MachineView]:
+    return constraints.get(())
+
+
+@dataclass
+class MachineMappingContext:
+    cost_estimator: CostEstimator
+    # (leaf, resources) -> allowed machine views
+    allowed_machine_views: Callable[
+        [UnmappedOpCostEstimateKey, MachineSpecification], FrozenSet[MachineView]
+    ]
+    # fraction of the downstream stage's compute that boundary communication
+    # can hide under (collectives on a side stream start as soon as the
+    # producers finish and only the consumers wait). 0 = fully exposed comm
+    # (the strictly additive reference machine_mapping_result.cc model).
+    overlap_fraction: float = 0.0
+    # Explore disjoint-resource splits for parallel branches (reference
+    # get_machine_resource_splits + FFMapper point-task placement,
+    # mapper.cc:82-126)? Off by default: the planned executor runs every op
+    # on all the devices, so disjoint splits are priced only when planning
+    # for export.
+    allow_resource_splits: bool = False
+    # The fused collective-matmul pricing (machine_mapping/overlap.py in the
+    # JAX package): A6 part 2.
+    overlap_lowering: bool = False
+    # Static memory feasibility: > 0 makes a leaf whose per-device piece
+    # residency (analysis/memory_accounting.leaf_step_memory_bytes) exceeds
+    # this budget INFEASIBLE at leaf-pricing time instead of costed.
+    memory_budget_bytes: float = 0.0
+    # The serving memory regime (a ServingMemorySpec): A12 item 3.
+    serving: Optional[object] = None
+    # Multi-slice legality and the two-level DP (slice_axes.py and
+    # hierarchical.py in the JAX package): A6 part 2.
+    slice_aware: bool = False
+    slice_hierarchy: bool = False
+
+    def __post_init__(self) -> None:
+        if self.overlap_lowering or self.slice_aware or self.slice_hierarchy:
+            raise NotImplementedError(
+                "overlap pricing, slice-aware views and the hierarchical DP "
+                "are not ported yet (ROADMAP A6 part 2)"
+            )
+        if self.serving is not None:
+            raise NotImplementedError(
+                "the serving memory regime waits for the forward-only "
+                "search (ROADMAP A12 item 3)"
+            )
+
+
+_CACHE_MISS = object()
+
+
+class MachineMappingCache:
+    """Memo table keyed by (problem subtree, resources, constraints)
+    (reference: machine_mapping_cache.cc). INFEASIBLE (None) results are
+    cached too, hence the sentinel-based miss signal.
+
+    With hash-consed problem trees (problem_tree.intern_problem_tree_node)
+    the key is O(1) to hash and compare, which is what makes sharing ONE
+    cache across every candidate of a search cheap. A cache assumes a single
+    MachineMappingContext: never share one across contexts.
+
+    hits/misses count every memoized lookup the cache serves: the
+    `mm_cache_hits`/`mm_cache_misses` fields of the search telemetry."""
+
+    def __init__(self) -> None:
+        self._table: Dict = {}
+        self.hits = 0
+        self.misses = 0
+
+    def _key(self, tree, resources, constraints):
+        # frozenset: order-free and avoids the repr-based sort that showed
+        # up in search profiles (dataclass __repr__ is recursive and slow)
+        return (tree, resources, frozenset(constraints.items()))
+
+    def load(self, tree, resources, constraints):
+        key = self._key(tree, resources, constraints)
+        if key in self._table:
+            self.hits += 1
+            return self._table[key]
+        return _CACHE_MISS
+
+    def save(self, tree, resources, constraints, result) -> None:
+        self.misses += 1
+        self._table[self._key(tree, resources, constraints)] = result
+
+
+def get_machine_resource_splits(
+    resources: MachineSpecification,
+) -> List[Tuple[MachineSpecification, MachineSpecification]]:
+    """Power-of-two splits along each machine axis (reference:
+    get_machine_resource_splits.cc — both orders of each split)."""
+    from dataclasses import replace
+
+    out: List[Tuple[MachineSpecification, MachineSpecification]] = []
+    i = 1
+    while i < resources.num_nodes:
+        a = replace(resources, num_nodes=i)
+        b = replace(resources, num_nodes=resources.num_nodes - i)
+        out.append((a, b))
+        out.append((b, a))
+        i *= 2
+    i = 1
+    while i < resources.num_devices_per_node:
+        a = replace(resources, num_devices_per_node=i)
+        b = replace(
+            resources,
+            num_devices_per_node=resources.num_devices_per_node - i,
+        )
+        out.append((a, b))
+        out.append((b, a))
+        i *= 2
+    # dedupe preserving order
+    seen = set()
+    uniq = []
+    for pair in out:
+        if pair not in seen:
+            seen.add(pair)
+            uniq.append(pair)
+    return uniq
+
+
+def get_optimal_machine_mapping(
+    cache: MachineMappingCache,
+    context: MachineMappingContext,
+    tree: MachineMappingProblemTree,
+    resources: MachineSpecification,
+    constraints: Optional[MachineMappingConstraints] = None,
+) -> MachineMappingResult:
+    """Solve the DP for `tree` on `resources` under the partial view
+    assignment `constraints` (the JAX package's pure-Python DP; its native
+    DP is pinned to the same winning costs)."""
+    constraints = constraints if constraints is not None else {}
+    cached = cache.load(tree, resources, constraints)
+    if cached is not _CACHE_MISS:
+        return cached
+
+    if isinstance(tree, MMProblemTreeSeriesSplit):
+        result = _optimal_series(
+            cache, context, tree, resources, constraints, None
+        )
+    elif isinstance(tree, MMProblemTreeParallelSplit):
+        result = _optimal_parallel(cache, context, tree, resources, constraints)
+    else:
+        result = _optimal_leaf(context, tree, resources, constraints)
+
+    cache.save(tree, resources, constraints, result)
+    return result
+
+
+def _boundary_assignments(
+    context: MachineMappingContext,
+    series: MMProblemTreeSeriesSplit,
+    child: str,
+    boundary: FrozenSet[BinaryTreePath],
+    resources: MachineSpecification,
+    child_constraints: MachineMappingConstraints,
+):
+    """All assignments of allowed views to the boundary layers of one child.
+    Paths in `boundary` are relative to that child. A boundary layer already
+    constrained (by an enclosing split's assignment) is pinned to its
+    constrained view rather than re-enumerated."""
+    subtree = series.left if child == "L" else series.right
+    options = {}
+    for path in boundary:
+        if path in child_constraints:
+            options[path] = [child_constraints[path]]
+            continue
+        leaf = mm_problem_tree_get_subtree_at_path(subtree, path)
+        assert isinstance(leaf, UnmappedOpCostEstimateKey), path
+        options[path] = context.allowed_machine_views(leaf, resources)
+    return get_all_assignments(options)
+
+
+def _concretize_movement(
+    abstracted: AbstractedTensorSetMovement,
+    pre_mapping: MachineMappingConstraints,
+    post_mapping: MachineMappingConstraints,
+) -> TensorSetMovement:
+    """reference: concretize_abstracted_tensor_set_movement."""
+    movements = tuple(
+        SingleTensorMovement(
+            m.shape,
+            frozenset(pre_mapping[p] for p in m.src_layers),
+            frozenset(post_mapping[p] for p in m.dst_layers),
+            frozenset((post_mapping[p], s) for p, s in m.dst_shapes),
+        )
+        for m in abstracted.movements
+    )
+    return TensorSetMovement(movements)
+
+
+def _optimal_series(
+    cache: MachineMappingCache,
+    context: MachineMappingContext,
+    series: MMProblemTreeSeriesSplit,
+    resources: MachineSpecification,
+    constraints: MachineMappingConstraints,
+    parallel_split_transformation: Optional[ParallelSplitTransformation],
+) -> MachineMappingResult:
+    movement = series.tensor_set_movement
+    result: MachineMappingResult = INFEASIBLE
+    left_base = restrict_to_child(constraints, "L")
+    right_base = restrict_to_child(constraints, "R")
+
+    for pre_assignment in _boundary_assignments(
+        context, series, "L", movement.src_layers(), resources, left_base
+    ):
+        pre_constraints = with_additional_constraints(left_base, pre_assignment)
+        pre_result = get_optimal_machine_mapping(
+            cache, context, series.left, resources, pre_constraints
+        )
+        if pre_result is None:
+            continue
+
+        for post_assignment in _boundary_assignments(
+            context, series, "R", movement.dst_layers(), resources, right_base
+        ):
+            post_constraints = with_additional_constraints(right_base, post_assignment)
+            post_result = get_optimal_machine_mapping(
+                cache, context, series.right, resources, post_constraints
+            )
+            if post_result is None:
+                continue
+
+            comm_cost = context.cost_estimator.estimate_movement_cost(
+                _concretize_movement(movement, pre_assignment, post_assignment)
+            )
+            result = minimize_runtime(
+                result,
+                series_combine(
+                    comm_cost,
+                    pre_result,
+                    post_result,
+                    parallel_split_transformation,
+                    overlap_fraction=context.overlap_fraction,
+                ),
+            )
+    return result
+
+
+def _optimal_parallel(
+    cache: MachineMappingCache,
+    context: MachineMappingContext,
+    parallel: MMProblemTreeParallelSplit,
+    resources: MachineSpecification,
+    constraints: MachineMappingConstraints,
+) -> MachineMappingResult:
+    # Serialized fallback: both children in series on the full resources
+    # (reference: ParallelSplitTransformation::LthenR with empty movement).
+    series_result = _optimal_series(
+        cache,
+        context,
+        MMProblemTreeSeriesSplit(
+            EMPTY_ABSTRACTED_MOVEMENT, parallel.left, parallel.right
+        ),
+        resources,
+        constraints,
+        ParallelSplitTransformation.LthenR,
+    )
+
+    result = series_result
+    if not context.allow_resource_splits:
+        # the executor runs both branches on all the devices; disjoint
+        # splits are priced only when planning for export (see context)
+        return result
+
+    left_constraints = restrict_to_child(constraints, "L")
+    right_constraints = restrict_to_child(constraints, "R")
+
+    for res_l, res_r in get_machine_resource_splits(resources):
+        left_result = get_optimal_machine_mapping(
+            cache, context, parallel.left, res_l, left_constraints
+        )
+        if left_result is None:
+            continue
+        right_result = get_optimal_machine_mapping(
+            cache, context, parallel.right, res_r, right_constraints
+        )
+        result = minimize_runtime(
+            result, parallel_combine(left_result, right_result)
+        )
+    return result
+
+
+def leaf_memory_infeasible(
+    context: MachineMappingContext, leaf: UnmappedOpCostEstimateKey
+) -> bool:
+    """The memory pruner's leaf predicate: does this leaf's per-device
+    piece residency exceed the context's budget? View-independent — piece
+    sizes depend only on the sharding degrees — so one verdict covers every
+    candidate view, including constrained boundary views."""
+    budget = context.memory_budget_bytes
+    if not budget or budget <= 0:
+        return False
+    from flexflow_tpu_torch.analysis.memory_accounting import leaf_step_memory_bytes
+
+    try:
+        need = leaf_step_memory_bytes(leaf)
+    except (AssertionError, IndexError, KeyError, ValueError, TypeError):
+        return False  # malformed shapes are the verifier's finding, not ours
+    return need > budget
+
+
+def _optimal_leaf(
+    context: MachineMappingContext,
+    leaf: UnmappedOpCostEstimateKey,
+    resources: MachineSpecification,
+    constraints: MachineMappingConstraints,
+) -> MachineMappingResult:
+    if leaf_memory_infeasible(context, leaf):
+        # over the per-device memory budget: INFEASIBLE under every view
+        # (an OOM mapping must never be costed)
+        return INFEASIBLE
+    constrained = require_only_root(constraints)
+    if constrained is not None:
+        candidates: FrozenSet[MachineView] = frozenset({constrained})
+    else:
+        candidates = context.allowed_machine_views(leaf, resources)
+
+    result: MachineMappingResult = INFEASIBLE
+    with search_phase("leaf_cost"):
+        for view in candidates:
+            cost = context.cost_estimator.estimate_op_cost(
+                map_unmapped_op_cost_estimate_key(leaf, view)
+            )
+            result = minimize_runtime(result, make_singleton_result(cost, view))
+    return result

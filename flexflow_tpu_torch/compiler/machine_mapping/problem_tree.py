@@ -1,0 +1,547 @@
+"""MachineMappingProblemTree: binary SP tree over cost-estimate leaves
+(copy of flexflow_tpu/compiler/machine_mapping/problem_tree.py).
+
+Reference: lib/compiler/.../machine_mapping/machine_mapping_problem_tree/
+(*.toml specs) + get_machine_mapping_problem_tree.cc and
+abstracted_tensor_set_movement/get_abstracted_tensor_set_movement_across_split.cc:13-61.
+
+Conventions (equivalent to the reference's BinaryTreePath plumbing):
+- BinaryTreePath: tuple of 'L'/'R' from a subtree root down to a leaf.
+- In a series split, the abstracted movement's src paths are relative to the
+  LEFT child and dst paths relative to the RIGHT child.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, FrozenSet, List, Optional, Tuple, Union
+
+from flexflow_tpu_torch.op_attrs.core import OpAttrs
+from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import ParallelTensorShape
+from flexflow_tpu_torch.pcg.machine_view import MachineView, OperatorTaskSpace
+from flexflow_tpu_torch.pcg.parallel_computation_graph import ParallelComputationGraph
+from flexflow_tpu_torch.utils.graph import Node
+from flexflow_tpu_torch.utils.graph.algorithms import (
+    get_topological_ordering,
+    get_transitive_reduction,
+)
+from flexflow_tpu_torch.utils.graph.series_parallel import (
+    BinaryParallelSplit,
+    BinarySPDecompositionTree,
+    get_series_parallel_decomposition,
+    sp_decomposition_to_binary,
+)
+
+from flexflow_tpu_torch.utils.hashing import memoized_hash
+
+BinaryTreePath = Tuple[str, ...]  # elements 'L' / 'R'
+
+
+@memoized_hash
+@dataclass(frozen=True)
+class UnmappedOpCostEstimateKey:
+    """Leaf: everything needed to cost an op except the machine view
+    (reference: unmapped_op_cost_estimate_key.struct.toml)."""
+
+    op_attrs: OpAttrs
+    input_shapes: Tuple[ParallelTensorShape, ...]
+    output_shapes: Tuple[ParallelTensorShape, ...]
+    # per input slot: does the value come from a Weight layer through
+    # parallel-op wrappers only? Resident weights are never re-broadcast
+    # per step, so Replicate/Repartition of weights price differently from
+    # activation resharding.
+    weight_inputs: Tuple[bool, ...] = ()
+    # pipeline-stage annotation of ops inside a stage region (A10): always
+    # None in the port, kept so leaves hash as the JAX package's do
+    pipeline: Optional[object] = None
+
+
+@memoized_hash
+@dataclass(frozen=True)
+class OpCostEstimateKey:
+    """reference: op_cost_estimate_key.struct.toml."""
+
+    op_attrs: OpAttrs
+    input_shapes: Tuple[ParallelTensorShape, ...]
+    output_shapes: Tuple[ParallelTensorShape, ...]
+    machine_view: MachineView
+    weight_inputs: Tuple[bool, ...] = ()
+
+
+def map_unmapped_op_cost_estimate_key(
+    leaf: UnmappedOpCostEstimateKey, view: MachineView
+) -> OpCostEstimateKey:
+    return OpCostEstimateKey(
+        leaf.op_attrs, leaf.input_shapes, leaf.output_shapes, view,
+        leaf.weight_inputs,
+    )
+
+
+@memoized_hash
+@dataclass(frozen=True)
+class AbstractedSingleTensorMovement:
+    """One tensor crossing a series split: its parallel shape + producing
+    layer paths (relative to left child) + consuming layer paths (relative to
+    right child)."""
+
+    shape: ParallelTensorShape
+    src_layers: FrozenSet[BinaryTreePath]
+    dst_layers: FrozenSet[BinaryTreePath]
+    # (dst path, consumer's principal-output parallel shape) pairs: the
+    # consumer's view speaks ITS output's task space, so pricing a reshard
+    # needs that shape to know which tensor dims the view's projections
+    # shard (without it, equal-arity views over different dims compared
+    # equal and under-charged cross-node movement)
+    dst_shapes: FrozenSet = frozenset()
+
+
+@memoized_hash
+@dataclass(frozen=True)
+class AbstractedTensorSetMovement:
+    movements: Tuple[AbstractedSingleTensorMovement, ...]
+
+    def src_layers(self) -> FrozenSet[BinaryTreePath]:
+        out: FrozenSet[BinaryTreePath] = frozenset()
+        for m in self.movements:
+            out |= m.src_layers
+        return out
+
+    def dst_layers(self) -> FrozenSet[BinaryTreePath]:
+        out: FrozenSet[BinaryTreePath] = frozenset()
+        for m in self.movements:
+            out |= m.dst_layers
+        return out
+
+
+EMPTY_ABSTRACTED_MOVEMENT = AbstractedTensorSetMovement(())
+
+
+@memoized_hash
+@dataclass(frozen=True)
+class MMProblemTreeSeriesSplit:
+    tensor_set_movement: AbstractedTensorSetMovement
+    left: "MachineMappingProblemTree"
+    right: "MachineMappingProblemTree"
+
+
+@memoized_hash
+@dataclass(frozen=True)
+class MMProblemTreeParallelSplit:
+    left: "MachineMappingProblemTree"
+    right: "MachineMappingProblemTree"
+
+
+MachineMappingProblemTree = Union[
+    UnmappedOpCostEstimateKey, MMProblemTreeSeriesSplit, MMProblemTreeParallelSplit
+]
+
+
+# ---------------------------------------------------------------------------
+# Hash-consing of problem-tree nodes
+# ---------------------------------------------------------------------------
+#
+# Successive search candidates differ by one rewrite site, so most of their
+# problem subtrees are structurally identical — but each candidate used to
+# rebuild them as fresh dataclass instances, making every
+# MachineMappingCache lookup re-hash (memoized per INSTANCE, so O(subtree)
+# once per candidate) and, worse, walk full structural equality against the
+# cached key. Interning every node bottom-up maps structural equality onto
+# object identity: equal subtrees across candidates ARE the same object, so
+# cache-key hashing is a memo read and equality is a pointer compare. The
+# table is process-global and append-only. graph_optimize calls
+# clear_problem_tree_intern_cache() at session start, so growth is bounded
+# per search; direct one-off callers (evaluate_pcg outside a search) intern
+# a few thousand small nodes per model and never clear — call
+# clear_problem_tree_intern_cache() yourself if pricing many distinct models
+# outside the search in one process.
+
+_INTERN: Dict[object, object] = {}
+_LEAF_COUNTS: Dict[object, int] = {}
+
+def intern_problem_tree_node(node):
+    """Canonical instance structurally equal to `node` (first one wins).
+    Children must already be interned for the equality check to hit the
+    identity fast path."""
+    return _INTERN.setdefault(node, node)
+
+
+def clear_problem_tree_intern_cache() -> None:
+    _INTERN.clear()
+    _LEAF_COUNTS.clear()
+
+
+def mm_problem_tree_num_leaves(tree: MachineMappingProblemTree) -> int:
+    if isinstance(tree, UnmappedOpCostEstimateKey):
+        return 1
+    n = _LEAF_COUNTS.get(tree)
+    if n is None:
+        n = mm_problem_tree_num_leaves(tree.left) + mm_problem_tree_num_leaves(
+            tree.right
+        )
+        _LEAF_COUNTS[tree] = n
+    return n
+
+
+def mm_problem_tree_get_subtree_at_path(
+    tree: MachineMappingProblemTree, path: BinaryTreePath
+) -> Optional[MachineMappingProblemTree]:
+    cur = tree
+    for step in path:
+        if isinstance(cur, (MMProblemTreeSeriesSplit, MMProblemTreeParallelSplit)):
+            cur = cur.left if step == "L" else cur.right
+        else:
+            return None
+    return cur
+
+
+def mm_problem_tree_leaf_paths(
+    tree: MachineMappingProblemTree,
+) -> List[BinaryTreePath]:
+    if isinstance(tree, UnmappedOpCostEstimateKey):
+        return [()]
+    out = []
+    for step, child in (("L", tree.left), ("R", tree.right)):
+        out.extend((step,) + p for p in mm_problem_tree_leaf_paths(child))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Task space of an operator
+# ---------------------------------------------------------------------------
+
+
+def task_space_from_shape(shape: ParallelTensorShape) -> OperatorTaskSpace:
+    """Task grid of an op from its principal output's parallel shape: the
+    non-trivial degrees (shard degrees, then sum, then discard-copy), or (1,)
+    when unparallelized. (The reference leaves this derivation to the
+    allowed-machine-views callback; this is our definition of it.)"""
+    degrees = [d for d in shape.shard_degrees() if d > 1]
+    if shape.sum_degree > 1:
+        degrees.append(shape.sum_degree)
+    if shape.discard_copy_degree > 1:
+        degrees.append(shape.discard_copy_degree)
+    return OperatorTaskSpace(tuple(degrees) if degrees else (1,))
+
+
+def task_space_of_leaf(leaf: "UnmappedOpCostEstimateKey") -> OperatorTaskSpace:
+    if not leaf.output_shapes:
+        return OperatorTaskSpace((1,))
+    return task_space_from_shape(leaf.output_shapes[0])
+
+
+def operator_task_space(pcg: ParallelComputationGraph, node: Node) -> OperatorTaskSpace:
+    outs = pcg.outputs_of(node)
+    if not outs:
+        return OperatorTaskSpace((1,))
+    return task_space_from_shape(pcg.tensor_shape(outs[0]))
+
+
+# ---------------------------------------------------------------------------
+# PCG -> problem tree
+# ---------------------------------------------------------------------------
+
+
+def _from_weight(pcg: ParallelComputationGraph, v) -> bool:
+    """Does `v` trace back to a Weight layer through single-input
+    parallel-op wrappers only (i.e. is it a resident, possibly resharded,
+    parameter rather than a per-step activation)?"""
+    from flexflow_tpu_torch.op_attrs.core import is_parallel_op
+    from flexflow_tpu_torch.op_attrs.ops import WeightAttrs
+
+    while True:
+        attrs = pcg.op_attrs(v.node)
+        if isinstance(attrs, WeightAttrs):
+            return True
+        if not is_parallel_op(attrs):
+            return False
+        ins = pcg.inputs_of(v.node)
+        if len(ins) != 1:
+            return False
+        v = ins[0]
+
+
+def _leaf_key(pcg: ParallelComputationGraph, n: Node) -> UnmappedOpCostEstimateKey:
+    ins = pcg.inputs_of(n)
+    return UnmappedOpCostEstimateKey(
+        pcg.op_attrs(n),
+        tuple(pcg.tensor_shape(v) for v in ins),
+        tuple(pcg.tensor_shape(o) for o in pcg.outputs_of(n)),
+        tuple(_from_weight(pcg, v) for v in ins),
+    )
+
+
+def _grow_source_cone(pcg) -> set:
+    """The source stage of the PCG: weight/input layers plus the parallel-op
+    chains (Repartition/Replicate/...) hanging below them, as
+    strategy-template rewrites produce (a node joins the cone when every
+    predecessor is already in it)."""
+    from flexflow_tpu_torch.op_attrs.core import is_parallel_op
+    from flexflow_tpu_torch.op_attrs.ops import InputAttrs, WeightAttrs
+
+    pred = pcg._g._pred  # direct adjacency: the frozenset-per-query
+    # accessors made this fixpoint a tree-build hotspot
+    cone = {
+        n
+        for n in pcg.nodes
+        if isinstance(pcg.op_attrs(n), (InputAttrs, WeightAttrs))
+    }
+    candidates = [
+        n
+        for n in pcg.topological_ordering()
+        if n not in cone and is_parallel_op(pcg.op_attrs(n))
+    ]
+    changed = True
+    while changed:
+        changed = False
+        for n in candidates:
+            if n in cone:
+                continue
+            preds = pred[n]
+            if preds and all(p in cone for p in preds):
+                cone.add(n)
+                changed = True
+    return cone
+
+
+def _add_frontier_edges(g, cone) -> None:
+    """All-to-all fake edges from the cone frontier to every non-cone
+    successor, collapsing the source stage into one parallel block (the
+    edges shape only the decomposition TREE; movement computation always
+    uses the real graph). Reads g's adjacency directly — the
+    frozenset-per-query accessors made the frontier x successor product a
+    tree-build hotspot."""
+    succ = g._succ
+    frontier = [n for n in cone if any(s not in cone for s in succ[n])]
+    successors = set()
+    for s in frontier:
+        successors.update(d for d in succ[s] if d not in cone)
+    for s in frontier:
+        s_succ = succ[s]
+        for d in successors:
+            if s != d and d not in s_succ:
+                g.add_edge(s, d)
+
+
+def _augment_source_layers(graph):
+    """Digraph of `graph` plus all-to-all edges collapsing the source layer
+    into one parallel stage (reference
+    get_computation_graph_series_parallel_decomposition.cc:80-96).
+
+    Generalized over the reference: the cone of parallel-op chains below
+    weight/input layers belongs to the source stage. Augmenting only the
+    raw sources would point the fake edges at the wrapper nodes and
+    collapse nothing (a seq-sharded residual stream's
+    `x -> Repartition -> {attn, add}` triangle stays irreducible)."""
+    g = graph.digraph().copy()
+    _add_frontier_edges(g, _grow_source_cone(graph))
+    return g
+
+
+def _source_collapsed_decomposition(pcg):
+    """SP decomposition with the source stage collapsed, tolerant of
+    parallel-op chains below sources.
+
+    The plain augmentation (above) fails once different sources carry
+    different wrapper chains: module contraction needs identical
+    predecessor sets, and `x -> Repartition` vs `w -> Replicate` frontier
+    nodes keep distinct preds. Here each single-successor cone chain is
+    contracted INTO its terminal node first (so the terminal becomes a
+    zero-in-degree pseudo-source), the all-to-all augmentation collapses
+    those into one parallel stage, and the absorbed chain is re-expanded as
+    a SeriesSplit around its terminal in the resulting tree. The fake edges
+    shape only the TREE; movement computation uses the real graph."""
+    from flexflow_tpu_torch.utils.graph.digraph import DiGraph
+    from flexflow_tpu_torch.utils.graph.series_parallel import (
+        ParallelSplit,
+        SeriesSplit,
+    )
+
+    g = pcg.digraph()
+    cone = _grow_source_cone(pcg)
+
+    # chain-contract: a cone node with exactly one successor, also in the
+    # cone, merges into it (transitively)
+    rep_cache = {}
+
+    def rep(n):
+        if n not in cone:
+            return n
+        hit = rep_cache.get(n)
+        if hit is not None:
+            return hit
+        succs = list(g.successors(n))
+        if len(succs) == 1 and succs[0] in cone:
+            r = rep(succs[0])
+        else:
+            r = n
+        rep_cache[n] = r
+        return r
+
+    absorbed: Dict[Node, List[Node]] = {}
+    topo = get_topological_ordering(g)
+    for n in topo:
+        r = rep(n)
+        if r != n:
+            absorbed.setdefault(r, []).append(n)
+
+    g2 = DiGraph()
+    for n in pcg.nodes:
+        if rep(n) == n:
+            g2._add_existing_node(n)
+    for u in pcg.nodes:
+        for v in g.successors(u):
+            a, b = rep(u), rep(v)
+            if a != b and not g2.has_edge(a, b):
+                g2.add_edge(a, b)
+
+    _add_frontier_edges(g2, {rep(n) for n in cone})
+
+    sp = get_series_parallel_decomposition(get_transitive_reduction(g2))
+    if sp is None:
+        return None
+
+    def expand(t):
+        if isinstance(t, SeriesSplit):
+            return SeriesSplit(tuple(expand(c) for c in t.children))
+        if isinstance(t, ParallelSplit):
+            return ParallelSplit(frozenset(expand(c) for c in t.children))
+        chain = absorbed.get(t)
+        if chain:
+            return SeriesSplit(tuple(chain) + (t,))
+        return t
+
+    return expand(sp)
+
+
+def get_machine_mapping_problem_tree(
+    pcg: ParallelComputationGraph,
+) -> Tuple[MachineMappingProblemTree, Dict[Node, BinaryTreePath]]:
+    """SP-decompose the (transitively reduced) PCG and build the problem
+    tree, embedding the abstracted cross-split tensor movements in each
+    series split. Returns (tree, pcg node -> path).
+
+    Raises ValueError if the PCG is not series-parallel (the Unity search
+    applies only to SP-decomposable graphs; reference
+    get_pcg_series_parallel_decomposition).
+    """
+    tr = get_transitive_reduction(pcg.digraph())
+    sp = get_series_parallel_decomposition(tr)
+    if sp is None:
+        # reference get_computation_graph_series_parallel_decomposition.cc:
+        # 80-96 — weight/input sources feeding different branches of a
+        # diamond make the raw graph non-TTSP; adding all-to-all edges from
+        # every weight/input layer to every successor-of-one collapses the
+        # source layer into a single parallel stage. The fake edges shape
+        # only the TREE; movements below still come from the real `tr`.
+        sp = get_series_parallel_decomposition(
+            get_transitive_reduction(_augment_source_layers(pcg))
+        )
+    if sp is None:
+        # wrapper chains below sources (strategy-template rewrites) defeat
+        # the plain augmentation; collapse them first
+        sp = _source_collapsed_decomposition(pcg)
+    if sp is None:
+        raise ValueError("PCG is not series-parallel decomposable")
+    btree = sp_decomposition_to_binary(sp)
+
+    # Pass 1: absolute path of every PCG node + split kind at every internal
+    # prefix. (The previous implementation rebuilt relative path maps at
+    # every split and scanned every left-subtree node per series split —
+    # O(n) splits x O(n) nodes dominated search time on flagship graphs.)
+    path_of: Dict[Node, BinaryTreePath] = {}
+    is_series_at: Dict[BinaryTreePath, bool] = {}
+
+    def walk(t: BinarySPDecompositionTree, prefix: BinaryTreePath) -> None:
+        if isinstance(t, Node):
+            path_of[t] = prefix
+            return
+        is_series_at[prefix] = not isinstance(t, BinaryParallelSplit)
+        walk(t.left, prefix + ("L",))
+        walk(t.right, prefix + ("R",))
+
+    walk(btree, ())
+
+    # Pass 2: each transitive-reduction edge crossing L->R at a series split
+    # contributes to exactly that split's movement (its LCA prefix) —
+    # reference get_abstracted_tensor_set_movement_across_split.cc:13-61,
+    # grouped per split in one O(E x depth) sweep. Edges whose LCA is a
+    # parallel split carry no movement (parallel splits have no movement
+    # slot), matching the per-split scan this replaces.
+    by_split: Dict[BinaryTreePath, Dict] = {}
+    for src in pcg.topological_ordering():
+        src_path = path_of[src]
+        tr_succs = set(tr.successors(src))
+        if not tr_succs:
+            continue
+        for o in pcg.outputs_of(src):
+            for use in pcg.uses_of(o):
+                d = use.node
+                if d not in tr_succs:
+                    continue
+                dst_path = path_of[d]
+                i = 0
+                n_max = min(len(src_path), len(dst_path))
+                while i < n_max and src_path[i] == dst_path[i]:
+                    i += 1
+                if (
+                    i >= n_max
+                    or src_path[i] != "L"
+                    or dst_path[i] != "R"
+                    or not is_series_at.get(src_path[:i], False)
+                ):
+                    continue
+                by_value = by_split.setdefault(src_path[:i], {})
+                entry = by_value.get(o)
+                if entry is None:
+                    entry = by_value[o] = (
+                        pcg.tensor_shape(o), set(), set(), set(),
+                    )
+                entry[1].add(src_path[i + 1:])
+                entry[2].add(dst_path[i + 1:])
+                d_outs = pcg.outputs_of(d)
+                d_shape = (
+                    pcg.tensor_shape(d_outs[0]) if d_outs
+                    else pcg.tensor_shape(o)
+                )
+                entry[3].add((dst_path[i + 1:], d_shape))
+
+    # hash-consing: interned nodes make cross-candidate cache keys O(1) to
+    # hash and compare (see intern_problem_tree_node)
+    intern = intern_problem_tree_node
+
+    def movement_at(prefix: BinaryTreePath) -> AbstractedTensorSetMovement:
+        by_value = by_split.get(prefix)
+        if not by_value:
+            return intern(EMPTY_ABSTRACTED_MOVEMENT)
+        movements = [
+            intern(
+                AbstractedSingleTensorMovement(
+                    shape, frozenset(srcs), frozenset(dsts), frozenset(dshapes)
+                )
+            )
+            for shape, srcs, dsts, dshapes in by_value.values()
+        ]
+        # canonical order so identical subgraphs in different candidate PCGs
+        # build equal subtrees (cross-candidate MachineMappingCache hits);
+        # repr tie-break (not hash()) keeps the order reproducible across
+        # processes — enum hashes are identity-based
+        movements.sort(
+            key=lambda m: (
+                sorted(m.src_layers), sorted(m.dst_layers), repr(m.shape)
+            )
+        )
+        return intern(AbstractedTensorSetMovement(tuple(movements)))
+
+    def build(
+        t: BinarySPDecompositionTree, prefix: BinaryTreePath
+    ) -> MachineMappingProblemTree:
+        if isinstance(t, Node):
+            return intern(_leaf_key(pcg, t))
+        left = build(t.left, prefix + ("L",))
+        right = build(t.right, prefix + ("R",))
+        if isinstance(t, BinaryParallelSplit):
+            return intern(MMProblemTreeParallelSplit(left, right))
+        return intern(MMProblemTreeSeriesSplit(movement_at(prefix), left, right))
+
+    tree = build(btree, ())
+    return tree, path_of

@@ -1,0 +1,411 @@
+"""Direct strategy-template constructors: build a seeded PCG in ONE pass
+(copy of flexflow_tpu/compiler/seed_templates.py).
+
+The rule-based seed construction (greedy_apply over substitution rules) is
+semantically right but O(applications x graph size): every rule application
+rebuilds the whole graph, and a 12-layer flagship's 16 dp x tp x sp seeds
+cost ~3800 rebuilds (~2 minutes of a 3-minute search). A strategy template
+is a UNIFORM rewrite, so it can be constructed directly: one topological
+pass decides each op's sandwich (input/weight wrappers, output wrappers,
+optional retype), inserts the parallel ops inline (CSE'd per source value),
+and a single normalization pass cancels the inverse seams
+(merge_parallel_chains recognizes Combine(d,k)∘Repartition(d,k) as a no-op).
+
+The substitution rules remain the search's incremental move set; only seed
+construction takes this fast path. Divisibility/eligibility checks mirror
+the corresponding rules in substitutions/rules.py (cited per plan)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
+
+from flexflow_tpu_torch.op_attrs.core import (
+    OpAttrs,
+    OperatorType,
+    get_parallel_output_shapes,
+    get_parallel_weight_shapes,
+    is_parallel_op,
+    op_type_of,
+)
+from flexflow_tpu_torch.op_attrs.ops import (
+    CombineAttrs,
+    InputAttrs,
+    ReductionAttrs,
+    RepartitionAttrs,
+    ReplicateAttrs,
+    WeightAttrs,
+)
+from flexflow_tpu_torch.pcg.parallel_computation_graph import (
+    ParallelComputationGraph,
+    ParallelLayerAttrs,
+    ParallelTensorAttrs,
+    cse_parallel_ops,
+    elide_noops,
+    merge_parallel_chains,
+)
+from flexflow_tpu_torch.utils.graph import Node
+
+
+@dataclasses.dataclass
+class WrapSpec:
+    """One op's sandwich: parallel attrs per DATA slot, per WEIGHT slot,
+    wrappers on output 0, and an optional retyped op attrs."""
+
+    data_wrap: List[Optional[OpAttrs]]
+    weight_wrap: List[Optional[OpAttrs]]
+    out_wrap: List[OpAttrs]
+    new_attrs: Optional[OpAttrs] = None
+
+
+PlanFn = Callable[[ParallelComputationGraph, Node], Optional[WrapSpec]]
+
+
+def build_wrapped(pcg: ParallelComputationGraph, plan: PlanFn):
+    """Rebuild `pcg` once, applying each node's WrapSpec.
+
+    A sandwich the shape rules reject (e.g. a concat over the dim the plan
+    would shard, which the plan's cheap divisibility checks can't foresee)
+    leaves THAT op serial, exactly as the rule-based construction left
+    unmatched ops serial — one ineligible op must not kill the whole seed.
+    Sandwiches are validated shape-first, so no wrapper node is created for
+    a rejected spec."""
+    from flexflow_tpu_torch.local_execution.training_backing import split_slot_values
+
+    out = ParallelComputationGraph()
+    value_map: Dict = {}
+    wrap_cache: Dict[Tuple, object] = {}
+
+    def wrapper_shape(shape, attrs):
+        (oshape,) = get_parallel_output_shapes(attrs, [shape])
+        return oshape
+
+    def wrapped_value(v, attrs):
+        key = (attrs, v)
+        hit = wrap_cache.get(key)
+        if hit is not None:
+            return hit
+        oshape = wrapper_shape(out.tensor_shape(v), attrs)
+        _, (nv,) = out.add_node(
+            ParallelLayerAttrs(attrs, None), [v], [ParallelTensorAttrs(oshape)]
+        )
+        wrap_cache[key] = nv
+        return nv
+
+    def validate_spec(attrs, spec, ins):
+        """Dry-run the sandwich's shape inference; raises on rejection."""
+        slot_shapes = [out.tensor_shape(v) for v in ins]
+        data_idx, weight_idx = split_slot_values(
+            attrs, list(range(len(ins)))
+        )
+        for slot, w in zip(data_idx, spec.data_wrap):
+            if w is not None:
+                slot_shapes[slot] = wrapper_shape(slot_shapes[slot], w)
+        for slot, w in zip(weight_idx, spec.weight_wrap):
+            if w is not None:
+                slot_shapes[slot] = wrapper_shape(slot_shapes[slot], w)
+        new_attrs = spec.new_attrs or attrs
+        data_shapes = [slot_shapes[i] for i in data_idx]
+        weight_shapes = [slot_shapes[i] for i in weight_idx]
+        out_shapes = get_parallel_output_shapes(new_attrs, data_shapes)
+        if weight_shapes:
+            expected = list(
+                get_parallel_weight_shapes(new_attrs, data_shapes)
+            )
+            if weight_shapes != expected:
+                raise ValueError(
+                    f"weight shapes {weight_shapes} != {expected}"
+                )
+        o = out_shapes[0]
+        for w in spec.out_wrap:
+            o = wrapper_shape(o, w)
+
+    for n in pcg.topological_ordering():
+        la = pcg.layer_attrs(n)
+        attrs = la.attrs
+        raw_ins = pcg.inputs_of(n)
+        ins = [value_map[v] for v in raw_ins]
+        spec = plan(pcg, n)
+        if spec is not None:
+            try:
+                validate_spec(attrs, spec, ins)
+            except (AssertionError, IndexError, ValueError):
+                spec = None  # ineligible op stays serial
+        if spec is not None:
+            data_idx, weight_idx = split_slot_values(
+                attrs, list(range(len(ins)))
+            )
+            assert len(spec.data_wrap) == len(data_idx), (attrs, spec)
+            assert len(spec.weight_wrap) == len(weight_idx), (attrs, spec)
+            for slot, w in zip(data_idx, spec.data_wrap):
+                if w is not None:
+                    ins[slot] = wrapped_value(ins[slot], w)
+            for slot, w in zip(weight_idx, spec.weight_wrap):
+                if w is not None:
+                    ins[slot] = wrapped_value(ins[slot], w)
+            attrs = spec.new_attrs or attrs
+            la = ParallelLayerAttrs(attrs, la.name)
+        # re-infer output shapes from the (possibly wrapped) inputs
+        if isinstance(attrs, (InputAttrs, WeightAttrs)) or is_parallel_op(
+            attrs
+        ):
+            labels = [pcg.tensor_attrs(o) for o in pcg.outputs_of(n)]
+            if is_parallel_op(attrs):
+                in_shapes = [out.tensor_shape(v) for v in ins]
+                shapes = get_parallel_output_shapes(attrs, in_shapes)
+                labels = [
+                    ParallelTensorAttrs(
+                        s, o.create_grad, o.initializer
+                    )
+                    for s, o in zip(shapes, labels)
+                ]
+        else:
+            data_vals, weight_vals = split_slot_values(attrs, ins)
+            in_shapes = [out.tensor_shape(v) for v in data_vals]
+            try:
+                shapes = get_parallel_output_shapes(attrs, in_shapes)
+                if weight_vals:
+                    expected = list(
+                        get_parallel_weight_shapes(attrs, in_shapes)
+                    )
+                    actual = [out.tensor_shape(v) for v in weight_vals]
+                    if actual != expected:
+                        raise ValueError(
+                            f"weight shapes {actual} != {expected} for {attrs}"
+                        )
+            except (AssertionError, IndexError, ValueError) as e:
+                raise ValueError(f"template rejected at {attrs}: {e}")
+            labels = [
+                ParallelTensorAttrs(
+                    s,
+                    pcg.tensor_attrs(o).create_grad,
+                    pcg.tensor_attrs(o).initializer,
+                )
+                for s, o in zip(shapes, pcg.outputs_of(n))
+            ]
+        _, outs = out.add_node(la, ins, labels)
+        new_out = outs[0]
+        if spec is not None:
+            for w in spec.out_wrap:
+                new_out = wrapped_value(new_out, w)
+        value_map[pcg.outputs_of(n)[0]] = new_out
+        for old, new in zip(pcg.outputs_of(n)[1:], outs[1:]):
+            value_map[old] = new
+    return cse_parallel_ops(merge_parallel_chains(elide_noops(out)))
+
+
+def _sizes(pcg, v):
+    return pcg.tensor_shape(v).sizes()
+
+
+def _data_weight_values(pcg, n):
+    from flexflow_tpu_torch.local_execution.training_backing import split_slot_values
+
+    return split_slot_values(pcg.op_attrs(n), pcg.inputs_of(n))
+
+
+_DP_TYPES = frozenset(
+    {
+        OperatorType.LINEAR,
+        OperatorType.CONV2D,
+        OperatorType.EMBEDDING,
+        OperatorType.BATCH_NORM,
+        OperatorType.LAYER_NORM,
+        OperatorType.ELEMENT_UNARY,
+        OperatorType.ELEMENT_BINARY,
+        OperatorType.SOFTMAX,
+        OperatorType.POOL2D,
+        OperatorType.FLAT,
+        OperatorType.DROPOUT,
+        OperatorType.CONCAT,
+        OperatorType.MULTIHEAD_ATTENTION,
+    }
+)
+
+
+def data_parallel_plan(k: int) -> PlanFn:
+    """Batch-dim template (mirrors the data_parallel_* rules,
+    substitutions/rules.py): every supported op's data inputs Repartition_0,
+    weights Replicate, output Combine_0."""
+
+    def plan(pcg, n):
+        attrs = pcg.op_attrs(n)
+        if isinstance(attrs, (InputAttrs, WeightAttrs)) or is_parallel_op(
+            attrs
+        ):
+            return None
+        t = op_type_of(attrs)
+        if t not in _DP_TYPES:
+            return None
+        if t == OperatorType.MULTIHEAD_ATTENTION and getattr(
+            attrs, "bias", False
+        ):
+            return None  # data_parallel_attention_rule matches bias=False
+        data_vals, weight_vals = _data_weight_values(pcg, n)
+        for v in data_vals:
+            sizes = _sizes(pcg, v)
+            if not sizes or sizes[0] % k:
+                return None
+        return WrapSpec(
+            [RepartitionAttrs(0, k)] * len(data_vals),
+            [ReplicateAttrs(k)] * len(weight_vals),
+            [CombineAttrs(0, k)],
+        )
+
+    return plan
+
+
+def megatron_plan(pcg: ParallelComputationGraph, k: int) -> PlanFn:
+    """Tensor-parallel template (mirrors tensor_parallel_linear_rule /
+    reduction_parallel_linear_rule / head_parallel_attention_rule /
+    column_parallel_embedding_rule + the dim=-1 elementwise rules):
+    column-parallel expanding linears, reduction-parallel contracting
+    bias-less linears, channel-sharded activations between them."""
+    decision: Dict[Node, str] = {}
+    for n in pcg.topological_ordering():
+        attrs = pcg.op_attrs(n)
+        t = op_type_of(attrs) if not isinstance(attrs, (InputAttrs, WeightAttrs)) else None
+        if t == OperatorType.LINEAR:
+            _, weight_vals = _data_weight_values(pcg, n)
+            if not weight_vals:
+                continue
+            w_sizes = _sizes(pcg, weight_vals[0])
+            if len(w_sizes) != 2:
+                continue
+            in_f, out_f = w_sizes
+            if out_f % k == 0 and out_f >= in_f:
+                decision[n] = "col"
+            elif in_f % k == 0 and out_f < in_f and not getattr(
+                attrs, "use_bias", True
+            ):
+                decision[n] = "row"
+        elif t == OperatorType.MULTIHEAD_ATTENTION:
+            if not getattr(attrs, "bias", False) and attrs.num_heads % k == 0:
+                decision[n] = "head"
+        elif t == OperatorType.EMBEDDING:
+            if attrs.out_channels % k == 0:
+                decision[n] = "col"
+        elif t in (
+            OperatorType.ELEMENT_UNARY,
+            OperatorType.ELEMENT_BINARY,
+            OperatorType.DROPOUT,
+        ):
+            # shard the channel dim only where it cancels: every producer
+            # was column-wrapped (its seam is a Combine(-1, k))
+            data_vals, _ = _data_weight_values(pcg, n)
+            if data_vals and all(
+                decision.get(v.node) in ("col", "ew")
+                and _sizes(pcg, v)[-1] % k == 0
+                for v in data_vals
+            ):
+                decision[n] = "ew"
+
+    def plan(p, n):
+        d = decision.get(n)
+        if d is None:
+            return None
+        attrs = p.op_attrs(n)
+        data_vals, weight_vals = _data_weight_values(p, n)
+        if d == "col":
+            if op_type_of(attrs) == OperatorType.EMBEDDING:
+                return WrapSpec(
+                    [ReplicateAttrs(k)] * len(data_vals),
+                    [RepartitionAttrs(1, k)],
+                    [CombineAttrs(-1, k)],
+                )
+            # linear: weight [in, out/k]; bias (if any) [out/k]
+            ww = [RepartitionAttrs(1, k)]
+            if len(weight_vals) > 1:
+                ww.append(RepartitionAttrs(0, k))
+            return WrapSpec(
+                [ReplicateAttrs(k)] * len(data_vals),
+                ww,
+                [CombineAttrs(-1, k)],
+            )
+        if d == "row":
+            return WrapSpec(
+                [RepartitionAttrs(-1, k)] * len(data_vals),
+                [RepartitionAttrs(0, k)] * len(weight_vals),
+                [ReductionAttrs(k)],
+            )
+        if d == "head":
+            return WrapSpec(
+                [ReplicateAttrs(k)] * len(data_vals),
+                [RepartitionAttrs(1, k)] * len(weight_vals),
+                [ReductionAttrs(k)],
+            )
+        if d == "ew":
+            return WrapSpec(
+                [RepartitionAttrs(-1, k)] * len(data_vals),
+                [ReplicateAttrs(k)] * len(weight_vals),
+                [CombineAttrs(-1, k)],
+            )
+        return None
+
+    return plan
+
+
+def sequence_parallel_plan(k: int, flavor: str = "ring") -> PlanFn:
+    """Sequence-dim template (mirrors sequence_parallel_attention[_a2a]_rule
+    + the dim=1 linear/layer-norm/elementwise rules): attention retyped to
+    the ring/Ulysses schedule, every other rank>=3 op riding the sharded
+    seq dim."""
+    from flexflow_tpu_torch.op_attrs.ops import RingAttentionAttrs
+    from flexflow_tpu_torch.op_attrs.ops.ulysses_attention import (
+        UlyssesAttentionAttrs,
+    )
+    from flexflow_tpu_torch.op_attrs.ops.attention import MultiHeadAttentionAttrs
+
+    attn_cls = UlyssesAttentionAttrs if flavor == "a2a" else RingAttentionAttrs
+
+    def plan(pcg, n):
+        attrs = pcg.op_attrs(n)
+        if isinstance(attrs, (InputAttrs, WeightAttrs)) or is_parallel_op(
+            attrs
+        ):
+            return None
+        t = op_type_of(attrs)
+        data_vals, weight_vals = _data_weight_values(pcg, n)
+        if t == OperatorType.MULTIHEAD_ATTENTION:
+            if getattr(attrs, "bias", False):
+                return None
+            if flavor == "a2a" and attrs.num_heads % k:
+                return None
+            if any(
+                len(_sizes(pcg, v)) < 3 or _sizes(pcg, v)[1] % k
+                for v in data_vals
+            ):
+                return None
+            retyped = attn_cls(
+                **{
+                    f.name: getattr(attrs, f.name)
+                    for f in dataclasses.fields(MultiHeadAttentionAttrs)
+                }
+            )
+            return WrapSpec(
+                [RepartitionAttrs(1, k)] * len(data_vals),
+                [ReplicateAttrs(k)] * len(weight_vals),
+                [CombineAttrs(1, k)],
+                new_attrs=retyped,
+            )
+        if t == OperatorType.LAYER_NORM and 1 in getattr(attrs, "axes", ()):
+            return None
+        if t not in (
+            OperatorType.LINEAR,
+            OperatorType.LAYER_NORM,
+            OperatorType.ELEMENT_UNARY,
+            OperatorType.ELEMENT_BINARY,
+            OperatorType.DROPOUT,
+        ):
+            return None
+        for v in data_vals:
+            sizes = _sizes(pcg, v)
+            if len(sizes) < 3 or sizes[1] % k:
+                return None
+        return WrapSpec(
+            [RepartitionAttrs(1, k)] * len(data_vals),
+            [ReplicateAttrs(k)] * len(weight_vals),
+            [CombineAttrs(1, k)],
+        )
+
+    return plan

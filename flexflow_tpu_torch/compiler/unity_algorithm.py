@@ -1,0 +1,858 @@
+"""The Unity joint-optimization loop: best-first search over substitution
+rewrites, each candidate costed by its optimal machine mapping (copy of
+flexflow_tpu/compiler/unity_algorithm.py; its pipeline seeds wait for A10,
+the memory verification for A13, the overlap and hierarchical pricing for
+A6 part 2).
+
+Reference: lib/compiler/src/compiler/unity_algorithm.cc — the reference left
+this a NOT_IMPLEMENTED stub with the algorithm described in comments
+(:27-93); this is that algorithm implemented: a DeduplicatedPriorityQueue of
+GraphOptimizeStates ordered by mapped runtime, alpha-pruning
+(candidates worse than best*alpha are dropped), a substitution budget, and a
+max-op-count guard. OptimizerConfig mirrors the legacy --search-budget /
+--search-alpha flags (reference config.h:82-84).
+"""
+
+from __future__ import annotations
+
+import heapq
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+from flexflow_tpu_torch.compiler.machine_mapping.get_optimal_machine_mapping import (
+    MachineMappingCache,
+    MachineMappingContext,
+    get_optimal_machine_mapping,
+)
+from flexflow_tpu_torch.compiler.machine_mapping.problem_tree import (
+    get_machine_mapping_problem_tree,
+)
+from flexflow_tpu_torch.pcg.machine_view import MachineSpecification, MachineView
+from flexflow_tpu_torch.pcg.parallel_computation_graph import (
+    ParallelComputationGraph,
+    canonicalize_parallel_chains,
+    cse_parallel_ops,
+    elide_noops,
+    merge_parallel_chains,
+)
+
+
+from flexflow_tpu_torch.observability.search_phases import (
+    collect_search_phases,
+    search_phase,
+)
+from flexflow_tpu_torch.substitutions.pcg_pattern import find_pattern_matches
+from flexflow_tpu_torch.substitutions.substitution import (
+    Substitution,
+    apply_substitution,
+    match_interface_is_closed,
+)
+from flexflow_tpu_torch.utils.graph import Node
+
+
+def _normalize(pcg: ParallelComputationGraph) -> ParallelComputationGraph:
+    """Post-substitution cleanup: drop Noops, collapse same-kind parallel
+    chains, canonicalize reshard chains to their net effect, merge
+    duplicate reshardings."""
+    return cse_parallel_ops(
+        canonicalize_parallel_chains(merge_parallel_chains(elide_noops(pcg)))
+    )
+
+
+def max_total_degree(pcg: ParallelComputationGraph) -> int:
+    """The largest total parallel degree (shard x sum x copy) of any tensor
+    in the PCG — a plan needs at least this many devices to lower."""
+    from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import total_parallel_degree
+
+    best = 1
+    for n in pcg.nodes:
+        for o in pcg.outputs_of(n):
+            d = total_parallel_degree(pcg.tensor_shape(o))
+            if d > best:
+                best = d
+    return best
+
+
+def parallel_degree_summary(pcg: ParallelComputationGraph) -> Dict[str, int]:
+    """Max degree per parallel-op kind in the PCG ({} for a serial plan) —
+    the provenance/assertion surface for 'did the search actually
+    parallelize'."""
+    from flexflow_tpu_torch.op_attrs.core import OperatorType, op_type_of
+    from flexflow_tpu_torch.op_attrs.ops import (
+        CombineAttrs,
+        ReductionAttrs,
+        RepartitionAttrs,
+        ReplicateAttrs,
+    )
+
+    out: Dict[str, int] = {}
+    for n in pcg.nodes:
+        at = pcg.op_attrs(n)
+        if isinstance(at, RepartitionAttrs):
+            deg = at.repartition_degree
+        elif isinstance(at, CombineAttrs):
+            deg = at.combine_degree
+        elif isinstance(at, ReplicateAttrs):
+            deg = at.replicate_degree
+        elif isinstance(at, ReductionAttrs):
+            deg = at.reduction_degree
+        else:
+            continue
+        key = op_type_of(at).value
+        if deg > out.get(key, 1):
+            out[key] = deg
+    return out
+
+
+def _rule_slot_wrappers(sub: Substitution):
+    """The parallel-op attrs the rule's RHS inserts on each input slot of the
+    rewritten op (None for slots fed directly by a graph input). Used to
+    recognize — generically, for any single-op sandwich rule — that a match
+    site has already been rewritten by this exact rule: re-wrapping an op in
+    an identical Repartition/Replicate sandwich only stacks degrees
+    (Repartition_d(k) twice = degree k^2) and is never useful."""
+    from flexflow_tpu_torch.substitutions.output_graph import AttrConstant
+    from flexflow_tpu_torch.utils.graph import GraphInput
+
+    og = sub.output_expr.graph
+    non_constant = [
+        n for n in og.topological_ordering()
+        if not isinstance(og.node_label(n), AttrConstant)
+    ]
+    if len(non_constant) > 1:
+        # multi-op RHS: the first-op heuristic below would silently
+        # misdetect "already applied" — such rules opt out of the
+        # wrapper-based dedup (greedy_apply falls back to shape checks)
+        return None
+    for onode in non_constant:
+        wrappers = []
+        for v in og.inputs_of(onode):
+            if isinstance(v, GraphInput):
+                wrappers.append(None)
+            else:
+                plbl = og.node_label(v.node)
+                wrappers.append(
+                    plbl.attrs if isinstance(plbl, AttrConstant) else None
+                )
+        return wrappers
+    return None
+
+
+_WRAPPERS_MISSING = object()  # "not precomputed" (None = "no wrappers")
+
+
+def _already_applied_at(
+    pcg: ParallelComputationGraph,
+    sub: Substitution,
+    match,
+    wrappers=_WRAPPERS_MISSING,
+) -> bool:
+    """True when the matched op's inputs are already produced by exactly the
+    parallel ops this rule would insert — i.e. the rule was already applied
+    at this site and a second application would only stack degrees."""
+    if wrappers is _WRAPPERS_MISSING:
+        wrappers = _rule_slot_wrappers(sub)
+    if not wrappers or all(w is None for w in wrappers):
+        return False
+    node_map = match.node_map()
+    if len(node_map) != 1:
+        return False  # multi-op (fusion-style) rules: no sandwich semantics
+    (host,) = node_map.values()
+    ins = pcg.inputs_of(host)
+    if len(ins) != len(wrappers):
+        return False
+    for v, w in zip(ins, wrappers):
+        if w is None:
+            continue
+        if pcg.op_attrs(v.node) != w:
+            return False
+    return True
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """reference: unity_algorithm.h OptimizerConfig{alpha, budget, threshold,
+    max_num_ops} + config.h:82-84 flag defaults. threshold > 0 additionally
+    drops candidates whose absolute runtime exceeds it. seed_frontier pushes
+    the dp/tp/sp strategy-template rewrites into the frontier as first-class
+    candidates (the best-first walk then spends its budget improving on
+    them instead of climbing the whole rule lattice from serial)."""
+
+    alpha: float = 1.2
+    budget: int = 10
+    threshold: float = 0.0
+    max_num_ops: int = 512
+    seed_frontier: bool = True
+    # Pipeline-stage seeds (pp{S}m{M} stage-partitioned candidates): A10
+    pipeline_seeds: bool = False
+    # Collapse layer-symmetric candidates: two candidates whose node
+    # MULTISETS of (attrs, input shapes, output shapes) match are priced
+    # identically by the cost model's per-leaf + per-shape-movement terms,
+    # so only one representative is evaluated/expanded (a rule applied at
+    # layer 3 vs layer 7 of a stack of identical layers). On the 12-layer
+    # flagship this cuts candidate evaluations ~9x with the same winner.
+    symmetry_dedup: bool = True
+
+    def __post_init__(self) -> None:
+        if self.pipeline_seeds:
+            raise NotImplementedError(
+                "pipeline seeds wait for the pipeline ops (ROADMAP A10)"
+            )
+
+
+@dataclass
+class GraphOptimizeResult:
+    pcg: ParallelComputationGraph
+    runtime: float
+    # per-PCG-node machine view (translated from problem-tree paths)
+    machine_mapping: Dict[Node, MachineView]
+    explored: int = 0
+    serial_runtime: Optional[float] = 0.0
+    # seed label -> estimated runtime (only viable, mappable seeds appear)
+    seed_runtimes: Optional[Dict[str, float]] = None
+    # search telemetry: how the plan was found — {evaluations, infeasible,
+    # dedup_hits (+ breakdown), symmetry_dedup, signature_version,
+    # mm_cache hits/misses, phase_ms}
+    telemetry: Optional[Dict[str, object]] = None
+
+
+# Collision-class version of _cost_signature (recorded in search
+# provenance so A/B artifacts say WHICH equivalence collapsed candidates):
+# v1 = node multiset only; v2 adds the edge multiset (src attrs, dst attrs,
+# shape), which separates differently-WIRED graphs whose per-node local
+# records coincide (ADVICE round 5, item 1).
+COST_SIGNATURE_VERSION = 2
+
+
+def _cost_signature(pcg: ParallelComputationGraph):
+    """Near-wiring-free multiset signature: per-node (attrs, input shapes,
+    output shapes + fan-outs) with multiplicity, PLUS the edge multiset
+    (producer attrs, consumer attrs, tensor shape). Candidates produced by
+    applying the same rule at symmetric sites of identical layers share this
+    signature and are isomorphic, hence priced identically. This is a
+    HEURISTIC equivalence (see OptimizerConfig.symmetry_dedup): non-
+    isomorphic graphs can collide in principle — the edge multiset folds in
+    one-hop wiring so differently-wired graphs with identical node records
+    separate, but deeper wiring differences with identical local records
+    would still be collapsed to one representative."""
+    from collections import Counter
+
+    c = Counter()
+    edges = Counter()
+    for n in pcg.nodes:
+        attrs = pcg.op_attrs(n)
+        ins = pcg.inputs_of(n)
+        c[(
+            attrs,
+            tuple(pcg.tensor_shape(v) for v in ins),
+            tuple(
+                (pcg.tensor_shape(o), len(pcg.uses_of(o)))
+                for o in pcg.outputs_of(n)
+            ),
+        )] += 1
+        for v in ins:
+            edges[(pcg.op_attrs(v.node), attrs, pcg.tensor_shape(v))] += 1
+    return (frozenset(c.items()), frozenset(edges.items()))
+
+
+def _site_signature(g: ParallelComputationGraph, nodes):
+    """Local-context signature of a rewrite site: per matched node its
+    attrs, each input's (producer attrs, shape), and each output's
+    (shape, CONSUMER-attrs multiset). Two sites with equal signatures
+    produce _cost_signature-equal candidates under the same
+    closed-interface rule (the candidate's node AND one-hop-edge multiset
+    delta is a function of exactly these fields — consumer attrs entered
+    the site signature when the edge multiset entered the cost signature,
+    v2). Multiplicity-aware like _cost_signature: a {S, S, T} multi-node
+    site must not collide with an {S, T, T} one."""
+    from collections import Counter
+
+    c = Counter(
+        (
+            g.op_attrs(h),
+            tuple(
+                (g.op_attrs(v.node), g.tensor_shape(v))
+                for v in g.inputs_of(h)
+            ),
+            tuple(
+                (
+                    g.tensor_shape(o),
+                    frozenset(
+                        Counter(
+                            g.op_attrs(u.node) for u in g.uses_of(o)
+                        ).items()
+                    ),
+                )
+                for o in g.outputs_of(h)
+            ),
+        )
+        for h in nodes
+    )
+    return frozenset(c.items())
+
+
+def _canonical_key(pcg: ParallelComputationGraph):
+    """Structural dedup key: (op attrs, wiring) per node in topo order, plus
+    source-node output shapes (ops derive their shapes from these). Replaces
+    a full JSON serialization that cost ~11 ms per candidate; hashing is
+    cheap because attrs/shapes carry memoized hashes."""
+    from flexflow_tpu_torch.op_attrs.ops import InputAttrs, WeightAttrs
+
+    pos = {}
+    items = []
+    for i, n in enumerate(pcg.topological_ordering()):
+        pos[n] = i
+        attrs = pcg.op_attrs(n)
+        ins = tuple((pos[v.node], v.idx) for v in pcg.inputs_of(n))
+        if isinstance(attrs, (InputAttrs, WeightAttrs)):
+            shapes = tuple(pcg.tensor_shape(o) for o in pcg.outputs_of(n))
+        else:
+            shapes = ()
+        items.append((attrs, ins, shapes))
+    return tuple(items)
+
+
+def evaluate_pcg(
+    pcg: ParallelComputationGraph,
+    context: MachineMappingContext,
+    machine_spec: MachineSpecification,
+    cache: MachineMappingCache,
+) -> Optional[GraphOptimizeResult]:
+    """Cost a PCG via its optimal machine mapping. Returns None if the PCG is
+    not SP-decomposable or no feasible mapping exists.
+
+    `cache` is required: the shared MachineMappingCache is what makes
+    pricing cheap ACROSS candidates (successive substitutions leave most
+    problem subtrees identical). Callers pricing a one-off PCG still create
+    the cache explicitly so the cost is visible at the call site."""
+    assert cache is not None, "evaluate_pcg requires a (shared) cache"
+    if getattr(context, "memory_budget_bytes", 0.0) > 0:
+        # the JAX package rejects here the candidates whose solved mapping's
+        # per-device liveness peak exceeds the budget (memory_analysis)
+        raise NotImplementedError(
+            "the memory-budgeted search needs the memory verifier, not "
+            "ported yet (ROADMAP A13)"
+        )
+    try:
+        with search_phase("tree_build"):
+            tree, path_of = get_machine_mapping_problem_tree(pcg)
+    except ValueError:
+        return None
+    with search_phase("dp"):
+        result = get_optimal_machine_mapping(cache, context, tree, machine_spec)
+    if result is None:
+        return None
+    node_of_path = {p: n for n, p in path_of.items()}
+    mapping = {
+        node_of_path[p]: v for p, v in result.mapping_dict().items()
+    }
+    return GraphOptimizeResult(pcg, result.runtime, mapping)
+
+
+def greedy_apply(
+    pcg: ParallelComputationGraph,
+    rules: List[Substitution],
+    max_steps: int = 512,
+    degree_cap: Optional[int] = None,
+    accept=None,
+) -> ParallelComputationGraph:
+    """Apply the given rules to fixpoint, first-match-first (used to build
+    the strategy-template seeds below; also handy for tests).
+
+    degree_cap rejects rewrites that push any tensor's total parallel degree
+    past the machine size; the already-applied filter rejects re-wrapping an
+    op in the identical sandwich a rule already applied (which would stack
+    degrees without bound). accept(pcg, sub, match) optionally narrows which
+    sites a rule may rewrite (the Megatron seed uses it to alternate
+    column/row parallelism across consecutive linears).
+
+    Iteration order is rule-by-rule saturation (each rule applied to
+    fixpoint before the next), with failed (rule, site) applications
+    memoized by the matched ops' attrs + input shapes — a site that failed
+    shape inference fails identically until its inputs change, and retrying
+    it after every successful application elsewhere made seed construction
+    quadratic (52s for an 8-layer transformer's DP seed; ~3s now)."""
+
+    def site_key(g, sub_idx, match):
+        # rule index, not id(sub): stable for the call and cannot alias a
+        # recreated rule object's reused id
+        return (
+            sub_idx,
+            frozenset(
+                (
+                    g.layer_attrs(h).attrs,
+                    tuple(g.tensor_shape(v) for v in g.inputs_of(h)),
+                )
+                for h in match.node_map().values()
+            ),
+        )
+
+    current = pcg
+    wrappers = [_rule_slot_wrappers(sub) for sub in rules]
+    failed = set()
+    steps = 0
+    dirty = False
+    while steps < max_steps:
+        progressed_any = False
+        for sub_idx, sub in enumerate(rules):
+            while steps < max_steps:
+                applied = False
+                for match in find_pattern_matches(sub.pattern, current):
+                    if _already_applied_at(
+                        current, sub, match, wrappers[sub_idx]
+                    ):
+                        continue
+                    if accept is not None and not accept(current, sub, match):
+                        continue
+                    key = site_key(current, sub_idx, match)
+                    if key in failed:
+                        continue
+                    if not match_interface_is_closed(current, sub, match):
+                        continue
+                    try:
+                        new = apply_substitution(current, sub, match)
+                    except (AssertionError, KeyError, ValueError):
+                        failed.add(key)
+                        continue
+                    if (
+                        degree_cap is not None
+                        and max_total_degree(new) > degree_cap
+                    ):
+                        failed.add(key)
+                        continue
+                    current = new
+                    dirty = True
+                    applied = True
+                    steps += 1
+                    break
+                if not applied:
+                    break
+                progressed_any = True
+            # Normalization (Noop elision, chain merge, CSE) is deferred to
+            # rule-saturation boundaries: one normalize per rule instead of
+            # three full graph rebuilds per application. Cancel rules leave
+            # Noops behind, but distant sites stay adjacent so saturation
+            # still progresses, and chains whose inner pair vanished are
+            # picked up on the next outer pass after this normalize.
+            if dirty:
+                current = _normalize(current)
+                dirty = False
+        if not progressed_any:
+            return current
+    return current
+
+
+def _cancel_rules(degree: int) -> List[Substitution]:
+    from flexflow_tpu_torch.substitutions.rules import combine_reduction_cancel_rules
+
+    cancels: List[Substitution] = []
+    for d in (0, 1, 2, -1):
+        cancels.extend(combine_reduction_cancel_rules(degree, d))
+    return cancels
+
+
+def _built_template(pcg, plan, degree_cap):
+    from flexflow_tpu_torch.compiler.seed_templates import build_wrapped
+
+    seed = build_wrapped(pcg, plan)
+    if degree_cap is not None and max_total_degree(seed) > degree_cap:
+        raise ValueError("template exceeds the machine's device count")
+    # the direct construction leaves per-layer reshard seams (e.g.
+    # Combine_0(dp) ∘ Reduction(tp) ∘ Repartition_0(dp) between Megatron
+    # layers) that the cost model would price as real data movement —
+    # canonicalize to the net reshard like any searched candidate
+    return _normalize(seed)
+
+
+def data_parallel_seed(
+    pcg: ParallelComputationGraph,
+    degree: int,
+    degree_cap: Optional[int] = None,
+) -> ParallelComputationGraph:
+    """The uniform batch-parallel rewrite of `pcg` (every op wrapped in the
+    degree-`degree` data-parallel sandwich, redundant Combine∘Repartition
+    seams cancelled). The reference's search effectively starts from its
+    default data-parallel strategy (get_basic_data_parallel_machine_view,
+    model.h:38-40); seeding the frontier with this PCG means the best-first
+    loop spends its budget improving ON data parallelism instead of
+    rediscovering it one op at a time. Built directly in one pass
+    (compiler/seed_templates.py) — the rule-based construction cost O(n^2)
+    and dominated flagship search time."""
+    from flexflow_tpu_torch.compiler.seed_templates import data_parallel_plan
+
+    return _built_template(pcg, data_parallel_plan(degree), degree_cap)
+
+
+def tensor_parallel_seed(
+    pcg: ParallelComputationGraph,
+    degree: int,
+    degree_cap: Optional[int] = None,
+) -> ParallelComputationGraph:
+    """Megatron-style tensor-parallel template: column-parallel expanding
+    linears (out >= in), row/reduction-parallel contracting linears
+    (out < in), channel-sharded activations in between (so the
+    Combine_-1/Repartition_-1 seams cancel and the whole MLP block runs
+    sharded), head-parallel attention, column-parallel embeddings. Built
+    directly in one pass (compiler/seed_templates.py)."""
+    from flexflow_tpu_torch.compiler.seed_templates import megatron_plan
+
+    return _built_template(pcg, megatron_plan(pcg, degree), degree_cap)
+
+
+def sequence_parallel_seed(
+    pcg: ParallelComputationGraph,
+    degree: int,
+    flavor: str = "ring",
+    degree_cap: Optional[int] = None,
+) -> ParallelComputationGraph:
+    """Sequence/context-parallel template: ring or Ulysses (a2a) attention
+    plus seq-dim (dim=1) sharding of every other op in the residual stream,
+    so the Combine_1/Repartition_1 seams cancel and the whole stack runs on
+    sharded sequences (the long-context schedule, SURVEY §5). Built
+    directly in one pass (compiler/seed_templates.py)."""
+    from flexflow_tpu_torch.compiler.seed_templates import sequence_parallel_plan
+
+    return _built_template(
+        pcg, sequence_parallel_plan(degree, flavor), degree_cap
+    )
+
+
+def expert_parallel_seed(
+    pcg: ParallelComputationGraph,
+    degree: int,
+    degree_cap: Optional[int] = None,
+) -> ParallelComputationGraph:
+    """Expert-parallel template: every Experts op sharded over its expert
+    dim (each device owns num_experts/degree experts and contributes a
+    partial sum), both the plain and aux-loss (lambda_bal>0) forms."""
+    from flexflow_tpu_torch.substitutions.rules import expert_parallel_experts_rule
+
+    k = degree
+    rules = [
+        expert_parallel_experts_rule(k, ub, with_aux=wa)
+        for ub in (True, False)
+        for wa in (False, True)
+    ]
+    cur = greedy_apply(pcg, rules, degree_cap=degree_cap)
+    return greedy_apply(cur, _cancel_rules(k), degree_cap=degree_cap)
+
+
+def _factor_triples(n: int):
+    """(dp, tp, sp) triples with dp*tp*sp == n, each factor >= 1."""
+    out = []
+    for tp in range(1, n + 1):
+        if n % tp:
+            continue
+        rest = n // tp
+        for sp in range(1, rest + 1):
+            if rest % sp:
+                continue
+            out.append((rest // sp, tp, sp))
+    return out
+
+
+def enumerate_seeds(
+    pcg: ParallelComputationGraph,
+    num_devices: int,
+    degree_cap: Optional[int] = None,
+):
+    """Yield (label, seed_pcg) strategy-template candidates covering every
+    dp x tp x sp factorization of the machine (ring and a2a flavors where
+    sequence parallelism participates). Seeds that fail to rewrite are
+    skipped; duplicate/no-op seeds are filtered by the caller's dedup key."""
+    from flexflow_tpu_torch.op_attrs.core import OperatorType, op_type_of
+
+    cap = degree_cap if degree_cap is not None else num_devices
+    # prefix caching: the dp x tp x sp factorizations share their tp and
+    # tp+sp stages (tp innermost, dp applied last), so
+    # each intermediate rewrite is built once instead of once per triple
+    # (seed construction dominated flagship search time otherwise)
+    tp_cache: Dict[int, ParallelComputationGraph] = {1: pcg}
+    sp_cache: Dict[Tuple[int, int, str], ParallelComputationGraph] = {}
+    for dp, tp, sp in _factor_triples(num_devices):
+        flavors = ("ring", "a2a") if sp > 1 else (None,)
+        for fl in flavors:
+            label = f"dp{dp}xtp{tp}xsp{sp}" + (f"-{fl}" if fl and sp > 1 else "")
+            try:
+                if tp not in tp_cache:
+                    tp_cache[tp] = tensor_parallel_seed(
+                        pcg, tp, degree_cap=cap
+                    )
+                seed = tp_cache[tp]
+                if sp > 1:
+                    sp_key = (tp, sp, fl or "ring")
+                    if sp_key not in sp_cache:
+                        sp_cache[sp_key] = sequence_parallel_seed(
+                            seed, sp, fl or "ring", degree_cap=cap
+                        )
+                    seed = sp_cache[sp_key]
+                if dp > 1:
+                    seed = data_parallel_seed(seed, dp, degree_cap=cap)
+            except (AssertionError, KeyError, ValueError):
+                continue
+            yield label, seed
+    if any(
+        op_type_of(pcg.op_attrs(n)) == OperatorType.EXPERTS for n in pcg.nodes
+    ):
+        for ep in range(2, num_devices + 1):
+            if num_devices % ep:
+                continue
+            dp = num_devices // ep
+            try:
+                seed = expert_parallel_seed(pcg, ep, degree_cap=cap)
+                if dp > 1:
+                    seed = data_parallel_seed(seed, dp, degree_cap=cap)
+            except (AssertionError, KeyError, ValueError):
+                continue
+            yield f"dp{dp}xep{ep}", seed
+
+
+def graph_optimize(
+    pcg: ParallelComputationGraph,
+    context: MachineMappingContext,
+    machine_spec: MachineSpecification,
+    substitutions: List[Substitution],
+    config: OptimizerConfig = OptimizerConfig(),
+) -> GraphOptimizeResult:
+    """Best-first search (the stubbed reference algorithm, implemented).
+    Runs under a search-phase collector so the result's telemetry carries
+    per-phase wall-clock (`phase_ms`: tree_build / dp / leaf_cost / match /
+    seed_build) alongside the mm_cache hit/miss counters."""
+    with collect_search_phases() as phase_ms:
+        return _graph_optimize(
+            pcg, context, machine_spec, substitutions, config, phase_ms
+        )
+
+
+def _graph_optimize(
+    pcg: ParallelComputationGraph,
+    context: MachineMappingContext,
+    machine_spec: MachineSpecification,
+    substitutions: List[Substitution],
+    config: OptimizerConfig,
+    phase_ms: Dict[str, float],
+) -> GraphOptimizeResult:
+    # search-session boundary for the process-global intern tables: clearing
+    # here bounds their growth across many searches in a long-lived process
+    # while every candidate WITHIN the search still shares canonical
+    # instances (the reuse the shared cache below depends on)
+    from flexflow_tpu_torch.compiler.machine_mapping.problem_tree import (
+        clear_problem_tree_intern_cache,
+    )
+
+    clear_problem_tree_intern_cache()
+    # ONE cache for the whole search: cross-candidate subtree reuse is the
+    # point (see evaluate_pcg); every evaluation below threads this instance
+    mm_cache = MachineMappingCache()
+    # provenance counters: how the plan was found (evaluations = fresh
+    # evaluate_pcg calls; infeasible = evaluations returning None;
+    # dedup breakdown: canonical-key, cost-signature, and site-signature
+    # hits — candidates retired WITHOUT paying for an evaluation)
+    evaluations = 1
+    infeasible = 0
+    key_hits = 0
+    sig_hits = 0
+    site_hits = 0
+
+    best = evaluate_pcg(pcg, context, machine_spec, mm_cache)
+    if best is None:
+        raise ValueError(
+            "initial PCG is not SP-decomposable or has no feasible "
+            "machine mapping on the given machine spec"
+        )
+    serial_runtime = best.runtime
+    degree_cap = machine_spec.num_devices
+
+    # dedup by canonical serialization: key -> did a candidate with this key
+    # (or a signature-equal twin) evaluate successfully? The flag decides
+    # whether a later symmetric site can be retired when it regenerates an
+    # already-seen graph.
+    seen: Dict = {_canonical_key(pcg): True}
+    seen_sigs = {_cost_signature(pcg)} if config.symmetry_dedup else set()
+    frontier: List[Tuple[float, int, ParallelComputationGraph]] = []
+    seq = 0
+    heapq.heappush(frontier, (best.runtime, seq, pcg))
+    explored = 0
+
+    # Seed the frontier with the dp/tp/sp strategy templates (the reference's
+    # default DP strategy, get_basic_data_parallel_machine_view model.h:38-40,
+    # generalized to every mesh factorization). Single-rewrite moves always
+    # add resharding seams before a compound win materializes, so on
+    # transformer-shaped graphs a serial-rooted walk never crosses the
+    # valley; the seeds put every coherent full-graph strategy IN the
+    # frontier and let the budgeted walk refine the winners.
+    seed_runtimes: Dict[str, float] = {}
+    sig_runtime: Dict = {}
+    if config.seed_frontier and degree_cap > 1 and config.budget > 0:
+        with search_phase("seed_build"):
+            seed_candidates = list(enumerate_seeds(pcg, degree_cap))
+        for label, seed_pcg in seed_candidates:
+            if len(seed_pcg) > config.max_num_ops:
+                continue
+            key = _canonical_key(seed_pcg)
+            if key in seen:
+                key_hits += 1
+                continue
+            seen[key] = False
+            sig = None
+            if config.symmetry_dedup:
+                sig = _cost_signature(seed_pcg)
+                if sig in sig_runtime:
+                    # signature-twin of an earlier seed: same price, skip
+                    # the evaluation but keep the label's runtime entry
+                    seed_runtimes[label] = sig_runtime[sig]
+                    seen[key] = True
+                    sig_hits += 1
+                    continue
+            candidate = evaluate_pcg(seed_pcg, context, machine_spec, mm_cache)
+            evaluations += 1
+            if candidate is None:
+                infeasible += 1
+                continue
+            seen[key] = True
+            if config.symmetry_dedup:
+                # registered only on SUCCESS: the signature is wiring-blind,
+                # and an infeasible representative must not block a later
+                # feasible signature-collider
+                seen_sigs.add(sig)
+                sig_runtime[sig] = candidate.runtime
+            seed_runtimes[label] = candidate.runtime
+            if candidate.runtime < best.runtime:
+                best = candidate
+            if config.threshold > 0 and candidate.runtime > config.threshold:
+                continue
+            seq += 1
+            heapq.heappush(frontier, (candidate.runtime, seq, seed_pcg))
+
+    # keyed by rule index, not id(sub): ids are only unique while the
+    # object lives, so id-keying can alias rules across recreated lists
+    rule_wrappers = [_rule_slot_wrappers(sub) for sub in substitutions]
+    for _ in range(max(config.budget, 0)):
+        if not frontier:
+            break
+        runtime, _, current = heapq.heappop(frontier)
+        # alpha pruning (reference comment: skip candidates worse than
+        # best * alpha)
+        if runtime > best.runtime * config.alpha:
+            continue
+        explored += 1
+        for sub_idx, sub in enumerate(substitutions):
+            # symmetric multi-node patterns (e.g. the sibling-linear fusion)
+            # yield one match per node ordering; candidates differ only by
+            # branch order and cost identically, so keep one per node SET
+            seen_node_sets = set()
+            # symmetric SITES (same rule, multiset-equal matched ops): the
+            # rewrites differ only by which identical layer hosts them and
+            # produce _cost_signature-equal candidates — skip before paying
+            # for apply/normalize (closed-interface rewrites change only the
+            # matched subgraph, so the candidate's signature delta is a
+            # function of the matched ops' attrs + shapes alone)
+            seen_site_sigs = set()
+            with search_phase("match"):
+                matches = list(find_pattern_matches(sub.pattern, current))
+            for match in matches:
+                node_set = frozenset(match.node_map().values())
+                if node_set in seen_node_sets:
+                    continue
+                seen_node_sets.add(node_set)
+                if _already_applied_at(
+                    current, sub, match, rule_wrappers[sub_idx]
+                ):
+                    continue
+                if not match_interface_is_closed(current, sub, match):
+                    continue
+                site_sig = None
+                if config.symmetry_dedup:
+                    # checked only AFTER the closure test so a non-closed
+                    # site cannot shadow a valid symmetric site (closure
+                    # depends on external consumers the signature cannot
+                    # see); registered only after a SUCCESSFUL evaluation
+                    # below, so a representative that fails apply or
+                    # evaluation cannot shadow a feasible symmetric twin
+                    site_sig = _site_signature(current, node_set)
+                    if site_sig in seen_site_sigs:
+                        site_hits += 1
+                        continue
+                # deterministic, site-local rejections (degree cap, op-count
+                # cap) recur identically at every signature-equal site, so
+                # they retire the site signature; an apply exception (the
+                # acyclicity check sees global wiring) or an evaluate_pcg
+                # miss (SP decomposability / feasibility) leaves the site
+                # open for a differently-wired symmetric twin
+                try:
+                    raw = apply_substitution(current, sub, match)
+                except (AssertionError, KeyError, ValueError):
+                    continue  # shape inference or acyclicity rejected it
+                if max_total_degree(raw) > degree_cap:
+                    if site_sig is not None:
+                        seen_site_sigs.add(site_sig)
+                    continue  # needs more devices than the machine has
+                new_pcg = _normalize(raw)
+                if len(new_pcg) > config.max_num_ops:
+                    if site_sig is not None:
+                        seen_site_sigs.add(site_sig)
+                    continue
+                key = _canonical_key(new_pcg)
+                if key in seen:
+                    key_hits += 1
+                    if seen[key] and config.symmetry_dedup:
+                        # this exact graph (or a signature twin) already
+                        # evaluated successfully — the site can be retired
+                        seen_site_sigs.add(site_sig)
+                    continue
+                seen[key] = False
+                sig = None
+                if config.symmetry_dedup:
+                    sig = _cost_signature(new_pcg)
+                    if sig in seen_sigs:
+                        # seen_sigs holds only SUCCESSFULLY evaluated
+                        # signatures, so the site too can be retired
+                        seen[key] = True
+                        seen_site_sigs.add(site_sig)
+                        sig_hits += 1
+                        continue
+                candidate = evaluate_pcg(new_pcg, context, machine_spec, mm_cache)
+                evaluations += 1
+                if candidate is None:
+                    infeasible += 1
+                    continue
+                seen[key] = True
+                if config.symmetry_dedup:
+                    # only successful evaluations register the signatures
+                    seen_sigs.add(sig)
+                    seen_site_sigs.add(site_sig)
+                if candidate.runtime < best.runtime:
+                    best = candidate
+                if config.threshold > 0 and candidate.runtime > config.threshold:
+                    continue
+                if candidate.runtime <= best.runtime * config.alpha:
+                    seq += 1
+                    heapq.heappush(
+                        frontier, (candidate.runtime, seq, new_pcg)
+                    )
+    best.explored = explored
+    best.serial_runtime = serial_runtime
+    best.seed_runtimes = seed_runtimes
+    best.telemetry = {
+        "algorithm": "unity",
+        "evaluations": evaluations,
+        "infeasible": infeasible,
+        "dedup_hits": key_hits + sig_hits + site_hits,
+        "dedup_key_hits": key_hits,
+        "dedup_signature_hits": sig_hits,
+        "dedup_site_hits": site_hits,
+        "symmetry_dedup": config.symmetry_dedup,
+        "signature_version": (
+            COST_SIGNATURE_VERSION if config.symmetry_dedup else None
+        ),
+        "seed_frontier": config.seed_frontier,
+        "alpha": config.alpha,
+        "budget": config.budget,
+        # how pricing was paid for: shared-cache reuse across candidates
+        # and where the search wall-clock went per phase (phases nest; see
+        # search_phases.py)
+        "mm_cache_hits": mm_cache.hits,
+        "mm_cache_misses": mm_cache.misses,
+        "phase_ms": {k: round(v, 3) for k, v in phase_ms.items()},
+    }
+    return best

@@ -20,8 +20,8 @@ direct caller drives. With `FFConfig(steps_per_dispatch=K)`, `fit` runs
 windows of K steps through `multi_train_step` (on a card, one CUDA graph
 replay a window), fed by the windowed input pipeline. What reaches a slice
 that is not ported yet raises NotImplementedError naming it, at the call:
-the layer methods of unported ops (A2), more than one device (A7; with a
-search budget, A6), checkpoints, recompiles and fit-loop supervision (A8),
+the layer methods of unported ops (A2), more than one device (A7, with a
+search budget too: the plan's parallel ops are not lowered yet), checkpoints, recompiles and fit-loop supervision (A8),
 telemetry, traces and plan audits (A9), sub-mesh branches (A10).
 """
 
@@ -472,8 +472,11 @@ class FFModel:
             np.int32 if loss_type == LossFunction.SPARSE_CATEGORICAL_CROSSENTROPY else np.float32)
         ndev = self._device_count()
         if ndev > 1 and cfg.search_budget > 0 and not cfg.only_data_parallel:
+            # the search itself is ported (flexflow_tpu_torch.compiler); what
+            # is missing is lowering its plan's parallel ops
             raise NotImplementedError(
-                f"a searched compile over {ndev} devices is not ported yet (A6); "
+                f"a searched compile over {ndev} devices needs the searched "
+                "plan's parallel ops lowered, not ported yet (A7); "
                 "set max_devices=1 to compile for one")
         if ndev > 1:
             raise NotImplementedError(

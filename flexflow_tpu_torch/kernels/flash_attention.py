@@ -119,10 +119,12 @@ def _stream(t: torch.Tensor) -> int:
 
 def _dtype_ok(dtype: torch.dtype, device) -> bool:
     """bf16 for the kernels on a CUDA device; any float dtype for the plain
-    versions on the CPU."""
-    if torch.device(device).type == "cuda":
+    versions on the CPU; nothing elsewhere (a `meta` dry run of an op's
+    shapes takes the dense path and never reaches a wrapper)."""
+    kind = torch.device(device).type
+    if kind == "cuda":
         return dtype == torch.bfloat16
-    return dtype.is_floating_point
+    return kind == "cpu" and dtype.is_floating_point
 
 
 def flash_attention_bshf_supported(shape, num_heads: int, dtype: torch.dtype, device) -> bool:

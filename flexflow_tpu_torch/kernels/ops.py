@@ -39,6 +39,7 @@ from flexflow_tpu_torch.op_attrs.activation import gelu
 from flexflow_tpu_torch.op_attrs.core import OpAttrs
 from flexflow_tpu_torch.op_attrs.ops import (
     AggregateSpec,
+    BatchMatmulAttrs,
     BatchNormAttrs,
     ConcatAttrs,
     Conv2DAttrs,
@@ -48,6 +49,7 @@ from flexflow_tpu_torch.op_attrs.ops import (
     ElementUnaryAttrs,
     ElementUnaryOpType,
     EmbeddingAttrs,
+    ExpertsAttrs,
     FlatAttrs,
     InputAttrs,
     LayerNormAttrs,
@@ -56,10 +58,12 @@ from flexflow_tpu_torch.op_attrs.ops import (
     Pool2DAttrs,
     PoolOp,
     ReshapeAttrs,
+    RingAttentionAttrs,
     SoftmaxAttrs,
     SplitAttrs,
     WeightAttrs,
 )
+from flexflow_tpu_torch.op_attrs.ops.moe import expert_capacity
 
 _UNARY_FNS = {
     ElementUnaryOpType.EXP: torch.exp,
@@ -104,6 +108,12 @@ def unpack_mha_weights(
     H = attrs.num_heads
     kd, vd, e = attrs.q_proj_size, attrs.v_proj_size, attrs.embed_dim
     sizes = [qsize * kd, ksize * kd, vsize * vd, vd * e]
+    if tuple(weight.shape) != (sum(sizes), H):
+        # e.g. a head-parallel piece: this op takes its sizes from the attrs
+        raise ValueError(
+            f"attention weight {tuple(weight.shape)} does not match the attrs' "
+            f"{(sum(sizes), H)}"
+        )
     offs = [0]
     for s in sizes:
         offs.append(offs[-1] + s)
@@ -352,9 +362,13 @@ def forward(attrs: OpAttrs, inputs: Sequence[torch.Tensor],
     if isinstance(attrs, DropoutAttrs):
         return [dropout(inputs[0], attrs.rate, train, rng)]
     if isinstance(attrs, MultiHeadAttentionAttrs):
+        # RingAttention (and Ulysses) subclass MHA: off a mesh this is the
+        # single-device attention, masked as the op says, as in the JAX
+        # package; their sharded schedules live in the parallel executor
         q, k, v = inputs
         input_bias = weights[1] if attrs.bias else None
-        out = _mha_forward(attrs, q, k, v, weights[0], input_bias)
+        causal = isinstance(attrs, RingAttentionAttrs) and attrs.causal
+        out = _mha_forward(attrs, q, k, v, weights[0], input_bias, causal=causal)
         if attrs.bias:
             out = out + weights[2]
         return [out]
@@ -364,31 +378,71 @@ def forward(attrs: OpAttrs, inputs: Sequence[torch.Tensor],
         return list(torch.split(inputs[0], list(attrs.sizes), dim=attrs.axis))
     if isinstance(attrs, ReshapeAttrs):
         return [inputs[0].reshape(attrs.shape)]
-    raise TypeError(f"no kernel for {type(attrs).__name__}")
+    raise NotImplementedError(f"no kernel for {type(attrs).__name__} in the port yet (A2)")
 
 
-def op_forward_flops(attrs: OpAttrs, input_shapes, output_shapes) -> int:
-    """Analytic forward FLOPs of one op on one device (copy of the JAX
-    package's, for MFU): matmul-class ops count 2*M*N*K, every other op one
-    flop per output element."""
-
+def op_forward_flops(
+    attrs: OpAttrs,
+    input_shapes,
+    output_shapes,
+    weight_shapes=None,
+    seq_parallel_degree: int = 1,
+) -> int:
+    """Analytic forward FLOPs of one op (copy of the JAX package's, for MFU
+    and the analytic cost model): matmul-class ops count 2*M*N*K, every
+    other op one flop per output element. `weight_shapes` (per-device
+    weight PIECE shapes) credits parameter-sharded pieces: a column-parallel
+    Linear, a channel-parallel Conv2D, a head-parallel attention or an
+    expert-parallel Experts op does proportionally less local compute than
+    its attrs (which describe the GLOBAL op) imply; omitted = unsharded
+    weights (MFU's global count). `seq_parallel_degree`: a ring or Ulysses
+    attention piece attends all k key/value blocks, k times the piece's own
+    score work."""
     def nelem(shape):
         return math.prod(shape.dims)
 
     if isinstance(attrs, LinearAttrs):
         x = input_shapes[0]
         batch = nelem(x) // x.dims[-1]
-        return 2 * batch * x.dims[-1] * attrs.out_channels
+        out_ch = attrs.out_channels
+        if weight_shapes:  # [in, out/k] piece of a column-parallel linear
+            out_ch = weight_shapes[0].dims[1]
+        return 2 * batch * x.dims[-1] * out_ch
+    if isinstance(attrs, BatchMatmulAttrs):
+        a, b = input_shapes[0], input_shapes[1]
+        return 2 * math.prod(a.dims[:-2]) * a.dims[-2] * a.dims[-1] * b.dims[-1]
     if isinstance(attrs, Conv2DAttrs):
         cin = input_shapes[0].dims[1]
         window = (cin // attrs.groups) * attrs.kernel_h * attrs.kernel_w
-        return 2 * nelem(output_shapes[0]) * window
+        flops = 2 * nelem(output_shapes[0]) * window
+        if weight_shapes:  # [out/k, in/g, kh, kw] channel-parallel piece
+            flops = flops * weight_shapes[0].dims[0] // attrs.out_channels
+        return flops
     if isinstance(attrs, MultiHeadAttentionAttrs):
         b, s, e = input_shapes[0].dims
         kd, vd, H = attrs.q_proj_size, attrs.v_proj_size, attrs.num_heads
+        if weight_shapes:  # [per-head params, H/k] head-parallel piece
+            H = weight_shapes[0].dims[1]
         proj = 2 * b * s * e * (kd + kd + vd) * H + 2 * b * s * vd * attrs.embed_dim * H
         scores = 2 * b * H * s * s * kd + 2 * b * H * s * s * vd
+        if isinstance(attrs, RingAttentionAttrs) and seq_parallel_degree > 1:
+            scores *= seq_parallel_degree
         return proj + scores
     if isinstance(attrs, EmbeddingAttrs):
         return 0
+    if isinstance(attrs, ExpertsAttrs):
+        x = input_shapes[0]
+        d = x.dims[-1]
+        n = nelem(x) // d
+        e, h = attrs.num_experts, attrs.hidden_size
+        o = attrs.out_channels or d
+        # capacity is per GLOBAL expert; local compute covers e_local experts
+        cap = expert_capacity(n, e, attrs.num_select, attrs.capacity_factor)
+        e_local = e
+        if weight_shapes and len(weight_shapes) > 1:
+            e_local = weight_shapes[1].dims[0]
+        gate = 2 * n * d * e
+        dispatch = 2 * n * e_local * cap * (d + o)
+        mlp = 2 * e_local * cap * (d * h + h * o)
+        return gate + dispatch + mlp
     return sum(nelem(s) for s in output_shapes)

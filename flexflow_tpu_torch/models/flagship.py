@@ -1,5 +1,6 @@
-"""The flagship transformer: a copy of `build_flagship_cg` and
-`_model_step_flops` from the repository's bench.py (12 layers, hidden 1024,
+"""The flagship transformer: a copy of `build_flagship_cg`,
+`build_flagship_pcg` and `_model_step_flops` from the repository's bench.py
+(12 layers, hidden 1024,
 8 heads of 128, seq 512, vocab 32000, batch 64), and its other configs,
 REF_HEADS16 and LONGCTX.
 
@@ -9,7 +10,7 @@ bias-free with GELU, and every block ends in a post-LayerNorm.
 
 from __future__ import annotations
 
-from flexflow_tpu_torch.pcg import ComputationGraphBuilder
+from flexflow_tpu_torch.pcg import ComputationGraphBuilder, pcg_from_computation_graph
 
 FLAGSHIP = dict(batch=64, seq=512, embed=1024, heads=8, layers=12, vocab=32000)
 
@@ -43,6 +44,14 @@ def build_flagship_cg(
         h = b.layer_norm(h, axes=[-1], name=f"ln2_{i}")
     logits = b.dense(h, vocab, use_bias=False, name="head")
     return b.graph, logits
+
+
+def build_flagship_pcg(
+    batch=64, seq=512, embed=1024, heads=8, layers=12, vocab=32000
+):
+    """The flagship lifted to a trivially parallel PCG: the search's input."""
+    graph, _ = build_flagship_cg(batch, seq, embed, heads, layers, vocab)
+    return pcg_from_computation_graph(graph)
 
 
 def model_step_flops(batch, seq, embed, heads, layers, vocab) -> int:

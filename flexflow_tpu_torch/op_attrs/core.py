@@ -1,5 +1,7 @@
 """Operator types and uniform shape-inference dispatch over the slices' op
-attrs (trimmed copy of flexflow_tpu/op_attrs/core.py).
+attrs (trimmed copy of flexflow_tpu/op_attrs/core.py; the JAX package's
+GroupBy/Aggregate, Cast and the other shape ops wait, A2, and its pipeline
+stage ops, A10).
 
   get_output_shapes(attrs, inputs)           -> [TensorShape]
   get_weight_shapes(attrs, inputs)           -> [TensorShape]
@@ -14,7 +16,9 @@ import enum
 from typing import List, Sequence, Union
 
 from flexflow_tpu_torch.op_attrs.ops import (
+    BatchMatmulAttrs,
     BatchNormAttrs,
+    BroadcastAttrs,
     CombineAttrs,
     ConcatAttrs,
     Conv2DAttrs,
@@ -22,12 +26,15 @@ from flexflow_tpu_torch.op_attrs.ops import (
     ElementBinaryAttrs,
     ElementUnaryAttrs,
     EmbeddingAttrs,
+    ExpertsAttrs,
     FlatAttrs,
     InputAttrs,
     LayerNormAttrs,
     LinearAttrs,
     MultiHeadAttentionAttrs,
+    NoopAttrs,
     Pool2DAttrs,
+    ReduceAttrs,
     ReductionAttrs,
     RepartitionAttrs,
     ReplicateAttrs,
@@ -35,6 +42,7 @@ from flexflow_tpu_torch.op_attrs.ops import (
     RingAttentionAttrs,
     SoftmaxAttrs,
     SplitAttrs,
+    UlyssesAttentionAttrs,
     WeightAttrs,
 )
 from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
@@ -48,15 +56,19 @@ from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
 class OperatorType(enum.Enum):
     INPUT = "input"
     WEIGHT = "weight"
+    NOOP = "noop"
     ELEMENT_UNARY = "element_unary"
     ELEMENT_BINARY = "element_binary"
+    BROADCAST = "broadcast"
     LINEAR = "linear"
+    BATCH_MATMUL = "batch_matmul"
     EMBEDDING = "embedding"
     LAYER_NORM = "layer_norm"
     SOFTMAX = "softmax"
     DROPOUT = "dropout"
     MULTIHEAD_ATTENTION = "multihead_attention"
     RING_ATTENTION = "ring_attention"
+    ULYSSES_ATTENTION = "ulysses_attention"
     CONV2D = "conv2d"
     POOL2D = "pool2d"
     FLAT = "flat"
@@ -64,10 +76,15 @@ class OperatorType(enum.Enum):
     CONCAT = "concat"
     SPLIT = "split"
     RESHAPE = "reshape"
+    REDUCE = "reduce"
+    EXPERTS = "experts"
     REPARTITION = "repartition"
     COMBINE = "combine"
     REPLICATE = "replicate"
     REDUCTION = "reduction"
+    # pipeline-stage boundaries (A10): no attrs in the port yet
+    STAGE_PARTITION = "stage_partition"
+    STAGE_MERGE = "stage_merge"
 
 
 class IncomingTensorRole(enum.Enum):
@@ -76,26 +93,31 @@ class IncomingTensorRole(enum.Enum):
 
 
 OpAttrs = Union[
-    InputAttrs, WeightAttrs, ElementUnaryAttrs, ElementBinaryAttrs,
-    LinearAttrs, EmbeddingAttrs, LayerNormAttrs, SoftmaxAttrs, DropoutAttrs,
-    MultiHeadAttentionAttrs, RingAttentionAttrs,
+    InputAttrs, WeightAttrs, NoopAttrs, ElementUnaryAttrs, ElementBinaryAttrs,
+    BroadcastAttrs, LinearAttrs, BatchMatmulAttrs, EmbeddingAttrs,
+    LayerNormAttrs, SoftmaxAttrs, DropoutAttrs,
+    MultiHeadAttentionAttrs, RingAttentionAttrs, UlyssesAttentionAttrs,
     Conv2DAttrs, Pool2DAttrs, FlatAttrs, BatchNormAttrs,
-    ConcatAttrs, SplitAttrs, ReshapeAttrs,
+    ConcatAttrs, SplitAttrs, ReshapeAttrs, ReduceAttrs, ExpertsAttrs,
     RepartitionAttrs, CombineAttrs, ReplicateAttrs, ReductionAttrs,
 ]
 
 _OP_TYPE_BY_ATTRS = {
     InputAttrs: OperatorType.INPUT,
     WeightAttrs: OperatorType.WEIGHT,
+    NoopAttrs: OperatorType.NOOP,
     ElementUnaryAttrs: OperatorType.ELEMENT_UNARY,
     ElementBinaryAttrs: OperatorType.ELEMENT_BINARY,
+    BroadcastAttrs: OperatorType.BROADCAST,
     LinearAttrs: OperatorType.LINEAR,
+    BatchMatmulAttrs: OperatorType.BATCH_MATMUL,
     EmbeddingAttrs: OperatorType.EMBEDDING,
     LayerNormAttrs: OperatorType.LAYER_NORM,
     SoftmaxAttrs: OperatorType.SOFTMAX,
     DropoutAttrs: OperatorType.DROPOUT,
     MultiHeadAttentionAttrs: OperatorType.MULTIHEAD_ATTENTION,
     RingAttentionAttrs: OperatorType.RING_ATTENTION,
+    UlyssesAttentionAttrs: OperatorType.ULYSSES_ATTENTION,
     Conv2DAttrs: OperatorType.CONV2D,
     Pool2DAttrs: OperatorType.POOL2D,
     FlatAttrs: OperatorType.FLAT,
@@ -103,6 +125,8 @@ _OP_TYPE_BY_ATTRS = {
     ConcatAttrs: OperatorType.CONCAT,
     SplitAttrs: OperatorType.SPLIT,
     ReshapeAttrs: OperatorType.RESHAPE,
+    ReduceAttrs: OperatorType.REDUCE,
+    ExpertsAttrs: OperatorType.EXPERTS,
     RepartitionAttrs: OperatorType.REPARTITION,
     CombineAttrs: OperatorType.COMBINE,
     ReplicateAttrs: OperatorType.REPLICATE,
@@ -115,12 +139,21 @@ PARALLEL_OP_TYPES = frozenset({
 })
 
 
+STAGE_OP_TYPES = frozenset({OperatorType.STAGE_PARTITION, OperatorType.STAGE_MERGE})
+
+
 def op_type_of(attrs: OpAttrs) -> OperatorType:
     return _OP_TYPE_BY_ATTRS[type(attrs)]
 
 
 def is_parallel_op(attrs: OpAttrs) -> bool:
     return op_type_of(attrs) in PARALLEL_OP_TYPES
+
+
+def is_stage_op(attrs: OpAttrs) -> bool:
+    """Pipeline-stage boundary op? Kept out of is_parallel_op: the reshard
+    chain normalizations must never merge a stage boundary away."""
+    return op_type_of(attrs) in STAGE_OP_TYPES
 
 
 def get_incoming_tensor_roles(attrs: OpAttrs) -> List[IncomingTensorRole]:
@@ -138,9 +171,30 @@ def get_incoming_tensor_roles(attrs: OpAttrs) -> List[IncomingTensorRole]:
         return [I, W, W] if attrs.elementwise_affine else [I]
     if isinstance(attrs, (InputAttrs, WeightAttrs)):
         return []
-    if isinstance(attrs, ElementBinaryAttrs):
-        return [I, I]
-    return [I]
+    if isinstance(attrs, ExpertsAttrs):
+        return [I, W, W, W, W, W] if attrs.use_bias else [I, W, W, W]
+    return [I] * num_data_inputs(attrs)
+
+
+def num_data_inputs(attrs: OpAttrs) -> int:
+    """Data (non-weight) inputs of the op; -1 for variadic ones."""
+    if isinstance(attrs, (InputAttrs, WeightAttrs)):
+        return 0
+    if isinstance(attrs, (ElementBinaryAttrs, BatchMatmulAttrs)):
+        return 2
+    if isinstance(attrs, MultiHeadAttentionAttrs):
+        return 3
+    if isinstance(attrs, ConcatAttrs):
+        return -1
+    return 1
+
+
+def num_outputs(attrs: OpAttrs, inputs: Sequence[TensorShape] = ()) -> int:
+    if isinstance(attrs, SplitAttrs):
+        return len(attrs.sizes)
+    if isinstance(attrs, ExpertsAttrs):
+        return 2 if attrs.lambda_bal > 0 else 1
+    return 1
 
 
 def get_output_shapes(
@@ -150,6 +204,11 @@ def get_output_shapes(
         return [attrs.output_shape()]
     if isinstance(attrs, SplitAttrs):
         return list(attrs.output_shapes(inputs[0]))
+    if isinstance(attrs, ExpertsAttrs):
+        return list(attrs.output_shapes(inputs[0]))
+    if isinstance(attrs, (RepartitionAttrs, CombineAttrs, ReplicateAttrs, ReductionAttrs)):
+        # parallel ops are the identity on sequential shapes
+        return [inputs[0]]
     return [attrs.output_shape(*inputs)]
 
 
@@ -180,6 +239,8 @@ def get_weight_shapes(
         return [attrs.gamma_shape(inputs[0]), attrs.beta_shape(inputs[0])]
     if isinstance(attrs, LayerNormAttrs) and attrs.elementwise_affine:
         return [attrs.gamma_shape(inputs[0]), attrs.beta_shape(inputs[0])]
+    if isinstance(attrs, ExpertsAttrs):
+        return list(attrs.weight_shapes(inputs[0]))
     return []
 
 
@@ -188,6 +249,10 @@ def get_parallel_output_shapes(
 ) -> List[ParallelTensorShape]:
     if isinstance(attrs, (InputAttrs, WeightAttrs)):
         return [attrs.parallel_output_shape()]
+    if isinstance(attrs, SplitAttrs):
+        return list(attrs.parallel_output_shapes(inputs[0]))
+    if isinstance(attrs, ExpertsAttrs):
+        return list(attrs.parallel_output_shapes(inputs[0]))
     return [attrs.parallel_output_shape(*inputs)]
 
 
@@ -201,6 +266,11 @@ def get_parallel_weight_shapes(
         if attrs.use_bias:
             ws.append(attrs.parallel_bias_shape(inputs[0]))
         return ws
+    if isinstance(attrs, Conv2DAttrs):
+        ws = [attrs.parallel_kernel_shape(inputs[0])]
+        if attrs.use_bias:
+            ws.append(attrs.parallel_bias_shape(inputs[0]))
+        return ws
     if isinstance(attrs, EmbeddingAttrs):
         return [attrs.parallel_weight_shape(inputs[0])]
     if isinstance(attrs, MultiHeadAttentionAttrs):
@@ -210,9 +280,13 @@ def get_parallel_weight_shapes(
             ws += [lift_to_parallel(attrs.input_bias_shape(*reduced)),
                    lift_to_parallel(attrs.output_bias_shape(*reduced))]
         return ws
-    if isinstance(attrs, LayerNormAttrs) and attrs.elementwise_affine:
+    if isinstance(attrs, (BatchNormAttrs, LayerNormAttrs)) and (
+        attrs.affine if isinstance(attrs, BatchNormAttrs) else attrs.elementwise_affine
+    ):
         g = attrs.parallel_gamma_shape(inputs[0])
         return [g, g]
+    if isinstance(attrs, ExpertsAttrs):
+        return list(attrs.parallel_weight_shapes(inputs[0]))
     return []
 
 

@@ -29,5 +29,17 @@ class DataType(enum.Enum):
         }[self]
 
     @property
+    def size_bytes(self) -> int:
+        return {
+            DataType.BOOL: 1,
+            DataType.INT32: 4,
+            DataType.INT64: 8,
+            DataType.HALF: 2,
+            DataType.BFLOAT16: 2,
+            DataType.FLOAT: 4,
+            DataType.DOUBLE: 8,
+        }[self]
+
+    @property
     def is_floating(self) -> bool:
         return self in (DataType.HALF, DataType.BFLOAT16, DataType.FLOAT, DataType.DOUBLE)

@@ -1,7 +1,9 @@
-"""Operator attrs of the slices: Input, Weight, Linear, Embedding,
+"""Operator attrs of the slices: Input, Weight, Noop, Linear, Embedding,
 MultiHeadAttention, RingAttention, ElementUnary, ElementBinary, LayerNorm,
 Softmax, Dropout, the example zoo's Conv2D, Pool2D, Flat, BatchNorm, Concat,
-Split and Reshape, the four parallel ops, and the loss attrs."""
+Split and Reshape, the four parallel ops, the loss attrs, and the attrs the
+search's rules name without a kernel in the port (UlyssesAttention,
+BatchMatmul, Broadcast, Reduce, Experts)."""
 
 from flexflow_tpu_torch.op_attrs.ops.attention import MultiHeadAttentionAttrs
 from flexflow_tpu_torch.op_attrs.ops.conv_ops import (
@@ -16,9 +18,15 @@ from flexflow_tpu_torch.op_attrs.ops.elementwise import (
     ElementBinaryOpType,
     ElementUnaryAttrs,
     ElementUnaryOpType,
+    BroadcastAttrs,
 )
-from flexflow_tpu_torch.op_attrs.ops.io import InputAttrs, WeightAttrs
-from flexflow_tpu_torch.op_attrs.ops.linear_ops import AggregateSpec, EmbeddingAttrs, LinearAttrs
+from flexflow_tpu_torch.op_attrs.ops.io import InputAttrs, NoopAttrs, WeightAttrs
+from flexflow_tpu_torch.op_attrs.ops.linear_ops import (
+    AggregateSpec,
+    BatchMatmulAttrs,
+    EmbeddingAttrs,
+    LinearAttrs,
+)
 from flexflow_tpu_torch.op_attrs.ops.loss_functions import (
     LossAttrs,
     LossFunction,
@@ -34,11 +42,21 @@ from flexflow_tpu_torch.op_attrs.ops.parallel_ops import (
     ReplicateAttrs,
 )
 from flexflow_tpu_torch.op_attrs.ops.ring_attention import RingAttentionAttrs
-from flexflow_tpu_torch.op_attrs.ops.shape_ops import ConcatAttrs, ReshapeAttrs, SplitAttrs
+from flexflow_tpu_torch.op_attrs.ops.moe import ExpertsAttrs
+from flexflow_tpu_torch.op_attrs.ops.shape_ops import (
+    ConcatAttrs,
+    ReduceAttrs,
+    ReduceOpType,
+    ReshapeAttrs,
+    SplitAttrs,
+)
+from flexflow_tpu_torch.op_attrs.ops.ulysses_attention import UlyssesAttentionAttrs
 
 __all__ = [
     "AggregateSpec",
+    "BatchMatmulAttrs",
     "BatchNormAttrs",
+    "BroadcastAttrs",
     "CombineAttrs",
     "ConcatAttrs",
     "Conv2DAttrs",
@@ -48,6 +66,7 @@ __all__ = [
     "ElementUnaryAttrs",
     "ElementUnaryOpType",
     "EmbeddingAttrs",
+    "ExpertsAttrs",
     "FlatAttrs",
     "InputAttrs",
     "LayerNormAttrs",
@@ -56,8 +75,11 @@ __all__ = [
     "LossFunction",
     "MultiHeadAttentionAttrs",
     "NonconfigurableLossAttrs",
+    "NoopAttrs",
     "Pool2DAttrs",
     "PoolOp",
+    "ReduceAttrs",
+    "ReduceOpType",
     "ReductionAttrs",
     "RepartitionAttrs",
     "ReplicateAttrs",
@@ -66,6 +88,7 @@ __all__ = [
     "SoftmaxAttrs",
     "SparseCategoricalCrossEntropyLossAttrs",
     "SplitAttrs",
+    "UlyssesAttentionAttrs",
     "WeightAttrs",
     "loss_attrs_for",
 ]

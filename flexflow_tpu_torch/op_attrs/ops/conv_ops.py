@@ -1,15 +1,30 @@
-"""Conv2D, Pool2D, Flat and BatchNorm attrs, NCHW (trimmed copy of
-flexflow_tpu/op_attrs/ops/conv_ops.py: the sequential shape rules and the
-weight shapes; the parallel rules wait for a multi-device compile)."""
+"""Conv2D, Pool2D, Flat and BatchNorm attrs, NCHW (copy of
+flexflow_tpu/op_attrs/ops/conv_ops.py: the sequential and the parallel
+shape rules and the weight shapes).
+
+Parallel rules (reference conv_2d.cc:100-140): the sample degree passes,
+partitioned in-channels yield partial sums, replication partitions the
+out-channels; spatial dims stay unsharded."""
 
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
+from math import prod
 from typing import Optional
 
 from flexflow_tpu_torch.op_attrs.activation import Activation
+from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
+    ParallelTensorShape,
+    get_reduced_shape,
+    lift_to_parallel_with_degrees,
+)
 from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
+
+
+def _whole_spatial(input: ParallelTensorShape) -> None:
+    if input.shard_dim_at(2).degree != 1 or input.shard_dim_at(3).degree != 1:
+        raise ValueError(f"spatial sharding is not supported: {input}")
 
 
 def _conv_out(size: int, kernel: int, stride: int, pad: int) -> int:
@@ -52,6 +67,31 @@ class Conv2DAttrs:
     def bias_shape(self, input: TensorShape) -> TensorShape:
         return TensorShape((self.out_channels,), input.dtype)
 
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        _whole_spatial(input)
+        n_dim, c_dim = input.dims.shard_dims[:2]
+        unpar = self.output_shape(get_reduced_shape(input))
+        return lift_to_parallel_with_degrees(
+            unpar, input.sum_degree * c_dim.degree, 1,
+            (n_dim.degree, input.discard_copy_degree, 1, 1),
+        )
+
+    def parallel_kernel_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        n_dim, c_dim = input.dims.shard_dims[:2]
+        unpar = self.kernel_shape(get_reduced_shape(input))
+        return lift_to_parallel_with_degrees(
+            unpar, 1, n_dim.degree * input.sum_degree,
+            (input.discard_copy_degree, c_dim.degree, 1, 1),
+        )
+
+    def parallel_bias_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        n_dim, c_dim = input.dims.shard_dims[:2]
+        unpar = self.bias_shape(get_reduced_shape(input))
+        return lift_to_parallel_with_degrees(
+            unpar, input.sum_degree * c_dim.degree, n_dim.degree,
+            (input.discard_copy_degree,),
+        )
+
 
 class PoolOp(enum.Enum):
     MAX = "max"
@@ -81,6 +121,17 @@ class Pool2DAttrs:
             input.dtype,
         )
 
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        _whole_spatial(input)
+        if input.sum_degree != 1 and self.pool_type != PoolOp.AVG:
+            raise ValueError(f"max pooling over partial sums: {input}")
+        n_dim, c_dim = input.dims.shard_dims[:2]
+        unpar = self.output_shape(get_reduced_shape(input))
+        return lift_to_parallel_with_degrees(
+            unpar, input.sum_degree, input.discard_copy_degree,
+            (n_dim.degree, c_dim.degree, 1, 1),
+        )
+
 
 @dataclass(frozen=True)
 class FlatAttrs:
@@ -89,6 +140,15 @@ class FlatAttrs:
     def output_shape(self, input: TensorShape) -> TensorShape:
         n, c, h, w = input.dims
         return TensorShape((n, c * h * w), input.dtype)
+
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        if any(d.degree != 1 for d in input.dims.shard_dims[1:]):
+            raise ValueError(f"flat needs unsharded c/h/w: {input}")
+        unpar = self.output_shape(get_reduced_shape(input))
+        return lift_to_parallel_with_degrees(
+            unpar, input.sum_degree, input.discard_copy_degree,
+            (input.shard_dim_at(0).degree, 1),
+        )
 
 
 @dataclass(frozen=True)
@@ -106,3 +166,16 @@ class BatchNormAttrs:
 
     def beta_shape(self, input: TensorShape) -> TensorShape:
         return self.gamma_shape(input)
+
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        if input.sum_degree != 1:
+            raise ValueError("batchnorm over partial sums is invalid")
+        return input
+
+    def parallel_gamma_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        dims = input.dims.shard_dims
+        unpar = self.gamma_shape(get_reduced_shape(input))
+        discard = prod(d.degree for i, d in enumerate(dims) if i != 1)
+        return lift_to_parallel_with_degrees(
+            unpar, 1, discard * input.discard_copy_degree, (dims[1].degree,)
+        )

@@ -1,6 +1,6 @@
-"""ElementUnary / ElementBinary attrs (trimmed copy of
+"""ElementUnary / ElementBinary / Broadcast attrs (trimmed copy of
 flexflow_tpu/op_attrs/ops/elementwise.py: the sequential and the parallel
-shape rules).
+shape rules; Broadcast is attrs only, named by the search's rules).
 
 Elementwise ops keep shard degrees. A sum degree passes only through ops
 that are linear in their input; nonlinear ops need it to be 1."""
@@ -9,11 +9,13 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
     ParallelTensorDims,
     ParallelTensorShape,
+    get_reduced_shape,
+    lift_to_parallel_with_degrees,
 )
 from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
 
@@ -101,4 +103,31 @@ class ElementBinaryAttrs:
                 min(lhs.discard_copy_degree, rhs.discard_copy_degree),
             ),
             lhs.dtype,
+        )
+
+
+@dataclass(frozen=True)
+class BroadcastAttrs:
+    """Broadcast input to target_dims (numpy semantics, trailing-aligned)."""
+
+    target_dims: Tuple[int, ...]
+
+    def output_shape(self, input: TensorShape) -> TensorShape:
+        in_dims, t = input.dims, self.target_dims
+        if len(t) < len(in_dims) or any(
+            d not in (t[len(t) - 1 - i], 1) for i, d in enumerate(reversed(in_dims))
+        ):
+            raise ValueError(f"cannot broadcast {in_dims} to {t}")
+        return TensorShape(t, input.dtype)
+
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        out = self.output_shape(get_reduced_shape(input))
+        pairs = list(zip(input.shard_degrees(), input.sizes()))
+        if any(size == 1 and deg != 1 for deg, size in pairs):
+            raise ValueError(f"broadcast of a sharded unit dim: {input}")
+        out_degrees = (1,) * (len(self.target_dims) - input.num_dims) + tuple(
+            deg if size != 1 else 1 for deg, size in pairs
+        )
+        return lift_to_parallel_with_degrees(
+            out, input.sum_degree, input.discard_copy_degree, out_degrees
         )

@@ -1,4 +1,4 @@
-"""Input / Weight ops (copy of flexflow_tpu/op_attrs/ops/io.py)."""
+"""Input / Weight / Noop ops (copy of flexflow_tpu/op_attrs/ops/io.py)."""
 
 from __future__ import annotations
 
@@ -33,3 +33,14 @@ class WeightAttrs:
 
     def parallel_output_shape(self) -> ParallelTensorShape:
         return lift_to_parallel(self.shape)
+
+
+@dataclass(frozen=True)
+class NoopAttrs:
+    """Identity; passes its single input through unchanged."""
+
+    def output_shape(self, input: TensorShape) -> TensorShape:
+        return input
+
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        return input

@@ -1,6 +1,6 @@
-"""Linear and Embedding attrs (trimmed copy of
+"""Linear, BatchMatmul and Embedding attrs (trimmed copy of
 flexflow_tpu/op_attrs/ops/linear_ops.py: the sequential and the parallel
-shape rules).
+shape rules; BatchMatmul is attrs only, named by the search's rules).
 
 Parallel rule (reference linear.cc:120-141):
   input      [.. batch dims .., in_c/dc], sum=si, copy=ri
@@ -73,6 +73,39 @@ class AggregateSpec(enum.Enum):
     NONE = "none"
     SUM = "sum"
     AVG = "avg"
+
+
+@dataclass(frozen=True)
+class BatchMatmulAttrs:
+    """out[b, n, p] = lhs[b, n, m] @ rhs[b, m, p]; rank 2 is a plain matmul.
+    The sequence-length dims are carried for parity with the reference and
+    unused by the shape rules."""
+
+    a_seq_length_dim: int = -1
+    b_seq_length_dim: int = -1
+
+    def output_shape(self, lhs: TensorShape, rhs: TensorShape) -> TensorShape:
+        if not lhs.num_dims == rhs.num_dims >= 2:
+            raise ValueError(f"batch matmul ranks: {lhs} x {rhs}")
+        if lhs.dims[:-2] != rhs.dims[:-2]:
+            raise ValueError(f"batch dims must match: {lhs} x {rhs}")
+        if lhs.dims[-1] != rhs.dims[-2]:
+            raise ValueError(f"contraction mismatch {lhs} x {rhs}")
+        return TensorShape(lhs.dims[:-1] + (rhs.dims[-1],), lhs.dtype)
+
+    def parallel_output_shape(
+        self, lhs: ParallelTensorShape, rhs: ParallelTensorShape
+    ) -> ParallelTensorShape:
+        """Contraction partitioning yields partial sums; the n and p dims
+        keep the degrees of their operands."""
+        unpar = self.output_shape(get_reduced_shape(lhs), get_reduced_shape(rhs))
+        ld, rd = lhs.shard_degrees(), rhs.shard_degrees()
+        if ld[:-2] != rd[:-2] or ld[-1] != rd[-2]:
+            raise ValueError(f"batch matmul degrees disagree: {lhs} x {rhs}")
+        if not (lhs.sum_degree == rhs.sum_degree == 1 or ld[-1] == 1):
+            raise ValueError(f"batch matmul of partial sums: {lhs} x {rhs}")
+        sum_degree = lhs.sum_degree * rhs.sum_degree * ld[-1]
+        return lift_to_parallel_with_degrees(unpar, sum_degree, 1, ld[:-1] + (rd[-1],))
 
 
 @dataclass(frozen=True)

@@ -1,13 +1,20 @@
-"""Concat, Split and Reshape attrs (trimmed copy of
-flexflow_tpu/op_attrs/ops/shape_ops.py: the shape ops of the example zoo,
-with their sequential shape rules; the other shape ops wait, A2)."""
+"""Concat, Split, Reshape and Reduce attrs (trimmed copy of
+flexflow_tpu/op_attrs/ops/shape_ops.py: the shape ops of the example zoo
+with their sequential and parallel shape rules, and Reduce, attrs only,
+named by the search's rules; the other shape ops wait, A2)."""
 
 from __future__ import annotations
 
+import enum
 from dataclasses import dataclass
 from math import prod
 from typing import Tuple
 
+from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
+    ParallelTensorShape,
+    get_reduced_shape,
+    lift_to_parallel_with_degrees,
+)
 from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
 
 
@@ -29,6 +36,19 @@ class ConcatAttrs:
             total += s.dims[a]
         return base.with_dim(a, total)
 
+    def parallel_output_shape(self, *inputs: ParallelTensorShape) -> ParallelTensorShape:
+        a = self.axis % inputs[0].num_dims
+        base = inputs[0]
+        for s in inputs:
+            if (s.shard_degrees() != base.shard_degrees() or s.sum_degree != base.sum_degree
+                    or s.shard_dim_at(a).degree != 1):
+                raise ValueError(f"concat needs equal degrees and a whole axis: {s} vs {base}")
+        unpar = self.output_shape(*map(get_reduced_shape, inputs))
+        return lift_to_parallel_with_degrees(
+            unpar, base.sum_degree, min(s.discard_copy_degree for s in inputs),
+            base.shard_degrees(),
+        )
+
 
 @dataclass(frozen=True)
 class SplitAttrs:
@@ -41,6 +61,19 @@ class SplitAttrs:
             raise ValueError(f"split sizes {self.sizes} do not sum to dim {a} of {input}")
         return tuple(input.with_dim(a, s) for s in self.sizes)
 
+    def parallel_output_shapes(
+        self, input: ParallelTensorShape
+    ) -> Tuple[ParallelTensorShape, ...]:
+        a = self.axis % input.num_dims
+        if input.shard_dim_at(a).degree != 1:
+            raise ValueError(f"split axis must be unsharded: {input}")
+        return tuple(
+            lift_to_parallel_with_degrees(
+                o, input.sum_degree, input.discard_copy_degree, input.shard_degrees()
+            )
+            for o in self.output_shapes(get_reduced_shape(input))
+        )
+
 
 @dataclass(frozen=True)
 class ReshapeAttrs:
@@ -50,3 +83,67 @@ class ReshapeAttrs:
         if prod(self.shape) != prod(input.dims):
             raise ValueError(f"reshape {input.dims} -> {self.shape}")
         return TensorShape(self.shape, input.dtype)
+
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        """A leading prefix of dims kept verbatim keeps its shard degrees;
+        every dim actually reshaped must be unsharded."""
+        unpar = self.output_shape(get_reduced_shape(input))
+        in_sizes, out_sizes = input.sizes(), self.shape
+        in_deg = input.shard_degrees()
+        prefix = 0
+        while (prefix < min(len(in_sizes), len(out_sizes))
+               and in_sizes[prefix] == out_sizes[prefix]):
+            prefix += 1
+        if any(d != 1 for d in in_deg[prefix:]):
+            raise ValueError(f"reshaped dims of {input} must be unsharded")
+        out_degrees = in_deg[:prefix] + (1,) * (len(out_sizes) - prefix)
+        return lift_to_parallel_with_degrees(
+            unpar, input.sum_degree, input.discard_copy_degree, out_degrees
+        )
+
+
+class ReduceOpType(enum.Enum):
+    SUM = "sum"
+    MEAN = "mean"
+    MAX = "max"
+    MIN = "min"
+    PROD = "prod"
+
+
+@dataclass(frozen=True)
+class ReduceAttrs:
+    op_type: ReduceOpType
+    axes: Tuple[int, ...]
+    keepdims: bool = False
+
+    def output_shape(self, input: TensorShape) -> TensorShape:
+        axes = {a % input.num_dims for a in self.axes}
+        if self.keepdims:
+            return TensorShape(
+                tuple(1 if i in axes else d for i, d in enumerate(input.dims)), input.dtype
+            )
+        dims = tuple(d for i, d in enumerate(input.dims) if i not in axes)
+        return TensorShape(dims if dims else (1,), input.dtype)
+
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        """SUM over a sharded axis turns its shard degree into a sum degree;
+        the other reductions (MEAN too) need their axes unsharded."""
+        axes = {a % input.num_dims for a in self.axes}
+        sum_degree = input.sum_degree
+        for a in axes:
+            deg = input.shard_dim_at(a).degree
+            if self.op_type == ReduceOpType.SUM:
+                sum_degree *= deg
+            elif deg != 1:
+                raise ValueError(f"{self.op_type} over sharded axis {a}")
+        unpar = self.output_shape(get_reduced_shape(input))
+        shard_dims = input.dims.shard_dims
+        if self.keepdims:
+            out_degrees = tuple(1 if i in axes else d.degree for i, d in enumerate(shard_dims))
+        else:
+            out_degrees = tuple(
+                d.degree for i, d in enumerate(shard_dims) if i not in axes
+            ) or (1,)
+        return lift_to_parallel_with_degrees(
+            unpar, sum_degree, input.discard_copy_degree, out_degrees
+        )

@@ -1,5 +1,5 @@
 """ParallelTensorShape: a tensor's global shape with its parallel degrees
-(trimmed copy of flexflow_tpu/op_attrs/parallel_tensor_shape.py).
+(copy of flexflow_tpu/op_attrs/parallel_tensor_shape.py).
 
 - Each shard dim carries its GLOBAL size and a shard degree (how many ways
   it is partitioned); the size divides by the degree.
@@ -15,8 +15,10 @@ from typing import Sequence, Tuple
 
 from flexflow_tpu_torch.op_attrs.datatype import DataType
 from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
+from flexflow_tpu_torch.utils.hashing import memoized_hash
 
 
+@memoized_hash
 @dataclass(frozen=True, order=True)
 class ShardParallelDim:
     """(global size, shard degree) of one tensor dim."""
@@ -33,13 +35,19 @@ class ShardParallelDim:
         return self.size // self.degree
 
 
+@memoized_hash
 @dataclass(frozen=True, order=True)
 class ParallelTensorDims:
     shard_dims: Tuple[ShardParallelDim, ...]
     sum_degree: int = 1
     discard_copy_degree: int = 1
 
+    def __post_init__(self) -> None:
+        if self.sum_degree < 1 or self.discard_copy_degree < 1:
+            raise ValueError(f"replica degrees must be positive: {self}")
 
+
+@memoized_hash
 @dataclass(frozen=True, order=True)
 class ParallelTensorShape:
     dims: ParallelTensorDims
@@ -65,6 +73,18 @@ class ParallelTensorShape:
 
     def sizes(self) -> Tuple[int, ...]:
         return tuple(d.size for d in self.dims.shard_dims)
+
+    def __repr__(self) -> str:
+        dims = ", ".join(
+            f"{d.size}" + (f"/{d.degree}" if d.degree != 1 else "")
+            for d in self.dims.shard_dims
+        )
+        extra = ""
+        if self.sum_degree != 1:
+            extra += f", sum={self.sum_degree}"
+        if self.discard_copy_degree != 1:
+            extra += f", copy={self.discard_copy_degree}"
+        return f"PTShape([{dims}]{extra}, {self.dtype.value})"
 
 
 def lift_to_parallel(ts: TensorShape) -> ParallelTensorShape:
@@ -93,6 +113,22 @@ def lift_to_parallel_with_degrees(
 def get_reduced_shape(pts: ParallelTensorShape) -> TensorShape:
     """Global sizes, without the degrees."""
     return TensorShape(pts.sizes(), pts.dtype)
+
+
+def get_piece_shape(pts: ParallelTensorShape) -> TensorShape:
+    """Per-device piece shape: size/degree per dim."""
+    return TensorShape(tuple(d.piece_size for d in pts.dims.shard_dims), pts.dtype)
+
+
+def total_parallel_degree(pts: ParallelTensorShape) -> int:
+    n = pts.sum_degree * pts.discard_copy_degree
+    for d in pts.dims.shard_dims:
+        n *= d.degree
+    return n
+
+
+def get_piece_num_elements(pts: ParallelTensorShape) -> int:
+    return get_piece_shape(pts).num_elements
 
 
 def with_shard_degree(pts: ParallelTensorShape, idx: int, degree: int) -> ParallelTensorShape:

@@ -26,6 +26,20 @@ class TensorShape:
     def num_dims(self) -> int:
         return len(self.dims)
 
+    def dim_at(self, idx: int) -> int:
+        return self.dims[idx]
+
+    @property
+    def num_elements(self) -> int:
+        n = 1
+        for d in self.dims:
+            n *= d
+        return n
+
+    @property
+    def size_bytes(self) -> int:
+        return self.num_elements * self.dtype.size_bytes
+
     def with_dim(self, idx: int, size: int) -> "TensorShape":
         dims = list(self.dims)
         dims[idx] = size

@@ -1,13 +1,18 @@
-"""ParallelComputationGraph: a dataflow graph whose tensors carry parallel
-degrees (trimmed copy of flexflow_tpu/pcg/parallel_computation_graph.py).
-The four parallel ops appear as nodes of their own."""
+"""ParallelComputationGraph: dataflow graph with explicit parallelism
+(copy of flexflow_tpu/pcg/parallel_computation_graph.py).
+
+Reference: lib/pcg/include/pcg/parallel_computation_graph/ — PCG =
+LabelledDataflowGraph<ParallelLayerAttrs, ParallelTensorAttrs>; tensors carry
+shard/sum/discard-copy degrees; the four parallel ops appear as first-class
+nodes.
+"""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, Optional
 
-from flexflow_tpu_torch.op_attrs.core import OpAttrs
+from flexflow_tpu_torch.op_attrs.core import OpAttrs, op_type_of, is_parallel_op
 from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
     ParallelTensorShape,
     lift_to_parallel,
@@ -26,7 +31,7 @@ class ParallelLayerAttrs:
 class ParallelTensorAttrs:
     shape: ParallelTensorShape
     create_grad: bool = True
-    initializer: Optional[object] = None  # InitializerAttrs, for weights
+    initializer: Optional[object] = None
 
 
 class ParallelComputationGraph(DataflowGraph):
@@ -42,10 +47,394 @@ class ParallelComputationGraph(DataflowGraph):
     def tensor_shape(self, v: DataflowOutput) -> ParallelTensorShape:
         return self.value_label(v).shape
 
+    def non_parallel_nodes(self):
+        return [n for n in self.topological_ordering() if not is_parallel_op(self.op_attrs(n))]
+
+    def as_dot(self) -> str:
+        lines = ["digraph pcg {"]
+        for n in sorted(self.nodes):
+            label = self.node_label(n)
+            op = op_type_of(label.attrs).value
+            name = f"\\n{label.name}" if label.name else ""
+            shapes = ", ".join(
+                repr(self.tensor_shape(o)) for o in self.outputs_of(n)
+            )
+            lines.append(f'  {n.idx} [label="{op}{name}\\n{shapes}"];')
+        for e in self.edges():
+            lines.append(f"  {e.src.node.idx} -> {e.dst.node.idx};")
+        lines.append("}")
+        return "\n".join(lines)
+
+
+def elide_noops(pcg: ParallelComputationGraph) -> ParallelComputationGraph:
+    """Rebuild the PCG without single-input Noop nodes (consumers rewire to
+    the noop's input). Substitution cancellation rules emit Noop as their
+    pass-through RHS (OutputGraphExpr cannot express a bare identity
+    interface), so without this pass cancelled Combine/Repartition pairs
+    would leave permanent Noop leaves for the machine-mapping DP."""
+    from flexflow_tpu_torch.op_attrs.ops import NoopAttrs
+
+    if not any(
+        isinstance(pcg.op_attrs(n), NoopAttrs) for n in pcg.nodes
+    ):
+        return pcg  # scan is far cheaper than an unconditional rebuild
+    out = ParallelComputationGraph()
+    value_map: Dict[DataflowOutput, DataflowOutput] = {}
+    for n in pcg.topological_ordering():
+        la = pcg.layer_attrs(n)
+        ins = [value_map[v] for v in pcg.inputs_of(n)]
+        if isinstance(la.attrs, NoopAttrs) and len(ins) == 1:
+            (o,) = pcg.outputs_of(n)
+            value_map[o] = ins[0]
+            continue
+        _, outs = out.add_node(
+            la, ins, [pcg.tensor_attrs(o) for o in pcg.outputs_of(n)]
+        )
+        for old, new in zip(pcg.outputs_of(n), outs):
+            value_map[old] = new
+    return out
+
+
+_IDENTITY = object()  # sentinel: up followed by down is a no-op
+
+
+def _merged_parallel_attrs(up: OpAttrs, down: OpAttrs) -> Optional[OpAttrs]:
+    """Attrs of the single parallel op equivalent to up followed by down:
+    None when they don't merge, the _IDENTITY sentinel when they cancel
+    outright (Combine(d,k) then Repartition(d,k) re-splits the same dim the
+    same way — the substitution cancel rules' no-op pairs, recognized
+    structurally so one normalization pass erases every seam). Same-dim
+    Repartition/Combine chains and Replicate/Reduction chains multiply
+    degrees (hierarchical sharding of one dim collapses to a single degree
+    in ParallelTensorShape, so the composite is shape-identical)."""
+    from flexflow_tpu_torch.op_attrs.ops import (
+        CombineAttrs,
+        ReductionAttrs,
+        RepartitionAttrs,
+        ReplicateAttrs,
+    )
+
+    if isinstance(up, CombineAttrs) and isinstance(down, RepartitionAttrs):
+        if (
+            up.combine_dim == down.repartition_dim
+            and up.combine_degree == down.repartition_degree
+        ):
+            return _IDENTITY
+        return None
+    if isinstance(up, RepartitionAttrs) and isinstance(down, CombineAttrs):
+        if (
+            up.repartition_dim == down.combine_dim
+            and up.repartition_degree == down.combine_degree
+        ):
+            return _IDENTITY
+        return None
+    if isinstance(up, RepartitionAttrs) and isinstance(down, RepartitionAttrs):
+        if up.repartition_dim == down.repartition_dim:
+            return RepartitionAttrs(
+                up.repartition_dim,
+                up.repartition_degree * down.repartition_degree,
+            )
+    elif isinstance(up, CombineAttrs) and isinstance(down, CombineAttrs):
+        if up.combine_dim == down.combine_dim:
+            return CombineAttrs(
+                up.combine_dim, up.combine_degree * down.combine_degree
+            )
+    elif isinstance(up, ReplicateAttrs) and isinstance(down, ReplicateAttrs):
+        return ReplicateAttrs(up.replicate_degree * down.replicate_degree)
+    elif isinstance(up, ReductionAttrs) and isinstance(down, ReductionAttrs):
+        return ReductionAttrs(up.reduction_degree * down.reduction_degree)
+    return None
+
+
+def merge_parallel_chains(pcg: ParallelComputationGraph) -> ParallelComputationGraph:
+    """Collapse same-kind parallel-op chains (Replicate∘Replicate,
+    same-dim Repartition∘Repartition, ...) into single ops. Composed
+    strategy templates (tp then dp) stack wrappers on the same tensors;
+    without this pass each seed carries redundant resharding nodes that
+    distort costs and slow the mapping DP.
+
+    An upstream op is elided only when EVERY consumer merges it away, so
+    terminal parallel ops (a graph-output Combine has no internal uses) and
+    partially-merged fan-outs are preserved."""
+    from flexflow_tpu_torch.op_attrs.core import get_parallel_output_shapes
+
+    # precheck: any adjacent mergeable pair at all? (a scan is far cheaper
+    # than the rebuild most search candidates don't need)
+    def any_pair(g):
+        for n in g.nodes:
+            a = g.op_attrs(n)
+            if not is_parallel_op(a):
+                continue
+            ins = g.inputs_of(n)
+            if len(ins) != 1:
+                continue
+            pa = g.op_attrs(ins[0].node)
+            if is_parallel_op(pa) and _merged_parallel_attrs(pa, a) is not None:
+                return True
+        return False
+
+    if not any_pair(pcg):
+        return pcg
+
+    while True:
+        uses: Dict[DataflowOutput, list] = {}
+        for n in pcg.nodes:
+            for v in pcg.inputs_of(n):
+                uses.setdefault(v, []).append(n)
+
+        def consumer_merges(consumer: Node, producer_attrs: OpAttrs) -> bool:
+            ca = pcg.op_attrs(consumer)
+            return (
+                is_parallel_op(ca)
+                and len(pcg.inputs_of(consumer)) == 1
+                and _merged_parallel_attrs(producer_attrs, ca) is not None
+            )
+
+        out = ParallelComputationGraph()
+        cancelled = False  # inverse-pair elisions can expose new adjacency
+        value_map: Dict[DataflowOutput, DataflowOutput] = {}
+        # old output value -> (attrs to merge into consumers, mapped input)
+        skipped: Dict[DataflowOutput, tuple] = {}
+        for n in pcg.topological_ordering():
+            la = pcg.layer_attrs(n)
+            attrs = la.attrs
+            raw_ins = pcg.inputs_of(n)
+            identity_src = None
+            ins = []
+            for v in raw_ins:
+                if v in skipped:
+                    up_attrs, up_in = skipped[v]
+                    merged = _merged_parallel_attrs(up_attrs, attrs)
+                    assert merged is not None  # per consumer_merges
+                    if merged is _IDENTITY:
+                        identity_src = up_in
+                        cancelled = True
+                    else:
+                        attrs = merged
+                        la = ParallelLayerAttrs(attrs, la.name)
+                    ins.append(up_in)
+                else:
+                    ins.append(value_map[v])
+            if identity_src is not None:
+                # this op and its producer cancel outright
+                value_map[pcg.outputs_of(n)[0]] = identity_src
+                continue
+            if is_parallel_op(attrs) and len(ins) == 1:
+                n_uses = uses.get(pcg.outputs_of(n)[0], [])
+                if n_uses and all(consumer_merges(c, attrs) for c in n_uses):
+                    skipped[pcg.outputs_of(n)[0]] = (attrs, ins[0])
+                    continue
+            if is_parallel_op(attrs):
+                in_shapes = [out.tensor_shape(v) for v in ins]
+                shapes = get_parallel_output_shapes(attrs, in_shapes)
+                labels = [
+                    ParallelTensorAttrs(
+                        s,
+                        pcg.tensor_attrs(o).create_grad,
+                        pcg.tensor_attrs(o).initializer,
+                    )
+                    for s, o in zip(shapes, pcg.outputs_of(n))
+                ]
+            else:
+                labels = [pcg.tensor_attrs(o) for o in pcg.outputs_of(n)]
+            _, outs = out.add_node(la, ins, labels)
+            for old, new in zip(pcg.outputs_of(n), outs):
+                value_map[old] = new
+        if not cancelled or not any_pair(out):
+            # plain chain merges collapse fully in one topological pass;
+            # only inverse-pair elisions expose new producer/consumer
+            # adjacency, and re-looping pays a full rebuild only when the
+            # cheap scan still finds a mergeable pair
+            return out
+        pcg = out
+
+
+def canonicalize_parallel_chains(
+    pcg: ParallelComputationGraph,
+) -> ParallelComputationGraph:
+    """Collapse every maximal chain of single-input parallel ops into its
+    MINIMAL net reshard (per-dim combine/repartition + reduction +
+    replicate, in canonical order).
+
+    merge_parallel_chains only merges ADJACENT same-kind ops, so a
+    Combine_0(dp) ∘ Reduction(tp) ∘ Repartition_0(dp) seam — which every
+    dp×tp Megatron seed leaves at each layer boundary — survives
+    normalization and gets priced as a real per-layer full-tensor reshard
+    of the dp axis (across nodes on two-level machines). Physically the
+    data never leaves its dp shard: sum-over-copies commutes with dim
+    sharding, so the net effect is just the Reduction. Canonicalizing by
+    NET effect (end shape vs start shape) erases such seams wholesale and
+    leaves fewer constraint ops for the lowering."""
+    from flexflow_tpu_torch.op_attrs.core import get_parallel_output_shapes
+    from flexflow_tpu_torch.op_attrs.ops import (
+        CombineAttrs,
+        ReductionAttrs,
+        RepartitionAttrs,
+        ReplicateAttrs,
+    )
+
+    def chain_tail(start: Node):
+        """Nodes of the maximal single-consumer parallel chain from start."""
+        nodes = [start]
+        cur = start
+        while True:
+            (out,) = pcg.outputs_of(cur)
+            uses = pcg.uses_of(out)
+            if len(uses) != 1:
+                break
+            nxt = uses[0].node
+            if not is_parallel_op(pcg.op_attrs(nxt)) or len(
+                pcg.inputs_of(nxt)
+            ) != 1:
+                break
+            nodes.append(nxt)
+            cur = nxt
+        return nodes
+
+    def net_ops(in_pts, out_pts):
+        """Minimal op list realizing in_pts -> out_pts, or None if the net
+        effect is not expressible (non-integer ratios / growing sum)."""
+        if in_pts.sizes() != out_pts.sizes():
+            return None
+        ops = []
+        in_deg = in_pts.shard_degrees()
+        out_deg = out_pts.shard_degrees()
+        repartitions = []
+        for d, (i, o) in enumerate(zip(in_deg, out_deg)):
+            if o == i:
+                continue
+            if o > i and o % i == 0:
+                repartitions.append(RepartitionAttrs(d, o // i))
+            elif i > o and i % o == 0:
+                ops.append(CombineAttrs(d, i // o))
+            else:
+                return None
+        if out_pts.sum_degree > in_pts.sum_degree:
+            return None  # only a compute op can create partial sums
+        if in_pts.sum_degree % out_pts.sum_degree != 0:
+            return None
+        if in_pts.sum_degree > out_pts.sum_degree:
+            ops.append(ReductionAttrs(in_pts.sum_degree // out_pts.sum_degree))
+        if out_pts.discard_copy_degree % in_pts.discard_copy_degree != 0:
+            return None
+        if out_pts.discard_copy_degree > in_pts.discard_copy_degree:
+            ops.append(
+                ReplicateAttrs(
+                    out_pts.discard_copy_degree // in_pts.discard_copy_degree
+                )
+            )
+        elif out_pts.discard_copy_degree < in_pts.discard_copy_degree:
+            return None
+        return ops + repartitions
+
+    # find collapsible chains
+    chains = {}  # start node -> (members, replacement attrs list)
+    member_of = {}
+    for n in pcg.topological_ordering():
+        if n in member_of or not is_parallel_op(pcg.op_attrs(n)):
+            continue
+        if len(pcg.inputs_of(n)) != 1:
+            continue
+        nodes = chain_tail(n)
+        if len(nodes) < 2:
+            continue
+        (src,) = pcg.inputs_of(nodes[0])
+        (end,) = pcg.outputs_of(nodes[-1])
+        replacement = net_ops(pcg.tensor_shape(src), pcg.tensor_shape(end))
+        if replacement is None or len(replacement) >= len(nodes):
+            continue
+        chains[n] = (nodes, replacement)
+        for m in nodes:
+            member_of[m] = n
+
+    if not chains:
+        return pcg
+
+    out = ParallelComputationGraph()
+    value_map: Dict[DataflowOutput, DataflowOutput] = {}
+    for n in pcg.topological_ordering():
+        start = member_of.get(n)
+        if start is not None:
+            nodes, replacement = chains[start]
+            if n != nodes[-1]:
+                continue  # only the chain tail emits
+            (src,) = pcg.inputs_of(nodes[0])
+            v = value_map[src]
+            for attrs in replacement:
+                in_shapes = [out.tensor_shape(v)]
+                (shape,) = get_parallel_output_shapes(attrs, in_shapes)
+                _, (v,) = out.add_node(
+                    ParallelLayerAttrs(attrs, None),
+                    [v],
+                    [ParallelTensorAttrs(shape, True, None)],
+                )
+            (end,) = pcg.outputs_of(nodes[-1])
+            assert out.tensor_shape(v) == pcg.tensor_shape(end), (
+                out.tensor_shape(v),
+                pcg.tensor_shape(end),
+            )
+            value_map[end] = v
+            continue
+        la = pcg.layer_attrs(n)
+        ins = [value_map[v] for v in pcg.inputs_of(n)]
+        _, outs = out.add_node(
+            la, ins, [pcg.tensor_attrs(o) for o in pcg.outputs_of(n)]
+        )
+        for old, new in zip(pcg.outputs_of(n), outs):
+            value_map[old] = new
+    return out
+
+
+def cse_parallel_ops(pcg: ParallelComputationGraph) -> ParallelComputationGraph:
+    """Merge duplicate parallel ops (identical attrs, identical input).
+
+    Per-op substitution rules introduce one resharding node per input slot;
+    when several slots bind the same tensor (an MHA with q=k=v, a residual
+    read) the copies are pure duplicates that bloat the graph and can break
+    SP-decomposability (the machine-mapping DP then rejects the PCG)."""
+    dup_scan = set()
+    has_dup = False
+    for n in pcg.nodes:
+        a = pcg.op_attrs(n)
+        if is_parallel_op(a):
+            ins = pcg.inputs_of(n)
+            if len(ins) == 1:
+                key = (a, ins[0])
+                if key in dup_scan:
+                    has_dup = True
+                    break
+                dup_scan.add(key)
+    if not has_dup:
+        return pcg
+    out = ParallelComputationGraph()
+    value_map: Dict[DataflowOutput, DataflowOutput] = {}
+    seen: Dict[tuple, DataflowOutput] = {}
+    for n in pcg.topological_ordering():
+        la = pcg.layer_attrs(n)
+        ins = [value_map[v] for v in pcg.inputs_of(n)]
+        if is_parallel_op(la.attrs) and len(ins) == 1:
+            key = (la.attrs, ins[0])
+            hit = seen.get(key)
+            if hit is not None:
+                (o,) = pcg.outputs_of(n)
+                value_map[o] = hit
+                continue
+        _, outs = out.add_node(
+            la, ins, [pcg.tensor_attrs(o) for o in pcg.outputs_of(n)]
+        )
+        for old, new in zip(pcg.outputs_of(n), outs):
+            value_map[old] = new
+        if is_parallel_op(la.attrs) and len(ins) == 1:
+            seen[(la.attrs, ins[0])] = outs[0]
+    return out
+
 
 def pcg_from_computation_graph(cg: ComputationGraph) -> ParallelComputationGraph:
-    """Lift a CG into a trivially-parallel PCG (all degrees 1), node for
-    node in the CG's topological order."""
+    """Lift a CG into a trivially-parallel PCG (all degrees 1).
+
+    Reference: the CG->PCG conversion at the start of compile
+    (SURVEY.md §3.1); parallelism is then introduced by substitutions.
+    """
     pcg = ParallelComputationGraph()
     value_map: Dict[DataflowOutput, DataflowOutput] = {}
     for n in cg.topological_ordering():
@@ -55,9 +444,13 @@ def pcg_from_computation_graph(cg: ComputationGraph) -> ParallelComputationGraph
         for o in cg.outputs_of(n):
             ta = cg.tensor_attrs(o)
             out_labels.append(
-                ParallelTensorAttrs(lift_to_parallel(ta.shape), ta.create_grad, ta.initializer)
+                ParallelTensorAttrs(
+                    lift_to_parallel(ta.shape), ta.create_grad, ta.initializer
+                )
             )
-        _, outs = pcg.add_node(ParallelLayerAttrs(la.attrs, la.name), inputs, out_labels)
+        _, outs = pcg.add_node(
+            ParallelLayerAttrs(la.attrs, la.name), inputs, out_labels
+        )
         for old, new in zip(cg.outputs_of(n), outs):
             value_map[old] = new
     return pcg

@@ -1,0 +1,110 @@
+"""Operator attribute patterns (copy of
+flexflow_tpu/substitutions/operator_pattern.py).
+
+Reference: lib/substitutions/include/substitutions/operator_pattern/
+(operator_attribute_{expr,constraint,key}.{variant,struct,enum}.toml +
+satisfies_pattern.h). Constraints are declarative (key, comparison, value)
+triples evaluated against op attrs; OP_TYPE is the usual anchor.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass
+
+from flexflow_tpu_torch.utils.hashing import memoized_hash
+from typing import Any, Optional, Tuple
+
+from flexflow_tpu_torch.op_attrs.core import OpAttrs, OperatorType, op_type_of
+
+
+class OperatorAttributeKey(enum.Enum):
+    """reference: operator_attribute_key.enum.toml (subset covering the ops'
+    actual attr fields; FIELD lets a constraint name any attrs dataclass
+    field directly)."""
+
+    OP_TYPE = "op_type"
+    FIELD = "field"  # generic: constraint carries the field name
+
+
+class ConstraintType(enum.Enum):
+    EQUAL = "eq"
+    NOT_EQUAL = "ne"
+    DIVISIBLE_BY = "divisible_by"
+    NOT_CONTAINS = "not_contains"  # constraint value not in the attr container
+
+
+@memoized_hash
+@dataclass(frozen=True)
+class OperatorAttributeConstraint:
+    key: OperatorAttributeKey
+    constraint_type: ConstraintType
+    value: Any
+    field_name: Optional[str] = None  # when key == FIELD
+
+    def satisfied_by(self, attrs: OpAttrs) -> bool:
+        if self.key == OperatorAttributeKey.OP_TYPE:
+            actual: Any = op_type_of(attrs)
+        else:
+            if not hasattr(attrs, self.field_name or ""):
+                return False
+            actual = getattr(attrs, self.field_name)
+        if self.constraint_type == ConstraintType.EQUAL:
+            return actual == self.value
+        if self.constraint_type == ConstraintType.NOT_EQUAL:
+            return actual != self.value
+        if self.constraint_type == ConstraintType.DIVISIBLE_BY:
+            return isinstance(actual, int) and actual % self.value == 0
+        if self.constraint_type == ConstraintType.NOT_CONTAINS:
+            try:
+                return self.value not in actual
+            except TypeError:
+                return False
+        raise ValueError(self.constraint_type)
+
+
+@memoized_hash
+@dataclass(frozen=True)
+class OperatorAttributePattern:
+    constraints: Tuple[OperatorAttributeConstraint, ...]
+
+    @staticmethod
+    def for_op_type(op_type: OperatorType, **field_eq) -> "OperatorAttributePattern":
+        cs = [
+            OperatorAttributeConstraint(
+                OperatorAttributeKey.OP_TYPE, ConstraintType.EQUAL, op_type
+            )
+        ]
+        for fname, fval in field_eq.items():
+            cs.append(
+                OperatorAttributeConstraint(
+                    OperatorAttributeKey.FIELD,
+                    ConstraintType.EQUAL,
+                    fval,
+                    field_name=fname,
+                )
+            )
+        return OperatorAttributePattern(tuple(cs))
+
+
+# (pattern, attrs) -> bool. The same few dozen rule patterns are checked
+# against the same op attrs tens of thousands of times per search (compat
+# prefilter of every find_pattern_matches call); both sides are frozen
+# dataclasses with memoized hashes, so one dict probe replaces re-walking
+# the constraint list. Unbounded but tiny: |distinct patterns| x |distinct
+# attrs| of a process.
+_OP_SATISFY_MEMO: dict = {}
+
+def op_attrs_satisfy_pattern(attrs: OpAttrs, pattern: OperatorAttributePattern) -> bool:
+    if not pattern.constraints:
+        return True
+    try:
+        key = (pattern, attrs)
+        hit = _OP_SATISFY_MEMO.get(key)
+        if hit is None:
+            hit = _OP_SATISFY_MEMO[key] = all(
+                c.satisfied_by(attrs) for c in pattern.constraints
+            )
+        return hit
+    except TypeError:  # unhashable constraint value: evaluate directly
+        return all(c.satisfied_by(attrs) for c in pattern.constraints)

@@ -1,0 +1,942 @@
+"""The generated parallelization rule set seeding the Unity search (copy of
+flexflow_tpu/substitutions/rules.py; its pipeline-stage rule waits, A10).
+
+Reference: the reference ships equivalent rules as legacy TASO-style JSON
+(graph_subst_3_v2.json era, loaded by lib/substitution-generator
+legacy_rules.h:40-55); SURVEY.md §7 step 6 calls for generating them
+programmatically instead. Each rule rewrites a single op into a
+partition/replicate -> op' -> combine/reduction sandwich that preserves the
+op's external parallel interface; redundant resharding pairs introduced at
+rule boundaries are cancelled by the combine/repartition cancellation rules.
+
+All Linear rules here match use_bias=False layers (bias variants are a later
+widening); degrees are instantiated per machine size by
+generate_parallelization_rules.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+from flexflow_tpu_torch.op_attrs.core import OperatorType
+from flexflow_tpu_torch.op_attrs.ops import (
+    CombineAttrs,
+    NoopAttrs,
+    RepartitionAttrs,
+    ReplicateAttrs,
+    ReductionAttrs,
+)
+from flexflow_tpu_torch.substitutions.operator_pattern import (
+    ConstraintType,
+    OperatorAttributeConstraint,
+    OperatorAttributeKey,
+    OperatorAttributePattern,
+)
+from flexflow_tpu_torch.substitutions.output_graph import (
+    AttrConstant,
+    CopyAttrsFromMatched,
+    OutputGraphExpr,
+)
+from flexflow_tpu_torch.substitutions.pcg_pattern import PCGPattern
+from flexflow_tpu_torch.substitutions.substitution import Substitution
+from flexflow_tpu_torch.substitutions.tensor_pattern import (
+    TensorAttributeConstraint,
+    TensorAttributeKey,
+    TensorAttributePattern,
+    TensorConstraintType,
+)
+
+
+def _shard_pattern(dim: int, degree: int) -> TensorAttributePattern:
+    """Tensor shardable on `dim` by `degree`: dim size divisible, and (for
+    positive dims) rank big enough that `dim` is strictly before the last
+    (channel/contraction) dim — the generalized sample rules use dim=1 for
+    the sequence axis of rank-3 activation streams."""
+    cs = [
+        TensorAttributeConstraint(
+            TensorAttributeKey.DIM_SIZE,
+            TensorConstraintType.DIVISIBLE_BY,
+            degree,
+            dim=dim,
+        )
+    ]
+    if dim >= 0:
+        cs.append(
+            TensorAttributeConstraint(
+                TensorAttributeKey.NUM_DIMS,
+                TensorConstraintType.GREATER_EQUAL,
+                dim + 2,
+            )
+        )
+    return TensorAttributePattern(tuple(cs))
+
+
+def _dim_tag(dim: int) -> str:
+    return "" if dim == 0 else f"_dim{dim}"
+
+
+def _linear_pattern(use_bias=False, a_pattern=None, w_pattern=None):
+    """Pattern: a Linear with (activation, weight[, bias]) inputs."""
+    p = PCGPattern()
+    a = p.add_input(a_pattern)
+    w = p.add_input(w_pattern)
+    extras = [p.add_input()] if use_bias else []
+    node, (y,) = p.add_operator(
+        OperatorAttributePattern.for_op_type(
+            OperatorType.LINEAR, use_bias=use_bias
+        ),
+        [a, w, *extras],
+    )
+    return p, a, w, extras, node, y
+
+
+def data_parallel_linear_rule(
+    degree: int, use_bias: bool = False, dim: int = 0
+) -> Substitution:
+    """Linear(a, w[, b]) -> Combine_d(Linear(Repartition_d(a), Replicate(w)
+    [, Replicate(b)])): sample parallelism on any pre-contraction activation
+    dim (dim=0 batch, dim=1 sequence — the latter gives the seq-parallel
+    residual stream its Linear segments)."""
+    p, a, w, extras, pnode, py = _linear_pattern(
+        use_bias, a_pattern=_shard_pattern(dim, degree)
+    )
+    og = OutputGraphExpr()
+    oa = og.add_input()
+    ow = og.add_input()
+    o_extras = [og.add_input() for _ in extras]
+    _, (ap,) = og.add_operator(AttrConstant(RepartitionAttrs(dim, degree)), [oa])
+    _, (wr,) = og.add_operator(AttrConstant(ReplicateAttrs(degree)), [ow])
+    reps = []
+    for oe in o_extras:
+        _, (er,) = og.add_operator(AttrConstant(ReplicateAttrs(degree)), [oe])
+        reps.append(er)
+    _, (y,) = og.add_operator(CopyAttrsFromMatched(pnode), [ap, wr, *reps])
+    _, (out,) = og.add_operator(AttrConstant(CombineAttrs(dim, degree)), [y])
+    return Substitution(
+        f"data_parallel_linear{_dim_tag(dim)}_{'b_' if use_bias else ''}{degree}",
+        p,
+        og,
+        ((a, oa), (w, ow), *zip(extras, o_extras)),
+        ((py, out),),
+    )
+
+
+def tensor_parallel_linear_rule(degree: int, use_bias: bool = False) -> Substitution:
+    """Linear(a, w[, b]) -> Combine_-1(Linear(Replicate(a), Repartition_1(w)
+    [, Repartition_0(b)])): out-channel (parameter) parallelism."""
+    p, a, w, extras, pnode, py = _linear_pattern(
+        use_bias, w_pattern=TensorAttributePattern.dim_divisible_by(1, degree)
+    )
+    og = OutputGraphExpr()
+    oa = og.add_input()
+    ow = og.add_input()
+    o_extras = [og.add_input() for _ in extras]
+    _, (ar,) = og.add_operator(AttrConstant(ReplicateAttrs(degree)), [oa])
+    _, (wp,) = og.add_operator(AttrConstant(RepartitionAttrs(1, degree)), [ow])
+    parts = []
+    for oe in o_extras:
+        _, (ep,) = og.add_operator(AttrConstant(RepartitionAttrs(0, degree)), [oe])
+        parts.append(ep)
+    _, (y,) = og.add_operator(CopyAttrsFromMatched(pnode), [ar, wp, *parts])
+    _, (out,) = og.add_operator(AttrConstant(CombineAttrs(-1, degree)), [y])
+    return Substitution(
+        f"tensor_parallel_linear_{'b_' if use_bias else ''}{degree}",
+        p,
+        og,
+        ((a, oa), (w, ow), *zip(extras, o_extras)),
+        ((py, out),),
+    )
+
+
+def reduction_parallel_linear_rule(degree: int) -> Substitution:
+    """Linear(a, w) -> Reduction(Linear(Repartition_-1(a), Repartition_0(w))):
+    attribute (reduction-dim) parallelism."""
+    p, a, w, _, pnode, py = _linear_pattern(
+        a_pattern=TensorAttributePattern.dim_divisible_by(-1, degree)
+    )
+    og = OutputGraphExpr()
+    oa = og.add_input()
+    ow = og.add_input()
+    _, (ap,) = og.add_operator(AttrConstant(RepartitionAttrs(-1, degree)), [oa])
+    _, (wp,) = og.add_operator(AttrConstant(RepartitionAttrs(0, degree)), [ow])
+    _, (y,) = og.add_operator(CopyAttrsFromMatched(pnode), [ap, wp])
+    _, (out,) = og.add_operator(AttrConstant(ReductionAttrs(degree)), [y])
+    return Substitution(
+        f"reduction_parallel_linear_{degree}",
+        p,
+        og,
+        ((a, oa), (w, ow)),
+        ((py, out),),
+    )
+
+
+def head_parallel_attention_rule(degree: int) -> Substitution:
+    """MHA(q,k,v,w) -> Reduction(MHA(Repl(q), Repl(k), Repl(v),
+    Repartition_heads(w))): head (tensor) parallelism via the reference's
+    discard-copy-drives-heads rule (attention.cc:320-353)."""
+    p = PCGPattern()
+    q = p.add_input()
+    k = p.add_input()
+    v = p.add_input()
+    w = p.add_input()
+    pnode, (py,) = p.add_operator(
+        OperatorAttributePattern.for_op_type(
+            OperatorType.MULTIHEAD_ATTENTION, bias=False
+        ),
+        [q, k, v, w],
+    )
+    og = OutputGraphExpr()
+    oq, ok, ov, ow = (og.add_input() for _ in range(4))
+    _, (qr,) = og.add_operator(AttrConstant(ReplicateAttrs(degree)), [oq])
+    _, (kr,) = og.add_operator(AttrConstant(ReplicateAttrs(degree)), [ok])
+    _, (vr,) = og.add_operator(AttrConstant(ReplicateAttrs(degree)), [ov])
+    _, (wp,) = og.add_operator(AttrConstant(RepartitionAttrs(1, degree)), [ow])
+    _, (y,) = og.add_operator(CopyAttrsFromMatched(pnode), [qr, kr, vr, wp])
+    _, (out,) = og.add_operator(AttrConstant(ReductionAttrs(degree)), [y])
+    return Substitution(
+        f"head_parallel_attention_{degree}",
+        p,
+        og,
+        ((q, oq), (k, ok), (v, ov), (w, ow)),
+        ((py, out),),
+    )
+
+
+def _seq_parallel_attention_rule(
+    degree: int, attrs_cls, name: str, extra_div=None
+) -> Substitution:
+    """Shared builder for the sequence/context-parallel attention rules:
+    MHA(q,k,v,w) -> Combine_1(attrs_cls(Part_1(q,k,v), Replicate(w))) —
+    the matched MHA retyped to the schedule's attrs class (identical fields
+    & weight layout, so trained weights are preserved verbatim)."""
+    import dataclasses
+
+    from flexflow_tpu_torch.op_attrs.ops import MultiHeadAttentionAttrs
+    from flexflow_tpu_torch.substitutions.output_graph import ComputeAttrsFromMatched
+
+    p = PCGPattern()
+    q = p.add_input(TensorAttributePattern.dim_divisible_by(1, degree))
+    k = p.add_input(TensorAttributePattern.dim_divisible_by(1, degree))
+    v = p.add_input(TensorAttributePattern.dim_divisible_by(1, degree))
+    w = p.add_input()
+    pnode, (py,) = p.add_operator(
+        _attr_pattern(
+            OperatorType.MULTIHEAD_ATTENTION,
+            eq=dict(bias=False),
+            div=extra_div,
+        ),
+        [q, k, v, w],
+    )
+
+    def retype(attrs: MultiHeadAttentionAttrs):
+        return attrs_cls(
+            **{f.name: getattr(attrs, f.name) for f in dataclasses.fields(attrs)}
+        )
+
+    og = OutputGraphExpr()
+    oq, ok, ov, ow = (og.add_input() for _ in range(4))
+    _, (qp_,) = og.add_operator(AttrConstant(RepartitionAttrs(1, degree)), [oq])
+    _, (kp_,) = og.add_operator(AttrConstant(RepartitionAttrs(1, degree)), [ok])
+    _, (vp_,) = og.add_operator(AttrConstant(RepartitionAttrs(1, degree)), [ov])
+    _, (wr,) = og.add_operator(AttrConstant(ReplicateAttrs(degree)), [ow])
+    _, (y,) = og.add_operator(
+        ComputeAttrsFromMatched((pnode,), retype), [qp_, kp_, vp_, wr]
+    )
+    _, (out,) = og.add_operator(AttrConstant(CombineAttrs(1, degree)), [y])
+    return Substitution(
+        f"{name}_{degree}",
+        p,
+        og,
+        ((q, oq), (k, ok), (v, ov), (w, ow)),
+        ((py, out),),
+    )
+
+
+def sequence_parallel_attention_rule(degree: int) -> Substitution:
+    """Ring flavor: the rewritten kernel rotates K/V blocks around the mesh
+    ring — sequence/context parallelism, NEW capability vs the reference
+    (SURVEY.md §5)."""
+    from flexflow_tpu_torch.op_attrs.ops import RingAttentionAttrs
+
+    return _seq_parallel_attention_rule(
+        degree, RingAttentionAttrs, "sequence_parallel_attention"
+    )
+
+
+def _attr_pattern(
+    op_type, eq=None, div=None, ne=None, nc=None
+) -> OperatorAttributePattern:
+    """Op pattern with equality, divisibility, inequality, and
+    not-contains constraints."""
+    cs = [
+        OperatorAttributeConstraint(
+            OperatorAttributeKey.OP_TYPE, ConstraintType.EQUAL, op_type
+        )
+    ]
+    for f, v in (eq or {}).items():
+        cs.append(
+            OperatorAttributeConstraint(
+                OperatorAttributeKey.FIELD, ConstraintType.EQUAL, v, field_name=f
+            )
+        )
+    for f, v in (ne or {}).items():
+        cs.append(
+            OperatorAttributeConstraint(
+                OperatorAttributeKey.FIELD,
+                ConstraintType.NOT_EQUAL,
+                v,
+                field_name=f,
+            )
+        )
+    for f, v in (div or {}).items():
+        cs.append(
+            OperatorAttributeConstraint(
+                OperatorAttributeKey.FIELD,
+                ConstraintType.DIVISIBLE_BY,
+                v,
+                field_name=f,
+            )
+        )
+    for f, v in (nc or {}).items():
+        cs.append(
+            OperatorAttributeConstraint(
+                OperatorAttributeKey.FIELD,
+                ConstraintType.NOT_CONTAINS,
+                v,
+                field_name=f,
+            )
+        )
+    return OperatorAttributePattern(tuple(cs))
+
+
+def _conv_pattern(degree, use_bias, a_pattern=None, div=None, groups=1):
+    """Pattern: Conv2D with (input, kernel[, bias]) inputs; groups=None
+    leaves the group count unconstrained (divisibility via `div`)."""
+    p = PCGPattern()
+    a = p.add_input(a_pattern)
+    ws = [p.add_input() for _ in range(2 if use_bias else 1)]
+    eq = dict(use_bias=use_bias)
+    if groups is not None:
+        eq["groups"] = groups
+    node, (y,) = p.add_operator(
+        _attr_pattern(OperatorType.CONV2D, eq=eq, div=div),
+        [a, *ws],
+    )
+    return p, a, ws, node, y
+
+
+def data_parallel_conv2d_rule(degree: int, use_bias: bool) -> Substitution:
+    """Conv2D(x, k[, b]) -> Combine_0(Conv2D(Repartition_0(x), Replicate(k)
+    [, Replicate(b)])): sample parallelism (reference conv_2d.cc sample-dim
+    rule, lib/op-attrs/src/op-attrs/ops/conv_2d.cc:100-140)."""
+    p, a, ws, pnode, py = _conv_pattern(
+        degree,
+        use_bias,
+        a_pattern=TensorAttributePattern.dim_divisible_by(0, degree),
+        groups=None,  # sample parallelism is valid for any group count
+    )
+    og = OutputGraphExpr()
+    oa = og.add_input()
+    ows = [og.add_input() for _ in ws]
+    _, (ap,) = og.add_operator(AttrConstant(RepartitionAttrs(0, degree)), [oa])
+    reps = []
+    for ow in ows:
+        _, (wr,) = og.add_operator(AttrConstant(ReplicateAttrs(degree)), [ow])
+        reps.append(wr)
+    _, (y,) = og.add_operator(CopyAttrsFromMatched(pnode), [ap, *reps])
+    _, (out,) = og.add_operator(AttrConstant(CombineAttrs(0, degree)), [y])
+    return Substitution(
+        f"data_parallel_conv2d_{'b' if use_bias else 'nb'}_{degree}",
+        p,
+        og,
+        ((a, oa), *zip(ws, ows)),
+        ((py, out),),
+    )
+
+
+def channel_parallel_conv2d_rule(
+    degree: int, use_bias: bool, grouped: bool = False
+) -> Substitution:
+    """Conv2D(x, k[, b]) -> Combine_1(Conv2D(Replicate(x), Repartition_0(k)
+    [, Repartition_0(b)])): out-channel (parameter) parallelism (reference
+    conv_2d.cc replica-partitions-out-channels rule).
+
+    `grouped=True` matches grouped convs (ResNeXt) whose group count splits
+    evenly over the shards — each shard owns groups/degree whole groups, so
+    the kernel slice stays self-contained; the default variant pins
+    groups=1 (a divisibility constraint alone would exclude it: 1 % k != 0)."""
+    if grouped:
+        p, a, ws, pnode, py = _conv_pattern(
+            degree,
+            use_bias,
+            div=dict(out_channels=degree, groups=degree),
+            groups=None,
+        )
+    else:
+        p, a, ws, pnode, py = _conv_pattern(
+            degree, use_bias, div=dict(out_channels=degree)
+        )
+    og = OutputGraphExpr()
+    oa = og.add_input()
+    ows = [og.add_input() for _ in ws]
+    _, (ar,) = og.add_operator(AttrConstant(ReplicateAttrs(degree)), [oa])
+    parts = []
+    for ow in ows:
+        _, (wp,) = og.add_operator(AttrConstant(RepartitionAttrs(0, degree)), [ow])
+        parts.append(wp)
+    _, (y,) = og.add_operator(CopyAttrsFromMatched(pnode), [ar, *parts])
+    _, (out,) = og.add_operator(AttrConstant(CombineAttrs(1, degree)), [y])
+    return Substitution(
+        f"channel_parallel_conv2d_{'b' if use_bias else 'nb'}_{degree}",
+        p,
+        og,
+        ((a, oa), *zip(ws, ows)),
+        ((py, out),),
+    )
+
+
+def reduction_parallel_conv2d_rule(degree: int) -> Substitution:
+    """Conv2D(x, k) -> Reduction(Conv2D(Repartition_1(x), Repartition_1(k))):
+    in-channel (attribute) parallelism yielding partial sums (reference
+    conv_2d.cc in-channel rule; bias-free like the linear reduction rule)."""
+    p, a, ws, pnode, py = _conv_pattern(
+        degree,
+        use_bias=False,
+        a_pattern=TensorAttributePattern.dim_divisible_by(1, degree),
+    )
+    og = OutputGraphExpr()
+    oa = og.add_input()
+    ow = og.add_input()
+    _, (ap,) = og.add_operator(AttrConstant(RepartitionAttrs(1, degree)), [oa])
+    _, (wp,) = og.add_operator(AttrConstant(RepartitionAttrs(1, degree)), [ow])
+    _, (y,) = og.add_operator(CopyAttrsFromMatched(pnode), [ap, wp])
+    _, (out,) = og.add_operator(AttrConstant(ReductionAttrs(degree)), [y])
+    return Substitution(
+        f"reduction_parallel_conv2d_{degree}",
+        p,
+        og,
+        ((a, oa), (ws[0], ow)),
+        ((py, out),),
+    )
+
+
+def data_parallel_embedding_rule(degree: int) -> Substitution:
+    """Embedding(ids, w) -> Combine_0(Embedding(Repartition_0(ids),
+    Replicate(w))): sample parallelism (reference embedding.cc:60-85)."""
+    p = PCGPattern()
+    a = p.add_input(TensorAttributePattern.dim_divisible_by(0, degree))
+    w = p.add_input()
+    pnode, (py,) = p.add_operator(
+        OperatorAttributePattern.for_op_type(OperatorType.EMBEDDING), [a, w]
+    )
+    og = OutputGraphExpr()
+    oa = og.add_input()
+    ow = og.add_input()
+    _, (ap,) = og.add_operator(AttrConstant(RepartitionAttrs(0, degree)), [oa])
+    _, (wr,) = og.add_operator(AttrConstant(ReplicateAttrs(degree)), [ow])
+    _, (y,) = og.add_operator(CopyAttrsFromMatched(pnode), [ap, wr])
+    _, (out,) = og.add_operator(AttrConstant(CombineAttrs(0, degree)), [y])
+    return Substitution(
+        f"data_parallel_embedding_{degree}",
+        p,
+        og,
+        ((a, oa), (w, ow)),
+        ((py, out),),
+    )
+
+
+def column_parallel_embedding_rule(degree: int) -> Substitution:
+    """Embedding(ids, w) -> Combine_-1(Embedding(Replicate(ids),
+    Repartition_1(w))): out-channel (parameter) parallelism — each shard
+    holds a column slice of the table (reference embedding.cc:88-111)."""
+    p = PCGPattern()
+    a = p.add_input()
+    w = p.add_input()
+    pnode, (py,) = p.add_operator(
+        _attr_pattern(OperatorType.EMBEDDING, div=dict(out_channels=degree)),
+        [a, w],
+    )
+    og = OutputGraphExpr()
+    oa = og.add_input()
+    ow = og.add_input()
+    _, (ar,) = og.add_operator(AttrConstant(ReplicateAttrs(degree)), [oa])
+    _, (wp,) = og.add_operator(AttrConstant(RepartitionAttrs(1, degree)), [ow])
+    _, (y,) = og.add_operator(CopyAttrsFromMatched(pnode), [ar, wp])
+    _, (out,) = og.add_operator(AttrConstant(CombineAttrs(-1, degree)), [y])
+    return Substitution(
+        f"column_parallel_embedding_{degree}",
+        p,
+        og,
+        ((a, oa), (w, ow)),
+        ((py, out),),
+    )
+
+
+def expert_parallel_experts_rule(
+    degree: int, use_bias: bool, with_aux: bool = False
+) -> Substitution:
+    """Experts(x, gate, w1[, b1], w2[, b2]) -> Reduction(Experts(Replicate(x),
+    Replicate(gate), Repartition_0(w1)[, ...])): expert parallelism — each
+    shard owns num_experts/degree experts and contributes a partial sum for
+    the tokens it serves (reference: examples/cpp/mixture_of_experts/moe.cc
+    via GroupBy/Aggregate; here the fused Experts op).
+
+    `with_aux=True` matches the lambda_bal>0 (two-output) form: the
+    load-balance aux scalar is unconsumed inside the graph (training adds it
+    to the loss), so only the main output is interface-mapped; the RHS op
+    emits its own replicated aux, found structurally by the training
+    instance."""
+    num_w = 5 if use_bias else 3
+    num_out = 2 if with_aux else 1
+    p = PCGPattern()
+    a = p.add_input()
+    ws = [p.add_input() for _ in range(num_w)]
+    eq = dict(use_bias=use_bias)
+    if not with_aux:
+        eq["lambda_bal"] = 0.0
+    pnode, pouts = p.add_operator(
+        _attr_pattern(
+            OperatorType.EXPERTS,
+            eq=eq,
+            div=dict(num_experts=degree),
+            ne=dict(lambda_bal=0.0) if with_aux else None,
+        ),
+        [a, *ws],
+        num_outputs=num_out,
+    )
+    py = pouts[0]
+    og = OutputGraphExpr()
+    oa = og.add_input()
+    ows = [og.add_input() for _ in ws]
+    _, (ar,) = og.add_operator(AttrConstant(ReplicateAttrs(degree)), [oa])
+    new_ws = []
+    for i, ow in enumerate(ows):
+        if i == 0:  # gate table: every shard gates all tokens
+            _, (wv,) = og.add_operator(AttrConstant(ReplicateAttrs(degree)), [ow])
+        else:  # expert tensors: shard the leading expert dim
+            _, (wv,) = og.add_operator(
+                AttrConstant(RepartitionAttrs(0, degree)), [ow]
+            )
+        new_ws.append(wv)
+    _, youts = og.add_operator(
+        CopyAttrsFromMatched(pnode), [ar, *new_ws], num_outputs=num_out
+    )
+    _, (out,) = og.add_operator(AttrConstant(ReductionAttrs(degree)), [youts[0]])
+    return Substitution(
+        f"expert_parallel_experts_{'b' if use_bias else 'nb'}"
+        f"{'_aux' if with_aux else ''}_{degree}",
+        p,
+        og,
+        ((a, oa), *zip(ws, ows)),
+        ((py, out),),
+    )
+
+
+def branch_parallel_bmm_rule(degree: int) -> Substitution:
+    """BatchMatmul(a, w) -> Combine_0(BMM(Repartition_0(a),
+    Repartition_0(w))): leading-axis parallelism. On a branch-stacked
+    subgraph (compiler/branch_stacking.py) dim 0 is the branch axis, so
+    sharding it places each branch's matmul on a disjoint device subset —
+    the realization of the reference's disjoint-resource parallel split
+    (get_optimal_machine_mapping.cc parallel case + mapper.h:82-126 point
+    placement). Equally valid as plain batch parallelism for any BMM."""
+    p = PCGPattern()
+    a = p.add_input(_shard_pattern(0, degree))
+    w = p.add_input(_shard_pattern(0, degree))
+    pnode, (py,) = p.add_operator(
+        OperatorAttributePattern.for_op_type(OperatorType.BATCH_MATMUL),
+        [a, w],
+    )
+    og = OutputGraphExpr()
+    oa = og.add_input()
+    ow = og.add_input()
+    _, (ap,) = og.add_operator(AttrConstant(RepartitionAttrs(0, degree)), [oa])
+    _, (wp,) = og.add_operator(AttrConstant(RepartitionAttrs(0, degree)), [ow])
+    _, (y,) = og.add_operator(CopyAttrsFromMatched(pnode), [ap, wp])
+    _, (out,) = og.add_operator(AttrConstant(CombineAttrs(0, degree)), [y])
+    return Substitution(
+        f"branch_parallel_bmm_{degree}",
+        p,
+        og,
+        ((a, oa), (w, ow)),
+        ((py, out),),
+    )
+
+
+def bmm_batch_parallel_rule(degree: int) -> Substitution:
+    """BatchMatmul(a, w) -> Combine_1(BMM(Repartition_1(a), Replicate(w))):
+    sample parallelism on the n-rows dim of a BMM whose rhs is a (stacked)
+    weight — composes with branch_parallel_bmm_rule so a branch-stacked
+    subgraph can use branch x dp hybrids (branch axis on one mesh axis,
+    batch on others)."""
+    p = PCGPattern()
+    a = p.add_input(_shard_pattern(1, degree))
+    w = p.add_input()
+    pnode, (py,) = p.add_operator(
+        OperatorAttributePattern.for_op_type(OperatorType.BATCH_MATMUL),
+        [a, w],
+    )
+    og = OutputGraphExpr()
+    oa = og.add_input()
+    ow = og.add_input()
+    _, (ap,) = og.add_operator(AttrConstant(RepartitionAttrs(1, degree)), [oa])
+    _, (wr,) = og.add_operator(AttrConstant(ReplicateAttrs(degree)), [ow])
+    _, (y,) = og.add_operator(CopyAttrsFromMatched(pnode), [ap, wr])
+    _, (out,) = og.add_operator(AttrConstant(CombineAttrs(1, degree)), [y])
+    return Substitution(
+        f"bmm_batch_parallel_{degree}",
+        p,
+        og,
+        ((a, oa), (w, ow)),
+        ((py, out),),
+    )
+
+
+def branch_reduce_sum_rule(degree: int) -> Substitution:
+    """ReduceSum_axis0(x) -> Reduction(ReduceSum_axis0(Repartition_0(x))):
+    the merge half of branch parallelism — each device group sums the
+    branches it holds locally, then a Reduction (psum) combines the partial
+    sums. Pins the reference Reduction data movement
+    (lib/kernels/src/cuda/ops/reduction_kernels.cu:9-16) at the merge site."""
+    from flexflow_tpu_torch.op_attrs.ops.shape_ops import ReduceOpType
+
+    p = PCGPattern()
+    x = p.add_input(_shard_pattern(0, degree))
+    pnode, (py,) = p.add_operator(
+        _attr_pattern(
+            OperatorType.REDUCE,
+            eq=dict(op_type=ReduceOpType.SUM, axes=(0,), keepdims=False),
+        ),
+        [x],
+    )
+    og = OutputGraphExpr()
+    ox = og.add_input()
+    _, (xp,) = og.add_operator(AttrConstant(RepartitionAttrs(0, degree)), [ox])
+    _, (y,) = og.add_operator(CopyAttrsFromMatched(pnode), [xp])
+    _, (out,) = og.add_operator(AttrConstant(ReductionAttrs(degree)), [y])
+    return Substitution(
+        f"branch_reduce_sum_{degree}",
+        p,
+        og,
+        ((x, ox),),
+        ((py, out),),
+    )
+
+
+def data_parallel_attention_rule(degree: int) -> Substitution:
+    """MHA(q,k,v,w) -> Combine_0(MHA(Repartition_0(q,k,v), Replicate(w))):
+    sample parallelism for attention (reference attention.cc sample-dim
+    rule). Without this the transformer's searched DP plan left every MHA
+    serial, forcing a full reshard at each attention boundary."""
+    p = PCGPattern()
+    q = p.add_input(TensorAttributePattern.dim_divisible_by(0, degree))
+    k = p.add_input(TensorAttributePattern.dim_divisible_by(0, degree))
+    v = p.add_input(TensorAttributePattern.dim_divisible_by(0, degree))
+    w = p.add_input()
+    pnode, (py,) = p.add_operator(
+        OperatorAttributePattern.for_op_type(
+            OperatorType.MULTIHEAD_ATTENTION, bias=False
+        ),
+        [q, k, v, w],
+    )
+    og = OutputGraphExpr()
+    oq, ok, ov, ow = (og.add_input() for _ in range(4))
+    parts = []
+    for oi in (oq, ok, ov):
+        _, (xp,) = og.add_operator(AttrConstant(RepartitionAttrs(0, degree)), [oi])
+        parts.append(xp)
+    _, (wr,) = og.add_operator(AttrConstant(ReplicateAttrs(degree)), [ow])
+    _, (y,) = og.add_operator(CopyAttrsFromMatched(pnode), [*parts, wr])
+    _, (out,) = og.add_operator(AttrConstant(CombineAttrs(0, degree)), [y])
+    return Substitution(
+        f"data_parallel_attention_{degree}",
+        p,
+        og,
+        ((q, oq), (k, ok), (v, ov), (w, ow)),
+        ((py, out),),
+    )
+
+
+def data_parallel_layer_norm_rule(degree: int, dim: int = 0) -> Substitution:
+    """LayerNorm(x, g, b) -> Combine_d(LayerNorm(Repartition_d(x),
+    Replicate(g), Replicate(b))): per-sample stats parallelize over any
+    non-normalized dim (dim=0 batch, dim=1 sequence). The dim != 0 variants
+    additionally require `dim` not be one of the normalized axes (axes are
+    stored as non-negative indices)."""
+    extra = {}
+    if dim != 0:
+        extra["nc"] = dict(axes=dim)
+    p = PCGPattern()
+    a = p.add_input(_shard_pattern(dim, degree))
+    g = p.add_input()
+    b = p.add_input()
+    pnode, (py,) = p.add_operator(
+        _attr_pattern(
+            OperatorType.LAYER_NORM,
+            eq=dict(elementwise_affine=True),
+            **extra,
+        ),
+        [a, g, b],
+    )
+    og = OutputGraphExpr()
+    oa, og_, ob = og.add_input(), og.add_input(), og.add_input()
+    _, (ap,) = og.add_operator(AttrConstant(RepartitionAttrs(dim, degree)), [oa])
+    _, (gr,) = og.add_operator(AttrConstant(ReplicateAttrs(degree)), [og_])
+    _, (br,) = og.add_operator(AttrConstant(ReplicateAttrs(degree)), [ob])
+    _, (y,) = og.add_operator(CopyAttrsFromMatched(pnode), [ap, gr, br])
+    _, (out,) = og.add_operator(AttrConstant(CombineAttrs(dim, degree)), [y])
+    return Substitution(
+        f"data_parallel_layer_norm{_dim_tag(dim)}_{degree}",
+        p,
+        og,
+        ((a, oa), (g, og_), (b, ob)),
+        ((py, out),),
+    )
+
+
+def data_parallel_batch_norm_rule(degree: int) -> Substitution:
+    """BatchNorm(x, g, b) -> Combine_0(BatchNorm(Repartition_0(x),
+    Replicate(g), Replicate(b))): batch stats all-reduce across shards."""
+    p = PCGPattern()
+    a = p.add_input(TensorAttributePattern.dim_divisible_by(0, degree))
+    g = p.add_input()
+    b = p.add_input()
+    pnode, (py,) = p.add_operator(
+        OperatorAttributePattern.for_op_type(OperatorType.BATCH_NORM, affine=True),
+        [a, g, b],
+    )
+    og = OutputGraphExpr()
+    oa, og_, ob = og.add_input(), og.add_input(), og.add_input()
+    _, (ap,) = og.add_operator(AttrConstant(RepartitionAttrs(0, degree)), [oa])
+    _, (gr,) = og.add_operator(AttrConstant(ReplicateAttrs(degree)), [og_])
+    _, (br,) = og.add_operator(AttrConstant(ReplicateAttrs(degree)), [ob])
+    _, (y,) = og.add_operator(CopyAttrsFromMatched(pnode), [ap, gr, br])
+    _, (out,) = og.add_operator(AttrConstant(CombineAttrs(0, degree)), [y])
+    return Substitution(
+        f"data_parallel_batch_norm_{degree}",
+        p,
+        og,
+        ((a, oa), (g, og_), (b, ob)),
+        ((py, out),),
+    )
+
+
+def data_parallel_concat_rule(degree: int, arity: int) -> Substitution:
+    """Concat_axis1(x...) -> Combine_0(Concat(Repartition_0(x)...)) for
+    channel/feature concats (Inception branches, DLRM sparse+dense merge)."""
+    p = PCGPattern()
+    p_ins = [
+        p.add_input(TensorAttributePattern.dim_divisible_by(0, degree))
+        for _ in range(arity)
+    ]
+    pnode, (py,) = p.add_operator(
+        _attr_pattern(OperatorType.CONCAT, eq=dict(axis=1)), p_ins
+    )
+    og = OutputGraphExpr()
+    o_ins = [og.add_input() for _ in range(arity)]
+    parts = []
+    for oi in o_ins:
+        _, (xp,) = og.add_operator(AttrConstant(RepartitionAttrs(0, degree)), [oi])
+        parts.append(xp)
+    _, (y,) = og.add_operator(CopyAttrsFromMatched(pnode), parts)
+    _, (out,) = og.add_operator(AttrConstant(CombineAttrs(0, degree)), [y])
+    return Substitution(
+        f"data_parallel_concat{arity}_{degree}",
+        p,
+        og,
+        tuple(zip(p_ins, o_ins)),
+        ((py, out),),
+    )
+
+
+def sequence_parallel_attention_a2a_rule(degree: int) -> Substitution:
+    """Ulysses flavor: the rewritten kernel all-to-alls heads-for-sequence
+    and attends the full sequence locally (second context-parallel strategy;
+    requires heads divisible by the degree so the a2a can trade sequence
+    shards for head shards)."""
+    from flexflow_tpu_torch.op_attrs.ops.ulysses_attention import (
+        UlyssesAttentionAttrs,
+    )
+
+    return _seq_parallel_attention_rule(
+        degree,
+        UlyssesAttentionAttrs,
+        "sequence_parallel_attention_a2a",
+        extra_div=dict(num_heads=degree),
+    )
+
+
+def data_parallel_op_rule(
+    op_type: OperatorType, degree: int, num_inputs: int = 1, dim: int = 0
+) -> Substitution:
+    """Generic shard-dim rule for weightless elementwise-ish ops:
+    Op(x...) -> Combine_d(Op(Repartition_d(x)...)). dim=0 is the classic
+    batch rule; dim=1 rides the sequence axis of rank-3 streams; dim=-1
+    (ELEMENT_UNARY/BINARY/DROPOUT only — never reduction-like ops) shards
+    the channel dim so activations between tensor-parallel linears stay
+    sharded (the Megatron pattern's activation segment)."""
+    p = PCGPattern()
+    p_ins = [p.add_input(_shard_pattern(dim, degree)) for _ in range(num_inputs)]
+    pnode, (py,) = p.add_operator(
+        OperatorAttributePattern.for_op_type(op_type), p_ins
+    )
+    og = OutputGraphExpr()
+    o_ins = [og.add_input() for _ in range(num_inputs)]
+    parts = []
+    for oi in o_ins:
+        _, (xp,) = og.add_operator(AttrConstant(RepartitionAttrs(dim, degree)), [oi])
+        parts.append(xp)
+    _, (y,) = og.add_operator(CopyAttrsFromMatched(pnode), parts)
+    _, (out,) = og.add_operator(AttrConstant(CombineAttrs(dim, degree)), [y])
+    return Substitution(
+        f"data_parallel_{op_type.value}{_dim_tag(dim)}_{degree}",
+        p,
+        og,
+        tuple(zip(p_ins, o_ins)),
+        ((py, out),),
+    )
+
+
+def combine_reduction_cancel_rules(degree: int, dim: int) -> List[Substitution]:
+    """Resharding cancellation: Combine_d(k) . Repartition_d(k) -> Noop and
+    Repartition_d(k) . Combine_d(k) -> Noop. These erase the redundant
+    resharding pairs the per-op rules introduce at their seams, letting
+    parallelism PROPAGATE through chains of ops (the TASO-style closure)."""
+    out: List[Substitution] = []
+
+    def mk(first_attrs, second_attrs, tag):
+        p = PCGPattern()
+        x = p.add_input()
+        n1, (mid,) = p.add_operator(
+            OperatorAttributePattern.for_op_type(
+                first_attrs[0], **first_attrs[1]
+            ),
+            [x],
+        )
+        n2, (y,) = p.add_operator(
+            OperatorAttributePattern.for_op_type(
+                second_attrs[0], **second_attrs[1]
+            ),
+            [mid],
+        )
+        og = OutputGraphExpr()
+        ox = og.add_input()
+        _, (oy,) = og.add_operator(AttrConstant(NoopAttrs()), [ox])
+        return Substitution(
+            f"{tag}_{dim}_{degree}", p, og, ((x, ox),), ((y, oy),)
+        )
+
+    out.append(
+        mk(
+            (OperatorType.COMBINE, dict(combine_dim=dim, combine_degree=degree)),
+            (
+                OperatorType.REPARTITION,
+                dict(repartition_dim=dim, repartition_degree=degree),
+            ),
+            "cancel_combine_repartition",
+        )
+    )
+    out.append(
+        mk(
+            (
+                OperatorType.REPARTITION,
+                dict(repartition_dim=dim, repartition_degree=degree),
+            ),
+            (OperatorType.COMBINE, dict(combine_dim=dim, combine_degree=degree)),
+            "cancel_repartition_combine",
+        )
+    )
+    return out
+
+
+def generate_parallelization_rules(
+    degrees: List[int],
+    max_cancel_dim: int = 3,
+    enable_parameter_parallel: bool = True,
+    enable_attribute_parallel: bool = True,
+    enable_pipeline: bool = False,
+) -> List[Substitution]:
+    """The seed rule set for a machine whose interesting parallel degrees are
+    `degrees` (typically divisors of the chip count).
+
+    `enable_parameter_parallel` gates the weight-partitioning rules and
+    `enable_attribute_parallel` the reduction-dim rules, mirroring the
+    reference's --enable-parameter-parallel / --enable-attribute-parallel
+    flags (config.h); data/sample parallelism is always available."""
+    if enable_pipeline:
+        raise NotImplementedError(
+            "the pipeline-stage rules wait for the pipeline ops (ROADMAP A10)"
+        )
+    rules: List[Substitution] = []
+    for k in degrees:
+        if k < 2:
+            continue
+        for use_bias in (True, False):
+            rules.append(data_parallel_linear_rule(k, use_bias))
+            rules.append(data_parallel_conv2d_rule(k, use_bias))
+        rules.append(data_parallel_embedding_rule(k))
+        rules.append(data_parallel_batch_norm_rule(k))
+        rules.append(data_parallel_attention_rule(k))
+        rules.append(data_parallel_layer_norm_rule(k))
+        rules.append(sequence_parallel_attention_rule(k))
+        rules.append(sequence_parallel_attention_a2a_rule(k))
+        # sequence-axis (dim=1) variants: the seq-parallel residual stream's
+        # non-attention segments (Linear/LayerNorm/elementwise ride the
+        # sharded seq dim; attention itself needs the ring/a2a rules above)
+        for use_bias in (True, False):
+            rules.append(data_parallel_linear_rule(k, use_bias, dim=1))
+        rules.append(data_parallel_layer_norm_rule(k, dim=1))
+        rules.append(data_parallel_op_rule(OperatorType.ELEMENT_UNARY, k, dim=1))
+        rules.append(
+            data_parallel_op_rule(
+                OperatorType.ELEMENT_BINARY, k, num_inputs=2, dim=1
+            )
+        )
+        rules.append(data_parallel_op_rule(OperatorType.DROPOUT, k, dim=1))
+        # channel-axis (dim=-1) variants: keep activations sharded between
+        # tensor-parallel linears (Megatron's activation segment)
+        rules.append(data_parallel_op_rule(OperatorType.ELEMENT_UNARY, k, dim=-1))
+        rules.append(
+            data_parallel_op_rule(
+                OperatorType.ELEMENT_BINARY, k, num_inputs=2, dim=-1
+            )
+        )
+        for use_bias in (True, False):
+            rules.append(expert_parallel_experts_rule(k, use_bias))
+            rules.append(expert_parallel_experts_rule(k, use_bias, with_aux=True))
+        # branch parallelism over stacked isomorphic branches
+        # (compiler/branch_stacking.py): shard the stacked leading axis,
+        # merge via local sum + Reduction
+        rules.append(branch_parallel_bmm_rule(k))
+        rules.append(bmm_batch_parallel_rule(k))
+        rules.append(branch_reduce_sum_rule(k))
+        rules.append(data_parallel_op_rule(OperatorType.BROADCAST, k))
+        if enable_parameter_parallel:
+            for use_bias in (True, False):
+                rules.append(tensor_parallel_linear_rule(k, use_bias))
+            rules.append(head_parallel_attention_rule(k))
+            for use_bias in (True, False):
+                rules.append(channel_parallel_conv2d_rule(k, use_bias))
+                rules.append(
+                    channel_parallel_conv2d_rule(k, use_bias, grouped=True)
+                )
+            rules.append(column_parallel_embedding_rule(k))
+        if enable_attribute_parallel:
+            rules.append(reduction_parallel_linear_rule(k))
+            rules.append(reduction_parallel_conv2d_rule(k))
+        for op_type in (
+            OperatorType.ELEMENT_UNARY,
+            OperatorType.SOFTMAX,
+            OperatorType.POOL2D,
+            OperatorType.FLAT,
+            OperatorType.DROPOUT,
+        ):
+            rules.append(data_parallel_op_rule(op_type, k))
+        rules.append(
+            data_parallel_op_rule(OperatorType.ELEMENT_BINARY, k, num_inputs=2)
+        )
+        for arity in (2, 3, 4):
+            rules.append(data_parallel_concat_rule(k, arity))
+        for d in (*range(max_cancel_dim), -1):
+            rules.extend(combine_reduction_cancel_rules(k, d))
+    return rules

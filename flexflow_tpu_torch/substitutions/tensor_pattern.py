@@ -1,0 +1,110 @@
+"""Tensor attribute patterns (copy of flexflow_tpu/substitutions/tensor_pattern.py).
+
+Reference: lib/substitutions/include/substitutions/tensor_pattern/
+(tensor_attribute_{expr,constraint,key} specs) — constraints over a parallel
+tensor's dims/degrees (PARALLEL_DIM, PARALLEL_DEGREE exprs in the reference).
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass
+
+from flexflow_tpu_torch.utils.hashing import memoized_hash
+from typing import Any, Optional, Tuple
+
+from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import ParallelTensorShape
+
+
+class TensorAttributeKey(enum.Enum):
+    NUM_DIMS = "num_dims"
+    DIM_SIZE = "dim_size"  # requires dim index
+    DIM_DEGREE = "dim_degree"  # requires dim index
+    SUM_DEGREE = "sum_degree"
+    DISCARD_COPY_DEGREE = "discard_copy_degree"
+
+
+class TensorConstraintType(enum.Enum):
+    EQUAL = "eq"
+    DIVISIBLE_BY = "divisible_by"
+    GREATER_EQUAL = "ge"
+
+
+@memoized_hash
+@dataclass(frozen=True)
+class TensorAttributeConstraint:
+    key: TensorAttributeKey
+    constraint_type: TensorConstraintType
+    value: Any
+    dim: Optional[int] = None
+
+    def _dim_in_bounds(self, shape: ParallelTensorShape) -> bool:
+        return -shape.num_dims <= self.dim < shape.num_dims
+
+    def satisfied_by(self, shape: ParallelTensorShape) -> bool:
+        if self.key == TensorAttributeKey.NUM_DIMS:
+            actual = shape.num_dims
+        elif self.key == TensorAttributeKey.SUM_DEGREE:
+            actual = shape.sum_degree
+        elif self.key == TensorAttributeKey.DISCARD_COPY_DEGREE:
+            actual = shape.discard_copy_degree
+        elif self.key == TensorAttributeKey.DIM_SIZE:
+            if self.dim is None or not self._dim_in_bounds(shape):
+                return False
+            actual = shape.shard_dim_at(self.dim).size
+        elif self.key == TensorAttributeKey.DIM_DEGREE:
+            if self.dim is None or not self._dim_in_bounds(shape):
+                return False
+            actual = shape.shard_dim_at(self.dim).degree
+        else:
+            raise ValueError(self.key)
+        if self.constraint_type == TensorConstraintType.EQUAL:
+            return actual == self.value
+        if self.constraint_type == TensorConstraintType.DIVISIBLE_BY:
+            return actual % self.value == 0
+        if self.constraint_type == TensorConstraintType.GREATER_EQUAL:
+            return actual >= self.value
+        raise ValueError(self.constraint_type)
+
+
+@memoized_hash
+@dataclass(frozen=True)
+class TensorAttributePattern:
+    constraints: Tuple[TensorAttributeConstraint, ...] = ()
+
+    @staticmethod
+    def any() -> "TensorAttributePattern":
+        return TensorAttributePattern(())
+
+    @staticmethod
+    def dim_divisible_by(dim: int, k: int) -> "TensorAttributePattern":
+        return TensorAttributePattern(
+            (
+                TensorAttributeConstraint(
+                    TensorAttributeKey.DIM_SIZE,
+                    TensorConstraintType.DIVISIBLE_BY,
+                    k,
+                    dim=dim,
+                ),
+            )
+        )
+
+
+# (pattern, shape) -> bool; same memo rationale as op_attrs_satisfy_pattern
+_TENSOR_SATISFY_MEMO: dict = {}
+
+def tensor_attrs_satisfy_pattern(
+    shape: ParallelTensorShape, pattern: TensorAttributePattern
+) -> bool:
+    if not pattern.constraints:
+        return True
+    try:
+        key = (pattern, shape)
+        hit = _TENSOR_SATISFY_MEMO.get(key)
+        if hit is None:
+            hit = _TENSOR_SATISFY_MEMO[key] = all(
+                c.satisfied_by(shape) for c in pattern.constraints
+            )
+        return hit
+    except TypeError:
+        return all(c.satisfied_by(shape) for c in pattern.constraints)
