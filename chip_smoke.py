@@ -135,17 +135,42 @@ then, in a one-rank NCCL process group opened over a file:// store:
                   8192) through the sequence-parallel trainer at world size
                   1, whose attention runs the ring-flash step kernels;
 
+then several ranks, each a process of its own started after the build,
+sharing the card over an explicit gloo group (NCCL refuses two ranks on one
+card; gloo stages each collective through host memory, so their step times
+are no NVLink or NCCL figure):
+
+22. parity_tp     the small flagship (4 heads of 64) under the tp2 seed on 2
+                  ranks and the dp2 x tp2 seed on 4: two Adam steps on the
+                  card (bf16, rows 9-11 at the local head count) against the
+                  same ranks on the CPU (f32, plain versions): the losses,
+                  each rank's launches, and every step's collectives equal
+                  to what the plan implies;
+23. train_tp      the flagship at full width and depth (batch 16) under the
+                  tp2 seed on 2 ranks: a warm-up and 3 timed Adam steps in
+                  bf16, 12 launches a step per rank of each of rows 9-11
+                  and no other flash kernel, 48 all-reduces and 1
+                  all-gather a step as the plan implies, the losses and the
+                  gathered parameters against the single-device
+                  train_step from the same values on the card;
+24. fit_searched  FFModel.compile(search_budget=2) on 2 ranks at the
+                  flagship's widths and depth (batch 16): rank 0 searches
+                  on the H100 constants, every rank trains the winner it
+                  prints (a parallel plan), rank 0 exports the strategy,
+                  and a second compile that imports it trains to
+                  bitwise-equal losses and parameters;
+
 then serving, whose attention is dense f32 as in the JAX package (every
 flash and ring launch count must stay at 0):
 
-22. parity_serve  two small serving LMs (ServingLMConfig(), and 2 layers of
+25. parity_serve  two small serving LMs (ServingLMConfig(), and 2 layers of
                   embed 256 in 2 heads of 128) from the same numpy
                   parameters on the card and on the CPU (f32 both): prefill
                   logits and caches, the tokens of 8 seeded requests through
                   ServingEngine in continuous and static mode, one fused
                   decode window bitwise equal to one-step windows, and two
                   captured windows bitwise equal to the eager body;
-23. serve         the serving LM at the flagship's widths (SERVE_LM) serving
+26. serve         the serving LM at the flagship's widths (SERVE_LM) serving
                   SERVE_TRAFFIC (64 slots of 1024 positions, 128 requests,
                   continuous batching, windows of 8) after one warm-up
                   request: requests/s, output tokens/s, ms/token p50/p99,
@@ -167,7 +192,8 @@ step kernels at train_sp's shape, at the replay's (one with the first
 each carried step adding into random accumulators. Then the kernel table
 as one {"kernels": [...]} line (the redesigned kernels, forwards,
 backwards and deltas, with their design and ptxas figures; each kernel's
-launches are its wrapper's counts in the train phases and fit, the
+launches are its wrapper's counts in the train phases and fit (summed
+over the ranks in the multi-rank phases), the
 search's wrapper counts with each leaf's graph replays added, and the
 profiler's count in fit_window), and last the
 line {"ok": true,
@@ -1334,7 +1360,8 @@ def _train_phase(smi, phase, inst, config, x_shape, vocab, layers, flops, on_pat
     """One warm-up step, then `steps` timed ones with every launch count
     set to 0 just before and read just after; the wrappers named in
     `on_path` must each launch once per layer per step, every other one
-    never, and a distributed trainer must issue one all-reduce per step."""
+    never, and a distributed trainer must issue the all-reduces of its plan
+    (the data-parallel one: one a step)."""
     import torch
     from flexflow_tpu_torch.kernels import flash_attention as fa
 
@@ -1356,11 +1383,17 @@ def _train_phase(smi, phase, inst, config, x_shape, vocab, layers, flops, on_pat
     if launches != want:
         raise AssertionError(f"{phase}: launches {launches}, expected {want}")
     if distributed:
+        # the data-parallel trainer's one bucket a step; the PCG trainer's
+        # what its plan implies (none on a mesh of one rank)
+        per_step = (inst.step_collectives()["all_reduce"] if hasattr(inst, "step_collectives")
+                    else 1)
         all_reduces = inst.all_reduces - all_reduces
-        if all_reduces != steps:
-            raise AssertionError(f"{phase}: {all_reduces} all-reduces in {steps} steps")
+        if all_reduces != per_step * steps:
+            raise AssertionError(f"{phase}: {all_reduces} all-reduces in {steps} steps, "
+                                 f"expected {per_step} a step")
         extra.update(world_size=1, backend="nccl", all_reduces_per_step=all_reduces / steps,
-                     all_reduce_bytes=4 * (1 + sum(p.numel() for p in params.values())))
+                     all_reduce_bytes=4 * (1 + sum(p.numel() for p in params.values()))
+                     if per_step else 0)
 
     median_ms = statistics.median(step_ms)
     MEDIAN_STEP_MS[phase] = median_ms
@@ -2710,6 +2743,368 @@ def phase_fit_bert(smi: str, steps: int = STEPS):
     return {n: launches[n] for n in D256_WRAPPERS}
 
 
+# -- several ranks sharing the card ------------------------------------------
+
+SHARED = "ranks sharing one H100 over gloo (host-staged collectives)"
+FLAGSHIP_WIDTHS = dict(seq=512, embed=1024, heads=8, layers=12, vocab=32000)
+TP_PARITY = dict(batch=8, seq=128, embed=256, heads=4, layers=2, vocab=512)
+TP_PARITY_PLANS = {"tp2": (2, (1, 2)), "dp2xtp2": (4, (2, 2))}  # name: (ranks, (dp, tp))
+TP_TRAIN = dict(FLAGSHIP_WIDTHS, batch=16)  # batch 16: gloo stages every collective on the host
+TP_STEPS = 3  # timed Adam steps of train_tp, after one warm-up step
+# train_tp's gathered parameters against the single-device train_step from
+# the same values (both bf16): the difference over how far the parameters
+# moved, each tensor; the two sum the tensor-parallel partials in another
+# order and run other attention kernels (rows 9-11 against rows 1-3), and
+# Adam's first steps move a near-zero gradient's element by about alpha
+# whichever way its sign falls. On an H100 the worst tensor measured 0.078
+# (a LayerNorm bias) and the median 0.027 (PERF.md section 6)
+TP_PARAM_BOUND = 0.2
+# batch 16 at full depth: the widths at which the search on the H100
+# constants picks dp2 over the serial plan for 2 cards (at 4 layers it
+# keeps the serial plan)
+FIT_SEARCHED = dict(FLAGSHIP_WIDTHS, batch=16)
+FIT_SEARCHED_STEPS = 3
+RANK_TIMEOUT_S = 300
+
+# One rank of a multi-rank phase; argv: rank, world, job (JSON). The ranks
+# share the job's device over an explicit gloo group; each writes its result
+# to <out>.rank<r>.json.
+RANK_WORKER = r'''
+import json, math, os, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+from flexflow_tpu_torch.compiler.unity_algorithm import data_parallel_seed, tensor_parallel_seed
+from flexflow_tpu_torch.kernels import flash_attention as fa
+from flexflow_tpu_torch.models import build_flagship_cg, build_flagship_pcg
+from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs, WeightAttrs
+from flexflow_tpu_torch.parallel import (DistributedTrainingInstance, MachineMesh, executor,
+                                         gather_block, init_file_group)
+from flexflow_tpu_torch.pcg import AdamOptimizerAttrs
+
+rank, world, job = int(sys.argv[1]), int(sys.argv[2]), json.loads(sys.argv[3])
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+device = init_file_group(job["store"], rank, world, device=job["device"], backend="gloo")
+dtype = torch.bfloat16 if device.type == "cuda" else None
+cfg = job["cfg"]
+heads = []
+flash = executor.sharded_flash_attention
+executor.sharded_flash_attention = lambda q, k, v: heads.append(q.shape[1]) or flash(q, k, v)
+out = {"rank": rank}
+
+
+def sync():
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def launches():
+    return {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS}
+
+
+def batch(samples):
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(samples, cfg["seq"], cfg["embed"], generator=gen)
+    return x, torch.randint(0, cfg["vocab"], (samples, cfg["seq"]), generator=gen)
+
+
+def plan_pcg(dp, tp):
+    pcg = build_flagship_pcg(**cfg)
+    if tp > 1:
+        pcg = tensor_parallel_seed(pcg, tp)
+    if dp > 1:
+        pcg = data_parallel_seed(pcg, dp)
+    return pcg
+
+
+def by_name(pcg, inst, params):
+    """Copies of the global values of the pieces, by weight name (a
+    collective)."""
+    return {pcg.layer_attrs(n).name: gather_block(params[f"n{n.idx}"].detach(),
+                                                  inst.weight_sharding(f"n{n.idx}"),
+                                                  inst.machine_mesh).float().cpu().clone()
+            for n in pcg.topological_ordering() if isinstance(pcg.op_attrs(n), WeightAttrs)}
+
+
+def train(pcg, on, compute, warmup, steps, keep=False):
+    mesh = MachineMesh.for_devices(world)
+    inst = DistributedTrainingInstance(
+        pcg, pcg.outputs_of(pcg.topological_ordering()[-1])[0],
+        SparseCategoricalCrossEntropyLossAttrs(), AdamOptimizerAttrs(alpha=job["alpha"]), mesh,
+        compute_dtype=compute, device=on)
+    params, opt = inst.initialize(seed=0)
+    init = by_name(pcg, inst, params) if keep else None
+    x, y = (t.to(on) for t in batch(cfg["batch"]))
+    for _ in range(warmup):
+        params, opt, loss, _ = inst.train_step(params, opt, {"x": x}, y)
+    sync()
+    fa.reset_launch_counts()
+    heads.clear()
+    losses, step_ms, per_step = [], [], []
+    for _ in range(steps):
+        before = dict(inst.collectives)
+        start = time.perf_counter()
+        params, opt, loss, _ = inst.train_step(params, opt, {"x": x}, y)
+        losses.append(float(loss))
+        sync()
+        step_ms.append((time.perf_counter() - start) * 1e3)
+        per_step.append({k: v - before.get(k, 0) for k, v in inst.collectives.items()})
+    res = dict(losses=losses, step_ms=step_ms, launches=launches(), local_heads=sorted(set(heads)),
+               flash_calls=len(heads), collectives_per_step=per_step,
+               implied=dict(inst.step_collectives()))
+    return res, (init, by_name(pcg, inst, params)) if keep else None
+
+
+if job["mode"] == "parity":
+    pcg = plan_pcg(*job["plan"])
+    out["cpu"] = train(pcg, "cpu", None, 0, 2)[0]
+    out["card"] = train(pcg, device, dtype, 0, 2)[0]
+elif job["mode"] == "train":
+    pcg = plan_pcg(*job["plan"])
+    out["card"], (init, final) = train(pcg, device, dtype, 1, job["steps"], keep=True)
+    if rank == 0:
+        # the single-device step from the same values, on the same card
+        from flexflow_tpu_torch.interop import params_from_numpy
+        from flexflow_tpu_torch.local_execution import ModelTrainingInstance
+        from flexflow_tpu_torch.local_execution.training_backing import weight_nodes
+        graph, logits = build_flagship_cg(**cfg)
+        names = {f"n{n.idx}": graph.layer_attrs(n).name for n in weight_nodes(graph)}
+        single = ModelTrainingInstance(graph, logits, SparseCategoricalCrossEntropyLossAttrs(),
+                                       AdamOptimizerAttrs(alpha=job["alpha"]),
+                                       compute_dtype=dtype, device=device)
+        params = params_from_numpy(graph, {k: init[v].numpy() for k, v in names.items()}, device)
+        opt = single.initialize(seed=0)[1]
+        x, y = (t.to(device) for t in batch(cfg["batch"]))
+        losses, step_ms = [], []
+        for _ in range(1 + job["steps"]):
+            start = time.perf_counter()
+            params, opt, loss, _ = single.train_step(params, opt, {"x": x}, y)
+            losses.append(float(loss))
+            sync()
+            step_ms.append((time.perf_counter() - start) * 1e3)
+        out["single_losses"], out["single_step_ms"] = losses[1:], step_ms[1:]
+        out["param_rel"] = {
+            v: float((final[v] - params[k].float().cpu()).norm()
+                     / max(float((params[k].float().cpu() - init[v]).norm()), 1e-30))
+            for k, v in names.items()}
+elif job["mode"] == "fit":
+    from flexflow_tpu_torch.core import AdamOptimizer, FFConfig, FFModel
+
+    x, y = batch(job["steps"] * cfg["batch"])
+
+    def fit(**kw):
+        m = FFModel.from_computation_graph(
+            *build_flagship_cg(**cfg), device=device,
+            config=FFConfig(batch_size=cfg["batch"], seed=0, print_freq=0,
+                            search_budget=job["budget"], **kw))
+        start = time.perf_counter()
+        m.compile(AdamOptimizer(alpha=job["alpha"]), "sparse_categorical_crossentropy",
+                  metrics=["accuracy"], compute_dtype=dtype)
+        compile_s = time.perf_counter() - start
+        losses, step = [], m.instance.train_step
+
+        def recorded(*a, **k):
+            res = step(*a, **k)
+            losses.append(float(res[2]))
+            return res
+
+        m.instance.train_step = recorded
+        inst = m.instance
+        before = dict(inst.collectives)
+        fa.reset_launch_counts()
+        heads.clear()
+        sync()
+        start = time.perf_counter()
+        perf = m.fit(x.numpy(), y.numpy().astype(np.int32), epochs=1, shuffle=False,
+                     verbose=False)
+        sync()
+        fit_ms = (time.perf_counter() - start) * 1e3
+        steps = len(losses)
+        return dict(compile_s=compile_s, fit_ms=fit_ms, step_ms=fit_ms / steps, losses=losses,
+                    train_all=perf.train_all, provenance=m.search_provenance,
+                    launches=launches(), local_heads=sorted(set(heads)),
+                    collectives_per_step={k: (v - before.get(k, 0)) / steps
+                                          for k, v in inst.collectives.items()},
+                    implied=dict(inst.step_collectives()),
+                    digest=float(sum(p.double().sum() for p in m.params.values())))
+
+    out["searched"] = fit(export_strategy_file=job["strategy"])
+    out["imported"] = fit(import_strategy_file=job["strategy"])
+with open(f"{job['out']}.rank{rank}.json", "w") as f:
+    json.dump(out, f)
+dist.destroy_process_group()
+'''
+
+
+def run_ranks(world: int, job: dict, tmp: str):
+    """Run RANK_WORKER on `world` processes and return each rank's result;
+    a failing or hanging rank fails the phase, and every process is
+    stopped on the way out."""
+    job = dict(job, store=os.path.join(tmp, f"store_{job['name']}"),
+               out=os.path.join(tmp, job["name"]))
+    procs = [subprocess.Popen([sys.executable, "-c", RANK_WORKER, str(r), str(world),
+                               json.dumps(job)], cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
+    try:
+        errors = []
+        for r, p in enumerate(procs):
+            _, err = p.communicate(timeout=RANK_TIMEOUT_S)
+            if p.returncode != 0:
+                errors.append(f"rank {r} exited {p.returncode}: {err[-3000:]}")
+        if errors:
+            raise AssertionError(f"{job['name']}: " + "\n".join(errors))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r in range(world):
+        with open(f"{job['out']}.rank{r}.json") as f:
+            results.append(json.load(f))
+    return results
+
+
+def _check_rank_launches(phase: str, ranks, layers: int, steps: int, key: str = "card"):
+    """Rows 9-11 (the per-head wrappers) launch once per layer per step on
+    every rank, and no other flash or ring kernel; returns the launches
+    summed over the ranks."""
+    total = {}
+    for r in ranks:
+        got = r[key]["launches"]
+        want = {name: layers * steps if name in BHSD_WRAPPERS else 0 for name in got}
+        if got != want:
+            raise AssertionError(f"{phase} rank {r['rank']}: launches {got}, expected {want}")
+        for name, n in got.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def _check_collectives(phase: str, ranks, key: str = "card"):
+    """Every step of every rank issues the collectives the plan implies."""
+    for r in ranks:
+        steps = r[key]["collectives_per_step"]
+        steps = steps if isinstance(steps, list) else [steps]
+        for s in steps:
+            if {k: v for k, v in s.items() if v} != r[key]["implied"]:
+                raise AssertionError(f"{phase} rank {r['rank']}: collectives {s}, the plan "
+                                     f"implies {r[key]['implied']}")
+
+
+def phase_parity_tp(smi: str, tmp: str, device: str = "cuda:0") -> dict:
+    """The small flagship (4 heads of 64) under the tp2 seed on 2 ranks and
+    the dp2 x tp2 seed on 4, all sharing the card over gloo (bf16, the
+    per-head kernels at the local head count), against the same plan on the
+    same ranks on the CPU (f32, plain versions): two Adam steps' losses."""
+    launches = {}
+    for name, (world, plan) in TP_PARITY_PLANS.items():
+        ranks = run_ranks(world, dict(name=f"parity_{name}", mode="parity", plan=plan,
+                                      cfg=TP_PARITY, device=device, alpha=1e-3), tmp)
+        counts = _check_rank_launches(f"parity_tp {name}", ranks, TP_PARITY["layers"], 2)
+        for name_, n in counts.items():
+            launches[name_] = launches.get(name_, 0) + n
+        _check_collectives(f"parity_tp {name}", ranks)
+        local = TP_PARITY["heads"] // plan[1]
+        for r in ranks:
+            if r["card"]["local_heads"] != [local]:
+                raise AssertionError(f"parity_tp {name} rank {r['rank']}: attention ran at "
+                                     f"{r['card']['local_heads']} heads, not {local}")
+            if r["card"]["losses"] != ranks[0]["card"]["losses"]:
+                raise AssertionError(f"parity_tp {name}: ranks report different losses")
+        cpu, card = ranks[0]["cpu"]["losses"], ranks[0]["card"]["losses"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+        if not max(rel) < PARITY_BOUND:
+            raise AssertionError(f"parity_tp {name}: card losses {card} vs CPU {cpu}")
+        emit({"phase": "parity_tp", "plan": name, "ranks": world, "sharing": f"{world} {SHARED}",
+              "card": smi, "config": TP_PARITY, "losses": {"cuda": card, "cpu": cpu},
+              "rel_err": rel, "bound": PARITY_BOUND, "local_heads": local,
+              "launches_per_rank": ranks[0]["card"]["launches"],
+              "collectives_per_step": ranks[0]["card"]["implied"],
+              "card_step_ms": ranks[0]["card"]["step_ms"]})
+    return launches
+
+
+def phase_train_tp(smi: str, tmp: str, device: str = "cuda:0") -> dict:
+    """The flagship at full width and depth (batch 16) under the tp2 seed on
+    2 ranks sharing the card: one warm-up and TP_STEPS timed Adam steps in
+    bf16; the gathered parameters against the single-device train_step from
+    the same values on the card."""
+    from flexflow_tpu_torch.models import model_step_flops
+
+    ranks = run_ranks(2, dict(name="train_tp", mode="train", plan=(1, 2), cfg=TP_TRAIN,
+                              device=device, alpha=1e-4, steps=TP_STEPS), tmp)
+    launches = _check_rank_launches("train_tp", ranks, TP_TRAIN["layers"], TP_STEPS)
+    _check_collectives("train_tp", ranks)
+    card = ranks[0]["card"]
+    if not all(math.isfinite(v) for v in card["losses"]):
+        raise AssertionError(f"train_tp: non-finite losses {card['losses']}")
+    if card["local_heads"] != [TP_TRAIN["heads"] // 2]:
+        raise AssertionError(f"train_tp: attention ran at {card['local_heads']} heads")
+    single = ranks[0]["single_losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card["losses"], single)]
+    worst = max(ranks[0]["param_rel"].items(), key=lambda kv: kv[1])
+    if not max(rel) < PARITY_BOUND or not worst[1] < TP_PARAM_BOUND:
+        raise AssertionError(f"train_tp: losses {card['losses']} vs single-device {single}, "
+                             f"worst parameter {worst} (bound {TP_PARAM_BOUND})")
+    median_ms = statistics.median(card["step_ms"])
+    emit({"phase": "train_tp", "plan": "tp2", "ranks": 2, "sharing": f"2 {SHARED}", "card": smi,
+          "config": TP_TRAIN, "compute_dtype": "bf16", "optimizer": "adam(alpha=1e-4)",
+          "losses": card["losses"], "single_device_losses": single, "loss_rel_err": rel,
+          "single_device_step_ms": ranks[0]["single_step_ms"],
+          "param_rel_to_moved": ranks[0]["param_rel"], "param_bound": TP_PARAM_BOUND,
+          "step_ms": card["step_ms"], "median_step_ms": median_ms,
+          "tokens_per_s": TP_TRAIN["batch"] * TP_TRAIN["seq"] / (median_ms / 1e3),
+          "step_flops": model_step_flops(**TP_TRAIN),
+          "collectives_per_step": card["implied"], "launches_per_rank": card["launches"],
+          "local_heads": card["local_heads"],
+          "note": "step times measure host-staged gloo collectives of two processes on one "
+                  "card, not NVLink or NCCL"})
+    return launches
+
+
+def phase_fit_searched(smi: str, tmp: str, device: str = "cuda:0") -> dict:
+    """FFModel.compile(search_budget=2) on 2 ranks sharing the card at the
+    flagship's widths and depth (batch 16): rank 0 searches on the H100
+    constants, every rank trains the winner, which must be a parallel plan;
+    rank 0 exports the strategy and a second compile that imports it
+    trains to bitwise-equal losses."""
+    ranks = run_ranks(2, dict(name="fit_searched", mode="fit", cfg=FIT_SEARCHED, device=device,
+                              alpha=1e-4, steps=FIT_SEARCHED_STEPS, budget=2,
+                              strategy=os.path.join(tmp, "fit_searched_strategy.json")), tmp)
+    launches = _check_rank_launches("fit_searched", ranks, FIT_SEARCHED["layers"],
+                                    FIT_SEARCHED_STEPS, key="searched")
+    _check_collectives("fit_searched", ranks, key="searched")
+    first = ranks[0]["searched"]
+    for r in ranks:
+        a, b = r["searched"], r["imported"]
+        if not (a["losses"] == b["losses"] and a["digest"] == b["digest"]):
+            raise AssertionError(f"fit_searched rank {r['rank']}: the imported plan trained to "
+                                 f"{b['losses']}, the searched one to {a['losses']}")
+        if a["provenance"]["parallel_degrees"] != first["provenance"]["parallel_degrees"]:
+            raise AssertionError("fit_searched: the ranks trained different plans")
+        if not all(math.isfinite(v) for v in a["losses"]) or a["train_all"] != \
+                FIT_SEARCHED_STEPS * FIT_SEARCHED["batch"] * FIT_SEARCHED["seq"]:
+            raise AssertionError(f"fit_searched rank {r['rank']}: {a['losses']}, "
+                                 f"train_all {a['train_all']}")
+    prov = first["provenance"]
+    if not prov["parallel_degrees"] or not prov["estimated_ms"] < prov["serial_ms"]:
+        raise AssertionError(f"fit_searched: the winner {prov['parallel_degrees']} is no "
+                             f"parallel plan ({prov['estimated_ms']} ms, serial "
+                             f"{prov['serial_ms']} ms)")
+    print(f"fit_searched winner: {prov['parallel_degrees']} at {prov['estimated_ms']} ms "
+          f"estimated (serial {prov['serial_ms']} ms)", flush=True)
+    emit({"phase": "fit_searched", "ranks": 2, "sharing": f"2 {SHARED}", "card": smi,
+          "config": FIT_SEARCHED, "winner": prov["parallel_degrees"],
+          "estimated_ms": prov["estimated_ms"], "serial_ms": prov["serial_ms"],
+          "seed_runtimes": prov["seed_runtimes"], "search_seconds": prov["search_seconds"],
+          "compile_s": first["compile_s"], "losses": first["losses"],
+          "imported_losses": ranks[0]["imported"]["losses"], "bitwise_equal": True,
+          "step_ms": first["step_ms"], "local_heads": first["local_heads"],
+          "collectives_per_step": first["implied"], "launches_per_rank": first["launches"]})
+    return launches
+
+
 def phase_examples():
     """Every port example run in-process on the card through its main() at
     tests/test_examples.py's sizes with --print-freq 1: each ends without
@@ -2777,6 +3172,13 @@ def main() -> None:
         phase_ring_replay()
         phase_parity_sp()
         launches["train_sp"] = (phase_train_sp(smi), STEPS)
+    # several ranks on the card, each a process of its own: after the build,
+    # so no rank compiles a kernel; their counts are per rank and step
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["parity_tp"] = (phase_parity_tp(smi, tmp),
+                                 sum(2 * world for world, _ in TP_PARITY_PLANS.values()))
+        launches["train_tp"] = (phase_train_tp(smi, tmp), 2 * TP_STEPS)
+        launches["fit_searched"] = (phase_fit_searched(smi, tmp), 2 * FIT_SEARCHED_STEPS)
     phase_parity_serve()
     phase_serve(smi)
     for entry in kernels:

@@ -12,8 +12,8 @@ two rates the analytic estimator's roofline needs:
 
 each timed with CUDA events (kernels/profiling.py); they feed
 AnalyticGPUCostEstimator's `peak_flops` and `hbm_gbps`. The JAX module's
-all-reduce, overlap and shard-speedup probes need several cards (ROADMAP
-A7): this one returns the two rates alone.
+all-reduce, overlap and shard-speedup probes over several cards are ROADMAP
+A7 item 5: this one returns the two rates alone.
 
 The links between cards cannot be timed with one card either: the machine
 spec of a planned node takes the datasheet figures below.
@@ -75,8 +75,8 @@ def calibrate(device=None, num_devices: int = 1) -> MachineCalibration:
     unless device="cpu")."""
     if num_devices > 1:
         raise NotImplementedError(
-            "the all-reduce, overlap and shard-speedup probes need several "
-            "cards (ROADMAP A7)"
+            "the all-reduce, overlap and shard-speedup probes over several "
+            "cards are not ported yet (ROADMAP A7 item 5)"
         )
     device = resolve_device(device)
     settings = ProfilingSettings(warmup_iters=1, measure_iters=4)

@@ -18,7 +18,8 @@ The cost and movement stores and the topology-aware machine model
 (`cost_store`, `movement_store`, `comm_model`) are A6 part 2.
 The JAX package's emulated-mesh compute scaling is left out (it exists
 for its virtual CPU mesh only), and so is the pricing of collectives from
-measured all-reduce constants: their probes need several cards (A7).
+measured all-reduce constants: their probes over several cards are A7
+item 5.
 """
 
 from __future__ import annotations
@@ -137,7 +138,7 @@ def link_for_views(
 
 # Link latencies of the comm model, in ms: not measured (one card cannot
 # time a collective), the same placeholders the JAX package uses for its
-# two link classes; A7's NCCL probes replace them.
+# two link classes; A7 item 5's NCCL probes replace them.
 DEFAULT_INTRA_LATENCY_MS = 0.001
 DEFAULT_INTER_LATENCY_MS = 0.01
 

@@ -171,7 +171,8 @@ class WindowedBatchIterator:
     consumer's stream waits on that event before the window is used. On
     the CPU each window is gathered into a new array.
 
-    The JAX package's `window_sharding` exists here for no mesh (A7); its
+    The JAX package's `window_sharding` exists here for no mesh: the
+    fused windows do not run on several ranks yet (A7 item 9); its
     `keep_host` stacks feed the health monitor (A9) and its fault sites the
     fault schedule (A8), neither of them ported.
 

@@ -1,6 +1,5 @@
-"""The FFModel user API on one device: build, compile, fit, eval, and the
-stepped forward/backward/update loop (port of flexflow_tpu/core/ffmodel.py,
-its single-device part).
+"""The FFModel user API: build, compile, fit, eval, and the stepped
+forward/backward/update loop (port of flexflow_tpu/core/ffmodel.py).
 
 A model author writes the same code as for the JAX package:
 
@@ -18,13 +17,22 @@ ModelTrainingInstance the JAX package builds there (CUDA unless the model
 was made with device="cpu"); `fit` drives its train_step, the same step a
 direct caller drives. With `FFConfig(steps_per_dispatch=K)`, `fit` runs
 windows of K steps through `multi_train_step` (on a card, one CUDA graph
-replay a window), fed by the windowed input pipeline. What reaches a slice
-that is not ported yet raises NotImplementedError naming it, at the call:
-the layer methods of unported ops (A2), more than one device (A7, with a
-search budget too: the plan's parallel ops are not lowered yet), checkpoints, recompiles and fit-loop supervision (A8),
-telemetry, traces and plan audits (A9), sub-mesh branches (A10).
-"""
+replay a window), fed by the windowed input pipeline.
 
+Over several devices the port runs one process per device: the devices of
+a compile are the ranks of the default process group (opened by
+`parallel.init_file_group`, or under torchrun). Without a search budget
+the compile trains data parallel (DataParallelTrainingInstance); with one,
+rank 0 runs the Unity search (or imports FFConfig.import_strategy_file),
+every rank receives the plan as its strategy document, and the winner
+trains through DistributedTrainingInstance (FFConfig.export_strategy_file
+is written by rank 0). What reaches a slice that is not ported yet raises
+NotImplementedError naming it, at the call: the layer methods of unported
+ops (A2), the search's stores, memory budget and other algorithms (A6 part
+2), the fused windows over several ranks (A7 item 9), checkpoints,
+recompiles and fit-loop supervision (A8), telemetry, traces and plan
+audits (A9), pipelines and sub-mesh branches (A10).
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -35,12 +43,14 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from flexflow_tpu_torch.core.dataloader import BatchIterator, WindowedBatchIterator
 from flexflow_tpu_torch.core.optimizers import optimizer_attrs_of
 from flexflow_tpu_torch.kernels.loss import loss_forward
 from flexflow_tpu_torch.kernels.metrics import PerfMetrics, compute_metrics
 from flexflow_tpu_torch.local_execution.config import FFConfig
+from flexflow_tpu_torch.parallel.data_parallel import DataParallelTrainingInstance
 from flexflow_tpu_torch.local_execution.training_backing import (
     LocalTrainingBacking,
     ModelTrainingInstance,
@@ -157,6 +167,8 @@ class FFModel:
         self._label_dtype = np.int32
         self._step_count = 0
         self._aux_loss_tensors: List[DataflowOutput] = []
+        # how a searched compile found its plan (None for any other compile)
+        self.search_provenance: Optional[dict] = None
         # fit's generator, reseeded by each fit: one object, so that the
         # fused windows' CUDA graphs, which register it, outlive a fit
         self._rng: Optional[torch.Generator] = None
@@ -420,8 +432,26 @@ class FFModel:
         n = handle.node
         return n if isinstance(self.cg.op_attrs(n), WeightAttrs) else None
 
+    def _searched_weight(self, n: Node):
+        """(PCG parameter key, sharding) of CG weight node n in a searched
+        plan: found by its layer name, which the rewrites keep."""
+        inst = self.instance
+        name = self.cg.layer_attrs(n).name
+        hits = [w for w in inst.pcg.topological_ordering()
+                if isinstance(inst.pcg.op_attrs(w), WeightAttrs)
+                and inst.pcg.layer_attrs(w).name == name]
+        if name is None or len(hits) != 1:
+            raise KeyError(f"weight {name!r} has no unique counterpart in the searched plan")
+        return param_key(hits[0]), inst.weight_sharding(param_key(hits[0]))
+
     def _read_tensor(self, handle: DataflowOutput) -> np.ndarray:
         n = self._weight_node_of(handle)
+        if n is not None and self.params is not None and self._searched():
+            # a collective: every rank reads, in the same order
+            from flexflow_tpu_torch.parallel import gather_block
+
+            key, sharding = self._searched_weight(n)
+            return _to_numpy(gather_block(self.params[key], sharding, self.instance.machine_mesh))
         if n is not None and self.params is not None:
             return _to_numpy(self.params[param_key(n)])
         if self._backing is not None and handle in self._backing.env:
@@ -434,6 +464,12 @@ class FFModel:
         n = self._weight_node_of(handle)
         if n is None or self.params is None:
             raise KeyError("set_tensor only supported on weights after compile()")
+        if self._searched():
+            from flexflow_tpu_torch.parallel import local_block
+
+            key, sharding = self._searched_weight(n)
+            value = local_block(torch.as_tensor(value), sharding, self.instance.machine_mesh, key)
+            n = Node(int(key[1:]))
         cur = self.params[param_key(n)]
         if tuple(cur.shape) != tuple(value.shape):
             raise ValueError(f"shape mismatch: {tuple(cur.shape)} vs {value.shape}")
@@ -471,32 +507,45 @@ class FFModel:
         self._label_dtype = (
             np.int32 if loss_type == LossFunction.SPARSE_CATEGORICAL_CROSSENTROPY else np.float32)
         ndev = self._device_count()
-        if ndev > 1 and cfg.search_budget > 0 and not cfg.only_data_parallel:
-            # the search itself is ported (flexflow_tpu_torch.compiler); what
-            # is missing is lowering its plan's parallel ops
+        if ndev > 1 and not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(
+                f"a compile over {ndev} devices runs one process per device: open the default "
+                "process group first (parallel.init_file_group, or torch.distributed."
+                "init_process_group under torchrun), or set max_devices=1 (A7 item 4)")
+        if ndev > 1 and self._aux_loss_tensors:
             raise NotImplementedError(
-                f"a searched compile over {ndev} devices needs the searched "
-                "plan's parallel ops lowered, not ported yet (A7); "
-                "set max_devices=1 to compile for one")
-        if ndev > 1:
-            raise NotImplementedError(
-                f"a compile over {ndev} devices is not ported yet (A7); "
-                "set max_devices=1 to compile for one")
+                "auxiliary loss tensors over several devices come with the MoE slice (A11)")
         self.invalidate_graphs()
-        self.instance = ModelTrainingInstance(
-            self.cg, logit, self.loss_attrs, self.optimizer_attrs,
-            compute_dtype=compute_dtype, device=self.device, metrics=self.metrics,
-            aux_loss_tensors=self._aux_loss_tensors,
-        )
+        self.search_provenance = None
+        if ndev > 1 and cfg.search_budget > 0 and not cfg.only_data_parallel:
+            self.instance = self._compile_searched(logit, ndev, compute_dtype)
+        elif ndev > 1:
+            self.instance = DataParallelTrainingInstance(
+                self.cg, logit, self.loss_attrs, self.optimizer_attrs,
+                compute_dtype=compute_dtype, device=self.device, metrics=self.metrics,
+            )
+        else:
+            self.instance = ModelTrainingInstance(
+                self.cg, logit, self.loss_attrs, self.optimizer_attrs,
+                compute_dtype=compute_dtype, device=self.device, metrics=self.metrics,
+                aux_loss_tensors=self._aux_loss_tensors,
+            )
         self.params, self.opt_state = self.instance.initialize(seed=cfg.seed)
         self._step_count = 0
         self._backing = None
 
     def _device_count(self) -> int:
-        """The devices a compile would span, as the JAX package counts them:
-        the visible ones of the model's kind, capped by max_devices, and cut
-        to the largest count that divides the first input's batch."""
-        ndev = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        """The devices a compile spans, as the JAX package counts them: the
+        ranks of the default process group (one process each), or without
+        a group the visible cards of the model's kind; capped by
+        max_devices, and cut to the largest count that divides the first
+        input's batch. A group whose size is not that count raises."""
+        grouped = dist.is_available() and dist.is_initialized()
+        if grouped:
+            world = dist.get_world_size()
+        else:
+            world = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        ndev = world
         if self.config.max_devices > 0:
             ndev = min(ndev, self.config.max_devices)
         inputs = [n for n in self.cg.topological_ordering()
@@ -505,7 +554,198 @@ class FFModel:
             batch = self.cg.tensor_shape(self.cg.outputs_of(inputs[0])[0]).dims[0]
             while ndev > 1 and batch % ndev:
                 ndev -= 1
+        if grouped and ndev != world:
+            raise ValueError(
+                f"this compile spans {ndev} devices (max_devices {self.config.max_devices}, "
+                f"the batch's divisors) but the process group has {world} ranks: a compile "
+                "runs one rank per device")
         return ndev
+
+    def _compile_searched(self, logit: DataflowOutput, ndev: int, compute_dtype):
+        """The Unity path (the JAX package's _compile_searched): lift the CG
+        to a PCG, search substitutions and machine mappings for `ndev`
+        devices (or import a saved strategy), and lower the winner on the
+        mesh of the process group's ranks. Rank 0 searches; the plan reaches
+        every rank as its strategy document, so all lower the same PCG."""
+        from flexflow_tpu_torch.compiler import (
+            AnalyticGPUCostEstimator,
+            GPUCostEstimator,
+            MachineMappingContext,
+            OptimizerConfig,
+            graph_optimize,
+            make_default_allowed_machine_views,
+            parallel_degree_summary,
+        )
+        from flexflow_tpu_torch.compiler.calibration import H100_NVLINK_GBPS, NDR_INFINIBAND_GBPS
+        from flexflow_tpu_torch.parallel import DistributedTrainingInstance, MachineMesh
+        from flexflow_tpu_torch.pcg.machine_view import MachineSpecification
+        from flexflow_tpu_torch.pcg.parallel_computation_graph import pcg_from_computation_graph
+        from flexflow_tpu_torch.runtime.strategy import (
+            load_strategy,
+            save_strategy,
+            strategy_from_doc,
+            strategy_to_doc,
+        )
+        from flexflow_tpu_torch.substitutions.rules import generate_parallelization_rules
+
+        cfg = self.config
+        unported = (
+            (cfg.hbm_gb > 0, "hbm_gb (the search's memory budget)", "A6 part 2 / A13"),
+            (bool(cfg.cost_store or cfg.movement_cost_store), "cost_store / movement_cost_store",
+             "A6 part 2 / A13"),
+            (cfg.search_algorithm != "unity", f"search_algorithm={cfg.search_algorithm!r}",
+             "A6 part 2"),
+            (cfg.machine_model_version > 0 or bool(cfg.machine_model_file), "machine_model_*",
+             "A6 part 2"),
+            (bool(cfg.substitution_json_path), "substitution_json_path", "A6 part 2"),
+            (cfg.perform_fusion, "perform_fusion (the fusion rules)", "A6 part 2"),
+            (cfg.branch_stacking, "branch_stacking", "A6 part 2"),
+            (bool(cfg.multislice), "multislice", "A6 part 2"),
+            (bool(cfg.pipeline), "pipeline", "A10"),
+            (bool(cfg.overlap), "overlap (the collective matmuls)", "A7 item 7"),
+            (cfg.force_strategy_seed.startswith("pp"), "force_strategy_seed of a pipeline",
+             "A10"),
+        )
+        for on, what, slice_name in unported:
+            if on:
+                raise NotImplementedError(
+                    f"FFConfig.{what} in a searched compile is not ported yet ({slice_name})")
+        nodes = max(cfg.num_nodes, 1)
+        if self.device.type == "cpu":
+            # the JAX package's CPU constants, so both packages find one winner
+            inter_bw, intra_bw, peak_flops, hbm_gbps = 1.0, 2.0, 5e10, 10.0
+            intra_lat_ms, inter_lat_ms = 0.1, 0.2
+        else:
+            # H100 SXM: datasheet links (compiler/calibration.py) and peaks
+            inter_bw, intra_bw = NDR_INFINIBAND_GBPS, H100_NVLINK_GBPS
+            peak_flops, hbm_gbps = 989e12, 3350.0
+            intra_lat_ms, inter_lat_ms = 0.001, 0.01
+        exec_spec = MachineSpecification(nodes, max(cfg.cpus_per_node, 1),
+                                         max(ndev // nodes, 1), inter_bw, intra_bw)
+        search_nodes = cfg.search_num_nodes if cfg.search_num_nodes > 0 else nodes
+        search_workers = (cfg.search_num_workers if cfg.search_num_workers > 0
+                          else exec_spec.num_devices_per_node)
+        spec = MachineSpecification(search_nodes, max(cfg.cpus_per_node, 1), search_workers,
+                                    inter_bw, intra_bw)
+
+        def search():
+            if cfg.import_strategy_file:
+                pcg, mapping, runtime = load_strategy(cfg.import_strategy_file)
+                self.search_provenance = {"search_algorithm": "imported_strategy"}
+                return strategy_to_doc(pcg, mapping, runtime)
+            measured = cfg.cost_model == "measured" or (
+                cfg.cost_model == "auto" and self.device.type == "cuda")
+            if measured:
+                from flexflow_tpu_torch.local_execution.cost_estimator import LocalCostEstimator
+
+                estimator = GPUCostEstimator(
+                    spec, local_cost_estimator=LocalCostEstimator(device=self.device))
+            else:
+                rates = (peak_flops, hbm_gbps)
+                if cfg.cost_model == "calibrated":
+                    from flexflow_tpu_torch.compiler.calibration import calibrate
+
+                    cal = calibrate(device=self.device)
+                    rates = (cal.peak_flops, cal.hbm_gbps)
+                estimator = AnalyticGPUCostEstimator(spec, *rates, intra_latency_ms=intra_lat_ms,
+                                                     inter_latency_ms=inter_lat_ms)
+            ctx = MachineMappingContext(estimator, make_default_allowed_machine_views(),
+                                        overlap_fraction=0.5,
+                                        allow_resource_splits=spec != exec_spec)
+            pcg0 = pcg_from_computation_graph(self.cg)
+            start = time.perf_counter()
+            if cfg.force_strategy_seed:
+                result = _forced_seed_result(pcg0, ctx, spec, cfg.force_strategy_seed)
+            else:
+                degrees = [d for d in range(2, spec.num_devices + 1) if spec.num_devices % d == 0]
+                rules = generate_parallelization_rules(
+                    degrees, enable_parameter_parallel=cfg.enable_parameter_parallel,
+                    enable_attribute_parallel=cfg.enable_attribute_parallel)
+                result = graph_optimize(pcg0, ctx, spec, rules, OptimizerConfig(
+                    alpha=cfg.search_alpha, budget=cfg.search_budget))
+            self.search_provenance = {
+                "explored": result.explored,
+                "estimated_ms": result.runtime,
+                "serial_ms": result.serial_runtime,
+                "search_seconds": time.perf_counter() - start,
+                "seed_runtimes": dict(result.seed_runtimes or {}),
+                "parallel_degrees": parallel_degree_summary(result.pcg),
+                "cost_model": cfg.cost_model,
+                "search_algorithm": "forced_seed" if cfg.force_strategy_seed else "unity",
+            }
+            return strategy_to_doc(result.pcg, result.machine_mapping, result.runtime)
+
+        # rank 0 plans; every rank lowers the plan it sends
+        box = [search() if dist.get_rank() == 0 else None, None]
+        box[1] = self.search_provenance
+        dist.broadcast_object_list(box, src=0)
+        doc, self.search_provenance = box
+        pcg, mapping, runtime = strategy_from_doc(doc)
+        if cfg.export_strategy_file and dist.get_rank() == 0:
+            save_strategy(cfg.export_strategy_file, pcg, mapping, runtime)
+        mesh = MachineMesh.from_spec(exec_spec)
+        return DistributedTrainingInstance(
+            pcg, self._find_searched_logit(pcg, logit), self.loss_attrs, self.optimizer_attrs,
+            mesh, mapping=mapping, compute_dtype=compute_dtype, device=self.device,
+            metrics=self.metrics)
+
+    def _find_searched_logit(self, pcg, logit: DataflowOutput) -> DataflowOutput:
+        """The model output in the searched PCG (the JAX package's): layer
+        names survive the rewrites, so a named logit producer is found by
+        name, followed through its own degree-reducing Combine/Reduction
+        chain to the whole value; an unnamed one falls back to the single
+        unconsumed output of the logit's shape."""
+        from flexflow_tpu_torch.op_attrs.core import is_parallel_op
+        from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import total_parallel_degree
+
+        src_name = self.cg.layer_attrs(logit.node).name
+        want_sizes = tuple(self.cg.tensor_shape(logit).dims)
+
+        def resolve(node, out_idx):
+            outs = pcg.outputs_of(node)
+            if out_idx >= len(outs):
+                return None
+            val = outs[out_idx]
+            while True:
+                uses = pcg.uses_of(val)
+                if len(uses) != 1 or not is_parallel_op(pcg.op_attrs(uses[0].node)):
+                    break
+                nxt = pcg.outputs_of(uses[0].node)[0]
+                if total_parallel_degree(pcg.tensor_shape(nxt)) > total_parallel_degree(
+                        pcg.tensor_shape(val)):
+                    break
+                val = nxt
+            shape = pcg.tensor_shape(val)
+            if (tuple(shape.sizes()) == want_sizes and all(d == 1 for d in shape.shard_degrees())
+                    and shape.sum_degree == 1):
+                return val
+            return None
+
+        if src_name is not None:
+            op_nodes = [n for n in pcg.topological_ordering()
+                        if not isinstance(pcg.op_attrs(n), (InputAttrs, WeightAttrs))]
+            hits = [n for n in op_nodes if pcg.layer_attrs(n).name == src_name]
+            candidates = [(hits[0], logit.idx)] if len(hits) == 1 else []
+            for n in op_nodes:
+                nm = pcg.layer_attrs(n).name
+                if nm and "+" in nm and src_name in nm.split("+"):
+                    candidates.append((n, nm.split("+").index(src_name)))
+            for node, out_idx in candidates:
+                val = resolve(node, out_idx)
+                if val is not None:
+                    return val
+        if self.cg.uses_of(logit):
+            raise ValueError(
+                "cannot identify the model output after the Unity rewrite: the logit layer "
+                f"(name={src_name!r}) could not be resolved by name and the logit tensor has "
+                "downstream consumers; give the logit-producing layer a unique name")
+        sink = _find_sink_output(pcg)
+        if tuple(pcg.tensor_shape(sink).sizes()) != want_sizes:
+            raise ValueError(
+                "cannot identify the model output after the Unity rewrite: the graph sink has "
+                f"shape {pcg.tensor_shape(sink).sizes()} but the logit is {want_sizes}; give "
+                "the logit-producing layer a unique name")
+        return sink
 
     def _validate_config_flags(self) -> None:
         """Flags are refused or acknowledged loudly, never silently ignored
@@ -713,6 +953,11 @@ class FFModel:
         perf = PerfMetrics()
         for batch, label in it:
             logit = self.instance.forward(self.params, batch)
+            if self._searched():
+                from flexflow_tpu_torch.parallel import gather_block
+
+                inst = self.instance
+                logit = gather_block(logit, inst.shardings[inst.logit_tensor], inst.machine_mesh)
             perf.update(_perf_from_metric_values(compute_metrics(metrics, logit, label)))
         return perf
 
@@ -720,7 +965,18 @@ class FFModel:
     # stepped execution (reference forward/backward/update/zero_gradients)
     # ------------------------------------------------------------------
 
+    def _searched(self) -> bool:
+        """Whether the compile lowered a searched plan over several ranks
+        (each holding pieces of the parameters)."""
+        from flexflow_tpu_torch.parallel import DistributedTrainingInstance
+
+        return isinstance(self.instance, DistributedTrainingInstance)
+
     def _ensure_backing(self) -> LocalTrainingBacking:
+        if self._searched():
+            raise NotImplementedError(
+                "the stepped forward/backward/update runs the whole graph on one device; a "
+                "searched plan's ranks hold pieces of it (A7 item 4)")
         if self._backing is None:
             self._backing = LocalTrainingBacking(
                 self.cg, profiling=self.config.profiling,
@@ -784,6 +1040,32 @@ class FFModel:
 
     def recompile(self, preserve_resume: bool = False) -> None:
         raise NotImplementedError("FFModel.recompile: recompiles are not ported yet (A8)")
+
+
+def _forced_seed_result(pcg0, ctx, spec, seed_name: str):
+    """The named strategy template, priced as is (FFConfig.
+    force_strategy_seed): "serial" or a label of enumerate_seeds."""
+    from flexflow_tpu_torch.compiler import MachineMappingCache, evaluate_pcg
+    from flexflow_tpu_torch.compiler.unity_algorithm import enumerate_seeds
+
+    cache = MachineMappingCache()
+    serial = evaluate_pcg(pcg0, ctx, spec, cache)
+    if seed_name == "serial":
+        if serial is None:
+            raise ValueError("serial plan is unmappable")
+        serial.serial_runtime = serial.runtime
+        serial.seed_runtimes = {}
+        return serial
+    for label, seed_pcg in enumerate_seeds(pcg0, spec.num_devices):
+        if label != seed_name:
+            continue
+        result = evaluate_pcg(seed_pcg, ctx, spec, cache)
+        if result is None:
+            raise ValueError(f"seed {seed_name} is unmappable")
+        result.serial_runtime = serial.runtime if serial else float("nan")
+        result.seed_runtimes = {label: result.runtime}
+        return result
+    raise ValueError(f"unknown strategy seed {seed_name!r}")
 
 
 def _find_sink_output(graph) -> DataflowOutput:

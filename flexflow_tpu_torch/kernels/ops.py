@@ -13,7 +13,8 @@ defaults: Conv2D is NCHW x OIHW (F.conv2d, as the JAX package leaves it to
 lax.conv_general_dilated, outside any Pallas kernel); max pooling pads with
 -inf and average pooling divides by the whole window, padding included, at
 any padding; BatchNorm normalizes by the batch's own mean and biased
-variance in training and evaluation alike (no running statistics).
+variance in training and evaluation alike (no running statistics), the
+whole batch's where ranks split it (`batch_stats_group`).
 
 `op_forward_flops` is the JAX package's analytic forward count, which MFU
 divides by.
@@ -21,7 +22,9 @@ divides by.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import List, Optional, Sequence
 
 import torch
@@ -267,12 +270,42 @@ def _pool2d(attrs: Pool2DAttrs, x):
     return _activate(attrs.activation, out)
 
 
+_batch_tls = threading.local()
+
+
+@contextlib.contextmanager
+def batch_stats_group(all_reduce):
+    """Declare that the batch is split over ranks: within, BatchNorm takes
+    its statistics over the whole batch, summing its per-channel sums and
+    row counts with `all_reduce(t)` (the sum of t over the ranks that share
+    the batch, differentiable), as GSPMD normalizes a sharded batch."""
+    prev = getattr(_batch_tls, "all_reduce", None)
+    _batch_tls.all_reduce = all_reduce
+    try:
+        yield
+    finally:
+        _batch_tls.all_reduce = prev
+
+
 def _batch_norm(attrs: BatchNormAttrs, x, weights):
     """Normalize by the batch's mean and biased variance over every axis but
-    the channels (axis 1), then the affine, then an optional ReLU."""
+    the channels (axis 1), then the affine, then an optional ReLU. Under a
+    batch_stats_group the mean and the variance are the whole batch's: its
+    sums over the ranks (two passes, as the single-device mean and
+    variance)."""
     axes = (0, 2, 3) if x.ndim == 4 else (0,)
-    mean = x.mean(dim=axes, keepdim=True)
-    var = x.var(dim=axes, keepdim=True, unbiased=False)
+    all_reduce = getattr(_batch_tls, "all_reduce", None)
+    if all_reduce is None:
+        mean = x.mean(dim=axes, keepdim=True)
+        var = x.var(dim=axes, keepdim=True, unbiased=False)
+    else:
+        f32 = torch.float32
+        rows = torch.full((1,), x.numel() // x.shape[1], dtype=f32, device=x.device)
+        total = all_reduce(torch.cat([x.sum(dim=axes, dtype=f32), rows]))
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        mean = (total[:-1] / total[-1]).to(x.dtype).reshape(shape)
+        sq = all_reduce((x - mean).square().sum(dim=axes, dtype=f32))
+        var = (sq / total[-1]).to(x.dtype).reshape(shape)
     out = (x - mean) * torch.rsqrt(var + attrs.eps)
     if attrs.affine:
         shape = (1, -1) + (1,) * (x.ndim - 2)

@@ -39,7 +39,7 @@ from __future__ import annotations
 import ctypes
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -263,14 +263,18 @@ def ring_flash_supported(qp_shape, kp_shape, vp_shape, dtype: torch.dtype, devic
 class SequenceRing:
     """The ranks that hold consecutive blocks of one sequence: this rank is
     `rank` of `size`, over the process group `group` (None for a ring of
-    one)."""
+    one). `peers`: the global ranks in ring order, where they are not the
+    group's own rank order."""
 
     size: int = 1
     rank: int = 0
     group: Optional[object] = None
+    peers: Optional[Tuple[int, ...]] = None
 
     def _peer(self, ring_rank: int) -> int:
         r = ring_rank % self.size
+        if self.peers is not None:
+            return self.peers[r]
         return r if self.group is None else dist.get_global_rank(self.group, r)
 
     def rotate(self, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:

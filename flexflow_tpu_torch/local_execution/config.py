@@ -10,7 +10,9 @@ The port's FFModel reads the training, profiling and single-device fields;
 a field whose machinery is not ported yet is refused by FFModel.compile
 with the slice that brings it (see FFModel._validate_config_flags), never
 ignored. The search, mesh and planner fields matter only to a compile on
-more than one device, which raises until A6/A7.
+more than one device (one rank each): without a search budget it trains
+data parallel, with one it searches (or imports) a plan and lowers it; the
+search's fields of A6 part 2, A10 and A13 raise there.
 """
 
 from __future__ import annotations

@@ -7,7 +7,8 @@ the parallel layout.
   Replicate(degree):        discard_copy_degree *= degree   (broadcast)
   Reduction(degree):        sum_degree /= degree            (all-reduce)
 
-The port's builder creates them; its trainers do not lower them yet.
+The port's builders and the search create them; parallel/collectives.py
+lowers them for the trainer over a mesh of ranks.
 """
 
 from __future__ import annotations

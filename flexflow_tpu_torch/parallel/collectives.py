@@ -1,0 +1,256 @@
+"""The four parallel ops as differentiable collectives over mesh axes, and
+the grouped gradient buckets.
+
+Each rank holds its own piece of every tensor (parallel/sharding.py). The
+trainers keep one invariant: on every rank, the gradient of a piece is the
+global loss's full gradient with respect to that piece. Where ranks do
+different work on one piece (the copies of a Replicate, a weight used on
+different batch rows), each holds only its own work's share, and
+`sum_grad` adds the shares where the work meets. So:
+
+- Repartition (`narrow`): the forward keeps the rank's slice; the backward
+  all-gathers the slices' gradients.
+- Combine (`all_gather`): the forward all-gathers; the backward keeps the
+  rank's slice and sums nothing, since duplicates hold equal gradients.
+- Replicate: the identity both ways; `sum_grad` at its consumers sums the
+  copies' gradients over the axes where their work differs.
+- Reduction (`sum_partials`): the forward sums the partials; the backward
+  is the identity.
+
+`all_reduce_sum` is the autograd-aware all-reduce (backward: the same
+all-reduce of the gradients) for statistics a batch-coupled op takes over
+the ranks that share the batch.
+
+Everything runs on the list-form `all_gather` and on `all_reduce` over the
+subgroup of a set of axes, so gloo (CPU ranks, and ranks sharing one card)
+and NCCL (one card per rank) both take it. Partial sums and gradients are
+reduced in f32 (f64 stays f64): the sum keeps its precision whatever the
+compute dtype, and gloo's bf16 support is not needed. A collective over a group of one
+rank is skipped. Every collective counts itself in the mesh's `counts`.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+from typing import Dict, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from flexflow_tpu_torch.parallel.mesh import Axes, MachineMesh
+from flexflow_tpu_torch.parallel.sharding import TensorSharding
+
+
+def _wide(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a sum is reduced in: f32, or the input's if wider."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _reduce_f32(x: torch.Tensor, group, counts=None) -> torch.Tensor:
+    """The sum of x over `group`, reduced in f32 (or wider), in x's dtype."""
+    buf = x.detach().to(_wide(x.dtype), copy=True).contiguous()
+    dist.all_reduce(buf, group=group)
+    if counts is not None:
+        counts["all_reduce"] += 1
+    return buf.to(x.dtype)
+
+
+def _gather(x: torch.Tensor, dim: int, mesh: MachineMesh, axes: Axes) -> torch.Tensor:
+    mesh.counts["all_gather"] += 1
+    return mesh.all_gather(x, dim, axes)
+
+
+def _slice(x: torch.Tensor, dim: int, mesh: MachineMesh, axes: Axes) -> torch.Tensor:
+    n = mesh.size(axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of size {x.shape[dim]} does not divide over {n} ranks "
+                         f"(mesh axes {', '.join(axes)})")
+    step = x.shape[dim] // n
+    return x.narrow(dim, mesh.index(axes) * step, step)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim: int, mesh: MachineMesh, axes: Axes):
+        ctx.dim, ctx.mesh, ctx.axes = dim, mesh, axes
+        return _gather(x, dim, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(g, ctx.dim, ctx.mesh, ctx.axes).contiguous(), None, None, None
+
+
+class _Narrow(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim: int, mesh: MachineMesh, axes: Axes):
+        ctx.dim, ctx.mesh, ctx.axes = dim, mesh, axes
+        return _slice(x, dim, mesh, axes).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.mesh, ctx.axes), None, None, None
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh: MachineMesh, axes: Axes):
+        return _reduce_f32(x, mesh.group_of(axes)[0], mesh.counts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh: MachineMesh, axes: Axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_f32(g, ctx.mesh.group_of(ctx.axes)[0], ctx.mesh.counts), None, None
+
+
+class _KeepAtZero(torch.autograd.Function):
+    """A whole value as partial sums over `axes`: itself at index 0 of
+    them, zero elsewhere. The backward is the identity: every partial's
+    gradient is the sum's."""
+
+    @staticmethod
+    def forward(ctx, x, mesh: MachineMesh, axes: Axes):
+        return x.clone() if sum_group_zero(mesh, axes) else torch.zeros_like(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, counts):
+        ctx.group, ctx.counts = group, counts
+        return _reduce_f32(x, group, counts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_f32(g, ctx.group, ctx.counts), None, None
+
+
+def _trivial(mesh: MachineMesh, axes: Sequence[str]) -> bool:
+    return mesh.size(axes) == 1
+
+
+def all_gather(x: torch.Tensor, dim: int, mesh: MachineMesh, axes: Axes) -> torch.Tensor:
+    """Combine: the whole of dim from the pieces over `axes`."""
+    return x if _trivial(mesh, axes) else _AllGather.apply(x, dim, mesh, tuple(axes))
+
+
+def narrow(x: torch.Tensor, dim: int, mesh: MachineMesh, axes: Axes) -> torch.Tensor:
+    """Repartition: this rank's slice of dim over `axes`."""
+    return x if _trivial(mesh, axes) else _Narrow.apply(x, dim, mesh, tuple(axes))
+
+
+def sum_partials(x: torch.Tensor, mesh: MachineMesh, axes: Axes) -> torch.Tensor:
+    """Reduction: the sum of the partials over `axes`."""
+    return x if _trivial(mesh, axes) else _SumPartials.apply(x, mesh, tuple(axes))
+
+
+def sum_grad(x: torch.Tensor, mesh: MachineMesh, axes: Axes) -> torch.Tensor:
+    """The identity, whose backward sums the gradient over `axes`: where
+    ranks did different work on one piece of x."""
+    return x if _trivial(mesh, axes) else _SumGrad.apply(x, mesh, tuple(axes))
+
+
+def all_reduce_sum(x: torch.Tensor, group, counts=None) -> torch.Tensor:
+    """The sum of x over `group`, differentiable: the backward all-reduces
+    the gradient (each rank's share of the sum's gradient flows back to
+    every rank's term). `counts`: a Counter the collectives add to."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _AllReduceSum.apply(x, group, counts)
+
+
+def reshard(x: torch.Tensor, src: TensorSharding, dst: TensorSharding,
+            mesh: MachineMesh) -> torch.Tensor:
+    """x, this rank's piece under `src`, as its piece under `dst`: the
+    partial sums `dst` does not keep are summed (all of them, where `dst`
+    sums over other axes), then each dim whose axes change is gathered
+    whole and cut again; new sum axes then hold the whole at index 0."""
+    moved = bool(set(dst.sum) - set(src.sum))
+    extra = [a for a in mesh.names if a in src.sum and (moved or a not in dst.sum)]
+    if extra:
+        x = sum_partials(x, mesh, tuple(extra))
+    changed = [d for d, (a, b) in enumerate(zip(src.dims, dst.dims)) if a != b]
+    for d in changed:
+        if src.dims[d]:
+            x = all_gather(x, d, mesh, src.dims[d])
+    for d in changed:
+        if dst.dims[d]:
+            x = narrow(x, d, mesh, dst.dims[d])
+    if moved and not _trivial(mesh, dst.sum):
+        x = _KeepAtZero.apply(x, mesh, tuple(dst.sum))
+    return x
+
+
+def reshard_collectives(src: TensorSharding, dst: TensorSharding, mesh: MachineMesh,
+                        grad: bool) -> Counter:
+    """The collectives `reshard(x, src, dst)` issues in a step: forward, and
+    backward where x needs a gradient (`grad`)."""
+    out = Counter()
+    moved = bool(set(dst.sum) - set(src.sum))
+    extra = [a for a in src.sum if moved or a not in dst.sum]
+    if extra and not _trivial(mesh, extra):
+        out["all_reduce"] += 1
+    for a, b in zip(src.dims, dst.dims):
+        if a != b:
+            if a and not _trivial(mesh, a):
+                out["all_gather"] += 1
+            if b and not _trivial(mesh, b) and grad:
+                out["all_gather"] += 1
+    return out
+
+
+def bucket_all_reduce(mesh: MachineMesh, buckets: Dict[Axes, List[torch.Tensor]]
+                      ) -> Dict[Axes, List[torch.Tensor]]:
+    """Sum each bucket's tensors over its axes with one all-reduce per
+    bucket, in f32 or wider (buckets over one rank are returned as they
+    are)."""
+    out = {}
+    for axes in sorted(buckets, key=lambda a: (len(a), a)):
+        tensors = buckets[axes]
+        if _trivial(mesh, axes) or not tensors:
+            out[axes] = tensors
+            continue
+        wide = _wide(tensors[0].dtype)
+        for t in tensors[1:]:
+            wide = torch.promote_types(wide, t.dtype)
+        flat = torch.cat([t.detach().reshape(-1).to(wide) for t in tensors])
+        dist.all_reduce(flat, group=mesh.group_of(axes)[0])
+        mesh.counts["all_reduce"] += 1
+        views, offset = [], 0
+        for t in tensors:
+            views.append(flat[offset:offset + t.numel()].view(t.shape))
+            offset += t.numel()
+        out[axes] = views
+    return out
+
+
+def mesh_order(mesh: MachineMesh, axes) -> Axes:
+    """`axes` as a tuple in the mesh's axis order."""
+    axes = set(axes)
+    return tuple(a for a in mesh.names if a in axes)
+
+
+def sum_group_zero(mesh: MachineMesh, axes: Axes) -> bool:
+    """Whether this rank is at coordinate 0 on every one of `axes`."""
+    return all(int(mesh.coords[a]) == 0 for a in axes)
+
+
+def placed_axes(shardings: Sequence[Optional[TensorSharding]]) -> frozenset:
+    out = frozenset()
+    for s in shardings:
+        if s is not None:
+            out |= s.placed()
+    return out
+

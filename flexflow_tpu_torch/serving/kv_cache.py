@@ -6,8 +6,8 @@ cache's degrees are bound to the plan's own sharding (slots follow the
 attention op's batch axes, heads the packed weight's head axes) and lowered
 through regex partition rules (`match_partition_rules`). The port runs the
 single-device lowering: every axis is unsharded, `cache_shardings` of no
-mesh is empty, and a mesh is refused until searched multi-GPU execution
-(ROADMAP A7) lands.
+mesh is empty, and a mesh is refused until cache shardings are ported
+(ROADMAP A12 item 4).
 
 The same degrees price the cache: `per_device_cache_bytes` sums
 `analysis.memory_accounting.kv_cache_piece_bytes` over the layers, the one
@@ -136,7 +136,7 @@ def cache_shardings(layers: List[CacheLayer], mesh) -> Dict[str, Spec]:
     if mesh is None:
         return {}
     raise NotImplementedError(
-        "cache shardings over a mesh wait for searched multi-GPU execution (ROADMAP A7)"
+        "cache shardings over a mesh are not ported yet (ROADMAP A12 item 4)"
     )
 
 

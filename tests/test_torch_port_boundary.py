@@ -97,7 +97,8 @@ def test_port_runs_a_step_with_jax_and_the_jax_package_refused():
         xs = rs.randn(2, 128, 128).astype(np.float32)
         _, _, sp_loss, _ = sp.train_step(*sp.initialize(seed=0), {"x": xs}, rs.randint(0, 64, (2, 128)))
         dist.destroy_process_group()
-        assert np.isfinite(float(sp_loss)) and sp.all_reduces == 1
+        # a mesh of one rank issues no collective
+        assert np.isfinite(float(sp_loss)) and sp.all_reduces == 0
 
         from flexflow_tpu_torch.observability.metrics import read_run_events
         from flexflow_tpu_torch.runtime.fault import FaultSchedule

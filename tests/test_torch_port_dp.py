@@ -293,3 +293,132 @@ def test_profile_step_splits_copy_kernels_by_their_launcher():
                    "layout copy (other ops)": 0.25}
     assert profile_step.group_of("ncclDevKernel_AllReduce_Sum_f32_RING_LL") == "all-reduce (NCCL)"
     assert profile_step.group_of("ff_flash_bwd_dq_bhsd_kernel") == "flash attention (port kernels)"
+
+
+# -- C2: BatchNorm over the whole batch ---------------------------------------
+
+# One rank of the BatchNorm probe (conv 3->4, BatchNorm, Flat, Dense 10);
+# argv: rank, work dir.
+BN_WORKER = textwrap.dedent(
+    """
+    import os, sys
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from flexflow_tpu_torch.interop import params_from_numpy, params_to_numpy
+    from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
+    from flexflow_tpu_torch.parallel import DataParallelTrainingInstance, init_file_group
+    from flexflow_tpu_torch.pcg import AdamOptimizerAttrs, ComputationGraphBuilder
+
+    torch.set_num_threads(2)
+    rank, work = int(sys.argv[1]), sys.argv[2]
+    init_file_group(os.path.join(work, "store"), rank, 2, device="cpu")
+    b = ComputationGraphBuilder()
+    x = b.create_input([8, 3, 8, 8], name="x")
+    h = b.flat(b.batch_norm(b.conv2d(x, 4, (3, 3), (1, 1), (1, 1))))
+    logits = b.dense(h, 10)
+    inst = DataParallelTrainingInstance(b.graph, logits, SparseCategoricalCrossEntropyLossAttrs(),
+                                        AdamOptimizerAttrs(alpha=1e-3), device="cpu",
+                                        metrics=frozenset({"accuracy"}))
+    opt = inst.initialize(seed=0)[1]
+    data = np.load(os.path.join(work, "inputs.npz"))
+    params = params_from_numpy(b.graph, {k: data[k] for k in data.files if k.startswith("n")},
+                               "cpu")
+    mvals = {}
+    _, grads = inst.loss_and_grads(params, {"x": data["x"]}, data["y"], metrics=mvals)
+    losses = []
+    for _ in range(3):
+        params, opt, loss, _ = inst.train_step(params, opt, {"x": data["x"]}, data["y"])
+        losses.append(float(loss))
+    np.savez(os.path.join(work, f"rank{rank}.npz"), losses=np.array(losses),
+             train_all=mvals["train_all"], train_correct=int(mvals["train_correct"]),
+             **{f"grad_{k}": g.numpy() for k, g in grads.items()},
+             **{f"param_{k}": v for k, v in params_to_numpy(params).items()})
+    dist.destroy_process_group()
+    """
+)
+
+
+def _bn_probe(builder):
+    b = builder()
+    x = b.create_input([8, 3, 8, 8], name="x")
+    h = b.flat(b.batch_norm(b.conv2d(x, 4, (3, 3), (1, 1), (1, 1))))
+    return b.graph, b.dense(h, 10)
+
+
+@pytest.fixture(scope="module")
+def bn_runs(tmp_path_factory):
+    """The probe on the JAX DP trainer (2 virtual devices) and on the
+    port's (2 gloo ranks), from the same numpy parameters and batch: 8
+    samples of 3x8x8, each with its own mean."""
+    from flexflow_tpu.pcg.computation_graph_builder import ComputationGraphBuilder as JBuilder
+
+    graph, logits = _bn_probe(JBuilder)
+    inst = JaxDP(graph, logits, JaxSCCE(), JaxAdam(alpha=1e-3), devices=jax.devices()[:RANKS])
+    params, opt = inst.initialize(seed=0)
+    init = {k: np.array(v) for k, v in params.items()}
+    rs = np.random.RandomState(0)
+    x = (rs.randn(8, 3, 8, 8) + np.arange(8)[:, None, None, None]).astype(np.float32)
+    y = rs.randint(0, 10, 8).astype(np.int32)
+    xj, yj = jnp.asarray(x), jnp.asarray(y)
+    grads = jax.jit(jax.grad(lambda p, x, y: inst.loss_fn(p, {"x": x}, y)[0]),
+                    in_shardings=(inst.replicated, inst.batch_sharded, inst.batch_sharded)
+                    )(params, xj, yj)
+    losses = []
+    for _ in range(STEPS):
+        params, opt, loss, _ = inst.train_step(params, opt, {"x": xj}, yj)
+        losses.append(float(loss))
+    work = tmp_path_factory.mktemp("dp_batch_norm")
+    np.savez(work / "inputs.npz", x=x, y=y, **init)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    procs = [subprocess.Popen([sys.executable, "-c", BN_WORKER, str(r), str(work)], cwd=REPO,
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(RANKS)]
+    for p in procs:
+        _, err = p.communicate(timeout=120)
+        assert p.returncode == 0, err
+    ranks = [dict(np.load(work / f"rank{r}.npz")) for r in range(RANKS)]
+    # the conv bias: BatchNorm cancels it, so its gradient is about 0
+    (conv,) = [n for n in graph.topological_ordering()
+               if type(graph.op_attrs(n)).__name__ == "Conv2DAttrs"]
+    bias = graph.inputs_of(conv)[2].node
+    return dict(init=init, jax=dict(losses=losses, params={k: np.asarray(v) for k, v in
+                                                           params.items()},
+                                    grads={k: np.asarray(g) for k, g in grads.items()}),
+                ranks=ranks, conv_bias=f"n{bias.idx}", x=x, y=y)
+
+
+def test_batch_norm_takes_the_whole_batchs_statistics_across_ranks(bn_runs):
+    """C2: the probe's losses on 2 ranks equal the JAX DP trainer's."""
+    for r in bn_runs["ranks"]:
+        np.testing.assert_allclose(r["losses"], bn_runs["jax"]["losses"], rtol=1e-5)
+
+
+def test_batch_norm_gradients_match_gspmds(bn_runs):
+    want, bias = bn_runs["jax"]["grads"], bn_runs["conv_bias"]
+    for r in bn_runs["ranks"]:
+        for k, g in want.items():
+            got = r[f"grad_{k}"]
+            if k == bias:
+                np.testing.assert_allclose(got, g, atol=1e-6)
+            else:
+                assert _rel(got, g) < 1e-5, k
+
+
+def test_batch_norm_parameters_after_three_steps_match(bn_runs):
+    for r in bn_runs["ranks"]:
+        for k, want in bn_runs["jax"]["params"].items():
+            if k == bn_runs["conv_bias"]:
+                # Adam scales its roundoff gradient to steps of up to alpha
+                # either way: only the bound of three such steps holds
+                assert np.abs(r[f"param_{k}"] - want).max() <= 2 * STEPS * 1e-3
+                continue
+            moved = np.linalg.norm(want - bn_runs["init"][k])
+            assert np.linalg.norm(r[f"param_{k}"] - want) <= 1e-3 * moved, k
+
+
+def test_metrics_are_summed_over_the_ranks(bn_runs):
+    """A7 item 2: each rank reports the whole batch's metrics."""
+    for r in bn_runs["ranks"]:
+        assert int(r["train_all"]) == 8
+    assert int(bn_runs["ranks"][0]["train_correct"]) == int(bn_runs["ranks"][1]["train_correct"])

@@ -197,7 +197,7 @@ def test_partition_rules_and_single_device_allocation():
     with pytest.raises(ValueError, match="partition rule not found for cache leaf: aux/step"):
         match_partition_rules(rules[:-1], names)
     assert cache_shardings(layers, None) == {}
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A12 item 4"):
         cache_shardings(layers, object())
     prog = ServingProgram(pcg, MEM, device="cpu")
     cache = prog.init_cache()
