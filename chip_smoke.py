@@ -134,43 +134,86 @@ then, in a one-rank NCCL process group opened over a file:// store:
 21. train_sp      SP_LONGCTX (the flagship's widths, causal, batch 4, seq
                   8192) through the sequence-parallel trainer at world size
                   1, whose attention runs the ring-flash step kernels;
+22. train_dp_window  the flagship through DataParallelTrainingInstance.
+                  multi_train_step at K=8 (bf16, Adam(1e-4)): the first
+                  window captures one CUDA graph, every gradient bucket's
+                  NCCL all-reduce issued through the NCCL group during
+                  the capture (at world size 1 NCCL runs no kernel for an
+                  in-place all-reduce, so what the graph holds of them
+                  shows only on several cards), two
+                  windows bitwise equal to 16 train_step calls (or within
+                  the window bounds, saying so), a profiled window whose
+                  trace counts rows 9-11's four kernels 96 times and no
+                  other flash or ring kernel: step ms, idle share, MFU, the
+                  buckets and those issued before the backward's end;
 
 then several ranks, each a process of its own started after the build,
 sharing the card over an explicit gloo group (NCCL refuses two ranks on one
 card; gloo stages each collective through host memory, so their step times
 are no NVLink or NCCL figure):
 
-22. parity_tp     the small flagship (4 heads of 64) under the tp2 seed on 2
+23. parity_tp     the small flagship (4 heads of 64) under the tp2 seed on 2
                   ranks and the dp2 x tp2 seed on 4: two Adam steps on the
                   card (bf16, rows 9-11 at the local head count) against the
                   same ranks on the CPU (f32, plain versions): the losses,
                   each rank's launches, and every step's collectives equal
                   to what the plan implies;
-23. train_tp      the flagship at full width and depth (batch 16) under the
+24. train_tp      the flagship at full width and depth (batch 16) under the
                   tp2 seed on 2 ranks: a warm-up and 3 timed Adam steps in
                   bf16, 12 launches a step per rank of each of rows 9-11
                   and no other flash kernel, 48 all-reduces and 1
                   all-gather a step as the plan implies, the losses and the
                   gathered parameters against the single-device
                   train_step from the same values on the card;
-24. fit_searched  FFModel.compile(search_budget=2) on 2 ranks at the
+25. fit_searched  FFModel.compile(search_budget=2) on 2 ranks at the
                   flagship's widths and depth (batch 16): rank 0 searches
                   on the H100 constants, every rank trains the winner it
                   prints (a parallel plan), rank 0 exports the strategy,
                   and a second compile that imports it trains to
                   bitwise-equal losses and parameters;
+26. parity_ranks_window  FFModel.fit at steps_per_dispatch=4 over 5 batches
+                  (a window of 4 and a tail of 1) on 2 ranks, data parallel
+                  (the small flagship, its gradients in 10 buckets) and the
+                  imported fit_searched plan: bitwise equal to the K=1 fit
+                  on every rank, each window reported `captured: false`
+                  (gloo's host-staged collectives fit no CUDA graph);
+27. calibrate_ranks  compiler.calibration over 2 and over 4 ranks: one
+                  equal calibration on every rank (all-reduce constants,
+                  overlap, shard speedup), the ranks an emulated mesh;
+                  then at 2 ranks fit_searched's job with
+                  cost_model="calibrated": the winner it prints, its
+                  estimate and the serial plan's (no winner required);
+28. parity_overlap  the collective matmuls on 2 and on 4 ranks (bf16): a
+                  Linear fed by a Combine (ag_matmul) and a row Linear
+                  feeding a Reduction (matmul_rs) with the overlap lowering
+                  against the serial one on the same parameters: forwards
+                  within the JAX spec's bf16 tolerance, k-1 ring steps a
+                  forward and a step (the ring staged through pinned host
+                  memory), a finite train step issuing what its plan
+                  implies;
+29. torchrun      `torchrun --standalone --nproc_per_node 2` runs a 2-rank
+                  searched fit of the small flagship whose ranks open their
+                  group through runtime.distributed.initialize(backend=
+                  "gloo"); rank 0 alone searches, and the losses and
+                  parameters are bitwise the same job's over a file://
+                  store;
+
+Each multi-rank training phase prints its MFU (the model's own step flops,
+kernels.ops.graph_step_flops, over step seconds x ranks x 989 TFLOP/s) and
+each step's gradient buckets with those issued before the backward's end,
+at least one wherever a step has two or more;
 
 then serving, whose attention is dense f32 as in the JAX package (every
 flash and ring launch count must stay at 0):
 
-25. parity_serve  two small serving LMs (ServingLMConfig(), and 2 layers of
+30. parity_serve  two small serving LMs (ServingLMConfig(), and 2 layers of
                   embed 256 in 2 heads of 128) from the same numpy
                   parameters on the card and on the CPU (f32 both): prefill
                   logits and caches, the tokens of 8 seeded requests through
                   ServingEngine in continuous and static mode, one fused
                   decode window bitwise equal to one-step windows, and two
                   captured windows bitwise equal to the eager body;
-26. serve         the serving LM at the flagship's widths (SERVE_LM) serving
+31. serve         the serving LM at the flagship's widths (SERVE_LM) serving
                   SERVE_TRAFFIC (64 slots of 1024 positions, 128 requests,
                   continuous batching, windows of 8) after one warm-up
                   request: requests/s, output tokens/s, ms/token p50/p99,
@@ -195,7 +238,8 @@ backwards and deltas, with their design and ptxas figures; each kernel's
 launches are its wrapper's counts in the train phases and fit (summed
 over the ranks in the multi-rank phases), the
 search's wrapper counts with each leaf's graph replays added, and the
-profiler's count in fit_window), and last the
+profiler's count in fit_window and in train_dp_window's profiled
+window), and last the
 line {"ok": true,
 "device": {...}}. Any failed check raises and the script exits non-zero.
 Without a CUDA device, or away from a checkout of the repository, it exits
@@ -1361,7 +1405,8 @@ def _train_phase(smi, phase, inst, config, x_shape, vocab, layers, flops, on_pat
     set to 0 just before and read just after; the wrappers named in
     `on_path` must each launch once per layer per step, every other one
     never, and a distributed trainer must issue the all-reduces of its plan
-    (the data-parallel one: one a step)."""
+    (the data-parallel one: one a gradient bucket of its plan, which the
+    parameters' sizes and the bucket cap give, and one of the loss)."""
     import torch
     from flexflow_tpu_torch.kernels import flash_attention as fa
 
@@ -1383,17 +1428,20 @@ def _train_phase(smi, phase, inst, config, x_shape, vocab, layers, flops, on_pat
     if launches != want:
         raise AssertionError(f"{phase}: launches {launches}, expected {want}")
     if distributed:
-        # the data-parallel trainer's one bucket a step; the PCG trainer's
-        # what its plan implies (none on a mesh of one rank)
-        per_step = (inst.step_collectives()["all_reduce"] if hasattr(inst, "step_collectives")
-                    else 1)
+        # what the plan implies: the data-parallel trainer's gradient
+        # buckets and the loss's bucket; the PCG trainer's collectives (none
+        # on a mesh of one rank)
+        per_step = inst.step_collectives()["all_reduce"]
         all_reduces = inst.all_reduces - all_reduces
         if all_reduces != per_step * steps:
             raise AssertionError(f"{phase}: {all_reduces} all-reduces in {steps} steps, "
                                  f"expected {per_step} a step")
         extra.update(world_size=1, backend="nccl", all_reduces_per_step=all_reduces / steps,
                      all_reduce_bytes=4 * (1 + sum(p.numel() for p in params.values()))
-                     if per_step else 0)
+                     if per_step else 0,
+                     gradient_buckets=len(getattr(inst, "buckets", ())),
+                     **(_require_early_buckets(phase, inst.bucket_log[-steps:])
+                        if getattr(inst, "buckets", None) else {}))
 
     median_ms = statistics.median(step_ms)
     MEDIAN_STEP_MS[phase] = median_ms
@@ -2743,6 +2791,142 @@ def phase_fit_bert(smi: str, steps: int = STEPS):
     return {n: launches[n] for n in D256_WRAPPERS}
 
 
+DP_WINDOW_K = 8
+DP_WINDOW_WINDOWS = 2
+DP_WINDOW_KERNELS = {  # what rows 9-11 launch, by the wrapper whose launches each counts
+    "ff_flash_fwd_bhsd_kernel": "flash_fwd_bhsd", "ff_flash_delta_bhsd_kernel": "flash_delta_bhsd",
+    "ff_flash_bwd_dkv_bhsd_kernel": "flash_bwd_bhsd",
+    "ff_flash_bwd_dq_bhsd_kernel": "flash_bwd_bhsd",
+}
+
+
+def _profiled(fn) -> dict:
+    """fn() under torch.profiler: host ms to its synchronized end, the card's
+    kernel ms, each flash and ring kernel's launches, the NCCL kernels'."""
+    import torch
+    from torch.autograd import DeviceType
+    from flexflow_tpu_torch.profile_step import device_trace
+
+    torch.cuda.synchronize()
+    with device_trace() as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - start) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {"host_ms": host_ms,
+            "kernel_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "flash": {e.key: e.count for e in kernels
+                      if e.key.startswith(("ff_flash_", "ff_ring_"))},
+            "nccl": {e.key[:80]: e.count for e in kernels if "nccl" in e.key.lower()}}
+
+
+def phase_train_dp_window(smi: str, k: int = DP_WINDOW_K, windows: int = DP_WINDOW_WINDOWS):
+    """The flagship through DataParallelTrainingInstance.multi_train_step on
+    the one-rank NCCL group at K = k (bf16, Adam(1e-4)): the first window
+    captures one CUDA graph, which each window replays; the capturing call
+    issues every bucket's all-reduce through the NCCL group, in the warm-up
+    and in the capture (at world size 1 NCCL runs no kernel for an in-place
+    all-reduce, so what the graph holds of them shows only on several
+    cards); `windows` windows from
+    compile's parameters, bitwise equal to k * windows train_step calls (or
+    within the window bounds, saying so); a third, profiled window whose
+    trace counts rows 9-11's four kernels 96 times (12 layers x 8 steps)
+    and no other flash or ring kernel: step ms, idle share, buckets."""
+    import torch
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels.optimizer import make_optimizer_state
+    from flexflow_tpu_torch.models import FLAGSHIP, build_flagship_cg
+    from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
+    from flexflow_tpu_torch.parallel import DataParallelTrainingInstance
+    from flexflow_tpu_torch.pcg import AdamOptimizerAttrs
+
+    cfg, b = FLAGSHIP, FLAGSHIP["batch"]
+    inst = DataParallelTrainingInstance(
+        *build_flagship_cg(**cfg), SparseCategoricalCrossEntropyLossAttrs(),
+        AdamOptimizerAttrs(alpha=1e-4), compute_dtype=torch.bfloat16)
+    params, opt = inst.initialize(seed=0)
+    init = {key: p.clone() for key, p in params.items()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    xs = torch.randn(windows + 1, k, b, cfg["seq"], cfg["embed"], generator=gen, device="cuda")
+    ys = torch.randint(0, cfg["vocab"], (windows + 1, k, b, cfg["seq"]), generator=gen,
+                       device="cuda")
+    rng = torch.Generator(device="cuda").manual_seed(0)
+    before, losses = inst.all_reduces, []
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    params, opt, rng, window_losses, _ = inst.multi_train_step(params, opt, {"x": xs[0]}, ys[0],
+                                                               rng)
+    losses.append(window_losses)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - start) * 1e3
+    per_step = inst.step_collectives()["all_reduce"]
+    captured_all_reduces = inst.all_reduces - before
+    if captured_all_reduces != 2 * k * per_step or not inst.last_window["captured"]:
+        raise AssertionError(f"train_dp_window: the capturing call issued {captured_all_reduces} "
+                             f"all-reduces through NCCL (expected warm-up and capture, "
+                             f"{2 * k * per_step}); window {inst.last_window}")
+    buckets = _require_early_buckets("train_dp_window", inst.bucket_log)
+    fa.reset_launch_counts()
+    window_ms = []
+    for w in range(1, windows):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        params, opt, rng, window_losses, _ = inst.multi_train_step(params, opt, {"x": xs[w]},
+                                                                   ys[w], rng)
+        losses.append(window_losses)
+        torch.cuda.synchronize()
+        window_ms.append((time.perf_counter() - start) * 1e3)
+    counters = _flash_launches()
+    if inst.graphs.captures != 1 or any(counters.values()) or inst.all_reduces != \
+            before + captured_all_reduces:
+        raise AssertionError(f"train_dp_window: {inst.graphs.captures} captures, wrapper counts "
+                             f"{counters}, all-reduces issued by replays "
+                             f"{inst.all_reduces - before - captured_all_reduces}")
+    fitted, fitted_losses = {key: p.clone() for key, p in params.items()}, torch.cat(losses)
+    trace = _profiled(lambda: inst.multi_train_step(params, opt, {"x": xs[windows]},
+                                                    ys[windows], rng))
+    want = {name: cfg["layers"] * k for name in DP_WINDOW_KERNELS}
+    if trace["flash"] != want:
+        raise AssertionError(f"train_dp_window: the trace of a window counts {trace['flash']}, "
+                             f"expected {want}")
+    capture_ms = inst.graphs.capture_ms[0]
+    inst.graphs.invalidate()
+    del params, opt
+    torch.cuda.empty_cache()
+    ref = {key: p.clone() for key, p in init.items()}
+    ref_opt = make_optimizer_state(inst.optimizer_attrs, ref)
+    ref_rng = torch.Generator(device="cuda").manual_seed(0)
+    ref_losses = []
+    for w in range(windows):
+        for i in range(k):
+            ref, ref_opt, loss, _ = inst.train_step(ref, ref_opt, {"x": xs[w, i]}, ys[w, i],
+                                                    ref_rng)
+            ref_losses.append(loss.reshape(1))
+    parity = _window_parity("train_dp_window", fitted, ref, fitted_losses, torch.cat(ref_losses))
+    step_ms = statistics.median(window_ms) / k
+    flops = inst.step_flops()
+    emit({"phase": "train_dp_window", "config": cfg, "card": smi, "world_size": 1,
+          "backend": "nccl", "compute_dtype": "bf16", "optimizer": "adam(alpha=1e-4)",
+          "steps_per_dispatch": k, "windows": windows, "captures": inst.graphs.captures,
+          "capture_ms": capture_ms, "first_window_ms": first_ms, "window_ms": window_ms,
+          "step_ms": step_ms, "tokens_per_s": b * cfg["seq"] / (step_ms / 1e3),
+          "step_flops": flops, "mfu": _mfu(flops, step_ms, 1),
+          "gradient_buckets": len(inst.buckets), "all_reduces_per_step": per_step,
+          "nccl_all_reduces_issued_capturing": captured_all_reduces,
+          "profiled_window": {"host_ms": trace["host_ms"], "kernel_ms": trace["kernel_ms"],
+                              "idle_share": 1.0 - trace["kernel_ms"] / trace["host_ms"],
+                              "nccl_kernels": trace["nccl"]},
+          "launches_per_window": trace["flash"], "equal_to_train_step": parity,
+          "last_losses": fitted_losses[-2:].tolist(), **buckets})
+    del inst, fitted, ref, ref_opt, xs, ys
+    torch.cuda.empty_cache()
+    # the profiled window's launches (the timed replays run no wrapper and
+    # are not traced)
+    return {wrapper: trace["flash"][name] for name, wrapper in DP_WINDOW_KERNELS.items()
+            if wrapper != "flash_bwd_bhsd" or name.endswith("dq_bhsd_kernel")}
+
+
 # -- several ranks sharing the card ------------------------------------------
 
 SHARED = "ranks sharing one H100 over gloo (host-staged collectives)"
@@ -2851,8 +3035,176 @@ def train(pcg, on, compute, warmup, steps, keep=False):
         per_step.append({k: v - before.get(k, 0) for k, v in inst.collectives.items()})
     res = dict(losses=losses, step_ms=step_ms, launches=launches(), local_heads=sorted(set(heads)),
                flash_calls=len(heads), collectives_per_step=per_step,
-               implied=dict(inst.step_collectives()))
+               implied=dict(inst.step_collectives()), buckets=bucket_stats(inst),
+               step_flops=inst.step_flops())
     return res, (init, by_name(pcg, inst, params)) if keep else None
+
+
+def bucket_stats(inst):
+    """The gradient buckets a step issued, and of them those issued before
+    the backward produced its last gradient, per step so far."""
+    return [list(b) for b in inst.bucket_log]
+
+
+def windowed_fit(cfg, k, steps, **kw):
+    """FFModel over the ranks at steps_per_dispatch=k, fit on `steps`
+    seeded batches, unshuffled: every step's loss, the parameters (the
+    rank's pieces), each window's stats, the buckets, the launches."""
+    from flexflow_tpu_torch.core import AdamOptimizer, FFConfig, FFModel
+
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(steps * cfg["batch"], cfg["seq"], cfg["embed"], generator=gen)
+    y = torch.randint(0, cfg["vocab"], (steps * cfg["batch"], cfg["seq"]), generator=gen)
+    m = FFModel.from_computation_graph(
+        *build_flagship_cg(**cfg), device=device,
+        config=FFConfig(batch_size=cfg["batch"], seed=0, print_freq=0, steps_per_dispatch=k,
+                        **kw))
+    m.compile(AdamOptimizer(alpha=1e-4), "sparse_categorical_crossentropy",
+              metrics=["accuracy"], compute_dtype=dtype)
+    inst = m.instance
+    losses, windows = [], []
+    step, multi = inst.train_step, inst.multi_train_step
+
+    def stepped(*a, **kw):
+        res = step(*a, **kw)
+        losses.append(res[2].float().reshape(1))
+        return res
+
+    def windowed(*a, **kw):
+        res = multi(*a, **kw)
+        windows.append(dict(inst.last_window))
+        return res
+
+    inst.train_step, inst.multi_train_step = stepped, windowed
+    fa.reset_launch_counts()
+    sync()
+    start = time.perf_counter()
+    m.fit(x.numpy(), y.numpy().astype(np.int32), epochs=1, shuffle=False, verbose=False)
+    sync()
+    fit_ms = (time.perf_counter() - start) * 1e3
+    del inst.train_step, inst.multi_train_step
+    return dict(model=m, losses=torch.cat(losses).cpu(), windows=windows, fit_ms=fit_ms,
+                step_ms=fit_ms / steps, launches=launches(), buckets=bucket_stats(inst),
+                buckets_in_plan=len(inst.buckets) if hasattr(inst, "buckets") else sum(
+                    1 for axes, _ in inst.plan.buckets if inst.machine_mesh.size(axes) > 1),
+                kind=type(inst).__name__, step_flops=inst.step_flops())
+
+
+def fit_windows():
+    """parity_ranks_window: K = job["k"] against K = 1, data parallel (the
+    small flagship, the bucket cap at job["dp_cap"] so that its gradients
+    make several buckets) and the imported fit_searched plan."""
+    from flexflow_tpu_torch.parallel import collectives as C
+
+    res = {}
+    for case, cfg, kw in (("dp", job["dp_cfg"], dict(only_data_parallel=True)),
+                          ("imported", job["plan_cfg"],
+                           dict(search_budget=2, import_strategy_file=job["strategy"]))):
+        cap = C.BUCKET_CAP_BYTES
+        if case == "dp":
+            C.BUCKET_CAP_BYTES = job["dp_cap"]
+        runs = {k: windowed_fit(cfg, k, job["steps"], **kw) for k in (1, job["k"])}
+        C.BUCKET_CAP_BYTES = cap
+        one, fused = runs[1], runs[job["k"]]
+        bitwise = bool(torch.equal(one["losses"], fused["losses"]) and all(
+            torch.equal(p, fused["model"].params[key]) for key, p in one["model"].params.items()))
+        res[case] = dict(
+            bitwise=bitwise, losses=one["losses"].tolist(), kind=fused["kind"],
+            windows=fused["windows"], per_step_windows=one["windows"],
+            step_ms={k: r["step_ms"] for k, r in runs.items()},
+            launches={k: r["launches"] for k, r in runs.items()},
+            buckets=fused["buckets"], buckets_in_plan=fused["buckets_in_plan"],
+            step_flops=fused["step_flops"])
+        del runs, one, fused
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return res
+
+
+def calibrate_and_fit(fit_it=True):
+    """calibrate_ranks: the calibration over every rank, whether the ranks
+    share a device, then (fit_it) a compile with cost_model="calibrated"
+    at the flagship's widths and its fit of two steps."""
+    from flexflow_tpu_torch.compiler.calibration import get_calibration
+    from flexflow_tpu_torch.runtime.distributed import ranks_share_a_device
+
+    start = time.perf_counter()
+    cal = get_calibration(device, world)
+    res = dict(calibration=cal.as_dict(), seconds=time.perf_counter() - start,
+               raw=dict(allreduce={k: [c.lat_ms, c.gbps] for k, c in cal.allreduce.items()},
+                        overlap=cal.overlap, shard_speedup=cal.shard_speedup),
+               emulated_mesh=ranks_share_a_device(device))
+    if fit_it:
+        run = windowed_fit(job["plan_cfg"], 1, 2, search_budget=2, cost_model="calibrated")
+        prov = run["model"].search_provenance
+        res.update(provenance={k: prov[k] for k in ("parallel_degrees", "estimated_ms",
+                                                     "serial_ms", "seed_runtimes",
+                                                     "emulated_mesh", "search_seconds")},
+                   losses=run["losses"].tolist(), launches=run["launches"],
+                   step_ms=run["step_ms"], buckets=run["buckets"], kind=run["kind"],
+                   step_flops=run["step_flops"])
+        del run
+    return res
+
+
+def overlap_sites():
+    """parity_overlap: a Linear fed by a Combine (ag_matmul) and a row
+    Linear feeding a Reduction (matmul_rs), degree = the ranks, through
+    DistributedTrainingInstance with and without the overlap lowering on
+    the same parameters (bf16): the forwards, each one's ring steps, a
+    train step's loss and collectives."""
+    from flexflow_tpu_torch.op_attrs.datatype import DataType
+    from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
+        ParallelTensorDims, ParallelTensorShape, ShardParallelDim)
+    from flexflow_tpu_torch.pcg import SGDOptimizerAttrs
+    from flexflow_tpu_torch.pcg.parallel_computation_graph_builder import (
+        ParallelComputationGraphBuilder)
+
+    rows, depth, width = job["overlap_shape"]
+    res = {}
+    for kind in ("ag_matmul", "matmul_rs"):
+        b = ParallelComputationGraphBuilder()
+        degrees = (world, 1) if kind == "ag_matmul" else (1, world)
+        x = b.create_input_tensor(ParallelTensorShape(ParallelTensorDims(
+            (ShardParallelDim(rows, degrees[0]), ShardParallelDim(depth, degrees[1])), 1, 1),
+            DataType.FLOAT), name="x")
+        if kind == "ag_matmul":
+            logits = b.dense(b.parallel_combine(x, 0, world), width, use_bias=False, name="head")
+        else:
+            logits = b.parallel_reduce(b.dense(x, width, use_bias=False, name="fc"), world)
+        gen = torch.Generator().manual_seed(2)
+        xv = torch.randn(rows, depth, generator=gen)
+        yv = torch.randint(0, width, (rows,), generator=gen)
+        mesh = MachineMesh.for_devices(world)
+        got = {}
+        for overlap in (False, True):
+            inst = DistributedTrainingInstance(
+                b.graph, logits, SparseCategoricalCrossEntropyLossAttrs(),
+                SGDOptimizerAttrs(lr=0.1), mesh, compute_dtype=torch.bfloat16, device=device,
+                overlap=overlap)
+            params, opt = inst.initialize(seed=0)
+            before = mesh.counts["ring_step"]
+            fwd = inst.forward({k: p.bfloat16() for k, p in params.items()},
+                               {"x": xv.bfloat16()})
+            ring = mesh.counts["ring_step"] - before
+            counts = dict(mesh.counts)
+            params, opt, loss, _ = inst.train_step(params, opt, {"x": xv}, yv)
+            step = {c: v - counts.get(c, 0) for c, v in mesh.counts.items()
+                    if v - counts.get(c, 0)}
+            got[overlap] = dict(fwd=fwd.float().cpu(), ring=ring, loss=float(loss), step=step,
+                                implied=dict(inst.step_collectives()),
+                                fused=sorted(inst.fused_sites.values()))
+        serial, fused = got[False], got[True]
+        diff = (fused["fwd"] - serial["fwd"]).abs()
+        res[kind] = dict(
+            max_abs_err=float(diff.max()),
+            max_rel_err=float((diff / serial["fwd"].abs().clamp_min(1e-30)).max()),
+            within=bool(torch.allclose(fused["fwd"], serial["fwd"], rtol=job["bf16_tol"][kind][0],
+                                       atol=job["bf16_tol"][kind][1])),
+            ring_steps=fused["ring"], serial_ring_steps=serial["ring"],
+            fused=fused["fused"], losses=[serial["loss"], fused["loss"]],
+            step=fused["step"], implied=fused["implied"], serial_step=serial["step"])
+    return res
 
 
 if job["mode"] == "parity":
@@ -2925,11 +3277,19 @@ elif job["mode"] == "fit":
                     launches=launches(), local_heads=sorted(set(heads)),
                     collectives_per_step={k: (v - before.get(k, 0)) / steps
                                           for k, v in inst.collectives.items()},
-                    implied=dict(inst.step_collectives()),
+                    implied=dict(inst.step_collectives()), buckets=bucket_stats(inst),
+                    step_flops=inst.step_flops(),
                     digest=float(sum(p.double().sum() for p in m.params.values())))
 
     out["searched"] = fit(export_strategy_file=job["strategy"])
     out["imported"] = fit(import_strategy_file=job["strategy"])
+elif job["mode"] == "windows":
+    out["windows"] = fit_windows()
+    out["calibrate"] = calibrate_and_fit()
+    out["overlap"] = overlap_sites()
+elif job["mode"] == "calibrate_overlap":
+    out["calibrate"] = calibrate_and_fit(fit_it=False)
+    out["overlap"] = overlap_sites()
 with open(f"{job['out']}.rank{rank}.json", "w") as f:
     json.dump(out, f)
 dist.destroy_process_group()
@@ -3016,12 +3376,15 @@ def phase_parity_tp(smi: str, tmp: str, device: str = "cuda:0") -> dict:
         rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
         if not max(rel) < PARITY_BOUND:
             raise AssertionError(f"parity_tp {name}: card losses {card} vs CPU {cpu}")
+        first = ranks[0]["card"]
         emit({"phase": "parity_tp", "plan": name, "ranks": world, "sharing": f"{world} {SHARED}",
               "card": smi, "config": TP_PARITY, "losses": {"cuda": card, "cpu": cpu},
               "rel_err": rel, "bound": PARITY_BOUND, "local_heads": local,
-              "launches_per_rank": ranks[0]["card"]["launches"],
-              "collectives_per_step": ranks[0]["card"]["implied"],
-              "card_step_ms": ranks[0]["card"]["step_ms"]})
+              "launches_per_rank": first["launches"],
+              "collectives_per_step": first["implied"],
+              "card_step_ms": first["step_ms"],
+              "mfu": [_mfu(first["step_flops"], ms, world) for ms in first["step_ms"]],
+              **_require_early_buckets(f"parity_tp {name}", first["buckets"])})
     return launches
 
 
@@ -3057,7 +3420,8 @@ def phase_train_tp(smi: str, tmp: str, device: str = "cuda:0") -> dict:
           "tokens_per_s": TP_TRAIN["batch"] * TP_TRAIN["seq"] / (median_ms / 1e3),
           "step_flops": model_step_flops(**TP_TRAIN),
           "collectives_per_step": card["implied"], "launches_per_rank": card["launches"],
-          "local_heads": card["local_heads"],
+          "local_heads": card["local_heads"], "mfu": _mfu(card["step_flops"], median_ms, 2),
+          **_require_early_buckets("train_tp", card["buckets"]),
           "note": "step times measure host-staged gloo collectives of two processes on one "
                   "card, not NVLink or NCCL"})
     return launches
@@ -3101,7 +3465,286 @@ def phase_fit_searched(smi: str, tmp: str, device: str = "cuda:0") -> dict:
           "compile_s": first["compile_s"], "losses": first["losses"],
           "imported_losses": ranks[0]["imported"]["losses"], "bitwise_equal": True,
           "step_ms": first["step_ms"], "local_heads": first["local_heads"],
+          "mfu": _mfu(first["step_flops"], first["step_ms"], 2),
+          **_require_early_buckets("fit_searched", first["buckets"]),
           "collectives_per_step": first["implied"], "launches_per_rank": first["launches"]})
+    return launches
+
+
+# parity_ranks_window: K against K = 1 over 2 ranks, a window of 4 and a tail of 1
+WINDOW_RANKS_K = 4
+WINDOW_RANKS_STEPS = 5
+# the data-parallel case's bucket cap: the small flagship's 6.8 MB of f32
+# gradients in 10 buckets (at the default 25 MiB they are one)
+DP_WINDOW_CAP = 1 << 20
+# parity_overlap's Linears: rows, contraction, outputs; bf16 forward
+# tolerances (rtol, atol) of the JAX spec, tests/test_collective_matmul.py
+OVERLAP_SHAPE = (1024, 2048, 1024)
+OVERLAP_BF16_TOL = {"ag_matmul": (2e-2, 1e-2), "matmul_rs": (1.5e-1, 1e-1)}
+TORCHRUN_STEPS = 3
+
+
+def _mfu(step_flops: float, step_ms: float, ranks: int) -> float:
+    """The multi-device MFU: the model's own work (kernels.ops.
+    graph_step_flops) over step seconds x ranks x the H100's bf16 peak."""
+    return step_flops / (step_ms / 1e3 * ranks * PEAK_BF16)
+
+
+def _require_early_buckets(phase: str, log) -> dict:
+    """Each step's (collective buckets issued, of them before the backward's
+    last gradient): where a step has two or more, at least one must have
+    gone out early (the all-reduces overlap the backward)."""
+    for issued, early in log:
+        if issued >= 2 and early < 1:
+            raise AssertionError(f"{phase}: a step issued {issued} gradient buckets, none "
+                                 "before the backward's end")
+    return {"buckets_per_step": [b for b, _ in log],
+            "issued_before_backward_end": [e for _, e in log]}
+
+
+def _bhsd_counts(phase: str, launches: dict, want_each: int) -> dict:
+    """Rows 9-11 launched want_each times each, no other flash or ring kernel."""
+    want = {name: want_each if name in BHSD_WRAPPERS else 0 for name in launches}
+    if launches != want:
+        raise AssertionError(f"{phase}: launches {launches}, expected {want}")
+    return {name: n for name, n in launches.items() if name in BHSD_WRAPPERS}
+
+
+def phase_ranks(smi: str, tmp: str, world: int, device: str = "cuda:0") -> dict:
+    """On `world` ranks sharing the card over gloo, one launch: at 2 ranks
+    parity_ranks_window, calibrate_ranks (with the calibrated fit_searched)
+    and parity_overlap; at 4 calibrate_ranks and parity_overlap. Emits each
+    phase's line; returns the launches of rows 9-11 by phase."""
+    ranks = run_ranks(world, dict(
+        name=f"ranks{world}", mode="windows" if world == 2 else "calibrate_overlap",
+        cfg=TP_PARITY, dp_cfg=TP_PARITY, plan_cfg=FIT_SEARCHED, device=device, alpha=1e-4,
+        k=WINDOW_RANKS_K, steps=WINDOW_RANKS_STEPS, dp_cap=DP_WINDOW_CAP,
+        strategy=os.path.join(tmp, "fit_searched_strategy.json"), overlap_shape=OVERLAP_SHAPE,
+        bf16_tol=OVERLAP_BF16_TOL), tmp)
+    note = f"{world} {SHARED}: no NVLink or NCCL figure"
+    out = {}
+    if world == 2:
+        out["parity_ranks_window"] = _emit_ranks_window(smi, ranks, note)
+        out["calibrate_ranks"] = _emit_calibrate(smi, ranks, world, note)
+    else:
+        _emit_calibrate(smi, ranks, world, note)
+    _emit_overlap(smi, ranks, world, note)
+    return out
+
+
+def _emit_ranks_window(smi, ranks, note) -> dict:
+    """parity_ranks_window: each case's K-step fit bitwise its per-step fit
+    on every rank, its windows uncaptured (gloo), every step's buckets."""
+    steps, k = WINDOW_RANKS_STEPS, WINDOW_RANKS_K
+    launches, cases = {}, {}
+    for case, cfg in (("dp", TP_PARITY), ("imported", FIT_SEARCHED)):
+        for r in ranks:
+            got = r["windows"][case]
+            phase = f"parity_ranks_window {case} rank {r['rank']}"
+            if not got["bitwise"]:
+                raise AssertionError(f"{phase}: the K={k} fit is not bitwise its K=1 fit")
+            lengths = [w["steps"] for w in got["windows"]]
+            if lengths != [k, steps - k] or any(w["captured"] for w in got["windows"]) or \
+                    got["per_step_windows"]:
+                raise AssertionError(f"{phase}: windows {got['windows']}")
+            for run in got["launches"].values():
+                for name, n in _bhsd_counts(phase, run, cfg["layers"] * steps).items():
+                    launches[name] = launches.get(name, 0) + n
+            buckets = _require_early_buckets(phase, got["buckets"])
+        first = ranks[0]["windows"][case]
+        cases[case] = dict(
+            trainer=first["kind"], config=cfg, losses=first["losses"], bitwise_equal_to_k1=True,
+            windows=first["windows"], step_ms=first["step_ms"],
+            mfu={kk: _mfu(first["step_flops"], ms, 2) for kk, ms in first["step_ms"].items()},
+            buckets_in_plan=first["buckets_in_plan"], **buckets)
+    emit({"phase": "parity_ranks_window", "ranks": 2, "sharing": note, "card": smi,
+          "steps_per_dispatch": k, "steps": steps, "dp_bucket_cap_bytes": DP_WINDOW_CAP,
+          "cases": cases, "captured": False,
+          "captured_why": "gloo stages every collective through host memory: no CUDA graph "
+                          "holds the window, which runs its K steps in one call"})
+    return launches
+
+
+def _emit_calibrate(smi, ranks, world, note) -> dict:
+    """calibrate_ranks: one equal calibration on every rank, its constants
+    finite and positive, the ranks an emulated mesh; at 2 ranks the
+    calibrated search's winner and its fit."""
+    cals = [r["calibrate"] for r in ranks]
+    first = cals[0]
+    if any(c["calibration"] != first["calibration"] or c["raw"] != first["raw"] for c in cals):
+        raise AssertionError("calibrate_ranks: the ranks hold different calibrations")
+    raw = first["raw"]
+    counts = sorted(int(k) for k in raw["allreduce"])
+    want = sorted({2, world})
+    if counts != want or not all(v[0] >= 0 and v[1] > 0 and math.isfinite(v[1])
+                                 for v in raw["allreduce"].values()):
+        raise AssertionError(f"calibrate_ranks: all-reduce constants {raw['allreduce']}")
+    if not (0.0 <= raw["overlap"] <= 1.0 and 1.0 <= raw["shard_speedup"] <= world):
+        raise AssertionError(f"calibrate_ranks: overlap {raw['overlap']}, shard speedup "
+                             f"{raw['shard_speedup']}")
+    if not all(c["emulated_mesh"] for c in cals):
+        raise AssertionError("calibrate_ranks: ranks sharing the card are not an emulated mesh")
+    line = {"phase": "calibrate_ranks", "ranks": world, "sharing": note, "card": smi,
+            "calibration": first["calibration"], "calibrate_s": first["seconds"],
+            "emulated_mesh": True}
+    launches = {}
+    if "provenance" in first:
+        prov = first["provenance"]
+        for c in cals:
+            if c["provenance"]["parallel_degrees"] != prov["parallel_degrees"] or \
+                    not all(math.isfinite(v) for v in c["losses"]):
+                raise AssertionError(f"calibrate_ranks: rank plans or losses differ: {c}")
+            phase = "calibrate_ranks fit"
+            for name, n in _bhsd_counts(phase, c["launches"], FIT_SEARCHED["layers"] * 2).items():
+                launches[name] = launches.get(name, 0) + n
+            buckets = _require_early_buckets(phase, c["buckets"])
+        print(f"calibrate_ranks winner: {prov['parallel_degrees'] or 'serial'} at "
+              f"{prov['estimated_ms']} ms estimated (serial {prov['serial_ms']} ms)", flush=True)
+        line.update(config=FIT_SEARCHED, cost_model="calibrated",
+                    winner=prov["parallel_degrees"] or "serial", estimated_ms=prov["estimated_ms"],
+                    serial_ms=prov["serial_ms"], seed_runtimes=prov["seed_runtimes"],
+                    search_seconds=prov["search_seconds"], trainer=first["kind"],
+                    losses=first["losses"], step_ms=first["step_ms"],
+                    mfu=_mfu(first["step_flops"], first["step_ms"], world), **buckets)
+    emit(line)
+    return launches
+
+
+def _emit_overlap(smi, ranks, world, note) -> None:
+    """parity_overlap: each fused site's forward within the JAX spec's bf16
+    tolerance of the serial lowering's, k - 1 ring steps a forward and a
+    step (none serially), a finite train step issuing what its plan
+    implies."""
+    sites = {}
+    for r in ranks:
+        for kind, got in r["overlap"].items():
+            phase = f"parity_overlap {kind} rank {r['rank']} of {world}"
+            if not got["within"] or got["fused"] != [kind]:
+                raise AssertionError(f"{phase}: fused {got['fused']}, forward off the serial "
+                                     f"lowering's by {got['max_abs_err']} (tolerance "
+                                     f"{OVERLAP_BF16_TOL[kind]})")
+            if got["ring_steps"] != world - 1 or got["serial_ring_steps"] != 0 or \
+                    got["step"].get("ring_step") != world - 1 or got["step"] != got["implied"]:
+                raise AssertionError(f"{phase}: ring steps {got['ring_steps']} a forward, step "
+                                     f"{got['step']}, implied {got['implied']}")
+            if not all(math.isfinite(v) for v in got["losses"]):
+                raise AssertionError(f"{phase}: losses {got['losses']}")
+            sites.setdefault(kind, got)
+    emit({"phase": "parity_overlap", "ranks": world, "sharing": note, "card": smi,
+          "shape": dict(zip(("rows", "contraction", "outputs"), OVERLAP_SHAPE)),
+          "compute_dtype": "bf16", "tolerance": OVERLAP_BF16_TOL,
+          "ring": "gloo on a card: each chunk staged through pinned host memory",
+          "sites": {k: {key: v[key] for key in ("max_abs_err", "max_rel_err", "ring_steps",
+                                                  "losses", "step")}
+                    for k, v in sites.items()}})
+
+
+# One rank of the torchrun phase's job (written to a file: torchrun runs a
+# script); argv: output prefix, "torchrun" or "file" (then rank and store),
+# the config (JSON). Each rank writes <prefix>.rank<r>.json.
+TORCHRUN_JOB = r'''
+import hashlib, json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from flexflow_tpu_torch.core import AdamOptimizer, FFConfig, FFModel
+from flexflow_tpu_torch.kernels import flash_attention as fa
+from flexflow_tpu_torch.models import build_flagship_cg
+from flexflow_tpu_torch.runtime import distributed as D
+
+out, mode, cfg = sys.argv[1], sys.argv[2], json.loads(sys.argv[-1])
+if mode == "torchrun":
+    D.initialize(backend="gloo")
+else:
+    from flexflow_tpu_torch.parallel import init_file_group
+    init_file_group(sys.argv[4], int(sys.argv[3]), 2, device=cfg["device"], backend="gloo")
+device = torch.device(cfg["device"])
+m = FFModel.from_computation_graph(
+    *build_flagship_cg(**cfg["model"]), device=device,
+    config=FFConfig(batch_size=cfg["model"]["batch"], seed=0, print_freq=0, search_budget=2))
+m.compile(AdamOptimizer(alpha=1e-4), "sparse_categorical_crossentropy",
+          compute_dtype=torch.bfloat16 if device.type == "cuda" else None)
+losses, step = [], m.instance.train_step
+m.instance.train_step = lambda *a, **k: losses.append(float((r := step(*a, **k))[2])) or r
+gen = torch.Generator().manual_seed(1)
+n = cfg["steps"] * cfg["model"]["batch"]
+x = torch.randn(n, cfg["model"]["seq"], cfg["model"]["embed"], generator=gen)
+y = torch.randint(0, cfg["model"]["vocab"], (n, cfg["model"]["seq"]), generator=gen)
+fa.reset_launch_counts()
+m.fit(x.numpy(), y.numpy().astype(np.int32), epochs=1, shuffle=False, verbose=False)
+digest = {k: hashlib.sha256(p.detach().float().cpu().numpy().tobytes()).hexdigest()
+          for k, p in m.params.items()}
+res = dict(rank=dist.get_rank(), world=dist.get_world_size(), searches=D.search_calls,
+           degrees=m.search_provenance["parallel_degrees"], losses=losses, digest=digest,
+           launches={fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS},
+           buckets=[list(b) for b in getattr(m.instance, "bucket_log", [])])
+dist.destroy_process_group()
+with open(out + f".rank{res['rank']}.json", "w") as f:
+    json.dump(res, f)
+'''
+
+
+def phase_torchrun(smi: str, tmp: str, device: str = "cuda:0") -> dict:
+    """`torchrun --standalone --nproc_per_node 2` launches a 2-rank searched
+    fit (the small flagship, search_budget=2, bf16, on the card over gloo)
+    that opens its group through runtime.distributed.initialize(backend=
+    "gloo") from torchrun's env://; rank 0 alone searches, and the losses
+    and parameters are bitwise the same job's over a file:// store."""
+    script = os.path.join(tmp, "torchrun_job.py")
+    with open(script, "w") as f:
+        f.write(TORCHRUN_JOB)
+    cfg = json.dumps({"model": TP_PARITY, "steps": TORCHRUN_STEPS, "device": device})
+    env = dict(os.environ, PYTHONPATH=REPO, FLEXFLOW_TPU_AUTO_DISTRIBUTED="1",
+               OMP_NUM_THREADS="4")
+    start = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc_per_node", "2", script, os.path.join(tmp, "torchrun"),
+                          "torchrun", cfg], cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=RANK_TIMEOUT_S)
+    torchrun_s = time.perf_counter() - start
+    if run.returncode != 0:
+        raise AssertionError(f"torchrun: exited {run.returncode}: {run.stderr[-3000:]}")
+    env.pop("FLEXFLOW_TPU_AUTO_DISTRIBUTED")
+    procs = [subprocess.Popen([sys.executable, script, os.path.join(tmp, "file"), "file", str(r),
+                               os.path.join(tmp, "store_torchrun_file"), cfg], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        for r, p in enumerate(procs):
+            _, err = p.communicate(timeout=RANK_TIMEOUT_S)
+            if p.returncode != 0:
+                raise AssertionError(f"torchrun: the file:// job's rank {r} exited "
+                                     f"{p.returncode}: {err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    got = {mode: [json.load(open(os.path.join(tmp, f"{mode}.rank{r}.json"))) for r in range(2)]
+           for mode in ("torchrun", "file")}
+    if [r["searches"] for r in got["torchrun"]] != [1, 0]:
+        raise AssertionError("torchrun: searches by rank "
+                             f"{[r['searches'] for r in got['torchrun']]}")
+    launches = {}
+    for a, b in zip(got["torchrun"], got["file"]):
+        if a["losses"] != b["losses"] or a["digest"] != b["digest"] or a["world"] != 2:
+            raise AssertionError(f"torchrun: rank {a['rank']} trained to {a['losses']}, the "
+                                 f"file:// job's to {b['losses']} (parameters equal: "
+                                 f"{a['digest'] == b['digest']})")
+        if len(a["losses"]) != TORCHRUN_STEPS or not all(math.isfinite(v) for v in a["losses"]):
+            raise AssertionError(f"torchrun: losses {a['losses']}")
+        phase = f"torchrun rank {a['rank']}"
+        for name, n in _bhsd_counts(phase, a["launches"],
+                                    TP_PARITY["layers"] * TORCHRUN_STEPS).items():
+            launches[name] = launches.get(name, 0) + n
+    first = got["torchrun"][0]
+    emit({"phase": "torchrun", "ranks": 2, "sharing": f"2 {SHARED}", "card": smi,
+          "config": TP_PARITY, "steps": TORCHRUN_STEPS, "launcher": "torchrun --standalone "
+          "--nproc_per_node 2, runtime.distributed.initialize(backend='gloo') from env://",
+          "searches_by_rank": [r["searches"] for r in got["torchrun"]],
+          "winner": first["degrees"] or "serial", "losses": first["losses"],
+          "bitwise_equal_to_file_store_job": True, "torchrun_s": torchrun_s,
+          "buckets": first["buckets"]})
     return launches
 
 
@@ -3172,6 +3815,8 @@ def main() -> None:
         phase_ring_replay()
         phase_parity_sp()
         launches["train_sp"] = (phase_train_sp(smi), STEPS)
+        # the window's count is the profiler's: a replayed graph runs no wrapper
+        launches["train_dp_window"] = (phase_train_dp_window(smi), DP_WINDOW_K)
     # several ranks on the card, each a process of its own: after the build,
     # so no rank compiles a kernel; their counts are per rank and step
     with tempfile.TemporaryDirectory() as tmp:
@@ -3179,6 +3824,12 @@ def main() -> None:
                                  sum(2 * world for world, _ in TP_PARITY_PLANS.values()))
         launches["train_tp"] = (phase_train_tp(smi, tmp), 2 * TP_STEPS)
         launches["fit_searched"] = (phase_fit_searched(smi, tmp), 2 * FIT_SEARCHED_STEPS)
+        ranks2 = phase_ranks(smi, tmp, 2)
+        launches["parity_ranks_window"] = (ranks2["parity_ranks_window"],
+                                           2 * 2 * 2 * WINDOW_RANKS_STEPS)
+        launches["calibrate_ranks"] = (ranks2["calibrate_ranks"], 2 * 2)
+        phase_ranks(smi, tmp, 4)
+        launches["torchrun"] = (phase_torchrun(smi, tmp), 2 * TORCHRUN_STEPS)
     phase_parity_serve()
     phase_serve(smi)
     for entry in kernels:

@@ -14,12 +14,17 @@ Two implementations:
   the per-task piece shapes, from the card's calibrated matmul FLOP/s and
   HBM GB/s, with the same comm model.
 
+With a `calibration` (compiler/calibration.py), both price the parallel
+ops from the measured all-reduce constants, as the JAX package does; with
+`emulated_mesh` (ranks that share one device: several ranks on one card or
+on one host's CPU, the port's counterpart of the JAX package's virtual CPU
+mesh) a compute leaf is priced at the wall time the shared device takes
+for every rank's piece (`_scale_for_emulated_shards`). Without a
+calibration the parallel ops take the bandwidth model and the placeholder
+latencies below.
+
 The cost and movement stores and the topology-aware machine model
 (`cost_store`, `movement_store`, `comm_model`) are A6 part 2.
-The JAX package's emulated-mesh compute scaling is left out (it exists
-for its virtual CPU mesh only), and so is the pricing of collectives from
-measured all-reduce constants: their probes over several cards are A7
-item 5.
 """
 
 from __future__ import annotations
@@ -136,9 +141,10 @@ def link_for_views(
     return machine_spec.intra_node_bandwidth, intra_latency_ms
 
 
-# Link latencies of the comm model, in ms: not measured (one card cannot
-# time a collective), the same placeholders the JAX package uses for its
-# two link classes; A7 item 5's NCCL probes replace them.
+# Link latencies of the comm model of an uncalibrated search, in ms: not
+# measured, the same placeholders the JAX package uses for its two link
+# classes. A calibrated search prices the parallel ops from the measured
+# all-reduce constants instead.
 DEFAULT_INTRA_LATENCY_MS = 0.001
 DEFAULT_INTER_LATENCY_MS = 0.01
 
@@ -351,6 +357,8 @@ def parallel_op_cost_ms(
     inter_latency_ms: float,
     machine_view: "MachineView" = None,
     weight_resident: bool = False,
+    emulated_mesh: bool = False,
+    calibration=None,
 ) -> float:
     """Collective cost of a parallel op (repartition/combine/replicate/
     reduction). These lower to real resharding collectives; pricing them at
@@ -380,6 +388,30 @@ def parallel_op_cost_ms(
         return 0.0
     total_bytes = get_reduced_shape(input_shapes[0]).size_bytes  # global bytes
     per_ms = bw_gbps * 1e6  # GB/s -> bytes/ms
+    degree = (getattr(attrs, "repartition_degree", None) or getattr(attrs, "combine_degree", None)
+              or getattr(attrs, "replicate_degree", None)
+              or getattr(attrs, "reduction_degree", None) or 1)
+    cal = calibration.allreduce_constants(degree) if calibration is not None else None
+    if cal is not None and degree > 1:
+        # measured constants: the probe timed a real k-participant
+        # all-reduce, so its bandwidth holds the collective's own traffic
+        # and the sharing of a device. Each op in all-reduce equivalents: an
+        # all-gather and re-slice pair, or a broadcast, about half of one
+        ar = cal.lat_ms + total_bytes / (cal.gbps * 1e6)
+        if crosses_nodes:
+            # measured within a host: scaled by the spec's inter/intra ratio
+            ratio = max(machine_spec.inter_node_bandwidth
+                        / max(machine_spec.intra_node_bandwidth, 1e-9), 1e-3)
+            ar = cal.lat_ms + total_bytes / (cal.gbps * ratio * 1e6)
+        if isinstance(attrs, RepartitionAttrs):
+            return 0.0 if weight_resident else 0.5 * ar
+        if isinstance(attrs, CombineAttrs):
+            return 0.5 * ar
+        if isinstance(attrs, ReplicateAttrs):
+            return ar if weight_resident else 1.5 * ar
+        if isinstance(attrs, ReductionAttrs):
+            return 1.5 * ar
+        return 0.0
     # Training prices BOTH directions: each parallel op's backward is the
     # transpose collective (Replicate's backward is the gradient
     # all-reduce — the per-step weight-sync that makes pure DP lose to
@@ -406,6 +438,10 @@ def parallel_op_cost_ms(
         if k <= 1:
             return 0.0
         if weight_resident:
+            if emulated_mesh:
+                # ranks sharing a device: all k weight replicas and their
+                # gradient sum stream through one memory system
+                return 2 * latency_ms + k * total_bytes / per_ms
             # replicated parameters are resident (no per-step broadcast);
             # the recurring cost is the bwd gradient all-reduce
             return 2 * latency_ms + 2 * total_bytes / per_ms
@@ -460,6 +496,23 @@ def seq_parallel_attention_comm_ms(
     return (sp - 1) * (latency_ms + 2 * block_bytes / per_ms)
 
 
+def _scale_for_emulated_shards(piece_ms: float, estimator) -> float:
+    """The wall time of a compute leaf where the ranks share one device (the
+    JAX package's rule for its virtual mesh): every rank runs its piece
+    (unsharded ops on every rank), and the shared device runs them with the
+    measured shard speedup S, so the leaf takes piece_ms * ndev / S. A
+    no-op without `emulated_mesh`, without a calibration or on one
+    device."""
+    cal = getattr(estimator, "calibration", None)
+    if (not getattr(estimator, "emulated_mesh", False) or cal is None
+            or getattr(cal, "shard_speedup", None) is None):
+        return piece_ms
+    ndev = estimator.machine_spec.num_devices
+    if ndev <= 1:
+        return piece_ms
+    return piece_ms * ndev / min(float(ndev), cal.shard_speedup)
+
+
 def _refuse_part2(comm_model, movement_store, cost_store) -> None:
     if comm_model is not None or movement_store is not None or cost_store is not None:
         raise NotImplementedError(
@@ -482,6 +535,8 @@ class GPUCostEstimator(CostEstimator):
         intra_latency_ms: float = DEFAULT_INTRA_LATENCY_MS,
         inter_latency_ms: float = DEFAULT_INTER_LATENCY_MS,
         comm_model=None,
+        emulated_mesh: bool = False,
+        calibration=None,
         movement_store=None,
         cost_store=None,
     ) -> None:
@@ -492,6 +547,8 @@ class GPUCostEstimator(CostEstimator):
         self.local = local_cost_estimator or LocalCostEstimator()
         self.intra_latency_ms = intra_latency_ms
         self.inter_latency_ms = inter_latency_ms
+        self.emulated_mesh = emulated_mesh
+        self.calibration = calibration
         self.comm = BandwidthCommModel(machine_spec, intra_latency_ms, inter_latency_ms)
 
     def estimate_op_cost(self, key: OpCostEstimateKey) -> float:
@@ -506,10 +563,12 @@ class GPUCostEstimator(CostEstimator):
                 self.inter_latency_ms,
                 machine_view=key.machine_view,
                 weight_resident=bool(key.weight_inputs) and all(key.weight_inputs),
+                emulated_mesh=self.emulated_mesh,
+                calibration=self.calibration,
             )
-        return self.local.estimate_operator_cost_parallel(
+        return _scale_for_emulated_shards(self.local.estimate_operator_cost_parallel(
             key.op_attrs, list(key.input_shapes), list(key.output_shapes),
-        ).elapsed_ms + seq_parallel_attention_comm_ms(
+        ).elapsed_ms, self) + seq_parallel_attention_comm_ms(
             key.op_attrs,
             list(key.input_shapes),
             self.machine_spec,
@@ -538,6 +597,8 @@ class AnalyticGPUCostEstimator(CostEstimator):
         intra_latency_ms: float = DEFAULT_INTRA_LATENCY_MS,
         inter_latency_ms: float = DEFAULT_INTER_LATENCY_MS,
         comm_model=None,
+        emulated_mesh: bool = False,
+        calibration=None,
         movement_store=None,
         cost_store=None,
         forward_only: bool = False,
@@ -551,6 +612,8 @@ class AnalyticGPUCostEstimator(CostEstimator):
         self.machine_spec = machine_spec
         self.peak_flops = peak_flops
         self.hbm_gbps = hbm_gbps
+        self.emulated_mesh = emulated_mesh
+        self.calibration = calibration
         self.intra_latency_ms = intra_latency_ms
         self.inter_latency_ms = inter_latency_ms
         self.comm = BandwidthCommModel(machine_spec, intra_latency_ms, inter_latency_ms)
@@ -573,6 +636,8 @@ class AnalyticGPUCostEstimator(CostEstimator):
                 self.inter_latency_ms,
                 machine_view=key.machine_view,
                 weight_resident=bool(key.weight_inputs) and all(key.weight_inputs),
+                emulated_mesh=self.emulated_mesh,
+                calibration=self.calibration,
             )
         piece_slots = [get_piece_shape(s) for s in key.input_shapes]
         # leaf input_shapes covers all slots (data + weights); split by role
@@ -604,7 +669,8 @@ class AnalyticGPUCostEstimator(CostEstimator):
         # fwd + bwd ~= 3x fwd flops; grads roughly double the traffic
         compute_ms = 3 * flops / self.peak_flops * 1000.0
         memory_ms = 2 * bytes_moved / (self.hbm_gbps * 1e6)
-        return max(compute_ms, memory_ms) + seq_parallel_attention_comm_ms(
+        compute = _scale_for_emulated_shards(max(compute_ms, memory_ms), self)
+        return compute + seq_parallel_attention_comm_ms(
             key.op_attrs,
             list(key.input_shapes),
             self.machine_spec,

@@ -8,7 +8,10 @@ permutation per epoch, so a shuffled run sees the JAX package's batches in
 the JAX package's order. The per-step copy is a plain `torch.as_tensor`
 from pageable memory, which blocks the host. The windowed iterator of the
 fused step windows instead gathers on a producer thread into pinned
-buffers and copies on a side stream. Resume cursors come with
+buffers and copies on a side stream. Over several ranks each rank is fed
+only its own rows of every batch (`blocks`, from the trainer's
+`feed_blocks`): the counterpart of the JAX package's device_put_global and
+window sharding, `P(None, "data")`. Resume cursors come with
 checkpointing (A8).
 """
 
@@ -17,7 +20,7 @@ from __future__ import annotations
 import itertools
 import queue
 import threading
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +33,8 @@ class SingleDataLoader:
     """Full-dataset host buffer -> per-batch device tensors for ONE tensor.
 
     device: the batches' device; None takes the model's, else CUDA (see
-    resolve_device)."""
+    resolve_device). rows: (start, stop) within each batch, the only rows
+    drawn (one rank's block); None draws the whole batch."""
 
     def __init__(
         self,
@@ -41,6 +45,7 @@ class SingleDataLoader:
         shuffle: bool = False,
         drop_last: bool = True,
         seed: int = 0,
+        rows: Optional[Tuple[int, int]] = None,
     ) -> None:
         self.ffmodel = ffmodel
         self.data = np.asarray(full_array)
@@ -50,6 +55,7 @@ class SingleDataLoader:
         self.device = resolve_device(device)
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self.rows = rows
         self._rs = np.random.RandomState(seed)
         self.num_samples = self.data.shape[0]
         if drop_last:
@@ -69,9 +75,11 @@ class SingleDataLoader:
         if self._next >= self.num_batches:
             self.reset()
         i = self._next * self.batch_size
-        batch = self.data[self._order[i : i + self.batch_size]]
+        idx = self._order[i : i + self.batch_size]
+        if self.rows is not None:
+            idx = idx[self.rows[0]:self.rows[1]]
         self._next += 1
-        return batch
+        return self.data[idx]
 
     def next_batch(self) -> torch.Tensor:
         """Device tensor for the next batch (wraps around at epoch end)."""
@@ -86,7 +94,9 @@ class SingleDataLoader:
 class BatchIterator:
     """Zips named arrays into per-step (inputs_dict, label) batches on
     `device`; every tensor advances in lockstep, through one shared
-    permutation per epoch."""
+    permutation per epoch. blocks: per input name, and for the label under
+    `label_block`, the (start, stop) rows of each batch this rank draws
+    (None: whole batches)."""
 
     def __init__(
         self,
@@ -96,6 +106,8 @@ class BatchIterator:
         device=None,
         shuffle: bool = False,
         seed: int = 0,
+        blocks: Optional[Dict[str, Tuple[int, int]]] = None,
+        label_block: Optional[Tuple[int, int]] = None,
     ) -> None:
         ns = {a.shape[0] for a in inputs.values()}
         if label is not None:
@@ -106,12 +118,14 @@ class BatchIterator:
         self.batch_size = int(batch_size)
         self.num_batches = self.num_samples // self.batch_size
         self.device = resolve_device(device)
+        blocks = blocks or {}
         self.loaders = {
-            k: SingleDataLoader(None, v, batch_size, device=self.device, seed=seed)
+            k: SingleDataLoader(None, v, batch_size, device=self.device, seed=seed,
+                                rows=blocks.get(k))
             for k, v in inputs.items()
         }
         self.label_loader = (
-            SingleDataLoader(None, label, batch_size, device=self.device)
+            SingleDataLoader(None, label, batch_size, device=self.device, rows=label_block)
             if label is not None
             else None
         )
@@ -171,10 +185,11 @@ class WindowedBatchIterator:
     consumer's stream waits on that event before the window is used. On
     the CPU each window is gathered into a new array.
 
-    The JAX package's `window_sharding` exists here for no mesh: the
-    fused windows do not run on several ranks yet (A7 item 9); its
-    `keep_host` stacks feed the health monitor (A9) and its fault sites the
-    fault schedule (A8), neither of them ported.
+    Over several ranks the windows hold only the rank's rows of each batch
+    (the BatchIterator's blocks: the JAX package's `window_sharding`,
+    leading window dim whole, batch dim sharded). Its `keep_host` stacks
+    feed the health monitor (A9) and its fault sites the fault schedule
+    (A8), neither of them ported.
 
     Yields (inputs_stack, label_stack or None, k)."""
 
@@ -189,8 +204,10 @@ class WindowedBatchIterator:
         self._queue: Optional[queue.Queue] = None
         self._thread: Optional[threading.Thread] = None
         self._sources = {name: dl.data for name, dl in it.loaders.items()}
+        self._rows = {name: dl.rows for name, dl in it.loaders.items()}
         if it.label_loader is not None:
             self._sources[_LABEL] = it.label_loader.data
+            self._rows[_LABEL] = it.label_loader.rows
         # CUDA only: the two pinned host buffers, the copy stream, and the
         # event of the last copy out of each buffer
         self._pinned: List[Dict[str, torch.Tensor]] = []
@@ -199,13 +216,16 @@ class WindowedBatchIterator:
 
     def _host_window(self, slot: int, k: int) -> Dict[str, torch.Tensor]:
         """Host tensors [k, batch, ...] to gather a window into."""
-        b = self.it.batch_size
+        def b(name):
+            rows = self._rows[name]
+            return self.it.batch_size if rows is None else rows[1] - rows[0]
+
         if self.device.type != "cuda":
-            return {name: torch.from_numpy(np.empty((k, b, *src.shape[1:]), src.dtype))
+            return {name: torch.from_numpy(np.empty((k, b(name), *src.shape[1:]), src.dtype))
                     for name, src in self._sources.items()}
         if not self._pinned:
             self._pinned = [
-                {name: torch.empty((self.window, b, *src.shape[1:]),
+                {name: torch.empty((self.window, b(name), *src.shape[1:]),
                                    dtype=torch.from_numpy(src[:0]).dtype, pin_memory=True)
                  for name, src in self._sources.items()}
                 for _ in range(2)
@@ -227,7 +247,10 @@ class WindowedBatchIterator:
             host = self._host_window(slot, k)
             for name, src in self._sources.items():
                 out = host[name].numpy()
+                block = self._rows[name]
                 for j, r in enumerate(rows):
+                    if block is not None:
+                        r = r[block[0]:block[1]]
                     np.take(src, r, axis=0, out=out[j], mode="clip")
             if self.device.type != "cuda":
                 yield host, None, k

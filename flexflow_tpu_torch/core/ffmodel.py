@@ -21,15 +21,21 @@ replay a window), fed by the windowed input pipeline.
 
 Over several devices the port runs one process per device: the devices of
 a compile are the ranks of the default process group (opened by
-`parallel.init_file_group`, or under torchrun). Without a search budget
-the compile trains data parallel (DataParallelTrainingInstance); with one,
-rank 0 runs the Unity search (or imports FFConfig.import_strategy_file),
-every rank receives the plan as its strategy document, and the winner
-trains through DistributedTrainingInstance (FFConfig.export_strategy_file
-is written by rank 0). What reaches a slice that is not ported yet raises
+`runtime.distributed.initialize`, under torchrun or from the
+FLEXFLOW_TPU_* variables, or by `parallel.init_file_group`). Without a
+search budget the compile trains data parallel
+(DataParallelTrainingInstance); with one, rank 0 runs the Unity search (or
+imports FFConfig.import_strategy_file, or builds a forced seed) and every
+rank receives the plan as its strategy document
+(runtime.distributed.run_search_on_host_0), and the winner trains through
+DistributedTrainingInstance (FFConfig.export_strategy_file is written by
+rank 0). A calibrated or measured search first calibrates the ranks
+(compiler/calibration.py, a collective). Each rank's fit is fed only its
+own rows of every batch, and `steps_per_dispatch` runs its windows on
+either trainer. What reaches a slice that is not ported yet raises
 NotImplementedError naming it, at the call: the layer methods of unported
-ops (A2), the search's stores, memory budget and other algorithms (A6 part
-2), the fused windows over several ranks (A7 item 9), checkpoints,
+ops (A2), the search's stores, memory budget, other algorithms and its
+pricing of the fused collective matmuls (A6 part 2), checkpoints,
 recompiles and fit-loop supervision (A8), telemetry, traces and plan
 audits (A9), pipelines and sub-mesh branches (A10).
 """
@@ -324,7 +330,8 @@ class FFModel:
     top_k = _unported("top_k", "TopK")
     cast = _unported("cast", "Cast")
     broadcast = _unported("broadcast", "Broadcast")
-    batch_matmul = _unported("batch_matmul", "BatchMatmul")
+    def batch_matmul(self, a, b, name=None) -> Tensor:
+        return self._wrap(self._builder.batch_matmul(self._unwrap(a), self._unwrap(b), name=name))
     reduce_sum = _unported("reduce_sum", "ReduceSum")
     mean = _unported("mean", "ReduceMean")
     group_by = _unported("group_by", "GroupBy")
@@ -576,16 +583,21 @@ class FFModel:
             make_default_allowed_machine_views,
             parallel_degree_summary,
         )
-        from flexflow_tpu_torch.compiler.calibration import H100_NVLINK_GBPS, NDR_INFINIBAND_GBPS
+        from flexflow_tpu_torch.compiler.calibration import (
+            H100_NVLINK_GBPS,
+            NDR_INFINIBAND_GBPS,
+            get_calibration,
+        )
         from flexflow_tpu_torch.parallel import DistributedTrainingInstance, MachineMesh
+        from flexflow_tpu_torch.parallel.executor import overlap_lowering_active
+        from flexflow_tpu_torch.runtime.distributed import (
+            broadcast_json,
+            ranks_share_a_device,
+            run_search_on_host_0,
+        )
         from flexflow_tpu_torch.pcg.machine_view import MachineSpecification
         from flexflow_tpu_torch.pcg.parallel_computation_graph import pcg_from_computation_graph
-        from flexflow_tpu_torch.runtime.strategy import (
-            load_strategy,
-            save_strategy,
-            strategy_from_doc,
-            strategy_to_doc,
-        )
+        from flexflow_tpu_torch.runtime.strategy import load_strategy, save_strategy
         from flexflow_tpu_torch.substitutions.rules import generate_parallelization_rules
 
         cfg = self.config
@@ -602,7 +614,6 @@ class FFModel:
             (cfg.branch_stacking, "branch_stacking", "A6 part 2"),
             (bool(cfg.multislice), "multislice", "A6 part 2"),
             (bool(cfg.pipeline), "pipeline", "A10"),
-            (bool(cfg.overlap), "overlap (the collective matmuls)", "A7 item 7"),
             (cfg.force_strategy_seed.startswith("pp"), "force_strategy_seed of a pipeline",
              "A10"),
         )
@@ -610,6 +621,14 @@ class FFModel:
             if on:
                 raise NotImplementedError(
                     f"FFConfig.{what} in a searched compile is not ported yet ({slice_name})")
+        overlap_on = overlap_lowering_active(cfg.overlap)
+        if overlap_on and not (cfg.import_strategy_file or cfg.force_strategy_seed):
+            # the JAX search prices the fused edges (machine_mapping/overlap.py
+            # derive_overlap_plan); searching without them would price otherwise
+            raise NotImplementedError(
+                "FFConfig.overlap (the collective matmuls) in a search: the search's pricing "
+                "of the fused edges is not ported yet (A6 part 2 item 4); train an imported "
+                "strategy or a forced seed with it")
         nodes = max(cfg.num_nodes, 1)
         if self.device.type == "cpu":
             # the JAX package's CPU constants, so both packages find one winner
@@ -628,30 +647,41 @@ class FFModel:
         spec = MachineSpecification(search_nodes, max(cfg.cpus_per_node, 1), search_workers,
                                     inter_bw, intra_bw)
 
+        measured = cfg.cost_model == "measured" or (
+            cfg.cost_model == "auto" and self.device.type == "cuda")
+        # measured and calibrated searches price with the ranks' measured
+        # constants: every rank takes part in the calibration (a
+        # collective), and in the check whether ranks share a device
+        calibration, emulated = None, False
+        if not cfg.import_strategy_file and (measured or cfg.cost_model == "calibrated"):
+            calibration = get_calibration(self.device, ndev)
+            emulated = ranks_share_a_device(self.device)
+
         def search():
             if cfg.import_strategy_file:
-                pcg, mapping, runtime = load_strategy(cfg.import_strategy_file)
                 self.search_provenance = {"search_algorithm": "imported_strategy"}
-                return strategy_to_doc(pcg, mapping, runtime)
-            measured = cfg.cost_model == "measured" or (
-                cfg.cost_model == "auto" and self.device.type == "cuda")
+                return load_strategy(cfg.import_strategy_file)
             if measured:
                 from flexflow_tpu_torch.local_execution.cost_estimator import LocalCostEstimator
 
                 estimator = GPUCostEstimator(
-                    spec, local_cost_estimator=LocalCostEstimator(device=self.device))
+                    spec, local_cost_estimator=LocalCostEstimator(device=self.device),
+                    emulated_mesh=emulated, calibration=calibration)
             else:
                 rates = (peak_flops, hbm_gbps)
-                if cfg.cost_model == "calibrated":
-                    from flexflow_tpu_torch.compiler.calibration import calibrate
-
-                    cal = calibrate(device=self.device)
-                    rates = (cal.peak_flops, cal.hbm_gbps)
+                if calibration is not None:
+                    rates = (calibration.peak_flops, calibration.hbm_gbps)
                 estimator = AnalyticGPUCostEstimator(spec, *rates, intra_latency_ms=intra_lat_ms,
-                                                     inter_latency_ms=inter_lat_ms)
-            ctx = MachineMappingContext(estimator, make_default_allowed_machine_views(),
-                                        overlap_fraction=0.5,
-                                        allow_resource_splits=spec != exec_spec)
+                                                     inter_latency_ms=inter_lat_ms,
+                                                     emulated_mesh=emulated,
+                                                     calibration=calibration)
+            ctx = MachineMappingContext(
+                estimator, make_default_allowed_machine_views(),
+                # the measured compute/collective overlap where a calibration
+                # measured one, else the 0.5 heuristic (the JAX package's rule)
+                overlap_fraction=(calibration.overlap if calibration is not None
+                                  and calibration.overlap is not None else 0.5),
+                allow_resource_splits=spec != exec_spec)
             pcg0 = pcg_from_computation_graph(self.cg)
             start = time.perf_counter()
             if cfg.force_strategy_seed:
@@ -673,21 +703,25 @@ class FFModel:
                 "cost_model": cfg.cost_model,
                 "search_algorithm": "forced_seed" if cfg.force_strategy_seed else "unity",
             }
-            return strategy_to_doc(result.pcg, result.machine_mapping, result.runtime)
+            if calibration is not None:
+                self.search_provenance.update(calibration=calibration.as_dict(),
+                                              emulated_mesh=emulated)
+            if overlap_on:
+                # a forced seed's estimate leaves the fused edges unpriced
+                self.search_provenance["overlap"] = {"enabled": True, "priced": False}
+            return result.pcg, result.machine_mapping, result.runtime
 
         # rank 0 plans; every rank lowers the plan it sends
-        box = [search() if dist.get_rank() == 0 else None, None]
-        box[1] = self.search_provenance
-        dist.broadcast_object_list(box, src=0)
-        doc, self.search_provenance = box
-        pcg, mapping, runtime = strategy_from_doc(doc)
+        pcg, mapping, runtime = run_search_on_host_0(search)
+        self.search_provenance = broadcast_json(
+            self.search_provenance if dist.get_rank() == 0 else None)
         if cfg.export_strategy_file and dist.get_rank() == 0:
             save_strategy(cfg.export_strategy_file, pcg, mapping, runtime)
         mesh = MachineMesh.from_spec(exec_spec)
         return DistributedTrainingInstance(
             pcg, self._find_searched_logit(pcg, logit), self.loss_attrs, self.optimizer_attrs,
             mesh, mapping=mapping, compute_dtype=compute_dtype, device=self.device,
-            metrics=self.metrics)
+            metrics=self.metrics, overlap=cfg.overlap)
 
     def _find_searched_logit(self, pcg, logit: DataflowOutput) -> DataflowOutput:
         """The model output in the searched PCG (the JAX package's): layer
@@ -783,8 +817,9 @@ class FFModel:
             print("[flexflow_tpu_torch] perform_fusion: the fusion rules extend the Unity "
                   "search, which a single-device compile does not run")
         if cfg.search_overlap_backward_update:
-            print("[flexflow_tpu_torch] search_overlap_backward_update: off — the step runs "
-                  "the backward, then the update")
+            print("[flexflow_tpu_torch] search_overlap_backward_update: always on — over "
+                  "several ranks each gradient bucket's all-reduce is issued as the backward "
+                  "produces it, beside the rest of the backward")
         if cfg.enable_inplace_optimizations:
             print("[flexflow_tpu_torch] enable_inplace_optimizations: always on — the "
                   "optimizer updates parameters and its state in place")
@@ -802,7 +837,10 @@ class FFModel:
         return [cg.layer_attrs(n).name or param_key(n) for n in cg.topological_ordering()
                 if isinstance(cg.op_attrs(n), InputAttrs)]
 
-    def _make_iterator(self, x, y, batch_size, shuffle=False, seed_offset: int = 0) -> BatchIterator:
+    def _make_iterator(self, x, y, batch_size, shuffle=False, seed_offset: int = 0,
+                       blocks: bool = False) -> BatchIterator:
+        """The batches of (x, y); `blocks`: over several ranks, only this
+        rank's rows of each (the trainer's feed_blocks)."""
         input_names = self._input_names()
         if isinstance(x, dict):
             inputs = {k: np.asarray(v) for k, v in x.items()}
@@ -815,8 +853,13 @@ class FFModel:
                 raise ValueError(f"model has inputs {input_names}; pass a dict")
             inputs = {input_names[0]: np.asarray(x)}
         label = None if y is None else np.asarray(y).astype(self._label_dtype)
+        rows, label_rows = None, None
+        feed = getattr(self.instance, "feed_blocks", None)
+        if blocks and feed is not None and batch_size == self.instance.batch_size:
+            rows, label_rows = feed()
         return BatchIterator(inputs, label, batch_size, device=self.device, shuffle=shuffle,
-                             seed=self.config.seed + seed_offset)
+                             seed=self.config.seed + seed_offset, blocks=rows,
+                             label_block=label_rows)
 
     def fit(
         self,
@@ -849,7 +892,8 @@ class FFModel:
                 "ported yet (A8)")
         epochs = epochs or self.config.epochs
         batch_size = batch_size or self.config.batch_size
-        it = self._make_iterator(x, y, batch_size, shuffle=shuffle, seed_offset=epoch_offset)
+        it = self._make_iterator(x, y, batch_size, shuffle=shuffle, seed_offset=epoch_offset,
+                                 blocks=True)
         if self._rng is None:
             self._rng = torch.Generator(device=self.device)
         rng = self._rng.manual_seed(self.config.seed * 1_000_003 + epoch_offset)

@@ -16,8 +16,11 @@ any padding; BatchNorm normalizes by the batch's own mean and biased
 variance in training and evaluation alike (no running statistics), the
 whole batch's where ranks split it (`batch_stats_group`).
 
+BatchMatmul is torch.matmul, as the JAX package's is jnp.matmul outside
+any Pallas kernel.
+
 `op_forward_flops` is the JAX package's analytic forward count, which MFU
-divides by.
+divides by; `graph_step_flops` sums it over a graph's step.
 """
 
 from __future__ import annotations
@@ -373,6 +376,9 @@ def forward(attrs: OpAttrs, inputs: Sequence[torch.Tensor],
         if attrs.use_bias:
             out = out + weights[1]
         return [attrs.activation.apply(out) if attrs.activation else out]
+    if isinstance(attrs, BatchMatmulAttrs):
+        # the JAX package computes it outside any Pallas kernel (jnp.matmul)
+        return [torch.matmul(inputs[0], inputs[1])]
     if isinstance(attrs, EmbeddingAttrs):
         out = embedding_lookup(inputs[0], weights[0])
         if attrs.aggr == AggregateSpec.SUM:
@@ -479,3 +485,29 @@ def op_forward_flops(
         mlp = 2 * e_local * cap * (d * h + h * o)
         return gate + dispatch + mlp
     return sum(nelem(s) for s in output_shapes)
+
+
+def graph_step_flops(graph) -> int:
+    """A train step's flops of the model's own work: 3 x op_forward_flops
+    over the compute ops of a computation graph, or of a PCG at its
+    tensors' global shapes (its parallel ops skipped, so work a plan
+    duplicates over ranks counts once). The numerator of the multi-device
+    MFU: flops / (step seconds x ranks x the card's peak)."""
+    from flexflow_tpu_torch.op_attrs.core import is_parallel_op
+    from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
+        ParallelTensorShape,
+        get_reduced_shape,
+    )
+
+    def shape(t):
+        s = graph.tensor_shape(t)
+        return get_reduced_shape(s) if isinstance(s, ParallelTensorShape) else s
+
+    total = 0
+    for n in graph.topological_ordering():
+        attrs = graph.op_attrs(n)
+        if isinstance(attrs, (InputAttrs, WeightAttrs)) or is_parallel_op(attrs):
+            continue
+        total += op_forward_flops(attrs, [shape(t) for t in graph.inputs_of(n)],
+                                  [shape(t) for t in graph.outputs_of(n)])
+    return 3 * total

@@ -10,6 +10,11 @@ fast Python launches its kernels (and that moves with the host's state),
 where the JAX package times a compiled program and cancels its fixed
 dispatch latency. On the CPU: the JAX package's two-point host timing (the
 slope between a short and a long run).
+
+`profile_eager` times a call that no CUDA graph can hold (a collective
+that gloo stages through host memory) eagerly: one pair of CUDA events
+around `measure_iters` calls on the card, the two-point host timing on the
+CPU.
 """
 
 from __future__ import annotations
@@ -48,28 +53,22 @@ def _timed_run(fn, iters, args, kwargs) -> float:
     return time.perf_counter() - start
 
 
-def profile_fn(fn: Callable, settings: ProfilingSettings, *args, **kwargs) -> float:
-    """Milliseconds per call of fn(*args, **kwargs) after the warm-up; on
-    the card fn must be capturable into a CUDA graph (no host reads)."""
-    if _on_cuda(args):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(settings.warmup_iters):
-                fn(*args, **kwargs)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            fn(*args, **kwargs)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        iters = max(settings.measure_iters, 1)
-        start.record()
-        for _ in range(iters):
-            graph.replay()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
+def _event_ms(run, iters: int) -> float:
+    """Milliseconds per call of run() over `iters` calls, between a pair of
+    CUDA events on the card."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _host_ms(fn, settings: ProfilingSettings, args, kwargs) -> float:
+    """Milliseconds per call of fn(*args, **kwargs) after the warm-up, from
+    the two-point host timing (the slope between a short and a long run)."""
     for _ in range(settings.warmup_iters):
         fn(*args, **kwargs)
     n1 = max(1, settings.measure_iters // 4)
@@ -80,3 +79,30 @@ def profile_fn(fn: Callable, settings: ProfilingSettings, *args, **kwargs) -> fl
     if per_iter <= 0:
         per_iter = t2 / n2  # noisy fallback
     return per_iter * 1000.0
+
+
+def profile_eager(fn: Callable, settings: ProfilingSettings, device) -> float:
+    """Milliseconds per call of fn() after the warm-up, run eagerly (see the
+    module docstring); `device` is where its work runs."""
+    if torch.device(device).type != "cuda":
+        return _host_ms(fn, settings, (), {})
+    for _ in range(settings.warmup_iters):
+        fn()
+    return _event_ms(fn, max(settings.measure_iters, 1))
+
+
+def profile_fn(fn: Callable, settings: ProfilingSettings, *args, **kwargs) -> float:
+    """Milliseconds per call of fn(*args, **kwargs) after the warm-up; on
+    the card fn must be capturable into a CUDA graph (no host reads)."""
+    if not _on_cuda(args):
+        return _host_ms(fn, settings, args, kwargs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(settings.warmup_iters):
+            fn(*args, **kwargs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn(*args, **kwargs)
+    return _event_ms(graph.replay, max(settings.measure_iters, 1))

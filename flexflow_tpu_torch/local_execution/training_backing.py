@@ -235,6 +235,9 @@ class ModelTrainingInstance:
         self.aux_loss_tensors = tuple(aux_loss_tensors)
         # the fused windows' CUDA graphs, one per window length and state
         self.graphs = CapturedGraphs(self.device)
+        # the last multi_train_step's window: its steps, and whether it ran
+        # as a captured graph
+        self.last_window: Optional[Dict[str, object]] = None
 
     def initialize(self, seed: int = 0):
         params = init_params(self.cg, seed, self.device)
@@ -258,27 +261,54 @@ class ModelTrainingInstance:
             loss = loss + env[t].to(loss.dtype).sum()
         return loss, logit
 
+    def _feed(self, batch_inputs, label):
+        """(inputs, label) as loss_fn takes them: here the batch as given and
+        the label on the device; the parallel trainers keep their rank's
+        piece of each."""
+        return batch_inputs, torch.as_tensor(label, device=self.device)
+
+    def _gradient_reducer(self, leaves):
+        """What sums the gradients over ranks as the backward produces them
+        (the parallel trainers' collectives.BucketedBackward), or None."""
+        return None
+
+    def _step_scalars(self, loss, grads, mvals):
+        """(the step's loss, its metric values) from this rank's, once its
+        gradients are final: here as they are."""
+        return loss, mvals
+
     def loss_and_grads(self, params, batch_inputs, label, rng=None, metrics=None):
         """(loss, {key: f32 gradient}) at `params`, which are not modified.
         metrics: a dict that receives compute_metrics of the logits, taken
-        between the forward and the backward."""
+        between the forward and the backward. Over ranks, `_feed`,
+        `_gradient_reducer` and `_step_scalars` say what each rank takes
+        and what is summed."""
+        batch_inputs, label = self._feed(batch_inputs, label)
         leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
         loss, logit = self.loss_fn(leaves, batch_inputs, label, rng)
+        mvals = {}
         if metrics is not None:
-            metrics.update(compute_metrics(
-                self.metrics, logit.detach(), torch.as_tensor(label, device=self.device)))
+            mvals = compute_metrics(self.metrics, logit.detach(), label)
         del logit
+        reducer = self._gradient_reducer(leaves)
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-        return loss.detach(), {
-            k: torch.zeros_like(leaves[k]) if g is None else g for k, g in zip(leaves, grads)
-        }
+        if reducer is None:
+            grads = {k: torch.zeros_like(leaves[k]) if g is None else g
+                     for k, g in zip(leaves, grads)}
+        else:
+            summed = reducer.finish()
+            grads = {k: summed[k] for k in leaves}
+        loss, mvals = self._step_scalars(loss.detach(), grads, mvals)
+        if metrics is not None:
+            metrics.update(mvals)
+        return loss, grads
 
     def train_step(self, params, opt_state, batch_inputs, label, rng=None):
         """One forward, backward and update. Updates params and opt_state in
         place and returns (params, opt_state, loss, metrics): the metric
-        values of this step's logits, on the device (empty for the
-        distributed trainers so far). Without an rng, Dropout draws from a
-        generator seeded 0, as the JAX package's default key."""
+        values of this step's logits, on the device. Without an rng,
+        Dropout draws from a generator seeded 0, as the JAX package's
+        default key."""
         if rng is None:
             rng = torch.Generator(device=self.device).manual_seed(0)
         mvals: Dict = {}
@@ -288,7 +318,9 @@ class ModelTrainingInstance:
 
     def multi_train_step(self, params, opt_state, batch_stack, label_stack, rng):
         """K fused steps in one dispatch (fused_multi_step's contract): on a
-        CUDA device the replay of one CUDA graph of the K steps, captured at
+        CUDA device whose collectives a graph can hold (`_capturable`; the
+        others run the K steps eagerly in one call) the replay of one CUDA
+        graph of the K steps, captured at
         the first window of each length over these parameter and state
         tensors and this generator, which it registers, so each replay
         draws the Dropout masks K train_step calls would. Whoever changes
@@ -297,6 +329,12 @@ class ModelTrainingInstance:
         The losses and metric values returned are the caller's own."""
         if rng is None:
             raise ValueError("multi_train_step needs the generator the steps draw from")
+        k = next(iter(batch_stack.values())).shape[0]
+        captured = self.device.type == "cuda" and self._capturable()
+        self.last_window = {"steps": k, "captured": captured}
+        if self.device.type == "cuda" and not captured:
+            # collectives no graph can hold: the K steps in one call, eagerly
+            return fused_multi_step(self, params, opt_state, batch_stack, label_stack, rng)
         inputs = {f"input:{name}": t for name, t in batch_stack.items()}
         if label_stack is not None:
             inputs["label"] = label_stack
@@ -313,6 +351,12 @@ class ModelTrainingInstance:
         losses, mvals = out[3], out[4]
         return params, opt_state, rng, losses.clone(), {
             name: v.clone() if isinstance(v, torch.Tensor) else v for name, v in mvals.items()}
+
+    def _capturable(self) -> bool:
+        """Whether a window of this trainer's steps can be one CUDA graph:
+        on one device, always; the parallel trainers say where their
+        collectives allow it."""
+        return True
 
     @torch.no_grad()
     def forward(self, params, batch_inputs) -> torch.Tensor:

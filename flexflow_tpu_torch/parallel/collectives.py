@@ -27,18 +27,35 @@ and NCCL (one card per rank) both take it. Partial sums and gradients are
 reduced in f32 (f64 stays f64): the sum keeps its precision whatever the
 compute dtype, and gloo's bf16 support is not needed. A collective over a group of one
 rank is skipped. Every collective counts itself in the mesh's `counts`.
+
+The trainers' weight gradients travel in buckets (`bucket_plan`,
+`BucketedBackward`): each set of gradient axes is cut into buckets of at
+most BUCKET_CAP_BYTES of f32, filled in the reverse order of the
+parameters' first use in the forward, so that the backward produces a
+bucket's gradients together. A hook on each parameter's leaf counts its
+gradient in; the backward's hook that completes a bucket issues its
+all-reduce (`async_op=True`) there and then, while the backward goes on,
+and the trainer waits on all of them before the update. Buckets are issued
+in the plan's order, the same on every rank. Each step records how many
+were issued before the backward produced its last gradient: the evidence
+that the all-reduces overlap the backward.
 """
 
 from __future__ import annotations
 
+import contextlib
 from collections import Counter
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Hashable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from flexflow_tpu_torch.parallel.mesh import Axes, MachineMesh
 from flexflow_tpu_torch.parallel.sharding import TensorSharding
+
+# The f32 bytes one gradient bucket holds at most (a tensor larger than the
+# cap is a bucket of its own): torch DistributedDataParallel's default.
+BUCKET_CAP_BYTES = 25 * 2**20
 
 
 def _wide(dtype: torch.dtype) -> torch.dtype:
@@ -254,3 +271,142 @@ def placed_axes(shardings: Sequence[Optional[TensorSharding]]) -> frozenset:
             out |= s.placed()
     return out
 
+
+
+def bucket_plan(keys: Sequence[Hashable],
+                numel: Dict[Hashable, int]) -> List[List[Hashable]]:
+    """The gradient buckets of `keys` (the parameters in the order of their
+    first use in the forward): filled in the reverse order, each at most
+    BUCKET_CAP_BYTES of f32, a tensor larger than the cap alone in its
+    bucket."""
+    out: List[List[Hashable]] = []
+    size = 0
+    for k in reversed(list(keys)):
+        nbytes = 4 * numel[k]
+        if not out or size + nbytes > BUCKET_CAP_BYTES:
+            out.append([])
+            size = 0
+        out[-1].append(k)
+        size += nbytes
+    return out
+
+
+def first_use_order(graph, keys: Sequence[Hashable], key_of) -> List[Hashable]:
+    """`keys` (parameters of weight nodes, `key_of(node)` naming each) in
+    the order the forward first uses them: the topological position of the
+    first compute op that reads the weight, through parallel ops; a weight
+    no op reads comes last."""
+    from flexflow_tpu_torch.op_attrs.core import is_parallel_op
+    from flexflow_tpu_torch.op_attrs.ops import WeightAttrs
+
+    first: Dict[Hashable, int] = {}
+    source = {}  # tensor -> the weight key it carries (through parallel ops)
+    for pos, n in enumerate(graph.topological_ordering()):
+        attrs = graph.op_attrs(n)
+        if isinstance(attrs, WeightAttrs):
+            source[graph.outputs_of(n)[0]] = key_of(n)
+            continue
+        ins = graph.inputs_of(n)
+        if is_parallel_op(attrs):
+            if ins and ins[0] in source:
+                source[graph.outputs_of(n)[0]] = source[ins[0]]
+            continue
+        for t in ins:
+            if t in source:
+                first.setdefault(source[t], pos)
+    position = {k: i for i, k in enumerate(keys)}
+    return sorted(keys, key=lambda k: (first.get(k, float("inf")), position[k]))
+
+
+class BucketedBackward:
+    """One backward's gradient buckets (see the module docstring).
+
+    buckets: (group, keys) per bucket in issue order; group False marks a
+    bucket over one rank, whose gradients are kept as they are. leaves:
+    the parameters' leaves the backward differentiates. counts: the
+    Counter the all-reduces count themselves in. log: the list `finish()`
+    appends (collective buckets, of them issued before the backward's last
+    gradient) to. Construct it before the backward starts; `finish()`
+    after it returns the reduced gradients."""
+
+    def __init__(self, buckets: Sequence[Tuple[object, List[Hashable]]],
+                 leaves: Dict[Hashable, torch.Tensor], counts: Counter,
+                 log: List[Tuple[int, int]]) -> None:
+        self.buckets = [(g, list(keys)) for g, keys in buckets]
+        self.leaves = leaves
+        self.counts = counts
+        self.log = log
+        self._where = {k: i for i, (_, keys) in enumerate(self.buckets) for k in keys}
+        self._missing = [len(keys) for _, keys in self.buckets]
+        self._grads: Dict[Hashable, torch.Tensor] = {}
+        self._out: List[Optional[List[torch.Tensor]]] = [None] * len(self.buckets)
+        self._works: List[object] = [None] * len(self.buckets)
+        self._issued_at: List[Optional[int]] = [None] * len(self.buckets)
+        self._next = 0
+        self.produced = 0
+        device = next(iter(leaves.values())).device if leaves else torch.device("cpu")
+        # the hooks run on autograd's device thread on a card: they issue on
+        # the stream the backward's kernels run on, the caller's
+        self._stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
+        self._handles = [leaves[k].register_hook(self._hook(k)) for k in self._where]
+
+    def _hook(self, key):
+        def hook(grad):
+            self._grads[key] = grad
+            self.produced += 1
+            self._missing[self._where[key]] -= 1
+            self._issue_ready()
+
+        return hook
+
+    def _issue_ready(self) -> None:
+        while self._next < len(self.buckets) and self._missing[self._next] == 0:
+            self._issue(self._next)
+            self._next += 1
+
+    def _issue(self, i: int) -> None:
+        group, keys = self.buckets[i]
+        grads = [self._grads.pop(k) for k in keys]
+        self._issued_at[i] = self.produced
+        if group is False:
+            self._out[i] = grads
+            return
+        wide = _wide(grads[0].dtype)
+        for g in grads[1:]:
+            wide = torch.promote_types(wide, g.dtype)
+        stream = (torch.cuda.stream(self._stream) if self._stream is not None
+                  else contextlib.nullcontext())
+        with stream:
+            flat = torch.cat([g.detach().reshape(-1).to(wide) for g in grads])
+            self._works[i] = dist.all_reduce(flat, group=group, async_op=True)
+        self.counts["all_reduce"] += 1
+        views, offset = [], 0
+        for g in grads:
+            views.append(flat[offset:offset + g.numel()].view(g.shape))
+            offset += g.numel()
+        self._out[i] = views
+
+    def finish(self) -> Dict[Hashable, torch.Tensor]:
+        """After the backward: zero gradients for the parameters it did not
+        reach, the buckets not issued yet issued, every all-reduce waited
+        on (on the stream, where the backend allows); the summed gradients
+        by key. `issued_early` then counts the collective buckets issued
+        before the backward produced its last gradient."""
+        for h in self._handles:
+            h.remove()
+        self._handles = []
+        for k, i in self._where.items():
+            if self._out[i] is None and k not in self._grads:
+                self._grads[k] = torch.zeros_like(self.leaves[k])
+                self._missing[i] -= 1
+        self._issue_ready()
+        for work in self._works:
+            if work is not None:
+                work.wait()
+        self.issued_early = sum(1 for w, at in zip(self._works, self._issued_at)
+                                if w is not None and at < self.produced)
+        self.log.append((sum(1 for g, _ in self.buckets if g is not False), self.issued_early))
+        out = {}
+        for (_, keys), vals in zip(self.buckets, self._out):
+            out.update(zip(keys, vals))
+        return out

@@ -4,22 +4,31 @@ flexflow_tpu/parallel/data_parallel.py:30).
 The JAX package jits the single-device step over a 1D device mesh with the
 batch dim sharded, lets GSPMD insert the gradient all-reduce, and routes
 attention through its per-head flash kernels per device (`flash_mesh`).
-Here each rank is one process on one device: it takes the global batch,
-keeps its own block of rows, runs the single-device forward and backward
-under `flash_mesh` (so attention rides the per-head kernels on the local
-block) and under `batch_stats_group` (so BatchNorm normalizes by the whole
-batch's statistics, as GSPMD does: their sums are all-reduced over the
-group, and the all-reduce's backward carries every rank's share of their
-gradient back), and averages the f32 gradients and the loss over the group
-with one all-reduce per step: the loss, every gradient and the step's
-metric sums flattened into a single f32 bucket, in parameter order. Every
-rank then applies the same optimizer update to the same averaged
-gradients, so the replicas stay bitwise equal, and reports the metrics of
-the whole batch.
+Here each rank is one process on one device: it takes its own block of
+rows of the global batch (the global batch itself, of which it keeps its
+block, or the block alone, as FFModel feeds it: `feed_blocks`), runs the
+single-device forward and backward under `flash_mesh` (so attention rides
+the per-head kernels on the local block) and under `batch_stats_group` (so
+BatchNorm normalizes by the whole batch's statistics, as GSPMD does: their
+sums are all-reduced over the group, and the all-reduce's backward carries
+every rank's share of their gradient back), and averages the f32 gradients
+over the group in buckets that the backward issues as it produces them
+(parallel/collectives.py, `BucketedBackward`), then the loss and the
+step's metric sums in one bucket of their own. Every rank then applies the
+same optimizer update to the same averaged gradients, so the replicas stay
+bitwise equal, and reports the metrics of the whole batch.
+
+The fused K-step window (`multi_train_step`) is one captured CUDA graph
+where NCCL carries the collectives (their all-reduces issued during the
+capture);
+gloo stages every collective through host memory, which no graph can
+hold, so under gloo (and on the CPU) the window runs its K steps in one
+call without capture, and `last_window` says `captured: False`.
 """
 from __future__ import annotations
 
 import collections
+import math
 import os
 from typing import Dict, Optional
 
@@ -30,10 +39,13 @@ from flexflow_tpu_torch.kernels.flash_attention import flash_mesh
 from flexflow_tpu_torch.kernels.ops import batch_stats_group
 from flexflow_tpu_torch.local_execution.training_backing import (
     ModelTrainingInstance,
-    ParamKey,
+    param_key,
     resolve_device,
+    weight_nodes,
 )
-from flexflow_tpu_torch.op_attrs.ops import LossAttrs
+from flexflow_tpu_torch.op_attrs.ops import BatchNormAttrs, InputAttrs, LossAttrs
+from flexflow_tpu_torch.parallel import collectives as C
+from flexflow_tpu_torch.parallel.sharding import is_rank_block
 from flexflow_tpu_torch.pcg.computation_graph import ComputationGraph
 from flexflow_tpu_torch.pcg.optimizer import OptimizerAttrs
 from flexflow_tpu_torch.utils.graph import DataflowOutput
@@ -105,10 +117,50 @@ class DataParallelTrainingInstance(ModelTrainingInstance):
                          metrics=metrics)
         # collectives issued by train steps so far, by kind
         self.collectives = collections.Counter()
+        self.batch_size = _graph_batch(cg)
+        keys = [param_key(n) for n in weight_nodes(cg)]
+        numel = {param_key(n): math.prod(cg.tensor_shape(cg.outputs_of(n)[0]).dims)
+                 for n in weight_nodes(cg)}
+        # the gradient buckets, in issue order
+        self.buckets = C.bucket_plan(C.first_use_order(cg, keys, param_key), numel)
+        # per step: (buckets issued, of them before the backward's last gradient)
+        self.bucket_log = []
 
     @property
     def all_reduces(self) -> int:
         return self.collectives["all_reduce"]
+
+    def step_collectives(self) -> collections.Counter:
+        """The collectives a train step issues, by kind: one all-reduce per
+        gradient bucket of the plan (BUCKET_CAP_BYTES, the parameters'
+        sizes), one of the loss and the metrics, and BatchNorm's
+        statistics over several ranks."""
+        out = collections.Counter(all_reduce=len(self.buckets) + 1)
+        if self.world_size > 1:
+            for n in self.cg.topological_ordering():
+                if isinstance(self.cg.op_attrs(n), BatchNormAttrs):
+                    out["all_reduce"] += 4  # mean and variance sums, forward and backward
+        return out
+
+    def step_flops(self) -> int:
+        """A train step's flops of the model's own work, as MFU counts it
+        (kernels.ops.graph_step_flops over the graph)."""
+        from flexflow_tpu_torch.kernels.ops import graph_step_flops
+
+        return graph_step_flops(self.cg)
+
+    def feed_blocks(self):
+        """(rows per input name, rows of the label): the (start, stop) of
+        this rank's block within a global batch, which is all it needs fed
+        (the counterpart of the JAX package's device_put_global)."""
+        n = self.batch_size // self.world_size
+        rows = (self.rank * n, (self.rank + 1) * n)
+        names = [self.cg.layer_attrs(v).name or param_key(v) for v in self.cg.topological_ordering()
+                 if isinstance(self.cg.op_attrs(v), InputAttrs)]
+        return {name: rows for name in names}, rows
+
+    def _capturable(self) -> bool:
+        return dist.get_backend(self.group) == "nccl"
 
     def initialize(self, seed: int = 0):
         """Parameters and optimizer state, equal on every rank: each rank
@@ -121,8 +173,12 @@ class DataParallelTrainingInstance(ModelTrainingInstance):
         return params, opt_state
 
     def _local_rows(self, x):
-        """This rank's block of rows of a global-batch input."""
+        """This rank's block of rows of a batch input: a batch of the rank's
+        share of the graph's rows is its block already (is_rank_block); any
+        other is a global batch, and is cut."""
         b = x.shape[0]
+        if is_rank_block(b, self.batch_size, self.world_size):
+            return x
         if b % self.world_size:
             raise ValueError(
                 f"global batch {b} does not divide over {self.world_size} data-parallel ranks"
@@ -130,53 +186,61 @@ class DataParallelTrainingInstance(ModelTrainingInstance):
         n = b // self.world_size
         return x[self.rank * n:(self.rank + 1) * n]
 
-    def multi_train_step(self, params, opt_state, batch_stack, label_stack, rng):
-        """The fused K-step window of the data-parallel trainer is not ported yet."""
-        raise NotImplementedError(
-            "multi_train_step of the data-parallel trainer is not ported yet (A7 item 9)")
+    def _feed(self, batch_inputs, label):
+        """This rank's block of rows of the batch and of the label, on its
+        device."""
+        return ({k: torch.as_tensor(self._local_rows(v), device=self.device)
+                 for k, v in batch_inputs.items()},
+                torch.as_tensor(self._local_rows(label), device=self.device))
 
-    def loss_and_grads(self, params, batch_inputs, label, rng=None, metrics=None):
-        """(global mean loss, {key: f32 gradient averaged over the ranks})
-        from the global batch; `params` are not modified. `metrics`
-        receives the whole batch's metric sums."""
+    def loss_fn(self, params, batch_inputs, label, rng=None):
+        """The single-device loss of this rank's block, attention on the
+        per-head kernels and BatchNorm on the whole batch's statistics."""
         from flexflow_tpu_torch.parallel.collectives import all_reduce_sum
 
-        local = {k: self._local_rows(v) for k, v in batch_inputs.items()}
-        mvals = {} if metrics is not None else None
         with flash_mesh(self.group), batch_stats_group(
                 lambda t: all_reduce_sum(t, self.group, self.collectives)):
-            loss, grads = super().loss_and_grads(params, local, self._local_rows(label), rng,
-                                                 metrics=mvals)
-        self.collectives["all_reduce"] += 1
-        loss, grads, sums = all_reduce_mean(loss, grads, self.group, self.world_size, mvals)
-        if metrics is not None:
-            metrics.update(sums)
-        return loss, grads
+            return super().loss_fn(params, batch_inputs, label, rng)
+
+    def _gradient_reducer(self, leaves):
+        return C.BucketedBackward([(self.group, keys) for keys in self.buckets],
+                                  leaves, self.collectives, self.bucket_log)
+
+    def _step_scalars(self, loss, grads, mvals):
+        """The gradients averaged over the ranks, and (global mean loss,
+        the whole batch's metric sums) in one bucket of their own."""
+        for g in grads.values():
+            g.div_(self.world_size)
+        return all_reduce_mean(loss, self.group, self.world_size, mvals, self.collectives)
 
 
-def all_reduce_mean(loss, grads: Dict[ParamKey, torch.Tensor], group, world_size: int,
-                    metrics: Optional[Dict] = None):
-    """One all-reduce of the loss, every gradient and the metric values
-    over `group`, flattened into one f32 bucket; returns the means of the
-    loss and the gradients over the group's `world_size` ranks, as views of
-    it, and the metrics' sums (counts back as ints, exact below 2**24)."""
+def _graph_batch(cg: ComputationGraph) -> int:
+    """The batch of the graph's first input (its dim 0)."""
+    for n in cg.topological_ordering():
+        if isinstance(cg.op_attrs(n), InputAttrs):
+            return cg.tensor_shape(cg.outputs_of(n)[0]).dims[0]
+    return 0
+
+
+def all_reduce_mean(loss, group, world_size: int, metrics: Optional[Dict] = None,
+                    counts=None):
+    """One all-reduce of the loss and the metric values over `group`, in
+    one f32 bucket; returns the loss's mean over the group's `world_size`
+    ranks and the metrics' sums. A count that compute_metrics gives as a
+    Python int is fixed by the shape, the same on every rank: its sum is
+    world_size times it, with no read of the device (so a captured window
+    holds the step)."""
     metrics = metrics or {}
-    bucket = torch.cat([loss.reshape(1).float()] + [g.reshape(-1) for g in grads.values()]
-                       + [torch.as_tensor(v, device=loss.device).reshape(1).float()
-                          for v in metrics.values()])
+    tensors = {k: v for k, v in metrics.items() if not isinstance(v, int)}
+    bucket = torch.cat([loss.reshape(1).float()]
+                       + [v.reshape(1).float() for v in tensors.values()])
     dist.all_reduce(bucket, group=group)
-    out, offset = {}, 1
-    for key, g in grads.items():
-        out[key] = bucket[offset:offset + g.numel()].view_as(g)
-        offset += g.numel()
+    if counts is not None:
+        counts["all_reduce"] += 1
     sums = {}
-    for i, (name, v) in enumerate(metrics.items()):
-        total = bucket[offset + i]
-        if isinstance(v, int):
-            sums[name] = int(round(float(total)))
-        elif not v.is_floating_point():
-            sums[name] = total.round().to(v.dtype)
-        else:
-            sums[name] = total
-    bucket[:offset].div_(world_size)
-    return bucket[0], out, sums
+    for i, (name, v) in enumerate(tensors.items()):
+        total = bucket[1 + i]
+        sums[name] = total if v.is_floating_point() else total.round().to(v.dtype)
+    sums = {name: world_size * v if isinstance(v, int) else sums[name]
+            for name, v in metrics.items()}
+    return bucket[0] / world_size, sums

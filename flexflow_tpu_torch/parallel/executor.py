@@ -19,7 +19,8 @@ computes:
   operand is resharded first; where ranks do different work on one operand
   piece (the copies of a Replicate, a weight used on different rows), its
   gradient is summed over those axes (`sum_grad`). A weight's sum is
-  deferred to one bucket per set of axes after the backward;
+  deferred to its set of axes' gradient buckets, which the backward issues
+  as it produces them (parallel/collectives.py, `BucketedBackward`);
 - attention runs the rank's local heads (the weight piece's head count)
   through the per-head [b, h, s, d] kernels, as the JAX package's
   _try_sharded_flash_mha does, and RingAttention rotates key/value blocks
@@ -34,25 +35,44 @@ computes:
   the reported loss and the metrics count each distinct block once.
 
 Every rank then applies the optimizer to its own pieces, so the ranks that
-hold one piece stay bitwise equal. The fused step window of this trainer
-raises (A7 item 9).
+hold one piece stay bitwise equal. Each rank is fed the global batch (and
+keeps its piece) or, as FFModel feeds it, only its own rows
+(`feed_blocks`; `is_rank_block` tells the two apart, as in the
+data-parallel trainer). The fused step window is one captured CUDA graph where
+NCCL carries every collective, and K eager steps in one call under gloo
+(`last_window`, as in the data-parallel trainer).
+
+With the overlap lowering on (`overlap=True`, or FF_TPU_OVERLAP;
+FF_TPU_OVERLAP_BASELINE=1 reverts it), the sites `collect_overlap_sites`
+matches run the collective matmuls of kernels/collective_matmul.py: a
+Linear fed by a Combine over a non-contraction dim gathers its input
+around a ring while it multiplies the chunks (the Combine's all-gather is
+not run), and a bias- and activation-free Linear whose partial sums feed a
+matching Reduction reduce-scatters them around a ring while it computes
+them, chunk by chunk, then all-gathers the reduced chunks (the Reduction's
+all-reduce is not run). A site the lowering cannot take as it stands (an
+operand that would need another reshard first) lowers serially, as the
+JAX package's re-verification falls back; `fused_sites` lists the sites
+that run fused.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 from collections import Counter
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from flexflow_tpu_torch.kernels import collective_matmul as CM
 from flexflow_tpu_torch.kernels import forward as kernel_forward
 from flexflow_tpu_torch.kernels import loss_forward, make_optimizer_state
 from flexflow_tpu_torch.kernels.flash_attention import (
     sharded_flash_attention,
     sharded_flash_supported,
 )
-from flexflow_tpu_torch.kernels.metrics import compute_metrics
 from flexflow_tpu_torch.kernels.ops import _dense_context, batch_stats_group, mha_project_qkv
 from flexflow_tpu_torch.kernels.precision import cast_for_compute
 from flexflow_tpu_torch.kernels.ring_attention import ring_mha_forward
@@ -64,6 +84,7 @@ from flexflow_tpu_torch.local_execution.training_backing import (
     slot_roles,
 )
 from flexflow_tpu_torch.op_attrs.core import IncomingTensorRole, is_parallel_op
+from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import get_reduced_shape
 from flexflow_tpu_torch.op_attrs.ops import (
     BatchNormAttrs,
     CombineAttrs,
@@ -84,6 +105,7 @@ from flexflow_tpu_torch.op_attrs.ops import (
     Pool2DAttrs,
     RepartitionAttrs,
     ReshapeAttrs,
+    ReductionAttrs,
     RingAttentionAttrs,
     SoftmaxAttrs,
     SplitAttrs,
@@ -94,6 +116,7 @@ from flexflow_tpu_torch.parallel.data_parallel import _rank_device
 from flexflow_tpu_torch.parallel.mesh import Axes, MachineMesh
 from flexflow_tpu_torch.parallel.sharding import (
     TensorSharding,
+    is_rank_block,
     local_block,
     pcg_shardings,
 )
@@ -125,11 +148,79 @@ def _pre_reshard_value(pcg: ParallelComputationGraph, t: DataflowOutput) -> Data
         t = src
 
 
-def _like(v, total: torch.Tensor):
-    """A metric summed in f32 back in the type compute_metrics gave it:
-    counts are exact below 2**24."""
+def overlap_lowering_active(flag: Optional[bool] = None) -> bool:
+    """Is the fused collective-matmul lowering on? FF_TPU_OVERLAP_BASELINE=1
+    force-reverts it; otherwise an explicit flag wins, else the
+    FF_TPU_OVERLAP env var (the JAX package's switches)."""
+    if os.environ.get("FF_TPU_OVERLAP_BASELINE"):
+        return False
+    if flag is not None:
+        return bool(flag)
+    return os.environ.get("FF_TPU_OVERLAP", "") not in ("", "0")
+
+
+def collect_overlap_sites(pcg: ParallelComputationGraph,
+                          shardings: Dict[DataflowOutput, TensorSharding],
+                          mesh) -> Dict[Node, str]:
+    """The JAX package's static pattern match of the fused collective-matmul
+    sites, node -> kind, on the port's shardings:
+
+    - "ag_matmul": a Linear whose data input is a Combine over a
+      non-contraction dim (its only use) of a producer sharded there, the
+      gather axes sharding neither the weight nor the output;
+    - "matmul_rs": a bias-free, activation-free Linear whose partial-sum
+      output feeds a Reduction of the same degree (its only use), whose
+      input's local leading dim divides over the contraction axes."""
+    sites: Dict[Node, str] = {}
+    if mesh is None or mesh.world_size <= 1:
+        return sites
+    for n in pcg.topological_ordering():
+        attrs = pcg.op_attrs(n)
+        if not isinstance(attrs, LinearAttrs):
+            continue
+        outs, ins = pcg.outputs_of(n), pcg.inputs_of(n)
+        if ins and len(ins) >= 2:
+            x_t = ins[0]
+            pa = pcg.op_attrs(x_t.node)
+            if isinstance(pa, CombineAttrs) and len(pcg.uses_of(x_t)) == 1:
+                (src,) = pcg.inputs_of(x_t.node)
+                src_pts = pcg.tensor_shape(src)
+                rank = src_pts.num_dims
+                g = pa.combine_dim % rank
+                if g != rank - 1:
+                    gather = shardings[src].dims[g]
+                    reused = {a for axes in shardings[ins[1]].dims for a in axes}
+                    if outs:
+                        reused |= {a for axes in shardings[outs[0]].dims for a in axes}
+                    if (mesh.size(gather) > 1
+                            and src_pts.dims.shard_dims[g].size % mesh.size(gather) == 0
+                            and not shardings[ins[1]].dims[0]
+                            and not reused & set(gather)):
+                        sites[n] = "ag_matmul"
+        if not outs or attrs.use_bias or attrs.activation is not None:
+            continue
+        out_pts = pcg.tensor_shape(outs[0])
+        uses = pcg.uses_of(outs[0])
+        if (out_pts.sum_degree <= 1 or len(uses) != 1
+                or not isinstance(pcg.op_attrs(uses[0].node), ReductionAttrs)
+                or pcg.op_attrs(uses[0].node).reduction_degree != out_pts.sum_degree
+                or not ins):
+            continue
+        x_pts = pcg.tensor_shape(ins[0])
+        sp = mesh.size(shardings[ins[0]].dims[-1])
+        lead = x_pts.dims.shard_dims[0]
+        if sp > 1 and (lead.size // max(lead.degree, 1)) % sp == 0:
+            sites[n] = "matmul_rs"
+    return sites
+
+
+def _count_of(v, blocks: int, total: torch.Tensor):
+    """A metric summed in f32 back in the type compute_metrics gave it. A
+    Python int is a count fixed by the shape, the same on every block: the
+    sum over `blocks` distinct blocks is that many times it, with no read
+    of the device. Integer tensors are exact below 2**24."""
     if isinstance(v, int):
-        return int(round(float(total)))
+        return blocks * v
     if not v.is_floating_point():
         return total.round().to(v.dtype)
     return total
@@ -159,6 +250,10 @@ class _NodePlan:
     bias_axes: Axes = ()  # a bias on a partial sum: added at index 0 of these
     stats_axes: Axes = ()  # BatchNorm: the axes of its batch dims
     ring_axes: Axes = ()  # RingAttention: the axes of its sequence dim
+    fused: str = ""  # a collective-matmul site lowered fused: its kind
+    fused_axes: Axes = ()  # the ring's axes
+    fused_dim: int = 0  # ag_matmul: the dim the ring gathers
+    fused_source: Optional[DataflowOutput] = None  # ag_matmul: the Combine's input
 
 
 def _requirements(pcg, n, attrs, shardings, mesh):
@@ -278,10 +373,16 @@ class DistributedPlan:
     each weight's gradient is summed over after the backward."""
 
     def __init__(self, pcg: ParallelComputationGraph, mesh: MachineMesh,
-                 mapping: Optional[Dict[Node, MachineView]] = None) -> None:
+                 mapping: Optional[Dict[Node, MachineView]] = None,
+                 overlap: bool = False) -> None:
+        """overlap: lower fused the collective-matmul sites of these
+        shardings (`overlap_sites`, the JAX package's static map) that this
+        lowering can take (`fused_sites`; see the module docstring)."""
         self.pcg, self.mesh = pcg, mesh
         self.shardings = pcg_shardings(pcg, mesh, mapping)
         S = self.shardings
+        self.overlap_sites: Dict[Node, str] = (
+            collect_overlap_sites(pcg, S, mesh) if overlap else {})
         self.nodes: Dict[Node, _NodePlan] = {}
         # value -> the param whose piece it is unchanged (through identities)
         alias: Dict[DataflowOutput, ParamKey] = {}
@@ -323,14 +424,80 @@ class DistributedPlan:
                 for n, i, axes in us:
                     if axes:
                         self.nodes[n].sum_grad[i] = axes
+        self.buckets = self._bucket_plan()
+        # parallel-op nodes a fused site takes the place of
+        self.skip: Dict[Node, Node] = {}
+        for n, kind in self.overlap_sites.items():
+            self._fuse(n, kind)
+
+    def _bucket_plan(self) -> List[Tuple[Axes, List[ParamKey]]]:
+        """The gradient buckets, in issue order: each set of axes's weights
+        (those over more than one rank) cut by collectives.bucket_plan, the
+        buckets ordered by when the backward completes them (the position,
+        in reverse first use, of the member the forward uses first); the
+        weights summed nowhere last, as one bucket of no collective."""
+        pcg, mesh, S = self.pcg, self.mesh, self.shardings
+        numel = {}
+        for n in pcg.topological_ordering():
+            if isinstance(pcg.op_attrs(n), WeightAttrs):
+                out = pcg.outputs_of(n)[0]
+                dims = get_reduced_shape(pcg.tensor_shape(out)).dims
+                numel[param_key(n)] = math.prod(
+                    d // mesh.size(a) for d, a in zip(dims, S[out].dims))
+        order = C.first_use_order(pcg, list(self.grad_axes), param_key)
+        rank = {k: i for i, k in enumerate(reversed(order))}
+        buckets, local = [], []
+        for axes in sorted({a for a in self.grad_axes.values()}, key=lambda a: (len(a), a)):
+            keys = [k for k in order if self.grad_axes[k] == axes]
+            if mesh.size(axes) == 1:
+                local.extend(keys)
+                continue
+            buckets.extend((axes, b) for b in C.bucket_plan(keys, numel))
+        buckets.sort(key=lambda ab: max(rank[k] for k in ab[1]))
+        if local:
+            buckets.append(((), [k for k in order if k in set(local)]))
+        return buckets
+
+    def _fuse(self, n: Node, kind: str) -> None:
+        """Lower site n fused where its operands need no other reshard."""
+        pcg, mesh, S = self.pcg, self.mesh, self.shardings
+        p = self.nodes.get(n)
+        ins, outs = pcg.inputs_of(n), pcg.outputs_of(n)
+        if p is None:
+            return
+        if kind == "ag_matmul":
+            x_t = ins[0]
+            attrs = pcg.op_attrs(x_t.node)
+            (src,) = pcg.inputs_of(x_t.node)
+            g = attrs.combine_dim % len(S[src].dims)
+            gathered = S[src].with_dims(S[src].dims[:g] + ((),) + S[src].dims[g + 1:])
+            if (S[src].sum or not _same(gathered, S[x_t]) or not _same(S[x_t], p.need[0])):
+                return
+            p.fused, p.fused_axes, p.fused_dim, p.fused_source = kind, S[src].dims[g], g, src
+            self.skip[x_t.node] = n
+        elif kind == "matmul_rs":
+            (use,) = pcg.uses_of(outs[0])
+            red_out = pcg.outputs_of(use.node)[0]
+            o = S[outs[0]]
+            if not _same(S[red_out], TensorSharding(o.dims, ())) or p.need[0].dims[-1] != o.sum:
+                return
+            p.fused, p.fused_axes = kind, o.sum
+            self.skip[use.node] = n
+
+    @property
+    def fused_sites(self) -> Dict[Node, str]:
+        """The sites that lower fused, node -> kind."""
+        return {n: p.fused for n, p in self.nodes.items() if p.fused}
 
     def step_collectives(self, target: DataflowOutput) -> "Counter":
         """The collectives one loss_and_grads issues where the loss takes
         `target`, by kind, read off the plan: each parallel op's and each
         operand's reshard (forward, and backward where the value depends on
         a weight), each gradient sum at an operand, BatchNorm's statistics,
-        and one bucket per set of weight-gradient axes, the loss's and the
-        metrics' joining the bucket over every axis where blocks differ."""
+        the gradient buckets of the weights, and the bucket of the loss and
+        the metrics over every axis where blocks differ; a fused site's
+        ring steps (and the all-gather of matmul_rs's reduced chunks) in
+        place of the collective it fuses."""
         pcg, mesh, S = self.pcg, self.mesh, self.shardings
         needed = _ancestors(pcg, [target])
         grad = set()
@@ -342,16 +509,26 @@ class DistributedPlan:
             ins, outs = pcg.inputs_of(n), pcg.outputs_of(n)
             if isinstance(attrs, WeightAttrs) or any(t in grad for t in ins):
                 grad.update(outs)
+            if n in self.skip:
+                continue  # a fused site's collectives take its place
             if is_parallel_op(attrs):
                 out.update(C.reshard_collectives(S[ins[0]], S[outs[0]], mesh, ins[0] in grad))
             elif n in self.nodes:
                 p = self.nodes[n]
+                if p.fused:
+                    out["ring_step"] += mesh.size(p.fused_axes) - 1
+                    if p.fused == "matmul_rs":
+                        out["all_gather"] += 1  # the reduced chunks
                 seen = set()
                 for i, t in enumerate(ins):
                     key = (t, p.need[i], p.sum_grad.get(i))
                     if key in seen:
                         continue
                     seen.add(key)
+                    if p.fused == "ag_matmul" and i == 0:
+                        if 0 in p.sum_grad and p.fused_source in grad:
+                            out["all_reduce"] += 1
+                        continue
                     if not _same(S[t], p.need[i]):
                         out.update(C.reshard_collectives(S[t], p.need[i], mesh, t in grad))
                     if i in p.sum_grad and t in grad:
@@ -360,10 +537,10 @@ class DistributedPlan:
                     out["all_reduce"] += 2 * (2 if ins[0] in grad else 1)
         if S[target].sum and mesh.size(S[target].sum) > 1:
             out["all_reduce"] += 1  # the loss sums pending partials of its logits
-        sets = {a for a in self.grad_axes.values() if mesh.size(a) > 1}
+        # a bucket each of gradients, and one of the loss and the metrics
+        out["all_reduce"] += sum(1 for axes, _ in self.buckets if mesh.size(axes) > 1)
         if _block_axes(S[target]):
-            sets.add(mesh.names)
-        out["all_reduce"] += len(sets)
+            out["all_reduce"] += 1
         return +out
 
     def axis_sets(self):
@@ -412,6 +589,11 @@ def pcg_forward_interpreter(
         la = pcg.layer_attrs(n)
         attrs = la.attrs
         outs = pcg.outputs_of(n)
+        if n in plan.skip:
+            site = plan.nodes[plan.skip[n]]
+            if site.fused == "matmul_rs":  # the fused site's output is the sum
+                env[outs[0]] = env[pcg.inputs_of(n)[0]]
+            continue
         if isinstance(attrs, InputAttrs):
             key = la.name if la.name is not None and la.name in inputs else param_key(n)
             if key not in inputs:
@@ -431,6 +613,12 @@ def pcg_forward_interpreter(
         for i, t in enumerate(ins):
             # one piece per distinct value (self-attention's q, k, v)
             key = (t, p.need[i], p.sum_grad.get(i))
+            if p.fused == "ag_matmul" and i == 0:
+                v = env[p.fused_source]  # the Combine's input: the ring gathers it
+                if 0 in p.sum_grad:
+                    v = C.sum_grad(v, mesh, p.sum_grad[0])
+                vals.append(v)
+                continue
             if key not in slots:
                 v = env[t]
                 if not _same(S[t], p.need[i]):
@@ -449,6 +637,12 @@ def _run(attrs, vals, p: _NodePlan, mesh: MachineMesh) -> List[torch.Tensor]:
     roles = slot_roles(attrs, len(vals))
     data = [v for v, r in zip(vals, roles) if r == IncomingTensorRole.INPUT]
     weights = [v for v, r in zip(vals, roles) if r == IncomingTensorRole.WEIGHT]
+    if p.fused == "ag_matmul":
+        return [CM.all_gather_matmul(
+            data[0], weights[0], mesh, p.fused_axes, p.fused_dim,
+            bias=weights[1] if attrs.use_bias else None, activation=attrs.activation)]
+    if p.fused == "matmul_rs":
+        return [CM.matmul_reduce_scatter(data[0], weights[0], mesh, p.fused_axes)]
     bias_on = C.sum_group_zero(mesh, p.bias_axes)
     if isinstance(attrs, MultiHeadAttentionAttrs):
         return [_attention(attrs, data, weights, mesh, p.ring_axes, bias_on)]
@@ -493,7 +687,8 @@ def _attention(attrs: MultiHeadAttentionAttrs, data, weights, mesh: MachineMesh,
 class DistributedTrainingInstance(ModelTrainingInstance):
     """PCG + loss + optimizer on a mesh of ranks: each rank trains its
     pieces. `mapping`: the searched machine views, which choose the axes
-    (as the JAX package's)."""
+    (as the JAX package's). `overlap`: the collective-matmul lowering
+    (overlap_lowering_active decides, with its env switches)."""
 
     def __init__(
         self,
@@ -506,6 +701,7 @@ class DistributedTrainingInstance(ModelTrainingInstance):
         compute_dtype: Optional[torch.dtype] = None,
         device=None,
         metrics=frozenset(),
+        overlap: Optional[bool] = None,
     ) -> None:
         """device: cuda:<local rank> unless given; see resolve_device."""
         import torch.distributed as dist
@@ -513,7 +709,7 @@ class DistributedTrainingInstance(ModelTrainingInstance):
         self.pcg = pcg
         self.machine_mesh = machine_mesh
         self.mapping = dict(mapping) if mapping else None
-        self.plan = DistributedPlan(pcg, machine_mesh, mapping)
+        self.plan = DistributedPlan(pcg, machine_mesh, mapping, overlap_lowering_active(overlap))
         self.shardings = self.plan.shardings
         machine_mesh.open_groups(self.plan.axis_sets())
         self.loss_logit_tensor = _pre_reshard_value(pcg, logit_tensor)
@@ -527,9 +723,15 @@ class DistributedTrainingInstance(ModelTrainingInstance):
             la = pcg.layer_attrs(n)
             if isinstance(la.attrs, InputAttrs):
                 self._inputs[la.name or param_key(n)] = pcg.outputs_of(n)[0]
+        # the global batch: dim 0 of the first input
+        self.batch_size = (get_reduced_shape(pcg.tensor_shape(
+            next(iter(self._inputs.values())))).dims[0] if self._inputs else 0)
         super().__init__(pcg, logit_tensor, loss_attrs, optimizer_attrs,
                          compute_dtype=compute_dtype, device=_rank_device(device, dist.get_rank()),
                          metrics=metrics)
+        # per step: (collective buckets issued, of them before the
+        # backward's last gradient)
+        self.bucket_log: List[Tuple[int, int]] = []
 
     @property
     def collectives(self):
@@ -544,6 +746,41 @@ class DistributedTrainingInstance(ModelTrainingInstance):
         """The collectives a train step issues, by kind, as the plan implies
         them (DistributedPlan.step_collectives)."""
         return self.plan.step_collectives(self.loss_logit_tensor)
+
+    @property
+    def overlap_sites(self) -> Dict[Node, str]:
+        return self.plan.overlap_sites
+
+    @property
+    def fused_sites(self) -> Dict[Node, str]:
+        return self.plan.fused_sites
+
+    def step_flops(self) -> int:
+        """A train step's flops of the model's own work, as MFU counts it
+        (kernels.ops.graph_step_flops over the PCG)."""
+        from flexflow_tpu_torch.kernels.ops import graph_step_flops
+
+        return graph_step_flops(self.pcg)
+
+    def _capturable(self) -> bool:
+        import torch.distributed as dist
+
+        return dist.get_backend(self.machine_mesh.group) == "nccl"
+
+    def _rows(self, tensor: DataflowOutput) -> Tuple[int, int]:
+        """(start, stop) of this rank's rows of `tensor`'s dim 0."""
+        mesh, s = self.machine_mesh, self.shardings[tensor]
+        size = get_reduced_shape(self.pcg.tensor_shape(tensor)).dims[0]
+        axes = s.dims[0] if s.dims else ()
+        n = size // mesh.size(axes)
+        return mesh.index(axes) * n, (mesh.index(axes) + 1) * n
+
+    def feed_blocks(self):
+        """(rows per input name, rows of the label): the (start, stop) of
+        this rank's block of each within a global batch, which is all it
+        needs fed (the JAX package's device_put_global)."""
+        return ({name: self._rows(t) for name, t in self._inputs.items()},
+                self._rows(self.loss_logit_tensor))
 
     def weight_sharding(self, key: ParamKey) -> TensorSharding:
         (out,) = self.pcg.outputs_of(Node(int(key[1:])))
@@ -563,79 +800,74 @@ class DistributedTrainingInstance(ModelTrainingInstance):
         s = self.shardings[tensor]
         return C.reshard(x, s, dataclasses.replace(s, sum=()), self.machine_mesh) if s.sum else x
 
+    def _cut(self, x, s: TensorSharding, sizes, what: str) -> torch.Tensor:
+        """This rank's piece of x: the global value, or (as FFModel feeds
+        it) only this rank's rows of it, which are cut in the other dims."""
+        x = torch.as_tensor(x)
+        n0 = self.machine_mesh.size(s.dims[0]) if s.dims else 1
+        if x.dim() and is_rank_block(x.shape[0], sizes[0], n0):
+            s = s.with_dims(((),) + tuple(s.dims[1:]))
+        return local_block(x, s, self.machine_mesh, what).to(self.device)
+
     def _local(self, x, tensor: DataflowOutput, what: str) -> torch.Tensor:
         """This rank's piece of the global value x of `tensor`."""
-        return local_block(torch.as_tensor(x, device=self.device), self.shardings[tensor],
-                           self.machine_mesh, what)
+        sizes = get_reduced_shape(self.pcg.tensor_shape(tensor)).dims
+        return self._cut(x, self.shardings[tensor], sizes, what)
 
     def _local_inputs(self, batch_inputs) -> Dict[str, torch.Tensor]:
         return {k: self._local(v, self._inputs[k], f"input {k!r}") for k, v in batch_inputs.items()}
 
-    def _local_label(self, label):
-        """Labels shard like the loss's logits, without the class dim."""
+    def _local_label(self, label) -> torch.Tensor:
+        """This rank's piece of the label: labels shard like the loss's
+        logits, without the class dim."""
         s = self.shardings[self.loss_logit_tensor]
-        label = torch.as_tensor(label, device=self.device)
-        return label, local_block(label, s.with_dims(s.dims[:label.dim()]), self.machine_mesh,
-                                  "label")
+        label = torch.as_tensor(label)
+        sizes = get_reduced_shape(self.pcg.tensor_shape(self.loss_logit_tensor)).dims
+        return self._cut(label, s.with_dims(s.dims[:label.dim()]), sizes[:label.dim()], "label")
+
+    def _feed(self, batch_inputs, label):
+        """This rank's pieces of the inputs and of the label."""
+        return self._local_inputs(batch_inputs), self._local_label(label)
 
     def loss_fn(self, params, batch_inputs, label, rng=None):
         """(this rank's loss: the mean over its block of the logits times the
-        block's share of the global tokens, its block of the logits). rng is
-        unused: the interpreter refuses dropout."""
-        full, label = self._local_label(label)
-        local = self._local_inputs(batch_inputs)
+        block's share of the global tokens, its block of the logits) from
+        its pieces of the inputs and the label (`_feed`). rng is unused:
+        the interpreter refuses dropout."""
         env = pcg_forward_interpreter(
             self.plan, cast_for_compute(params, self.compute_dtype),
-            cast_for_compute(local, self.compute_dtype), [self.loss_logit_tensor])
+            cast_for_compute(batch_inputs, self.compute_dtype), [self.loss_logit_tensor])
         logit = self._whole(env[self.loss_logit_tensor], self.loss_logit_tensor)
-        share = label.numel() / full.numel()
+        sizes = get_reduced_shape(self.pcg.tensor_shape(self.loss_logit_tensor)).dims
+        share = label.numel() / math.prod(sizes[:label.dim()])
         return loss_forward(self.loss_attrs, logit, label) * share, logit
 
-    def multi_train_step(self, params, opt_state, batch_stack, label_stack, rng):
-        """The fused K-step window of the distributed trainer is not ported yet."""
-        raise NotImplementedError(
-            "multi_train_step of the distributed trainer is not ported yet (A7 item 9)")
-
-    def loss_and_grads(self, params, batch_inputs, label, rng=None, metrics=None):
-        """(global mean loss, {key: f32 gradient of this rank's piece}) from
-        the global batch; `params` are not modified. The gradients of each
-        set of axes go in one bucket, the loss and the metrics of the
-        distinct blocks in the bucket over every axis."""
+    def _gradient_reducer(self, leaves):
+        """The plan's buckets, issued as the backward produces them."""
         mesh = self.machine_mesh
-        leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
-        loss, logit = self.loss_fn(leaves, batch_inputs, label, rng)
+        return C.BucketedBackward(
+            [(mesh.group_of(axes)[0] if mesh.size(axes) > 1 else False, keys)
+             for axes, keys in self.plan.buckets], leaves, mesh.counts, self.bucket_log)
+
+    def _step_scalars(self, loss, grads, mvals):
+        """(global mean loss, metric sums): the loss and the metrics of the
+        distinct blocks in a bucket of their own over every axis."""
+        mesh = self.machine_mesh
         # where blocks differ, the rank at index 0 of every axis its block
         # is duplicated over speaks for it, in the bucket over every axis
-        s = self.shardings[self.loss_logit_tensor]
-        mvals = {}
-        if metrics is not None:
-            mvals = compute_metrics(self.metrics, logit.detach(), self._local_label(label)[1])
-        del logit
-        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-        grads = {k: torch.zeros_like(leaves[k]) if g is None else g
-                 for k, g in zip(leaves, grads)}
-        buckets: Dict[Axes, List[torch.Tensor]] = {}
-        for k, g in grads.items():
-            buckets.setdefault(self.plan.grad_axes[k], []).append(g)
-        scalars = [loss.detach().float()] + [
-            torch.as_tensor(v, device=self.device).float() for v in mvals.values()]
-        block = _block_axes(s)
-        world = mesh.names if block else ()
-        if world:
+        block = _block_axes(self.shardings[self.loss_logit_tensor])
+        tensors = {k: v for k, v in mvals.items() if not isinstance(v, int)}
+        scalars = [loss.float()] + [
+            torch.as_tensor(v, device=self.device).float() for v in tensors.values()]
+        if block:
+            world = mesh.names
             speaks = C.sum_group_zero(mesh, [a for a in mesh.names if a not in block])
-            buckets.setdefault(world, []).extend(t if speaks else torch.zeros_like(t)
-                                                 for t in scalars)
-        reduced = C.bucket_all_reduce(mesh, buckets)
-        out, taken = {}, {}
-        for k in grads:
-            axes = self.plan.grad_axes[k]
-            out[k] = reduced[axes][taken.get(axes, 0)]
-            taken[axes] = taken.get(axes, 0) + 1
-        if world:
-            scalars = reduced[world][taken.get(world, 0):]
-        if metrics is not None:
-            metrics.update({name: _like(v, t) for (name, v), t in zip(mvals.items(), scalars[1:])})
-        return scalars[0], out
+            scalars = C.bucket_all_reduce(mesh, {world: [
+                t if speaks else torch.zeros_like(t) for t in scalars]})[world]
+        sums = dict(zip(tensors, scalars[1:]))
+        blocks = mesh.size(block)
+        return scalars[0], {name: _count_of(v, blocks, sums.get(name))
+                            for name, v in mvals.items()}
 
     @torch.no_grad()
     def forward(self, params, batch_inputs) -> torch.Tensor:

@@ -214,6 +214,13 @@ class MachineMesh(MeshAxes):
         order = [p if group is None else dist.get_group_rank(group, p) for p in peers]
         return torch.cat([parts[i] for i in order], dim=dim)
 
+    def ring_start(self, x: torch.Tensor, axes: Sequence[str]) -> "RingTransfer":
+        """Start one step of the ring over `axes` (the ranks in piece order):
+        send x to the next rank, receive the previous rank's tensor of x's
+        shape and dtype; `.wait()` returns it. Counts itself as a
+        "ring_step" in `counts`."""
+        return RingTransfer(self, x, tuple(axes))
+
     def ring(self, axes: Optional[Sequence[str]] = None) -> SequenceRing:
         """The sequence-parallel ring over `axes` (default: the sp axes of
         the dp x sp mesh): this rank's place is its piece index."""
@@ -223,6 +230,62 @@ class MachineMesh(MeshAxes):
             return SequenceRing()
         group, peers = self.group_of(axes)
         return SequenceRing(n, self.index(axes), group, tuple(peers))
+
+
+class RingTransfer:
+    """One ring step in flight (MachineMesh.ring_start).
+
+    NCCL takes it as device tensors: one batch_isend_irecv, on NCCL's own
+    stream, which the caller's stream waits for. Gloo's send and recv are
+    meant for host tensors: a CPU tensor goes as it is, and a card's
+    tensor is staged through pinned host memory explicitly, copied out on
+    a side stream as the step starts, sent and received on the host in
+    `wait()`, and copied back on the side stream, which the caller's
+    stream then waits for. Either way the caller's stream goes on with
+    its own work (a chunk's matmul) meanwhile."""
+
+    def __init__(self, mesh: MachineMesh, x: torch.Tensor, axes: Axes) -> None:
+        group, peers = mesh.group_of(axes)
+        n, i = len(peers), mesh.index(axes)
+        self.group, self.next, self.prev = group, peers[(i + 1) % n], peers[(i - 1) % n]
+        self.x = x.contiguous()
+        self.out = torch.empty_like(self.x)
+        self.staged = mesh.backend != "nccl" and self.x.device.type == "cuda"
+        mesh.counts["ring_step"] += 1
+        if mesh.backend == "nccl":
+            self.works = dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, self.x, self.next, group),
+                dist.P2POp(dist.irecv, self.out, self.prev, group)])
+        elif not self.staged:
+            self.works = [dist.isend(self.x, self.next, group=group),
+                          dist.irecv(self.out, self.prev, group=group)]
+        else:
+            self.stream = torch.cuda.Stream(self.x.device)
+            self.stream.wait_stream(torch.cuda.current_stream(self.x.device))
+            self.host = torch.empty(self.x.shape, dtype=self.x.dtype, pin_memory=True)
+            self.host_in = torch.empty_like(self.host, pin_memory=True)
+            with torch.cuda.stream(self.stream):
+                self.host.copy_(self.x, non_blocking=True)
+                self.copied = torch.cuda.Event()
+                self.copied.record(self.stream)
+
+    def wait(self) -> torch.Tensor:
+        """The tensor the previous rank sent, ready on the caller's stream."""
+        if not self.staged:
+            for w in self.works:
+                w.wait()
+            return self.out
+        self.copied.synchronize()
+        works = [dist.isend(self.host, self.next, group=self.group),
+                 dist.irecv(self.host_in, self.prev, group=self.group)]
+        for w in works:
+            w.wait()
+        current = torch.cuda.current_stream(self.x.device)
+        with torch.cuda.stream(self.stream):
+            self.out.copy_(self.host_in, non_blocking=True)
+        current.wait_stream(self.stream)
+        self.out.record_stream(current)
+        return self.out
 
 
 class AxisPool:

@@ -148,6 +148,14 @@ def _check_divides(size: int, n: int, what: str, dim: int, axes, mesh: MachineMe
                          f"{kind + ' ' if kind else ''}ranks (mesh axes {', '.join(axes)})")
 
 
+def is_rank_block(rows: int, global_rows: int, n: int) -> bool:
+    """Whether a batch of `rows` rows fed to a trainer whose global batch
+    has `global_rows`, split over `n` ranks, is this rank's block of it (as
+    FFModel feeds it) rather than a global batch, which the trainer cuts
+    itself. A global batch of exactly one block's rows reads as a block."""
+    return n > 1 and rows * n == global_rows
+
+
 def local_block(x, sharding: TensorSharding, mesh: MachineMesh, what: str):
     """This rank's piece of the global tensor x (its leading dims sharded as
     `sharding` says); raises where a sharded dim does not divide."""

@@ -80,7 +80,9 @@ def test_port_runs_a_step_with_jax_and_the_jax_package_refused():
                                           AdamOptimizerAttrs(alpha=1e-3), device="cpu")
         _, _, dp_loss, _ = dp.train_step(*dp.initialize(seed=0), {"x": x}, y)
         dist.destroy_process_group()
-        assert abs(float(dp_loss) - float(loss)) < 1e-5 and dp.all_reduces == 1
+        # one gradient bucket (the bucket plan) and the loss's bucket
+        assert abs(float(dp_loss) - float(loss)) < 1e-5 and dp.all_reduces == 2
+        assert dp.step_collectives()["all_reduce"] == len(dp.buckets) + 1 == 2
 
         from flexflow_tpu_torch.models import ParallelTransformerConfig, build_parallel_transformer
         from flexflow_tpu_torch.parallel import DistributedTrainingInstance, MachineMesh

@@ -43,6 +43,7 @@ from flexflow_tpu_torch.models import build_flagship_cg
 from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
 from flexflow_tpu_torch.parallel import DataParallelTrainingInstance, init_file_group
 from flexflow_tpu_torch.pcg import AdamOptimizerAttrs
+from test_torch_port_once import once_per_session
 
 REPO = Path(__file__).resolve().parent.parent
 SMALL = dict(batch=4, seq=128, embed=256, heads=2, layers=2, vocab=512)
@@ -85,7 +86,8 @@ WORKER = textwrap.dedent(
         losses.append(float(loss))
     out.update({f"param_{k}": v for k, v in params_to_numpy(params).items()})
     np.savez(os.path.join(work, f"rank{rank}.npz"), losses=np.array(losses),
-             all_reduces=inst.all_reduces, refused=refused, **out)
+             all_reduces=inst.all_reduces, per_step=inst.step_collectives()["all_reduce"],
+             buckets=len(inst.buckets), refused=refused, **out)
     dist.destroy_process_group()
     """
 )
@@ -152,14 +154,18 @@ def _port_single(graph, logits, init, x, y):
 
 @pytest.fixture(scope="module", params=[2, 4], ids=["heads128", "heads64"])
 def runs(request, tmp_path_factory):
-    cfg = dict(SMALL, heads=request.param)
+    return once_per_session(tmp_path_factory, f"dp_heads{request.param}",
+                            lambda work: _runs(work, request.param))
+
+
+def _runs(work, heads):
+    cfg = dict(SMALL, heads=heads)
     jinst = JaxDP(*jax_build_flagship_cg(**cfg), JaxSCCE(), JaxAdam(alpha=1e-3),
                   devices=jax.devices()[:RANKS])
     init = {k: np.array(v) for k, v in jinst.initialize(seed=0)[0].items()}
     rs = np.random.RandomState(0)
     x = rs.randn(cfg["batch"], cfg["seq"], cfg["embed"]).astype(np.float32)
     y = rs.randint(0, cfg["vocab"], (cfg["batch"], cfg["seq"])).astype(np.int32)
-    work = tmp_path_factory.mktemp(f"dp_heads{cfg['heads']}")
     np.savez(work / "inputs.npz", x=x, y=y, **init)
     ranks = _port_dp(work, cfg)
     graph, logits = build_flagship_cg(**cfg)
@@ -169,7 +175,8 @@ def runs(request, tmp_path_factory):
         ranks=[dict(losses=list(r["losses"]),
                     grads={k[5:]: v for k, v in r.items() if k.startswith("grad_")},
                     params={k[6:]: v for k, v in r.items() if k.startswith("param_")},
-                    all_reduces=int(r["all_reduces"]), refused=str(r["refused"]))
+                    all_reduces=int(r["all_reduces"]), per_step=int(r["per_step"]),
+                    buckets=int(r["buckets"]), refused=str(r["refused"]))
                for r in ranks],
     )
 
@@ -209,8 +216,16 @@ def test_ranks_hold_bitwise_equal_parameters(runs):
 
 
 def test_one_all_reduce_per_step_and_an_indivisible_batch_is_refused(runs):
+    """One all-reduce a gradient bucket, and one of the loss and metrics, a
+    step: the bucket plan of the parameters' sizes under BUCKET_CAP_BYTES
+    (the small flagship's f32 gradients fit one bucket)."""
+    from flexflow_tpu_torch.parallel.collectives import BUCKET_CAP_BYTES
+
+    grad_bytes = 4 * sum(v.size for v in runs["init"].values())
+    assert grad_bytes < BUCKET_CAP_BYTES
     for r in runs["ranks"]:
-        assert r["all_reduces"] == 1 + STEPS  # loss_and_grads, then the steps
+        assert r["buckets"] == 1 and r["per_step"] == r["buckets"] + 1
+        assert r["all_reduces"] == (1 + STEPS) * r["per_step"]  # loss_and_grads, then the steps
         assert "does not divide over 2" in r["refused"]
 
 

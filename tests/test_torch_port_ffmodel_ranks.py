@@ -255,9 +255,11 @@ def test_the_devices_of_a_compile_are_the_groups_ranks(one_rank_group, monkeypat
                                        (dict(cost_store="store"), "A6 part 2 / A13"),
                                        (dict(search_algorithm="mcmc"), "A6 part 2"),
                                        (dict(pipeline=True), "A10"),
-                                       (dict(overlap=True), "A7 item 7")])
+                                       (dict(overlap=True), "A6 part 2 item 4")])
 def test_unported_search_flags_raise_naming_their_item(one_rank_group, flag, item):
-    """Checked before the search runs, on the plan's first compile step."""
+    """Checked before the search runs, on the plan's first compile step.
+    The collective matmuls run on an imported or forced plan; a search
+    with them would price without the fused edges the JAX search prices."""
     m, _ = _port_model(batch_size=6, search_budget=2, **flag)
     with pytest.raises(NotImplementedError, match=item):
         m._compile_searched(m._last_output, 2, None)

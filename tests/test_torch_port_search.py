@@ -402,7 +402,8 @@ def test_op_without_kernel_raises_naming_a2():
     must say so, not price it inf."""
     tl = TLocal(TSettings(1, 2), device="cpu")
     with pytest.raises(NotImplementedError, match="A2"):
-        tl.estimate_operator_cost(t_ops.BatchMatmulAttrs(), [TShape((2, 8, 4)), TShape((2, 4, 8))])
+        tl.estimate_operator_cost(t_ops.ReduceAttrs(t_ops.ReduceOpType.SUM, (1,)),
+                                  [TShape((2, 8, 4))])
 
 
 def test_card_entry_points_default_to_cuda():
@@ -416,5 +417,7 @@ def test_card_entry_points_default_to_cuda():
         calibrate()
     cal = calibrate(device="cpu")
     assert cal.peak_flops > 0 and cal.hbm_gbps > 0 and cal.backend == "cpu"
-    with pytest.raises(NotImplementedError, match="A7"):
+    # over several devices calibrate is a collective of the ranks' group
+    # (tests/test_torch_port_calibration.py runs it on 2 ranks)
+    with pytest.raises(RuntimeError, match="collective call on the 2 ranks"):
         calibrate(device="cpu", num_devices=2)

@@ -55,6 +55,7 @@ from flexflow_tpu_torch.parallel import (
     init_file_group,
 )
 from flexflow_tpu_torch.pcg import AdamOptimizerAttrs
+from test_torch_port_once import once_per_session
 
 REPO = Path(__file__).resolve().parent.parent
 SMALL = dict(batch_size=4, sequence_length=256, num_features=256, num_heads=2, num_layers=2,
@@ -107,7 +108,9 @@ WORKER = textwrap.dedent(
         losses.append(float(loss))
     out.update({f"param_{k}": v for k, v in params_to_numpy(params).items()})
     np.savez(os.path.join(work, f"rank{rank}.npz"), losses=np.array(losses),
-             all_reduces=inst.all_reduces, refused=np.array(refused), ring_calls=len(calls), **out)
+             all_reduces=inst.all_reduces, per_step=inst.step_collectives()["all_reduce"],
+             buckets=sum(1 for axes, _ in inst.plan.buckets if inst.machine_mesh.size(axes) > 1),
+             refused=np.array(refused), ring_calls=len(calls), **out)
     dist.destroy_process_group()
     """
 )
@@ -171,6 +174,7 @@ def _port_ranks(work: Path, cfg):
     for r in range(ranks):
         z = dict(np.load(work / f"rank{r}.npz"))
         out.append(dict(losses=list(z["losses"]), all_reduces=int(z["all_reduces"]),
+                        per_step=int(z["per_step"]), buckets=int(z["buckets"]),
                         refused=[str(e) for e in z["refused"]], ring_calls=int(z["ring_calls"]),
                         grads={k[5:]: v for k, v in z.items() if k.startswith("grad_")},
                         params={k[6:]: v for k, v in z.items() if k.startswith("param_")}))
@@ -180,9 +184,13 @@ def _port_ranks(work: Path, cfg):
 @pytest.fixture(scope="module", params=[(1, 2, 2), (2, 2, 4)], ids=["sp2_heads128", "dp2xsp2_heads64"])
 def runs(request, tmp_path_factory):
     dp, sp, heads = request.param
+    return once_per_session(tmp_path_factory, f"sp_dp{dp}_sp{sp}",
+                            lambda work: _runs(work, dp, sp, heads))
+
+
+def _runs(work, dp, sp, heads):
     cfg = dict(SMALL, data_parallel_degree=dp, sequence_parallel_degree=sp, num_heads=heads)
     init, x, y = _data(cfg)
-    work = tmp_path_factory.mktemp(f"sp_dp{dp}_sp{sp}")
     np.savez(work / "inputs.npz", x=x, y=y, **init)
     return dict(cfg=cfg, init=init, jax=_jax_run(cfg, init, x, y), ranks=_port_ranks(work, cfg))
 
@@ -225,9 +233,12 @@ def test_ranks_hold_bitwise_equal_parameters(runs):
 
 
 def test_one_all_reduce_per_step_and_indivisible_blocks_are_refused(runs):
+    """A step's all-reduces: one gradient bucket (the small model's
+    gradients fit one under BUCKET_CAP_BYTES) and the loss's."""
     dp = runs["cfg"]["data_parallel_degree"]
     for r in runs["ranks"]:
-        assert r["all_reduces"] == 1 + STEPS  # loss_and_grads, then the steps
+        assert r["buckets"] == 1 and r["per_step"] == r["buckets"] + 1
+        assert r["all_reduces"] == (1 + STEPS) * r["per_step"]  # loss_and_grads, then the steps
         assert "does not divide over 2 sequence-parallel ranks" in r["refused"][0]
         if dp > 1:
             assert "does not divide over 2 data-parallel ranks" in r["refused"][1]

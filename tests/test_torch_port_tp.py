@@ -63,6 +63,7 @@ from flexflow_tpu_torch.op_attrs.ops import WeightAttrs
 from flexflow_tpu_torch.pcg.machine_view import MachineSpecification as TSpec
 from flexflow_tpu_torch.runtime.strategy import save_strategy
 from flexflow_tpu_torch.substitutions.rules import generate_parallelization_rules as t_rules
+from test_torch_port_once import once_per_session
 
 REPO = Path(__file__).resolve().parent.parent
 SMALL = dict(batch=8, seq=128, embed=256, heads=4, layers=2, vocab=512)
@@ -219,46 +220,51 @@ def _jax_run(pcg, mapping, n, init, x, y):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Per plan: the JAX run, the port's ranks, the JAX initial parameters,
-    and the plan's PCGs; each world's ranks launched once."""
+    and the plan's PCGs; each world's ranks launched once a session."""
     cache = {}
 
     def get(name):
         n = PLANS[name]
         if n not in cache:
-            work = tmp_path_factory.mktemp(f"tp_world{n}")
-            plans = [p for p, w in PLANS.items() if w == n]
-            ref = {}
-            for p in plans:
-                x, y = _data(p)
-                tp, tmap, jp, jmap, search = _plan(p)
-                init = {k: np.array(v) for k, v in
-                        jax_init_pcg_params(jp, jax.random.PRNGKey(0)).items()}
-                save_strategy(str(work / f"{p}.json"), tp, tmap)
-                np.savez(work / f"{p}.npz", x=x, y=y, **init)
-                ref[p] = dict(jax=_jax_run(jp, jmap, n, init, x, y), init=init, pcg=tp,
-                              search=search)
-            (work / "plans.json").write_text(json.dumps(plans))
-            env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-            procs = [subprocess.Popen([sys.executable, "-c", WORKER, str(r), str(n), str(work)],
-                                      cwd=REPO, env=env, stdout=subprocess.PIPE,
-                                      stderr=subprocess.PIPE, text=True) for r in range(n)]
-            for proc in procs:
-                _, err = proc.communicate(timeout=300)
-                assert proc.returncode == 0, err
-            for p in plans:
-                ranks = []
-                for r in range(n):
-                    z = dict(np.load(work / f"{p}_rank{r}.npz"))
-                    pick = lambda pre: {k[len(pre):]: v for k, v in z.items() if k.startswith(pre)}
-                    ranks.append(dict(losses=list(z["losses"]), grads=pick("grad_"),
-                                      params=pick("param_"), pieces=pick("piece_"),
-                                      adam_m=pick("adam_m_"),
-                                      **json.loads(str(z["meta"]))))
-                ref[p]["ranks"] = ranks
-            cache[n] = ref
+            cache[n] = once_per_session(tmp_path_factory, f"tp_world{n}",
+                                        lambda work: _world(work, n))
         return cache[n][name]
 
     return get
+
+
+def _world(work, n):
+    """The runs of every plan of world `n`."""
+    plans = [p for p, w in PLANS.items() if w == n]
+    ref = {}
+    for p in plans:
+        x, y = _data(p)
+        tp, tmap, jp, jmap, search = _plan(p)
+        init = {k: np.array(v) for k, v in
+                jax_init_pcg_params(jp, jax.random.PRNGKey(0)).items()}
+        save_strategy(str(work / f"{p}.json"), tp, tmap)
+        np.savez(work / f"{p}.npz", x=x, y=y, **init)
+        ref[p] = dict(jax=_jax_run(jp, jmap, n, init, x, y), init=init, pcg=tp,
+                      search=search)
+    (work / "plans.json").write_text(json.dumps(plans))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    procs = [subprocess.Popen([sys.executable, "-c", WORKER, str(r), str(n), str(work)],
+                              cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(n)]
+    for proc in procs:
+        _, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, err
+    for p in plans:
+        ranks = []
+        for r in range(n):
+            z = dict(np.load(work / f"{p}_rank{r}.npz"))
+            pick = lambda pre: {k[len(pre):]: v for k, v in z.items() if k.startswith(pre)}
+            ranks.append(dict(losses=list(z["losses"]), grads=pick("grad_"),
+                              params=pick("param_"), pieces=pick("piece_"),
+                              adam_m=pick("adam_m_"),
+                              **json.loads(str(z["meta"]))))
+        ref[p]["ranks"] = ranks
+    return ref
 
 
 def _rel(a, b):
@@ -350,3 +356,38 @@ def test_searched_winner_is_the_jax_packages(runs, n):
     weights = [n_ for n_ in tr.pcg.topological_ordering()
                if isinstance(tr.pcg.op_attrs(n_), WeightAttrs)]
     assert {f"n{w.idx}" for w in weights} == set(runs(f"searched{n}")["init"])
+
+
+@pytest.mark.parametrize("plan", ["tp2", "dp2xtp2"])
+def test_mfu_count_is_the_jax_piece_sum(plan):
+    """The multi-device MFU's numerator: kernels.ops.graph_step_flops of the
+    plan (3 x op_forward_flops over its compute ops at global shapes, the
+    model's own work) equals 3 x the JAX op_forward_flops summed over every
+    distinct piece of the JAX plan (each op's piece shapes, weight pieces
+    and sequence degree as the JAX cost estimator passes them, times its
+    output's shard and sum degrees), and the unparallelized graph's count."""
+    import math
+
+    from flexflow_tpu.kernels.ops import op_forward_flops as j_flops
+    from flexflow_tpu.local_execution.training_backing import split_slot_values
+    from flexflow_tpu.op_attrs.core import get_output_shapes, is_parallel_op
+    from flexflow_tpu.op_attrs.ops import InputAttrs as JInput
+    from flexflow_tpu.op_attrs.ops import WeightAttrs as JWeight
+    from flexflow_tpu.op_attrs.parallel_tensor_shape import get_piece_shape
+    from flexflow_tpu_torch.kernels.ops import graph_step_flops
+    from flexflow_tpu_torch.models import build_flagship_cg
+
+    tp, _, jp, _, _ = _plan(plan)
+    pieces = 0
+    for n in jp.topological_ordering():
+        attrs = jp.op_attrs(n)
+        if isinstance(attrs, (JInput, JWeight)) or is_parallel_op(attrs):
+            continue
+        ins = [jp.tensor_shape(t) for t in jp.inputs_of(n)]
+        data, weights = split_slot_values(attrs, [get_piece_shape(s) for s in ins])
+        sp = ins[0].shard_dim_at(1).degree if ins[0].num_dims >= 3 else 1
+        flops = j_flops(attrs, data, get_output_shapes(attrs, data), weight_shapes=weights or None,
+                        seq_parallel_degree=sp)
+        out = jp.tensor_shape(jp.outputs_of(n)[0])
+        pieces += flops * math.prod(out.shard_degrees()) * out.sum_degree
+    assert graph_step_flops(tp) == 3 * pieces == graph_step_flops(build_flagship_cg(**SMALL)[0])
