@@ -224,7 +224,38 @@ flash and ring launch count must stay at 0):
                   captured window bitwise equal to the eager body, the
                   cache's bytes equal per_device_cache_bytes, every request
                   gets its budget of tokens, and 4 requests match a
-                  teacher-forced prefill.
+                  teacher-forced prefill;
+
+then a searched plan served across ranks, and the plan ops the executor
+lowers on whole values:
+
+32. plan_serve    the serving search (serving/plan.py) plans serve's LM at
+                  its 64 slots of 1024 for a node of 8 H100s (prompts at
+                  serve's median prefill width, generations at the
+                  traffic's mean budget), analytically at the H100
+                  constants and with each leaf's forward timed on the card
+                  (f32), unbudgeted and under a budget below the serial
+                  plan's cache: winners, ms/token, decode and prefill
+                  estimates, the serial ones, leaves and seconds; the
+                  budgeted winners pass verify_memory at that budget with
+                  a smaller per-device cache than the serial plan's; the
+                  1-device estimates over serve's measured decode step and
+                  prefill (printed, no bound);
+33. serve_ranks   serve's widths at 2 layers on 2 and 4 gloo ranks sharing
+                  the card (f32, TF32 off) under a 4-device budgeted search
+                  winner, tp2 and dp2 x tp2: on every rank greedy tokens
+                  and the engine's trace equal the single-device program's,
+                  prefill logits within SERVE_PARITY_BOUND, the cache's
+                  allocation exactly per_device_cache_bytes, the window
+                  not captured (gloo) and no flash launch; ms/token and
+                  tokens/s (host-staged collectives, no NVLink figure);
+34. parity_plan_ops  the flagship's widths at 2 layers (f32, TF32 off):
+                  Dropout(0.1) under dp2 x tp2 on 4 ranks (every step's
+                  masks bitwise the single device's, and what drawing
+                  them whole costs a rank), logits that reach the loss cut
+                  over their classes, and a ReLU on partial sums (a
+                  whole-tensor node), on 2 ranks: losses, first-step
+                  gradients and parameters within 1e-4 of one card's.
 
 The kernels phase also holds the per-head kernels at the attention shapes of
 train_dp, of train_dp_seq2048 and of the 16-head config, on contiguous
@@ -2510,6 +2541,11 @@ def phase_serve(smi: str) -> None:
     tokens = summary["tokens_generated"]
     decode_ms = [ms / args[3] for ms, args in windows]
     bound_ms = (param_bytes + cache_bytes) / PEAK_BYTES * 1e3
+    SERVE_MEASURED.update(
+        median_decode_ms_per_step=statistics.median(decode_ms),
+        median_prefill_ms=statistics.median(ms for ms, _ in prefills),
+        median_prefill_width=int(statistics.median_low(
+            int(np.asarray(args[0]).shape[1]) for _, args in prefills)))
     emit({
         "phase": "serve", "card": smi, "config": SERVE_LM, "traffic": t, "dtype": "f32",
         "float32_matmul_precision": torch.get_float32_matmul_precision(),
@@ -3296,13 +3332,13 @@ dist.destroy_process_group()
 '''
 
 
-def run_ranks(world: int, job: dict, tmp: str):
-    """Run RANK_WORKER on `world` processes and return each rank's result;
-    a failing or hanging rank fails the phase, and every process is
-    stopped on the way out."""
+def run_ranks(world: int, job: dict, tmp: str, worker: str = RANK_WORKER):
+    """Run `worker` (RANK_WORKER unless given) on `world` processes and
+    return each rank's result; a failing or hanging rank fails the phase,
+    and every process is stopped on the way out."""
     job = dict(job, store=os.path.join(tmp, f"store_{job['name']}"),
                out=os.path.join(tmp, job["name"]))
-    procs = [subprocess.Popen([sys.executable, "-c", RANK_WORKER, str(r), str(world),
+    procs = [subprocess.Popen([sys.executable, "-c", worker, str(r), str(world),
                                json.dumps(job)], cwd=REPO, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for r in range(world)]
@@ -3774,6 +3810,708 @@ def phase_examples():
     emit({"phase": "examples", "device": "cuda", "examples": results})
 
 
+# -- serving a searched plan across ranks (plan_serve, serve_ranks) and the
+# -- plan ops the executor lowers on whole values (parity_plan_ops)
+
+SERVE_MEASURED = {}  # serve's measured decode step and prefill, read by plan_serve
+PLAN_SERVE_BUDGET = 2
+PLAN_SERVE_GEN = sum(SERVE_TRAFFIC["max_new_tokens"]) // 2  # the traffic's mean budget
+SERVE_RANKS_LM = dict(SERVE_LM, num_layers=2)
+SERVE_RANKS_TRAFFIC = dict(slots=SERVE_TRAFFIC["slots"], max_seq_len=SERVE_TRAFFIC["max_seq_len"],
+                           requests=24, prompt_len=(32, 96), max_new_tokens=(16, 32),
+                           window_steps=8, seed=3)
+SERVE_RANKS_STEPS = 6  # greedy decode steps compared after the prefill
+SERVE_RANKS_PLANS = {"searched4": 4, "tp2": 2, "dp2xtp2": 4}
+PLAN_OPS = dict(batch=8, seq=128, embed=1024, heads=8, layers=2, vocab=32000)
+PLAN_OPS_STEPS = 3
+PLAN_OPS_BOUND = 1e-4  # relative: losses, first-step gradients, parameters (f32, TF32 off)
+PLAN_OPS_RANKS = {"dropout": 4, "class_sharded": 2, "whole": 2}  # kinds of a world: one launch
+
+# One rank of serve_ranks or parity_plan_ops; argv: rank, world, job (JSON).
+# The ranks share the job's device over an explicit gloo group; each writes
+# its result to <out>.rank<r>.json.
+PLAN_RANK_WORKER = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+import chip_smoke as c
+from flexflow_tpu_torch.kernels import flash_attention as fa
+from flexflow_tpu_torch.parallel import MachineMesh, init_file_group
+
+rank, world, job = int(sys.argv[1]), int(sys.argv[2]), json.loads(sys.argv[3])
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+device = init_file_group(job["store"], rank, world, device=job["device"], backend="gloo")
+out = {"rank": rank}
+if job["mode"] == "serve_ranks":
+    for plan in job["plans"]:
+        fa.reset_launch_counts()
+        out[plan] = c.serve_rank(plan, job, device, rank)
+        out[plan]["launches"] = {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS}
+elif job["mode"] == "plan_ops":
+    for kind in job["kinds"]:
+        out[kind] = c.plan_ops_rank(kind, device, world, f"{job['out']}.{kind}.npz", job["cfg"])
+with open(f"{job['out']}.rank{rank}.json", "w") as f:
+    json.dump(out, f)
+dist.destroy_process_group()
+"""
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _serve_ranks_requests(t, vocab):
+    return _serve_requests(t["requests"], vocab, t["prompt_len"], t["max_new_tokens"], t["seed"])
+
+
+def _traced_engine(programs, requests, window_steps, device) -> dict:
+    """Serve `requests` through a continuous-batching engine: each
+    prefill's (window, replica, admitted rids), every request's tokens, the
+    run's seconds and ms/token."""
+    from flexflow_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(programs, mode="continuous", window_steps=window_steps)
+    trace = []
+    prefill = eng._prefill
+    eng._prefill = lambda rep, adm: trace.append(
+        [eng.windows, rep.idx, [rep.slots[i].request.rid for i in adm]]) or prefill(rep, adm)
+    try:
+        for r in requests:
+            eng.submit(r)
+        _sync(device)
+        start = time.perf_counter()
+        records = eng.run()
+        _sync(device)
+        run_s = time.perf_counter() - start
+        summary = eng.summary()
+    finally:
+        eng.close()
+    tokens = sum(len(r.tokens) for r in records)
+    return dict(trace=trace, tokens={r.rid: list(r.tokens) for r in records}, run_s=run_s,
+                output_tokens_per_s=tokens / run_s, p50_ms_per_token=summary["p50_ms_per_token"])
+
+
+def _prefill_and_decode(program, prompts, lengths, steps):
+    """(last-position logits [slots, vocab] on the CPU, `steps` greedy
+    tokens [slots, steps]) of one prefill of the whole slot batch."""
+    import numpy as np
+
+    cache = program.init_cache()
+    fresh = np.ones(len(lengths), bool)
+    cache, tok, last = program.prefill(cache, prompts, lengths, fresh)
+    _, _, _, toks = program.decode_window(cache, tok.cpu().numpy(), lengths, fresh, steps)
+    return last.float().cpu(), toks.cpu().numpy()
+
+
+def _serve_ranks_inputs(t, vocab):
+    import numpy as np
+
+    rng = np.random.default_rng(t["seed"] + 1)
+    prompts = rng.integers(0, vocab, (t["slots"], t["prompt_len"][1])).astype(np.int32)
+    lengths = rng.integers(t["prompt_len"][0], t["prompt_len"][1] + 1, t["slots"]).astype(np.int32)
+    return prompts, lengths
+
+
+def serve_rank(plan: str, job: dict, device, rank: int) -> dict:
+    """One rank of serve_ranks: the plan's ServingProgram over the group's
+    mesh from the global numpy parameters, its cache's allocated bytes, one
+    prefill and SERVE_RANKS_STEPS greedy steps, then the traffic through the
+    engine."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.parallel import MachineMesh
+    from flexflow_tpu_torch.runtime.strategy import load_strategy
+    from flexflow_tpu_torch.serving import ServingMemorySpec, ServingProgram, per_device_cache_bytes
+
+    t = job["traffic"]
+    mem = ServingMemorySpec(t["slots"], t["max_seq_len"])
+    pcg, mapping, _ = load_strategy(job["strategies"][plan])
+    params = {k: torch.from_numpy(v) for k, v in np.load(job["params"]).items()}
+    program = ServingProgram(pcg, mem, mapping=mapping, machine_mesh=MachineMesh.for_devices(),
+                             params=params, device=device)
+    del params
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device) if cuda else 0
+    cache = program.init_cache()
+    allocated = (torch.cuda.memory_allocated(device) - before if cuda else
+                 sum(v.numel() * v.element_size() for kv in cache.values() for v in kv.values()))
+    del cache
+    prompts, lengths = _serve_ranks_inputs(t, job["vocab"])
+    last, toks = _prefill_and_decode(program, prompts, lengths, job["steps"])
+    captured = program.last_window["captured"]
+    if rank == 0:
+        np.save(f"{job['out']}.{plan}.last.npy", last.numpy())
+    served = _traced_engine(program, _serve_ranks_requests(t, job["vocab"]), t["window_steps"],
+                            device)
+    return dict(cache_allocated=allocated,
+                cache_priced=per_device_cache_bytes(program.pcg, program.layers, mem),
+                cache_specs={k: [list(a) if a else None for a in v]
+                             for k, v in program.cache_shardings.items()},
+                whole_nodes=len(program.plan.whole_nodes),
+                class_cut=bool(program.plan.shardings[program.logit_tensor].dims[-1]),
+                greedy=toks.tolist(), captured=captured, engine=served)
+
+
+def _named_params(graph, seed: int) -> dict:
+    """Parameters drawn with numpy from `seed`, keyed by weight layer name
+    (which a plan keeps): matrices N(0, 1/fan_in), vectors at their
+    initializer's constant plus N(0, 0.1) noise."""
+    import numpy as np
+    from flexflow_tpu_torch.local_execution.training_backing import weight_nodes, weight_shape
+    from flexflow_tpu_torch.pcg.initializer import ConstantInitializerAttrs
+
+    rng = np.random.default_rng(seed)
+    nodes = {graph.layer_attrs(n).name: n for n in weight_nodes(graph)}
+    out = {}
+    for name in sorted(nodes):
+        dims = weight_shape(graph, nodes[name]).dims
+        if len(dims) >= 2:
+            out[name] = (rng.standard_normal(dims) / math.sqrt(dims[0])).astype(np.float32)
+        else:
+            (o,) = graph.outputs_of(nodes[name])
+            init = graph.tensor_attrs(o).initializer
+            base = init.value if isinstance(init, ConstantInitializerAttrs) else 0.0
+            out[name] = (base + 0.1 * rng.standard_normal(dims)).astype(np.float32)
+    return out
+
+
+def _by_key(graph, named: dict) -> dict:
+    """`named` keyed by the graph's weight keys (param_key)."""
+    from flexflow_tpu_torch.local_execution.training_backing import param_key, weight_nodes
+
+    return {param_key(n): named[graph.layer_attrs(n).name] for n in weight_nodes(graph)}
+
+
+def _plan_ops_graph(kind: str, parallel: bool, p: dict):
+    """(graph, logits) of parity_plan_ops' model `kind` at PLAN_OPS: the
+    flagship's layers, every layer named. dropout: a CG with Dropout(0.1)
+    after each attention and FFN, under the dp2 x tp2 seeds when `parallel`;
+    class_sharded: its head fed by a Replicate(2) when `parallel`, so the
+    logits reach the loss cut over their classes; whole: a Linear with a
+    ReLU before the head, fed by a Repartition(2) of the hidden dim when
+    `parallel`, so the activation acts on partial sums (then a
+    Reduction(2)). Without `parallel`, the same model on one device. `p`:
+    the widths (PLAN_OPS on the card)."""
+    from flexflow_tpu_torch.op_attrs.activation import Activation
+    from flexflow_tpu_torch.op_attrs.datatype import DataType
+    from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import lift_to_parallel
+    from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
+    from flexflow_tpu_torch.pcg import ComputationGraphBuilder
+    from flexflow_tpu_torch.pcg.parallel_computation_graph_builder import (
+        ParallelComputationGraphBuilder,
+    )
+
+    if kind == "dropout":
+        b = ComputationGraphBuilder()
+        h = b.create_input([p["batch"], p["seq"], p["embed"]], name="x")
+    else:
+        b = ParallelComputationGraphBuilder()
+        h = b.create_input_tensor(lift_to_parallel(TensorShape(
+            (p["batch"], p["seq"], p["embed"]), DataType.FLOAT)), name="x")
+    for i in range(p["layers"]):
+        a = b.multihead_attention(h, h, h, p["embed"], p["heads"], name=f"attn{i}")
+        if kind == "dropout":
+            a = b.dropout(a, 0.1, name=f"drop_a{i}")
+        h = b.layer_norm(b.add(h, a, name=f"res_a{i}"), axes=[-1], name=f"ln1_{i}")
+        f = b.dense(h, 4 * p["embed"], use_bias=False, name=f"ff1_{i}")
+        f = b.dense(b.gelu(f, name=f"gelu{i}"), p["embed"], use_bias=False, name=f"ff2_{i}")
+        if kind == "dropout":
+            f = b.dropout(f, 0.1, name=f"drop_f{i}")
+        h = b.layer_norm(b.add(h, f, name=f"res_f{i}"), axes=[-1], name=f"ln2_{i}")
+    if kind == "whole":
+        x = b.parallel_partition(h, 2, 2) if parallel else h
+        h = b.dense(x, p["embed"], activation=Activation.RELU, name="pre_head")
+        if parallel:
+            h = b.parallel_reduce(h, 2)
+    if kind == "class_sharded" and parallel:
+        h = b.parallel_replicate(h, 2)
+    logits = b.dense(h, p["vocab"], use_bias=False, name="head")
+    graph = b.graph
+    if kind == "dropout" and parallel:
+        from flexflow_tpu_torch.compiler.unity_algorithm import (
+            data_parallel_seed,
+            tensor_parallel_seed,
+        )
+        from flexflow_tpu_torch.pcg.parallel_computation_graph import pcg_from_computation_graph
+
+        graph = data_parallel_seed(tensor_parallel_seed(pcg_from_computation_graph(graph), 2), 2)
+        logits = graph.outputs_of(graph.topological_ordering()[-1])[0]
+    return graph, logits
+
+
+def _plan_ops_data(p: dict):
+    import torch
+
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(p["batch"], p["seq"], p["embed"], generator=gen)
+    return x, torch.randint(0, p["vocab"], (p["batch"], p["seq"]), generator=gen)
+
+
+def _plan_ops_train(inst, params, x, y, device, masks_of=None) -> dict:
+    """The first step's gradients (global values, keyed by weight name),
+    then PLAN_OPS_STEPS Adam steps drawing Dropout from a generator seeded
+    7: losses, the final parameters by name, and each step's masks as
+    `masks_of(step masks)` keeps them."""
+    import torch
+    from flexflow_tpu_torch.local_execution.training_backing import dropout_masks
+
+    graph = inst.pcg if hasattr(inst, "pcg") else inst.cg
+    opt = inst.initialize(seed=0)[1]
+    rng = torch.Generator(device=device).manual_seed(7)
+    _, grads = inst.loss_and_grads(params, {"x": x}, y, rng=torch.Generator(
+        device=device).manual_seed(11))
+    out = {"losses": [], "masks": {}, "grads": grads}
+    for step in range(PLAN_OPS_STEPS):
+        if masks_of is not None:
+            state = rng.get_state()
+            for n, m in dropout_masks(graph, rng, device).items():
+                out["masks"][f"{step}:{graph.layer_attrs(n).name}"] = masks_of(n, m)
+            rng.set_state(state)
+        params, opt, loss, _ = inst.train_step(params, opt, {"x": x}, y, rng)
+        out["losses"].append(float(loss))
+    out["params"] = params
+    return out
+
+
+def plan_ops_rank(kind: str, device, world: int, out: str, cfg: dict) -> dict:
+    """One rank of parity_plan_ops: the plan of `kind` through
+    DistributedTrainingInstance (f32) from the named parameters: its
+    losses, the digests of every step's global Dropout masks as this rank
+    draws them, its whole-tensor nodes and class axes; rank 0 also saves
+    the first step's gradients and the final parameters, gathered to
+    global values and keyed by weight name, to `out`.npz."""
+    import numpy as np
+    from flexflow_tpu_torch.interop import pcg_params_from_numpy
+    from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
+    from flexflow_tpu_torch.parallel import DistributedTrainingInstance, MachineMesh, gather_block
+    from flexflow_tpu_torch.pcg import AdamOptimizerAttrs
+    from flexflow_tpu_torch.utils.graph import Node
+
+    graph, logits = _plan_ops_graph(kind, True, cfg)
+    mesh = MachineMesh.for_devices(world)
+    inst = DistributedTrainingInstance(graph, logits, SparseCategoricalCrossEntropyLossAttrs(),
+                                       AdamOptimizerAttrs(alpha=1e-4), mesh, device=device)
+    params = pcg_params_from_numpy(graph, inst.shardings, mesh,
+                                   _by_key(graph, _named_params(graph, 0)), device)
+    x, y = _plan_ops_data(cfg)
+    res = _plan_ops_train(inst, params, x, y, device, _mask_digest)
+    name = {k: graph.layer_attrs(Node(int(k[1:]))).name for k in res["params"]}
+    saved = {}
+    for tag in ("grads", "params"):
+        for k, v in res[tag].items():
+            saved[f"{tag}:{name[k]}"] = gather_block(v, inst.weight_sharding(k), mesh).float().cpu()
+    if mesh.rank == 0:
+        np.savez(out, **{k: v.numpy() for k, v in saved.items()})
+    return dict(losses=res["losses"], masks=res["masks"], whole=sorted(inst.plan.whole_nodes.values()),
+                class_axes=list(inst.class_axes), collectives=dict(mesh.counts))
+
+
+def _mask_digest(node, mask) -> str:
+    import hashlib
+
+    return hashlib.sha256(mask.cpu().numpy().tobytes()).hexdigest()
+
+
+def _mask_draw_cost(cfg: dict, device) -> dict:
+    """What each rank pays to draw a step's whole Dropout masks (the plan's
+    global shapes) before keeping its piece: ms of one dropout_masks call
+    (median of 5, the device synchronized around each) and the bytes it
+    writes (an f32 uniform and a bool mask per element)."""
+    import torch
+    from flexflow_tpu_torch.local_execution.training_backing import dropout_masks
+
+    graph, _ = _plan_ops_graph("dropout", False, cfg)
+    rng = torch.Generator(device=device).manual_seed(0)
+    times = []
+    for _ in range(6):
+        _sync(device)
+        start = time.perf_counter()
+        masks = dropout_masks(graph, rng, device)
+        _sync(device)
+        times.append((time.perf_counter() - start) * 1e3)
+    numel = sum(m.numel() for m in masks.values())
+    return dict(masks=len(masks), elements=numel, bytes_written=5 * numel,
+                ms=statistics.median(times[1:]))
+
+
+def _plan_ops_single(kind: str, device, cfg: dict) -> dict:
+    """parity_plan_ops' reference: the model of `kind` on one device (the
+    card, f32) from the same named parameters and data."""
+    from flexflow_tpu_torch.interop import params_from_numpy
+    from flexflow_tpu_torch.local_execution import ModelTrainingInstance
+    from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
+    from flexflow_tpu_torch.pcg import AdamOptimizerAttrs
+
+    graph, logits = _plan_ops_graph(kind, False, cfg)
+    inst = ModelTrainingInstance(graph, logits, SparseCategoricalCrossEntropyLossAttrs(),
+                                 AdamOptimizerAttrs(alpha=1e-4), device=device)
+    params = params_from_numpy(graph, _by_key(graph, _named_params(graph, 0)), device)
+    x, y = (t.to(device) for t in _plan_ops_data(cfg))
+    res = _plan_ops_train(inst, params, x, y, device, _mask_digest)
+    from flexflow_tpu_torch.utils.graph import Node
+
+    name = {k: graph.layer_attrs(Node(int(k[1:]))).name for k in res["params"]}
+    res["grads"] = {name[k]: v.float().cpu() for k, v in res["grads"].items()}
+    res["params"] = {name[k]: v.float().cpu() for k, v in res["params"].items()}
+    return res
+
+def _serving_search(cfg, spec, workload, hbm_gb, cost_model, local=None, budget=PLAN_SERVE_BUDGET,
+                    device="cuda"):
+    from flexflow_tpu_torch.serving import ServingLMConfig, build_serving_lm
+    from flexflow_tpu_torch.serving.plan import optimize_serving_plan
+
+    lm = ServingLMConfig(**cfg)
+    start = time.perf_counter()
+    plan = optimize_serving_plan(lambda b, s: build_serving_lm(lm, b, s), spec, workload,
+                                 hbm_gb=hbm_gb, budget=budget, cost_model=cost_model,
+                                 max_seq_len=SERVE_TRAFFIC["max_seq_len"], device=device,
+                                 local_cost_estimator=local)
+    return plan, time.perf_counter() - start
+
+
+def _tight_serving_gb(cfg, spec, workload):
+    """(a memory budget in GiB, the serial decode plan's cache in bytes): a
+    budget the serial decode plan exceeds but some strategy seed of each
+    phase fits, 1.02 x the larger of the two phases' smallest seed peak
+    (a prefill's trailing Combine gathers its whole logits on every
+    device, so the prefill bounds how tight a budget can be)."""
+    from flexflow_tpu_torch.analysis.memory_analysis import analyze_memory
+    from flexflow_tpu_torch.compiler.unity_algorithm import enumerate_seeds
+    from flexflow_tpu_torch.pcg.parallel_computation_graph import pcg_from_computation_graph
+    from flexflow_tpu_torch.serving import ServingLMConfig, build_serving_lm
+    from flexflow_tpu_torch.serving.kv_cache import attention_layers, per_device_cache_bytes
+
+    cache_spec = workload.cache_spec(SERVE_TRAFFIC["max_seq_len"])
+
+    def peak(pcg):
+        return max(analyze_memory(pcg, spec, None, serving=cache_spec).peak_by_device().values())
+
+    lm = ServingLMConfig(**cfg)
+    serial = pcg_from_computation_graph(build_serving_lm(lm, workload.max_concurrent, 1)[0])
+    least = []
+    for seq in (1, workload.prompt_len):
+        pcg = pcg_from_computation_graph(build_serving_lm(lm, workload.max_concurrent, seq)[0])
+        least.append(min(peak(p) for _, p in enumerate_seeds(pcg, spec.num_devices)))
+    budget = 1.02 * max(least)
+    if not budget < peak(serial):
+        raise AssertionError(f"no budget both binds the serial plan ({peak(serial)} B) and admits "
+                             f"a seed of each phase ({least} B)")
+    return budget / 2**30, per_device_cache_bytes(serial, attention_layers(serial), cache_spec)
+
+
+def _plan_serve_rows(cfg: dict, prompt: int, tight: float, serial_cache: int, model: str,
+                     device, local=None) -> dict:
+    """plan_serve's two searches on one cost model, unbudgeted and at
+    `tight` GiB: each one's row of numbers; the budgeted winner checked
+    against verify_memory at that budget and its cache against the serial
+    plan's."""
+    from flexflow_tpu_torch.analysis.diagnostics import has_errors
+    from flexflow_tpu_torch.analysis.memory_analysis import verify_memory
+    from flexflow_tpu_torch.compiler import parallel_degree_summary
+    from flexflow_tpu_torch.compiler.calibration import H100_NVLINK_GBPS, NDR_INFINIBAND_GBPS
+    from flexflow_tpu_torch.pcg.machine_view import MachineSpecification
+    from flexflow_tpu_torch.serving.kv_cache import attention_layers, per_device_cache_bytes
+    from flexflow_tpu_torch.serving.plan import ServingWorkload
+
+    t = SERVE_TRAFFIC
+    spec = MachineSpecification(1, 1, SEARCH_NODE_GPUS, NDR_INFINIBAND_GBPS, H100_NVLINK_GBPS)
+    workload = ServingWorkload(prompt_len=prompt, gen_len=PLAN_SERVE_GEN, max_concurrent=t["slots"])
+    cache_spec = workload.cache_spec(t["max_seq_len"])
+    rows = {}
+    for budget, hbm in (("unbudgeted", 0.0), ("budgeted", tight)):
+        label = f"{model}_{budget}"
+        plan, secs = _serving_search(cfg, spec, workload, hbm, model, local, device=device)
+        cache = per_device_cache_bytes(plan.decode.pcg, attention_layers(plan.decode.pcg),
+                                       cache_spec)
+        row = dict(seconds=secs, ms_per_token=plan.ms_per_token, decode_ms=plan.decode_ms,
+                   prefill_ms=plan.prefill_ms, serial_decode_ms=plan.decode.serial_runtime,
+                   serial_prefill_ms=plan.prefill.serial_runtime,
+                   decode_winner=parallel_degree_summary(plan.decode.pcg),
+                   prefill_winner=parallel_degree_summary(plan.prefill.pcg),
+                   explored=[plan.decode.explored, plan.prefill.explored],
+                   per_device_cache_bytes=cache)
+        if hbm:
+            for phase in (plan.decode, plan.prefill):
+                _, diags = verify_memory(phase.pcg, spec, phase.machine_mapping,
+                                         hbm_bytes=tight * 2**30, serving=cache_spec)
+                if has_errors(diags):
+                    raise AssertionError(f"plan_serve {label}: the winner fails verify_memory "
+                                         f"at {tight} GiB: {[d.message for d in diags]}")
+            if not cache < serial_cache:
+                raise AssertionError(f"plan_serve {label}: per-device cache {cache} B is not "
+                                     f"below the serial plan's {serial_cache} B")
+            row.update(hbm_gb=tight, verified=True, serial_cache_bytes=serial_cache)
+        if not (math.isfinite(plan.ms_per_token) and plan.ms_per_token > 0):
+            raise AssertionError(f"plan_serve {label}: ms/token {plan.ms_per_token}")
+        rows[label] = row
+    return rows
+
+
+# plan_serve's analytic searches, in a process of their own beside the
+# measured ones (host work only; argv: one JSON list of _plan_serve_rows'
+# arguments); prints their rows as its last line
+PLAN_SERVE_WORKER = r"""
+import json, sys
+import chip_smoke as c
+print(json.dumps(c._plan_serve_rows(*json.loads(sys.argv[1]))))
+"""
+
+
+def phase_plan_serve(smi: str, device: str = "cuda", cfg: dict = SERVE_LM) -> None:
+    """The serving search (serving/plan.py) plans SERVE_LM at SERVE_TRAFFIC's
+    slots and max_seq_len for a node of 8 H100s (prompts at serve's median
+    prefill width, generations at the traffic's mean budget): analytically
+    at the H100 constants (in a process of its own, meanwhile) and with
+    each leaf's forward timed on the card (f32, CUDA events around graph
+    replays), unbudgeted and under a budget below the serial plan's cache
+    (_tight_serving_gb). The budgeted winners pass verify_memory at that
+    budget with a smaller per-device cache than the serial plan's; the
+    1-device estimates are printed beside serve's measured decode step and
+    prefill, with their ratios (no bound)."""
+    from flexflow_tpu_torch.compiler.calibration import H100_NVLINK_GBPS, NDR_INFINIBAND_GBPS
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels.profiling import ProfilingSettings
+    from flexflow_tpu_torch.local_execution.cost_estimator import LocalCostEstimator
+    from flexflow_tpu_torch.pcg.machine_view import MachineSpecification
+    from flexflow_tpu_torch.serving.plan import ServingWorkload
+
+    start = time.perf_counter()
+    fa.reset_launch_counts()
+    t = SERVE_TRAFFIC
+    spec = MachineSpecification(1, 1, SEARCH_NODE_GPUS, NDR_INFINIBAND_GBPS, H100_NVLINK_GBPS)
+    prompt = SERVE_MEASURED["median_prefill_width"]
+    workload = ServingWorkload(prompt_len=prompt, gen_len=PLAN_SERVE_GEN, max_concurrent=t["slots"])
+    cache_spec = workload.cache_spec(t["max_seq_len"])
+    tight, serial_cache = _tight_serving_gb(cfg, spec, workload)
+    if not tight * 2**30 < serial_cache:
+        raise AssertionError(f"plan_serve: the budget {tight} GiB does not bind the serial "
+                             f"plan's cache ({serial_cache} B)")
+    args = [cfg, prompt, tight, serial_cache, "analytic", device]
+    child = subprocess.Popen([sys.executable, "-c", PLAN_SERVE_WORKER, json.dumps(args)],
+                             cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        local = LocalCostEstimator(ProfilingSettings(2, 5), forward_only=True,
+                                   serving=cache_spec, optimizer_state_slots=0, device=device)
+        rows = _plan_serve_rows(cfg, prompt, tight, serial_cache, "measured", device, local)
+        out, err = child.communicate(timeout=RANK_TIMEOUT_S)
+        if child.returncode != 0:
+            raise AssertionError(f"plan_serve: the analytic searches failed: {err[-3000:]}")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    rows.update(json.loads(out.strip().splitlines()[-1]))
+    _no_flash_launches("plan_serve")
+    measured, analytic = rows["measured_unbudgeted"], rows["analytic_unbudgeted"]
+    ratios = {
+        "decode_estimate_over_measured":
+            measured["serial_decode_ms"] / SERVE_MEASURED["median_decode_ms_per_step"],
+        "prefill_estimate_over_measured":
+            measured["serial_prefill_ms"] / SERVE_MEASURED["median_prefill_ms"],
+        "analytic_decode_estimate_over_measured":
+            analytic["serial_decode_ms"] / SERVE_MEASURED["median_decode_ms_per_step"],
+        "analytic_prefill_estimate_over_measured":
+            analytic["serial_prefill_ms"] / SERVE_MEASURED["median_prefill_ms"],
+    }
+    for label, row in rows.items():
+        print(f"plan_serve {label}: decode {row['decode_winner']} prefill "
+              f"{row['prefill_winner']} at {row['ms_per_token']:.4f} ms/token "
+              f"({row['seconds']:.1f} s)", flush=True)
+    emit({"phase": "plan_serve", "card": smi, "config": cfg, "node_gpus": SEARCH_NODE_GPUS,
+          "workload": dataclasses.asdict(workload), "max_seq_len": t["max_seq_len"],
+          "budget": PLAN_SERVE_BUDGET, "hbm_gb_budgeted": tight, "searches": rows,
+          "leaves_measured": local.profile_calls, "leaves_inf": len(local.inf_leaves),
+          "serve_measured": SERVE_MEASURED, "one_device_ratios": ratios,
+          "launches": _flash_launches(), "seconds": time.perf_counter() - start})
+
+
+def _serve_ranks_reference(tmp: str, device, lm_cfg: dict, t: dict) -> dict:
+    """serve_ranks' single-device reference on the card (f32, TF32 off):
+    the numpy parameters every rank cuts, one prefill and the greedy steps,
+    and the engine's trace; and the plans' strategy files (the 4-device
+    budgeted search's winner, the forced tp2 and dp2 x tp2)."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.compiler.calibration import H100_NVLINK_GBPS, NDR_INFINIBAND_GBPS
+    from flexflow_tpu_torch.compiler.unity_algorithm import data_parallel_seed, tensor_parallel_seed
+    from flexflow_tpu_torch.pcg.machine_view import MachineSpecification
+    from flexflow_tpu_torch.pcg.parallel_computation_graph import pcg_from_computation_graph
+    from flexflow_tpu_torch.runtime.strategy import save_strategy
+    from flexflow_tpu_torch.serving import (
+        ServingLMConfig,
+        ServingMemorySpec,
+        ServingProgram,
+        build_serving_lm,
+    )
+    from flexflow_tpu_torch.serving.plan import ServingWorkload
+
+    lm = ServingLMConfig(**lm_cfg)
+    cg, _ = build_serving_lm(lm, t["slots"], 1)
+    params = _seeded_params(cg, t["seed"])
+    path = os.path.join(tmp, "serve_ranks_params.npz")
+    np.savez(path, **params)
+    program = ServingProgram(cg, ServingMemorySpec(t["slots"], t["max_seq_len"]),
+                             params={k: torch.from_numpy(v) for k, v in params.items()},
+                             device=device)
+    prompts, lengths = _serve_ranks_inputs(t, lm.vocab_size)
+    last, toks = _prefill_and_decode(program, prompts, lengths, SERVE_RANKS_STEPS)
+    served = _traced_engine(program, _serve_ranks_requests(t, lm.vocab_size), t["window_steps"],
+                            device)
+    del program
+    spec = MachineSpecification(1, 1, 4, NDR_INFINIBAND_GBPS, H100_NVLINK_GBPS)
+    workload = ServingWorkload(prompt_len=t["prompt_len"][1],
+                               gen_len=sum(t["max_new_tokens"]) // 2, max_concurrent=t["slots"])
+    tight, _ = _tight_serving_gb(lm_cfg, spec, workload)
+    plan, secs = _serving_search(lm_cfg, spec, workload, tight, "analytic", device=device)
+    strategies = {"searched4": os.path.join(tmp, "serve_searched4.json")}
+    save_strategy(strategies["searched4"], plan.decode.pcg, plan.decode.machine_mapping,
+                  plan.decode.runtime)
+    decode_pcg = pcg_from_computation_graph(cg)
+    for name, (dp, tp) in {"tp2": (1, 2), "dp2xtp2": (2, 2)}.items():
+        pcg = tensor_parallel_seed(decode_pcg, tp)
+        strategies[name] = os.path.join(tmp, f"serve_{name}.json")
+        save_strategy(strategies[name], data_parallel_seed(pcg, dp) if dp > 1 else pcg, None)
+    from flexflow_tpu_torch.compiler import parallel_degree_summary
+
+    return dict(params=path, last=last, greedy=toks.tolist(), served=served,
+                strategies=strategies, searched=dict(
+                    winner=parallel_degree_summary(plan.decode.pcg), hbm_gb=tight,
+                    ms_per_token=plan.ms_per_token, seconds=secs))
+
+
+def phase_serve_ranks(smi: str, tmp: str, device: str = "cuda:0", lm_cfg: dict = SERVE_RANKS_LM,
+                      t: dict = SERVE_RANKS_TRAFFIC) -> None:
+    """SERVE_RANKS_LM (SERVE_LM's widths at 2 layers) served over 2 and 4
+    gloo ranks sharing the card (f32, TF32 off) under the budgeted winner of
+    a 4-device serving search, the forced tp2 plan (heads cut) and the
+    forced dp2 x tp2 plan (slots and heads cut): every rank's greedy tokens
+    equal the single-device program's, its prefill logits within
+    SERVE_PARITY_BOUND, its cache allocation exactly per_device_cache_bytes,
+    its engine trace the single-device engine's; the windows run eagerly
+    (gloo) and no flash kernel launches."""
+    import numpy as np
+    import torch
+
+    start = time.perf_counter()
+    ref = _serve_ranks_reference(tmp, device, lm_cfg, t)
+    for world in sorted(set(SERVE_RANKS_PLANS.values())):
+        plans = [p for p, w in SERVE_RANKS_PLANS.items() if w == world]
+        job = dict(name=f"serve_ranks{world}", mode="serve_ranks", plans=plans, device=device,
+                   traffic=t, vocab=lm_cfg["vocab_size"], steps=SERVE_RANKS_STEPS,
+                   params=ref["params"], strategies=ref["strategies"])
+        ranks = run_ranks(world, job, tmp, worker=PLAN_RANK_WORKER)
+        for plan in plans:
+            last = torch.from_numpy(np.load(os.path.join(tmp, f"serve_ranks{world}.{plan}.last.npy")))
+            rel = _rel(last, ref["last"])
+            for r in ranks:
+                got = r[plan]
+                checks = {
+                    "greedy_tokens": got["greedy"] == ref["greedy"],
+                    "cache_bytes": got["cache_allocated"] == got["cache_priced"],
+                    "engine_trace": got["engine"]["trace"] == ref["served"]["trace"],
+                    "engine_tokens": got["engine"]["tokens"] == ref["served"]["tokens"],
+                    "not_captured": got["captured"] is False,
+                    "no_flash": not any(got["launches"].values()),
+                }
+                failed = [k for k, ok in checks.items() if not ok]
+                if failed or not rel < SERVE_PARITY_BOUND:
+                    raise AssertionError(f"serve_ranks {plan} rank {r['rank']}: failed {failed}, "
+                                         f"prefill logits rel {rel}")
+            first = ranks[0][plan]
+            emit({"phase": "serve_ranks", "plan": plan, "ranks": world,
+                  "sharing": f"{world} {SHARED}", "card": smi, "config": lm_cfg,
+                  "traffic": t, "dtype": "f32", "tf32": False,
+                  "searched": ref["searched"] if plan == "searched4" else None,
+                  "prefill_logits_rel_err": rel, "bound": SERVE_PARITY_BOUND,
+                  "tokens_equal_single_device": True, "trace_equal_single_device": True,
+                  "cache_specs": first["cache_specs"],
+                  "cache_bytes_per_rank": first["cache_allocated"],
+                  "logits_cut_over_classes": first["class_cut"],
+                  "whole_tensor_nodes": first["whole_nodes"], "captured": first["captured"],
+                  "run_s": first["engine"]["run_s"],
+                  "output_tokens_per_s": first["engine"]["output_tokens_per_s"],
+                  "p50_ms_per_token": first["engine"]["p50_ms_per_token"],
+                  "single_device_output_tokens_per_s": ref["served"]["output_tokens_per_s"],
+                  "single_device_p50_ms_per_token": ref["served"]["p50_ms_per_token"],
+                  "note": "gloo ranks share one card: ms/token and tokens/s measure host-staged "
+                          "collectives of processes on one H100, not NVLink or NCCL"})
+    emit({"phase": "serve_ranks_done", "seconds": time.perf_counter() - start})
+
+
+def _check_plan_ops(smi, kind, world, cfg, single, ranks, got, device) -> None:
+    """parity_plan_ops' checks of one plan against the single device, and
+    its line."""
+    import numpy as np
+
+    def worst(tag):
+        return max(float(np.linalg.norm(got[f"{tag}:{k}"] - v.numpy())
+                         / max(np.linalg.norm(v.numpy()), 1e-30))
+                   for k, v in single[tag].items())
+
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], single["losses"]))
+    grad_rel, param_rel = worst("grads"), worst("params")
+    masks_equal = all(r["masks"] == single["masks"] for r in ranks)
+    ok = {
+        "losses": loss_rel < PLAN_OPS_BOUND, "grads": grad_rel < PLAN_OPS_BOUND,
+        "params": param_rel < PLAN_OPS_BOUND,
+        "ranks_agree": all(r["losses"] == ranks[0]["losses"] for r in ranks),
+        "masks": masks_equal and (len(single["masks"]) > 0) == (kind == "dropout"),
+        "class_sharded": bool(ranks[0]["class_axes"]) == (kind == "class_sharded"),
+        "whole": (len(ranks[0]["whole"]) > 0) == (kind == "whole"),
+    }
+    failed = [k for k, v in ok.items() if not v]
+    if failed:
+        raise AssertionError(f"parity_plan_ops {kind}: failed {failed}: losses "
+                             f"{ranks[0]['losses']} vs {single['losses']}, grads {grad_rel}, "
+                             f"params {param_rel}")
+    extra = {}
+    if kind == "dropout":
+        extra["mask_draw"] = _mask_draw_cost(cfg, device)
+    emit({"phase": "parity_plan_ops", "plan": kind, "ranks": world, **extra,
+          "sharing": f"{world} {SHARED}", "card": smi, "config": cfg, "dtype": "f32",
+          "tf32": False, "losses": ranks[0]["losses"], "single_device_losses": single["losses"],
+          "loss_rel_err": loss_rel, "grad_rel_err": grad_rel, "param_rel_err": param_rel,
+          "bound": PLAN_OPS_BOUND, "masks_bitwise_equal": masks_equal,
+          "masks": len(single["masks"]), "whole_tensor_nodes": len(ranks[0]["whole"]),
+          "whole": ranks[0]["whole"], "class_axes": ranks[0]["class_axes"]})
+
+
+def phase_parity_plan_ops(smi: str, tmp: str, device: str = "cuda:0", cfg: dict = PLAN_OPS
+                          ) -> None:
+    """The plan ops the executor lowered last, at the flagship's widths at 2
+    layers (f32, TF32 off), each against the same model on one card: a
+    dp2 x tp2 plan with Dropout(0.1) on 4 ranks (every step's masks
+    bitwise the single device's, losses and parameters within
+    PLAN_OPS_BOUND), logits that reach the loss cut over their classes on
+    2 ranks, and a Linear whose ReLU acts on partial sums (a whole-tensor
+    node) on 2 ranks (losses, first-step gradients and parameters within
+    PLAN_OPS_BOUND)."""
+    import numpy as np
+    import torch
+
+    start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for world in sorted(set(PLAN_OPS_RANKS.values()), reverse=True):
+        kinds = [k for k, w in PLAN_OPS_RANKS.items() if w == world]
+        singles = {kind: _plan_ops_single(kind, device, cfg) for kind in kinds}
+        job = dict(name=f"plan_ops{world}", mode="plan_ops", kinds=kinds, device=device, cfg=cfg)
+        ranks = run_ranks(world, job, tmp, worker=PLAN_RANK_WORKER)
+        for kind in kinds:
+            _check_plan_ops(smi, kind, world, cfg, singles[kind],
+                            [dict(r[kind], rank=r["rank"]) for r in ranks],
+                            np.load(os.path.join(tmp, f"plan_ops{world}.{kind}.npz")), device)
+    emit({"phase": "parity_plan_ops_done", "seconds": time.perf_counter() - start})
+
+
 def main() -> None:
     require_card_and_repo()
     import torch
@@ -3832,6 +4570,12 @@ def main() -> None:
         launches["torchrun"] = (phase_torchrun(smi, tmp), 2 * TORCHRUN_STEPS)
     phase_parity_serve()
     phase_serve(smi)
+    # serving a searched plan across ranks (no kernel of the table runs:
+    # serving attention is dense, each phase checks no flash launch)
+    phase_plan_serve(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_serve_ranks(smi, tmp)
+        phase_parity_plan_ops(smi, tmp)
     for entry in kernels:
         by_phase = {p: (n[entry["name"]], steps) for p, (n, steps) in launches.items()
                     if entry["name"] in n}

@@ -1,1 +1,2 @@
-"""Static analyses (trimmed: the serving memory accounting)."""
+"""Static analyses (trimmed: the memory accounting, the memory verifier and
+its diagnostics)."""

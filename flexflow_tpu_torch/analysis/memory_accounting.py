@@ -1,15 +1,22 @@
 """Per-op step memory accounting (trimmed copy of
 flexflow_tpu/analysis/memory_accounting.py: the serving regime's KV-cache
-terms, one op's training-step residency `estimate_memory`, and the
-machine-mapping DP's leaf predicate `leaf_step_memory_bytes`; the pipeline
-stash scaling waits for A10).
+terms, one op's step residency `estimate_memory`, and the machine-mapping
+DP's leaf predicate `leaf_step_memory_bytes`; the pipeline stash scaling
+waits for A10).
+
+Training: activations and outputs x2 (the value and its gradient), weights
+x (2 + optimizer state slots), the input layer's stacked window of K
+batches under `steps_per_dispatch=K`. Serving (a `ServingMemorySpec`):
+forward-only residency, everything x1, no gradient, optimizer or window
+term, plus each attention op's per-device share of the persistent KV cache.
 
 The KV cache is a parallel tensor [seqs, heads, max_seq_len, head_dim] per
 attention op whose degrees are bound to the op's own sharding. One formula,
 `kv_cache_piece_bytes`, prices it: `serving.kv_cache.per_device_cache_bytes`
-sums it over the attention layers, and the engine's cache allocation is
-checked against that sum, so what is allocated and what is priced cannot
-drift.
+sums it over the attention layers, the DP's leaf predicate and the memory
+verifier (analysis/memory_analysis.py) charge it, and the serving
+program's allocation is checked against that sum, so what is allocated and
+what is priced cannot drift.
 """
 
 from __future__ import annotations
@@ -99,7 +106,8 @@ class OpStepMemory:
     optimizer_state: int = 0
     outputs: int = 0
     output_grads: int = 0
-    window_buffer: int = 0  # the input layer's per-step batch
+    window_buffer: int = 0  # the input layer's stacked [K, batch, ...] window
+    kv_cache: int = 0  # the persistent serving KV cache (ServingMemorySpec)
 
     @property
     def total(self) -> int:
@@ -112,6 +120,7 @@ class OpStepMemory:
             + self.outputs
             + self.output_grads
             + self.window_buffer
+            + self.kv_cache
         )
 
 
@@ -120,43 +129,60 @@ def estimate_memory(
     input_shapes: Sequence,
     weight_shapes: Optional[Sequence] = None,
     output_shapes: Optional[Sequence] = None,
+    optimizer_state_slots: int = OPTIMIZER_STATE_SLOTS,
+    steps_per_dispatch: int = 1,
+    serving: Optional[ServingMemorySpec] = None,
+    kv_cache_bytes: int = 0,
 ) -> OpStepMemory:
-    """Training-step residency of one op from its (piece) TensorShapes,
-    one step per dispatch under Adam (the JAX function at its defaults; the
-    fused-window and serving regimes are not planned for yet).
+    """Step residency of one op from its (piece) TensorShapes.
 
     `input_shapes` carries the DATA slots only; weight slots go in
     `weight_shapes` (the split_slot_values convention). `output_shapes`
     may be omitted for Input/Weight layers (their outputs are the attrs'
-    own shape)."""
+    own shape). With `serving` set the regime is forward-only inference
+    plus `kv_cache_bytes`, the caller's per-device cache share from
+    `kv_cache_piece_bytes`."""
     from flexflow_tpu_torch.op_attrs.ops import InputAttrs, WeightAttrs
 
+    k = 1 if serving is not None else max(int(steps_per_dispatch), 1)
     if isinstance(attrs, InputAttrs):
         out_bytes = (
             sum(s.size_bytes for s in output_shapes)
             if output_shapes
             else attrs.shape.size_bytes
         )
-        return OpStepMemory(window_buffer=out_bytes)
+        return OpStepMemory(window_buffer=k * out_bytes)
     if isinstance(attrs, WeightAttrs):
         # charged at the consuming op's weight slots
         return OpStepMemory()
     in_bytes = sum(s.size_bytes for s in input_shapes)
     w_bytes = sum(s.size_bytes for s in (weight_shapes or ()))
     out_bytes = sum(s.size_bytes for s in (output_shapes or ()))
+    if serving is not None:
+        return OpStepMemory(
+            activations=in_bytes,
+            weights=w_bytes,
+            outputs=out_bytes,
+            kv_cache=max(int(kv_cache_bytes), 0),
+        )
     return OpStepMemory(
         activations=in_bytes,
         activation_grads=in_bytes,
         weights=w_bytes,
         weight_grads=w_bytes,
-        optimizer_state=OPTIMIZER_STATE_SLOTS * w_bytes,
+        optimizer_state=max(int(optimizer_state_slots), 0) * w_bytes,
         outputs=out_bytes,
         output_grads=out_bytes,
     )
 
 
 @lru_cache(maxsize=65536)
-def leaf_step_memory_bytes(leaf) -> int:
+def leaf_step_memory_bytes(
+    leaf,
+    optimizer_state_slots: int = OPTIMIZER_STATE_SLOTS,
+    steps_per_dispatch: int = 1,
+    serving: Optional[ServingMemorySpec] = None,
+) -> int:
     """Per-device step residency of ONE machine-mapping leaf
     (UnmappedOpCostEstimateKey), from its piece shapes — the quantity the
     DP's feasibility pruner compares against the device capacity. View
@@ -165,7 +191,8 @@ def leaf_step_memory_bytes(leaf) -> int:
     Parallel ops on ACTIVATION values charge their collective staging (the
     source piece plus the destination piece); weight layers and weight-chain
     reshards charge zero (the parameter is accounted at the consuming op's
-    weight slots)."""
+    weight slots). With `serving` set the residency is forward-only and
+    attention leaves also charge their per-device KV-cache share."""
     from flexflow_tpu_torch.local_execution.training_backing import split_slot_values
     from flexflow_tpu_torch.op_attrs.core import (
         get_output_shapes,
@@ -175,11 +202,12 @@ def leaf_step_memory_bytes(leaf) -> int:
     from flexflow_tpu_torch.op_attrs.ops import InputAttrs, WeightAttrs
     from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import get_piece_shape
 
+    k = 1 if serving is not None else max(int(steps_per_dispatch), 1)
     out_pieces = [get_piece_shape(s) for s in leaf.output_shapes]
     out_bytes = sum(s.size_bytes for s in out_pieces)
     attrs = leaf.op_attrs
     if isinstance(attrs, InputAttrs):
-        return out_bytes
+        return k * out_bytes
     if isinstance(attrs, WeightAttrs):
         return 0
     in_pieces = [get_piece_shape(s) for s in leaf.input_shapes]
@@ -197,4 +225,18 @@ def leaf_step_memory_bytes(leaf) -> int:
         outs = out_pieces or get_output_shapes(attrs, list(data))
     except (AssertionError, IndexError, ValueError, TypeError):
         outs = []
-    return estimate_memory(attrs, data, weights, outs).total
+    cache_bytes = 0
+    if serving is not None:
+        cache_bytes = kv_cache_piece_bytes(
+            attrs,
+            leaf.input_shapes[0] if leaf.input_shapes else None,
+            _weight_slot_shape(attrs, leaf.input_shapes),
+            serving,
+        )
+    return estimate_memory(
+        attrs, data, weights, outs,
+        optimizer_state_slots=optimizer_state_slots,
+        steps_per_dispatch=k,
+        serving=serving,
+        kv_cache_bytes=cache_bytes,
+    ).total

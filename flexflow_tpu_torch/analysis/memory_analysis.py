@@ -1,0 +1,624 @@
+"""Static per-device memory analysis of a (PCG, machine mapping) pair
+(trimmed copy of flexflow_tpu/analysis/memory_analysis.py: the liveness
+analysis `analyze_memory`, the serving admission verdict, `verify_memory`
+and `memory_summary_json`; the XLA cross-check is A13's, and the pipeline
+stash scaling A10's: a PCG with stage ops raises).
+
+A schedule-aware liveness analysis computes each device's peak timeline for
+one training step (forward ticks 0..N-1 over the topological order,
+backward ticks N..2N-1 in reverse) or, with a `ServingMemorySpec`, for one
+forward-only serving dispatch. Parameters (with their gradients and
+optimizer slots in training) are resident the whole step, charged at each
+consuming op's weight slots in the sharded form it reads; activations live
+from their producer's forward tick to their last reader, their gradients
+from the first consumer's backward to the producer's; a parallel op's
+destination piece counts as collective staging; the input layer holds K
+stacked batches under `steps_per_dispatch=K`; in serving each attention
+op's devices hold its KV-cache share (`kv_cache_piece_bytes`) the whole
+dispatch. Pieces are charged per device (`get_piece_shape`); without a
+mapping every op runs on every device, which is what the executor runs.
+
+`verify_memory` turns the timelines into diagnostics against a capacity:
+MEM001 a device's peak over capacity, MEM002 one op's piece residency alone
+over it (the DP's leaf predicate), MEM003 optimizer state dominating while
+parameters are unsharded (a warning), MEM004 the stacked window over half
+the capacity, and in serving MEM005, the static count of sequences whose
+cache fits beside the forward residency below the workload's concurrency
+(`serving_verdict`). The budgeted search (compiler/unity_algorithm.py
+`evaluate_pcg`) rejects a candidate with any error here.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+from flexflow_tpu_torch.analysis.diagnostics import (
+    Diagnostic,
+    error,
+    human_bytes as _gib,
+    warning,
+)
+from flexflow_tpu_torch.analysis.memory_accounting import (
+    ServingMemorySpec,
+    kv_cache_piece_bytes,
+    leaf_step_memory_bytes,
+)
+
+MEMORY_RULE_IDS = ("MEM001", "MEM002", "MEM003", "MEM004", "MEM005")
+
+# category keys of the per-device breakdowns (stable: the JSON summary
+# carries them)
+CATEGORIES = (
+    "params",
+    "grads",
+    "opt_state",
+    "activations",
+    "activation_grads",
+    "collective_staging",
+    "window_buffer",
+    "kv_cache",
+)
+
+
+@dataclass
+class DeviceMemoryTimeline:
+    """One device's step timeline: whole-step resident bytes plus the
+    tick-indexed transient profile and its peak."""
+
+    device: int
+    peak_bytes: int = 0
+    peak_tick: int = 0
+    resident_bytes: int = 0
+    # category -> bytes at the peak tick
+    peak_breakdown: Dict[str, int] = field(default_factory=dict)
+    # (tick, total bytes) samples at every tick where the total changes
+    timeline: List[Tuple[int, int]] = field(default_factory=list)
+
+
+@dataclass
+class MemoryAnalysis:
+    per_device: Dict[int, DeviceMemoryTimeline]
+    num_ticks: int
+    optimizer_state_slots: int
+    steps_per_dispatch: int
+    # tick -> human label ("fwd ff1" / "bwd attn") for table rendering
+    tick_labels: Dict[int, str] = field(default_factory=dict)
+    # the serving regime analyzed under (None = training step)
+    serving: Optional[ServingMemorySpec] = None
+
+    def max_peak_bytes(self) -> int:
+        if not self.per_device:
+            return 0
+        return max(d.peak_bytes for d in self.per_device.values())
+
+    def peak_by_device(self) -> Dict[int, int]:
+        return {i: d.peak_bytes for i, d in sorted(self.per_device.items())}
+
+
+def _device_ids_for(pcg, n, machine_spec, mapping) -> List[int]:
+    """Devices holding node `n`'s pieces: the mapped view's device set, or
+    the whole mesh (the GSPMD full-mesh lowering; also the fallback when a
+    view is invalid for the grid — MV001/MV002 report that separately)."""
+    ndev = machine_spec.num_devices if machine_spec is not None else 1
+    all_devices = list(range(max(ndev, 1)))
+    if mapping is None or machine_spec is None:
+        return all_devices
+    view = mapping.get(n)
+    if view is None:
+        return all_devices
+    from flexflow_tpu_torch.compiler.machine_mapping.problem_tree import (
+        operator_task_space,
+    )
+    from flexflow_tpu_torch.pcg.machine_view import get_device_ids
+
+    try:
+        task = operator_task_space(pcg, n)
+        if view.num_dims != len(task.degrees):
+            return all_devices
+        return sorted(set(get_device_ids(task, view, machine_spec)))
+    except (AssertionError, IndexError, ValueError):
+        return all_devices
+
+
+def _refuse_stage_ops(pcg) -> None:
+    """Pipeline stages scale residency by the 1F1B stash bound: A10."""
+    from flexflow_tpu_torch.op_attrs.core import is_stage_op
+
+    for n in pcg.nodes:
+        if is_stage_op(pcg.op_attrs(n)):
+            raise NotImplementedError(
+                "the memory analysis of a pipelined PCG (stage ops) is not ported yet (A10)"
+            )
+
+
+def analyze_memory(
+    pcg,
+    machine_spec=None,
+    mapping: Optional[dict] = None,
+    optimizer_state_slots: int = 2,
+    steps_per_dispatch: int = 1,
+    serving: Optional[ServingMemorySpec] = None,
+) -> MemoryAnalysis:
+    """Build the per-device peak-HBM timeline of one training step — or,
+    with `serving` set, of one forward-only serving dispatch (no backward
+    ticks, no gradient/optimizer terms, attention ops resident with their
+    per-device KV-cache share)."""
+    from flexflow_tpu_torch.compiler.machine_mapping.problem_tree import _from_weight
+    from flexflow_tpu_torch.op_attrs.core import is_parallel_op
+    from flexflow_tpu_torch.op_attrs.ops import (
+        InputAttrs,
+        MultiHeadAttentionAttrs,
+        WeightAttrs,
+    )
+    from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import get_piece_shape
+
+    _refuse_stage_ops(pcg)
+
+    order = list(pcg.topological_ordering())
+    n_ops = len(order)
+    ticks = n_ops if serving is not None else 2 * n_ops
+    fwd_tick = {n: i for i, n in enumerate(order)}
+    bwd_tick = {n: ticks - 1 - i for i, n in enumerate(order)}
+    k = 1 if serving is not None else max(int(steps_per_dispatch), 1)
+    slots = 0 if serving is not None else max(int(optimizer_state_slots), 0)
+
+    ndev = machine_spec.num_devices if machine_spec is not None else 1
+    devices = list(range(max(ndev, 1)))
+    # per device: resident bytes by category + interval events
+    resident: Dict[int, Dict[str, int]] = {
+        d: {c: 0 for c in CATEGORIES} for d in devices
+    }
+    # events[d] -> list of (tick, +bytes/-bytes, category)
+    events: Dict[int, List[Tuple[int, int, str]]] = {d: [] for d in devices}
+
+    def charge_resident(devs, category: str, nbytes: int) -> None:
+        for d in devs:
+            resident[d][category] += nbytes
+
+    def charge_interval(devs, category, nbytes, start, end) -> None:
+        """Live on [start, end] inclusive."""
+        if nbytes <= 0:
+            return
+        for d in devs:
+            events[d].append((start, nbytes, category))
+            events[d].append((end + 1, -nbytes, category))
+
+    tick_labels: Dict[int, str] = {}
+    for n in order:
+        attrs = pcg.op_attrs(n)
+        la = pcg.layer_attrs(n)
+        name = la.name or f"n{n.idx}"
+        tick_labels[fwd_tick[n]] = f"fwd {name}"
+        if serving is None:
+            tick_labels[bwd_tick[n]] = f"bwd {name}"
+        devs = _device_ids_for(pcg, n, machine_spec, mapping)
+        outs = pcg.outputs_of(n)
+        out_piece_bytes = sum(
+            get_piece_shape(pcg.tensor_shape(o)).size_bytes for o in outs
+        )
+        if isinstance(attrs, WeightAttrs):
+            # storage + grad + optimizer slots are charged at the
+            # CONSUMING op's weight slots (post-reshard sharded form)
+            continue
+        if isinstance(attrs, InputAttrs):
+            charge_resident(devs, "window_buffer", k * out_piece_bytes)
+            continue
+        ins = pcg.inputs_of(n)
+        if is_parallel_op(attrs) and ins and all(
+            _from_weight(pcg, v) for v in ins
+        ):
+            # a parameter reshard chain: no separate storage (see above)
+            continue
+        if not is_parallel_op(attrs) and ins:
+            # resident parameters in the sharded form THIS op reads:
+            # weight + grad + optimizer slots per weight slot piece
+            # (serving: the weight value alone)
+            from flexflow_tpu_torch.local_execution.training_backing import (
+                split_slot_values,
+            )
+
+            _, weight_vals = split_slot_values(attrs, list(ins))
+            w_bytes = sum(
+                get_piece_shape(pcg.tensor_shape(v)).size_bytes
+                for v in weight_vals
+                if _from_weight(pcg, v)
+            )
+            if w_bytes:
+                charge_resident(devs, "params", w_bytes)
+                if serving is None:
+                    charge_resident(devs, "grads", w_bytes)
+                    charge_resident(devs, "opt_state", slots * w_bytes)
+        if serving is not None and isinstance(attrs, MultiHeadAttentionAttrs):
+            # the persistent KV cache: resident across the whole serving
+            # dispatch on this op's devices, sharded with the op's own
+            # batch/seq/head degrees (ONE formula with the leaf pruner)
+            from flexflow_tpu_torch.analysis.memory_accounting import (
+                _weight_slot_shape,
+            )
+
+            cache = kv_cache_piece_bytes(
+                attrs,
+                pcg.tensor_shape(ins[0]) if ins else None,
+                _weight_slot_shape(
+                    attrs, [pcg.tensor_shape(v) for v in ins]
+                ),
+                serving,
+            )
+            charge_resident(devs, "kv_cache", cache)
+        out_category = (
+            "collective_staging" if is_parallel_op(attrs) else "activations"
+        )
+        grad_category = (
+            "collective_staging" if is_parallel_op(attrs) else "activation_grads"
+        )
+        for o in outs:
+            piece = get_piece_shape(pcg.tensor_shape(o)).size_bytes
+            if serving is not None:
+                # forward-only liveness: producer tick -> last consumer's
+                # forward tick (no backward re-reads, no gradients)
+                consumer_fwd = [fwd_tick[u.node] for u in pcg.uses_of(o)]
+                last_read = max(consumer_fwd, default=fwd_tick[n])
+                charge_interval(
+                    devs, out_category, piece, fwd_tick[n], last_read
+                )
+                continue
+            consumer_bwd = [bwd_tick[u.node] for u in pcg.uses_of(o)]
+            # the activation: producer forward -> last backward reader
+            # (consumers' backwards read it; a sink value survives to its
+            # own backward tick)
+            last_read = max(consumer_bwd, default=bwd_tick[n])
+            charge_interval(
+                devs, out_category, piece, fwd_tick[n], last_read
+            )
+            # its gradient: first consumer backward -> producer backward
+            grad_start = min(consumer_bwd, default=bwd_tick[n])
+            charge_interval(
+                devs, grad_category, piece, grad_start, bwd_tick[n]
+            )
+
+    per_device: Dict[int, DeviceMemoryTimeline] = {}
+    for d in devices:
+        base = dict(resident[d])
+        base_total = sum(base.values())
+        cur = {c: 0 for c in CATEGORIES}
+        total = 0
+        peak = 0
+        peak_tick = 0
+        peak_transient: Dict[str, int] = dict(cur)
+        timeline: List[Tuple[int, int]] = [(0, base_total)]
+        by_tick: Dict[int, List[Tuple[int, str]]] = {}
+        for tick, delta, cat in events[d]:
+            by_tick.setdefault(tick, []).append((delta, cat))
+        for tick in sorted(by_tick):
+            for delta, cat in by_tick[tick]:
+                cur[cat] += delta
+                total += delta
+            timeline.append((min(tick, ticks - 1), base_total + total))
+            if base_total + total > peak:
+                peak = base_total + total
+                peak_tick = min(tick, ticks - 1)
+                peak_transient = dict(cur)
+        peak = max(peak, base_total)
+        breakdown = {
+            c: base.get(c, 0) + peak_transient.get(c, 0) for c in CATEGORIES
+        }
+        per_device[d] = DeviceMemoryTimeline(
+            device=d,
+            peak_bytes=peak,
+            peak_tick=peak_tick,
+            resident_bytes=base_total,
+            peak_breakdown={c: v for c, v in breakdown.items() if v},
+            timeline=timeline,
+        )
+    return MemoryAnalysis(
+        per_device=per_device,
+        num_ticks=ticks,
+        optimizer_state_slots=slots,
+        steps_per_dispatch=k,
+        tick_labels=tick_labels,
+        serving=serving,
+    )
+
+
+@dataclass
+class ServingVerdict:
+    """The static max-concurrent-sequences verdict of a serving plan: on each device holding KV cache, how many sequences' cache
+    fits beside the plan's forward residency. `max_sequences` is the min
+    over devices (None when the plan holds no cache — nothing bounds
+    admission); the serving engine's admission control reads it and the
+    MEM005 rule compares it against the workload's requested
+    concurrency."""
+
+    requested_sequences: int
+    max_sequences: Optional[int] = None
+    limiting_device: Optional[int] = None
+    # device -> per-sequence cache slope (bytes/sequence) on that device
+    per_seq_bytes: Dict[int, int] = field(default_factory=dict)
+    # device -> static max sequences on that device
+    per_device_max: Dict[int, int] = field(default_factory=dict)
+
+    def to_json(self) -> dict:
+        return {
+            "requested_sequences": int(self.requested_sequences),
+            "max_sequences": (
+                None if self.max_sequences is None else int(self.max_sequences)
+            ),
+            "limiting_device": self.limiting_device,
+            "per_seq_bytes": {
+                str(d): int(v) for d, v in sorted(self.per_seq_bytes.items())
+            },
+            "per_device_max": {
+                str(d): int(v) for d, v in sorted(self.per_device_max.items())
+            },
+        }
+
+
+def serving_verdict(
+    analysis: MemoryAnalysis, hbm_bytes: float
+) -> Optional[ServingVerdict]:
+    """Derive the static admission verdict from a serving-mode analysis:
+    the cache term scales linearly with admitted sequences (the analysis
+    charges it at the spec's full concurrency), so each device's verdict is
+    floor(free / per-seq slope) where free = capacity - (peak - cache).
+
+    The pass/fail point (max_sequences vs requested, the MEM005 rule) is
+    exact: the analysis charged the cache at exactly `requested`
+    sequences. Counts ABOVE requested are a linear extrapolation of the
+    per-device slope — exact at multiples of the cache's batch shard
+    degree, optimistic by up to one ceil-granule between them (admitting
+    more sequences than the plan's slot count needs a re-built program
+    anyway, so the extrapolation is advisory headroom, not an admission
+    contract)."""
+    serving = analysis.serving
+    if serving is None or not hbm_bytes or hbm_bytes <= 0:
+        return None
+    requested = max(int(serving.max_concurrent_seqs), 1)
+    verdict = ServingVerdict(requested_sequences=requested)
+    for d in sorted(analysis.per_device.values(), key=lambda x: x.device):
+        cache = d.peak_breakdown.get("kv_cache", 0)
+        if cache <= 0:
+            continue
+        per_seq = cache / requested
+        free = hbm_bytes - (d.peak_bytes - cache)
+        fits = max(int(free // per_seq), 0) if per_seq > 0 else 0
+        verdict.per_seq_bytes[d.device] = int(math.ceil(per_seq))
+        verdict.per_device_max[d.device] = fits
+        if verdict.max_sequences is None or fits < verdict.max_sequences:
+            verdict.max_sequences = fits
+            verdict.limiting_device = d.device
+    if verdict.max_sequences is None:
+        return verdict  # no cache anywhere: admission is unbounded here
+    return verdict
+
+
+def detect_device_hbm_bytes() -> Optional[int]:
+    """The card's total memory (`torch.cuda.mem_get_info()`), or None
+    without a card: capacity-relative rules then cannot trip, but peak
+    timelines are still computed."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    return int(torch.cuda.mem_get_info()[1])
+
+
+def verify_memory(
+    pcg,
+    machine_spec=None,
+    mapping: Optional[dict] = None,
+    hbm_bytes: Optional[float] = None,
+    optimizer_state_slots: int = 2,
+    steps_per_dispatch: int = 1,
+    analysis: Optional[MemoryAnalysis] = None,
+    serving: Optional[ServingMemorySpec] = None,
+) -> Tuple[MemoryAnalysis, List[Diagnostic]]:
+    """Run the liveness analysis and derive the MEM001-MEM005 diagnostics
+    against a per-device capacity of `hbm_bytes` (None = no capacity known:
+    the analysis still runs — peaks land in provenance — but no rule can
+    trip). With `serving` set the analysis is forward-only + KV cache and
+    the serving-specific MEM005 admission verdict replaces the
+    training-only MEM003/MEM004 rules. Returns (analysis, diagnostics)."""
+    from flexflow_tpu_torch.compiler.machine_mapping.problem_tree import _leaf_key
+    from flexflow_tpu_torch.op_attrs.core import is_parallel_op
+    from flexflow_tpu_torch.op_attrs.ops import InputAttrs, WeightAttrs
+    from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
+        total_parallel_degree,
+    )
+
+    if analysis is None:
+        analysis = analyze_memory(
+            pcg,
+            machine_spec,
+            mapping,
+            optimizer_state_slots=optimizer_state_slots,
+            steps_per_dispatch=steps_per_dispatch,
+            serving=serving,
+        )
+    serving = analysis.serving
+    diags: List[Diagnostic] = []
+    if hbm_bytes is None or not math.isfinite(hbm_bytes) or hbm_bytes <= 0:
+        return analysis, diags
+
+    # MEM002: one op's piece residency alone exceeds the capacity — the
+    # same leaf accounting the DP pruner uses, so a plan the search would
+    # prune at leaf-pricing time is rejected here with the op named
+    for n in sorted(pcg.nodes):
+        attrs = pcg.op_attrs(n)
+        try:
+            need = leaf_step_memory_bytes(
+                _leaf_key(pcg, n),
+                optimizer_state_slots,
+                steps_per_dispatch,
+                serving,
+            )
+        except (AssertionError, IndexError, KeyError, ValueError, TypeError):
+            continue  # PCG001-003 own malformed shapes
+        if need > hbm_bytes:
+            la = pcg.layer_attrs(n)
+            diags.append(
+                error(
+                    "MEM002",
+                    f"op {la.name or type(attrs).__name__!r} needs "
+                    f"{_gib(need)} resident per device "
+                    f"({_gib(hbm_bytes)} capacity): no machine view of "
+                    "this sharding can fit it",
+                    node=n.idx,
+                    hint="raise the op's shard degrees (or shrink the "
+                    "model/batch) — the piece itself is too large",
+                )
+            )
+
+    # MEM001: the aggregated timeline exceeds capacity somewhere
+    over = [
+        d for d in analysis.per_device.values() if d.peak_bytes > hbm_bytes
+    ]
+    for d in sorted(over, key=lambda x: -x.peak_bytes)[:4]:
+        top = sorted(
+            d.peak_breakdown.items(), key=lambda kv: -kv[1]
+        )[:3]
+        at = analysis.tick_labels.get(d.peak_tick, f"tick {d.peak_tick}")
+        diags.append(
+            error(
+                "MEM001",
+                f"device {d.device} peaks at {_gib(d.peak_bytes)} "
+                f"({_gib(hbm_bytes)} capacity) at {at}; top terms: "
+                + ", ".join(f"{c}={_gib(v)}" for c, v in top),
+                hint="shard the dominating term (weights -> parameter "
+                "parallel, activations -> batch/sequence parallel) or "
+                "lower --steps-per-dispatch",
+            )
+        )
+    if len(over) > 4:
+        diags.append(
+            error(
+                "MEM001",
+                f"{len(over) - 4} further device(s) over capacity "
+                "(suppressed)",
+            )
+        )
+
+    if serving is not None:
+        # MEM005: the static max-concurrent-sequences verdict is below the
+        # workload's requested concurrency — admitting the full batch
+        # would OOM a device on cache residency alone. MEM003/MEM004 are
+        # training-only regimes (optimizer state / dispatch windows) and
+        # cannot apply to a forward-only serving dispatch.
+        verdict = serving_verdict(analysis, hbm_bytes)
+        if (
+            verdict is not None
+            and verdict.max_sequences is not None
+            and verdict.max_sequences < verdict.requested_sequences
+        ):
+            d = verdict.limiting_device
+            diags.append(
+                error(
+                    "MEM005",
+                    f"serving over capacity: device {d} statically fits "
+                    f"{verdict.max_sequences} concurrent sequence(s) "
+                    f"({_gib(verdict.per_seq_bytes.get(d, 0))} KV cache "
+                    f"per sequence beside the plan's forward residency, "
+                    f"{_gib(hbm_bytes)} capacity) but the workload asks "
+                    f"for {verdict.requested_sequences}",
+                    hint="shard the cache further (head/sequence "
+                    "parallelism), shorten --max-seq-len, or admit fewer "
+                    "concurrent sequences (--max-seqs)",
+                )
+            )
+        return analysis, diags
+
+    # MEM003: optimizer state dominates while parameters are unsharded
+    ndev = machine_spec.num_devices if machine_spec is not None else 1
+    if ndev > 1:
+        worst = max(
+            analysis.per_device.values(),
+            key=lambda d: d.peak_breakdown.get("opt_state", 0),
+            default=None,
+        )
+        opt_bytes = worst.peak_breakdown.get("opt_state", 0) if worst else 0
+        unsharded_weight = any(
+            isinstance(pcg.op_attrs(n), WeightAttrs)
+            and all(
+                total_parallel_degree(pcg.tensor_shape(o)) == 1
+                for o in pcg.outputs_of(n)
+            )
+            for n in pcg.nodes
+        )
+        if opt_bytes > 0.5 * hbm_bytes and unsharded_weight:
+            diags.append(
+                warning(
+                    "MEM003",
+                    f"optimizer state alone holds {_gib(opt_bytes)} of the "
+                    f"{_gib(hbm_bytes)} capacity on device "
+                    f"{worst.device} while parameters are unsharded "
+                    f"(replicated {analysis.optimizer_state_slots} "
+                    "slots/weight on every device)",
+                    hint="shard the weights (parameter parallelism) so the "
+                    "optimizer slots shard with them",
+                )
+            )
+
+    # MEM004: the stacked dispatch window dominates
+    if analysis.steps_per_dispatch > 1:
+        for d in sorted(analysis.per_device.values(), key=lambda x: x.device):
+            win = d.peak_breakdown.get("window_buffer", 0)
+            if win > 0.5 * hbm_bytes:
+                diags.append(
+                    error(
+                        "MEM004",
+                        f"device {d.device}'s stacked dispatch-window "
+                        f"buffers hold {_gib(win)} "
+                        f"(steps_per_dispatch="
+                        f"{analysis.steps_per_dispatch}) of the "
+                        f"{_gib(hbm_bytes)} capacity",
+                        hint="lower --steps-per-dispatch (the window "
+                        "buffer scales linearly with K)",
+                    )
+                )
+                break  # one structured finding names the knob; one suffices
+    return analysis, diags
+
+
+def memory_summary_json(
+    analysis: MemoryAnalysis, hbm_bytes: Optional[float] = None
+) -> dict:
+    """The JSON summary of an analysis (the JAX package's `ffcheck --memory
+    --json` object): stable schema v1. Serving-mode
+    analyses add a "serving" block carrying the static admission verdict
+    (requested vs max concurrent sequences, per-device slopes)."""
+    serving_block = None
+    if analysis.serving is not None:
+        verdict = serving_verdict(analysis, hbm_bytes or 0)
+        serving_block = {
+            "max_concurrent_seqs": analysis.serving.max_concurrent_seqs,
+            "max_seq_len": analysis.serving.max_seq_len,
+            "kv_dtype_bytes": analysis.serving.kv_dtype_bytes,
+            "verdict": None if verdict is None else verdict.to_json(),
+        }
+    return {
+        "memory": 1,  # schema version
+        "hbm_bytes": None if not hbm_bytes else int(hbm_bytes),
+        "optimizer_state_slots": analysis.optimizer_state_slots,
+        "steps_per_dispatch": analysis.steps_per_dispatch,
+        "serving": serving_block,
+        "devices": [
+            {
+                "device": d.device,
+                "resident_bytes": int(d.resident_bytes),
+                "peak_bytes": int(d.peak_bytes),
+                "peak_at": analysis.tick_labels.get(
+                    d.peak_tick, f"tick {d.peak_tick}"
+                ),
+                "over_capacity": bool(
+                    hbm_bytes and d.peak_bytes > hbm_bytes
+                ),
+                "peak_breakdown": {
+                    c: int(v) for c, v in sorted(d.peak_breakdown.items())
+                },
+            }
+            for d in sorted(
+                analysis.per_device.values(), key=lambda x: x.device
+            )
+        ],
+    }

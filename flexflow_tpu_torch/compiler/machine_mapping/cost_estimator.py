@@ -14,6 +14,10 @@ Two implementations:
   the per-task piece shapes, from the card's calibrated matmul FLOP/s and
   HBM GB/s, with the same comm model.
 
+Both price a leaf's forward and backward for training, or its forward
+alone for serving (`forward_only=True` on the analytic one; a
+`LocalCostEstimator(forward_only=True)` under the measured one).
+
 With a `calibration` (compiler/calibration.py), both price the parallel
 ops from the measured all-reduce constants, as the JAX package does; with
 `emulated_mesh` (ranks that share one device: several ranks on one card or
@@ -604,11 +608,6 @@ class AnalyticGPUCostEstimator(CostEstimator):
         forward_only: bool = False,
     ) -> None:
         _refuse_part2(comm_model, movement_store, cost_store)
-        if forward_only:
-            raise NotImplementedError(
-                "forward-only pricing comes with the serving planner "
-                "(ROADMAP A12 item 3)"
-            )
         self.machine_spec = machine_spec
         self.peak_flops = peak_flops
         self.hbm_gbps = hbm_gbps
@@ -616,6 +615,10 @@ class AnalyticGPUCostEstimator(CostEstimator):
         self.calibration = calibration
         self.intra_latency_ms = intra_latency_ms
         self.inter_latency_ms = inter_latency_ms
+        # forward-only pricing (serving): the deployed program is the
+        # forward pass alone, so the roofline drops the backward's flops
+        # multiple and the gradients' traffic double
+        self.forward_only = bool(forward_only)
         self.comm = BandwidthCommModel(machine_spec, intra_latency_ms, inter_latency_ms)
 
     def estimate_op_cost(self, key: OpCostEstimateKey) -> float:
@@ -667,8 +670,9 @@ class AnalyticGPUCostEstimator(CostEstimator):
             + sum(s.size_bytes for s in (piece_outs or out_shapes))
         )
         # fwd + bwd ~= 3x fwd flops; grads roughly double the traffic
-        compute_ms = 3 * flops / self.peak_flops * 1000.0
-        memory_ms = 2 * bytes_moved / (self.hbm_gbps * 1e6)
+        passes = 1 if self.forward_only else 3
+        compute_ms = passes * flops / self.peak_flops * 1000.0
+        memory_ms = (1 if self.forward_only else 2) * bytes_moved / (self.hbm_gbps * 1e6)
         compute = _scale_for_emulated_shards(max(compute_ms, memory_ms), self)
         return compute + seq_parallel_attention_comm_ms(
             key.op_attrs,

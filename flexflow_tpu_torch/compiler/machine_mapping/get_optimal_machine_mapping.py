@@ -100,9 +100,16 @@ class MachineMappingContext:
     overlap_lowering: bool = False
     # Static memory feasibility: > 0 makes a leaf whose per-device piece
     # residency (analysis/memory_accounting.leaf_step_memory_bytes) exceeds
-    # this budget INFEASIBLE at leaf-pricing time instead of costed.
+    # this budget INFEASIBLE at leaf-pricing time instead of costed;
+    # evaluate_pcg also rejects a candidate whose solved mapping the memory
+    # verifier (analysis/memory_analysis.verify_memory) rejects.
     memory_budget_bytes: float = 0.0
-    # The serving memory regime (a ServingMemorySpec): A12 item 3.
+    # the regime the budget is evaluated under: the optimizer's state
+    # slots and the fused-dispatch window K
+    optimizer_state_slots: int = 2
+    steps_per_dispatch: int = 1
+    # The serving regime (a ServingMemorySpec): forward-only residency plus
+    # each attention leaf's per-device KV-cache share.
     serving: Optional[object] = None
     # Multi-slice legality and the two-level DP (slice_axes.py and
     # hierarchical.py in the JAX package): A6 part 2.
@@ -114,11 +121,6 @@ class MachineMappingContext:
             raise NotImplementedError(
                 "overlap pricing, slice-aware views and the hierarchical DP "
                 "are not ported yet (ROADMAP A6 part 2)"
-            )
-        if self.serving is not None:
-            raise NotImplementedError(
-                "the serving memory regime waits for the forward-only "
-                "search (ROADMAP A12 item 3)"
             )
 
 
@@ -371,7 +373,8 @@ def leaf_memory_infeasible(
     from flexflow_tpu_torch.analysis.memory_accounting import leaf_step_memory_bytes
 
     try:
-        need = leaf_step_memory_bytes(leaf)
+        need = leaf_step_memory_bytes(
+            leaf, context.optimizer_state_slots, context.steps_per_dispatch, context.serving)
     except (AssertionError, IndexError, KeyError, ValueError, TypeError):
         return False  # malformed shapes are the verifier's finding, not ours
     return need > budget

@@ -1,8 +1,8 @@
 """The Unity joint-optimization loop: best-first search over substitution
 rewrites, each candidate costed by its optimal machine mapping (copy of
-flexflow_tpu/compiler/unity_algorithm.py; its pipeline seeds wait for A10,
-the memory verification for A13, the overlap and hierarchical pricing for
-A6 part 2).
+flexflow_tpu/compiler/unity_algorithm.py, with the memory-budgeted
+evaluation; its pipeline seeds wait for A10, the overlap and hierarchical
+pricing for A6 part 2).
 
 Reference: lib/compiler/src/compiler/unity_algorithm.cc — the reference left
 this a NOT_IMPLEMENTED stub with the algorithm described in comments
@@ -326,13 +326,6 @@ def evaluate_pcg(
     problem subtrees identical). Callers pricing a one-off PCG still create
     the cache explicitly so the cost is visible at the call site."""
     assert cache is not None, "evaluate_pcg requires a (shared) cache"
-    if getattr(context, "memory_budget_bytes", 0.0) > 0:
-        # the JAX package rejects here the candidates whose solved mapping's
-        # per-device liveness peak exceeds the budget (memory_analysis)
-        raise NotImplementedError(
-            "the memory-budgeted search needs the memory verifier, not "
-            "ported yet (ROADMAP A13)"
-        )
     try:
         with search_phase("tree_build"):
             tree, path_of = get_machine_mapping_problem_tree(pcg)
@@ -346,6 +339,26 @@ def evaluate_pcg(
     mapping = {
         node_of_path[p]: v for p, v in result.mapping_dict().items()
     }
+    if getattr(context, "memory_budget_bytes", 0.0) > 0:
+        # the leaf pruner inside the DP is a necessary condition only:
+        # co-resident pieces can exceed the budget where every leaf fits
+        # alone. Reject here with the memory verifier's own error set, so
+        # the search never selects a plan verify_memory rejects at the
+        # same capacity.
+        from flexflow_tpu_torch.analysis.diagnostics import has_errors
+        from flexflow_tpu_torch.analysis.memory_analysis import verify_memory
+
+        _, mem_diags = verify_memory(
+            pcg,
+            machine_spec,
+            mapping,
+            hbm_bytes=context.memory_budget_bytes,
+            optimizer_state_slots=context.optimizer_state_slots,
+            steps_per_dispatch=context.steps_per_dispatch,
+            serving=context.serving,
+        )
+        if has_errors(mem_diags):
+            return None
     return GraphOptimizeResult(pcg, result.runtime, mapping)
 
 
@@ -656,11 +669,26 @@ def _graph_optimize(
 
     best = evaluate_pcg(pcg, context, machine_spec, mm_cache)
     if best is None:
-        raise ValueError(
-            "initial PCG is not SP-decomposable or has no feasible "
-            "machine mapping on the given machine spec"
-        )
-    serial_runtime = best.runtime
+        memory_caused = False
+        if getattr(context, "memory_budget_bytes", 0.0):
+            # a PCG infeasible WITHOUT the budget too keeps the structural
+            # error (a fresh cache: one is valid for one context only)
+            import dataclasses as _dc
+
+            probe_ctx = _dc.replace(context, memory_budget_bytes=0.0)
+            memory_caused = (
+                evaluate_pcg(pcg, probe_ctx, machine_spec, MachineMappingCache()) is not None
+            )
+        if not memory_caused:
+            raise ValueError(
+                "initial PCG is not SP-decomposable or has no feasible "
+                "machine mapping on the given machine spec"
+            )
+        # under a memory budget the serial plan is often what cannot fit:
+        # fall through to the seeds and the rewrite walk
+        infeasible += 1
+    # None when the serial plan misses the budget
+    serial_runtime = best.runtime if best is not None else None
     degree_cap = machine_spec.num_devices
 
     # dedup by canonical serialization: key -> did a candidate with this key
@@ -671,7 +699,8 @@ def _graph_optimize(
     seen_sigs = {_cost_signature(pcg)} if config.symmetry_dedup else set()
     frontier: List[Tuple[float, int, ParallelComputationGraph]] = []
     seq = 0
-    heapq.heappush(frontier, (best.runtime, seq, pcg))
+    if best is not None:
+        heapq.heappush(frontier, (best.runtime, seq, pcg))
     explored = 0
 
     # Seed the frontier with the dp/tp/sp strategy templates (the reference's
@@ -717,7 +746,7 @@ def _graph_optimize(
                 seen_sigs.add(sig)
                 sig_runtime[sig] = candidate.runtime
             seed_runtimes[label] = candidate.runtime
-            if candidate.runtime < best.runtime:
+            if best is None or candidate.runtime < best.runtime:
                 best = candidate
             if config.threshold > 0 and candidate.runtime > config.threshold:
                 continue
@@ -733,7 +762,7 @@ def _graph_optimize(
         runtime, _, current = heapq.heappop(frontier)
         # alpha pruning (reference comment: skip candidates worse than
         # best * alpha)
-        if runtime > best.runtime * config.alpha:
+        if best is not None and runtime > best.runtime * config.alpha:
             continue
         explored += 1
         for sub_idx, sub in enumerate(substitutions):
@@ -821,7 +850,7 @@ def _graph_optimize(
                     # only successful evaluations register the signatures
                     seen_sigs.add(sig)
                     seen_site_sigs.add(site_sig)
-                if candidate.runtime < best.runtime:
+                if best is None or candidate.runtime < best.runtime:
                     best = candidate
                 if config.threshold > 0 and candidate.runtime > config.threshold:
                     continue
@@ -830,6 +859,11 @@ def _graph_optimize(
                     heapq.heappush(
                         frontier, (candidate.runtime, seq, new_pcg)
                     )
+    if best is None:
+        raise ValueError(
+            "no feasible machine mapping fits the per-device memory budget: every "
+            "candidate plan, including all strategy-template seeds, exceeds it"
+        )
     best.explored = explored
     best.serial_runtime = serial_runtime
     best.seed_runtimes = seed_runtimes

@@ -34,8 +34,12 @@ rank 0). A calibrated or measured search first calibrates the ranks
 own rows of every batch, and `steps_per_dispatch` runs its windows on
 either trainer. What reaches a slice that is not ported yet raises
 NotImplementedError naming it, at the call: the layer methods of unported
-ops (A2), the search's stores, memory budget, other algorithms and its
-pricing of the fused collective matmuls (A6 part 2), checkpoints,
+ops (A2), the search's stores, other algorithms and its pricing of the
+fused collective matmuls (A6 part 2), a searched compile's memory budget
+(FFConfig.hbm_gb: the capacity detection, compile-time verification and
+provenance around the budgeted search, A6 part 2 / A13; the budgeted
+search itself, compiler.evaluate_pcg under a memory_budget_bytes, is
+ported), checkpoints,
 recompiles and fit-loop supervision (A8), telemetry, traces and plan
 audits (A9), pipelines and sub-mesh branches (A10).
 """
@@ -602,7 +606,8 @@ class FFModel:
 
         cfg = self.config
         unported = (
-            (cfg.hbm_gb > 0, "hbm_gb (the search's memory budget)", "A6 part 2 / A13"),
+            (cfg.hbm_gb > 0, "hbm_gb (a compile's memory budget: its capacity detection and "
+                           "compile-time verification)", "A6 part 2 / A13"),
             (bool(cfg.cost_store or cfg.movement_cost_store), "cost_store / movement_cost_store",
              "A6 part 2 / A13"),
             (cfg.search_algorithm != "unity", f"search_algorithm={cfg.search_algorithm!r}",
@@ -718,10 +723,16 @@ class FFModel:
         if cfg.export_strategy_file and dist.get_rank() == 0:
             save_strategy(cfg.export_strategy_file, pcg, mapping, runtime)
         mesh = MachineMesh.from_spec(exec_spec)
-        return DistributedTrainingInstance(
+        inst = DistributedTrainingInstance(
             pcg, self._find_searched_logit(pcg, logit), self.loss_attrs, self.optimizer_attrs,
             mesh, mapping=mapping, compute_dtype=compute_dtype, device=self.device,
             metrics=self.metrics, overlap=cfg.overlap)
+        whole = inst.plan.whole_nodes
+        if dist.get_rank() == 0:
+            # ops no rule places run on whole values: a state of the plan
+            print(f"[flexflow_tpu_torch] the plan runs {len(whole)} node(s) on whole values"
+                  + "".join(f"\n  {why}" for why in whole.values()), flush=True)
+        return inst
 
     def _find_searched_logit(self, pcg, logit: DataflowOutput) -> DataflowOutput:
         """The model output in the searched PCG (the JAX package's): layer

@@ -5,7 +5,14 @@ autograd gives the reference's gradients (mean over the batch: 1/batch,
 and 2/volume for MSE, as loss_grad_scale says). The fused SCCE never keeps a [rows, classes] f32 array: the forward saves
 only the per-row logsumexp (f32) and returns the mean over all rows; the
 backward emits (softmax - onehot) * g/N in the logit dtype. Both walk the
-rows in chunks so the f32 temporaries stay bounded."""
+rows in chunks so the f32 temporaries stay bounded.
+
+`class_sharded_loss` is every loss on logits whose classes are cut over
+ranks (vocab parallel): each rank holds a block of the classes, and the
+row reductions over the classes (the max, the sum of exponentials, the
+target's logit, a row's sum) are summed or maximized over the class ranks
+by the caller's collectives. It runs in f32, and autograd gives each rank
+its own classes' gradient (softmax - onehot for the cross entropies)."""
 
 from __future__ import annotations
 
@@ -80,3 +87,36 @@ def loss_grad_scale(attrs: LossAttrs, batch_size: int, volume: int) -> float:
     if attrs.loss_type == LossFunction.MEAN_SQUARED_ERROR:
         return 2.0 / volume
     return 1.0 / batch_size
+
+
+def class_sharded_loss(attrs: LossAttrs, logit: torch.Tensor, label: torch.Tensor,
+                       offset: int, classes: int, total, peak) -> torch.Tensor:
+    """Scalar f32 loss of logits cut over their classes. logit: this rank's
+    classes [offset, offset + logit.shape[-1]) of `classes`; label: int
+    [batch...] for SCCE, else this rank's classes of the label.
+    total(x): x summed over the class ranks (differentiable: its backward
+    is the identity, every rank's share of the sum having the sum's
+    gradient); peak(x): the max over the class ranks, no gradient."""
+    fn = attrs.loss_type
+    x = logit.float()
+    if fn in (LossFunction.SPARSE_CATEGORICAL_CROSSENTROPY,
+              LossFunction.CATEGORICAL_CROSSENTROPY):
+        m = peak(x.detach().amax(dim=-1))
+        lse = torch.log(total(torch.exp(x - m[..., None]).sum(dim=-1))) + m
+        if fn == LossFunction.CATEGORICAL_CROSSENTROPY:
+            y = label.float()
+            return (lse * total(y.sum(dim=-1)) - total((y * x).sum(dim=-1))).mean()
+        local = label.long() - offset
+        own = (local >= 0) & (local < x.shape[-1])
+        picked = x.gather(-1, local.clamp(0, x.shape[-1] - 1)[..., None])[..., 0]
+        return (lse - total(torch.where(own, picked, torch.zeros_like(picked)))).mean()
+    if fn == LossFunction.MEAN_SQUARED_ERROR:
+        rows = (x - label).square().sum(dim=-1)
+    elif fn == LossFunction.MEAN_ABSOLUTE_ERROR:
+        rows = (x - label).abs().sum(dim=-1)
+    elif fn == LossFunction.IDENTITY:
+        rows = x.sum(dim=-1)
+    else:
+        raise NotImplementedError(
+            f"the class-sharded form of the loss {fn} is not ported (A7 item 13)")
+    return total(rows).mean() / classes

@@ -10,6 +10,11 @@ here would otherwise build a [rows, classes] array (4.2 GB in f32 at the
 flagship's LM head). On bf16 logits the port's sum is f32 roundoff from
 the exact one; the JAX package's log_softmax runs in bf16, so the two
 agree within bf16's relative precision, 2**-8.
+
+`class_sharded_metrics` takes the same values from logits cut over their
+classes, with the caller's collectives over the class ranks; its argmax
+(`sharded_argmax`) breaks ties toward the lowest class, as torch.argmax
+and jnp.argmax do.
 """
 
 from __future__ import annotations
@@ -91,4 +96,51 @@ def compute_metrics(
         out["mse_loss"] = (logit.float() - label).square().sum()
     if METRIC_MEAN_ABSOLUTE_ERROR in metrics:
         out["mae_loss"] = (logit.float() - label).abs().sum()
+    return out
+
+
+def sharded_argmax(x: torch.Tensor, offset: int, peak, least) -> torch.Tensor:
+    """The argmax over the last dim of a tensor whose last dim is cut over
+    ranks, this rank holding [offset, offset + x.shape[-1]): each rank's
+    first maximum, the max over ranks (`peak`), then the least global
+    index among the ranks that hold it (`least`)."""
+    value, index = x.max(dim=-1)
+    best = peak(value)
+    never = torch.iinfo(torch.int64).max
+    cand = torch.where(value == best, index.long() + offset, torch.full_like(index.long(), never))
+    return least(cand)
+
+
+@torch.no_grad()
+def class_sharded_metrics(metrics: FrozenSet[str], logit: torch.Tensor, label: torch.Tensor,
+                          offset: int, total, peak, least) -> Dict[str, Union[int, torch.Tensor]]:
+    """compute_metrics of logits cut over their classes (see
+    kernels/loss.class_sharded_loss for `offset`, `total` and `peak`;
+    `least` is the min over the class ranks): every value is the whole
+    rows', the same on each class rank."""
+    out: Dict[str, Union[int, torch.Tensor]] = {
+        "train_all": prod(logit.shape[:-1]) if logit.ndim >= 2 else logit.shape[0]
+    }
+    x = logit.float()
+    if METRIC_ACCURACY in metrics:
+        pred = sharded_argmax(logit, offset, peak, least)
+        lbl = (label.long() if label.ndim == pred.ndim
+               else sharded_argmax(label, offset, peak, least))
+        out["train_correct"] = (pred == lbl).sum()
+    lse = None
+    if metrics & {METRIC_SPARSE_CATEGORICAL_CROSSENTROPY, METRIC_CATEGORICAL_CROSSENTROPY}:
+        m = peak(x.amax(dim=-1))
+        lse = torch.log(total(torch.exp(x - m[..., None]).sum(dim=-1))) + m
+    if METRIC_SPARSE_CATEGORICAL_CROSSENTROPY in metrics:
+        local = label.long() - offset
+        own = (local >= 0) & (local < x.shape[-1])
+        picked = x.gather(-1, local.clamp(0, x.shape[-1] - 1)[..., None])[..., 0]
+        out["sparse_cce_loss"] = (lse - total(torch.where(own, picked, 0.0))).sum()
+    if METRIC_CATEGORICAL_CROSSENTROPY in metrics:
+        y = label.float()
+        out["cce_loss"] = (lse * total(y.sum(dim=-1)) - total((y * x).sum(dim=-1))).sum()
+    if METRIC_MEAN_SQUARED_ERROR in metrics:
+        out["mse_loss"] = total((x - label).square().sum(dim=-1)).sum()
+    if METRIC_MEAN_ABSOLUTE_ERROR in metrics:
+        out["mae_loss"] = total((x - label).abs().sum(dim=-1)).sum()
     return out

@@ -354,8 +354,19 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
         return x
     if rng is None:
         raise ValueError("dropout in train mode needs a torch.Generator")
+    return apply_dropout_mask(x, dropout_keep_mask(x.shape, rate, rng, x.device), rate)
+
+
+def dropout_keep_mask(shape, rate: float, rng: torch.Generator, device) -> torch.Tensor:
+    """The keep mask of one dropout draw: a uniform draw from `rng` below
+    1 - rate."""
+    return torch.rand(tuple(shape), generator=rng, device=device) < 1.0 - rate
+
+
+def apply_dropout_mask(x: torch.Tensor, mask: torch.Tensor, rate: float) -> torch.Tensor:
+    """Inverted dropout under a given keep mask: kept elements scaled by
+    1 / (1 - rate), the others zero."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

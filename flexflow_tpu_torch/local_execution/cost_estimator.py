@@ -8,14 +8,17 @@ comm side is priced analytically (compiler/machine_mapping/cost_estimator).
 
 Each leaf runs `kernels.ops.forward` on random tensors from a seeded
 torch.Generator on the estimator's device, and autograd takes the backward
-of the outputs' sum, timed with CUDA events around replays of the captured
+of the outputs' sum (the forward alone under `forward_only`, the serving
+regime), timed with CUDA events around replays of the captured
 call (kernels/profiling.py), so a leaf costs its device time. On the
 card, attention leaves at the flash kernels' shapes therefore run the
 hand-written flash forward, delta and backward kernels. On the card,
 floating inputs and weights are bf16, the regime the port's trainer runs
-(the PCG's tensors are f32, and the flash gate needs bf16); elsewhere they
-keep the shapes' own dtypes. The memory term stays on the shapes' own
-dtypes, under Adam, one step per dispatch.
+(the PCG's tensors are f32, and the flash gate needs bf16); elsewhere, and
+under `forward_only` (serving runs in the parameters' f32, dense
+attention), they keep the shapes' own dtypes. The memory term stays on the shapes' own
+dtypes, one step per dispatch, under the estimator's optimizer slots (Adam's
+two unless given) or its serving regime.
 
 Only shape inference may price a leaf at infinity: the weight and output
 shapes of the piece inputs (get_weight_shapes / get_output_shapes), and, to
@@ -75,22 +78,28 @@ class LocalCostEstimator:
         forward_only: bool = False,
         serving=None,
         device=None,
+        optimizer_state_slots: int = 2,
     ) -> None:
         """device: where leaves run; the card unless the caller names
-        another (without a card this raises unless device="cpu")."""
+        another (without a card this raises unless device="cpu").
+        forward_only: time the op's forward alone, the regime a serving
+        plan's prefill and decode run in; `serving` (a ServingMemorySpec)
+        then prices the leaf's inference residency.
+        optimizer_state_slots: the optimizer's per-weight state tensors in
+        the memory term (Adam's m and v are 2; serving passes 0)."""
         if cost_store is not None:
             raise NotImplementedError(
                 "the persistent cost store is not ported yet (ROADMAP A6 part 2)"
             )
-        if forward_only or serving is not None:
-            raise NotImplementedError(
-                "forward-only (serving) measurement comes with the serving "
-                "planner (ROADMAP A12 item 3)"
-            )
+        self.forward_only = bool(forward_only)
+        self.serving = serving
+        self.optimizer_state_slots = optimizer_state_slots
         self.settings = settings or ProfilingSettings(warmup_iters=2, measure_iters=4)
         self.device = resolve_device(device)
         # the trainer's compute dtype on the card; the shapes' own elsewhere
-        self.compute_dtype = torch.bfloat16 if self.device.type == "cuda" else None
+        # and for serving, whose programs run in the parameters' dtype
+        self.compute_dtype = (torch.bfloat16 if self.device.type == "cuda" and not forward_only
+                              else None)
         self._cache: Dict = {}
         self.profile_calls = 0
         self.inf_leaves: List = []
@@ -172,7 +181,9 @@ class LocalCostEstimator:
             elapsed_ms = self._measure_with(attrs, input_shapes, ws)
             # the op's training-step residency: activations in + their
             # grads, weights + grads + optimizer slots, outputs + grads
-            mem = estimate_memory(attrs, input_shapes, ws, out_shapes)
+            mem = estimate_memory(attrs, input_shapes, ws, out_shapes,
+                                  optimizer_state_slots=self.optimizer_state_slots,
+                                  serving=self.serving)
             return CostDetails(elapsed_ms, mem.total)
         return CostDetails(float("inf"), 0)
 
@@ -209,7 +220,8 @@ class LocalCostEstimator:
 
     def _measure_with(self, attrs: OpAttrs, input_shapes, weight_shapes) -> float:
         """ms of one forward + backward of the op (forward alone when an
-        operand is integral: the JAX package cannot differentiate it)."""
+        operand is integral: the JAX package cannot differentiate it, and
+        under `forward_only`)."""
         from flexflow_tpu_torch.kernels.ops import forward
 
         gen = torch.Generator(device=self.device)
@@ -217,7 +229,7 @@ class LocalCostEstimator:
         inputs = [self._make(s, gen) for s in input_shapes]
         weights = [self._make(s, gen) for s in weight_shapes]
         operands = inputs + weights
-        if all(t.is_floating_point() for t in operands):
+        if not self.forward_only and all(t.is_floating_point() for t in operands):
             for t in operands:
                 t.requires_grad_(True)
 

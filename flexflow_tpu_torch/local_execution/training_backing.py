@@ -32,6 +32,7 @@ for it, and every op's output, from the forward until the next forward
 from __future__ import annotations
 
 import time
+from collections import Counter
 from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple
 
 import torch
@@ -43,6 +44,7 @@ from flexflow_tpu_torch.kernels import (
     make_optimizer_state,
 )
 from flexflow_tpu_torch.kernels.metrics import compute_metrics
+from flexflow_tpu_torch.kernels.ops import apply_dropout_mask, dropout_keep_mask
 from flexflow_tpu_torch.kernels.precision import cast_for_compute
 from flexflow_tpu_torch.op_attrs.core import (
     IncomingTensorRole,
@@ -142,6 +144,40 @@ def input_binding(cg: ComputationGraph, n: Node, inputs: Dict[str, torch.Tensor]
     return inputs[key]
 
 
+def dropout_order(graph) -> List[Node]:
+    """The order in which a step draws the Dropout masks of a CG or a PCG
+    (ops at rate 0 draw nothing): by each op's key, which a plan's PCG
+    shares with the CG it was searched from: a named op's layer name (the
+    substitutions keep names), the named before the unnamed, then the op's
+    ordinal in topological order among the Dropouts of its name. Unnamed
+    ops thus draw in topological order, which a plan must keep for them."""
+    from flexflow_tpu_torch.op_attrs.ops import DropoutAttrs
+
+    keyed, seen = [], Counter()
+    for n in graph.topological_ordering():
+        attrs = graph.op_attrs(n)
+        if isinstance(attrs, DropoutAttrs) and attrs.rate > 0:
+            name = graph.layer_attrs(n).name
+            keyed.append(((name is None, name or "", seen[name]), n))
+            seen[name] += 1
+    return [n for _, n in sorted(keyed, key=lambda kn: kn[0])]
+
+
+def dropout_masks(graph, rng: torch.Generator, device) -> Dict[Node, torch.Tensor]:
+    """Every Dropout's keep mask for one step at the op's global shape,
+    drawn from `rng` in `dropout_order`: the same masks for the same
+    generator state whatever the plan, so each rank of a plan keeps its
+    piece of the masks the single-device trainer draws."""
+    out = {}
+    for n in dropout_order(graph):
+        (o,) = graph.outputs_of(n)
+        shape = graph.tensor_shape(o)
+        if isinstance(shape, ParallelTensorShape):
+            shape = get_reduced_shape(shape)
+        out[n] = dropout_keep_mask(shape.dims, graph.op_attrs(n).rate, rng, device)
+    return out
+
+
 def forward_interpreter(
     cg: ComputationGraph,
     params: Dict[ParamKey, torch.Tensor],
@@ -151,8 +187,9 @@ def forward_interpreter(
 ) -> Dict[DataflowOutput, torch.Tensor]:
     """Evaluate the graph: every tensor value keyed by DataflowOutput.
     inputs: keyed by input-layer name (or param_key of the input node).
-    train and rng reach the stochastic ops (Dropout), which draw from rng
-    in topological order."""
+    train and rng reach the stochastic ops (Dropout): the step's masks are
+    drawn from rng first, in dropout_order."""
+    masks = dropout_masks(cg, rng, rng.device) if train and rng is not None else {}
     env: Dict[DataflowOutput, torch.Tensor] = {}
     for n in cg.topological_ordering():
         la = cg.layer_attrs(n)
@@ -164,7 +201,10 @@ def forward_interpreter(
         else:
             slot_vals = [env[v] for v in cg.inputs_of(n)]
             data_vals, weight_vals = split_slot_values(la.attrs, slot_vals)
-            results = kernel_forward(la.attrs, data_vals, weight_vals, train=train, rng=rng)
+            if n in masks:
+                results = [apply_dropout_mask(data_vals[0], masks[n], la.attrs.rate)]
+            else:
+                results = kernel_forward(la.attrs, data_vals, weight_vals, train=train, rng=rng)
             for o, r in zip(outs, results):
                 env[o] = r
     return env
@@ -267,6 +307,11 @@ class ModelTrainingInstance:
         piece of each."""
         return batch_inputs, torch.as_tensor(label, device=self.device)
 
+    def _metric_values(self, logit, label):
+        """compute_metrics of this rank's logits; the parallel trainers
+        take the class-sharded ones across their ranks."""
+        return compute_metrics(self.metrics, logit, label)
+
     def _gradient_reducer(self, leaves):
         """What sums the gradients over ranks as the backward produces them
         (the parallel trainers' collectives.BucketedBackward), or None."""
@@ -288,7 +333,7 @@ class ModelTrainingInstance:
         loss, logit = self.loss_fn(leaves, batch_inputs, label, rng)
         mvals = {}
         if metrics is not None:
-            mvals = compute_metrics(self.metrics, logit.detach(), label)
+            mvals = self._metric_values(logit.detach(), label)
         del logit
         reducer = self._gradient_reducer(leaves)
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)

@@ -188,6 +188,20 @@ def all_reduce_sum(x: torch.Tensor, group, counts=None) -> torch.Tensor:
     return _AllReduceSum.apply(x, group, counts)
 
 
+def all_reduce_extreme(x: torch.Tensor, mesh: MachineMesh, axes: Axes, largest: bool
+                       ) -> torch.Tensor:
+    """The elementwise max (`largest`) or min of x over `axes`, with no
+    gradient: the class-sharded loss's stabilizer and the cross-shard
+    argmax."""
+    if _trivial(mesh, axes):
+        return x
+    buf = x.detach().clone().contiguous()
+    op = dist.ReduceOp.MAX if largest else dist.ReduceOp.MIN
+    dist.all_reduce(buf, op=op, group=mesh.group_of(tuple(axes))[0])
+    mesh.counts["all_reduce"] += 1
+    return buf
+
+
 def reshard(x: torch.Tensor, src: TensorSharding, dst: TensorSharding,
             mesh: MachineMesh) -> torch.Tensor:
     """x, this rank's piece under `src`, as its piece under `dst`: the

@@ -32,7 +32,24 @@ computes:
   of a non-class dim (`_pre_reshard_value`), so no rank gathers the whole
   batch's logits: each rank's loss is the mean over its block scaled by the
   block's share of the global tokens, so that its gradient is the full one;
-  the reported loss and the metrics count each distinct block once.
+  the reported loss and the metrics count each distinct block once. Logits
+  that reach the loss cut over their classes take it vocab parallel
+  (kernels/loss.py `class_sharded_loss`, kernels/metrics.py
+  `class_sharded_metrics`: the row max, the sum of exponentials and the
+  target's logit reduced over the class axes, in f32; the argmax across
+  shards);
+- Dropout draws, on every rank, each op's global mask from the step's
+  generator (training_backing.dropout_masks, keyed by the op's layer name,
+  so a plan draws the single-device trainer's masks) and keeps its piece;
+- an op no rule places (an activation or a nonlinear op on partial sums,
+  a partial-sum Embedding, a channel-sharded grouped convolution, a
+  reshape of the sharded batch dim, a dim sharded where the op cannot
+  take it, an op type with no rule) runs the whole-tensor lowering: its
+  operands' partial sums are reduced and their dims gathered
+  (collectives.reshard, which carries the gradients), the op runs on whole
+  values on every rank, and its outputs are cut to the plan's shardings (a
+  partial-sum output held at sum index 0). It is a named state of the plan
+  (`DistributedPlan.whole_nodes`, node -> why), not a silent fallback.
 
 Every rank then applies the optimizer to its own pieces, so the ranks that
 hold one piece stay bitwise equal. Each rank is fed the global batch (and
@@ -69,16 +86,24 @@ import torch
 from flexflow_tpu_torch.kernels import collective_matmul as CM
 from flexflow_tpu_torch.kernels import forward as kernel_forward
 from flexflow_tpu_torch.kernels import loss_forward, make_optimizer_state
+from flexflow_tpu_torch.kernels.loss import class_sharded_loss
+from flexflow_tpu_torch.kernels.metrics import class_sharded_metrics
 from flexflow_tpu_torch.kernels.flash_attention import (
     sharded_flash_attention,
     sharded_flash_supported,
 )
-from flexflow_tpu_torch.kernels.ops import _dense_context, batch_stats_group, mha_project_qkv
+from flexflow_tpu_torch.kernels.ops import (
+    _dense_context,
+    apply_dropout_mask,
+    batch_stats_group,
+    mha_project_qkv,
+)
 from flexflow_tpu_torch.kernels.precision import cast_for_compute
 from flexflow_tpu_torch.kernels.ring_attention import ring_mha_forward
 from flexflow_tpu_torch.local_execution.training_backing import (
     ModelTrainingInstance,
     ParamKey,
+    dropout_masks,
     init_params,
     param_key,
     slot_roles,
@@ -236,9 +261,12 @@ def _whole(rank: int) -> Tuple[Axes, ...]:
     return ((),) * rank
 
 
-def _refuse(n: Node, attrs, why: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"node {n.idx} ({type(attrs).__name__[:-len('Attrs')]}): {why} (A7 item 3)")
+class _WholeTensor(Exception):
+    """No rule places this node's pieces: it runs on whole values."""
+
+
+def _no_rule(n: Node, attrs, why: str) -> _WholeTensor:
+    return _WholeTensor(f"node {n.idx} ({type(attrs).__name__[:-len('Attrs')]}): {why}")
 
 
 @dataclasses.dataclass
@@ -254,12 +282,13 @@ class _NodePlan:
     fused_axes: Axes = ()  # the ring's axes
     fused_dim: int = 0  # ag_matmul: the dim the ring gathers
     fused_source: Optional[DataflowOutput] = None  # ag_matmul: the Combine's input
+    whole: str = ""  # run on whole values (the whole-tensor lowering): why
 
 
 def _requirements(pcg, n, attrs, shardings, mesh):
     """(what each input slot must be sharded as, bias axes, BatchNorm batch
     axes, ring axes) for compute node n to produce its outputs' shardings
-    from the rank's pieces alone."""
+    from the rank's pieces alone; raises _WholeTensor where no rule does."""
     ins, outs = pcg.inputs_of(n), pcg.outputs_of(n)
     o = shardings[outs[0]]
     roles = slot_roles(attrs, len(ins))
@@ -274,11 +303,11 @@ def _requirements(pcg, n, attrs, shardings, mesh):
     def whole_at(dims):
         for d in dims:
             if o.dims[d]:
-                raise _refuse(n, attrs, f"its output's dim {d} is sharded")
+                raise _no_rule(n, attrs, f"its output's dim {d} is sharded")
 
     if isinstance(attrs, LinearAttrs):
         if o.sum and attrs.activation is not None:
-            raise _refuse(n, attrs, "an activation on a partial sum")
+            raise _no_rule(n, attrs, "an activation on a partial sum")
         need[data[0]] = TensorSharding(o.dims[:-1] + (o.sum,))
         need[weights[0]] = TensorSharding((o.sum, o.dims[-1]))
         if attrs.use_bias:
@@ -296,13 +325,13 @@ def _requirements(pcg, n, attrs, shardings, mesh):
         ring_axes = o.dims[1] if ring else ()
     elif isinstance(attrs, EmbeddingAttrs):
         if o.sum:
-            raise _refuse(n, attrs, "a partial-sum output")
+            raise _no_rule(n, attrs, "a partial-sum output")
         need[data[0]] = TensorSharding(o.dims[:-1])
         need[weights[0]] = TensorSharding(((), o.dims[-1]))
     elif isinstance(attrs, Conv2DAttrs):
         whole_at([2, 3])
         if o.sum and attrs.groups != 1:
-            raise _refuse(n, attrs, "a channel-sharded grouped convolution")
+            raise _no_rule(n, attrs, "a channel-sharded grouped convolution")
         need[data[0]] = TensorSharding((o.dims[0], o.sum, (), ()))
         need[weights[0]] = TensorSharding((o.dims[1], o.sum, (), ()))
         if attrs.use_bias:
@@ -319,7 +348,7 @@ def _requirements(pcg, n, attrs, shardings, mesh):
         src = pcg.tensor_shape(ins[0])
         whole_at(range(1, len(o.dims)))
         if o.dims[0] and src.sizes()[0] != pcg.tensor_shape(outs[0]).sizes()[0]:
-            raise _refuse(n, attrs, "a reshape of the sharded batch dim")
+            raise _no_rule(n, attrs, "a reshape of the sharded batch dim")
         need[data[0]] = TensorSharding((o.dims[0],) + _whole(src.num_dims - 1))
     elif isinstance(attrs, BatchNormAttrs):
         like_out(data[0])
@@ -337,14 +366,14 @@ def _requirements(pcg, n, attrs, shardings, mesh):
         whole_at([attrs.dim % len(o.dims)])
         like_out(data[0])
     elif isinstance(attrs, (ElementUnaryAttrs, DropoutAttrs)):
-        if isinstance(attrs, DropoutAttrs) and attrs.rate > 0:
-            raise _refuse(n, attrs, "dropout masks drawn per piece are not ported")
-        if o.sum and not (isinstance(attrs, ElementUnaryAttrs) and attrs.op_type in _LINEAR_UNARY):
-            raise _refuse(n, attrs, "a nonlinear op on a partial sum")
+        # Dropout is linear in its input for a given mask: it may act on
+        # partial sums, each rank applying its piece of the global mask
+        if o.sum and not (isinstance(attrs, DropoutAttrs) or attrs.op_type in _LINEAR_UNARY):
+            raise _no_rule(n, attrs, "a nonlinear op on a partial sum")
         like_out(data[0], o.sum)
     elif isinstance(attrs, ElementBinaryAttrs):
         if o.sum and attrs.op_type not in (ElementBinaryOpType.ADD, ElementBinaryOpType.SUB):
-            raise _refuse(n, attrs, "a nonlinear op on partial sums")
+            raise _no_rule(n, attrs, "a nonlinear op on partial sums")
         for i in data:
             like_out(i, o.sum)
     elif isinstance(attrs, (ConcatAttrs, SplitAttrs)):
@@ -354,12 +383,12 @@ def _requirements(pcg, n, attrs, shardings, mesh):
     else:
         # an op without a rule runs only where nothing around it is sharded
         if any(shardings[t].placed() for t in list(ins) + list(outs)):
-            raise _refuse(n, attrs, "no rule places this op's pieces")
+            raise _no_rule(n, attrs, "no rule places this op's pieces")
         for i, t in enumerate(ins):
             need[i] = shardings[t]
     for i in range(len(ins)):
         if need[i] is None:
-            raise _refuse(n, attrs, f"input slot {i} has no placement rule")
+            raise _no_rule(n, attrs, f"input slot {i} has no placement rule")
     return need, bias_axes, stats_axes, ring_axes
 
 
@@ -401,8 +430,17 @@ class DistributedPlan:
                 if ins[0] in alias and _same(S[ins[0]], S[outs[0]]):
                     alias[outs[0]] = alias[ins[0]]
                 continue
-            need, bias_axes, stats_axes, ring_axes = _requirements(pcg, n, attrs, S, mesh)
-            work = C.placed_axes(need) | C.placed_axes([S[o] for o in outs])
+            try:
+                need, bias_axes, stats_axes, ring_axes = _requirements(pcg, n, attrs, S, mesh)
+                work = C.placed_axes(need) | C.placed_axes([S[o] for o in outs])
+                whole = ""
+            except _WholeTensor as e:
+                # every rank runs the op on whole operands, then keeps its
+                # piece of the output: the same work everywhere, so no
+                # operand's gradient is summed
+                need = [TensorSharding(_whole(pcg.tensor_shape(t).num_dims)) for t in ins]
+                bias_axes = stats_axes = ring_axes = ()
+                work, whole = frozenset(), str(e)
             sum_grad = {}
             for i, t in enumerate(ins):
                 axes = C.mesh_order(mesh, work - need[i].placed())
@@ -411,7 +449,8 @@ class DistributedPlan:
                     uses[alias[t]].append((n, i, axes))
                 elif axes:
                     sum_grad[i] = axes
-            self.nodes[n] = _NodePlan(need, sum_grad, bias_axes, stats_axes, ring_axes)
+            self.nodes[n] = _NodePlan(need, sum_grad, bias_axes, stats_axes, ring_axes,
+                                      whole=whole)
         # a weight whose uses agree on their axes sums once, in its bucket;
         # otherwise each use sums its own share where the op runs
         self.grad_axes: Dict[ParamKey, Axes] = {}
@@ -489,15 +528,23 @@ class DistributedPlan:
         """The sites that lower fused, node -> kind."""
         return {n: p.fused for n, p in self.nodes.items() if p.fused}
 
+    @property
+    def whole_nodes(self) -> Dict[Node, str]:
+        """The nodes of the whole-tensor lowering, node -> why no rule
+        places their pieces."""
+        return {n: p.whole for n, p in self.nodes.items() if p.whole}
+
     def step_collectives(self, target: DataflowOutput) -> "Counter":
         """The collectives one loss_and_grads issues where the loss takes
         `target`, by kind, read off the plan: each parallel op's and each
         operand's reshard (forward, and backward where the value depends on
         a weight), each gradient sum at an operand, BatchNorm's statistics,
         the gradient buckets of the weights, and the bucket of the loss and
-        the metrics over every axis where blocks differ; a fused site's
-        ring steps (and the all-gather of matmul_rs's reduced chunks) in
-        place of the collective it fuses."""
+        the metrics over every axis where blocks differ, a whole-tensor
+        node's cut of its outputs; a fused site's ring steps (and the
+        all-gather of matmul_rs's reduced chunks) in place of the
+        collective it fuses. A class-sharded loss's own reductions, which
+        depend on the loss and the metrics, are not counted."""
         pcg, mesh, S = self.pcg, self.mesh, self.shardings
         needed = _ancestors(pcg, [target])
         grad = set()
@@ -535,6 +582,10 @@ class DistributedPlan:
                         out["all_reduce"] += 1
                 if isinstance(attrs, BatchNormAttrs) and mesh.size(p.stats_axes) > 1:
                     out["all_reduce"] += 2 * (2 if ins[0] in grad else 1)
+                if p.whole:
+                    for o in outs:
+                        out.update(C.reshard_collectives(
+                            TensorSharding(_whole(len(S[o].dims))), S[o], mesh, o in grad))
         if S[target].sum and mesh.size(S[target].sum) > 1:
             out["all_reduce"] += 1  # the loss sums pending partials of its logits
         # a bucket each of gradients, and one of the loss and the metrics
@@ -575,62 +626,83 @@ def pcg_forward_interpreter(
     params: Dict[ParamKey, torch.Tensor],
     inputs: Dict[str, torch.Tensor],
     targets: Optional[List[DataflowOutput]] = None,
+    masks: Optional[Dict[Node, torch.Tensor]] = None,
 ) -> Dict[DataflowOutput, torch.Tensor]:
     """Evaluate the PCG on this rank's pieces: every tensor's piece keyed by
     DataflowOutput (only what `targets` depend on, where given). inputs:
     this rank's pieces, keyed by input-layer name (or param_key of the
-    input node)."""
-    pcg, mesh, S = plan.pcg, plan.mesh, plan.shardings
+    input node). masks: each Dropout's global keep mask
+    (training_backing.dropout_masks); without them Dropout is the
+    identity."""
+    pcg = plan.pcg
     needed = _ancestors(pcg, targets) if targets is not None else None
     env: Dict[DataflowOutput, torch.Tensor] = {}
     for n in pcg.topological_ordering():
         if needed is not None and n not in needed:
             continue
         la = pcg.layer_attrs(n)
-        attrs = la.attrs
         outs = pcg.outputs_of(n)
-        if n in plan.skip:
-            site = plan.nodes[plan.skip[n]]
-            if site.fused == "matmul_rs":  # the fused site's output is the sum
-                env[outs[0]] = env[pcg.inputs_of(n)[0]]
-            continue
-        if isinstance(attrs, InputAttrs):
+        if isinstance(la.attrs, InputAttrs):
             key = la.name if la.name is not None and la.name in inputs else param_key(n)
             if key not in inputs:
                 raise KeyError(f"missing input binding for {la.name or key}")
             env[outs[0]] = inputs[key]
             continue
-        if isinstance(attrs, WeightAttrs):
+        if isinstance(la.attrs, WeightAttrs):
             env[outs[0]] = params[param_key(n)]
             continue
-        ins = pcg.inputs_of(n)
-        if is_parallel_op(attrs):
-            env[outs[0]] = C.reshard(env[ins[0]], S[ins[0]], S[outs[0]], mesh)
-            continue
-        p = plan.nodes[n]
-        slots: Dict[tuple, torch.Tensor] = {}
-        vals = []
-        for i, t in enumerate(ins):
-            # one piece per distinct value (self-attention's q, k, v)
-            key = (t, p.need[i], p.sum_grad.get(i))
-            if p.fused == "ag_matmul" and i == 0:
-                v = env[p.fused_source]  # the Combine's input: the ring gathers it
-                if 0 in p.sum_grad:
-                    v = C.sum_grad(v, mesh, p.sum_grad[0])
-                vals.append(v)
-                continue
-            if key not in slots:
-                v = env[t]
-                if not _same(S[t], p.need[i]):
-                    v = C.reshard(v, S[t], p.need[i], mesh)
-                if i in p.sum_grad:
-                    v = C.sum_grad(v, mesh, p.sum_grad[i])
-                slots[key] = v
-            vals.append(slots[key])
-        results = _run(attrs, vals, p, mesh)
-        for o, r in zip(outs, results):
-            env[o] = r
+        eval_node(plan, n, env, masks)
     return env
+
+
+def eval_node(plan: DistributedPlan, n: Node, env, masks=None, run=None) -> None:
+    """Run compute or parallel-op node n on this rank's pieces of its
+    operands in `env`, and put its outputs' pieces there: a parallel op
+    reshards, a compute op reshards its operands to what it needs, runs
+    (`run(attrs, operands, node plan)`, else `_run`), and under the
+    whole-tensor lowering cuts its whole outputs to the plan's shardings."""
+    pcg, mesh, S = plan.pcg, plan.mesh, plan.shardings
+    attrs = pcg.op_attrs(n)
+    outs = pcg.outputs_of(n)
+    if n in plan.skip:
+        site = plan.nodes[plan.skip[n]]
+        if site.fused == "matmul_rs":  # the fused site's output is the sum
+            env[outs[0]] = env[pcg.inputs_of(n)[0]]
+        return
+    ins = pcg.inputs_of(n)
+    if is_parallel_op(attrs):
+        env[outs[0]] = C.reshard(env[ins[0]], S[ins[0]], S[outs[0]], mesh)
+        return
+    p = plan.nodes[n]
+    slots: Dict[tuple, torch.Tensor] = {}
+    vals = []
+    for i, t in enumerate(ins):
+        # one piece per distinct value (self-attention's q, k, v)
+        key = (t, p.need[i], p.sum_grad.get(i))
+        if p.fused == "ag_matmul" and i == 0:
+            v = env[p.fused_source]  # the Combine's input: the ring gathers it
+            if 0 in p.sum_grad:
+                v = C.sum_grad(v, mesh, p.sum_grad[0])
+            vals.append(v)
+            continue
+        if key not in slots:
+            v = env[t]
+            if not _same(S[t], p.need[i]):
+                v = C.reshard(v, S[t], p.need[i], mesh)
+            if i in p.sum_grad:
+                v = C.sum_grad(v, mesh, p.sum_grad[i])
+            slots[key] = v
+        vals.append(slots[key])
+    if isinstance(attrs, DropoutAttrs) and attrs.rate > 0 and masks is not None:
+        # this rank's piece of the op's global mask
+        mask = local_block(masks[n], TensorSharding(p.need[0].dims), mesh, "dropout mask")
+        results = [apply_dropout_mask(vals[0], mask, attrs.rate)]
+    else:
+        results = (run or _run)(attrs, vals, p, mesh)
+    for o, r in zip(outs, results):
+        if p.whole:
+            r = C.reshard(r, TensorSharding(_whole(len(S[o].dims))), S[o], mesh)
+        env[o] = r
 
 
 def _run(attrs, vals, p: _NodePlan, mesh: MachineMesh) -> List[torch.Tensor]:
@@ -713,11 +785,9 @@ class DistributedTrainingInstance(ModelTrainingInstance):
         self.shardings = self.plan.shardings
         machine_mesh.open_groups(self.plan.axis_sets())
         self.loss_logit_tensor = _pre_reshard_value(pcg, logit_tensor)
-        if self.shardings[self.loss_logit_tensor].dims[-1]:
-            raise NotImplementedError(
-                f"the loss takes logits sharded over their classes "
-                f"({self.shardings[self.loss_logit_tensor]}); a class-sharded loss is not "
-                "ported (A7 item 3)")
+        # logits that reach the loss cut over their classes: the loss and
+        # the metrics run vocab parallel over these axes
+        self.class_axes: Axes = self.shardings[self.loss_logit_tensor].dims[-1]
         self._inputs = {}
         for n in pcg.topological_ordering():
             la = pcg.layer_attrs(n)
@@ -832,15 +902,42 @@ class DistributedTrainingInstance(ModelTrainingInstance):
     def loss_fn(self, params, batch_inputs, label, rng=None):
         """(this rank's loss: the mean over its block of the logits times the
         block's share of the global tokens, its block of the logits) from
-        its pieces of the inputs and the label (`_feed`). rng is unused:
-        the interpreter refuses dropout."""
+        its pieces of the inputs and the label (`_feed`). rng: the
+        generator the step's Dropout masks are drawn from, each rank
+        drawing the global masks (training_backing.dropout_masks) and
+        keeping its pieces. Logits cut over their classes take the
+        class-sharded loss over `class_axes`."""
+        masks = dropout_masks(self.pcg, rng, rng.device) if rng is not None else None
         env = pcg_forward_interpreter(
             self.plan, cast_for_compute(params, self.compute_dtype),
-            cast_for_compute(batch_inputs, self.compute_dtype), [self.loss_logit_tensor])
+            cast_for_compute(batch_inputs, self.compute_dtype), [self.loss_logit_tensor], masks)
         logit = self._whole(env[self.loss_logit_tensor], self.loss_logit_tensor)
         sizes = get_reduced_shape(self.pcg.tensor_shape(self.loss_logit_tensor)).dims
+        if self.class_axes:
+            share = math.prod(logit.shape[:-1]) / math.prod(sizes[:-1])
+            loss = class_sharded_loss(self.loss_attrs, logit, label, self._class_offset(logit),
+                                      sizes[-1], *self._class_reducers()[:2])
+            return loss * share, logit
         share = label.numel() / math.prod(sizes[:label.dim()])
         return loss_forward(self.loss_attrs, logit, label) * share, logit
+
+    def _class_offset(self, logit) -> int:
+        """The first class of this rank's block of the logits."""
+        return self.machine_mesh.index(self.class_axes) * logit.shape[-1]
+
+    def _class_reducers(self):
+        """(sum, max, min) over the class axes: the sum differentiable with
+        the identity backward (collectives.sum_partials)."""
+        mesh, axes = self.machine_mesh, self.class_axes
+        return (lambda x: C.sum_partials(x, mesh, axes),
+                lambda x: C.all_reduce_extreme(x, mesh, axes, largest=True),
+                lambda x: C.all_reduce_extreme(x, mesh, axes, largest=False))
+
+    def _metric_values(self, logit, label):
+        if not self.class_axes:
+            return super()._metric_values(logit, label)
+        return class_sharded_metrics(self.metrics, logit, label, self._class_offset(logit),
+                                     *self._class_reducers())
 
     def _gradient_reducer(self, leaves):
         """The plan's buckets, issued as the backward produces them."""
@@ -854,8 +951,9 @@ class DistributedTrainingInstance(ModelTrainingInstance):
         distinct blocks in a bucket of their own over every axis."""
         mesh = self.machine_mesh
         # where blocks differ, the rank at index 0 of every axis its block
-        # is duplicated over speaks for it, in the bucket over every axis
-        block = _block_axes(self.shardings[self.loss_logit_tensor])
+        # is duplicated over speaks for it, in the bucket over every axis;
+        # the class ranks of a row block hold its whole loss and metrics
+        block = _block_axes(self.shardings[self.loss_logit_tensor]) - set(self.class_axes)
         tensors = {k: v for k, v in mvals.items() if not isinstance(v, int)}
         scalars = [loss.float()] + [
             torch.as_tensor(v, device=self.device).float() for v in tensors.values()]

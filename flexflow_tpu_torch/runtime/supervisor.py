@@ -60,6 +60,12 @@ class FaultChannel:
                 return len(self._pending)
             return sum(1 for s, _ in self._pending if s == site)
 
+    def take(self) -> Optional[Tuple[str, BaseException]]:
+        """The oldest pending (site, exception), removed; None when nothing
+        is pending."""
+        with self._lock:
+            return self._pending.popleft() if self._pending else None
+
     def raise_pending(self, site: Optional[str] = None) -> None:
         """Raise the oldest pending fault (optionally only from `site`) as
         a BackgroundFault; no-op when nothing is pending."""
@@ -157,12 +163,17 @@ class WindowWatchdog:
         factor: float,
         min_budget_ms: float = 1000.0,
         on_hang: Optional[Callable[[HangDiagnostic], None]] = None,
+        interrupt: bool = True,
     ) -> None:
+        """interrupt: raise WindowHangError into the watched thread when a
+        real hang fires; without it the firing is only recorded (`fired`),
+        for a caller that must end the window in step with other ranks."""
         if not factor > 0:
             raise ValueError("watchdog factor must be positive (0 = disabled)")
         self.factor = float(factor)
         self.min_budget_ms = float(min_budget_ms)
         self.on_hang = on_hang
+        self.interrupt = interrupt
         self.estimate_ms: Optional[float] = None
         self.last_diagnostic: Optional[HangDiagnostic] = None
         self.fired = False
@@ -285,5 +296,5 @@ class WindowWatchdog:
                 traceback.print_exc(file=sys.stderr)
         print(f"[flexflow_tpu_torch] watchdog: {WindowHangError(diag)}", file=sys.stderr)
         self._cancel.set()
-        if not cooperative and tid is not None:
+        if not cooperative and tid is not None and self.interrupt:
             _async_raise(tid, WindowHangError)

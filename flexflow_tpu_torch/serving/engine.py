@@ -29,6 +29,19 @@ boundaries until the queue drains. Admission and eviction depend only on
 queue order and slot state, so a seeded request trace replays
 deterministically. Device results cross to the host once per prefill and
 once per window, as explicit `.cpu().numpy()` copies.
+
+**Over ranks** (programs lowered over a mesh of more than one rank), every
+rank runs the same engine over the same requests, as every process of the
+JAX package's multi-process runtime runs the same program: admission,
+eviction and window lengths read only replicated values (tokens, lengths,
+request sizes), so they agree by construction. The one decision taken
+from a clock, the shed, is rank 0's: only rank 0 arms watchdogs (which
+record a real hang rather than interrupt a window the other ranks are in)
+and drains the fault channel, and it broadcasts at each window boundary
+whether a fault is pending, before each window whether the injected hang
+fires, and after it whether its watchdog fired
+(runtime.distributed.broadcast_json), so every rank sheds the same replica
+at the same window. Rank 0 alone writes the metrics events.
 """
 
 from __future__ import annotations
@@ -191,6 +204,7 @@ class ServingEngine:
             raise ValueError(f"mode must be 'continuous' or 'static', got {mode!r}")
         self.mode = mode
         self.window_steps = int(window_steps)
+        self.watchdog_factor = watchdog_factor
         self.metrics_dir = metrics_dir
         self.clock = time.perf_counter
         self.channel = FaultChannel()
@@ -204,6 +218,14 @@ class ServingEngine:
         self._t0 = self.clock()
         self._submit_t: Dict[str, float] = {}
         self._resubmits: Dict[str, int] = {}
+        # programs over a mesh of several ranks: rank 0 takes the sheds
+        self.ranked = any(getattr(p, "machine_mesh", None) is not None
+                          and p.machine_mesh.world_size > 1 for p in programs)
+        self.rank0 = True
+        if self.ranked:
+            import torch.distributed as dist
+
+            self.rank0 = dist.get_rank() == 0
         self.replicas: List[_Replica] = []
         for i, program in enumerate(programs):
             cap = program.serving.max_concurrent_seqs
@@ -212,11 +234,12 @@ class ServingEngine:
             if cap < 1:
                 raise ValueError("max_concurrent is 0: no sequence may be admitted")
             watchdog = None
-            if watchdog_factor > 0:
+            if watchdog_factor > 0 and self.rank0:
                 watchdog = WindowWatchdog(
                     watchdog_factor,
                     min_budget_ms=watchdog_min_budget_ms,
                     on_hang=self._on_hang,
+                    interrupt=not self.ranked,
                 )
             self.replicas.append(_Replica(i, program, cap, watchdog))
 
@@ -249,7 +272,7 @@ class ServingEngine:
         self._emit_event("serve_hang", **diagnostic.to_dict())
 
     def _emit_event(self, kind: str, **payload) -> None:
-        if self.metrics_dir is None:
+        if self.metrics_dir is None or not self.rank0:
             return
         append_run_event(self.metrics_dir, kind, **payload)
 
@@ -295,7 +318,7 @@ class ServingEngine:
             if replica.shed:
                 continue
             try:
-                self.channel.raise_pending()
+                self._raise_pending_fault()
                 self._evict_and_admit(replica)
                 active_now = int(replica.active_mask().sum())
                 self.max_observed_concurrent = max(
@@ -305,6 +328,29 @@ class ServingEngine:
                     self._decode_window(replica)
             except (WindowHangError, BackgroundFault) as e:
                 self._shed(replica, e)
+
+    def _agree(self, decision: Dict[str, object]) -> Dict[str, object]:
+        """Rank 0's `decision` on every rank (as it is, on one process)."""
+        if not self.ranked:
+            return decision
+        from flexflow_tpu_torch.runtime.distributed import broadcast_json
+
+        return broadcast_json(decision if self.rank0 else None)
+
+    def _raise_pending_fault(self) -> None:
+        """At a window boundary: raise the oldest pending background fault
+        as a BackgroundFault (over ranks, rank 0's, on every rank)."""
+        if not self.ranked:
+            self.channel.raise_pending()
+            return
+        pending = self.channel.take() if self.rank0 else None
+        fault = None if pending is None else [pending[0], f"{type(pending[1]).__name__}: "
+                                              f"{pending[1]}"]
+        fault = self._agree({"fault": fault})["fault"]
+        if fault is not None:
+            site, message = fault
+            exc = pending[1] if pending is not None else RuntimeError(message)
+            raise BackgroundFault(site, exc) from exc
 
     def _evict_and_admit(self, replica: _Replica) -> None:
         program = replica.program
@@ -400,10 +446,14 @@ class ServingEngine:
             and replica.watchdog.budget_ms() is not None
             and self.schedule.fire_once("hang", self.windows)
         )
+        if self.schedule is not None:
+            hang = self._agree({"hang": bool(hang)})["hang"]
         if wd is not None and not first_window:
             wd.begin_window(self.windows, steps)
         try:
             if hang:
+                if wd is None:  # rank 0 times the hang; the others shed with it
+                    raise WindowHangError()
                 wd.simulate_hang()
             cache, token, lengths, toks = program.decode_window(
                 replica.cache,
@@ -416,6 +466,10 @@ class ServingEngine:
         finally:
             if wd is not None and not first_window and not wd.fired:
                 wd.end_window(self.windows)
+        if (self.ranked and self.watchdog_factor > 0
+                and self._agree({"fired": wd is not None and wd.fired})["fired"]):
+            # a real hang rank 0's watchdog recorded: shed on every rank
+            raise WindowHangError(wd.last_diagnostic if wd is not None else None)
         replica.cache = cache
         replica.token = token.cpu().numpy().astype(np.int32)
         replica.lengths = lengths.cpu().numpy().astype(np.int32)

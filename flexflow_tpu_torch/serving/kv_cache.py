@@ -3,11 +3,12 @@
 Serving keeps one persistent tensor pair per attention layer, K and V of
 shape ``[slots, heads, max_seq_len, head_dim]``, alive across requests. The
 cache's degrees are bound to the plan's own sharding (slots follow the
-attention op's batch axes, heads the packed weight's head axes) and lowered
-through regex partition rules (`match_partition_rules`). The port runs the
-single-device lowering: every axis is unsharded, `cache_shardings` of no
-mesh is empty, and a mesh is refused until cache shardings are ported
-(ROADMAP A12 item 4).
+batch axes of the attention op's q operand, heads the head axes of its
+packed weight, both as the op receives them) and lowered through regex
+partition rules (`match_partition_rules`). Over a mesh of ranks each rank
+allocates only its piece, ``[slots / batch degree, heads / head degree,
+max_seq_len, head_dim]`` (`init_cache` with the mesh); without a mesh every
+axis is whole.
 
 The same degrees price the cache: `per_device_cache_bytes` sums
 `analysis.memory_accounting.kv_cache_piece_bytes` over the layers, the one
@@ -131,13 +132,21 @@ def cache_partition_rules(layers: List[CacheLayer]) -> List[Tuple[str, Spec]]:
 
 
 def cache_shardings(layers: List[CacheLayer], mesh) -> Dict[str, Spec]:
-    """name -> spec of every cache leaf; no mesh is the single device,
-    with no shardings."""
+    """name -> spec of every cache leaf, from `cache_partition_rules` (a
+    leaf no rule matches raises); no mesh is the single device, with no
+    shardings."""
     if mesh is None:
         return {}
-    raise NotImplementedError(
-        "cache shardings over a mesh are not ported yet (ROADMAP A12 item 4)"
-    )
+    names = [f"{layer.name}/{kv}" for layer in layers for kv in ("k", "v")]
+    return match_partition_rules(cache_partition_rules(layers), names)
+
+
+def _piece(size: int, axes, mesh, what: str) -> int:
+    n = mesh.size(axes) if axes and mesh is not None else 1
+    if size % n:
+        raise ValueError(f"the cache's {what} ({size}) do not divide over {n} ranks "
+                         f"(mesh axes {', '.join(axes)})")
+    return size // n
 
 
 def init_cache(
@@ -145,13 +154,17 @@ def init_cache(
     serving: ServingMemorySpec,
     device,
     dtype: torch.dtype = torch.float32,
+    mesh=None,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """The zeroed cache {layerN: {"k": ..., "v": ...}} on `device`, each
-    leaf ``[slots, heads, max_seq_len, head_dim]``."""
+    leaf ``[slots, heads, max_seq_len, head_dim]``: over a mesh
+    (parallel.MachineMesh) this rank's piece, its slots and heads cut over
+    the layer's bound axes."""
     cache = {}
     for layer in layers:
         a = layer.attrs
-        shape = (serving.max_concurrent_seqs, a.num_heads, serving.max_seq_len)
+        shape = (_piece(serving.max_concurrent_seqs, layer.batch_axes, mesh, "slots"),
+                 _piece(a.num_heads, layer.head_axes, mesh, "heads"), serving.max_seq_len)
         cache[layer.name] = {
             "k": torch.zeros(shape + (a.k_proj_size,), dtype=dtype, device=device),
             "v": torch.zeros(shape + (a.v_proj_size,), dtype=dtype, device=device),

@@ -1,6 +1,7 @@
 """Forward-only serving programs over a PCG (port of
-flexflow_tpu/serving/program.py, the single-device lowering,
-`machine_mesh=None`).
+flexflow_tpu/serving/program.py): the single-device lowering
+(`machine_mesh=None`) and the lowering of a searched plan over a mesh of
+ranks.
 
 One graph interpreter drives two calls, the attention ops swapped for
 KV-cached causal attention:
@@ -15,7 +16,21 @@ KV-cached causal attention:
   step count and cache, captured at its first use and replayed with one
   launch (runtime/cuda_graph.py), as the JAX package jits the scan into one
   dispatch; `decode_window_eager` is the body it captures, and what runs on
-  the CPU.
+  the CPU. Over ranks whose collectives are NCCL the window is captured
+  likewise; gloo collectives stage through the host and cannot be
+  captured, so there the window runs its steps eagerly in one call
+  (`last_window["captured"]` is False).
+
+Over a mesh (`machine_mesh`, with the searched `mapping`), each rank is one
+process holding its pieces, as in parallel/executor.py: the executor's
+`DistributedPlan` places every tensor, parallel ops reshard, compute ops
+run the executor's lowering (`eval_node`: operand reshards, the
+whole-tensor lowering, the collective-matmul sites under `overlap`), and
+attention runs `_cached_attention` on the rank's local heads and slots
+over the rank's piece of the cache (kv_cache.py), its output a partial sum
+over the head axes. Tokens, lengths and the active mask are replicated:
+every rank is fed the whole slot batch and cuts its piece, and the greedy
+tokens are gathered whole (across class shards by the cross-shard argmax).
 
 Every other op runs `kernels.ops.forward`. The math is the JAX package's,
 in the parameters' dtype (f32): serving attention is dense, as there, and
@@ -24,11 +39,13 @@ package donates it.
 
 Parameters are keyed by WEIGHT ORDINAL ("w0", "w1", ... in topological
 order): the prefill- and decode-shaped graphs of one model share one
-parameter set through it.
+parameter set through it, and each rank of a mesh holds its pieces of the
+same seeded global draw.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, List, Optional
 
@@ -55,6 +72,7 @@ from flexflow_tpu_torch.serving.kv_cache import (
     CacheLayer,
     attention_layers,
     bind_cache_axes,
+    cache_shardings,
     init_cache,
 )
 
@@ -106,24 +124,59 @@ def _sink_logit(pcg):
     return sinks[0]
 
 
+def _before_layout_moves(pcg, t):
+    """t, walked back through the Combines and Repartitions that produce it
+    (pure layout moves of a plan's sink)."""
+    from flexflow_tpu_torch.op_attrs.ops import CombineAttrs, RepartitionAttrs
+
+    while isinstance(pcg.op_attrs(t.node), (CombineAttrs, RepartitionAttrs)):
+        (t,) = pcg.inputs_of(t.node)
+    return t
+
+
 class ServingProgram:
-    """One serving plan, lowered on one device: prefill and the decode
-    window over a shared parameter set and KV cache. `device=None` means
-    CUDA (see resolve_device); `params` (keyed by ordinal, see
-    interop.serving_params_from_numpy) override the seeded draw."""
+    """One serving plan, lowered: prefill and the decode window over a
+    shared parameter set and KV cache, on one device or, with
+    `machine_mesh` (a parallel.MachineMesh over the default process group)
+    and the searched `mapping`, over a mesh of ranks (see the module
+    docstring). `device=None` means CUDA (see resolve_device; over a mesh
+    cuda:<local rank>); `params` (global values keyed by ordinal, see
+    interop.serving_params_from_numpy) override the seeded draw.
+    `overlap`: the collective-matmul lowering (executor.overlap_lowering_active
+    decides, with its env switches)."""
 
     def __init__(
         self,
         graph,
         serving: ServingMemorySpec,
         *,
+        mapping: Optional[dict] = None,
+        machine_mesh=None,
+        overlap: Optional[bool] = None,
         params: Optional[Dict[str, torch.Tensor]] = None,
         params_seed: int = 0,
         device=None,
     ) -> None:
-        self.device = resolve_device(device)
         self.pcg = as_pcg(graph)
         self.serving = serving
+        self.machine_mesh = machine_mesh
+        self.plan = None
+        if machine_mesh is None:
+            self.device = resolve_device(device)
+        else:
+            import torch.distributed as dist
+
+            from flexflow_tpu_torch.parallel.data_parallel import _rank_device
+            from flexflow_tpu_torch.parallel.executor import (
+                DistributedPlan,
+                _ancestors,
+                overlap_lowering_active,
+            )
+
+            self.device = _rank_device(device, dist.get_rank())
+            self.plan = DistributedPlan(self.pcg, machine_mesh, mapping,
+                                        overlap_lowering_active(overlap))
+            machine_mesh.open_groups(self.plan.axis_sets())
         # the interpreter's walk, and the values each node is the last
         # consumer of: dropped as soon as it has run, so a pass holds only
         # live activations (the JAX package's compiled program frees them
@@ -135,26 +188,83 @@ class ServingProgram:
                 "serving expects a single-input (decoder-only) model, found "
                 f"{len(inputs)} input layers"
             )
+        self._input_tensor = self.pcg.outputs_of(inputs[0])[0]
         self.logit_tensor = _sink_logit(self.pcg)
-        last_use = {v: n for n in self._order for v in self.pcg.inputs_of(n)}
-        self._free_after: Dict[object, List] = {}
-        for v, n in last_use.items():
-            self._free_after.setdefault(n, []).append(v)
+        if self.plan is not None:
+            # the logits before the plan's trailing layout moves: each call
+            # takes the rows it needs (the last position, the greedy token)
+            # from its piece and gathers only those
+            self.logit_tensor = _before_layout_moves(self.pcg, self.logit_tensor)
+            needed = _ancestors(self.pcg, [self.logit_tensor])
+            self._order = [n for n in self._order if n in needed]
+        self._free_after = self._last_uses()
         self.layers: List[CacheLayer] = attention_layers(self.pcg)
         self._layer_of = {layer.node: layer for layer in self.layers}
-        bind_cache_axes(self.pcg, self.layers, {})
+        bind_cache_axes(self.pcg, self.layers, self._cache_binding())
+        self.cache_shardings = cache_shardings(self.layers, machine_mesh)
         self._weight_key = weight_ordinals(self.pcg)
-        self.params = (
-            {k: v.to(self.device) for k, v in params.items()}
-            if params is not None
-            else init_serving_params(self.pcg, params_seed, self.device)
-        )
+        if machine_mesh is None:
+            self.params = (
+                {k: v.to(self.device) for k, v in params.items()}
+                if params is not None
+                else init_serving_params(self.pcg, params_seed, self.device)
+            )
+        else:
+            from flexflow_tpu_torch.parallel.sharding import local_block
+
+            full = params if params is not None else init_serving_params(
+                self.pcg, params_seed, "cpu")
+            self.params = {}
+            for n, key in self._weight_key.items():
+                (out,) = self.pcg.outputs_of(n)
+                self.params[key] = local_block(torch.as_tensor(full[key]).cpu(),
+                                               self.plan.shardings[out], machine_mesh,
+                                               key).contiguous().to(self.device)
         # the decode windows' CUDA graphs, one per step count and cache
         self.graphs = CapturedGraphs(self.device)
+        # the last decode window: its steps, and whether it ran as a
+        # captured graph
+        self.last_window: Optional[Dict[str, object]] = None
+
+    def _last_uses(self) -> Dict[object, List]:
+        """node -> the values it is the last reader of (a fused ag_matmul
+        site reads its Combine's input)."""
+        pos = {n: i for i, n in enumerate(self._order)}
+        last_use = {}
+        for n in self._order:
+            reads = list(self.pcg.inputs_of(n))
+            if self.plan is not None and n in self.plan.nodes and self.plan.nodes[n].fused_source:
+                reads.append(self.plan.nodes[n].fused_source)
+            for v in reads:
+                if v not in last_use or pos[last_use[v]] < pos[n]:
+                    last_use[v] = n
+        free: Dict[object, List] = {}
+        for v, n in last_use.items():
+            free.setdefault(n, []).append(v)
+        return free
+
+    def _cache_binding(self) -> Dict:
+        """The per-dim axes of each attention op's q and packed weight as
+        the op receives them (its operands after the plan's reshards), for
+        bind_cache_axes; empty on one device."""
+        if self.plan is None:
+            return {}
+        binding = {}
+        for layer in self.layers:
+            p = self.plan.nodes[layer.node]
+            if p.whole:
+                raise NotImplementedError(
+                    f"attention {layer.name} runs on whole values ({p.whole}): serving does not "
+                    "lower a cache cut over positions or embedding")
+            ins = self.pcg.inputs_of(layer.node)
+            binding[ins[0]] = p.need[0].dims
+            binding[ins[3]] = p.need[3].dims
+        return binding
 
     def init_cache(self) -> Dict[str, Dict[str, torch.Tensor]]:
-        """The zeroed per-layer K/V cache on this program's device."""
-        return init_cache(self.layers, self.serving, self.device)
+        """The zeroed per-layer K/V cache on this program's device: over a
+        mesh, this rank's piece."""
+        return init_cache(self.layers, self.serving, self.device, mesh=self.machine_mesh)
 
     def _ids(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.int32, device=self.device)
@@ -162,21 +272,49 @@ class ServingProgram:
     def _mask(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.bool, device=self.device)
 
+    def _capturable(self) -> bool:
+        """Whether a decode window can be one CUDA graph: on one card,
+        always; over ranks, where NCCL carries the collectives."""
+        if self.device.type != "cuda":
+            return False
+        if self.machine_mesh is None:
+            return True
+        import torch.distributed as dist
+
+        return dist.get_backend(self.machine_mesh.group) == "nccl"
+
     # -- the shared forward interpreter ------------------------------------
+
+    def _slots_of(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """This rank's slots of a replicated per-slot tensor."""
+        from flexflow_tpu_torch.parallel.sharding import TensorSharding, local_block
+
+        if not axes:
+            return x
+        return local_block(x, TensorSharding((tuple(axes),)), self.machine_mesh, "slots")
 
     def _forward(self, params, x, cache, lengths, active, mode):
         """One forward pass of the PCG with KV-cached attention. Returns
         (logits, cache); the cache is written in place. `active` masks the
         slots this call may write (freshly admitted slots in prefill,
-        generating slots in decode); every other slot keeps its bits."""
+        generating slots in decode); every other slot keeps its bits. Over
+        a mesh x, lengths and active are the whole slot batch, and the
+        logits this rank's piece."""
         env: Dict = {}
         for n in self._order:
             attrs = self.pcg.op_attrs(n)
             outs = self.pcg.outputs_of(n)
             if isinstance(attrs, InputAttrs):
-                env[outs[0]] = x
+                env[outs[0]] = x if self.plan is None else self._local_input(x)
             elif isinstance(attrs, WeightAttrs):
                 env[outs[0]] = params[self._weight_key[n]]
+            elif self.plan is not None:
+                from flexflow_tpu_torch.parallel.executor import eval_node
+
+                run = None
+                if n in self._layer_of:
+                    run = self._attention_run(self._layer_of[n], cache, lengths, active, mode)
+                eval_node(self.plan, n, env, run=run)
             elif is_parallel_op(attrs):
                 (src,) = self.pcg.inputs_of(n)
                 env[outs[0]] = env[src]
@@ -193,17 +331,45 @@ class ServingProgram:
                 for o, r in zip(outs, results):
                     env[o] = r
             for v in self._free_after.get(n, ()):
-                del env[v]
+                env.pop(v, None)
         return env[self.logit_tensor], cache
 
+    def _local_input(self, x: torch.Tensor) -> torch.Tensor:
+        from flexflow_tpu_torch.parallel.sharding import local_block
+
+        return local_block(x, self.plan.shardings[self._input_tensor], self.machine_mesh, "tokens")
+
+    def _attention_run(self, layer: CacheLayer, cache, lengths, active, mode):
+        """The executor's `run` for one attention node over a mesh: cached
+        attention of the rank's local heads (the weight piece's count) and
+        slots, the output bias added at sum index 0 of the head axes."""
+        from flexflow_tpu_torch.parallel import collectives as C
+
+        kv = cache[layer.name]
+        lengths = self._slots_of(lengths, layer.batch_axes)
+        active = self._slots_of(active, layer.batch_axes)
+
+        def run(attrs, vals, p, mesh):
+            data_vals, weight_vals = split_slot_values(attrs, vals)
+            heads = weight_vals[0].shape[1]
+            if heads != attrs.num_heads:
+                attrs = dataclasses.replace(attrs, num_heads=heads, kdim=attrs.q_proj_size,
+                                            vdim=attrs.v_proj_size)
+            return [self._cached_attention(
+                attrs, data_vals, weight_vals, kv["k"], kv["v"], lengths, active, mode,
+                bias_on=C.sum_group_zero(mesh, p.bias_axes))]
+
+        return run
+
     def _cached_attention(self, attrs, data_vals, weight_vals, cache_k, cache_v,
-                          lengths, active, mode):
+                          lengths, active, mode, bias_on: bool = True):
         """Causal attention over the persistent cache: the serving lowering
         of a MultiHeadAttention node. Prefill writes the whole padded
         prompt's K/V (zeros past it) into the active slots; decode writes
         one position per active slot, at its length, and attends over every
         position up to it. The JAX package's math: scaled scores, a -1e30
-        mask, softmax, the wo einsum."""
+        mask, softmax, the wo einsum. `bias_on`: whether this rank adds the
+        output bias (at sum index 0 where the heads are cut)."""
         q, k, v = data_vals
         input_bias = weight_vals[1] if attrs.bias else None
         qp, kp, vp, wo = mha_project_qkv(attrs, q, k, v, weight_vals[0], input_bias)
@@ -239,9 +405,57 @@ class ServingProgram:
             attn = torch.softmax(torch.where(valid[:, None, None, :], scores, BIG_NEG), dim=-1)
             ctx = torch.einsum("bhqt,bhtv->bhqv", attn, cache_v)
         out = torch.einsum("bhsv,veh->bse", ctx, wo)
-        if attrs.bias:
+        if attrs.bias and bias_on:
             out = out + weight_vals[2]
         return out
+
+    # -- the logits over a mesh -------------------------------------------
+
+    def _logit_rows(self, logits):
+        """(logits with their partial sums summed and their positions
+        whole, the axes of their slots, the axes of their classes): on one
+        device the logits as they are."""
+        if self.plan is None:
+            return logits, (), ()
+        from flexflow_tpu_torch.parallel import collectives as C
+        from flexflow_tpu_torch.parallel.sharding import TensorSharding
+
+        s = self.plan.shardings[self.logit_tensor]
+        dst = TensorSharding((s.dims[0],) + ((),) * (len(s.dims) - 2) + (s.dims[-1],))
+        if s.dims != dst.dims or s.sum:
+            logits = C.reshard(logits, s, dst, self.machine_mesh)
+        return logits, s.dims[0], s.dims[-1]
+
+    def _greedy(self, rows: torch.Tensor, slot_axes, class_axes) -> torch.Tensor:
+        """The greedy token of every slot, whole on every rank, from this
+        rank's rows [slots piece, classes piece]: across class shards the
+        cross-shard argmax (ties to the lowest class)."""
+        if not class_axes:
+            nxt = rows.argmax(dim=-1)
+        else:
+            from flexflow_tpu_torch.kernels.metrics import sharded_argmax
+            from flexflow_tpu_torch.parallel import collectives as C
+
+            mesh = self.machine_mesh
+            nxt = sharded_argmax(
+                rows, mesh.index(class_axes) * rows.shape[-1],
+                lambda x: C.all_reduce_extreme(x, mesh, class_axes, largest=True),
+                lambda x: C.all_reduce_extreme(x, mesh, class_axes, largest=False))
+        nxt = nxt.to(torch.int32)
+        if slot_axes:
+            from flexflow_tpu_torch.parallel import collectives as C
+
+            nxt = C.all_gather(nxt, 0, self.machine_mesh, slot_axes)
+        return nxt
+
+    def _whole_rows(self, rows: torch.Tensor, slot_axes, class_axes) -> torch.Tensor:
+        """[slots, classes] whole on every rank from this rank's rows."""
+        from flexflow_tpu_torch.parallel import collectives as C
+
+        for dim, axes in ((1, class_axes), (0, slot_axes)):
+            if axes:
+                rows = C.all_gather(rows, dim, self.machine_mesh, axes)
+        return rows
 
     # -- the two calls -----------------------------------------------------
 
@@ -253,20 +467,28 @@ class ServingProgram:
         (cache, first generated token per slot, last-position logits)."""
         tokens, lengths, fresh = self._ids(tokens), self._ids(lengths), self._mask(fresh)
         logits, cache = self._forward(self.params, tokens, cache, lengths, fresh, "prefill")
-        idx = (lengths.long() - 1).clamp(0, logits.shape[1] - 1)
+        logits, slot_axes, class_axes = self._logit_rows(logits)
+        local = self._slots_of(lengths, slot_axes)
+        idx = (local.long() - 1).clamp(0, logits.shape[1] - 1)
         last = logits[torch.arange(logits.shape[0], device=logits.device), idx]
-        nxt = last.argmax(dim=-1).to(torch.int32)
-        return cache, nxt, last
+        nxt = self._greedy(last, slot_axes, class_axes)
+        return cache, nxt, self._whole_rows(last, slot_axes, class_axes)
 
     def decode_window(self, cache, token, lengths, active, steps: int):
         """`steps` greedy decode steps in one call, with nothing read back
         to the host until it returns: on a CUDA device the replay of the
         graph of decode_window_eager for this step count and these cache
         tensors (captured at its first window; its warm-up runs with no
-        slot active, which writes nothing), on the CPU that body. Returns
+        slot active, which writes nothing), on the CPU and over gloo ranks
+        that body (`last_window` says which ran). Returns
         (cache, token, lengths, generated tokens [slots, steps]), all on
         the device; the cache is written in place."""
         steps = int(steps)
+        captured = self._capturable()
+        self.last_window = {"steps": steps, "captured": captured}
+        if self.device.type == "cuda" and not captured:
+            # collectives no graph can hold: the steps in one call, eagerly
+            return self.decode_window_eager(cache, token, lengths, active, steps)
         inputs = {"token": self._ids(token), "lengths": self._ids(lengths),
                   "active": self._mask(active)}
         kv = [t for layer in cache.values() for t in layer.values()]
@@ -289,7 +511,8 @@ class ServingProgram:
             logits, cache = self._forward(
                 self.params, token[:, None], cache, lengths, active, "decode"
             )
-            nxt = logits[:, -1, :].argmax(dim=-1).to(torch.int32)
+            rows, slot_axes, class_axes = self._logit_rows(logits)
+            nxt = self._greedy(rows[:, -1, :], slot_axes, class_axes)
             token = torch.where(active, nxt, token)
             lengths = torch.where(active, lengths + 1, lengths)
             toks.append(nxt)

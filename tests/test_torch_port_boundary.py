@@ -39,7 +39,8 @@ def test_port_runs_a_step_with_jax_and_the_jax_package_refused():
     group, from the same parameters and batch, then a sequence-parallel
     step of a causal parallel transformer through its ring of one, then a
     few requests served through the serving engine with its watchdog and
-    a metrics stream, then an MLP built, compiled, fit and evaluated
+    a metrics stream, a serving plan searched, verified and served over a
+    mesh of one rank, then an MLP built, compiled, fit and evaluated
     through FFModel, and fit again in fused windows of 3 steps through the
     windowed input pipeline (runtime/cuda_graph.py's CPU path)."""
     script = textwrap.dedent(
@@ -121,6 +122,23 @@ def test_port_runs_a_step_with_jax_and_the_jax_package_refused():
         assert len(read_run_events(metrics, "serve_request")) == 3
         assert FaultSchedule.parse("seed=1;sites=hang;rate=0.5").fire_steps("hang", 1, 10)
 
+        from flexflow_tpu_torch.analysis.memory_analysis import verify_memory
+        from flexflow_tpu_torch.pcg.machine_view import MachineSpecification
+        from flexflow_tpu_torch.serving.plan import ServingWorkload, optimize_serving_plan
+
+        spec2 = MachineSpecification(1, 1, 2, 1.0, 2.0)
+        plan = optimize_serving_plan(lambda b, s: build_serving_lm(ServingLMConfig(), b, s),
+                                     spec2, ServingWorkload(4, 4, 2), budget=1, device="cpu")
+        assert verify_memory(plan.decode.pcg, spec2, plan.decode.machine_mapping,
+                             hbm_bytes=2**30, serving=plan.cache_spec)[1] == []
+        init_file_group(os.path.join(tempfile.mkdtemp(), "store"), 0, 1, device="cpu")
+        meshed = ServingProgram(plan.decode.pcg, plan.cache_spec, mapping=plan.decode.machine_mapping,
+                                machine_mesh=MachineMesh(1, 1), device="cpu")
+        meshed_eng = ServingEngine(meshed, window_steps=2)
+        meshed_eng.submit(ServeRequest("m0", rs.randint(0, 64, 4).astype(np.int32), 3))
+        assert [len(r.tokens) for r in meshed_eng.run()] == [3]
+        dist.destroy_process_group()
+
         from flexflow_tpu_torch.core import Activation, FFConfig, FFModel, SGDOptimizer
 
         m = FFModel(FFConfig(batch_size=8, print_freq=0), device="cpu")
@@ -182,6 +200,7 @@ def test_sources_import_nothing_of_jax_or_the_jax_package():
     for module in ("serving/kv_cache.py", "serving/model.py", "serving/program.py",
                    "serving/engine.py", "runtime/fault.py", "runtime/supervisor.py",
                    "observability/metrics.py", "analysis/memory_accounting.py",
+                   "analysis/memory_analysis.py", "analysis/diagnostics.py", "serving/plan.py",
                    "core/ffmodel.py", "core/dataloader.py", "core/optimizers.py",
                    "core/initializers.py", "core/__init__.py", "kernels/metrics.py",
                    "local_execution/config.py", "runtime/cuda_graph.py",

@@ -262,10 +262,14 @@ def test_search_options_not_ported_raise():
     ts, tctx, _, _ = _estimators(4)
     with pytest.raises(NotImplementedError, match="A10"):
         T.OptimizerConfig(pipeline_seeds=True)
-    with pytest.raises(NotImplementedError, match="A13"):
-        T.evaluate_pcg(_pcgs()[0], T.MachineMappingContext(
-            tctx.cost_estimator, tctx.allowed_machine_views, memory_budget_bytes=1e9),
-            ts, T.MachineMappingCache())
+    # the memory-budgeted evaluation is ported (test_torch_port_serving_plan.py);
+    # the serving search's persistent cost store is not
+    from flexflow_tpu_torch.serving.kv_cache import ServingMemorySpec
+    from flexflow_tpu_torch.serving.plan import serving_search_context
+
+    with pytest.raises(NotImplementedError, match="A6 part 2"):
+        serving_search_context(ts, ServingMemorySpec(4, 16), cost_store_dir="store",
+                               device="cpu")
     with pytest.raises(NotImplementedError, match="A6 part 2"):
         T.MachineMappingContext(tctx.cost_estimator, tctx.allowed_machine_views,
                                 overlap_lowering=True)

@@ -197,8 +197,9 @@ def test_partition_rules_and_single_device_allocation():
     with pytest.raises(ValueError, match="partition rule not found for cache leaf: aux/step"):
         match_partition_rules(rules[:-1], names)
     assert cache_shardings(layers, None) == {}
-    with pytest.raises(NotImplementedError, match="A12 item 4"):
-        cache_shardings(layers, object())
+    # over a mesh: each leaf's spec from the rules, here all axes unbound
+    assert cache_shardings(layers, object()) == {
+        f"{layer.name}/{kv}": (None, None, None, None) for layer in layers for kv in "kv"}
     prog = ServingProgram(pcg, MEM, device="cpu")
     cache = prog.init_cache()
     leaves = [t for kv in cache.values() for t in kv.values()]
