@@ -255,7 +255,32 @@ lowers on whole values:
                   them whole costs a rank), logits that reach the loss cut
                   over their classes, and a ReLU on partial sums (a
                   whole-tensor node), on 2 ranks: losses, first-step
-                  gradients and parameters within 1e-4 of one card's.
+                  gradients and parameters within 1e-4 of one card's;
+
+then checkpoints, bitwise resume and the fit loop's fault sites:
+
+35. fit_resume    the flagship through FFModel at steps_per_dispatch=8 (bf16,
+                  Adam(1e-4)), two shuffled epochs of 16 seeded batches, from
+                  compile's state each time: the fit without checkpoints, run
+                  A with async snapshots every 8 steps (snapshot bytes, the
+                  submit stall, the writer's D2H, serialize and commit times
+                  and GB/s, the overhead, the peak memory the device copy
+                  adds), run B killed by FF_TPU_FAULT_STEP inside window 3
+                  under the profiler (rows 1-3's launches; the window's
+                  snapshot durable when the fault propagates), resumed by the
+                  model whose graph was captured before and by a new FFModel:
+                  every step's loss, the parameters and both Adam moments
+                  bitwise run A's; one sync save_checkpoint and one
+                  load_checkpoint, timed;
+36. chaos         runtime.chaos.soak_sites on the card: the Dropout MLP of
+                  parity_fit_window in windows of 4 over ckpt_write, h2d, hang
+                  and kill, and per step over ckpt_write, hang and kill, each
+                  recovering to a bitwise final state (watchdog floor 1000 ms);
+37. resume_ranks  the small flagship under the forced tp2 plan on 2 gloo ranks
+                  sharing the card, killed and resumed bitwise on every rank,
+                  rank 0 alone writing, rows 9-11 once per layer per step per
+                  rank, the final 2-rank checkpoint restored into one device
+                  with every parameter equal.
 
 The kernels phase also holds the per-head kernels at the attention shapes of
 train_dp, of train_dp_seq2048 and of the 16-head config, on contiguous
@@ -269,8 +294,8 @@ backwards and deltas, with their design and ptxas figures; each kernel's
 launches are its wrapper's counts in the train phases and fit (summed
 over the ranks in the multi-rank phases), the
 search's wrapper counts with each leaf's graph replays added, and the
-profiler's count in fit_window and in train_dp_window's profiled
-window), and last the
+profiler's count in fit_window, in train_dp_window's profiled window and
+in fit_resume's run B), and last the
 line {"ok": true,
 "device": {...}}. Any failed check raises and the script exits non-zero.
 Without a CUDA device, or away from a checkout of the repository, it exits
@@ -3243,6 +3268,76 @@ def overlap_sites():
     return res
 
 
+def resume_ranks():
+    """resume_ranks: FFModel over the ranks under the forced plan
+    job["seed"] at steps_per_dispatch job["k"], checkpointing every
+    job["every"] steps: an uninterrupted fit, a fit killed by
+    FF_TPU_FAULT_STEP, a new FFModel resuming it; every step's loss, the
+    final state (gathered, a collective) bitwise against the uninterrupted
+    one, this rank's writer and snapshots, the launches of the killed and
+    resumed fits; the resumed model saves the final checkpoint (rank 0
+    writes) and rank 0 its final state for the single-device restore."""
+    from flexflow_tpu_torch.core import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.runtime.chaos import final_state, states_bitwise
+    from flexflow_tpu_torch.runtime.fault import SimulatedFault
+
+    gen = torch.Generator().manual_seed(1)
+    n = job["batches"] * cfg["batch"]
+    x = torch.randn(n, cfg["seq"], cfg["embed"], generator=gen).numpy()
+    y = torch.randint(0, cfg["vocab"], (n, cfg["seq"]), generator=gen).numpy().astype(np.int32)
+
+    def fit(cdir, **kw):
+        m = FFModel.from_computation_graph(
+            *build_flagship_cg(**cfg), device=device,
+            config=FFConfig(batch_size=cfg["batch"], seed=0, print_freq=0,
+                            steps_per_dispatch=job["k"], search_budget=2,
+                            force_strategy_seed=job["seed"], checkpoint_dir=cdir,
+                            checkpoint_every_n_steps=job["every"]))
+        m.compile(AdamOptimizer(alpha=1e-4), "sparse_categorical_crossentropy",
+                  metrics=["accuracy"], compute_dtype=dtype)
+        losses, step = [], m.instance.train_step
+
+        def recorded(*a, **k):  # gloo: the windows run their steps eagerly
+            res = step(*a, **k)
+            losses.append(float(res[2]))
+            return res
+
+        m.instance.train_step = recorded
+        try:
+            m.fit(x, y, epochs=job["epochs"], shuffle=True, verbose=False, **kw)
+            outcome = "completed"
+        except SimulatedFault:
+            outcome = "SimulatedFault"
+        del m.instance.train_step
+        return m, losses, outcome
+
+    start = time.perf_counter()
+    ref, ref_losses, _ = fit(os.path.join(job["work"], "ref"))
+    ref_state = final_state(ref)
+    del ref
+    fa.reset_launch_counts()
+    cdir = os.path.join(job["work"], "killed")
+    os.environ["FF_TPU_FAULT_STEP"] = str(job["fault_step"])
+    killed, first, outcome = fit(cdir)
+    del os.environ["FF_TPU_FAULT_STEP"]
+    ck = killed.checkpointer
+    writes = dict(writer=ck.writer is not None, snapshots=[r["step"] for r in ck.stats])
+    del killed
+    resumed, second, _ = fit(cdir, resume=True)
+    sync()
+    counts = launches()
+    state = final_state(resumed)
+    params_ok, opt_ok = states_bitwise(state, ref_state)
+    resumed.save_checkpoint(os.path.join(job["work"], "final"))
+    if rank == 0:
+        np.savez(os.path.join(job["work"], "final_params.npz"), **state[0])
+    return dict(outcome=outcome, writes=writes, bitwise=[params_ok, opt_ok],
+                losses=dict(ref=ref_losses, killed=first, resumed=second),
+                steps=resumed._step_count, kind=type(resumed.instance).__name__,
+                plan=resumed.search_provenance.get("parallel_degrees"),
+                card=dict(launches=counts), seconds=time.perf_counter() - start)
+
+
 if job["mode"] == "parity":
     pcg = plan_pcg(*job["plan"])
     out["cpu"] = train(pcg, "cpu", None, 0, 2)[0]
@@ -3326,6 +3421,8 @@ elif job["mode"] == "windows":
 elif job["mode"] == "calibrate_overlap":
     out["calibrate"] = calibrate_and_fit(fit_it=False)
     out["overlap"] = overlap_sites()
+elif job["mode"] == "resume":
+    out["resume"] = resume_ranks()
 with open(f"{job['out']}.rank{rank}.json", "w") as f:
     json.dump(out, f)
 dist.destroy_process_group()
@@ -4512,6 +4609,377 @@ def phase_parity_plan_ops(smi: str, tmp: str, device: str = "cuda:0", cfg: dict 
     emit({"phase": "parity_plan_ops_done", "seconds": time.perf_counter() - start})
 
 
+# fit_resume: the flagship at fit_window's K, checkpointing every window
+RESUME_K = 8
+RESUME_BATCHES = 16  # distinct batches an epoch; two epochs make run A's 4 windows
+RESUME_EPOCHS = 2
+RESUME_EVERY = 8
+RESUME_FAULT_STEP = 20  # crossed inside window 3 (steps 17-24)
+RESUME_KEEP = 2  # checkpoint_max_to_keep: two snapshots of ~2.6 GB on disk
+# run B's steps before the kill: the window that crosses the fault step
+RESUME_FAULT_STEP_WINDOW = -(-RESUME_FAULT_STEP // RESUME_K) * RESUME_K
+
+
+def _state_clone(m) -> dict:
+    """Device copies of the parameters and both Adam moments, by flat key."""
+    return {**{f"params/{k}": p.detach().clone() for k, p in m.params.items()},
+            **{f"opt_state/{slot}/{k}": t.detach().clone()
+               for slot in ("m", "v") for k, t in m.opt_state[slot].items()}}
+
+
+def _state_bitwise(m, want: dict) -> list:
+    """The flat keys of m's state that differ from `want` (empty: bitwise)."""
+    import torch
+
+    got = _state_clone(m)
+    return sorted(k for k, v in want.items() if not torch.equal(got[k], v))
+
+
+def _reset_state(m, init: dict) -> None:
+    """Compile's state again, written in place (the captured graph stays
+    valid), step count and all."""
+    import torch
+
+    with torch.no_grad():
+        for key, p in m.params.items():
+            p.copy_(init[key])
+        for slot in ("m", "v"):
+            for t in m.opt_state[slot].values():
+                t.zero_()
+        m.opt_state["step"].zero_()
+    m._step_count = 0
+
+
+def _writer_numbers(stats: list) -> dict:
+    """The async writer's records: the training thread's stall per submit,
+    the device-to-host copy, the serialization and the commit, and the
+    writer's rates."""
+    out = {"snapshots": [r["step"] for r in stats],
+           "submit_stall_ms": [r["submit_ms"] for r in stats],
+           "d2h_ms": [r["d2h_ms"] for r in stats],
+           "serialize_s": [r["serialize_s"] for r in stats],
+           "commit_s": [r["commit_s"] for r in stats]}
+    # d2h_ms is None for a state that was on the host already
+    out["d2h_gb_per_s"] = [r["bytes"] / (r["d2h_ms"] / 1e3) / 1e9 if r["d2h_ms"] else None
+                           for r in stats]
+    out["writer_gb_per_s"] = [
+        r["bytes"] / ((r["d2h_ms"] or 0.0) / 1e3 + r["serialize_s"] + r["commit_s"]) / 1e9
+        for r in stats]
+    return out
+
+
+def phase_fit_resume(smi: str, cfg=None, device: str = "cuda", k: int = RESUME_K,
+                     batches: int = RESUME_BATCHES, every: int = RESUME_EVERY,
+                     fault_step: int = RESUME_FAULT_STEP) -> dict:
+    """The flagship through FFModel at steps_per_dispatch=k (bf16,
+    Adam(1e-4)), two shuffled epochs of `batches` seeded host batches: a
+    warm-up window that captures the graph, then from compile's state each
+    time (written back in place):
+
+    - the fit without checkpointing (the overhead's baseline);
+    - run A: the fit with async snapshots every `every` steps (the
+      writer's numbers, the stall, the device copy's memory);
+    - run B: the same with FF_TPU_FAULT_STEP crossed inside window 3,
+      under the profiler (rows 1-3's launches): the fault propagates after
+      the window's snapshot is durable;
+    - the model whose graph was captured before resumes run B (a restore
+      written in place, replayed by the old graph), and a new FFModel
+      resumes it too (a graph of its own): every step's loss, the
+      parameters and both Adam moments bitwise run A's;
+    - one sync save_checkpoint and one load_checkpoint, timed.
+
+    Returns rows 1-3's launches in run B (the profiler's count: a replayed
+    graph runs no wrapper)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.core import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.models import FLAGSHIP, build_flagship_cg
+    from flexflow_tpu_torch.profile_step import device_trace
+    from flexflow_tpu_torch.runtime.checkpoint import CheckpointManager
+    from flexflow_tpu_torch.runtime.fault import SimulatedFault
+    from torch.autograd import DeviceType
+
+    cfg = cfg or FLAGSHIP
+    b, steps = cfg["batch"], batches * RESUME_EPOCHS
+    start = time.perf_counter()
+
+    def model():
+        m = FFModel.from_computation_graph(
+            *build_flagship_cg(**cfg), device=device,
+            config=FFConfig(batch_size=b, seed=0, print_freq=0, steps_per_dispatch=k,
+                            checkpoint_max_to_keep=RESUME_KEEP))
+        m.compile(AdamOptimizer(alpha=1e-4), "sparse_categorical_crossentropy",
+                  metrics=FIT_METRICS, compute_dtype=torch.bfloat16)
+        return m
+
+    m = model()
+    init = {key: p.detach().clone() for key, p in m.params.items()}
+    snapshot_bytes = sum(t.numel() * t.element_size() for t in _state_clone(m).values()) + 4
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((batches * b, cfg["seq"], cfg["embed"]), dtype=np.float32)
+    y = rng.integers(0, cfg["vocab"], (batches * b, cfg["seq"]), dtype=np.int32)
+    tmp = tempfile.mkdtemp(prefix="fit_resume_")
+    free = shutil.disk_usage(tmp).free
+    need = (2 * (RESUME_KEEP + 1) + 1) * snapshot_bytes  # runs A and B, and one save
+    if free < need:
+        raise AssertionError(f"fit_resume: {tmp} has {free} bytes free, the phase writes up to "
+                             f"{need}")
+    try:
+        m.fit(x[:k * b], y[:k * b], epochs=1, shuffle=False, verbose=False)  # the capture
+        torch.cuda.synchronize()
+
+        def run(**kw):
+            _reset_state(m, init)
+            losses = _record_window_losses(m)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m.fit(x, y, epochs=RESUME_EPOCHS, shuffle=True, verbose=False, **kw)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            del m.instance.multi_train_step
+            return torch.cat(losses), elapsed * 1e3 / steps, torch.cuda.max_memory_allocated()
+
+        _, plain_ms, plain_peak = run()
+        dir_a, dir_b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        ref_losses, ckpt_ms, ckpt_peak = run(checkpoint_dir=dir_a, checkpoint_every_n_steps=every)
+        writer = m.checkpointer.writer
+        numbers = _writer_numbers(m.checkpointer.stats)
+        if numbers["snapshots"] != list(range(every, steps + 1, every)):
+            raise AssertionError(f"fit_resume: run A's snapshots {numbers['snapshots']}")
+        want = _state_clone(m)
+        shutil.rmtree(dir_a)
+
+        # run B, killed, under the profiler
+        _reset_state(m, init)
+        b_losses = _record_window_losses(m)
+        fa.reset_launch_counts()
+        os.environ["FF_TPU_FAULT_STEP"] = str(fault_step)
+        try:
+            with device_trace() as prof:
+                try:
+                    m.fit(x, y, epochs=RESUME_EPOCHS, shuffle=True, verbose=False,
+                          checkpoint_dir=dir_b, checkpoint_every_n_steps=every)
+                    raise AssertionError("fit_resume: run B was not killed")
+                except SimulatedFault as e:
+                    killed_at = e.step
+                    durable = CheckpointManager(dir_b).all_steps()
+        finally:
+            del os.environ["FF_TPU_FAULT_STEP"]
+        del m.instance.multi_train_step
+        killed_window = -(-fault_step // k) * k
+        if killed_at != killed_window or durable[-1] != killed_window:
+            raise AssertionError(f"fit_resume: killed after step {killed_at}, snapshots "
+                                 f"{durable} when the fault propagated (expected "
+                                 f"{killed_window} both)")
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        flash = {e.key: e.count for e in kernels if e.key.startswith(("ff_flash_", "ff_ring_"))}
+        want_launches = {name: cfg["layers"] * killed_window for name in FIT_WINDOW_KERNELS}
+        if flash != want_launches or any(_flash_launches().values()):
+            raise AssertionError(f"fit_resume: run B's trace counts {flash} (expected "
+                                 f"{want_launches}), wrapper counts {_flash_launches()}")
+        b_losses = torch.cat(b_losses)
+
+        def resumed(model_, what):
+            losses = _record_window_losses(model_)
+            t0 = time.perf_counter()
+            model_.fit(x, y, epochs=RESUME_EPOCHS, shuffle=True, verbose=False,
+                       checkpoint_dir=dir_b, checkpoint_every_n_steps=every, resume=True)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            del model_.instance.multi_train_step
+            got = torch.cat(losses)
+            differ = _state_bitwise(model_, want)
+            if not (torch.equal(got, ref_losses[killed_window:]) and not differ
+                    and model_._step_count == steps):
+                raise AssertionError(f"fit_resume: {what} is not run A's: losses {got.tolist()} "
+                                     f"vs {ref_losses[killed_window:].tolist()}, state keys "
+                                     f"differing {differ[:8]}")
+            return seconds
+
+        if not torch.equal(b_losses, ref_losses[:killed_window]):
+            raise AssertionError("fit_resume: run B's losses before the kill are not run A's")
+        captures = m.instance.graphs.captures
+        _reset_state(m, init)  # the restore must overwrite all of it
+        old_graph_s = resumed(m, "the resume replayed by the graph captured before it")
+        if m.instance.graphs.captures != captures:
+            raise AssertionError("fit_resume: the resume recaptured the window")
+        # the same directory again: fit(resume=True) wrote the last window's
+        # snapshot, so drop it to resume from the killed window again
+        shutil.rmtree(os.path.join(dir_b, f"step_{steps}"), ignore_errors=True)
+
+        t0 = time.perf_counter()
+        saved = m.save_checkpoint(os.path.join(tmp, "sync"), max_to_keep=1)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        m.load_checkpoint(os.path.join(tmp, "sync"))
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        if _state_bitwise(m, want):
+            raise AssertionError("fit_resume: save_checkpoint then load_checkpoint changed the "
+                                 "state")
+        shutil.rmtree(saved)
+        del m, writer
+        torch.cuda.empty_cache()
+        fresh = model()
+        new_model_s = resumed(fresh, "the new FFModel's resume")
+        del fresh
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({
+        "phase": "fit_resume", "config": cfg, "card": smi, "compute_dtype": "bf16",
+        "optimizer": "adam(alpha=1e-4)", "steps_per_dispatch": k, "steps": steps,
+        "epochs": RESUME_EPOCHS, "checkpoint_every_n_steps": every, "async": True,
+        "snapshot_bytes": snapshot_bytes, "filesystem_free_bytes": free,
+        "checkpoint_dir_is": "a temporary directory (TMPDIR), page cache warm",
+        "step_ms_without_checkpoints": plain_ms, "step_ms_with_async_checkpoints": ckpt_ms,
+        "async_checkpoint_overhead_pct": (ckpt_ms - plain_ms) / plain_ms * 100.0,
+        "step_ms_is": "each fit's elapsed / steps, ending in one synchronize",
+        "writer": numbers, "device_copy_bytes": snapshot_bytes - 4,
+        "peak_memory_added_bytes": ckpt_peak - plain_peak,
+        "sync_save_checkpoint_ms": save_ms, "load_checkpoint_ms": load_ms,
+        "killed_after_step": killed_at, "fault_step": fault_step,
+        "snapshots_durable_at_the_fault": durable,
+        "resume_seconds": {"graph_captured_before": old_graph_s, "new_ffmodel": new_model_s},
+        "bitwise_equal_to_run_a": {"losses": True, "params": True, "adam_moments": True},
+        "run_b_launches": flash, "seconds": time.perf_counter() - start,
+    })
+    return {wrapper: flash[name] for name, wrapper in FIT_WINDOW_KERNELS.items()}
+
+
+CHAOS_BATCH, CHAOS_STEPS_PER_EPOCH, CHAOS_EVERY = 16, 8, 4
+CHAOS_WATCHDOG = 50.0  # a budget of max(1000 ms, 50 x the window estimate), the serving tests'
+
+
+def phase_chaos(smi: str, device: str = "cuda") -> None:
+    """runtime.chaos.soak_sites on the card: the Dropout MLP of
+    parity_fit_window (f32) fit two epochs of 8 shuffled batches with
+    snapshots every 4 steps, in windows of 4 (captured graphs, the
+    windowed input pipeline) over ckpt_write, h2d, hang and kill, and per
+    step over ckpt_write, hang and kill (h2d lives in the windowed
+    pipeline's producer): every schedule fires and recovers to final
+    parameters and Adam moments bitwise the fault-free run's."""
+    import numpy as np
+    from flexflow_tpu_torch.core import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.runtime.chaos import SOAK_SITES, soak_sites
+
+    start = time.perf_counter()
+    rs = np.random.RandomState(0)
+    n = CHAOS_BATCH * CHAOS_STEPS_PER_EPOCH
+    x, y = rs.randn(n, 32).astype(np.float32), rs.randint(0, 10, n)
+
+    def builder(k):
+        def build(checkpoint_dir, watchdog=False):
+            m = FFModel(FFConfig(batch_size=CHAOS_BATCH, seed=0, steps_per_dispatch=k,
+                                 print_freq=0, checkpoint_dir=checkpoint_dir,
+                                 checkpoint_every_n_steps=CHAOS_EVERY,
+                                 watchdog_factor=CHAOS_WATCHDOG if watchdog else 0.0),
+                        device=device)
+            h = m.dense(m.create_tensor([CHAOS_BATCH, 32], name="x"), 32, use_bias=False,
+                        name="fc1")
+            m.dense(m.dropout(m.relu(h), 0.1), 10, use_bias=False, name="head")
+            m.compile(AdamOptimizer(alpha=1e-2), "sparse_categorical_crossentropy",
+                      metrics=["accuracy"])
+            return m
+
+        return build
+
+    out = {}
+    for k, sites in ((4, SOAK_SITES), (1, tuple(s for s in SOAK_SITES if s != "h2d"))):
+        t0 = time.perf_counter()
+        result = soak_sites(builder(k), x, y, total_steps=2 * CHAOS_STEPS_PER_EPOCH,
+                            checkpoint_every=CHAOS_EVERY, sites=sites)
+        bad = [r for r in result["schedules"] if not (r["fired"] and r["recovered_bitwise"])]
+        if bad or result["n_schedules"] != len(sites):
+            raise AssertionError(f"chaos K={k}: {bad or result}")
+        out[f"k{k}"] = {"sites": {r["sites"][0]: {key: r[key] for key in (
+            "spec", "fired", "outcome", "resumed", "recovered_bitwise")}
+            for r in result["schedules"]}, "seconds": time.perf_counter() - t0}
+    emit({"phase": "chaos", "card": smi, "model": "32-32 relu dropout(0.1)-10, batch 16, f32",
+          "optimizer": "adam(alpha=1e-2)", "steps": 2 * CHAOS_STEPS_PER_EPOCH,
+          "checkpoint_every_n_steps": CHAOS_EVERY, "watchdog_factor": CHAOS_WATCHDOG,
+          "watchdog_min_budget_ms": 1000.0, "soaks": out,
+          "seconds": time.perf_counter() - start})
+
+
+# resume_ranks: the small flagship under the forced tp2 plan on 2 ranks
+RESUME_RANKS = dict(TP_PARITY)
+RESUME_RANKS_K, RESUME_RANKS_EVERY, RESUME_RANKS_FAULT = 2, 2, 5
+RESUME_RANKS_BATCHES, RESUME_RANKS_EPOCHS = 4, 2
+
+
+def phase_resume_ranks(smi: str, tmp: str, device: str = "cuda:0", cfg: dict = RESUME_RANKS):
+    """FFModel on 2 ranks sharing the card over gloo under the forced tp2
+    plan (dp1xtp2xsp1) of the small flagship (bf16, windows of 2 run
+    eagerly under gloo, snapshots every 2 steps): a fit killed by
+    FF_TPU_FAULT_STEP and resumed by a new FFModel is bitwise the
+    uninterrupted fit on every rank (each step's loss, the gathered
+    parameters and Adam moments); rank 0 alone writes; rows 9-11 launch
+    once per layer per step on each rank; the final 2-rank checkpoint
+    restores into a single-device FFModel on the card with every parameter
+    equal. Returns rows 9-11's launches summed over the ranks."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.core import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.models import build_flagship_cg
+
+    start = time.perf_counter()
+    work = os.path.join(tmp, "resume_ranks")
+    steps = RESUME_RANKS_BATCHES * RESUME_RANKS_EPOCHS
+    ranks = run_ranks(2, dict(name="resume_ranks", mode="resume", cfg=cfg, device=device,
+                              alpha=1e-4, k=RESUME_RANKS_K, every=RESUME_RANKS_EVERY,
+                              fault_step=RESUME_RANKS_FAULT, batches=RESUME_RANKS_BATCHES,
+                              epochs=RESUME_RANKS_EPOCHS, seed="dp1xtp2xsp1", work=work), tmp)
+    killed_window = -(-RESUME_RANKS_FAULT // RESUME_RANKS_K) * RESUME_RANKS_K
+    for r in ranks:
+        res = r["resume"]
+        losses = res["losses"]
+        if not (res["outcome"] == "SimulatedFault" and res["bitwise"] == [True, True]
+                and res["steps"] == steps and res["kind"] == "DistributedTrainingInstance"
+                and losses["killed"] == losses["ref"][:killed_window]
+                and losses["resumed"] == losses["ref"][killed_window:]):
+            raise AssertionError(f"resume_ranks rank {r['rank']}: {res}")
+        writes = res["writes"]
+        want = (dict(writer=True, snapshots=list(range(RESUME_RANKS_EVERY, killed_window + 1,
+                                                       RESUME_RANKS_EVERY)))
+                if r["rank"] == 0 else dict(writer=False, snapshots=[]))
+        if writes != want:
+            raise AssertionError(f"resume_ranks rank {r['rank']}: writes {writes}, "
+                                 f"expected {want}")
+        r["card"] = res["card"]
+    # the killed and the resumed fit: every step once
+    counts = _check_rank_launches("resume_ranks", ranks, cfg["layers"], steps)
+    m = FFModel.from_computation_graph(
+        *build_flagship_cg(**cfg), device=device.split(":")[0],
+        config=FFConfig(batch_size=cfg["batch"], seed=0, print_freq=0, max_devices=1))
+    m.compile(AdamOptimizer(alpha=1e-4), "sparse_categorical_crossentropy")
+    if m.load_checkpoint(os.path.join(work, "final")) != steps:
+        raise AssertionError("resume_ranks: the final checkpoint's step")
+    want = np.load(os.path.join(work, "final_params.npz"))
+    differ = [k for k in want.files
+              if not np.array_equal(m.params[k].detach().cpu().numpy(), want[k])]
+    if differ or set(want.files) != set(m.params):
+        raise AssertionError(f"resume_ranks: the single-device restore differs at {differ}")
+    del m
+    torch.cuda.empty_cache()
+    first = ranks[0]["resume"]
+    emit({"phase": "resume_ranks", "ranks": 2, "sharing": f"2 {SHARED}", "card": smi,
+          "config": cfg, "plan": first["plan"], "forced_seed": "dp1xtp2xsp1",
+          "compute_dtype": "bf16", "steps_per_dispatch": RESUME_RANKS_K,
+          "checkpoint_every_n_steps": RESUME_RANKS_EVERY, "fault_step": RESUME_RANKS_FAULT,
+          "steps": steps, "losses": first["losses"]["ref"], "bitwise_equal": True,
+          "writes_by_rank": [r["resume"]["writes"] for r in ranks],
+          "single_device_restore": "every parameter equal",
+          "launches_per_rank": first["card"]["launches"],
+          "rank_seconds": [r["resume"]["seconds"] for r in ranks],
+          "seconds": time.perf_counter() - start})
+    return counts
+
+
 def main() -> None:
     require_card_and_repo()
     import torch
@@ -4576,6 +5044,12 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         phase_serve_ranks(smi, tmp)
         phase_parity_plan_ops(smi, tmp)
+    # checkpoints, bitwise resume and the fault sites
+    launches["fit_resume"] = (phase_fit_resume(smi), RESUME_FAULT_STEP_WINDOW)
+    phase_chaos(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["resume_ranks"] = (phase_resume_ranks(smi, tmp),
+                                    2 * RESUME_RANKS_BATCHES * RESUME_RANKS_EPOCHS)
     for entry in kernels:
         by_phase = {p: (n[entry["name"]], steps) for p, (n, steps) in launches.items()
                     if entry["name"] in n}

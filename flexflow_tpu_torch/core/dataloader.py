@@ -11,8 +11,9 @@ fused step windows instead gathers on a producer thread into pinned
 buffers and copies on a side stream. Over several ranks each rank is fed
 only its own rows of every batch (`blocks`, from the trainer's
 `feed_blocks`): the counterpart of the JAX package's device_put_global and
-window sharding, `P(None, "data")`. Resume cursors come with
-checkpointing (A8).
+window sharding, `P(None, "data")`. A resumed fit repositions the
+iterator with `advance_epochs` and `set_resume_skip` (the dataloader half of
+runtime/checkpoint.py's ResumeState), drawing every permutation in full.
 """
 
 from __future__ import annotations
@@ -131,6 +132,9 @@ class BatchIterator:
         )
         self.shuffle = shuffle
         self._rs = np.random.RandomState(seed)
+        # one-shot mid-epoch resume cursor: the next epoch skips its first
+        # _resume_skip batches
+        self._resume_skip = 0
 
     def reset(self) -> None:
         order = np.arange(self.num_samples)
@@ -142,19 +146,44 @@ class BatchIterator:
                 dl.reset()
                 dl._order = order
 
-    def __iter__(self):
+    # -- deterministic resume (runtime/checkpoint.py ResumeState) ----------
+
+    def advance_epochs(self, n: int) -> None:
+        """Burn `n` completed epochs' permutations: the shared RandomState
+        advances as `n` epochs would have advanced it, so a resumed run's
+        epoch-`n` permutation is the uninterrupted run's."""
+        for _ in range(int(n)):
+            self.reset()
+
+    def set_resume_skip(self, n: int) -> None:
+        """Skip the first `n` batches of the next epoch (one shot). The
+        epoch's permutation is drawn in full first, so the order stays that
+        of a run that consumed those batches."""
+        self._resume_skip = int(n)
+
+    def _begin_epoch(self) -> int:
         self.reset()
-        for _ in range(self.num_batches):
+        skip = min(self._resume_skip, self.num_batches)
+        self._resume_skip = 0
+        for dl in [*self.loaders.values(), self.label_loader]:
+            if dl is not None:
+                dl._next = skip
+        return skip
+
+    def __iter__(self):
+        skip = self._begin_epoch()
+        for _ in range(self.num_batches - skip):
             batch = {k: dl.next_batch() for k, dl in self.loaders.items()}
             label = self.label_loader.next_batch() if self.label_loader is not None else None
             yield batch, label
 
     def iter_rows(self) -> Iterator[np.ndarray]:
         """The row indices of each batch of one new epoch, in __iter__'s
-        order (the windowed iterator gathers them itself)."""
-        self.reset()
+        order, the resume skip included (the windowed iterator gathers
+        them itself)."""
+        skip = self._begin_epoch()
         b = self.batch_size
-        for i in range(self.num_batches):
+        for i in range(skip, self.num_batches):
             yield self._order[i * b:(i + 1) * b]
 
 
@@ -188,17 +217,26 @@ class WindowedBatchIterator:
     Over several ranks the windows hold only the rank's rows of each batch
     (the BatchIterator's blocks: the JAX package's `window_sharding`,
     leading window dim whole, batch dim sharded). Its `keep_host` stacks
-    feed the health monitor (A9) and its fault sites the fault schedule
-    (A8), neither of them ported.
+    feed the health monitor (A9), which is not ported.
+
+    Supervision: a producer that dies posts its exception to
+    `fault_channel` (site `h2d_producer`), and the consumer raises it from
+    there as a BackgroundFault. `step_base` is the global step of the first
+    batch the next epoch yields (the fit loop sets it before each epoch):
+    the fault schedule's `h2d` site keys on global steps, so one spec fires
+    at the same data in a fresh and in a resumed run.
 
     Yields (inputs_stack, label_stack or None, k)."""
 
-    def __init__(self, it: BatchIterator, window: int, prefetch: bool = True) -> None:
+    def __init__(self, it: BatchIterator, window: int, prefetch: bool = True,
+                 fault_channel=None, step_base: int = 0) -> None:
         if window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
         self.it = it
         self.window = int(window)
         self.prefetch = prefetch
+        self.fault_channel = fault_channel
+        self.step_base = int(step_base)
         self.device = it.device
         self._stop = threading.Event()
         self._queue: Optional[queue.Queue] = None
@@ -237,13 +275,26 @@ class WindowedBatchIterator:
     def _windows(self):
         """(stacks by name, the event the copy to the device recorded or
         None, k) per window of one epoch."""
+        from flexflow_tpu_torch.runtime.fault import InjectedFault, active_schedule
+
+        schedule = active_schedule()
+        if schedule is not None and "nonfinite" in schedule.sites:
+            raise NotImplementedError("fault site 'nonfinite': its reaction, the run-health "
+                                      "policy, is not ported yet (A9)")
         rows_iter = self.it.iter_rows()
         slot = 0
+        built = 0
         while not self._stop.is_set():
             rows = list(itertools.islice(rows_iter, self.window))
             if not rows:
                 return
             k = len(rows)
+            if schedule is not None:
+                # the producer dies while building this window
+                for step in range(self.step_base + built + 1, self.step_base + built + k + 1):
+                    if schedule.fire_once("h2d", step):
+                        raise InjectedFault("h2d", step)
+            built += k
             host = self._host_window(slot, k)
             for name, src in self._sources.items():
                 out = host[name].numpy()
@@ -290,10 +341,14 @@ class WindowedBatchIterator:
                     return
             self._queue.put(_PRODUCER_DONE)
         except BaseException as e:  # surfaces in the consumer
+            # the channel first (it survives a full queue and a gone
+            # consumer), then the queue, so a waiting consumer wakes now
+            if self.fault_channel is not None:
+                self.fault_channel.post("h2d_producer", e)
             try:
                 self._queue.put(_ProducerError(e), timeout=5.0)
             except queue.Full:
-                pass  # the consumer is gone or stalled
+                pass  # the consumer is gone or stalled; the channel has it
 
     def __iter__(self):
         self._stop.clear()
@@ -314,12 +369,16 @@ class WindowedBatchIterator:
                     # error while building the error item) would leave this
                     # get() waiting forever
                     if not t.is_alive():
+                        if self.fault_channel is not None:
+                            self.fault_channel.raise_pending(site="h2d_producer")
                         raise BackgroundFault("h2d_producer", RuntimeError(
                             "input-pipeline producer thread died without posting a result"))
                     continue
                 if item is _PRODUCER_DONE:
                     return
                 if isinstance(item, _ProducerError):
+                    if self.fault_channel is not None:
+                        self.fault_channel.raise_pending(site="h2d_producer")
                     raise item.exc
                 yield self._ready(item)
         finally:

@@ -32,16 +32,29 @@ DistributedTrainingInstance (FFConfig.export_strategy_file is written by
 rank 0). A calibrated or measured search first calibrates the ranks
 (compiler/calibration.py, a collective). Each rank's fit is fed only its
 own rows of every batch, and `steps_per_dispatch` runs its windows on
-either trainer. What reaches a slice that is not ported yet raises
-NotImplementedError naming it, at the call: the layer methods of unported
-ops (A2), the search's stores, other algorithms and its pricing of the
-fused collective matmuls (A6 part 2), a searched compile's memory budget
-(FFConfig.hbm_gb: the capacity detection, compile-time verification and
-provenance around the budgeted search, A6 part 2 / A13; the budgeted
-search itself, compiler.evaluate_pcg under a memory_budget_bytes, is
-ported), checkpoints,
-recompiles and fit-loop supervision (A8), telemetry, traces and plan
-audits (A9), pipelines and sub-mesh branches (A10).
+either trainer.
+
+Checkpoints (runtime/checkpoint.py): `save_checkpoint` / `load_checkpoint`
+write and read the JAX package's npz layout, so either package restores
+the other's; `fit(checkpoint_dir=..., checkpoint_every_n_steps=...)` takes
+full-resume snapshots (async unless FFConfig.checkpoint_sync) at step or
+window boundaries, and `fit(resume=True)` continues bitwise from the
+latest. A restore copies into the existing tensors, so the windows' CUDA
+graphs stay valid. Over several ranks rank 0 writes (a searched plan's
+state gathered first, a collective) and every rank restores its pieces.
+The fit loop's supervision (runtime/supervisor.py, runtime/fault.py): the
+window watchdog (FFConfig.watchdog_factor or FF_TPU_WATCHDOG), the fault
+channel, and the fault sites FF_TPU_FAULT_STEP and FF_TPU_FAULT_SPEC arm.
+
+What reaches a slice that is not ported yet raises NotImplementedError
+naming it, at the call: the layer methods of unported ops (A2), the
+search's stores, other algorithms and its pricing of the fused collective
+matmuls (A6 part 2), a searched compile's memory budget (FFConfig.hbm_gb:
+the capacity detection, compile-time verification and provenance around
+the budgeted search, A6 part 2 / A13; the budgeted search itself,
+compiler.evaluate_pcg under a memory_budget_bytes, is ported), recompiles
+(A8 part 2), telemetry, traces, plan audits and the `nonfinite` and `slow`
+fault sites (A9), pipelines and sub-mesh branches (A10).
 """
 from __future__ import annotations
 
@@ -78,7 +91,6 @@ from flexflow_tpu_torch.op_attrs.ops import (
 )
 from flexflow_tpu_torch.pcg.computation_graph_builder import ComputationGraphBuilder
 from flexflow_tpu_torch.pcg.optimizer import SGDOptimizerAttrs
-from flexflow_tpu_torch.runtime.fault import active_schedule
 from flexflow_tpu_torch.utils.graph import DataflowOutput, Node
 
 # Loss/metric name aliases matching the legacy string API
@@ -182,6 +194,9 @@ class FFModel:
         # fit's generator, reseeded by each fit: one object, so that the
         # fused windows' CUDA graphs, which register it, outlive a fit
         self._rng: Optional[torch.Generator] = None
+        # the last checkpointing fit's TrainingCheckpointer (its snapshots'
+        # records), None before one
+        self.checkpointer = None
 
     @classmethod
     def from_computation_graph(
@@ -810,9 +825,15 @@ class FFModel:
             raise ValueError(
                 "compile_cache_dir configures the JAX package's persistent XLA compilation "
                 "cache; the port compiles no XLA program, so unset it")
+        if cfg.checkpoint_backend == "orbax":
+            from flexflow_tpu_torch.runtime.checkpoint import ORBAX_REFUSED
+
+            raise ValueError(ORBAX_REFUSED)
+        if cfg.checkpoint_backend not in ("", "npz"):
+            raise ValueError(f"checkpoint_backend {cfg.checkpoint_backend!r} not in ('', 'npz')")
+        if cfg.watchdog_factor < 0:
+            raise ValueError(f"watchdog_factor must be >= 0, got {cfg.watchdog_factor}")
         unported = (
-            (bool(cfg.checkpoint_dir), "checkpoint_dir (fit-loop checkpointing)", "A8"),
-            (cfg.watchdog_factor > 0, "watchdog_factor (the window watchdog)", "A8"),
             (bool(cfg.metrics_dir), "metrics_dir (the step event stream)", "A9"),
             (cfg.health_policy not in ("", "off"), "health_policy (the run-health monitor)",
              "A9"),
@@ -891,16 +912,21 @@ class FFModel:
         stay on the device and are summed there; the loop ends in one
         synchronize, then reads them. `epoch_offset` decorrelates the
         shuffle order and the dropout stream across separate fit calls
-        that form one run."""
+        that form one run.
+
+        `checkpoint_dir` / `checkpoint_every_n_steps` (else FFConfig's)
+        take full-resume snapshots (the state, the generator's state, the
+        dataloader's epoch and cursor) at the step or window boundaries
+        that cross the interval. `resume=True` restores the latest snapshot
+        (falling back past corrupt ones) and continues bitwise: the same
+        permutations, the same Dropout stream, the same losses; with no
+        checkpoint on disk it cold-starts. Whatever the supervision and the
+        checkpointer start is retired when fit returns or raises, a due
+        snapshot made durable first."""
         self._require_compiled()
         if recompile_state is not None:
-            raise NotImplementedError("fit(recompile_state=...): recompiles are not ported yet (A8)")
-        if checkpoint_dir or checkpoint_every_n_steps or resume:
-            raise NotImplementedError("fit-loop checkpointing and resume are not ported yet (A8)")
-        if os.environ.get("FF_TPU_WATCHDOG") or active_schedule() is not None:
             raise NotImplementedError(
-                "FF_TPU_WATCHDOG / FF_TPU_FAULT_SPEC: the fit loop's supervision is not "
-                "ported yet (A8)")
+                "fit(recompile_state=...): recompiles are not ported yet (A8 part 2)")
         epochs = epochs or self.config.epochs
         batch_size = batch_size or self.config.batch_size
         it = self._make_iterator(x, y, batch_size, shuffle=shuffle, seed_offset=epoch_offset,
@@ -908,7 +934,110 @@ class FFModel:
         if self._rng is None:
             self._rng = torch.Generator(device=self.device)
         rng = self._rng.manual_seed(self.config.seed * 1_000_003 + epoch_offset)
-        return self._fit_epochs(epochs, batch_size, verbose, it, rng)
+        sup = self._setup_supervision()
+        ckpt = None
+        try:
+            ckpt, start_epoch, skip = self._setup_checkpointing(
+                checkpoint_dir, checkpoint_every_n_steps, resume, it, rng, epoch_offset,
+                sup.channel)
+            return self._fit_epochs(epochs, batch_size, verbose, it, rng, ckpt=ckpt,
+                                    start_epoch=start_epoch, skip_batches=skip,
+                                    epoch_offset=epoch_offset, sup=sup)
+        finally:
+            # the watchdog first: its deadline must not fire into the drain
+            sup.close()
+            if ckpt is not None:
+                ckpt.finalize()
+
+    def _setup_supervision(self):
+        """One fit call's supervision (runtime/supervisor.py): the fault
+        channel the background threads report into, the window watchdog
+        (only where a factor is configured: FFConfig.watchdog_factor, else
+        FF_TPU_WATCHDOG) and the active fault schedule. A schedule naming
+        `nonfinite` or `slow` raises (A9)."""
+        from flexflow_tpu_torch.runtime.fault import active_schedule, refuse_unported_fit_sites
+        from flexflow_tpu_torch.runtime.supervisor import (
+            FaultChannel,
+            FitSupervision,
+            WindowWatchdog,
+        )
+
+        schedule = active_schedule()
+        refuse_unported_fit_sites(schedule)
+        factor = float(self.config.watchdog_factor or 0.0)
+        if factor <= 0:
+            env = os.environ.get("FF_TPU_WATCHDOG", "")
+            factor = float(env) if env else 0.0
+        return FitSupervision(channel=FaultChannel(),
+                              watchdog=WindowWatchdog(factor) if factor > 0 else None,
+                              schedule=schedule)
+
+    def _setup_checkpointing(self, checkpoint_dir, every, resume, it, rng, epoch_offset,
+                             channel):
+        """The fit call's TrainingCheckpointer (None when checkpointing is
+        off, `self.checkpointer` otherwise) and, under resume, the latest
+        snapshot restored: the state into this model's tensors, the step,
+        the generator, and the dataloader's position (permutations burnt,
+        a one-shot skip). A corrupt latest snapshot falls back to the
+        newest that verifies, recorded in
+        search_provenance["recovery"]["checkpoint_fallback"]. Returns
+        (ckpt, start_epoch, skip_batches)."""
+        from flexflow_tpu_torch.runtime.checkpoint import CheckpointError, TrainingCheckpointer
+
+        cfg = self.config
+        cdir = checkpoint_dir if checkpoint_dir is not None else cfg.checkpoint_dir
+        every = every if every is not None else cfg.checkpoint_every_n_steps
+        if not cdir:
+            if resume:
+                raise ValueError("fit(resume=True) needs checkpoint_dir= (or "
+                                 "config.checkpoint_dir)")
+            return None, 0, 0
+        ckpt = self.checkpointer = TrainingCheckpointer(
+            cdir, every_n_steps=every, max_to_keep=cfg.checkpoint_max_to_keep,
+            sync=cfg.checkpoint_sync, backend=cfg.checkpoint_backend or None,
+            fault_channel=channel, writes=self._rank() == 0)
+        if not resume:
+            return ckpt, 0, 0
+        try:
+            template = self._restore_template()
+            rs = self._restore_on_ranks(lambda s: ckpt.resume_state(template, step=s),
+                                        lambda r: r.step)
+            if rs is None:
+                return ckpt, 0, 0
+            where = dict(directory=ckpt.manager.directory, step=rs.step)
+            if rs.epoch_offset != epoch_offset:
+                # this call's iterator and generator were seeded with its own
+                # epoch_offset: resuming under another would draw from the
+                # wrong streams, never bitwise
+                raise CheckpointError(
+                    f"snapshot was taken under epoch_offset={rs.epoch_offset} but "
+                    f"fit(resume=True) was called with epoch_offset={epoch_offset}; pass "
+                    "the original epoch_offset to resume bitwise", **where)
+            if rs.rng_device != rng.device.type:
+                raise CheckpointError(
+                    f"snapshot holds a {rs.rng_device} generator's state and this model "
+                    f"draws on {rng.device.type}: the Dropout stream cannot continue", **where)
+            self._assign_state(rs.params, rs.opt_state)
+            self._step_count = rs.step
+            rng.set_state(rs.rng)
+            it.advance_epochs(rs.epoch)
+            it.set_resume_skip(rs.batch_in_epoch)
+            self._record_restore_fallback(rs.restore_report)
+            return ckpt, rs.epoch, rs.batch_in_epoch
+        except BaseException:
+            # fit's finally has not seen this checkpointer: retire its writer
+            ckpt.finalize()
+            raise
+
+    def _record_restore_fallback(self, report) -> None:
+        """A resume that quarantined corrupt steps and fell back records it
+        in search_provenance["recovery"]["checkpoint_fallback"] (its event
+        in the metrics stream comes with A9)."""
+        if not report or not report.get("quarantined"):
+            return
+        if self.search_provenance is None:
+            self.search_provenance = {}
+        self.search_provenance.setdefault("recovery", {})["checkpoint_fallback"] = report
 
     def _effective_steps_per_dispatch(self) -> int:
         """The fused window length this fit runs. FF_TPU_FUSED_BASELINE=1
@@ -922,35 +1051,66 @@ class FFModel:
             return 1
         return k
 
-    def _fit_epochs(self, epochs, batch_size, verbose, it, rng) -> PerfMetrics:
+    def _fit_epochs(self, epochs, batch_size, verbose, it, rng, ckpt=None, start_epoch=0,
+                    skip_batches=0, epoch_offset=0, sup=None) -> PerfMetrics:
         """The per-step loop, or with steps_per_dispatch = K > 1 the windowed
         one: each window of K batches (the epoch's tail a smaller one)
         trains through one multi_train_step, its input gathered and copied
-        while the window before it runs."""
+        while the window before it runs. Each step or window runs inside
+        the watchdog's deadline with the `hang` site; at its boundary come
+        the checkpoint hook, then the `kill` site, the fault channel and
+        FF_TPU_FAULT_STEP, so a due snapshot is durable before a fault
+        propagates."""
+        from flexflow_tpu_torch.runtime.fault import (
+            inject_hang_fault,
+            inject_kill_fault,
+            maybe_inject_fault,
+        )
+
+        watchdog = sup.watchdog if sup is not None else None
+        schedule = sup.schedule if sup is not None else None
         start = time.perf_counter()
         num_samples = 0
         loss = None
         macc: Optional[Dict[str, object]] = None
         pf = self.config.print_freq if verbose else 0
         k = self._effective_steps_per_dispatch()
-        windows = WindowedBatchIterator(it, k) if k > 1 else None
+        windows = (WindowedBatchIterator(it, k, fault_channel=sup.channel if sup else None)
+                   if k > 1 else None)
         try:
-            for epoch in range(epochs):
+            for epoch in range(start_epoch, epochs):
+                batch_in_epoch = skip_batches if epoch == start_epoch else 0
                 if windows is not None:
-                    for inputs_stack, label_stack, kk in windows:
-                        loss, macc = self._run_fused_window(
-                            inputs_stack, label_stack, kk, rng, macc, pf, epoch)
-                        num_samples += batch_size * kk
-                    continue
-                for batch, label in it:
-                    self.params, self.opt_state, loss, mvals = self.instance.train_step(
-                        self.params, self.opt_state, batch, label, rng)
-                    self._step_count += 1
-                    num_samples += batch_size
-                    macc = mvals if macc is None else {key: macc[key] + v
-                                                      for key, v in mvals.items()}
-                    if pf and self._step_count % pf == 0:
-                        print(f"epoch {epoch} step {self._step_count}: loss {float(loss):.4f}")
+                    windows.step_base = self._step_count
+                    units = windows
+                else:
+                    units = ((batch, label, 1) for batch, label in it)
+                for inputs, label, kk in units:
+                    prev = self._step_count
+                    if watchdog is not None:
+                        watchdog.begin_window(prev + 1, kk)
+                    try:
+                        if windows is not None:
+                            loss, macc = self._run_fused_window(inputs, label, kk, rng, macc, pf,
+                                                                epoch)
+                        else:
+                            loss, macc = self._run_step(inputs, label, rng, macc, pf, epoch)
+                        # a hung dispatch never reaches the boundary
+                        inject_hang_fault(schedule, prev, self._step_count, watchdog=watchdog)
+                    finally:
+                        # disarmed before the boundary's work: a slow but
+                        # healthy checkpoint submit is no hang
+                        if watchdog is not None:
+                            watchdog.end_window(self._step_count)
+                    batch_in_epoch += kk
+                    num_samples += batch_size * kk
+                    if ckpt is not None and ckpt.due(prev, self._step_count):
+                        ckpt.snapshot(self._step_count, self._checkpoint_state(), rng, epoch,
+                                      batch_in_epoch, epoch_offset)
+                    if sup is not None:
+                        inject_kill_fault(schedule, prev, self._step_count)
+                        sup.channel.raise_pending()
+                    maybe_inject_fault(prev, self._step_count)
         finally:
             if windows is not None:
                 windows.close()
@@ -962,6 +1122,17 @@ class FFModel:
             print(f"ELAPSED TIME = {elapsed:.4f}s, "
                   f"THROUGHPUT = {num_samples / max(elapsed, 1e-9):.2f} samples/s")
         return perf
+
+    def _run_step(self, batch, label, rng, macc, pf, epoch):
+        """One train_step and its metric fold and print. Returns (its loss,
+        macc)."""
+        self.params, self.opt_state, loss, mvals = self.instance.train_step(
+            self.params, self.opt_state, batch, label, rng)
+        self._step_count += 1
+        macc = mvals if macc is None else {key: macc[key] + v for key, v in mvals.items()}
+        if pf and self._step_count % pf == 0:
+            print(f"epoch {epoch} step {self._step_count}: loss {float(loss):.4f}")
+        return loss, macc
 
     def _run_fused_window(self, inputs_stack, label_stack, kk, rng, macc, pf, epoch):
         """One window: its dispatch, the metric fold (one add a window), and
@@ -1084,18 +1255,165 @@ class FFModel:
         self.invalidate_graphs()
 
     # ------------------------------------------------------------------
-    # checkpoint / resume (A8)
+    # checkpoint / resume
     # ------------------------------------------------------------------
 
+    def _rank(self) -> int:
+        return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+    def _grouped(self) -> bool:
+        """Whether the compile spans several ranks (one process each)."""
+        return isinstance(self.instance, DataParallelTrainingInstance) or self._searched()
+
+    def _state_template(self) -> dict:
+        """The tree of this model's state tensors (a searched plan's leaves
+        are this rank's pieces, keyed by the plan's PCG)."""
+        if self.params is None:
+            raise RuntimeError("compile() before checkpointing")
+        template = {"params": self.params}
+        if self.opt_state is not None:
+            template["opt_state"] = self.opt_state
+        return template
+
+    def _restore_template(self) -> Optional[dict]:
+        """What a restore checks a checkpoint's key paths and dtypes
+        against: the model's tree; None for a searched plan, whose
+        checkpoints come keyed either way (_assign_state checks them)."""
+        return None if self._searched() else self._state_template()
+
+    def _plan_to_model_keys(self) -> Optional[Dict[str, str]]:
+        """A searched plan's weight keys -> the model graph's, matched by
+        layer name (the rewrites keep names); None where a weight has no
+        unique counterpart."""
+        from flexflow_tpu_torch.local_execution.training_backing import weight_nodes
+
+        pcg = self.instance.pcg
+        by_name: Dict[str, List[str]] = {}
+        for n in weight_nodes(pcg):
+            by_name.setdefault(pcg.layer_attrs(n).name, []).append(param_key(n))
+        out = {}
+        for n in weight_nodes(self.cg):
+            name = self.cg.layer_attrs(n).name
+            hits = by_name.get(name, [])
+            if name is None or len(hits) != 1:
+                return None
+            out[hits[0]] = param_key(n)
+        return out if len(out) == len(self.params) else None
+
+    def _checkpoint_state(self) -> dict:
+        """{"params", "opt_state"} to checkpoint: the tensors themselves on
+        one device or a data-parallel rank (the state is replicated); a
+        searched plan's global values as numpy, gathered over the ranks (a
+        collective: every rank calls it) and keyed by the model graph's
+        weights, so that a single-device FFModel of either package restores
+        them (by the plan's own keys, as the JAX package keys a searched
+        model's, where a weight has no unique name)."""
+        if not self._searched():
+            return self._state_template()
+        from flexflow_tpu_torch.interop import pcg_opt_state_to_numpy, pcg_params_to_numpy
+
+        inst = self.instance
+        args = (inst.pcg, inst.shardings, inst.machine_mesh)
+        state = {"params": pcg_params_to_numpy(*args, self.params)}
+        if self.opt_state is not None:
+            state["opt_state"] = pcg_opt_state_to_numpy(*args, self.opt_state)
+        keys = self._plan_to_model_keys()
+        return state if keys is None else _rekey(state, keys)
+
+    def _assign_state(self, params: dict, opt_state: Optional[dict]) -> None:
+        """Copy restored global values (numpy trees, as the checkpoint
+        holds them) into this model's tensors in place, a searched plan's
+        rank taking its pieces (from a checkpoint keyed by the model graph
+        or by the plan): the stepped backing, the optimizer state and the
+        captured windows keep referring to the same tensors."""
+        from flexflow_tpu_torch.runtime.checkpoint import _flatten
+
+        if self._searched():
+            from flexflow_tpu_torch.interop import pcg_opt_state_from_numpy, pcg_params_from_numpy
+
+            keys = self._plan_to_model_keys()
+            state = {"params": params, "opt_state": opt_state}
+            if keys is not None and set(params) == set(keys.values()):
+                state = _rekey(state, {model: plan for plan, model in keys.items()})
+            inst = self.instance
+            args = (inst.pcg, inst.shardings, inst.machine_mesh)
+            params = pcg_params_from_numpy(*args, state["params"], "cpu")
+            if opt_state is not None:
+                opt_state = pcg_opt_state_from_numpy(*args, state["opt_state"], "cpu")
+        src = _flatten({"params": params, **({} if opt_state is None else
+                                             {"opt_state": opt_state})})
+        dst = _flatten(self._state_template())
+        if set(src) != set(dst):
+            raise ValueError(f"restored state keys differ from the model's: missing "
+                             f"{sorted(set(dst) - set(src))[:8]}, extra "
+                             f"{sorted(set(src) - set(dst))[:8]}")
+        with torch.no_grad():
+            for key, t in dst.items():
+                value = torch.as_tensor(src[key])
+                if tuple(value.shape) != tuple(t.shape):
+                    raise ValueError(f"{key}: checkpoint shape {tuple(value.shape)}, the "
+                                     f"model's {tuple(t.shape)}")
+                t.copy_(value)
+
+    def _restore_on_ranks(self, restore, step_of):
+        """restore(step) -> the restored object (None for nothing to
+        restore). Alone: restore(None). Over several ranks, after a barrier
+        (the writer's last commit is durable): rank 0 picks the step,
+        falling back past corrupt ones, and the others read that step."""
+        if not self._grouped():
+            return restore(None)
+        from flexflow_tpu_torch.runtime.checkpoint import CheckpointError
+        from flexflow_tpu_torch.runtime.distributed import broadcast_json
+
+        dist.barrier()
+        if dist.get_rank() == 0:
+            try:
+                got = restore(None)
+            except BaseException as e:
+                broadcast_json({"error": f"{type(e).__name__}: {e}"})
+                raise
+            broadcast_json({"step": None if got is None else step_of(got)})
+            return got
+        doc = broadcast_json(None)
+        if "error" in doc:
+            raise CheckpointError(f"rank 0's restore failed: {doc['error']}")
+        return None if doc["step"] is None else restore(doc["step"])
+
     def save_checkpoint(self, directory: str, max_to_keep: int = 3) -> str:
-        raise NotImplementedError("FFModel.save_checkpoint: checkpoints are not ported yet (A8)")
+        """Params, optimizer state and step, written now in `directory`'s
+        npz layout (the JAX package's load_checkpoint reads it), with
+        extra {"seed": config.seed}. Over several ranks every rank calls it
+        (a searched plan's state is gathered, a collective) and rank 0
+        writes. Returns the step's directory."""
+        from flexflow_tpu_torch.runtime.checkpoint import CheckpointManager
+
+        state = self._checkpoint_state()
+        mgr = CheckpointManager(directory, max_to_keep=max_to_keep,
+                                backend=self.config.checkpoint_backend or None)
+        if self._rank() != 0:
+            return mgr._step_dir(self._step_count)
+        return mgr.save(self._step_count, state["params"], state.get("opt_state"),
+                        extra={"seed": self.config.seed})
 
     def load_checkpoint(self, directory: str, step: Optional[int] = None) -> int:
-        raise NotImplementedError("FFModel.load_checkpoint: checkpoints are not ported yet (A8)")
+        """Params, optimizer state and step from `directory` (its latest
+        verified step, or `step`), copied into this model's tensors in
+        place; a checkpoint of the JAX package's npz layout restores too.
+        Over several ranks every rank calls it and takes its pieces.
+        Returns the step restored."""
+        from flexflow_tpu_torch.runtime.checkpoint import CheckpointManager
+
+        template = self._restore_template()
+        mgr = CheckpointManager(directory)
+        s, params, opt_state, _ = self._restore_on_ranks(
+            lambda at: mgr.restore(step if at is None else at, template=template),
+            lambda r: r[0])
+        self._assign_state(params, opt_state)
+        self._step_count = s
+        return s
 
     def recompile(self, preserve_resume: bool = False) -> None:
-        raise NotImplementedError("FFModel.recompile: recompiles are not ported yet (A8)")
-
+        raise NotImplementedError("FFModel.recompile: recompiles are not ported yet (A8 part 2)")
 
 def _forced_seed_result(pcg0, ctx, spec, seed_name: str):
     """The named strategy template, priced as is (FFConfig.
@@ -1121,6 +1439,16 @@ def _forced_seed_result(pcg0, ctx, spec, seed_name: str):
         result.seed_runtimes = {label: result.runtime}
         return result
     raise ValueError(f"unknown strategy seed {seed_name!r}")
+
+
+def _rekey(state: dict, keys: Dict[str, str]) -> dict:
+    """{"params", "opt_state"} with each parameter key (and each optimizer
+    slot's) renamed through `keys`."""
+    out = {"params": {keys[k]: v for k, v in state["params"].items()}}
+    if state.get("opt_state") is not None:
+        out["opt_state"] = {slot: ({keys[k]: t for k, t in v.items()} if isinstance(v, dict)
+                                   else v) for slot, v in state["opt_state"].items()}
+    return out
 
 
 def _find_sink_output(graph) -> DataflowOutput:

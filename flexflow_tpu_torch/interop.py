@@ -147,7 +147,7 @@ def pcg_opt_state_from_numpy(pcg, shardings, mesh, opt_state: Dict, device="cpu"
 
 def pcg_opt_state_to_numpy(pcg, shardings, mesh, opt_state: Dict) -> Dict:
     """The global optimizer state of this rank's pieces (a collective)."""
-    out = {"step": np.asarray(int(opt_state["step"]))}
+    out = {"step": np.asarray(int(opt_state["step"]), dtype=np.int32)}
     for slot in ("m", "v"):
         if slot in opt_state:
             out[slot] = pcg_params_to_numpy(pcg, shardings, mesh, opt_state[slot])

@@ -50,7 +50,12 @@ class FFConfig:
     # the JAX package's persistent XLA compilation cache; the port compiles
     # no XLA program
     compile_cache_dir: str = ""
-    # checkpointing and supervision (A8)
+    # fit-loop checkpoints and supervision (runtime/checkpoint.py,
+    # runtime/supervisor.py): checkpoint_dir enables full-resume snapshots
+    # every checkpoint_every_n_steps, written by a background thread unless
+    # checkpoint_sync; the port writes the npz layout only ("" or "npz":
+    # orbax is a JAX library and is refused); watchdog_factor > 0 arms the
+    # window watchdog
     checkpoint_dir: str = ""
     checkpoint_every_n_steps: int = 0
     checkpoint_max_to_keep: int = 3
@@ -174,9 +179,10 @@ class FFConfig:
             type=str,
             default="",
             choices=("", "npz", "orbax"),
-            help="checkpoint serialization backend (default auto): npz = "
+            help="checkpoint serialization backend: npz (the default) = "
             "raw-.npy layout with the per-leaf checksum manifest "
-            "(runtime/integrity.py), orbax = orbax.checkpoint",
+            "(runtime/integrity.py); orbax, the JAX package's other "
+            "backend, is refused (a JAX library)",
         )
         p.add_argument(
             "--watchdog-factor",

@@ -184,12 +184,14 @@ def forward_interpreter(
     inputs: Dict[str, torch.Tensor],
     train: bool = False,
     rng: Optional[torch.Generator] = None,
+    masks: Optional[Dict[Node, torch.Tensor]] = None,
 ) -> Dict[DataflowOutput, torch.Tensor]:
     """Evaluate the graph: every tensor value keyed by DataflowOutput.
     inputs: keyed by input-layer name (or param_key of the input node).
     train and rng reach the stochastic ops (Dropout): the step's masks are
-    drawn from rng first, in dropout_order."""
-    masks = dropout_masks(cg, rng, rng.device) if train and rng is not None else {}
+    drawn from rng first, in dropout_order, unless `masks` gives them."""
+    if masks is None:
+        masks = dropout_masks(cg, rng, rng.device) if train and rng is not None else {}
     env: Dict[DataflowOutput, torch.Tensor] = {}
     for n in cg.topological_ordering():
         la = cg.layer_attrs(n)
@@ -294,12 +296,18 @@ class ModelTrainingInstance:
             cast_for_compute(self._to_device(batch_inputs), self.compute_dtype),
             train=True,
             rng=rng,
+            masks=self._dropout_masks(rng),
         )
         logit = env[self.logit_tensor]
         loss = loss_forward(self.loss_attrs, logit, torch.as_tensor(label, device=self.device))
         for t in self.aux_loss_tensors:
             loss = loss + env[t].to(loss.dtype).sum()
         return loss, logit
+
+    def _dropout_masks(self, rng):
+        """The step's Dropout masks as loss_fn applies them, or None for
+        forward_interpreter to draw them (here: the graph's own)."""
+        return None
 
     def _feed(self, batch_inputs, label):
         """(inputs, label) as loss_fn takes them: here the batch as given and

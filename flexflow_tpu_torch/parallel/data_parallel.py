@@ -202,6 +202,20 @@ class DataParallelTrainingInstance(ModelTrainingInstance):
                 lambda t: all_reduce_sum(t, self.group, self.collectives)):
             return super().loss_fn(params, batch_inputs, label, rng)
 
+    def _dropout_masks(self, rng):
+        """The single-device trainer's masks (drawn at the global batch),
+        each cut to this rank's block of rows: every rank draws them all,
+        so the generators stay in step and the run is the one-device run's."""
+        from flexflow_tpu_torch.local_execution.training_backing import dropout_masks
+
+        if rng is None:
+            return None
+        out = {}
+        for n, mask in dropout_masks(self.cg, rng, rng.device).items():
+            rows = mask.shape[0] // self.world_size
+            out[n] = mask[self.rank * rows:(self.rank + 1) * rows]
+        return out
+
     def _gradient_reducer(self, leaves):
         return C.BucketedBackward([(self.group, keys) for keys in self.buckets],
                                   leaves, self.collectives, self.bucket_log)

@@ -1,17 +1,21 @@
-"""Window supervision: the fault channel and the window watchdog (trimmed
-copy of flexflow_tpu/runtime/supervisor.py:46-360).
+"""Window supervision: the fault channel and the window watchdog (copy of
+flexflow_tpu/runtime/supervisor.py).
 
-- `FaultChannel`: the mailbox background threads post their exceptions
-  into; the serving engine drains it at every window boundary, so a
-  background failure surfaces within one window as a `BackgroundFault`
-  naming its site.
-- `WindowWatchdog`: a monitor thread arming a deadline around each decode
-  window. The budget is max(min_budget_ms, estimate x factor), the
-  estimate an EMA of completed windows; until one window has completed
-  there is no deadline. On expiry it records a `HangDiagnostic`, hands it
-  to `on_hang`, and raises `WindowHangError` on the watched thread:
-  cooperatively when the hang is the injected one (`simulate_hang`),
-  otherwise best-effort through `PyThreadState_SetAsyncExc`.
+- `FaultChannel`: the mailbox background threads (the async checkpoint
+  writer, the windowed input pipeline's producer) post their exceptions
+  into; the fit loop and the serving engine drain it at every window
+  boundary, so a background failure surfaces within one window as a
+  `BackgroundFault` naming its site.
+- `WindowWatchdog`: a monitor thread arming a deadline around each fit
+  step or window and each decode window. The budget is max(min_budget_ms,
+  estimate x factor), the estimate an EMA of completed windows; until one
+  window has completed there is no deadline. On expiry it records a
+  `HangDiagnostic`, hands it to `on_hang`, and raises `WindowHangError` on
+  the watched thread: cooperatively when the hang is the injected one
+  (`simulate_hang`), otherwise best-effort through
+  `PyThreadState_SetAsyncExc`.
+- `FitSupervision`: one fit call's bundle of the two and the active fault
+  schedule.
 
 Pure Python threads: nothing here touches a device.
 """
@@ -28,7 +32,8 @@ from typing import Callable, List, Optional, Tuple
 
 class BackgroundFault(RuntimeError):
     """The exception a background thread died with, re-raised on the
-    serving thread with the fault site named (`original`, `__cause__`)."""
+    training or serving thread with the fault site named (`original`,
+    `__cause__`)."""
 
     def __init__(self, site: str, original: BaseException) -> None:
         super().__init__(
@@ -298,3 +303,29 @@ class WindowWatchdog:
         self._cancel.set()
         if not cooperative and tid is not None and self.interrupt:
             _async_raise(tid, WindowHangError)
+
+
+@dataclass
+class FitSupervision:
+    """One fit call's supervision bundle: the shared fault channel, the
+    watchdog (None unless a factor is configured) and the active seeded
+    fault schedule (None unless FF_TPU_FAULT_SPEC or install_schedule set
+    one)."""
+
+    channel: FaultChannel
+    watchdog: Optional[WindowWatchdog] = None
+    schedule: Optional[object] = None  # runtime.fault.FaultSchedule
+
+    def close(self) -> None:
+        if self.watchdog is not None:
+            self.watchdog.close()
+
+
+__all__ = [
+    "BackgroundFault",
+    "FaultChannel",
+    "FitSupervision",
+    "HangDiagnostic",
+    "WindowHangError",
+    "WindowWatchdog",
+]
