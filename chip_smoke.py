@@ -1652,6 +1652,7 @@ def phase_search(smi: str, train_step_ms: float) -> dict:
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     run = run_search(FLAGSHIP)
+    SEARCH_RUN.update(run)
     calls = {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS}
     peak = torch.cuda.max_memory_allocated()
     r, local = run["result"], run["local"]
@@ -1966,13 +1967,14 @@ def _window_parity(phase: str, got_params, want_params, got_losses, want_losses)
     return out
 
 
-def _fused_mlp(k: int):
+def _fused_mlp(k: int, device: str = "cuda", **config):
     """tests/test_fused_dispatch.py's model (32 -> 32 relu -> Dropout 0.1
-    -> 10, batch 16, Adam(1e-2)) through FFModel on the card, fused at K."""
+    -> 10, batch 16, Adam(1e-2)) through FFModel on the card, fused at K;
+    `config`: further FFConfig fields."""
     from flexflow_tpu_torch.core import AdamOptimizer, FFConfig, FFModel
 
-    m = FFModel(FFConfig(batch_size=16, seed=0, steps_per_dispatch=k, print_freq=0),
-                device="cuda")
+    m = FFModel(FFConfig(batch_size=16, seed=0, steps_per_dispatch=k, print_freq=0, **config),
+                device=device)
     x = m.create_tensor([16, 32], name="x")
     h = m.dropout(m.relu(m.dense(x, 32, use_bias=False, name="fc1")), 0.1)
     m.dense(h, 10, use_bias=False, name="head")
@@ -2065,7 +2067,8 @@ def _profiled_fit(m, x, y) -> dict:
             "flash_ms": {e.key: e.self_device_time_total / 1e3 for e in flash},
             "top_kernels": [{"name": e.key[:120], "ms": e.self_device_time_total / 1e3,
                              "calls": e.count}
-                            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]]}
+                            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]],
+            "by_kernel": {e.key[:120]: (e.count, e.self_device_time_total / 1e3) for e in kernels}}
 
 
 def phase_fit_window(smi: str, k: int = FIT_WINDOW_K, windows: int = FIT_WINDOW_WINDOWS):
@@ -3412,8 +3415,58 @@ elif job["mode"] == "fit":
                     step_flops=inst.step_flops(),
                     digest=float(sum(p.double().sum() for p in m.params.values())))
 
-    out["searched"] = fit(export_strategy_file=job["strategy"])
+    def drift_runs():
+        """The drift monitor over this job's ranks: the small flagship
+        under the forced tp2 plan (analytic pricing), per step, with
+        metrics_dir and drift_monitor, once with the `slow` site firing at
+        every step after drift_late and once without; rank 0 writes the
+        stream and runs the monitor."""
+        from flexflow_tpu_torch.observability.metrics import read_events
+        from flexflow_tpu_torch.runtime import fault
+
+        class LateSchedule(fault.FaultSchedule):
+            """`slow` at every step after drift_late, none before."""
+
+            def should_fire(self, site, step):
+                return step > job["drift_late"] and super().should_fire(site, step)
+
+        dcfg, steps = job["drift_cfg"], job["drift_steps"]
+        gen = torch.Generator().manual_seed(1)
+        dx = torch.randn(steps * dcfg["batch"], dcfg["seq"], dcfg["embed"], generator=gen)
+        dy = torch.randint(0, dcfg["vocab"], (steps * dcfg["batch"], dcfg["seq"]), generator=gen)
+        os.environ[fault.SLOW_MS_ENV] = str(job["drift_slow_ms"])
+        res = {}
+        for name, slow in (("slow", True), ("steady", False)):
+            mdir = os.path.join(os.path.dirname(job["out"]), f"drift_{name}")
+            m = FFModel.from_computation_graph(
+                *build_flagship_cg(**dcfg), device=device,
+                config=FFConfig(batch_size=dcfg["batch"], seed=0, print_freq=0,
+                                search_budget=2, force_strategy_seed="dp1xtp2xsp1",
+                                cost_model="analytic", metrics_dir=mdir, drift_monitor=True,
+                                **job["drift"]))
+            m.compile(AdamOptimizer(alpha=job["alpha"]), "sparse_categorical_crossentropy",
+                      compute_dtype=dtype)
+            if slow:
+                fault.install_schedule(LateSchedule(seed=0, sites=frozenset({"slow"}), rate=1.0))
+            try:
+                m.fit(dx.numpy(), dy.numpy().astype(np.int32), epochs=1, shuffle=False,
+                      verbose=False)
+            finally:
+                fault.install_schedule(None)
+            res[name] = dict(steps=m._step_count,
+                             estimated_ms=m.search_provenance["estimated_ms"])
+            if rank == 0:
+                events = read_events(mdir)
+                res[name].update(
+                    drift_events=[e for e in events if e.get("event") == "drift"],
+                    step_ms=[e["wallclock_ms"] for e in events if "event" not in e],
+                    report=m.search_provenance.get("drift"))
+        return res
+
+    out["searched"] = fit(export_strategy_file=job["strategy"], plan_audit=True)
     out["imported"] = fit(import_strategy_file=job["strategy"])
+    if "drift" in job:
+        out["drift"] = drift_runs()
 elif job["mode"] == "windows":
     out["windows"] = fit_windows()
     out["calibrate"] = calibrate_and_fit()
@@ -3568,7 +3621,9 @@ def phase_fit_searched(smi: str, tmp: str, device: str = "cuda:0") -> dict:
     trains to bitwise-equal losses."""
     ranks = run_ranks(2, dict(name="fit_searched", mode="fit", cfg=FIT_SEARCHED, device=device,
                               alpha=1e-4, steps=FIT_SEARCHED_STEPS, budget=2,
-                              strategy=os.path.join(tmp, "fit_searched_strategy.json")), tmp)
+                              strategy=os.path.join(tmp, "fit_searched_strategy.json"),
+                              drift=DRIFT, drift_cfg=DRIFT_CFG, drift_steps=DRIFT_STEPS,
+                              drift_late=DRIFT_LATE, drift_slow_ms=DRIFT_SLOW_MS), tmp)
     launches = _check_rank_launches("fit_searched", ranks, FIT_SEARCHED["layers"],
                                     FIT_SEARCHED_STEPS, key="searched")
     _check_collectives("fit_searched", ranks, key="searched")
@@ -3591,6 +3646,12 @@ def phase_fit_searched(smi: str, tmp: str, device: str = "cuda:0") -> dict:
                              f"{prov['serial_ms']} ms)")
     print(f"fit_searched winner: {prov['parallel_degrees']} at {prov['estimated_ms']} ms "
           f"estimated (serial {prov['serial_ms']} ms)", flush=True)
+    audits = [r["searched"]["provenance"].get("plan_audit") or {} for r in ranks]
+    if audits[0] != audits[1] or "summary" not in audits[0] or not audits[0][
+            "movement_measured"] or audits[0]["summary"]["num_ops_measured"] != audits[0][
+            "num_ops"]:
+        raise AssertionError(f"fit_searched: plan_audit {audits[0].get('error', audits[0])}")
+    _check_drift(smi, ranks)
     emit({"phase": "fit_searched", "ranks": 2, "sharing": f"2 {SHARED}", "card": smi,
           "config": FIT_SEARCHED, "winner": prov["parallel_degrees"],
           "estimated_ms": prov["estimated_ms"], "serial_ms": prov["serial_ms"],
@@ -3600,8 +3661,42 @@ def phase_fit_searched(smi: str, tmp: str, device: str = "cuda:0") -> dict:
           "step_ms": first["step_ms"], "local_heads": first["local_heads"],
           "mfu": _mfu(first["step_flops"], first["step_ms"], 2),
           **_require_early_buckets("fit_searched", first["buckets"]),
-          "collectives_per_step": first["implied"], "launches_per_rank": first["launches"]})
+          "collectives_per_step": first["implied"], "launches_per_rank": first["launches"],
+          "plan_audit": {key: audits[0][key] for key in ("num_ops", "num_movement_edges",
+                                                         "movement_measured", "summary")}})
     return launches
+
+
+# drift: the small flagship under the forced tp2 plan in fit_searched's job,
+# per step, windows of 4, the `slow` site at every step of the last two
+DRIFT_CFG = dict(TP_PARITY)
+DRIFT = dict(drift_window_steps=4, drift_run_length=2, drift_band=0.5)
+DRIFT_STEPS = 20  # windows: 1 warm-up, 2 baseline, 2 slowed
+DRIFT_LATE = 12  # the last step before the slow site fires
+DRIFT_SLOW_MS = 600.0
+
+
+def _check_drift(smi: str, ranks) -> None:
+    """The drift runs of fit_searched's job: one `drift` event of cause
+    slowdown with the slow site, none without."""
+    r0 = ranks[0]["drift"]
+    slow, steady = r0["slow"], r0["steady"]
+    checks = {
+        "one_slowdown_event": len(slow["drift_events"]) == 1
+        and slow["drift_events"][0]["cause"] == "slowdown",
+        "none_without_slow": steady["drift_events"] == [],
+        "all_steps": all(r["drift"][n]["steps"] == DRIFT_STEPS for r in ranks
+                         for n in ("slow", "steady")),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"drift: {checks}, slow {slow}, steady {steady}")
+    emit({"phase": "drift", "ranks": 2, "sharing": f"2 {SHARED}", "card": smi,
+          "config": DRIFT_CFG, "plan": "forced dp1xtp2xsp1, analytic pricing",
+          "monitor": DRIFT, "steps": DRIFT_STEPS,
+          "slow_site": {"steps": [DRIFT_LATE + 1, DRIFT_STEPS], "slow_ms": DRIFT_SLOW_MS},
+          "estimated_ms": slow["estimated_ms"], "event": slow["drift_events"][0],
+          "slow_step_ms": slow["step_ms"], "steady_step_ms": steady["step_ms"],
+          "checks": checks})
 
 
 # parity_ranks_window: K against K = 1 over 2 ranks, a window of 4 and a tail of 1
@@ -4858,11 +4953,12 @@ CHAOS_WATCHDOG = 50.0  # a budget of max(1000 ms, 50 x the window estimate), the
 def phase_chaos(smi: str, device: str = "cuda") -> None:
     """runtime.chaos.soak_sites on the card: the Dropout MLP of
     parity_fit_window (f32) fit two epochs of 8 shuffled batches with
-    snapshots every 4 steps, in windows of 4 (captured graphs, the
-    windowed input pipeline) over ckpt_write, h2d, hang and kill, and per
-    step over ckpt_write, hang and kill (h2d lives in the windowed
-    pipeline's producer): every schedule fires and recovers to final
-    parameters and Adam moments bitwise the fault-free run's."""
+    snapshots every 4 steps, a metrics stream and the `raise` health
+    policy, in windows of 4 (captured graphs, the windowed input pipeline)
+    over ckpt_write, h2d, nonfinite, hang and kill, and per step over all
+    but h2d (which lives in the windowed pipeline's producer): every
+    schedule fires and recovers to final parameters and Adam moments
+    bitwise the fault-free run's."""
     import numpy as np
     from flexflow_tpu_torch.core import AdamOptimizer, FFConfig, FFModel
     from flexflow_tpu_torch.runtime.chaos import SOAK_SITES, soak_sites
@@ -4873,9 +4969,10 @@ def phase_chaos(smi: str, device: str = "cuda") -> None:
     x, y = rs.randn(n, 32).astype(np.float32), rs.randint(0, 10, n)
 
     def builder(k):
-        def build(checkpoint_dir, watchdog=False):
+        def build(metrics_dir, checkpoint_dir, watchdog=False):
             m = FFModel(FFConfig(batch_size=CHAOS_BATCH, seed=0, steps_per_dispatch=k,
-                                 print_freq=0, checkpoint_dir=checkpoint_dir,
+                                 print_freq=0, metrics_dir=metrics_dir, health_policy="raise",
+                                 checkpoint_dir=checkpoint_dir,
                                  checkpoint_every_n_steps=CHAOS_EVERY,
                                  watchdog_factor=CHAOS_WATCHDOG if watchdog else 0.0),
                         device=device)
@@ -4980,6 +5077,367 @@ def phase_resume_ranks(smi: str, tmp: str, device: str = "cuda:0", cfg: dict = R
     return counts
 
 
+# --- observability (A9): the step-health stream, its policies, spans, the
+# roofline, the plan audit; the drift monitor rides the fit_searched job
+
+def _flagship_window_model(cfg: dict, k: int, device: str = "cuda", **config):
+    """The flagship through FFModel at steps_per_dispatch=k, bf16,
+    Adam(1e-4), fit_window's model."""
+    import torch
+    from flexflow_tpu_torch.core import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.models import build_flagship_cg
+
+    m = FFModel.from_computation_graph(
+        *build_flagship_cg(**cfg), device=device,
+        config=FFConfig(batch_size=cfg["batch"], seed=0, print_freq=0, steps_per_dispatch=k,
+                        **config))
+    m.compile(AdamOptimizer(alpha=1e-4), "sparse_categorical_crossentropy", metrics=FIT_METRICS,
+              compute_dtype=torch.bfloat16 if device == "cuda" else None)
+    return m
+
+
+def _span_tree(trace_dir: str) -> dict:
+    """The span names of a fit's flexflow_trace.json, their counts, the
+    parent of each dispatch/device_sync (by nesting on one thread) and the
+    step spans' fused_steps."""
+    with open(os.path.join(trace_dir, "flexflow_trace.json")) as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    counts = {}
+    for e in spans:
+        counts[e["name"]] = counts.get(e["name"], 0) + 1
+    nested = 0
+    for e in spans:
+        if e["name"] in ("dispatch", "device_sync"):
+            nested += any(p["name"] == "step" and p["tid"] == e["tid"] and p["ts"] <= e["ts"]
+                          and e["ts"] + e["dur"] <= p["ts"] + p["dur"] for p in spans)
+    return {"counts": counts, "phases_in_step": nested,
+            "fused_steps": sorted({e["args"].get("fused_steps") for e in spans
+                                   if e["name"] == "step"}, key=str)}
+
+
+def phase_fit_health(smi: str, k: int = FIT_WINDOW_K, windows: int = FIT_WINDOW_WINDOWS,
+                     cfg=None, device: str = "cuda"):
+    """fit_window's flagship at steps_per_dispatch=k with the run-health
+    stream (metrics_dir) and the skip_step guard on, against the same
+    model without them: each captures its window in a warm-up fit, then
+    the two fit the same `windows` windows from compile's state in turns
+    (plain, telemetry, plain, telemetry). Checks: the telemetry fit's
+    losses and parameters bitwise the plain fit's (no step trips, so the
+    guard commits every update); k * windows step events with
+    STEP_EVENT_FIELDS whose losses are the windows' loss vectors; one
+    stats readback a window; a profiled telemetry fit launching rows 1-3
+    12 times a step each and no other flash kernel; a fit with
+    profile_trace_dir writing flexflow_trace.json (step > dispatch /
+    device_sync, host_to_device, fused_steps=k) and torch_trace.json.
+    Numbers: step ms of each fit, the telemetry's overhead, and the memory
+    its capture added."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.observability import metrics as M
+    from flexflow_tpu_torch.models import FLAGSHIP
+
+    cfg = cfg or FLAGSHIP
+    b, steps = cfg["batch"], k * windows
+    start = time.perf_counter()
+    work = tempfile.mkdtemp()
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((steps * b, cfg["seq"], cfg["embed"]), dtype=np.float32)
+    y = rng.integers(0, cfg["vocab"], (steps * b, cfg["seq"]), dtype=np.int32)
+    models, captured, init = {}, {}, None
+    for name, extra in (("plain", {}), ("telemetry", dict(metrics_dir=os.path.join(
+            work, "warmup"), health_policy="skip_step"))):
+        m = models[name] = _flagship_window_model(cfg, k, device, **extra)
+        if init is None:
+            init = {key: p.detach().clone() for key, p in m.params.items()}
+        elif any(not torch.equal(m.params[key], v) for key, v in init.items()):
+            raise AssertionError("fit_health: the two compiles drew different parameters")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_reserved()
+        m.fit(x[:k * b], y[:k * b], epochs=1, shuffle=False, verbose=False)
+        torch.cuda.synchronize()
+        captured[name] = {"reserved_bytes": torch.cuda.memory_reserved() - before,
+                          "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+    readbacks = []
+    host = M.stats_to_host
+
+    def counted(stats):
+        readbacks.append(1)
+        return host(stats)
+
+    runs = {name: [] for name in models}
+    for turn in range(2):
+        for name, m in models.items():
+            _reset_state(m, init)
+            if name == "telemetry":
+                m.config.metrics_dir = os.path.join(work, f"turn{turn}")
+            losses = _record_window_losses(m)
+            readbacks.clear()
+            M.stats_to_host = counted
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m.fit(x, y, epochs=1, shuffle=False, verbose=False)
+                torch.cuda.synchronize()
+                elapsed = time.perf_counter() - t0
+            finally:
+                M.stats_to_host = host
+                del m.instance.multi_train_step
+            runs[name].append(dict(step_ms=elapsed * 1e3 / steps, readbacks=len(readbacks),
+                                   losses=torch.cat(losses),
+                                   params={key: p.clone() for key, p in m.params.items()}
+                                   if turn == 0 else None))
+    plain, tele = runs["plain"][0], runs["telemetry"][0]
+    differ = [key for key, p in plain["params"].items() if not torch.equal(p, tele["params"][key])]
+    if differ or not torch.equal(plain["losses"], tele["losses"]):
+        raise AssertionError(f"fit_health: the telemetry fit is not the plain fit bitwise: "
+                             f"parameters {differ[:4]}, losses {plain['losses'].tolist()} vs "
+                             f"{tele['losses'].tolist()}")
+    events = M.read_events(os.path.join(work, "turn0"))
+    want_losses = [float(v) for v in tele["losses"].float().cpu()]
+    bad = [e for e in events if tuple(e) != M.STEP_EVENT_FIELDS or e["skipped"] or e["nonfinite"]
+           or not math.isfinite(e["grad_norm"])]
+    if len(events) != steps or bad or [e["loss"] for e in events] != want_losses:
+        raise AssertionError(f"fit_health: {len(events)} events (expected {steps}), bad {bad[:2]}, "
+                             f"losses {[e['loss'] for e in events]} vs {want_losses}")
+    if any(r["readbacks"] != windows for r in runs["telemetry"]) or any(
+            r["readbacks"] for r in runs["plain"]):
+        raise AssertionError(f"fit_health: stats readbacks "
+                             f"{[r['readbacks'] for r in runs['telemetry']]}, expected {windows} "
+                             "a telemetry fit and none a plain one")
+    tm = models["telemetry"]
+    _reset_state(models["plain"], init)
+    plain_trace = _profiled_fit(models["plain"], x, y)
+    _reset_state(tm, init)
+    tm.config.metrics_dir = os.path.join(work, "profiled")
+    trace = _profiled_fit(tm, x, y)
+    want = {name: cfg["layers"] * steps for name in FIT_WINDOW_KERNELS}
+    if trace["flash"] != want:
+        raise AssertionError(f"fit_health: the trace counts {trace['flash']} flash and ring "
+                             f"launches, expected {want}")
+    _reset_state(tm, init)
+    tm.config.metrics_dir = os.path.join(work, "traced")
+    tm.config.profile_trace_dir = os.path.join(work, "trace")
+    tm.fit(x, y, epochs=1, shuffle=False, verbose=False)
+    tm.config.profile_trace_dir = ""
+    tree = _span_tree(os.path.join(work, "trace"))
+    c = tree["counts"]
+    if not (c.get("step") == c.get("dispatch") == c.get("device_sync") == c.get(
+            "host_to_device") == windows and tree["phases_in_step"] == 2 * windows
+            and tree["fused_steps"] == [k]
+            and os.path.exists(os.path.join(work, "trace", "torch_trace.json"))):
+        raise AssertionError(f"fit_health: span tree {tree}")
+    plain_ms = [r["step_ms"] for r in runs["plain"]]
+    tele_ms = [r["step_ms"] for r in runs["telemetry"]]
+    overhead = float(np.median(tele_ms) - np.median(plain_ms))
+    params_bytes = sum(p.numel() * p.element_size() for p in tm.params.values())
+    emit({"phase": "fit_health", "card": smi, "config": cfg, "compute_dtype": "bf16",
+          "steps_per_dispatch": k, "windows": windows, "health_policy": "skip_step",
+          "bitwise_equal_to_plain": True, "events": len(events),
+          "stats_readbacks_per_fit": [r["readbacks"] for r in runs["telemetry"]],
+          "plain_step_ms": plain_ms, "telemetry_step_ms": tele_ms,
+          "turns": "plain, telemetry, plain, telemetry; each fit from compile's state",
+          "overhead_ms_per_step": overhead,
+          "overhead_share": overhead / float(np.median(plain_ms)),
+          "capture_memory": captured,
+          "memory_added_bytes": {key: captured["telemetry"][key] - captured["plain"][key]
+                                 for key in captured["plain"]},
+          "profiled_fit": {name: {"host_ms_per_window": t["host_ms"] / windows,
+                                  "kernel_ms_per_window": t["kernel_ms"] / windows,
+                                  "idle_share": 1.0 - t["kernel_ms"] / t["host_ms"],
+                                  "top_kernels": t["top_kernels"]}
+                           for name, t in (("plain", plain_trace), ("telemetry", trace))},
+          "kernels_added_per_window": sorted(
+              ({"name": key, "calls": (n - plain_trace["by_kernel"].get(key, (0, 0.0))[0])
+                / windows, "ms": (ms - plain_trace["by_kernel"].get(key, (0, 0.0))[1]) / windows}
+               for key, (n, ms) in trace["by_kernel"].items()), key=lambda d: -d["ms"])[:12],
+          "param_bytes": params_bytes,
+          "launches_per_window": {n: v // windows for n, v in trace["flash"].items()},
+          "launches_per_step_each": cfg["layers"], "span_tree": tree,
+          "event_sample": events[-1], "seconds": time.perf_counter() - start})
+    for m in models.values():
+        m.invalidate_graphs()
+    del models, tm, init, runs
+    torch.cuda.empty_cache()
+    return {wrapper: trace["flash"][name] for name, wrapper in FIT_WINDOW_KERNELS.items()}
+
+
+def _poison_seed(site: str, step: int, steps: int, rate: float) -> int:
+    """A seed whose schedule fires `site` at `step` alone within 1..steps."""
+    from flexflow_tpu_torch.runtime.fault import FaultSchedule
+
+    return next(s for s in range(100_000)
+                if FaultSchedule(seed=s, sites=frozenset({site}), rate=rate).fire_steps(
+                    site, 1, steps) == [step])
+
+
+def phase_health_poison(smi: str, device: str = "cuda") -> None:
+    """parity_fit_window's Dropout MLP (f32) for one epoch of 8 batches with
+    the `nonfinite` fault site at step 5 (the batch poisoned on the host
+    before its copy: the input pipeline's producer at K=4, the per-step
+    loop at K=1): skip_step at K=4 bitwise the K=1 run (events, parameters,
+    Adam's step count 7), naming fc1; raise stopping at step 5 with
+    NonFiniteError naming fc1, the parameters the pre-trip ones (K=4
+    bitwise K=1); warn applying the poisoned update and saying so."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.observability.health import NonFiniteError
+    from flexflow_tpu_torch.observability.metrics import read_events
+    from flexflow_tpu_torch.runtime.fault import FaultSchedule, install_schedule
+
+    start = time.perf_counter()
+    seed = _poison_seed("nonfinite", 5, 8, 0.2)
+    rs = np.random.RandomState(0)
+    x, y = rs.randn(128, 32).astype(np.float32), rs.randint(0, 10, 128)
+    work = tempfile.mkdtemp()
+
+    def run(k, policy):
+        mdir = os.path.join(work, f"{policy}_k{k}")
+        m = _fused_mlp(k, device=device, metrics_dir=mdir, health_policy=policy)
+        install_schedule(FaultSchedule(seed=seed, sites=frozenset({"nonfinite"}), rate=0.2))
+        out, err = io.StringIO(), None
+        try:
+            with contextlib.redirect_stdout(out):
+                m.fit(x, y, epochs=1, shuffle=False, verbose=False)
+        except NonFiniteError as e:
+            err = e
+        finally:
+            install_schedule(None)
+        events = [(e["step"], e["loss"], e["grad_norm"], e["skipped"], e["nonfinite"])
+                  for e in read_events(mdir)]
+        return dict(m=m, err=err, out=out.getvalue(), events=events,
+                    finite=all(bool(torch.isfinite(p).all()) for p in m.params.values()))
+
+    r = {(p, k): run(k, p) for p in ("skip_step", "raise") for k in (1, 4)}
+    r[("warn", 4)] = run(4, "warn")
+    s1, s4 = r[("skip_step", 1)], r[("skip_step", 4)]
+    checks = {
+        "skip_step_k4_bitwise_k1": all(torch.equal(s1["m"].params[key], s4["m"].params[key])
+                                       for key in s1["m"].params) and s1["events"] == s4["events"],
+        "skip_step_flags": [e[0] for e in s4["events"] if e[3] and e[4]] == [5],
+        "skip_step_adam_step": int(s4["m"].opt_state["step"]) == int(
+            s1["m"].opt_state["step"]) == 7,
+        "skip_step_blames_fc1": s4["m"].health_monitor.summary()["first_bad_op"] == "fc1",
+        "skip_step_finite": s4["finite"],
+    }
+    for k in (1, 4):
+        e = r[("raise", k)]
+        checks[f"raise_k{k}"] = (e["err"] is not None and e["err"].report is not None
+                                 and e["err"].report.op_name == "fc1"
+                                 and e["m"]._step_count == 5 and e["finite"])
+    checks["raise_k4_pre_trip_bitwise_k1"] = all(
+        torch.equal(r[("raise", 1)]["m"].params[key], r[("raise", 4)]["m"].params[key])
+        for key in r[("raise", 1)]["m"].params)
+    w = r[("warn", 4)]
+    checks["warn_applies_and_says_so"] = (not w["finite"] and "WARN" in w["out"]
+                                          and w["m"].health_monitor.skipped_steps == 0
+                                          and w["m"].health_monitor.nonfinite_steps >= 1)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"health_poison: failed checks {failed}")
+    emit({"phase": "health_poison", "card": smi, "model": "32-32 relu dropout(0.1)-10, "
+          "batch 16, f32", "site": "nonfinite at step 5", "seed": seed, "checks": checks,
+          "raise": str(r[("raise", 4)]["err"])[:200],
+          "skip_step_events": s4["events"], "seconds": time.perf_counter() - start})
+
+
+def phase_roofline(smi: str, cfg=None, step_ms=None, device: str = "cuda") -> None:
+    """The flagship's train step attributed op by op: each compute op's
+    forward and backward timed on the card by the stepped backing
+    (measure_per_op_ms, bf16; its second run is kept), scaled to train's
+    median step (attribute_costs), and classified against the H100's
+    datasheet peaks (roofline_report): the time by bound and the
+    whole-step MFU of the analytic counts beside train's MFU."""
+    import torch
+    from flexflow_tpu_torch.models import FLAGSHIP, build_flagship_cg, model_step_flops
+    from flexflow_tpu_torch.observability import (
+        analytic_op_costs,
+        attribute_costs,
+        measure_per_op_ms,
+        roofline_report,
+    )
+    from flexflow_tpu_torch.observability.roofline import machine_constants
+
+    cfg = cfg or FLAGSHIP
+    step_ms = step_ms if step_ms is not None else MEDIAN_STEP_MS["train"]
+    start = time.perf_counter()
+    cg, logit = build_flagship_cg(**cfg)
+    cg = getattr(cg, "graph", cg)
+    x = torch.randn(cfg["batch"], cfg["seq"], cfg["embed"], device=device,
+                    generator=torch.Generator(device=device).manual_seed(0))
+    dtype = torch.bfloat16 if device == "cuda" else None
+    for _ in range(2):  # the first run loads the kernels
+        per_op = measure_per_op_ms(cg, {"x": x}, logit, compute_dtype=dtype, device=device)
+    att = attribute_costs(cg, step_ms, per_op_ms=per_op)
+    consts = machine_constants()
+    block = roofline_report(att, consts["peak_flops"], consts["hbm_gbps"], top_n=8)
+    train_mfu = model_step_flops(**cfg) / (step_ms / 1e3) / PEAK_BF16
+    n_ops = len(analytic_op_costs(cg))
+    if len(per_op) != n_ops or not all(math.isfinite(v) and v > 0 for v in per_op.values()) \
+            or not math.isfinite(block["mfu"]):
+        raise AssertionError(f"roofline: {len(per_op)} ops timed of {n_ops}, mfu {block['mfu']}")
+    print(f"roofline: {block['bound_ms']} ms by bound, MFU {block['mfu']} "
+          f"(train's {train_mfu:.4f})", flush=True)
+    emit({"phase": "roofline", "card": smi, "config": cfg, "compute_dtype": "bf16",
+          "constants": consts, "train_step_ms": step_ms, "train_mfu": train_mfu,
+          "per_op_ms_sum": att.raw_total_ms, "ops_timed": len(per_op), "roofline": block,
+          "seconds": time.perf_counter() - start})
+
+
+SEARCH_RUN = {}  # phase_search's run (the winner, its leaves), read by plan_audit
+
+
+def phase_plan_audit(smi: str, device: str = "cuda") -> None:
+    """audit_plan on phase_search's 8-H100 winner and on the unrewritten
+    flagship's 1-device plan (the plan whose estimate is search's
+    one_device_estimate_ms), each priced with the analytic roofline at the
+    card's calibrated rates and with the timed leaves: every op measured
+    on the card, movement None on a mesh of one. Prints each audit's
+    geomean ratio per op class and its worst five ops: where the 1-device
+    estimates part from train's measured step."""
+    from flexflow_tpu_torch.compiler import AnalyticGPUCostEstimator, GPUCostEstimator
+    from flexflow_tpu_torch.compiler.calibration import H100_NVLINK_GBPS, NDR_INFINIBAND_GBPS
+    from flexflow_tpu_torch.models import FLAGSHIP, build_flagship_pcg
+    from flexflow_tpu_torch.observability.plan_audit import audit_by_class, audit_plan
+    from flexflow_tpu_torch.pcg.machine_view import MachineSpecification
+
+    start = time.perf_counter()
+    run = SEARCH_RUN
+    cal, local = run["cal"], run["local"]
+    one = MachineSpecification(1, 1, 1, NDR_INFINIBAND_GBPS, H100_NVLINK_GBPS)
+    plans = {"winner_8_h100": (run["result"].pcg, run["result"].machine_mapping, run["spec"]),
+             "one_device": (build_flagship_pcg(**FLAGSHIP), run["one_device"].machine_mapping,
+                            one)}
+    out = {}
+    for label, (pcg, mapping, spec) in plans.items():
+        for est_name, est in (("analytic", AnalyticGPUCostEstimator(spec, cal.peak_flops,
+                                                                   cal.hbm_gbps)),
+                              ("timed", GPUCostEstimator(spec, local_cost_estimator=local))):
+            audit = audit_plan(pcg, mapping, est, device=device)
+            s = audit["summary"]
+            if (s["num_ops_measured"] != audit["num_ops"] or audit["movement_measured"]
+                    or any(e["measured_ms"] is not None for e in audit["movement_edges"])):
+                raise AssertionError(f"plan_audit {label}/{est_name}: {s}")
+            by_class = audit_by_class(audit)
+            predicted = sum(o["predicted_ms"] or 0.0 for o in audit["ops"])
+            measured = sum(o["measured_ms"] or 0.0 for o in audit["ops"])
+            out[f"{label}/{est_name}"] = {
+                "op_geomean_ratio": s["op_geomean_ratio"], "by_class": by_class,
+                "worst_ops": s["worst_ops"], "ops": audit["num_ops"],
+                "movement_edges": audit["num_movement_edges"],
+                "predicted_ops_ms": predicted, "measured_ops_ms": measured}
+            print(f"plan_audit {label}/{est_name}: geomean {s['op_geomean_ratio']}, by class "
+                  f"{ {c: v['geomean_ratio'] for c, v in by_class.items()} }, worst "
+                  f"{s['worst_ops']}", flush=True)
+    emit({"phase": "plan_audit", "card": smi, "config": FLAGSHIP,
+          "calibration": cal.as_dict(), "audits": out,
+          "ratio_is": "measured / predicted, each op's piece fwd+bwd timed on the card",
+          "seconds": time.perf_counter() - start})
+
+
 def main() -> None:
     require_card_and_repo()
     import torch
@@ -5050,6 +5508,13 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         launches["resume_ranks"] = (phase_resume_ranks(smi, tmp),
                                     2 * RESUME_RANKS_BATCHES * RESUME_RANKS_EPOCHS)
+    # observability: the step-health stream in the captured windows, the
+    # policies, the roofline and the plan audit (the drift monitor and a
+    # searched compile's audit ride fit_searched's job)
+    launches["fit_health"] = (phase_fit_health(smi), FIT_WINDOW_K * FIT_WINDOW_WINDOWS)
+    phase_health_poison(smi)
+    phase_roofline(smi)
+    phase_plan_audit(smi)
     for entry in kernels:
         by_phase = {p: (n[entry["name"]], steps) for p, (n, steps) in launches.items()
                     if entry["name"] in n}

@@ -21,6 +21,8 @@ serving.ServingEngine: a KV cache, prefill, decode windows, continuous
 batching under watchdog supervision); and the user API on one device
 (core.FFModel: build, compile, fit, eval and the stepped
 forward/backward/update, with FFConfig, the optimizers, initializers and
-data loaders). Entry points run on CUDA unless the caller passes
-device="cpu".
+data loaders), with its observability (observability/: the step-health
+stream and its policies, spans, cost attribution and the roofline, the
+plan audit, the drift monitor). Entry points run on CUDA unless the caller
+passes device="cpu".
 """

@@ -196,6 +196,30 @@ _PRODUCER_DONE = object()
 _LABEL = object()  # the label's key among a window's tensors
 
 
+class HostWindow:
+    """One window's host batches, gathered again from the dataset on
+    demand: `batch(i)` is step i's (inputs by name, label or None), numpy,
+    the `nonfinite` fault site's poison applied where it fired."""
+
+    def __init__(self, windows: "WindowedBatchIterator", rows: List[np.ndarray],
+                 poisoned: List[int]) -> None:
+        self._sources, self._blocks = windows._sources, windows._rows
+        self.rows, self.poisoned = rows, set(poisoned)
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def batch(self, i: int):
+        out = {}
+        for name, src in self._sources.items():
+            r, block = self.rows[i], self._blocks[name]
+            a = np.take(src, r if block is None else r[block[0]:block[1]], axis=0, mode="clip")
+            if i in self.poisoned and name is not _LABEL and np.issubdtype(a.dtype, np.floating):
+                a.reshape(-1)[0] = np.nan
+            out[name] = a
+        return out, out.pop(_LABEL, None)
+
+
 class WindowedBatchIterator:
     """Windows of `window` consecutive batches of a BatchIterator, stacked
     [k, ...] per tensor: the fused step window's input pipeline.
@@ -216,25 +240,33 @@ class WindowedBatchIterator:
 
     Over several ranks the windows hold only the rank's rows of each batch
     (the BatchIterator's blocks: the JAX package's `window_sharding`,
-    leading window dim whole, batch dim sharded). Its `keep_host` stacks
-    feed the health monitor (A9), which is not ported.
+    leading window dim whole, batch dim sharded). With `keep_host`,
+    `host_window` is the window last yielded as a `HostWindow`, which
+    gathers one step's host batch again on demand (the health localizer's
+    replay input, wanted only when a step trips): a copy of every window
+    would cost the producer a pass over its bytes. The producer
+    records a `host_to_device` span (observability/trace.py) around each
+    window's gather and copy, on its own thread's timeline row.
 
     Supervision: a producer that dies posts its exception to
     `fault_channel` (site `h2d_producer`), and the consumer raises it from
     there as a BackgroundFault. `step_base` is the global step of the first
     batch the next epoch yields (the fit loop sets it before each epoch):
-    the fault schedule's `h2d` site keys on global steps, so one spec fires
-    at the same data in a fresh and in a resumed run.
+    the fault schedule's `h2d` and `nonfinite` sites key on global steps,
+    so one spec fires at the same data in a fresh and in a resumed run
+    (`nonfinite` poisons the firing step's host inputs before the copy).
 
     Yields (inputs_stack, label_stack or None, k)."""
 
     def __init__(self, it: BatchIterator, window: int, prefetch: bool = True,
-                 fault_channel=None, step_base: int = 0) -> None:
+                 fault_channel=None, step_base: int = 0, keep_host: bool = False) -> None:
         if window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
         self.it = it
         self.window = int(window)
         self.prefetch = prefetch
+        self.keep_host = keep_host
+        self.host_window: Optional[HostWindow] = None
         self.fault_channel = fault_channel
         self.step_base = int(step_base)
         self.device = it.device
@@ -274,13 +306,15 @@ class WindowedBatchIterator:
 
     def _windows(self):
         """(stacks by name, the event the copy to the device recorded or
-        None, k) per window of one epoch."""
-        from flexflow_tpu_torch.runtime.fault import InjectedFault, active_schedule
+        None, k, the host copy or None) per window of one epoch."""
+        from flexflow_tpu_torch.observability.trace import record_span
+        from flexflow_tpu_torch.runtime.fault import (
+            InjectedFault,
+            active_schedule,
+            poison_nonfinite,
+        )
 
         schedule = active_schedule()
-        if schedule is not None and "nonfinite" in schedule.sites:
-            raise NotImplementedError("fault site 'nonfinite': its reaction, the run-health "
-                                      "policy, is not ported yet (A9)")
         rows_iter = self.it.iter_rows()
         slot = 0
         built = 0
@@ -289,43 +323,54 @@ class WindowedBatchIterator:
             if not rows:
                 return
             k = len(rows)
+            first = self.step_base + built + 1
             if schedule is not None:
                 # the producer dies while building this window
-                for step in range(self.step_base + built + 1, self.step_base + built + k + 1):
+                for step in range(first, first + k):
                     if schedule.fire_once("h2d", step):
                         raise InjectedFault("h2d", step)
             built += k
-            host = self._host_window(slot, k)
-            for name, src in self._sources.items():
-                out = host[name].numpy()
-                block = self._rows[name]
-                for j, r in enumerate(rows):
-                    if block is not None:
-                        r = r[block[0]:block[1]]
-                    np.take(src, r, axis=0, out=out[j], mode="clip")
-            if self.device.type != "cuda":
-                yield host, None, k
-                continue
-            if self._stream is None:
-                self._stream = torch.cuda.Stream(self.device)
-            with torch.cuda.stream(self._stream):
-                stacks = {name: t.to(self.device, non_blocking=True) for name, t in host.items()}
-                event = torch.cuda.Event()
-                event.record(self._stream)
-            self._copied[slot] = event
-            slot ^= 1
-            yield stacks, event, k
+            with record_span("host_to_device", steps=k):
+                host = self._host_window(slot, k)
+                for name, src in self._sources.items():
+                    out = host[name].numpy()
+                    block = self._rows[name]
+                    for j, r in enumerate(rows):
+                        if block is not None:
+                            r = r[block[0]:block[1]]
+                        np.take(src, r, axis=0, out=out[j], mode="clip")
+                poisoned = []
+                if schedule is not None:
+                    inputs = [host[name].numpy() for name in self._sources if name is not _LABEL]
+                    poisoned = [j for j in range(k)
+                                if poison_nonfinite(schedule, first + j, [a[j] for a in inputs])]
+                kept = HostWindow(self, rows, poisoned) if self.keep_host else None
+                if self.device.type != "cuda":
+                    stacks, event = host, None
+                else:
+                    if self._stream is None:
+                        self._stream = torch.cuda.Stream(self.device)
+                    with torch.cuda.stream(self._stream):
+                        stacks = {name: t.to(self.device, non_blocking=True)
+                                  for name, t in host.items()}
+                        event = torch.cuda.Event()
+                        event.record(self._stream)
+                    self._copied[slot] = event
+                    slot ^= 1
+            yield stacks, event, k, kept
 
     def _ready(self, item):
         """The consumer's side of a window: its stream waits for the copy,
         and the copy's memory is kept until that stream is done with it."""
-        stacks, event, k = item
+        stacks, event, k, kept = item
         if event is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(event)
             for t in stacks.values():
                 t.record_stream(stream)
         label = stacks.pop(_LABEL, None)
+        if kept is not None:
+            self.host_window = kept
         return stacks, label, k
 
     def _producer(self) -> None:

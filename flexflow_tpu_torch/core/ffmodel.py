@@ -34,6 +34,21 @@ rank 0). A calibrated or measured search first calibrates the ranks
 own rows of every batch, and `steps_per_dispatch` runs its windows on
 either trainer.
 
+Observability (observability/): FFConfig.metrics_dir
+appends one event a step to `<metrics_dir>/events.jsonl` (loss, wall-clock,
+tokens/s and the step statistics: gradient and parameter global norms and
+the update ratio, computed on the card inside the step, a fused window's
+stacks read back once a window); FFConfig.health_policy (warn, skip_step,
+raise) reacts to a non-finite step, the update guarded on the card under
+skip_step and raise, the first bad op named by an op-by-op replay;
+FFConfig.profile_trace_dir writes the fit's span trace
+(`flexflow_trace.json`) beside a torch.profiler device trace;
+FFConfig.plan_audit audits a searched plan at compile
+(search_provenance["plan_audit"]); FFConfig.drift_monitor tails the event
+stream for plan-fidelity drift. Over several ranks rank 0 writes the
+stream and runs the drift monitor; every rank applies the health policy
+(the norms are global, so every rank sees the same flag).
+
 Checkpoints (runtime/checkpoint.py): `save_checkpoint` / `load_checkpoint`
 write and read the JAX package's npz layout, so either package restores
 the other's; `fit(checkpoint_dir=..., checkpoint_every_n_steps=...)` takes
@@ -53,8 +68,7 @@ matmuls (A6 part 2), a searched compile's memory budget (FFConfig.hbm_gb:
 the capacity detection, compile-time verification and provenance around
 the budgeted search, A6 part 2 / A13; the budgeted search itself,
 compiler.evaluate_pcg under a memory_budget_bytes, is ported), recompiles
-(A8 part 2), telemetry, traces, plan audits and the `nonfinite` and `slow`
-fault sites (A9), pipelines and sub-mesh branches (A10).
+(A8 part 2), pipelines and sub-mesh branches (A10).
 """
 from __future__ import annotations
 
@@ -543,19 +557,31 @@ class FFModel:
                 "auxiliary loss tensors over several devices come with the MoE slice (A11)")
         self.invalidate_graphs()
         self.search_provenance = None
+        collect, guard = self._step_stats_flags()
         if ndev > 1 and cfg.search_budget > 0 and not cfg.only_data_parallel:
             self.instance = self._compile_searched(logit, ndev, compute_dtype)
         elif ndev > 1:
             self.instance = DataParallelTrainingInstance(
                 self.cg, logit, self.loss_attrs, self.optimizer_attrs,
                 compute_dtype=compute_dtype, device=self.device, metrics=self.metrics,
+                collect_step_stats=collect, guard_nonfinite_updates=guard,
             )
         else:
             self.instance = ModelTrainingInstance(
                 self.cg, logit, self.loss_attrs, self.optimizer_attrs,
                 compute_dtype=compute_dtype, device=self.device, metrics=self.metrics,
                 aux_loss_tensors=self._aux_loss_tensors,
+                collect_step_stats=collect, guard_nonfinite_updates=guard,
             )
+        # fused windows under `raise` freeze after the first tripped step, so
+        # the post-window state is the pre-trip state the per-step loop
+        # would have stopped with (fused_multi_step)
+        self.instance.halt_on_nonfinite = cfg.health_policy == "raise"
+        if cfg.plan_audit and not (isinstance(self.search_provenance, dict)
+                                   and "plan_audit" in self.search_provenance):
+            # the audit replays a SEARCHED plan: say so where none ran
+            print("[flexflow_tpu_torch] plan_audit: this compile ran no Unity search (backend: "
+                  f"{type(self.instance).__name__}) — no plan audit recorded")
         self.params, self.opt_state = self.instance.initialize(seed=cfg.seed)
         self._step_count = 0
         self._backing = None
@@ -677,6 +703,8 @@ class FFModel:
             calibration = get_calibration(self.device, ndev)
             emulated = ranks_share_a_device(self.device)
 
+        priced = {}  # the estimator the search priced with (rank 0), for the audit
+
         def search():
             if cfg.import_strategy_file:
                 self.search_provenance = {"search_algorithm": "imported_strategy"}
@@ -695,6 +723,7 @@ class FFModel:
                                                      inter_latency_ms=inter_lat_ms,
                                                      emulated_mesh=emulated,
                                                      calibration=calibration)
+            priced["estimator"] = estimator
             ctx = MachineMappingContext(
                 estimator, make_default_allowed_machine_views(),
                 # the measured compute/collective overlap where a calibration
@@ -738,16 +767,55 @@ class FFModel:
         if cfg.export_strategy_file and dist.get_rank() == 0:
             save_strategy(cfg.export_strategy_file, pcg, mapping, runtime)
         mesh = MachineMesh.from_spec(exec_spec)
+        collect, guard = self._step_stats_flags()
         inst = DistributedTrainingInstance(
             pcg, self._find_searched_logit(pcg, logit), self.loss_attrs, self.optimizer_attrs,
             mesh, mapping=mapping, compute_dtype=compute_dtype, device=self.device,
-            metrics=self.metrics, overlap=cfg.overlap)
+            metrics=self.metrics, overlap=cfg.overlap, collect_step_stats=collect,
+            guard_nonfinite_updates=guard)
+        if cfg.plan_audit:
+            self._record_plan_audit(inst, mapping, priced.get("estimator"))
         whole = inst.plan.whole_nodes
         if dist.get_rank() == 0:
             # ops no rule places run on whole values: a state of the plan
             print(f"[flexflow_tpu_torch] the plan runs {len(whole)} node(s) on whole values"
                   + "".join(f"\n  {why}" for why in whole.values()), flush=True)
         return inst
+
+    def _record_plan_audit(self, inst, mapping, estimator) -> None:
+        """search_provenance["plan_audit"]: the searched plan replayed
+        against the estimator the search priced with
+        (observability/plan_audit.py). Every rank takes part (the movement
+        edges are timed as collectives over the mesh); rank 0's audit,
+        the one with the estimator, is recorded on every rank. An imported
+        plan has no estimator and records why; a failed audit records its
+        error, and the compile goes on."""
+        from flexflow_tpu_torch.observability.plan_audit import audit_plan
+        from flexflow_tpu_torch.pcg.optimizer import AdamOptimizerAttrs
+        from flexflow_tpu_torch.runtime.distributed import broadcast_json
+
+        cfg = self.config
+        if cfg.import_strategy_file:
+            audit = {"skipped": "import_strategy_file: the imported plan carries no cost "
+                                "estimator to audit against"}
+        else:
+            attrs = self.optimizer_attrs
+            slots = (2 if isinstance(attrs, AdamOptimizerAttrs)
+                     else 1 if getattr(attrs, "momentum", 0.0) > 0 else 0)
+            rank0 = dist.get_rank() == 0
+            try:
+                audit = audit_plan(
+                    inst.pcg, mapping or {}, estimator if rank0 else None,
+                    machine_mesh=inst.machine_mesh, shardings=inst.shardings,
+                    optimizer_state_slots=slots,
+                    fused_edges={n.idx: kind for n, kind in inst.fused_sites.items()},
+                    device=self.device)
+            except Exception as e:  # an audit failure must not kill the compile
+                audit = {"error": f"{type(e).__name__}: {e}"[:200]}
+            audit = broadcast_json(audit if rank0 else None)
+        if self.search_provenance is None:
+            self.search_provenance = {}
+        self.search_provenance["plan_audit"] = audit
 
     def _find_searched_logit(self, pcg, logit: DataflowOutput) -> DataflowOutput:
         """The model output in the searched PCG (the JAX package's): layer
@@ -807,6 +875,14 @@ class FFModel:
                 "the logit-producing layer a unique name")
         return sink
 
+    def _step_stats_flags(self) -> Tuple[bool, bool]:
+        """(collect_step_stats, guard_nonfinite_updates) the run-health
+        config implies: an event log or any active health policy needs the
+        step statistics; skip_step and raise also guard the update."""
+        cfg = self.config
+        health_on = cfg.health_policy not in ("", "off")
+        return bool(cfg.metrics_dir) or health_on, cfg.health_policy in ("skip_step", "raise")
+
     def _validate_config_flags(self) -> None:
         """Flags are refused or acknowledged loudly, never silently ignored
         (the JAX package's dead-flag rule). A flag whose machinery is not
@@ -833,18 +909,8 @@ class FFModel:
             raise ValueError(f"checkpoint_backend {cfg.checkpoint_backend!r} not in ('', 'npz')")
         if cfg.watchdog_factor < 0:
             raise ValueError(f"watchdog_factor must be >= 0, got {cfg.watchdog_factor}")
-        unported = (
-            (bool(cfg.metrics_dir), "metrics_dir (the step event stream)", "A9"),
-            (cfg.health_policy not in ("", "off"), "health_policy (the run-health monitor)",
-             "A9"),
-            (cfg.plan_audit, "plan_audit", "A9"),
-            (bool(cfg.profile_trace_dir), "profile_trace_dir (the fit trace)", "A9"),
-            (cfg.drift_monitor, "drift_monitor", "A9"),
-            (cfg.submesh_branches, "submesh_branches", "A10"),
-        )
-        for on, what, slice_name in unported:
-            if on:
-                raise NotImplementedError(f"FFConfig.{what} is not ported yet ({slice_name})")
+        if cfg.submesh_branches:
+            raise NotImplementedError("FFConfig.submesh_branches is not ported yet (A10)")
         if cfg.perform_fusion:
             print("[flexflow_tpu_torch] perform_fusion: the fusion rules extend the Unity "
                   "search, which a single-device compile does not run")
@@ -922,8 +988,42 @@ class FFModel:
         permutations, the same Dropout stream, the same losses; with no
         checkpoint on disk it cold-starts. Whatever the supervision and the
         checkpointer start is retired when fit returns or raises, a due
-        snapshot made durable first."""
+        snapshot made durable first.
+
+        FFConfig.profile_trace_dir traces the fit: the span trace
+        (observability/trace.py) as `flexflow_trace.json`, and the
+        torch.profiler trace of the host and the card as
+        `torch_trace.json`, both in that directory."""
+        import contextlib
+
         self._require_compiled()
+        tdir = self.config.profile_trace_dir
+        if not tdir:
+            return self._fit(x, y, epochs, batch_size, shuffle, verbose, recompile_state,
+                             epoch_offset, checkpoint_dir, checkpoint_every_n_steps, resume)
+        from flexflow_tpu_torch.observability.trace import trace_session
+
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        with contextlib.ExitStack() as stack:
+            # unwound in reverse: the span trace saved, the profiler
+            # stopped, then its trace exported
+            stack.callback(lambda: prof.export_chrome_trace(
+                os.path.join(tdir, f"torch_trace_rank{self._rank()}.json"
+                             if self._grouped() else "torch_trace.json")))
+            stack.callback(os.makedirs, tdir, exist_ok=True)
+            stack.enter_context(prof)
+            stack.enter_context(trace_session(
+                tdir, "flexflow_trace" if not self._grouped()
+                else f"flexflow_trace_rank{self._rank()}"))
+            return self._fit(x, y, epochs, batch_size, shuffle, verbose, recompile_state,
+                             epoch_offset, checkpoint_dir, checkpoint_every_n_steps, resume)
+
+    def _fit(self, x, y, epochs, batch_size, shuffle, verbose, recompile_state, epoch_offset,
+             checkpoint_dir, checkpoint_every_n_steps, resume) -> PerfMetrics:
+        """fit's body, under the trace session where one is asked for."""
         if recompile_state is not None:
             raise NotImplementedError(
                 "fit(recompile_state=...): recompiles are not ported yet (A8 part 2)")
@@ -935,42 +1035,203 @@ class FFModel:
             self._rng = torch.Generator(device=self.device)
         rng = self._rng.manual_seed(self.config.seed * 1_000_003 + epoch_offset)
         sup = self._setup_supervision()
-        ckpt = None
+        # everything after the supervision runs under one finally, so a
+        # failure anywhere in the setup still retires what it started
+        ckpt = event_log = drift = None
         try:
             ckpt, start_epoch, skip = self._setup_checkpointing(
                 checkpoint_dir, checkpoint_every_n_steps, resume, it, rng, epoch_offset,
                 sup.channel)
+            event_log, monitor = self._setup_run_health()
+            drift = self._setup_drift_monitor(sup)
+            self._write_provenance()
             return self._fit_epochs(epochs, batch_size, verbose, it, rng, ckpt=ckpt,
                                     start_epoch=start_epoch, skip_batches=skip,
-                                    epoch_offset=epoch_offset, sup=sup)
+                                    epoch_offset=epoch_offset, sup=sup, event_log=event_log,
+                                    monitor=monitor)
         finally:
             # the watchdog first: its deadline must not fire into the drain
             sup.close()
+            if drift is not None:
+                # stop the poller and drain the stream's tail on this thread,
+                # then pin the verdict into the provenance
+                drift.close()
+                if isinstance(self.search_provenance, dict):
+                    self.search_provenance["drift"] = drift.report()
+                    self._write_provenance()
             if ckpt is not None:
                 ckpt.finalize()
+            if event_log is not None:
+                event_log.close()
+
+    def _writes_stream(self) -> bool:
+        """Whether this process writes the metrics stream: rank 0 of a
+        compile over ranks, the only process otherwise."""
+        return bool(self.config.metrics_dir) and self._rank() == 0
+
+    def _write_provenance(self) -> None:
+        """Snapshot search_provenance beside the event stream."""
+        if self._writes_stream() and self.search_provenance:
+            from flexflow_tpu_torch.observability.metrics import write_provenance
+
+            write_provenance(self.config.metrics_dir, self.search_provenance)
 
     def _setup_supervision(self):
         """One fit call's supervision (runtime/supervisor.py): the fault
         channel the background threads report into, the window watchdog
         (only where a factor is configured: FFConfig.watchdog_factor, else
-        FF_TPU_WATCHDOG) and the active fault schedule. A schedule naming
-        `nonfinite` or `slow` raises (A9)."""
-        from flexflow_tpu_torch.runtime.fault import active_schedule, refuse_unported_fit_sites
+        FF_TPU_WATCHDOG), whose hang diagnostic lands in the metrics stream
+        as an `event: "hang"` line, and the active fault schedule."""
+        from flexflow_tpu_torch.runtime.fault import active_schedule
         from flexflow_tpu_torch.runtime.supervisor import (
             FaultChannel,
             FitSupervision,
             WindowWatchdog,
         )
 
-        schedule = active_schedule()
-        refuse_unported_fit_sites(schedule)
         factor = float(self.config.watchdog_factor or 0.0)
         if factor <= 0:
             env = os.environ.get("FF_TPU_WATCHDOG", "")
             factor = float(env) if env else 0.0
-        return FitSupervision(channel=FaultChannel(),
-                              watchdog=WindowWatchdog(factor) if factor > 0 else None,
-                              schedule=schedule)
+        watchdog = None
+        if factor > 0:
+            metrics_dir = self.config.metrics_dir if self._writes_stream() else ""
+
+            def on_hang(diag):
+                if metrics_dir:
+                    from flexflow_tpu_torch.observability.metrics import append_run_event
+
+                    append_run_event(metrics_dir, "hang", **diag.to_dict())
+
+            watchdog = WindowWatchdog(factor, on_hang=on_hang)
+        return FitSupervision(channel=FaultChannel(), watchdog=watchdog,
+                              schedule=active_schedule())
+
+    def _setup_run_health(self):
+        """The step event log (FFConfig.metrics_dir, rank 0 writes it) and
+        the health monitor (FFConfig.health_policy, on every rank) of one
+        fit call, each None unless configured, so the loop pays nothing by
+        default. The registry and the monitor persist across fit calls on
+        this model: events.jsonl appends, so the counts accumulate over the
+        same stream."""
+        cfg = self.config
+        event_log = monitor = None
+        if self._writes_stream():
+            from flexflow_tpu_torch.observability.metrics import MetricsRegistry, StepEventLog
+
+            if getattr(self, "_metrics_registry", None) is None:
+                self._metrics_registry = MetricsRegistry()
+            event_log = StepEventLog(cfg.metrics_dir, registry=self._metrics_registry)
+        if cfg.health_policy not in ("", "off"):
+            from flexflow_tpu_torch.observability.health import HealthMonitor
+
+            monitor = getattr(self, "health_monitor", None)
+            if monitor is None or monitor.policy != cfg.health_policy:
+                monitor = HealthMonitor(
+                    cfg.health_policy,
+                    localizer=None if self._grouped() else self._localize_nonfinite)
+        self.health_monitor = monitor
+        return event_log, monitor
+
+    def _setup_drift_monitor(self, sup):
+        """The streaming plan-fidelity drift monitor (observability/drift.py)
+        of one fit call, started, or None where it cannot run: it needs
+        FFConfig.drift_monitor, a metrics stream this process writes, and a
+        searched plan with a finite positive predicted step cost. Its
+        crashes surface through the fit's fault channel at the next
+        boundary; it only ever advises. The warm re-search and the
+        transition verifier are not ported (A6 part 2, A13): the advisory
+        takes the arithmetic fallback."""
+        import math
+
+        cfg = self.config
+        if not (cfg.drift_monitor and self._writes_stream()):
+            return None
+        sp = self.search_provenance
+        if not isinstance(sp, dict):
+            return None
+        try:
+            predicted = float(sp.get("estimated_ms"))
+        except (TypeError, ValueError):
+            return None
+        if not math.isfinite(predicted) or predicted <= 0:
+            return None
+        from flexflow_tpu_torch.observability.drift import DriftMonitor
+
+        return DriftMonitor(
+            cfg.metrics_dir, predicted, seed_runtimes=sp.get("seed_runtimes"),
+            band=cfg.drift_band, window_steps=cfg.drift_window_steps,
+            run_length=cfg.drift_run_length, repricer=None, transition_verifier=None,
+            channel=sup.channel if sup is not None else None,
+        ).start()
+
+    def _localize_nonfinite(self, batch, label):
+        """First-bad-op blame for the health monitor: replay the tripped
+        step op by op over the model graph with the live parameters (under
+        skip_step / raise the guard kept the pre-step values), its batch,
+        and its Dropout masks, drawn from a generator put back where the
+        step drew them (`_last_step_rng`: the generator's state before the
+        window or step, and the steps of the window before it)."""
+        from flexflow_tpu_torch.local_execution.training_backing import dropout_masks
+        from flexflow_tpu_torch.observability.health import localize_first_nonfinite
+
+        inst = self.instance
+        rng = None
+        if getattr(self, "_last_step_rng", None) is not None:
+            state, steps_before = self._last_step_rng
+            rng = torch.Generator(device=self.device)
+            rng.set_state(state)
+            for _ in range(steps_before):
+                dropout_masks(inst.cg, rng, self.device)
+        return localize_first_nonfinite(
+            inst.cg, self.params, batch, logit_tensor=inst.logit_tensor, label=label,
+            loss_attrs=self.loss_attrs, compute_dtype=inst.compute_dtype, rng=rng)
+
+    def _record_run_health(self, event_log, monitor, loss, batch, label, step_t0) -> None:
+        """The per-step event and policy (observability.health
+        record_step_health): the step's statistics and loss read back in
+        one transfer, the one host sync telemetry costs."""
+        from flexflow_tpu_torch.observability.health import record_step_health
+        from flexflow_tpu_torch.observability.metrics import stats_to_host
+
+        stats = self.instance.last_step_stats
+        host = stats_to_host({**(stats or {}), "loss": loss.reshape(())})
+        record_step_health(
+            event_log, monitor, self._step_count, host.pop("loss"), host if stats else None,
+            batch=batch, label=label, tokens=_label_tokens(label, 1, self.config.batch_size),
+            step_t0=step_t0)
+
+    def _emit_window_health(self, event_log, monitor, base_step, losses, host_win, kk, win_t0,
+                            tokens, pre_rng):
+        """Per-step events and policy for one fused window: the loss and
+        stat stacks read back in one transfer (the window's one host sync)
+        and re-emitted as kk per-step events, the window's wall-clock,
+        measured at that readback, apportioned equally over its steps.
+        Under `raise` the window froze at its first tripped step, so the
+        parameters are the pre-trip ones; the step count then stops at the
+        trip, as the per-step loop would have. Returns the host losses."""
+        from flexflow_tpu_torch.observability.health import NonFiniteError, record_step_health
+        from flexflow_tpu_torch.observability.metrics import split_window_stats, stats_to_host
+
+        stacks = self.instance.last_window_stats
+        host = stats_to_host({**(stacks or {}), "loss": losses})
+        losses_host = host.pop("loss")
+        per_step_ms = (time.perf_counter() - win_t0) * 1000.0 / kk
+        step_stats = split_window_stats(host if stacks else None, kk)
+        for i in range(kk):
+            batch_i = label_i = None
+            if host_win is not None and step_stats[i] is not None and not step_stats[i]["ok"]:
+                batch_i, label_i = host_win.batch(i)  # the localizer's replay input
+            if monitor is not None:
+                self._last_step_rng = (pre_rng, i)
+            try:
+                record_step_health(event_log, monitor, base_step + i + 1, losses_host[i],
+                                   step_stats[i], batch=batch_i, label=label_i, tokens=tokens,
+                                   wallclock_ms=per_step_ms)
+            except NonFiniteError:
+                self._step_count = base_step + i + 1
+                raise
+        return losses_host
 
     def _setup_checkpointing(self, checkpoint_dir, every, resume, it, rng, epoch_offset,
                              channel):
@@ -1031,13 +1292,17 @@ class FFModel:
 
     def _record_restore_fallback(self, report) -> None:
         """A resume that quarantined corrupt steps and fell back records it
-        in search_provenance["recovery"]["checkpoint_fallback"] (its event
-        in the metrics stream comes with A9)."""
+        in search_provenance["recovery"]["checkpoint_fallback"] and as an
+        `event: "checkpoint_fallback"` line in the metrics stream."""
         if not report or not report.get("quarantined"):
             return
         if self.search_provenance is None:
             self.search_provenance = {}
         self.search_provenance.setdefault("recovery", {})["checkpoint_fallback"] = report
+        if self._writes_stream():
+            from flexflow_tpu_torch.observability.metrics import append_run_event
+
+            append_run_event(self.config.metrics_dir, "checkpoint_fallback", **report)
 
     def _effective_steps_per_dispatch(self) -> int:
         """The fused window length this fit runs. FF_TPU_FUSED_BASELINE=1
@@ -1052,7 +1317,8 @@ class FFModel:
         return k
 
     def _fit_epochs(self, epochs, batch_size, verbose, it, rng, ckpt=None, start_epoch=0,
-                    skip_batches=0, epoch_offset=0, sup=None) -> PerfMetrics:
+                    skip_batches=0, epoch_offset=0, sup=None, event_log=None,
+                    monitor=None) -> PerfMetrics:
         """The per-step loop, or with steps_per_dispatch = K > 1 the windowed
         one: each window of K batches (the epoch's tail a smaller one)
         trains through one multi_train_step, its input gathered and copied
@@ -1060,22 +1326,29 @@ class FFModel:
         the watchdog's deadline with the `hang` site; at its boundary come
         the checkpoint hook, then the `kill` site, the fault channel and
         FF_TPU_FAULT_STEP, so a due snapshot is durable before a fault
-        propagates."""
+        propagates. With an event log or a health monitor, each step's (or
+        window's) statistics are read back once, inside the armed window,
+        after the `slow` site, and the policy applied (`_record_run_health`,
+        `_emit_window_health`)."""
         from flexflow_tpu_torch.runtime.fault import (
             inject_hang_fault,
             inject_kill_fault,
+            inject_slow_fault,
             maybe_inject_fault,
+            poison_nonfinite,
         )
 
         watchdog = sup.watchdog if sup is not None else None
         schedule = sup.schedule if sup is not None else None
+        telem = (event_log, monitor) if event_log is not None or monitor is not None else None
         start = time.perf_counter()
         num_samples = 0
         loss = None
         macc: Optional[Dict[str, object]] = None
         pf = self.config.print_freq if verbose else 0
         k = self._effective_steps_per_dispatch()
-        windows = (WindowedBatchIterator(it, k, fault_channel=sup.channel if sup else None)
+        windows = (WindowedBatchIterator(it, k, fault_channel=sup.channel if sup else None,
+                                         keep_host=monitor is not None and not self._grouped())
                    if k > 1 else None)
         try:
             for epoch in range(start_epoch, epochs):
@@ -1091,10 +1364,13 @@ class FFModel:
                         watchdog.begin_window(prev + 1, kk)
                     try:
                         if windows is not None:
-                            loss, macc = self._run_fused_window(inputs, label, kk, rng, macc, pf,
-                                                                epoch)
+                            loss, macc = self._run_fused_window(
+                                inputs, label, kk, rng, macc, pf, epoch, telem, schedule,
+                                windows.host_window)
                         else:
-                            loss, macc = self._run_step(inputs, label, rng, macc, pf, epoch)
+                            poison_nonfinite(schedule, prev + 1, list(inputs.values()))
+                            loss, macc = self._run_step(inputs, label, rng, macc, pf, epoch,
+                                                        telem, schedule)
                         # a hung dispatch never reaches the boundary
                         inject_hang_fault(schedule, prev, self._step_count, watchdog=watchdog)
                     finally:
@@ -1123,32 +1399,55 @@ class FFModel:
                   f"THROUGHPUT = {num_samples / max(elapsed, 1e-9):.2f} samples/s")
         return perf
 
-    def _run_step(self, batch, label, rng, macc, pf, epoch):
-        """One train_step and its metric fold and print. Returns (its loss,
-        macc)."""
+    def _run_step(self, batch, label, rng, macc, pf, epoch, telem=None, schedule=None):
+        """One train_step, the `slow` site, the run health (`telem`: the
+        event log and the monitor, or None), and its metric fold and
+        print. Returns (its loss, macc)."""
+        from flexflow_tpu_torch.runtime.fault import inject_slow_fault
+
+        step_t0 = time.perf_counter() if telem is not None else None
+        if telem is not None and telem[1] is not None:
+            self._last_step_rng = (rng.get_state(), 0)  # for the localizer
         self.params, self.opt_state, loss, mvals = self.instance.train_step(
             self.params, self.opt_state, batch, label, rng)
         self._step_count += 1
+        # the sleep lands inside the timed step, as a throttled card's would
+        inject_slow_fault(schedule, self._step_count - 1, self._step_count)
+        if telem is not None:
+            self._record_run_health(*telem, loss, batch, label, step_t0)
         macc = mvals if macc is None else {key: macc[key] + v for key, v in mvals.items()}
         if pf and self._step_count % pf == 0:
             print(f"epoch {epoch} step {self._step_count}: loss {float(loss):.4f}")
         return loss, macc
 
-    def _run_fused_window(self, inputs_stack, label_stack, kk, rng, macc, pf, epoch):
-        """One window: its dispatch, the metric fold (one add a window), and
-        the print_freq lines from the window's loss vector, read back once
-        and only when a print falls in the window. Returns (the window's
-        last loss, macc)."""
+    def _run_fused_window(self, inputs_stack, label_stack, kk, rng, macc, pf, epoch, telem=None,
+                          schedule=None, host_win=None):
+        """One window: its dispatch, the `slow` site, the window's run
+        health (`telem`: one readback a window), the metric fold (one add a
+        window), and the print_freq lines from the window's loss vector,
+        read back once and only when a print falls in the window or the
+        health readback has it. Returns (the window's last loss, macc)."""
+        from flexflow_tpu_torch.runtime.fault import inject_slow_fault
+
+        win_t0 = time.perf_counter() if telem is not None else None
+        pre_rng = rng.get_state() if telem is not None and telem[1] is not None else None
         self.params, self.opt_state, rng, losses, mvals = self.instance.multi_train_step(
             self.params, self.opt_state, inputs_stack, label_stack, rng)
         base_step = self._step_count
         self._step_count += kk
+        inject_slow_fault(schedule, base_step, self._step_count)
+        host = None
+        if telem is not None:
+            tokens = (_label_tokens(label_stack, 2, self.config.batch_size)
+                      if label_stack is not None else self.config.batch_size)
+            host = self._emit_window_health(*telem, base_step, losses, host_win, kk, win_t0,
+                                            tokens, pre_rng)
         macc = mvals if macc is None else {key: macc[key] + v for key, v in mvals.items()}
         if pf and base_step // pf != (base_step + kk) // pf:
-            host = losses.tolist()
+            host = losses.tolist() if host is None else host
             for i in range(kk):
                 if (base_step + i + 1) % pf == 0:
-                    print(f"epoch {epoch} step {base_step + i + 1}: loss {host[i]:.4f}")
+                    print(f"epoch {epoch} step {base_step + i + 1}: loss {float(host[i]):.4f}")
         return losses[kk - 1], macc
 
     def invalidate_graphs(self) -> None:
@@ -1467,6 +1766,15 @@ def _find_sink_output(graph) -> DataflowOutput:
     if len(sinks) != 1:
         raise ValueError(f"expected one model output, found {len(sinks)}")
     return sinks[0]
+
+
+def _label_tokens(label, batch_dims: int, batch_size: int) -> int:
+    """Label elements per step of the global batch: a label's elements per
+    sample (past its `batch_dims` leading dims, a window's and the
+    batch's) times the global batch (a rank holds only its rows)."""
+    if label is None:
+        return batch_size
+    return int(np.prod(tuple(label.shape[batch_dims:]), dtype=np.int64)) * batch_size
 
 
 def _perf_from_metric_values(mvals: Dict[str, object]) -> PerfMetrics:

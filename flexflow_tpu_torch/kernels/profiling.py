@@ -46,6 +46,24 @@ def _on_cuda(args) -> bool:
     return any(t.is_cuda for t in _tensors(args))
 
 
+def force_sync(out) -> None:
+    """Wait for the work that produces `out` (tensors, nested in lists,
+    tuples or dicts): synchronize each CUDA device among them; CPU tensors
+    are ready when they exist."""
+    def leaves(x):
+        if isinstance(x, dict):
+            x = list(x.values())
+        if isinstance(x, (list, tuple)):
+            for v in x:
+                yield from leaves(v)
+        elif isinstance(x, torch.Tensor):
+            yield x
+
+    devices = {t.device for t in leaves(out) if t.is_cuda}
+    for d in devices:
+        torch.cuda.synchronize(d)
+
+
 def _timed_run(fn, iters, args, kwargs) -> float:
     start = time.perf_counter()
     for _ in range(iters):

@@ -17,6 +17,11 @@ call: on a CUDA device one captured CUDA graph of the K steps, replayed with
 one launch (runtime/cuda_graph.py), where the JAX package jits a donated
 `lax.scan` of them; on the CPU the same K steps run eagerly.
 
+With `collect_step_stats` each step computes the run-health statistics on
+the device after its update (observability/metrics.py `finalize_step`),
+and under `guard_nonfinite_updates` puts back the pre-step state where the
+step went non-finite; a window stacks them, captured with its steps.
+
 LocalTrainingBacking is the reference's stepped API (execute_init, forward,
 backward, update), one op at a time. The JAX package recomputes each op
 under jax.vjp in its backward; here the forward runs each op on detached
@@ -46,6 +51,8 @@ from flexflow_tpu_torch.kernels import (
 from flexflow_tpu_torch.kernels.metrics import compute_metrics
 from flexflow_tpu_torch.kernels.ops import apply_dropout_mask, dropout_keep_mask
 from flexflow_tpu_torch.kernels.precision import cast_for_compute
+from flexflow_tpu_torch.observability.metrics import finalize_step, state_tensors
+from flexflow_tpu_torch.observability.trace import active_recorder
 from flexflow_tpu_torch.op_attrs.core import (
     IncomingTensorRole,
     OpAttrs,
@@ -215,37 +222,49 @@ def forward_interpreter(
 def fused_multi_step(instance, params, opt_state, batch_stack, label_stack, rng):
     """K training steps over a stacked window: batch_stack maps each input
     name to a [k, ...] tensor, label_stack is [k, ...]. Step i trains on
-    row i through instance.train_step, drawing Dropout from `rng`, so K
-    steps here end bitwise where K train_step calls on the same batches and
-    generator end. Updates params and opt_state in place.
+    row i through instance.train_step (which records no trace span inside
+    a window: a capture may not wait for the device), drawing Dropout from
+    `rng`, so K steps here end bitwise where K train_step calls on the
+    same batches and generator end. Updates params and opt_state in place.
 
-    Returns (params, opt_state, rng, losses [k], mvals): mvals are the
-    window's metric values left-folded in step order, the f32 and int
-    device adds of the per-step loop. The JAX package's version also
-    returns the window's run-health stat stacks; they belong to the health
-    monitor, which is not ported (A9)."""
+    Under `instance.halt_on_nonfinite` (the `raise` health policy) the
+    window freezes at its first tripped step: a device flag, sticky over
+    the window, masks every later step's commit, so the post-window state
+    is the pre-trip state the per-step loop would have stopped with. Every
+    step's kernels still run (a captured window replays them all), and
+    the generator advances over all K steps.
+
+    Returns (params, opt_state, rng, losses [k], mvals, stat stacks or
+    None): mvals are the window's metric values left-folded in step order,
+    the f32 and int device adds of the per-step loop; the stat stacks are
+    the run-health statistics, {name: [k]}, when the instance collects
+    them, for one readback a window."""
+    from flexflow_tpu_torch.observability.metrics import stack_stats
+
     k = next(iter(batch_stack.values())).shape[0]
-    losses = []
+    halted = None
+    if instance.halt_on_nonfinite and instance.collect_step_stats:
+        halted = torch.zeros((), dtype=torch.bool, device=instance.device)
+    losses, stats = [], []
     mvals = None
-    for i in range(k):
-        batch = {name: t[i] for name, t in batch_stack.items()}
-        label = None if label_stack is None else label_stack[i]
-        params, opt_state, loss, step_mvals = instance.train_step(
-            params, opt_state, batch, label, rng)
-        losses.append(loss)
-        mvals = step_mvals if mvals is None else {
-            key: mvals[key] + v for key, v in step_mvals.items()}
-    return params, opt_state, rng, torch.stack(losses), mvals
-
-
-def _state_tensors(params, opt_state) -> List[torch.Tensor]:
-    """Every tensor a step writes in place: the parameters, the optimizer's
-    slots and its step count."""
-    out = list(params.values())
-    for key in sorted(opt_state):
-        v = opt_state[key]
-        out.extend(v.values() if isinstance(v, dict) else [v])
-    return out
+    instance.in_window = True
+    try:
+        for i in range(k):
+            batch = {name: t[i] for name, t in batch_stack.items()}
+            label = None if label_stack is None else label_stack[i]
+            live = {} if halted is None else {"live": torch.logical_not(halted)}
+            params, opt_state, loss, step_mvals = instance.train_step(
+                params, opt_state, batch, label, rng, **live)
+            step_stats = instance.last_step_stats
+            if halted is not None:
+                halted = torch.logical_or(halted, torch.logical_not(step_stats["ok"]))
+            losses.append(loss)
+            stats.append(step_stats)
+            mvals = step_mvals if mvals is None else {
+                key: mvals[key] + v for key, v in step_mvals.items()}
+    finally:
+        instance.in_window = False
+    return params, opt_state, rng, torch.stack(losses), mvals, stack_stats(stats)
 
 
 class ModelTrainingInstance:
@@ -261,12 +280,23 @@ class ModelTrainingInstance:
         device=None,
         metrics: FrozenSet[str] = frozenset(),
         aux_loss_tensors: Sequence[DataflowOutput] = (),
+        collect_step_stats: bool = False,
+        guard_nonfinite_updates: bool = False,
     ) -> None:
         """compute_dtype: params and optimizer state stay f32, and the
         forward/backward run in this dtype (None = the params' dtype).
         device: CUDA unless given; see resolve_device. metrics: the names
         compute_metrics evaluates on each step's logits. aux_loss_tensors:
-        graph outputs whose sums join the loss."""
+        graph outputs whose sums join the loss.
+
+        collect_step_stats computes the run-health scalars (gradient and
+        parameter global norms, update ratio, finiteness flag:
+        observability/metrics.py step_statistics) on the device after each
+        update and keeps them as `last_step_stats`; a fused window returns
+        them stacked, as `last_window_stats`. guard_nonfinite_updates
+        additionally puts back the pre-step parameters and optimizer state
+        whenever the step goes non-finite (the skip_step / raise health
+        policies)."""
         self.cg = cg
         self.logit_tensor = logit_tensor
         self.loss_attrs = loss_attrs
@@ -275,6 +305,18 @@ class ModelTrainingInstance:
         self.device = resolve_device(device)
         self.metrics = frozenset(metrics)
         self.aux_loss_tensors = tuple(aux_loss_tensors)
+        self.collect_step_stats = collect_step_stats or guard_nonfinite_updates
+        self.guard_nonfinite_updates = guard_nonfinite_updates
+        # the `raise` policy under fused dispatch: freeze the rest of a
+        # window after its first non-finite step (set by FFModel.compile;
+        # see fused_multi_step)
+        self.halt_on_nonfinite = False
+        # whether a fused window is running its steps (they record no span)
+        self.in_window = False
+        # the stats of the latest train_step, and {name: [k]} of the latest
+        # window, on the device (collect_step_stats)
+        self.last_step_stats: Optional[Dict[str, torch.Tensor]] = None
+        self.last_window_stats: Optional[Dict[str, torch.Tensor]] = None
         # the fused windows' CUDA graphs, one per window length and state
         self.graphs = CapturedGraphs(self.device)
         # the last multi_train_step's window: its steps, and whether it ran
@@ -356,18 +398,52 @@ class ModelTrainingInstance:
             metrics.update(mvals)
         return loss, grads
 
-    def train_step(self, params, opt_state, batch_inputs, label, rng=None):
+    def _stat_reducer(self):
+        """How the step statistics' per-parameter parts become global sums
+        (metrics.step_statistics `reduce`): None where every parameter is
+        whole on this rank."""
+        return None
+
+    def _step(self, params, opt_state, batch_inputs, label, rng, live=None):
+        """One forward, backward and update, in place: (params, opt_state,
+        loss, metric values, stats or None). `live`: a fused window's
+        not-yet-halted device flag, which masks the commit."""
+        mvals: Dict = {}
+        loss, grads = self.loss_and_grads(params, batch_inputs, label, rng=rng, metrics=mvals)
+        stats = finalize_step(
+            self.collect_step_stats, self.guard_nonfinite_updates or live is not None,
+            params, opt_state, grads, loss,
+            lambda: apply_optimizer_(self.optimizer_attrs, params, grads, opt_state),
+            live=live, reduce=self._stat_reducer())
+        return params, opt_state, loss, mvals, stats
+
+    def _span_args(self) -> Dict[str, object]:
+        """The trace `step` span's args beyond the backend's name."""
+        return {}
+
+    def train_step(self, params, opt_state, batch_inputs, label, rng=None, live=None):
         """One forward, backward and update. Updates params and opt_state in
         place and returns (params, opt_state, loss, metrics): the metric
         values of this step's logits, on the device. Without an rng,
         Dropout draws from a generator seeded 0, as the JAX package's
-        default key."""
+        default key. With collect_step_stats the step's statistics stay on
+        the device in `last_step_stats`; `live`, a fused window's
+        not-yet-halted device flag, masks the commit. Under an active trace
+        recorder, outside a window, the step records `step` > `dispatch` /
+        `device_sync` spans."""
         if rng is None:
             rng = torch.Generator(device=self.device).manual_seed(0)
-        mvals: Dict = {}
-        loss, grads = self.loss_and_grads(params, batch_inputs, label, rng=rng, metrics=mvals)
-        apply_optimizer_(self.optimizer_attrs, params, grads, opt_state)
-        return params, opt_state, loss, mvals
+        rec = None if self.in_window else active_recorder()
+        if rec is None:
+            out = self._step(params, opt_state, batch_inputs, label, rng, live)
+        else:
+            with rec.span("step", backend=type(self).__name__, **self._span_args()):
+                with rec.span("dispatch"):
+                    out = self._step(params, opt_state, batch_inputs, label, rng, live)
+                with rec.span("device_sync", sync=out[2]):
+                    pass
+        self.last_step_stats = out[4]
+        return out[:4]
 
     def multi_train_step(self, params, opt_state, batch_stack, label_stack, rng):
         """K fused steps in one dispatch (fused_multi_step's contract): on a
@@ -379,10 +455,28 @@ class ModelTrainingInstance:
         draws the Dropout masks K train_step calls would. Whoever changes
         what a graph baked in (the optimizer's hyperparameters, a tensor
         replaced rather than written in place) calls graphs.invalidate().
-        The losses and metric values returned are the caller's own."""
+        The losses and metric values returned are the caller's own; the
+        window's stat stacks (collect_step_stats) are in
+        `last_window_stats`, on the device. Under an active trace recorder
+        the window records one `step` span (fused_steps=k) > `dispatch` /
+        `device_sync`."""
         if rng is None:
             raise ValueError("multi_train_step needs the generator the steps draw from")
         k = next(iter(batch_stack.values())).shape[0]
+        rec = active_recorder()
+        if rec is None:
+            out = self._multi_step(params, opt_state, batch_stack, label_stack, rng, k)
+        else:
+            with rec.span("step", backend=type(self).__name__, fused_steps=k,
+                          **self._span_args()):
+                with rec.span("dispatch"):
+                    out = self._multi_step(params, opt_state, batch_stack, label_stack, rng, k)
+                with rec.span("device_sync", sync=out[3]):
+                    pass
+        self.last_window_stats = out[5]
+        return out[:5]
+
+    def _multi_step(self, params, opt_state, batch_stack, label_stack, rng, k):
         captured = self.device.type == "cuda" and self._capturable()
         self.last_window = {"steps": k, "captured": captured}
         if self.device.type == "cuda" and not captured:
@@ -392,7 +486,7 @@ class ModelTrainingInstance:
         if label_stack is not None:
             inputs["label"] = label_stack
         names = list(batch_stack)
-        state = _state_tensors(params, opt_state)
+        state = state_tensors(params, opt_state)
 
         def body(window):
             return fused_multi_step(self, params, opt_state,
@@ -401,9 +495,10 @@ class ModelTrainingInstance:
 
         key = (shape_key(inputs), layout_key(state), id(rng))
         out = self.graphs.run(key, body, inputs, state=state, generators=(rng,))
-        losses, mvals = out[3], out[4]
+        losses, mvals, stats = out[3], out[4], out[5]
         return params, opt_state, rng, losses.clone(), {
-            name: v.clone() if isinstance(v, torch.Tensor) else v for name, v in mvals.items()}
+            name: v.clone() if isinstance(v, torch.Tensor) else v for name, v in mvals.items()
+        }, None if stats is None else {name: v.clone() for name, v in stats.items()}
 
     def _capturable(self) -> bool:
         """Whether a window of this trainer's steps can be one CUDA graph:

@@ -1,10 +1,11 @@
 """Search-phase attribution: where the search's wall-clock goes (copy of
-flexflow_tpu/observability/search_phases.py without its trace spans; the
-port's trace recorder is A9).
+flexflow_tpu/observability/search_phases.py).
 
 The search installs a per-search accumulator (collect_search_phases), and
 the hot call sites mark their work with
 search_phase("tree_build" | "dp" | "leaf_cost" | "match" | "seed_build"),
+which both emits a `search/<name>` span against the active TraceRecorder
+(observability/trace.py) and accumulates milliseconds into the collector,
 which the search telemetry reports as `phase_ms`.
 
 Phases NEST (leaf_cost runs inside dp, both inside an evaluation): each
@@ -17,6 +18,8 @@ from __future__ import annotations
 import contextlib
 import time
 from typing import Dict, Iterator, Optional
+
+from flexflow_tpu_torch.observability.trace import record_span
 
 _ACTIVE: Optional[Dict[str, float]] = None
 
@@ -34,15 +37,22 @@ def collect_search_phases() -> Iterator[Dict[str, float]]:
         _ACTIVE = prev
 
 
+def active_phase_collector() -> Optional[Dict[str, float]]:
+    return _ACTIVE
+
+
 @contextlib.contextmanager
-def search_phase(name: str):
-    """Attribute the body to `name` in the active collector (if any)."""
+def search_phase(name: str, **args):
+    """Attribute the body to `name`: accumulate into the active collector
+    (if any) and emit a `search/<name>` span (no-op without a recorder)."""
     acc = _ACTIVE
     if acc is None:
-        yield
+        with record_span(f"search/{name}", **args):
+            yield
         return
     t0 = time.perf_counter()
     try:
-        yield
+        with record_span(f"search/{name}", **args):
+            yield
     finally:
         acc[name] = acc.get(name, 0.0) + (time.perf_counter() - t0) * 1000.0

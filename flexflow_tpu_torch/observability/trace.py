@@ -1,0 +1,237 @@
+"""Structured step tracing: a span/event recorder (port of
+flexflow_tpu/observability/trace.py).
+
+The interesting host-side phases of a train step are dispatch (enqueueing
+the step's kernels, or one CUDA graph replay for a fused window) and
+device_sync (the wait for them). A span's `sync=` boundary waits for the
+device through kernels/profiling.force_sync (a synchronize of the tensors'
+devices) before its end timestamp, so device work launched inside the span
+is charged to it.
+
+Under fused dispatch (steps_per_dispatch=K) the `step` span covers the
+whole K-step window and carries a `fused_steps` arg, and the windowed
+input pipeline's producer thread records a `host_to_device` span around
+each window's copy: spans nest PER THREAD, so the transfer lands beside
+(not inside) the consumer's step spans and the overlap is visible.
+
+The recorder serializes the spans as Chrome-trace JSON
+(`chrome://tracing` / Perfetto "traceEvents"), `flexflow_trace.json` in
+the trace directory, beside the torch.profiler device trace FFModel.fit
+writes there.
+
+A module-level active recorder keeps the instrumentation zero-cost when
+tracing is off: `record_span(...)` is a null context unless a recorder is
+installed (via `set_recorder` or `trace_session`).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+
+@dataclass
+class TraceSpan:
+    """One completed span. Times are milliseconds since the recorder epoch."""
+
+    name: str
+    start_ms: float
+    dur_ms: float
+    depth: int  # nesting depth at record time (0 = top level)
+    parent: Optional[int]  # index of the enclosing span in recorder.spans
+    tid: int
+    args: Dict[str, object] = field(default_factory=dict)
+
+
+class TraceRecorder:
+    """Collects spans/instants; thread-safe; exports Chrome-trace JSON."""
+
+    def __init__(self, clock=time.perf_counter) -> None:
+        self._clock = clock
+        self._epoch = clock()
+        self._lock = threading.Lock()
+        self._tls = threading.local()
+        self.spans: List[TraceSpan] = []
+        self.instants: List[Dict[str, object]] = []
+        # per-thread stacks of OPEN span indices, readable from OTHER
+        # threads (the TLS stack above is not): the watchdog's
+        # HangDiagnostic reads the hung thread's live span stack here
+        self._open: Dict[int, List[int]] = {}
+
+    # -- recording ---------------------------------------------------------
+
+    def _now_ms(self) -> float:
+        return (self._clock() - self._epoch) * 1000.0
+
+    def _stack(self) -> list:
+        if not hasattr(self._tls, "stack"):
+            self._tls.stack = []
+        return self._tls.stack
+
+    @contextlib.contextmanager
+    def span(self, name: str, sync=None, **args):
+        """Record `name` around the body. `sync` (tensors) is waited for
+        BEFORE the end timestamp (force_sync), so device work launched
+        inside the span is charged to it, not to whoever reads the result
+        later."""
+        stack = self._stack()
+        start = self._now_ms()
+        tid = threading.get_ident()
+        # reserve the span's slot now so children can point at their parent
+        with self._lock:
+            idx = len(self.spans)
+            self.spans.append(
+                TraceSpan(
+                    name=name,
+                    start_ms=start,
+                    dur_ms=0.0,
+                    depth=len(stack),
+                    parent=stack[-1] if stack else None,
+                    tid=tid,
+                    args=dict(args),
+                )
+            )
+            self._open.setdefault(tid, []).append(idx)
+        stack.append(idx)
+        try:
+            yield self
+        finally:
+            if sync is not None:
+                _force_sync(sync)
+            end = self._now_ms()
+            stack.pop()
+            with self._lock:
+                self.spans[idx].dur_ms = end - start
+                open_stack = self._open.get(tid)
+                if open_stack and open_stack[-1] == idx:
+                    open_stack.pop()
+                elif open_stack and idx in open_stack:
+                    open_stack.remove(idx)
+
+    def instant(self, name: str, **args) -> None:
+        with self._lock:
+            self.instants.append(
+                {
+                    "name": name,
+                    "ts_ms": self._now_ms(),
+                    "tid": threading.get_ident(),
+                    "args": dict(args),
+                }
+            )
+
+    # -- queries (the test surface) ----------------------------------------
+
+    def spans_named(self, name: str) -> List[TraceSpan]:
+        return [s for s in self.spans if s.name == name]
+
+    def open_span_names(self, tid: int) -> List[str]:
+        """The names of thread `tid`'s currently-OPEN spans, outermost
+        first — what that thread is doing RIGHT NOW, readable from any
+        thread (the watchdog's hang forensics)."""
+        with self._lock:
+            return [self.spans[i].name for i in self._open.get(tid, [])]
+
+    def children_of(self, span: TraceSpan) -> List[TraceSpan]:
+        idx = self.spans.index(span)
+        return [s for s in self.spans if s.parent == idx]
+
+    # -- export ------------------------------------------------------------
+
+    def to_chrome_trace(self) -> dict:
+        """The `chrome://tracing` JSON object format. Timestamps in µs."""
+        pid = os.getpid()
+        events = []
+        for s in self.spans:
+            events.append(
+                {
+                    "name": s.name,
+                    "ph": "X",
+                    "ts": round(s.start_ms * 1000.0, 3),
+                    "dur": round(s.dur_ms * 1000.0, 3),
+                    "pid": pid,
+                    "tid": s.tid,
+                    "args": s.args,
+                }
+            )
+        for i in self.instants:
+            events.append(
+                {
+                    "name": i["name"],
+                    "ph": "i",
+                    "s": "t",
+                    "ts": round(i["ts_ms"] * 1000.0, 3),
+                    "pid": pid,
+                    "tid": i["tid"],
+                    "args": i["args"],
+                }
+            )
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+    def save(self, path: str) -> str:
+        """Write the Chrome trace to `path` (a directory gets a default
+        file name). Returns the file path written."""
+        if os.path.isdir(path) or not path.endswith(".json"):
+            os.makedirs(path, exist_ok=True)
+            path = os.path.join(path, "flexflow_trace.json")
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(self.to_chrome_trace(), f)
+        return path
+
+
+def _force_sync(out) -> None:
+    from flexflow_tpu_torch.kernels.profiling import force_sync
+
+    force_sync(out)
+
+
+# -- module-level active recorder ----------------------------------------
+
+_ACTIVE: Optional[TraceRecorder] = None
+
+
+def active_recorder() -> Optional[TraceRecorder]:
+    return _ACTIVE
+
+
+def set_recorder(recorder: Optional[TraceRecorder]) -> Optional[TraceRecorder]:
+    """Install (or clear, with None) the process-wide recorder; returns the
+    previous one so callers can restore it."""
+    global _ACTIVE
+    prev = _ACTIVE
+    _ACTIVE = recorder
+    return prev
+
+
+@contextlib.contextmanager
+def record_span(name: str, sync=None, **args):
+    """Span against the active recorder; a no-op null context when tracing
+    is off (the hot-path guard — instrumented step functions call this
+    unconditionally)."""
+    rec = _ACTIVE
+    if rec is None:
+        yield None
+        return
+    with rec.span(name, sync=sync, **args) as r:
+        yield r
+
+
+@contextlib.contextmanager
+def trace_session(trace_dir: str, label: str = "flexflow_trace"):
+    """Install a fresh recorder for the body and write
+    `<trace_dir>/<label>.json` (Chrome-trace format) on exit. Used by
+    FFModel.fit when `profile_trace_dir` is set, beside the torch.profiler
+    trace written into the same directory."""
+    rec = TraceRecorder()
+    prev = set_recorder(rec)
+    try:
+        yield rec
+    finally:
+        set_recorder(prev)
+        os.makedirs(trace_dir, exist_ok=True)
+        rec.save(os.path.join(trace_dir, f"{label}.json"))

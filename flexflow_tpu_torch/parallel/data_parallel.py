@@ -101,10 +101,15 @@ class DataParallelTrainingInstance(ModelTrainingInstance):
         device=None,
         group=None,
         metrics=frozenset(),
+        collect_step_stats: bool = False,
+        guard_nonfinite_updates: bool = False,
     ) -> None:
         """group: the process group (None: the default one, which must be
         initialized). device: cuda:<local rank> unless given. metrics: the
-        names compute_metrics evaluates, summed over the ranks."""
+        names compute_metrics evaluates, summed over the ranks.
+        collect_step_stats / guard_nonfinite_updates: as
+        ModelTrainingInstance's; every rank holds the whole parameters and
+        the averaged gradients, so its norms are the global ones."""
         if not dist.is_initialized():
             raise RuntimeError(
                 "no process group is initialized: open one first (e.g. parallel.init_file_group)"
@@ -114,7 +119,8 @@ class DataParallelTrainingInstance(ModelTrainingInstance):
         self.world_size = dist.get_world_size(group)
         super().__init__(cg, logit_tensor, loss_attrs, optimizer_attrs,
                          compute_dtype=compute_dtype, device=_rank_device(device, dist.get_rank()),
-                         metrics=metrics)
+                         metrics=metrics, collect_step_stats=collect_step_stats,
+                         guard_nonfinite_updates=guard_nonfinite_updates)
         # collectives issued by train steps so far, by kind
         self.collectives = collections.Counter()
         self.batch_size = _graph_batch(cg)

@@ -774,8 +774,12 @@ class DistributedTrainingInstance(ModelTrainingInstance):
         device=None,
         metrics=frozenset(),
         overlap: Optional[bool] = None,
+        collect_step_stats: bool = False,
+        guard_nonfinite_updates: bool = False,
     ) -> None:
-        """device: cuda:<local rank> unless given; see resolve_device."""
+        """device: cuda:<local rank> unless given; see resolve_device.
+        collect_step_stats / guard_nonfinite_updates: as
+        ModelTrainingInstance's; the norms are global (`_stat_reducer`)."""
         import torch.distributed as dist
 
         self.pcg = pcg
@@ -798,7 +802,8 @@ class DistributedTrainingInstance(ModelTrainingInstance):
             next(iter(self._inputs.values())))).dims[0] if self._inputs else 0)
         super().__init__(pcg, logit_tensor, loss_attrs, optimizer_attrs,
                          compute_dtype=compute_dtype, device=_rank_device(device, dist.get_rank()),
-                         metrics=metrics)
+                         metrics=metrics, collect_step_stats=collect_step_stats,
+                         guard_nonfinite_updates=guard_nonfinite_updates)
         # per step: (collective buckets issued, of them before the
         # backward's last gradient)
         self.bucket_log: List[Tuple[int, int]] = []
@@ -814,8 +819,46 @@ class DistributedTrainingInstance(ModelTrainingInstance):
 
     def step_collectives(self) -> Counter:
         """The collectives a train step issues, by kind, as the plan implies
-        them (DistributedPlan.step_collectives)."""
-        return self.plan.step_collectives(self.loss_logit_tensor)
+        them (DistributedPlan.step_collectives), and with collect_step_stats
+        one all-reduce of the statistics' parts per set of weight axes
+        (`_stat_reducer`)."""
+        out = self.plan.step_collectives(self.loss_logit_tensor)
+        if self.collect_step_stats:
+            mesh = self.machine_mesh
+            out["all_reduce"] += sum(1 for axes in self._stat_axes() if mesh.size(axes) > 1)
+        return out
+
+    def _stat_axes(self) -> Dict[Axes, List[ParamKey]]:
+        """The parameters by the axes their pieces differ over."""
+        out: Dict[Axes, List[ParamKey]] = {}
+        for n in self.pcg.topological_ordering():
+            if isinstance(self.pcg.op_attrs(n), WeightAttrs):
+                key = param_key(n)
+                axes = C.mesh_order(self.machine_mesh, self.weight_sharding(key).placed())
+                out.setdefault(axes, []).append(key)
+        return out
+
+    def _stat_reducer(self):
+        """The global sums of the statistics' per-parameter parts: each set
+        of weight axes's parts summed over its pieces, one all-reduce over
+        those axes (a piece duplicated on the other axes counts once), then
+        the sets added. The JAX package's norms are global by GSPMD."""
+        mesh = self.machine_mesh
+        axes_of = {key: axes for axes, keys in self._stat_axes().items() for key in keys}
+
+        def reduce(keys, parts):
+            groups: Dict[Axes, List[int]] = {}
+            for i, key in enumerate(keys):
+                groups.setdefault(axes_of[key], []).append(i)
+            sums = C.bucket_all_reduce(mesh, {
+                axes: [parts[:, idx].sum(dim=1)] for axes, idx in groups.items()})
+            return torch.stack([v[0] for v in sums.values()]).sum(dim=0)
+
+        return reduce
+
+    def _span_args(self) -> Dict[str, object]:
+        return {"mesh": str(dict(zip(self.machine_mesh.names, self.machine_mesh.shape))),
+                "fused_edges": len(self.overlap_sites)}
 
     @property
     def overlap_sites(self) -> Dict[Node, str]:

@@ -1,14 +1,16 @@
 """Seeded fault-schedule soak (port of flexflow_tpu/runtime/chaos.py).
 
 The contract soaked: under every seeded `FaultSchedule` (a checkpoint-write
-I/O fault, a producer-thread death, a simulated hang, a kill), the run
-either completes, the fault absorbed, or dies with a structured error and,
-after `fit(resume=True)`, ends with final parameters and optimizer state
-bitwise equal to the fault-free run's.
+I/O fault, a producer-thread death, a poisoned batch, a simulated hang, a
+kill), the run either completes, the fault absorbed, or dies with a
+structured error (a poisoned batch under the `raise` health policy:
+NonFiniteError) and, after `fit(resume=True)`, ends with final parameters
+and optimizer state bitwise equal to the fault-free run's.
 
-The harness is model-agnostic: callers hand it a `build(checkpoint_dir,
-watchdog=bool)` factory returning a compiled port FFModel (the JAX
-package's also takes a metrics directory, which comes with A9). Seeds are
+The harness is model-agnostic: callers hand it a `build(metrics_dir,
+checkpoint_dir, watchdog=bool)` factory returning a compiled port FFModel,
+the JAX package's contract: each run gets a metrics directory of its own,
+where the run's events (a `hang` diagnostic among them) land. Seeds are
 found with `fault.find_seed`, so every process derives the same schedules.
 """
 
@@ -22,8 +24,8 @@ import numpy as np
 from flexflow_tpu_torch.runtime import fault as fault_mod
 from flexflow_tpu_torch.runtime.fault import FaultSchedule
 
-#: the sites a fit can soak (nonfinite's reaction is A9's)
-SOAK_SITES = ("ckpt_write", "h2d", "hang", "kill")
+#: the sites a fit can soak: all of them
+SOAK_SITES = fault_mod.FAULT_SITES
 
 State = Tuple[Dict[str, np.ndarray], List[np.ndarray]]
 
@@ -68,14 +70,15 @@ def schedule_for_site(site: str, total_steps: int, checkpoint_every: int,
 
 
 def soak_schedule(schedule: FaultSchedule, build: Callable, x, y, reference: State,
-                  epochs: int = 2, checkpoint_dir: Optional[str] = None) -> Dict[str, object]:
+                  epochs: int = 2, dirs: Optional[Tuple[str, str]] = None) -> Dict[str, object]:
     """One faulted-then-recovered run under `schedule`, its final state
     compared bitwise with `reference` (the fault-free run's final_state).
+    dirs: (metrics_dir, checkpoint_dir), new temporary ones by default.
     The watchdog is asked for only where the schedule has `hang` (an
     always-on tight budget could trip on a busy host). Returns the soak
     record (JSON-safe)."""
-    cdir = checkpoint_dir or tempfile.mkdtemp()
-    model = build(cdir, watchdog="hang" in schedule.sites)
+    mdir, cdir = dirs or (tempfile.mkdtemp(), tempfile.mkdtemp())
+    model = build(mdir, cdir, watchdog="hang" in schedule.sites)
     fault_mod.install_schedule(schedule)
     outcome, error_repr = "completed", None
     try:
@@ -90,7 +93,7 @@ def soak_schedule(schedule: FaultSchedule, build: Callable, x, y, reference: Sta
     if outcome != "completed":
         # a fresh model resumes from the last durable snapshot, the schedule
         # cleared (a real fault does not recur deterministically either)
-        model = build(cdir, watchdog=False)
+        model = build(mdir, cdir, watchdog=False)
         model.fit(x, y, epochs=epochs, shuffle=True, verbose=False, resume=True)
         resumed = True
     params_ok, opt_ok = states_bitwise(final_state(model), reference)
@@ -114,7 +117,8 @@ def soak_sites(build: Callable, x, y, total_steps: int, checkpoint_every: int, e
     live in one temporary directory, removed at the end. Returns
     {"schedules": [...], "n_schedules", "n_fired", "n_bitwise"}."""
     with tempfile.TemporaryDirectory() as work:
-        ref_model = build(f"{work}/reference", watchdog=False)
+        ref_model = build(f"{work}/reference/metrics", f"{work}/reference/ckpt",
+                          watchdog=False)
         ref_model.fit(x, y, epochs=epochs, shuffle=True, verbose=False)
         reference = final_state(ref_model)
         del ref_model
@@ -122,7 +126,7 @@ def soak_sites(build: Callable, x, y, total_steps: int, checkpoint_every: int, e
         for site in sites:
             schedule = schedule_for_site(site, total_steps, checkpoint_every)
             records.append(soak_schedule(schedule, build, x, y, reference, epochs=epochs,
-                                         checkpoint_dir=f"{work}/{site}"))
+                                         dirs=(f"{work}/{site}/metrics", f"{work}/{site}/ckpt")))
     return {
         "schedules": records,
         "n_schedules": len(records),

@@ -313,11 +313,14 @@ class CheckpointManager:
              extra: Optional[Dict[str, Any]] = None) -> str:
         """The synchronous save: every leaf copied to the host, then
         serialized and committed."""
+        from flexflow_tpu_torch.observability.trace import record_span
+
         state = {"params": params}
         if opt_state is not None:
             state["opt_state"] = opt_state
-        flat = {k: host_array(v) for k, v in _flatten(state).items()}
-        return self.write_host_state(step, flat, extra)
+        with record_span("checkpoint", step=step, backend=self.backend, mode="sync"):
+            flat = {k: host_array(v) for k, v in _flatten(state).items()}
+            return self.write_host_state(step, flat, extra)
 
     def write_host_state(self, step: int, flat: Dict[str, np.ndarray],
                          extra: Optional[Dict[str, Any]], timings: Optional[dict] = None) -> str:
@@ -627,12 +630,18 @@ class AsyncCheckpointWriter:
                     return
                 step, host, done, start, extra, submit_ms = item
                 try:
+                    from flexflow_tpu_torch.observability.trace import record_span
+
                     d2h_ms = None
-                    if done is not None:
-                        done.synchronize()
-                        d2h_ms = start.elapsed_time(done)
                     timings: Dict[str, Any] = {}
-                    self.manager.write_host_state(step, host, extra, timings)
+                    # on the writer thread's timeline row, beside the
+                    # training thread's step spans: the overlap shows
+                    with record_span("checkpoint", step=step, backend=self.manager.backend,
+                                     mode="async"):
+                        if done is not None:
+                            done.synchronize()
+                            d2h_ms = start.elapsed_time(done)
+                        self.manager.write_host_state(step, host, extra, timings)
                     self.stats.append(dict(step=step, submit_ms=submit_ms, d2h_ms=d2h_ms,
                                            **timings))
                 except BaseException as e:  # surfaces at the next check, submit or wait
@@ -735,9 +744,13 @@ class TrainingCheckpointer:
         if self._writer is not None:
             self._writer.submit(step, state, extra)
         else:
+            from flexflow_tpu_torch.observability.trace import record_span
+
             timings: Dict[str, Any] = {}
-            flat = {k: host_array(v) for k, v in _flatten(state).items()}
-            self.manager.write_host_state(step, flat, extra, timings)
+            with record_span("checkpoint", step=step, backend=self.manager.backend,
+                             mode="sync"):
+                flat = {k: host_array(v) for k, v in _flatten(state).items()}
+                self.manager.write_host_state(step, flat, extra, timings)
             self.sync_stats.append(dict(step=step, **timings))
 
     def resume_state(self, template: Any = None, step: Optional[int] = None

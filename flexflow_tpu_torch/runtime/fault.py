@@ -1,5 +1,5 @@
 """Fault injection for the fit loop and the serving engine (copy of
-flexflow_tpu/runtime/fault.py, less the `slow` site's reaction).
+flexflow_tpu/runtime/fault.py).
 
 Two triggers, both active:
 
@@ -33,12 +33,13 @@ Two triggers, both active:
    - `kill`        SimulatedFault at the boundary, after the checkpoint
                    hook (the FF_TPU_FAULT_STEP preemption, from the
                    schedule);
-   - `nonfinite`   a NaN in the step's host batch, whose reaction is the
-                   run-health policy; and the soft site `slow`, a sleep in
-                   the step whose reaction is the drift monitor. Both
-                   reactions are observability (A9): a fit whose schedule
-                   names either raises NotImplementedError
-                   (`refuse_unported_fit_sites`).
+   - `nonfinite`   a NaN in the firing step's batch before it reaches the
+                   card (the windowed input pipeline's producer poisons its
+                   host window, the per-step loop its batch), whose
+                   reaction is the run-health policy;
+   - `slow`        (soft) a sleep inside the step's timed region
+                   (`inject_slow_fault`, FF_TPU_FAULT_SLOW_MS, default
+                   50 ms), whose reaction is the drift monitor.
 
    Faults fire at most once per (site, step) per schedule object
    (`fire_once`), so a retry of the same step sees one transient, not a
@@ -54,14 +55,12 @@ from typing import FrozenSet, List, Optional, Set, Tuple
 
 FAULT_STEP_ENV = "FF_TPU_FAULT_STEP"
 FAULT_SPEC_ENV = "FF_TPU_FAULT_SPEC"
+SLOW_MS_ENV = "FF_TPU_FAULT_SLOW_MS"
 
 #: The injectable fault sites and the soft perturbation sites, as in the
 #: JAX package (a spec naming any other site is refused).
 FAULT_SITES = ("ckpt_write", "h2d", "nonfinite", "hang", "kill")
 SOFT_SITES = ("slow",)
-
-#: The sites whose reaction comes with observability (A9).
-UNPORTED_FIT_SITES = ("nonfinite", "slow")
 
 
 class SimulatedFault(RuntimeError):
@@ -216,16 +215,6 @@ def active_schedule() -> Optional[FaultSchedule]:
     return _ENV_CACHE[1]
 
 
-def refuse_unported_fit_sites(schedule: Optional[FaultSchedule]) -> None:
-    """A fit under a schedule naming `nonfinite` or `slow` raises: their
-    reactions (the run-health policy, the drift monitor) are A9's."""
-    named = sorted(set(UNPORTED_FIT_SITES) & set(schedule.sites if schedule else ()))
-    if named:
-        raise NotImplementedError(
-            f"fault sites {named} in a fit: their reactions (the run-health policy, the "
-            "drift monitor) are not ported yet (A9)")
-
-
 # -- boundary hooks (the fit loops) -----------------------------------------
 
 
@@ -267,6 +256,45 @@ def inject_hang_fault(
             watchdog.simulate_hang()  # raises WindowHangError
 
 
+def inject_slow_fault(schedule: Optional[FaultSchedule], prev_step: int, step: int,
+                      slow_ms: Optional[float] = None) -> float:
+    """Soft site `slow` for the steps (prev_step, step]: sleep
+    FF_TPU_FAULT_SLOW_MS (default 50) ms per firing step. The fit loops
+    call it inside the step's timed region (after the dispatch, before the
+    health readback), so the injected latency lands in the event stream's
+    `wallclock_ms` as a throttled card's would: the drift monitor's
+    signal, not a fault. Returns the ms slept."""
+    if schedule is None:
+        return 0.0
+    import time
+
+    if slow_ms is None:
+        slow_ms = float(os.environ.get(SLOW_MS_ENV, "") or 50.0)
+    slept = 0.0
+    for s in range(prev_step + 1, step + 1):
+        if schedule.fire_once("slow", s):
+            time.sleep(slow_ms / 1000.0)
+            slept += slow_ms
+    return slept
+
+
+def poison_nonfinite(schedule: Optional[FaultSchedule], step: int, arrays) -> bool:
+    """Site `nonfinite` for `step`: where it fires, the first element of
+    every floating array of `arrays` (numpy arrays or tensors, written in
+    place) becomes NaN. Returns whether it fired."""
+    if schedule is None or not schedule.fire_once("nonfinite", step):
+        return False
+    import numpy as np
+
+    for a in arrays:
+        if isinstance(a, np.ndarray):
+            if np.issubdtype(a.dtype, np.floating):
+                a.reshape(-1)[0] = np.nan
+        elif a.is_floating_point():
+            a.view(-1)[0] = float("nan")
+    return True
+
+
 def inject_kill_fault(schedule: Optional[FaultSchedule], prev_step: int, step: int) -> None:
     """Site `kill` at the boundary. Like maybe_inject_fault, it runs after
     the checkpoint hook, so a due snapshot is durable before the
@@ -295,8 +323,8 @@ __all__ = [
     "FAULT_SITES",
     "FAULT_SPEC_ENV",
     "FAULT_STEP_ENV",
+    "SLOW_MS_ENV",
     "SOFT_SITES",
-    "UNPORTED_FIT_SITES",
     "FaultSchedule",
     "InjectedFault",
     "SimulatedFault",
@@ -306,7 +334,8 @@ __all__ = [
     "inject_boundary_faults",
     "inject_hang_fault",
     "inject_kill_fault",
+    "inject_slow_fault",
     "install_schedule",
     "maybe_inject_fault",
-    "refuse_unported_fit_sites",
+    "poison_nonfinite",
 ]

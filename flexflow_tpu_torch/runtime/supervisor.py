@@ -272,6 +272,18 @@ class WindowWatchdog:
                 else:
                     self._cv.wait(min(_POLL_S, max(deadline - now, 0.0)))
 
+    @staticmethod
+    def _live_spans(tid: int) -> List[str]:
+        """The watched thread's open trace spans, outermost first (what it
+        was doing when the deadline fired), from the active recorder."""
+        try:
+            from flexflow_tpu_torch.observability.trace import active_recorder
+
+            rec = active_recorder()
+            return [] if rec is None else rec.open_span_names(tid)
+        except Exception:
+            return []
+
     def _fire_locked(self, now: float) -> None:
         """Build and publish the diagnostic (called with self._cv held)."""
         self.fired = True
@@ -288,6 +300,7 @@ class WindowWatchdog:
             budget_ms=self._budget_ms or 0.0,
             elapsed_ms=(now - (self._t0 or now)) * 1000.0,
             device_kind=device_kind,
+            trace_spans=self._live_spans(tid) if tid is not None else [],
             thread_name=self._watched_name,
         )
         self.last_diagnostic = diag

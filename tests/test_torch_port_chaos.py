@@ -2,18 +2,21 @@
 chaos.py, fault.py, supervisor.py), the counterpart of
 tests/test_chaos_soak.py, on the CPU:
 
-- each of the sites `ckpt_write`, `h2d`, `hang` and `kill` under its seeded
-  schedule, in windows of 4 (K=4) and per step (K=1; the `h2d` site lives
-  in the windowed input pipeline's producer, so it soaks only there),
-  either completes (the fault absorbed) or dies with its structured error
-  and, after fit(resume=True), ends bitwise equal to the fault-free run
-  (parameters and both Adam moments, Dropout on);
+- each of the sites `ckpt_write`, `h2d`, `nonfinite`, `hang` and `kill`
+  under its seeded schedule, in windows of 4 (K=4) and per step (K=1; the
+  `h2d` site lives in the windowed input pipeline's producer, so it soaks
+  only there), either completes (the fault absorbed) or dies with its
+  structured error (the poisoned batch under the `raise` health policy:
+  NonFiniteError) and, after fit(resume=True), ends bitwise equal to the
+  fault-free run (parameters and both Adam moments, Dropout on), each run
+  writing its own metrics stream, as the JAX package's soak does;
 - the schedules are the JAX package's: FaultSchedule.fire_steps,
   find_seed and schedule_for_site give the same steps and seeds;
 - the `h2d` producer fault surfaces through the fault channel as a
   BackgroundFault; the watchdog armed by FFConfig.watchdog_factor or
   FF_TPU_WATCHDOG fires on an injected hang with its diagnostic, at the
-  serving tests' 1000 ms floor; FF_TPU_FAULT_STEP is a crossing."""
+  serving tests' 1000 ms floor, and its diagnostic lands in the metrics
+  stream as a `hang` event; FF_TPU_FAULT_STEP is a crossing."""
 
 import numpy as np
 import pytest
@@ -22,6 +25,7 @@ from flexflow_tpu.runtime import chaos as jchaos
 from flexflow_tpu.runtime import fault as jfault
 from flexflow_tpu_torch import core as tcore
 from flexflow_tpu_torch.core.dataloader import BatchIterator, WindowedBatchIterator
+from flexflow_tpu_torch.observability.metrics import read_run_events
 from flexflow_tpu_torch.runtime import chaos, fault
 from flexflow_tpu_torch.runtime.chaos import final_state, schedule_for_site, soak_schedule
 from flexflow_tpu_torch.runtime.fault import FaultSchedule, SimulatedFault
@@ -38,6 +42,7 @@ WATCHDOG_FACTOR = 50.0  # a budget of max(1000 ms, 50 x the window estimate)
 EXPECTED_OUTCOMES = {
     "ckpt_write": "completed",        # a transient the retry backoff absorbs
     "h2d": "BackgroundFault",         # the producer's death, through the channel
+    "nonfinite": "NonFiniteError",    # the health policy `raise` stops the run
     "hang": "WindowHangError",        # the watchdog's deadline
     "kill": "SimulatedFault",         # a preemption between windows
 }
@@ -50,9 +55,10 @@ def _data():
 
 
 def _builder(k):
-    def build(checkpoint_dir, watchdog=False):
+    def build(metrics_dir, checkpoint_dir, watchdog=False):
         m = tcore.FFModel(tcore.FFConfig(
             batch_size=BATCH, seed=0, steps_per_dispatch=k, print_freq=0,
+            metrics_dir=metrics_dir, health_policy="raise",
             checkpoint_dir=checkpoint_dir, checkpoint_every_n_steps=EVERY,
             watchdog_factor=WATCHDOG_FACTOR if watchdog else 0.0), device="cpu")
         x = m.create_tensor([BATCH, 32], name="x")
@@ -69,7 +75,8 @@ def _builder(k):
 def references(tmp_path_factory):
     out = {}
     for k in (1, 4):
-        m = _builder(k)(str(tmp_path_factory.mktemp(f"reference{k}")))
+        m = _builder(k)(str(tmp_path_factory.mktemp(f"metrics{k}")),
+                        str(tmp_path_factory.mktemp(f"reference{k}")))
         m.fit(*_data(), epochs=EPOCHS, shuffle=True, verbose=False)
         out[k] = final_state(m)
     return out
@@ -83,7 +90,7 @@ SOAKS = [(site, 4) for site in chaos.SOAK_SITES] + [
 def test_every_site_recovers_bitwise(tmp_path, references, site, k):
     schedule = schedule_for_site(site, TOTAL, EVERY)
     record = soak_schedule(schedule, _builder(k), *_data(), references[k], epochs=EPOCHS,
-                           checkpoint_dir=str(tmp_path))
+                           dirs=(str(tmp_path / "metrics"), str(tmp_path / "ckpt")))
     assert record["fired"] and record["fired"][0][0] == site, record
     assert record["outcome"] == EXPECTED_OUTCOMES[site], record
     assert record["resumed"] == (EXPECTED_OUTCOMES[site] != "completed")
@@ -148,7 +155,7 @@ def test_the_watchdog_in_fit_fires_on_an_injected_hang(monkeypatch, tmp_path, ho
     build = _builder(4)
     if how == "env":
         monkeypatch.setenv("FF_TPU_WATCHDOG", str(WATCHDOG_FACTOR))
-    m = build(str(tmp_path), watchdog=how == "config")
+    m = build(str(tmp_path / "metrics"), str(tmp_path / "ckpt"), watchdog=how == "config")
     schedule = schedule_for_site("hang", TOTAL, EVERY)
     fault.install_schedule(schedule)
     try:
@@ -161,10 +168,13 @@ def test_the_watchdog_in_fit_fires_on_an_injected_hang(monkeypatch, tmp_path, ho
     fired = schedule.fired_log[0][1]
     assert diag.window_base_step <= fired < diag.window_base_step + diag.window_steps
     assert diag.last_completed_step == diag.window_base_step - 1
+    (hang,) = read_run_events(str(tmp_path / "metrics"), "hang")
+    assert hang["window_base_step"] == diag.window_base_step
+    assert hang["trace_spans"] == []  # no trace session: no open span to report
 
 
 def test_a_hang_without_a_watchdog_says_so(tmp_path):
-    m = _builder(1)(str(tmp_path))
+    m = _builder(1)(str(tmp_path / "metrics"), str(tmp_path / "ckpt"))
     fault.install_schedule(schedule_for_site("hang", TOTAL, EVERY))
     try:
         with pytest.raises(RuntimeError, match="no watchdog is armed"):

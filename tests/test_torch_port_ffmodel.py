@@ -409,9 +409,6 @@ def test_unported_paths_raise_naming_their_slice():
         m.transpose(x, (1, 0))  # the example zoo's ops are ported; transpose is not
     with pytest.raises(NotImplementedError, match=r"\(A2\)"):
         m.add(x, out)  # differing shapes need the Broadcast op
-    m2, _, _ = build_mlp(_cfg(tcore, metrics_dir="unused"))
-    with pytest.raises(NotImplementedError, match=r"\(A9\)"):
-        m2.compile(SGDOptimizer(lr=0.1))
     m3, _, _ = build_mlp(_cfg(tcore, checkpoint_backend="orbax"))
     with pytest.raises(ValueError, match="orbax"):
         m3.compile(SGDOptimizer(lr=0.1))  # a JAX library: the port writes npz only

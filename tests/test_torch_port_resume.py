@@ -16,8 +16,10 @@ TestFallbackInFit:
   latest snapshot falling back on resume;
 - without Dropout the port's uninterrupted and resumed trajectories equal
   the JAX fit's within tests/test_torch_port_fused.py's f32 tolerance;
-- what waits raises naming its item: recompiles (A8 part 2), the
-  `nonfinite` and `slow` fault sites in a fit (A9)."""
+- what waits raises naming its item: recompiles (A8 part 2);
+- the `nonfinite` and `slow` fault sites in a fit, per step and in
+  windows, get their reactions: a skipped step under skip_step, a slept
+  step in the events' `wallclock_ms`."""
 
 import os
 import threading
@@ -30,6 +32,7 @@ import torch
 from flexflow_tpu import core as jcore
 from flexflow_tpu_torch import core as tcore
 from flexflow_tpu_torch.interop import ffmodel_state_from_numpy
+from flexflow_tpu_torch.observability.metrics import read_events
 from flexflow_tpu_torch.runtime import fault
 from flexflow_tpu_torch.runtime.chaos import final_state, states_bitwise
 from flexflow_tpu_torch.runtime.checkpoint import CheckpointError, CheckpointManager
@@ -325,14 +328,37 @@ def test_recompiles_raise_naming_a8_part_2():
         m.recompile()
 
 
+SLOW_MS = 150.0
+
+
 @pytest.mark.parametrize("site", ["nonfinite", "slow"])
 @pytest.mark.parametrize("k", [1, 4])
-def test_observability_fault_sites_raise_naming_a9(site, k):
-    m = _build(k=k)
-    fault.install_schedule(FaultSchedule(seed=0, sites=frozenset({site}), rate=0.5))
+def test_observability_fault_sites_raise_naming_a9(site, k, tmp_path, monkeypatch):
+    """The sites fire in the fit and get their reactions (the name is the
+    one of the refusal it replaced): `nonfinite` poisons the firing steps'
+    batches, which skip_step skips (flags in the events, Adam's step count
+    short by them, the parameters finite); `slow` sleeps inside the firing
+    steps, which the events' wall-clock carries."""
+    monkeypatch.setenv(fault.SLOW_MS_ENV, str(SLOW_MS))
+    metrics = str(tmp_path)
+    m = _build(k=k, metrics_dir=metrics, health_policy="skip_step")
+    schedule = FaultSchedule(seed=0, sites=frozenset({site}), rate=0.5)
+    fault.install_schedule(schedule)
     try:
-        with pytest.raises(NotImplementedError, match=r"\(A9\)"):
-            m.fit(*_data(), epochs=1, verbose=False)
+        m.fit(*_data(), epochs=1, verbose=False)
     finally:
         fault.install_schedule(None)
-    assert m._step_count == 0
+    fired = [step for s, step in schedule.fired_log if s == site]
+    assert fired and m._step_count == STEPS_PER_EPOCH
+    events = [e for e in read_events(metrics) if "step" in e]
+    assert [e["step"] for e in events] == list(range(1, STEPS_PER_EPOCH + 1))
+    if site == "nonfinite":
+        assert [e["step"] for e in events if e["skipped"] and e["nonfinite"]] == fired
+        assert not any(e["skipped"] for e in events if e["step"] not in fired)
+        assert int(m.opt_state["step"]) == STEPS_PER_EPOCH - len(fired)
+        assert all(torch.isfinite(p).all() for p in m.params.values())
+    else:
+        assert not any(e["skipped"] or e["nonfinite"] for e in events)
+        assert sum(e["wallclock_ms"] for e in events) >= SLOW_MS * len(fired)
+        if k == 1:
+            assert all(e["wallclock_ms"] >= SLOW_MS for e in events if e["step"] in fired)
