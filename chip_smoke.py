@@ -1,7 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (flexflow_tpu_torch) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases a,b,...]
+
+Without arguments every phase runs; `--phases` runs only the named ones
+(besides device and build), for intermediate runs: a phase that reads
+another's result (search and roofline read train's step, search_warm
+search's store, search_mcmc search_warm's process, plan_serve serve's
+measurements, plan_audit search's run) says which to add. Every phase
+prints its wall seconds on a line of its own, and before the kernel table
+one {"phase_wall_s": ...} line collects them.
 
 Phases, each printing one JSON line:
 
@@ -51,7 +59,29 @@ Phases, each printing one JSON line:
                   and rows 1-3 against their plain versions at every flash
                   shape the search measured; then the unrewritten
                   flagship's 1-device estimate, measured and analytic (at
-                  the calibrated rates), beside train's median step;
+                  the calibrated rates), beside train's median step; every
+                  leaf it times goes to a cost store (compiler/cost_store.py)
+                  in a temporary directory;
+7a. search_warm   a fresh process plans the flagship for the same 8 H100s
+                  from that store: no leaf timed, no flash kernel launched,
+                  search's winner and estimate exactly, and its phase_ms;
+                  then (in that process) the store's entries stamped with
+                  another device kind: the search reads none of them and
+                  times every leaf it looks up;
+7b. search_mcmc   MCMC (search_algorithm="mcmc", 40 evaluations: the
+                  Unity search's budget) for the flagship on 8 H100s from
+                  the warm store, in the same process: winner, estimate,
+                  evaluations, seconds, the leaves it timed; the winner
+                  beats the serial plan and is within 10% of the Unity
+                  winner's estimate;
+7c. search_nodes  the flagship's widths at 2 layers planned for 2 nodes x 8
+                  H100s under machine_model_version=1 (NVSwitch within a
+                  node, InfiniBand NIC ports across) with multislice's
+                  two-level DP, analytic at the H100 peaks, beside the flat
+                  DP: both estimates, the outer level's choices, the flat
+                  winner re-priced two-level, the winner's movement edges
+                  split into nvlink and ib (export_movement_predictions),
+                  seconds by search phase;
 
 then the user API, FFModel (flexflow_tpu_torch.core):
 
@@ -111,8 +141,10 @@ then the example zoo:
                   reserved, each d=256 wrapper 12 times a step and no other
                   flash or ring kernel, a profiled fit's kernel ms and idle
                   share, a finite loss;
-15. examples      the 11 port examples at tests/test_examples.py's sizes on
-                  the card, each printing finite step losses;
+15. examples      the port examples at tests/test_examples.py's sizes on
+                  the card (split_test with and without --branch-stacking,
+                  split_test_2 among them), each printing finite step
+                  losses;
 
 then, in a one-rank NCCL process group opened over a file:// store:
 
@@ -197,6 +229,18 @@ are no NVLink or NCCL figure):
                   "gloo"); rank 0 alone searches, and the losses and
                   parameters are bitwise the same job's over a file://
                   store;
+29a. fit_overlap  one job of 2 ranks: a searched compile with overlap=True
+                  (analytic, the H100 constants) of a weight-heavy MLP
+                  (OVERLAP_MLP, whose winner is tensor parallel with a
+                  matmul_rs site) prices the fused edge and trains through
+                  the collective matmul, its losses within 1e-4 of the same
+                  plan without overlap (the first batch's logits within
+                  1e-2, each parameter's change within 3e-3), k-1 ring
+                  steps a step, its audit's
+                  fused edges timed as fused; then a searched compile of
+                  the small flagship with perform_fusion and a legacy TASO
+                  rule file the phase writes trains, rows 9-11 once per
+                  layer per step on each rank;
 
 Each multi-rank training phase prints its MFU (the model's own step flops,
 kernels.ops.graph_step_flops, over step seconds x ranks x 989 TFLOP/s) and
@@ -309,6 +353,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1526,9 +1571,15 @@ SEARCH_NODE_GPUS = 8
 SEARCH_DEGREES = [2, 4, 8]
 SEARCH_BUDGET = 4
 SEARCH_LIMIT_S = 180.0
+# search_mcmc: MCMC at FFConfig's rule for search_algorithm="mcmc", ten
+# evaluations a unit of search_budget, at the Unity search's own budget (40
+# evaluations); its winner must beat the serial plan and cost at most
+# MCMC_UNITY_MARGIN x the Unity winner's estimate (the serial plan is ~3.2x)
+SEARCH_MCMC_EVALUATIONS = 10 * SEARCH_BUDGET
+MCMC_UNITY_MARGIN = 1.10
 
 
-def _launch_counting_estimator(settings):
+def _launch_counting_estimator(settings, cost_store=None):
     """A LocalCostEstimator on the card that counts each flash wrapper's
     device launches. profile_fn calls a leaf's step warmup_iters times
     eagerly and once under CUDA-graph capture, each through the wrappers
@@ -1540,7 +1591,7 @@ def _launch_counting_estimator(settings):
 
     class Counting(LocalCostEstimator):
         def __init__(self):
-            super().__init__(settings, device="cuda")
+            super().__init__(settings, device="cuda", cost_store=cost_store)
             self.device_launches = {fn.__name__: 0 for fn in fa.KERNEL_WRAPPERS}
 
         def estimate_operator_cost(self, *args, **kwargs):
@@ -1559,19 +1610,49 @@ def _launch_counting_estimator(settings):
     return Counting()
 
 
-def run_search(cfg: dict, settings=(2, 5)):
+def _search_8_h100(pcg, local, algorithm: str = "unity"):
+    """(the result, seconds, the machine spec) of one search of `pcg` for
+    one node of SEARCH_NODE_GPUS cards, each leaf priced by `local`: the
+    Unity search at SEARCH_BUDGET, or MCMC at SEARCH_MCMC_EVALUATIONS."""
+    from flexflow_tpu_torch.compiler import (
+        GPUCostEstimator,
+        MCMCConfig,
+        MachineMappingContext,
+        OptimizerConfig,
+        graph_optimize,
+        make_default_allowed_machine_views,
+        mcmc_optimize,
+    )
+    from flexflow_tpu_torch.compiler.calibration import H100_NVLINK_GBPS, NDR_INFINIBAND_GBPS
+    from flexflow_tpu_torch.pcg.machine_view import MachineSpecification
+    from flexflow_tpu_torch.substitutions.rules import generate_parallelization_rules
+
+    spec = MachineSpecification(1, 1, SEARCH_NODE_GPUS, NDR_INFINIBAND_GBPS, H100_NVLINK_GBPS)
+    ctx = MachineMappingContext(GPUCostEstimator(spec, local_cost_estimator=local),
+                                make_default_allowed_machine_views())
+    rules = generate_parallelization_rules(SEARCH_DEGREES)
+    start = time.perf_counter()
+    if algorithm == "mcmc":
+        result = mcmc_optimize(pcg, ctx, spec, rules,
+                               MCMCConfig(budget=SEARCH_MCMC_EVALUATIONS))
+    else:
+        result = graph_optimize(pcg, ctx, spec, rules,
+                                OptimizerConfig(alpha=1.2, budget=SEARCH_BUDGET))
+    return result, time.perf_counter() - start, spec, len(rules)
+
+
+def run_search(cfg: dict, settings=(2, 5), cost_store=None):
     """graph_optimize over the flagship config `cfg` for one node of
-    SEARCH_NODE_GPUS cards, each leaf measured on the card; then the
-    unrewritten flagship priced for one device with the same leaves, and by
-    the analytic roofline at the card's calibrated rates."""
+    SEARCH_NODE_GPUS cards, each leaf measured on the card (and written to
+    `cost_store`); then the unrewritten flagship priced for one device with
+    the same leaves, and by the analytic roofline at the card's calibrated
+    rates."""
     from flexflow_tpu_torch.compiler import (
         AnalyticGPUCostEstimator,
         GPUCostEstimator,
         MachineMappingCache,
         MachineMappingContext,
-        OptimizerConfig,
         evaluate_pcg,
-        graph_optimize,
         make_default_allowed_machine_views,
     )
     from flexflow_tpu_torch.compiler.calibration import (
@@ -1582,21 +1663,13 @@ def run_search(cfg: dict, settings=(2, 5)):
     from flexflow_tpu_torch.kernels.profiling import ProfilingSettings
     from flexflow_tpu_torch.models import build_flagship_pcg
     from flexflow_tpu_torch.pcg.machine_view import MachineSpecification
-    from flexflow_tpu_torch.substitutions.rules import generate_parallelization_rules
 
     pcg = build_flagship_pcg(**cfg)
     start = time.perf_counter()
     cal = calibrate(device="cuda")
     calibrate_s = time.perf_counter() - start
-    local = _launch_counting_estimator(ProfilingSettings(*settings))
-    spec = MachineSpecification(1, 1, SEARCH_NODE_GPUS, NDR_INFINIBAND_GBPS, H100_NVLINK_GBPS)
-    est = GPUCostEstimator(spec, local_cost_estimator=local)
-    ctx = MachineMappingContext(est, make_default_allowed_machine_views())
-    rules = generate_parallelization_rules(SEARCH_DEGREES)
-    start = time.perf_counter()
-    result = graph_optimize(pcg, ctx, spec, rules,
-                            OptimizerConfig(alpha=1.2, budget=SEARCH_BUDGET))
-    search_s = time.perf_counter() - start
+    local = _launch_counting_estimator(ProfilingSettings(*settings), cost_store)
+    result, search_s, spec, rules = _search_8_h100(pcg, local)
     one = MachineSpecification(1, 1, 1, NDR_INFINIBAND_GBPS, H100_NVLINK_GBPS)
     views = make_default_allowed_machine_views()
     serial = evaluate_pcg(pcg, MachineMappingContext(
@@ -1604,7 +1677,7 @@ def run_search(cfg: dict, settings=(2, 5)):
     analytic = evaluate_pcg(pcg, MachineMappingContext(
         AnalyticGPUCostEstimator(one, cal.peak_flops, cal.hbm_gbps), views), one,
         MachineMappingCache())
-    return dict(result=result, local=local, cal=cal, spec=spec, rules=len(rules),
+    return dict(result=result, local=local, cal=cal, spec=spec, rules=rules,
                 calibrate_s=calibrate_s, search_s=search_s, one_device=serial,
                 one_device_analytic=analytic)
 
@@ -1649,10 +1722,16 @@ def phase_search(smi: str, train_step_ms: float) -> dict:
     from flexflow_tpu_torch.models import FLAGSHIP
     from flexflow_tpu_torch.op_attrs.ops import MultiHeadAttentionAttrs
 
+    from flexflow_tpu_torch.compiler import CostStore, device_kind_signature
+
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
-    run = run_search(FLAGSHIP)
-    SEARCH_RUN.update(run)
+    # the leaves go to a cost store, which search_warm plans from
+    store_dir = tempfile.mkdtemp(prefix="search_store_")
+    store = CostStore(store_dir, device_kind=device_kind_signature("cuda"))
+    run = run_search(FLAGSHIP, cost_store=store)
+    store.save()
+    SEARCH_RUN.update(run, store_dir=store_dir, store_entries=len(store))
     calls = {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS}
     peak = torch.cuda.max_memory_allocated()
     r, local = run["result"], run["local"]
@@ -1700,6 +1779,7 @@ def phase_search(smi: str, train_step_ms: float) -> dict:
         "launches": {n: v for n, v in launches.items() if v},
         "wrapper_calls": {n: v for n, v in calls.items() if v},
         "leaf_kernel_checks": leaf_kernels, "peak_memory_bytes": peak,
+        "cost_store": store.provenance(),
         "one_device_estimate_ms": one_ms,
         "one_device_analytic_estimate_ms": run["one_device_analytic"].runtime,
         "train_median_step_ms": train_step_ms,
@@ -1710,6 +1790,236 @@ def phase_search(smi: str, train_step_ms: float) -> dict:
         raise AssertionError(f"search: failed checks {failed}")
     torch.cuda.empty_cache()
     return {name: launches[name] for name in FLASH_WRAPPERS}
+# search_warm, search_mcmc: a fresh process plans the flagship from search's
+# cost store (argv: the store's directory); prints its runs as its last line
+SEARCH_WARM_WORKER = r"""
+import json, sys
+import chip_smoke as c
+print(json.dumps(c.search_store_runs(sys.argv[1])))
+"""
+FOREIGN_KIND = "cuda:a card of another kind"
+
+
+def _store_run(store, algorithm: str = "unity") -> dict:
+    """One search of the flagship for 8 H100s priced from `store`: what it
+    timed (leaves, device launches of rows 1-3, the wrappers' calls), the
+    store's hits and misses, the winner, its estimate and the seconds."""
+    from flexflow_tpu_torch.compiler import parallel_degree_summary
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels.profiling import ProfilingSettings
+    from flexflow_tpu_torch.models import FLAGSHIP, build_flagship_pcg
+
+    fa.reset_launch_counts()
+    local = _launch_counting_estimator(ProfilingSettings(2, 5), store)
+    result, secs, _, _ = _search_8_h100(build_flagship_pcg(**FLAGSHIP), local, algorithm)
+    return dict(leaves_timed=local.profile_calls, inf_leaves=len(local.inf_leaves),
+                op_hits=store.op_hits,
+                op_misses=store.op_misses, device_launches=dict(local.device_launches),
+                wrapper_calls={fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS},
+                runtime_ms=result.runtime, serial_ms=result.serial_runtime,
+                winner=parallel_degree_summary(result.pcg),
+                evaluations=result.telemetry["evaluations"], explored=result.explored,
+                phase_ms=result.telemetry["phase_ms"], seconds=secs)
+
+
+def search_store_runs(store_dir: str) -> dict:
+    """search_warm's and search_mcmc's runs, in this (fresh) process: the
+    Unity search from search's store, MCMC from it, then the store's
+    entries stamped with another device kind (a copy beside it) and the
+    Unity search again."""
+    from flexflow_tpu_torch.compiler import CostStore, device_kind_signature
+
+    card = device_kind_signature("cuda")
+    out = {"device_kind": card}
+    out["warm"] = _store_run(CostStore(store_dir, device_kind=card))
+    out["mcmc"] = _store_run(CostStore(store_dir, device_kind=card), "mcmc")
+    foreign_dir = store_dir.rstrip("/") + "_foreign"
+    shutil.rmtree(foreign_dir, ignore_errors=True)
+    os.makedirs(foreign_dir)
+    with open(os.path.join(store_dir, CostStore.FILENAME)) as f:
+        doc = json.load(f)
+    doc["entries"] = {k.replace(card, FOREIGN_KIND):
+                      dict(e, device_kind=FOREIGN_KIND) if e.get("device_kind") == card else e
+                      for k, e in doc["entries"].items()}
+    with open(os.path.join(foreign_dir, CostStore.FILENAME), "w") as f:
+        json.dump(doc, f)
+    foreign = CostStore(foreign_dir, device_kind=card)
+    out["foreign_census"] = foreign.stats()["by_device_kind"]
+    out["foreign"] = _store_run(foreign)
+    return out
+
+
+def phase_search_warm(smi: str) -> dict:
+    """A fresh process plans the flagship for 8 H100s from the cost store
+    search wrote: it times no leaf, launches no flash kernel, and returns
+    search's winner at search's estimate exactly. Then (in that process)
+    MCMC from the same store (search_mcmc prints it), and the store's
+    entries stamped with another device kind: that run must time every leaf
+    again and read none. Returns the device launches of the runs (the
+    foreign run's re-timed leaves, MCMC's leaves the warm store lacked)."""
+    start = time.perf_counter()
+    run = SEARCH_RUN
+    if "store_dir" not in run:
+        raise AssertionError("search_warm plans from search's cost store: add search to --phases")
+    child = subprocess.run([sys.executable, "-c", SEARCH_WARM_WORKER, run["store_dir"]], cwd=REPO,
+                           capture_output=True, text=True, timeout=RANK_TIMEOUT_S)
+    if child.returncode != 0:
+        raise AssertionError(f"search_warm: the fresh process failed: {child.stderr[-3000:]}")
+    res = json.loads(child.stdout.strip().splitlines()[-1])
+    SEARCH_WARM.update(res)
+    cold, warm, foreign = run["result"], res["warm"], res["foreign"]
+    from flexflow_tpu_torch.compiler import parallel_degree_summary
+
+    checks = {
+        "no_leaf_timed": warm["leaves_timed"] == 0 and warm["op_misses"] == 0,
+        "no_flash_launch": not any(warm["device_launches"].values())
+        and not any(warm["wrapper_calls"].values()),
+        "same_estimate": warm["runtime_ms"] == cold.runtime,
+        "same_winner": warm["winner"] == parallel_degree_summary(cold.pcg),
+        "foreign_never_served": foreign["op_hits"] == 0,
+        # every leaf it looked up missed and was timed (its own timings may
+        # lead it to other candidates than the warm run's)
+        "foreign_times_every_leaf": foreign["leaves_timed"] + foreign["inf_leaves"]
+        == foreign["op_misses"] > 0,
+        "foreign_store_holds_no_card_entry": res["device_kind"] not in res["foreign_census"],
+    }
+    emit({"phase": "search_warm", "card": smi, "store_entries": run["store_entries"],
+          "cold": {"runtime_ms": cold.runtime, "leaves_timed": run["local"].profile_calls,
+                   "phase_ms": cold.telemetry["phase_ms"], "search_s": run["search_s"]},
+          "warm": warm, "foreign": foreign, "foreign_census": res["foreign_census"],
+          "checks": checks, "seconds": time.perf_counter() - start})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"search_warm: failed checks {failed}")
+    print(f"search_warm: {warm['leaves_timed']} leaves timed, {warm['phase_ms']} ms by phase "
+          f"(cold {cold.telemetry['phase_ms']}), foreign kind re-timed "
+          f"{foreign['leaves_timed']}", flush=True)
+    return {n: warm["device_launches"].get(n, 0) + foreign["device_launches"].get(n, 0)
+            for n in FLASH_WRAPPERS}
+
+
+SEARCH_WARM = {}  # search_warm's fresh process's runs, read by search_mcmc
+
+
+def phase_search_mcmc(smi: str) -> dict:
+    """MCMC (search_algorithm="mcmc", SEARCH_MCMC_EVALUATIONS) for the
+    flagship on 8 H100s from search's warm store, run in search_warm's fresh
+    process: its winner, estimate, evaluations and seconds beside the Unity
+    search's, and the leaves it timed (those of candidates the Unity search
+    never priced). The walk's winner must beat the serial plan and cost at
+    most MCMC_UNITY_MARGIN x the Unity winner's estimate."""
+    if "mcmc" not in SEARCH_WARM:
+        raise AssertionError("search_mcmc runs in search_warm's process: add search_warm")
+    mcmc, warm = SEARCH_WARM["mcmc"], SEARCH_WARM["warm"]
+    checks = {
+        "finite": math.isfinite(mcmc["runtime_ms"]) and mcmc["evaluations"] > 1,
+        "beats_serial": mcmc["runtime_ms"] < mcmc["serial_ms"],
+        "near_unity": mcmc["runtime_ms"] <= MCMC_UNITY_MARGIN * warm["runtime_ms"],
+    }
+    emit({"phase": "search_mcmc", "card": smi, "budget_evaluations": SEARCH_MCMC_EVALUATIONS,
+          "margin_over_unity": MCMC_UNITY_MARGIN, "mcmc": mcmc,
+          "unity": {k: warm[k] for k in ("runtime_ms", "winner", "evaluations", "seconds")},
+          "checks": checks, "seconds": mcmc["seconds"]})
+    print(f"search_mcmc: {mcmc['winner']} at {mcmc['runtime_ms']} ms (serial "
+          f"{mcmc['serial_ms']}) after {mcmc['evaluations']} evaluations in "
+          f"{mcmc['seconds']:.1f} s (unity {warm['winner']} at {warm['runtime_ms']} ms)",
+          flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"search_mcmc: failed checks {failed}: {mcmc}")
+    return {n: mcmc["device_launches"].get(n, 0) for n in FLASH_WRAPPERS}
+
+
+# search_nodes: 2 nodes of 8 H100s; the flagship's widths at a depth the
+# pure-Python DP plans within the phase's time. Its DP time grows about
+# tenfold a layer on two nodes, as the JAX package's pure-Python DP's does
+# (2.8 and 22.5 s of DP at 2 and 3 layers on one CPU core, the JAX package's
+# 4.3 and 44.2; tests/torch_port_probes.py depth); only the JAX package's
+# native DP plans deeper cuts within the phase's time
+SEARCH_NODES = dict(nodes=2, gpus_per_node=8, layers=2, budget=2)
+
+
+def phase_search_nodes(smi: str) -> None:
+    """The flagship (at SEARCH_NODES' depth) planned for 2 nodes x 8 H100s
+    under machine_model_version=1 (EnhancedGPUMachineModel: NVSwitch within
+    a node, InfiniBand ports across) with FFConfig.multislice's search, the
+    two-level DP over nodes, analytic at the H100's peaks; beside it the
+    flat DP under the same model, and the flat winner re-priced by the
+    two-level context. Prints the estimates, the outer level's choices, the
+    winner's movement edges by link class (export_movement_predictions) and
+    seconds by search phase."""
+    from flexflow_tpu_torch.compiler import (
+        AnalyticGPUCostEstimator,
+        MachineMappingContext,
+        OptimizerConfig,
+        graph_optimize,
+        make_default_allowed_machine_views,
+        parallel_degree_summary,
+        price_mapped_plan,
+    )
+    from flexflow_tpu_torch.compiler.calibration import H100_NVLINK_GBPS, NDR_INFINIBAND_GBPS
+    from flexflow_tpu_torch.compiler.machine_mapping.movement_export import (
+        export_movement_predictions,
+        link_class_census,
+    )
+    from flexflow_tpu_torch.compiler.machine_model import (
+        MachineModelCommModel,
+        machine_model_from_config,
+    )
+    from flexflow_tpu_torch.models import FLAGSHIP, build_flagship_pcg
+    from flexflow_tpu_torch.observability.roofline import H100_HBM_GBPS, H100_PEAK_FLOPS
+    from flexflow_tpu_torch.pcg.machine_view import MachineSpecification
+    from flexflow_tpu_torch.substitutions.rules import generate_parallelization_rules
+
+    start = time.perf_counter()
+    n = SEARCH_NODES
+    cfg = dict(FLAGSHIP, layers=n["layers"])
+    spec = MachineSpecification(n["nodes"], 1, n["gpus_per_node"], NDR_INFINIBAND_GBPS,
+                                H100_NVLINK_GBPS)
+    model = machine_model_from_config(spec, 1)
+    gpus = n["nodes"] * n["gpus_per_node"]
+    rules = generate_parallelization_rules([d for d in range(2, gpus + 1) if gpus % d == 0])
+
+    def context(two_level: bool):
+        est = AnalyticGPUCostEstimator(spec, H100_PEAK_FLOPS, H100_HBM_GBPS,
+                                       comm_model=MachineModelCommModel(spec, model))
+        return MachineMappingContext(est, make_default_allowed_machine_views(),
+                                     overlap_fraction=0.5, slice_aware=two_level,
+                                     slice_hierarchy=two_level)
+
+    runs = {}
+    for name, two_level in (("two_level", True), ("flat", False)):
+        ctx = context(two_level)
+        t0 = time.perf_counter()
+        r = graph_optimize(build_flagship_pcg(**cfg), ctx, spec, rules,
+                           OptimizerConfig(alpha=1.2, budget=n["budget"]))
+        runs[name] = (r, ctx, time.perf_counter() - t0)
+    hier, hctx, _ = runs["two_level"]
+    flat = runs["flat"][0]
+    census = link_class_census(export_movement_predictions(hier.pcg, hier.machine_mapping,
+                                                           hctx.cost_estimator))
+    repriced = price_mapped_plan(flat.pcg, flat.machine_mapping, hctx, spec)
+    if not (math.isfinite(hier.runtime) and math.isfinite(flat.runtime)
+            and hier.hierarchical and hier.hierarchical["winner"]):
+        raise AssertionError(f"search_nodes: {hier.runtime} / {flat.runtime} / "
+                             f"{hier.hierarchical}")
+    out = {name: {"estimated_ms": r.runtime, "winner": parallel_degree_summary(r.pcg),
+                  "evaluations": r.telemetry["evaluations"], "phase_ms": r.telemetry["phase_ms"],
+                  "seconds": secs} for name, (r, _, secs) in runs.items()}
+    emit({"phase": "search_nodes", "card": smi, "config": cfg, "machine": {
+              "nodes": n["nodes"], "gpus_per_node": n["gpus_per_node"],
+              "model": "EnhancedGPUMachineModel (machine_model_version=1)",
+              "nvlink_gbps": model.nvlink_gbps, "ib_gbps": model.ib_gbps,
+              "nic_ports_per_node": model.nic_ports, "rates": "datasheet, not measured"},
+          "budget": n["budget"], "searches": out, "outer_level": hier.hierarchical,
+          "flat_winner_repriced_two_level_ms": repriced, "link_census": census,
+          "seconds": time.perf_counter() - start})
+    print(f"search_nodes: two-level {out['two_level']['winner']} at "
+          f"{hier.runtime:.4f} ms (outer {hier.hierarchical['winner']}), flat "
+          f"{out['flat']['winner']} at {flat.runtime:.4f} ms (two-level price {repriced}); "
+          f"edges by link {census}", flush=True)
+
+
 FIT_METRICS = ["accuracy", "sparse_categorical_crossentropy"]
 
 
@@ -3271,6 +3581,93 @@ def overlap_sites():
     return res
 
 
+def overlap_and_rules():
+    """fit_overlap: searched compiles (analytic, on the H100 constants) of
+    the wide MLP with overlap off and on, the same plan, trained the same
+    steps from the same initial values (bf16): the losses, how far the
+    fused run's parameters are from the serial run's, the fused sites, the
+    ring steps a step, the search's overlap pricing and the audit's fused
+    edges; then the small flagship with the fusion rules and the legacy
+    rule file, trained: its losses and rows 9-11's launches."""
+    from flexflow_tpu_torch.core import AdamOptimizer, FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.interop import pcg_params_to_numpy
+
+    w, steps = job["mlp"], job["steps"]
+    gen = torch.Generator().manual_seed(2)
+    xs = torch.randn(steps * w["batch"], w["d"], generator=gen).numpy()
+    ys = torch.randint(0, w["d"], (steps * w["batch"],), generator=gen).numpy().astype(np.int32)
+    res, finals, initial, logits = {}, {}, {}, {}
+
+    def recorded(m, losses):
+        step = m.instance.train_step
+
+        def rec(*a, **k):
+            r = step(*a, **k)
+            losses.append(float(r[2]))
+            return r
+
+        m.instance.train_step = rec
+
+    for overlap in (False, True):
+        m = FFModel(FFConfig(batch_size=w["batch"], seed=0, print_freq=0, search_budget=2,
+                             cost_model="analytic", overlap=overlap, plan_audit=overlap),
+                    device=device)
+        x = m.create_tensor([w["batch"], w["d"]], name="x")
+        m.dense(m.relu(m.dense(x, w["h"], use_bias=False, name="fc1")), w["d"],
+                use_bias=False, name="out")
+        start = time.perf_counter()
+        m.compile(SGDOptimizer(lr=0.05), "sparse_categorical_crossentropy", compute_dtype=dtype)
+        compile_s = time.perf_counter() - start
+        inst, losses = m.instance, []
+        initial[overlap] = pcg_params_to_numpy(inst.pcg, inst.shardings, inst.machine_mesh,
+                                               m.params)
+        first = torch.from_numpy(xs[:w["batch"]]).to(dtype or torch.float32)
+        logits[overlap] = inst.forward({k: p.to(first.dtype) for k, p in m.params.items()},
+                                       {"x": first}).float().cpu()
+        recorded(m, losses)
+        ring0 = inst.machine_mesh.counts["ring_step"]
+        sync()
+        start = time.perf_counter()
+        m.fit(xs, ys, epochs=1, shuffle=False, verbose=False)
+        sync()
+        fit_ms = (time.perf_counter() - start) * 1e3
+        finals[overlap] = pcg_params_to_numpy(inst.pcg, inst.shardings, inst.machine_mesh,
+                                              m.params)
+        res["fused" if overlap else "serial"] = dict(
+            compile_s=compile_s, step_ms=fit_ms / steps, losses=losses,
+            fused=sorted(inst.fused_sites.values()),
+            ring_steps_per_step=(inst.machine_mesh.counts["ring_step"] - ring0) / steps,
+            provenance=m.search_provenance)
+    res["param_rel_diff"] = {
+        k: float(np.linalg.norm(finals[True][k] - v) / max(np.linalg.norm(v), 1e-30))
+        for k, v in finals[False].items()}
+    # each parameter's change over the fit, fused against serial (from the
+    # same initial values), relative to the serial run's change
+    res["update_rel_diff"] = {
+        k: float(np.linalg.norm((finals[True][k] - initial[True][k]) - (v - initial[False][k]))
+                 / max(np.linalg.norm(v - initial[False][k]), 1e-30))
+        for k, v in finals[False].items()}
+    res["initial_equal"] = all(np.array_equal(initial[True][k], v)
+                               for k, v in initial[False].items())
+    res["logits_rel_diff"] = float((logits[True] - logits[False]).norm()
+                                   / logits[False].norm().clamp_min(1e-30))
+    rx, ry = batch(job["rules_steps"] * cfg["batch"])
+    m = FFModel.from_computation_graph(
+        *build_flagship_cg(**cfg), device=device,
+        config=FFConfig(batch_size=cfg["batch"], seed=0, print_freq=0, search_budget=2,
+                        cost_model="analytic", perform_fusion=True,
+                        substitution_json_path=job["rules_file"]))
+    m.compile(AdamOptimizer(alpha=1e-4), "sparse_categorical_crossentropy",
+              compute_dtype=dtype)
+    losses = []
+    recorded(m, losses)
+    fa.reset_launch_counts()
+    m.fit(rx.numpy(), ry.numpy().astype(np.int32), epochs=1, shuffle=False, verbose=False)
+    sync()
+    res["rules"] = dict(losses=losses, launches=launches(), provenance=m.search_provenance)
+    return res
+
+
 def resume_ranks():
     """resume_ranks: FFModel over the ranks under the forced plan
     job["seed"] at steps_per_dispatch job["k"], checkpointing every
@@ -3476,6 +3873,8 @@ elif job["mode"] == "calibrate_overlap":
     out["overlap"] = overlap_sites()
 elif job["mode"] == "resume":
     out["resume"] = resume_ranks()
+elif job["mode"] == "overlap":
+    out.update(overlap_and_rules())
 with open(f"{job['out']}.rank{rank}.json", "w") as f:
     json.dump(out, f)
 dist.destroy_process_group()
@@ -3664,6 +4063,131 @@ def phase_fit_searched(smi: str, tmp: str, device: str = "cuda:0") -> dict:
           "collectives_per_step": first["implied"], "launches_per_rank": first["launches"],
           "plan_audit": {key: audits[0][key] for key in ("num_ops", "num_movement_edges",
                                                          "movement_measured", "summary")}})
+    return launches
+
+
+# fit_overlap: a weight-heavy MLP for which the search on the H100's
+# constants picks tensor parallelism with a fused site (the small flagship's
+# winner at 2 ranks is the serial plan, which has none), 3 SGD steps; then
+# the small flagship with the fusion and legacy rules, 2 Adam steps
+OVERLAP_MLP = dict(batch=64, d=2048, h=8192)
+OVERLAP_STEPS = 3
+OVERLAP_RULES_STEPS = 2
+# Fused run against serial run, from the same initial values. Each bound sits
+# between the sound readings (losses 2e-6 apart on the card; bitwise equal on
+# the CPU, f32) and those of a planted fault, the reduce-scatter ring adding a
+# rotated chunk (on the CPU: losses 8.8e-3 apart, logits 0.82, updates 1.2e-2;
+# tests/torch_port_probes.py overlap-fault). On fresh weights the loss is
+# ~ln(2048) plus a small term and 3 SGD steps move a weight by <1% of its
+# norm, so the first-batch logits and the parameters' changes carry the check.
+OVERLAP_LOSS_BOUND = 1e-4  # relative, each step's loss
+OVERLAP_LOGITS_BOUND = 1e-2  # norm-relative, the first batch's logits before the fit
+OVERLAP_UPDATE_BOUND = 3e-3  # norm-relative, each parameter's change over the fit
+# a legacy TASO rule (tests/test_legacy_rules.py's): an elementwise add
+# partitioned along dim 1
+OVERLAP_LEGACY_RULE = {"rule": [{
+    "name": "example_subst",
+    "srcOp": [{"type": "OP_EW_ADD", "para": [],
+               "input": [{"opId": -1, "tsId": 0}, {"opId": -2, "tsId": 0}]}],
+    "dstOp": [
+        {"type": "OP_PARTITION", "input": [{"opId": -1, "tsId": 0}],
+         "para": [{"key": "PM_PARALLEL_DIM", "value": 1},
+                  {"key": "PM_PARALLEL_DEGREE", "value": 2}]},
+        {"type": "OP_PARTITION", "input": [{"opId": -2, "tsId": 0}],
+         "para": [{"key": "PM_PARALLEL_DIM", "value": 1},
+                  {"key": "PM_PARALLEL_DEGREE", "value": 2}]},
+        {"type": "OP_EW_ADD", "para": [],
+         "input": [{"opId": 0, "tsId": 0}, {"opId": 1, "tsId": 0}]},
+        {"type": "OP_COMBINE", "input": [{"opId": 2, "tsId": 0}],
+         "para": [{"key": "PM_PARALLEL_DIM", "value": 1},
+                  {"key": "PM_PARALLEL_DEGREE", "value": 2}]}],
+    "mappedOutput": [{"dstOpId": 3, "dstTsId": 0, "srcOpId": 0, "srcTsId": 0}]}]}
+
+
+def phase_fit_overlap(smi: str, tmp: str, device: str = "cuda:0", cfg: dict = TP_PARITY,
+                      mlp: dict = OVERLAP_MLP) -> dict:
+    """One job of 2 gloo ranks sharing the card: a searched compile with
+    overlap=True (analytic, the H100 constants) prices the fused edges
+    (FFConfig.overlap's search), trains through the collective matmuls to
+    the losses of the same plan without overlap within OVERLAP_LOSS_BOUND
+    (its first batch's logits within OVERLAP_LOGITS_BOUND and each
+    parameter's change within OVERLAP_UPDATE_BOUND), ringing k-1 steps a
+    step, and its audit times the fused edges as fused;
+    then a searched compile with perform_fusion and a legacy rule file the
+    phase writes trains the small flagship (finite losses, rows 9-11 once
+    per layer per step on each rank). Returns the launches summed over
+    the ranks."""
+    start = time.perf_counter()
+    rules_file = os.path.join(tmp, "fit_overlap_rules.json")
+    with open(rules_file, "w") as f:
+        json.dump(OVERLAP_LEGACY_RULE, f)
+    ranks = run_ranks(2, dict(name="fit_overlap", mode="overlap", cfg=cfg, device=device,
+                              mlp=mlp, steps=OVERLAP_STEPS, rules_steps=OVERLAP_RULES_STEPS,
+                              rules_file=rules_file), tmp)
+    for r in ranks:
+        serial, fused = r["serial"], r["fused"]
+        if serial["fused"] or not fused["fused"]:
+            raise AssertionError(f"fit_overlap rank {r['rank']}: fused sites {serial['fused']} "
+                                 f"without overlap, {fused['fused']} with it")
+        if serial["provenance"]["parallel_degrees"] != fused["provenance"]["parallel_degrees"]:
+            raise AssertionError("fit_overlap: overlap changed the plan")
+        ov = fused["provenance"]["overlap"]
+        if not (ov["priced"] and ov["eligible"] >= len(fused["fused"])):
+            raise AssertionError(f"fit_overlap: the search priced no fused edge: {ov}")
+        for a, b in zip(serial["losses"], fused["losses"]):
+            if not (math.isfinite(b) and abs(a - b) <= OVERLAP_LOSS_BOUND * abs(a)):
+                raise AssertionError(f"fit_overlap rank {r['rank']}: losses {fused['losses']} "
+                                     f"fused, {serial['losses']} serial")
+        if not r["initial_equal"]:
+            raise AssertionError(f"fit_overlap rank {r['rank']}: the runs started apart")
+        if not r["logits_rel_diff"] <= OVERLAP_LOGITS_BOUND:
+            raise AssertionError(f"fit_overlap rank {r['rank']}: first-batch logits "
+                                 f"{r['logits_rel_diff']} apart")
+        worst = max(r["update_rel_diff"].values())
+        if not worst <= OVERLAP_UPDATE_BOUND:
+            raise AssertionError(f"fit_overlap rank {r['rank']}: parameter changes {worst} "
+                                 "apart")
+        if fused["ring_steps_per_step"] < 1:
+            raise AssertionError(f"fit_overlap: {fused['ring_steps_per_step']} ring steps a step")
+        rules = r["rules"]
+        if not (rules["losses"] and all(math.isfinite(v) for v in rules["losses"])):
+            raise AssertionError(f"fit_overlap rank {r['rank']}: rules losses {rules['losses']}")
+    audits = [r["fused"]["provenance"].get("plan_audit") or {} for r in ranks]
+    if audits[0] != audits[1] or "summary" not in audits[0]:
+        raise AssertionError(f"fit_overlap: plan_audit {audits[0].get('error', audits[0])}")
+    fused_edges = [e for e in audits[0]["movement_edges"] if "fused_kind" in e]
+    if not fused_edges or not all(e["fused"] for e in fused_edges):
+        raise AssertionError(f"fit_overlap: the audit's fused edges {fused_edges}")
+    launches = _check_rank_launches("fit_overlap", ranks, cfg["layers"], OVERLAP_RULES_STEPS,
+                                    key="rules")
+    first = ranks[0]
+    emit({"phase": "fit_overlap", "ranks": 2, "sharing": f"2 {SHARED}", "card": smi,
+          "mlp": mlp, "steps": OVERLAP_STEPS, "cost_model": "analytic (H100 constants)",
+          "winner": first["fused"]["provenance"]["parallel_degrees"],
+          "estimated_ms": first["fused"]["provenance"]["estimated_ms"],
+          "overlap_pricing": {k: v for k, v in first["fused"]["provenance"]["overlap"].items()
+                              if k != "edges"},
+          "overlap_edges": first["fused"]["provenance"]["overlap"]["edges"],
+          "fused_sites": first["fused"]["fused"],
+          "ring_steps_per_step": first["fused"]["ring_steps_per_step"],
+          "losses": {"serial": first["serial"]["losses"], "fused": first["fused"]["losses"]},
+          "bounds": {"loss": OVERLAP_LOSS_BOUND, "logits": OVERLAP_LOGITS_BOUND,
+                     "update": OVERLAP_UPDATE_BOUND},
+          "logits_rel_diff": first["logits_rel_diff"],
+          "update_rel_diff": first["update_rel_diff"], "param_rel_diff": first["param_rel_diff"],
+          "step_ms": {"serial": first["serial"]["step_ms"], "fused": first["fused"]["step_ms"]},
+          "audit_fused_edges": fused_edges,
+          "rules": {"config": cfg, "losses": first["rules"]["losses"],
+                    "winner": first["rules"]["provenance"]["parallel_degrees"],
+                    "estimated_ms": first["rules"]["provenance"]["estimated_ms"],
+                    "launches_per_rank": first["rules"]["launches"]},
+          "seconds": time.perf_counter() - start})
+    print(f"fit_overlap: {first['fused']['fused']} at "
+          f"{first['fused']['provenance']['parallel_degrees']}, losses fused "
+          f"{first['fused']['losses']} serial {first['serial']['losses']}, logits "
+          f"{first['logits_rel_diff']:.3g} and changes "
+          f"{max(first['update_rel_diff'].values()):.3g} apart, audit "
+          f"{[(e['fused_kind'], e['measured_ms']) for e in fused_edges]}", flush=True)
     return launches
 
 
@@ -3997,8 +4521,9 @@ def phase_examples():
         losses = [float(v) for v in re.findall(r"loss (\S+)", printed)]
         if not losses or not all(math.isfinite(v) for v in losses):
             raise AssertionError(f"examples: {name} printed no finite loss:\n{printed}")
-        results[name] = {"argv": list(argv), "losses": losses, "seconds": time.perf_counter() - start,
-                         "last_line": printed.strip().splitlines()[-1]}
+        results[" ".join([name, *argv])] = {
+            "losses": losses, "seconds": time.perf_counter() - start,
+            "last_line": printed.strip().splitlines()[-1]}
     emit({"phase": "examples", "device": "cuda", "examples": results})
 
 
@@ -4400,9 +4925,11 @@ def _tight_serving_gb(cfg, spec, workload):
 
 
 def _plan_serve_rows(cfg: dict, prompt: int, tight: float, serial_cache: int, model: str,
-                     device, local=None) -> dict:
-    """plan_serve's two searches on one cost model, unbudgeted and at
-    `tight` GiB: each one's row of numbers; the budgeted winner checked
+                     device, local=None, budgets=("unbudgeted", "budgeted")) -> dict:
+    """plan_serve's searches on one cost model (optimize_serving_plan, one
+    after another, through one leaf timer `local` where one is given),
+    unbudgeted and at `tight` GiB: each one's row of numbers with its
+    decode and prefill searches' phase ms; the budgeted winner checked
     against verify_memory at that budget and its cache against the serial
     plan's."""
     from flexflow_tpu_torch.analysis.diagnostics import has_errors
@@ -4419,6 +4946,8 @@ def _plan_serve_rows(cfg: dict, prompt: int, tight: float, serial_cache: int, mo
     cache_spec = workload.cache_spec(t["max_seq_len"])
     rows = {}
     for budget, hbm in (("unbudgeted", 0.0), ("budgeted", tight)):
+        if budget not in budgets:
+            continue
         label = f"{model}_{budget}"
         plan, secs = _serving_search(cfg, spec, workload, hbm, model, local, device=device)
         cache = per_device_cache_bytes(plan.decode.pcg, attention_layers(plan.decode.pcg),
@@ -4429,7 +4958,10 @@ def _plan_serve_rows(cfg: dict, prompt: int, tight: float, serial_cache: int, mo
                    decode_winner=parallel_degree_summary(plan.decode.pcg),
                    prefill_winner=parallel_degree_summary(plan.prefill.pcg),
                    explored=[plan.decode.explored, plan.prefill.explored],
+                   phase_ms={p: plan.provenance[p]["phase_ms"] for p in ("decode", "prefill")},
                    per_device_cache_bytes=cache)
+        if local is not None:
+            row["leaves_timed_so_far"] = local.profile_calls
         if hbm:
             for phase in (plan.decode, plan.prefill):
                 _, diags = verify_memory(phase.pcg, spec, phase.machine_mapping,
@@ -4447,9 +4979,9 @@ def _plan_serve_rows(cfg: dict, prompt: int, tight: float, serial_cache: int, mo
     return rows
 
 
-# plan_serve's analytic searches, in a process of their own beside the
-# measured ones (host work only; argv: one JSON list of _plan_serve_rows'
-# arguments); prints their rows as its last line
+# plan_serve's analytic searches (host work only), one budget in each of two
+# processes beside the measured ones (argv: one JSON list of
+# _plan_serve_rows' arguments); prints their rows as its last line
 PLAN_SERVE_WORKER = r"""
 import json, sys
 import chip_smoke as c
@@ -4460,14 +4992,17 @@ print(json.dumps(c._plan_serve_rows(*json.loads(sys.argv[1]))))
 def phase_plan_serve(smi: str, device: str = "cuda", cfg: dict = SERVE_LM) -> None:
     """The serving search (serving/plan.py) plans SERVE_LM at SERVE_TRAFFIC's
     slots and max_seq_len for a node of 8 H100s (prompts at serve's median
-    prefill width, generations at the traffic's mean budget): analytically
-    at the H100 constants (in a process of its own, meanwhile) and with
-    each leaf's forward timed on the card (f32, CUDA events around graph
-    replays), unbudgeted and under a budget below the serial plan's cache
-    (_tight_serving_gb). The budgeted winners pass verify_memory at that
-    budget with a smaller per-device cache than the serial plan's; the
-    1-device estimates are printed beside serve's measured decode step and
-    prefill, with their ratios (no bound)."""
+    prefill width, generations at the traffic's mean budget): with each
+    leaf's forward timed on the card (f32, CUDA events around graph
+    replays), unbudgeted and then under a budget below the serial plan's
+    cache (_tight_serving_gb), the two through optimize_serving_plan in this
+    process and one leaf timer; and analytically at the H100 constants, the
+    two budgets at once in two processes of their own meanwhile (host work,
+    no device). Each search prints its decode and prefill phases' ms. The
+    budgeted winners pass verify_memory at that budget with a smaller
+    per-device cache than the serial plan's; the 1-device estimates are
+    printed beside serve's measured decode step and prefill, with their
+    ratios (no bound)."""
     from flexflow_tpu_torch.compiler.calibration import H100_NVLINK_GBPS, NDR_INFINIBAND_GBPS
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels.profiling import ProfilingSettings
@@ -4479,6 +5014,8 @@ def phase_plan_serve(smi: str, device: str = "cuda", cfg: dict = SERVE_LM) -> No
     fa.reset_launch_counts()
     t = SERVE_TRAFFIC
     spec = MachineSpecification(1, 1, SEARCH_NODE_GPUS, NDR_INFINIBAND_GBPS, H100_NVLINK_GBPS)
+    if "median_prefill_width" not in SERVE_MEASURED:
+        raise AssertionError("plan_serve reads serve's measurements: add serve to --phases")
     prompt = SERVE_MEASURED["median_prefill_width"]
     workload = ServingWorkload(prompt_len=prompt, gen_len=PLAN_SERVE_GEN, max_concurrent=t["slots"])
     cache_spec = workload.cache_spec(t["max_seq_len"])
@@ -4486,21 +5023,25 @@ def phase_plan_serve(smi: str, device: str = "cuda", cfg: dict = SERVE_LM) -> No
     if not tight * 2**30 < serial_cache:
         raise AssertionError(f"plan_serve: the budget {tight} GiB does not bind the serial "
                              f"plan's cache ({serial_cache} B)")
-    args = [cfg, prompt, tight, serial_cache, "analytic", device]
-    child = subprocess.Popen([sys.executable, "-c", PLAN_SERVE_WORKER, json.dumps(args)],
-                             cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    children = [subprocess.Popen(
+        [sys.executable, "-c", PLAN_SERVE_WORKER,
+         json.dumps([cfg, prompt, tight, serial_cache, "analytic", device, None, [budget]])],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for budget in ("unbudgeted", "budgeted")]
     try:
         local = LocalCostEstimator(ProfilingSettings(2, 5), forward_only=True,
                                    serving=cache_spec, optimizer_state_slots=0, device=device)
         rows = _plan_serve_rows(cfg, prompt, tight, serial_cache, "measured", device, local)
-        out, err = child.communicate(timeout=RANK_TIMEOUT_S)
-        if child.returncode != 0:
-            raise AssertionError(f"plan_serve: the analytic searches failed: {err[-3000:]}")
+        for child in children:
+            out, err = child.communicate(timeout=RANK_TIMEOUT_S)
+            if child.returncode != 0:
+                raise AssertionError(f"plan_serve: the analytic searches failed: {err[-3000:]}")
+            rows.update(json.loads(out.strip().splitlines()[-1]))
     finally:
-        if child.poll() is None:
-            child.kill()
-            child.wait()
-    rows.update(json.loads(out.strip().splitlines()[-1]))
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
     _no_flash_launches("plan_serve")
     measured, analytic = rows["measured_unbudgeted"], rows["analytic_unbudgeted"]
     ratios = {
@@ -4516,11 +5057,12 @@ def phase_plan_serve(smi: str, device: str = "cuda", cfg: dict = SERVE_LM) -> No
     for label, row in rows.items():
         print(f"plan_serve {label}: decode {row['decode_winner']} prefill "
               f"{row['prefill_winner']} at {row['ms_per_token']:.4f} ms/token "
-              f"({row['seconds']:.1f} s)", flush=True)
+              f"({row['seconds']:.1f} s; ms by search phase {row['phase_ms']})", flush=True)
     emit({"phase": "plan_serve", "card": smi, "config": cfg, "node_gpus": SEARCH_NODE_GPUS,
           "workload": dataclasses.asdict(workload), "max_seq_len": t["max_seq_len"],
           "budget": PLAN_SERVE_BUDGET, "hbm_gb_budgeted": tight, "searches": rows,
-          "leaves_measured": local.profile_calls, "leaves_inf": len(local.inf_leaves),
+          "leaves_measured": local.profile_calls,
+          "leaves_inf": len(local.inf_leaves),
           "serve_measured": SERVE_MEASURED, "one_device_ratios": ratios,
           "launches": _flash_launches(), "seconds": time.perf_counter() - start})
 
@@ -5438,92 +5980,184 @@ def phase_plan_audit(smi: str, device: str = "cuda") -> None:
           "seconds": time.perf_counter() - start})
 
 
-def main() -> None:
-    require_card_and_repo()
-    import torch
+def _phases(smi: str, kernels: list, launches: dict, ptxas: dict):
+    """The phases in order, as groups: (a context manager factory or None,
+    [(name, fn)]), where fn takes the context's value (a temporary
+    directory, for the rank phases) when the group has one."""
     from flexflow_tpu_torch.models import FLAGSHIP, LONGCTX, REF_HEADS16
 
-    smi = phase_device()
-    ptxas = phase_build()
-    kernels = phase_kernels()
-    for entry in kernels:
-        if entry["name"] in REDESIGNED:
-            entry["design"] = DELTA_DESIGN if entry["name"] in DELTA_WRAPPERS else "wgmma+tma"
-            entry["ptxas"] = {k: ptxas[k] for k in REDESIGNED[entry["name"]]}
-        if entry["name"] in D256_KERNELS:
-            entry["design"] = DELTA_DESIGN if entry["name"] == "flash_delta_d256" else D256_DESIGN
-            entry["ptxas"] = {k: ptxas[k] for k in D256_KERNELS[entry["name"]]}
-    phase_parity()
-    launches = {  # per train phase: the launches of each wrapper on its path, and the steps
-        "train": (phase_train(smi, FLAGSHIP, "train", FLASH_WRAPPERS), STEPS),
-        "train_heads16": (phase_train(smi, REF_HEADS16, "train_heads16",
-                                      ("flash_fwd_d64", "flash_delta_d64", "flash_bwd_d64")),
-                          STEPS),
-    }
-    launches["search"] = (phase_search(smi, MEDIAN_STEP_MS["train"]), 1)
-    phase_parity_fit()
-    phase_stepped()
-    launches["fit"] = (phase_fit(smi), STEPS)
-    phase_parity_fit_window()
-    # the windowed fit's count is the profiler's: a replayed graph runs no wrapper
-    launches["fit_window"] = (phase_fit_window(smi), FIT_WINDOW_K * FIT_WINDOW_WINDOWS)
-    phase_parity_zoo()
-    launches["fit_bert"] = (phase_fit_bert(smi), STEPS)
-    phase_examples()
-    with dp_group():
-        phase_parity_dp()
-        launches["train_dp"] = (phase_train(smi, FLAGSHIP, "train_dp", BHSD_WRAPPERS, dp=True),
-                                STEPS)
-        launches["train_dp_seq2048"] = (phase_train(smi, LONGCTX, "train_dp_seq2048",
-                                                    BHSD_WRAPPERS, dp=True), STEPS)
-        phase_ring_replay()
-        phase_parity_sp()
-        launches["train_sp"] = (phase_train_sp(smi), STEPS)
-        # the window's count is the profiler's: a replayed graph runs no wrapper
-        launches["train_dp_window"] = (phase_train_dp_window(smi), DP_WINDOW_K)
-    # several ranks on the card, each a process of its own: after the build,
-    # so no rank compiles a kernel; their counts are per rank and step
-    with tempfile.TemporaryDirectory() as tmp:
-        launches["parity_tp"] = (phase_parity_tp(smi, tmp),
-                                 sum(2 * world for world, _ in TP_PARITY_PLANS.values()))
-        launches["train_tp"] = (phase_train_tp(smi, tmp), 2 * TP_STEPS)
-        launches["fit_searched"] = (phase_fit_searched(smi, tmp), 2 * FIT_SEARCHED_STEPS)
+    def kernels_phase():
+        kernels.extend(phase_kernels())
+        for entry in kernels:
+            if entry["name"] in REDESIGNED:
+                entry["design"] = (DELTA_DESIGN if entry["name"] in DELTA_WRAPPERS
+                                   else "wgmma+tma")
+                entry["ptxas"] = {k: ptxas[k] for k in REDESIGNED[entry["name"]]}
+            if entry["name"] in D256_KERNELS:
+                entry["design"] = (DELTA_DESIGN if entry["name"] == "flash_delta_d256"
+                                   else D256_DESIGN)
+                entry["ptxas"] = {k: ptxas[k] for k in D256_KERNELS[entry["name"]]}
+
+    def train_step_ms(phase):
+        if "train" not in MEDIAN_STEP_MS:
+            raise AssertionError(f"{phase} reads train's median step: add train to --phases")
+        return MEDIAN_STEP_MS["train"]
+
+    def rec(name, fn, steps):
+        return lambda *a: launches.__setitem__(name, (fn(*a), steps))
+
+    def ranks_2(tmp):
         ranks2 = phase_ranks(smi, tmp, 2)
         launches["parity_ranks_window"] = (ranks2["parity_ranks_window"],
                                            2 * 2 * 2 * WINDOW_RANKS_STEPS)
         launches["calibrate_ranks"] = (ranks2["calibrate_ranks"], 2 * 2)
-        phase_ranks(smi, tmp, 4)
-        launches["torchrun"] = (phase_torchrun(smi, tmp), 2 * TORCHRUN_STEPS)
-    phase_parity_serve()
-    phase_serve(smi)
-    # serving a searched plan across ranks (no kernel of the table runs:
-    # serving attention is dense, each phase checks no flash launch)
-    phase_plan_serve(smi)
-    with tempfile.TemporaryDirectory() as tmp:
-        phase_serve_ranks(smi, tmp)
-        phase_parity_plan_ops(smi, tmp)
-    # checkpoints, bitwise resume and the fault sites
-    launches["fit_resume"] = (phase_fit_resume(smi), RESUME_FAULT_STEP_WINDOW)
-    phase_chaos(smi)
-    with tempfile.TemporaryDirectory() as tmp:
-        launches["resume_ranks"] = (phase_resume_ranks(smi, tmp),
-                                    2 * RESUME_RANKS_BATCHES * RESUME_RANKS_EPOCHS)
-    # observability: the step-health stream in the captured windows, the
-    # policies, the roofline and the plan audit (the drift monitor and a
-    # searched compile's audit ride fit_searched's job)
-    launches["fit_health"] = (phase_fit_health(smi), FIT_WINDOW_K * FIT_WINDOW_WINDOWS)
-    phase_health_poison(smi)
-    phase_roofline(smi)
-    phase_plan_audit(smi)
-    for entry in kernels:
-        by_phase = {p: (n[entry["name"]], steps) for p, (n, steps) in launches.items()
-                    if entry["name"] in n}
-        entry["launches"] = sum(n for n, _ in by_phase.values())
-        entry["launches_per_step"] = {p: n // steps for p, (n, steps) in by_phase.items()}
-    emit({"kernels": kernels, "card": smi})
+
+    return [
+        (None, [
+            ("kernels", kernels_phase),
+            ("parity", phase_parity),
+            ("train", rec("train", lambda: phase_train(smi, FLAGSHIP, "train", FLASH_WRAPPERS),
+                          STEPS)),
+            ("train_heads16", rec("train_heads16", lambda: phase_train(
+                smi, REF_HEADS16, "train_heads16",
+                ("flash_fwd_d64", "flash_delta_d64", "flash_bwd_d64")), STEPS)),
+            ("search", rec("search", lambda: phase_search(smi, train_step_ms("search")), 1)),
+            # a fresh process plans from search's store; MCMC and the
+            # foreign-kind run ride it
+            ("search_warm", rec("search_warm", lambda: phase_search_warm(smi), 1)),
+            ("search_mcmc", rec("search_mcmc", lambda: phase_search_mcmc(smi), 1)),
+            ("search_nodes", lambda: phase_search_nodes(smi)),
+            ("parity_fit", phase_parity_fit),
+            ("stepped", phase_stepped),
+            ("fit", rec("fit", lambda: phase_fit(smi), STEPS)),
+            ("parity_fit_window", phase_parity_fit_window),
+            # the windowed fit's count is the profiler's: a replayed graph
+            # runs no wrapper
+            ("fit_window", rec("fit_window", lambda: phase_fit_window(smi),
+                               FIT_WINDOW_K * FIT_WINDOW_WINDOWS)),
+            ("parity_zoo", phase_parity_zoo),
+            ("fit_bert", rec("fit_bert", lambda: phase_fit_bert(smi), STEPS)),
+            ("examples", phase_examples),
+        ]),
+        (dp_group, [
+            ("parity_dp", lambda _: phase_parity_dp()),
+            ("train_dp", rec("train_dp", lambda _: phase_train(
+                smi, FLAGSHIP, "train_dp", BHSD_WRAPPERS, dp=True), STEPS)),
+            ("train_dp_seq2048", rec("train_dp_seq2048", lambda _: phase_train(
+                smi, LONGCTX, "train_dp_seq2048", BHSD_WRAPPERS, dp=True), STEPS)),
+            ("ring_replay", lambda _: phase_ring_replay()),
+            ("parity_sp", lambda _: phase_parity_sp()),
+            ("train_sp", rec("train_sp", lambda _: phase_train_sp(smi), STEPS)),
+            # the window's count is the profiler's
+            ("train_dp_window", rec("train_dp_window", lambda _: phase_train_dp_window(smi),
+                                    DP_WINDOW_K)),
+        ]),
+        # several ranks on the card, each a process of its own: after the
+        # build, so no rank compiles a kernel; their counts are per rank and
+        # step
+        (tempfile.TemporaryDirectory, [
+            ("parity_tp", rec("parity_tp", lambda tmp: phase_parity_tp(smi, tmp),
+                              sum(2 * world for world, _ in TP_PARITY_PLANS.values()))),
+            ("train_tp", rec("train_tp", lambda tmp: phase_train_tp(smi, tmp), 2 * TP_STEPS)),
+            ("fit_searched", rec("fit_searched", lambda tmp: phase_fit_searched(smi, tmp),
+                                 2 * FIT_SEARCHED_STEPS)),
+            # parity_ranks_window imports fit_searched's strategy
+            ("ranks_2", ranks_2),
+            ("ranks_4", lambda tmp: phase_ranks(smi, tmp, 4)),
+            ("torchrun", rec("torchrun", lambda tmp: phase_torchrun(smi, tmp),
+                             2 * TORCHRUN_STEPS)),
+            ("fit_overlap", rec("fit_overlap", lambda tmp: phase_fit_overlap(smi, tmp),
+                                2 * OVERLAP_RULES_STEPS)),
+        ]),
+        (None, [
+            ("parity_serve", phase_parity_serve),
+            ("serve", lambda: phase_serve(smi)),
+            # serving a searched plan (no kernel of the table runs: serving
+            # attention is dense, each phase checks no flash launch)
+            ("plan_serve", lambda: phase_plan_serve(smi)),
+        ]),
+        (tempfile.TemporaryDirectory, [
+            ("serve_ranks", lambda tmp: phase_serve_ranks(smi, tmp)),
+            ("parity_plan_ops", lambda tmp: phase_parity_plan_ops(smi, tmp)),
+        ]),
+        # checkpoints, bitwise resume and the fault sites
+        (None, [
+            ("fit_resume", rec("fit_resume", lambda: phase_fit_resume(smi),
+                               RESUME_FAULT_STEP_WINDOW)),
+            ("chaos", lambda: phase_chaos(smi)),
+        ]),
+        (tempfile.TemporaryDirectory, [
+            ("resume_ranks", rec("resume_ranks", lambda tmp: phase_resume_ranks(smi, tmp),
+                                 2 * RESUME_RANKS_BATCHES * RESUME_RANKS_EPOCHS)),
+        ]),
+        # observability: the step-health stream in the captured windows, the
+        # policies, the roofline and the plan audit (the drift monitor and a
+        # searched compile's audit ride fit_searched's job)
+        (None, [
+            ("fit_health", rec("fit_health", lambda: phase_fit_health(smi),
+                               FIT_WINDOW_K * FIT_WINDOW_WINDOWS)),
+            ("health_poison", lambda: phase_health_poison(smi)),
+            ("roofline", lambda: phase_roofline(smi, step_ms=train_step_ms("roofline"))),
+            ("plan_audit", lambda: phase_plan_audit(smi)),
+        ]),
+    ]
+
+
+def _parse_phases(argv, names) -> set:
+    import argparse
+
+    p = argparse.ArgumentParser(description="Drive the port on one card.")
+    p.add_argument("--phases", default="",
+                   help="comma-separated phases to run (besides device and build), for "
+                        f"intermediate runs; all of them by default: {', '.join(names)}")
+    args = p.parse_args(argv)
+    if not args.phases:
+        return set(names)
+    picked = {n.strip() for n in args.phases.split(",") if n.strip()}
+    unknown = picked - set(names)
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}; known: {names}")
+    return picked
+
+
+def main(argv=None) -> None:
+    require_card_and_repo()
+    import torch
+
+    smi = phase_device()
+    ptxas = phase_build()
+    kernels, launches, wall = [], {}, {}
+    groups = _phases(smi, kernels, launches, ptxas)
+    picked = _parse_phases(argv, [name for _, steps in groups for name, _ in steps])
+    start = time.perf_counter()
+    try:
+        for context, steps in groups:
+            steps = [(name, fn) for name, fn in steps if name in picked]
+            if not steps:
+                continue
+            with (context() if context is not None else contextlib.nullcontext()) as value:
+                for name, fn in steps:
+                    t0 = time.perf_counter()
+                    fn(value) if context is not None else fn()
+                    wall[name] = time.perf_counter() - t0
+                    print(f"phase {name}: {wall[name]:.1f} s wall", flush=True)
+    finally:
+        for d in (SEARCH_RUN.get("store_dir"),):
+            if d:
+                shutil.rmtree(d, ignore_errors=True)
+                shutil.rmtree(d.rstrip("/") + "_foreign", ignore_errors=True)
+    emit({"phase_wall_s": wall, "phases_run": len(wall),
+          "total_s": time.perf_counter() - start})
+    if kernels:
+        for entry in kernels:
+            by_phase = {p: (n[entry["name"]], steps) for p, (n, steps) in launches.items()
+                        if entry["name"] in n}
+            entry["launches"] = sum(n for n, _ in by_phase.values())
+            entry["launches_per_step"] = {p: n // steps for p, (n, steps) in by_phase.items()}
+        emit({"kernels": kernels, "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -23,6 +23,10 @@ batching under watchdog supervision); and the user API on one device
 forward/backward/update, with FFConfig, the optimizers, initializers and
 data loaders), with its observability (observability/: the step-health
 stream and its policies, spans, cost attribution and the roofline, the
-plan audit, the drift monitor). Entry points run on CUDA unless the caller
-passes device="cpu".
+plan audit, the drift monitor), and the Unity search (compiler/,
+substitutions/: the machine-mapping DP, the cost estimators and their
+persistent cost and movement stores, MCMC, the machine models and the
+two-level DP over nodes, the overlap pricing, the parallelization, fusion
+and legacy rules, branch stacking). Entry points run on CUDA unless the
+caller passes device="cpu".
 """

@@ -1,6 +1,6 @@
 """Allowed machine-view enumeration (copy of
-flexflow_tpu/compiler/allowed_machine_views.py, without the slice-aware
-views of A6 part 2).
+flexflow_tpu/compiler/allowed_machine_views.py; a "slice" of its
+slice-aware views is a node here).
 
 Reference: lib/compiler/src/compiler/allowed_machine_views.cc:24-120 —
 candidate views = all stride vectors (bounded) x all start coordinates x all
@@ -116,6 +116,53 @@ def get_projection_representative_machine_views(
         ((ProjectionType.INTRA_NODE,) if d == 1
          else (ProjectionType.INTER_NODE, ProjectionType.INTRA_NODE))
         for d in degrees
+    ]
+    views = set()
+    for projs in itertools.product(*choices):
+        intra_extent = 1
+        inter_extent = 1
+        for d, p in zip(degrees, projs):
+            if p == ProjectionType.INTRA_NODE:
+                intra_extent *= d
+            else:
+                inter_extent *= d
+        if intra_extent > per_node or inter_extent > spec.num_nodes:
+            continue
+        view = MachineView(
+            MachineSpaceCoordinate(0, 0, device_type),
+            tuple(MachineViewDimension(1, p) for p in projs),
+        )
+        if is_valid_machine_view(view, task, spec):
+            views.add(view)
+    return frozenset(views)
+
+
+def get_slice_aware_machine_views(
+    spec: MachineSpecification,
+    task: OperatorTaskSpace,
+    inter_allowed: tuple,
+    device_type: DeviceType = DeviceType.GPU,
+) -> FrozenSet[MachineView]:
+    """Projection-representative views restricted to node-contiguous ones.
+
+    `inter_allowed[i]` says whether task dim i may project INTER_NODE, that
+    is stride across nodes over InfiniBand. Callers derive it from
+    slice_axes.leaf_task_axis_kinds: tensor-sharded dims are pinned INTRA
+    (their per-layer collectives must stay on the node's NVLink), data,
+    replica and stage dims keep both choices. With every entry True this
+    is get_projection_representative_machine_views; the two-level DP's
+    outer level passes a mask that lets exactly one axis kind cross nodes
+    per outer choice."""
+    degrees = task.degrees
+    if len(inter_allowed) != len(degrees):
+        raise ValueError(
+            f"inter_allowed arity {len(inter_allowed)} != task arity {len(degrees)}")
+    per_node = (spec.num_devices_per_node if device_type == DeviceType.GPU
+                else spec.num_cpus_per_node)
+    choices = [
+        ((ProjectionType.INTRA_NODE,) if (d == 1 or not ok)
+         else (ProjectionType.INTER_NODE, ProjectionType.INTRA_NODE))
+        for d, ok in zip(degrees, inter_allowed)
     ]
     views = set()
     for projs in itertools.product(*choices):

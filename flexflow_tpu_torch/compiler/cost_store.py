@@ -1,0 +1,562 @@
+"""Persistent measurement-calibrated cost database (copy of
+flexflow_tpu/compiler/cost_store.py).
+
+The reference Simulator keeps per-op cudaEvent measurement caches so the
+search never re-times an op it has already seen
+(lib/runtime/src/simulator.h:161-228); the LocalCostEstimator re-measures
+per process. This module keeps one atomic on-disk cost database of both
+entry families:
+
+- **op leaves**: the raw single-device fwd+bwd piece measurement
+  (`LocalCostEstimator._measure` semantics), keyed by
+
+      op|<device kind>|<fingerprint>|<op class>|<canonical attrs>|
+         <piece input shapes+dtypes>|<piece weight shapes>
+
+- **movement edges**: the plan audit's standalone-reshard wall ms, keyed
+  by `movement_store.movement_edge_key` (which carries the device kind and
+  the link class) under a `move|` prefix.
+
+The device kind (`cuda:<torch.cuda.get_device_name(0)>` on the card,
+`cpu:cpu` on the host) is part of every key, so a measurement taken on an
+H100 is never served to a session on another device kind, nor to the CPU.
+The key layout, the schema and the fingerprints are the JAX package's, so a
+store written by either package under `cpu:cpu` serves the other's
+search.
+
+Three-tier fallthrough (machine_mapping/cost_estimator.py and
+local_execution/cost_estimator.py):
+
+1. a stored measurement for the exact key is preferred by both the
+   analytic and the measured estimators;
+2. on a miss, `AnalyticGPUCostEstimator` prices the roofline scaled by a
+   per-op-class correction factor fitted from this store's (analytic,
+   measured) pairs;
+3. `GPUCostEstimator`/`LocalCostEstimator` measure only what the store has
+   never seen, and write back what they measure; the plan audit feeds its
+   per-op measured ms into the same store.
+
+`save()` never loses concurrent writers' entries: the on-disk table is
+re-read immediately before the atomic replace and merged with this
+session's writes (last-writer-wins only for keys this instance wrote).
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import tempfile
+from typing import Dict, Iterable, Optional, Tuple
+
+COST_DB_SCHEMA_VERSION = 1
+
+# Bump when the MEANING of a stored op measurement changes (e.g. fwd-only
+# instead of fwd+bwd): old entries then silently stop matching instead of
+# silently meaning something else.
+MEASUREMENT_SEMANTICS = "m1"
+
+# Correction factors outside this band are almost certainly fitted from a
+# polluted pair set (a measurement recorded under the wrong key, a
+# dispatch-bound toy shape); clamp rather than let one bad pair poison
+# every analytic price of the class.
+_CORRECTION_CLAMP = (0.05, 20.0)
+
+
+_DEVICE_KIND_CACHE: Dict[str, str] = {}
+
+
+def device_kind_signature(device=None) -> str:
+    """Stable identity of the device a session measures on:
+    ``cuda:<torch.cuda.get_device_name(0)>`` on the card, ``cpu:cpu`` on
+    the host. `device` (a torch.device or its name) names it; by default
+    the card where one is present, else the CPU. Nothing is asked of CUDA
+    at import; the answer is cached per device type (movement-edge keys
+    are built in the DP's hot loop)."""
+    import torch
+
+    if device is None:
+        kind = "cuda" if torch.cuda.is_available() else "cpu"
+    else:
+        kind = torch.device(device).type
+    hit = _DEVICE_KIND_CACHE.get(kind)
+    if hit is not None:
+        return hit
+    if kind == "cuda":
+        name = str(torch.cuda.get_device_name(0) or "").strip()
+        sig = f"cuda:{name or 'unknown'}"
+    elif kind == "cpu":
+        sig = "cpu:cpu"
+    else:
+        sig = f"{kind}:{kind}"
+    _DEVICE_KIND_CACHE[kind] = sig
+    return sig
+
+
+def measurement_fingerprint(calibration=None) -> str:
+    """Measurement-discipline fingerprint stored in every op key. The raw
+    piece measurement is calibration-INDEPENDENT (calibration constants
+    only change how derived quantities are priced downstream), so by
+    default every session shares one family — that sharing is the point:
+    an analytic session warm-starts from a measured session's entries.
+    Passing a calibration tags the family ``-cal`` for callers that want
+    calibrated sessions fenced off; the version prefix exists so a future
+    change to what a stored number MEANS retires old entries without a
+    schema bump."""
+    if calibration is None:
+        return MEASUREMENT_SEMANTICS
+    return f"{MEASUREMENT_SEMANTICS}-cal"
+
+
+def forward_fingerprint(calibration=None) -> str:
+    """Fingerprint of FORWARD-ONLY measurements: a serving search prices prefill/decode on the op's forward kernel
+    alone, which is a different quantity from the fwd+bwd step timings
+    the training searches store — the `-fwd` family keeps the two from
+    ever serving each other's keys in one shared cost_db.json."""
+    return f"{measurement_fingerprint(calibration)}-fwd"
+
+
+def op_leaf_key(
+    attrs,
+    piece_input_shapes: Iterable,
+    piece_weight_shapes: Optional[Iterable],
+    device_kind: Optional[str] = None,
+    fingerprint: str = MEASUREMENT_SEMANTICS,
+) -> str:
+    """Canonical identity of one measured op leaf. `attrs` repr is the
+    dataclass repr (canonical attrs — enums print stably); the TensorShape
+    reprs carry dims AND dtype, so a bf16 and an f32 leaf never collide."""
+    dk = device_kind if device_kind is not None else device_kind_signature()
+    ins = ";".join(repr(s) for s in piece_input_shapes)
+    ws = ";".join(repr(s) for s in (piece_weight_shapes or ()))
+    return f"op|{dk}|{fingerprint}|{type(attrs).__name__}|{attrs!r}|{ins}|{ws}"
+
+
+def op_leaf_key_parallel(
+    attrs, parallel_input_shapes, device_kind=None,
+    fingerprint: str = MEASUREMENT_SEMANTICS,
+) -> str:
+    """The op-leaf key as seen from a machine-mapping leaf: all incoming
+    slots as ParallelTensorShapes (data + weights). Mirrors
+    `LocalCostEstimator.estimate_operator_cost_parallel`'s piece-shape +
+    slot-role split exactly so search-side lookups and audit-side writes
+    land on the same key."""
+    from flexflow_tpu_torch.local_execution.training_backing import (
+        split_slot_values,
+    )
+    from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import get_piece_shape
+
+    pieces = [get_piece_shape(s) for s in parallel_input_shapes]
+    data, weights = split_slot_values(attrs, pieces)
+    return op_leaf_key(attrs, data, weights or None, device_kind, fingerprint)
+
+
+def _require_dir(path: str) -> None:
+    """A store's directory must exist: a mistyped path raises here rather
+    than search cold and write the measurements somewhere unexpected."""
+    d = os.path.dirname(os.path.abspath(path))
+    if not os.path.isdir(d):
+        raise FileNotFoundError(f"the cost store's directory {d!r} does not exist")
+
+
+def _finite_nonneg(v) -> bool:
+    try:
+        return v is not None and math.isfinite(float(v)) and float(v) >= 0.0
+    except (TypeError, ValueError):
+        return False
+
+
+class CostStore:
+    """Atomic JSON cost database of measured op-leaf and movement-edge
+    costs, with per-op-class correction-factor fitting.
+
+    Reads are in-memory; writes mark the touched keys and `save()` merges
+    them over a freshly re-read on-disk table before the atomic replace
+    (tmp + rename), so concurrent sessions sharing a store path only ever
+    lose a key both wrote — never each other's disjoint entries."""
+
+    FILENAME = "cost_db.json"
+
+    def __init__(
+        self,
+        path: str,
+        device_kind: Optional[str] = None,
+        fingerprint: Optional[str] = None,
+    ) -> None:
+        # FFConfig.cost_store passes a directory; direct callers may name
+        # the JSON file itself.
+        if not path.endswith(".json"):
+            path = os.path.join(path, self.FILENAME)
+        _require_dir(path)
+        self.path = path
+        self.device_kind = (
+            device_kind if device_kind is not None else device_kind_signature()
+        )
+        self.fingerprint = fingerprint or measurement_fingerprint()
+        self._table: Dict[str, dict] = self._read_disk()
+        self._written: set = set()
+        self.dirty = False
+        # fallthrough telemetry (search_provenance["cost_db"])
+        self.op_hits = 0
+        self.op_misses = 0
+        self.movement_hits = 0
+        self.movement_misses = 0
+        self._corrections: Optional[Dict[str, dict]] = None
+        # Live drift scaling: a transient multiplier applied to
+        # every SERVED price — stored op/movement hits via get_op/get, and
+        # the analytic fallthrough via correction_for — so a warm re-search
+        # prices the machine as the live run measures it, without touching
+        # the persisted entries. Either a float (uniform) or a dict of
+        # op_class -> factor with "*" as the default class. Set/cleared by
+        # the drift repricer around one graph_optimize call, and by nothing
+        # else.
+        self.live_scale: Optional[object] = None
+
+    def _scale_for(self, op_class: Optional[str] = None) -> float:
+        s = self.live_scale
+        if s is None:
+            return 1.0
+        if isinstance(s, dict):
+            if op_class is not None and op_class in s:
+                return float(s[op_class])
+            return float(s.get("*", 1.0))
+        return float(s)
+
+    # -- disk ---------------------------------------------------------------
+
+    def _read_disk(self) -> Dict[str, dict]:
+        if not os.path.exists(self.path):
+            return {}
+        try:
+            with open(self.path) as f:
+                data = json.load(f)
+            if data.get("schema") != COST_DB_SCHEMA_VERSION:
+                return {}
+            out: Dict[str, dict] = {}
+            for k, v in data.get("entries", {}).items():
+                if isinstance(v, dict) and _finite_nonneg(v.get("ms")):
+                    out[str(k)] = v
+            return out
+        except (OSError, ValueError, TypeError):
+            # unreadable/corrupt store: start empty rather than crash the
+            # compile; the next save rewrites it whole
+            return {}
+
+    def save(self) -> None:
+        if not self.dirty:
+            return
+        # lost-update protection: merge this session's writes over the
+        # CURRENT disk table (another process may have saved since we
+        # loaded); last-writer-wins only for keys we actually wrote
+        disk = self._read_disk()
+        merged = dict(disk)
+        for k in self._written:
+            if k in self._table:
+                merged[k] = self._table[k]
+        self._table = merged
+        payload = {
+            "schema": COST_DB_SCHEMA_VERSION,
+            "entries": {k: merged[k] for k in sorted(merged)},
+        }
+        d = os.path.dirname(os.path.abspath(self.path)) or "."
+        os.makedirs(d, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=d, prefix=".cost_db_")
+        try:
+            with os.fdopen(fd, "w") as f:
+                json.dump(payload, f, indent=1, sort_keys=True)
+            os.replace(tmp, self.path)
+        except OSError:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
+        self.dirty = False
+
+    def __len__(self) -> int:
+        return len(self._table)
+
+    # -- op leaves ----------------------------------------------------------
+
+    def _op_key(self, attrs, piece_inputs, piece_weights) -> str:
+        return op_leaf_key(
+            attrs, piece_inputs, piece_weights,
+            self.device_kind, self.fingerprint,
+        )
+
+    def get_op(
+        self, attrs, piece_inputs, piece_weights
+    ) -> Optional[Tuple[float, int]]:
+        """(measured ms, mem bytes) of a previously measured op leaf, or
+        None. Counts a hit/miss each call — callers memoize, so each
+        unique leaf is counted once per session."""
+        e = self._table.get(self._op_key(attrs, piece_inputs, piece_weights))
+        if e is None:
+            self.op_misses += 1
+            return None
+        self.op_hits += 1
+        if e.get("unrunnable"):
+            # cached verdict, not a time: this mapping's shapes are ones the
+            # op cannot take (LocalCostEstimator prices it inf), and
+            # re-attempting the measurement every session would re-pay the
+            # shape inference
+            return float("inf"), int(e.get("mem", 0))
+        scale = self._scale_for(e.get("op_class"))
+        return float(e["ms"]) * scale, int(e.get("mem", 0))
+
+    def put_op(
+        self, attrs, piece_inputs, piece_weights, ms: float, mem_bytes: int = 0
+    ) -> None:
+        unrunnable = ms is not None and math.isinf(float(ms)) and ms > 0
+        if not unrunnable and not _finite_nonneg(ms):
+            return  # NaN/negative measurements never enter the table
+        key = self._op_key(attrs, piece_inputs, piece_weights)
+        prev = self._table.get(key)
+        entry = {
+            "kind": "op",
+            "op_class": type(attrs).__name__,
+            "device_kind": self.device_kind,
+            # JSON carries no Infinity: an unrunnable verdict stores ms 0
+            # plus the flag, and get_op rehydrates the inf
+            "ms": 0.0 if unrunnable else float(ms),
+            "mem": int(mem_bytes),
+        }
+        if unrunnable:
+            entry["unrunnable"] = True
+        if prev is not None and _finite_nonneg(prev.get("analytic_ms")):
+            entry["analytic_ms"] = float(prev["analytic_ms"])
+        self._table[key] = entry
+        self._written.add(key)
+        self.dirty = True
+        self._corrections = None
+
+    def peek_op(self, attrs, piece_inputs, piece_weights) -> Optional[float]:
+        """get_op without the hit/miss accounting — for consumers (the
+        plan audit) that need to know whether a leaf was already measured
+        without polluting the search-fallthrough telemetry."""
+        e = self._table.get(self._op_key(attrs, piece_inputs, piece_weights))
+        return None if e is None else float(e["ms"])
+
+    def _split_parallel(self, attrs, parallel_input_shapes):
+        from flexflow_tpu_torch.local_execution.training_backing import (
+            split_slot_values,
+        )
+        from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
+            get_piece_shape,
+        )
+
+        pieces = [get_piece_shape(s) for s in parallel_input_shapes]
+        data, weights = split_slot_values(attrs, pieces)
+        return tuple(data), (tuple(weights) if weights else None)
+
+    def peek_op_parallel(self, attrs, parallel_input_shapes) -> Optional[float]:
+        data, weights = self._split_parallel(attrs, parallel_input_shapes)
+        return self.peek_op(attrs, data, weights)
+
+    def note_analytic_parallel(
+        self, attrs, parallel_input_shapes, analytic_ms: float,
+        analytic_sig: Optional[str] = None,
+    ) -> None:
+        data, weights = self._split_parallel(attrs, parallel_input_shapes)
+        self.note_analytic(attrs, data, weights, analytic_ms, analytic_sig)
+
+    def note_analytic(
+        self, attrs, piece_inputs, piece_weights, analytic_ms: float,
+        analytic_sig: Optional[str] = None,
+    ) -> None:
+        """Attach the raw roofline price to an EXISTING measured entry —
+        the (analytic, measured) pair the correction fitting consumes.
+        `analytic_sig` names the roofline constants the price came from
+        (AnalyticGPUCostEstimator passes its peak_flops/hbm_gbps
+        signature) so sessions searching with different constants never
+        pollute each other's correction fits. No-op when the leaf has
+        never been measured (a pair needs both sides) or when the
+        analytic side is degenerate."""
+        if not _finite_nonneg(analytic_ms) or analytic_ms <= 0.0:
+            return
+        key = self._op_key(attrs, piece_inputs, piece_weights)
+        e = self._table.get(key)
+        if e is None or e.get("kind") != "op":
+            return
+        if (
+            e.get("analytic_ms") == float(analytic_ms)
+            and e.get("analytic_sig") == analytic_sig
+        ):
+            return
+        e = dict(e)
+        e["analytic_ms"] = float(analytic_ms)
+        if analytic_sig is not None:
+            e["analytic_sig"] = analytic_sig
+        else:
+            e.pop("analytic_sig", None)
+        self._table[key] = e
+        self._written.add(key)
+        self.dirty = True
+        self._corrections = None
+
+    # -- movement edges (MovementCostStore-compatible surface) --------------
+
+    def get(self, key: str) -> Optional[float]:
+        e = self._table.get(f"move|{key}")
+        if e is None:
+            return None
+        return float(e["ms"]) * self._scale_for("movement")
+
+    def put(self, key: str, ms: float) -> None:
+        if not _finite_nonneg(ms):
+            return
+        k = f"move|{key}"
+        self._table[k] = {
+            "kind": "movement", "device_kind": self.device_kind,
+            "ms": float(ms),
+        }
+        self._written.add(k)
+        self.dirty = True
+
+    def get_edge(
+        self, attrs, input_shapes, machine_view, link_class: str = "nvlink"
+    ) -> Optional[float]:
+        from flexflow_tpu_torch.compiler.movement_store import movement_edge_key
+
+        if machine_view is None:
+            return None
+        hit = self.get(
+            movement_edge_key(
+                attrs, input_shapes, machine_view, self.device_kind,
+                link_class=link_class,
+            )
+        )
+        if hit is None:
+            self.movement_misses += 1
+        else:
+            self.movement_hits += 1
+        return hit
+
+    def put_edge(
+        self,
+        attrs,
+        input_shapes,
+        machine_view,
+        ms: float,
+        link_class: str = "nvlink",
+    ) -> None:
+        from flexflow_tpu_torch.compiler.movement_store import movement_edge_key
+
+        if machine_view is None:
+            return
+        self.put(
+            movement_edge_key(
+                attrs, input_shapes, machine_view, self.device_kind,
+                link_class=link_class,
+            ),
+            ms,
+        )
+
+    # -- correction factors -------------------------------------------------
+
+    def fit_corrections(
+        self, min_pairs: int = 2, analytic_sig: Optional[str] = None
+    ) -> Dict[str, dict]:
+        """Per-op-class multiplicative correction fitted from the store's
+        accumulated (analytic, measured) pairs for THIS device kind:
+        factor = geomean(measured / analytic), clamped to the sanity band.
+        Classes with fewer than `min_pairs` pairs are not fitted (one toy
+        measurement must not recalibrate every Linear in the search).
+        With `analytic_sig`, pairs recorded under a DIFFERENT roofline-
+        constants signature are excluded (untagged pairs still count) —
+        an estimator must never consume factors fitted against another
+        estimator's constants."""
+        cache_key = (min_pairs, analytic_sig)
+        if self._corrections is None:
+            self._corrections = {}
+        if cache_key in self._corrections:
+            return self._corrections[cache_key]
+        logs: Dict[str, list] = {}
+        for e in self._table.values():
+            if e.get("kind") != "op" or e.get("device_kind") != self.device_kind:
+                continue
+            sig = e.get("analytic_sig")
+            if analytic_sig is not None and sig is not None and sig != analytic_sig:
+                continue
+            a = e.get("analytic_ms")
+            m = e.get("ms")
+            if not _finite_nonneg(a) or not _finite_nonneg(m):
+                continue
+            if float(a) <= 0.0 or float(m) <= 0.0:
+                continue
+            logs.setdefault(e.get("op_class", "?"), []).append(
+                math.log(float(m) / float(a))
+            )
+        out: Dict[str, dict] = {}
+        lo, hi = _CORRECTION_CLAMP
+        for cls, ls in sorted(logs.items()):
+            if len(ls) < min_pairs:
+                continue
+            factor = math.exp(sum(ls) / len(ls))
+            out[cls] = {
+                "factor": round(min(max(factor, lo), hi), 6),
+                "pairs": len(ls),
+            }
+        self._corrections[cache_key] = out
+        return out
+
+    def correction_for(
+        self, op_class: str, analytic_sig: Optional[str] = None
+    ) -> float:
+        c = self.fit_corrections(analytic_sig=analytic_sig).get(op_class)
+        base = 1.0 if c is None else float(c["factor"])
+        # live_scale rides the analytic fallthrough too: a drift re-search
+        # must price un-measured leaves under the same live correction it
+        # applies to stored hits (note: intentionally NOT clamped by
+        # _CORRECTION_CLAMP — the clamp guards fitted pairs, the live
+        # scale is an observed whole-run ratio)
+        return base * self._scale_for(op_class)
+
+    def movement_entry_count(self) -> int:
+        """Movement-edge entries only — `len(store)` counts op leaves too,
+        which would overstate a 'movement table size' telemetry field."""
+        return sum(1 for k in self._table if k.startswith("move|"))
+
+    # -- telemetry ----------------------------------------------------------
+
+    def stats(self) -> dict:
+        """Entry census for provenance: counts per
+        entry kind, op class, and device kind."""
+        by_kind: Dict[str, int] = {}
+        by_class: Dict[str, int] = {}
+        by_device: Dict[str, int] = {}
+        pairs = 0
+        for k, e in self._table.items():
+            kind = e.get("kind", "movement" if k.startswith("move|") else "?")
+            by_kind[kind] = by_kind.get(kind, 0) + 1
+            if kind == "op":
+                cls = e.get("op_class", "?")
+                by_class[cls] = by_class.get(cls, 0) + 1
+                if _finite_nonneg(e.get("analytic_ms")):
+                    pairs += 1
+            dk = e.get("device_kind", "unknown")
+            by_device[dk] = by_device.get(dk, 0) + 1
+        return {
+            "path": self.path,
+            "entries": len(self._table),
+            "by_kind": by_kind,
+            "by_op_class": dict(sorted(by_class.items())),
+            "by_device_kind": dict(sorted(by_device.items())),
+            "analytic_pairs": pairs,
+        }
+
+    def provenance(self) -> dict:
+        """The `search_provenance["cost_db"]` block: where the store
+        lives, how the fallthrough performed, and what was fitted."""
+        corrections = self.fit_corrections()
+        return {
+            "path": self.path,
+            "device_kind": self.device_kind,
+            "entries": len(self._table),
+            "op_hits": self.op_hits,
+            "op_misses": self.op_misses,
+            "movement_hits": self.movement_hits,
+            "movement_misses": self.movement_misses,
+            "fitted_classes": len(corrections),
+            "corrections": corrections,
+        }

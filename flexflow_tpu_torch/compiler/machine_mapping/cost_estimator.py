@@ -27,8 +27,13 @@ for every rank's piece (`_scale_for_emulated_shards`). Without a
 calibration the parallel ops take the bandwidth model and the placeholder
 latencies below.
 
-The cost and movement stores and the topology-aware machine model
-(`cost_store`, `movement_store`, `comm_model`) are A6 part 2.
+With a `cost_store` (compiler/cost_store.py) a stored leaf measurement is
+preferred by both (the analytic one corrects a miss by the store's fitted
+per-class factor); with a `movement_store` (or the cost store) a parallel
+op's collective is priced from a past audit's measurement on the same link
+class (`movement_link_class`: `nvlink` or `ib`); a `comm_model`
+(compiler/machine_model.MachineModelCommModel) replaces the bandwidth
+model's movement pricing with a topology's congested makespan.
 """
 
 from __future__ import annotations
@@ -267,6 +272,15 @@ class BandwidthCommModel:
                     total_ms += latency + piece_bytes / (bw_gbps * 1e6)
         return total_ms
 
+    def overlap_ramp_ms(self, serial_ms: float, chunks: int) -> float:
+        """The overlapped movement entry's exposed residue (see
+        machine_mapping/overlap.py): the same bytes priced by
+        movement_cost_ms stream over a `chunks`-step ring behind the
+        adjacent matmul, leaving only the first chunk's transfer plus one
+        link latency per remaining hop un-hidable."""
+        k = max(chunks, 1)
+        return serial_ms / k + (k - 1) * self.intra_latency_ms
+
     @staticmethod
     def _index_inter_signatures(views) -> FrozenSet:
         """Dim-identity-free signature: the start node plus which task dim
@@ -351,6 +365,32 @@ def _parallel_op_crosses_nodes(
                 intra_used *= dg
         return intra_used * k > machine_spec.num_devices_per_node
     return _views_span_nodes(view)
+
+
+def movement_link_class(
+    attrs, input_shapes, machine_view: "MachineView", machine_spec
+) -> str:
+    """'nvlink' | 'ib': which interconnect class this parallel op's
+    collective rides, the link-class segment of the movement-edge keys
+    (movement_store.movement_edge_key): an edge measured on NVLink within a
+    node must never be served for the same shapes placed across nodes over
+    InfiniBand, and the reverse."""
+    return (
+        "ib"
+        if _parallel_op_crosses_nodes(attrs, input_shapes, machine_view, machine_spec)
+        else "nvlink"
+    )
+
+
+def _stored_edge_ms(store, key: OpCostEstimateKey, machine_spec):
+    """A parallel op's stored measurement on its own link class, or None."""
+    if store is None:
+        return None
+    shapes = list(key.input_shapes)
+    return store.get_edge(
+        key.op_attrs, shapes, key.machine_view,
+        link_class=movement_link_class(key.op_attrs, shapes, key.machine_view, machine_spec),
+    )
 
 
 def parallel_op_cost_ms(
@@ -517,20 +557,14 @@ def _scale_for_emulated_shards(piece_ms: float, estimator) -> float:
     return piece_ms * ndev / min(float(ndev), cal.shard_speedup)
 
 
-def _refuse_part2(comm_model, movement_store, cost_store) -> None:
-    if comm_model is not None or movement_store is not None or cost_store is not None:
-        raise NotImplementedError(
-            "the machine model (comm_model) and the cost and movement stores "
-            "are not ported yet (ROADMAP A6 part 2)"
-        )
-
-
 class GPUCostEstimator(CostEstimator):
     """Measured compute + analytic communication for a GPU machine spec (the
     JAX package's TPUCostEstimator). Each compute leaf's piece shapes run on
     the card through the LocalCostEstimator (CUDA events around the op's
-    forward and backward); parallel ops and sequence-parallel attention
-    schedules are priced by the bandwidth model."""
+    forward and backward) unless its `cost_store` holds them; parallel ops
+    take a stored measurement of their edge where the movement store (or
+    the cost store) has one, and sequence-parallel attention schedules are
+    priced by the comm model."""
 
     def __init__(
         self,
@@ -546,19 +580,33 @@ class GPUCostEstimator(CostEstimator):
     ) -> None:
         from flexflow_tpu_torch.local_execution.cost_estimator import LocalCostEstimator
 
-        _refuse_part2(comm_model, movement_store, cost_store)
         self.machine_spec = machine_spec
-        self.local = local_cost_estimator or LocalCostEstimator()
+        self.local = local_cost_estimator or LocalCostEstimator(cost_store=cost_store)
         self.intra_latency_ms = intra_latency_ms
         self.inter_latency_ms = inter_latency_ms
         self.emulated_mesh = emulated_mesh
         self.calibration = calibration
-        self.comm = BandwidthCommModel(machine_spec, intra_latency_ms, inter_latency_ms)
+        # the persistent cost database: leaves measured in past sessions
+        # price without running; this session's measurements are written
+        # back through the wrapped LocalCostEstimator
+        self.cost_store = cost_store
+        if cost_store is not None and self.local.cost_store is None:
+            self.local.use_cost_store(cost_store)
+        # measured movement edges of past audits; the cost store serves the
+        # same interface, so it backs them when no movement store is given
+        self.movement_store = movement_store if movement_store is not None else cost_store
+        # anything with movement_cost_ms: BandwidthCommModel, or a topology's
+        # MachineModelCommModel (compiler/machine_model.py)
+        self.comm = comm_model or BandwidthCommModel(
+            machine_spec, intra_latency_ms, inter_latency_ms)
 
     def estimate_op_cost(self, key: OpCostEstimateKey) -> float:
         from flexflow_tpu_torch.op_attrs.core import is_parallel_op
 
         if is_parallel_op(key.op_attrs):
+            hit = _stored_edge_ms(self.movement_store, key, self.machine_spec)
+            if hit is not None:
+                return hit
             return parallel_op_cost_ms(
                 key.op_attrs,
                 list(key.input_shapes),
@@ -591,7 +639,15 @@ class AnalyticGPUCostEstimator(CostEstimator):
     on the per-task piece shapes, movement cost identical to
     GPUCostEstimator's bandwidth model. `peak_flops` and `hbm_gbps` have no
     defaults: pass the card's calibrated rates (compiler/calibration.py) or
-    the constants a test holds both packages to."""
+    the constants a test holds both packages to.
+
+    With a persistent `cost_store` the roofline is the fallback of a
+    three-tier fallthrough: (1) a stored measurement for the exact leaf is
+    used verbatim, (2) a missed leaf is priced at roofline x the per-op-class
+    correction fitted from the store's (analytic, measured) pairs, (3)
+    nothing is ever run. Every hit records the raw roofline beside the
+    measurement, which grows the pair set the corrections are fitted from.
+    """
 
     def __init__(
         self,
@@ -607,7 +663,6 @@ class AnalyticGPUCostEstimator(CostEstimator):
         cost_store=None,
         forward_only: bool = False,
     ) -> None:
-        _refuse_part2(comm_model, movement_store, cost_store)
         self.machine_spec = machine_spec
         self.peak_flops = peak_flops
         self.hbm_gbps = hbm_gbps
@@ -615,11 +670,27 @@ class AnalyticGPUCostEstimator(CostEstimator):
         self.calibration = calibration
         self.intra_latency_ms = intra_latency_ms
         self.inter_latency_ms = inter_latency_ms
+        self.cost_store = cost_store
         # forward-only pricing (serving): the deployed program is the
         # forward pass alone, so the roofline drops the backward's flops
-        # multiple and the gradients' traffic double
+        # multiple and the gradients' traffic double; a store attached
+        # here must carry forward-marked keys (cost_store.forward_fingerprint)
         self.forward_only = bool(forward_only)
-        self.comm = BandwidthCommModel(machine_spec, intra_latency_ms, inter_latency_ms)
+        if self.forward_only and cost_store is not None and "fwd" not in getattr(
+                cost_store, "fingerprint", ""):
+            raise ValueError("forward-only analytic pricing needs a forward-marked cost store "
+                             "(see cost_store.forward_fingerprint)")
+        # names the roofline constants behind every analytic price: pairs
+        # recorded in the store carry it, and correction fitting excludes
+        # pairs of sessions searching with other constants
+        self._analytic_sig = f"pf{peak_flops:.6g}|hbm{hbm_gbps:.6g}" + (
+            "|fwd" if self.forward_only else "")
+        # per-OpCostEstimateKey memo of the store-backed path: the store's
+        # consult and its hit/miss counts run once per unique key
+        self._op_cost_memo: dict = {}
+        self.movement_store = movement_store if movement_store is not None else cost_store
+        self.comm = comm_model or BandwidthCommModel(
+            machine_spec, intra_latency_ms, inter_latency_ms)
 
     def estimate_op_cost(self, key: OpCostEstimateKey) -> float:
         from flexflow_tpu_torch.kernels.ops import op_forward_flops
@@ -631,6 +702,9 @@ class AnalyticGPUCostEstimator(CostEstimator):
         )
 
         if is_parallel_op(key.op_attrs):
+            hit = _stored_edge_ms(self.movement_store, key, self.machine_spec)
+            if hit is not None:
+                return hit
             return parallel_op_cost_ms(
                 key.op_attrs,
                 list(key.input_shapes),
@@ -642,6 +716,8 @@ class AnalyticGPUCostEstimator(CostEstimator):
                 emulated_mesh=self.emulated_mesh,
                 calibration=self.calibration,
             )
+        if self.cost_store is not None and key in self._op_cost_memo:
+            return self._op_cost_memo[key]
         piece_slots = [get_piece_shape(s) for s in key.input_shapes]
         # leaf input_shapes covers all slots (data + weights); split by role
         piece_inputs, piece_weights = split_slot_values(key.op_attrs, piece_slots)
@@ -651,6 +727,8 @@ class AnalyticGPUCostEstimator(CostEstimator):
         except (AssertionError, IndexError, ValueError):
             # shape inference failed on these piece shapes: this mapping is
             # broken — make it infinitely expensive, never free
+            if self.cost_store is not None:
+                self._op_cost_memo[key] = float("inf")
             return float("inf")
         sp_degree = 1
         if key.input_shapes and key.input_shapes[0].num_dims >= 3:
@@ -673,8 +751,21 @@ class AnalyticGPUCostEstimator(CostEstimator):
         passes = 1 if self.forward_only else 3
         compute_ms = passes * flops / self.peak_flops * 1000.0
         memory_ms = (1 if self.forward_only else 2) * bytes_moved / (self.hbm_gbps * 1e6)
-        compute = _scale_for_emulated_shards(max(compute_ms, memory_ms), self)
-        return compute + seq_parallel_attention_comm_ms(
+        base_ms = max(compute_ms, memory_ms)
+        if self.cost_store is not None:
+            # a past session's measurement beats the roofline outright (and
+            # the pair it forms with the raw roofline feeds the correction
+            # fitting); a miss is corrected by the class's fitted factor
+            ws = tuple(piece_weights) if piece_weights else None
+            hit = self.cost_store.get_op(key.op_attrs, tuple(piece_inputs), ws)
+            if hit is not None:
+                self.cost_store.note_analytic(key.op_attrs, tuple(piece_inputs), ws, base_ms,
+                                              analytic_sig=self._analytic_sig)
+                base_ms = hit[0]
+            else:
+                base_ms *= self.cost_store.correction_for(
+                    type(key.op_attrs).__name__, analytic_sig=self._analytic_sig)
+        out = _scale_for_emulated_shards(base_ms, self) + seq_parallel_attention_comm_ms(
             key.op_attrs,
             list(key.input_shapes),
             self.machine_spec,
@@ -682,6 +773,9 @@ class AnalyticGPUCostEstimator(CostEstimator):
             self.inter_latency_ms,
             machine_view=key.machine_view,
         )
+        if self.cost_store is not None:
+            self._op_cost_memo[key] = out
+        return out
 
     def estimate_movement_cost(self, movement: TensorSetMovement) -> float:
         return self.comm.movement_cost_ms(movement)
@@ -698,19 +792,34 @@ def make_default_allowed_machine_views(mode: str = "projection"):
       "contiguous" — aligned contiguous views (adds start enumeration).
       "full" — the reference's full strided enumeration
         (allowed_machine_views.cc parity; for tests).
-    The JAX package's "slice" mode (slice_axes.py) is A6 part 2.
+      "slice" — projection-representative views restricted to node-legal
+        ones: a tensor-sharded task dim (slice_axes kind "tensor") never
+        projects across nodes; data, replica and stage dims keep both
+        choices. (A "slice" of the JAX package's multi-slice machine is a
+        node here.)
     """
     from flexflow_tpu_torch.compiler.allowed_machine_views import (
         get_allowed_machine_views,
         get_contiguous_machine_views,
         get_projection_representative_machine_views,
+        get_slice_aware_machine_views,
     )
     from flexflow_tpu_torch.compiler.machine_mapping.problem_tree import (
         task_space_of_leaf,
     )
 
     if mode == "slice":
-        raise NotImplementedError("slice-aware machine views are A6 part 2")
+        from flexflow_tpu_torch.compiler.machine_mapping.slice_axes import (
+            DCN_LEGAL_KINDS,
+            leaf_task_axis_kinds,
+        )
+
+        def allowed(leaf, resources):
+            kinds = leaf_task_axis_kinds(leaf)
+            return get_slice_aware_machine_views(
+                resources, task_space_of_leaf(leaf), tuple(k in DCN_LEGAL_KINDS for k in kinds))
+
+        return allowed
     if mode == "contiguous":
         enum_fn = get_contiguous_machine_views
     elif mode == "full":

@@ -95,8 +95,12 @@ class MachineMappingContext:
     # on all the devices, so disjoint splits are priced only when planning
     # for export.
     allow_resource_splits: bool = False
-    # The fused collective-matmul pricing (machine_mapping/overlap.py in the
-    # JAX package): A6 part 2.
+    # Price the fused collective-matmul lowering (FFConfig.overlap;
+    # machine_mapping/overlap.py): eligible series splits get an overlapped
+    # movement entry max(post, comm) + ramp and the combiner takes the
+    # cheaper exposure. Off by default: the executor lowers fused only when
+    # the switch is on, and pricing a lowering the runtime will not perform
+    # would skew every plan comparison.
     overlap_lowering: bool = False
     # Static memory feasibility: > 0 makes a leaf whose per-device piece
     # residency (analysis/memory_accounting.leaf_step_memory_bytes) exceeds
@@ -111,17 +115,16 @@ class MachineMappingContext:
     # The serving regime (a ServingMemorySpec): forward-only residency plus
     # each attention leaf's per-device KV-cache share.
     serving: Optional[object] = None
-    # Multi-slice legality and the two-level DP (slice_axes.py and
-    # hierarchical.py in the JAX package): A6 part 2.
+    # Node legality (FFConfig.multislice): a leaf view whose INTER_NODE
+    # projections touch a tensor-sharded task dim (slice_axes bitmasks) is
+    # INFEASIBLE, skipped and never inf-priced. This prunes even views
+    # arriving through boundary constraints, which an allowed-views filter
+    # alone can't.
     slice_aware: bool = False
+    # Run the two-level DP over nodes x GPUs per node (hierarchical.py):
+    # the outer level picks which axis kind crosses nodes, the inner level
+    # is this DP per choice. Read by graph_optimize when it builds its cache.
     slice_hierarchy: bool = False
-
-    def __post_init__(self) -> None:
-        if self.overlap_lowering or self.slice_aware or self.slice_hierarchy:
-            raise NotImplementedError(
-                "overlap pricing, slice-aware views and the hierarchical DP "
-                "are not ported yet (ROADMAP A6 part 2)"
-            )
 
 
 _CACHE_MISS = object()
@@ -144,6 +147,9 @@ class MachineMappingCache:
         self._table: Dict = {}
         self.hits = 0
         self.misses = 0
+        # series split -> SplitOverlapInfo | None (overlap.py eligibility;
+        # context-dependent like everything else on this cache)
+        self.overlap_info: Dict = {}
 
     def _key(self, tree, resources, constraints):
         # frozenset: order-free and avoids the repr-based sort that showed
@@ -206,7 +212,26 @@ def get_optimal_machine_mapping(
 ) -> MachineMappingResult:
     """Solve the DP for `tree` on `resources` under the partial view
     assignment `constraints` (the JAX package's pure-Python DP; its native
-    DP is pinned to the same winning costs)."""
+    DP is pinned to the same winning costs).
+
+    A HierarchicalMachineMappingCache (machine_mapping/hierarchical.py)
+    reroutes root-level solves through the two-level DP over nodes: the
+    outer level enumerates which axis kind crosses nodes, each inner level
+    lands back here with a per-choice flat cache."""
+    if not constraints and hasattr(cache, "solve_hierarchical"):
+        return cache.solve_hierarchical(context, tree, resources)
+    return get_optimal_machine_mapping_python(cache, context, tree, resources, constraints)
+
+
+def get_optimal_machine_mapping_python(
+    cache: MachineMappingCache,
+    context: MachineMappingContext,
+    tree: MachineMappingProblemTree,
+    resources: MachineSpecification,
+    constraints: Optional[MachineMappingConstraints] = None,
+) -> MachineMappingResult:
+    """The flat DP itself (interior calls never reroute to the two-level
+    DP, whatever their constraints)."""
     constraints = constraints if constraints is not None else {}
     cached = cache.load(tree, resources, constraints)
     if cached is not _CACHE_MISS:
@@ -279,12 +304,19 @@ def _optimal_series(
     result: MachineMappingResult = INFEASIBLE
     left_base = restrict_to_child(constraints, "L")
     right_base = restrict_to_child(constraints, "R")
+    from flexflow_tpu_torch.compiler.machine_mapping.overlap import (
+        eligible_comm_ms,
+        get_split_overlap,
+        overlapped_exposure_ms,
+    )
+
+    ov_info = get_split_overlap(cache, context, series)
 
     for pre_assignment in _boundary_assignments(
         context, series, "L", movement.src_layers(), resources, left_base
     ):
         pre_constraints = with_additional_constraints(left_base, pre_assignment)
-        pre_result = get_optimal_machine_mapping(
+        pre_result = get_optimal_machine_mapping_python(
             cache, context, series.left, resources, pre_constraints
         )
         if pre_result is None:
@@ -294,7 +326,7 @@ def _optimal_series(
             context, series, "R", movement.dst_layers(), resources, right_base
         ):
             post_constraints = with_additional_constraints(right_base, post_assignment)
-            post_result = get_optimal_machine_mapping(
+            post_result = get_optimal_machine_mapping_python(
                 cache, context, series.right, resources, post_constraints
             )
             if post_result is None:
@@ -303,6 +335,13 @@ def _optimal_series(
             comm_cost = context.cost_estimator.estimate_movement_cost(
                 _concretize_movement(movement, pre_assignment, post_assignment)
             )
+            ov_cost = None
+            if ov_info is not None:
+                ov_cost = overlapped_exposure_ms(
+                    context.cost_estimator, ov_info, comm_cost,
+                    eligible_comm_ms(context.cost_estimator, ov_info,
+                                     pre_assignment, post_assignment),
+                )
             result = minimize_runtime(
                 result,
                 series_combine(
@@ -311,6 +350,7 @@ def _optimal_series(
                     post_result,
                     parallel_split_transformation,
                     overlap_fraction=context.overlap_fraction,
+                    ov_cost=ov_cost,
                 ),
             )
     return result
@@ -346,12 +386,12 @@ def _optimal_parallel(
     right_constraints = restrict_to_child(constraints, "R")
 
     for res_l, res_r in get_machine_resource_splits(resources):
-        left_result = get_optimal_machine_mapping(
+        left_result = get_optimal_machine_mapping_python(
             cache, context, parallel.left, res_l, left_constraints
         )
         if left_result is None:
             continue
-        right_result = get_optimal_machine_mapping(
+        right_result = get_optimal_machine_mapping_python(
             cache, context, parallel.right, res_r, right_constraints
         )
         result = minimize_runtime(
@@ -397,6 +437,13 @@ def _optimal_leaf(
         candidates = context.allowed_machine_views(leaf, resources)
 
     result: MachineMappingResult = INFEASIBLE
+    if context.slice_aware:
+        from flexflow_tpu_torch.compiler.machine_mapping.slice_axes import (
+            view_is_slice_legal,
+        )
+
+        # node-illegal views are skipped (infeasible), never inf-priced
+        candidates = frozenset(v for v in candidates if view_is_slice_legal(leaf, v))
     with search_phase("leaf_cost"):
         for view in candidates:
             cost = context.cost_estimator.estimate_op_cost(

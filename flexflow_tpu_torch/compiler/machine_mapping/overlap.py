@@ -1,0 +1,373 @@
+"""Overlap-aware movement pricing for the machine-mapping DP (copy of
+flexflow_tpu/compiler/machine_mapping/overlap.py).
+
+The serial model charges a series split's boundary communication additively
+(`series_combine`: pre + exposed_comm + post, with the generic
+`overlap_fraction` haircut). Where the executor can LOWER the movement as a
+fused collective matmul (`kernels/collective_matmul.py`: an all-gather
+streaming behind the adjacent matmul, or a matmul whose reduce-scatter half
+rides the ring), the true price is
+
+    pre + max(post_compute, comm) + ramp
+  = pre + post + max(0, comm - post) + ramp
+
+where `ramp` is the un-hidable residue: the first chunk's transfer (the
+matmul cannot start before one chunk lands) plus a per-hop latency for the
+remaining ring steps. This module decides WHERE that entry applies and how
+big the ramp is; `series_combine` takes the min of the serial and
+overlapped exposures, so the DP chooses overlap only where it wins.
+
+Eligibility mirrors the executor's pattern (`collect_overlap_sites`),
+deliberately no wider, so the search never prices a fused lowering the
+runtime will perform serially: a Combine over a non-contraction dim whose
+sole boundary consumer is a dense leaf taking the moved tensor as its
+first data input ("ag_matmul"), or a bias-free activation-free Linear's
+partial-sum output consumed by its matching Reduction ("matmul_rs"). The
+adjacent dense op is roofline-classified (observability/roofline.py)
+against the estimator's machine constants (the H100's where the estimator
+has none): a "dispatch"-class op has no roofline time to hide a collective
+behind, so its edges stay serial; "mxu"/"bandwidth" ops seed an overlapped
+entry and the DP's arithmetic decides whether the hiding pays.
+
+`derive_overlap_plan` re-walks a solved tree with its winning views and
+reports, per eligible split, the serial and overlapped exposures and which
+one the winner used: the annotation the provenance and the plan audit read.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+from flexflow_tpu_torch.compiler.machine_mapping.problem_tree import (
+    MMProblemTreeParallelSplit,
+    MMProblemTreeSeriesSplit,
+    UnmappedOpCostEstimateKey,
+    map_unmapped_op_cost_estimate_key,
+    mm_problem_tree_get_subtree_at_path,
+)
+
+# ops with a matmul core the fused lowerings wrap (the issue's
+# "dense/attention" adjacency)
+_DENSE_OP_NAMES = (
+    "LinearAttrs",
+    "BatchMatmulAttrs",
+    "MultiHeadAttentionAttrs",
+)
+
+
+@dataclass(frozen=True)
+class SplitOverlapInfo:
+    """One series split's overlap-lowering eligibility."""
+
+    kind: str  # "ag_matmul" | "matmul_rs"
+    chunks: int  # ring length (the moved axis's parallel degree)
+    adjacent_op: str  # type name of the dense op the comm hides behind
+    roofline_class: str  # "mxu" | "bandwidth" (the seed that let it in)
+    adjacent_ms: float  # the adjacent op's roofline ceiling (ms) — the
+    # compute budget the fused ring hides the collective behind
+    edge_op: str  # type name of the parallel op whose collective fuses
+    # the ONE eligible AbstractedSingleTensorMovement: only ITS comm gets
+    # the overlap discount — a boundary can also move ineligible tensors
+    # whose cost must stay fully exposed
+    movement: object = None
+    # tree-relative paths of the fused edge's endpoints (src side 'L',
+    # dst side 'R') — derive_overlap_plan turns these into PCG nodes
+    src_path: tuple = ()
+    dst_path: tuple = ()
+
+
+def _is_dense(attrs) -> bool:
+    from flexflow_tpu_torch.op_attrs.ops import MultiHeadAttentionAttrs
+
+    if isinstance(attrs, MultiHeadAttentionAttrs):
+        return True
+    return type(attrs).__name__ in _DENSE_OP_NAMES
+
+
+def leaf_roofline_class(
+    leaf: UnmappedOpCostEstimateKey, peak_flops: float, hbm_gbps: float
+):
+    """(class, ceiling_ms) of a leaf's per-task piece — class is "mxu" |
+    "bandwidth" | "dispatch"; ceiling_ms is the binding roofline's time,
+    the compute budget an overlapped collective can hide behind. (None,
+    0.0) when the shapes defeat the analytic counters. Classified at the
+    op's own roofline ceiling: the question here is which ceiling BINDS
+    (is there MXU/HBM time to hide a collective behind), not how
+    efficiently a measured run hit it."""
+    from flexflow_tpu_torch.kernels.ops import op_forward_flops
+    from flexflow_tpu_torch.local_execution.training_backing import (
+        split_slot_values,
+    )
+    from flexflow_tpu_torch.observability.roofline import (
+        TRAIN_BYTES_FACTOR,
+        TRAIN_FLOPS_FACTOR,
+        classify_op,
+    )
+    from flexflow_tpu_torch.op_attrs.core import get_output_shapes
+    from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import get_piece_shape
+
+    try:
+        piece_slots = [get_piece_shape(s) for s in leaf.input_shapes]
+        piece_inputs, piece_weights = split_slot_values(
+            leaf.op_attrs, piece_slots
+        )
+        out_shapes = get_output_shapes(leaf.op_attrs, piece_inputs)
+        flops = op_forward_flops(
+            leaf.op_attrs,
+            piece_inputs,
+            out_shapes,
+            weight_shapes=piece_weights or None,
+        )
+        nbytes = (
+            sum(s.size_bytes for s in piece_inputs)
+            + sum(s.size_bytes for s in piece_weights)
+            + sum(s.size_bytes for s in out_shapes)
+        )
+    except (AssertionError, IndexError, KeyError, TypeError, ValueError):
+        return None, 0.0
+    compute_ms = TRAIN_FLOPS_FACTOR * flops / max(peak_flops, 1e-9) * 1e3
+    memory_ms = TRAIN_BYTES_FACTOR * nbytes / max(hbm_gbps * 1e6, 1e-9)
+    ceiling_ms = max(compute_ms, memory_ms)
+    return (
+        classify_op(flops, nbytes, ceiling_ms, peak_flops, hbm_gbps),
+        ceiling_ms,
+    )
+
+
+def series_split_overlap(
+    split: MMProblemTreeSeriesSplit, context
+) -> Optional[SplitOverlapInfo]:
+    """Eligibility of one series split for the overlapped movement entry
+    (None = serial pricing only). Deterministic in (split, context)."""
+    if not getattr(context, "overlap_lowering", False):
+        return None
+    from flexflow_tpu_torch.op_attrs.ops import (
+        CombineAttrs,
+        LinearAttrs,
+        ReductionAttrs,
+    )
+
+    from flexflow_tpu_torch.observability.roofline import machine_constants
+
+    est = context.cost_estimator
+    default = machine_constants(getattr(est, "calibration", None))
+    peak = getattr(est, "peak_flops", default["peak_flops"])
+    hbm = getattr(est, "hbm_gbps", default["hbm_gbps"])
+    for m in split.tensor_set_movement.movements:
+        src_leaves = []
+        for p in sorted(m.src_layers):
+            leaf = mm_problem_tree_get_subtree_at_path(split.left, p)
+            if isinstance(leaf, UnmappedOpCostEstimateKey):
+                src_leaves.append((p, leaf))
+        dst_leaves = []
+        for p in sorted(m.dst_layers):
+            leaf = mm_problem_tree_get_subtree_at_path(split.right, p)
+            if isinstance(leaf, UnmappedOpCostEstimateKey):
+                dst_leaves.append((p, leaf))
+
+        for sp, src in src_leaves:
+            sa = src.op_attrs
+            # Combine over a non-contraction dim feeding ONE dense
+            # consumer's data input: the gather streams chunk-by-chunk
+            # behind the consumer's matmul (executor pattern "ag_matmul":
+            # a last-dim Combine gathers the contraction axis, which the
+            # ring cannot chunk, and a multi-consumer gather would be
+            # recomputed per consumer)
+            if isinstance(sa, CombineAttrs) and src.input_shapes:
+                k = sa.combine_degree
+                rank = src.input_shapes[0].num_dims
+                g = sa.combine_dim % rank
+                if k <= 1 or g == rank - 1 or len(dst_leaves) != 1:
+                    continue
+                dp, dst = dst_leaves[0]
+                if not _is_dense(dst.op_attrs):
+                    continue
+                if (
+                    not dst.input_shapes
+                    or dst.input_shapes[0] != m.shape
+                ):
+                    continue  # adjacent op must CONSUME the moved tensor
+                cls, adj_ms = leaf_roofline_class(dst, peak, hbm)
+                if cls in ("mxu", "bandwidth"):
+                    return SplitOverlapInfo(
+                        "ag_matmul", k, type(dst.op_attrs).__name__,
+                        cls, adj_ms, type(sa).__name__, m, sp, dp,
+                    )
+            # bias-free activation-free Linear feeding its Reduction: the
+            # all-reduce's reduce-scatter half rides the matmul's chunk
+            # ring (executor pattern "matmul_rs" — the pinned-reduction
+            # exactness guards, and Linear only: a BatchMatmul's rhs
+            # shares the chunked leading dim)
+            if (
+                isinstance(sa, LinearAttrs)
+                and not sa.use_bias
+                and sa.activation is None
+                and m.shape.sum_degree > 1
+            ):
+                if m.shape not in src.output_shapes:
+                    continue  # adjacent op must PRODUCE the moved tensor
+                for dp, dst in dst_leaves:
+                    da = dst.op_attrs
+                    if (
+                        not isinstance(da, ReductionAttrs)
+                        or da.reduction_degree != m.shape.sum_degree
+                    ):
+                        continue
+                    cls, adj_ms = leaf_roofline_class(src, peak, hbm)
+                    if cls in ("mxu", "bandwidth"):
+                        return SplitOverlapInfo(
+                            "matmul_rs", da.reduction_degree,
+                            type(sa).__name__, cls, adj_ms,
+                            type(da).__name__, m, sp, dp,
+                        )
+    return None
+
+
+def get_split_overlap(
+    cache, context, split: MMProblemTreeSeriesSplit
+) -> Optional[SplitOverlapInfo]:
+    """series_split_overlap memoized on the (per-context) mapping cache:
+    hash-consed splits make the key O(1)."""
+    # cheap short-circuits BEFORE touching the cache: the serialized
+    # fallback of every parallel split builds a fresh (un-interned)
+    # empty-movement series split per call, and hashing those into the
+    # memo would cost more than the answer
+    if not getattr(context, "overlap_lowering", False):
+        return None
+    if not split.tensor_set_movement.movements:
+        return None
+    table = cache.overlap_info
+    if split in table:
+        return table[split]
+    info = series_split_overlap(split, context)
+    table[split] = info
+    return info
+
+
+def overlap_ramp_ms(estimator, serial_ms: float, chunks: int) -> float:
+    """The overlapped entry's exposed residue for a movement whose serial
+    collective costs `serial_ms`, rung over `chunks` chunks: the comm
+    model's view when it has one (BandwidthCommModel /
+    MachineModelCommModel.overlap_ramp_ms), else the first-chunk +
+    per-hop-latency default."""
+    comm = getattr(estimator, "comm", None)
+    if comm is not None and hasattr(comm, "overlap_ramp_ms"):
+        return comm.overlap_ramp_ms(serial_ms, chunks)
+    lat = getattr(estimator, "intra_latency_ms", 0.001)
+    k = max(chunks, 1)
+    return serial_ms / k + (k - 1) * lat
+
+
+def eligible_comm_ms(estimator, info: SplitOverlapInfo, pre, post) -> float:
+    """Comm cost of the eligible movement ALONE under one boundary-view
+    assignment (pre/post must cover its src/dst layers — they always do,
+    being the split's full boundary assignments)."""
+    from flexflow_tpu_torch.compiler.machine_mapping.get_optimal_machine_mapping import (
+        _concretize_movement,
+    )
+    from flexflow_tpu_torch.compiler.machine_mapping.problem_tree import (
+        AbstractedTensorSetMovement,
+    )
+
+    return estimator.estimate_movement_cost(
+        _concretize_movement(
+            AbstractedTensorSetMovement((info.movement,)), pre, post
+        )
+    )
+
+
+def overlapped_exposure_ms(
+    estimator, info: SplitOverlapInfo, serial_ms: float, eligible_ms: float
+) -> float:
+    """The overlapped entry's full exposed cost for one boundary-view
+    combo: only the ELIGIBLE movement's comm hides behind the adjacent
+    op — max(0, eligible - adjacent_ms) plus its ring ramp — while the
+    boundary's remaining (ineligible) movements stay fully exposed.
+    Constant in the downstream stage. (The combiner min's this against the serial entry, so
+    charging the ineligible residue at full price can only keep a plan's
+    cost honest, never raise it above serial.)"""
+    return (
+        max(0.0, serial_ms - eligible_ms)
+        + max(0.0, eligible_ms - info.adjacent_ms)
+        + overlap_ramp_ms(estimator, eligible_ms, info.chunks)
+    )
+
+
+def derive_overlap_plan(
+    cache, context, tree, resources, result
+) -> List[Dict[str, object]]:
+    """Re-walk a SOLVED problem tree bottom-up with the winner's views
+    pinned and report every overlap-eligible series split: its comm cost,
+    both exposures, and whether the winner's price used the overlapped
+    entry. The arithmetic is the combiners' own, so `recomputed_ms` of the
+    root matches `result.runtime` (recorded for honesty — a drift means
+    the annotation does not describe the plan that won).
+
+    Only valid for full-mesh solves: under resource splits the recompute
+    cannot know which sub-machine each branch priced on, so it reports
+    nothing rather than guessing."""
+    if result is None or getattr(context, "allow_resource_splits", False):
+        return []
+    from flexflow_tpu_torch.compiler.machine_mapping.get_optimal_machine_mapping import (
+        _concretize_movement,
+    )
+
+    est = context.cost_estimator
+    edges: List[Dict[str, object]] = []
+
+    def view_at(mapping_tree, path):
+        cur = mapping_tree
+        for step in path:
+            cur = cur[0] if step == "L" else cur[1]
+        assert cur[0] is None, path
+        return cur[1]
+
+    def walk(t, mt, prefix) -> float:
+        if isinstance(t, UnmappedOpCostEstimateKey):
+            return est.estimate_op_cost(
+                map_unmapped_op_cost_estimate_key(t, mt[1])
+            )
+        left_rt = walk(t.left, mt[0], prefix + ("L",))
+        right_rt = walk(t.right, mt[1], prefix + ("R",))
+        if isinstance(t, MMProblemTreeParallelSplit):
+            # serialized-parallel fallback: empty movement, zero exposure
+            return left_rt + right_rt
+        movement = t.tensor_set_movement
+        pre = {p: view_at(mt[0], p) for p in sorted(movement.src_layers())}
+        post = {p: view_at(mt[1], p) for p in sorted(movement.dst_layers())}
+        comm = est.estimate_movement_cost(
+            _concretize_movement(movement, pre, post)
+        )
+        exposed = max(0.0, comm - context.overlap_fraction * right_rt)
+        info = get_split_overlap(cache, context, t)
+        if info is not None:
+            el = eligible_comm_ms(est, info, pre, post)
+            ov_exposed = overlapped_exposure_ms(est, info, comm, el)
+            chosen = ov_exposed < exposed
+            edges.append(
+                {
+                    "split_path": "".join(prefix) or "<root>",
+                    "kind": info.kind,
+                    "edge_op": info.edge_op,
+                    "adjacent_op": info.adjacent_op,
+                    "roofline_class": info.roofline_class,
+                    "adjacent_ms": round(info.adjacent_ms, 6),
+                    "chunks": info.chunks,
+                    "src_path": prefix + ("L",) + info.src_path,
+                    "dst_path": prefix + ("R",) + info.dst_path,
+                    "comm_ms": round(comm, 6),
+                    "eligible_comm_ms": round(el, 6),
+                    "serial_exposed_ms": round(exposed, 6),
+                    "overlapped_exposed_ms": round(ov_exposed, 6),
+                    "chosen": bool(chosen),
+                }
+            )
+            exposed = min(exposed, ov_exposed)
+        return left_rt + exposed + right_rt
+
+    total = walk(tree, result.machine_mapping, ())
+    for e in edges:
+        e["recomputed_root_ms"] = round(total, 6)
+        e["winner_root_ms"] = round(result.runtime, 6)
+    return edges

@@ -1,6 +1,6 @@
 """MachineMappingResult + combinators (copy of
 flexflow_tpu/compiler/machine_mapping/result.py, without the overlapped
-movement entry of A6 part 2).
+movement entry of machine_mapping/overlap.py).
 
 Reference: lib/compiler/src/compiler/machine_mapping/machine_mapping_result.cc:35-101
 (series_combine: runtime = pre + comm + post; parallel_combine: max; plus
@@ -75,11 +75,18 @@ def series_combine(
     post: MachineMappingResult,
     parallel_split_transformation: Optional[ParallelSplitTransformation] = None,
     overlap_fraction: float = 0.0,
+    ov_cost: Optional[float] = None,
 ) -> MachineMappingResult:
     """runtime = pre + exposed_comm + post, where boundary communication
     hides under up to `overlap_fraction` of the downstream stage's compute;
     overlap_fraction=0 recovers the reference machine_mapping_result.cc's
-    strictly additive pre + comm + post."""
+    strictly additive pre + comm + post.
+
+    ov_cost (non-None only for splits the collective matmuls can lower, see
+    machine_mapping/overlap.py) is the fused entry's full exposed cost:
+    max(0, comm - the adjacent op's roofline time) plus the ring ramp. The
+    combiner takes whichever exposure is cheaper, which is how the DP
+    chooses the overlapped lowering."""
     if pre is None or post is None:
         return INFEASIBLE
     if parallel_split_transformation == ParallelSplitTransformation.RthenL:
@@ -87,6 +94,8 @@ def series_combine(
     else:
         mapping = _combine_mappings(pre, post)
     exposed = max(0.0, comm_cost - overlap_fraction * post.runtime)
+    if ov_cost is not None and ov_cost < exposed:
+        exposed = ov_cost
     return FeasibleMachineMappingResult(
         pre.runtime + exposed + post.runtime, mapping
     )

@@ -1,0 +1,276 @@
+"""Simulated-annealing strategy search, Unity's legacy search mode (copy of
+flexflow_tpu/compiler/mcmc_search.py: the same `random.Random(rng_seed)`
+stream over the same rule order, so both packages propose the same
+rewrites).
+
+Reference: the legacy stack's `strategy_search_task`
+(lib/runtime/src/simulator.h:671 — "Perform MCMC search" over operator
+strategies, with the Simulator costing each proposal) — the FlexFlow/OSDI'20
+MCMC algorithm: propose a random local change, accept if better, accept a
+worse state with probability exp(-beta * delta), keep the best state seen.
+
+Here the proposal space is the same rewrite lattice the best-first walk
+(unity_algorithm.graph_optimize) explores — a random applicable substitution
+at a random site, occasionally a jump to a random strategy-template seed —
+and each accepted state is priced by its optimal machine mapping, so the two
+search modes are directly comparable on identical cost semantics. The walk
+is a search-DIVERSITY tool: where the best-first frontier commits to the
+greedy gradient of the cost model, annealing can cross cost valleys whose
+far side the frontier prunes.
+"""
+
+from __future__ import annotations
+
+import math
+import random
+from dataclasses import dataclass
+from typing import List, Optional
+
+from flexflow_tpu_torch.compiler.machine_mapping.get_optimal_machine_mapping import (
+    MachineMappingCache,
+    MachineMappingContext,
+)
+from flexflow_tpu_torch.compiler.unity_algorithm import (
+    GraphOptimizeResult,
+    _already_applied_at,
+    _canonical_key,
+    _normalize,
+    _rule_slot_wrappers,
+    enumerate_seeds,
+    evaluate_pcg,
+    max_total_degree,
+)
+from flexflow_tpu_torch.observability.search_phases import (
+    collect_search_phases,
+    search_phase,
+)
+from flexflow_tpu_torch.pcg.machine_view import MachineSpecification
+from flexflow_tpu_torch.pcg.parallel_computation_graph import ParallelComputationGraph
+from flexflow_tpu_torch.substitutions.pcg_pattern import find_pattern_matches
+from flexflow_tpu_torch.substitutions.substitution import (
+    Substitution,
+    apply_substitution,
+    match_interface_is_closed,
+)
+
+
+@dataclass(frozen=True)
+class MCMCConfig:
+    """budget = number of cost evaluations (the legacy search's iteration
+    budget); beta = inverse temperature relative to the serial runtime
+    (acceptance of a worse state: exp(-beta * delta / serial)); seed_jump =
+    probability a proposal restarts from a random strategy template instead
+    of a local rewrite."""
+
+    budget: int = 100
+    beta: float = 20.0
+    seed_jump: float = 0.1
+    max_num_ops: int = 512
+    rng_seed: int = 0
+
+
+def _propose_rewrite(
+    pcg: ParallelComputationGraph,
+    substitutions: List[Substitution],
+    rng: random.Random,
+    degree_cap: int,
+    max_num_ops: int,
+    wrappers,
+    match_cache,
+    attempts: int = 16,
+) -> Optional[ParallelComputationGraph]:
+    """A random applicable rewrite of `pcg`, or None after `attempts`
+    misses (rule matched nothing / rejected by the validity checks).
+    match_cache memoizes each rule's match list for the CURRENT state
+    (the caller clears it whenever the walk moves) — rejected proposals
+    leave the state unchanged, so re-scanning the whole graph per attempt
+    would be pure waste. Both caches key on the rule's INDEX in
+    `substitutions` (stable for the walk's lifetime), not id(sub): an id
+    is only unique while its object is alive, so a re-created rule list or
+    a GC'd id reuse could silently alias another rule's match list."""
+    for _ in range(attempts):
+        sub_idx = rng.randrange(len(substitutions))
+        sub = substitutions[sub_idx]
+        matches = match_cache.get(sub_idx)
+        if matches is None:
+            with search_phase("match"):
+                matches = list(find_pattern_matches(sub.pattern, pcg))
+            match_cache[sub_idx] = matches
+        if not matches:
+            continue
+        match = rng.choice(matches)
+        if _already_applied_at(pcg, sub, match, wrappers[sub_idx]):
+            continue
+        if not match_interface_is_closed(pcg, sub, match):
+            continue
+        try:
+            raw = apply_substitution(pcg, sub, match)
+        except (AssertionError, KeyError, ValueError):
+            continue
+        if max_total_degree(raw) > degree_cap:
+            continue
+        new = _normalize(raw)
+        if len(new) > max_num_ops:
+            continue
+        return new
+    return None
+
+
+def mcmc_optimize(
+    pcg: ParallelComputationGraph,
+    context: MachineMappingContext,
+    machine_spec: MachineSpecification,
+    substitutions: List[Substitution],
+    config: MCMCConfig = MCMCConfig(),
+) -> GraphOptimizeResult:
+    """Annealed random walk over the rewrite lattice; returns the best
+    state seen (same result type as graph_optimize, so callers can swap
+    search modes)."""
+    with collect_search_phases() as phase_ms:
+        return _mcmc_optimize(
+            pcg, context, machine_spec, substitutions, config, phase_ms
+        )
+
+
+def _mcmc_optimize(
+    pcg: ParallelComputationGraph,
+    context: MachineMappingContext,
+    machine_spec: MachineSpecification,
+    substitutions: List[Substitution],
+    config: MCMCConfig,
+    phase_ms,
+) -> GraphOptimizeResult:
+    rng = random.Random(config.rng_seed)
+    # search-session boundary for the process-global intern tables (same
+    # rationale as _graph_optimize)
+    from flexflow_tpu_torch.compiler.machine_mapping.problem_tree import (
+        clear_problem_tree_intern_cache,
+    )
+
+    clear_problem_tree_intern_cache()
+    # the one shared cache of the walk (see evaluate_pcg: required so the
+    # cross-candidate reuse is a caller decision, never a silent no-op)
+    mm_cache = MachineMappingCache()
+    wrappers = [_rule_slot_wrappers(sub) for sub in substitutions]
+
+    start = evaluate_pcg(pcg, context, machine_spec, mm_cache)
+    if start is None:
+        raise ValueError(
+            "initial PCG is not SP-decomposable or has no feasible machine "
+            "mapping on the given machine spec"
+        )
+    serial_runtime = start.runtime
+    degree_cap = machine_spec.num_devices
+
+    # seeds double as annealing restart points (the legacy search started
+    # from the default data-parallel strategy; template jumps generalize it)
+    seeds = []
+    seed_label_of_key = {}
+    seed_runtimes = {}
+    with search_phase("seed_build"):
+        for label, seed_pcg in enumerate_seeds(pcg, degree_cap):
+            if len(seed_pcg) > config.max_num_ops:
+                continue
+            seeds.append(seed_pcg)
+            seed_label_of_key[_canonical_key(seed_pcg)] = label
+
+    current, current_cost = pcg, start.runtime
+    best = start
+    explored = 0
+    infeasible = 0
+    dedup_hits = 0
+    accepted = 0
+    evaluated = {_canonical_key(pcg): start}
+    match_cache: dict = {}
+    budget = max(config.budget, 0)
+    # budget counts FEASIBLE evaluations (the legacy search's iteration
+    # budget buys acceptable states — an infeasible candidate can never be
+    # accepted, so it must not drain the budget); cache-hit proposals don't
+    # consume it either, but each still costs an apply+normalize, so a run
+    # of them with no accepted move means the reachable neighborhood is
+    # exhausted — break early rather than spinning to the iteration cap.
+    # FRESH infeasible candidates advance `stale` the same way: a
+    # neighborhood producing only unacceptable states (cached or not) is
+    # exhausted for the walk's purposes, so the stale<64 early exit fires
+    # instead of burning the 20x-budget iteration cap.
+    iterations = 0
+    stale = 0
+    while explored < budget and iterations < 20 * budget + 100 and stale < 64:
+        iterations += 1
+        if seeds and rng.random() < config.seed_jump:
+            candidate_pcg = rng.choice(seeds)
+        else:
+            candidate_pcg = _propose_rewrite(
+                current, substitutions, rng, degree_cap, config.max_num_ops,
+                wrappers, match_cache,
+            )
+            if candidate_pcg is None:
+                # local rewrites exhausted around this state: jump
+                if not seeds:
+                    break
+                candidate_pcg = rng.choice(seeds)
+        key = _canonical_key(candidate_pcg)
+        if key in evaluated:
+            candidate = evaluated[key]
+            stale += 1
+            dedup_hits += 1
+        else:
+            candidate = evaluate_pcg(
+                candidate_pcg, context, machine_spec, mm_cache
+            )
+            evaluated[key] = candidate
+            if candidate is not None:
+                explored += 1
+                # only a FEASIBLE fresh evaluation opens new neighborhood:
+                # resetting on infeasible ones let a neighborhood of fresh
+                # infeasible candidates defeat the stale<64 early exit and
+                # spin to the iteration cap
+                stale = 0
+            else:
+                infeasible += 1
+                # an infeasible fresh candidate is as dead an end as a
+                # cache hit: it counts toward the stale early exit
+                stale += 1
+            if key in seed_label_of_key:
+                if candidate is not None:
+                    seed_runtimes[seed_label_of_key[key]] = candidate.runtime
+                else:
+                    # infeasible template: stop re-proposing it
+                    seeds = [
+                        s for s in seeds if _canonical_key(s) != key
+                    ]
+        if candidate is None:
+            continue
+        delta = candidate.runtime - current_cost
+        if delta <= 0 or rng.random() < math.exp(
+            -config.beta * delta / max(serial_runtime, 1e-9)
+        ):
+            # stale deliberately NOT reset here: accepting a cache-hit twin
+            # (equal-cost oscillation) opens no new neighborhood — only a
+            # fresh feasible evaluation above does
+            current, current_cost = candidate_pcg, candidate.runtime
+            match_cache = {}
+            accepted += 1
+            if candidate.runtime < best.runtime:
+                best = candidate
+    best.explored = explored
+    best.serial_runtime = serial_runtime
+    best.seed_runtimes = seed_runtimes or None
+    best.telemetry = {
+        "algorithm": "mcmc",
+        "evaluations": explored + infeasible + 1,  # + the initial state
+        "infeasible": infeasible,
+        "dedup_hits": dedup_hits,
+        "iterations": iterations,
+        "accepted": accepted,
+        "symmetry_dedup": False,
+        "signature_version": None,
+        "budget": budget,
+        "beta": config.beta,
+        "seed_jump": config.seed_jump,
+        "mm_cache_hits": mm_cache.hits,
+        "mm_cache_misses": mm_cache.misses,
+        "native_dp": False,
+        "phase_ms": {k: round(v, 3) for k, v in phase_ms.items()},
+    }
+    return best

@@ -1,8 +1,8 @@
 """The Unity joint-optimization loop: best-first search over substitution
 rewrites, each candidate costed by its optimal machine mapping (copy of
 flexflow_tpu/compiler/unity_algorithm.py, with the memory-budgeted
-evaluation; its pipeline seeds wait for A10, the overlap and hierarchical
-pricing for A6 part 2).
+evaluation, the overlap pricing and the two-level DP over nodes; its
+pipeline seeds wait for A10).
 
 Reference: lib/compiler/src/compiler/unity_algorithm.cc — the reference left
 this a NOT_IMPLEMENTED stub with the algorithm described in comments
@@ -214,6 +214,15 @@ class GraphOptimizeResult:
     # dedup_hits (+ breakdown), symmetry_dedup, signature_version,
     # mm_cache hits/misses, phase_ms}
     telemetry: Optional[Dict[str, object]] = None
+    # overlap-eligible movement edges of THIS plan's DP solve (one dict per
+    # edge: kind, endpoints, serial vs overlapped exposure, chosen flag) —
+    # populated only when the context priced with overlap_lowering
+    # (machine_mapping/overlap.py derive_overlap_plan)
+    overlap_edges: Optional[List[Dict[str, object]]] = None
+    # the two-level DP's provenance (machine_mapping/hierarchical.py):
+    # {"choices": {axis kind: runtime|None}, "winner": kind} for this plan's
+    # solve — populated only under context.slice_hierarchy
+    hierarchical: Optional[Dict[str, object]] = None
 
 
 # Collision-class version of _cost_signature (recorded in search
@@ -359,7 +368,52 @@ def evaluate_pcg(
         )
         if has_errors(mem_diags):
             return None
-    return GraphOptimizeResult(pcg, result.runtime, mapping)
+    overlap_edges = None
+    if context.overlap_lowering:
+        from flexflow_tpu_torch.compiler.machine_mapping.overlap import derive_overlap_plan
+
+        overlap_edges = derive_overlap_plan(cache, context, tree, machine_spec, result)
+        for e in overlap_edges:
+            for side in ("src", "dst"):
+                n = node_of_path.get(e.pop(f"{side}_path"))
+                e[f"{side}_node"] = None if n is None else n.idx
+                la = pcg.layer_attrs(n) if n is not None else None
+                e[f"{side}_name"] = getattr(la, "name", None)
+    hier = cache.outer_of(tree, machine_spec) if hasattr(cache, "outer_of") else None
+    return GraphOptimizeResult(pcg, result.runtime, mapping, overlap_edges=overlap_edges,
+                               hierarchical=hier)
+
+
+def price_mapped_plan(
+    pcg: ParallelComputationGraph,
+    mapping: dict,
+    context: MachineMappingContext,
+    machine_spec: MachineSpecification,
+) -> Optional[float]:
+    """Cost an already-solved plan under `context`'s estimator: the DP with
+    every leaf pinned to the plan's view, so the result is the runtime that
+    estimator would have assigned the plan during a search (series/parallel
+    combining and overlap exposure included). Prices a flat DP's winner
+    under the two-level model, for one. None when the plan is non-SP,
+    incompletely mapped, or infeasible under `context` (a pinned view the
+    node-legality mask rejects)."""
+    try:
+        tree, path_of = get_machine_mapping_problem_tree(pcg)
+    except ValueError:
+        return None
+    constraints = {}
+    for n, p in path_of.items():
+        v = mapping.get(n)
+        if v is None:
+            return None
+        constraints[p] = v
+    from flexflow_tpu_torch.compiler.machine_mapping.get_optimal_machine_mapping import (
+        get_optimal_machine_mapping_python,
+    )
+
+    result = get_optimal_machine_mapping_python(
+        MachineMappingCache(), context, tree, machine_spec, constraints)
+    return None if result is None else result.runtime
 
 
 def greedy_apply(
@@ -655,8 +709,17 @@ def _graph_optimize(
 
     clear_problem_tree_intern_cache()
     # ONE cache for the whole search: cross-candidate subtree reuse is the
-    # point (see evaluate_pcg); every evaluation below threads this instance
-    mm_cache = MachineMappingCache()
+    # point (see evaluate_pcg); every evaluation below threads this instance.
+    # A slice_hierarchy context gets the two-level cache over nodes (one
+    # flat sub-cache per outer boundary-axis choice).
+    if context.slice_hierarchy and machine_spec.num_nodes > 1:
+        from flexflow_tpu_torch.compiler.machine_mapping.hierarchical import (
+            HierarchicalMachineMappingCache,
+        )
+
+        mm_cache = HierarchicalMachineMappingCache()
+    else:
+        mm_cache = MachineMappingCache()
     # provenance counters: how the plan was found (evaluations = fresh
     # evaluate_pcg calls; infeasible = evaluations returning None;
     # dedup breakdown: canonical-key, cost-signature, and site-signature
@@ -867,6 +930,11 @@ def _graph_optimize(
     best.explored = explored
     best.serial_runtime = serial_runtime
     best.seed_runtimes = seed_runtimes
+    if hasattr(mm_cache, "aggregate_counters"):
+        # two-level cache: fold the per-choice sub-caches' counters in
+        cache_hits, cache_misses = mm_cache.aggregate_counters()
+    else:
+        cache_hits, cache_misses = mm_cache.hits, mm_cache.misses
     best.telemetry = {
         "algorithm": "unity",
         "evaluations": evaluations,
@@ -885,8 +953,9 @@ def _graph_optimize(
         # how pricing was paid for: shared-cache reuse across candidates
         # and where the search wall-clock went per phase (phases nest; see
         # search_phases.py)
-        "mm_cache_hits": mm_cache.hits,
-        "mm_cache_misses": mm_cache.misses,
+        "mm_cache_hits": cache_hits,
+        "mm_cache_misses": cache_misses,
+        "hierarchical": hasattr(mm_cache, "solve_hierarchical"),
         "phase_ms": {k: round(v, 3) for k, v in phase_ms.items()},
     }
     return best

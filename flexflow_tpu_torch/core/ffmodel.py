@@ -61,14 +61,21 @@ The fit loop's supervision (runtime/supervisor.py, runtime/fault.py): the
 window watchdog (FFConfig.watchdog_factor or FF_TPU_WATCHDOG), the fault
 channel, and the fault sites FF_TPU_FAULT_STEP and FF_TPU_FAULT_SPEC arm.
 
+A searched compile takes the whole of the JAX package's search options:
+the persistent cost and movement stores (FFConfig.cost_store,
+movement_cost_store), the MCMC search, the machine models
+(machine_model_version / machine_model_file), the two-level search over
+nodes (multislice), the fusion and legacy rules (perform_fusion,
+substitution_json_path), branch stacking, and the pricing of the fused
+collective matmuls (overlap).
+
 What reaches a slice that is not ported yet raises NotImplementedError
-naming it, at the call: the layer methods of unported ops (A2), the
-search's stores, other algorithms and its pricing of the fused collective
-matmuls (A6 part 2), a searched compile's memory budget (FFConfig.hbm_gb:
-the capacity detection, compile-time verification and provenance around
-the budgeted search, A6 part 2 / A13; the budgeted search itself,
-compiler.evaluate_pcg under a memory_budget_bytes, is ported), recompiles
-(A8 part 2), pipelines and sub-mesh branches (A10).
+naming it, at the call: the layer methods of unported ops (A2), a searched
+compile's memory budget (FFConfig.hbm_gb: the capacity detection,
+compile-time verification and provenance around the budgeted search, A13;
+the budgeted search itself, compiler.evaluate_pcg under a
+memory_budget_bytes, is ported), recompiles (A8 part 2), pipelines and
+sub-mesh branches (A10).
 """
 from __future__ import annotations
 
@@ -362,11 +369,20 @@ class FFModel:
     gather = _unported("gather", "Gather")
     top_k = _unported("top_k", "TopK")
     cast = _unported("cast", "Cast")
-    broadcast = _unported("broadcast", "Broadcast")
+    def broadcast(self, input, target_dims, name=None) -> Tensor:
+        return self._wrap(self._builder.broadcast(self._unwrap(input), target_dims, name=name))
+
     def batch_matmul(self, a, b, name=None) -> Tensor:
         return self._wrap(self._builder.batch_matmul(self._unwrap(a), self._unwrap(b), name=name))
-    reduce_sum = _unported("reduce_sum", "ReduceSum")
-    mean = _unported("mean", "ReduceMean")
+
+    def reduce_sum(self, input, axes, keepdims=False, name=None) -> Tensor:
+        return self._wrap(self._builder.reduce_sum(self._unwrap(input), axes, keepdims=keepdims,
+                                                   name=name))
+
+    def mean(self, input, dims, keepdims=False, name=None) -> Tensor:
+        return self._wrap(self._builder.reduce_mean(self._unwrap(input), dims, keepdims=keepdims,
+                                                    name=name))
+
     group_by = _unported("group_by", "GroupBy")
     aggregate = _unported("aggregate", "Aggregate")
     moe = _unported("moe", "the Experts op")
@@ -648,17 +664,7 @@ class FFModel:
         cfg = self.config
         unported = (
             (cfg.hbm_gb > 0, "hbm_gb (a compile's memory budget: its capacity detection and "
-                           "compile-time verification)", "A6 part 2 / A13"),
-            (bool(cfg.cost_store or cfg.movement_cost_store), "cost_store / movement_cost_store",
-             "A6 part 2 / A13"),
-            (cfg.search_algorithm != "unity", f"search_algorithm={cfg.search_algorithm!r}",
-             "A6 part 2"),
-            (cfg.machine_model_version > 0 or bool(cfg.machine_model_file), "machine_model_*",
-             "A6 part 2"),
-            (bool(cfg.substitution_json_path), "substitution_json_path", "A6 part 2"),
-            (cfg.perform_fusion, "perform_fusion (the fusion rules)", "A6 part 2"),
-            (cfg.branch_stacking, "branch_stacking", "A6 part 2"),
-            (bool(cfg.multislice), "multislice", "A6 part 2"),
+                           "compile-time verification)", "A13"),
             (bool(cfg.pipeline), "pipeline", "A10"),
             (cfg.force_strategy_seed.startswith("pp"), "force_strategy_seed of a pipeline",
              "A10"),
@@ -668,13 +674,9 @@ class FFModel:
                 raise NotImplementedError(
                     f"FFConfig.{what} in a searched compile is not ported yet ({slice_name})")
         overlap_on = overlap_lowering_active(cfg.overlap)
-        if overlap_on and not (cfg.import_strategy_file or cfg.force_strategy_seed):
-            # the JAX search prices the fused edges (machine_mapping/overlap.py
-            # derive_overlap_plan); searching without them would price otherwise
-            raise NotImplementedError(
-                "FFConfig.overlap (the collective matmuls) in a search: the search's pricing "
-                "of the fused edges is not ported yet (A6 part 2 item 4); train an imported "
-                "strategy or a forced seed with it")
+        # FFConfig.multislice: node legality masks every candidate view, and
+        # a spec of several nodes searches through the two-level DP
+        multislice_on = bool(cfg.multislice)
         nodes = max(cfg.num_nodes, 1)
         if self.device.type == "cpu":
             # the JAX package's CPU constants, so both packages find one winner
@@ -702,46 +704,111 @@ class FFModel:
         if not cfg.import_strategy_file and (measured or cfg.cost_model == "calibrated"):
             calibration = get_calibration(self.device, ndev)
             emulated = ranks_share_a_device(self.device)
+        # the persistent stores (rank 0 searches, audits and saves them):
+        # measured movement edges of past audits (FFConfig.movement_cost_store),
+        # and the cost database of op leaves (FFConfig.cost_store), which also
+        # serves movement edges where no movement store is configured
+        movement_store = cost_store = None
+        if cfg.movement_cost_store:
+            from flexflow_tpu_torch.compiler.movement_store import MovementCostStore
 
-        priced = {}  # the estimator the search priced with (rank 0), for the audit
+            movement_store = MovementCostStore(cfg.movement_cost_store)
+        if cfg.cost_store:
+            from flexflow_tpu_torch.compiler.cost_store import CostStore, device_kind_signature
 
-        def search():
-            if cfg.import_strategy_file:
-                self.search_provenance = {"search_algorithm": "imported_strategy"}
-                return load_strategy(cfg.import_strategy_file)
+            cost_store = CostStore(cfg.cost_store, device_kind=device_kind_signature(self.device))
+        comm_model = None
+        if cfg.machine_model_version > 0 or cfg.machine_model_file:
+            from flexflow_tpu_torch.compiler.machine_model import (
+                MachineModelCommModel,
+                machine_model_from_config,
+            )
+
+            comm_model = MachineModelCommModel(spec, machine_model_from_config(
+                spec, cfg.machine_model_version, cfg.machine_model_file))
+
+        def build_search_ctx():
+            """A fresh estimator and context (their memo tables empty: the
+            drift re-search reads every leaf again, under the store's scale)."""
             if measured:
                 from flexflow_tpu_torch.local_execution.cost_estimator import LocalCostEstimator
 
                 estimator = GPUCostEstimator(
-                    spec, local_cost_estimator=LocalCostEstimator(device=self.device),
-                    emulated_mesh=emulated, calibration=calibration)
+                    spec, local_cost_estimator=LocalCostEstimator(device=self.device,
+                                                                  cost_store=cost_store),
+                    intra_latency_ms=intra_lat_ms, inter_latency_ms=inter_lat_ms,
+                    comm_model=comm_model, emulated_mesh=emulated, calibration=calibration,
+                    movement_store=movement_store, cost_store=cost_store)
             else:
                 rates = (peak_flops, hbm_gbps)
                 if calibration is not None:
                     rates = (calibration.peak_flops, calibration.hbm_gbps)
-                estimator = AnalyticGPUCostEstimator(spec, *rates, intra_latency_ms=intra_lat_ms,
-                                                     inter_latency_ms=inter_lat_ms,
-                                                     emulated_mesh=emulated,
-                                                     calibration=calibration)
-            priced["estimator"] = estimator
+                estimator = AnalyticGPUCostEstimator(
+                    spec, *rates, intra_latency_ms=intra_lat_ms, inter_latency_ms=inter_lat_ms,
+                    comm_model=comm_model, emulated_mesh=emulated, calibration=calibration,
+                    movement_store=movement_store, cost_store=cost_store)
             ctx = MachineMappingContext(
                 estimator, make_default_allowed_machine_views(),
                 # the measured compute/collective overlap where a calibration
                 # measured one, else the 0.5 heuristic (the JAX package's rule)
                 overlap_fraction=(calibration.overlap if calibration is not None
                                   and calibration.overlap is not None else 0.5),
-                allow_resource_splits=spec != exec_spec)
+                allow_resource_splits=spec != exec_spec,
+                # price the fused collective matmuls only when the executor
+                # lowers them (FFConfig.overlap)
+                overlap_lowering=overlap_on,
+                slice_aware=multislice_on,
+                slice_hierarchy=multislice_on)
+            return estimator, ctx
+
+        priced = {}  # what the search priced with (rank 0), for the audit
+
+        def search():
+            if cfg.import_strategy_file:
+                self.search_provenance = {"search_algorithm": "imported_strategy"}
+                return load_strategy(cfg.import_strategy_file)
+            estimator, ctx = build_search_ctx()
+            priced["estimator"] = estimator
+            degrees = [d for d in range(2, spec.num_devices + 1) if spec.num_devices % d == 0]
+            rules = generate_parallelization_rules(
+                degrees, enable_parameter_parallel=cfg.enable_parameter_parallel,
+                enable_attribute_parallel=cfg.enable_attribute_parallel)
+            if cfg.perform_fusion:
+                from flexflow_tpu_torch.substitutions.fusion_rules import generate_fusion_rules
+
+                rules = list(rules) + generate_fusion_rules()
+            if cfg.substitution_json_path:
+                # a legacy TASO rule corpus (reference substitution-generator
+                # legacy_rules.h:40-55) extends the generated rule set
+                from flexflow_tpu_torch.substitutions.legacy_rules import (
+                    load_legacy_substitutions,
+                )
+
+                legacy, skipped = load_legacy_substitutions(cfg.substitution_json_path)
+                print(f"[flexflow_tpu_torch] loaded {len(legacy)} legacy substitutions "
+                      f"({skipped} outside the convertible vocabulary)", flush=True)
+                rules = list(rules) + legacy
             pcg0 = pcg_from_computation_graph(self.cg)
+            if cfg.branch_stacking:
+                from flexflow_tpu_torch.compiler.branch_stacking import (
+                    stack_isomorphic_branches,
+                )
+
+                pcg0, _ = stack_isomorphic_branches(pcg0)
             start = time.perf_counter()
             if cfg.force_strategy_seed:
                 result = _forced_seed_result(pcg0, ctx, spec, cfg.force_strategy_seed)
+            elif cfg.search_algorithm == "mcmc":
+                # the legacy search mode: simulated annealing over the same
+                # rewrite lattice (reference simulator.h:671)
+                from flexflow_tpu_torch.compiler.mcmc_search import MCMCConfig, mcmc_optimize
+
+                result = mcmc_optimize(pcg0, ctx, spec, rules, MCMCConfig(
+                    budget=max(cfg.search_budget, 0) * 10, rng_seed=cfg.seed))
             else:
-                degrees = [d for d in range(2, spec.num_devices + 1) if spec.num_devices % d == 0]
-                rules = generate_parallelization_rules(
-                    degrees, enable_parameter_parallel=cfg.enable_parameter_parallel,
-                    enable_attribute_parallel=cfg.enable_attribute_parallel)
                 result = graph_optimize(pcg0, ctx, spec, rules, OptimizerConfig(
                     alpha=cfg.search_alpha, budget=cfg.search_budget))
+            telem = result.telemetry or {}
             self.search_provenance = {
                 "explored": result.explored,
                 "estimated_ms": result.runtime,
@@ -750,14 +817,35 @@ class FFModel:
                 "seed_runtimes": dict(result.seed_runtimes or {}),
                 "parallel_degrees": parallel_degree_summary(result.pcg),
                 "cost_model": cfg.cost_model,
-                "search_algorithm": "forced_seed" if cfg.force_strategy_seed else "unity",
+                "search_algorithm": ("forced_seed" if cfg.force_strategy_seed
+                                     else cfg.search_algorithm),
+                "evaluations": telem.get("evaluations"),
+                "phase_ms": telem.get("phase_ms"),
             }
             if calibration is not None:
                 self.search_provenance.update(calibration=calibration.as_dict(),
                                               emulated_mesh=emulated)
+            if multislice_on:
+                # the two-level DP's per-boundary-axis-kind runtimes and the
+                # winning choice for the final plan (None on one node)
+                self.search_provenance["multislice"] = {
+                    "enabled": True, "hierarchical": result.hierarchical,
+                    "nodes": spec.num_nodes, "devices_per_node": spec.num_devices_per_node}
             if overlap_on:
-                # a forced seed's estimate leaves the fused edges unpriced
-                self.search_provenance["overlap"] = {"enabled": True, "priced": False}
+                # the winner's (or the forced seed's) solve priced the fused
+                # edges: each eligible edge with its serial and overlapped
+                # exposures
+                edges = result.overlap_edges or []
+                self.search_provenance["overlap"] = {
+                    "enabled": True, "priced": True, "edges": edges, "eligible": len(edges),
+                    "chosen": sum(1 for e in edges if e.get("chosen"))}
+            if cost_store is not None:
+                cost_store.save()  # the next session starts warm
+                self.search_provenance["cost_db"] = cost_store.provenance()
+            if (cost_store is not None and not cfg.force_strategy_seed
+                    and cfg.search_algorithm != "mcmc"):
+                self._drift_research = _make_drift_research(
+                    cost_store, build_search_ctx, pcg0, spec, rules, cfg)
             return result.pcg, result.machine_mapping, result.runtime
 
         # rank 0 plans; every rank lowers the plan it sends
@@ -774,7 +862,8 @@ class FFModel:
             metrics=self.metrics, overlap=cfg.overlap, collect_step_stats=collect,
             guard_nonfinite_updates=guard)
         if cfg.plan_audit:
-            self._record_plan_audit(inst, mapping, priced.get("estimator"))
+            self._record_plan_audit(inst, mapping, priced.get("estimator"),
+                                    movement_store=movement_store, cost_store=cost_store)
         whole = inst.plan.whole_nodes
         if dist.get_rank() == 0:
             # ops no rule places run on whole values: a state of the plan
@@ -782,14 +871,17 @@ class FFModel:
                   + "".join(f"\n  {why}" for why in whole.values()), flush=True)
         return inst
 
-    def _record_plan_audit(self, inst, mapping, estimator) -> None:
+    def _record_plan_audit(self, inst, mapping, estimator, movement_store=None,
+                           cost_store=None) -> None:
         """search_provenance["plan_audit"]: the searched plan replayed
         against the estimator the search priced with
         (observability/plan_audit.py). Every rank takes part (the movement
-        edges are timed as collectives over the mesh); rank 0's audit,
-        the one with the estimator, is recorded on every rank. An imported
-        plan has no estimator and records why; a failed audit records its
-        error, and the compile goes on."""
+        edges are timed as collectives over the mesh, the fused ones as
+        their collective matmuls); rank 0's audit, the one with the
+        estimator, is recorded on every rank, and rank 0 feeds its
+        measurements into the stores and saves them. An imported plan has
+        no estimator and records why; a failed audit records its error, and
+        the compile goes on."""
         from flexflow_tpu_torch.observability.plan_audit import audit_plan
         from flexflow_tpu_torch.pcg.optimizer import AdamOptimizerAttrs
         from flexflow_tpu_torch.runtime.distributed import broadcast_json
@@ -803,13 +895,29 @@ class FFModel:
             slots = (2 if isinstance(attrs, AdamOptimizerAttrs)
                      else 1 if getattr(attrs, "momentum", 0.0) > 0 else 0)
             rank0 = dist.get_rank() == 0
+            # the DP's overlapped prediction per fused edge: the Combine of
+            # an all-gather site, the Reduction of a reduce-scatter one
+            overlap_predictions = {}
+            for e in ((self.search_provenance or {}).get("overlap") or {}).get("edges") or []:
+                node = e.get("src_node") if e.get("kind") == "ag_matmul" else e.get("dst_node")
+                if node is not None:
+                    overlap_predictions[node] = e.get("overlapped_exposed_ms")
             try:
                 audit = audit_plan(
                     inst.pcg, mapping or {}, estimator if rank0 else None,
                     machine_mesh=inst.machine_mesh, shardings=inst.shardings,
                     optimizer_state_slots=slots,
-                    fused_edges={n.idx: kind for n, kind in inst.fused_sites.items()},
+                    fused_edges={n.idx: kind for n, kind in inst.fused_edges.items()},
+                    overlap_predictions=overlap_predictions,
+                    movement_store=(movement_store or cost_store) if rank0 else None,
+                    cost_store=cost_store if rank0 else None,
                     device=self.device)
+                if rank0:
+                    for store in (movement_store, cost_store):
+                        if store is not None:
+                            store.save()
+                    if cost_store is not None:
+                        self.search_provenance["cost_db"] = cost_store.provenance()
             except Exception as e:  # an audit failure must not kill the compile
                 audit = {"error": f"{type(e).__name__}: {e}"[:200]}
             audit = broadcast_json(audit if rank0 else None)
@@ -914,6 +1022,9 @@ class FFModel:
         if cfg.perform_fusion:
             print("[flexflow_tpu_torch] perform_fusion: the fusion rules extend the Unity "
                   "search, which a single-device compile does not run")
+        if cfg.branch_stacking:
+            print("[flexflow_tpu_torch] branch_stacking: isomorphic branches are stacked "
+                  "before the Unity search, which a single-device compile does not run")
         if cfg.search_overlap_backward_update:
             print("[flexflow_tpu_torch] search_overlap_backward_update: always on — over "
                   "several ranks each gradient bucket's all-reduce is issued as the backward "
@@ -1129,7 +1240,8 @@ class FFModel:
             if monitor is None or monitor.policy != cfg.health_policy:
                 monitor = HealthMonitor(
                     cfg.health_policy,
-                    localizer=None if self._grouped() else self._localize_nonfinite)
+                    localizer=(self._localize_nonfinite_ranks if self._grouped()
+                               else self._localize_nonfinite))
         self.health_monitor = monitor
         return event_log, monitor
 
@@ -1139,9 +1251,10 @@ class FFModel:
         FFConfig.drift_monitor, a metrics stream this process writes, and a
         searched plan with a finite positive predicted step cost. Its
         crashes surface through the fit's fault channel at the next
-        boundary; it only ever advises. The warm re-search and the
-        transition verifier are not ported (A6 part 2, A13): the advisory
-        takes the arithmetic fallback."""
+        boundary; it only ever advises. Its repricer is the warm re-search
+        under the cost store's live scale, where the compile searched with
+        FFConfig.cost_store (the unity search); the transition verifier
+        waits for A13."""
         import math
 
         cfg = self.config
@@ -1161,13 +1274,56 @@ class FFModel:
         return DriftMonitor(
             cfg.metrics_dir, predicted, seed_runtimes=sp.get("seed_runtimes"),
             band=cfg.drift_band, window_steps=cfg.drift_window_steps,
-            run_length=cfg.drift_run_length, repricer=None, transition_verifier=None,
+            run_length=cfg.drift_run_length,
+            repricer=getattr(self, "_drift_research", None), transition_verifier=None,
             channel=sup.channel if sup is not None else None,
         ).start()
 
+    def _localize_nonfinite_ranks(self, batch, label):
+        """The localizer over several ranks (every rank trips on the same
+        step: the step statistics are global). Every rank sends its rows of
+        the tripped batch to rank 0, and a searched plan's ranks gather the
+        global parameters (a collective); rank 0 replays the graph the
+        reference replays, the searched PCG or else the model graph, on
+        the whole batch, and its report reaches every rank."""
+        from flexflow_tpu_torch.interop import pcg_params_to_numpy
+        from flexflow_tpu_torch.observability.health import NonFiniteReport
+        from flexflow_tpu_torch.runtime.distributed import broadcast_json
+
+        inst = self.instance
+        rows, label_rows = inst.feed_blocks()
+        mine = ({k: (rows.get(k), _to_numpy(torch.as_tensor(v))) for k, v in (batch or {}).items()},
+                None if label is None else (label_rows, _to_numpy(torch.as_tensor(label))))
+        parts = [None] * dist.get_world_size()
+        dist.all_gather_object(parts, mine)
+        searched = self._searched()
+        params = (pcg_params_to_numpy(inst.pcg, inst.shardings, inst.machine_mesh, self.params)
+                  if searched else None)
+        doc = None
+        if dist.get_rank() == 0:
+            try:
+                full = {name: _assemble_rows([p[0][name] for p in parts]) for name in parts[0][0]}
+                full_label = (None if parts[0][1] is None
+                              else _assemble_rows([p[1] for p in parts]))
+                if searched:
+                    params = {k: torch.as_tensor(v, device=self.device) for k, v in params.items()}
+                    graph, logit = inst.pcg, inst.loss_logit_tensor
+                else:
+                    params, graph, logit = self.params, inst.cg, inst.logit_tensor
+                doc = dataclasses.asdict(self._localize_on(graph, logit, params, full, full_label))
+            except Exception as e:  # every rank must leave the broadcast below
+                doc = dataclasses.asdict(NonFiniteReport(
+                    "unknown", None, detail=f" (localizer failed: {type(e).__name__}: {e})"))
+        return NonFiniteReport(**broadcast_json(doc))
+
     def _localize_nonfinite(self, batch, label):
+        inst = self.instance
+        return self._localize_on(inst.cg, inst.logit_tensor, self.params, batch, label)
+
+    def _localize_on(self, graph, logit, params, batch, label):
         """First-bad-op blame for the health monitor: replay the tripped
-        step op by op over the model graph with the live parameters (under
+        step op by op over `graph` (the model graph, or a searched plan's
+        PCG with its global parameters) with the live parameters (under
         skip_step / raise the guard kept the pre-step values), its batch,
         and its Dropout masks, drawn from a generator put back where the
         step drew them (`_last_step_rng`: the generator's state before the
@@ -1175,17 +1331,16 @@ class FFModel:
         from flexflow_tpu_torch.local_execution.training_backing import dropout_masks
         from flexflow_tpu_torch.observability.health import localize_first_nonfinite
 
-        inst = self.instance
         rng = None
         if getattr(self, "_last_step_rng", None) is not None:
             state, steps_before = self._last_step_rng
             rng = torch.Generator(device=self.device)
             rng.set_state(state)
             for _ in range(steps_before):
-                dropout_masks(inst.cg, rng, self.device)
+                dropout_masks(graph, rng, self.device)
         return localize_first_nonfinite(
-            inst.cg, self.params, batch, logit_tensor=inst.logit_tensor, label=label,
-            loss_attrs=self.loss_attrs, compute_dtype=inst.compute_dtype, rng=rng)
+            graph, params, batch, logit_tensor=logit, label=label,
+            loss_attrs=self.loss_attrs, compute_dtype=self.instance.compute_dtype, rng=rng)
 
     def _record_run_health(self, event_log, monitor, loss, batch, label, step_t0) -> None:
         """The per-step event and policy (observability.health
@@ -1348,7 +1503,7 @@ class FFModel:
         pf = self.config.print_freq if verbose else 0
         k = self._effective_steps_per_dispatch()
         windows = (WindowedBatchIterator(it, k, fault_channel=sup.channel if sup else None,
-                                         keep_host=monitor is not None and not self._grouped())
+                                         keep_host=monitor is not None)
                    if k > 1 else None)
         try:
             for epoch in range(start_epoch, epochs):
@@ -1738,6 +1893,46 @@ def _forced_seed_result(pcg0, ctx, spec, seed_name: str):
         result.seed_runtimes = {label: result.runtime}
         return result
     raise ValueError(f"unknown strategy seed {seed_name!r}")
+
+
+def _assemble_rows(parts) -> np.ndarray:
+    """The whole batch from every rank's (rows, array): a rank fed rows
+    (start, stop) of it holds that block; a rank fed no block (rows None)
+    holds the whole batch."""
+    whole = [a for rows, a in parts if rows is None]
+    if whole:
+        return whole[0]
+    stop = max(rows[1] for rows, _ in parts)
+    out = np.empty((stop,) + parts[0][1].shape[1:], parts[0][1].dtype)
+    for (start, end), a in parts:
+        out[start:end] = a
+    return out
+
+
+def _make_drift_research(cost_store, build_search_ctx, pcg0, spec, rules, cfg):
+    """The drift monitor's warm re-search: the full plan search again with
+    every read of the cost store scaled by the live correction (a fresh
+    estimator and context, so every leaf reads the warm store again and
+    none is timed), the store's previous scale put back afterwards. It only
+    advises: the compiled plan is untouched."""
+    from flexflow_tpu_torch.compiler import OptimizerConfig, graph_optimize
+    from flexflow_tpu_torch.compiler.unity_algorithm import parallel_degree_summary
+
+    def research(scale):
+        t0 = time.perf_counter()
+        prev = cost_store.live_scale
+        try:
+            cost_store.live_scale = scale
+            _, ctx = build_search_ctx()
+            r = graph_optimize(pcg0, ctx, spec, rules, OptimizerConfig(
+                alpha=cfg.search_alpha, budget=cfg.search_budget))
+        finally:
+            cost_store.live_scale = prev
+        return {"estimated_ms": r.runtime, "seed_runtimes": dict(r.seed_runtimes or {}),
+                "parallel_degrees": parallel_degree_summary(r.pcg),
+                "research_seconds": time.perf_counter() - t0}
+
+    return research
 
 
 def _rekey(state: dict, keys: Dict[str, str]) -> dict:

@@ -1,13 +1,13 @@
 """The example zoo on the port: copies of the repository's examples/ apps
 that import flexflow_tpu_torch (mlp, transformer, bert, split_test,
-candle_uno, dlrm, xdl, alexnet, resnet, resnext50, inception), with the
+split_test_2, candle_uno, dlrm, xdl, alexnet, resnet, resnext50,
+inception), with the
 same arguments, defaults, seeded synthetic data and printed lines, plus
 `--device` (default cuda; `--device cpu` runs on the host). Each runs as
 
     python -m flexflow_tpu_torch.examples.<name> [args]
 
-and exposes `main(argv=None)`. moe.py waits for the Experts op (A11) and
-split_test_2.py for the searched compile (A6).
+and exposes `main(argv=None)`. moe.py waits for the Experts op (A11).
 """
 
 from __future__ import annotations
@@ -21,6 +21,8 @@ from flexflow_tpu_torch.local_execution.config import FFConfig
 SMOKE_ARGV = (
     ("mlp", ("-b", "8", "--steps", "2")),
     ("split_test", ("-b", "8")),
+    ("split_test", ("-b", "8", "--branch-stacking")),
+    ("split_test_2", ("-b", "4", "--steps", "1")),
     ("xdl", ("-b", "8", "--steps", "2")),
     ("bert", ("-b", "4", "--seq", "32", "--hidden", "64", "--heads", "2", "--layers", "1",
               "--vocab", "128", "--steps", "1")),

@@ -1,6 +1,8 @@
 """split_test: a dense layer split in two branches that join again (port of
-examples/split_test.py; reference examples/cpp/split_test). The searched
---branch-stacking compile waits for A6.
+examples/split_test.py; reference examples/cpp/split_test). With
+--branch-stacking a searched compile (over several ranks) stacks the two
+isomorphic branches into one batched matmul before the Unity search
+(compiler/branch_stacking.py).
 
 Run: python -m flexflow_tpu_torch.examples.split_test -b 8
 """
@@ -19,9 +21,6 @@ def main(argv=None):
     p.add_argument("--hidden", type=int, default=32)
     args = p.parse_args(argv)
     cfg = FFConfig.from_args(args)
-    if cfg.branch_stacking:
-        raise NotImplementedError("--branch-stacking (compiler/branch_stacking.py) is not "
-                                  "ported yet (A6)")
 
     m = FFModel(cfg, device=args.device)
     x = m.create_tensor([cfg.batch_size, args.hidden], name="x")

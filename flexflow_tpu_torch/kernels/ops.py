@@ -41,12 +41,13 @@ from flexflow_tpu_torch.kernels.flash_attention import (
     sharded_flash_attention,
     sharded_flash_supported,
 )
-from flexflow_tpu_torch.op_attrs.activation import gelu
+from flexflow_tpu_torch.op_attrs.activation import gelu, relu
 from flexflow_tpu_torch.op_attrs.core import OpAttrs
 from flexflow_tpu_torch.op_attrs.ops import (
     AggregateSpec,
     BatchMatmulAttrs,
     BatchNormAttrs,
+    BroadcastAttrs,
     ConcatAttrs,
     Conv2DAttrs,
     DropoutAttrs,
@@ -63,10 +64,13 @@ from flexflow_tpu_torch.op_attrs.ops import (
     MultiHeadAttentionAttrs,
     Pool2DAttrs,
     PoolOp,
+    ReduceAttrs,
+    ReduceOpType,
     ReshapeAttrs,
     RingAttentionAttrs,
     SoftmaxAttrs,
     SplitAttrs,
+    StackAttrs,
     WeightAttrs,
 )
 from flexflow_tpu_torch.op_attrs.ops.moe import expert_capacity
@@ -77,7 +81,7 @@ _UNARY_FNS = {
     ElementUnaryOpType.SIN: torch.sin,
     ElementUnaryOpType.COS: torch.cos,
     ElementUnaryOpType.IDENTITY: lambda x: x,
-    ElementUnaryOpType.RELU: torch.relu,
+    ElementUnaryOpType.RELU: relu,
     ElementUnaryOpType.SIGMOID: torch.sigmoid,
     ElementUnaryOpType.TANH: torch.tanh,
     ElementUnaryOpType.GELU: gelu,
@@ -313,7 +317,7 @@ def _batch_norm(attrs: BatchNormAttrs, x, weights):
     if attrs.affine:
         shape = (1, -1) + (1,) * (x.ndim - 2)
         out = out * weights[0].reshape(shape) + weights[1].reshape(shape)
-    return torch.relu(out) if attrs.relu else out
+    return relu(out) if attrs.relu else out
 
 
 def _layer_norm(attrs: LayerNormAttrs, x, weights):
@@ -370,6 +374,23 @@ def apply_dropout_mask(x: torch.Tensor, mask: torch.Tensor, rate: float) -> torc
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _reduce(attrs: ReduceAttrs, x: torch.Tensor) -> torch.Tensor:
+    axes = tuple(sorted({a % x.ndim for a in attrs.axes}))
+    keep = attrs.keepdims
+    if attrs.op_type == ReduceOpType.SUM:
+        return x.sum(dim=axes, keepdim=keep)
+    if attrs.op_type == ReduceOpType.MEAN:
+        return x.mean(dim=axes, keepdim=keep)
+    if attrs.op_type == ReduceOpType.MAX:
+        return x.amax(dim=axes, keepdim=keep)
+    if attrs.op_type == ReduceOpType.MIN:
+        return x.amin(dim=axes, keepdim=keep)
+    out = x
+    for a in reversed(axes):  # PROD takes one dim at a time
+        out = out.prod(dim=a, keepdim=keep)
+    return out
+
+
 def forward(attrs: OpAttrs, inputs: Sequence[torch.Tensor],
             weights: Sequence[torch.Tensor] = (), train: bool = False,
             rng: Optional[torch.Generator] = None) -> List[torch.Tensor]:
@@ -424,6 +445,12 @@ def forward(attrs: OpAttrs, inputs: Sequence[torch.Tensor],
         return [out]
     if isinstance(attrs, ConcatAttrs):
         return [torch.cat(inputs, dim=attrs.axis)]
+    if isinstance(attrs, StackAttrs):
+        return [torch.stack(inputs, dim=0)]
+    if isinstance(attrs, BroadcastAttrs):
+        return [torch.broadcast_to(inputs[0], tuple(attrs.target_dims))]
+    if isinstance(attrs, ReduceAttrs):
+        return [_reduce(attrs, inputs[0])]
     if isinstance(attrs, SplitAttrs):
         return list(torch.split(inputs[0], list(attrs.sizes), dim=attrs.axis))
     if isinstance(attrs, ReshapeAttrs):

@@ -12,7 +12,7 @@ with the slice that brings it (see FFModel._validate_config_flags), never
 ignored. The search, mesh and planner fields matter only to a compile on
 more than one device (one rank each): without a search budget it trains
 data parallel, with one it searches (or imports) a plan and lowers it; the
-search's fields of A6 part 2, A10 and A13 raise there.
+search's fields of A10 (pipeline) and A13 (hbm_gb) raise there.
 """
 
 from __future__ import annotations
@@ -275,8 +275,7 @@ class FFConfig:
             "axis kind (data/replica/stage or none) crosses the slice "
             "boundary, the inner per-slice DP enumerates only "
             "slice-contiguous views (--multislice forces on, "
-            "--no-multislice forces off; unset defers to "
-            "FF_TPU_MULTISLICE)",
+            "--no-multislice or unset: off)",
         )
         p.add_argument(
             "--pipeline-microbatches",

@@ -32,6 +32,7 @@ never be priced away.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
@@ -67,7 +68,10 @@ class LocalCostEstimator:
     """Measure-by-running per-op cost on one device.
 
     Results are memoized on (attrs, piece input shapes, piece weight
-    shapes) — the reference's cost cache keyed by OpCostEstimateKey.
+    shapes) — the reference's cost cache keyed by OpCostEstimateKey — and,
+    with a persistent `cost_store`, read from and written through it, so a
+    leaf measured in any past session on this device kind is not timed
+    again.
     `profile_calls` counts the leaves run, `inf_leaves` the leaves priced
     at infinity."""
 
@@ -86,16 +90,22 @@ class LocalCostEstimator:
         plan's prefill and decode run in; `serving` (a ServingMemorySpec)
         then prices the leaf's inference residency.
         optimizer_state_slots: the optimizer's per-weight state tensors in
-        the memory term (Adam's m and v are 2; serving passes 0)."""
-        if cost_store is not None:
-            raise NotImplementedError(
-                "the persistent cost store is not ported yet (ROADMAP A6 part 2)"
-            )
+        the memory term (Adam's m and v are 2; serving passes 0).
+        cost_store: a compiler.cost_store.CostStore of this estimator's
+        device kind (anything else raises: a measurement taken on one
+        device kind is never served to another): a stored leaf is priced
+        without running, a missed one is timed and written back. A
+        forward-only estimator needs a forward-marked store
+        (cost_store.forward_fingerprint), so inference timings never meet
+        the training store's fwd+bwd entries."""
         self.forward_only = bool(forward_only)
         self.serving = serving
         self.optimizer_state_slots = optimizer_state_slots
         self.settings = settings or ProfilingSettings(warmup_iters=2, measure_iters=4)
         self.device = resolve_device(device)
+        self.cost_store = None
+        if cost_store is not None:
+            self.use_cost_store(cost_store)
         # the trainer's compute dtype on the card; the shapes' own elsewhere
         # and for serving, whose programs run in the parameters' dtype
         self.compute_dtype = (torch.bfloat16 if self.device.type == "cuda" and not forward_only
@@ -103,6 +113,25 @@ class LocalCostEstimator:
         self._cache: Dict = {}
         self.profile_calls = 0
         self.inf_leaves: List = []
+
+    def use_cost_store(self, cost_store) -> None:
+        """Read and write `cost_store` from now on. It must hold this
+        estimator's device kind (a measurement taken on one device kind is
+        never served to another) and, for a forward-only estimator, the
+        forward-marked family (inference timings under training keys would
+        poison every later training search); anything else raises."""
+        from flexflow_tpu_torch.compiler.cost_store import device_kind_signature
+
+        if self.forward_only and "fwd" not in getattr(cost_store, "fingerprint", ""):
+            raise ValueError(
+                "a forward-only estimator needs a forward-marked cost store "
+                "(CostStore(..., fingerprint=forward_fingerprint()))")
+        measures_on = device_kind_signature(self.device)
+        if cost_store.device_kind != measures_on:
+            raise ValueError(
+                f"the cost store holds {cost_store.device_kind!r} measurements but this "
+                f"estimator measures on {measures_on!r}: a store serves its own device kind only")
+        self.cost_store = cost_store
 
     def estimate_operator_cost(
         self,
@@ -126,9 +155,21 @@ class LocalCostEstimator:
         key = (attrs, inputs, weights)
         if key in self._cache:
             return self._cache[key]
+        if self.cost_store is not None:
+            # a measurement of a past session (or a past plan audit) prices
+            # the leaf without running it
+            hit = self.cost_store.get_op(attrs, inputs, weights)
+            if hit is not None:
+                cost = CostDetails(hit[0], hit[1])
+                self._cache[key] = cost
+                return cost
         cost = self._measure(attrs, piece_input_shapes, piece_weight_shapes)
         if cost.elapsed_ms == float("inf"):
             self.inf_leaves.append(key)
+        if self.cost_store is not None and not math.isnan(cost.elapsed_ms):
+            # written back so the next session starts warm; inf (shapes the
+            # op cannot take) is kept as a verdict
+            self.cost_store.put_op(attrs, inputs, weights, cost.elapsed_ms, cost.mem_bytes)
         self._cache[key] = cost
         return cost
 

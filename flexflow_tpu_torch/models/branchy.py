@@ -1,0 +1,26 @@
+"""The branchy search subject: split -> two fat isomorphic dense towers ->
+add -> head (a split_test-at-scale shape; reference
+examples/cpp/split_test/split_test.cc topology family). Copy of
+flexflow_tpu/models/branchy.py.
+
+Uniform dp/tp/sp strategy templates cannot shard the branch-stacked
+subgraph at all — only the best-first rule walk's branch_parallel_* rules
+can — so this is the regime where the search must beat every seed.
+"""
+
+from __future__ import annotations
+
+
+def add_branchy_towers(m, batch, width, in_dim=64, vocab=16):
+    """Build the branchy topology onto FFModel `m`; returns the logits."""
+    x = m.create_tensor([batch, in_dim], name="x")
+    t = m.dense(x, in_dim, use_bias=False, name="fc0")
+    a1, a2 = m.split(t, [in_dim // 2, in_dim // 2], axis=1)
+
+    def tower(a, tag):
+        h = m.dense(a, width, use_bias=False, name=f"{tag}_w1")
+        h = m.dense(h, width, use_bias=False, name=f"{tag}_w2")
+        return h
+
+    y = m.add(tower(a1, "t1"), tower(a2, "t2"), name="merge")
+    return m.dense(y, vocab, use_bias=False, name="head")

@@ -17,10 +17,11 @@ grows, data-dependent costs. This module watches the live run:
   trajectory, candidate plan, predicted savings), appended to
   `search_provenance["drift"]` and emitted as a versioned `drift` event
   into `events.jsonl`. Advisory only: nothing swaps the running plan. The
-  warm re-search `repricer` (A6 part 2) and the transition verifier (A13)
-  are not ported: FFModel passes None for both, and the advisory takes
-  the arithmetic fallback, the recorded seed predictions scaled by the
-  live correction.
+  candidate comes from the `repricer`, the warm re-search under
+  `CostStore.live_scale`, which FFModel passes where the compile searched
+  with a cost store; without one the advisory takes the arithmetic
+  fallback, the recorded seed predictions scaled by the live correction.
+  The transition verifier waits for A13: FFModel passes None.
 - `DriftMonitor` runs the above as a daemon thread tailing `events.jsonl`
   via `tail_events`, supervised through the fit's `FaultChannel`: a crash
   posts to the channel and surfaces at the next window boundary as a

@@ -20,12 +20,13 @@ Output: per-entry misprediction ratios (measured / predicted) and a
 summary (geometric-mean ratio per class and combined, worst-N ops by
 log-distance from 1.0).
 
-Not yet here: the persistent cost and movement stores the audit feeds in
-the JAX package (`cost_store`, `movement_store`: A6 part 2), the pipeline
-contexts of a leaf's key (A10), and the memory and communication
-cross-checks recorded beside the audit (A13). The fused collective-matmul
-edges are measured as their standalone reshards (`fused: False`, the JAX
-module's fallback).
+The edges the executor lowers as collective matmuls are timed as fused
+(the fused kernel's marginal over its bare matmul). With a cost store the
+audit's op measurements join it (and analytic predictions their pairs);
+with a movement store its standalone reshard measurements do.
+
+Not yet here: the pipeline contexts of a leaf's key (A10), and the memory
+and communication cross-checks recorded beside the audit (A13).
 
 Recorded in `FFModel.search_provenance["plan_audit"]` under
 `FFConfig(plan_audit=True)` on a searched compile.
@@ -85,6 +86,75 @@ def _measure_movement_ms(shape, src_sharding, dst_sharding, mesh, settings,
         return None
 
 
+def _measure_fused_edge_ms(pcg, n, kind, shardings, mesh, settings, device) -> Optional[float]:
+    """Marginal cost of the fused lowering of movement edge `n` (an overlap
+    site's Combine or Reduction): the collective matmul's time on every
+    rank minus a bare matmul at the same local piece shapes (the compute
+    the ring performs anyway), leaving the edge's exposed communication.
+    Timing the standalone reshard would measure a collective the program no
+    longer contains. A collective: every rank calls it for the same edge.
+    Returns ms (floored at 0: the fused ring can beat its own matmul by
+    noise), or None where the edge cannot be measured so (the caller then
+    times the standalone reshard, marked unfused)."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.kernels import collective_matmul as CM
+    from flexflow_tpu_torch.kernels.profiling import profile_eager
+    from flexflow_tpu_torch.op_attrs.ops import CombineAttrs, LinearAttrs
+    from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
+        get_piece_shape,
+        get_reduced_shape,
+    )
+    from flexflow_tpu_torch.parallel.sharding import local_block
+
+    def block(tensor, seed):
+        ts = get_reduced_shape(pcg.tensor_shape(tensor))
+        full = torch.from_numpy(np.random.default_rng(seed).standard_normal(ts.dims)).float()
+        return local_block(full, shardings[tensor], mesh, "audited fused edge").contiguous().to(
+            device)
+
+    def piece(tensor, seed):
+        ts = get_piece_shape(pcg.tensor_shape(tensor))
+        return torch.from_numpy(np.random.default_rng(seed).standard_normal(ts.dims)).float().to(
+            device)
+
+    if kind == "ag_matmul":
+        attrs = pcg.op_attrs(n)
+        if not isinstance(attrs, CombineAttrs):
+            return None
+        (xc,) = pcg.outputs_of(n)
+        (use,) = pcg.uses_of(xc)
+        if not isinstance(pcg.op_attrs(use.node), LinearAttrs):
+            return None
+        w_t = pcg.inputs_of(use.node)[1]
+        (src,) = pcg.inputs_of(n)
+        if src not in shardings or w_t not in shardings:
+            return None
+        g = attrs.combine_dim % pcg.tensor_shape(src).num_dims
+        axes = shardings[src].dims[g]
+        x, w = block(src, 0), block(w_t, 1)
+        fused_ms = profile_eager(lambda: CM.all_gather_matmul(x, w, mesh, axes, g), settings,
+                                 device)
+        xp, wp = piece(xc, 0), piece(w_t, 1)
+    elif kind == "matmul_rs":
+        (red_in,) = pcg.inputs_of(n)
+        if not isinstance(pcg.op_attrs(red_in.node), LinearAttrs):
+            return None
+        x_t, w_t = pcg.inputs_of(red_in.node)[:2]
+        if any(t not in shardings for t in (x_t, w_t, red_in)):
+            return None
+        axes = shardings[red_in].sum
+        x, w = block(x_t, 0), block(w_t, 1)
+        fused_ms = profile_eager(lambda: CM.matmul_reduce_scatter(x, w, mesh, axes), settings,
+                                 device)
+        xp, wp = piece(x_t, 0), piece(w_t, 1)
+    else:
+        return None
+    base_ms = profile_eager(lambda: xp @ wp, settings, device)
+    return max(fused_ms - base_ms, 0.0)
+
+
 def _emulation_scale(estimator) -> float:
     """The factor _scale_for_emulated_shards multiplies into every compute
     prediction where ranks share one card (ndev / measured shard speedup).
@@ -113,6 +183,7 @@ def audit_plan(
     movement_store=None,
     cost_store=None,
     device=None,
+    overlap_predictions: Optional[Dict[int, float]] = None,
 ) -> Dict[str, object]:
     """Replay the winning PCG against its cost-model predictions.
 
@@ -124,11 +195,22 @@ def audit_plan(
     machine_mesh/shardings: the executor's MachineMesh and per-tensor
     TensorShardings; with a mesh of more than one rank, movement edges are
     measured by running their reshard on every rank. device: where ops are
-    measured (the card unless named). fused_edges (node idx -> kind) marks
-    the edges the executor lowers as collective matmuls; they are measured
-    as standalone reshards (`fused: False`). movement_store and cost_store
-    are A6 part 2's and raise; the JAX signature's overlap and
-    communication predictions come with them."""
+    measured (the card unless named). fused_edges (edge node idx -> kind)
+    marks the movement edges the executor lowers as collective matmuls:
+    they are measured as fused (the fused kernel's marginal cost over its
+    bare matmul, `fused: True`), or, where that cannot be measured, as
+    standalone reshards (`fused: False`); overlap_predictions (edge node
+    idx -> ms) carries the DP's overlapped-exposure prediction for them.
+    movement_store: a compiler.movement_store.MovementCostStore; every
+    standalone reshard measured is recorded there, under the link class the
+    edge rode (fused marginals are not: they price another lowering).
+    cost_store: a compiler.cost_store.CostStore of this device kind; the
+    audit's per-op measured ms flow into it through the replay's
+    LocalCostEstimator (an op one audit measured is not timed again by a
+    later search or audit), and where the search priced analytically each
+    freshly measured op also records the prediction as the analytic half of
+    a correction pair. The JAX signature's communication byte predictions
+    wait for A13's comm analysis."""
     from flexflow_tpu_torch.compiler.machine_mapping.problem_tree import (
         _leaf_key,
         map_unmapped_op_cost_estimate_key,
@@ -140,15 +222,24 @@ def audit_plan(
     from flexflow_tpu_torch.op_attrs.ops import InputAttrs, WeightAttrs
     from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import get_reduced_shape
 
-    if movement_store is not None or cost_store is not None:
-        raise NotImplementedError(
-            "audit_plan's cost and movement stores are not ported yet (A6 part 2)")
     settings = settings or ProfilingSettings(warmup_iters=1, measure_iters=3)
     device = resolve_device(device)
     local = None
     if cost_estimator is not None:
         local = LocalCostEstimator(settings, optimizer_state_slots=optimizer_state_slots,
-                                   device=device)
+                                   device=device, cost_store=cost_store)
+    # only an analytic prediction forms a valid (analytic, measured) pair: a
+    # measured estimator's prediction is a measurement itself
+    record_pairs = (cost_store is not None
+                    and type(cost_estimator).__name__ == "AnalyticGPUCostEstimator")
+    analytic_sig = getattr(cost_estimator, "_analytic_sig", None)
+    # the correction factors the search priced with, frozen before the
+    # audit records pairs (note_analytic refits them live)
+    corrections_at_pricing = {}
+    if record_pairs:
+        corrections_at_pricing = {
+            cls: c["factor"]
+            for cls, c in cost_store.fit_corrections(analytic_sig=analytic_sig).items()}
     if machine_mesh is not None and shardings is None:
         from flexflow_tpu_torch.parallel.sharding import pcg_shardings
 
@@ -166,6 +257,11 @@ def audit_plan(
         name = la.name or param_key(n)
         leaf = _leaf_key(pcg, n)
         view = (mapping or {}).get(n)
+        # measured before this audit replayed it? (a store hit makes the
+        # estimator's "prediction" a measurement, never an analytic half)
+        pre_measured = (not is_parallel_op(attrs) and record_pairs
+                        and cost_store.peek_op_parallel(attrs, list(leaf.input_shapes))
+                        is not None)
         predicted = None
         if cost_estimator is not None:
             try:
@@ -179,10 +275,27 @@ def audit_plan(
             bytes_moved = get_reduced_shape(pcg.tensor_shape(ins[0])).size_bytes if ins else 0
             measured = None
             fused_kind = (fused_edges or {}).get(n.idx)
+            fused = False
             if can_measure_movement and ins and outs:
-                measured = _measure_movement_ms(
-                    pcg.tensor_shape(ins[0]), (shardings or {}).get(ins[0]),
-                    (shardings or {}).get(outs[0]), machine_mesh, settings, device)
+                if fused_kind is not None:
+                    measured = _measure_fused_edge_ms(pcg, n, fused_kind, shardings or {},
+                                                      machine_mesh, settings, device)
+                    fused = measured is not None
+                if measured is None:
+                    measured = _measure_movement_ms(
+                        pcg.tensor_shape(ins[0]), (shardings or {}).get(ins[0]),
+                        (shardings or {}).get(outs[0]), machine_mesh, settings, device)
+                    if (measured is not None and movement_store is not None
+                            and cost_estimator is not None):
+                        from flexflow_tpu_torch.compiler.machine_mapping.cost_estimator import (
+                            movement_link_class,
+                        )
+
+                        in_shapes = [pcg.tensor_shape(v) for v in ins]
+                        movement_store.put_edge(
+                            attrs, in_shapes, view, measured,
+                            link_class=movement_link_class(attrs, in_shapes, view,
+                                                           cost_estimator.machine_spec))
             if cost_estimator is None:
                 measured = None
             entry = {
@@ -194,8 +307,15 @@ def audit_plan(
                 "ratio": _round(_ratio(measured, predicted)),
             }
             if fused_kind is not None:
-                entry["fused"] = False
+                # a fused edge compares the fused lowering's measured
+                # marginal with the serial prediction (the win) and, where
+                # the DP recorded one, with its overlapped prediction
+                entry["fused"] = fused
                 entry["fused_kind"] = fused_kind
+                ov_pred = (overlap_predictions or {}).get(n.idx)
+                if ov_pred is not None:
+                    entry["predicted_overlapped_ms"] = _round(ov_pred)
+                    entry["overlapped_ratio"] = _round(_ratio(measured, ov_pred))
             edges.append(entry)
         else:
             if predicted is not None and emulation_scale != 1.0:
@@ -210,6 +330,25 @@ def audit_plan(
                         measured = None
                 except Exception:
                     measured = None
+            if (record_pairs and not pre_measured and measured is not None
+                    and predicted is not None and 0 < predicted < math.inf):
+                # the analytic estimator priced a fresh leaf (correction-
+                # scaled: divided back out) and the replay just measured
+                # it; leaves with a schedule-internal comm term are skipped,
+                # as the comm cannot be divided back out
+                from flexflow_tpu_torch.compiler.machine_mapping.cost_estimator import (
+                    seq_parallel_attention_comm_ms,
+                )
+
+                comm = seq_parallel_attention_comm_ms(
+                    attrs, list(leaf.input_shapes), cost_estimator.machine_spec,
+                    cost_estimator.intra_latency_ms, cost_estimator.inter_latency_ms,
+                    machine_view=view)
+                if comm == 0.0:
+                    corr = corrections_at_pricing.get(type(attrs).__name__, 1.0)
+                    raw = predicted / corr if corr > 0 else predicted
+                    cost_store.note_analytic_parallel(attrs, list(leaf.input_shapes), raw,
+                                                      analytic_sig=analytic_sig)
             ops.append({
                 "name": name,
                 "op_type": type(attrs).__name__,

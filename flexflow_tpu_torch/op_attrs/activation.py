@@ -17,6 +17,27 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+class _ReLU(torch.autograd.Function):
+    """ReLU with the JAX package's gradient, `where(x > 0, g, 0)`, taken on
+    the saved output (y > 0 exactly where x > 0): a NaN input gets a zero
+    gradient, where torch.relu's backward passes the gradient through."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.relu(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return torch.where(y > 0, g, 0)
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return _ReLU.apply(x)
+
+
 class Activation(enum.Enum):
     RELU = "relu"
     SIGMOID = "sigmoid"
@@ -25,7 +46,7 @@ class Activation(enum.Enum):
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         return {
-            Activation.RELU: torch.relu,
+            Activation.RELU: relu,
             Activation.SIGMOID: torch.sigmoid,
             Activation.TANH: torch.tanh,
             Activation.GELU: gelu,

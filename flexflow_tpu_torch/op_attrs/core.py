@@ -21,6 +21,7 @@ from flexflow_tpu_torch.op_attrs.ops import (
     BroadcastAttrs,
     CombineAttrs,
     ConcatAttrs,
+    StackAttrs,
     Conv2DAttrs,
     DropoutAttrs,
     ElementBinaryAttrs,
@@ -74,6 +75,7 @@ class OperatorType(enum.Enum):
     FLAT = "flat"
     BATCH_NORM = "batch_norm"
     CONCAT = "concat"
+    STACK = "stack"  # branch-stacking entry (shape_ops.StackAttrs)
     SPLIT = "split"
     RESHAPE = "reshape"
     REDUCE = "reduce"
@@ -98,7 +100,7 @@ OpAttrs = Union[
     LayerNormAttrs, SoftmaxAttrs, DropoutAttrs,
     MultiHeadAttentionAttrs, RingAttentionAttrs, UlyssesAttentionAttrs,
     Conv2DAttrs, Pool2DAttrs, FlatAttrs, BatchNormAttrs,
-    ConcatAttrs, SplitAttrs, ReshapeAttrs, ReduceAttrs, ExpertsAttrs,
+    ConcatAttrs, StackAttrs, SplitAttrs, ReshapeAttrs, ReduceAttrs, ExpertsAttrs,
     RepartitionAttrs, CombineAttrs, ReplicateAttrs, ReductionAttrs,
 ]
 
@@ -123,6 +125,7 @@ _OP_TYPE_BY_ATTRS = {
     FlatAttrs: OperatorType.FLAT,
     BatchNormAttrs: OperatorType.BATCH_NORM,
     ConcatAttrs: OperatorType.CONCAT,
+    StackAttrs: OperatorType.STACK,
     SplitAttrs: OperatorType.SPLIT,
     ReshapeAttrs: OperatorType.RESHAPE,
     ReduceAttrs: OperatorType.REDUCE,
@@ -184,7 +187,7 @@ def num_data_inputs(attrs: OpAttrs) -> int:
         return 2
     if isinstance(attrs, MultiHeadAttentionAttrs):
         return 3
-    if isinstance(attrs, ConcatAttrs):
+    if isinstance(attrs, (ConcatAttrs, StackAttrs)):
         return -1
     return 1
 

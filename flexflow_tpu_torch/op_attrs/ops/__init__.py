@@ -49,6 +49,7 @@ from flexflow_tpu_torch.op_attrs.ops.shape_ops import (
     ReduceOpType,
     ReshapeAttrs,
     SplitAttrs,
+    StackAttrs,
 )
 from flexflow_tpu_torch.op_attrs.ops.ulysses_attention import UlyssesAttentionAttrs
 
@@ -88,6 +89,7 @@ __all__ = [
     "SoftmaxAttrs",
     "SparseCategoricalCrossEntropyLossAttrs",
     "SplitAttrs",
+    "StackAttrs",
     "UlyssesAttentionAttrs",
     "WeightAttrs",
     "loss_attrs_for",

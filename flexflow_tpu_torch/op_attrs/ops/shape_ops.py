@@ -1,7 +1,7 @@
-"""Concat, Split, Reshape and Reduce attrs (trimmed copy of
+"""Concat, Stack, Split, Reshape and Reduce attrs (trimmed copy of
 flexflow_tpu/op_attrs/ops/shape_ops.py: the shape ops of the example zoo
-with their sequential and parallel shape rules, and Reduce, attrs only,
-named by the search's rules; the other shape ops wait, A2)."""
+and of branch stacking, with their sequential and parallel shape rules;
+the other shape ops wait, A2)."""
 
 from __future__ import annotations
 
@@ -47,6 +47,37 @@ class ConcatAttrs:
         return lift_to_parallel_with_degrees(
             unpar, base.sum_degree, min(s.discard_copy_degree for s in inputs),
             base.shard_degrees(),
+        )
+
+
+@dataclass(frozen=True)
+class StackAttrs:
+    """Stack k same-shaped tensors along a NEW leading axis -> [k, *dims].
+
+    No reference counterpart: this is the entry op of branch stacking
+    (compiler/branch_stacking.py), the realization of the reference's
+    disjoint-device operator placement (mapper.h:82-126) as a sharding:
+    sharding the new leading axis over the ranks places each branch's
+    compute on a disjoint set of devices."""
+
+    def output_shape(self, *inputs: TensorShape) -> TensorShape:
+        assert len(inputs) >= 1
+        base = inputs[0]
+        for s in inputs:
+            assert s.dims == base.dims, f"stack shape mismatch: {s} vs {base}"
+        return TensorShape((len(inputs),) + base.dims, base.dtype)
+
+    def parallel_output_shape(self, *inputs: ParallelTensorShape) -> ParallelTensorShape:
+        base = inputs[0]
+        for s in inputs:
+            assert s.shard_degrees() == base.shard_degrees()
+            assert s.sum_degree == base.sum_degree
+        unpar = self.output_shape(*[get_reduced_shape(s) for s in inputs])
+        return lift_to_parallel_with_degrees(
+            unpar,
+            base.sum_degree,
+            min(s.discard_copy_degree for s in inputs),
+            (1,) + base.shard_degrees(),
         )
 
 

@@ -529,6 +529,13 @@ class DistributedPlan:
         return {n: p.fused for n, p in self.nodes.items() if p.fused}
 
     @property
+    def fused_edges(self) -> Dict[Node, str]:
+        """The movement edges the fused sites absorb (the all-gather's
+        Combine, the reduce-scatter's Reduction), edge node -> kind."""
+        return {e: self.nodes[site].fused for e, site in self.skip.items()
+                if self.nodes[site].fused}
+
+    @property
     def whole_nodes(self) -> Dict[Node, str]:
         """The nodes of the whole-tensor lowering, node -> why no rule
         places their pieces."""
@@ -867,6 +874,10 @@ class DistributedTrainingInstance(ModelTrainingInstance):
     @property
     def fused_sites(self) -> Dict[Node, str]:
         return self.plan.fused_sites
+
+    @property
+    def fused_edges(self) -> Dict[Node, str]:
+        return self.plan.fused_edges
 
     def step_flops(self) -> int:
         """A train step's flops of the model's own work, as MFU counts it

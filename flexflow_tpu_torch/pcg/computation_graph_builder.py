@@ -350,6 +350,36 @@ class ComputationGraphBuilder:
         (out,) = self.add_layer(ConcatAttrs(axis), list(tensors), [], name)
         return out
 
+    def stack(self, tensors: Sequence[Tensor], name=None) -> Tensor:
+        """Stack same-shaped tensors along a new leading axis (the branch
+        stacking entry; see compiler/branch_stacking.py)."""
+        from flexflow_tpu_torch.op_attrs.ops import StackAttrs
+
+        (out,) = self.add_layer(StackAttrs(), list(tensors), [], name)
+        return out
+
+    def broadcast(self, input: Tensor, target_dims: Sequence[int], name=None) -> Tensor:
+        from flexflow_tpu_torch.op_attrs.ops import BroadcastAttrs
+
+        (out,) = self.add_layer(BroadcastAttrs(tuple(target_dims)), [input], [], name)
+        return out
+
+    def reduce_sum(self, input: Tensor, axes: Sequence[int], keepdims: bool = False,
+                   name=None) -> Tensor:
+        from flexflow_tpu_torch.op_attrs.ops import ReduceAttrs, ReduceOpType
+
+        (out,) = self.add_layer(ReduceAttrs(ReduceOpType.SUM, tuple(axes), keepdims),
+                                [input], [], name)
+        return out
+
+    def reduce_mean(self, input: Tensor, axes: Sequence[int], keepdims: bool = False,
+                    name=None) -> Tensor:
+        from flexflow_tpu_torch.op_attrs.ops import ReduceAttrs, ReduceOpType
+
+        (out,) = self.add_layer(ReduceAttrs(ReduceOpType.MEAN, tuple(axes), keepdims),
+                                [input], [], name)
+        return out
+
     def split(self, input: Tensor, sizes: Sequence[int], axis: int, name=None) -> List[Tensor]:
         return self.add_layer(SplitAttrs(tuple(sizes), axis), [input], [], name)
 

@@ -1,6 +1,6 @@
 """Initializer attrs and their PyTorch implementations (trimmed copy of
-flexflow_tpu/pcg/initializer.py: every initializer but the branch-stacked
-one, which belongs to the search's branch stacking, A6).
+flexflow_tpu/pcg/initializer.py, with the branch-stacked initializer of
+compiler/branch_stacking.py).
 
 Draws come from an explicit `torch.Generator`. They are not the JAX
 package's `jax.random` draws: tests that compare the two packages carry
@@ -60,6 +60,17 @@ class ConstantInitializerAttrs:
     value: float = 0.0
 
 
+@dataclass(frozen=True)
+class StackedInitializerAttrs:
+    """Initializer of a branch-stacked weight [k, *inner] (see
+    compiler/branch_stacking.py): each of the k slices is drawn with
+    `inner` on the inner shape, so each branch keeps its own statistics
+    (glorot fans computed on the inner shape, not the stacked one)."""
+
+    inner: "InitializerAttrs"
+    count: int
+
+
 InitializerAttrs = Union[
     GlorotUniformAttrs,
     GlorotNormalAttrs,
@@ -68,6 +79,7 @@ InitializerAttrs = Union[
     NormInitializerAttrs,
     TruncatedNormalInitializerAttrs,
     ConstantInitializerAttrs,
+    StackedInitializerAttrs,
 ]
 
 
@@ -92,6 +104,10 @@ def initialize(
     """A tensor of `shape` on the generator's device, drawn per `attrs`."""
     device = generator.device
     shape = tuple(shape)
+    if isinstance(attrs, StackedInitializerAttrs):
+        assert shape[0] == attrs.count, (shape, attrs.count)
+        return torch.stack([initialize(attrs.inner, generator, shape[1:], dtype)
+                            for _ in range(attrs.count)])
     if isinstance(attrs, ZeroInitializerAttrs):
         return torch.zeros(shape, dtype=dtype, device=device)
     if isinstance(attrs, ConstantInitializerAttrs):

@@ -1,5 +1,5 @@
 """Serving-plan search: forward-only PCGs under a ms/token objective (copy
-of flexflow_tpu/serving/plan.py; the persistent cost store is A6 part 2).
+of flexflow_tpu/serving/plan.py).
 
 Inference points the Unity machinery at a forward-only program with a
 latency objective: the same rewrite lattice and machine-mapping DP, but
@@ -121,9 +121,12 @@ def serving_search_context(
     pricing and the KV cache in the memory model. `device` chooses the
     machine constants and, for the measured model, where each leaf's
     forward is timed (the card unless given); whether the plan's ranks
-    share a device is `_emulated`'s rule. `local_cost_estimator` overrides the measured model's leaf timer (a
-    forward-only LocalCostEstimator). The second value is the JAX
-    function's cost store, which is A6 part 2."""
+    share a device is `_emulated`'s rule. `local_cost_estimator` overrides
+    the measured model's leaf timer (a forward-only LocalCostEstimator).
+    `cost_store_dir`: a directory holding (or to hold) the persistent cost
+    store, read and written under the forward-only (`-fwd`) fingerprint, so
+    serving and training entries never serve each other; it must exist.
+    The second value is that store (None without one): the caller saves it."""
     from flexflow_tpu_torch.compiler.machine_mapping.cost_estimator import (
         AnalyticGPUCostEstimator,
         GPUCostEstimator,
@@ -134,10 +137,20 @@ def serving_search_context(
     )
     from flexflow_tpu_torch.local_execution.training_backing import resolve_device
 
-    if cost_store_dir:
-        raise NotImplementedError(
-            "the serving search's persistent cost store is not ported yet (A6 part 2)")
     device = resolve_device(device)
+    cost_store = None
+    if cost_store_dir:
+        import os
+
+        from flexflow_tpu_torch.compiler.cost_store import (
+            CostStore,
+            device_kind_signature,
+            forward_fingerprint,
+        )
+
+        cost_store = CostStore(os.path.join(cost_store_dir, CostStore.FILENAME),
+                               device_kind=device_kind_signature(device),
+                               fingerprint=forward_fingerprint())
     emulated_mesh = _emulated(device)
     if device.type == "cpu":
         peak_flops, hbm_gbps = 5e10, 10.0
@@ -153,10 +166,11 @@ def serving_search_context(
             machine_spec,
             local_cost_estimator=local_cost_estimator or LocalCostEstimator(
                 optimizer_state_slots=0, forward_only=True, serving=cache_spec,
-                device=device),
+                device=device, cost_store=cost_store),
             intra_latency_ms=intra_lat_ms,
             inter_latency_ms=inter_lat_ms,
             emulated_mesh=emulated_mesh,
+            cost_store=cost_store,
         )
     elif cost_model == "analytic":
         estimator = AnalyticGPUCostEstimator(
@@ -166,6 +180,7 @@ def serving_search_context(
             intra_latency_ms=intra_lat_ms,
             inter_latency_ms=inter_lat_ms,
             emulated_mesh=emulated_mesh,
+            cost_store=cost_store,
             forward_only=True,
         )
     else:
@@ -178,7 +193,7 @@ def serving_search_context(
         optimizer_state_slots=0,
         steps_per_dispatch=1,
         serving=cache_spec,
-    ), None
+    ), cost_store
 
 
 def optimize_serving_plan(
@@ -204,7 +219,7 @@ def optimize_serving_plan(
     from flexflow_tpu_torch.pcg.parallel_computation_graph import pcg_from_computation_graph
 
     cache_spec = workload.cache_spec(max_seq_len)
-    context, _ = serving_search_context(
+    context, cost_store = serving_search_context(
         machine_spec,
         cache_spec,
         hbm_gb=hbm_gb,
@@ -222,6 +237,8 @@ def optimize_serving_plan(
     prefill_cg, _ = model_builder(workload.max_concurrent, workload.prompt_len)
     prefill = graph_optimize(
         pcg_from_computation_graph(prefill_cg), context, machine_spec, rules, cfg)
+    if cost_store is not None:
+        cost_store.save()
 
     gen = max(workload.gen_len, 1)
     decode_ms = decode.runtime
@@ -256,7 +273,10 @@ def optimize_serving_plan(
             "dedup_hits": telem.get("dedup_hits"),
             "symmetry_dedup": telem.get("symmetry_dedup"),
             "signature_version": telem.get("signature_version"),
+            "phase_ms": telem.get("phase_ms"),
         }
+    if cost_store is not None:
+        provenance["cost_db"] = cost_store.provenance()
     return ServingPlan(
         decode=decode,
         prefill=prefill,

@@ -1,6 +1,7 @@
 """PCG rewrite engine: patterns, matcher, substitution application (copy of
-flexflow_tpu/substitutions without the JAX package's native matcher; its
-fusion and legacy TASO-JSON rules are A6 part 2).
+flexflow_tpu/substitutions without the JAX package's native matcher), with
+the fusion rules (fusion_rules.py) and the legacy TASO-JSON loader
+(legacy_rules.py).
 
 Equivalent of reference lib/substitutions (SURVEY.md §2.5):
 declarative attribute patterns over an open dataflow graph, subgraph-isomorphism

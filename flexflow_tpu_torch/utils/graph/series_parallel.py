@@ -100,12 +100,28 @@ def _normalize(sp: SeriesParallelDecomposition) -> SeriesParallelDecomposition:
 _EdgeLabel = Tuple[SeriesParallelDecomposition, ...]
 
 
+def _join(kind, items) -> SeriesParallelDecomposition:
+    """_normalize of a `kind` split whose items are normalized already (every
+    label item is a node or a joined split): flattening one level gives the
+    same tree without walking the items' subtrees again, which made the
+    reduction quadratic in the graph's depth."""
+    flat: List[SeriesParallelDecomposition] = []
+    for c in items:
+        if isinstance(c, kind):
+            flat.extend(c.children)
+        else:
+            flat.append(c)
+    if len(flat) == 1:
+        return flat[0]
+    return SeriesSplit(tuple(flat)) if kind is SeriesSplit else ParallelSplit(frozenset(flat))
+
+
 def _wrap_series(items: _EdgeLabel) -> Optional[SeriesParallelDecomposition]:
     if len(items) == 0:
         return None
     if len(items) == 1:
         return items[0]
-    return _normalize(SeriesSplit(tuple(items)))
+    return _join(SeriesSplit, items)
 
 
 def get_series_parallel_decomposition(
@@ -222,7 +238,7 @@ def _ttsp_decomposition(
                     # usage.
                     labels[ne] = (branches[0],)
                 else:
-                    labels[ne] = (_normalize(ParallelSplit(frozenset(branches))),)
+                    labels[ne] = (_join(ParallelSplit, branches),)
                 changed = True
 
         # Series reductions: splice out v with in-degree 1 and out-degree 1.

@@ -20,7 +20,7 @@ count launched once:
 - FFModel with FFConfig(overlap=True) on a forced tensor-parallel seed of
   an MLP: its row-parallel head lowers fused (matmul_rs) and fits to the
   serial lowering's parameters and loss within rtol 1e-5, its provenance
-  saying the fused edges went unpriced;
+  holding the fused edge the forced seed's solve priced;
 - the switches FF_TPU_OVERLAP and FF_TPU_OVERLAP_BASELINE;
 - BatchMatmul's forward and its vjp against the JAX op's."""
 
@@ -362,7 +362,10 @@ def test_ffmodel_overlap_on_a_forced_seed(runs, world):
     for r in runs(world)["ranks"]:
         serial, fused = r["ffmodel_False"], r["ffmodel_True"]
         assert serial["fused"] == [] and fused["fused"] == ["matmul_rs"]
-        assert fused["overlap"] == {"enabled": True, "priced": False}
+        # the forced seed's solve prices its fused edge (overlap.py)
+        ov = fused["overlap"]
+        assert ov["enabled"] and ov["priced"] and ov["eligible"] == 1
+        assert [e["kind"] for e in ov["edges"]] == ["matmul_rs"]
         np.testing.assert_allclose(fused["loss"], serial["loss"], rtol=1e-5)
         for name, w in serial["params"].items():
             np.testing.assert_allclose(np.asarray(fused["params"][name]), np.asarray(w),

@@ -251,15 +251,32 @@ def test_the_devices_of_a_compile_are_the_groups_ranks(one_rank_group, monkeypat
         m.compile(core.SGDOptimizer(lr=0.1), "sparse_categorical_crossentropy")
 
 
-@pytest.mark.parametrize("flag,item", [(dict(hbm_gb=16.0), "A6 part 2 / A13"),
-                                       (dict(cost_store="store"), "A6 part 2 / A13"),
-                                       (dict(search_algorithm="mcmc"), "A6 part 2"),
+@pytest.mark.parametrize("flag,item", [(dict(hbm_gb=16.0), "A13"),
+                                       (dict(cost_store="store"), None),
+                                       (dict(search_algorithm="mcmc", perform_fusion=True),
+                                        None),
                                        (dict(pipeline=True), "A10"),
-                                       (dict(overlap=True), "A6 part 2 item 4")])
-def test_unported_search_flags_raise_naming_their_item(one_rank_group, flag, item):
-    """Checked before the search runs, on the plan's first compile step.
-    The collective matmuls run on an imported or forced plan; a search
-    with them would price without the fused edges the JAX search prices."""
+                                       (dict(overlap=True), None)])
+def test_unported_search_flags_raise_naming_their_item(one_rank_group, tmp_path, flag, item):
+    """An unported flag is checked before the search runs, on the plan's
+    first compile step. The cost store, MCMC and the overlap pricing (A6
+    part 2) now search: a searched compile on the group of one rank records
+    them in its provenance (the stores and searches against the JAX
+    package: tests/test_torch_port_cost_store.py, test_torch_port_mcmc.py,
+    test_torch_port_overlap.py)."""
+    if "cost_store" in flag:  # measured on the host, so the search writes its leaves
+        flag = dict(cost_store=str(tmp_path), cost_model="measured")
     m, _ = _port_model(batch_size=6, search_budget=2, **flag)
-    with pytest.raises(NotImplementedError, match=item):
-        m._compile_searched(m._last_output, 2, None)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            m._compile_searched(m._last_output, 2, None)
+        return
+    inst = m._compile_searched(m._last_output, 1, None)
+    assert type(inst).__name__ == "DistributedTrainingInstance"
+    sp = m.search_provenance
+    assert sp["search_algorithm"] == flag.get("search_algorithm", "unity")
+    if "cost_store" in flag:
+        assert sp["cost_db"]["device_kind"] == "cpu:cpu" and sp["cost_db"]["op_misses"] > 0
+        assert (tmp_path / "cost_db.json").exists()
+    if "overlap" in flag:
+        assert sp["overlap"]["enabled"] and sp["overlap"]["priced"]

@@ -9,8 +9,9 @@ TestFusedHealth:
   step (K=1) and in fused windows (K=4): the events within 1e-5 (loss,
   global norms, update ratio; NaN where the JAX stream has NaN), the
   skipped/nonfinite flags equal, the final parameters within 1e-5 (under
-  warn both non-finite: the packages' ReLU backwards pass a NaN input's
-  gradient differently), the monitors' counts equal, and under raise the
+  warn non-finite in both, at the same positions: the port's ReLU backward
+  gives a NaN input a zero gradient, as JAX's does), the monitors' counts
+  equal, and under raise the
   same NonFiniteError naming the same first bad op at the same step;
 - the port's fused windows equal its per-step loop bitwise under skip_step
   and raise, with Dropout (the tripped step's masks reach the localizer);
@@ -96,17 +97,13 @@ def test_policies_match_the_jax_package(tmp_path, policy, k):
             np.testing.assert_allclose(float(te[key]), float(je[key]), rtol=TOL,
                                        err_msg=f"step {te['step']} {key}")
     assert tm.health_monitor.summary() == jm.health_monitor.summary()
-    if policy == "warn":
-        # the poisoned update is applied in both; which entries turn NaN
-        # differs: JAX's ReLU backward masks a NaN input's gradient to 0
-        # (where(x > 0, g, 0)), torch's passes it (where(x <= 0, 0, g))
-        assert not all(torch.isfinite(p).all() for p in tm.params.values())
-        assert not all(np.isfinite(np.asarray(p)).all() for p in jm.params.values())
-        return
     for key, want in jm.params.items():
-        np.testing.assert_allclose(tm.params[key].numpy(), np.asarray(want), rtol=TOL,
-                                   atol=TOL, err_msg=key)
-    assert all(torch.isfinite(p).all() for p in tm.params.values())
+        got, want = tm.params[key].numpy(), np.asarray(want)
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want), err_msg=key)
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL, err_msg=key)
+    finite = all(torch.isfinite(p).all() for p in tm.params.values())
+    # the poisoned update is applied under warn alone
+    assert finite == (policy != "warn")
 
 
 @pytest.mark.parametrize("policy", ["skip_step", "raise"])
@@ -165,3 +162,38 @@ def test_warn_applies_the_update_and_says_so(capsys):
     assert m.health_monitor.nonfinite_steps == STEPS and m.health_monitor.skipped_steps == 0
     assert "[flexflow_tpu_torch][health] WARN" in capsys.readouterr().out
     assert not all(torch.isfinite(p).all() for p in m.params.values())
+
+
+@pytest.mark.parametrize("site", ["element_unary", "linear_activation", "batch_norm"])
+def test_relu_gives_a_nan_input_a_zero_gradient_as_jax_does(site):
+    """The port's three ReLU sites take JAX's gradient, where(x > 0, g, 0):
+    a NaN input gets 0 (torch.relu's own backward passes g through)."""
+    import jax
+
+    from flexflow_tpu.kernels import ops as j_kernels
+    from flexflow_tpu.op_attrs import ops as j_ops
+    from flexflow_tpu.op_attrs.activation import Activation as JAct
+    from flexflow_tpu_torch.kernels import ops as t_kernels
+    from flexflow_tpu_torch.op_attrs import ops as t_ops
+    from flexflow_tpu_torch.op_attrs.activation import Activation as TAct
+
+    x = np.array([[np.nan, -1.0, 2.0, 0.0], [3.0, np.nan, -0.5, 1.0]], np.float32)
+    weights = []
+    if site == "element_unary":
+        make = lambda m, act: m.ElementUnaryAttrs(m.ElementUnaryOpType.RELU)  # noqa: E731
+    elif site == "linear_activation":
+        make = lambda m, act: m.LinearAttrs(4, use_bias=False, activation=act.RELU)  # noqa: E731
+        weights = [np.eye(4, dtype=np.float32)]
+    else:
+        make = lambda m, act: m.BatchNormAttrs(relu=True, affine=False)  # noqa: E731
+        x = x.reshape(2, 4, 1, 1)
+    g = np.ones_like(x)
+    _, vjp = jax.vjp(lambda a: j_kernels.forward(make(j_ops, JAct), [a],
+                                                 [jnp.asarray(w) for w in weights])[0],
+                     jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(g))
+    tx = torch.tensor(x, requires_grad=True)
+    out = t_kernels.forward(make(t_ops, TAct), [tx], [torch.tensor(w) for w in weights])[0]
+    (got,) = torch.autograd.grad(out, tx, torch.tensor(g))
+    np.testing.assert_array_equal(np.isnan(got.numpy()), np.isnan(np.asarray(want)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)

@@ -10,7 +10,12 @@ batch poisoned with NaN (rank 1's rows), skip_step:
   update ratio) with the same flags; the norms are global, so both ranks
   trip on step 2 although only rank 1's rows hold the NaN, and both skip;
 - rank 0 alone writes the stream; the final parameters are the JAX ones
-  within 1e-5 on both ranks."""
+  within 1e-5 on both ranks;
+- the localizer over ranks: under skip_step and under raise, every rank's
+  monitor names the first bad op the JAX run names, and under raise every
+  rank's NonFiniteError names it at the JAX run's step (rank 0 replays the
+  whole batch gathered from the ranks, and a searched plan's PCG on its
+  gathered parameters)."""
 
 import inspect
 import json
@@ -24,6 +29,7 @@ import numpy as np
 import pytest
 
 from flexflow_tpu import core as jcore
+from flexflow_tpu.observability import health as jh
 from flexflow_tpu.observability.metrics import read_events
 
 REPO = Path(__file__).resolve().parent.parent
@@ -79,6 +85,17 @@ WORKER = textwrap.dedent(
                  health=json.dumps(m.health_monitor.summary()),
                  stats=json.dumps({k: float(v) for k, v in m.instance.last_step_stats.items()}),
                  **params)
+        cfg = dict(case["cfg"], health_policy="raise")
+        m = _build(core, cfg, case["searched"], device="cpu")
+        ffmodel_state_from_numpy(m, {k: data[k] for k in data.files if k.startswith("n")})
+        try:
+            m.fit(x=data["xs"], y=data["ys"], epochs=1, shuffle=False, verbose=False)
+            err = None
+        except Exception as e:
+            err = dict(type=type(e).__name__, op=getattr(getattr(e, "report", None), "op_name", None),
+                       phase=getattr(getattr(e, "report", None), "phase", None), msg=str(e))
+        json.dump(dict(err=err, steps=m._step_count, health=m.health_monitor.summary()),
+                  open(os.path.join(work, f"{name}_raise_rank{rank}.json"), "w"))
     dist.destroy_process_group()
     """
 )
@@ -108,6 +125,15 @@ def runs(tmp_path_factory):
         np.savez(work / f"{name}.npz", xs=xs, ys=ys, **init)
         jax_runs[name] = dict(events=read_events(str(work / f"jax_{name}")), weights=weights,
                               health=m.health_monitor.summary())
+        m = _build(jcore, dict(case["cfg"], health_policy="raise"), case["searched"])
+        assert all(np.array_equal(np.array(v), init[k]) for k, v in m.params.items())
+        try:
+            m.fit(x=xs, y=ys, epochs=1, shuffle=False, verbose=False)
+            err = None
+        except jh.NonFiniteError as e:
+            err = dict(op=e.report.op_name, phase=e.report.phase, msg=str(e))
+        jax_runs[name]["raise"] = dict(err=err, steps=m._step_count,
+                                       health=m.health_monitor.summary())
     (work / "cases.json").write_text(json.dumps(CASES))
     (work / "build.py").write_text(inspect.getsource(_build))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -124,7 +150,9 @@ def runs(tmp_path_factory):
             z = dict(np.load(work / f"{name}_rank{r}.npz"))
             ranks.append(dict(kind=str(z.pop("kind")), health=json.loads(str(z.pop("health"))),
                               stats=json.loads(str(z.pop("stats"))), weights=z))
-        port[name] = dict(ranks=ranks, events=read_events(str(work / f"port_{name}")))
+        port[name] = dict(ranks=ranks, events=read_events(str(work / f"port_{name}")),
+                          raise_=[json.loads((work / f"{name}_raise_rank{r}.json").read_text())
+                                  for r in range(RANKS)])
     return dict(jax=jax_runs, port=port)
 
 
@@ -153,3 +181,23 @@ def test_every_rank_skips_the_step_and_ends_at_the_jax_parameters(runs, name):
         for key, w in runs["jax"][name]["weights"].items():
             assert np.all(np.isfinite(r["weights"][key]))
             assert np.linalg.norm(r["weights"][key] - w) <= TOL * np.linalg.norm(w), key
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_skip_step_names_the_jax_first_bad_op_on_every_rank(runs, name):
+    want = runs["jax"][name]["health"]["first_bad_op"]
+    assert want is not None
+    for r in runs["port"][name]["ranks"]:
+        assert r["health"]["first_bad_op"] == want
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_raise_names_the_jax_op_and_step_on_every_rank(runs, name):
+    want = runs["jax"][name]["raise"]
+    assert want["err"] is not None and want["steps"] == 2
+    for r in runs["port"][name]["raise_"]:
+        assert r["err"]["type"] == "NonFiniteError", r["err"]
+        assert (r["err"]["op"], r["err"]["phase"]) == (want["err"]["op"], want["err"]["phase"])
+        assert f"at step {want['steps']}" in r["err"]["msg"] and want["err"]["op"] in r["err"]["msg"]
+        assert r["steps"] == want["steps"]
+        assert r["health"]["first_bad_op"] == want["health"]["first_bad_op"] == want["err"]["op"]

@@ -258,23 +258,30 @@ def test_graph_optimize_matches_jax(ndev, budget):
     assert set(tr.telemetry["phase_ms"]) >= {"tree_build", "dp", "leaf_cost", "seed_build"}
 
 
-def test_search_options_not_ported_raise():
+def test_search_options_not_ported_raise(tmp_path):
+    """The pipeline seeds wait for A10; the serving search's cost store, the
+    overlap pricing and the analytic estimator's store (A6 part 2) now work:
+    tests/test_torch_port_cost_store.py and test_torch_port_overlap.py hold
+    them against the JAX package."""
     ts, tctx, _, _ = _estimators(4)
     with pytest.raises(NotImplementedError, match="A10"):
         T.OptimizerConfig(pipeline_seeds=True)
-    # the memory-budgeted evaluation is ported (test_torch_port_serving_plan.py);
-    # the serving search's persistent cost store is not
+    from flexflow_tpu_torch.compiler.cost_store import CostStore
     from flexflow_tpu_torch.serving.kv_cache import ServingMemorySpec
     from flexflow_tpu_torch.serving.plan import serving_search_context
 
-    with pytest.raises(NotImplementedError, match="A6 part 2"):
-        serving_search_context(ts, ServingMemorySpec(4, 16), cost_store_dir="store",
-                               device="cpu")
-    with pytest.raises(NotImplementedError, match="A6 part 2"):
-        T.MachineMappingContext(tctx.cost_estimator, tctx.allowed_machine_views,
-                                overlap_lowering=True)
-    with pytest.raises(NotImplementedError, match="A6 part 2"):
-        T.AnalyticGPUCostEstimator(ts, PEAK_FLOPS, HBM_GBPS, cost_store=object())
+    ctx, store = serving_search_context(ts, ServingMemorySpec(4, 16),
+                                        cost_store_dir=str(tmp_path), device="cpu")
+    assert store.fingerprint.endswith("-fwd") and ctx.cost_estimator.cost_store is store
+    with pytest.raises(FileNotFoundError):  # a missing store directory never searches cold
+        serving_search_context(ts, ServingMemorySpec(4, 16),
+                               cost_store_dir=str(tmp_path / "missing"), device="cpu")
+    ctx = T.MachineMappingContext(tctx.cost_estimator, tctx.allowed_machine_views,
+                                  overlap_lowering=True)
+    assert ctx.overlap_lowering
+    est = T.AnalyticGPUCostEstimator(ts, PEAK_FLOPS, HBM_GBPS,
+                                     cost_store=CostStore(str(tmp_path)))
+    assert est.movement_store is est.cost_store
 
 
 def test_searched_ffmodel_compile_names_a7():
@@ -403,11 +410,15 @@ def test_meta_run_error_propagates_instead_of_pricing_inf(monkeypatch):
 
 def test_op_without_kernel_raises_naming_a2():
     """The rules name ops the port has no kernel for yet: measuring one
-    must say so, not price it inf."""
+    must say so, not price it inf. (Reduce, which this test measured
+    before, has its kernel now, for branch stacking; Experts waits for
+    A11.)"""
     tl = TLocal(TSettings(1, 2), device="cpu")
     with pytest.raises(NotImplementedError, match="A2"):
-        tl.estimate_operator_cost(t_ops.ReduceAttrs(t_ops.ReduceOpType.SUM, (1,)),
-                                  [TShape((2, 8, 4))])
+        tl.estimate_operator_cost(t_ops.ExpertsAttrs(4, 2, 8), [TShape((2, 8, 4))])
+    reduce_cost = tl.estimate_operator_cost(t_ops.ReduceAttrs(t_ops.ReduceOpType.SUM, (1,)),
+                                            [TShape((2, 8, 4))])
+    assert 0 < reduce_cost.elapsed_ms < float("inf")
 
 
 def test_card_entry_points_default_to_cuda():

@@ -226,10 +226,10 @@ def test_cnn_nets_fit_like_the_jax_ffmodel(net):
 
 # -- the parsers and the examples --------------------------------------------------
 
-# the apps the port has run at tests/test_examples.py's sizes (moe.py and
-# split_test_2.py wait for A11 and A6; --branch-stacking for A6)
+# the apps the port has run at tests/test_examples.py's sizes (moe.py waits
+# for A11)
 EXAMPLES = [(name, list(argv)) for name, argv in SMOKE_ARGV]
-JAX_ONLY_ARGV = [["-b", "8", "--branch-stacking"], ["-b", "4", "--steps", "1"]]
+JAX_ONLY_ARGV = [["-b", "8", "--steps", "2"]]
 
 
 def test_smoke_argv_is_the_example_tests_argv():
@@ -246,10 +246,8 @@ def test_smoke_argv_is_the_example_tests_argv():
     reference = {(name[:-len(".py")], tuple(args)) for name, args in table}
     ported = {(name, tuple(argv)) for name, argv in SMOKE_ARGV}
     assert ported <= reference
-    # left out: --branch-stacking and split_test_2 (A6), moe (A11)
-    assert reference - ported == {("split_test", ("-b", "8", "--branch-stacking")),
-                                  ("split_test_2", ("-b", "4", "--steps", "1")),
-                                  ("moe", ("-b", "8", "--steps", "2"))}
+    # left out: moe (A11)
+    assert reference - ported == {("moe", ("-b", "8", "--steps", "2"))}
 
 
 @pytest.mark.parametrize("argv", [a for _, a in EXAMPLES] + JAX_ONLY_ARGV)
