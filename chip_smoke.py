@@ -198,7 +198,7 @@ are no NVLink or NCCL figure):
                   gathered parameters against the single-device
                   train_step from the same values on the card;
 25. fit_searched  FFModel.compile(search_budget=2) on 2 ranks at the
-                  flagship's widths and depth (batch 16): rank 0 searches
+                  flagship's widths at 10 layers (batch 16): rank 0 searches
                   on the H100 constants, every rank trains the winner it
                   prints (a parallel plan), rank 0 exports the strategy,
                   and a second compile that imports it trains to
@@ -324,7 +324,29 @@ then checkpoints, bitwise resume and the fit loop's fault sites:
                   sharing the card, killed and resumed bitwise on every rank,
                   rank 0 alone writing, rows 9-11 once per layer per step per
                   rank, the final 2-rank checkpoint restored into one device
-                  with every parameter equal.
+                  with every parameter equal;
+
+then pipelines and sub-mesh branches, one rank job per rank count carrying
+both phases (gloo ranks sharing the card; no kernel of the table runs):
+
+38. train_pp      the MLP trunk (examples/mlp.py's 64 x 1024, 4 x dense +
+                  ReLU, cut at its last hidden layer) through
+                  FFModel(pipeline=True) forced to pp2m4 on 2 ranks and
+                  pp2m4 x dp2 on 4, bf16, Adam(1e-3): the 1F1B executor
+                  and its provenance, a warm-up and 5 steps finite and
+                  within 1e-2 of the same steps on the CPU in f32, the
+                  1F1B steps bitwise the sequential schedule's and a K=4
+                  window bitwise its steps, no flash launch; both
+                  schedules' step ms, the measured bubble beside b(S, M),
+                  each rank's max_memory_allocated beside the stash model's
+                  peak; and on the host the budgeted search with pipeline
+                  seeds for 8 H100s on the trunk and on bench.py
+                  --pipeline's proxy, which must pick a pipelined plan;
+39. fit_submesh   the two towers of tests/test_submesh.py through
+                  FFModel(submesh_branches=True) on the same jobs (f32,
+                  TF32 off): two SGD steps' losses and the parameters
+                  within 1e-4 of one card's from the same values, each
+                  branch's parameters only on its group, eval runs.
 
 The kernels phase also holds the per-head kernels at the attention shapes of
 train_dp, of train_dp_seq2048 and of the 16-head config, on contiguous
@@ -3317,10 +3339,12 @@ TP_STEPS = 3  # timed Adam steps of train_tp, after one warm-up step
 # whichever way its sign falls. On an H100 the worst tensor measured 0.078
 # (a LayerNorm bias) and the median 0.027 (PERF.md section 6)
 TP_PARAM_BOUND = 0.2
-# batch 16 at full depth: the widths at which the search on the H100
-# constants picks dp2 over the serial plan for 2 cards (at 4 layers it
-# keeps the serial plan)
-FIT_SEARCHED = dict(FLAGSHIP_WIDTHS, batch=16)
+# the flagship's widths at batch 16 and 10 layers, cut from the flagship's 12
+# to keep the whole script near its time: the search for 2 cards picks dp2
+# over the serial plan by a clear margin there (13.348 against 14.544 ms at
+# 12 layers, 10.201 against 10.272 at 8: a 0.7% margin a small change to
+# the cost model would flip; at 6 layers it keeps the serial plan)
+FIT_SEARCHED = dict(FLAGSHIP_WIDTHS, layers=10, batch=16)
 FIT_SEARCHED_STEPS = 3
 RANK_TIMEOUT_S = 300
 
@@ -4014,7 +4038,7 @@ def phase_train_tp(smi: str, tmp: str, device: str = "cuda:0") -> dict:
 
 def phase_fit_searched(smi: str, tmp: str, device: str = "cuda:0") -> dict:
     """FFModel.compile(search_budget=2) on 2 ranks sharing the card at the
-    flagship's widths and depth (batch 16): rank 0 searches on the H100
+    flagship's widths at 10 layers (batch 16): rank 0 searches on the H100
     constants, every rank trains the winner, which must be a parallel plan;
     rank 0 exports the strategy and a second compile that imports it
     trains to bitwise-equal losses."""
@@ -5619,6 +5643,474 @@ def phase_resume_ranks(smi: str, tmp: str, device: str = "cuda:0", cfg: dict = R
     return counts
 
 
+# --- pipeline parallelism and sub-mesh branches (A10): one rank job per
+# rank count carries both phases
+
+PP_TRUNK = dict(batch=64, dim=1024, layers=4)  # examples/mlp.py's trunk at its defaults
+PP_SEEDS = {2: "pp2m4", 4: "pp2m4xdp2"}
+PP_STEPS = 5  # timed steps after one warm-up
+PP_CHECK_STEPS = 2  # steps of the 1F1B-against-sequential check
+PP_WINDOW_K = 4
+PP_PARITY_BOUND = PARITY_BOUND  # relative, each step's loss, bf16 card vs f32 CPU
+# the worst tensor's norm-relative difference after the warm-up and PP_STEPS
+# steps, the card's stages (bf16) against the flat executor on one CPU
+# device (f32), for the parameters and each Adam slot. On an H100 the sound
+# run read at most 0.230 / 0.258 / 0.164 (a zero-initialized bias, which
+# Adam moves by about alpha whichever way a near-zero gradient's sign falls)
+# and a backward reading the other stash slot at least 1.181 / 1.218 / 1.033
+# (`tests/torch_port_probes.py pp-fault`, 2 and 4 ranks; PERF.md section 6)
+PP_STATE_BOUND = dict(params=0.5, m=0.5, v=0.5)
+SUBMESH_STEPS = 2
+SUBMESH_BOUND = 1e-4  # relative: losses and parameters, f32 (TF32 off), ranks vs one card
+SUBMESH_BATCH = 16
+# the JAX package's `bench.py --pipeline` proxy: a uniform 8-layer dense chain
+# of width 256 at batch 64, whose flat plans all peak above the pipelined ones
+PP_PROXY = dict(layers=8, dim=256, batch=64)
+PP_RESULTS = {}  # world -> the pipeline job's ranks, read by fit_submesh
+
+PP_RANK_WORKER = r'''
+import json, os, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, world, job = int(sys.argv[1]), int(sys.argv[2]), json.loads(sys.argv[3])
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+from flexflow_tpu_torch import core, pcg
+from flexflow_tpu_torch.analysis.memory_analysis import analyze_memory
+from flexflow_tpu_torch.interop import submesh_params_to_numpy
+from flexflow_tpu_torch.kernels import flash_attention as fa
+from flexflow_tpu_torch.local_execution import ModelTrainingInstance
+from flexflow_tpu_torch.local_execution.training_backing import param_key
+from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs, WeightAttrs
+from flexflow_tpu_torch.parallel import init_file_group
+from flexflow_tpu_torch.pcg.machine_view import MachineSpecification
+from flexflow_tpu_torch.pcg.optimizer import SGDOptimizerAttrs
+
+device = init_file_group(job["store"], rank, world, device=job["device"], backend="gloo",
+                         timeout_s=job["timeout_s"])
+card = device.type == "cuda"
+out = {"rank": rank}
+
+
+def sync():
+    if card:
+        torch.cuda.synchronize(device)
+
+
+def launches():
+    return {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS}
+
+
+# -- train_pp: the MLP trunk through FFModel on a forced pipelined plan -----
+t = job["trunk"]
+
+
+def trunk(on, dtype):
+    m = core.FFModel(core.FFConfig(batch_size=t["batch"], seed=0, print_freq=0, search_budget=1,
+                                   pipeline=True, force_strategy_seed=job["seed"]), device=on)
+    h = m.create_tensor([t["batch"], t["dim"]], name="x")
+    for i in range(t["layers"]):
+        h = m.relu(m.dense(h, t["dim"], name=f"fc{i}"))
+    m.compile(core.AdamOptimizer(alpha=1e-3), "sparse_categorical_crossentropy",
+              logit_tensor=h, compute_dtype=dtype)
+    return m, h
+
+
+def by_name(inst, stacked):
+    """Stacked [S, ...] state keyed by each stage's weight's layer name."""
+    return {inst.pcg.layer_attrs(n).name: np.asarray(stacked[k][s])
+            for s, nodes in enumerate(inst.structure.weight_nodes)
+            for k, n in zip(inst.template_keys, nodes)}
+
+
+gen = torch.Generator().manual_seed(3)
+batches = [(torch.randn(t["batch"], t["dim"], generator=gen),
+            torch.randint(0, t["dim"], (t["batch"],), generator=gen))
+           for _ in range(1 + job["steps"])]
+
+
+def steps(m, run):
+    rng = torch.Generator(device=m.device).manual_seed(0)
+    losses, ms = [], []
+    for x, y in run:
+        x, y = x.to(m.device), y.to(m.device)
+        sync()
+        t0 = time.perf_counter()
+        m.params, m.opt_state, loss, _ = m.instance.train_step(m.params, m.opt_state, {"x": x},
+                                                               y, rng)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    return losses, ms
+
+
+def same(a, b):
+    return all(np.array_equal(a["params"][k], b["params"][k])
+               and all(np.array_equal(a["opt_state"][s][k], b["opt_state"][s][k])
+                       for s in ("m", "v"))
+               for k in a["params"]) and int(a["opt_state"]["step"]) == int(b["opt_state"]["step"])
+
+
+start = time.perf_counter()
+m, _ = trunk(job["device"], torch.bfloat16 if card else None)
+inst = m.instance
+res = dict(kind=type(inst).__name__, pipeline=(m.search_provenance or {}).get("pipeline"),
+           stage=getattr(inst, "stage", None))
+if card:
+    # what the stage's state holds before a step (parameters and optimizer
+    # state), beside the peak the steps reach
+    sync()
+    res["memory_allocated_before_steps"] = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+fa.reset_launch_counts()
+warm, _ = steps(m, batches[:1])
+pipe_losses, pipe_ms = steps(m, batches[1:])
+res["launches"] = launches()
+res["max_memory_allocated"] = torch.cuda.max_memory_allocated(device) if card else None
+spec = MachineSpecification(1, 1, world, 25.0, 400.0)
+res["stash_model_peak"] = analyze_memory(inst.pcg, spec, None, optimizer_state_slots=2
+                                         ).per_device[rank].peak_bytes
+res["losses"] = warm + pipe_losses
+res["step_ms"] = pipe_ms
+# the stages' parameters and Adam state after those steps, by layer name
+after = inst.stacked_state(m.params, m.opt_state)
+after = {"params": by_name(inst, after["params"]),
+         **{s: by_name(inst, after["opt_state"][s]) for s in ("m", "v")}}
+# the sequential schedule's steps, on the same batches
+inst.schedule_name = "sequential"
+seq_losses, seq_ms = steps(m, batches[1:])
+inst.schedule_name = "1f1b"
+res["sequential_step_ms"] = seq_ms
+res["sequential_finite"] = bool(np.isfinite(seq_losses).all())
+# bitwise: 1F1B against the sequential schedule, and a window against its steps
+init = inst.stacked_state(m.params, m.opt_state)
+
+
+def reset():
+    inst.load_stacked_state(m.params, m.opt_state, init["params"], init["opt_state"])
+
+
+reset()
+one, _ = steps(m, batches[1:1 + job["check_steps"]])
+s_one = inst.stacked_state(m.params, m.opt_state)
+reset()
+inst.schedule_name = "sequential"
+seq, _ = steps(m, batches[1:1 + job["check_steps"]])
+schedule = inst.schedule_name
+inst.schedule_name = "1f1b"
+s_seq = inst.stacked_state(m.params, m.opt_state)
+res["bitwise_sequential"] = [one == seq, same(s_one, s_seq), schedule]
+k = job["window_k"]
+reset()
+per_step, _ = steps(m, batches[1:1 + k])
+s_steps = inst.stacked_state(m.params, m.opt_state)
+reset()
+rng = torch.Generator(device=m.device).manual_seed(0)
+xs = torch.stack([x for x, _ in batches[1:1 + k]]).to(m.device)
+ys = torch.stack([y for _, y in batches[1:1 + k]]).to(m.device)
+m.params, m.opt_state, rng, lvec, _ = inst.multi_train_step(m.params, m.opt_state, {"x": xs},
+                                                            ys, rng)
+res["bitwise_window"] = [per_step == lvec.tolist(),
+                         same(s_steps, inst.stacked_state(m.params, m.opt_state)),
+                         inst.last_window]
+res["p2p_transfers"] = inst.p2p.count
+del m, inst
+if card:
+    torch.cuda.empty_cache()
+# the same steps on the CPU in f32
+cpu, logit = trunk("cpu", None)
+init = by_name(cpu.instance, cpu.instance.stacked_state(cpu.params)["params"])
+cpu_losses, _ = steps(cpu, batches)
+res["cpu_losses"] = cpu_losses
+if rank == 0:
+    # the flat executor on one CPU device from the same initial weights and
+    # batches, f32: a reference that shares no code with the 1F1B lowering
+    flat = ModelTrainingInstance(cpu.cg, logit.handle, cpu.loss_attrs, cpu.optimizer_attrs,
+                                 device="cpu")
+    p, o = flat.initialize(seed=0)
+    name_of = {param_key(n): cpu.cg.layer_attrs(n).name
+               for n in cpu.cg.topological_ordering()
+               if isinstance(cpu.cg.op_attrs(n), WeightAttrs)}
+    with torch.no_grad():
+        for k, v in p.items():
+            v.copy_(torch.as_tensor(init[name_of[k]]))
+    flat_losses = []
+    for x, y in batches:
+        p, o, loss, _ = flat.train_step(p, o, {"x": x}, y)
+        flat_losses.append(float(loss))
+    ref = {"params": p, "m": o["m"], "v": o["v"]}
+
+    def gap(slot):
+        """The worst tensor's norm-relative difference, card against the
+        flat reference."""
+        return max(float(np.linalg.norm(after[slot][name_of[k]].astype(np.float64)
+                                        - t.double().numpy())
+                         / max(float(t.double().norm()), 1e-30))
+                   for k, t in ref[slot].items())
+
+    res["flat_losses"] = flat_losses
+    res["state_rel"] = {slot: gap(slot) for slot in ref}
+    res["state_compared"] = sorted(name_of.values()) == sorted(after["params"])
+del cpu
+res["seconds"] = time.perf_counter() - start
+out["train_pp"] = res
+
+# -- fit_submesh: the two-tower graph on groups of ranks, f32, TF32 off ----
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+start = time.perf_counter()
+B = job["submesh_batch"]
+m = core.FFModel(core.FFConfig(batch_size=B, seed=0, print_freq=0, submesh_branches=True),
+                 device=job["device"])
+x = m.create_tensor([B, 64], name="x")
+t0 = m.dense(x, 64, use_bias=False, name="fc0")
+a1, a2 = m.split(t0, [32, 32], axis=1)
+h1 = m.dense(m.relu(m.dense(a1, 128, use_bias=False, name="a_w1")), 64, use_bias=False,
+             name="a_w2")
+h2 = m.dense(a2, 64, use_bias=False, name="b_w1")
+logits = m.dense(m.add(h1, h2, name="merge"), 8, use_bias=False, name="head")
+m.compile(core.SGDOptimizer(lr=0.05), "sparse_categorical_crossentropy", logit_tensor=logits)
+inst = m.instance
+gen = torch.Generator().manual_seed(4)
+xv, yv = torch.randn(B, 64, generator=gen), torch.randint(0, 8, (B,), generator=gen)
+fa.reset_launch_counts()
+losses = []
+for _ in range(job["submesh_steps"]):
+    m.params, m.opt_state, loss, _ = inst.train_step(m.params, m.opt_state,
+                                                     {"x": xv.to(m.device)}, yv.to(m.device))
+    losses.append(float(loss))
+sync()
+sub = dict(kind=type(inst).__name__, losses=losses, islands=sorted(m.params),
+           groups=inst.branch_ranks, devices=sorted({str(p.device) for i in m.params.values()
+                                                      for p in i.values()}),
+           prov=m.search_provenance, launches=launches(), p2p_transfers=inst.p2p.count)
+final = submesh_params_to_numpy(inst, m.params)
+sub["eval_all"] = int(m.eval(x=xv.numpy(), y=yv.numpy()).train_all)
+if rank == 0:
+    # one card's steps from the same initial values (the graph's initializers)
+    one = ModelTrainingInstance(m.cg, logits.handle, SparseCategoricalCrossEntropyLossAttrs(),
+                                SGDOptimizerAttrs(lr=0.05), device=job["device"])
+    p, o = one.initialize(seed=0)
+    ref = []
+    for _ in range(job["submesh_steps"]):
+        p, o, loss, _ = one.train_step(p, o, {"x": xv.to(device)}, yv.to(device))
+        ref.append(float(loss))
+    flat = {k: v for island in final.values() for k, v in island.items()}
+    sub["one_card_losses"] = ref
+    sub["param_rel"] = max(float(np.linalg.norm(flat[k] - p[k].detach().cpu().numpy())
+                                 / max(np.linalg.norm(p[k].detach().cpu().numpy()), 1e-30))
+                           for k in p)
+    sub["params_compared"] = sorted(p) == sorted(flat)
+sub["seconds"] = time.perf_counter() - start
+out["fit_submesh"] = sub
+with open(f"{job['out']}.rank{rank}.json", "w") as f:
+    json.dump(out, f)
+dist.destroy_process_group()
+'''
+
+
+def _pp_host_search(trunk: dict = PP_TRUNK, proxy: dict = PP_PROXY) -> dict:
+    """The budgeted search with pipeline seeds for 8 H100s (analytic at the
+    H100 peaks, host only): every flat and pipeline seed of the trunk and
+    of bench.py --pipeline's proxy priced with its per-device peak (the
+    stash model, analysis/memory_analysis.py), then, where the best
+    pipelined peak is below the best flat one, a search under the budget
+    between them, which must pick a pipelined plan."""
+    from flexflow_tpu_torch import compiler as T
+    from flexflow_tpu_torch.analysis.memory_analysis import analyze_memory
+    from flexflow_tpu_torch.compiler.calibration import H100_NVLINK_GBPS, NDR_INFINIBAND_GBPS
+    from flexflow_tpu_torch.compiler.unity_algorithm import enumerate_pipeline_seeds, enumerate_seeds
+    from flexflow_tpu_torch.pcg.computation_graph_builder import ComputationGraphBuilder
+    from flexflow_tpu_torch.pcg.machine_view import MachineSpecification
+    from flexflow_tpu_torch.pcg.parallel_computation_graph import pcg_from_computation_graph
+    from flexflow_tpu_torch.pcg.pipeline import analyze_pipeline
+    from flexflow_tpu_torch.substitutions.rules import generate_parallelization_rules
+
+    spec = MachineSpecification(1, 1, SEARCH_NODE_GPUS, NDR_INFINIBAND_GBPS, H100_NVLINK_GBPS)
+
+    def ctx(budget=0.0):
+        est = T.AnalyticGPUCostEstimator(spec, PEAK_BF16, PEAK_BYTES / 1e9)
+        return T.MachineMappingContext(est, T.make_default_allowed_machine_views(),
+                                       overlap_fraction=0.5, memory_budget_bytes=budget,
+                                       optimizer_state_slots=2, steps_per_dispatch=1)
+
+    def graph(c):
+        b = ComputationGraphBuilder()
+        h = b.create_input([c["batch"], c["dim"]], name="x")
+        for i in range(c["layers"]):
+            h = b.relu(b.dense(h, c["dim"], name=f"fc{i}"))
+        return pcg_from_computation_graph(b.graph)
+
+    out = {}
+    for name, c in (("trunk", trunk), ("proxy", proxy)):
+        pcg, t0 = graph(c), time.perf_counter()
+        seeds = {}
+        for label, seed in (list(enumerate_seeds(pcg, spec.num_devices))
+                            + list(enumerate_pipeline_seeds(pcg, spec.num_devices))):
+            r = T.evaluate_pcg(seed, ctx(), spec, T.MachineMappingCache())
+            if r is not None:
+                seeds[label] = dict(ms=r.runtime, peak_bytes=analyze_memory(
+                    seed, spec, r.machine_mapping).max_peak_bytes())
+        pipe = min((v["peak_bytes"], k) for k, v in seeds.items() if k.startswith("pp"))
+        flat = min((v["peak_bytes"], k) for k, v in seeds.items() if not k.startswith("pp"))
+        row = dict(config=c, seeds=seeds, best_pipelined_peak=pipe, best_flat_peak=flat)
+        if pipe[0] < flat[0]:
+            budget = (pipe[0] + flat[0]) / 2
+            res = T.graph_optimize(pcg, ctx(budget), spec,
+                                   generate_parallelization_rules([2, 4, 8], enable_pipeline=True),
+                                   T.OptimizerConfig(budget=1, pipeline_seeds=True))
+            region = analyze_pipeline(res.pcg)
+            if region is None or not region.ok or res.serial_runtime is not None:
+                raise AssertionError(f"train_pp: the {name}'s budgeted search picked no "
+                                     f"pipelined plan under {budget} bytes")
+            row.update(budget_bytes=budget, winner=f"pp{region.num_stages}m"
+                       f"{region.num_microbatches}", winner_estimated_ms=res.runtime,
+                       winner_degrees=T.parallel_degree_summary(res.pcg))
+        else:
+            row["note"] = ("the best flat plan peaks below every pipelined one: no budget "
+                           "between them admits a pipelined plan alone")
+        row["seconds"] = time.perf_counter() - t0
+        out[name] = row
+    if "winner" not in out["proxy"]:
+        raise AssertionError("train_pp: bench.py --pipeline's proxy selected no pipelined plan")
+    return out
+
+
+def pp_job(world: int, seed: str, device: str, trunk: dict = PP_TRUNK) -> dict:
+    """The rank job of train_pp and fit_submesh for `world` ranks."""
+    return dict(name=f"pp{world}", device=device, seed=seed, trunk=trunk, steps=PP_STEPS,
+                check_steps=PP_CHECK_STEPS, window_k=PP_WINDOW_K,
+                timeout_s=RANK_TIMEOUT_S / 2, submesh_batch=SUBMESH_BATCH,
+                submesh_steps=SUBMESH_STEPS)
+
+
+def phase_train_pp(smi: str, tmp: str, device: str = "cuda:0", trunk: dict = PP_TRUNK,
+                   proxy: dict = PP_PROXY) -> None:
+    """The MLP trunk (examples/mlp.py's 4 x dense(1024) + ReLU at batch 64,
+    ending at its last hidden layer: the 1F1B executor takes no head of
+    another width) through FFModel(pipeline=True) forced to pp2m4 on 2
+    ranks and pp2m4 x dp2 on 4, sharing the card over gloo, bf16,
+    Adam(1e-3): the compile picks the 1F1B executor with the JAX package's
+    provenance, a warm-up and PP_STEPS steps finite and within
+    PP_PARITY_BOUND of the same steps on the CPU in f32, the stages'
+    parameters and Adam state after them within PP_STATE_BOUND of the flat
+    executor's on one CPU device, the 1F1B steps bitwise the sequential
+    schedule's and a K=4 window bitwise its 4 steps; printed: both
+    schedules' step ms, the measured bubble beside b(S, M) (None, flagged,
+    where the two step times fit no tick model), each rank's max_memory_allocated beside the stash model's
+    peak, and the host-only budgeted search. One rank job per rank count
+    also carries fit_submesh's work."""
+    from flexflow_tpu_torch.parallel.pipeline import measured_bubble_fraction
+    from flexflow_tpu_torch.pcg.pipeline import pipeline_bubble_fraction
+
+    start = time.perf_counter()
+    search = _pp_host_search(trunk, proxy)
+    rows = []
+    for world, seed in PP_SEEDS.items():
+        ranks = run_ranks(world, pp_job(world, seed, device, trunk), tmp, worker=PP_RANK_WORKER)
+        PP_RESULTS[world] = ranks
+        S, M = 2, 4
+        for r in ranks:
+            pp = r["train_pp"]
+            want = {"num_stages": S, "num_microbatches": M,
+                    "mesh": {"stage": S, "data": world // S}, "executor": "1f1b"}
+            if pp["kind"] != "PipelinedTrainingInstance" or pp["pipeline"] != want:
+                raise AssertionError(f"train_pp rank {r['rank']}: compiled {pp['kind']} "
+                                     f"{pp['pipeline']}, expected the 1F1B executor {want}")
+            if not all(math.isfinite(v) for v in pp["losses"]):
+                raise AssertionError(f"train_pp rank {r['rank']}: losses {pp['losses']}")
+            rel = [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(pp["losses"],
+                                                                  pp["cpu_losses"])]
+            if max(rel) > PP_PARITY_BOUND:
+                raise AssertionError(f"train_pp rank {r['rank']}: card {pp['losses']} against "
+                                     f"CPU {pp['cpu_losses']}")
+            if r["rank"] == 0:
+                over = {k: v for k, v in pp["state_rel"].items() if not v <= PP_STATE_BOUND[k]}
+                if over or not pp["state_compared"]:
+                    raise AssertionError(f"train_pp: the stages' state against the flat "
+                                         f"executor {pp['state_rel']}, bounds {PP_STATE_BOUND}")
+            if pp["bitwise_sequential"] != [True, True, "sequential"]:
+                raise AssertionError(f"train_pp rank {r['rank']}: 1F1B against the sequential "
+                                     f"schedule {pp['bitwise_sequential']}")
+            if pp["bitwise_window"][:2] != [True, True]:
+                raise AssertionError(f"train_pp rank {r['rank']}: the K={PP_WINDOW_K} window "
+                                     f"{pp['bitwise_window']}")
+            if any(pp["launches"].values()):
+                raise AssertionError(f"train_pp rank {r['rank']}: flash launches "
+                                     f"{pp['launches']} on a path with no attention")
+        pipe_ms = statistics.median(max(r["train_pp"]["step_ms"][i] for r in ranks)
+                                    for i in range(PP_STEPS))
+        seq_ms = statistics.median(max(r["train_pp"]["sequential_step_ms"][i] for r in ranks)
+                                   for i in range(PP_STEPS))
+        first = ranks[0]["train_pp"]
+        # None where the step times fit no tick model (a clamp engaged)
+        bubble = measured_bubble_fraction(S, M, pipe_ms, seq_ms)
+        rows.append(dict(
+            ranks=world, seed=seed, mesh=first["pipeline"]["mesh"], losses=first["losses"],
+            cpu_losses=first["cpu_losses"], step_ms_1f1b=pipe_ms, step_ms_sequential=seq_ms,
+            step_ms_1f1b_by_step=[max(r["train_pp"]["step_ms"][i] for r in ranks)
+                                  for i in range(PP_STEPS)],
+            bubble_predicted=pipeline_bubble_fraction(S, M),
+            bubble_measured=bubble, bubble_clamped=bubble is None,
+            state_rel_flat=first["state_rel"], flat_losses=first["flat_losses"],
+            max_memory_allocated=[r["train_pp"]["max_memory_allocated"] for r in ranks],
+            memory_allocated_before_steps=[r["train_pp"].get("memory_allocated_before_steps")
+                                           for r in ranks],
+            stash_model_peak=[r["train_pp"]["stash_model_peak"] for r in ranks],
+            stage_of_rank=[r["train_pp"]["stage"] for r in ranks],
+            p2p_transfers=[r["train_pp"]["p2p_transfers"] for r in ranks],
+            window=first["bitwise_window"][2], rank_seconds=[r["train_pp"]["seconds"]
+                                                               for r in ranks]))
+    emit({"phase": "train_pp", "card": smi, "sharing": SHARED, "trunk": trunk,
+          "compute_dtype": "bf16", "optimizer": "Adam(1e-3)", "runs": rows,
+          "bitwise_equal_sequential": True, "window_bitwise_equal": True,
+          "parity_bound": PP_PARITY_BOUND, "state_bound": PP_STATE_BOUND,
+          "search_8_h100": search,
+          "seconds": time.perf_counter() - start})
+
+
+def phase_fit_submesh(smi: str) -> None:
+    """The two-tower graph of tests/test_submesh.py through
+    FFModel(submesh_branches=True) on 2 and 4 ranks sharing the card (f32,
+    TF32 off), from train_pp's rank jobs: SUBMESH_STEPS SGD steps' losses
+    and every parameter within SUBMESH_BOUND of one card's steps from the
+    same values, each branch's parameters only on its group, the
+    resource-split pricing recorded, eval runs, no flash launch."""
+    if not PP_RESULTS:
+        raise AssertionError("fit_submesh reads train_pp's rank jobs: add train_pp to --phases")
+    rows = []
+    for world, ranks in PP_RESULTS.items():
+        ref = ranks[0]["fit_submesh"]
+        half = world // 2
+        for r in ranks:
+            sub = r["fit_submesh"]
+            mine = 0 if r["rank"] < half else 1
+            if (sub["kind"] != "SubmeshBranchInstance"
+                    or sub["islands"] != sorted(["pre", "post", f"branch{mine}"])
+                    or sub["groups"] != [list(range(half)), list(range(half, world))]
+                    or not sub["prov"].get("resource_splits_priced")
+                    or sub["eval_all"] != SUBMESH_BATCH or any(sub["launches"].values())):
+                raise AssertionError(f"fit_submesh {world} ranks, rank {r['rank']}: {sub}")
+            rel = [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(sub["losses"],
+                                                                  ref["one_card_losses"])]
+            if max(rel) > SUBMESH_BOUND:
+                raise AssertionError(f"fit_submesh {world} ranks, rank {r['rank']}: losses "
+                                     f"{sub['losses']} against one card's "
+                                     f"{ref['one_card_losses']}")
+        if not ref["params_compared"] or ref["param_rel"] > SUBMESH_BOUND:
+            raise AssertionError(f"fit_submesh {world} ranks: parameters {ref['param_rel']} "
+                                 f"from one card's")
+        rows.append(dict(ranks=world, losses=ref["losses"], one_card_losses=ref["one_card_losses"],
+                         param_max_rel=ref["param_rel"], groups=ref["groups"],
+                         islands_by_rank=[r["fit_submesh"]["islands"] for r in ranks],
+                         resource_splits=ref["prov"], p2p_transfers=[
+                             r["fit_submesh"]["p2p_transfers"] for r in ranks],
+                         rank_seconds=[r["fit_submesh"]["seconds"] for r in ranks]))
+    emit({"phase": "fit_submesh", "card": smi, "sharing": SHARED, "dtype": "f32, TF32 off",
+          "bound": SUBMESH_BOUND, "runs": rows})
+
+
 # --- observability (A9): the step-health stream, its policies, spans, the
 # roofline, the plan audit; the drift monitor rides the fit_searched job
 
@@ -6089,6 +6581,10 @@ def _phases(smi: str, kernels: list, launches: dict, ptxas: dict):
         (tempfile.TemporaryDirectory, [
             ("resume_ranks", rec("resume_ranks", lambda tmp: phase_resume_ranks(smi, tmp),
                                  2 * RESUME_RANKS_BATCHES * RESUME_RANKS_EPOCHS)),
+            # pipeline parallelism and sub-mesh branches: one rank job per
+            # rank count carries both (no kernel of the table runs there)
+            ("train_pp", lambda tmp: phase_train_pp(smi, tmp)),
+            ("fit_submesh", lambda _: phase_fit_submesh(smi)),
         ]),
         # observability: the step-health stream in the captured windows, the
         # policies, the roofline and the plan audit (the drift monitor and a

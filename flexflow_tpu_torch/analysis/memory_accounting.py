@@ -1,8 +1,8 @@
 """Per-op step memory accounting (trimmed copy of
 flexflow_tpu/analysis/memory_accounting.py: the serving regime's KV-cache
 terms, one op's step residency `estimate_memory`, and the machine-mapping
-DP's leaf predicate `leaf_step_memory_bytes`; the pipeline stash scaling
-waits for A10).
+DP's leaf predicate `leaf_step_memory_bytes` with the 1F1B stash scaling
+of a pipeline region's leaves, `pipeline_scaled_total`).
 
 Training: activations and outputs x2 (the value and its gradient), weights
 x (2 + optimizer state slots), the input layer's stacked window of K
@@ -198,6 +198,7 @@ def leaf_step_memory_bytes(
         get_output_shapes,
         get_weight_shapes,
         is_parallel_op,
+        is_stage_op,
     )
     from flexflow_tpu_torch.op_attrs.ops import InputAttrs, WeightAttrs
     from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import get_piece_shape
@@ -206,15 +207,27 @@ def leaf_step_memory_bytes(
     out_pieces = [get_piece_shape(s) for s in leaf.output_shapes]
     out_bytes = sum(s.size_bytes for s in out_pieces)
     attrs = leaf.op_attrs
+    ctx = getattr(leaf, "pipeline", None)  # pcg.pipeline.PipelineLeafContext
     if isinstance(attrs, InputAttrs):
         return k * out_bytes
     if isinstance(attrs, WeightAttrs):
         return 0
     in_pieces = [get_piece_shape(s) for s in leaf.input_shapes]
+    if is_stage_op(attrs):
+        # a stage boundary stages one microbatch in flight (the source and
+        # the destination piece of piece_bytes/M each); the stash of
+        # in-flight microbatches is charged at the consuming stage's leaves
+        m = max(getattr(attrs, "num_microbatches", 1), 1)
+        total = sum(s.size_bytes for s in in_pieces) + out_bytes
+        return -(-total // m)  # ceil
     if is_parallel_op(attrs):
         if all(leaf.weight_inputs) and leaf.weight_inputs:
             return 0
-        return sum(s.size_bytes for s in in_pieces) + out_bytes
+        staging = sum(s.size_bytes for s in in_pieces) + out_bytes
+        if ctx is not None and serving is None:
+            # a reshard inside a pipeline region moves one microbatch at a time
+            staging = -(-staging // max(ctx.num_microbatches, 1))
+        return staging
     data, weights = split_slot_values(attrs, in_pieces)
     if not weights:
         try:
@@ -233,10 +246,31 @@ def leaf_step_memory_bytes(
             _weight_slot_shape(attrs, leaf.input_shapes),
             serving,
         )
-    return estimate_memory(
+    mem = estimate_memory(
         attrs, data, weights, outs,
         optimizer_state_slots=optimizer_state_slots,
         steps_per_dispatch=k,
         serving=serving,
         kv_cache_bytes=cache_bytes,
-    ).total
+    )
+    if ctx is not None and serving is None:
+        # 1F1B activation stashing: inside a pipeline region an op touches
+        # one microbatch (piece/M) at a time, and stage s keeps at most
+        # min(S-s, M) in-flight microbatch activations stashed for its
+        # backward; gradient terms hold one microbatch in flight (1/M).
+        # Weight-side terms are resident the whole step, unchanged.
+        return pipeline_scaled_total(mem, ctx)
+    return mem.total
+
+
+def pipeline_scaled_total(mem: OpStepMemory, ctx) -> int:
+    """The 1F1B residency scaling of one op's training accounting:
+    activations and outputs x min(S-s, M)/M (the in-flight stash bound),
+    their gradients x 1/M (one microbatch's backward in flight); weights,
+    their gradients, the optimizer state and the window buffers unchanged."""
+    s_total, m = max(ctx.num_stages, 1), max(ctx.num_microbatches, 1)
+    keep = max(min(s_total - ctx.stage, m), 1)
+    acts = mem.activations + mem.outputs
+    grads = mem.activation_grads + mem.output_grads
+    fixed = mem.total - acts - grads
+    return fixed + -(-acts * keep // m) + -(-grads // m)

@@ -1,8 +1,7 @@
 """Static per-device memory analysis of a (PCG, machine mapping) pair
 (trimmed copy of flexflow_tpu/analysis/memory_analysis.py: the liveness
 analysis `analyze_memory`, the serving admission verdict, `verify_memory`
-and `memory_summary_json`; the XLA cross-check is A13's, and the pipeline
-stash scaling A10's: a PCG with stage ops raises).
+and `memory_summary_json`; the XLA cross-check is A13's).
 
 A schedule-aware liveness analysis computes each device's peak timeline for
 one training step (forward ticks 0..N-1 over the topological order,
@@ -122,17 +121,6 @@ def _device_ids_for(pcg, n, machine_spec, mapping) -> List[int]:
         return all_devices
 
 
-def _refuse_stage_ops(pcg) -> None:
-    """Pipeline stages scale residency by the 1F1B stash bound: A10."""
-    from flexflow_tpu_torch.op_attrs.core import is_stage_op
-
-    for n in pcg.nodes:
-        if is_stage_op(pcg.op_attrs(n)):
-            raise NotImplementedError(
-                "the memory analysis of a pipelined PCG (stage ops) is not ported yet (A10)"
-            )
-
-
 def analyze_memory(
     pcg,
     machine_spec=None,
@@ -154,7 +142,13 @@ def analyze_memory(
     )
     from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import get_piece_shape
 
-    _refuse_stage_ops(pcg)
+    from flexflow_tpu_torch.pcg.pipeline import pipeline_contexts
+
+    # pipeline-stage regions: in-region activations charge the 1F1B stash
+    # bound min(S-s, M)/M of their full piece, their gradients 1/M (one
+    # microbatch's backward in flight), the scaling leaf_step_memory_bytes
+    # applies, so the DP's pruner, MEM002 and this timeline cannot drift
+    pipe_ctx = pipeline_contexts(pcg) if serving is None else {}
 
     order = list(pcg.topological_ordering())
     n_ops = len(order)
@@ -194,6 +188,15 @@ def analyze_memory(
         if serving is None:
             tick_labels[bwd_tick[n]] = f"bwd {name}"
         devs = _device_ids_for(pcg, n, machine_spec, mapping)
+        node_ctx = pipe_ctx.get(n)
+        if node_ctx is not None and ndev > 1:
+            # stage placement, as the 1F1B executor's (stage x data) mesh
+            # runs it: stage s's ops (weights, stash, staging) reside only
+            # on the s-th group of ndev/S devices, so each device holds one
+            # stage's parameters instead of every stage's
+            dp = max(ndev // node_ctx.num_stages, 1)
+            lo = min(node_ctx.stage * dp, max(ndev - dp, 0))
+            devs = list(range(lo, lo + dp))
         outs = pcg.outputs_of(n)
         out_piece_bytes = sum(
             get_piece_shape(pcg.tensor_shape(o)).size_bytes for o in outs
@@ -253,8 +256,19 @@ def analyze_memory(
         grad_category = (
             "collective_staging" if is_parallel_op(attrs) else "activation_grads"
         )
+        ctx = pipe_ctx.get(n)
         for o in outs:
             piece = get_piece_shape(pcg.tensor_shape(o)).size_bytes
+            act_piece = grad_piece = piece
+            if ctx is not None:
+                m = max(ctx.num_microbatches, 1)
+                if is_parallel_op(attrs):
+                    # a reshard inside the region stages one microbatch at a time
+                    act_piece = grad_piece = -(-piece // m)
+                else:
+                    keep = max(min(ctx.num_stages - ctx.stage, m), 1)
+                    act_piece = -(-piece * keep // m)
+                    grad_piece = -(-piece // m)
             if serving is not None:
                 # forward-only liveness: producer tick -> last consumer's
                 # forward tick (no backward re-reads, no gradients)
@@ -270,12 +284,12 @@ def analyze_memory(
             # own backward tick)
             last_read = max(consumer_bwd, default=bwd_tick[n])
             charge_interval(
-                devs, out_category, piece, fwd_tick[n], last_read
+                devs, out_category, act_piece, fwd_tick[n], last_read
             )
             # its gradient: first consumer backward -> producer backward
             grad_start = min(consumer_bwd, default=bwd_tick[n])
             charge_interval(
-                devs, grad_category, piece, grad_start, bwd_tick[n]
+                devs, grad_category, grad_piece, grad_start, bwd_tick[n]
             )
 
     per_device: Dict[int, DeviceMemoryTimeline] = {}
@@ -444,11 +458,14 @@ def verify_memory(
     # MEM002: one op's piece residency alone exceeds the capacity — the
     # same leaf accounting the DP pruner uses, so a plan the search would
     # prune at leaf-pricing time is rejected here with the op named
+    from flexflow_tpu_torch.pcg.pipeline import pipeline_contexts
+
+    pipe_ctx = pipeline_contexts(pcg)
     for n in sorted(pcg.nodes):
         attrs = pcg.op_attrs(n)
         try:
             need = leaf_step_memory_bytes(
-                _leaf_key(pcg, n),
+                _leaf_key(pcg, n, pipe_ctx),
                 optimizer_state_slots,
                 steps_per_dispatch,
                 serving,

@@ -34,6 +34,9 @@ op's collective is priced from a past audit's measurement on the same link
 class (`movement_link_class`: `nvlink` or `ib`); a `comm_model`
 (compiler/machine_model.MachineModelCommModel) replaces the bandwidth
 model's movement pricing with a topology's congested makespan.
+
+A pipeline-stage op is priced by `stage_transfer_cost_ms` in both: its M
+point-to-point microbatch hops a direction on the link its view spans.
 """
 
 from __future__ import annotations
@@ -500,6 +503,43 @@ def parallel_op_cost_ms(
     return 0.0
 
 
+def stage_transfer_cost_ms(
+    attrs,
+    input_shapes,
+    machine_spec: MachineSpecification,
+    intra_latency_ms: float,
+    inter_latency_ms: float,
+    machine_view: "MachineView" = None,
+) -> float:
+    """Per-step cost of a pipeline-stage op.
+
+    An interior StagePartition (stage_index >= 1) is the handoff between
+    stages: under 1F1B each of the M microbatches crosses it once forward
+    (its activation) and once backward (its gradient) as a point-to-point
+    transfer between the neighbouring stages' ranks, not a collective, so
+    with no k-way amplification:
+
+        2 * M * (link latency + piece_bytes/M / bandwidth)
+      = 2 * M * latency + 2 * piece_bytes / bandwidth
+
+    The region's entry (stage_index == 0) and the StageMerge are local
+    microbatch slicing and stacking, priced 0. The link is the one the op's
+    view spans, as `link_for_views` picks it: the spec's intra-node rate
+    (NVLink on an H100 machine) inside a node, its inter-node rate
+    (InfiniBand) across nodes."""
+    from flexflow_tpu_torch.op_attrs.ops import StagePartitionAttrs
+    from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import get_piece_shape
+
+    if not isinstance(attrs, StagePartitionAttrs) or attrs.stage_index < 1 or not input_shapes:
+        return 0.0
+    m = max(attrs.num_microbatches, 1)
+    piece_bytes = get_piece_shape(input_shapes[0]).size_bytes
+    crosses_nodes = machine_view is not None and _views_span_nodes(machine_view)
+    bw_gbps, latency_ms = link_for_views(
+        machine_spec, intra_latency_ms, inter_latency_ms, crosses_nodes)
+    return 2 * m * latency_ms + 2 * piece_bytes / (bw_gbps * 1e6)
+
+
 def seq_parallel_attention_comm_ms(
     attrs,
     input_shapes,
@@ -601,8 +641,14 @@ class GPUCostEstimator(CostEstimator):
             machine_spec, intra_latency_ms, inter_latency_ms)
 
     def estimate_op_cost(self, key: OpCostEstimateKey) -> float:
-        from flexflow_tpu_torch.op_attrs.core import is_parallel_op
+        from flexflow_tpu_torch.op_attrs.core import is_parallel_op, is_stage_op
 
+        if is_stage_op(key.op_attrs):
+            # a pipeline-stage boundary: M point-to-point microbatch hops a
+            # direction, never a timed kernel (the identity locally)
+            return stage_transfer_cost_ms(
+                key.op_attrs, list(key.input_shapes), self.machine_spec,
+                self.intra_latency_ms, self.inter_latency_ms, machine_view=key.machine_view)
         if is_parallel_op(key.op_attrs):
             hit = _stored_edge_ms(self.movement_store, key, self.machine_spec)
             if hit is not None:
@@ -699,8 +745,15 @@ class AnalyticGPUCostEstimator(CostEstimator):
             get_output_shapes,
             get_weight_shapes,
             is_parallel_op,
+            is_stage_op,
         )
 
+        if is_stage_op(key.op_attrs):
+            # a pipeline-stage boundary: the analytic and the measured model
+            # agree by construction (both price the M point-to-point hops)
+            return stage_transfer_cost_ms(
+                key.op_attrs, list(key.input_shapes), self.machine_spec,
+                self.intra_latency_ms, self.inter_latency_ms, machine_view=key.machine_view)
         if is_parallel_op(key.op_attrs):
             hit = _stored_edge_ms(self.movement_store, key, self.machine_spec)
             if hit is not None:

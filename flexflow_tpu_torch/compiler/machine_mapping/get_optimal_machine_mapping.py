@@ -400,6 +400,26 @@ def _optimal_parallel(
     return result
 
 
+def leaf_pipeline_factor(leaf: UnmappedOpCostEstimateKey) -> float:
+    """The pipeline-stage axis's leaf cost multiplier: compute leaves inside
+    a StagePartition/StageMerge region cost (M+S-1)/(M*S) x their
+    full-batch price — 1/S stage concurrency stretched by the 1F1B bubble
+    1/(1-b), b = (S-1)/(S-1+M). Stage boundary ops and reshard wrappers
+    keep factor 1.0 (stage_transfer_cost_ms already prices all M
+    point-to-point hops). The two-level DP over nodes solves each choice
+    with this DP, so it applies the same factor."""
+    ctx = leaf.pipeline
+    if ctx is None:
+        return 1.0
+    from flexflow_tpu_torch.op_attrs.core import is_parallel_op, is_stage_op
+
+    if is_parallel_op(leaf.op_attrs) or is_stage_op(leaf.op_attrs):
+        return 1.0
+    from flexflow_tpu_torch.pcg.pipeline import pipeline_leaf_factor
+
+    return pipeline_leaf_factor(ctx.num_stages, ctx.num_microbatches)
+
+
 def leaf_memory_infeasible(
     context: MachineMappingContext, leaf: UnmappedOpCostEstimateKey
 ) -> bool:
@@ -437,6 +457,7 @@ def _optimal_leaf(
         candidates = context.allowed_machine_views(leaf, resources)
 
     result: MachineMappingResult = INFEASIBLE
+    pipe = leaf_pipeline_factor(leaf)
     if context.slice_aware:
         from flexflow_tpu_torch.compiler.machine_mapping.slice_axes import (
             view_is_slice_legal,
@@ -449,5 +470,6 @@ def _optimal_leaf(
             cost = context.cost_estimator.estimate_op_cost(
                 map_unmapped_op_cost_estimate_key(leaf, view)
             )
-            result = minimize_runtime(result, make_singleton_result(cost, view))
+            # in-region compute leaves carry the 1F1B bubble-aware factor
+            result = minimize_runtime(result, make_singleton_result(cost * pipe, view))
     return result

@@ -29,7 +29,8 @@ from typing import Dict, List, Optional, Tuple
 
 # template classes: "gather" covers all-gather / broadcast-like data
 # movement, "reduce" covers all-reduce / reduce-scatter; "p2p" is the
-# pipeline inter-stage microbatch handoff (A10).
+# pipeline's handoff between stages (the 1F1B executor's point-to-point
+# transfers, M hops a direction a step).
 GATHER = "gather"
 REDUCE = "reduce"
 P2P = "p2p"
@@ -42,7 +43,9 @@ class MovementEdgePrediction:
 
     node_idx: int
     name: str
-    kind: str  # CombineAttrs / RepartitionAttrs / ReplicateAttrs / ReductionAttrs
+    # CombineAttrs / RepartitionAttrs / ReplicateAttrs / ReductionAttrs, or
+    # a stage op (StagePartitionAttrs / StageMergeAttrs)
+    kind: str
     degree: int
     bytes_global: int  # global reduced bytes of the moved tensor
     predicted_ms: Optional[float]
@@ -161,7 +164,11 @@ def export_movement_predictions(
     """Walk a solved plan's movement edges and export the DP's charged
     predictions (see the module docstring). `estimator` is the one the
     search priced with, so `predicted_ms` is the DP's own movement term.
-    A pipeline-stage op raises: the stage ops are A10's."""
+    A pipeline-stage op is an edge of its own kind: an interior
+    StagePartition carries its M point-to-point hops a direction (one
+    "p2p" template of twice the activation's bytes, forward and backward);
+    the region's entry and its StageMerge are local slicing, priced 0 with
+    no template."""
     from flexflow_tpu_torch.compiler.machine_mapping.cost_estimator import (
         movement_link_class,
     )
@@ -171,16 +178,39 @@ def export_movement_predictions(
         map_unmapped_op_cost_estimate_key,
     )
     from flexflow_tpu_torch.op_attrs.core import is_parallel_op, is_stage_op
+    from flexflow_tpu_torch.op_attrs.ops import StagePartitionAttrs
     from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import get_reduced_shape
+    from flexflow_tpu_torch.pcg.pipeline import pipeline_contexts
 
     if estimator is None:
         raise ValueError("export_movement_predictions needs the estimator the search priced with")
     fused_edges = fused_edges or {}
+    pipeline_ctx = pipeline_contexts(pcg)
     out: List[MovementEdgePrediction] = []
     for n in pcg.topological_ordering():
         attrs = pcg.op_attrs(n)
         if is_stage_op(attrs):
-            raise NotImplementedError("pipeline-stage edges are not ported yet (A10)")
+            ins = pcg.inputs_of(n)
+            t_bytes = get_reduced_shape(pcg.tensor_shape(ins[0])).size_bytes if ins else 0
+            interior = isinstance(attrs, StagePartitionAttrs) and attrs.stage_index >= 1
+            view = (mapping or {}).get(n)
+            key = map_unmapped_op_cost_estimate_key(_leaf_key(pcg, n, pipeline_ctx), view)
+            out.append(
+                MovementEdgePrediction(
+                    node_idx=n.idx,
+                    name=pcg.layer_attrs(n).name or f"n{n.idx}",
+                    kind=type(attrs).__name__,
+                    degree=int(attrs.num_microbatches),
+                    bytes_global=t_bytes,
+                    predicted_ms=float(estimator.estimate_op_cost(key)) if interior else 0.0,
+                    predicted_bytes=2 * t_bytes if interior else 0,
+                    templates=((P2P, 2 * t_bytes),) if interior else (),
+                    input_node_idx=ins[0].node.idx if ins else None,
+                    link_class=movement_link_class(
+                        attrs, [pcg.tensor_shape(v) for v in ins], view, estimator.machine_spec),
+                )
+            )
+            continue
         if not is_parallel_op(attrs):
             continue
         ins = pcg.inputs_of(n)
@@ -190,7 +220,7 @@ def export_movement_predictions(
         t_bytes = get_reduced_shape(in_shapes[0]).size_bytes if ins else 0
         weight_resident = bool(ins) and all(_from_weight(pcg, v) for v in ins)
         view = (mapping or {}).get(n)
-        key = map_unmapped_op_cost_estimate_key(_leaf_key(pcg, n), view)
+        key = map_unmapped_op_cost_estimate_key(_leaf_key(pcg, n, pipeline_ctx), view)
         templates, predicted_bytes = _templates_for(kind, t_bytes, weight_resident)
         out.append(
             MovementEdgePrediction(

@@ -51,9 +51,12 @@ class UnmappedOpCostEstimateKey:
     # per step, so Replicate/Repartition of weights price differently from
     # activation resharding.
     weight_inputs: Tuple[bool, ...] = ()
-    # pipeline-stage annotation of ops inside a stage region (A10): always
-    # None in the port, kept so leaves hash as the JAX package's do
-    pipeline: Optional[object] = None
+    # pipeline-stage annotation: set for ops inside a StagePartition /
+    # StageMerge region (pcg.pipeline.pipeline_contexts). The DP multiplies
+    # in-region compute leaves by pipeline_leaf_factor(S, M) = (M+S-1)/(M*S)
+    # and the memory pruner charges the 1F1B stash bound min(S-s, M) instead
+    # of the full batch.
+    pipeline: Optional[object] = None  # pcg.pipeline.PipelineLeafContext
 
 
 @memoized_hash
@@ -260,13 +263,22 @@ def _from_weight(pcg: ParallelComputationGraph, v) -> bool:
         v = ins[0]
 
 
-def _leaf_key(pcg: ParallelComputationGraph, n: Node) -> UnmappedOpCostEstimateKey:
+def _leaf_key(pcg: ParallelComputationGraph, n: Node,
+              pipeline_ctx: Optional[Dict] = None) -> UnmappedOpCostEstimateKey:
+    """`pipeline_ctx`: the node -> PipelineLeafContext map of this pcg
+    (pcg.pipeline.pipeline_contexts). Callers building many leaves pass it
+    precomputed; None recomputes it per call."""
+    if pipeline_ctx is None:
+        from flexflow_tpu_torch.pcg.pipeline import pipeline_contexts
+
+        pipeline_ctx = pipeline_contexts(pcg)
     ins = pcg.inputs_of(n)
     return UnmappedOpCostEstimateKey(
         pcg.op_attrs(n),
         tuple(pcg.tensor_shape(v) for v in ins),
         tuple(pcg.tensor_shape(o) for o in pcg.outputs_of(n)),
         tuple(_from_weight(pcg, v) for v in ins),
+        pipeline_ctx.get(n),
     )
 
 
@@ -424,6 +436,9 @@ def get_machine_mapping_problem_tree(
     applies only to SP-decomposable graphs; reference
     get_pcg_series_parallel_decomposition).
     """
+    from flexflow_tpu_torch.pcg.pipeline import pipeline_contexts
+
+    pipeline_ctx = pipeline_contexts(pcg)
     tr = get_transitive_reduction(pcg.digraph())
     sp = get_series_parallel_decomposition(tr)
     if sp is None:
@@ -536,7 +551,7 @@ def get_machine_mapping_problem_tree(
         t: BinarySPDecompositionTree, prefix: BinaryTreePath
     ) -> MachineMappingProblemTree:
         if isinstance(t, Node):
-            return intern(_leaf_key(pcg, t))
+            return intern(_leaf_key(pcg, t, pipeline_ctx))
         left = build(t.left, prefix + ("L",))
         right = build(t.right, prefix + ("R",))
         if isinstance(t, BinaryParallelSplit):

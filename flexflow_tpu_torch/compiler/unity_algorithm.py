@@ -1,8 +1,8 @@
 """The Unity joint-optimization loop: best-first search over substitution
 rewrites, each candidate costed by its optimal machine mapping (copy of
 flexflow_tpu/compiler/unity_algorithm.py, with the memory-budgeted
-evaluation, the overlap pricing and the two-level DP over nodes; its
-pipeline seeds wait for A10).
+evaluation, the overlap pricing, the two-level DP over nodes and the
+pipeline seeds).
 
 Reference: lib/compiler/src/compiler/unity_algorithm.cc — the reference left
 this a NOT_IMPLEMENTED stub with the algorithm described in comments
@@ -183,8 +183,16 @@ class OptimizerConfig:
     threshold: float = 0.0
     max_num_ops: int = 512
     seed_frontier: bool = True
-    # Pipeline-stage seeds (pp{S}m{M} stage-partitioned candidates): A10
+    # Pipeline-stage seeds: additionally seed the frontier with pp{S}m{M}
+    # stage-partitioned candidates (insert_pipeline_stages with in-stage
+    # data parallelism over the remaining devices). Opt-in
+    # (FFConfig.pipeline) so flat searches keep their winners; under a
+    # binding memory budget these are the candidates whose 1F1B activation
+    # stashing survives when every flat plan is infeasible.
     pipeline_seeds: bool = False
+    # microbatch count for the pipeline seeds; 0 = auto (the first of
+    # {2S, S, 8, 4, 2} that divides the per-shard batch)
+    pipeline_microbatches: int = 0
     # Collapse layer-symmetric candidates: two candidates whose node
     # MULTISETS of (attrs, input shapes, output shapes) match are priced
     # identically by the cost model's per-leaf + per-shape-movement terms,
@@ -192,12 +200,6 @@ class OptimizerConfig:
     # layer 3 vs layer 7 of a stack of identical layers). On the 12-layer
     # flagship this cuts candidate evaluations ~9x with the same winner.
     symmetry_dedup: bool = True
-
-    def __post_init__(self) -> None:
-        if self.pipeline_seeds:
-            raise NotImplementedError(
-                "pipeline seeds wait for the pipeline ops (ROADMAP A10)"
-            )
 
 
 @dataclass
@@ -674,6 +676,53 @@ def enumerate_seeds(
             yield f"dp{dp}xep{ep}", seed
 
 
+def pipeline_seed(
+    pcg: ParallelComputationGraph,
+    num_stages: int,
+    num_microbatches: int,
+    inner_dp: int = 1,
+    degree_cap: Optional[int] = None,
+) -> ParallelComputationGraph:
+    """Stage-partitioned strategy template: data parallelism of degree
+    `inner_dp` inside each stage (applied first, so its reshard seams
+    cancel and no phantom movement straddles the stage boundaries), then
+    the series trunk cut into `num_stages` balanced stages with
+    `num_microbatches` microbatches."""
+    from flexflow_tpu_torch.pcg.pipeline import insert_pipeline_stages
+
+    cur = pcg
+    if inner_dp > 1:
+        cur = data_parallel_seed(cur, inner_dp, degree_cap=degree_cap)
+    return insert_pipeline_stages(cur, num_stages, num_microbatches)
+
+
+def enumerate_pipeline_seeds(
+    pcg: ParallelComputationGraph,
+    num_devices: int,
+    microbatches: int = 0,
+    degree_cap: Optional[int] = None,
+):
+    """Yield (label, seed) pipeline candidates: every stage count S >= 2
+    dividing the machine, in-stage dp over the remaining devices, and the
+    configured (or first fitting) microbatch count. Seeds that fail to cut
+    (unbalanced trunk, indivisible batch, no series cut point) are skipped,
+    as enumerate_seeds skips its failures."""
+    for S in range(2, num_devices + 1):
+        if num_devices % S:
+            continue
+        dp = num_devices // S
+        m_candidates = [microbatches] if microbatches and microbatches > 0 else [2 * S, S, 8, 4, 2]
+        for M in m_candidates:
+            if M < 1:
+                continue
+            try:
+                seed = pipeline_seed(pcg, S, M, inner_dp=dp, degree_cap=degree_cap)
+            except (AssertionError, KeyError, ValueError):
+                continue
+            yield f"pp{S}m{M}" + (f"xdp{dp}" if dp > 1 else ""), seed
+            break  # one microbatch count per stage count
+
+
 def graph_optimize(
     pcg: ParallelComputationGraph,
     context: MachineMappingContext,
@@ -778,6 +827,12 @@ def _graph_optimize(
     if config.seed_frontier and degree_cap > 1 and config.budget > 0:
         with search_phase("seed_build"):
             seed_candidates = list(enumerate_seeds(pcg, degree_cap))
+            if config.pipeline_seeds:
+                # stage-partitioned candidates, priced with the bubble-aware
+                # stage axis the DP carries; under a binding memory budget
+                # these survive when flat plans cannot
+                seed_candidates.extend(enumerate_pipeline_seeds(
+                    pcg, degree_cap, microbatches=config.pipeline_microbatches))
         for label, seed_pcg in seed_candidates:
             if len(seed_pcg) > config.max_num_ops:
                 continue

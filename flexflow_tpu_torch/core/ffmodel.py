@@ -74,8 +74,17 @@ naming it, at the call: the layer methods of unported ops (A2), a searched
 compile's memory budget (FFConfig.hbm_gb: the capacity detection,
 compile-time verification and provenance around the budgeted search, A13;
 the budgeted search itself, compiler.evaluate_pcg under a
-memory_budget_bytes, is ported), recompiles (A8 part 2), pipelines and
-sub-mesh branches (A10).
+memory_budget_bytes, is ported) and recompiles (A8 part 2).
+
+Pipelines: FFConfig.pipeline seeds a searched
+compile with stage-partitioned candidates and adds the stage rules; a
+stage-partitioned winner (or a forced `pp{S}m{M}[xdp{D}]` seed) trains
+through the 1F1B executor over a (stage x data) mesh of the ranks
+(parallel/pipeline.py), or, where its structure cannot run there, through
+the flat executor, with the reason printed and recorded in
+search_provenance["pipeline"]. Sub-mesh branches: FFConfig.submesh_branches
+over several ranks trains a Split-forked graph with each branch on its own
+group of ranks (parallel/submesh.py).
 """
 from __future__ import annotations
 
@@ -488,6 +497,18 @@ class FFModel:
         n = handle.node
         return n if isinstance(self.cg.op_attrs(n), WeightAttrs) else None
 
+    def _plan_weight_node(self, n: Node) -> Node:
+        """The PCG weight node of CG weight node n in a pipelined plan,
+        found by its layer name, which the rewrites keep."""
+        inst = self.instance
+        name = self.cg.layer_attrs(n).name
+        hits = [w for w in inst.pcg.topological_ordering()
+                if isinstance(inst.pcg.op_attrs(w), WeightAttrs)
+                and inst.pcg.layer_attrs(w).name == name]
+        if name is None or len(hits) != 1:
+            raise KeyError(f"weight {name!r} has no unique counterpart in the plan")
+        return hits[0]
+
     def _searched_weight(self, n: Node):
         """(PCG parameter key, sharding) of CG weight node n in a searched
         plan: found by its layer name, which the rewrites keep."""
@@ -502,6 +523,11 @@ class FFModel:
 
     def _read_tensor(self, handle: DataflowOutput) -> np.ndarray:
         n = self._weight_node_of(handle)
+        if n is not None and self.params is not None and self._pipelined():
+            # a collective: the stages' parameters gathered, found by name
+            inst = self.instance
+            full = inst.pcg_params(inst.stacked_state(self.params)["params"])
+            return full[param_key(self._plan_weight_node(n))]
         if n is not None and self.params is not None and self._searched():
             # a collective: every rank reads, in the same order
             from flexflow_tpu_torch.parallel import gather_block
@@ -520,6 +546,15 @@ class FFModel:
         n = self._weight_node_of(handle)
         if n is None or self.params is None:
             raise KeyError("set_tensor only supported on weights after compile()")
+        if self._pipelined():
+            # the stage holding the weight writes its tensor
+            inst = self.instance
+            node = self._plan_weight_node(n)
+            key = next((k for k, w in inst.stage_weights.items() if w == node), None)
+            if key is not None:
+                with torch.no_grad():
+                    self.params[key].copy_(torch.as_tensor(value))
+            return
         if self._searched():
             from flexflow_tpu_torch.parallel import local_block
 
@@ -574,7 +609,29 @@ class FFModel:
         self.invalidate_graphs()
         self.search_provenance = None
         collect, guard = self._step_stats_flags()
-        if ndev > 1 and cfg.search_budget > 0 and not cfg.only_data_parallel:
+        if ndev > 1 and cfg.submesh_branches:
+            # each branch island of a Split fork on its own group of ranks,
+            # rows moved explicitly at the fork and the join
+            from flexflow_tpu_torch.parallel.submesh import (
+                SubmeshBranchInstance,
+                find_branch_partition,
+            )
+
+            part = find_branch_partition(self.cg)
+            if part is None:
+                raise ValueError(
+                    "submesh_branches=True but the graph has no Split-fork branch partition")
+            self.instance = SubmeshBranchInstance(
+                self.cg, logit, self.loss_attrs, self.optimizer_attrs, partition=part,
+                device=self.device, metrics=self.metrics)
+            # the machine-mapping DP's disjoint-resource pricing is legal at
+            # run time for this shape: price the graph with resource splits
+            # and record it
+            try:
+                self.search_provenance = self._price_resource_splits(ndev)
+            except Exception:
+                self.search_provenance = None
+        elif ndev > 1 and cfg.search_budget > 0 and not cfg.only_data_parallel:
             self.instance = self._compile_searched(logit, ndev, compute_dtype)
         elif ndev > 1:
             self.instance = DataParallelTrainingInstance(
@@ -662,18 +719,14 @@ class FFModel:
         from flexflow_tpu_torch.substitutions.rules import generate_parallelization_rules
 
         cfg = self.config
-        unported = (
-            (cfg.hbm_gb > 0, "hbm_gb (a compile's memory budget: its capacity detection and "
-                           "compile-time verification)", "A13"),
-            (bool(cfg.pipeline), "pipeline", "A10"),
-            (cfg.force_strategy_seed.startswith("pp"), "force_strategy_seed of a pipeline",
-             "A10"),
-        )
-        for on, what, slice_name in unported:
-            if on:
-                raise NotImplementedError(
-                    f"FFConfig.{what} in a searched compile is not ported yet ({slice_name})")
+        if cfg.hbm_gb > 0:
+            raise NotImplementedError(
+                "FFConfig.hbm_gb (a compile's memory budget: its capacity detection and "
+                "compile-time verification) in a searched compile is not ported yet (A13)")
         overlap_on = overlap_lowering_active(cfg.overlap)
+        # pipeline parallelism: stage-partitioned seeds and rules in the
+        # search, and a stage-partitioned winner on the 1F1B executor
+        pipeline_on = bool(cfg.pipeline)
         # FFConfig.multislice: node legality masks every candidate view, and
         # a spec of several nodes searches through the two-level DP
         multislice_on = bool(cfg.multislice)
@@ -772,7 +825,8 @@ class FFModel:
             degrees = [d for d in range(2, spec.num_devices + 1) if spec.num_devices % d == 0]
             rules = generate_parallelization_rules(
                 degrees, enable_parameter_parallel=cfg.enable_parameter_parallel,
-                enable_attribute_parallel=cfg.enable_attribute_parallel)
+                enable_attribute_parallel=cfg.enable_attribute_parallel,
+                enable_pipeline=pipeline_on, pipeline_microbatches=cfg.pipeline_microbatches)
             if cfg.perform_fusion:
                 from flexflow_tpu_torch.substitutions.fusion_rules import generate_fusion_rules
 
@@ -807,7 +861,9 @@ class FFModel:
                     budget=max(cfg.search_budget, 0) * 10, rng_seed=cfg.seed))
             else:
                 result = graph_optimize(pcg0, ctx, spec, rules, OptimizerConfig(
-                    alpha=cfg.search_alpha, budget=cfg.search_budget))
+                    alpha=cfg.search_alpha, budget=cfg.search_budget,
+                    pipeline_seeds=pipeline_on,
+                    pipeline_microbatches=cfg.pipeline_microbatches))
             telem = result.telemetry or {}
             self.search_provenance = {
                 "explored": result.explored,
@@ -845,7 +901,8 @@ class FFModel:
             if (cost_store is not None and not cfg.force_strategy_seed
                     and cfg.search_algorithm != "mcmc"):
                 self._drift_research = _make_drift_research(
-                    cost_store, build_search_ctx, pcg0, spec, rules, cfg)
+                    cost_store, build_search_ctx, pcg0, spec, rules, cfg,
+                    pipeline_seeds=pipeline_on, pipeline_microbatches=cfg.pipeline_microbatches)
             return result.pcg, result.machine_mapping, result.runtime
 
         # rank 0 plans; every rank lowers the plan it sends
@@ -854,10 +911,18 @@ class FFModel:
             self.search_provenance if dist.get_rank() == 0 else None)
         if cfg.export_strategy_file and dist.get_rank() == 0:
             save_strategy(cfg.export_strategy_file, pcg, mapping, runtime)
-        mesh = MachineMesh.from_spec(exec_spec)
         collect, guard = self._step_stats_flags()
+        searched_logit = self._find_searched_logit(pcg, logit)
+        if pipeline_on:
+            inst = self._compile_pipelined(pcg, searched_logit, compute_dtype)
+            if inst is not None:
+                if cfg.plan_audit:
+                    self._record_plan_audit(inst, mapping, priced.get("estimator"),
+                                            movement_store=movement_store, cost_store=cost_store)
+                return inst
+        mesh = MachineMesh.from_spec(exec_spec)
         inst = DistributedTrainingInstance(
-            pcg, self._find_searched_logit(pcg, logit), self.loss_attrs, self.optimizer_attrs,
+            pcg, searched_logit, self.loss_attrs, self.optimizer_attrs,
             mesh, mapping=mapping, compute_dtype=compute_dtype, device=self.device,
             metrics=self.metrics, overlap=cfg.overlap, collect_step_stats=collect,
             guard_nonfinite_updates=guard)
@@ -870,6 +935,74 @@ class FFModel:
             print(f"[flexflow_tpu_torch] the plan runs {len(whole)} node(s) on whole values"
                   + "".join(f"\n  {why}" for why in whole.values()), flush=True)
         return inst
+
+    def _compile_pipelined(self, pcg, logit: DataflowOutput, compute_dtype):
+        """The searched (or forced) plan on the 1F1B executor where it is
+        stage-partitioned and its structure runs there; None (the flat
+        executor, which is correct on it: stage ops are the identity) where
+        it is flat or the executor refuses it, with the reason printed and
+        recorded in search_provenance["pipeline"]."""
+        from flexflow_tpu_torch.parallel.pipeline import (
+            PipelinedTrainingInstance,
+            PipelineUnsupported,
+        )
+        from flexflow_tpu_torch.pcg.pipeline import analyze_pipeline
+
+        if analyze_pipeline(pcg) is None:
+            return None
+        collect, guard = self._step_stats_flags()
+        try:
+            inst = PipelinedTrainingInstance(
+                pcg, logit, self.loss_attrs, self.optimizer_attrs, compute_dtype=compute_dtype,
+                device=self.device, metrics=self.metrics, collect_step_stats=collect,
+                guard_nonfinite_updates=guard)
+        except PipelineUnsupported as e:
+            if dist.get_rank() == 0:
+                print(f"[flexflow_tpu_torch] pipelined winner falls back to the flat executor: "
+                      f"{e}", flush=True)
+            if self.search_provenance is not None:
+                self.search_provenance["pipeline"] = {"executor": "flat-fallback",
+                                                      "reason": str(e)[:200]}
+            return None
+        if self.search_provenance is not None:
+            self.search_provenance["pipeline"] = {
+                "num_stages": inst.structure.num_stages,
+                "num_microbatches": inst.structure.num_microbatches,
+                "mesh": dict(inst.mesh_shape),
+                "executor": "1f1b",
+            }
+        return inst
+
+    def _price_resource_splits(self, ndev: int) -> dict:
+        """Price the model's machine mapping with disjoint-resource splits
+        enabled (the JAX package's _price_resource_splits): legal here
+        because the sub-mesh runtime this model compiles to runs such
+        placements. Returns the provenance recorded on search_provenance."""
+        from flexflow_tpu_torch.compiler import (
+            AnalyticGPUCostEstimator,
+            MachineMappingCache,
+            MachineMappingContext,
+            evaluate_pcg,
+            make_default_allowed_machine_views,
+        )
+        from flexflow_tpu_torch.pcg.machine_view import MachineSpecification
+        from flexflow_tpu_torch.pcg.parallel_computation_graph import pcg_from_computation_graph
+
+        nodes = max(self.config.num_nodes, 1)
+        spec = MachineSpecification(nodes, 1, max(ndev // nodes, 1), 25.0, 400.0)
+        # the analytic rates a searched compile prices with on this device
+        rates = (5e10, 10.0) if self.device.type == "cpu" else (989e12, 3350.0)
+        pcg = pcg_from_computation_graph(self.cg)
+        runtimes = {}
+        for splits in (True, False):
+            # a cache is valid for one context only (the flag changes results)
+            ctx = MachineMappingContext(AnalyticGPUCostEstimator(spec, *rates),
+                                        make_default_allowed_machine_views(),
+                                        overlap_fraction=0.5, allow_resource_splits=splits)
+            r = evaluate_pcg(pcg, ctx, spec, MachineMappingCache())
+            runtimes[splits] = None if r is None else r.runtime
+        return {"resource_splits_priced": True, "estimated_ms": runtimes[True],
+                "full_mesh_estimated_ms": runtimes[False]}
 
     def _record_plan_audit(self, inst, mapping, estimator, movement_store=None,
                            cost_store=None) -> None:
@@ -902,12 +1035,19 @@ class FFModel:
                 node = e.get("src_node") if e.get("kind") == "ag_matmul" else e.get("dst_node")
                 if node is not None:
                     overlap_predictions[node] = e.get("overlapped_exposed_ms")
+            # the 1F1B executor's stage transfers are no reshard of a
+            # sharding: its ops are audited, its edges priced, none timed
+            from flexflow_tpu_torch.parallel import DistributedTrainingInstance
+
+            flat = isinstance(inst, DistributedTrainingInstance)
             try:
                 audit = audit_plan(
                     inst.pcg, mapping or {}, estimator if rank0 else None,
-                    machine_mesh=inst.machine_mesh, shardings=inst.shardings,
+                    machine_mesh=inst.machine_mesh if flat else None,
+                    shardings=inst.shardings if flat else None,
                     optimizer_state_slots=slots,
-                    fused_edges={n.idx: kind for n, kind in inst.fused_edges.items()},
+                    fused_edges=({n.idx: kind for n, kind in inst.fused_edges.items()}
+                                 if flat else {}),
                     overlap_predictions=overlap_predictions,
                     movement_store=(movement_store or cost_store) if rank0 else None,
                     cost_store=cost_store if rank0 else None,
@@ -1017,8 +1157,11 @@ class FFModel:
             raise ValueError(f"checkpoint_backend {cfg.checkpoint_backend!r} not in ('', 'npz')")
         if cfg.watchdog_factor < 0:
             raise ValueError(f"watchdog_factor must be >= 0, got {cfg.watchdog_factor}")
-        if cfg.submesh_branches:
-            raise NotImplementedError("FFConfig.submesh_branches is not ported yet (A10)")
+        if cfg.submesh_branches and self._step_stats_flags()[0]:
+            # the sub-mesh trainer computes no step statistics; dropping the
+            # health coverage asked for would be worse than refusing
+            raise ValueError("metrics_dir/health_policy are not supported with submesh_branches "
+                             "(its islands compute no step statistics)")
         if cfg.perform_fusion:
             print("[flexflow_tpu_torch] perform_fusion: the fusion rules extend the Unity "
                   "search, which a single-device compile does not run")
@@ -1291,14 +1434,18 @@ class FFModel:
         from flexflow_tpu_torch.runtime.distributed import broadcast_json
 
         inst = self.instance
-        rows, label_rows = inst.feed_blocks()
+        # a pipelined plan's ranks are fed the whole batch
+        rows, label_rows = inst.feed_blocks() if hasattr(inst, "feed_blocks") else ({}, None)
         mine = ({k: (rows.get(k), _to_numpy(torch.as_tensor(v))) for k, v in (batch or {}).items()},
                 None if label is None else (label_rows, _to_numpy(torch.as_tensor(label))))
         parts = [None] * dist.get_world_size()
         dist.all_gather_object(parts, mine)
-        searched = self._searched()
-        params = (pcg_params_to_numpy(inst.pcg, inst.shardings, inst.machine_mesh, self.params)
-                  if searched else None)
+        searched = self._searched() or self._pipelined()
+        params = None
+        if self._pipelined():
+            params = inst.pcg_params(inst.stacked_state(self.params)["params"])
+        elif searched:
+            params = pcg_params_to_numpy(inst.pcg, inst.shardings, inst.machine_mesh, self.params)
         doc = None
         if dist.get_rank() == 0:
             try:
@@ -1652,11 +1799,23 @@ class FFModel:
 
         return isinstance(self.instance, DistributedTrainingInstance)
 
+    def _pipelined(self) -> bool:
+        """Whether the compile lowered a pipelined plan (each rank holding
+        its stage's parameters)."""
+        from flexflow_tpu_torch.parallel.pipeline import PipelinedTrainingInstance
+
+        return isinstance(self.instance, PipelinedTrainingInstance)
+
+    def _submesh(self) -> bool:
+        from flexflow_tpu_torch.parallel.submesh import SubmeshBranchInstance
+
+        return isinstance(self.instance, SubmeshBranchInstance)
+
     def _ensure_backing(self) -> LocalTrainingBacking:
-        if self._searched():
+        if self._searched() or self._pipelined() or self._submesh():
             raise NotImplementedError(
                 "the stepped forward/backward/update runs the whole graph on one device; a "
-                "searched plan's ranks hold pieces of it (A7 item 4)")
+                "plan's ranks hold pieces of it (A7 item 4)")
         if self._backing is None:
             self._backing = LocalTrainingBacking(
                 self.cg, profiling=self.config.profiling,
@@ -1717,7 +1876,8 @@ class FFModel:
 
     def _grouped(self) -> bool:
         """Whether the compile spans several ranks (one process each)."""
-        return isinstance(self.instance, DataParallelTrainingInstance) or self._searched()
+        return (isinstance(self.instance, DataParallelTrainingInstance) or self._searched()
+                or self._pipelined() or self._submesh())
 
     def _state_template(self) -> dict:
         """The tree of this model's state tensors (a searched plan's leaves
@@ -1733,7 +1893,7 @@ class FFModel:
         """What a restore checks a checkpoint's key paths and dtypes
         against: the model's tree; None for a searched plan, whose
         checkpoints come keyed either way (_assign_state checks them)."""
-        return None if self._searched() else self._state_template()
+        return None if self._searched() or self._pipelined() else self._state_template()
 
     def _plan_to_model_keys(self) -> Optional[Dict[str, str]]:
         """A searched plan's weight keys -> the model graph's, matched by
@@ -1762,6 +1922,9 @@ class FFModel:
         weights, so that a single-device FFModel of either package restores
         them (by the plan's own keys, as the JAX package keys a searched
         model's, where a weight has no unique name)."""
+        if self._pipelined():
+            # the JAX package's stacked layout: [S, ...] under the template's keys
+            return self.instance.stacked_state(self.params, self.opt_state)
         if not self._searched():
             return self._state_template()
         from flexflow_tpu_torch.interop import pcg_opt_state_to_numpy, pcg_params_to_numpy
@@ -1782,6 +1945,10 @@ class FFModel:
         captured windows keep referring to the same tensors."""
         from flexflow_tpu_torch.runtime.checkpoint import _flatten
 
+        if self._pipelined():
+            # this stage's slice of the stacked state
+            self.instance.load_stacked_state(self.params, self.opt_state, params, opt_state)
+            return
         if self._searched():
             from flexflow_tpu_torch.interop import pcg_opt_state_from_numpy, pcg_params_from_numpy
 
@@ -1871,9 +2038,12 @@ class FFModel:
 
 def _forced_seed_result(pcg0, ctx, spec, seed_name: str):
     """The named strategy template, priced as is (FFConfig.
-    force_strategy_seed): "serial" or a label of enumerate_seeds."""
+    force_strategy_seed): "serial", a label of enumerate_seeds, or a
+    pipeline template pp{S}m{M}[xdp{D}] (pipeline_seed)."""
+    import re
+
     from flexflow_tpu_torch.compiler import MachineMappingCache, evaluate_pcg
-    from flexflow_tpu_torch.compiler.unity_algorithm import enumerate_seeds
+    from flexflow_tpu_torch.compiler.unity_algorithm import enumerate_seeds, pipeline_seed
 
     cache = MachineMappingCache()
     serial = evaluate_pcg(pcg0, ctx, spec, cache)
@@ -1892,6 +2062,16 @@ def _forced_seed_result(pcg0, ctx, spec, seed_name: str):
         result.serial_runtime = serial.runtime if serial else float("nan")
         result.seed_runtimes = {label: result.runtime}
         return result
+    m = re.fullmatch(r"pp(\d+)m(\d+)(?:xdp(\d+))?", seed_name)
+    if m:
+        seed_pcg = pipeline_seed(pcg0, int(m.group(1)), int(m.group(2)),
+                                 inner_dp=int(m.group(3) or 1), degree_cap=spec.num_devices)
+        result = evaluate_pcg(seed_pcg, ctx, spec, cache)
+        if result is None:
+            raise ValueError(f"seed {seed_name} is unmappable")
+        result.serial_runtime = serial.runtime if serial else float("nan")
+        result.seed_runtimes = {seed_name: result.runtime}
+        return result
     raise ValueError(f"unknown strategy seed {seed_name!r}")
 
 
@@ -1909,7 +2089,8 @@ def _assemble_rows(parts) -> np.ndarray:
     return out
 
 
-def _make_drift_research(cost_store, build_search_ctx, pcg0, spec, rules, cfg):
+def _make_drift_research(cost_store, build_search_ctx, pcg0, spec, rules, cfg,
+                         pipeline_seeds: bool = False, pipeline_microbatches: int = 0):
     """The drift monitor's warm re-search: the full plan search again with
     every read of the cost store scaled by the live correction (a fresh
     estimator and context, so every leaf reads the warm store again and
@@ -1925,7 +2106,8 @@ def _make_drift_research(cost_store, build_search_ctx, pcg0, spec, rules, cfg):
             cost_store.live_scale = scale
             _, ctx = build_search_ctx()
             r = graph_optimize(pcg0, ctx, spec, rules, OptimizerConfig(
-                alpha=cfg.search_alpha, budget=cfg.search_budget))
+                alpha=cfg.search_alpha, budget=cfg.search_budget,
+                pipeline_seeds=pipeline_seeds, pipeline_microbatches=pipeline_microbatches))
         finally:
             cost_store.live_scale = prev
         return {"estimated_ms": r.runtime, "seed_runtimes": dict(r.seed_runtimes or {}),

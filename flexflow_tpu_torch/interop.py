@@ -10,7 +10,13 @@ and shapes are checked against it.
 A PCG trained over a mesh of ranks holds each weight as pieces:
 `pcg_params_from_numpy` cuts the rank's pieces out of the global arrays,
 and `pcg_params_to_numpy` gathers them back (a collective: every rank
-calls it), and the same for the optimizer state.
+calls it), and the same for the optimizer state. A pipelined plan holds
+its stage: the JAX PipelinedTrainingInstance's stacked [S, ...] state
+(keyed by the template stage's weights) goes in through
+`PipelinedTrainingInstance.load_stacked_state` and comes back through
+`stacked_state` (a collective). A sub-mesh trainer holds its islands'
+dicts, {"pre", "branch<i>", "post"}: `submesh_params_from_numpy` keeps
+the islands of this rank.
 """
 
 from __future__ import annotations
@@ -86,7 +92,16 @@ def ffmodel_state_from_numpy(model, params: Dict[str, np.ndarray], opt_state: Op
     it replaces are dropped."""
     if model.params is None:
         raise RuntimeError("compile the port's FFModel before carrying state into it")
-    if model._searched():
+    if model._pipelined():
+        # a pipelined plan: the JAX instance's stacked state, this stage's slice
+        model.instance.load_stacked_state(model.params, model.opt_state, params, opt_state)
+    elif model._submesh():
+        model.params = submesh_params_from_numpy(model.instance, params, model.device)
+        if opt_state is not None:
+            model.opt_state = {island: _opt_slots_from_numpy(model.params[island],
+                                                             opt_state[island], model.device)
+                               for island in model.params}
+    elif model._searched():
         # a searched plan: JAX keys of the same winner's PCG, cut into pieces
         inst = model.instance
         args = (inst.pcg, inst.shardings, inst.machine_mesh)
@@ -151,4 +166,45 @@ def pcg_opt_state_to_numpy(pcg, shardings, mesh, opt_state: Dict) -> Dict:
     for slot in ("m", "v"):
         if slot in opt_state:
             out[slot] = pcg_params_to_numpy(pcg, shardings, mesh, opt_state[slot])
+    return out
+
+
+def submesh_params_from_numpy(instance, params: Dict[str, Dict[str, np.ndarray]], device
+                              ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The islands of this rank (SubmeshBranchInstance.islands) from the
+    JAX SubmeshBranchInstance's {island: {key: array}} parameters, each
+    checked against the graph's weights of its island."""
+    out = {}
+    for island in instance.islands():
+        want = {param_key(n): weight_shape(instance.cg, n) for n in weight_nodes(instance.cg)
+                if instance._island_of[n] == island}
+        out[island] = _checked_copies(want, params[island], device)
+    return out
+
+
+def submesh_params_to_numpy(instance, params: Dict[str, Dict[str, torch.Tensor]]
+                            ) -> Dict[str, Dict[str, np.ndarray]]:
+    """The islands' parameters as numpy, in the JAX package's dicts: every
+    island from the first rank that holds it (a collective: every rank
+    calls it)."""
+    import torch.distributed as dist
+
+    held = {island: params_to_numpy(p) for island, p in params.items()}
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, held)
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for part in parts:
+        for island, p in part.items():
+            out.setdefault(island, p)
+    return out
+
+
+def _opt_slots_from_numpy(params: Dict[str, torch.Tensor], opt_state: Dict, device) -> Dict:
+    """An optimizer state {m, v, step} for `params` from numpy slots."""
+    out = {"step": torch.tensor(int(np.asarray(opt_state["step"])), dtype=torch.int32,
+                                device=device)}
+    for slot in ("m", "v"):
+        if slot in opt_state:
+            out[slot] = {k: torch.tensor(np.asarray(opt_state[slot][k]), dtype=p.dtype,
+                                         device=device) for k, p in params.items()}
     return out

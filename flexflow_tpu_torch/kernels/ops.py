@@ -71,6 +71,8 @@ from flexflow_tpu_torch.op_attrs.ops import (
     SoftmaxAttrs,
     SplitAttrs,
     StackAttrs,
+    StageMergeAttrs,
+    StagePartitionAttrs,
     WeightAttrs,
 )
 from flexflow_tpu_torch.op_attrs.ops.moe import expert_capacity
@@ -455,6 +457,11 @@ def forward(attrs: OpAttrs, inputs: Sequence[torch.Tensor],
         return list(torch.split(inputs[0], list(attrs.sizes), dim=attrs.axis))
     if isinstance(attrs, ReshapeAttrs):
         return [inputs[0].reshape(attrs.shape)]
+    if isinstance(attrs, (StagePartitionAttrs, StageMergeAttrs)):
+        # the identity on values: the microbatch schedule is a lowering
+        # choice (parallel/pipeline.py), so a flat run of a pipelined PCG
+        # stays correct
+        return [inputs[0]]
     raise NotImplementedError(f"no kernel for {type(attrs).__name__} in the port yet (A2)")
 
 

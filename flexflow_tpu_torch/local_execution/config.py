@@ -12,7 +12,7 @@ with the slice that brings it (see FFModel._validate_config_flags), never
 ignored. The search, mesh and planner fields matter only to a compile on
 more than one device (one rank each): without a search budget it trains
 data parallel, with one it searches (or imports) a plan and lowers it; the
-search's fields of A10 (pipeline) and A13 (hbm_gb) raise there.
+search's field of A13 (hbm_gb) raises there.
 """
 
 from __future__ import annotations
@@ -261,10 +261,10 @@ class FFConfig:
             default=None,
             help="pipeline parallelism: seed the Unity search "
             "with StagePartition/StageMerge stage-partitioned candidates "
-            "(1F1B bubble-aware stage axis in both DPs) and lower a "
-            "stage-partitioned winner via the shard_map+ppermute 1F1B "
-            "executor (--pipeline forces on, --no-pipeline forces off; "
-            "unset defers to FF_TPU_PIPELINE)",
+            "(1F1B bubble-aware stage axis in the DP) and lower a "
+            "stage-partitioned winner through the 1F1B executor over "
+            "ranks (--pipeline forces on; unset or --no-pipeline "
+            "means off)",
         )
         p.add_argument(
             "--multislice",
@@ -282,7 +282,7 @@ class FFConfig:
             type=int,
             default=0,
             help="microbatch count M for the pipeline seeds (0 = auto: "
-            "the largest of {2S, S, 8, 4, 2} dividing the per-shard batch)",
+            "the first of {2S, S, 8, 4, 2} dividing the per-shard batch)",
         )
         p.add_argument(
             "--movement-cost-store",

@@ -25,8 +25,9 @@ The edges the executor lowers as collective matmuls are timed as fused
 audit's op measurements join it (and analytic predictions their pairs);
 with a movement store its standalone reshard measurements do.
 
-Not yet here: the pipeline contexts of a leaf's key (A10), and the memory
-and communication cross-checks recorded beside the audit (A13).
+A leaf's key carries its pipeline context (pcg.pipeline.pipeline_contexts),
+as the search priced it. Not yet here: the memory and communication
+cross-checks recorded beside the audit (A13).
 
 Recorded in `FFModel.search_provenance["plan_audit"]` under
 `FFConfig(plan_audit=True)` on a searched compile.
@@ -247,6 +248,9 @@ def audit_plan(
     can_measure_movement = machine_mesh is not None and machine_mesh.world_size > 1
     emulation_scale = _emulation_scale(cost_estimator) if cost_estimator is not None else 1.0
 
+    from flexflow_tpu_torch.pcg.pipeline import pipeline_contexts
+
+    pipe_ctx = pipeline_contexts(pcg)
     ops: List[Dict[str, object]] = []
     edges: List[Dict[str, object]] = []
     for n in pcg.topological_ordering():
@@ -255,7 +259,7 @@ def audit_plan(
             continue
         la = pcg.layer_attrs(n)
         name = la.name or param_key(n)
-        leaf = _leaf_key(pcg, n)
+        leaf = _leaf_key(pcg, n, pipe_ctx)
         view = (mapping or {}).get(n)
         # measured before this audit replayed it? (a store hit makes the
         # estimator's "prediction" a measurement, never an analytic half)

@@ -1,7 +1,6 @@
 """Operator types and uniform shape-inference dispatch over the slices' op
 attrs (trimmed copy of flexflow_tpu/op_attrs/core.py; the JAX package's
-GroupBy/Aggregate, Cast and the other shape ops wait, A2, and its pipeline
-stage ops, A10).
+GroupBy/Aggregate, Cast and the other shape ops wait, A2).
 
   get_output_shapes(attrs, inputs)           -> [TensorShape]
   get_weight_shapes(attrs, inputs)           -> [TensorShape]
@@ -43,6 +42,8 @@ from flexflow_tpu_torch.op_attrs.ops import (
     RingAttentionAttrs,
     SoftmaxAttrs,
     SplitAttrs,
+    StageMergeAttrs,
+    StagePartitionAttrs,
     UlyssesAttentionAttrs,
     WeightAttrs,
 )
@@ -84,7 +85,8 @@ class OperatorType(enum.Enum):
     COMBINE = "combine"
     REPLICATE = "replicate"
     REDUCTION = "reduction"
-    # pipeline-stage boundaries (A10): no attrs in the port yet
+    # pipeline-stage boundaries: a schedule, not a layout, so not members of
+    # PARALLEL_OP_TYPES (the chain canonicalizers must not cancel them)
     STAGE_PARTITION = "stage_partition"
     STAGE_MERGE = "stage_merge"
 
@@ -102,6 +104,7 @@ OpAttrs = Union[
     Conv2DAttrs, Pool2DAttrs, FlatAttrs, BatchNormAttrs,
     ConcatAttrs, StackAttrs, SplitAttrs, ReshapeAttrs, ReduceAttrs, ExpertsAttrs,
     RepartitionAttrs, CombineAttrs, ReplicateAttrs, ReductionAttrs,
+    StagePartitionAttrs, StageMergeAttrs,
 ]
 
 _OP_TYPE_BY_ATTRS = {
@@ -134,6 +137,8 @@ _OP_TYPE_BY_ATTRS = {
     CombineAttrs: OperatorType.COMBINE,
     ReplicateAttrs: OperatorType.REPLICATE,
     ReductionAttrs: OperatorType.REDUCTION,
+    StagePartitionAttrs: OperatorType.STAGE_PARTITION,
+    StageMergeAttrs: OperatorType.STAGE_MERGE,
 }
 
 PARALLEL_OP_TYPES = frozenset({

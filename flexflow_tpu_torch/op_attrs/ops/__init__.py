@@ -1,7 +1,7 @@
 """Operator attrs of the slices: Input, Weight, Noop, Linear, Embedding,
 MultiHeadAttention, RingAttention, ElementUnary, ElementBinary, LayerNorm,
 Softmax, Dropout, the example zoo's Conv2D, Pool2D, Flat, BatchNorm, Concat,
-Split and Reshape, the four parallel ops, the loss attrs, and the attrs the
+Split and Reshape, the four parallel ops and the two pipeline-stage ops, the loss attrs, and the attrs the
 search's rules name without a kernel in the port (UlyssesAttention,
 BatchMatmul, Broadcast, Reduce, Experts)."""
 
@@ -40,6 +40,8 @@ from flexflow_tpu_torch.op_attrs.ops.parallel_ops import (
     ReductionAttrs,
     RepartitionAttrs,
     ReplicateAttrs,
+    StageMergeAttrs,
+    StagePartitionAttrs,
 )
 from flexflow_tpu_torch.op_attrs.ops.ring_attention import RingAttentionAttrs
 from flexflow_tpu_torch.op_attrs.ops.moe import ExpertsAttrs
@@ -82,6 +84,8 @@ __all__ = [
     "ReduceAttrs",
     "ReduceOpType",
     "ReductionAttrs",
+    "StageMergeAttrs",
+    "StagePartitionAttrs",
     "RepartitionAttrs",
     "ReplicateAttrs",
     "ReshapeAttrs",

@@ -1,6 +1,6 @@
-"""The four Unity parallel operators (trimmed copy of
-flexflow_tpu/op_attrs/ops/parallel_ops.py): nodes whose only effect is on
-the parallel layout.
+"""The four Unity parallel operators and the two pipeline-stage operators
+(copy of flexflow_tpu/op_attrs/ops/parallel_ops.py): nodes whose only
+effect is on the parallel layout or on the schedule.
 
   Repartition(dim, degree): shard degree of dim *= degree   (scatter)
   Combine(dim, degree):     shard degree of dim /= degree   (gather)
@@ -9,6 +9,22 @@ the parallel layout.
 
 The port's builders and the search create them; parallel/collectives.py
 lowers them for the trainer over a mesh of ranks.
+
+StagePartition / StageMerge denote a schedule, not a layout: the tensor's
+parallel shape is unchanged, but the region between the stage_index=0
+StagePartition and the StageMerge runs as S stages on disjoint groups of
+ranks, each processing M microbatches under a 1F1B schedule
+(parallel/pipeline.py).
+
+  StagePartition(S, M, s=0):   the region's entry; the batch is consumed as
+                               M microbatches (batch % M == 0)
+  StagePartition(S, M, s>=1):  stage s-1 hands its activation to stage s:
+                               M point-to-point transfers a direction a step
+  StageMerge(S, M):            the region's exit; the microbatch outputs
+                               form the batch again
+
+Both are the identity on values, so the flat executor stays correct on a
+pipelined PCG.
 """
 
 from __future__ import annotations
@@ -21,6 +37,7 @@ from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
     with_shard_degree,
     with_sum_degree,
 )
+from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
 
 
 @dataclass(frozen=True)
@@ -63,3 +80,31 @@ class ReductionAttrs:
             raise ValueError(f"cannot reduce sum degree {input.sum_degree} by "
                              f"{self.reduction_degree}")
         return with_sum_degree(input, input.sum_degree // self.reduction_degree)
+
+
+@dataclass(frozen=True)
+class StagePartitionAttrs:
+    num_stages: int
+    num_microbatches: int
+    stage_index: int = 0
+
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        assert self.num_stages >= 1 and self.num_microbatches >= 1, self
+        assert 0 <= self.stage_index < self.num_stages, self
+        return input
+
+    def output_shape(self, input: TensorShape) -> TensorShape:
+        return input
+
+
+@dataclass(frozen=True)
+class StageMergeAttrs:
+    num_stages: int
+    num_microbatches: int
+
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        assert self.num_stages >= 1 and self.num_microbatches >= 1, self
+        return input
+
+    def output_shape(self, input: TensorShape) -> TensorShape:
+        return input

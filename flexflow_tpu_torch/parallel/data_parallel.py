@@ -67,22 +67,44 @@ def _rank_device(device, rank: int) -> torch.device:
     return dev
 
 
+# the timeout init_file_group gave the default group, which new_subgroup
+# gives the groups opened under it (torch gives those its own default)
+_GROUP_TIMEOUT = None
+
+
+def new_subgroup(ranks):
+    """dist.new_group over `ranks` (every rank of the default group calls
+    it, in the same order) with the default group's timeout where
+    init_file_group set one."""
+    if _GROUP_TIMEOUT is None:
+        return dist.new_group(ranks)
+    return dist.new_group(ranks, timeout=_GROUP_TIMEOUT)
+
+
 def init_file_group(store_file: str, rank: int = 0, world_size: int = 1, device=None,
-                    backend: Optional[str] = None):
+                    backend: Optional[str] = None, timeout_s: Optional[float] = None):
     """Open the default process group over a `file://` store, so no network
     port is needed: NCCL on the card (the rank's card is made current
     first, as NCCL needs), gloo when `device` is "cpu". `backend` overrides
     that: "gloo" on the card lets several ranks share one card (gloo stages
     CUDA tensors through host memory), which NCCL refuses. `store_file`
-    must not exist yet, and every rank passes the same path. Returns the
-    device the rank runs on; `dist.destroy_process_group()` closes the
-    group."""
+    must not exist yet, and every rank passes the same path. `timeout_s`:
+    how long a collective or a point-to-point transfer of the group (and
+    of the groups new_subgroup opens under it) may wait before it fails
+    (None: torch's default). Returns the device the rank runs on;
+    `dist.destroy_process_group()` closes the group."""
+    import datetime
+
+    global _GROUP_TIMEOUT
     dev = _rank_device(device, rank)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    _GROUP_TIMEOUT = None if timeout_s is None else datetime.timedelta(seconds=timeout_s)
+    extra = {} if timeout_s is None else {"timeout": _GROUP_TIMEOUT}
     dist.init_process_group(
         backend or ("nccl" if dev.type == "cuda" else "gloo"),
         init_method=f"file://{os.path.abspath(store_file)}", rank=rank, world_size=world_size,
+        **extra,
     )
     return dev
 

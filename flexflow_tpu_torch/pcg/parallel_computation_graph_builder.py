@@ -34,6 +34,8 @@ from flexflow_tpu_torch.op_attrs.ops import (
     RepartitionAttrs,
     ReplicateAttrs,
     RingAttentionAttrs,
+    StageMergeAttrs,
+    StagePartitionAttrs,
     WeightAttrs,
 )
 from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
@@ -135,6 +137,23 @@ class ParallelComputationGraphBuilder:
 
     def parallel_reduce(self, input: Tensor, degree: int, name: Optional[str] = None) -> Tensor:
         (out,) = self.add_layer(ReductionAttrs(degree), [input], [], name)
+        return out
+
+    # -- the pipeline-stage ops -------------------------------------------
+
+    def parallel_stage_partition(self, input: Tensor, num_stages: int, num_microbatches: int,
+                                 stage_index: int = 0, name: Optional[str] = None) -> Tensor:
+        """The pipeline region's entry (stage_index=0) or its stage_index-th
+        boundary between stages. The identity on the value; the 1F1B
+        executor and the machine-mapping DP act on the annotation."""
+        (out,) = self.add_layer(
+            StagePartitionAttrs(num_stages, num_microbatches, stage_index), [input], [], name)
+        return out
+
+    def parallel_stage_merge(self, input: Tensor, num_stages: int, num_microbatches: int,
+                             name: Optional[str] = None) -> Tensor:
+        """The pipeline region's exit: the microbatch outputs form the batch."""
+        (out,) = self.add_layer(StageMergeAttrs(num_stages, num_microbatches), [input], [], name)
         return out
 
     # -- compute ops ------------------------------------------------------

@@ -1,5 +1,5 @@
 """The generated parallelization rule set seeding the Unity search (copy of
-flexflow_tpu/substitutions/rules.py; its pipeline-stage rule waits, A10).
+flexflow_tpu/substitutions/rules.py, with its pipeline-stage rule).
 
 Reference: the reference ships equivalent rules as legacy TASO-style JSON
 (graph_subst_3_v2.json era, loaded by lib/substitution-generator
@@ -849,12 +849,53 @@ def combine_reduction_cancel_rules(degree: int, dim: int) -> List[Substitution]:
     return out
 
 
+def pipeline_stage_pair_rule(num_microbatches: int, use_bias: bool = False) -> Substitution:
+    """Linear(Linear(a, w1), w2) ->
+    StageMerge(Linear(StagePartition_1(Linear(StagePartition_0(a), w1)), w2))
+    with S=2 stages and M=`num_microbatches` microbatches: the minimal
+    substitution that introduces the pipeline-stage ops, so the rewrite
+    walk can cut a chain step by step (stage ops are the identity on
+    values, so the interface shapes are unchanged by construction)."""
+    from flexflow_tpu_torch.op_attrs.ops import StageMergeAttrs, StagePartitionAttrs
+
+    M = int(num_microbatches)
+    p = PCGPattern()
+    a = p.add_input(_shard_pattern(0, M))
+    w1 = p.add_input()
+    w2 = p.add_input()
+    b1 = [p.add_input()] if use_bias else []
+    b2 = [p.add_input()] if use_bias else []
+    lin = OperatorAttributePattern.for_op_type(OperatorType.LINEAR, use_bias=use_bias)
+    n1, (h,) = p.add_operator(lin, [a, w1, *b1])
+    n2, (y,) = p.add_operator(lin, [h, w2, *b2])
+
+    og = OutputGraphExpr()
+    oa = og.add_input()
+    ow1 = og.add_input()
+    ow2 = og.add_input()
+    ob1 = [og.add_input() for _ in b1]
+    ob2 = [og.add_input() for _ in b2]
+    _, (sp0,) = og.add_operator(AttrConstant(StagePartitionAttrs(2, M, 0)), [oa])
+    _, (h1,) = og.add_operator(CopyAttrsFromMatched(n1), [sp0, ow1, *ob1])
+    _, (sp1,) = og.add_operator(AttrConstant(StagePartitionAttrs(2, M, 1)), [h1])
+    _, (y2,) = og.add_operator(CopyAttrsFromMatched(n2), [sp1, ow2, *ob2])
+    _, (out,) = og.add_operator(AttrConstant(StageMergeAttrs(2, M)), [y2])
+    return Substitution(
+        f"pipeline_stage_pair_{'b_' if use_bias else ''}{M}",
+        p,
+        og,
+        ((a, oa), (w1, ow1), (w2, ow2), *zip(b1, ob1), *zip(b2, ob2)),
+        ((y, out),),
+    )
+
+
 def generate_parallelization_rules(
     degrees: List[int],
     max_cancel_dim: int = 3,
     enable_parameter_parallel: bool = True,
     enable_attribute_parallel: bool = True,
     enable_pipeline: bool = False,
+    pipeline_microbatches: int = 0,
 ) -> List[Substitution]:
     """The seed rule set for a machine whose interesting parallel degrees are
     `degrees` (typically divisors of the chip count).
@@ -862,11 +903,9 @@ def generate_parallelization_rules(
     `enable_parameter_parallel` gates the weight-partitioning rules and
     `enable_attribute_parallel` the reduction-dim rules, mirroring the
     reference's --enable-parameter-parallel / --enable-attribute-parallel
-    flags (config.h); data/sample parallelism is always available."""
-    if enable_pipeline:
-        raise NotImplementedError(
-            "the pipeline-stage rules wait for the pipeline ops (ROADMAP A10)"
-        )
+    flags (config.h); data/sample parallelism is always available.
+    `enable_pipeline` adds the stage-partitioning rules (FFConfig.pipeline
+    only, so flat searches keep their rule counts and winners)."""
     rules: List[Substitution] = []
     for k in degrees:
         if k < 2:
@@ -939,4 +978,11 @@ def generate_parallelization_rules(
             rules.append(data_parallel_concat_rule(k, arity))
         for d in (*range(max_cancel_dim), -1):
             rules.extend(combine_reduction_cancel_rules(k, d))
+    if enable_pipeline:
+        # the rewrite walk can cut a two-linear chain into a 2-stage region
+        # step by step; the whole-chain cuts come from the pipeline seeds
+        for M in sorted({pipeline_microbatches or 4, 2}):
+            if M >= 2:
+                for use_bias in (False, True):
+                    rules.append(pipeline_stage_pair_rule(M, use_bias))
     return rules

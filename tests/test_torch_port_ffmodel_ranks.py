@@ -255,15 +255,17 @@ def test_the_devices_of_a_compile_are_the_groups_ranks(one_rank_group, monkeypat
                                        (dict(cost_store="store"), None),
                                        (dict(search_algorithm="mcmc", perform_fusion=True),
                                         None),
-                                       (dict(pipeline=True), "A10"),
+                                       (dict(pipeline=True), None),
                                        (dict(overlap=True), None)])
 def test_unported_search_flags_raise_naming_their_item(one_rank_group, tmp_path, flag, item):
     """An unported flag is checked before the search runs, on the plan's
     first compile step. The cost store, MCMC and the overlap pricing (A6
-    part 2) now search: a searched compile on the group of one rank records
-    them in its provenance (the stores and searches against the JAX
-    package: tests/test_torch_port_cost_store.py, test_torch_port_mcmc.py,
-    test_torch_port_overlap.py)."""
+    part 2) and the pipeline seeds (A10) now search: a searched compile on
+    the group of one rank records them in its provenance (the stores and
+    searches against the JAX package: tests/test_torch_port_cost_store.py,
+    test_torch_port_mcmc.py, test_torch_port_overlap.py,
+    test_torch_port_pipeline.py); one device has no stage to cut, so the
+    pipelined compile is flat there.""" 
     if "cost_store" in flag:  # measured on the host, so the search writes its leaves
         flag = dict(cost_store=str(tmp_path), cost_model="measured")
     m, _ = _port_model(batch_size=6, search_budget=2, **flag)

@@ -167,8 +167,15 @@ def test_rules_same_names_and_order(flags):
 
 
 def test_pipeline_rules_raise_naming_a10():
-    with pytest.raises(NotImplementedError, match="A10"):
-        t_rules([2], enable_pipeline=True)
+    """The pipeline-stage rules no longer raise (A10 is ported): with
+    enable_pipeline both packages generate the same rules, in the same
+    order, the stage-pair rules last (tests/test_torch_port_pipeline.py
+    applies them)."""
+    for micro in (0, 8):
+        tnames = [r.name for r in t_rules([2], enable_pipeline=True, pipeline_microbatches=micro)]
+        jnames = [r.name for r in j_rules([2], enable_pipeline=True, pipeline_microbatches=micro)]
+        assert tnames == jnames
+        assert any(n.startswith("pipeline_stage_pair_") for n in tnames)
 
 
 @pytest.mark.parametrize("host", ["flagship", "dp2_seed"])
@@ -259,13 +266,14 @@ def test_graph_optimize_matches_jax(ndev, budget):
 
 
 def test_search_options_not_ported_raise(tmp_path):
-    """The pipeline seeds wait for A10; the serving search's cost store, the
-    overlap pricing and the analytic estimator's store (A6 part 2) now work:
+    """Every search option is ported now: the pipeline seeds (A10,
+    tests/test_torch_port_pipeline.py), the serving search's cost store,
+    the overlap pricing and the analytic estimator's store (A6 part 2):
     tests/test_torch_port_cost_store.py and test_torch_port_overlap.py hold
     them against the JAX package."""
     ts, tctx, _, _ = _estimators(4)
-    with pytest.raises(NotImplementedError, match="A10"):
-        T.OptimizerConfig(pipeline_seeds=True)
+    cfg = T.OptimizerConfig(pipeline_seeds=True, pipeline_microbatches=4)
+    assert cfg.pipeline_seeds and cfg.pipeline_microbatches == 4
     from flexflow_tpu_torch.compiler.cost_store import CostStore
     from flexflow_tpu_torch.serving.kv_cache import ServingMemorySpec
     from flexflow_tpu_torch.serving.plan import serving_search_context

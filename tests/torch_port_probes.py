@@ -23,6 +23,15 @@ Not a test file: run by hand from the repo root, each prints JSON lines.
   from this checkout and from a temporary copy of it whose reduce-scatter
   ring adds a rotated chunk: the readings fit_overlap bounds, beside the
   bounds.
+
+    python tests/torch_port_probes.py pp-fault [--world 2] [--device cpu]
+
+  chip_smoke.py's train_pp rank job (the MLP trunk, pp2m4 on 2 ranks,
+  pp2m4 x dp2 on 4) on --device (cuda:0 on a card: bf16 there, f32 on the
+  CPU), from this checkout and from a temporary copy of it whose 1F1B
+  backward reads the other stash slot: the worst loss difference against
+  the CPU run and the stages' parameters and Adam state against the flat
+  executor, beside train_pp's bounds.
 """
 
 from __future__ import annotations
@@ -185,6 +194,53 @@ def overlap_fault(args) -> None:
                   flush=True)
 
 
+STASH_LINE = "x_b = x_mb[m] if s == 0 else stash[m % B]"
+OTHER_SLOT = ("x_b = x_mb[m] if s == 0 else (stash[(m + 1) % B] if stash[(m + 1) % B] "
+              "is not None else stash[m % B])")
+
+PP_RUN = r"""
+import json, sys, tempfile
+import chip_smoke as c
+world, device = int(sys.argv[1]), sys.argv[2]
+with tempfile.TemporaryDirectory() as tmp:
+    ranks = c.run_ranks(world, c.pp_job(world, c.PP_SEEDS[world], device), tmp,
+                        worker=c.PP_RANK_WORKER)
+pp = ranks[0]["train_pp"]
+loss = max(abs(a - b) / abs(b) for a, b in zip(pp["losses"], pp["cpu_losses"]))
+fails = dict(loss=not loss <= c.PP_PARITY_BOUND,
+             **{k: not v <= c.PP_STATE_BOUND[k] for k, v in pp["state_rel"].items()})
+print(json.dumps(dict(world=world, device=device, loss_rel=loss, state_rel=pp["state_rel"],
+                      bitwise_sequential=pp["bitwise_sequential"],
+                      bounds=dict(loss=c.PP_PARITY_BOUND, state=c.PP_STATE_BOUND),
+                      fails=fails)))
+"""
+
+
+def pp_fault(args) -> None:
+    with tempfile.TemporaryDirectory() as tmp:
+        copy = os.path.join(tmp, "checkout")
+        os.makedirs(copy)
+        shutil.copy(os.path.join(REPO, "chip_smoke.py"), copy)
+        shutil.copytree(os.path.join(REPO, "flexflow_tpu_torch"),
+                        os.path.join(copy, "flexflow_tpu_torch"),
+                        ignore=shutil.ignore_patterns("_build", "__pycache__"))
+        pipe = os.path.join(copy, "flexflow_tpu_torch", "parallel", "pipeline.py")
+        with open(pipe) as f:
+            src = f.read()
+        if src.count(STASH_LINE) != 1:
+            raise SystemExit(f"the 1F1B backward's stash read {STASH_LINE!r} moved")
+        with open(pipe, "w") as f:
+            f.write(src.replace(STASH_LINE, OTHER_SLOT))
+        for name, root in (("sound", REPO), ("other_stash_slot", copy)):
+            out = subprocess.run([sys.executable, "-c", PP_RUN, str(args.world), args.device],
+                                 cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                                 capture_output=True, text=True, timeout=args.timeout)
+            if out.returncode != 0:
+                raise SystemExit(f"{name}: {out.stderr[-3000:]}")
+            print(json.dumps(dict(run=name, **json.loads(out.stdout.strip().splitlines()[-1]))),
+                  flush=True)
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = p.add_subparsers(dest="probe", required=True)
@@ -197,9 +253,14 @@ def main() -> None:
     m.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3, 4])
     o = sub.add_parser("overlap-fault")
     o.add_argument("--timeout", type=float, default=900.0)
+    f = sub.add_parser("pp-fault")
+    f.add_argument("--world", type=int, choices=(2, 4), default=2)
+    f.add_argument("--device", default="cpu")
+    f.add_argument("--timeout", type=float, default=900.0)
     args = p.parse_args()
     sys.path.insert(0, REPO)
-    {"depth": depth, "mcmc": mcmc, "overlap-fault": overlap_fault}[args.probe](args)
+    {"depth": depth, "mcmc": mcmc, "overlap-fault": overlap_fault,
+     "pp-fault": pp_fault}[args.probe](args)
 
 
 if __name__ == "__main__":
