@@ -303,7 +303,8 @@ lowers on whole values:
 
 then checkpoints, bitwise resume and the fit loop's fault sites:
 
-35. fit_resume    the flagship through FFModel at steps_per_dispatch=8 (bf16,
+35. fit_resume    the flagship's widths at 6 layers (RESUME_LAYERS) through
+                  FFModel at steps_per_dispatch=8 (bf16,
                   Adam(1e-4)), two shuffled epochs of 16 seeded batches, from
                   compile's state each time: the fit without checkpoints, run
                   A with async snapshots every 8 steps (snapshot bytes, the
@@ -347,6 +348,58 @@ both phases (gloo ranks sharing the card; no kernel of the table runs):
                   TF32 off): two SGD steps' losses and the parameters
                   within 1e-4 of one card's from the same values, each
                   branch's parameters only on its group, eval runs.
+
+then (after the observability phases) Ulysses attention and mixture of
+experts:
+
+40. parity_moe    (a) fit_moe's Experts layer alone (8192 tokens of 1024, 8
+                  experts of hidden 1024, top-2, capacity factor 2, aux
+                  weight 0.04) in f32, TF32 off: kernels/moe.py's index
+                  path against the dense plain version (the JAX package's
+                  one-hot einsums) on the same inputs: the routing decisions
+                  and the drops identical, the output, the aux loss and
+                  every gradient within 1e-5, both timed forward and
+                  backward; (b) a small MoE encoder (2 layers, hidden 256, 2
+                  heads of 128, seq 512, 4 experts top-2) through FFModel,
+                  two SGD steps on the card (bf16, rows 1-3) and on the CPU
+                  (f32) from the same parameters: the losses within 1e-2,
+                  and the share of routing decisions that differ (printed);
+41. fit_moe       examples/moe.py's encoder at the flagship's widths (12
+                  layers, hidden 1024, 8 heads of 128, seq 512, 8 experts
+                  top-2, 32000 classes, batch 16) through FFModel in bf16
+                  with the example's SGD: a warm-up batch and a fit of 5:
+                  step ms, tokens/s, MFU, peak memory, rows 1-3 12 times a
+                  step and no other flash or ring kernel; one profiled
+                  step: the MoE layers' kernel ms by gate, dispatch, expert
+                  products and combine, forward and backward;
+
+then one rank job per rank count (gloo ranks sharing the card) carrying:
+
+42. parity_ulysses  parity_sp's two small causal models (seq 1024, heads of
+                  128 and of 64) with their attention relabelled
+                  UlyssesAttention, at sp = 2 on 2 ranks: two Adam steps on
+                  the card (bf16) and on the CPU (f32) on the same ranks:
+                  losses within 1e-2, 4 all-to-alls a layer forward and 4
+                  backward as the plan implies, no ring step or ring
+                  kernel, rows 9-11 once a layer a step, s = 1024 on row
+                  11's route;
+43. train_ulysses SP_LONGCTX (12 layers, hidden 1024, 8 heads of 128, causal,
+                  seq 8192, batch 4) under the Ulysses plan at sp = 2 on 2
+                  ranks: a warm-up and 3 timed Adam steps in bf16, each
+                  rank's 4 heads over all 8192 positions through rows 9, 10
+                  and 12 (12 launches a step each, none of rows 13-15), 96
+                  all-to-alls a step; step ms, MFU; the first loss within
+                  1e-2 of the single-device step of the same plan at sp = 1
+                  from the same parameters on the card;
+44. moe_ranks     f32, TF32 off, aux weight 0.5: (a) a searched compile
+                  (analytic, the H100 constants) of test_searched_moe's
+                  model at widths where its winner shards the experts, on 2
+                  ranks; (b) tests/test_moe.py's dp2 x ep2 PCG on 4 ranks;
+                  (c) a data-parallel fit of parity_moe's encoder on 2
+                  ranks: each run's losses and parameters within 1e-3 of
+                  one card's from the same values, its aux losses present,
+                  its collectives printed (and, for (b), every step's equal
+                  to what the plan implies).
 
 The kernels phase also holds the per-head kernels at the attention shapes of
 train_dp, of train_dp_seq2048 and of the 16-head config, on contiguous
@@ -3905,10 +3958,12 @@ dist.destroy_process_group()
 '''
 
 
-def run_ranks(world: int, job: dict, tmp: str, worker: str = RANK_WORKER):
+def run_ranks(world: int, job: dict, tmp: str, worker: str = RANK_WORKER,
+              timeout: float = RANK_TIMEOUT_S):
     """Run `worker` (RANK_WORKER unless given) on `world` processes and
-    return each rank's result; a failing or hanging rank fails the phase,
-    and every process is stopped on the way out."""
+    return each rank's result; a failing rank, or one still running after
+    `timeout` seconds, fails the phase, and every process is stopped on the
+    way out."""
     job = dict(job, store=os.path.join(tmp, f"store_{job['name']}"),
                out=os.path.join(tmp, job["name"]))
     procs = [subprocess.Popen([sys.executable, "-c", worker, str(r), str(world),
@@ -3918,7 +3973,7 @@ def run_ranks(world: int, job: dict, tmp: str, worker: str = RANK_WORKER):
     try:
         errors = []
         for r, p in enumerate(procs):
-            _, err = p.communicate(timeout=RANK_TIMEOUT_S)
+            _, err = p.communicate(timeout=timeout)
             if p.returncode != 0:
                 errors.append(f"rank {r} exited {p.returncode}: {err[-3000:]}")
         if errors:
@@ -5276,7 +5331,11 @@ RESUME_BATCHES = 16  # distinct batches an epoch; two epochs make run A's 4 wind
 RESUME_EPOCHS = 2
 RESUME_EVERY = 8
 RESUME_FAULT_STEP = 20  # crossed inside window 3 (steps 17-24)
-RESUME_KEEP = 2  # checkpoint_max_to_keep: two snapshots of ~2.6 GB on disk
+RESUME_KEEP = 2  # checkpoint_max_to_keep: two snapshots on disk
+# the flagship's widths at 6 of its 12 layers: cut to keep the whole script
+# near its time once the Ulysses and MoE phases joined it (every check
+# holds at any depth; a snapshot is ~1.3 GB where 12 layers made ~2.2)
+RESUME_LAYERS = 6
 # run B's steps before the kill: the window that crosses the fault step
 RESUME_FAULT_STEP_WINDOW = -(-RESUME_FAULT_STEP // RESUME_K) * RESUME_K
 
@@ -5332,7 +5391,8 @@ def _writer_numbers(stats: list) -> dict:
 def phase_fit_resume(smi: str, cfg=None, device: str = "cuda", k: int = RESUME_K,
                      batches: int = RESUME_BATCHES, every: int = RESUME_EVERY,
                      fault_step: int = RESUME_FAULT_STEP) -> dict:
-    """The flagship through FFModel at steps_per_dispatch=k (bf16,
+    """The flagship's widths at RESUME_LAYERS layers (unless `cfg` is given)
+    through FFModel at steps_per_dispatch=k (bf16,
     Adam(1e-4)), two shuffled epochs of `batches` seeded host batches: a
     warm-up window that captures the graph, then from compile's state each
     time (written back in place):
@@ -5363,7 +5423,7 @@ def phase_fit_resume(smi: str, cfg=None, device: str = "cuda", k: int = RESUME_K
     from flexflow_tpu_torch.runtime.fault import SimulatedFault
     from torch.autograd import DeviceType
 
-    cfg = cfg or FLAGSHIP
+    cfg = cfg or dict(FLAGSHIP, layers=RESUME_LAYERS)
     b, steps = cfg["batch"], batches * RESUME_EPOCHS
     start = time.perf_counter()
 
@@ -6472,6 +6532,880 @@ def phase_plan_audit(smi: str, device: str = "cuda") -> None:
           "seconds": time.perf_counter() - start})
 
 
+# --- A11: Ulysses attention and mixture of experts -----------------------------------
+
+# parity_ulysses: parity_sp's small causal models (seq 1024, hidden 256, 2
+# layers, heads of 128 and of 64) at sp = 2; the JAX package's per-head
+# block: its backward runs _bwd_rows_fused (row 11) for s up to it, _bwd
+# (row 12) above (flexflow_tpu/kernels/flash_attention.py's default blocks);
+# the port's flash_bwd_bhsd kernels serve both rows
+ULYSSES_SP = 2
+BHSD_BLOCK = 1024
+ULYSSES_STEPS = 3  # timed Adam steps of train_ulysses, after one warm-up step
+# parity_moe (a): fit_moe's Experts layer alone (16 x 512 tokens of 1024)
+MOE_LAYER = dict(tokens=16 * 512, d=1024, experts=8, select=2, hidden=1024, alpha=2.0, lam=0.04)
+MOE_LAYER_BOUND = 1e-5  # relative: output, aux and gradients, index path vs dense plain (f32)
+# parity_moe (b) and moe_ranks (c): a small MoE encoder through FFModel
+# (examples/moe.py's create_moe_encoder)
+MOE_SMALL = dict(batch=4, seq=512, data_dim=256, hidden=256, heads=2, layers=2, experts=4,
+                 select=2, alpha=2.0, lam=0.04, classes=512)
+# fit_moe: examples/moe.py --encoder at the flagship's widths, the
+# flagship's vocabulary as its classes
+FIT_MOE = dict(batch=16, seq=512, data_dim=1024, hidden=1024, heads=8, layers=12, experts=8,
+               select=2, alpha=2.0, lam=0.04, classes=32000)
+# moe_ranks: the load-balance weight at 0.5, where an aux loss counted
+# twice or only a block's is far outside the bound; f32 (TF32 off), so the
+# ranks' losses and parameters are held to 1e-3 of one card's
+MOE_RANKS_LAMBDA = 0.5
+MOE_RANKS_BOUND = 1e-3
+MOE_RANKS_STEPS = 2
+# (a) tests/test_moe.py::test_searched_moe_finds_expert_parallelism's model
+# (moe(8 experts, top-2, alpha 4) then a bias-free head of 8): at its widths
+# (64 x 128, hidden 256) the analytic search on the H100 constants keeps the
+# serial plan; at these the winner shards the experts
+MOE_SEARCHED = dict(batch=256, d=1024, hidden=4096, experts=8, select=2, alpha=4.0, classes=8)
+# (b) tests/test_moe.py::test_expert_parallel_training_on_mesh's dp2 x ep2
+# PCG, at capacity factor 1.0 (tokens dropped)
+MOE_EP = dict(batch=8, d=16, experts=4, select=2, hidden=32, classes=8, alpha=1.0)
+A11_RESULTS = {}  # world -> the A11 rank job's ranks, read by the phases after the first
+
+A11_RANK_WORKER = r"""
+import json, os, sys
+import torch
+import torch.distributed as dist
+import chip_smoke as c
+from flexflow_tpu_torch.parallel import init_file_group
+
+rank, world, job = int(sys.argv[1]), int(sys.argv[2]), json.loads(sys.argv[3])
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+device = init_file_group(job["store"], rank, world, device=job["device"], backend="gloo",
+                         timeout_s=job["timeout_s"])
+out = dict(c.a11_rank(job, device, rank, world), rank=rank)
+with open(f"{job['out']}.rank{rank}.json", "w") as f:
+    json.dump(out, f)
+dist.destroy_process_group()
+"""
+
+
+def _ulysses_pcg(cfg):
+    """build_parallel_transformer(cfg) with its RingAttention nodes
+    relabelled UlyssesAttention: the op the search's a2a rule and seeds put
+    in, on a causal model (the rule itself matches non-causal MHA)."""
+    from flexflow_tpu_torch.models import build_parallel_transformer
+    from flexflow_tpu_torch.op_attrs.ops import RingAttentionAttrs, UlyssesAttentionAttrs
+    from flexflow_tpu_torch.pcg.parallel_computation_graph import ParallelLayerAttrs
+
+    pcg, logits = build_parallel_transformer(cfg)
+    for n in pcg.topological_ordering():
+        la = pcg.layer_attrs(n)
+        if type(la.attrs) is RingAttentionAttrs:
+            fields = {f.name: getattr(la.attrs, f.name) for f in dataclasses.fields(la.attrs)}
+            pcg.set_node_label(n, ParallelLayerAttrs(UlyssesAttentionAttrs(**fields), la.name))
+    return pcg, logits
+
+
+def _ulysses_batch(cfg):
+    import torch
+
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(cfg.batch_size, cfg.sequence_length, cfg.num_features, generator=gen)
+    return x, torch.randint(0, cfg.vocab_size, (cfg.batch_size, cfg.sequence_length),
+                            generator=gen)
+
+
+def _ulysses_run(cfg, device, world: int, compute, steps: int, warmup: int = 0,
+                 alpha: float = 1e-3) -> dict:
+    """The Ulysses plan of cfg on `world` sequence ranks (a one-rank mesh
+    over `group` where world is 1): warmup steps, then `steps` timed ones
+    with every launch count set to 0 just before; the losses, step ms,
+    launches, each step's collectives and what the plan implies, and the
+    sequence lengths the attention attended."""
+    import torch
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import ulysses_attention as ua
+    from flexflow_tpu_torch.models.parallel_transformer import model_step_flops
+    from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
+    from flexflow_tpu_torch.parallel import DistributedTrainingInstance, MachineMesh
+    from flexflow_tpu_torch.pcg import AdamOptimizerAttrs
+
+    pcg, logits = _ulysses_pcg(cfg)
+    mesh = MachineMesh(1, world) if world > 1 else MachineMesh(1, 1)
+    inst = DistributedTrainingInstance(pcg, logits, SparseCategoricalCrossEntropyLossAttrs(),
+                                       AdamOptimizerAttrs(alpha=alpha), mesh,
+                                       compute_dtype=compute, device=device)
+    params, opt = inst.initialize(seed=0)
+    x, y = (t.to(device) for t in _ulysses_batch(cfg))
+    seqs, attend = [], ua.attend_full_sequence
+    ua.attend_full_sequence = lambda q, k, v, causal: seqs.append(q.shape[2]) or attend(
+        q, k, v, causal)
+    try:
+        warm = []
+        for _ in range(warmup):
+            params, opt, loss, _ = inst.train_step(params, opt, {"x": x}, y)
+            warm.append(float(loss))
+        _sync(device)
+        fa.reset_launch_counts()
+        ring = mesh.counts["ring_step"]
+        losses, step_ms, per_step = [], [], []
+        for _ in range(steps):
+            before = dict(mesh.counts)
+            start = time.perf_counter()
+            params, opt, loss, _ = inst.train_step(params, opt, {"x": x}, y)
+            losses.append(float(loss))
+            _sync(device)
+            step_ms.append((time.perf_counter() - start) * 1e3)
+            per_step.append({k: v - before.get(k, 0) for k, v in mesh.counts.items()
+                             if v - before.get(k, 0)})
+    finally:
+        ua.attend_full_sequence = attend
+    if not all(math.isfinite(v) for v in warm + losses):
+        raise AssertionError(f"ulysses: non-finite losses {warm + losses}")
+    return dict(warmup_losses=warm, losses=losses, step_ms=step_ms, per_step=per_step,
+                implied={k: int(v) for k, v in inst.step_collectives().items()},
+                launches={fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS},
+                ring_steps=mesh.counts["ring_step"] - ring, seqs=sorted(set(seqs)),
+                a2a_nodes=sum(1 for p in inst.plan.nodes.values() if p.a2a_axes),
+                ring_nodes=sum(1 for p in inst.plan.nodes.values() if p.ring_axes),
+                step_flops=model_step_flops(cfg))
+
+
+def _moe_model(pkg_core, cfg: dict, kind: str, device, **config):
+    """The MoE models of parity_moe, fit_moe and moe_ranks through FFModel,
+    every weight named: "encoder", a dense input layer, examples/moe.py's
+    create_moe_encoder and a dense head; "searched", MOE_SEARCHED's moe
+    then a bias-free head."""
+    from flexflow_tpu_torch.examples.moe import create_moe_encoder
+
+    m = pkg_core.FFModel(pkg_core.FFConfig(batch_size=cfg["batch"], seed=0, print_freq=0,
+                                           **config), device=device)
+    if kind == "searched":
+        x = m.create_tensor([cfg["batch"], cfg["d"]], name="x")
+        t = m.moe(x, cfg["experts"], cfg["select"], cfg["hidden"], cfg["alpha"],
+                  cfg["lam"], name="moe")
+        m.dense(t, cfg["classes"], use_bias=False, name="out")
+    else:
+        x = m.create_tensor([cfg["batch"], cfg["seq"], cfg["data_dim"]], name="x")
+        t = m.dense(x, cfg["hidden"], name="inp")
+        t = create_moe_encoder(m, t, cfg["layers"], cfg["hidden"], cfg["heads"],
+                               cfg["experts"], cfg["select"], cfg["alpha"], cfg["lam"])
+        m.dense(t, cfg["classes"], name="out")
+    return m
+
+
+def _named_weights(m) -> dict:
+    """Every weight of an FFModel by its name (unnamed layers' weights by
+    the order the graph gives them), as numpy: the global values (a
+    collective in a searched plan)."""
+    out = {}
+    for i, n in enumerate(n for n in m.cg.topological_ordering()
+                          if type(m.cg.op_attrs(n)).__name__ == "WeightAttrs"):
+        name = m.cg.layer_attrs(n).name or f"w{i}"
+        out[name] = m._read_tensor(m.cg.outputs_of(n)[0])
+    return out
+
+
+def _set_named_weights(m, values: dict) -> None:
+    for i, n in enumerate(n for n in m.cg.topological_ordering()
+                          if type(m.cg.op_attrs(n)).__name__ == "WeightAttrs"):
+        m._write_tensor(m.cg.outputs_of(n)[0], values[m.cg.layer_attrs(n).name or f"w{i}"])
+
+
+def _moe_fit(m, x, y, batch: int) -> dict:
+    """m.fit on (x, y) unshuffled, one step a batch: every step's loss
+    (the training loss, aux terms included), the metric sums, the final
+    weights by name."""
+    losses, step = [], m.instance.train_step
+
+    def train_step(*args, **kw):
+        out = step(*args, **kw)
+        losses.append(float(out[2]))
+        return out
+
+    m.instance.train_step = train_step
+    try:
+        perf = m.fit(x, y, epochs=1, shuffle=False, verbose=False)
+    finally:
+        del m.instance.train_step
+    return dict(losses=losses, perf=dataclasses.asdict(perf), weights=_named_weights(m))
+
+
+def _moe_ranks_data(tmp: str, searched: dict = MOE_SEARCHED, small: dict = MOE_SMALL) -> dict:
+    """moe_ranks's seeded parameters and batches, written for the ranks:
+    the searched model's (a), the dp2 x ep2 PCG's (b) and the small
+    encoder's (c), each by weight name."""
+    import numpy as np
+    from flexflow_tpu_torch import core
+
+    rs = np.random.default_rng(7)
+    files = {}
+    for kind, cfg in (("searched", dict(searched, lam=MOE_RANKS_LAMBDA)),
+                      ("encoder", dict(small, lam=MOE_RANKS_LAMBDA))):
+        m = _moe_model(core, cfg, kind, "cpu")
+        m.compile(core.SGDOptimizer(lr=0.1), "sparse_categorical_crossentropy")
+        weights = _named_weights(m)
+        n = MOE_RANKS_STEPS * cfg["batch"]
+        shape = (n, cfg["d"]) if kind == "searched" else (n, cfg["seq"], cfg["data_dim"])
+        x = rs.standard_normal(shape, dtype=np.float32)
+        y = rs.integers(0, cfg["classes"], shape[:-1], dtype=np.int32)
+        files[kind] = os.path.join(tmp, f"moe_{kind}.npz")
+        np.savez(files[kind], x=x, y=y, **weights)
+    ep = MOE_EP
+    weights = {"experts.weight0": rs.standard_normal((ep["d"], ep["experts"])) * 0.5,
+               "experts.weight1": rs.standard_normal((ep["experts"], ep["d"], ep["hidden"])) * 0.2,
+               "experts.weight2": rs.standard_normal((ep["experts"], ep["hidden"])) * 0.1,
+               "experts.weight3": rs.standard_normal((ep["experts"], ep["hidden"], ep["d"])) * 0.2,
+               "experts.weight4": rs.standard_normal((ep["experts"], ep["d"])) * 0.1,
+               "head.weight0": rs.standard_normal((ep["d"], ep["classes"])) * 0.3,
+               "head.weight1": np.zeros(ep["classes"])}
+    files["ep"] = os.path.join(tmp, "moe_ep.npz")
+    np.savez(files["ep"], x=rs.standard_normal((ep["batch"], ep["d"]), dtype=np.float32),
+             y=rs.integers(0, ep["classes"], ep["batch"], dtype=np.int32),
+             **{k: v.astype(np.float32) for k, v in weights.items()})
+    return files
+
+
+def _moe_ep_graph(parallel: bool):
+    """MOE_EP's model: the dp2 x ep2 PCG (Replicate, Experts, Reduction, a
+    dense head) or, for one device, its computation graph; (graph, logits,
+    aux)."""
+    from flexflow_tpu_torch.op_attrs.datatype import DataType
+    from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import lift_to_parallel_with_degrees
+    from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
+    from flexflow_tpu_torch.pcg.computation_graph_builder import ComputationGraphBuilder
+    from flexflow_tpu_torch.pcg.parallel_computation_graph_builder import (
+        ParallelComputationGraphBuilder,
+    )
+
+    ep = MOE_EP
+    args = (ep["experts"], ep["select"], ep["hidden"])
+    kw = dict(capacity_factor=ep["alpha"], lambda_bal=MOE_RANKS_LAMBDA, name="experts")
+    if parallel:
+        b = ParallelComputationGraphBuilder()
+        x = b.create_input_tensor(lift_to_parallel_with_degrees(
+            TensorShape((ep["batch"], ep["d"]), DataType.FLOAT), 1, 1, (2, 1)), name="x")
+        h, aux = b.experts(b.parallel_replicate(x, 2), *args, **kw)
+        h = b.parallel_reduce(h, 2)
+    else:
+        b = ComputationGraphBuilder()
+        x = b.create_input([ep["batch"], ep["d"]], name="x")
+        h, aux = b.experts(x, *args, **kw)
+    return b.graph, b.dense(h, ep["classes"], name="head"), aux
+
+
+def _moe_ep_train(graph, logits, aux, values: dict, x, y, device, mesh=None) -> dict:
+    """MOE_EP's model from the named values: MOE_RANKS_STEPS SGD steps' losses
+    and the final values by name, through the PCG trainer over `mesh` or
+    the single-device one; with each step's collectives over the mesh."""
+    import torch
+    from flexflow_tpu_torch.interop import pcg_params_from_numpy, pcg_params_to_numpy
+    from flexflow_tpu_torch.kernels import make_optimizer_state
+    from flexflow_tpu_torch.local_execution import ModelTrainingInstance
+    from flexflow_tpu_torch.local_execution.training_backing import param_key
+    from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
+    from flexflow_tpu_torch.parallel import DistributedTrainingInstance
+    from flexflow_tpu_torch.pcg import SGDOptimizerAttrs
+
+    names = {param_key(n): graph.layer_attrs(n).name for n in graph.topological_ordering()
+             if type(graph.op_attrs(n)).__name__ == "WeightAttrs"}
+    by_key = {k: values[name] for k, name in names.items()}
+    args = (graph, logits, SparseCategoricalCrossEntropyLossAttrs(), SGDOptimizerAttrs(lr=0.05))
+    if mesh is not None:
+        inst = DistributedTrainingInstance(*args, mesh, device=device, aux_loss_tensors=[aux])
+        params = pcg_params_from_numpy(graph, inst.shardings, mesh, by_key, device)
+    else:
+        inst = ModelTrainingInstance(*args, device=device, aux_loss_tensors=[aux])
+        params = {k: torch.tensor(v, device=device) for k, v in by_key.items()}
+    opt = make_optimizer_state(inst.optimizer_attrs, params)
+    losses, per_step = [], []
+    for _ in range(MOE_RANKS_STEPS):
+        before = dict(mesh.counts) if mesh is not None else {}
+        params, opt, loss, _ = inst.train_step(params, opt, {"x": x}, y)
+        losses.append(float(loss))
+        if mesh is not None:
+            per_step.append({k: v - before.get(k, 0) for k, v in mesh.counts.items()
+                             if v - before.get(k, 0)})
+    final = (pcg_params_to_numpy(graph, inst.shardings, mesh, params) if mesh is not None
+             else {k: v.detach().cpu().numpy() for k, v in params.items()})
+    out = dict(losses=losses, weights={names[k]: v for k, v in final.items()})
+    if mesh is not None:
+        out.update(per_step=per_step,
+                   implied={k: int(v) for k, v in inst.step_collectives().items()})
+    return out
+
+
+def a11_rank(job: dict, device, rank: int, world: int) -> dict:
+    """One rank of the A11 job: on 2 ranks parity_ulysses (card and CPU),
+    train_ulysses, and moe_ranks (a) and (c); on 4, moe_ranks (b). Each
+    part's wall seconds beside it."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch import core
+    from flexflow_tpu_torch.models import SP_LONGCTX
+    from flexflow_tpu_torch.op_attrs.ops import ExpertsAttrs, RepartitionAttrs
+    from flexflow_tpu_torch.parallel import MachineMesh
+
+    out, card = {}, torch.device(device).type == "cuda"
+    if world == 4:
+        start = time.perf_counter()
+        data = np.load(job["moe"]["ep"])
+        graph, logits, aux = _moe_ep_graph(True)
+        x = torch.tensor(data["x"], device=device)
+        y = torch.tensor(data["y"], device=device)
+        run = _moe_ep_train(graph, logits, aux, dict(data), x, y, device,
+                            MachineMesh.for_devices(4))
+        np.savez(f"{job['out']}.moe_ep.rank{rank}.npz", **run.pop("weights"))
+        out["moe_ep"] = dict(run, wall_s=time.perf_counter() - start)
+        return out
+    parity = {}
+    for heads in job["ulysses_heads"]:
+        cfg = _sp_model(heads, sequence_parallel_degree=world, **job.get("ulysses_small", {}))
+        start = time.perf_counter()
+        parity[heads] = {
+            "card": _ulysses_run(cfg, device, world, torch.bfloat16 if card else None, 2),
+            "cpu": _ulysses_run(cfg, "cpu", world, None, 2),
+            "wall_s": time.perf_counter() - start}
+    out["parity_ulysses"] = parity
+    start = time.perf_counter()
+    cfg = dataclasses.replace(SP_LONGCTX, sequence_parallel_degree=world,
+                              **job.get("ulysses_train", {}))
+    out["train_ulysses"] = dict(_ulysses_run(cfg, device, world, torch.bfloat16 if card else None,
+                                             job["ulysses_steps"], warmup=1, alpha=1e-4),
+                                wall_s=time.perf_counter() - start)
+    torch.cuda.empty_cache() if card else None
+    for kind, cfg, config in (
+            ("searched", dict(job.get("moe_searched", MOE_SEARCHED), lam=MOE_RANKS_LAMBDA),
+             dict(max_devices=world, search_budget=4, cost_model="analytic")),
+            ("encoder", dict(job.get("moe_small", MOE_SMALL), lam=MOE_RANKS_LAMBDA),
+             dict(max_devices=world, only_data_parallel=True))):
+        start = time.perf_counter()
+        data = np.load(job["moe"][kind])
+        m = _moe_model(core, cfg, kind, device, **config)
+        m.compile(core.SGDOptimizer(lr=0.1), "sparse_categorical_crossentropy",
+                  metrics=["accuracy", "sparse_categorical_crossentropy"])
+        _set_named_weights(m, dict(data))
+        inst = m.instance
+        counts = inst.machine_mesh.counts if hasattr(inst, "machine_mesh") else inst.collectives
+        before = dict(counts)
+        run = _moe_fit(m, data["x"], data["y"], cfg["batch"])
+        ep = []
+        pcg = getattr(inst, "pcg", None)
+        if pcg is not None:
+            for n in pcg.topological_ordering():
+                if isinstance(pcg.op_attrs(n), ExpertsAttrs):
+                    ep += [pcg.op_attrs(v.node).repartition_degree for v in pcg.inputs_of(n)
+                           if isinstance(pcg.op_attrs(v.node), RepartitionAttrs)
+                           and pcg.op_attrs(v.node).repartition_dim == 0]
+        np.savez(f"{job['out']}.moe_{kind}.rank{rank}.npz", **run["weights"])
+        out[f"moe_{kind}"] = dict(
+            losses=run["losses"], perf=run["perf"],
+            kind=type(inst).__name__, aux=len(inst.aux_loss_tensors), expert_degrees=ep,
+            provenance=m.search_provenance,
+            collectives={k: v - before.get(k, 0) for k, v in counts.items()
+                         if v - before.get(k, 0)},
+            implied={k: int(v) for k, v in inst.step_collectives().items()},
+            wall_s=time.perf_counter() - start)
+        del m, inst
+    return out
+
+
+def _a11_job(world: int, tmp: str, device: str = "cuda:0", **job) -> list:
+    """The A11 rank job on `world` ranks, run once (its ranks cached for the
+    phases that read it)."""
+    if world not in A11_RESULTS:
+        files = A11_RESULTS.get("moe_files") or _moe_ranks_data(
+            tmp, job.get("moe_searched", MOE_SEARCHED), job.get("moe_small", MOE_SMALL))
+        A11_RESULTS["moe_files"] = files
+        job = dict(dict(name=f"a11_{world}", device=device, timeout_s=RANK_TIMEOUT_S / 2,
+                        ulysses_heads=[2, 4], ulysses_steps=ULYSSES_STEPS, moe=files), **job)
+        A11_RESULTS[world] = run_ranks(world, job, tmp, worker=A11_RANK_WORKER,
+                                       timeout=2 * RANK_TIMEOUT_S)
+    return A11_RESULTS[world]
+
+
+def _a11_launches(phase: str, got: dict, on_path: dict) -> None:
+    want = {n: on_path.get(n, 0) for n in got}
+    if got != want:
+        raise AssertionError(f"{phase}: launches {got}, expected {want}")
+
+
+def _check_ulysses_plan(phase: str, run: dict, layers: int, sp: int) -> None:
+    """The Ulysses route (fault C7): every attention node all-to-alls,
+    none rings; 4 all-to-alls a node forward and 4 backward each step, as
+    the plan implies; no ring step; the full sequence attended."""
+    if run["a2a_nodes"] != layers or run["ring_nodes"] or run["ring_steps"]:
+        raise AssertionError(f"{phase}: {run['a2a_nodes']} all-to-all and {run['ring_nodes']} "
+                             f"ring nodes, {run['ring_steps']} ring steps")
+    if run["implied"].get("all_to_all") != 8 * layers:
+        raise AssertionError(f"{phase}: the plan implies {run['implied']}")
+    for step in run["per_step"]:
+        if step != run["implied"]:
+            raise AssertionError(f"{phase}: a step issued {step}, the plan implies "
+                                 f"{run['implied']}")
+
+
+def phase_parity_ulysses(smi: str, tmp: str, device: str = "cuda:0", **job) -> dict:
+    """parity_sp's two small causal models under the Ulysses plan at sp = 2
+    on 2 ranks sharing the card: two Adam steps on the card (bf16, the
+    per-head kernels) and on the CPU (f32, plain versions) on the same
+    ranks; the losses within PARITY_BOUND, the all-to-alls, no ring."""
+    ranks = _a11_job(2, tmp, device, **job)
+    launches = {}
+    for heads in ranks[0]["parity_ulysses"]:
+        runs = [r["parity_ulysses"][heads] for r in ranks]
+        card, cpu = runs[0]["card"], runs[0]["cpu"]
+        model = _sp_model(int(heads), **job.get("ulysses_small", {}))
+        layers, seq = model.num_layers, card["seqs"]
+        route = "row 11 (s <= block)" if seq[-1] <= BHSD_BLOCK else "row 12 (s > block)"
+        if seq != [model.sequence_length] or route != "row 11 (s <= block)":
+            raise AssertionError(f"parity_ulysses heads={heads}: attended {seq}, {route}")
+        for r, run in zip(ranks, runs):
+            _check_ulysses_plan(f"parity_ulysses heads={heads} rank {r['rank']}", run["card"],
+                                layers, ULYSSES_SP)
+            _a11_launches(f"parity_ulysses heads={heads} rank {r['rank']}",
+                          run["card"]["launches"],
+                          {n: 2 * layers for n in BHSD_WRAPPERS})
+            for name, n in run["card"]["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+        rel = [abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"])]
+        if not max(rel) < PARITY_BOUND:
+            raise AssertionError(f"parity_ulysses heads={heads}: card {card['losses']} vs "
+                                 f"CPU {cpu['losses']}")
+        emit({"phase": "parity_ulysses", "head_dim": 256 // int(heads), "ranks": 2,
+              "sharing": f"2 {SHARED}", "card": smi, "sp": ULYSSES_SP,
+              "losses": {"cuda": card["losses"], "cpu": cpu["losses"]}, "rel_err": rel,
+              "bound": PARITY_BOUND, "attended_seq": seq, "bwd_route": route,
+              "block": BHSD_BLOCK, "collectives_per_step": card["implied"],
+              "launches_per_rank": card["launches"], "ring_steps": card["ring_steps"],
+              "wall_s": runs[0]["wall_s"]})
+    return launches
+
+
+def phase_train_ulysses(smi: str, tmp: str, device: str = "cuda:0", single=None, **job) -> dict:
+    """SP_LONGCTX under the Ulysses plan at sp = 2 on 2 ranks sharing the
+    card: a warm-up and ULYSSES_STEPS timed Adam steps in bf16, each rank's
+    4 heads over all 8192 positions through rows 9, 10 and 12; the first
+    step's loss against the single-device step of the same plan at sp = 1
+    (the per-head kernels on the whole sequence, all heads) from the same
+    parameters on the card."""
+    import torch
+    from flexflow_tpu_torch.models import SP_LONGCTX
+
+    ranks = _a11_job(2, tmp, device, **job)
+    cfg = dataclasses.replace(SP_LONGCTX, **job.get("ulysses_train", {}))
+    layers = cfg.num_layers
+    launches = {}
+    for r in ranks:
+        run = r["train_ulysses"]
+        _check_ulysses_plan(f"train_ulysses rank {r['rank']}", run, layers, ULYSSES_SP)
+        _a11_launches(f"train_ulysses rank {r['rank']}", run["launches"],
+                      {n: layers * ULYSSES_STEPS for n in BHSD_WRAPPERS})
+        for name, n in run["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        if run["losses"] != ranks[0]["train_ulysses"]["losses"]:
+            raise AssertionError("train_ulysses: the ranks report different losses")
+    run = ranks[0]["train_ulysses"]
+    if run["seqs"] != [cfg.sequence_length]:
+        raise AssertionError(f"train_ulysses: attended {run['seqs']}")
+    start = time.perf_counter()
+    if single is None:
+        with dp_group():
+            single = _ulysses_run(cfg, device, 1, torch.bfloat16, 1, alpha=1e-4)
+    torch.cuda.empty_cache() if torch.device(device).type == "cuda" else None
+    single_s = time.perf_counter() - start
+    rel = abs(run["warmup_losses"][0] - single["losses"][0]) / abs(single["losses"][0])
+    if not rel < PARITY_BOUND:
+        raise AssertionError(f"train_ulysses: first loss {run['warmup_losses'][0]} vs the "
+                             f"single device's {single['losses'][0]}")
+    median_ms = statistics.median(run["step_ms"])
+    emit({"phase": "train_ulysses", "plan": "ulysses sp2", "ranks": 2, "sharing": f"2 {SHARED}",
+          "card": smi, "config": dataclasses.asdict(cfg), "compute_dtype": "bf16",
+          "optimizer": "adam(alpha=1e-4)", "heads_per_rank_attended": cfg.num_heads // 2,
+          "attended_seq": run["seqs"], "bwd_route": "row 12 (s > block)",
+          "warmup_losses": run["warmup_losses"], "losses": run["losses"],
+          "first_loss_single_device": single["losses"][0], "first_loss_rel_err": rel,
+          "bound": PARITY_BOUND, "step_ms": run["step_ms"], "median_step_ms": median_ms,
+          "tokens_per_s": cfg.batch_size * cfg.sequence_length / (median_ms / 1e3),
+          "single_device_step_ms": single["step_ms"],
+          "step_flops": run["step_flops"], "mfu": _mfu(run["step_flops"], median_ms, 2),
+          "collectives_per_step": run["implied"], "launches_per_rank": run["launches"],
+          "ring_steps": run["ring_steps"], "rank_wall_s": run["wall_s"],
+          "single_device_s": single_s,
+          "note": "step times measure host-staged gloo all-to-alls and all-reduces of two "
+                  "processes on one card, not NVLink or NCCL"})
+    return launches
+
+
+def _moe_layer_inputs(cfg: dict, device):
+    import torch
+    from flexflow_tpu_torch.op_attrs.ops import ExpertsAttrs
+
+    gen = torch.Generator().manual_seed(3)
+    d, e, h = cfg["d"], cfg["experts"], cfg["hidden"]
+    attrs = ExpertsAttrs(e, cfg["select"], h, capacity_factor=cfg["alpha"],
+                         lambda_bal=cfg["lam"])
+    shapes = [(d, e), (e, d, h), (e, h), (e, h, d), (e, d)]
+    scales = [0.5 / math.sqrt(d) * 8, 1 / math.sqrt(d), 0.1, 1 / math.sqrt(h), 0.1]
+    ws = [(torch.randn(*s, generator=gen) * c).to(device) for s, c in zip(shapes, scales)]
+    x = torch.randn(cfg["tokens"], d, generator=gen).to(device)
+    cot = torch.randn(cfg["tokens"], d, generator=gen).to(device)
+    return attrs, x, ws, cot
+
+
+def _moe_layer(fn, attrs, x, ws, cot, **kw):
+    """fn's outputs and the gradients of sum(out * cot) + aux with respect
+    to x and every weight."""
+    import torch
+
+    leaves = [t.detach().requires_grad_(True) for t in [x] + ws]
+    outs = fn(attrs, leaves[0], leaves[1:], **kw)
+    loss = (outs[0] * cot).sum() + outs[1].sum()
+    return outs, torch.autograd.grad(loss, leaves)
+
+
+def phase_parity_moe(smi: str, device: str = "cuda", layer: dict = MOE_LAYER,
+                     small: dict = MOE_SMALL) -> None:
+    """(a) fit_moe's Experts layer alone on the card, f32: the index path
+    against the dense plain version (the JAX package's one-hot einsums) on
+    the same inputs: the routing decisions and the drops identical, the
+    output, the aux loss and every gradient within MOE_LAYER_BOUND, both
+    timed. (b) a small MoE encoder through FFModel, two SGD steps on the
+    card (bf16, rows 1-3) and on the CPU (f32) from the same parameters:
+    the losses within PARITY_BOUND, and the share of routing decisions that
+    differ (bf16 can flip a near tie)."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch import core
+    from flexflow_tpu_torch.interop import ffmodel_state_from_numpy
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import moe
+
+    attrs, x, ws, cot = _moe_layer_inputs(layer, device)
+    decisions = {}
+    idx, gidx = _moe_layer(moe.experts_forward, attrs, x, ws, cot, decisions=decisions)
+    dense, gdense = _moe_layer(moe.experts_forward_dense, attrs, x, ws, cot)
+    cap = decisions["capacity"]
+    a, pos = decisions["topi"].reshape(-1), decisions["pos"]
+    mask = moe.dispatch_mask(a, attrs.num_experts, cap)
+    kept = pos < cap
+    n_kept = int(kept.sum())
+    same = (int(mask.sum()) == n_kept and bool(mask[torch.nonzero(kept)[:, 0], a[kept],
+                                                     pos[kept]].all()))
+    del mask
+    def rel(got, want):
+        return float((got - want).detach().double().norm() / want.detach().double().norm())
+
+    errs = {"out": rel(idx[0], dense[0]), "aux": rel(idx[1], dense[1]),
+            **{f"grad_{n}": rel(g, h) for n, g, h in zip(
+                ("x", "gate", "w1", "b1", "w2", "b2"), gidx, gdense)}}
+    if not same or max(errs.values()) >= MOE_LAYER_BOUND:
+        raise AssertionError(f"parity_moe (a): decisions equal {same}, errors {errs}")
+
+    def step(fn):
+        outs, _ = _moe_layer(fn, attrs, x, ws, cot)
+        return outs
+
+    times = {"index_ms": time_ms(lambda: step(moe.experts_forward), 5),
+             "dense_ms": time_ms(lambda: step(moe.experts_forward_dense), 3)}
+    del idx, gidx, dense, gdense
+    torch.cuda.empty_cache() if device != "cpu" else None
+    emit({"phase": "parity_moe", "part": "experts_layer", "card": smi, "config": layer,
+          "dtype": "f32, TF32 off", "capacity": cap, "decisions": int(a.numel()),
+          "kept": n_kept, "dropped": int(a.numel()) - n_kept, "decisions_equal": same,
+          "rel_err": errs, "bound": MOE_LAYER_BOUND, "forward_backward_ms": times})
+
+    # (b) the small encoder, card (bf16) against CPU (f32)
+    cpu = _moe_model(core, small, "encoder", "cpu")
+    cpu.compile(core.SGDOptimizer(lr=0.01), "sparse_categorical_crossentropy")
+    init = {k: v.detach().numpy().copy() for k, v in cpu.params.items()}
+    rs = np.random.default_rng(5)
+    n = 2 * small["batch"]
+    xs = rs.standard_normal((n, small["seq"], small["data_dim"]), dtype=np.float32)
+    ys = rs.integers(0, small["classes"], (n, small["seq"]), dtype=np.int32)
+    routed, real = {}, moe.experts_forward
+
+    def recording(where):
+        def experts_forward(*args, **kw):
+            d = {}
+            out = real(*args, decisions=d, **kw)
+            routed.setdefault(where, []).append(d["topi"].cpu())
+            return out
+        return experts_forward
+
+    losses = {}
+    for where, dev, dtype in (("cpu", "cpu", None), ("cuda", device, torch.bfloat16)):
+        m = cpu if where == "cpu" else _moe_model(core, small, "encoder", dev)
+        if where != "cpu":
+            m.compile(core.SGDOptimizer(lr=0.01), "sparse_categorical_crossentropy",
+                      compute_dtype=dtype)
+            ffmodel_state_from_numpy(m, init)
+        fa.reset_launch_counts()
+        moe.experts_forward = recording(where)
+        try:
+            run = _moe_fit(m, xs, ys, small["batch"])
+        finally:
+            moe.experts_forward = real
+        losses[where] = run["losses"]
+        launches = {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS}
+    if device != "cpu":
+        _a11_launches("parity_moe (b)", launches,
+                      {name: 2 * small["layers"] for name in FLASH_WRAPPERS})
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
+    differ = sum(int((a != b).sum()) for a, b in zip(routed["cuda"], routed["cpu"]))
+    total = sum(t.numel() for t in routed["cpu"])
+    if not max(rel) < PARITY_BOUND:
+        raise AssertionError(f"parity_moe (b): card losses {losses['cuda']} vs CPU "
+                             f"{losses['cpu']}")
+    emit({"phase": "parity_moe", "part": "encoder", "card": smi, "config": small,
+          "losses": losses, "rel_err": rel, "bound": PARITY_BOUND,
+          "routing_decisions": total, "decisions_differing": differ,
+          "decisions_differing_share": differ / total, "launches": launches})
+
+
+MOE_PROFILE_RANGES = {"route": "gate", "positions": "gate", "_dispatch": "dispatch",
+                      "_expert_mlp": "expert_products", "_combine": "combine"}
+
+
+def _moe_step_profile(m, x, y) -> dict:
+    """One fit step under the profiler, each MoE helper of kernels/moe.py in
+    a range: the device ms of the kernels each launches, forward and (by
+    the autograd nodes of the ops it ran: the same sequence numbers)
+    backward, beside the step's kernel ms and host ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from flexflow_tpu_torch.kernels import moe
+    from flexflow_tpu_torch.profile_step import device_trace
+
+    real = {name: getattr(moe, name) for name in MOE_PROFILE_RANGES}
+
+    def ranged(name, fn):
+        def wrapped(*a, **kw):
+            with torch.profiler.record_function(f"moe.{name}"):
+                return fn(*a, **kw)
+        return wrapped
+
+    for name, fn in real.items():
+        setattr(moe, name, ranged(name, fn))
+    try:
+        torch.cuda.synchronize()
+        with device_trace() as prof:
+            start = time.perf_counter()
+            m.fit(x, y, epochs=1, shuffle=False, verbose=False)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - start) * 1e3
+    finally:
+        for name, fn in real.items():
+            setattr(moe, name, fn)
+    events = prof.events()
+
+    def part_of(e):
+        p = e
+        while p is not None:
+            if p.name.startswith("moe."):
+                return MOE_PROFILE_RANGES[p.name[4:]]
+            p = p.cpu_parent
+        return None
+
+    seq_part = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and getattr(e, "sequence_nr", -1) >= 0:
+            part = part_of(e)
+            if part is not None:
+                seq_part.setdefault(e.sequence_nr, part)
+    parts = {f"{p}_{d}": 0.0 for p in set(MOE_PROFILE_RANGES.values())
+             for d in ("forward", "backward")}
+    by_kernel, kernel_ms = {}, 0.0
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        ms = sum(k.duration for k in e.kernels) / 1e3
+        kernel_ms += ms
+        part, direction = part_of(e), "forward"
+        if part is None:
+            p = e
+            while p is not None and part is None:
+                if "Backward" in p.name and getattr(p, "sequence_nr", -1) in seq_part:
+                    part, direction = seq_part[p.sequence_nr], "backward"
+                p = p.cpu_parent
+        if part is not None:
+            parts[f"{part}_{direction}"] += ms
+            for k in e.kernels:
+                key = (f"{part}_{direction}", k.name[:80])
+                by_kernel[key] = by_kernel.get(key, 0.0) + k.duration / 1e3
+    top = {}
+    for (part, name), ms in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
+        if len(top.setdefault(part, [])) < 3:
+            top[part].append({"kernel": name, "ms": ms})
+    moe_ms = sum(parts.values())
+    # the kernels each operator launched, once each (key_averages' CUDA
+    # rows would add the ranges' own device annotations to them)
+    return {"host_ms": host_ms, "kernel_ms": kernel_ms, "moe_ms": parts,
+            "moe_top_kernels": top, "moe_total_ms": moe_ms,
+            "moe_share_of_kernel_ms": moe_ms / kernel_ms,
+            "moe_share_of_step_ms": moe_ms / host_ms}
+
+
+def phase_fit_moe(smi: str, steps: int = STEPS, cfg: dict = FIT_MOE, device: str = "cuda"):
+    """examples/moe.py --encoder at the flagship's widths (FIT_MOE) through
+    FFModel in bf16 with the example's SGD: a warm-up batch, a timed fit of
+    `steps` seeded host batches with the launch counts set to 0 just
+    before (rows 1-3 once per layer a step, no other flash or ring
+    kernel), then one profiled step: the MoE layers' share by gate,
+    dispatch, expert products and combine."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch import core
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    start = time.perf_counter()
+    m = _moe_model(core, cfg, "encoder", device)
+    m.compile(core.SGDOptimizer(lr=m.config.learning_rate), "sparse_categorical_crossentropy",
+              metrics=["accuracy"], compute_dtype=torch.bfloat16)
+    b = cfg["batch"]
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(((steps + 2) * b, cfg["seq"], cfg["data_dim"]), dtype=np.float32)
+    y = rng.integers(0, cfg["classes"], ((steps + 2) * b, cfg["seq"]), dtype=np.int32)
+    _sync(device)
+    setup_s = time.perf_counter() - start
+    t0 = time.perf_counter()
+    m.fit(x[:b], y[:b], epochs=1, shuffle=False, verbose=False)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    perf = m.fit(x[b:(steps + 1) * b], y[b:(steps + 1) * b], epochs=1, shuffle=False,
+                 verbose=False)
+    elapsed = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS}
+    peak = ({"allocated": torch.cuda.max_memory_allocated(),
+             "reserved": torch.cuda.max_memory_reserved()} if device != "cpu" else {})
+    if device != "cpu":
+        _a11_launches("fit_moe", launches, {n: cfg["layers"] * steps for n in FLASH_WRAPPERS})
+    if perf.train_all != steps * b * cfg["seq"]:
+        raise AssertionError(f"fit_moe: {perf}")
+    profile = (_moe_step_profile(m, x[(steps + 1) * b:], y[(steps + 1) * b:])
+               if device != "cpu" else {})
+    step_ms = elapsed * 1e3 / steps
+    flops = 3 * _graph_forward_flops(m.cg)
+    emit({"phase": "fit_moe", "card": smi, "config": cfg, "compute_dtype": "bf16",
+          "optimizer": f"sgd(lr={m.config.learning_rate})", "setup_s": setup_s,
+          "warmup_fit_ms": warm_ms, "steps": steps, "step_ms": step_ms,
+          "step_ms_is": "the timed fit call's elapsed / steps, ending in one synchronize",
+          "tokens_per_s": b * cfg["seq"] / (step_ms / 1e3), "step_flops": flops,
+          "step_flops_are": "3 x op_forward_flops over the graph (Experts by kernels/ops.py's "
+                            "count: gate, the JAX package's dense dispatch and combine, the "
+                            "expert MLPs at capacity)",
+          "mfu": flops / (step_ms / 1e3) / PEAK_BF16, "peak_memory_bytes": peak,
+          "accuracy": perf.accuracy, "perf": dataclasses.asdict(perf),
+          "profiled_step": profile, "launches": launches,
+          "launches_per_step_each": cfg["layers"]})
+    del m
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return {n: launches[n] for n in FLASH_WRAPPERS}
+
+
+def _moe_single(tmp_files: dict, device, searched: dict = MOE_SEARCHED,
+                small: dict = MOE_SMALL) -> dict:
+    """moe_ranks's single-device references on the card, f32: the searched
+    model's fit (a), the dp2 x ep2 model's steps (b), the encoder's fit (c)."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch import core
+
+    out = {}
+    for kind, cfg in (("searched", dict(searched, lam=MOE_RANKS_LAMBDA)),
+                      ("encoder", dict(small, lam=MOE_RANKS_LAMBDA))):
+        data = np.load(tmp_files[kind])
+        m = _moe_model(core, cfg, kind, device)
+        m.compile(core.SGDOptimizer(lr=0.1), "sparse_categorical_crossentropy",
+                  metrics=["accuracy", "sparse_categorical_crossentropy"])
+        _set_named_weights(m, dict(data))
+        out[kind] = _moe_fit(m, data["x"], data["y"], cfg["batch"])
+        del m
+    data = np.load(tmp_files["ep"])
+    graph, logits, aux = _moe_ep_graph(False)
+    x, y = torch.tensor(data["x"], device=device), torch.tensor(data["y"], device=device)
+    out["ep"] = _moe_ep_train(graph, logits, aux, dict(data), x, y, device)
+    return out
+
+
+def _worst_rel(got: dict, want: dict) -> float:
+    import numpy as np
+
+    return max(float(np.linalg.norm(np.asarray(got[k]) - np.asarray(v))
+                     / max(np.linalg.norm(np.asarray(v)), 1e-30)) for k, v in want.items())
+
+
+def phase_moe_ranks(smi: str, tmp: str, device: str = "cuda:0", **job) -> None:
+    """(a) the searched compile of MOE_SEARCHED on 2 ranks (analytic, the
+    H100 constants): the winner shards the experts, carries the aux loss,
+    and trains within MOE_RANKS_BOUND of one card's fit from the same
+    values; (b) the dp2 x ep2 PCG on 4 ranks, MOE_RANKS_STEPS steps,
+    against the single-device steps; (c) a data-parallel FFModel fit of the
+    small encoder on 2 ranks against one card's (the global batch's
+    routing). f32, TF32 off, the load-balance weight MOE_RANKS_LAMBDA; each
+    run's collectives."""
+    ranks2 = _a11_job(2, tmp, device, **job)
+    ranks4 = _a11_job(4, tmp, device, **job)
+    job = {"moe_encoder": job.get("moe_small", MOE_SMALL), **job}
+    single = _moe_single(A11_RESULTS["moe_files"], device, job.get("moe_searched", MOE_SEARCHED),
+                         job.get("moe_small", MOE_SMALL))
+    import numpy as np
+
+    for kind, ranks in (("searched", ranks2), ("encoder", ranks2), ("ep", ranks4)):
+        want = single[kind]
+        for r in ranks:
+            got = r[f"moe_{kind}"]
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"]))
+            weights = np.load(os.path.join(tmp, f"a11_{len(ranks)}.moe_{kind}.rank{r['rank']}"
+                                                 ".npz"))
+            param_rel = _worst_rel(weights, want["weights"])
+            if not (loss_rel < MOE_RANKS_BOUND and param_rel < MOE_RANKS_BOUND):
+                raise AssertionError(f"moe_ranks {kind} rank {r['rank']}: losses {got['losses']}"
+                                     f" vs one card's {want['losses']}, worst parameter "
+                                     f"{param_rel}")
+            if kind == "ep":
+                for step in got["per_step"]:
+                    if step != got["implied"]:
+                        raise AssertionError(f"moe_ranks ep rank {r['rank']}: {step}, the "
+                                             f"plan implies {got['implied']}")
+            elif got["aux"] != (1 if kind == "searched" else job["moe_encoder"]["layers"]):
+                raise AssertionError(f"moe_ranks {kind}: {got['aux']} aux losses, one a layer "
+                                     "expected")
+        got = ranks[0][f"moe_{kind}"]
+        record = {"phase": "moe_ranks", "run": kind, "ranks": len(ranks),
+                  "sharing": f"{len(ranks)} {SHARED}", "card": smi, "dtype": "f32, TF32 off",
+                  "lambda_bal": MOE_RANKS_LAMBDA, "losses": got["losses"],
+                  "single_device_losses": want["losses"], "loss_rel_err": loss_rel,
+                  "worst_param_rel_err": param_rel, "bound": MOE_RANKS_BOUND,
+                  "wall_s": got["wall_s"]}
+        if kind == "ep":
+            record.update(config=MOE_EP, plan="dp2 x ep2", collectives_per_step=got["implied"])
+        else:
+            steps = MOE_RANKS_STEPS
+            record.update(config=dict(job.get(f"moe_{kind}", MOE_SEARCHED if kind == "searched"
+                                              else MOE_SMALL), lam=MOE_RANKS_LAMBDA),
+                          instance=got["kind"], aux_losses=got["aux"],
+                          collectives_per_step={k: v / steps for k, v in
+                                                got["collectives"].items()},
+                          implied_per_step=got["implied"])
+            if kind == "searched":
+                prov = got["provenance"]
+                if got["kind"] != "DistributedTrainingInstance" or not got[
+                        "expert_degrees"] or max(got["expert_degrees"]) < 2:
+                    raise AssertionError(f"moe_ranks searched: {got['kind']}, expert degrees "
+                                         f"{got['expert_degrees']}, {prov}")
+                record.update(winner=prov["parallel_degrees"], expert_degrees=got[
+                    "expert_degrees"], estimated_ms=prov["estimated_ms"],
+                    serial_ms=prov["serial_ms"], cost_model="analytic, H100 constants")
+            elif got["kind"] != "DataParallelTrainingInstance":
+                raise AssertionError(f"moe_ranks encoder: {got['kind']}")
+        emit(record)
+
+
 def _phases(smi: str, kernels: list, launches: dict, ptxas: dict):
     """The phases in order, as groups: (a context manager factory or None,
     [(name, fn)]), where fn takes the context's value (a temporary
@@ -6595,6 +7529,21 @@ def _phases(smi: str, kernels: list, launches: dict, ptxas: dict):
             ("health_poison", lambda: phase_health_poison(smi)),
             ("roofline", lambda: phase_roofline(smi, step_ms=train_step_ms("roofline"))),
             ("plan_audit", lambda: phase_plan_audit(smi)),
+        ]),
+        # Ulysses attention and mixture of experts (A11): the experts layer
+        # and the MoE encoder on one card, then one rank job per rank count
+        # carrying parity_ulysses, train_ulysses and moe_ranks
+        (None, [
+            ("parity_moe", lambda: phase_parity_moe(smi)),
+            ("fit_moe", rec("fit_moe", lambda: phase_fit_moe(smi), STEPS)),
+        ]),
+        (tempfile.TemporaryDirectory, [
+            # the launches of 2 ranks x 2 models x 2 steps
+            ("parity_ulysses", rec("parity_ulysses", lambda tmp: phase_parity_ulysses(smi, tmp),
+                                   8)),
+            ("train_ulysses", rec("train_ulysses", lambda tmp: phase_train_ulysses(smi, tmp),
+                                  2 * ULYSSES_STEPS)),
+            ("moe_ranks", lambda tmp: phase_moe_ranks(smi, tmp)),
         ]),
     ]
 

@@ -70,8 +70,7 @@ substitution_json_path), branch stacking, and the pricing of the fused
 collective matmuls (overlap).
 
 What reaches a slice that is not ported yet raises NotImplementedError
-naming it, at the call: the layer methods of unported ops (A2), a searched
-compile's memory budget (FFConfig.hbm_gb: the capacity detection,
+naming it, at the call: a searched compile's memory budget (FFConfig.hbm_gb: the capacity detection,
 compile-time verification and provenance around the budgeted search, A13;
 the budgeted search itself, compiler.evaluate_pcg under a
 memory_budget_bytes, is ported) and recompiles (A8 part 2).
@@ -113,6 +112,7 @@ from flexflow_tpu_torch.local_execution.training_backing import (
 from flexflow_tpu_torch.op_attrs.datatype import DataType
 from flexflow_tpu_torch.op_attrs.ops import (
     AggregateSpec,
+    ExpertsAttrs,
     InputAttrs,
     LossFunction,
     PoolOp,
@@ -176,16 +176,6 @@ class Parameter(Tensor):
         self.set_tensor(ffmodel, value)
 
 
-def _unported(method: str, what: str):
-    """A layer method whose op is not ported yet: it raises at the call."""
-
-    def raise_unported(self, *args, **kwargs):
-        raise NotImplementedError(f"FFModel.{method}: {what} is not ported yet (A2)")
-
-    raise_unported.__name__ = method
-    return raise_unported
-
-
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     """A host copy (bf16 widened to f32), never a view of the tensor."""
     t = t.detach()
@@ -241,7 +231,12 @@ class FFModel:
         can be compiled and fit through this API. `cg` may be a bare graph
         or a ComputationGraphBuilder."""
         m = cls(config, device=device)
-        m._builder.graph = cg.graph if isinstance(cg, ComputationGraphBuilder) else cg
+        if isinstance(cg, ComputationGraphBuilder):
+            # with the aux-loss outputs the builder recorded (moe's)
+            m._builder.graph = cg.graph
+            m._aux_loss_tensors.extend(cg.aux_loss_tensors)
+        else:
+            m._builder.graph = cg
         for t in aux_loss_tensors:
             m._aux_loss_tensors.append(t.handle if isinstance(t, Tensor) else t)
         m._wrap(logit_tensor.handle if isinstance(logit_tensor, Tensor) else logit_tensor)
@@ -373,11 +368,23 @@ class FFModel:
     def reshape(self, input, shape, name=None) -> Tensor:
         return self._wrap(self._builder.reshape(self._unwrap(input), shape, name=name))
 
-    transpose = _unported("transpose", "Transpose")
-    reverse = _unported("reverse", "Reverse")
-    gather = _unported("gather", "Gather")
-    top_k = _unported("top_k", "TopK")
-    cast = _unported("cast", "Cast")
+    def transpose(self, input, perm, name=None) -> Tensor:
+        return self._wrap(self._builder.transpose(self._unwrap(input), perm, name=name))
+
+    def reverse(self, input, axis, name=None) -> Tensor:
+        return self._wrap(self._builder.reverse(self._unwrap(input), axis, name=name))
+
+    def gather(self, input, index, dim, name=None) -> Tensor:
+        return self._wrap(self._builder.gather(self._unwrap(input), self._unwrap(index), dim,
+                                               name=name))
+
+    def top_k(self, input, k, sorted=True, name=None) -> Tuple[Tensor, Tensor]:
+        v, i = self._builder.top_k(self._unwrap(input), k, sorted=sorted, name=name)
+        return self._wrap(v), self._wrap(i)
+
+    def cast(self, input, dtype, name=None) -> Tensor:
+        return self._wrap(self._builder.cast(self._unwrap(input), dtype, name=name))
+
     def broadcast(self, input, target_dims, name=None) -> Tensor:
         return self._wrap(self._builder.broadcast(self._unwrap(input), target_dims, name=name))
 
@@ -392,9 +399,26 @@ class FFModel:
         return self._wrap(self._builder.reduce_mean(self._unwrap(input), dims, keepdims=keepdims,
                                                     name=name))
 
-    group_by = _unported("group_by", "GroupBy")
-    aggregate = _unported("aggregate", "Aggregate")
-    moe = _unported("moe", "the Experts op")
+    # mixture of experts
+    def group_by(self, data, assign, n_experts, alpha=1.0, name=None) -> List[Tensor]:
+        outs = self._builder.group_by(self._unwrap(data), self._unwrap(assign), n_experts,
+                                      alpha, name=name)
+        return [self._wrap(o) for o in outs]
+
+    def aggregate(self, gate_preds, gate_assign, exp_preds, name=None) -> Tensor:
+        return self._wrap(self._builder.aggregate(
+            self._unwrap(gate_preds), self._unwrap(gate_assign),
+            [self._unwrap(t) for t in exp_preds], name=name))
+
+    def moe(self, input, num_exp: int, num_select: int, hidden_size: int, alpha: float = 2.0,
+            lambda_bal: float = 0.0, name=None) -> Tensor:
+        """The legacy FFModel::moe (examples/cpp/mixture_of_experts/moe.cc:
+        ff.moe(input, num_exp, num_select, hidden_size, alpha, lambda))."""
+        outs = self._builder.experts(self._unwrap(input), num_exp, num_select, hidden_size,
+                                     capacity_factor=alpha, lambda_bal=lambda_bal, name=name)
+        if len(outs) > 1:  # the load-balance aux loss joins the training loss
+            self._aux_loss_tensors.append(outs[1])
+        return self._wrap(outs[0])
 
     # elementwise binary
     def add(self, x, y, name=None):
@@ -603,9 +627,12 @@ class FFModel:
                 f"a compile over {ndev} devices runs one process per device: open the default "
                 "process group first (parallel.init_file_group, or torch.distributed."
                 "init_process_group under torchrun), or set max_devices=1 (A7 item 4)")
-        if ndev > 1 and self._aux_loss_tensors:
-            raise NotImplementedError(
-                "auxiliary loss tensors over several devices come with the MoE slice (A11)")
+        # the Experts ops' aux losses are found again structurally in the
+        # searched plan (_find_aux_outputs); aux tensors given by hand have no
+        # identity across the lift to a PCG and the rewrites, so such graphs
+        # keep the data-parallel backend rather than train another objective
+        structural_aux = set(_find_aux_outputs(self.cg))
+        custom_aux = [t for t in self._aux_loss_tensors if t not in structural_aux]
         self.invalidate_graphs()
         self.search_provenance = None
         collect, guard = self._step_stats_flags()
@@ -617,6 +644,11 @@ class FFModel:
                 find_branch_partition,
             )
 
+            if structural_aux or custom_aux:
+                raise ValueError(
+                    "submesh_branches cannot train models with auxiliary loss tensors (the "
+                    "sub-mesh step computes the primary loss only; dropping aux terms would "
+                    "change the objective)")
             part = find_branch_partition(self.cg)
             if part is None:
                 raise ValueError(
@@ -631,12 +663,14 @@ class FFModel:
                 self.search_provenance = self._price_resource_splits(ndev)
             except Exception:
                 self.search_provenance = None
-        elif ndev > 1 and cfg.search_budget > 0 and not cfg.only_data_parallel:
+        elif (ndev > 1 and cfg.search_budget > 0 and not cfg.only_data_parallel
+              and not custom_aux):
             self.instance = self._compile_searched(logit, ndev, compute_dtype)
         elif ndev > 1:
             self.instance = DataParallelTrainingInstance(
                 self.cg, logit, self.loss_attrs, self.optimizer_attrs,
                 compute_dtype=compute_dtype, device=self.device, metrics=self.metrics,
+                aux_loss_tensors=self._aux_loss_tensors,
                 collect_step_stats=collect, guard_nonfinite_updates=guard,
             )
         else:
@@ -924,8 +958,8 @@ class FFModel:
         inst = DistributedTrainingInstance(
             pcg, searched_logit, self.loss_attrs, self.optimizer_attrs,
             mesh, mapping=mapping, compute_dtype=compute_dtype, device=self.device,
-            metrics=self.metrics, overlap=cfg.overlap, collect_step_stats=collect,
-            guard_nonfinite_updates=guard)
+            metrics=self.metrics, overlap=cfg.overlap, aux_loss_tensors=_find_aux_outputs(pcg),
+            collect_step_stats=collect, guard_nonfinite_updates=guard)
         if cfg.plan_audit:
             self._record_plan_audit(inst, mapping, priced.get("estimator"),
                                     movement_store=movement_store, cost_store=cost_store)
@@ -2127,11 +2161,22 @@ def _rekey(state: dict, keys: Dict[str, str]) -> dict:
     return out
 
 
+def _find_aux_outputs(graph) -> List[DataflowOutput]:
+    """The aux-loss outputs, found structurally (so they survive the
+    rewrites that rebuild node identity): each secondary output of an
+    Experts op with lambda_bal > 0 is its load-balance scalar."""
+    aux = []
+    for n in graph.topological_ordering():
+        attrs = graph.op_attrs(n)
+        if isinstance(attrs, ExpertsAttrs) and attrs.lambda_bal > 0:
+            aux.extend(graph.outputs_of(n)[1:])
+    return aux
+
+
 def _find_sink_output(graph) -> DataflowOutput:
     """The model output: the unique dataflow output nobody consumes (the
-    Experts op's aux-loss outputs, which the JAX package excludes, are not
-    ported)."""
-    consumed = set()
+    aux-loss outputs, which the training loss consumes, excluded)."""
+    consumed = set(_find_aux_outputs(graph))
     for n in graph.topological_ordering():
         consumed.update(graph.inputs_of(n))
     sinks = [

@@ -1,13 +1,13 @@
 """The example zoo on the port: copies of the repository's examples/ apps
 that import flexflow_tpu_torch (mlp, transformer, bert, split_test,
 split_test_2, candle_uno, dlrm, xdl, alexnet, resnet, resnext50,
-inception), with the
+inception, moe), with the
 same arguments, defaults, seeded synthetic data and printed lines, plus
 `--device` (default cuda; `--device cpu` runs on the host). Each runs as
 
     python -m flexflow_tpu_torch.examples.<name> [args]
 
-and exposes `main(argv=None)`. moe.py waits for the Experts op (A11).
+and exposes `main(argv=None)`.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ SMOKE_ARGV = (
     ("resnext50", ("-b", "2", "--image-size", "64", "--groups", "8", "--classes", "8",
                    "--steps", "1")),
     ("inception", ("-b", "1", "--steps", "1", "--classes", "4")),
+    ("moe", ("-b", "8", "--steps", "2")),
 )
 
 

@@ -17,7 +17,9 @@ variance in training and evaluation alike (no running statistics), the
 whole batch's where ranks split it (`batch_stats_group`).
 
 BatchMatmul is torch.matmul, as the JAX package's is jnp.matmul outside
-any Pallas kernel.
+any Pallas kernel. TopK returns int32 indices in lax.top_k's order (ties
+to the lower index); GroupBy, Aggregate and the fused Experts op are
+kernels/moe.py's index forms of the JAX package's one-hot einsums.
 
 `op_forward_flops` is the JAX package's analytic forward count, which MFU
 divides by; `graph_step_flops` sums it over a graph's step.
@@ -33,6 +35,7 @@ from typing import List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from flexflow_tpu_torch.kernels import moe
 from flexflow_tpu_torch.kernels.flash_attention import (
     current_flash_mesh,
     flash_attention_bshf,
@@ -47,7 +50,9 @@ from flexflow_tpu_torch.op_attrs.ops import (
     AggregateSpec,
     BatchMatmulAttrs,
     BatchNormAttrs,
+    AggregateAttrs,
     BroadcastAttrs,
+    CastAttrs,
     ConcatAttrs,
     Conv2DAttrs,
     DropoutAttrs,
@@ -58,21 +63,27 @@ from flexflow_tpu_torch.op_attrs.ops import (
     EmbeddingAttrs,
     ExpertsAttrs,
     FlatAttrs,
+    GatherAttrs,
+    GroupByAttrs,
     InputAttrs,
     LayerNormAttrs,
     LinearAttrs,
     MultiHeadAttentionAttrs,
+    NoopAttrs,
     Pool2DAttrs,
     PoolOp,
     ReduceAttrs,
     ReduceOpType,
     ReshapeAttrs,
+    ReverseAttrs,
     RingAttentionAttrs,
     SoftmaxAttrs,
     SplitAttrs,
     StackAttrs,
     StageMergeAttrs,
     StagePartitionAttrs,
+    TopKAttrs,
+    TransposeAttrs,
     WeightAttrs,
 )
 from flexflow_tpu_torch.op_attrs.ops.moe import expert_capacity
@@ -399,12 +410,16 @@ def forward(attrs: OpAttrs, inputs: Sequence[torch.Tensor],
     inputs, weights = list(inputs), list(weights)
     if isinstance(attrs, (InputAttrs, WeightAttrs)):
         raise ValueError("input/weight nodes have no kernel; bind their values")
+    if isinstance(attrs, NoopAttrs):
+        return [inputs[0]]
     if isinstance(attrs, ElementUnaryAttrs):
         if attrs.op_type in _SCALAR_FNS:
             return [_SCALAR_FNS[attrs.op_type](inputs[0], attrs.scalar)]
         return [_UNARY_FNS[attrs.op_type](inputs[0])]
     if isinstance(attrs, ElementBinaryAttrs):
         return [_BINARY_FNS[attrs.op_type](inputs[0], inputs[1])]
+    if isinstance(attrs, CastAttrs):
+        return [inputs[0].to(attrs.dtype.to_torch())]
     if isinstance(attrs, LinearAttrs):
         out = inputs[0] @ weights[0]
         if attrs.use_bias:
@@ -435,9 +450,10 @@ def forward(attrs: OpAttrs, inputs: Sequence[torch.Tensor],
     if isinstance(attrs, DropoutAttrs):
         return [dropout(inputs[0], attrs.rate, train, rng)]
     if isinstance(attrs, MultiHeadAttentionAttrs):
-        # RingAttention (and Ulysses) subclass MHA: off a mesh this is the
+        # RingAttention and Ulysses subclass MHA: off a mesh this is the
         # single-device attention, masked as the op says, as in the JAX
-        # package; their sharded schedules live in the parallel executor
+        # package; their sharded schedules (the ring, the all-to-alls) are
+        # the parallel executor's
         q, k, v = inputs
         input_bias = weights[1] if attrs.bias else None
         causal = isinstance(attrs, RingAttentionAttrs) and attrs.causal
@@ -457,12 +473,27 @@ def forward(attrs: OpAttrs, inputs: Sequence[torch.Tensor],
         return list(torch.split(inputs[0], list(attrs.sizes), dim=attrs.axis))
     if isinstance(attrs, ReshapeAttrs):
         return [inputs[0].reshape(attrs.shape)]
+    if isinstance(attrs, TransposeAttrs):
+        return [inputs[0].permute(*attrs.perm)]
+    if isinstance(attrs, ReverseAttrs):
+        return [torch.flip(inputs[0], dims=(attrs.axis % inputs[0].ndim,))]
+    if isinstance(attrs, GatherAttrs):
+        return [torch.gather(inputs[0], attrs.dim % inputs[0].ndim, inputs[1].long())]
+    if isinstance(attrs, TopKAttrs):
+        values, indices = moe.top_k(inputs[0], attrs.k)
+        return [values, indices.to(torch.int32)]
+    if isinstance(attrs, GroupByAttrs):
+        return moe.group_by_forward(attrs, inputs[0], inputs[1])
+    if isinstance(attrs, AggregateAttrs):
+        return [moe.aggregate_forward(attrs, inputs[0], inputs[1], inputs[2:])]
+    if isinstance(attrs, ExpertsAttrs):
+        return moe.experts_forward(attrs, inputs[0], weights)
     if isinstance(attrs, (StagePartitionAttrs, StageMergeAttrs)):
         # the identity on values: the microbatch schedule is a lowering
         # choice (parallel/pipeline.py), so a flat run of a pipelined PCG
         # stays correct
         return [inputs[0]]
-    raise NotImplementedError(f"no kernel for {type(attrs).__name__} in the port yet (A2)")
+    raise TypeError(f"no kernel for {type(attrs).__name__}")
 
 
 def op_forward_flops(

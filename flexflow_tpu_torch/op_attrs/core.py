@@ -1,6 +1,5 @@
-"""Operator types and uniform shape-inference dispatch over the slices' op
-attrs (trimmed copy of flexflow_tpu/op_attrs/core.py; the JAX package's
-GroupBy/Aggregate, Cast and the other shape ops wait, A2).
+"""Operator types and uniform shape-inference dispatch over the op attrs
+(copy of flexflow_tpu/op_attrs/core.py).
 
   get_output_shapes(attrs, inputs)           -> [TensorShape]
   get_weight_shapes(attrs, inputs)           -> [TensorShape]
@@ -15,9 +14,11 @@ import enum
 from typing import List, Sequence, Union
 
 from flexflow_tpu_torch.op_attrs.ops import (
+    AggregateAttrs,
     BatchMatmulAttrs,
     BatchNormAttrs,
     BroadcastAttrs,
+    CastAttrs,
     CombineAttrs,
     ConcatAttrs,
     StackAttrs,
@@ -28,6 +29,8 @@ from flexflow_tpu_torch.op_attrs.ops import (
     EmbeddingAttrs,
     ExpertsAttrs,
     FlatAttrs,
+    GatherAttrs,
+    GroupByAttrs,
     InputAttrs,
     LayerNormAttrs,
     LinearAttrs,
@@ -39,11 +42,14 @@ from flexflow_tpu_torch.op_attrs.ops import (
     RepartitionAttrs,
     ReplicateAttrs,
     ReshapeAttrs,
+    ReverseAttrs,
     RingAttentionAttrs,
     SoftmaxAttrs,
     SplitAttrs,
     StageMergeAttrs,
     StagePartitionAttrs,
+    TopKAttrs,
+    TransposeAttrs,
     UlyssesAttentionAttrs,
     WeightAttrs,
 )
@@ -61,6 +67,7 @@ class OperatorType(enum.Enum):
     NOOP = "noop"
     ELEMENT_UNARY = "element_unary"
     ELEMENT_BINARY = "element_binary"
+    CAST = "cast"
     BROADCAST = "broadcast"
     LINEAR = "linear"
     BATCH_MATMUL = "batch_matmul"
@@ -79,7 +86,13 @@ class OperatorType(enum.Enum):
     STACK = "stack"  # branch-stacking entry (shape_ops.StackAttrs)
     SPLIT = "split"
     RESHAPE = "reshape"
+    TRANSPOSE = "transpose"
+    REVERSE = "reverse"
+    GATHER = "gather"
+    TOPK = "topk"
     REDUCE = "reduce"
+    GROUP_BY = "group_by"
+    AGGREGATE = "aggregate"
     EXPERTS = "experts"
     REPARTITION = "repartition"
     COMBINE = "combine"
@@ -98,11 +111,12 @@ class IncomingTensorRole(enum.Enum):
 
 OpAttrs = Union[
     InputAttrs, WeightAttrs, NoopAttrs, ElementUnaryAttrs, ElementBinaryAttrs,
-    BroadcastAttrs, LinearAttrs, BatchMatmulAttrs, EmbeddingAttrs,
+    CastAttrs, BroadcastAttrs, LinearAttrs, BatchMatmulAttrs, EmbeddingAttrs,
     LayerNormAttrs, SoftmaxAttrs, DropoutAttrs,
     MultiHeadAttentionAttrs, RingAttentionAttrs, UlyssesAttentionAttrs,
     Conv2DAttrs, Pool2DAttrs, FlatAttrs, BatchNormAttrs,
-    ConcatAttrs, StackAttrs, SplitAttrs, ReshapeAttrs, ReduceAttrs, ExpertsAttrs,
+    ConcatAttrs, StackAttrs, SplitAttrs, ReshapeAttrs, TransposeAttrs, ReverseAttrs,
+    GatherAttrs, TopKAttrs, ReduceAttrs, GroupByAttrs, AggregateAttrs, ExpertsAttrs,
     RepartitionAttrs, CombineAttrs, ReplicateAttrs, ReductionAttrs,
     StagePartitionAttrs, StageMergeAttrs,
 ]
@@ -113,6 +127,7 @@ _OP_TYPE_BY_ATTRS = {
     NoopAttrs: OperatorType.NOOP,
     ElementUnaryAttrs: OperatorType.ELEMENT_UNARY,
     ElementBinaryAttrs: OperatorType.ELEMENT_BINARY,
+    CastAttrs: OperatorType.CAST,
     BroadcastAttrs: OperatorType.BROADCAST,
     LinearAttrs: OperatorType.LINEAR,
     BatchMatmulAttrs: OperatorType.BATCH_MATMUL,
@@ -131,7 +146,13 @@ _OP_TYPE_BY_ATTRS = {
     StackAttrs: OperatorType.STACK,
     SplitAttrs: OperatorType.SPLIT,
     ReshapeAttrs: OperatorType.RESHAPE,
+    TransposeAttrs: OperatorType.TRANSPOSE,
+    ReverseAttrs: OperatorType.REVERSE,
+    GatherAttrs: OperatorType.GATHER,
+    TopKAttrs: OperatorType.TOPK,
     ReduceAttrs: OperatorType.REDUCE,
+    GroupByAttrs: OperatorType.GROUP_BY,
+    AggregateAttrs: OperatorType.AGGREGATE,
     ExpertsAttrs: OperatorType.EXPERTS,
     RepartitionAttrs: OperatorType.REPARTITION,
     CombineAttrs: OperatorType.COMBINE,
@@ -188,8 +209,10 @@ def num_data_inputs(attrs: OpAttrs) -> int:
     """Data (non-weight) inputs of the op; -1 for variadic ones."""
     if isinstance(attrs, (InputAttrs, WeightAttrs)):
         return 0
-    if isinstance(attrs, (ElementBinaryAttrs, BatchMatmulAttrs)):
+    if isinstance(attrs, (ElementBinaryAttrs, BatchMatmulAttrs, GatherAttrs, GroupByAttrs)):
         return 2
+    if isinstance(attrs, AggregateAttrs):
+        return 2 + attrs.n
     if isinstance(attrs, MultiHeadAttentionAttrs):
         return 3
     if isinstance(attrs, (ConcatAttrs, StackAttrs)):
@@ -200,6 +223,10 @@ def num_data_inputs(attrs: OpAttrs) -> int:
 def num_outputs(attrs: OpAttrs, inputs: Sequence[TensorShape] = ()) -> int:
     if isinstance(attrs, SplitAttrs):
         return len(attrs.sizes)
+    if isinstance(attrs, TopKAttrs):
+        return 2
+    if isinstance(attrs, GroupByAttrs):
+        return attrs.n_experts
     if isinstance(attrs, ExpertsAttrs):
         return 2 if attrs.lambda_bal > 0 else 1
     return 1
@@ -210,10 +237,10 @@ def get_output_shapes(
 ) -> List[TensorShape]:
     if isinstance(attrs, (InputAttrs, WeightAttrs)):
         return [attrs.output_shape()]
-    if isinstance(attrs, SplitAttrs):
+    if isinstance(attrs, (SplitAttrs, TopKAttrs, ExpertsAttrs)):
         return list(attrs.output_shapes(inputs[0]))
-    if isinstance(attrs, ExpertsAttrs):
-        return list(attrs.output_shapes(inputs[0]))
+    if isinstance(attrs, GroupByAttrs):
+        return list(attrs.output_shapes(inputs[0], inputs[1]))
     if isinstance(attrs, (RepartitionAttrs, CombineAttrs, ReplicateAttrs, ReductionAttrs)):
         # parallel ops are the identity on sequential shapes
         return [inputs[0]]
@@ -257,10 +284,10 @@ def get_parallel_output_shapes(
 ) -> List[ParallelTensorShape]:
     if isinstance(attrs, (InputAttrs, WeightAttrs)):
         return [attrs.parallel_output_shape()]
-    if isinstance(attrs, SplitAttrs):
+    if isinstance(attrs, (SplitAttrs, TopKAttrs, ExpertsAttrs)):
         return list(attrs.parallel_output_shapes(inputs[0]))
-    if isinstance(attrs, ExpertsAttrs):
-        return list(attrs.parallel_output_shapes(inputs[0]))
+    if isinstance(attrs, GroupByAttrs):
+        return list(attrs.parallel_output_shapes(inputs[0], inputs[1]))
     return [attrs.parallel_output_shape(*inputs)]
 
 

@@ -1,9 +1,9 @@
-"""Operator attrs of the slices: Input, Weight, Noop, Linear, Embedding,
-MultiHeadAttention, RingAttention, ElementUnary, ElementBinary, LayerNorm,
-Softmax, Dropout, the example zoo's Conv2D, Pool2D, Flat, BatchNorm, Concat,
-Split and Reshape, the four parallel ops and the two pipeline-stage ops, the loss attrs, and the attrs the
-search's rules name without a kernel in the port (UlyssesAttention,
-BatchMatmul, Broadcast, Reduce, Experts)."""
+"""Operator attrs of the port: Input, Weight, Noop, Linear, BatchMatmul,
+Embedding, MultiHeadAttention, RingAttention, UlyssesAttention,
+ElementUnary, ElementBinary, Cast, Broadcast, LayerNorm, Softmax, Dropout,
+Conv2D, Pool2D, Flat, BatchNorm, Concat, Stack, Split, Reshape, Transpose,
+Reverse, Gather, TopK, Reduce, GroupBy, Aggregate, Experts, the four
+parallel ops, the two pipeline-stage ops and the loss attrs."""
 
 from flexflow_tpu_torch.op_attrs.ops.attention import MultiHeadAttentionAttrs
 from flexflow_tpu_torch.op_attrs.ops.conv_ops import (
@@ -19,6 +19,7 @@ from flexflow_tpu_torch.op_attrs.ops.elementwise import (
     ElementUnaryAttrs,
     ElementUnaryOpType,
     BroadcastAttrs,
+    CastAttrs,
 )
 from flexflow_tpu_torch.op_attrs.ops.io import InputAttrs, NoopAttrs, WeightAttrs
 from flexflow_tpu_torch.op_attrs.ops.linear_ops import (
@@ -44,22 +45,33 @@ from flexflow_tpu_torch.op_attrs.ops.parallel_ops import (
     StagePartitionAttrs,
 )
 from flexflow_tpu_torch.op_attrs.ops.ring_attention import RingAttentionAttrs
-from flexflow_tpu_torch.op_attrs.ops.moe import ExpertsAttrs
+from flexflow_tpu_torch.op_attrs.ops.moe import (
+    AggregateAttrs,
+    ExpertsAttrs,
+    GroupByAttrs,
+    expert_capacity,
+)
 from flexflow_tpu_torch.op_attrs.ops.shape_ops import (
     ConcatAttrs,
+    GatherAttrs,
     ReduceAttrs,
     ReduceOpType,
     ReshapeAttrs,
+    ReverseAttrs,
     SplitAttrs,
     StackAttrs,
+    TopKAttrs,
+    TransposeAttrs,
 )
 from flexflow_tpu_torch.op_attrs.ops.ulysses_attention import UlyssesAttentionAttrs
 
 __all__ = [
+    "AggregateAttrs",
     "AggregateSpec",
     "BatchMatmulAttrs",
     "BatchNormAttrs",
     "BroadcastAttrs",
+    "CastAttrs",
     "CombineAttrs",
     "ConcatAttrs",
     "Conv2DAttrs",
@@ -71,6 +83,8 @@ __all__ = [
     "EmbeddingAttrs",
     "ExpertsAttrs",
     "FlatAttrs",
+    "GatherAttrs",
+    "GroupByAttrs",
     "InputAttrs",
     "LayerNormAttrs",
     "LinearAttrs",
@@ -89,12 +103,16 @@ __all__ = [
     "RepartitionAttrs",
     "ReplicateAttrs",
     "ReshapeAttrs",
+    "ReverseAttrs",
     "RingAttentionAttrs",
     "SoftmaxAttrs",
     "SparseCategoricalCrossEntropyLossAttrs",
     "SplitAttrs",
     "StackAttrs",
+    "TopKAttrs",
+    "TransposeAttrs",
     "UlyssesAttentionAttrs",
     "WeightAttrs",
+    "expert_capacity",
     "loss_attrs_for",
 ]

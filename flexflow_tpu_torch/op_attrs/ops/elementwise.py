@@ -1,6 +1,6 @@
-"""ElementUnary / ElementBinary / Broadcast attrs (trimmed copy of
+"""ElementUnary / ElementBinary / Cast / Broadcast attrs (copy of
 flexflow_tpu/op_attrs/ops/elementwise.py: the sequential and the parallel
-shape rules; Broadcast is attrs only, named by the search's rules).
+shape rules).
 
 Elementwise ops keep shard degrees. A sum degree passes only through ops
 that are linear in their input; nonlinear ops need it to be 1."""
@@ -11,6 +11,7 @@ import enum
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+from flexflow_tpu_torch.op_attrs.datatype import DataType
 from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
     ParallelTensorDims,
     ParallelTensorShape,
@@ -104,6 +105,17 @@ class ElementBinaryAttrs:
             ),
             lhs.dtype,
         )
+
+
+@dataclass(frozen=True)
+class CastAttrs:
+    dtype: DataType
+
+    def output_shape(self, input: TensorShape) -> TensorShape:
+        return TensorShape(input.dims, self.dtype)
+
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        return ParallelTensorShape(input.dims, self.dtype)
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,7 @@
-"""The fused Mixture-of-Experts op's attrs (trimmed copy of
-flexflow_tpu/op_attrs/ops/moe.py: ExpertsAttrs with its sequential and
-parallel shape rules, named by the search's expert-parallel rules; the op has
-no kernel in the port yet, A2/A11).
+"""Mixture-of-Experts attrs (copy of flexflow_tpu/op_attrs/ops/moe.py):
+the GroupBy and Aggregate ops of the legacy composition, and the fused
+Experts op with its sequential and parallel shape rules, named by the
+search's expert-parallel rules. Their forwards are kernels/moe.py.
 
 Expert parallelism: the input is replicated over the expert axes
 (discard_copy_degree = ep) while the expert weights are sharded on their
@@ -28,6 +28,62 @@ from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
 def expert_capacity(num_tokens: int, num_experts: int, num_select: int, alpha: float) -> int:
     """Static per-expert token capacity."""
     return max(1, math.ceil(alpha * num_select * num_tokens / num_experts))
+
+
+@dataclass(frozen=True)
+class GroupByAttrs:
+    """Route tokens to per-expert buffers (the legacy Group_by op).
+
+    inputs: data [B, D] float, assign [B, k] int (expert indices from TopK);
+    outputs: n_experts tensors [capacity, D], capacity = ceil(alpha*k*B/E)."""
+
+    n_experts: int
+    alpha: float = 1.0
+
+    def capacity(self, data: TensorShape, assign: TensorShape) -> int:
+        return expert_capacity(data.dims[0], self.n_experts, assign.dims[-1], self.alpha)
+
+    def output_shapes(self, data: TensorShape, assign: TensorShape) -> List[TensorShape]:
+        if data.num_dims != 2 or assign.num_dims != 2 or data.dims[0] != assign.dims[0]:
+            raise ValueError(f"group_by takes data [B, D] and assign [B, k]: {data}, {assign}")
+        if assign.dtype.is_floating:
+            raise ValueError("group_by's assignment must be integral")
+        cap = self.capacity(data, assign)
+        return [TensorShape((cap, data.dims[1]), data.dtype) for _ in range(self.n_experts)]
+
+    def parallel_output_shapes(self, data: ParallelTensorShape, assign: ParallelTensorShape
+                               ) -> List[ParallelTensorShape]:
+        """Dispatch positions are a cumsum over every token, so the op takes
+        unsharded inputs (expert parallelism goes through Experts)."""
+        if any(d != 1 for d in data.shard_degrees() + assign.shard_degrees()) or data.sum_degree != 1:
+            raise ValueError(f"group_by takes unsharded inputs: {data}, {assign}")
+        outs = self.output_shapes(get_reduced_shape(data), get_reduced_shape(assign))
+        return [lift_to_parallel_with_degrees(o, 1, data.discard_copy_degree, (1,) * o.num_dims)
+                for o in outs]
+
+
+@dataclass(frozen=True)
+class AggregateAttrs:
+    """Combine per-expert outputs back into token order, weighted by the
+    gate values (the legacy Aggregate op's data-bearing slots).
+
+    inputs: gate_preds [B, k], gate_assign [B, k] int, then n exp_preds
+    [capacity, D]; output [B, D]."""
+
+    n: int
+
+    def output_shape(self, *inputs: TensorShape) -> TensorShape:
+        gate_preds, gate_assign, exp_preds = inputs[0], inputs[1], inputs[2:]
+        if len(exp_preds) != self.n or gate_preds.dims != gate_assign.dims:
+            raise ValueError(f"aggregate of {self.n} experts: {inputs}")
+        return TensorShape((gate_preds.dims[0], exp_preds[0].dims[-1]), exp_preds[0].dtype)
+
+    def parallel_output_shape(self, *inputs: ParallelTensorShape) -> ParallelTensorShape:
+        for s in inputs:
+            if any(d != 1 for d in s.shard_degrees()) or s.sum_degree != 1:
+                raise ValueError(f"aggregate takes unsharded inputs: {s}")
+        unpar = self.output_shape(*[get_reduced_shape(s) for s in inputs])
+        return lift_to_parallel_with_degrees(unpar, 1, inputs[0].discard_copy_degree, (1, 1))
 
 
 @dataclass(frozen=True)

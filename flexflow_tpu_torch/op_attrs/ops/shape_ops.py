@@ -1,7 +1,6 @@
-"""Concat, Stack, Split, Reshape and Reduce attrs (trimmed copy of
-flexflow_tpu/op_attrs/ops/shape_ops.py: the shape ops of the example zoo
-and of branch stacking, with their sequential and parallel shape rules;
-the other shape ops wait, A2)."""
+"""Concat, Stack, Split, Reshape, Transpose, Reverse, Gather, TopK and
+Reduce attrs (copy of flexflow_tpu/op_attrs/ops/shape_ops.py, with their
+sequential and parallel shape rules)."""
 
 from __future__ import annotations
 
@@ -131,6 +130,81 @@ class ReshapeAttrs:
         return lift_to_parallel_with_degrees(
             unpar, input.sum_degree, input.discard_copy_degree, out_degrees
         )
+
+
+@dataclass(frozen=True)
+class TransposeAttrs:
+    perm: Tuple[int, ...]
+
+    def output_shape(self, input: TensorShape) -> TensorShape:
+        if sorted(self.perm) != list(range(input.num_dims)):
+            raise ValueError(f"perm {self.perm} is no permutation of {input}")
+        return TensorShape(tuple(input.dims[p] for p in self.perm), input.dtype)
+
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        """The degrees permute with the dims."""
+        unpar = self.output_shape(get_reduced_shape(input))
+        out_degrees = tuple(input.shard_degrees()[p] for p in self.perm)
+        return lift_to_parallel_with_degrees(
+            unpar, input.sum_degree, input.discard_copy_degree, out_degrees)
+
+
+@dataclass(frozen=True)
+class ReverseAttrs:
+    axis: int
+
+    def output_shape(self, input: TensorShape) -> TensorShape:
+        return input
+
+    def parallel_output_shape(self, input: ParallelTensorShape) -> ParallelTensorShape:
+        """The reversed axis must be unsharded."""
+        if input.shard_dim_at(self.axis % input.num_dims).degree != 1:
+            raise ValueError(f"reverse of a sharded axis {self.axis}: {input}")
+        return input
+
+
+@dataclass(frozen=True)
+class GatherAttrs:
+    dim: int
+
+    def output_shape(self, input: TensorShape, index: TensorShape) -> TensorShape:
+        """torch.gather's semantics: the output has the index's shape."""
+        if input.num_dims != index.num_dims:
+            raise ValueError(f"gather of {input} at {index}: ranks differ")
+        return TensorShape(index.dims, input.dtype)
+
+    def parallel_output_shape(self, input: ParallelTensorShape,
+                              index: ParallelTensorShape) -> ParallelTensorShape:
+        """The gathered dim must be unsharded; the index's degrees carry to
+        the output."""
+        d = self.dim % input.num_dims
+        if input.shard_dim_at(d).degree != 1 or input.sum_degree != 1:
+            raise ValueError(f"gather along a sharded or partial dim {d}: {input}")
+        unpar = self.output_shape(get_reduced_shape(input), get_reduced_shape(index))
+        return lift_to_parallel_with_degrees(
+            unpar, 1, min(input.discard_copy_degree, index.discard_copy_degree),
+            index.shard_degrees())
+
+
+@dataclass(frozen=True)
+class TopKAttrs:
+    k: int
+    sorted: bool = True
+
+    def output_shapes(self, input: TensorShape) -> Tuple[TensorShape, TensorShape]:
+        from flexflow_tpu_torch.op_attrs.datatype import DataType
+
+        out = input.with_dim(-1, self.k)
+        return out, TensorShape(out.dims, DataType.INT32)
+
+    def parallel_output_shapes(self, input: ParallelTensorShape
+                               ) -> Tuple[ParallelTensorShape, ParallelTensorShape]:
+        if input.shard_dim_at(-1).degree != 1 or input.sum_degree != 1:
+            raise ValueError(f"top_k's dim must be whole: {input}")
+        values, indices = self.output_shapes(get_reduced_shape(input))
+        degs = input.shard_degrees()
+        return (lift_to_parallel_with_degrees(values, 1, input.discard_copy_degree, degs),
+                lift_to_parallel_with_degrees(indices, 1, input.discard_copy_degree, degs))
 
 
 class ReduceOpType(enum.Enum):

@@ -21,6 +21,16 @@ different batch rows), each holds only its own work's share, and
 all-reduce of the gradients) for statistics a batch-coupled op takes over
 the ranks that share the batch.
 
+`all_to_all` is the tiled all-to-all of lax.all_to_all(..., tiled=True)
+over a set of axes, for Ulysses attention: x is cut into as many chunks
+along its split dim as the axes hold ranks, chunk j goes to the rank of
+piece j, and the chunks received are concatenated along the concat dim in
+piece order. Its backward is the all-to-all with the two dims swapped.
+NCCL runs it as one `all_to_all_single` on the device; gloo's all-to-all
+takes host tensors, so a card's tensor is staged through pinned host
+memory explicitly (copied out, exchanged on the host, copied back to its
+card: the result is always on the input's device).
+
 Everything runs on the list-form `all_gather` and on `all_reduce` over the
 subgroup of a set of axes, so gloo (CPU ranks, and ranks sharing one card)
 and NCCL (one card per rank) both take it. Partial sums and gradients are
@@ -154,6 +164,42 @@ class _AllReduceSum(torch.autograd.Function):
         return _reduce_f32(g, ctx.group, ctx.counts), None, None
 
 
+def _exchange(x: torch.Tensor, split: int, concat: int, mesh: MachineMesh, axes: Axes
+              ) -> torch.Tensor:
+    n = mesh.size(axes)
+    if x.shape[split] % n:
+        raise ValueError(f"all-to-all: dim {split} of size {x.shape[split]} does not divide "
+                         f"over {n} ranks (mesh axes {', '.join(axes)})")
+    group, peers = mesh.group_of(axes)
+    # group rank of each piece: all_to_all_single sends block g to group rank g
+    order = [p if group is None else dist.get_group_rank(group, p) for p in peers]
+    piece_of = {g: i for i, g in enumerate(order)}
+    chunks = x.chunk(n, dim=split)
+    send = torch.stack([chunks[piece_of[g]] for g in range(n)])
+    mesh.counts["all_to_all"] += 1
+    if mesh.backend != "nccl" and send.device.type == "cuda":
+        host = torch.empty(send.shape, dtype=send.dtype, pin_memory=True)
+        host.copy_(send)
+        got = torch.empty_like(host, pin_memory=True)
+        dist.all_to_all_single(got, host, group=group)
+        recv = got.to(send.device, non_blocking=True)
+    else:
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+    return torch.cat([recv[order[i]] for i in range(n)], dim=concat)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split: int, concat: int, mesh: MachineMesh, axes: Axes):
+        ctx.split, ctx.concat, ctx.mesh, ctx.axes = split, concat, mesh, axes
+        return _exchange(x, split, concat, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.concat, ctx.split, ctx.mesh, ctx.axes), None, None, None, None
+
+
 def _trivial(mesh: MachineMesh, axes: Sequence[str]) -> bool:
     return mesh.size(axes) == 1
 
@@ -186,6 +232,15 @@ def all_reduce_sum(x: torch.Tensor, group, counts=None) -> torch.Tensor:
     if dist.get_world_size(group) == 1:
         return x
     return _AllReduceSum.apply(x, group, counts)
+
+
+def all_to_all(x: torch.Tensor, split: int, concat: int, mesh: MachineMesh, axes: Axes
+               ) -> torch.Tensor:
+    """The tiled all-to-all over `axes` (module note): x's dim `split` cut
+    into one chunk per piece, the chunks received joined along `concat`;
+    the identity over one rank. Differentiable: the backward swaps the
+    dims."""
+    return x if _trivial(mesh, axes) else _AllToAll.apply(x, split, concat, mesh, tuple(axes))
 
 
 def all_reduce_extreme(x: torch.Tensor, mesh: MachineMesh, axes: Axes, largest: bool

@@ -8,10 +8,13 @@ Here each rank is one process on one device: it takes its own block of
 rows of the global batch (the global batch itself, of which it keeps its
 block, or the block alone, as FFModel feeds it: `feed_blocks`), runs the
 single-device forward and backward under `flash_mesh` (so attention rides
-the per-head kernels on the local block) and under `batch_stats_group` (so
+the per-head kernels on the local block), under `batch_stats_group` (so
 BatchNorm normalizes by the whole batch's statistics, as GSPMD does: their
 sums are all-reduced over the group, and the all-reduce's backward carries
-every rank's share of their gradient back), and averages the f32 gradients
+every rank's share of their gradient back) and under `batch_routing` (so
+the Experts op routes the whole batch: its capacity, its positions and its
+load-balance loss are the global batch's, kernels/moe.py; each rank adds
+the global aux loss, and the averaged gradients take it once), and averages the f32 gradients
 over the group in buckets that the backward issues as it produces them
 (parallel/collectives.py, `BucketedBackward`), then the loss and the
 step's metric sums in one bucket of their own. Every rank then applies the
@@ -36,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from flexflow_tpu_torch.kernels.flash_attention import flash_mesh
+from flexflow_tpu_torch.kernels.moe import BatchRouting, batch_routing
 from flexflow_tpu_torch.kernels.ops import batch_stats_group
 from flexflow_tpu_torch.local_execution.training_backing import (
     ModelTrainingInstance,
@@ -43,7 +47,7 @@ from flexflow_tpu_torch.local_execution.training_backing import (
     resolve_device,
     weight_nodes,
 )
-from flexflow_tpu_torch.op_attrs.ops import BatchNormAttrs, InputAttrs, LossAttrs
+from flexflow_tpu_torch.op_attrs.ops import BatchNormAttrs, ExpertsAttrs, InputAttrs, LossAttrs
 from flexflow_tpu_torch.parallel import collectives as C
 from flexflow_tpu_torch.parallel.sharding import is_rank_block
 from flexflow_tpu_torch.pcg.computation_graph import ComputationGraph
@@ -123,12 +127,14 @@ class DataParallelTrainingInstance(ModelTrainingInstance):
         device=None,
         group=None,
         metrics=frozenset(),
+        aux_loss_tensors=(),
         collect_step_stats: bool = False,
         guard_nonfinite_updates: bool = False,
     ) -> None:
         """group: the process group (None: the default one, which must be
         initialized). device: cuda:<local rank> unless given. metrics: the
         names compute_metrics evaluates, summed over the ranks.
+        aux_loss_tensors: graph outputs whose sums join the loss.
         collect_step_stats / guard_nonfinite_updates: as
         ModelTrainingInstance's; every rank holds the whole parameters and
         the averaged gradients, so its norms are the global ones."""
@@ -141,7 +147,8 @@ class DataParallelTrainingInstance(ModelTrainingInstance):
         self.world_size = dist.get_world_size(group)
         super().__init__(cg, logit_tensor, loss_attrs, optimizer_attrs,
                          compute_dtype=compute_dtype, device=_rank_device(device, dist.get_rank()),
-                         metrics=metrics, collect_step_stats=collect_step_stats,
+                         metrics=metrics, aux_loss_tensors=aux_loss_tensors,
+                         collect_step_stats=collect_step_stats,
                          guard_nonfinite_updates=guard_nonfinite_updates)
         # collectives issued by train steps so far, by kind
         self.collectives = collections.Counter()
@@ -161,14 +168,23 @@ class DataParallelTrainingInstance(ModelTrainingInstance):
     def step_collectives(self) -> collections.Counter:
         """The collectives a train step issues, by kind: one all-reduce per
         gradient bucket of the plan (BUCKET_CAP_BYTES, the parameters'
-        sizes), one of the loss and the metrics, and BatchNorm's
-        statistics over several ranks."""
+        sizes), one of the loss and the metrics, BatchNorm's statistics
+        over several ranks, and each Experts op's routing: an all-gather of
+        the blocks' decision counts and, with an aux loss, the all-reduce of
+        its probability sums (and of their gradient where the loss takes
+        it)."""
         out = collections.Counter(all_reduce=len(self.buckets) + 1)
         if self.world_size > 1:
             for n in self.cg.topological_ordering():
-                if isinstance(self.cg.op_attrs(n), BatchNormAttrs):
+                attrs = self.cg.op_attrs(n)
+                if isinstance(attrs, BatchNormAttrs):
                     out["all_reduce"] += 4  # mean and variance sums, forward and backward
-        return out
+                elif isinstance(attrs, ExpertsAttrs):
+                    out["all_gather"] += 1
+                    if attrs.lambda_bal > 0:
+                        aux = self.cg.outputs_of(n)[1]
+                        out["all_reduce"] += 2 if aux in self.aux_loss_tensors else 1
+        return +out
 
     def step_flops(self) -> int:
         """A train step's flops of the model's own work, as MFU counts it
@@ -227,8 +243,23 @@ class DataParallelTrainingInstance(ModelTrainingInstance):
         from flexflow_tpu_torch.parallel.collectives import all_reduce_sum
 
         with flash_mesh(self.group), batch_stats_group(
-                lambda t: all_reduce_sum(t, self.group, self.collectives)):
+                lambda t: all_reduce_sum(t, self.group, self.collectives)), \
+                batch_routing(self._routing()):
             return super().loss_fn(params, batch_inputs, label, rng)
+
+    def _routing(self) -> Optional[BatchRouting]:
+        """The ranks' blocks of the batch, in rank order, for the Experts op."""
+        if self.world_size == 1:
+            return None
+
+        def gather(t):
+            parts = [torch.empty_like(t) for _ in range(self.world_size)]
+            dist.all_gather(parts, t.contiguous(), group=self.group)
+            self.collectives["all_gather"] += 1
+            return torch.stack(parts)
+
+        return BatchRouting(self.rank, self.world_size, gather,
+                            lambda t: C.all_reduce_sum(t, self.group, self.collectives))
 
     def _dropout_masks(self, rng):
         """The single-device trainer's masks (drawn at the global batch),

@@ -23,8 +23,19 @@ computes:
   as it produces them (parallel/collectives.py, `BucketedBackward`);
 - attention runs the rank's local heads (the weight piece's head count)
   through the per-head [b, h, s, d] kernels, as the JAX package's
-  _try_sharded_flash_mha does, and RingAttention rotates key/value blocks
-  over the axes of its sequence dim;
+  _try_sharded_flash_mha does; RingAttention rotates key/value blocks over
+  the axes of its sequence dim, and UlyssesAttention (a subclass, taken
+  first, as the JAX executor dispatches it) all-to-alls heads for sequence
+  over those axes instead (kernels/ulysses_attention.py): four all-to-alls
+  forward and four backward a node, no ring step;
+- the Experts op gates every expert on every rank and runs the experts of
+  its piece of the expert dim, whose axes make its output a partial sum
+  (the plan's Reduction sums it); over a batch cut into blocks it routes
+  the global batch (kernels/moe.py `batch_routing`: positions, capacity
+  and the load-balance loss of the whole batch, as the JAX package's
+  global-view op computes them). Its aux loss enters each rank's loss so
+  that the loss reported counts it once and the gate's gradient takes it
+  once (DistributedTrainingInstance.loss_fn);
 - a bias on a partial sum (a contraction-sharded Linear, a head-parallel
   attention's output bias) is added on the ranks at sum index 0 only;
 - BatchNorm takes its statistics over the axes of its batch dims;
@@ -88,6 +99,7 @@ from flexflow_tpu_torch.kernels import forward as kernel_forward
 from flexflow_tpu_torch.kernels import loss_forward, make_optimizer_state
 from flexflow_tpu_torch.kernels.loss import class_sharded_loss
 from flexflow_tpu_torch.kernels.metrics import class_sharded_metrics
+from flexflow_tpu_torch.kernels import moe as MOE
 from flexflow_tpu_torch.kernels.flash_attention import (
     sharded_flash_attention,
     sharded_flash_supported,
@@ -100,6 +112,7 @@ from flexflow_tpu_torch.kernels.ops import (
 )
 from flexflow_tpu_torch.kernels.precision import cast_for_compute
 from flexflow_tpu_torch.kernels.ring_attention import ring_mha_forward
+from flexflow_tpu_torch.kernels.ulysses_attention import ulysses_mha_forward
 from flexflow_tpu_torch.local_execution.training_backing import (
     ModelTrainingInstance,
     ParamKey,
@@ -121,6 +134,7 @@ from flexflow_tpu_torch.op_attrs.ops import (
     ElementUnaryAttrs,
     ElementUnaryOpType,
     EmbeddingAttrs,
+    ExpertsAttrs,
     FlatAttrs,
     InputAttrs,
     LayerNormAttrs,
@@ -134,6 +148,7 @@ from flexflow_tpu_torch.op_attrs.ops import (
     RingAttentionAttrs,
     SoftmaxAttrs,
     SplitAttrs,
+    UlyssesAttentionAttrs,
     WeightAttrs,
 )
 from flexflow_tpu_torch.parallel import collectives as C
@@ -278,6 +293,9 @@ class _NodePlan:
     bias_axes: Axes = ()  # a bias on a partial sum: added at index 0 of these
     stats_axes: Axes = ()  # BatchNorm: the axes of its batch dims
     ring_axes: Axes = ()  # RingAttention: the axes of its sequence dim
+    a2a_axes: Axes = ()  # UlyssesAttention: the axes its all-to-alls run over
+    expert_axes: Axes = ()  # Experts: the axes of its expert dim (a partial sum)
+    routing_axes: Axes = ()  # Experts: the axes of its batch blocks
     fused: str = ""  # a collective-matmul site lowered fused: its kind
     fused_axes: Axes = ()  # the ring's axes
     fused_dim: int = 0  # ag_matmul: the dim the ring gathers
@@ -286,16 +304,18 @@ class _NodePlan:
 
 
 def _requirements(pcg, n, attrs, shardings, mesh):
-    """(what each input slot must be sharded as, bias axes, BatchNorm batch
-    axes, ring axes) for compute node n to produce its outputs' shardings
-    from the rank's pieces alone; raises _WholeTensor where no rule does."""
+    """(what each input slot must be sharded as, the node plan's other
+    fields: bias axes, BatchNorm's batch axes, the ring's or the
+    all-to-all's axes, the Experts op's expert and batch axes) for compute
+    node n to produce its outputs' shardings from the rank's pieces alone;
+    raises _WholeTensor where no rule does."""
     ins, outs = pcg.inputs_of(n), pcg.outputs_of(n)
     o = shardings[outs[0]]
     roles = slot_roles(attrs, len(ins))
     data = [i for i, r in enumerate(roles) if r == IncomingTensorRole.INPUT]
     weights = [i for i, r in enumerate(roles) if r == IncomingTensorRole.WEIGHT]
     need: List[Optional[TensorSharding]] = [None] * len(ins)
-    bias_axes = stats_axes = ring_axes = ()
+    extra: Dict[str, Axes] = {}
 
     def like_out(i, total=()):
         need[i] = TensorSharding(o.dims, total)
@@ -312,17 +332,34 @@ def _requirements(pcg, n, attrs, shardings, mesh):
         need[weights[0]] = TensorSharding((o.sum, o.dims[-1]))
         if attrs.use_bias:
             need[weights[1]] = TensorSharding((o.dims[-1],))
-            bias_axes = o.sum
+            extra["bias_axes"] = o.sum
     elif isinstance(attrs, MultiHeadAttentionAttrs):
-        ring = isinstance(attrs, RingAttentionAttrs)
-        whole_at([2] if ring else [1, 2])
+        seq = isinstance(attrs, RingAttentionAttrs)
+        whole_at([2] if seq else [1, 2])
         for i in data:
             need[i] = TensorSharding((o.dims[0], o.dims[1], ()))
         need[weights[0]] = TensorSharding(((), o.sum))
         for i in weights[1:]:
             need[i] = TensorSharding(((),))
-        bias_axes = o.sum if attrs.bias else ()
-        ring_axes = o.dims[1] if ring else ()
+        if attrs.bias:
+            extra["bias_axes"] = o.sum
+        if isinstance(attrs, UlyssesAttentionAttrs):
+            if (attrs.num_heads // mesh.size(o.sum)) % mesh.size(o.dims[1]):
+                raise _no_rule(n, attrs, "its local heads do not split over the sequence ranks")
+            extra["a2a_axes"] = o.dims[1]
+        elif seq:
+            extra["ring_axes"] = o.dims[1]
+    elif isinstance(attrs, ExpertsAttrs):
+        # the tokens' blocks: dim 0 only, so a block is a run of the global
+        # batch's rows (kernels/moe.py routes them in that order)
+        whole_at(range(1, len(o.dims)))
+        if attrs.num_experts % mesh.size(o.sum):
+            raise _no_rule(n, attrs, "its experts do not divide over the expert ranks")
+        need[data[0]] = TensorSharding(o.dims)
+        need[weights[0]] = TensorSharding(((), ()))
+        for i in weights[1:]:
+            need[i] = TensorSharding((o.sum,) + _whole(pcg.tensor_shape(ins[i]).num_dims - 1))
+        extra.update(expert_axes=o.sum, routing_axes=o.dims[0])
     elif isinstance(attrs, EmbeddingAttrs):
         if o.sum:
             raise _no_rule(n, attrs, "a partial-sum output")
@@ -336,7 +373,7 @@ def _requirements(pcg, n, attrs, shardings, mesh):
         need[weights[0]] = TensorSharding((o.dims[1], o.sum, (), ()))
         if attrs.use_bias:
             need[weights[1]] = TensorSharding((o.dims[1],))
-            bias_axes = o.sum
+            extra["bias_axes"] = o.sum
     elif isinstance(attrs, Pool2DAttrs):
         whole_at([2, 3])
         like_out(data[0])
@@ -354,8 +391,8 @@ def _requirements(pcg, n, attrs, shardings, mesh):
         like_out(data[0])
         for i in weights:
             need[i] = TensorSharding((o.dims[1],))
-        stats_axes = C.mesh_order(mesh, [a for d, axes in enumerate(o.dims) if d != 1
-                                         for a in axes])
+        extra["stats_axes"] = C.mesh_order(mesh, [a for d, axes in enumerate(o.dims) if d != 1
+                                                  for a in axes])
     elif isinstance(attrs, LayerNormAttrs):
         axes = [a % len(o.dims) for a in attrs.axes]
         whole_at(axes)
@@ -389,7 +426,7 @@ def _requirements(pcg, n, attrs, shardings, mesh):
     for i in range(len(ins)):
         if need[i] is None:
             raise _no_rule(n, attrs, f"input slot {i} has no placement rule")
-    return need, bias_axes, stats_axes, ring_axes
+    return need, extra
 
 
 def _same(a: TensorSharding, b: TensorSharding) -> bool:
@@ -431,16 +468,18 @@ class DistributedPlan:
                     alias[outs[0]] = alias[ins[0]]
                 continue
             try:
-                need, bias_axes, stats_axes, ring_axes = _requirements(pcg, n, attrs, S, mesh)
-                work = C.placed_axes(need) | C.placed_axes([S[o] for o in outs])
+                need, extra = _requirements(pcg, n, attrs, S, mesh)
+                # the Experts op's aux output is no piece of the plan's: every
+                # rank holds the global value
+                placed_outs = outs[:1] if isinstance(attrs, ExpertsAttrs) else outs
+                work = C.placed_axes(need) | C.placed_axes([S[o] for o in placed_outs])
                 whole = ""
             except _WholeTensor as e:
                 # every rank runs the op on whole operands, then keeps its
                 # piece of the output: the same work everywhere, so no
                 # operand's gradient is summed
                 need = [TensorSharding(_whole(pcg.tensor_shape(t).num_dims)) for t in ins]
-                bias_axes = stats_axes = ring_axes = ()
-                work, whole = frozenset(), str(e)
+                extra, work, whole = {}, frozenset(), str(e)
             sum_grad = {}
             for i, t in enumerate(ins):
                 axes = C.mesh_order(mesh, work - need[i].placed())
@@ -449,8 +488,7 @@ class DistributedPlan:
                     uses[alias[t]].append((n, i, axes))
                 elif axes:
                     sum_grad[i] = axes
-            self.nodes[n] = _NodePlan(need, sum_grad, bias_axes, stats_axes, ring_axes,
-                                      whole=whole)
+            self.nodes[n] = _NodePlan(need, sum_grad, whole=whole, **extra)
         # a weight whose uses agree on their axes sums once, in its bucket;
         # otherwise each use sums its own share where the op runs
         self.grad_axes: Dict[ParamKey, Axes] = {}
@@ -589,8 +627,15 @@ class DistributedPlan:
                         out["all_reduce"] += 1
                 if isinstance(attrs, BatchNormAttrs) and mesh.size(p.stats_axes) > 1:
                     out["all_reduce"] += 2 * (2 if ins[0] in grad else 1)
+                if mesh.size(p.a2a_axes) > 1:
+                    # q, k and v in, the context out; their gradients back
+                    out["all_to_all"] += 4 * (2 if outs[0] in grad else 1)
+                if mesh.size(p.routing_axes) > 1:
+                    out["all_gather"] += 1  # the blocks' decision counts
+                    if attrs.lambda_bal > 0:
+                        out["all_reduce"] += 1  # the aux loss's probability sums
                 if p.whole:
-                    for o in outs:
+                    for o in self._placed_outputs(n):
                         out.update(C.reshard_collectives(
                             TensorSharding(_whole(len(S[o].dims))), S[o], mesh, o in grad))
         if S[target].sum and mesh.size(S[target].sum) > 1:
@@ -601,6 +646,23 @@ class DistributedPlan:
             out["all_reduce"] += 1
         return +out
 
+    def _placed_outputs(self, n: Node) -> List[DataflowOutput]:
+        """n's outputs that are pieces of the plan's shardings (all but an
+        Experts op's aux loss, which every rank holds whole)."""
+        outs = self.pcg.outputs_of(n)
+        return outs[:1] if isinstance(self.pcg.op_attrs(n), ExpertsAttrs) else outs
+
+    def aux_weight(self, aux: DataflowOutput) -> float:
+        """What an Experts op's aux loss `aux` enters this rank's loss with
+        for its gradient: 1 over its batch blocks (the backward of the
+        routing's all-reduce gathers every block's share) at index 0 of its
+        expert axes (whose ranks gate the same tokens), 0 elsewhere; 1 where
+        the node runs on whole values."""
+        p = self.nodes[aux.node]
+        if not C.sum_group_zero(self.mesh, p.expert_axes):
+            return 0.0
+        return 1.0 / self.mesh.size(p.routing_axes)
+
     def axis_sets(self):
         """Every set of axes a collective of this plan runs over."""
         sets = set(self.grad_axes.values())
@@ -610,7 +672,8 @@ class DistributedPlan:
                 sets.add(s.sum)
         for p in self.nodes.values():
             sets.update(p.sum_grad.values())
-            sets.update(a for a in (p.stats_axes, p.ring_axes) if a)
+            sets.update(a for a in (p.stats_axes, p.ring_axes, p.a2a_axes, p.expert_axes,
+                                    p.routing_axes) if a)
             for s in p.need:
                 sets.update(a for a in s.dims if a)
         sets.add(self.mesh.names)
@@ -706,8 +769,9 @@ def eval_node(plan: DistributedPlan, n: Node, env, masks=None, run=None) -> None
         results = [apply_dropout_mask(vals[0], mask, attrs.rate)]
     else:
         results = (run or _run)(attrs, vals, p, mesh)
+    placed = plan._placed_outputs(n)
     for o, r in zip(outs, results):
-        if p.whole:
+        if p.whole and o in placed:
             r = C.reshard(r, TensorSharding(_whole(len(S[o].dims))), S[o], mesh)
         env[o] = r
 
@@ -724,7 +788,11 @@ def _run(attrs, vals, p: _NodePlan, mesh: MachineMesh) -> List[torch.Tensor]:
         return [CM.matmul_reduce_scatter(data[0], weights[0], mesh, p.fused_axes)]
     bias_on = C.sum_group_zero(mesh, p.bias_axes)
     if isinstance(attrs, MultiHeadAttentionAttrs):
-        return [_attention(attrs, data, weights, mesh, p.ring_axes, bias_on)]
+        return [_attention(attrs, data, weights, mesh, p, bias_on)]
+    if isinstance(attrs, ExpertsAttrs):
+        first = mesh.index(p.expert_axes) * (attrs.num_experts // mesh.size(p.expert_axes))
+        with MOE.batch_routing(_routing(mesh, p.routing_axes)):
+            return MOE.experts_forward(attrs, data[0], weights, first_expert=first)
     if p.bias_axes and not bias_on:
         # the bias of a partial sum joins it once: at sum index 0
         weights = weights[:1]
@@ -736,11 +804,26 @@ def _run(attrs, vals, p: _NodePlan, mesh: MachineMesh) -> List[torch.Tensor]:
     return kernel_forward(attrs, data, weights)
 
 
+def _routing(mesh: MachineMesh, axes: Axes) -> Optional[MOE.BatchRouting]:
+    """The Experts op's batch blocks over `axes` (None over one rank)."""
+    if mesh.size(axes) == 1:
+        return None
+    group = mesh.group_of(axes)[0]
+
+    def gather(t):
+        mesh.counts["all_gather"] += 1
+        return mesh.all_gather(t[None], 0, axes)
+
+    return MOE.BatchRouting(mesh.index(axes), mesh.size(axes), gather,
+                            lambda t: C.all_reduce_sum(t, group, mesh.counts))
+
+
 def _attention(attrs: MultiHeadAttentionAttrs, data, weights, mesh: MachineMesh,
-               ring_axes: Axes, bias_on: bool) -> torch.Tensor:
+               p: _NodePlan, bias_on: bool) -> torch.Tensor:
     """Attention of the rank's local heads (the weight piece's count): the
     per-head [b, h, s, d] kernels where they take the block, else the dense
-    path; RingAttention rotates over the ring of its sequence axes."""
+    path; UlyssesAttention all-to-alls over its sequence axes,
+    RingAttention rotates over the ring of them."""
     q, k, v = data
     w = weights[0]
     heads = w.shape[1]
@@ -748,8 +831,11 @@ def _attention(attrs: MultiHeadAttentionAttrs, data, weights, mesh: MachineMesh,
         attrs = dataclasses.replace(attrs, num_heads=heads, kdim=attrs.q_proj_size,
                                     vdim=attrs.v_proj_size)
     input_bias = weights[1] if attrs.bias else None
-    if isinstance(attrs, RingAttentionAttrs):
-        out = ring_mha_forward(attrs, q, k, v, w, mesh.ring(ring_axes), input_bias=input_bias,
+    if isinstance(attrs, UlyssesAttentionAttrs):
+        out = ulysses_mha_forward(attrs, q, k, v, w, mesh, p.a2a_axes, input_bias=input_bias,
+                                  output_bias=torch.zeros_like(weights[2]) if attrs.bias else None)
+    elif isinstance(attrs, RingAttentionAttrs):
+        out = ring_mha_forward(attrs, q, k, v, w, mesh.ring(p.ring_axes), input_bias=input_bias,
                                output_bias=torch.zeros_like(weights[2]) if attrs.bias else None)
     else:
         qp, kp, vp, wo = mha_project_qkv(attrs, q, k, v, w, input_bias)
@@ -781,11 +867,13 @@ class DistributedTrainingInstance(ModelTrainingInstance):
         device=None,
         metrics=frozenset(),
         overlap: Optional[bool] = None,
+        aux_loss_tensors=(),
         collect_step_stats: bool = False,
         guard_nonfinite_updates: bool = False,
     ) -> None:
         """device: cuda:<local rank> unless given; see resolve_device.
-        collect_step_stats / guard_nonfinite_updates: as
+        aux_loss_tensors: Experts aux-loss outputs that join the loss (once:
+        loss_fn). collect_step_stats / guard_nonfinite_updates: as
         ModelTrainingInstance's; the norms are global (`_stat_reducer`)."""
         import torch.distributed as dist
 
@@ -809,8 +897,12 @@ class DistributedTrainingInstance(ModelTrainingInstance):
             next(iter(self._inputs.values())))).dims[0] if self._inputs else 0)
         super().__init__(pcg, logit_tensor, loss_attrs, optimizer_attrs,
                          compute_dtype=compute_dtype, device=_rank_device(device, dist.get_rank()),
-                         metrics=metrics, collect_step_stats=collect_step_stats,
+                         metrics=metrics, aux_loss_tensors=aux_loss_tensors,
+                         collect_step_stats=collect_step_stats,
                          guard_nonfinite_updates=guard_nonfinite_updates)
+        for t in self.aux_loss_tensors:
+            if not isinstance(pcg.op_attrs(t.node), ExpertsAttrs):
+                raise ValueError(f"an aux loss over ranks must be an Experts op's, got {t}")
         # per step: (collective buckets issued, of them before the
         # backward's last gradient)
         self.bucket_log: List[Tuple[int, int]] = []
@@ -830,6 +922,10 @@ class DistributedTrainingInstance(ModelTrainingInstance):
         one all-reduce of the statistics' parts per set of weight axes
         (`_stat_reducer`)."""
         out = self.plan.step_collectives(self.loss_logit_tensor)
+        for t in self.aux_loss_tensors:
+            p = self.plan.nodes[t.node]
+            if self.machine_mesh.size(p.routing_axes) > 1 and self.plan.aux_weight(t):
+                out["all_reduce"] += 1  # the backward of its probability sums
         if self.collect_step_stats:
             mesh = self.machine_mesh
             out["all_reduce"] += sum(1 for axes in self._stat_axes() if mesh.size(axes) > 1)
@@ -964,16 +1060,33 @@ class DistributedTrainingInstance(ModelTrainingInstance):
         masks = dropout_masks(self.pcg, rng, rng.device) if rng is not None else None
         env = pcg_forward_interpreter(
             self.plan, cast_for_compute(params, self.compute_dtype),
-            cast_for_compute(batch_inputs, self.compute_dtype), [self.loss_logit_tensor], masks)
+            cast_for_compute(batch_inputs, self.compute_dtype),
+            [self.loss_logit_tensor, *self.aux_loss_tensors], masks)
         logit = self._whole(env[self.loss_logit_tensor], self.loss_logit_tensor)
         sizes = get_reduced_shape(self.pcg.tensor_shape(self.loss_logit_tensor)).dims
         if self.class_axes:
             share = math.prod(logit.shape[:-1]) / math.prod(sizes[:-1])
             loss = class_sharded_loss(self.loss_attrs, logit, label, self._class_offset(logit),
                                       sizes[-1], *self._class_reducers()[:2])
-            return loss * share, logit
+            return self._with_aux(loss * share, env), logit
         share = label.numel() / math.prod(sizes[:label.dim()])
-        return loss_forward(self.loss_attrs, logit, label) * share, logit
+        return self._with_aux(loss_forward(self.loss_attrs, logit, label) * share, env), logit
+
+    def _with_aux(self, loss, env):
+        """The loss with each aux loss (the global value on every rank)
+        added so that the ranks whose losses `_step_scalars` sums (one per
+        distinct block of the logits) add it once in all, and its gradient
+        reaches the gate once (DistributedPlan.aux_weight)."""
+        speakers = self.machine_mesh.size(
+            _block_axes(self.shardings[self.loss_logit_tensor]) - set(self.class_axes))
+        for t in self.aux_loss_tensors:
+            aux = env[t].to(loss.dtype).sum()
+            value = aux.detach()
+            loss = loss + value / speakers
+            weight = self.plan.aux_weight(t)
+            if weight:
+                loss = loss + weight * (aux - value)
+        return loss
 
     def _class_offset(self, logit) -> int:
         """The first class of this rank's block of the logits."""

@@ -2,17 +2,21 @@
 copy of flexflow_tpu/pcg/computation_graph_builder.py).
 
 Covers create_input, create_weight, dense, embedding, multihead_attention,
-conv2d, pool2d, flat, batch_norm, layer_norm, softmax, dropout, concat,
-split, reshape, and the element-wise unary, scalar and binary ops. Each op
-creates its weight nodes first and then the op node, in the JAX builder's
-order, so that parameter keys `n{idx}` name the same weights in both
-packages. A binary op on operands of different shapes needs the
-Broadcast op the JAX builder inserts, which is not ported yet (A2).
+conv2d, pool2d, flat, batch_norm, layer_norm, softmax, dropout, the
+element-wise unary, scalar and binary ops (a binary op on operands of
+different shapes gets the Broadcast ops the JAX builder inserts), cast,
+the shape ops, top_k, and the mixture-of-experts ops: group_by, aggregate,
+experts and moe (which records its load-balance output in
+`aux_loss_tensors`). Each op creates its weight nodes first and then the op
+node, in the JAX builder's order, so that parameter keys `n{idx}` name the
+same weights in both packages.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from flexflow_tpu_torch.op_attrs.activation import Activation
 from flexflow_tpu_torch.op_attrs.core import (
@@ -64,6 +68,8 @@ Tensor = DataflowOutput
 class ComputationGraphBuilder:
     def __init__(self) -> None:
         self.graph = ComputationGraph()
+        # outputs whose sums join the training loss (moe's load balance)
+        self.aux_loss_tensors: List[Tensor] = []
 
     def add_layer(
         self,
@@ -317,14 +323,22 @@ class ComputationGraphBuilder:
         return self._unary(ElementUnaryOpType.POW, x, exponent, name)
 
     def _binary(self, op: ElementBinaryOpType, a: Tensor, b: Tensor, name=None) -> Tensor:
-        sa, sb = self.graph.tensor_shape(a), self.graph.tensor_shape(b)
-        if sa.dims != sb.dims:
-            raise NotImplementedError(
-                f"{op.value} of shapes {sa.dims} and {sb.dims} needs the Broadcast op, "
-                "which is not ported yet (A2)"
-            )
+        a, b = self._broadcast_align(a, b)
         (out,) = self.add_layer(ElementBinaryAttrs(op), [a, b], [], name)
         return out
+
+    def _broadcast_align(self, a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
+        """Broadcast ops before a binary op whose operands' shapes differ
+        (numpy's rules), as the JAX builder inserts them."""
+        sa, sb = self.graph.tensor_shape(a), self.graph.tensor_shape(b)
+        if sa.dims == sb.dims:
+            return a, b
+        target = tuple(int(d) for d in np.broadcast_shapes(sa.dims, sb.dims))
+        if sa.dims != target:
+            a = self.broadcast(a, target)
+        if sb.dims != target:
+            b = self.broadcast(b, target)
+        return a, b
 
     def add(self, a, b, name=None):
         return self._binary(ElementBinaryOpType.ADD, a, b, name)
@@ -345,6 +359,37 @@ class ComputationGraphBuilder:
         return self._binary(ElementBinaryOpType.MIN, a, b, name)
 
     # -- shape ops ------------------------------------------------------------
+
+    def cast(self, input: Tensor, dtype: DataType, name=None) -> Tensor:
+        from flexflow_tpu_torch.op_attrs.ops import CastAttrs
+
+        (out,) = self.add_layer(CastAttrs(dtype), [input], [], name)
+        return out
+
+    def transpose(self, input: Tensor, perm: Sequence[int], name=None) -> Tensor:
+        from flexflow_tpu_torch.op_attrs.ops import TransposeAttrs
+
+        (out,) = self.add_layer(TransposeAttrs(tuple(perm)), [input], [], name)
+        return out
+
+    def reverse(self, input: Tensor, axis: int, name=None) -> Tensor:
+        from flexflow_tpu_torch.op_attrs.ops import ReverseAttrs
+
+        (out,) = self.add_layer(ReverseAttrs(axis), [input], [], name)
+        return out
+
+    def gather(self, input: Tensor, index: Tensor, dim: int, name=None) -> Tensor:
+        from flexflow_tpu_torch.op_attrs.ops import GatherAttrs
+
+        (out,) = self.add_layer(GatherAttrs(dim), [input, index], [], name)
+        return out
+
+    def top_k(self, input: Tensor, k: int, sorted: bool = True, name=None
+              ) -> Tuple[Tensor, Tensor]:
+        from flexflow_tpu_torch.op_attrs.ops import TopKAttrs
+
+        values, indices = self.add_layer(TopKAttrs(k, sorted), [input], [], name)
+        return values, indices
 
     def concat(self, tensors: Sequence[Tensor], axis: int, name=None) -> Tensor:
         (out,) = self.add_layer(ConcatAttrs(axis), list(tensors), [], name)
@@ -386,3 +431,42 @@ class ComputationGraphBuilder:
     def reshape(self, input: Tensor, shape: Sequence[int], name=None) -> Tensor:
         (out,) = self.add_layer(ReshapeAttrs(tuple(shape)), [input], [], name)
         return out
+
+    # -- mixture of experts (the legacy examples/cpp/mixture_of_experts) -----
+
+    def group_by(self, data: Tensor, assign: Tensor, n_experts: int, alpha: float = 1.0,
+                 name=None) -> List[Tensor]:
+        from flexflow_tpu_torch.op_attrs.ops import GroupByAttrs
+
+        return self.add_layer(GroupByAttrs(n_experts, alpha), [data, assign], [], name)
+
+    def aggregate(self, gate_preds: Tensor, gate_assign: Tensor, exp_preds: Sequence[Tensor],
+                  name=None) -> Tensor:
+        from flexflow_tpu_torch.op_attrs.ops import AggregateAttrs
+
+        (out,) = self.add_layer(AggregateAttrs(len(exp_preds)),
+                                [gate_preds, gate_assign, *exp_preds], [], name)
+        return out
+
+    def experts(self, input: Tensor, num_experts: int, num_select: int, hidden_size: int,
+                out_channels: Optional[int] = None,
+                activation: Optional[Activation] = Activation.RELU,
+                capacity_factor: float = 2.0, use_bias: bool = True, lambda_bal: float = 0.0,
+                name=None) -> List[Tensor]:
+        """The fused MoE FFN; returns [out] or [out, aux_loss]."""
+        from flexflow_tpu_torch.op_attrs.ops import ExpertsAttrs
+
+        attrs = ExpertsAttrs(num_experts, num_select, hidden_size, out_channels, activation,
+                             capacity_factor, use_bias, lambda_bal)
+        return self.add_layer(attrs, [input], [], name)
+
+    def moe(self, input: Tensor, num_exp: int, num_select: int, hidden_size: int,
+            alpha: float = 2.0, lambda_bal: float = 0.0, name=None) -> Tensor:
+        """The legacy FFModel::moe signature over the fused Experts op; its
+        load-balance output (lambda_bal > 0) is recorded in
+        aux_loss_tensors for the training instance to add to the loss."""
+        outs = self.experts(input, num_exp, num_select, hidden_size, capacity_factor=alpha,
+                            lambda_bal=lambda_bal, name=name)
+        if len(outs) > 1:
+            self.aux_loss_tensors.append(outs[1])
+        return outs[0]

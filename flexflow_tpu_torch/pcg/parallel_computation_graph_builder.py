@@ -3,8 +3,8 @@ flexflow_tpu/pcg/parallel_computation_graph_builder.py).
 
 Covers create_input_tensor, create_weight_tensor, the parallel ops
 parallel_partition / parallel_combine / parallel_replicate /
-parallel_reduce, dense, multihead_attention, ring_attention, gelu,
-layer_norm and add. Each op creates its weight nodes first and then the op
+parallel_reduce, dense, experts, multihead_attention, ring_attention,
+gelu, layer_norm and add. Each op creates its weight nodes first and then the op
 node, in the JAX builder's order, so that parameter keys `n{idx}` name the
 same weights in both packages.
 """
@@ -176,6 +176,21 @@ class ParallelComputationGraphBuilder:
         )
         (out,) = self.add_layer(attrs, [input], [kernel_initializer, bias_initializer], name)
         return out
+
+    def experts(self, input: Tensor, num_experts: int, num_select: int, hidden_size: int,
+                out_channels: Optional[int] = None,
+                activation: Optional[Activation] = Activation.RELU,
+                capacity_factor: float = 2.0, use_bias: bool = True, lambda_bal: float = 0.0,
+                name: Optional[str] = None) -> List[Tensor]:
+        """The fused MoE FFN. Expert parallelism: parallel_replicate the
+        input to degree ep first (the op then shards its expert weights over
+        the replica axes and gives a sum_degree = ep output for
+        parallel_reduce)."""
+        from flexflow_tpu_torch.op_attrs.ops import ExpertsAttrs
+
+        attrs = ExpertsAttrs(num_experts, num_select, hidden_size, out_channels, activation,
+                             capacity_factor, use_bias, lambda_bal)
+        return self.add_layer(attrs, [input], [], name)
 
     def multihead_attention(self, query: Tensor, key: Tensor, value: Tensor, embed_dim: int,
                             num_heads: int, name: Optional[str] = None) -> Tensor:

@@ -180,3 +180,94 @@ def test_sgd_update_matches(momentum, nesterov):
     np.testing.assert_allclose(tw.numpy(), np.asarray(ref_w), rtol=1e-5, atol=1e-7)
     if momentum:
         np.testing.assert_allclose(tv.numpy(), np.asarray(ref_v), rtol=1e-5, atol=1e-7)
+
+
+# --- the last of A2's ops: TopK, Transpose, Reverse, Gather, Cast, Broadcast ----
+
+
+def _vjp_pair(jattrs_, tattrs_, xs, cot_seed=7, n_in=1):
+    """(port outputs, JAX outputs, port grads, JAX grads) of op forward on
+    the numpy inputs xs (the first n_in take gradients), under a random
+    cotangent on the first output."""
+    jouts, jvjp = jax.vjp(lambda *a: jops.forward(jattrs_, list(a) + [jnp.asarray(x) for x in xs[n_in:]])[0],
+                          *[jnp.asarray(x) for x in xs[:n_in]])
+    cot = np.random.RandomState(cot_seed).randn(*jouts.shape).astype(np.float32)
+    jgrads = jvjp(jnp.asarray(cot))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in xs[:n_in]]
+    touts = tops.forward(tattrs_, leaves + [torch.from_numpy(x) for x in xs[n_in:]])
+    tgrads = torch.autograd.grad(touts[0], leaves, torch.from_numpy(cot))
+    return touts, jouts, [g.numpy() for g in tgrads], [np.asarray(g) for g in jgrads]
+
+
+def test_top_k_breaks_ties_towards_the_lower_index_as_lax_top_k():
+    rs = np.random.RandomState(5)
+    x = rs.randint(0, 4, (16, 12)).astype(np.float32)  # many equal entries
+    ref = jops.forward(jattrs.TopKAttrs(5), [jnp.asarray(x)])
+    got = tops.forward(tattrs.TopKAttrs(5), [torch.from_numpy(x)])
+    assert got[1].dtype == torch.int32
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
+    # the values' gradient reaches the selected entries, as jax.vjp's
+    touts, _, tg, jg = _vjp_pair(jattrs.TopKAttrs(3), tattrs.TopKAttrs(3),
+                                 [rs.randn(6, 9).astype(np.float32)])
+    np.testing.assert_allclose(tg[0], jg[0], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("op", ["transpose", "reverse", "gather"])
+def test_shape_ops_forward_and_gradient_match(op):
+    rs = np.random.RandomState(6)
+    x = rs.randn(3, 4, 5).astype(np.float32)
+    if op == "transpose":
+        args, xs = ((2, 0, 1),), [x]
+        ja, ta = jattrs.TransposeAttrs(*args), tattrs.TransposeAttrs(*args)
+    elif op == "reverse":
+        xs = [x]
+        ja, ta = jattrs.ReverseAttrs(1), tattrs.ReverseAttrs(1)
+    else:
+        xs = [x, rs.randint(0, 5, (3, 4, 7)).astype(np.int32)]  # repeated indices
+        ja, ta = jattrs.GatherAttrs(-1), tattrs.GatherAttrs(-1)
+    touts, jouts, tg, jg = _vjp_pair(ja, ta, xs)
+    np.testing.assert_allclose(touts[0].detach().numpy(), np.asarray(jouts), rtol=0, atol=0)
+    np.testing.assert_allclose(tg[0], jg[0], rtol=1e-6, atol=1e-6)
+
+
+def test_cast_matches():
+    from flexflow_tpu.op_attrs.datatype import DataType as JDT
+    from flexflow_tpu_torch.op_attrs.datatype import DataType as TDT
+
+    x = (np.random.RandomState(8).randn(4, 6) * 100).astype(np.float32)
+    for name in ("INT32", "HALF", "BFLOAT16"):
+        if not hasattr(JDT, name):
+            continue
+        ref = np.asarray(jops.forward(jattrs.CastAttrs(getattr(JDT, name)), [jnp.asarray(x)])[0])
+        got = tops.forward(tattrs.CastAttrs(getattr(TDT, name)), [torch.from_numpy(x)])[0]
+        np.testing.assert_array_equal(got.float().numpy(), ref.astype(np.float32))
+
+
+def test_builder_inserts_the_broadcast_of_the_jax_builder():
+    """add() of [4, 1, 6] and [5, 6]: both builders insert Broadcast ops to
+    [4, 5, 6] before the add, with the same node order (so parameter keys
+    agree), and the graph's values and gradients agree."""
+    from flexflow_tpu.pcg import ComputationGraphBuilder as JB
+    from flexflow_tpu.local_execution.training_backing import forward_interpreter as jfi
+    from flexflow_tpu_torch.pcg.computation_graph_builder import ComputationGraphBuilder as TB
+    from flexflow_tpu_torch.local_execution.training_backing import forward_interpreter as tfi
+
+    graphs = []
+    for B in (JB, TB):
+        b = B()
+        a = b.create_input([4, 1, 6], name="a")
+        c = b.create_input([5, 6], name="c")
+        out = b.add(a, c)
+        graphs.append((b.graph, out))
+    kinds = [[type(g.op_attrs(n)).__name__ for n in g.topological_ordering()] for g, _ in graphs]
+    assert kinds[0] == kinds[1] and kinds[1].count("BroadcastAttrs") == 2
+    rs = np.random.RandomState(9)
+    xa, xc = rs.randn(4, 1, 6).astype(np.float32), rs.randn(5, 6).astype(np.float32)
+    (jg, jout), (tg, tout) = graphs
+    ref = jfi(jg, {}, {"a": jnp.asarray(xa), "c": jnp.asarray(xc)})[jout]
+    ta = torch.from_numpy(xa).requires_grad_(True)
+    got = tfi(tg, {}, {"a": ta, "c": torch.from_numpy(xc)})[tout]
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), rtol=0, atol=0)
+    (g,) = torch.autograd.grad(got.sum(), [ta])
+    np.testing.assert_allclose(g.numpy(), np.full((4, 1, 6), 5.0, np.float32))

@@ -417,13 +417,16 @@ def test_meta_run_error_propagates_instead_of_pricing_inf(monkeypatch):
 
 
 def test_op_without_kernel_raises_naming_a2():
-    """The rules name ops the port has no kernel for yet: measuring one
-    must say so, not price it inf. (Reduce, which this test measured
-    before, has its kernel now, for branch stacking; Experts waits for
-    A11.)"""
+    """Every op the rules name has its kernel now (A2 closed: Reduce for
+    branch stacking, Experts with A11): measuring one prices it, whole or
+    as an expert-parallel piece, and nothing is priced inf."""
     tl = TLocal(TSettings(1, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="A2"):
-        tl.estimate_operator_cost(t_ops.ExpertsAttrs(4, 2, 8), [TShape((2, 8, 4))])
+    experts = t_ops.ExpertsAttrs(4, 2, 8)
+    whole = tl.estimate_operator_cost(experts, [TShape((2, 8, 4))])
+    piece = tl.estimate_operator_cost(
+        experts, [TShape((2, 8, 4))],
+        [TShape((4, 4)), TShape((2, 4, 8)), TShape((2, 8)), TShape((2, 8, 4)), TShape((2, 4))])
+    assert 0 < whole.elapsed_ms < float("inf") and 0 < piece.elapsed_ms < float("inf")
     reduce_cost = tl.estimate_operator_cost(t_ops.ReduceAttrs(t_ops.ReduceOpType.SUM, (1,)),
                                             [TShape((2, 8, 4))])
     assert 0 < reduce_cost.elapsed_ms < float("inf")

@@ -246,8 +246,7 @@ def test_smoke_argv_is_the_example_tests_argv():
     reference = {(name[:-len(".py")], tuple(args)) for name, args in table}
     ported = {(name, tuple(argv)) for name, argv in SMOKE_ARGV}
     assert ported <= reference
-    # left out: moe (A11)
-    assert reference - ported == {("moe", ("-b", "8", "--steps", "2"))}
+    assert reference - ported == set()
 
 
 @pytest.mark.parametrize("argv", [a for _, a in EXAMPLES] + JAX_ONLY_ARGV)
