@@ -7406,6 +7406,371 @@ def phase_moe_ranks(smi: str, tmp: str, device: str = "cuda:0", **job) -> None:
         emit(record)
 
 
+# program-level verification on the card (A13, A8 part 2, A12 item 5): the
+# searched flagship's winner verified on 2 ranks sharing the card, a
+# recorded step's kernel census and fingerprint on one, a batch-growth
+# recompile mid-fit and a resume against the re-anchored contract, the
+# tp2 small flagship's collective census, and the serving contract
+VERIFY = dict(FLAGSHIP_WIDTHS, batch=16)  # the full flagship, 12 layers, on 2 ranks
+VERIFY_HBM_GB = 80.0
+VERIFY_BATCH = 32  # the one-card recorded step, and the recompile's first batch
+RECOMPILE_BATCH = 64
+RECOMPILE_STEPS = (2, 2)  # steps at batch 32 (the trigger fires after the 2nd), then at 64
+SERVE_CONTRACT = dict(slots=8, max_seq_len=256, window_steps=4)
+A13_RESULTS = {}  # the verify rank job's ranks, read by comm_ranks
+
+VERIFY_RANK_WORKER = r'''
+import json, os, sys, time
+import torch
+import torch.distributed as dist
+from flexflow_tpu_torch.analysis.comm_analysis import census_by_kind, verify_comm
+from flexflow_tpu_torch.analysis.step_program import record_plan
+from flexflow_tpu_torch.compiler.unity_algorithm import tensor_parallel_seed
+from flexflow_tpu_torch.core import AdamOptimizer, FFConfig, FFModel
+from flexflow_tpu_torch.kernels import flash_attention as fa
+from flexflow_tpu_torch.models import build_flagship_cg, build_flagship_pcg
+from flexflow_tpu_torch.parallel import init_file_group
+from flexflow_tpu_torch.pcg.machine_view import MachineSpecification
+
+rank, world, job = int(sys.argv[1]), int(sys.argv[2]), json.loads(sys.argv[3])
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+device = init_file_group(job["store"], rank, world, device=job["device"], backend="gloo",
+                         timeout_s=job["timeout_s"])
+cuda = device.type == "cuda"
+out = {"rank": rank}
+cfg = job["cfg"]
+m = FFModel.from_computation_graph(
+    *build_flagship_cg(**cfg), device=device,
+    config=FFConfig(batch_size=cfg["batch"], seed=0, print_freq=0, search_budget=job["budget"],
+                    hbm_gb=job["hbm_gb"]))
+if cuda:
+    torch.cuda.reset_peak_memory_stats(device)
+start = time.perf_counter()
+m.compile(AdamOptimizer(alpha=1e-4), "sparse_categorical_crossentropy", metrics=["accuracy"],
+          compute_dtype=torch.bfloat16 if cuda else None)
+out["compile_s"] = time.perf_counter() - start
+prov = m.search_provenance
+comm = dict(prov["comm"])
+comm.pop("edges", None)
+out["provenance"] = {k: prov.get(k) for k in ("parallel_degrees", "estimated_ms", "serial_ms",
+                                              "verify", "memory", "exec")}
+out["provenance"]["comm"] = comm
+out["instance"] = type(m.instance).__name__
+out["launches_after_compile"] = {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS}
+del m
+if cuda:
+    torch.cuda.empty_cache()
+# comm_ranks: the small flagship under the tp2 seed, one recorded step
+small = job["small"]
+pcg = tensor_parallel_seed(build_flagship_pcg(**small), world)
+spec = MachineSpecification(1, 1, world, 25.0, 400.0)
+prog = record_plan(pcg, None, machine_spec=spec, device=device)
+analysis, diags = verify_comm(pcg, None, machine_spec=spec, lowered=prog)
+out["comm_ranks"] = dict(diags=[d.to_json() for d in diags], census=census_by_kind(
+    analysis.collectives), host_transfers=prog.host_transfers, bytes_geomean=analysis.bytes_geomean,
+    unmatched=len(analysis.unmatched), edges=len(analysis.edges), kernels=prog.kernel_route())
+with open(f"{job['out']}.rank{rank}.json", "w") as f:
+    json.dump(out, f, default=str)
+dist.destroy_process_group()
+'''
+
+FINGERPRINT_JOB = r'''
+import json, sys
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+m = c._verify_model(json.loads(sys.argv[1]), sys.argv[2])
+print(json.dumps(m._exec_contract_record()))
+'''
+
+
+def _verify_model(cfg: dict, device: str = "cuda", **config):
+    """The flagship (`cfg`: its widths and batch) on one card through
+    FFModel (bf16, Adam), compiled."""
+    import torch
+    from flexflow_tpu_torch.core import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.models import build_flagship_cg
+
+    m = FFModel.from_computation_graph(*build_flagship_cg(**cfg), device=device,
+                                       config=FFConfig(batch_size=cfg["batch"], seed=0,
+                                                       print_freq=0, **config))
+    m.compile(AdamOptimizer(alpha=1e-4), "sparse_categorical_crossentropy", metrics=FIT_METRICS,
+              compute_dtype=torch.bfloat16 if device != "cpu" else None)
+    return m
+
+
+def phase_verify(smi: str, tmp: str, device: str = "cuda:0", cfg: dict = VERIFY,
+                 small: dict = TP_PARITY, one_card: dict = None) -> dict:
+    """The searched compile of the full flagship on 2 ranks sharing the card
+    at hbm_gb=80: its winner verifies clean (PCG, MV and MEM rules), its
+    recorded step (one per rank, on copies of the state) gives the
+    predicted per-device peak against the step's max_memory_allocated, an
+    execution contract with no DET or DON finding, and a collective census
+    with no COMM001, COMM002 or COMM004. Then on one card: the flagship's
+    recorded step holds rows 1-3's kernels 12 times each and no
+    nondeterministic op, and a second compile in a fresh process gives a
+    bitwise-equal fingerprint. The job also runs comm_ranks's plan."""
+    import torch
+    from flexflow_tpu_torch.analysis.exec_contract import (
+        analyze_step_program,
+        contract_record,
+        exec_diagnostics,
+    )
+    from flexflow_tpu_torch.analysis.step_program import record_step, step_example_args
+
+    ranks = run_ranks(2, dict(name="verify", cfg=cfg, small=small, device=device, budget=2,
+                              hbm_gb=VERIFY_HBM_GB, timeout_s=RANK_TIMEOUT_S), tmp,
+                      worker=VERIFY_RANK_WORKER)
+    A13_RESULTS["ranks"] = ranks
+    rows = []
+    for r in ranks:
+        p = r["provenance"]
+        if not p["verify"]["clean"]:
+            raise AssertionError(f"verify rank {r['rank']}: winner verify {p['verify']}")
+        ex = p["exec"]
+        if "error" in ex or not ex["verify"]["clean"] or ex["determinism_findings"] or \
+                ex["donation_coverage"] != 1.0:
+            raise AssertionError(f"verify rank {r['rank']}: exec contract {ex}")
+        comm = p["comm"]
+        if "error" in comm or not comm["verify"]["clean"]:
+            raise AssertionError(f"verify rank {r['rank']}: comm {comm}")
+        mem = p["memory"]
+        if device.startswith("cuda") and not mem.get("measured_per_device_bytes"):
+            raise AssertionError(f"verify rank {r['rank']}: no measured peak {mem}")
+        if any(r["launches_after_compile"].values()):
+            raise AssertionError(f"verify rank {r['rank']}: the recorded step left launch "
+                                 f"counts {r['launches_after_compile']}")
+        rows.append(dict(rank=r["rank"], compile_s=r["compile_s"], instance=r["instance"],
+                         winner=p["parallel_degrees"], estimated_ms=p["estimated_ms"],
+                         verify=p["verify"], predicted_peak=mem["predicted_peak_bytes_per_device"],
+                         full_mesh_peak=mem["predicted_peak_bytes_full_mesh"],
+                         capacity_bytes=mem["capacity_bytes"],
+                         measured_step_bytes=mem.get("measured_per_device_bytes"),
+                         predicted_over_measured=mem.get("predicted_over_measured_geomean"),
+                         full_mesh_over_measured=mem.get("full_mesh_over_measured_geomean"),
+                         exec={k: ex[k] for k in ("program_fingerprint", "program_key",
+                                                  "donated_leaves", "donation_coverage",
+                                                  "kernel_launches", "recorded_ops")},
+                         comm={k: comm[k] for k in ("census", "num_collectives", "buckets",
+                                                    "bucket_members", "bytes_geomean",
+                                                    "unmatched_collectives",
+                                                    "host_transfers")}))
+    if ranks[0]["provenance"]["exec"]["program_fingerprint"] != \
+            ranks[1]["provenance"]["exec"]["program_fingerprint"]:
+        raise AssertionError("verify: the ranks recorded different contracts")
+    print(f"verify winner {rows[0]['winner']}: predicted/measured peak "
+          f"{rows[0]['predicted_over_measured']} (full mesh {rows[0]['full_mesh_over_measured']})",
+          flush=True)
+
+    from flexflow_tpu_torch.models import FLAGSHIP
+
+    one_card = one_card or dict(FLAGSHIP, batch=VERIFY_BATCH)
+    on = "cuda" if device.startswith("cuda") else device
+    m = _verify_model(one_card, on)
+    prog = record_step(m.instance, m.params, m.opt_state, m.loss_attrs,
+                       label_dtype=m._label_dtype)
+    analysis = analyze_step_program(prog)
+    diags = exec_diagnostics(analysis)
+    want = {name: one_card["layers"] for name in FLASH_WRAPPERS} if on == "cuda" else {}
+    if prog.kernel_route() != want or diags:
+        raise AssertionError(f"verify: the one-card step's kernels {prog.kernel_route()} "
+                             f"(expected {want}), diagnostics {[d.to_json() for d in diags]}")
+    here = contract_record(analysis)
+    step_bytes, recorded_ops = prog.step_bytes, len(prog.lines)
+    del prog
+    # the recording's cost: a second recorded step against the plain step
+    # on the same arguments (host clock, each ending in a synchronize)
+    x, label = step_example_args(m.instance, m.loss_attrs, label_dtype=m._label_dtype)
+
+    def plain():
+        gen = torch.Generator(device=m.device).manual_seed(0)
+        m.instance._step(m.params, m.opt_state, x, label, gen)
+        _sync(m.device)
+
+    plain()
+    t0 = time.perf_counter()
+    plain()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    record_step(m.instance, m.params, m.opt_state, m.loss_attrs, label_dtype=m._label_dtype)
+    _sync(m.device)
+    recorded_ms = (time.perf_counter() - t0) * 1e3
+    del m, x, label
+    if on == "cuda":
+        torch.cuda.empty_cache()
+    fresh = subprocess.run([sys.executable, "-c", FINGERPRINT_JOB, json.dumps(one_card), on],
+                           cwd=REPO,
+                           capture_output=True, text=True, timeout=RANK_TIMEOUT_S)
+    if fresh.returncode != 0:
+        raise AssertionError(f"verify: the fresh process failed: {fresh.stderr[-3000:]}")
+    there = json.loads(fresh.stdout.strip().splitlines()[-1])
+    if there["program_fingerprint"] != here["program_fingerprint"]:
+        raise AssertionError(f"verify: fingerprints differ across processes: {here} {there}")
+    emit({"phase": "verify", "card": smi, "ranks": 2, "sharing": f"2 {SHARED}", "config": cfg,
+          "hbm_gb": VERIFY_HBM_GB, "per_rank": rows,
+          "one_card": {"config": one_card, "kernels": want, "det001": 0,
+                       "recorded_ops": recorded_ops, "state_leaves": len(analysis.donation),
+                       "step_bytes": step_bytes, "fingerprint": here["program_fingerprint"],
+                       "fresh_process_bitwise_equal": True, "plain_step_ms": plain_ms,
+                       "recorded_step_ms": recorded_ms,
+                       "recording_overhead_ms": recorded_ms - plain_ms}})
+    return {}
+
+
+def phase_comm_ranks(smi: str) -> None:
+    """The tp2 small flagship on verify's 2 ranks: its recorded step's
+    collective census matched to the plan's movement edges with no
+    COMM001, COMM002 or COMM004 (gloo's host staging is the transport)."""
+    if "ranks" not in A13_RESULTS:
+        raise AssertionError("comm_ranks reads verify's rank job: add verify to --phases")
+    for r in A13_RESULTS["ranks"]:
+        c = r["comm_ranks"]
+        if c["diags"] or c["host_transfers"] or c["unmatched"]:
+            raise AssertionError(f"comm_ranks rank {r['rank']}: {c}")
+    emit({"phase": "comm_ranks", "card": smi, "ranks": 2, "sharing": f"2 {SHARED}",
+          "config": TP_PARITY, "plan": "tp2", "rank0": A13_RESULTS["ranks"][0]["comm_ranks"]})
+
+
+def phase_recompile(smi: str, tmp: str, device: str = "cuda", batches=(VERIFY_BATCH,
+                    RECOMPILE_BATCH), steps=RECOMPILE_STEPS, flagship: dict = None) -> dict:
+    """fit at batch 32 with checkpoints, a RecompileState growing it to 64
+    after the 2nd step: the transition verified before the state carries
+    over (TRN003 for the batch change, no TRN001, TRN002 or TRN004), the
+    parameters and optimizer state carried bitwise, the contract's program
+    changed (`program_changed`) and fit's contract beside the checkpoints
+    re-anchored to the grown program, losses finite, rows 1-3 launched 12
+    times a step on both sides. Then a new model at 64 resumes from the
+    last checkpoint against that contract: `match: true`."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.analysis.exec_contract import (compare_contract_records,
+                                                           read_contract_record)
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.models import FLAGSHIP
+    from flexflow_tpu_torch.runtime.recompile import RecompileState
+
+    FLAGSHIP = flagship or FLAGSHIP
+    cuda = device != "cpu"
+    b0, b1 = batches
+    cdir = os.path.join(tmp, "recompile_ckpt")
+    m = _verify_model(dict(FLAGSHIP, batch=b0), device, checkpoint_dir=cdir,
+                      checkpoint_every_n_steps=sum(steps))
+    n0 = b0 * steps[0] * 2  # the first epoch ends at the trigger, halfway
+    n = max(n0, b1 * steps[1])
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((n, FLAGSHIP["seq"], FLAGSHIP["embed"]), dtype=np.float32)
+    y = rng.integers(0, FLAGSHIP["vocab"], (n, FLAGSHIP["seq"]), dtype=np.int32)
+    losses, seen = [], {}
+    counted = lambda: {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS}  # noqa: E731
+
+    def record_losses():
+        step = m.instance.train_step
+
+        def recorded(*a, **k):
+            res = step(*a, **k)
+            losses.append(float(res[2]))
+            return res
+
+        m.instance.train_step = recorded
+
+    real_recompile = m.recompile
+
+    def recompile(**kw):
+        seen["before"] = counted()
+        seen["contract"] = m._exec_contract_record()
+        seen["state"] = {k: v.clone() for k, v in m.params.items()}
+        seen["opt"] = {k: v.clone() for k, v in m.opt_state["m"].items()}
+        real_recompile(**kw)
+        seen["carried"] = (all(torch.equal(seen["state"][k], m.params[k]) for k in seen["state"])
+                           and all(torch.equal(seen["opt"][k], m.opt_state["m"][k])
+                                   for k in seen["opt"]))
+        seen["transition"] = m.search_provenance["transition"]
+        seen["after_contract"] = m._exec_contract_record()
+        del seen["state"], seen["opt"]
+        record_losses()
+
+    m.recompile = recompile
+    state = RecompileState(lambda ff: ff._step_count >= steps[0] and ff.config.batch_size == b0,
+                           lambda ff: setattr(ff.config, "batch_size", b1))
+    record_losses()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    m.fit(x, y, epochs=2, shuffle=False, verbose=False, recompile_state=state)
+    fit_s = time.perf_counter() - t0
+    total = counted()
+    check, _ = compare_contract_records(seen["contract"], seen["after_contract"])
+    anchored = read_contract_record(cdir)  # fit re-anchors it at the recompile
+    trn = seen["transition"]
+    want_side = {name: FLAGSHIP["layers"] * steps[0] if name in FLASH_WRAPPERS else 0
+                 for name in total} if cuda else {name: 0 for name in total}
+    after = {k: total[k] - seen["before"][k] for k in total}
+    checks = {
+        "one_recompile": state.recompilations == 1 and m.config.batch_size == b1,
+        "steps": m._step_count == sum(steps) and len(losses) == sum(steps),
+        "finite": all(math.isfinite(v) for v in losses),
+        "transition_fatal_free": not set(trn["rules_tripped"]) & {"TRN001", "TRN002", "TRN004"},
+        "trn003_for_the_batch": trn["rules_tripped"] == ["TRN003"],
+        "program_changed": bool(check.get("program_changed")),
+        "contract_re_anchored": anchored == seen["after_contract"],
+        "carried_bitwise": seen["carried"],
+        "launches_before": seen["before"] == want_side,
+        "launches_after": after == {k: v * steps[1] // steps[0] for k, v in want_side.items()},
+    }
+    step_count = m._step_count
+    del m
+    if cuda:
+        torch.cuda.empty_cache()
+    m2 = _verify_model(dict(FLAGSHIP, batch=b1), device, checkpoint_dir=cdir,
+                       checkpoint_every_n_steps=0)
+    fa.reset_launch_counts()
+    m2.fit(x[:b1 * steps[1]], y[:b1 * steps[1]], epochs=3, shuffle=False, verbose=False,
+           resume=True)
+    resumed = m2.exec_resume_check or {}
+    checks["resume_match"] = resumed.get("match") is True
+    checks["resumed_steps"] = m2._step_count == step_count + steps[1]
+    if not all(checks.values()):
+        raise AssertionError(f"recompile: {checks}, transition {trn}, contract check {check}, "
+                             f"resume {resumed}, losses {losses}, launches before "
+                             f"{seen['before']} after {after}")
+    emit({"phase": "recompile", "card": smi, "config": dict(FLAGSHIP, batch=[b0, b1]),
+          "steps": steps, "losses": losses, "fit_s": fit_s, "transition": {
+              k: trn[k] for k in ("verdict", "rules_tripped", "leaves", "moved_leaves",
+                                  "bulk_peak_bytes", "streamed_peak_bytes")},
+          "contract_check": check, "resume_check": resumed, "launches_before": seen["before"],
+          "launches_after": after, "checks": checks})
+    del m2
+    if cuda:
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_serve_contract(smi: str, device: str = "cuda", lm: dict = SERVE_LM,
+                         t: dict = SERVE_CONTRACT) -> None:
+    """ServingProgram.exec_contract at the flagship's serving widths: a
+    prefill and a decode window recorded with the KV cache as the in-place
+    state: no DON finding (the cache written in place), no DET001, no
+    flash launch (serving attention is dense)."""
+    from flexflow_tpu_torch.analysis.memory_accounting import ServingMemorySpec
+    from flexflow_tpu_torch.serving import ServingLMConfig, ServingProgram, build_serving_lm
+
+    mem = ServingMemorySpec(max_concurrent_seqs=t["slots"], max_seq_len=t["max_seq_len"])
+    cg, _ = build_serving_lm(ServingLMConfig(**lm), t["slots"], 1)
+    program = ServingProgram(cg, mem, params_seed=0, device=device)
+    before = _flash_launches()
+    out = program.exec_contract(window_steps=t["window_steps"])
+    if _flash_launches() != before:
+        raise AssertionError("serve_contract: a flash kernel launched")
+    rows = {}
+    for call, (a, diags) in out.items():
+        if diags or not a.donation or not all(r.aliased for r in a.donation):
+            raise AssertionError(f"serve_contract {call}: {[d.to_json() for d in diags]}")
+        rows[call] = {"program_key": a.program_key, "fingerprint": a.program_fingerprint,
+                      "cache_leaves": len(a.donation), "cache_bytes": a.donated_bytes,
+                      "in_place_coverage": a.donation_coverage, "step_bytes":
+                      a.extra.get("step_bytes")}
+    emit({"phase": "serve_contract", "card": smi, "config": lm, "traffic": t, **rows})
+
+
 def _phases(smi: str, kernels: list, launches: dict, ptxas: dict):
     """The phases in order, as groups: (a context manager factory or None,
     [(name, fn)]), where fn takes the context's value (a temporary
@@ -7544,6 +7909,16 @@ def _phases(smi: str, kernels: list, launches: dict, ptxas: dict):
             ("train_ulysses", rec("train_ulysses", lambda tmp: phase_train_ulysses(smi, tmp),
                                   2 * ULYSSES_STEPS)),
             ("moe_ranks", lambda tmp: phase_moe_ranks(smi, tmp)),
+        ]),
+        # program-level verification (A13), recompiles (A8 part 2) and the
+        # serving contract (A12 item 5): the searched winner verified on 2
+        # ranks (whose job carries comm_ranks's plan), then on one card
+        (tempfile.TemporaryDirectory, [
+            ("verify", lambda tmp: phase_verify(smi, tmp)),
+            ("comm_ranks", lambda _: phase_comm_ranks(smi)),
+            ("recompile", rec("recompile", lambda tmp: phase_recompile(smi, tmp),
+                              sum(RECOMPILE_STEPS))),
+            ("serve_contract", lambda _: phase_serve_contract(smi)),
         ]),
     ]
 

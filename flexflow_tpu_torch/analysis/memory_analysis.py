@@ -1,7 +1,9 @@
 """Static per-device memory analysis of a (PCG, machine mapping) pair
 (trimmed copy of flexflow_tpu/analysis/memory_analysis.py: the liveness
-analysis `analyze_memory`, the serving admission verdict, `verify_memory`
-and `memory_summary_json`; the XLA cross-check is A13's).
+analysis `analyze_memory`, the serving admission verdict, `verify_memory`,
+`format_memory_table` and `memory_summary_json`; the JAX package's XLA
+cross-check is `measured_memory_cross_check`, which reads a recorded step's
+peak on the card).
 
 A schedule-aware liveness analysis computes each device's peak timeline for
 one training step (forward ticks 0..N-1 over the topological order,
@@ -595,6 +597,84 @@ def verify_memory(
                 )
                 break  # one structured finding names the knob; one suffices
     return analysis, diags
+
+
+def format_memory_table(
+    analysis: MemoryAnalysis, hbm_bytes: Optional[float] = None
+) -> str:
+    """Human-readable per-device timeline summary (`ffcheck --memory`)."""
+    lines = [
+        "device  resident     peak         at"
+        + ("            capacity" if hbm_bytes else "")
+    ]
+    for d in sorted(analysis.per_device.values(), key=lambda x: x.device):
+        at = analysis.tick_labels.get(d.peak_tick, f"tick {d.peak_tick}")
+        row = (
+            f"{d.device:>6}  {_gib(d.resident_bytes):>10}  "
+            f"{_gib(d.peak_bytes):>10}  {at:<14}"
+        )
+        if hbm_bytes:
+            frac = d.peak_bytes / hbm_bytes
+            row += f"  {frac * 100:5.1f}% of {_gib(hbm_bytes)}"
+            if d.peak_bytes > hbm_bytes:
+                row += "  OVER"
+        lines.append(row)
+        top = sorted(d.peak_breakdown.items(), key=lambda kv: -kv[1])[:4]
+        if top:
+            lines.append(
+                "        at peak: "
+                + ", ".join(f"{c}={_gib(v)}" for c, v in top)
+            )
+    if analysis.serving is not None and hbm_bytes:
+        verdict = serving_verdict(analysis, hbm_bytes)
+        if verdict is not None and verdict.max_sequences is not None:
+            lines.append(
+                f"serving verdict: {verdict.max_sequences} concurrent "
+                f"sequence(s) fit statically (requested "
+                f"{verdict.requested_sequences}; limiting device "
+                f"{verdict.limiting_device}, "
+                f"{_gib(verdict.per_seq_bytes.get(verdict.limiting_device, 0))}"
+                "/sequence)"
+            )
+        elif verdict is not None:
+            lines.append(
+                "serving verdict: no KV cache in this plan — admission "
+                "unbounded by cache residency"
+            )
+    return "\n".join(lines)
+
+
+def measured_memory_cross_check(program, memory_record: dict) -> Dict[str, object]:
+    """The measured counterpart of the JAX package's XLA memory cross-check:
+    the bytes the recorded step (analysis/step_program.py) allocated at its
+    peak on this rank's card (`torch.cuda.max_memory_allocated` over the
+    step, less what was allocated before it: one copy of the state, the
+    activations, the gradients and the temporaries) against the predicted
+    per-device peaks of `memory_record` (`search_provenance["memory"]`).
+    The geomean over devices of predicted / measured is a calibration
+    number, not an identity: the allocator rounds up and frees early, the
+    liveness model charges every term it can name. Empty without a card."""
+    measured = getattr(program, "step_bytes", None)
+    if not measured:
+        return {}
+    measured = max(int(measured), 1)
+    state = sum(s.bytes for s in getattr(program, "state", ()))
+
+    def _geomean(values):
+        ratios = [p / measured for p in values if p and p > 0]
+        if not ratios:
+            return None
+        return round(math.exp(sum(math.log(r) for r in ratios) / len(ratios)), 4)
+
+    return {
+        "measured": {"step_bytes": measured, "state_bytes": int(state),
+                     "source": "torch.cuda.max_memory_allocated over one recorded step"},
+        "measured_per_device_bytes": measured,
+        "predicted_over_measured_geomean": _geomean(
+            memory_record.get("predicted_peak_bytes_per_device", {}).values()),
+        "full_mesh_over_measured_geomean": _geomean(
+            memory_record.get("predicted_peak_bytes_full_mesh", {}).values()),
+    }
 
 
 def memory_summary_json(

@@ -1,0 +1,650 @@
+"""PCG well-formedness verifier (the port's copy of
+flexflow_tpu/analysis/pcg_verify.py: its rules, ids and locations).
+
+Walks any ParallelComputationGraph and emits structured diagnostics for the
+invariants Unity's correctness argument rests on (OSDI'22 §3; GSPMD's
+static sharding-propagation checks are the model for doing this at the IR
+level rather than at crash time):
+
+PCG001 shard-divisibility   every shard dim's global size is divisible by
+                            its shard degree (and all degrees are >= 1)
+PCG002 inference-failed     shape inference rejects the op on its recorded
+                            input shapes (e.g. a Repartition whose degree
+                            does not divide the dim, a nonlinear unary op
+                            consuming partial sums)
+PCG003 degree-conservation  recorded output shape differs from the shape
+                            re-inferred from the recorded inputs (degrees
+                            not conserved across Repartition/Combine/
+                            Replicate/Reduction, sizes drifted, weight
+                            slots inconsistent with the op's expectation)
+PCG004 dtype-mismatch       re-inferred dims match but the recorded dtype
+                            differs (dtype propagation broke)
+PCG005 escaped-sum-degree   a tensor with sum_degree > 1 reaches a graph
+                            sink undischarged (the partial sums would be
+                            silently dropped or mis-read as a total)
+PCG006 dead-output          pure data-movement node (Repartition/Replicate/
+                            Noop) with no consumers, or an unused
+                            Input/Weight layer (warning)
+PCG007 not-series-parallel  the PCG is not SP-decomposable, so the
+                            machine-mapping DP cannot price it
+PCG008 overlap-annotation   a fused-overlap annotation (--overlap lowering
+                            plan) names an edge whose adjacent op does not
+                            actually consume/produce the moved tensor:
+                            "ag_matmul" must annotate a Combine whose sole
+                            consumer is a dense op, "matmul_rs" a Reduction
+                            fed by a dense producer's partial sums
+
+MV001  view-arity-mismatch  a machine view's dimensionality differs from
+                            the op's parallel task space (or the mapping
+                            lacks a view for a node)
+MV002  view-out-of-grid     a view maps some task outside the device grid
+                            or maps two tasks to one device
+MV003  oversubscription     concurrent branches of a parallel split use
+                            overlapping-but-unequal device sets (a resource
+                            split that double-books devices)
+MV004  slice-straddle       on a multi-slice machine, a view projects a
+                            TENSOR-sharded task axis across the slice
+                            (DCN) boundary — per-microstep collective
+                            traffic over the slow link (only
+                            data/replica/stage axes may cross)
+
+`verify_pcg` is the full pass; `verify_pcg_structure` is the cheap subset
+(PCG001-PCG006) used per-candidate under FF_TPU_VERIFY=1.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+from flexflow_tpu_torch.analysis.diagnostics import Diagnostic, error, warning
+from flexflow_tpu_torch.op_attrs.core import (
+    get_parallel_output_shapes,
+    get_parallel_weight_shapes,
+    is_parallel_op,
+    op_type_of,
+)
+from flexflow_tpu_torch.op_attrs.ops import InputAttrs, NoopAttrs, WeightAttrs
+from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import ParallelTensorShape
+
+PCG_RULE_CATALOG: Dict[str, str] = {
+    "PCG001": "shard-divisibility: dim size divisible by shard degree, all degrees >= 1",
+    "PCG002": "inference-failed: op rejects its recorded input shapes",
+    "PCG003": "degree-conservation: recorded output shape != re-inferred shape",
+    "PCG004": "dtype-mismatch: recorded dtype != propagated dtype",
+    "PCG005": "escaped-sum-degree: undischarged partial sums reach a graph sink",
+    "PCG006": "dead-output: data-movement node or weight/input with no consumers",
+    "PCG007": "not-series-parallel: PCG is not SP-decomposable",
+    "PCG008": "overlap-annotation: fused-overlap edge's adjacent op does not consume/produce the moved tensor",
+    # pipeline-stage rules (pcg/pipeline.analyze_pipeline is
+    # the shared structural analysis; the 1F1B executor and both
+    # machine-mapping DPs act only on regions these rules accept)
+    "PCG009": "stage-structure: stage ops malformed or a stage is not a connected series region",
+    "PCG010": "microbatch-divisibility: the pipeline entry's batch dim does not divide into the declared microbatches",
+    "PCG011": "stage-submesh-disjointness: a stage's parallel degree leaves no disjoint submesh per stage on the machine",
+    "MV001": "view-arity-mismatch: machine view dims != op task space dims (or view missing)",
+    "MV002": "view-out-of-grid: view maps a task outside the grid or non-injectively",
+    "MV003": "oversubscription: parallel-split branches double-book devices",
+    "MV004": "slice-straddle: a view projects a tensor-sharded task axis across the slice (DCN) boundary",
+    # static memory-safety rules (analysis/memory_analysis.py — the
+    # liveness-based per-device HBM verifier behind `ffcheck --memory`)
+    "MEM001": "over-capacity: a device's peak-HBM timeline exceeds the capacity",
+    "MEM002": "piece-too-large: one op's piece residency alone exceeds the capacity",
+    "MEM003": "unsharded-optimizer: optimizer state dominates while parameters are unsharded",
+    "MEM004": "window-over-budget: stacked dispatch-window buffers exceed the memory budget",
+    "MEM005": "serving-over-capacity: the static max-concurrent-sequences verdict is below the serving workload's requested concurrency",
+    # static communication rules (analysis/comm_analysis.py — the recorded
+    # step's collective census cross-checked against the plan's priced
+    # movement edges behind `ffcheck --comm`)
+    "COMM001": "unpredicted-collective: a collective of the step above the bytes floor matches no priced movement edge",
+    "COMM002": "movement-edge-dce: a priced movement edge lowered to no collective (the search overpaid)",
+    "COMM003": "bytes-band: a movement edge's lowered bytes fall outside the acceptance band of its prediction",
+    "COMM004": "host-transfer: a device-to-host read (.item(), float(t), .cpu(), .tolist()) inside the step program",
+    # execution-contract rules (analysis/exec_contract.py — determinism
+    # census + in-place audit of the recorded step behind `ffcheck --exec`)
+    "DET001": "nondeterministic-op: an op PyTorch documents as nondeterministic on CUDA (atomic accumulation: index_add_, colliding scatter_add_, index_put_ accumulate) in the step program",
+    "DET002": "fingerprint-drift: the step program no longer matches the contract recorded at compile (resume/recompile is not bitwise)",
+    "DON001": "dropped-donation: a state leaf came back in a new storage (the update was not in place; the old buffer stays live beside it)",
+    "DON002": "undonated-state: a state leaf the memory model prices as in-place is not handed back by the step",
+    # plan-transition rules (analysis/transition_analysis.py — the static
+    # old-plan -> new-plan swap verifier behind `ffcheck --transition`,
+    # FFModel.recompile(), and the DriftMonitor advisory verdict)
+    "TRN001": "orphaned-or-drifted-leaf: a parameter leaf lacks a degree-compatible lossless src->dst resharding under the new plan",
+    "TRN002": "migration-over-capacity: old + new pieces + staging exceed a device's HBM mid-swap (even under the streamed per-leaf bound)",
+    "TRN003": "resume-contract-break: batch schedule / microbatch count / pipeline structure changed in a way that breaks bitwise resume",
+    "TRN004": "exec-contract-violation: the new plan's compiled step fails the DET/DON execution-contract rules",
+}
+
+
+def _check_shape_integrity(
+    shape: ParallelTensorShape, node_idx: int, tensor: str
+) -> List[Diagnostic]:
+    """PCG001 on one recorded shape, tolerant of shapes built around the
+    dataclass asserts (deserialized or hand-mutated graphs)."""
+    out: List[Diagnostic] = []
+    for i, d in enumerate(shape.dims.shard_dims):
+        if d.size < 1 or d.degree < 1 or d.size % d.degree != 0:
+            out.append(
+                error(
+                    "PCG001",
+                    f"shard dim {i} has size {d.size} with degree {d.degree}"
+                    + (
+                        ""
+                        if d.size < 1 or d.degree < 1
+                        else f" ({d.size} % {d.degree} != 0)"
+                    ),
+                    node=node_idx,
+                    tensor=tensor,
+                    hint="pick a shard degree that divides the global dim size",
+                )
+            )
+    if shape.sum_degree < 1 or shape.discard_copy_degree < 1:
+        out.append(
+            error(
+                "PCG001",
+                f"replica degrees must be >= 1 (sum={shape.sum_degree}, "
+                f"copy={shape.discard_copy_degree})",
+                node=node_idx,
+                tensor=tensor,
+            )
+        )
+    return out
+
+
+def verify_pcg_structure(pcg) -> List[Diagnostic]:
+    """PCG001-PCG006: the per-node/per-tensor invariants (no SP or machine
+    checks — cheap enough to run per substitution candidate)."""
+    from flexflow_tpu_torch.local_execution.training_backing import split_slot_values
+
+    diags: List[Diagnostic] = []
+    for n in pcg.topological_ordering():
+        attrs = pcg.op_attrs(n)
+        outs = pcg.outputs_of(n)
+        recorded = [pcg.tensor_shape(o) for o in outs]
+        for o, shape in zip(outs, recorded):
+            diags.extend(_check_shape_integrity(shape, n.idx, repr(o)))
+
+        # re-infer this node's outputs from its recorded input shapes
+        ins = pcg.inputs_of(n)
+        try:
+            if isinstance(attrs, (InputAttrs, WeightAttrs)):
+                inferred = [attrs.parallel_output_shape()]
+            else:
+                data, weights = split_slot_values(
+                    attrs, [pcg.tensor_shape(v) for v in ins]
+                )
+                inferred = get_parallel_output_shapes(attrs, data)
+                if weights:
+                    expected_w = list(get_parallel_weight_shapes(attrs, data))
+                    if weights != expected_w:
+                        diags.append(
+                            error(
+                                "PCG003",
+                                f"weight slots of {type(attrs).__name__} carry "
+                                f"{weights}, expected {expected_w}",
+                                node=n.idx,
+                                hint="re-run shape inference on the rewritten "
+                                "weight chain",
+                            )
+                        )
+        except (AssertionError, IndexError, KeyError, ValueError, TypeError) as e:
+            diags.append(
+                error(
+                    "PCG002",
+                    f"shape inference failed for {type(attrs).__name__}: "
+                    f"{type(e).__name__}: {e}",
+                    node=n.idx,
+                    hint="the op's attrs are inconsistent with its input "
+                    "shapes (e.g. a parallel degree that does not divide)",
+                )
+            )
+            continue
+
+        if len(inferred) != len(recorded):
+            diags.append(
+                error(
+                    "PCG003",
+                    f"{type(attrs).__name__} infers {len(inferred)} outputs "
+                    f"but {len(recorded)} are recorded",
+                    node=n.idx,
+                )
+            )
+            continue
+        for o, rec, inf in zip(outs, recorded, inferred):
+            if rec == inf:
+                continue
+            if rec.dims == inf.dims and rec.dtype != inf.dtype:
+                diags.append(
+                    error(
+                        "PCG004",
+                        f"recorded dtype {rec.dtype.value} != propagated "
+                        f"dtype {inf.dtype.value}",
+                        node=n.idx,
+                        tensor=repr(o),
+                        hint="insert an explicit Cast or fix the label",
+                    )
+                )
+            else:
+                diags.append(
+                    error(
+                        "PCG003",
+                        f"recorded shape {rec} != re-inferred {inf}",
+                        node=n.idx,
+                        tensor=repr(o),
+                        hint="degrees/sizes must be conserved through the "
+                        "rewrite; re-run shape inference downstream",
+                    )
+                )
+
+    # PCG005: undischarged partial sums at sinks; PCG006: dead dataflow
+    for n in pcg.nodes:
+        attrs = pcg.op_attrs(n)
+        outs = pcg.outputs_of(n)
+        used = [bool(pcg.uses_of(o)) for o in outs]
+        for o, u in zip(outs, used):
+            if not u and pcg.tensor_shape(o).sum_degree > 1:
+                diags.append(
+                    error(
+                        "PCG005",
+                        f"tensor {pcg.tensor_shape(o)} escapes the graph "
+                        f"with sum_degree="
+                        f"{pcg.tensor_shape(o).sum_degree}",
+                        node=n.idx,
+                        tensor=repr(o),
+                        hint="insert a Reduction before the output/loss",
+                    )
+                )
+        if not any(used):
+            t = op_type_of(attrs)
+            if is_parallel_op(attrs) and t.value in ("repartition", "replicate"):
+                diags.append(
+                    error(
+                        "PCG006",
+                        f"dangling {t.value} node: produces a resharded "
+                        "value nothing consumes",
+                        node=n.idx,
+                        hint="drop the node or rewire its consumer",
+                    )
+                )
+            elif isinstance(attrs, NoopAttrs):
+                # a sink Noop is how a cancel rule leaves a graph OUTPUT
+                # (elide_noops erases it next normalize), so only warn
+                diags.append(
+                    warning(
+                        "PCG006",
+                        "sink Noop node with no consumers",
+                        node=n.idx,
+                        hint="run elide_noops after substitutions",
+                    )
+                )
+            elif isinstance(attrs, (InputAttrs, WeightAttrs)):
+                diags.append(
+                    warning(
+                        "PCG006",
+                        f"unused {type(attrs).__name__} layer",
+                        node=n.idx,
+                    )
+                )
+    diags.extend(verify_pipeline_structure(pcg))
+    return diags
+
+
+def verify_pipeline_structure(pcg) -> List[Diagnostic]:
+    """PCG009/PCG010: the stage-op structural rules, rendered from
+    `pcg.pipeline.analyze_pipeline` (one shared analysis with the DPs and
+    the 1F1B executor). No stage ops -> no diagnostics."""
+    from flexflow_tpu_torch.pcg.pipeline import analyze_pipeline
+
+    region = analyze_pipeline(pcg)
+    if region is None:
+        return []
+    hints = {
+        "PCG009": "each stage must be one connected series region between "
+        "consecutive StagePartition boundaries (one per stage_index) "
+        "ending in a single StageMerge",
+        "PCG010": "pick a microbatch count that divides the batch dim on "
+        "every shard",
+    }
+    return [
+        error(rule_id, msg, node=node_idx, hint=hints.get(rule_id))
+        for rule_id, msg, node_idx in region.issues
+    ]
+
+
+def verify_stage_submeshes(pcg, machine_spec) -> List[Diagnostic]:
+    """PCG011: S pipeline stages need S DISJOINT submeshes, so the largest
+    in-stage parallel degree may not exceed num_devices / S — otherwise
+    the schedule's stages would contend for the same devices and the
+    bubble model (and the 1F1B lowering's stage axis) is void."""
+    from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
+        total_parallel_degree,
+    )
+    from flexflow_tpu_torch.pcg.pipeline import analyze_pipeline
+
+    region = analyze_pipeline(pcg)
+    if region is None or not region.ok or machine_spec is None:
+        return []
+    S = region.num_stages
+    ndev = machine_spec.num_devices
+    budget = ndev // S
+    diags: List[Diagnostic] = []
+    if budget < 1:
+        return [
+            error(
+                "PCG011",
+                f"{S} stages on a {ndev}-device machine leave no devices "
+                "per stage",
+                hint="use fewer stages than devices",
+            )
+        ]
+    worst: Dict[int, tuple] = {}  # stage -> (degree, node)
+    for n, s in region.stage_of.items():
+        for o in pcg.outputs_of(n):
+            d = total_parallel_degree(pcg.tensor_shape(o))
+            if d > worst.get(s, (0, None))[0]:
+                worst[s] = (d, n)
+    for s, (d, n) in sorted(worst.items()):
+        if d > budget:
+            diags.append(
+                error(
+                    "PCG011",
+                    f"stage {s} carries parallel degree {d} but only "
+                    f"{budget} devices fit per stage "
+                    f"({ndev} devices / {S} stages)",
+                    node=n.idx,
+                    hint="lower the in-stage parallel degree or the stage "
+                    "count so each stage owns a disjoint submesh",
+                )
+            )
+    return diags
+
+
+def verify_overlap_plan(pcg, overlap_plan: Dict) -> List[Diagnostic]:
+    """PCG008: every fused-overlap annotation must sit on an edge whose
+    adjacent op really consumes/produces the moved tensor — the executor's
+    fused kernels rewire exactly that adjacency, so an annotation anywhere
+    else describes a lowering the runtime cannot perform.
+
+    `overlap_plan` maps a movement-edge node (Node or node idx) to its
+    fused kind: "ag_matmul" (a Combine whose sole consumer is a dense op
+    taking the combined tensor as its data input) or "matmul_rs" (a
+    Reduction whose input is a dense op's partial-sum output of matching
+    degree)."""
+    from flexflow_tpu_torch.op_attrs.ops import (
+        BatchMatmulAttrs,
+        CombineAttrs,
+        LinearAttrs,
+        MultiHeadAttentionAttrs,
+        ReductionAttrs,
+    )
+
+    dense_types = (LinearAttrs, BatchMatmulAttrs, MultiHeadAttentionAttrs)
+    by_idx = {n.idx: n for n in pcg.nodes}
+    diags: List[Diagnostic] = []
+    for key in sorted(
+        overlap_plan, key=lambda k: getattr(k, "idx", k)
+    ):
+        kind = overlap_plan[key]
+        idx = getattr(key, "idx", key)
+        n = by_idx.get(idx)
+        if n is None:
+            diags.append(
+                error(
+                    "PCG008",
+                    f"overlap annotation {kind!r} names node {idx}, which "
+                    "is not in the PCG",
+                    node=idx,
+                )
+            )
+            continue
+        attrs = pcg.op_attrs(n)
+        if kind == "ag_matmul":
+            uses = (
+                pcg.uses_of(pcg.outputs_of(n)[0])
+                if pcg.outputs_of(n)
+                else []
+            )
+            consumer = uses[0].node if len(uses) == 1 else None
+            ok = (
+                isinstance(attrs, CombineAttrs)
+                and consumer is not None
+                and isinstance(pcg.op_attrs(consumer), dense_types)
+                and pcg.inputs_of(consumer)
+                and pcg.inputs_of(consumer)[0].node == n
+            )
+            if not ok:
+                diags.append(
+                    error(
+                        "PCG008",
+                        "ag_matmul overlap annotated on a node that is not "
+                        "a Combine solely feeding a dense op's data input "
+                        f"(found {type(attrs).__name__})",
+                        node=idx,
+                        hint="the fused all-gather ring replaces exactly "
+                        "the Combine -> dense adjacency",
+                    )
+                )
+        elif kind == "matmul_rs":
+            ins = pcg.inputs_of(n)
+            producer = ins[0].node if len(ins) == 1 else None
+            ok = (
+                isinstance(attrs, ReductionAttrs)
+                and producer is not None
+                and isinstance(pcg.op_attrs(producer), dense_types)
+                and pcg.tensor_shape(ins[0]).sum_degree
+                == attrs.reduction_degree
+            )
+            if not ok:
+                diags.append(
+                    error(
+                        "PCG008",
+                        "matmul_rs overlap annotated on a node that is not "
+                        "a Reduction draining a dense producer's partial "
+                        f"sums (found {type(attrs).__name__})",
+                        node=idx,
+                        hint="the fused reduce-scatter ring replaces "
+                        "exactly the dense -> Reduction adjacency",
+                    )
+                )
+        else:
+            diags.append(
+                error(
+                    "PCG008",
+                    f"unknown overlap kind {kind!r}",
+                    node=idx,
+                )
+            )
+    return diags
+
+
+def verify_machine_mapping(
+    pcg, machine_spec, mapping, _tree_and_paths=None
+) -> List[Diagnostic]:
+    """MV001-MV004: every mapped view legal for its op's task space within
+    the device grid; parallel-split branches must not double-book devices;
+    on a multi-slice machine no view may project a tensor-sharded task
+    axis across the slice boundary.
+    `_tree_and_paths` lets verify_pcg pass its already-built problem tree
+    so the SP decomposition is not paid twice."""
+    from flexflow_tpu_torch.compiler.machine_mapping.problem_tree import (
+        _leaf_key,
+        get_machine_mapping_problem_tree,
+        operator_task_space,
+    )
+    from flexflow_tpu_torch.compiler.machine_mapping.slice_axes import (
+        leaf_task_axis_kinds,
+        leaf_tensor_axis_mask,
+        view_inter_axis_mask,
+    )
+    from flexflow_tpu_torch.pcg.machine_view import (
+        get_device_ids,
+        machine_view_is_valid,
+    )
+
+    diags: List[Diagnostic] = []
+    devices_of: Dict[int, frozenset] = {}  # node idx -> device-id set
+    for n in sorted(pcg.nodes):
+        task = operator_task_space(pcg, n)
+        view = mapping.get(n)
+        if view is None:
+            diags.append(
+                error(
+                    "MV001",
+                    "no machine view mapped for this node",
+                    node=n.idx,
+                    hint="the mapping must cover every PCG node",
+                )
+            )
+            continue
+        if view.num_dims != len(task.degrees):
+            diags.append(
+                error(
+                    "MV001",
+                    f"view has {view.num_dims} dims but the op's task space "
+                    f"is {task.degrees} ({task.num_tasks} tasks = the "
+                    "output's total parallel degree)",
+                    node=n.idx,
+                    hint="one view dimension per non-trivial parallel degree",
+                )
+            )
+            continue
+        if not machine_view_is_valid(task, view, machine_spec):
+            diags.append(
+                error(
+                    "MV002",
+                    f"view {view} is invalid for task space {task.degrees} "
+                    f"on a {machine_spec.num_nodes}x"
+                    f"{machine_spec.num_devices_per_node} machine "
+                    "(out of bounds or two tasks on one device)",
+                    node=n.idx,
+                    hint="shrink strides/start or pick a bigger machine",
+                )
+            )
+            continue
+        if machine_spec.num_nodes > 1:
+            # MV004: the same pure-bitmask legality test both
+            # machine-mapping DPs enforce under slice_aware — an INTER
+            # projection on a tensor-sharded task axis routes per-microstep
+            # collective traffic across the DCN boundary
+            leaf = _leaf_key(pcg, n)
+            bad = view_inter_axis_mask(view) & leaf_tensor_axis_mask(leaf)
+            if bad:
+                kinds = leaf_task_axis_kinds(leaf)
+                dims = [i for i in range(len(kinds)) if bad >> i & 1]
+                diags.append(
+                    error(
+                        "MV004",
+                        f"view {view} projects tensor-sharded task "
+                        f"axis(es) {dims} (kinds {kinds}) across the "
+                        f"slice boundary of a {machine_spec.num_nodes}-"
+                        "slice machine",
+                        node=n.idx,
+                        hint="only data/replica/stage axes may cross DCN; "
+                        "keep tensor-parallel axes INTRA_NODE",
+                    )
+                )
+                continue
+        devices_of[n.idx] = frozenset(get_device_ids(task, view, machine_spec))
+
+    # MV003: walk the SP decomposition; at each PARALLEL split the two
+    # branches run concurrently, so their device sets must be disjoint (a
+    # resource split) or identical (the full-mesh lowering, where the
+    # branches run one after the other on the shared mesh). Series splits run sequentially and may
+    # overlap freely.
+    from flexflow_tpu_torch.compiler.machine_mapping.problem_tree import (
+        MMProblemTreeParallelSplit,
+        MMProblemTreeSeriesSplit,
+    )
+
+    if _tree_and_paths is not None:
+        tree, path_of = _tree_and_paths
+        if tree is None:  # caller already found the PCG non-SP: no MV003
+            return diags
+    else:
+        try:
+            tree, path_of = get_machine_mapping_problem_tree(pcg)
+        except ValueError:
+            return diags  # PCG007 is reported by verify_pcg
+    parallel_prefixes: List[tuple] = []
+
+    def collect_splits(t, prefix):
+        if isinstance(t, MMProblemTreeParallelSplit):
+            parallel_prefixes.append(prefix)
+        if isinstance(t, (MMProblemTreeParallelSplit, MMProblemTreeSeriesSplit)):
+            collect_splits(t.left, prefix + ("L",))
+            collect_splits(t.right, prefix + ("R",))
+
+    collect_splits(tree, ())
+    by_prefix: Dict[tuple, set] = {}
+    for n, path in path_of.items():
+        devs = devices_of.get(n.idx)
+        if devs is None:
+            continue
+        for i in range(len(path)):
+            by_prefix.setdefault(path[: i + 1], set()).update(devs)
+    for prefix in sorted(parallel_prefixes):
+        left = by_prefix.get(prefix + ("L",))
+        right = by_prefix.get(prefix + ("R",))
+        if not left or not right:
+            continue
+        inter = left & right
+        if inter and left != right:
+            diags.append(
+                error(
+                    "MV003",
+                    f"branches at split {''.join(prefix) or '<root>'} share "
+                    f"devices {sorted(inter)} but are not co-located "
+                    f"(left uses {sorted(left)}, right {sorted(right)})",
+                    hint="use disjoint device blocks per branch or map both "
+                    "branches onto the same full set",
+                )
+            )
+    return diags
+
+
+def verify_pcg(
+    pcg,
+    machine_spec=None,
+    mapping: Optional[dict] = None,
+    check_sp: bool = True,
+    overlap_plan: Optional[dict] = None,
+) -> List[Diagnostic]:
+    """The full verifier: structural rules, SP-decomposability, (when a
+    machine spec + mapping are given) machine-view legality, and (when an
+    overlap lowering plan is given) the PCG008 fused-edge adjacency
+    check."""
+    diags = verify_pcg_structure(pcg)
+    if overlap_plan:
+        diags.extend(verify_overlap_plan(pcg, overlap_plan))
+    if machine_spec is not None:
+        diags.extend(verify_stage_submeshes(pcg, machine_spec))
+    tree_and_paths = None
+    if check_sp or (machine_spec is not None and mapping is not None):
+        from flexflow_tpu_torch.compiler.machine_mapping.problem_tree import (
+            get_machine_mapping_problem_tree,
+        )
+
+        try:
+            tree_and_paths = get_machine_mapping_problem_tree(pcg)
+        except ValueError as e:
+            if check_sp:
+                diags.append(
+                    error(
+                        "PCG007",
+                        f"not series-parallel decomposable: {e}",
+                        hint="the machine-mapping DP requires an SP graph; "
+                        "check for cross-branch edges the normalization "
+                        "passes should have removed",
+                    )
+                )
+    if machine_spec is not None and mapping is not None:
+        # (None, None) tells the MV pass the PCG is known non-SP: per-node
+        # view checks still run, only the split-level MV003 is skipped
+        diags.extend(
+            verify_machine_mapping(
+                pcg,
+                machine_spec,
+                mapping,
+                _tree_and_paths=tree_and_paths or (None, None),
+            )
+        )
+    return diags

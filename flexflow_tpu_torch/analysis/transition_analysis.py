@@ -1,0 +1,880 @@
+"""Static verification of a plan transition: old (PCG, mapping) -> new
+(PCG, mapping) (the port's copy of
+flexflow_tpu/analysis/transition_analysis.py, its rules and record shapes).
+
+Every recompile transition is verified into
+`search_provenance["transition"]` before any state carries over;
+`FFModel.recompile()` raises a structured `TransitionError` on a rejected
+one, and the drift monitor's advisories carry this pass's verdict (a
+blocked candidate is recorded `swap_blocked`, never advised as
+actionable).
+
+Rule ids (catalogued in pcg_verify.PCG_RULE_CATALOG):
+
+TRN001 orphaned-or-drifted-leaf   weight-remap totality: every parameter
+       leaf (and with it its Adam-moment slots — the optimizer state
+       trees mirror the parameter tree leaf-for-leaf) in the old plan
+       must have a degree-compatible, LOSSLESS src->dst resharding
+       under the new plan's views. An old leaf with no new home
+       (orphaned), a new leaf with no source (state would be
+       re-initialized, not carried), a global shape/dtype drift, or a
+       dst shard degree that does not divide the global dim (a lossy,
+       padded reshard) each name the leaf path (error)
+TRN002 migration-over-capacity    per-device peak HBM *during* the
+       swap: old pieces + new pieces + staging co-resident, computed on
+       the shared `memory_accounting` primitives (`estimate_memory`
+       over piece shapes — the same terms MEM001-005 charge). The bulk
+       verdict has every leaf's src and dst resident at once; when bulk
+       overflows but migrating one leaf at a time fits, the fallback
+       verdict is `streamed` (warning — the swap executor must stream);
+       when even the streamed bound overflows, the transition is
+       infeasible (error)
+TRN003 resume-contract-break      step/RNG contract: a batch-schedule
+       change, a pipeline microbatch-count change (loss accumulation
+       re-orders — float addition is not associative), or a malformed
+       pipeline region in exactly one plan would break bitwise resume
+       (error). COMPATIBLE changes — steps_per_dispatch restacking,
+       stage-count changes at fixed M, pure view moves — are annotated
+       in `carry_remap` with the exact state remap the swap executor
+       applies (no diagnostic)
+TRN004 exec-contract-violation    the NEW plan's compiled step must
+       pass the execution-contract rules (DET001 determinism census,
+       DON001/DON002 in-place audit) via the shared recorded step
+       (analysis/step_program.py). Old-vs-new fingerprints are RECORDED as
+       `program_changed` — a transition legitimately builds a
+       different program, so DET002 is an annotation here, not an
+       error (error only for DET001/DON rules on the new program)
+
+plus a transition COST report: bytes moved per leaf (value + optimizer
+moments), keyed through the link-classed movement keys
+(`movement_store.movement_edge_key`, schema v3) with the ICI vs DCN
+split taken from whether the leaf's src+dst device sets span a node
+(slice) boundary — the numbers the future hot-swap executor weighs
+against the advisory's predicted savings.
+
+`verify_transition` is the one-call driver behind
+`ffcheck --transition OLD NEW`; `analyze_transition` is the
+diagnostics-free analysis.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+from flexflow_tpu_torch.analysis.diagnostics import (
+    Diagnostic,
+    error,
+    human_bytes as _gib,
+    warning,
+)
+
+TRANSITION_RULE_IDS = ("TRN001", "TRN002", "TRN003", "TRN004")
+
+# staging overhead the bulk co-residency verdict charges per device: the
+# largest single in-flight reshard buffer (src piece + dst piece of one
+# leaf): the carry stages the incoming piece before the old one frees
+TRANSITION_SCHEMA = 1
+
+
+@dataclass
+class LeafTransition:
+    """One parameter leaf's src -> dst move."""
+
+    path: str  # "<layer name>/w<slot>" — the leaf path TRN001 names
+    node_old: int
+    node_new: int
+    bytes_global: int  # degree-reduced value bytes (one moment slot = same)
+    src_piece_bytes: int
+    dst_piece_bytes: int
+    src_degrees: str
+    dst_degrees: str
+    moved: bool  # sharding or placement changed: bytes must move
+    moved_bytes: int  # value + optimizer moments, when moved
+    link_class: str = "ici"
+    movement_key: Optional[str] = None
+    est_ms: Optional[float] = None
+
+    def to_json(self) -> dict:
+        return {
+            "path": self.path,
+            "bytes_global": int(self.bytes_global),
+            "src_piece_bytes": int(self.src_piece_bytes),
+            "dst_piece_bytes": int(self.dst_piece_bytes),
+            "src_degrees": self.src_degrees,
+            "dst_degrees": self.dst_degrees,
+            "moved": self.moved,
+            "moved_bytes": int(self.moved_bytes),
+            "link_class": self.link_class,
+            "movement_key": self.movement_key,
+            "est_ms": self.est_ms,
+        }
+
+
+@dataclass
+class TransitionAnalysis:
+    """The full old -> new transition record (`ffcheck --transition
+    --json` summary, `search_provenance["transition"]`)."""
+
+    leaves: List[LeafTransition] = field(default_factory=list)
+    orphaned: List[str] = field(default_factory=list)  # old paths, no dst
+    created: List[str] = field(default_factory=list)  # new paths, no src
+    drifted: List[str] = field(default_factory=list)  # shape/dtype drift
+    # per-device resident weight-state bytes (params + optimizer slots)
+    per_device_old: Dict[int, int] = field(default_factory=dict)
+    per_device_new: Dict[int, int] = field(default_factory=dict)
+    # migration co-residency peaks (max over devices)
+    bulk_peak_bytes: int = 0
+    bulk_peak_device: int = 0
+    streamed_peak_bytes: int = 0
+    streamed_peak_device: int = 0
+    hbm_bytes: Optional[float] = None
+    migration_verdict: Optional[str] = None  # "bulk"|"streamed"|"over"
+    optimizer_state_slots: int = 2
+    # the step/RNG contract scalars compared by TRN003
+    contract_old: Dict[str, object] = field(default_factory=dict)
+    contract_new: Dict[str, object] = field(default_factory=dict)
+    # compatible-change annotations: the exact carry remap per knob
+    carry_remap: Dict[str, str] = field(default_factory=dict)
+    # TRN004 (when the new plan was lowered)
+    exec_verified: bool = False
+    program_changed: Optional[bool] = None
+    fingerprint_old: Optional[str] = None
+    fingerprint_new: Optional[str] = None
+    exec_summary: Optional[dict] = None
+    # verdict (filled by verify_transition)
+    verdict: str = "swappable"
+    rules_tripped: List[str] = field(default_factory=list)
+
+    @property
+    def moved_bytes_total(self) -> int:
+        return sum(l.moved_bytes for l in self.leaves)
+
+    @property
+    def ici_bytes(self) -> int:
+        return sum(
+            l.moved_bytes for l in self.leaves
+            if l.moved and l.link_class == "ici"
+        )
+
+    @property
+    def dcn_bytes(self) -> int:
+        return sum(
+            l.moved_bytes for l in self.leaves
+            if l.moved and l.link_class == "dcn"
+        )
+
+    @property
+    def moved_leaves(self) -> List[LeafTransition]:
+        return [l for l in self.leaves if l.moved]
+
+
+class TransitionError(RuntimeError):
+    """A plan transition the static verifier rejects — raised by
+    `FFModel.recompile()` BEFORE any state is carried. Names the tripped
+    rule(s) so the caller (and the drift advisory record) can say *why*
+    the swap is blocked."""
+
+    def __init__(self, rules: List[str], diagnostics: List[Diagnostic]):
+        from flexflow_tpu_torch.analysis.diagnostics import format_diagnostic
+
+        self.rules = list(rules)
+        self.diagnostics = list(diagnostics)
+        super().__init__(
+            "plan transition rejected by the static verifier "
+            f"({', '.join(self.rules)}):\n"
+            + "\n".join(format_diagnostic(d) for d in diagnostics)
+        )
+
+
+# -- leaf inventory (TRN001) -------------------------------------------------
+
+
+def weight_leaves(pcg) -> Dict[str, tuple]:
+    """{leaf path: (consuming node, weight value, parallel shape)} over
+    one plan. A parameter leaf is a WEIGHT-role input slot of a compute
+    op that traces back to a Weight layer (the executor stores it in
+    exactly this post-reshard sharded form — the same convention the
+    memory accounting charges residency under, and the form `carry()`
+    reshards from). The leaf path is `<layer name>/w<slot>`, stable
+    across re-sharding rewrites because substitutions preserve layer
+    names."""
+    from flexflow_tpu_torch.compiler.machine_mapping.problem_tree import _from_weight
+    from flexflow_tpu_torch.local_execution.training_backing import (
+        split_slot_values,
+    )
+    from flexflow_tpu_torch.op_attrs.core import is_parallel_op
+    from flexflow_tpu_torch.op_attrs.ops import InputAttrs, WeightAttrs
+    from flexflow_tpu_torch.parallel.executor import param_key
+
+    out: Dict[str, tuple] = {}
+    for n in pcg.topological_ordering():
+        attrs = pcg.op_attrs(n)
+        if isinstance(attrs, (InputAttrs, WeightAttrs)) or is_parallel_op(
+            attrs
+        ):
+            continue
+        ins = list(pcg.inputs_of(n))
+        if not ins:
+            continue
+        _, weight_vals = split_slot_values(attrs, ins)
+        name = pcg.layer_attrs(n).name or param_key(n)
+        for i, v in enumerate(weight_vals):
+            if not _from_weight(pcg, v):
+                continue
+            out[f"{name}/w{i}"] = (n, v, pcg.tensor_shape(v))
+    return out
+
+
+def _degrees_repr(pts) -> str:
+    shard = "x".join(str(d.degree) for d in pts.dims.shard_dims)
+    return f"[{shard}]s{pts.sum_degree}r{pts.discard_copy_degree}"
+
+
+def _lossless(pts) -> bool:
+    """Every shard degree divides its global dim (no padded pieces)."""
+    return all(
+        d.degree >= 1 and d.size % d.degree == 0
+        for d in pts.dims.shard_dims
+    )
+
+
+# -- link classification + movement keys (the cost report) -------------------
+
+
+def _leaf_devices(pcg, n, machine_spec, mapping) -> List[int]:
+    from flexflow_tpu_torch.analysis.memory_analysis import _device_ids_for
+
+    return _device_ids_for(pcg, n, machine_spec, mapping)
+
+
+def transition_link_class(
+    src_devs: List[int], dst_devs: List[int], machine_spec
+) -> str:
+    """'ici' | 'dcn' for one leaf's migration: the move rides the DCN
+    when the union of src and dst device sets spans a node (slice)
+    boundary — conservative (a multi-node reshard may keep some pieces
+    node-local), matching the cost estimator's policy that a cross-class
+    mixup is worse than overcharging the slow link."""
+    if machine_spec is None or machine_spec.num_nodes <= 1:
+        return "ici"
+    per = max(machine_spec.num_devices_per_node, 1)
+    nodes = {d // per for d in src_devs} | {d // per for d in dst_devs}
+    return "dcn" if len(nodes) > 1 else "ici"
+
+
+def _synth_reshard_attrs(src_pts, dst_pts):
+    """A parallel-op attrs value denoting the dominant degree delta of
+    this leaf's reshard — the <Kind> segment of its movement key (the
+    real transition is a composite, but the key only needs a stable,
+    link-classed identity in the schema-v3 vocabulary)."""
+    from flexflow_tpu_torch.op_attrs.ops.parallel_ops import (
+        CombineAttrs,
+        RepartitionAttrs,
+        ReplicateAttrs,
+    )
+
+    for i in range(min(src_pts.num_dims, dst_pts.num_dims)):
+        a = src_pts.shard_dim_at(i).degree
+        b = dst_pts.shard_dim_at(i).degree
+        if b > a:
+            step = b // a if b % a == 0 else b
+            return RepartitionAttrs(i, max(step, 1))
+        if a > b:
+            step = a // b if a % b == 0 else a
+            return CombineAttrs(i, max(step, 1))
+    if dst_pts.discard_copy_degree > src_pts.discard_copy_degree:
+        return ReplicateAttrs(
+            dst_pts.discard_copy_degree
+            // max(src_pts.discard_copy_degree, 1)
+        )
+    return ReplicateAttrs(1)  # placement-only move (same degrees)
+
+
+# the record's link classes (the JAX package's names) -> the port's
+# movement-store link classes: within a node NVLink, across nodes InfiniBand
+_STORE_LINK = {"ici": "nvlink", "dcn": "ib"}
+
+
+def _movement_key(src_pts, dst_pts, dst_view, link_class: str) -> str:
+    from flexflow_tpu_torch.compiler.movement_store import movement_edge_key
+
+    return movement_edge_key(
+        _synth_reshard_attrs(src_pts, dst_pts),
+        [src_pts],
+        dst_view,
+        link_class=_STORE_LINK.get(link_class, link_class),
+    )
+
+
+# -- per-device weight-state residency (TRN002) ------------------------------
+
+
+def _weight_state_by_device(
+    pcg, machine_spec, mapping, optimizer_state_slots: int
+) -> Tuple[Dict[int, int], Dict[str, Dict[int, int]]]:
+    """(device -> resident weight-state bytes, leaf path -> device ->
+    its share): parameter value + optimizer slots per consuming-op
+    weight slot, in piece form on the view's devices — the same
+    `estimate_memory` weight/optimizer terms every other memory consumer
+    charges (value + grad are NOT double-counted here: at a swap
+    boundary the step is quiesced, so the co-resident state is the
+    checkpoint-carried set — params + moments)."""
+    from flexflow_tpu_torch.analysis.memory_accounting import estimate_memory
+    from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import get_piece_shape
+
+    per_mult = 1 + max(int(optimizer_state_slots), 0)
+    ndev = machine_spec.num_devices if machine_spec is not None else 1
+    totals: Dict[int, int] = {d: 0 for d in range(max(ndev, 1))}
+    by_leaf: Dict[str, Dict[int, int]] = {}
+    for path, (n, v, pts) in weight_leaves(pcg).items():
+        piece = get_piece_shape(pts).size_bytes
+        # estimate_memory's weight term at slots=per_mult-1 yields
+        # weights + optimizer_state = piece * per_mult; spelled directly
+        # on the shared primitive so the accounting cannot drift
+        mem = estimate_memory(
+            pcg.op_attrs(n),
+            [],
+            [get_piece_shape(pts)],
+            [],
+            optimizer_state_slots=per_mult - 1,
+        )
+        state = mem.weights + mem.optimizer_state
+        assert state == piece * per_mult
+        devs = _leaf_devices(pcg, n, machine_spec, mapping)
+        by_leaf[path] = {d: state for d in devs}
+        for d in devs:
+            totals[d] = totals.get(d, 0) + state
+    return totals, by_leaf
+
+
+# -- step/RNG contract (TRN003) ----------------------------------------------
+
+
+def _step_contract(
+    pcg, steps_per_dispatch: int, batch_size: Optional[int] = None
+) -> Dict[str, object]:
+    """The scalars bitwise resume is defined over: the batch schedule
+    (every input layer's global shape), the fused-dispatch window K, and
+    the pipeline (S, M) when a stage region exists.
+
+    `batch_size` overrides the leading (batch) dimension of every input
+    shape: a live model's computation graph carries the BUILD-time batch,
+    while the step program retraces at `config.batch_size` — the caller
+    that knows the effective batch (FFModel.recompile) passes it so a
+    batch-size alteration is visible to TRN003 even though the graph
+    shapes did not change."""
+    from flexflow_tpu_torch.op_attrs.ops import InputAttrs
+    from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import get_reduced_shape
+    from flexflow_tpu_torch.parallel.executor import param_key
+    from flexflow_tpu_torch.pcg.pipeline import analyze_pipeline
+
+    batch: Dict[str, List[int]] = {}
+    for n in pcg.topological_ordering():
+        la = pcg.layer_attrs(n)
+        if not isinstance(la.attrs, InputAttrs):
+            continue
+        for o in pcg.outputs_of(n):
+            dims = list(get_reduced_shape(pcg.tensor_shape(o)).dims)
+            if batch_size is not None and dims:
+                dims[0] = int(batch_size)
+            batch[la.name or param_key(n)] = dims
+    region = analyze_pipeline(pcg)
+    stages = microbatches = None
+    region_ok = None
+    if region is not None:
+        region_ok = bool(region.ok)
+        if region.ok:
+            stages = int(region.num_stages)
+            microbatches = int(region.num_microbatches)
+    return {
+        "batch_schedule": batch,
+        "steps_per_dispatch": max(int(steps_per_dispatch), 1),
+        "pipeline_stages": stages,
+        "pipeline_microbatches": microbatches,
+        "pipeline_region_ok": region_ok,
+    }
+
+
+# -- the analysis ------------------------------------------------------------
+
+
+def analyze_transition(
+    old_pcg,
+    old_mapping: Optional[dict],
+    new_pcg,
+    new_mapping: Optional[dict],
+    machine_spec=None,
+    hbm_bytes: Optional[float] = None,
+    optimizer_state_slots: int = 2,
+    steps_per_dispatch: int = 1,
+    steps_per_dispatch_new: Optional[int] = None,
+    batch_size: Optional[int] = None,
+    batch_size_new: Optional[int] = None,
+    lowered_new=None,
+    old_contract: Optional[dict] = None,
+) -> TransitionAnalysis:
+    """Build the old -> new transition record (no diagnostics).
+
+    `lowered_new` (a shared `LoweredStepProgram` of the NEW plan) arms
+    the TRN004 exec-contract leg; `old_contract` (a
+    `contract_record(...)` dict of the running program) arms the
+    old-vs-new `program_changed` comparison. Both are optional: the
+    TRN001-003 legs and the cost report are pure static analysis."""
+    from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
+        get_piece_shape,
+        get_reduced_shape,
+    )
+
+    slots = max(int(optimizer_state_slots), 0)
+    a = TransitionAnalysis(
+        hbm_bytes=hbm_bytes, optimizer_state_slots=slots
+    )
+    k_old = max(int(steps_per_dispatch), 1)
+    k_new = max(
+        int(steps_per_dispatch_new)
+        if steps_per_dispatch_new is not None
+        else k_old,
+        1,
+    )
+    old_leaves = weight_leaves(old_pcg)
+    new_leaves = weight_leaves(new_pcg)
+    a.orphaned = sorted(set(old_leaves) - set(new_leaves))
+    a.created = sorted(set(new_leaves) - set(old_leaves))
+
+    per_mult = 1 + slots
+    moved_any = False
+    for path in sorted(set(old_leaves) & set(new_leaves)):
+        n_old, v_old, pts_old = old_leaves[path]
+        n_new, v_new, pts_new = new_leaves[path]
+        g_old = get_reduced_shape(pts_old)
+        g_new = get_reduced_shape(pts_new)
+        if tuple(g_old.dims) != tuple(g_new.dims) or (
+            g_old.dtype != g_new.dtype
+        ):
+            a.drifted.append(path)
+        src_devs = _leaf_devices(old_pcg, n_old, machine_spec, old_mapping)
+        dst_devs = _leaf_devices(new_pcg, n_new, machine_spec, new_mapping)
+        moved = (
+            repr(pts_old) != repr(pts_new) or src_devs != dst_devs
+        )
+        link = transition_link_class(src_devs, dst_devs, machine_spec)
+        dst_view = (new_mapping or {}).get(n_new)
+        key = None
+        if moved:
+            try:
+                key = _movement_key(pts_old, pts_new, dst_view, link)
+            except Exception:
+                key = None  # malformed degrees: TRN001 owns the verdict
+        est_ms = None
+        if moved and machine_spec is not None:
+            bw = (
+                machine_spec.intra_node_bandwidth
+                if link == "ici"
+                else machine_spec.inter_node_bandwidth
+            )
+            if bw and bw > 0:
+                est_ms = round(
+                    g_old.size_bytes * per_mult / (bw * 2**30) * 1e3, 6
+                )
+        a.leaves.append(
+            LeafTransition(
+                path=path,
+                node_old=n_old.idx,
+                node_new=n_new.idx,
+                bytes_global=g_old.size_bytes,
+                src_piece_bytes=get_piece_shape(pts_old).size_bytes,
+                dst_piece_bytes=get_piece_shape(pts_new).size_bytes,
+                src_degrees=_degrees_repr(pts_old),
+                dst_degrees=_degrees_repr(pts_new),
+                moved=moved,
+                moved_bytes=g_old.size_bytes * per_mult if moved else 0,
+                link_class=link,
+                movement_key=key,
+                est_ms=est_ms,
+            )
+        )
+        moved_any = moved_any or moved
+
+    # TRN002: migration co-residency on the shared accounting primitives
+    old_dev, old_by_leaf = _weight_state_by_device(
+        old_pcg, machine_spec, old_mapping, slots
+    )
+    new_dev, new_by_leaf = _weight_state_by_device(
+        new_pcg, machine_spec, new_mapping, slots
+    )
+    a.per_device_old = old_dev
+    a.per_device_new = new_dev
+    devices = sorted(set(old_dev) | set(new_dev))
+    bulk_peak = streamed_peak = 0
+    for d in devices:
+        bulk = old_dev.get(d, 0) + new_dev.get(d, 0)
+        # streamed bound: one leaf in flight at a time — the rest of the
+        # state is in EITHER its old or its new home, never both
+        max_leaf = max(
+            (
+                old_by_leaf.get(p, {}).get(d, 0)
+                + new_by_leaf.get(p, {}).get(d, 0)
+                for p in set(old_by_leaf) | set(new_by_leaf)
+            ),
+            default=0,
+        )
+        streamed = max(old_dev.get(d, 0), new_dev.get(d, 0)) + max_leaf
+        if bulk > bulk_peak:
+            a.bulk_peak_device, bulk_peak = d, bulk
+        if streamed > streamed_peak:
+            a.streamed_peak_device, streamed_peak = d, streamed
+    a.bulk_peak_bytes = bulk_peak
+    a.streamed_peak_bytes = streamed_peak
+    if hbm_bytes and math.isfinite(hbm_bytes) and hbm_bytes > 0:
+        if bulk_peak <= hbm_bytes:
+            a.migration_verdict = "bulk"
+        elif streamed_peak <= hbm_bytes:
+            a.migration_verdict = "streamed"
+        else:
+            a.migration_verdict = "over"
+
+    # TRN003: the step/RNG contract
+    a.contract_old = _step_contract(old_pcg, k_old, batch_size=batch_size)
+    a.contract_new = _step_contract(
+        new_pcg, k_new,
+        batch_size=batch_size if batch_size_new is None else batch_size_new,
+    )
+    if a.contract_old["batch_schedule"] == a.contract_new["batch_schedule"]:
+        a.carry_remap["rng"] = (
+            "torch.Generator state carried verbatim (same per-step draw schedule)"
+        )
+        a.carry_remap["dataloader"] = (
+            "cursor continues at the same global step"
+        )
+    if k_old != k_new:
+        a.carry_remap["steps_per_dispatch"] = (
+            f"dispatch window restacked K={k_old} -> K={k_new}: the "
+            "resume cursor is per-step, so the carry resumes at the "
+            "same global step with the new stacking"
+        )
+    s_old = a.contract_old["pipeline_stages"]
+    s_new = a.contract_new["pipeline_stages"]
+    m_old = a.contract_old["pipeline_microbatches"]
+    m_new = a.contract_new["pipeline_microbatches"]
+    if s_old != s_new and m_old == m_new:
+        a.carry_remap["pipeline_stages"] = (
+            f"S={s_old} -> S={s_new} at fixed M={m_old}: per-microbatch "
+            "loss accumulation order is unchanged; committed leaves "
+            "reshard onto the new stage submeshes via carry()"
+        )
+    if moved_any or (old_mapping or {}) != (new_mapping or {}):
+        n_moved = sum(1 for l in a.leaves if l.moved)
+        a.carry_remap["views"] = (
+            f"{n_moved} committed leaf/leaves reshard src -> dst view "
+            "through the committed-aware carry()/_place_like path"
+        )
+
+    # TRN004: the new plan's exec contract + program_changed
+    if lowered_new is not None:
+        from flexflow_tpu_torch.analysis.exec_contract import (
+            analyze_step_program,
+            contract_record,
+            exec_summary_json,
+        )
+
+        exec_analysis = analyze_step_program(lowered_new)
+        a.exec_verified = True
+        a.exec_summary = exec_summary_json(exec_analysis)
+        new_rec = contract_record(exec_analysis)
+        a.fingerprint_new = new_rec.get("hlo_fingerprint") or new_rec.get(
+            "program_fingerprint"
+        )
+        if old_contract:
+            a.fingerprint_old = old_contract.get(
+                "hlo_fingerprint"
+            ) or old_contract.get("program_fingerprint")
+            a.program_changed = a.fingerprint_old != a.fingerprint_new
+        a._exec_analysis = exec_analysis  # verify_transition reads it
+    return a
+
+
+# -- diagnostics -------------------------------------------------------------
+
+
+def transition_diagnostics(a: TransitionAnalysis) -> List[Diagnostic]:
+    """TRN001-TRN004 over a finished analysis."""
+    diags: List[Diagnostic] = []
+    for path in a.orphaned:
+        diags.append(
+            error(
+                "TRN001",
+                f"parameter leaf {path} (and its "
+                f"{a.optimizer_state_slots} optimizer moment slot(s)) "
+                "has no destination under the new plan — the remap is "
+                "not total, the leaf's trained state would be dropped",
+                tensor=path,
+                hint="the new plan must contain every old parameter "
+                "leaf under the same layer name/slot",
+            )
+        )
+    for path in a.created:
+        diags.append(
+            error(
+                "TRN001",
+                f"new-plan parameter leaf {path} has no source leaf in "
+                "the old plan — it would be re-initialized, not "
+                "carried, so the swap is not state-preserving",
+                tensor=path,
+            )
+        )
+    for path in a.drifted:
+        diags.append(
+            error(
+                "TRN001",
+                f"parameter leaf {path} drifted: old and new plans "
+                "disagree on its global (degree-reduced) shape or "
+                "dtype — no lossless src -> dst resharding exists",
+                tensor=path,
+            )
+        )
+    for l in a.leaves:
+        if l.path in a.drifted:
+            continue
+        # lossless degree compatibility of the DESTINATION sharding
+        if l.bytes_global and l.dst_piece_bytes:
+            pieces = l.bytes_global / l.dst_piece_bytes
+            if pieces != int(pieces):
+                diags.append(
+                    error(
+                        "TRN001",
+                        f"parameter leaf {l.path}: destination degrees "
+                        f"{l.dst_degrees} do not tile the global shape "
+                        "evenly — the reshard would pad (lossy)",
+                        tensor=l.path,
+                    )
+                )
+    if a.migration_verdict == "streamed":
+        diags.append(
+            warning(
+                "TRN002",
+                f"bulk migration peaks at {_gib(a.bulk_peak_bytes)} on "
+                f"device {a.bulk_peak_device} "
+                f"({_gib(a.hbm_bytes or 0)} capacity): old + new pieces "
+                "cannot be co-resident at once; the per-leaf streamed "
+                f"bound {_gib(a.streamed_peak_bytes)} fits — the swap "
+                "executor must migrate leaf-by-leaf",
+                hint="fallback verdict: streamed migration (one leaf's "
+                "src+dst in flight at a time)",
+            )
+        )
+    elif a.migration_verdict == "over":
+        diags.append(
+            error(
+                "TRN002",
+                f"migration infeasible: even the per-leaf streamed "
+                f"bound peaks at {_gib(a.streamed_peak_bytes)} on "
+                f"device {a.streamed_peak_device} "
+                f"({_gib(a.hbm_bytes or 0)} capacity) — old state + "
+                "new state + staging cannot fit mid-swap",
+                hint="swap via checkpoint-restart (free the old plan "
+                "first) or pick a candidate whose resident state "
+                "overlaps the old plan's placement",
+            )
+        )
+    co = a.contract_old
+    cn = a.contract_new
+    if co.get("batch_schedule") != cn.get("batch_schedule"):
+        diags.append(
+            error(
+                "TRN003",
+                "batch schedule changed across the transition "
+                f"(old {co.get('batch_schedule')} != new "
+                f"{cn.get('batch_schedule')}): the per-step data "
+                "cursor and loss trajectory diverge — bitwise resume "
+                "is impossible through a live swap",
+                hint="a batch-size change is a checkpoint-restart "
+                "replan (the batch_growth advisory class), not "
+                "a hot swap",
+            )
+        )
+    m_old = co.get("pipeline_microbatches")
+    m_new = cn.get("pipeline_microbatches")
+    if m_old != m_new:
+        diags.append(
+            error(
+                "TRN003",
+                f"pipeline microbatch count changed ({m_old} -> "
+                f"{m_new}): per-step loss accumulation re-orders "
+                "(float addition is not associative) — the swapped "
+                "run's trajectory is not bitwise-comparable",
+            )
+        )
+    if (co.get("pipeline_region_ok"), cn.get("pipeline_region_ok")) in (
+        (True, False),
+        (False, True),
+    ):
+        diags.append(
+            error(
+                "TRN003",
+                "exactly one side of the transition has a malformed "
+                "pipeline region — the executable schedules are not "
+                "comparable",
+            )
+        )
+    exec_analysis = getattr(a, "_exec_analysis", None)
+    if exec_analysis is not None:
+        from flexflow_tpu_torch.analysis.exec_contract import exec_diagnostics
+
+        inner = exec_diagnostics(exec_analysis)
+        bad = sorted({d.rule_id for d in inner})
+        if bad:
+            detail = "; ".join(
+                f"{d.rule_id}: {d.message}" for d in inner[:3]
+            )
+            diags.append(
+                error(
+                    "TRN004",
+                    "the new plan's compiled step violates the "
+                    f"execution contract ({', '.join(bad)}; "
+                    f"{len(inner)} finding(s)) — swapping onto it "
+                    f"forfeits bitwise resume: {detail}"[:500],
+                    hint="fix the new plan's step program first "
+                    "(ffcheck --exec names each finding)",
+                )
+            )
+    return diags
+
+
+def verify_transition(
+    old_pcg,
+    old_mapping: Optional[dict],
+    new_pcg,
+    new_mapping: Optional[dict],
+    machine_spec=None,
+    hbm_bytes: Optional[float] = None,
+    optimizer_state_slots: int = 2,
+    steps_per_dispatch: int = 1,
+    steps_per_dispatch_new: Optional[int] = None,
+    batch_size: Optional[int] = None,
+    batch_size_new: Optional[int] = None,
+    lowered_new=None,
+    old_contract: Optional[dict] = None,
+    analysis: Optional[TransitionAnalysis] = None,
+) -> Tuple[TransitionAnalysis, List[Diagnostic]]:
+    """One-call driver (ffcheck --transition, FFModel.recompile, the
+    DriftMonitor verdict hook): analysis + TRN diagnostics, with the
+    swap verdict stamped on the analysis (`swappable` iff no
+    error-severity TRN finding)."""
+    from flexflow_tpu_torch.analysis.diagnostics import Severity
+
+    if analysis is None:
+        analysis = analyze_transition(
+            old_pcg,
+            old_mapping,
+            new_pcg,
+            new_mapping,
+            machine_spec=machine_spec,
+            hbm_bytes=hbm_bytes,
+            optimizer_state_slots=optimizer_state_slots,
+            steps_per_dispatch=steps_per_dispatch,
+            steps_per_dispatch_new=steps_per_dispatch_new,
+            batch_size=batch_size,
+            batch_size_new=batch_size_new,
+            lowered_new=lowered_new,
+            old_contract=old_contract,
+        )
+    diags = transition_diagnostics(analysis)
+    analysis.rules_tripped = sorted(
+        {d.rule_id for d in diags if d.severity == Severity.ERROR}
+    )
+    analysis.verdict = (
+        "swap_blocked" if analysis.rules_tripped else "swappable"
+    )
+    return analysis, diags
+
+
+# -- rendering + summaries ---------------------------------------------------
+
+
+def transition_summary_json(a: TransitionAnalysis) -> dict:
+    """The `ffcheck --transition --json` per-pair summary object (one
+    line beside the per-diagnostic lines, mirroring the
+    --memory/--comm/--exec contract): stable schema v1 — the field tuple
+    is pinned by tests/test_transition.py."""
+    return {
+        "transition": TRANSITION_SCHEMA,  # schema version
+        "verdict": a.verdict,
+        "rules_tripped": list(a.rules_tripped),
+        "leaves": len(a.leaves),
+        "orphaned": list(a.orphaned),
+        "created": list(a.created),
+        "drifted": list(a.drifted),
+        "moved_leaves": len(a.moved_leaves),
+        "moved_bytes": int(a.moved_bytes_total),
+        "ici_bytes": int(a.ici_bytes),
+        "dcn_bytes": int(a.dcn_bytes),
+        "optimizer_state_slots": int(a.optimizer_state_slots),
+        "hbm_bytes": None if not a.hbm_bytes else int(a.hbm_bytes),
+        "bulk_peak_bytes": int(a.bulk_peak_bytes),
+        "streamed_peak_bytes": int(a.streamed_peak_bytes),
+        "migration_verdict": a.migration_verdict,
+        "carry_remap": dict(a.carry_remap),
+        "contract_old": dict(a.contract_old),
+        "contract_new": dict(a.contract_new),
+        "exec_verified": bool(a.exec_verified),
+        "program_changed": a.program_changed,
+        "per_leaf": [l.to_json() for l in a.leaves],
+    }
+
+
+def transition_verdict_record(a: TransitionAnalysis) -> dict:
+    """The compact verdict the DriftMonitor stamps on each
+    `ReplanAdvisory` (and `recompile()` records beside the full
+    summary): small enough for the events stream."""
+    return {
+        "verdict": a.verdict,
+        "rules": list(a.rules_tripped),
+        "moved_bytes": int(a.moved_bytes_total),
+        "ici_bytes": int(a.ici_bytes),
+        "dcn_bytes": int(a.dcn_bytes),
+        "migration_verdict": a.migration_verdict,
+    }
+
+
+def format_transition_table(a: TransitionAnalysis) -> str:
+    """Human-readable transition report (`ffcheck --transition`)."""
+    lines = [
+        f"verdict: {a.verdict}"
+        + (f" ({', '.join(a.rules_tripped)})" if a.rules_tripped else ""),
+        f"leaves: {len(a.leaves)} matched, {len(a.orphaned)} orphaned, "
+        f"{len(a.created)} created, {len(a.drifted)} drifted",
+        f"moved: {len(a.moved_leaves)} leaf/leaves, "
+        f"{_gib(a.moved_bytes_total)} total "
+        f"(ici {_gib(a.ici_bytes)}, dcn {_gib(a.dcn_bytes)})",
+    ]
+    if a.leaves:
+        lines.append(
+            "leaf                      src          dst          "
+            "moved      link"
+        )
+        for l in a.leaves:
+            lines.append(
+                f"{l.path:<25} {l.src_degrees:<12} {l.dst_degrees:<12} "
+                f"{_gib(l.moved_bytes) if l.moved else '-':>9}  "
+                f"{l.link_class if l.moved else '-'}"
+            )
+    lines.append(
+        f"migration peak: bulk {_gib(a.bulk_peak_bytes)} (device "
+        f"{a.bulk_peak_device}), streamed {_gib(a.streamed_peak_bytes)} "
+        f"(device {a.streamed_peak_device})"
+        + (
+            f" -> {a.migration_verdict} within {_gib(a.hbm_bytes)}"
+            if a.migration_verdict and a.hbm_bytes
+            else ""
+        )
+    )
+    for k, v in sorted(a.carry_remap.items()):
+        lines.append(f"carry remap [{k}]: {v}")
+    if a.exec_verified:
+        lines.append(
+            f"exec contract: verified; program_changed="
+            f"{a.program_changed}"
+        )
+    return "\n".join(lines)

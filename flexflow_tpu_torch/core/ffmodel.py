@@ -69,11 +69,16 @@ nodes (multislice), the fusion and legacy rules (perform_fusion,
 substitution_json_path), branch stacking, and the pricing of the fused
 collective matmuls (overlap).
 
-What reaches a slice that is not ported yet raises NotImplementedError
-naming it, at the call: a searched compile's memory budget (FFConfig.hbm_gb: the capacity detection,
-compile-time verification and provenance around the budgeted search, A13;
-the budgeted search itself, compiler.evaluate_pcg under a
-memory_budget_bytes, is ported) and recompiles (A8 part 2).
+A searched compile verifies its winner (analysis/pcg_verify.py, and the
+MEM rules at FFConfig.hbm_gb, which also bounds the search, or else at the
+card's capacity) into search_provenance["verify"] and ["memory"], and
+records one step of the compiled plan (analysis/step_program.py) for its
+execution contract (["exec"]), its collective census against the priced
+movement edges (["comm"]) and its measured peak memory. fit writes the
+contract beside its checkpoints (exec_contract.json) and checks it on
+resume (DET002). recompile() and fit(recompile_state=...) verify the plan
+transition (TRN001-TRN004) before the state carries over
+(runtime/recompile.py).
 
 Pipelines: FFConfig.pipeline seeds a searched
 compile with stage-partitioned candidates and adds the stage rules; a
@@ -183,7 +188,14 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 class FFModel:
-    """Computation-graph builder + trainer on one device."""
+    """Computation-graph builder + trainer on one device.
+
+    On a card, a searched compile, and a checkpointing fit on the
+    data-parallel or single-device backend (its first contract record
+    after each compile), each run one recorded step
+    (analysis/step_program.py), which resets the CUDA peak-memory
+    statistics (`torch.cuda.reset_peak_memory_stats`) to measure the step's
+    peak: a caller's own peak reading across those calls starts again."""
 
     def __init__(self, config: Optional[FFConfig] = None, device=None) -> None:
         """device: where compile places the model; CUDA unless given (see
@@ -612,6 +624,22 @@ class FFModel:
         if compute_dtype is not None and not isinstance(compute_dtype, torch.dtype):
             raise TypeError(f"compute_dtype must be a torch dtype, got {compute_dtype!r}")
         cfg = self.config
+        # remembered for recompile(): the arguments, and the batch this
+        # program is compiled for (the graph keeps its build-time batch, so
+        # the config is the only witness a transition's TRN003 leg reads)
+        self._compiled_batch_size = int(cfg.batch_size)
+        self._compiled_window = max(int(cfg.steps_per_dispatch), 1)
+        self.inactive = False
+        self._compile_args = dict(optimizer=optimizer, loss_type=loss_type, metrics=metrics,
+                                  comp_mode=comp_mode, logit_tensor=logit_tensor,
+                                  compute_dtype=compute_dtype)
+        # set by a searched compile: the drift monitor's transition verifier
+        self._drift_transition = None
+        # the contract record of a backend the compile does not record a
+        # step for (made when checkpointing first asks), and the latest
+        # resume-time DET002 check
+        self._exec_fp_record = None
+        self.exec_resume_check = None
         self.loss_attrs = loss_attrs_for(loss_type)
         self.optimizer_attrs = optimizer_attrs_of(optimizer) or SGDOptimizerAttrs(
             lr=cfg.learning_rate, weight_decay=cfg.weight_decay)
@@ -692,6 +720,211 @@ class FFModel:
         self.params, self.opt_state = self.instance.initialize(seed=cfg.seed)
         self._step_count = 0
         self._backing = None
+        self._compile_checks()
+
+    def _compile_checks(self) -> None:
+        """The checks of a searched winner that read one recorded step
+        (analysis/step_program.py, the JAX package's one shared lowering):
+        the execution contract, always (search_provenance["exec"]); the
+        step's measured peak beside the predicted ones (["memory"]); its
+        collective census against the priced movement edges (["comm"], and
+        beside the plan audit). A check that fails records its error on
+        its record and the compile goes on; but over ranks a recording that
+        fails raises: the step's collectives are the group's, and a rank
+        that left them part way cannot rejoin the others, so it ends its
+        compile (and the others' collectives end at the group's timeout, or
+        at once where its process exits). FF_TPU_NO_EXEC_CONTRACT=1 skips
+        the recording, and says so on each record."""
+        from flexflow_tpu_torch.analysis.memory_analysis import measured_memory_cross_check
+
+        prov = self.search_provenance if isinstance(self.search_provenance, dict) else None
+        if prov is None or not (self._searched() or self._pipelined()):
+            return
+        if os.environ.get("FF_TPU_NO_EXEC_CONTRACT") == "1":
+            prov["exec"] = {"skipped": "FF_TPU_NO_EXEC_CONTRACT=1"}
+            if isinstance(prov.get("comm"), dict):
+                prov["comm"].setdefault("skipped", "FF_TPU_NO_EXEC_CONTRACT=1: no recorded step")
+            return
+        try:
+            prog = self._record_step_program()
+        except Exception as e:  # a failed recording must not kill the compile
+            if self._grouped():
+                raise
+            msg = f"recording failed: {type(e).__name__}: {e}"[:200]
+            prov["exec"] = {"error": msg}
+            if isinstance(prov.get("comm"), dict):
+                prov["comm"]["error"] = msg
+            return
+        try:
+            self._exec_contract_check(prog)
+        except Exception as e:
+            prov["exec"] = {"error": f"{type(e).__name__}: {e}"[:200]}
+        if isinstance(prov.get("memory"), dict):
+            try:
+                prov["memory"].update(measured_memory_cross_check(prog, prov["memory"]))
+            except Exception as e:
+                prov["memory"]["measured_error"] = f"{type(e).__name__}: {e}"[:200]
+        if isinstance(prov.get("comm"), dict):
+            self._comm_cross_check(prog)
+
+    def _record_step_program(self):
+        """One recorded step of the compiled instance, on a copy of its state."""
+        from flexflow_tpu_torch.analysis.step_program import record_step
+
+        return record_step(self.instance, self.params, self.opt_state, self.loss_attrs,
+                           label_dtype=self._label_dtype,
+                           steps_per_dispatch=self.config.steps_per_dispatch,
+                           batch_size=self._step_batch())
+
+    def _exec_contract_check(self, prog) -> None:
+        """search_provenance["exec"]: the determinism census and the in-place
+        audit of the recorded step, with its fingerprints (what DET002
+        checks again on fit(resume=True) and recompile())."""
+        from flexflow_tpu_torch.analysis.diagnostics import summarize
+        from flexflow_tpu_torch.analysis.exec_contract import (
+            analyze_step_program,
+            exec_diagnostics,
+            exec_summary_json,
+        )
+
+        analysis = analyze_step_program(prog)
+        record = exec_summary_json(analysis)
+        record.pop("exec", None)  # the CLI schema key, not provenance
+        record["torch_version"] = torch.__version__
+        record["kernel_launches"] = prog.kernel_route()
+        record["recorded_ops"] = len(prog.lines)
+        record["verify"] = summarize(exec_diagnostics(analysis))
+        self.search_provenance["exec"] = record
+
+    def _comm_cross_check(self, prog) -> None:
+        """search_provenance["comm"]: rank 0's recorded collective census
+        against the movement edges the search priced (COMM001-COMM004, the
+        JAX package's _comm_cross_check), recorded on every rank, and
+        beside the plan audit's movement measurements."""
+        from flexflow_tpu_torch.analysis.comm_analysis import (
+            comm_diagnostics,
+            comm_summary_json,
+            cross_check_comm,
+            extract_collectives,
+        )
+        from flexflow_tpu_torch.analysis.diagnostics import summarize
+        from flexflow_tpu_torch.runtime.distributed import broadcast_json
+
+        prov = self.search_provenance
+        record = None
+        if self._rank() == 0:
+            ctx = getattr(self, "_comm_ctx", None)
+            record = dict(prov["comm"])
+            if not ctx:
+                record.setdefault("skipped", "no movement-prediction context to cross-check")
+            else:
+                try:
+                    analysis = cross_check_comm(ctx["predictions"], extract_collectives(prog),
+                                                bypassed_nodes=ctx["bypassed"])
+                    record.update(comm_summary_json(analysis))
+                    record["verify"] = summarize(comm_diagnostics(analysis))
+                except Exception as e:
+                    record["error"] = f"{type(e).__name__}: {e}"[:200]
+        if self._grouped():
+            record = broadcast_json(record)
+        prov["comm"] = record
+        audit = prov.get("plan_audit")
+        if isinstance(audit, dict) and "error" not in audit and "census" in record:
+            audit["comm"] = {key: record[key] for key in (
+                "census", "num_collectives", "bytes_geomean", "unmatched_collectives",
+                "host_transfers")}
+
+    def _exec_contract_record(self) -> Dict[str, object]:
+        """The persistable contract of this compiled model (the
+        exec_contract.contract_record shape): a searched winner's, recorded
+        at compile; any other backend's from one recorded step, made once a
+        compile when checkpointing first asks for it (every rank: the step
+        may hold collectives)."""
+        from flexflow_tpu_torch.analysis.exec_contract import (
+            CONTRACT_SCHEMA,
+            step_program_fingerprint,
+        )
+
+        rec = (self.search_provenance if isinstance(self.search_provenance, dict)
+               else {}).get("exec")
+        if isinstance(rec, dict) and rec.get("program_fingerprint"):
+            return {"schema": CONTRACT_SCHEMA,
+                    "program_fingerprint": rec["program_fingerprint"],
+                    "hlo_fingerprint": rec.get("hlo_fingerprint"),
+                    "program_key": rec.get("program_key"),
+                    "torch_version": torch.__version__}
+        if self._exec_fp_record is None:
+            self._exec_fp_record = step_program_fingerprint(
+                self.instance, self.loss_attrs, self.params, self.opt_state,
+                label_dtype=self._label_dtype,
+                steps_per_dispatch=self.config.steps_per_dispatch,
+                batch_size=self._step_batch())
+        return self._exec_fp_record
+
+    def _step_batch(self) -> Optional[int]:
+        """The batch the compiled step runs at where it is not the graph's
+        (a batch-growth recompile keeps the graph's build-time batch), for
+        the recorded step; None for a plan over ranks, which runs at its
+        graph's."""
+        if self._searched() or self._pipelined() or self._submesh():
+            return None
+        return int(self._compiled_batch_size)
+
+    def _exec_contract_sync(self, directory: str, resume: bool) -> None:
+        """DET002's resume half (the JAX package's): write the step
+        program's contract beside the checkpoints (`exec_contract.json`,
+        rank 0), and under fit(resume=True) check the program about to run
+        against the recorded one. A drifted fingerprint is reported loudly
+        and recorded in `exec_resume_check` (and in
+        search_provenance["exec"]); a changed program (batch growth, another
+        grid) or a contract another runtime wrote re-anchors it. A contract
+        failure never kills a fit on one process: it degrades to a recorded
+        skip; over ranks a recording that fails raises (_compile_checks)."""
+        from flexflow_tpu_torch.analysis.diagnostics import format_diagnostic
+        from flexflow_tpu_torch.analysis.exec_contract import (
+            compare_contract_records,
+            read_contract_record,
+            write_contract_record,
+        )
+
+        if os.environ.get("FF_TPU_NO_EXEC_CONTRACT") == "1":
+            self.exec_resume_check = {"match": None, "reason": "FF_TPU_NO_EXEC_CONTRACT=1"}
+            return
+        try:
+            current = self._exec_contract_record()
+        except Exception as e:
+            if self._grouped():
+                raise
+            self.exec_resume_check = {
+                "match": None, "reason": f"contract unavailable: {type(e).__name__}: {e}"[:200]}
+            return
+        writes = self._rank() == 0
+        check = None
+        if resume:
+            stored = read_contract_record(directory)
+            check, diag = compare_contract_records(stored, current)
+            if stored is None or check.get("program_changed") or "torch_version" not in stored:
+                # anchor (or re-anchor) the contract to the program that runs
+                try:
+                    if writes:
+                        write_contract_record(directory, current)
+                    if stored is not None:
+                        check["re_anchored"] = True
+                except OSError:
+                    pass
+            if diag is not None:
+                print("[flexflow_tpu_torch] WARNING: " + format_diagnostic(diag))
+                check["diagnostic"] = diag.to_json()
+        elif writes:
+            try:
+                write_contract_record(directory, current)
+            except OSError as e:
+                check = {"match": None, "reason": f"contract not written: {e}"[:200]}
+        if check is not None:
+            self.exec_resume_check = check
+            prov = self.search_provenance if isinstance(self.search_provenance, dict) else None
+            if prov is not None and isinstance(prov.get("exec"), dict):
+                prov["exec"]["resume_check"] = check
 
     def _device_count(self) -> int:
         """The devices a compile spans, as the JAX package counts them: the
@@ -752,11 +985,16 @@ class FFModel:
         from flexflow_tpu_torch.runtime.strategy import load_strategy, save_strategy
         from flexflow_tpu_torch.substitutions.rules import generate_parallelization_rules
 
+        from flexflow_tpu_torch.local_execution.cost_estimator import optimizer_state_slots_of
+
         cfg = self.config
-        if cfg.hbm_gb > 0:
-            raise NotImplementedError(
-                "FFConfig.hbm_gb (a compile's memory budget: its capacity detection and "
-                "compile-time verification) in a searched compile is not ported yet (A13)")
+        # the memory model's parameters for this compile (the optimizer
+        # compiled and the fused window K) and the per-device budget the
+        # search must respect (FFConfig.hbm_gb; 0: the winner is analyzed
+        # against the card's own capacity, and nothing is pruned)
+        mem_slots = optimizer_state_slots_of(self.optimizer_attrs)
+        mem_window_k = max(int(cfg.steps_per_dispatch), 1)
+        mem_budget_bytes = cfg.hbm_gb * 2**30 if cfg.hbm_gb and cfg.hbm_gb > 0 else 0.0
         overlap_on = overlap_lowering_active(cfg.overlap)
         # pipeline parallelism: stage-partitioned seeds and rules in the
         # search, and a stage-partitioned winner on the 1F1B executor
@@ -845,10 +1083,17 @@ class FFModel:
                 # lowers them (FFConfig.overlap)
                 overlap_lowering=overlap_on,
                 slice_aware=multislice_on,
-                slice_hierarchy=multislice_on)
+                slice_hierarchy=multislice_on,
+                # FFConfig.hbm_gb > 0: a mapping over the budget is
+                # infeasible (the DPs prune its leaves, evaluate_pcg rejects
+                # a plan whose liveness peak exceeds it)
+                memory_budget_bytes=mem_budget_bytes,
+                optimizer_state_slots=mem_slots,
+                steps_per_dispatch=mem_window_k)
             return estimator, ctx
 
         priced = {}  # what the search priced with (rank 0), for the audit
+        searched = {}  # the lifted graph and the context builder (rank 0)
 
         def search():
             if cfg.import_strategy_file:
@@ -937,12 +1182,21 @@ class FFModel:
                 self._drift_research = _make_drift_research(
                     cost_store, build_search_ctx, pcg0, spec, rules, cfg,
                     pipeline_seeds=pipeline_on, pipeline_microbatches=cfg.pipeline_microbatches)
+            self._verify_winner(result.pcg, result.machine_mapping, spec, mem_budget_bytes,
+                                mem_slots, mem_window_k)
+            searched["pcg0"], searched["build_search_ctx"] = pcg0, build_search_ctx
             return result.pcg, result.machine_mapping, result.runtime
 
         # rank 0 plans; every rank lowers the plan it sends
         pcg, mapping, runtime = run_search_on_host_0(search)
         self.search_provenance = broadcast_json(
             self.search_provenance if dist.get_rank() == 0 else None)
+        if cfg.import_strategy_file:
+            self._verify_imported(pcg, mapping, spec)
+        if dist.get_rank() == 0 and searched:
+            self._drift_transition = _make_drift_transition(
+                pcg, mapping, searched["pcg0"], searched["build_search_ctx"], spec,
+                mem_budget_bytes, mem_slots, mem_window_k)
         if cfg.export_strategy_file and dist.get_rank() == 0:
             save_strategy(cfg.export_strategy_file, pcg, mapping, runtime)
         collect, guard = self._step_stats_flags()
@@ -950,6 +1204,8 @@ class FFModel:
         if pipeline_on:
             inst = self._compile_pipelined(pcg, searched_logit, compute_dtype)
             if inst is not None:
+                self._export_comm_predictions(inst, pcg, mapping, searched_logit,
+                                              priced.get("estimator"), spec)
                 if cfg.plan_audit:
                     self._record_plan_audit(inst, mapping, priced.get("estimator"),
                                             movement_store=movement_store, cost_store=cost_store)
@@ -960,6 +1216,8 @@ class FFModel:
             mesh, mapping=mapping, compute_dtype=compute_dtype, device=self.device,
             metrics=self.metrics, overlap=cfg.overlap, aux_loss_tensors=_find_aux_outputs(pcg),
             collect_step_stats=collect, guard_nonfinite_updates=guard)
+        self._export_comm_predictions(inst, pcg, mapping, searched_logit,
+                                      priced.get("estimator"), spec)
         if cfg.plan_audit:
             self._record_plan_audit(inst, mapping, priced.get("estimator"),
                                     movement_store=movement_store, cost_store=cost_store)
@@ -1006,6 +1264,106 @@ class FFModel:
                 "executor": "1f1b",
             }
         return inst
+
+    def _verify_winner(self, pcg, mapping, spec, mem_budget_bytes, mem_slots,
+                       mem_window_k) -> None:
+        """The searched winner's static verification, always on (the JAX
+        package's): every PCG rule and the machine views on the search's
+        grid, and the MEM rules at the capacity the search was held to
+        (FFConfig.hbm_gb) or else the card's own, in
+        search_provenance["verify"]; its predicted per-device peaks, mapped
+        and on the full mesh (what the executor runs), in ["memory"]."""
+        from flexflow_tpu_torch.analysis.diagnostics import summarize
+        from flexflow_tpu_torch.analysis.memory_analysis import (
+            analyze_memory,
+            detect_device_hbm_bytes,
+            verify_memory,
+        )
+        from flexflow_tpu_torch.analysis.pcg_verify import verify_pcg
+
+        diags = list(verify_pcg(pcg, machine_spec=spec, mapping=mapping))
+        capacity = mem_budget_bytes or (detect_device_hbm_bytes()
+                                        if self.device.type == "cuda" else None)
+        mem, mem_diags = verify_memory(pcg, machine_spec=spec, mapping=mapping,
+                                       hbm_bytes=capacity or None,
+                                       optimizer_state_slots=mem_slots,
+                                       steps_per_dispatch=mem_window_k)
+        self.search_provenance["verify"] = summarize(diags + list(mem_diags))
+        full_mesh = analyze_memory(pcg, spec, None, optimizer_state_slots=mem_slots,
+                                   steps_per_dispatch=mem_window_k)
+        self.search_provenance["memory"] = {
+            "predicted_peak_bytes_per_device": {
+                str(d): int(v) for d, v in mem.peak_by_device().items()},
+            "predicted_peak_bytes_full_mesh": {
+                str(d): int(v) for d, v in full_mesh.peak_by_device().items()},
+            "capacity_bytes": int(capacity) if capacity else None,
+            "hbm_gb": self.config.hbm_gb or None,
+            "optimizer_state_slots": mem_slots,
+            "steps_per_dispatch": mem_window_k,
+        }
+
+    def _verify_imported(self, pcg, mapping, spec) -> None:
+        """An imported plan is verified like a searched winner (the JAX
+        package's): structural and SP errors raise ValueError (the executor
+        would crash or train another graph); machine-view findings are only
+        recorded, since the views were searched for the exporting machine.
+        Every rank verifies the same plan, so every rank raises alike."""
+        from flexflow_tpu_torch.analysis.diagnostics import (
+            errors_of,
+            format_diagnostic,
+            summarize,
+        )
+        from flexflow_tpu_torch.analysis.pcg_verify import verify_pcg
+
+        diags = verify_pcg(pcg, machine_spec=spec, mapping=mapping)
+        if self.search_provenance is None:
+            self.search_provenance = {"search_algorithm": "imported_strategy"}
+        self.search_provenance["verify"] = summarize(diags)
+        structural = [d for d in errors_of(diags) if not d.rule_id.startswith("MV")]
+        if structural:
+            raise ValueError(
+                f"imported strategy {self.config.import_strategy_file!r} is ill-formed:\n"
+                + "\n".join(format_diagnostic(d) for d in structural))
+
+    def _export_comm_predictions(self, inst, pcg, mapping, logit, estimator, spec) -> None:
+        """The fused-overlap annotation checked against the PCG (PCG008:
+        an annotation the executor cannot honor fails the compile), then the
+        movement edges' predictions (movement_export), always recorded in
+        search_provenance["comm"] on rank 0, which has the estimator the
+        search priced with (an imported plan: the analytic one)."""
+        from flexflow_tpu_torch.analysis.diagnostics import errors_of, format_diagnostic
+        from flexflow_tpu_torch.analysis.pcg_verify import verify_overlap_plan
+
+        fused = {n.idx: kind for n, kind in getattr(inst, "fused_edges", {}).items()}
+        if fused:
+            bad = errors_of(verify_overlap_plan(pcg, fused))
+            if bad:
+                raise ValueError("fused-overlap annotation failed verification:\n"
+                                 + "\n".join(format_diagnostic(d) for d in bad))
+            self.search_provenance.setdefault("overlap", {})["executor_fused_edges"] = {
+                str(k): v for k, v in sorted(fused.items())}
+        self._comm_ctx = None
+        if dist.get_rank() != 0:
+            self.search_provenance["comm"] = {}
+            return
+        try:
+            from flexflow_tpu_torch.analysis.comm_analysis import trailing_reshard_nodes
+            from flexflow_tpu_torch.compiler import AnalyticGPUCostEstimator
+            from flexflow_tpu_torch.compiler.machine_mapping.movement_export import (
+                export_movement_predictions,
+            )
+
+            if estimator is None:
+                rates = (5e10, 10.0) if self.device.type == "cpu" else (989e12, 3350.0)
+                estimator = AnalyticGPUCostEstimator(spec, *rates)
+            predictions = export_movement_predictions(pcg, mapping, estimator,
+                                                      fused_edges=fused or None)
+            self._comm_ctx = {"predictions": predictions,
+                              "bypassed": trailing_reshard_nodes(pcg, logits=[logit])}
+            self.search_provenance["comm"] = {"num_edges": len(predictions),
+                                              "edges": [p.to_json() for p in predictions]}
+        except Exception as e:  # the export must not kill the compile
+            self.search_provenance["comm"] = {"error": f"{type(e).__name__}: {e}"[:200]}
 
     def _price_resource_splits(self, ndev: int) -> dict:
         """Price the model's machine mapping with disjoint-resource splits
@@ -1284,6 +1642,10 @@ class FFModel:
         `torch_trace.json`, both in that directory."""
         import contextlib
 
+        if getattr(self, "inactive", False):
+            # a rank a degraded grid left out (recover_from_grid_change)
+            # trains nothing
+            return PerfMetrics()
         self._require_compiled()
         tdir = self.config.profile_trace_dir
         if not tdir:
@@ -1312,9 +1674,6 @@ class FFModel:
     def _fit(self, x, y, epochs, batch_size, shuffle, verbose, recompile_state, epoch_offset,
              checkpoint_dir, checkpoint_every_n_steps, resume) -> PerfMetrics:
         """fit's body, under the trace session where one is asked for."""
-        if recompile_state is not None:
-            raise NotImplementedError(
-                "fit(recompile_state=...): recompiles are not ported yet (A8 part 2)")
         epochs = epochs or self.config.epochs
         batch_size = batch_size or self.config.batch_size
         it = self._make_iterator(x, y, batch_size, shuffle=shuffle, seed_offset=epoch_offset,
@@ -1333,10 +1692,15 @@ class FFModel:
             event_log, monitor = self._setup_run_health()
             drift = self._setup_drift_monitor(sup)
             self._write_provenance()
+            rebuild = None
+            if recompile_state is not None:
+                def rebuild(bs):
+                    return self._make_iterator(x, y, bs, shuffle=shuffle,
+                                               seed_offset=epoch_offset, blocks=True)
             return self._fit_epochs(epochs, batch_size, verbose, it, rng, ckpt=ckpt,
                                     start_epoch=start_epoch, skip_batches=skip,
                                     epoch_offset=epoch_offset, sup=sup, event_log=event_log,
-                                    monitor=monitor)
+                                    monitor=monitor, recompile=(recompile_state, rebuild))
         finally:
             # the watchdog first: its deadline must not fire into the drain
             sup.close()
@@ -1430,8 +1794,9 @@ class FFModel:
         crashes surface through the fit's fault channel at the next
         boundary; it only ever advises. Its repricer is the warm re-search
         under the cost store's live scale, where the compile searched with
-        FFConfig.cost_store (the unity search); the transition verifier
-        waits for A13."""
+        FFConfig.cost_store (the unity search); its transition verifier
+        gives each candidate the static TRN verdict for swapping the live
+        plan onto it (a searched compile's, on rank 0)."""
         import math
 
         cfg = self.config
@@ -1452,7 +1817,8 @@ class FFModel:
             cfg.metrics_dir, predicted, seed_runtimes=sp.get("seed_runtimes"),
             band=cfg.drift_band, window_steps=cfg.drift_window_steps,
             run_length=cfg.drift_run_length,
-            repricer=getattr(self, "_drift_research", None), transition_verifier=None,
+            repricer=getattr(self, "_drift_research", None),
+            transition_verifier=getattr(self, "_drift_transition", None),
             channel=sup.channel if sup is not None else None,
         ).start()
 
@@ -1593,6 +1959,9 @@ class FFModel:
             cdir, every_n_steps=every, max_to_keep=cfg.checkpoint_max_to_keep,
             sync=cfg.checkpoint_sync, backend=cfg.checkpoint_backend or None,
             fault_channel=channel, writes=self._rank() == 0)
+        # the step program's contract beside the checkpoints; under resume,
+        # DET002 against the recorded one
+        self._exec_contract_sync(cdir, resume)
         if not resume:
             return ckpt, 0, 0
         try:
@@ -1654,7 +2023,7 @@ class FFModel:
 
     def _fit_epochs(self, epochs, batch_size, verbose, it, rng, ckpt=None, start_epoch=0,
                     skip_batches=0, epoch_offset=0, sup=None, event_log=None,
-                    monitor=None) -> PerfMetrics:
+                    monitor=None, recompile=(None, None)) -> PerfMetrics:
         """The per-step loop, or with steps_per_dispatch = K > 1 the windowed
         one: each window of K batches (the epoch's tail a smaller one)
         trains through one multi_train_step, its input gathered and copied
@@ -1665,7 +2034,12 @@ class FFModel:
         propagates. With an event log or a health monitor, each step's (or
         window's) statistics are read back once, inside the armed window,
         after the `slow` site, and the policy applied (`_record_run_health`,
-        `_emit_window_health`)."""
+        `_emit_window_health`). `recompile`: (a RecompileState, the
+        iterator builder at a batch size); when its trigger fires at a
+        boundary the model recompiles and the epoch ends there: training
+        goes on from the next epoch on the new step and batch (the JAX
+        package's semantics: no batch is replayed, and a trigger that stays
+        true cannot livelock the fit)."""
         from flexflow_tpu_torch.runtime.fault import (
             inject_hang_fault,
             inject_kill_fault,
@@ -1673,6 +2047,7 @@ class FFModel:
             maybe_inject_fault,
             poison_nonfinite,
         )
+        from flexflow_tpu_torch.runtime.recompile import recompile_on_condition
 
         watchdog = sup.watchdog if sup is not None else None
         schedule = sup.schedule if sup is not None else None
@@ -1723,6 +2098,20 @@ class FFModel:
                         inject_kill_fault(schedule, prev, self._step_count)
                         sup.channel.raise_pending()
                     maybe_inject_fault(prev, self._step_count)
+                    if recompile[0] is not None and recompile_on_condition(self, recompile[0]):
+                        if ckpt is not None:
+                            # the checkpoints from here on are the new
+                            # program's: so is the contract beside them
+                            self._exec_contract_sync(ckpt.manager.directory, resume=False)
+                        batch_size = self.config.batch_size
+                        it = recompile[1](batch_size)
+                        k = self._effective_steps_per_dispatch()
+                        if windows is not None:
+                            windows.close()
+                        windows = (WindowedBatchIterator(
+                            it, k, fault_channel=sup.channel if sup else None,
+                            keep_host=monitor is not None) if k > 1 else None)
+                        break
         finally:
             if windows is not None:
                 windows.close()
@@ -2067,8 +2456,113 @@ class FFModel:
         self._step_count = s
         return s
 
-    def recompile(self, preserve_resume: bool = False) -> None:
-        raise NotImplementedError("FFModel.recompile: recompiles are not ported yet (A8 part 2)")
+    def _transition_plan(self):
+        """(pcg, mapping, machine spec) of the compiled plan, for the
+        transition verifier: a mapped plan's, or, for the data-parallel and
+        single-device backends, the serial PCG of the graph with no mapping
+        (TRN001's leaf totality and TRN003's resume contract still verify;
+        only the mapped movement report is empty)."""
+        from flexflow_tpu_torch.pcg.machine_view import MachineSpecification
+        from flexflow_tpu_torch.pcg.parallel_computation_graph import pcg_from_computation_graph
+
+        inst = getattr(self, "instance", None)
+        pcg = getattr(inst, "pcg", None)
+        mm = getattr(inst, "machine_mesh", None)
+        if pcg is None or mm is None:
+            if inst is None:
+                return None
+            try:
+                return pcg_from_computation_graph(self.cg), None, None
+            except Exception:
+                return None
+        nodes = max(mm.spec.num_nodes, 1)
+        spec = MachineSpecification(num_nodes=nodes, num_cpus_per_node=1,
+                                    num_devices_per_node=max(mm.world_size // nodes, 1),
+                                    inter_node_bandwidth=25.0, intra_node_bandwidth=400.0)
+        return pcg, getattr(inst, "mapping", None), spec
+
+    def recompile(self, preserve_resume: bool = False, carry_state=None,
+                  old_plan=None) -> None:
+        """Build the training step again after the config or the graph
+        changed (the reference's RecompileState re-mapping): compile() again,
+        the Unity search included where configured, then carry the
+        parameter values (and the optimizer state whose shapes survive)
+        over. The step count survives.
+
+        The transition is verified first (TRN001-TRN004) into
+        search_provenance["transition"]: one that is unsafe to carry state
+        across (TRN001's reshard totality, TRN002's migration memory) raises
+        TransitionError before any state moves; `preserve_resume=True`, the
+        strict contract, raises on any rule. A searched plan's program is
+        checked against its contract recorded at the last compile (DET002;
+        a changed `program_key` is recorded as `program_changed`).
+        `carry_state` and `old_plan`: the state to carry and the plan it
+        leaves (`_transition_plan()`), where the caller took them before the
+        old plan's group closed (recover_from_grid_change)."""
+        from flexflow_tpu_torch.runtime.recompile import carry, snapshot_state
+
+        assert getattr(self, "_compile_args", None) is not None, "recompile() before compile()"
+        old_state = carry_state if carry_state is not None else snapshot_state(self)
+        step_count = self._step_count
+        if old_plan is None:
+            old_plan = self._transition_plan()
+        old_k = max(int(getattr(self, "_compiled_window", self.config.steps_per_dispatch)), 1)
+        # the batch the last compile ran under: recompile_on_condition's
+        # alter_func has already changed the config's
+        old_b = int(getattr(self, "_compiled_batch_size", None) or self.config.batch_size)
+        old_exec = None
+        if isinstance(self.search_provenance, dict) and isinstance(
+                self.search_provenance.get("exec"), dict):
+            old_exec = dict(self.search_provenance["exec"])
+        self.compile(**self._compile_args)
+        self._step_count = step_count
+        new_prov = self.search_provenance if isinstance(self.search_provenance, dict) else None
+        if (old_exec is not None and new_prov is not None
+                and isinstance(new_prov.get("exec"), dict)
+                and new_prov["exec"].get("program_fingerprint")):
+            from flexflow_tpu_torch.analysis.diagnostics import format_diagnostic
+            from flexflow_tpu_torch.analysis.exec_contract import compare_contract_records
+
+            check, diag = compare_contract_records(old_exec, new_prov["exec"])
+            if diag is not None:
+                print("[flexflow_tpu_torch] WARNING: " + format_diagnostic(diag))
+                check["diagnostic"] = diag.to_json()
+            new_prov["exec"]["recompile_check"] = check
+        new_plan = self._transition_plan()
+        if old_plan is not None and new_plan is not None:
+            from flexflow_tpu_torch.analysis.diagnostics import Severity
+            from flexflow_tpu_torch.analysis.transition_analysis import (
+                TransitionError,
+                transition_summary_json,
+                verify_transition,
+            )
+            from flexflow_tpu_torch.local_execution.cost_estimator import (
+                optimizer_state_slots_of,
+            )
+
+            cfg = self.config
+            analysis, diags = verify_transition(
+                old_plan[0], old_plan[1], new_plan[0], new_plan[1], machine_spec=new_plan[2],
+                hbm_bytes=cfg.hbm_gb * 2**30 if cfg.hbm_gb and cfg.hbm_gb > 0 else None,
+                optimizer_state_slots=optimizer_state_slots_of(self.optimizer_attrs),
+                steps_per_dispatch=old_k,
+                steps_per_dispatch_new=max(int(cfg.steps_per_dispatch), 1),
+                batch_size=old_b, batch_size_new=int(cfg.batch_size))
+            record = transition_summary_json(analysis)
+            if new_prov is not None and isinstance(
+                    (new_prov.get("exec") or {}).get("recompile_check"), dict):
+                check = new_prov["exec"]["recompile_check"]
+                record["program_changed"] = (bool(check.get("program_changed"))
+                                             or check.get("match") is False)
+            if self.search_provenance is None:
+                self.search_provenance = {}
+            self.search_provenance["transition"] = record
+            fatal = [r for r in analysis.rules_tripped
+                     if preserve_resume or r in ("TRN001", "TRN002")]
+            if fatal:
+                raise TransitionError(fatal, [d for d in diags if d.severity == Severity.ERROR
+                                              and d.rule_id in fatal])
+        carry(self, old_state)
 
 def _forced_seed_result(pcg0, ctx, spec, seed_name: str):
     """The named strategy template, priced as is (FFConfig.
@@ -2149,6 +2643,45 @@ def _make_drift_research(cost_store, build_search_ctx, pcg0, spec, rules, cfg,
                 "research_seconds": time.perf_counter() - t0}
 
     return research
+
+
+def _make_drift_transition(pcg, mapping, pcg0, build_search_ctx, spec, mem_budget_bytes,
+                           mem_slots, mem_window_k):
+    """The drift monitor's transition verifier (the JAX package's
+    _drift_transition): a candidate seed's label -> the static TRN verdict
+    for swapping the live plan onto it. "searched" is the identity; a seed
+    is mapped again on the same machine with a fresh context (warm caches).
+    The monitor records a candidate that fails as swap_blocked and never
+    marks it actionable."""
+
+    def verdict(label):
+        from flexflow_tpu_torch.analysis.transition_analysis import (
+            transition_verdict_record,
+            verify_transition,
+        )
+        from flexflow_tpu_torch.compiler.machine_mapping.get_optimal_machine_mapping import (
+            MachineMappingCache,
+        )
+        from flexflow_tpu_torch.compiler.unity_algorithm import enumerate_seeds, evaluate_pcg
+
+        if label == "searched":
+            cand_pcg, cand_mapping = pcg, mapping
+        else:
+            cand = dict(enumerate_seeds(pcg0, spec.num_devices)).get(label)
+            if cand is None:
+                return None
+            _, ctx = build_search_ctx()
+            r = evaluate_pcg(cand, ctx, spec, MachineMappingCache())
+            if r is None:
+                return None
+            cand_pcg, cand_mapping = r.pcg, r.machine_mapping
+        a, _ = verify_transition(pcg, mapping, cand_pcg, cand_mapping, machine_spec=spec,
+                                 hbm_bytes=mem_budget_bytes or None,
+                                 optimizer_state_slots=mem_slots,
+                                 steps_per_dispatch=mem_window_k)
+        return transition_verdict_record(a)
+
+    return verdict
 
 
 def _rekey(state: dict, keys: Dict[str, str]) -> dict:

@@ -1,0 +1,692 @@
+"""ffcheck: the port's static verification driver
+(flexflow_tpu_torch/analysis; the JAX package's tools/ffcheck.py, its flags
+and exit codes).
+
+Checks PCG/CG file-format JSON documents, strategy files (PCG + machine
+mapping; either package's: the formats are one), the built-in seed
+templates, the registered substitution rules and the port's sources, and
+exits non-zero when any ERROR-severity diagnostic is found.
+
+Usage:
+    python3 -m flexflow_tpu_torch.ffcheck model.json strategy.json
+    python3 -m flexflow_tpu_torch.ffcheck --all-templates
+    python3 -m flexflow_tpu_torch.ffcheck --audit-rules
+    python3 -m flexflow_tpu_torch.ffcheck --lint      # lints flexflow_tpu_torch/
+    python3 -m flexflow_tpu_torch.ffcheck --lint path/to/file.py
+    python3 -m flexflow_tpu_torch.ffcheck --memory --hbm-gb 80 strategy.json
+    python3 -m flexflow_tpu_torch.ffcheck --comm strategy.json
+    python3 -m flexflow_tpu_torch.ffcheck --exec strategy.json
+    python3 -m flexflow_tpu_torch.ffcheck --transition old.json new.json
+    python3 -m flexflow_tpu_torch.ffcheck --json ...  # one JSON object per line
+
+--comm and --exec record one step of each plan (analysis/step_program.py):
+the plan's own executor over its ranks, one process each (this process's
+group where it holds the plan's ranks, as under torchrun; else gloo
+processes started here over a file store, on the card where there is one).
+--comm cross-checks the step's collective census against the plan's priced
+movement edges (COMM001-COMM004); --exec checks its execution contract
+(DET001 determinism census, the fingerprints DET002 checks again on resume,
+DON001/DON002 in-place audit). One recorded step serves both flags of a
+file. --transition verifies a plan pair OLD NEW as a swap (TRN001-TRN004,
+the new plan's step recorded for TRN004). --memory runs the static
+liveness analysis against --hbm-gb GiB a device (MEM001-MEM005). Under
+--json each file's analysis prints one summary object beside the
+per-diagnostic lines, keyed "memory", "comm", "exec" or "transition".
+
+File inputs are auto-detected: a document with a "kind" key is a
+computation_graph / parallel_computation_graph file (pcg/file_format.py); a
+document with a "pcg" key is a strategy file (runtime/strategy.py), whose
+machine mapping is checked against the --nodes x --devices-per-node grid.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+from typing import List, Optional
+
+
+def _record_worker(rank: int, world: int, store: str, plan_path: str, nodes: int,
+                   out_path: str) -> None:
+    """One rank of a plan's recorded step (ffcheck's own gloo processes)."""
+    import pickle
+
+    import torch
+
+    from flexflow_tpu_torch.analysis.step_program import record_plan
+    from flexflow_tpu_torch.parallel import init_file_group
+    from flexflow_tpu_torch.pcg.machine_view import MachineSpecification
+
+    device = "cuda:0" if torch.cuda.is_available() else "cpu"
+    init_file_group(store, rank, world, device=device, backend="gloo")
+    try:
+        pcg, mapping = _load_plan(plan_path, None)
+        spec = MachineSpecification(nodes, 1, world // nodes, 25.0, 400.0)
+        prog = record_plan(pcg, mapping, machine_spec=spec, device=device)
+        if rank == 0:
+            with open(out_path, "wb") as f:
+                pickle.dump(prog, f)
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def _record(path, pcg, mapping, args):
+    """One recorded step of the plan of file `path` (module note)."""
+    import pickle
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from flexflow_tpu_torch.analysis.step_program import record_plan
+
+    spec = _machine_spec(args)
+    world = spec.num_devices
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() == world:
+        return record_plan(pcg, mapping, machine_spec=spec)
+    with tempfile.TemporaryDirectory() as tmp:
+        plan_path = os.path.join(tmp, "plan.json")
+        from flexflow_tpu_torch.runtime.strategy import strategy_to_doc
+
+        with open(plan_path, "w") as f:
+            if mapping is None:
+                with open(path) as src:
+                    f.write(src.read())
+            else:
+                json.dump(strategy_to_doc(pcg, mapping, 0.0), f)
+        out_path = os.path.join(tmp, "step.pkl")
+        mp.start_processes(_record_worker, args=(world, os.path.join(tmp, "store"), plan_path,
+                                                 args.nodes, out_path),
+                           nprocs=world, start_method="spawn")
+        with open(out_path, "rb") as f:
+            return pickle.load(f)
+
+
+def _machine_spec(args):
+    from flexflow_tpu_torch.pcg.machine_view import MachineSpecification
+
+    return MachineSpecification(
+        num_nodes=args.nodes,
+        num_cpus_per_node=1,
+        num_devices_per_node=args.devices_per_node,
+        inter_node_bandwidth=25.0,
+        intra_node_bandwidth=400.0,
+    )
+
+
+def _hbm_bytes(args) -> float:
+    return getattr(args, "hbm_gb", 16.0) * 2**30
+
+
+def _memory_diags(pcg, mapping, args, path, summaries, lowered_box) -> List:
+    """MEM001-MEM004 diagnostics + the per-device analysis for one file
+    (`--memory`). Graph files without a mapping analyze under the
+    full-mesh lowering (every op on every device of the grid).
+    Under --serving the analysis is forward-only + KV cache and MEM005
+    carries the static max-concurrent-sequences verdict."""
+    from flexflow_tpu_torch.analysis.memory_analysis import verify_memory
+
+    serving = None
+    if args.serving:
+        from flexflow_tpu_torch.analysis.memory_accounting import ServingMemorySpec
+
+        serving = ServingMemorySpec(
+            max_concurrent_seqs=args.max_seqs,
+            max_seq_len=args.max_seq_len,
+            kv_dtype_bytes=args.kv_dtype_bytes,
+        )
+    analysis, diags = verify_memory(
+        pcg,
+        machine_spec=_machine_spec(args),
+        mapping=mapping,
+        hbm_bytes=_hbm_bytes(args),
+        optimizer_state_slots=args.optimizer_slots,
+        steps_per_dispatch=args.steps_per_dispatch,
+        serving=serving,
+    )
+    summaries.setdefault("memory", []).append((path, analysis))
+    return diags
+
+
+def _lower_once(pcg, mapping, args, box, path=None):
+    """One recorded step per file: --comm and --exec both read it. `box`
+    caches ("ok", program) or ("err", exc) across the checks of a file."""
+    if not box:
+        try:
+            box.append(("ok", _record(path, pcg, mapping, args)))
+        except Exception as e:
+            box.append(("err", e))
+    return box[0]
+
+
+def _lowering_failure(flag, path, box) -> List:
+    """The recorded step failed: report ONE FFC000 for the file (the
+    first check that sees it), not one per requesting flag."""
+    from flexflow_tpu_torch.analysis.diagnostics import error
+
+    status, e = box[0]
+    if status == "err-reported":
+        return []
+    box[0] = ("err-reported", e)
+    return [
+        error(
+            "FFC000",
+            f"{flag} could not record the plan's step: {type(e).__name__}: "
+            f"{e}"[:300],
+            path=path,
+        )
+    ]
+
+
+def _comm_diags(pcg, mapping, args, path, summaries, lowered_box) -> List:
+    """COMM001-COMM004 diagnostics + the census cross-check for one file
+    (`--comm`): ONE recorded step per file feeds the whole analysis
+    (analysis/step_program.py, shared with FFModel's compile-time
+    checks). A plan the executor cannot run diagnoses instead of
+    crashing."""
+    from flexflow_tpu_torch.analysis.comm_analysis import verify_comm
+    from flexflow_tpu_torch.analysis.diagnostics import error
+
+    status, lowered = _lower_once(pcg, mapping, args, lowered_box, path)
+    if status != "ok":
+        return _lowering_failure("--comm", path, lowered_box)
+    try:
+        analysis, diags = verify_comm(
+            pcg,
+            mapping,
+            machine_spec=_machine_spec(args),
+            lowered=lowered,
+            bytes_floor=args.bytes_floor,
+        )
+    except Exception as e:
+        return [
+            error(
+                "FFC000",
+                f"--comm could not cross-check the plan: "
+                f"{type(e).__name__}: {e}"[:300],
+                path=path,
+            )
+        ]
+    summaries.setdefault("comm", []).append((path, analysis))
+    return diags
+
+
+def _exec_diags(pcg, mapping, args, path, summaries, lowered_box) -> List:
+    """DET/DON diagnostics + the execution-contract analysis for one
+    file (`--exec`): reads the same per-file recorded step as --comm
+    (analysis/step_program.py, which FFModel's compile-time checks
+    share). A plan the executor cannot run diagnoses instead of
+    crashing."""
+    from flexflow_tpu_torch.analysis.diagnostics import error
+    from flexflow_tpu_torch.analysis.exec_contract import verify_exec
+
+    status, lowered = _lower_once(pcg, mapping, args, lowered_box, path)
+    if status != "ok":
+        return _lowering_failure("--exec", path, lowered_box)
+    try:
+        analysis, diags = verify_exec(
+            pcg, mapping, machine_spec=_machine_spec(args), lowered=lowered
+        )
+    except Exception as e:
+        return [
+            error(
+                "FFC000",
+                f"--exec could not verify the plan: {type(e).__name__}: "
+                f"{e}"[:300],
+                path=path,
+            )
+        ]
+    summaries.setdefault("exec", []).append((path, analysis))
+    return diags
+
+
+# the shared per-file check-dispatch table: every per-file flag is one row
+# of (args attribute, check function) with the uniform signature
+# (pcg, mapping, args, path, summaries, lowered_box) -> diagnostics.
+# `summaries` collects (path, analysis) pairs under the flag's schema key,
+# emitted by the one shared summary-emission path (_emit_summaries).
+PER_FILE_CHECKS = (
+    ("memory", _memory_diags),
+    ("comm", _comm_diags),
+    ("exec", _exec_diags),
+)
+
+
+def _load_plan(path: str, args):
+    """One JSON document -> (pcg, mapping): strategy files carry their
+    mapping, graph files analyze unmapped (the full-mesh lowering).
+    Raises on malformed documents (callers diagnose as FFC000)."""
+    with open(path) as f:
+        doc = json.load(f)
+    if "pcg" in doc:  # strategy file: PCG + mapping
+        from flexflow_tpu_torch.runtime.strategy import strategy_from_doc
+
+        pcg, mapping, _ = strategy_from_doc(doc)
+        return pcg, mapping
+    kind = doc.get("kind")
+    if kind == "computation_graph":
+        from flexflow_tpu_torch.pcg.file_format import computation_graph_from_json
+        from flexflow_tpu_torch.pcg.parallel_computation_graph import (
+            pcg_from_computation_graph,
+        )
+
+        return (
+            pcg_from_computation_graph(
+                computation_graph_from_json(json.dumps(doc))
+            ),
+            None,
+        )
+    if kind == "parallel_computation_graph":
+        from flexflow_tpu_torch.pcg.file_format import pcg_from_json
+
+        return pcg_from_json(json.dumps(doc)), None
+    raise ValueError(
+        'unrecognized document: expected a file-format graph ("kind") '
+        'or a strategy file ("pcg")'
+    )
+
+
+def check_file(path: str, args, summaries: Optional[dict] = None) -> List:
+    """Diagnostics for one JSON document (graph file or strategy file):
+    the structural verifier always runs, then every enabled per-file
+    check from the shared dispatch table, all sharing one recorded step
+    per file."""
+    from flexflow_tpu_torch.analysis.diagnostics import error
+    from flexflow_tpu_torch.analysis.pcg_verify import verify_pcg
+
+    if summaries is None:
+        summaries = {}
+    lowered_box: List = []  # one recorded step per file
+    try:
+        with open(path) as f:
+            json.load(f)
+    except OSError as e:
+        return [error("FFC000", f"cannot read file: {e}", path=path)]
+    except json.JSONDecodeError as e:
+        return [error("FFC000", f"not valid JSON: {e}", path=path)]
+    try:
+        pcg, mapping = _load_plan(path, args)
+        if mapping is not None:
+            diags = verify_pcg(
+                pcg, machine_spec=_machine_spec(args), mapping=mapping
+            )
+        else:
+            diags = verify_pcg(pcg)
+        for flag, check in PER_FILE_CHECKS:
+            if getattr(args, flag, False):
+                diags = diags + check(
+                    pcg, mapping, args, path, summaries, lowered_box
+                )
+        return diags
+    except Exception as e:  # malformed documents must diagnose, not crash
+        return [
+            error(
+                "FFC000",
+                f"failed to load/verify: {type(e).__name__}: {e}",
+                path=path,
+            )
+        ]
+
+
+def check_transition_pair(
+    old_path: str, new_path: str, args, summaries: dict
+) -> List:
+    """`--transition OLD NEW`: the static swap verifier over a plan PAIR
+    (analysis/transition_analysis.py, TRN001-TRN004 + the link-classed
+    migration cost report). Both plans are structurally verified first;
+    the NEW plan's step is recorded (as --comm/--exec record it) for the
+    TRN004 exec-contract leg — a new plan that cannot run cannot be
+    swapped onto (FFC000)."""
+    import dataclasses
+
+    from flexflow_tpu_torch.analysis.diagnostics import error
+    from flexflow_tpu_torch.analysis.pcg_verify import verify_pcg
+    from flexflow_tpu_torch.analysis.transition_analysis import verify_transition
+
+    spec = _machine_spec(args)
+    plans = []
+    diags: List = []
+    for role, path in (("old", old_path), ("new", new_path)):
+        try:
+            pcg, mapping = _load_plan(path, args)
+        except Exception as e:
+            return diags + [
+                error(
+                    "FFC000",
+                    f"--transition could not load the {role} plan: "
+                    f"{type(e).__name__}: {e}"[:300],
+                    path=path,
+                )
+            ]
+        structural = (
+            verify_pcg(pcg, machine_spec=spec, mapping=mapping)
+            if mapping is not None
+            else verify_pcg(pcg)
+        )
+        for d in structural:
+            diags.append(d if d.path else dataclasses.replace(d, path=path))
+        plans.append((pcg, mapping))
+    (old_pcg, old_mapping), (new_pcg, new_mapping) = plans
+    lowered_box: List = []
+    status, lowered = _lower_once(new_pcg, new_mapping, args, lowered_box, new_path)
+    if status != "ok":
+        diags = diags + _lowering_failure(
+            "--transition", new_path, lowered_box
+        )
+        lowered = None
+    pair = f"{old_path} -> {new_path}"
+    try:
+        analysis, trn_diags = verify_transition(
+            old_pcg,
+            old_mapping,
+            new_pcg,
+            new_mapping,
+            machine_spec=spec,
+            hbm_bytes=_hbm_bytes(args),
+            optimizer_state_slots=args.optimizer_slots,
+            steps_per_dispatch=args.steps_per_dispatch,
+            lowered_new=lowered,
+        )
+    except Exception as e:
+        return diags + [
+            error(
+                "FFC000",
+                f"--transition could not verify the pair: "
+                f"{type(e).__name__}: {e}"[:300],
+                path=pair,
+            )
+        ]
+    summaries.setdefault("transition", []).append((pair, analysis))
+    return diags + [
+        d if d.path else dataclasses.replace(d, path=pair)
+        for d in trn_diags
+    ]
+
+
+def _summary_renderers(args) -> dict:
+    """schema key -> (summary_json_fn, format_table_fn, text header):
+    the ONE summary-emission contract every per-file/per-pair flag
+    shares. Under --json each (path, analysis) prints as one summary
+    object per line keyed by its schema key beside the per-diagnostic
+    lines; in text mode a `-- <header>: <path>` banner precedes the
+    formatted table."""
+    from flexflow_tpu_torch.analysis.comm_analysis import (
+        comm_summary_json,
+        format_comm_table,
+    )
+    from flexflow_tpu_torch.analysis.exec_contract import (
+        exec_summary_json,
+        format_exec_table,
+    )
+    from flexflow_tpu_torch.analysis.memory_analysis import (
+        format_memory_table,
+        memory_summary_json,
+    )
+    from flexflow_tpu_torch.analysis.transition_analysis import (
+        format_transition_table,
+        transition_summary_json,
+    )
+
+    hbm = _hbm_bytes(args)
+    return {
+        "memory": (
+            lambda a: memory_summary_json(a, hbm),
+            lambda a: format_memory_table(a, hbm),
+            "memory timeline",
+        ),
+        "comm": (comm_summary_json, format_comm_table,
+                 "communication census"),
+        "exec": (exec_summary_json, format_exec_table,
+                 "execution contract"),
+        "transition": (transition_summary_json, format_transition_table,
+                       "plan transition"),
+    }
+
+
+def _emit_summaries(summaries: dict, args) -> None:
+    """The shared per-file summary emission (was hand-rolled per flag)."""
+    if not summaries:
+        return
+    renderers = _summary_renderers(args)
+    for key in ("memory", "comm", "exec", "transition"):
+        summary_fn, format_fn, header = renderers[key]
+        for path, analysis in summaries.get(key, ()):
+            if args.json:
+                # one summary object per file, beside the per-diagnostic
+                # lines — distinguished by its schema key (the diagnostic
+                # lines carry "rule_id" instead)
+                print(json.dumps(
+                    {"path": path, **summary_fn(analysis)}, sort_keys=True
+                ))
+            else:
+                print(f"-- {header}: {path}")
+                print(format_fn(analysis))
+
+
+def template_zoo(batch: int = 16):
+    """(name, serial PCG) pairs covering the op vocabulary the seed
+    templates rewrite (the same model shapes the tier-1 suites use).
+    ``batch`` scales the input batch dimension so transition audits can
+    build batch-growth perturbation pairs of the same zoo."""
+    from flexflow_tpu_torch.pcg import ComputationGraphBuilder
+    from flexflow_tpu_torch.pcg.parallel_computation_graph import (
+        pcg_from_computation_graph,
+    )
+
+    out = []
+
+    b = ComputationGraphBuilder()
+    x = b.create_input([batch, 32], name="x")
+    h = b.dense(x, 64, use_bias=False, name="fc1")
+    h = b.relu(h)
+    h = b.dense(h, 32, use_bias=False, name="fc2")
+    out.append(("mlp", pcg_from_computation_graph(b.graph)))
+
+    b = ComputationGraphBuilder()
+    x = b.create_input([batch, 16, 32], name="x")
+    attn = b.multihead_attention(
+        x, x, x, embed_dim=32, num_heads=4, name="attn"
+    )
+    h = b.add(x, attn)
+    h = b.layer_norm(h, axes=[-1], name="ln1")
+    ff = b.dense(h, 128, name="ff1")
+    ff = b.gelu(ff)
+    ff = b.dense(ff, 32, name="ff2")
+    h = b.layer_norm(b.add(h, ff), axes=[-1], name="ln2")
+    b.dense(h, 8, name="head")
+    out.append(("transformer", pcg_from_computation_graph(b.graph)))
+
+    b = ComputationGraphBuilder()
+    x = b.create_input([batch, 3, 16, 16], name="img")
+    h = b.conv2d(x, 8, (3, 3), padding=(1, 1), name="c1")
+    h = b.pool2d(h, (2, 2), stride=(2, 2))
+    h = b.conv2d(h, 16, (3, 3), padding=(1, 1), name="c2")
+    h = b.flat(h)
+    b.dense(h, 10, name="head")
+    out.append(("conv", pcg_from_computation_graph(b.graph)))
+    return out
+
+
+def check_templates(args) -> List:
+    """Verify every dp x tp x sp seed template the search would put in its
+    frontier, over the template zoo."""
+    from flexflow_tpu_torch.analysis.pcg_verify import verify_pcg
+    from flexflow_tpu_torch.compiler.unity_algorithm import enumerate_seeds
+
+    import dataclasses
+
+    diags: List = []
+    checked = 0
+    zoo = template_zoo()
+    for model, pcg in zoo:
+        for label, seed in enumerate_seeds(pcg, args.devices_per_node * args.nodes):
+            for d in verify_pcg(seed):
+                diags.append(
+                    dataclasses.replace(d, message=f"[{model}/{label}] {d.message}")
+                )
+            checked += 1
+    if not args.json:
+        print(f"checked {checked} seed templates over {len(zoo)} models")
+    return diags
+
+
+def audit_registered_rules(args) -> List:
+    from flexflow_tpu_torch.analysis.rule_audit import (
+        audit_rules,
+        registered_rules_for_grid,
+    )
+
+    rules = registered_rules_for_grid(args.devices_per_node * args.nodes)
+    results, diags = audit_rules(rules)
+    if not args.json:
+        ok = sum(1 for r in results if r.status == "ok")
+        print(f"audited {len(results)} rules: {ok} ok, "
+              f"{sum(1 for r in results if r.status == 'unsound')} unsound, "
+              f"{sum(1 for r in results if r.status == 'unexercised')} unexercised")
+    return diags
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="ffcheck", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    ap.add_argument("files", nargs="*", help="graph / strategy JSON files")
+    ap.add_argument("--all-templates", action="store_true",
+                    help="verify every seed template over the model zoo")
+    ap.add_argument("--audit-rules", action="store_true",
+                    help="audit the registered substitution rules")
+    ap.add_argument("--lint", nargs="*", metavar="PATH", default=None,
+                    help="run source lints (no PATH = the flexflow_tpu_torch package)")
+    ap.add_argument("--memory", action="store_true",
+                    help="static per-device HBM verification (MEM001-MEM005"
+                    " + a peak timeline table) over each input file")
+    ap.add_argument("--serving", action="store_true",
+                    help="with --memory: forward-only serving analysis — "
+                    "KV-cache residency per attention op and the MEM005 "
+                    "static max-concurrent-sequences verdict")
+    ap.add_argument("--max-seqs", type=int, default=8,
+                    help="--serving: concurrent sequences the workload "
+                    "asks to admit (default 8)")
+    ap.add_argument("--max-seq-len", type=int, default=128,
+                    help="--serving: cache positions per sequence "
+                    "(prompt + generation cap, default 128)")
+    ap.add_argument("--kv-dtype-bytes", type=int, default=4,
+                    help="--serving: bytes per KV cache element "
+                    "(default 4 = f32)")
+    ap.add_argument("--comm", action="store_true",
+                    help="static communication verification (COMM001-"
+                    "COMM004): lower each plan's step program and cross-"
+                    "check the recorded step's collective census against "
+                    "the priced movement edges")
+    ap.add_argument("--exec", action="store_true",
+                    help="static execution-contract verification (DET001/"
+                    "DET002/DON001/DON002): record each plan's step, "
+                    "census nondeterministic ops, and audit the in-place "
+                    "state updates")
+    ap.add_argument("--transition", action="store_true",
+                    help="static plan-transition verification (TRN001-"
+                    "TRN004 + the link-classed migration cost report) "
+                    "over exactly TWO plan files: OLD NEW. The new "
+                    "plan's step is recorded for the exec-contract leg; "
+                    "verdict `swappable`/`swap_blocked` lands in the "
+                    "summary object")
+    ap.add_argument("--bytes-floor", type=int, default=4096,
+                    help="--comm: collectives below this many bytes are "
+                    "never flagged unpredicted (default 4096 — scalar "
+                    "loss/metric reductions live below it)")
+    ap.add_argument("--hbm-gb", type=float, default=16.0,
+                    help="per-device memory capacity in GiB for --memory "
+                    "(default 16)")
+    ap.add_argument("--optimizer-slots", type=int, default=2,
+                    help="per-weight optimizer-state slots the memory model"
+                    " charges (Adam m/v = 2, SGD+momentum = 1, SGD = 0)")
+    ap.add_argument("--steps-per-dispatch", type=int, default=1,
+                    help="fused-dispatch window K: input layers are charged"
+                    " K x their per-step batch (the stacked window buffer)")
+    ap.add_argument("--nodes", type=int, default=1)
+    ap.add_argument("--devices-per-node", type=int, default=8)
+    ap.add_argument("--slices", type=int, default=0,
+                    help="number of slices (nodes) the verified machine "
+                    "has: --slices N is --nodes N spelled in multi-slice "
+                    "terms; > 0 overrides --nodes and arms the MV004 "
+                    "slice-straddle rule on every mapped view")
+    ap.add_argument("--json", action="store_true",
+                    help="emit one JSON diagnostic per line")
+    ap.add_argument("--strict", action="store_true",
+                    help="treat warnings as errors for the exit code")
+    args = ap.parse_args(argv)
+    if args.slices > 0:
+        # slices == nodes in the machine model; everything downstream
+        # (grid checks, the ranks of a recorded step, MV004) reads args.nodes
+        args.nodes = args.slices
+
+    if not (args.files or args.all_templates or args.audit_rules
+            or args.lint is not None):
+        ap.error("nothing to check (pass files, --all-templates, "
+                 "--audit-rules, or --lint)")
+    if args.serving and not args.memory:
+        ap.error("--serving is a mode of the memory verifier: pass "
+                 "--memory --serving")
+    if args.transition and len(args.files) != 2:
+        ap.error("--transition takes exactly two plan files: OLD NEW")
+
+    from flexflow_tpu_torch.analysis.diagnostics import (
+        Severity,
+        format_diagnostic,
+    )
+
+    import dataclasses
+
+    diags: List = []
+    summaries: dict = {}
+    if args.transition:
+        # the pair path: the two files ARE one old -> new transition
+        diags.extend(
+            check_transition_pair(
+                args.files[0], args.files[1], args, summaries
+            )
+        )
+    else:
+        for path in args.files:
+            for d in check_file(path, args, summaries):
+                # attach the file path to graph-level diagnostics
+                diags.append(
+                    d if d.path else dataclasses.replace(d, path=path)
+                )
+    if args.all_templates:
+        diags.extend(check_templates(args))
+    if args.audit_rules:
+        diags.extend(audit_registered_rules(args))
+    if args.lint is not None:
+        from flexflow_tpu_torch.analysis.source_lints import lint_file, lint_package
+
+        if args.lint:
+            for p in args.lint:
+                if os.path.isdir(p):
+                    diags.extend(lint_package(p))
+                else:
+                    diags.extend(lint_file(p))
+        else:
+            diags.extend(lint_package())
+
+    errors = [d for d in diags if d.severity == Severity.ERROR]
+    warnings = [d for d in diags if d.severity != Severity.ERROR]
+    for d in diags:
+        if args.json:
+            print(json.dumps(d.to_json(), sort_keys=True))
+        else:
+            print(format_diagnostic(d))
+    _emit_summaries(summaries, args)
+    if not args.json:
+        print(f"ffcheck: {len(errors)} error(s), {len(warnings)} warning(s)")
+    failing = diags if args.strict else errors
+    return 1 if failing else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -286,6 +286,9 @@ class SequenceRing:
         step = -1 if reverse else 1
         x = x.contiguous()
         out = torch.empty_like(x)
+        from flexflow_tpu_torch.parallel import census
+
+        census.note("collective-permute", census.tensor_bytes(x), 2)
         ops = [dist.P2POp(dist.isend, x, self._peer(self.rank + step), self.group),
                dist.P2POp(dist.irecv, out, self._peer(self.rank - step), self.group)]
         for req in dist.batch_isend_irecv(ops):

@@ -11,8 +11,8 @@ a field whose machinery is not ported yet is refused by FFModel.compile
 with the slice that brings it (see FFModel._validate_config_flags), never
 ignored. The search, mesh and planner fields matter only to a compile on
 more than one device (one rank each): without a search budget it trains
-data parallel, with one it searches (or imports) a plan and lowers it; the
-search's field of A13 (hbm_gb) raises there.
+data parallel, with one it searches (or imports) a plan and lowers it,
+held to hbm_gb where it is set.
 """
 
 from __future__ import annotations

@@ -52,6 +52,19 @@ from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import (
 )
 from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
 
+
+def optimizer_state_slots_of(optimizer_attrs) -> int:
+    """Per-weight optimizer-state tensor count of the run's optimizer (the
+    JAX package's): Adam's m and v = 2, SGD with momentum = 1, plain SGD =
+    0; an unknown optimizer prices as Adam."""
+    from flexflow_tpu_torch.pcg.optimizer import AdamOptimizerAttrs, SGDOptimizerAttrs
+
+    if isinstance(optimizer_attrs, AdamOptimizerAttrs):
+        return 2
+    if isinstance(optimizer_attrs, SGDOptimizerAttrs):
+        return 1 if optimizer_attrs.momentum > 0.0 else 0
+    return 2
+
 # what shape inference raises on shapes an op cannot take
 _SHAPE_ERRORS = (AssertionError, IndexError, ValueError, TypeError)
 

@@ -21,7 +21,10 @@ grows, data-dependent costs. This module watches the live run:
   `CostStore.live_scale`, which FFModel passes where the compile searched
   with a cost store; without one the advisory takes the arithmetic
   fallback, the recorded seed predictions scaled by the live correction.
-  The transition verifier waits for A13: FFModel passes None.
+  A searched compile's FFModel passes its transition verifier: each
+  candidate gets the static TRN verdict for swapping the live plan onto
+  it (analysis/transition_analysis.py), and a blocked one is recorded
+  `swap_blocked`, never actionable.
 - `DriftMonitor` runs the above as a daemon thread tailing `events.jsonl`
   via `tail_events`, supervised through the fit's `FaultChannel`: a crash
   posts to the channel and surfaces at the next window boundary as a
@@ -163,8 +166,8 @@ class ReplanAdvisory:
     current_ms: Optional[float]
     predicted_savings_ms: Optional[float]
     repriced: bool
-    # the static plan-transition verdict for `candidate` (the JAX
-    # package's transition verifier, A13 here): a candidate the verifier
+    # the static plan-transition verdict for `candidate`
+    # (analysis/transition_analysis.py): a candidate the verifier
     # rejects is recorded `swap_blocked` and the advisory is NEVER
     # actionable
     transition: Optional[dict] = None

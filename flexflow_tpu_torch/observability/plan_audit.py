@@ -26,8 +26,10 @@ audit's op measurements join it (and analytic predictions their pairs);
 with a movement store its standalone reshard measurements do.
 
 A leaf's key carries its pipeline context (pcg.pipeline.pipeline_contexts),
-as the search priced it. Not yet here: the memory and communication
-cross-checks recorded beside the audit (A13).
+as the search priced it. FFModel records the searched plan's collective
+census beside the audit (its `comm` record: analysis/comm_analysis.py on
+the compile's recorded step), and its measured peak beside the predicted
+ones in search_provenance["memory"].
 
 Recorded in `FFModel.search_provenance["plan_audit"]` under
 `FFConfig(plan_audit=True)` on a searched compile.
@@ -210,8 +212,10 @@ def audit_plan(
     LocalCostEstimator (an op one audit measured is not timed again by a
     later search or audit), and where the search priced analytically each
     freshly measured op also records the prediction as the analytic half of
-    a correction pair. The JAX signature's communication byte predictions
-    wait for A13's comm analysis."""
+    a correction pair. The communication cross-check, which the JAX
+    package's audit takes byte predictions for, runs in FFModel's compile
+    on its recorded step (analysis/comm_analysis.py) and lands beside the
+    audit as its `comm` record."""
     from flexflow_tpu_torch.compiler.machine_mapping.problem_tree import (
         _leaf_key,
         map_unmapped_op_cost_estimate_key,

@@ -60,6 +60,7 @@ from typing import Dict, Hashable, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from flexflow_tpu_torch.parallel import census
 from flexflow_tpu_torch.parallel.mesh import Axes, MachineMesh
 from flexflow_tpu_torch.parallel.sharding import TensorSharding
 
@@ -76,6 +77,7 @@ def _wide(dtype: torch.dtype) -> torch.dtype:
 def _reduce_f32(x: torch.Tensor, group, counts=None) -> torch.Tensor:
     """The sum of x over `group`, reduced in f32 (or wider), in x's dtype."""
     buf = x.detach().to(_wide(x.dtype), copy=True).contiguous()
+    census.note("all-reduce", census.tensor_bytes(buf), dist.get_world_size(group))
     dist.all_reduce(buf, group=group)
     if counts is not None:
         counts["all_reduce"] += 1
@@ -110,12 +112,13 @@ class _AllGather(torch.autograd.Function):
 class _Narrow(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim: int, mesh: MachineMesh, axes: Axes):
-        ctx.dim, ctx.mesh, ctx.axes = dim, mesh, axes
+        ctx.dim, ctx.mesh, ctx.axes, ctx.node = dim, mesh, axes, census.current_node()
         return _slice(x, dim, mesh, axes).contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        return _gather(g, ctx.dim, ctx.mesh, ctx.axes), None, None, None
+        with census.node_scope(ctx.node):
+            return _gather(g, ctx.dim, ctx.mesh, ctx.axes), None, None, None
 
 
 class _SumPartials(torch.autograd.Function):
@@ -131,12 +134,13 @@ class _SumPartials(torch.autograd.Function):
 class _SumGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh: MachineMesh, axes: Axes):
-        ctx.mesh, ctx.axes = mesh, axes
+        ctx.mesh, ctx.axes, ctx.node = mesh, axes, census.current_node()
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce_f32(g, ctx.mesh.group_of(ctx.axes)[0], ctx.mesh.counts), None, None
+        with census.node_scope(ctx.node):
+            return _reduce_f32(g, ctx.mesh.group_of(ctx.axes)[0], ctx.mesh.counts), None, None
 
 
 class _KeepAtZero(torch.autograd.Function):
@@ -156,12 +160,13 @@ class _KeepAtZero(torch.autograd.Function):
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, counts):
-        ctx.group, ctx.counts = group, counts
+        ctx.group, ctx.counts, ctx.node = group, counts, census.current_node()
         return _reduce_f32(x, group, counts)
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce_f32(g, ctx.group, ctx.counts), None, None
+        with census.node_scope(ctx.node):
+            return _reduce_f32(g, ctx.group, ctx.counts), None, None
 
 
 def _exchange(x: torch.Tensor, split: int, concat: int, mesh: MachineMesh, axes: Axes
@@ -177,12 +182,14 @@ def _exchange(x: torch.Tensor, split: int, concat: int, mesh: MachineMesh, axes:
     chunks = x.chunk(n, dim=split)
     send = torch.stack([chunks[piece_of[g]] for g in range(n)])
     mesh.counts["all_to_all"] += 1
+    census.note("all-to-all", census.tensor_bytes(send), n)
     if mesh.backend != "nccl" and send.device.type == "cuda":
-        host = torch.empty(send.shape, dtype=send.dtype, pin_memory=True)
-        host.copy_(send)
-        got = torch.empty_like(host, pin_memory=True)
-        dist.all_to_all_single(got, host, group=group)
-        recv = got.to(send.device, non_blocking=True)
+        with census.transport():
+            host = torch.empty(send.shape, dtype=send.dtype, pin_memory=True)
+            host.copy_(send)
+            got = torch.empty_like(host, pin_memory=True)
+            dist.all_to_all_single(got, host, group=group)
+            recv = got.to(send.device, non_blocking=True)
     else:
         recv = torch.empty_like(send)
         dist.all_to_all_single(recv, send, group=group)
@@ -193,11 +200,14 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, split: int, concat: int, mesh: MachineMesh, axes: Axes):
         ctx.split, ctx.concat, ctx.mesh, ctx.axes = split, concat, mesh, axes
+        ctx.node = census.current_node()
         return _exchange(x, split, concat, mesh, axes)
 
     @staticmethod
     def backward(ctx, g):
-        return _exchange(g, ctx.concat, ctx.split, ctx.mesh, ctx.axes), None, None, None, None
+        with census.node_scope(ctx.node):
+            return (_exchange(g, ctx.concat, ctx.split, ctx.mesh, ctx.axes),
+                    None, None, None, None)
 
 
 def _trivial(mesh: MachineMesh, axes: Sequence[str]) -> bool:
@@ -251,6 +261,7 @@ def all_reduce_extreme(x: torch.Tensor, mesh: MachineMesh, axes: Axes, largest: 
     if _trivial(mesh, axes):
         return x
     buf = x.detach().clone().contiguous()
+    census.note("all-reduce", census.tensor_bytes(buf), mesh.size(tuple(axes)))
     op = dist.ReduceOp.MAX if largest else dist.ReduceOp.MIN
     dist.all_reduce(buf, op=op, group=mesh.group_of(tuple(axes))[0])
     mesh.counts["all_reduce"] += 1
@@ -312,6 +323,8 @@ def bucket_all_reduce(mesh: MachineMesh, buckets: Dict[Axes, List[torch.Tensor]]
         for t in tensors[1:]:
             wide = torch.promote_types(wide, t.dtype)
         flat = torch.cat([t.detach().reshape(-1).to(wide) for t in tensors])
+        census.note("all-reduce", census.tensor_bytes(flat), mesh.size(axes),
+                    parts=[(None, t.numel() * flat.element_size()) for t in tensors])
         dist.all_reduce(flat, group=mesh.group_of(axes)[0])
         mesh.counts["all_reduce"] += 1
         views, offset = [], 0
@@ -320,6 +333,13 @@ def bucket_all_reduce(mesh: MachineMesh, buckets: Dict[Axes, List[torch.Tensor]]
             offset += t.numel()
         out[axes] = views
     return out
+
+
+def _node_of_key(key) -> Optional[int]:
+    """The weight node of a parameter key ("n<idx>"), for the census."""
+    if isinstance(key, str) and key[:1] == "n" and key[1:].isdigit():
+        return int(key[1:])
+    return None
 
 
 def mesh_order(mesh: MachineMesh, axes) -> Axes:
@@ -447,6 +467,9 @@ class BucketedBackward:
                   else contextlib.nullcontext())
         with stream:
             flat = torch.cat([g.detach().reshape(-1).to(wide) for g in grads])
+            census.note("all-reduce", census.tensor_bytes(flat), dist.get_world_size(group),
+                        parts=[(_node_of_key(k), g.numel() * flat.element_size())
+                               for k, g in zip(keys, grads)])
             self._works[i] = dist.all_reduce(flat, group=group, async_op=True)
         self.counts["all_reduce"] += 1
         views, offset = [], 0

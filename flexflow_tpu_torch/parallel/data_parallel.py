@@ -37,6 +37,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
+from flexflow_tpu_torch.parallel import census
 
 from flexflow_tpu_torch.kernels.flash_attention import flash_mesh
 from flexflow_tpu_torch.kernels.moe import BatchRouting, batch_routing
@@ -307,6 +308,7 @@ def all_reduce_mean(loss, group, world_size: int, metrics: Optional[Dict] = None
     tensors = {k: v for k, v in metrics.items() if not isinstance(v, int)}
     bucket = torch.cat([loss.reshape(1).float()]
                        + [v.reshape(1).float() for v in tensors.values()])
+    census.note("all-reduce", census.tensor_bytes(bucket), world_size)
     dist.all_reduce(bucket, group=group)
     if counts is not None:
         counts["all_reduce"] += 1

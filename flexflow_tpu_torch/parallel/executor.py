@@ -151,6 +151,7 @@ from flexflow_tpu_torch.op_attrs.ops import (
     UlyssesAttentionAttrs,
     WeightAttrs,
 )
+from flexflow_tpu_torch.parallel import census
 from flexflow_tpu_torch.parallel import collectives as C
 from flexflow_tpu_torch.parallel.data_parallel import _rank_device
 from flexflow_tpu_torch.parallel.mesh import Axes, MachineMesh
@@ -730,7 +731,13 @@ def eval_node(plan: DistributedPlan, n: Node, env, masks=None, run=None) -> None
     operands in `env`, and put its outputs' pieces there: a parallel op
     reshards, a compute op reshards its operands to what it needs, runs
     (`run(attrs, operands, node plan)`, else `_run`), and under the
-    whole-tensor lowering cuts its whole outputs to the plan's shardings."""
+    whole-tensor lowering cuts its whole outputs to the plan's shardings.
+    The collectives it issues are counted as node n's (parallel/census.py)."""
+    with census.node_scope(n.idx):
+        _eval_node(plan, n, env, masks, run)
+
+
+def _eval_node(plan: DistributedPlan, n: Node, env, masks, run) -> None:
     pcg, mesh, S = plan.pcg, plan.mesh, plan.shardings
     attrs = pcg.op_attrs(n)
     outs = pcg.outputs_of(n)

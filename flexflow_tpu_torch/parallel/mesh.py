@@ -33,6 +33,7 @@ import torch
 import torch.distributed as dist
 
 from flexflow_tpu_torch.kernels.ring_flash import SequenceRing
+from flexflow_tpu_torch.parallel import census
 from flexflow_tpu_torch.pcg.machine_view import MachineSpecification
 
 Axes = Tuple[str, ...]
@@ -209,6 +210,7 @@ class MachineMesh(MeshAxes):
         order (a collective of the group of `axes`)."""
         group, peers = self.group_of(axes)
         x = x.contiguous()
+        census.note("all-gather", census.tensor_bytes(x) * len(peers), len(peers))
         parts = [torch.empty_like(x) for _ in peers]
         dist.all_gather(parts, x, group=group)
         order = [p if group is None else dist.get_group_rank(group, p) for p in peers]
@@ -252,6 +254,7 @@ class RingTransfer:
         self.out = torch.empty_like(self.x)
         self.staged = mesh.backend != "nccl" and self.x.device.type == "cuda"
         mesh.counts["ring_step"] += 1
+        census.note("collective-permute", census.tensor_bytes(self.x), 2)
         if mesh.backend == "nccl":
             self.works = dist.batch_isend_irecv([
                 dist.P2POp(dist.isend, self.x, self.next, group),
@@ -264,7 +267,7 @@ class RingTransfer:
             self.stream.wait_stream(torch.cuda.current_stream(self.x.device))
             self.host = torch.empty(self.x.shape, dtype=self.x.dtype, pin_memory=True)
             self.host_in = torch.empty_like(self.host, pin_memory=True)
-            with torch.cuda.stream(self.stream):
+            with torch.cuda.stream(self.stream), census.transport():
                 self.host.copy_(self.x, non_blocking=True)
                 self.copied = torch.cuda.Event()
                 self.copied.record(self.stream)
@@ -281,7 +284,7 @@ class RingTransfer:
         for w in works:
             w.wait()
         current = torch.cuda.current_stream(self.x.device)
-        with torch.cuda.stream(self.stream):
+        with torch.cuda.stream(self.stream), census.transport():
             self.out.copy_(self.host_in, non_blocking=True)
         current.wait_stream(self.stream)
         self.out.record_stream(current)

@@ -56,6 +56,7 @@ from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+from flexflow_tpu_torch.parallel import census
 
 from flexflow_tpu_torch.kernels import apply_optimizer_, forward as kernel_forward
 from flexflow_tpu_torch.kernels import loss_forward, make_optimizer_state
@@ -310,6 +311,8 @@ class _P2P:
         if not sends and not recvs:
             return []
         self.count += len(sends)
+        for t, _, _ in sends:  # each stage transfer is one point-to-point hop
+            census.note("collective-permute", census.tensor_bytes(t), 2)
         nbytes = [int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
                   for shape, dt, _, _ in recvs]
         if self.nccl:
@@ -321,16 +324,19 @@ class _P2P:
                 w.wait()
         else:
             pin = self.staged
-            bufs = [torch.empty(n, dtype=torch.uint8, pin_memory=pin) for n in nbytes]
-            works = [dist.irecv(b, peer, tag=tag) for b, (_, _, peer, tag) in zip(bufs, recvs)]
-            for t, peer, tag in sends:
-                out = _as_bytes(t)
-                if pin:
-                    out = torch.empty(out.numel(), dtype=torch.uint8, pin_memory=True).copy_(out)
-                works.append(dist.isend(out, peer, tag=tag))
-            for w in works:
-                w.wait()
-            bufs = [b.to(self.device, non_blocking=pin) for b in bufs]
+            with census.transport():
+                bufs = [torch.empty(n, dtype=torch.uint8, pin_memory=pin) for n in nbytes]
+                works = [dist.irecv(b, peer, tag=tag)
+                         for b, (_, _, peer, tag) in zip(bufs, recvs)]
+                for t, peer, tag in sends:
+                    out = _as_bytes(t)
+                    if pin:
+                        out = torch.empty(out.numel(), dtype=torch.uint8,
+                                          pin_memory=True).copy_(out)
+                    works.append(dist.isend(out, peer, tag=tag))
+                for w in works:
+                    w.wait()
+                bufs = [b.to(self.device, non_blocking=pin) for b in bufs]
         return [b.view(dt).reshape(shape) for b, (shape, dt, _, _) in zip(bufs, recvs)]
 
 
@@ -577,6 +583,8 @@ class PipelinedTrainingInstance(ModelTrainingInstance):
         scale = 1.0 / (M * self.dp)
         if self.dp > 1:
             flat = torch.cat([g.reshape(-1) for g in grad_acc.values()])
+            census.note("all-reduce", census.tensor_bytes(flat), self.dp,
+                        parts=[(None, census.tensor_bytes(g)) for g in grad_acc.values()])
             dist.all_reduce(flat, group=self.data_group)
             i = 0
             for k, g in grad_acc.items():
@@ -601,6 +609,7 @@ class PipelinedTrainingInstance(ModelTrainingInstance):
         tensors = {k: v for k, v in mvals.items() if not isinstance(v, int)}
         bucket = torch.stack([loss_acc] + [
             (v if last else torch.zeros_like(v)).float().reshape(()) for v in tensors.values()])
+        census.note("all-reduce", census.tensor_bytes(bucket), dist.get_world_size())
         dist.all_reduce(bucket)
         loss = bucket[0] * scale
         out = {}

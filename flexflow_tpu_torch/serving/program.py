@@ -501,13 +501,57 @@ class ServingProgram:
         token, lengths, toks = self.graphs.run(key, body, inputs, warmup_inputs=idle)
         return cache, token.clone(), lengths.clone(), toks.clone()
 
+    def exec_contract(self, window_steps: int = 4):
+        """The execution contract of both serving programs (the JAX
+        package's ServingProgram.exec_contract): a prefill and a
+        `window_steps` decode window (its eager body: a replayed graph runs
+        no op a recorder sees), each recorded once on zero-filled arguments
+        and a fresh cache (analysis/step_program.py), the KV cache the
+        in-place state (the MEM005 verdict prices it as written in place: a
+        cache handed back in new storage doubles exactly the residency the
+        admission cap is computed from). Returns {"prefill": (analysis,
+        diagnostics), "decode": (analysis, diagnostics)}."""
+        from flexflow_tpu_torch.analysis.exec_contract import (
+            analyze_step_program,
+            exec_diagnostics,
+        )
+        from flexflow_tpu_torch.analysis.step_program import _render, record_program
+        from flexflow_tpu_torch.op_attrs.parallel_tensor_shape import get_reduced_shape
+
+        ts = get_reduced_shape(self.pcg.tensor_shape(self._input_tensor))
+        slots = ts.dims[0]
+        tokens = torch.zeros(tuple(ts.dims), dtype=torch.int32, device=self.device)
+        token = torch.zeros((slots,), dtype=torch.int32, device=self.device)
+        lengths = torch.ones((slots,), dtype=torch.int32, device=self.device)
+        mask = torch.ones((slots,), dtype=torch.bool, device=self.device)
+        constants = {"program": "serving", "window_steps": int(window_steps)}
+
+        def sig(**args):
+            return [f"{k}:{_render(v)}" for k, v in args.items()]
+
+        out = {}
+        prog = record_program(
+            lambda st: {"cache": self.prefill(st["cache"], tokens, lengths, mask)[0]},
+            {"cache": self.init_cache()}, ("cache",), sig(tokens=tokens, lengths=lengths),
+            dict(constants, call="prefill"))
+        a = analyze_step_program(prog)
+        out["prefill"] = (a, exec_diagnostics(a))
+        prog = record_program(
+            lambda st: {"cache": self.decode_window_eager(st["cache"], token, lengths, mask,
+                                                          int(window_steps))[0]},
+            {"cache": self.init_cache()}, ("cache",), sig(token=token, lengths=lengths),
+            dict(constants, call="decode"))
+        a = analyze_step_program(prog)
+        out["decode"] = (a, exec_diagnostics(a))
+        return out
+
     @torch.no_grad()
     def decode_window_eager(self, cache, token, lengths, active, steps: int):
         """decode_window's body, run as it is: `steps` forward passes, each
         writing the cache in place."""
         token, lengths, active = self._ids(token), self._ids(lengths), self._mask(active)
         toks = []
-        for _ in range(int(steps)):
+        for _ in range(steps):
             logits, cache = self._forward(
                 self.params, token[:, None], cache, lengths, active, "decode"
             )

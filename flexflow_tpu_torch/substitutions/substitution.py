@@ -247,10 +247,18 @@ def apply_substitution(
                 dirty.add(nv)
 
     if os.environ.get("FF_TPU_VERIFY") not in (None, "", "0"):
-        # the JAX package verifies every candidate's structural invariants
-        # here (analysis/pcg_verify); the port has no verifier yet
-        raise NotImplementedError(
-            "FF_TPU_VERIFY needs the PCG verifier, not ported yet (ROADMAP A13)"
-        )
+        # static-verification mode (analysis/pcg_verify.py): every candidate
+        # the search produces is checked for the structural PCG invariants
+        # before it can be priced; a violation raises ValueError, which the
+        # search loops treat as "rewrite rejected". The winner is always
+        # verified (with the SP and machine-view rules) in FFModel.compile.
+        from flexflow_tpu_torch.analysis.diagnostics import errors_of, format_diagnostic
+        from flexflow_tpu_torch.analysis.pcg_verify import verify_pcg_structure
+
+        errs = errors_of(verify_pcg_structure(new_pcg))
+        if errs:
+            raise ValueError(
+                f"FF_TPU_VERIFY: substitution {sub.name!r} produced an ill-formed PCG:\n"
+                + "\n".join(format_diagnostic(d) for d in errs))
 
     return new_pcg

@@ -414,9 +414,6 @@ def test_unported_paths_raise_naming_their_slice():
     with pytest.raises(ValueError, match="orbax"):
         m3.compile(SGDOptimizer(lr=0.1))  # a JAX library: the port writes npz only
     m.compile(SGDOptimizer(lr=0.1))
-    xs, ys = _data(8)
-    with pytest.raises(NotImplementedError, match=r"\(A8 part 2\)"):
-        m.fit(xs, ys, recompile_state=object(), verbose=False)
     m4, _, _ = build_mlp(_cfg(tcore, compile_cache_dir="unused"))
     with pytest.raises(ValueError, match="XLA"):
         m4.compile(SGDOptimizer(lr=0.1))

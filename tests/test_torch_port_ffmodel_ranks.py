@@ -191,7 +191,9 @@ def test_searched_compile_trains_to_the_jax_losses(runs):
 
 
 def test_a_strategy_the_jax_package_exports_trains_in_the_port(runs):
-    assert runs["port"]["imported"][0]["prov"] == {"search_algorithm": "imported_strategy"}
+    prov = runs["port"]["imported"][0]["prov"]
+    assert prov["search_algorithm"] == "imported_strategy"
+    assert prov["verify"] == runs["jax"]["imported"]["prov"]["verify"]
     for got in runs["port"]["imported"]:
         _same_training(runs["jax"]["imported"], got)
 
@@ -251,7 +253,7 @@ def test_the_devices_of_a_compile_are_the_groups_ranks(one_rank_group, monkeypat
         m.compile(core.SGDOptimizer(lr=0.1), "sparse_categorical_crossentropy")
 
 
-@pytest.mark.parametrize("flag,item", [(dict(hbm_gb=16.0), "A13"),
+@pytest.mark.parametrize("flag,item", [(dict(hbm_gb=16.0), None),
                                        (dict(cost_store="store"), None),
                                        (dict(search_algorithm="mcmc", perform_fusion=True),
                                         None),
@@ -260,11 +262,12 @@ def test_the_devices_of_a_compile_are_the_groups_ranks(one_rank_group, monkeypat
 def test_unported_search_flags_raise_naming_their_item(one_rank_group, tmp_path, flag, item):
     """An unported flag is checked before the search runs, on the plan's
     first compile step. The cost store, MCMC and the overlap pricing (A6
-    part 2) and the pipeline seeds (A10) now search: a searched compile on
-    the group of one rank records them in its provenance (the stores and
-    searches against the JAX package: tests/test_torch_port_cost_store.py,
-    test_torch_port_mcmc.py, test_torch_port_overlap.py,
-    test_torch_port_pipeline.py); one device has no stage to cut, so the
+    part 2), the pipeline seeds (A10) and the memory budget (A13) now
+    search: a searched compile on the group of one rank records them in its
+    provenance (the stores and searches against the JAX package:
+    tests/test_torch_port_cost_store.py, test_torch_port_mcmc.py,
+    test_torch_port_overlap.py, test_torch_port_pipeline.py,
+    test_torch_port_verify.py); one device has no stage to cut, so the
     pipelined compile is flat there.""" 
     if "cost_store" in flag:  # measured on the host, so the search writes its leaves
         flag = dict(cost_store=str(tmp_path), cost_model="measured")
@@ -277,6 +280,8 @@ def test_unported_search_flags_raise_naming_their_item(one_rank_group, tmp_path,
     assert type(inst).__name__ == "DistributedTrainingInstance"
     sp = m.search_provenance
     assert sp["search_algorithm"] == flag.get("search_algorithm", "unity")
+    if "hbm_gb" in flag:
+        assert sp["memory"]["hbm_gb"] == 16.0 and sp["verify"]["clean"]
     if "cost_store" in flag:
         assert sp["cost_db"]["device_kind"] == "cpu:cpu" and sp["cost_db"]["op_misses"] > 0
         assert (tmp_path / "cost_db.json").exists()

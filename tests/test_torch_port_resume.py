@@ -16,7 +16,7 @@ TestFallbackInFit:
   latest snapshot falling back on resume;
 - without Dropout the port's uninterrupted and resumed trajectories equal
   the JAX fit's within tests/test_torch_port_fused.py's f32 tolerance;
-- what waits raises naming its item: recompiles (A8 part 2);
+- recompiles (A8 part 2): recompile() keeps the step and the state;
 - the `nonfinite` and `slow` fault sites in a fit, per step and in
   windows, get their reactions: a skipped step under skip_step, a slept
   step in the events' `wallclock_ms`."""
@@ -321,11 +321,21 @@ def test_uninterrupted_and_resumed_runs_follow_the_jax_fit(monkeypatch, tmp_path
 
 
 def test_recompiles_raise_naming_a8_part_2():
+    """Recompiles are ported (runtime/recompile.py): recompile() keeps the
+    step count and carries the state bitwise, and a fit with a
+    RecompileState whose trigger never fires trains as one without."""
+    from flexflow_tpu_torch.runtime.recompile import RecompileState
+
     m = _build()
-    with pytest.raises(NotImplementedError, match=r"\(A8 part 2\)"):
-        m.fit(*_data(), epochs=1, verbose=False, recompile_state=object())
-    with pytest.raises(NotImplementedError, match=r"\(A8 part 2\)"):
-        m.recompile()
+    m.fit(*_data(), epochs=1, verbose=False)
+    steps = m._step_count
+    before = {k: v.clone() for k, v in m.params.items()}
+    m.recompile()
+    assert m._step_count == steps
+    assert all(torch.equal(before[k], m.params[k]) for k in before)
+    never = RecompileState(lambda ff: False, lambda ff: None)
+    m.fit(*_data(), epochs=1, verbose=False, recompile_state=never)
+    assert never.recompilations == 0 and m._step_count == 2 * steps
 
 
 SLOW_MS = 150.0
