@@ -7,9 +7,9 @@ Without arguments every phase runs; `--phases` runs only the named ones
 (besides device and build), for intermediate runs: a phase that reads
 another's result (search and roofline read train's step, search_warm
 search's store, search_mcmc search_warm's process, plan_serve serve's
-measurements, plan_audit search's run) says which to add. Every phase
-prints its wall seconds on a line of its own, and before the kernel table
-one {"phase_wall_s": ...} line collects them.
+measurements, plan_audit search's run, frontends search's store) says
+which to add. Every phase prints its wall seconds on a line of its own,
+and before the kernel table one {"phase_wall_s": ...} line collects them.
 
 Phases, each printing one JSON line:
 
@@ -400,6 +400,32 @@ then one rank job per rank count (gloo ranks sharing the card) carrying:
                   one card's from the same values, its aux losses present,
                   its collectives printed (and, for (b), every step's equal
                   to what the plan implies).
+
+then (after program-level verification, the recompiles and the serving
+contract) the model frontends:
+
+45. frontends     (needs search: the CLIs read its cost store) (a) the
+                  flagship written as an .ffir file (models.build_flagship_ir)
+                  and imported through PyTorchModel.from_file(...).apply_ir,
+                  compiled as fit does (bf16, Adam(1e-4)): a warm-up fit and
+                  3 timed steps, rows 1-3 12 times a step each and no other
+                  wrapper, step ms, tokens/s, MFU and peak memory beside
+                  fit's, and the parameters bitwise those of
+                  build_flagship_cg's model fitted from the same values on
+                  the same batches; (b) tests/test_torch_frontend.py's MLP,
+                  ConvNet and ResidualNet on the card, imported by fx with
+                  their weights transferred: forwards within 1e-4 of the
+                  modules' own (f32, TF32 off), and an nn.MultiheadAttention
+                  block's trace raising getitem; (c) a Keras Sequential
+                  784-512-512-10 MLP and the functional two-branch
+                  Concatenate model, one epoch each, and (d)
+                  tests/fixtures/tiny_mlp.onnx through the wire-format
+                  reader, two steps: f32 losses within 1e-4 of the CPU
+                  port's from the same parameters; (e) tools.cost_db verify
+                  and stats on search's store (its device kind this card's),
+                  tools.ffreport --json on fit_health's metrics dir (or,
+                  without fit_health, a short fit of (c)'s MLP here) with
+                  that run's step count.
 
 The kernels phase also holds the per-head kernels at the attention shapes of
 train_dp, of train_dp_seq2048 and of the 16-head config, on contiguous
@@ -2297,6 +2323,8 @@ def phase_fit(smi: str, steps: int = STEPS):
         "launches": launches, "launches_per_step_each": cfg["layers"],
         "bitwise_equal_to_train_step": True,
     })
+    FIT_RUN.update(step_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
+                   mfu=flops / (step_ms / 1e3) / PEAK_BF16, peak_memory_bytes=peak)
     del m, init
     torch.cuda.empty_cache()
     return {name: n for name, n in launches.items() if name in FLASH_WRAPPERS}
@@ -6294,6 +6322,7 @@ def phase_fit_health(smi: str, k: int = FIT_WINDOW_K, windows: int = FIT_WINDOW_
     if len(events) != steps or bad or [e["loss"] for e in events] != want_losses:
         raise AssertionError(f"fit_health: {len(events)} events (expected {steps}), bad {bad[:2]}, "
                              f"losses {[e['loss'] for e in events]} vs {want_losses}")
+    FIT_HEALTH_RUN.update(metrics_dir=os.path.join(work, "turn0"), steps=steps)
     if any(r["readbacks"] != windows for r in runs["telemetry"]) or any(
             r["readbacks"] for r in runs["plain"]):
         raise AssertionError(f"fit_health: stats readbacks "
@@ -7771,6 +7800,361 @@ def phase_serve_contract(smi: str, device: str = "cuda", lm: dict = SERVE_LM,
     emit({"phase": "serve_contract", "card": smi, "config": lm, "traffic": t, **rows})
 
 
+FRONTENDS_STEPS = 3  # timed Adam steps of the .ffir flagship, after one warm-up step
+FRONTENDS_BOUND = 1e-4  # f32, TF32 off: fx forwards against torch's, Keras/ONNX losses vs the CPU's
+FRONTENDS_KERAS = dict(batch=64, samples=512)  # the 784-512-512-10 MLP's one epoch
+FIT_RUN = {}  # fit's step ms, tokens/s, MFU and peak memory, printed beside frontends'
+FIT_HEALTH_RUN = {}  # fit_health's first telemetry metrics dir and its steps, read by frontends
+
+
+def _fx_modules():
+    """tests/test_torch_frontend.py's MLP, ConvNet and ResidualNet (copies:
+    that file imports the JAX package), their input dims, and a post-LN
+    block around nn.MultiheadAttention, which fx cannot map."""
+    import torch
+    import torch.nn as nn
+
+    class MLP(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.fc1 = nn.Linear(16, 32)
+            self.act = nn.ReLU()
+            self.fc2 = nn.Linear(32, 8)
+
+        def forward(self, x):
+            return self.fc2(self.act(self.fc1(x)))
+
+    class ConvNet(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv = nn.Conv2d(3, 8, 3, stride=1, padding=1)
+            self.pool = nn.MaxPool2d(2, 2)
+            self.flatten = nn.Flatten()
+            self.head = nn.Linear(8 * 8 * 8, 4)
+
+        def forward(self, x):
+            return self.head(self.flatten(self.pool(torch.relu(self.conv(x)))))
+
+    class ResidualNet(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.fc = nn.Linear(16, 16)
+            self.ln = nn.LayerNorm(16)
+
+        def forward(self, x):
+            return self.ln(x + self.fc(x))
+
+    class AttentionBlock(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.attn = nn.MultiheadAttention(64, 4, batch_first=True)
+            self.ln = nn.LayerNorm(64)
+
+        def forward(self, x):
+            out, _ = self.attn(x, x, x)
+            return self.ln(x + out)
+
+    return ({"mlp": (MLP, [4, 16]), "convnet": (ConvNet, [2, 3, 16, 16]),
+             "residual": (ResidualNet, [4, 16])}, AttentionBlock)
+
+
+def _call_tool(main, argv) -> tuple:
+    """(exit code, stdout, stderr) of a tool's main(argv), in this process."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _card_and_cpu(build, device: str):
+    """A model `build(device)` on the card and on the CPU, compiled, the
+    CPU's parameters carried from the card's."""
+    from flexflow_tpu_torch.interop import ffmodel_state_from_numpy, params_to_numpy
+
+    card, cpu = build(device), build("cpu")
+    ffmodel_state_from_numpy(cpu, params_to_numpy(card.params))
+    return card, cpu
+
+
+def _rel_close(phase: str, what: str, got: float, want: float) -> float:
+    rel = abs(got - want) / max(abs(want), 1e-30)
+    if not (math.isfinite(got) and rel <= FRONTENDS_BOUND):
+        raise AssertionError(f"{phase}: {what} {got} vs the CPU's {want} (relative {rel})")
+    return rel
+
+
+def _frontends_ffir(cfg: dict, steps: int, device: str, work: str) -> tuple:
+    """(a) the flagship written as an .ffir file, imported through
+    PyTorchModel.from_file(...).apply_ir, compiled as fit does and fit; the
+    launches; the same fit of build_flagship_cg's model from the same
+    parameters, bitwise."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.core import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.frontends.torch_model import PyTorchModel
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.models import build_flagship_cg, build_flagship_ir, model_step_flops
+
+    b, layers = cfg["batch"], cfg["layers"]
+    path = os.path.join(work, "flagship.ffir")
+    with open(path, "w") as f:
+        for line in build_flagship_ir(**cfg):
+            f.write(line.dumps() + "\n")
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(((steps + 1) * b, cfg["seq"], cfg["embed"]), dtype=np.float32)
+    y = rng.integers(0, cfg["vocab"], ((steps + 1) * b, cfg["seq"]), dtype=np.int32)
+
+    def compiled(m, logits=None):
+        m.compile(AdamOptimizer(alpha=1e-4), "sparse_categorical_crossentropy",
+                  metrics=FIT_METRICS, logit_tensor=logits, compute_dtype=torch.bfloat16)
+        return m
+
+    config = dict(batch_size=b, seed=0, print_freq=0)
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold: in the peak below
+    start = time.perf_counter()
+    m = FFModel(FFConfig(**config), device=device)
+    inp = m.create_tensor([b, cfg["seq"], cfg["embed"]], name="x")
+    (logits,) = PyTorchModel.from_file(path).apply_ir(m, [inp])
+    compiled(m, logits)
+    init = {k: p.detach().to("cpu", copy=True) for k, p in m.params.items()}
+    import_s = time.perf_counter() - start
+    m.fit(x[:b], y[:b], epochs=1, shuffle=False, verbose=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    perf = m.fit(x[b:], y[b:], epochs=1, shuffle=False, verbose=False)
+    elapsed = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS}
+    peak = torch.cuda.max_memory_allocated()
+    want = {n: layers * steps if n in FLASH_WRAPPERS else 0 for n in launches}
+    if device != "cpu" and launches != want:
+        raise AssertionError(f"frontends: the .ffir flagship launched {launches}, expected {want}")
+    tokens = b * cfg["seq"]
+    if perf.train_all != steps * tokens or not math.isfinite(perf.sparse_cce_loss):
+        raise AssertionError(f"frontends: the .ffir flagship's fit: {perf}")
+    final = {k: p.detach().to("cpu", copy=True) for k, p in m.params.items()}
+    del m, logits, inp
+    torch.cuda.empty_cache()
+
+    r = compiled(FFModel.from_computation_graph(*build_flagship_cg(**cfg),
+                                                config=FFConfig(**config), device=device))
+    if r.params.keys() != init.keys():
+        raise AssertionError("frontends: the .ffir graph's parameters are not build_flagship_cg's")
+    with torch.no_grad():
+        for k, p in r.params.items():
+            p.copy_(init[k])
+    r.fit(x[:b], y[:b], epochs=1, shuffle=False, verbose=False)
+    r.fit(x[b:], y[b:], epochs=1, shuffle=False, verbose=False)
+    differ = [k for k, p in r.params.items() if not torch.equal(p.detach().cpu(), final[k])]
+    if differ:
+        raise AssertionError(f"frontends: the .ffir flagship's parameters differ from "
+                             f"build_flagship_cg's fitted from the same values: {differ[:6]}")
+    del r
+    torch.cuda.empty_cache()
+    step_ms = elapsed * 1e3 / steps
+    flops = model_step_flops(**cfg)
+    out = {"config": cfg, "ffir_lines": len(build_flagship_ir(**cfg)),
+           "import_and_compile_s": import_s, "steps": steps, "step_ms": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3), "mfu": flops / (step_ms / 1e3) / PEAK_BF16,
+           "peak_memory_bytes": peak, "memory_held_before_bytes": held,
+           "mean_sparse_cce": perf.sparse_cce_loss / perf.train_all,
+           "launches": launches, "launches_per_step_each": layers,
+           "bitwise_equal_to_build_flagship_cg": True, "fit": FIT_RUN or None}
+    return out, {n: c for n, c in launches.items() if n in FLASH_WRAPPERS}
+
+
+def _frontends_fx(device: str) -> dict:
+    """(b) the fx route: each module on the card, imported, its weights
+    transferred; the imported forward against the module's own; the
+    attention block's trace raising getitem."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.core import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.frontends.torch_model import PyTorchModel, trace_to_ir
+
+    modules, attention_block = _fx_modules()
+    rows = {}
+    for name, (cls, dims) in modules.items():
+        torch.manual_seed(0)
+        module = cls().to(device).eval()
+        m = FFModel(FFConfig(batch_size=dims[0], print_freq=0, seed=0), device=device)
+        pt = PyTorchModel(module)
+        (out,) = pt.torch_to_ff(m, [m.create_tensor(dims, name="in0")])
+        m.compile(SGDOptimizer(lr=0.01), "sparse_categorical_crossentropy", logit_tensor=out)
+        copied = pt.transfer_weights(m)
+        feed = np.random.RandomState(0).randn(*dims).astype(np.float32)
+        with torch.no_grad():
+            want = module(torch.from_numpy(feed).to(device)).cpu().numpy()
+            got = m.instance.forward(m.params, {"in0": feed}).cpu().numpy()
+        err = float(np.max(np.abs(got - want)))
+        if copied == 0 or not np.allclose(got, want, rtol=FRONTENDS_BOUND, atol=FRONTENDS_BOUND):
+            raise AssertionError(f"frontends fx {name}: {copied} tensors transferred, forward "
+                                 f"max abs err {err}")
+        rows[name] = {"transferred": copied, "max_abs_err": err,
+                      "ir_lines": len(trace_to_ir(module))}
+    try:
+        trace_to_ir(attention_block().to(device))
+    except ValueError as e:
+        if "unsupported torch function: getitem" not in str(e):
+            raise
+        rows["multihead_attention"] = {"raises": str(e)}
+    else:
+        raise AssertionError("frontends fx: tracing nn.MultiheadAttention did not raise getitem")
+    return rows
+
+
+def _frontends_keras(device: str, keras: dict, metrics_dir=None) -> dict:
+    """(c) a Sequential 784-512-512-10 MLP and the functional two-branch
+    Concatenate model, one epoch each on the card and on the CPU from the
+    same parameters (f32). With `metrics_dir`, only the MLP's card fit,
+    writing its run-health stream there; returns its step count."""
+    import numpy as np
+    from flexflow_tpu_torch.core import FFConfig
+    from flexflow_tpu_torch.frontends import keras_model as k
+
+    def mlp(dev, **config):
+        model = k.Sequential([k.Dense(512, activation="relu", input_shape=(784,)),
+                              k.Dense(512, activation="relu"), k.Dense(10)],
+                             ffconfig=FFConfig(batch_size=keras["batch"], seed=0, print_freq=0,
+                                               **config), device=dev)
+        model.compile(optimizer=k.SGD(0.05), loss="sparse_categorical_crossentropy",
+                      metrics=FIT_METRICS, batch_size=keras["batch"])
+        model._materialize()
+        return model
+
+    def two_branch(dev):
+        inp = k.Input((16,))
+        merged = k.Concatenate(axis=1)([k.Dense(8, activation="relu")(inp),
+                                        k.Dense(8, activation="tanh")(inp)])
+        model = k.Model(inputs=inp, outputs=k.Dense(4)(merged),
+                        ffconfig=FFConfig(batch_size=8, seed=0, print_freq=0), device=dev)
+        model.compile(optimizer=k.SGD(0.05), loss="sparse_categorical_crossentropy",
+                      metrics=FIT_METRICS, batch_size=8)
+        model._materialize()
+        return model
+
+    rs = np.random.RandomState(0)
+    data = {"mlp": (rs.randn(keras["samples"], 784).astype(np.float32),
+                    rs.randint(0, 10, keras["samples"])),
+            "two_branch": (rs.randn(16, 16).astype(np.float32), rs.randint(0, 4, 16))}
+    if metrics_dir is not None:
+        perf = mlp(device, metrics_dir=metrics_dir).fit(*data["mlp"], epochs=1, shuffle=False,
+                                                         verbose=False)
+        return perf.train_all // keras["batch"]
+    rows = {}
+    for name, build in (("mlp", mlp), ("two_branch", two_branch)):
+        card, cpu = _card_and_cpu(lambda dev: build(dev).ffmodel, device)
+        got, want = (m.fit(*data[name], epochs=1, shuffle=False, verbose=False)
+                     for m in (card, cpu))
+        rows[name] = {"loss": got.sparse_cce_loss, "cpu_loss": want.sparse_cce_loss,
+                      "relative": _rel_close(f"frontends keras {name}", "loss",
+                                             got.sparse_cce_loss, want.sparse_cce_loss),
+                      "samples": got.train_all, "accuracy": got.accuracy}
+    return rows
+
+
+def _frontends_onnx(device: str) -> dict:
+    """(d) tests/fixtures/tiny_mlp.onnx through the wire-format reader, two
+    SGD steps on the card and on the CPU from the same parameters."""
+    import numpy as np
+    from flexflow_tpu_torch.core import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.frontends.onnx_model import ONNXModel
+
+    path = os.path.join(REPO, "tests", "fixtures", "tiny_mlp.onnx")
+    onnx = ONNXModel(path)
+    if onnx.onnx is not None or onnx.model.graph.name != "tiny_mlp":
+        raise AssertionError("frontends onnx: the fixture did not go through the wire-format "
+                             "reader")
+
+    def build(dev):
+        m = FFModel(FFConfig(batch_size=4, seed=0, print_freq=0), device=dev)
+        (logits,) = onnx.apply(m, [m.create_tensor([4, 8], name="x")])
+        m.compile(SGDOptimizer(lr=0.05), "sparse_categorical_crossentropy", metrics=FIT_METRICS,
+                  logit_tensor=logits)
+        return m
+
+    card, cpu = _card_and_cpu(build, device)
+    rs = np.random.RandomState(0)
+    xs, ys = rs.randn(8, 8).astype(np.float32), rs.randint(0, 3, (8,)).astype(np.int32)
+    losses = []
+    for step in range(2):
+        rows = slice(4 * step, 4 * step + 4)
+        got, want = (m.fit(xs[rows], ys[rows], epochs=1, shuffle=False, verbose=False)
+                     for m in (card, cpu))
+        losses.append({"loss": got.sparse_cce_loss, "cpu_loss": want.sparse_cce_loss,
+                       "relative": _rel_close("frontends onnx", f"step {step} loss",
+                                              got.sparse_cce_loss, want.sparse_cce_loss)})
+    return {"ops": len(onnx.model.graph.node), "steps": losses}
+
+
+def _frontends_clis(device: str, work: str, keras: dict) -> dict:
+    """(e) cost_db verify and stats on search's store; ffreport --json on a
+    metrics dir the port wrote on this card (fit_health's, else a short fit
+    of the Keras MLP here)."""
+    from flexflow_tpu_torch.compiler.cost_store import device_kind_signature
+    from flexflow_tpu_torch.tools import cost_db, ffreport
+
+    store = SEARCH_RUN.get("store_dir")
+    if not store:
+        raise AssertionError("frontends reads search's cost store: add search to --phases")
+    rc, out, err = _call_tool(cost_db.main, ["verify", store])
+    if rc != 0:
+        raise AssertionError(f"frontends: cost_db verify exited {rc}: {err[-2000:]}")
+    rc, stats, err = _call_tool(cost_db.main, ["stats", store, "--json"])
+    stats = json.loads(stats)
+    kind = device_kind_signature(device)
+    if rc != 0 or kind not in stats["by_device_kind"]:
+        raise AssertionError(f"frontends: cost_db stats exited {rc}, device kinds "
+                             f"{stats['by_device_kind']}, expected {kind}")
+    if FIT_HEALTH_RUN and os.path.isdir(FIT_HEALTH_RUN["metrics_dir"]):
+        metrics, steps = FIT_HEALTH_RUN["metrics_dir"], FIT_HEALTH_RUN["steps"]
+        source = "fit_health"
+    else:
+        metrics = os.path.join(work, "metrics")
+        steps, source = _frontends_keras(device, keras, metrics_dir=metrics), "keras mlp"
+    rc, report, err = _call_tool(ffreport.main, ["--json", metrics])
+    sections = {s["section"]: s for s in map(json.loads, report.splitlines())}
+    if rc != 0 or sections["health"]["steps"] != steps:
+        raise AssertionError(f"frontends: ffreport exited {rc}, health {sections.get('health')}, "
+                             f"expected {steps} steps: {err[-2000:]}")
+    return {"cost_db": {"verify": out.strip(), "entries": stats["entries"],
+                        "by_device_kind": stats["by_device_kind"]},
+            "ffreport": {"metrics_dir_of": source, "health": sections["health"],
+                         "sections": sorted(sections)}}
+
+
+def phase_frontends(smi: str, steps: int = FRONTENDS_STEPS, cfg=None, device: str = "cuda",
+                    keras: dict = FRONTENDS_KERAS):
+    """The model frontends on the card (needs search, whose cost store the
+    CLIs read; reads fit_health's metrics dir where it ran): (a) the
+    flagship as an .ffir file through PyTorchModel.from_file(...).apply_ir,
+    compiled as fit does (bf16, Adam(1e-4)), a warm-up fit and `steps` timed
+    steps: rows 1-3 12 times a step each and no other wrapper, and bitwise
+    the build_flagship_cg model fitted from the same parameters on the same
+    batches; (b) the fx route on modules on the card, forwards within 1e-4
+    of torch's, the getitem limit; (c) Keras and (d) ONNX, losses within
+    1e-4 of the CPU port's (f32); (e) the cost_db and ffreport tools on this
+    card's own store and metrics dir."""
+    from flexflow_tpu_torch.models import FLAGSHIP
+
+    cfg = cfg or FLAGSHIP
+    work = tempfile.mkdtemp(prefix="frontends_")
+    try:
+        start = time.perf_counter()
+        ffir, launches = _frontends_ffir(cfg, steps, device, work)
+        parts = {"ffir_flagship": ffir, "fx": _frontends_fx(device),
+                 "keras": _frontends_keras(device, keras), "onnx": _frontends_onnx(device),
+                 "clis": _frontends_clis(device, work, keras)}
+        emit({"phase": "frontends", "card": smi, **parts,
+              "wall_s": time.perf_counter() - start})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def _phases(smi: str, kernels: list, launches: dict, ptxas: dict):
     """The phases in order, as groups: (a context manager factory or None,
     [(name, fn)]), where fn takes the context's value (a temporary
@@ -7919,6 +8303,11 @@ def _phases(smi: str, kernels: list, launches: dict, ptxas: dict):
             ("recompile", rec("recompile", lambda tmp: phase_recompile(smi, tmp),
                               sum(RECOMPILE_STEPS))),
             ("serve_contract", lambda _: phase_serve_contract(smi)),
+        ]),
+        # the model frontends (A14 part 1): the flagship imported from an
+        # .ffir file, fx, Keras, ONNX, and the CLIs on search's store
+        (None, [
+            ("frontends", rec("frontends", lambda: phase_frontends(smi), FRONTENDS_STEPS)),
         ]),
     ]
 

@@ -8,6 +8,7 @@ from flexflow_tpu_torch.models.flagship import (
     LONGCTX,
     REF_HEADS16,
     build_flagship_cg,
+    build_flagship_ir,
     build_flagship_pcg,
     model_step_flops,
 )
@@ -52,6 +53,7 @@ __all__ = [
     "SP_LONGCTX",
     "ParallelTransformerConfig",
     "build_flagship_cg",
+    "build_flagship_ir",
     "build_flagship_pcg",
     "build_parallel_transformer",
     "model_step_flops",

@@ -1,7 +1,8 @@
 """The flagship transformer: a copy of `build_flagship_cg`,
 `build_flagship_pcg` and `_model_step_flops` from the repository's bench.py
 (12 layers, hidden 1024,
-8 heads of 128, seq 512, vocab 32000, batch 64), and its other configs,
+8 heads of 128, seq 512, vocab 32000, batch 64), the same graph as the
+torch frontend's IR lines (`build_flagship_ir`), and its other configs,
 REF_HEADS16 and LONGCTX.
 
 The attention has no bias (the builder's default is bias=False); the FFN is
@@ -44,6 +45,39 @@ def build_flagship_cg(
         h = b.layer_norm(h, axes=[-1], name=f"ln2_{i}")
     logits = b.dense(h, vocab, use_bias=False, name="head")
     return b.graph, logits
+
+
+def build_flagship_ir(
+    batch=64, seq=512, embed=1024, heads=8, layers=12, vocab=32000
+):
+    """The flagship as the torch frontend's IR lines (an .ffir file's, which
+    either package reads): one line per op of build_flagship_cg, in its
+    order and under its layer names; the residual adds and the GELU, which
+    build_flagship_cg leaves unnamed, are add{i}_0, add{i}_1 and gelu{i}.
+    `PyTorchModel(ir_lines=...).apply_ir(ffmodel, [x])` builds the same
+    graph up to those names. The lines carry no shapes: batch and seq are
+    the input tensor's, given at apply time."""
+    from flexflow_tpu_torch.frontends.torch_model import IRLine
+
+    ln = {"axes": [-1], "elementwise_affine": True, "eps": 1e-5}
+    lines = [IRLine("x", "input", [], {})]
+    h = "x"
+    for i in range(layers):
+        lines += [
+            IRLine(f"attn{i}", "multihead_attention", [h, h, h],
+                   {"embed_dim": embed, "num_heads": heads}),
+            IRLine(f"add{i}_0", "add", [h, f"attn{i}"], {}),
+            IRLine(f"ln1_{i}", "layer_norm", [f"add{i}_0"], dict(ln)),
+            IRLine(f"ff1_{i}", "linear", [f"ln1_{i}"], {"out_dim": 4 * embed, "use_bias": False}),
+            IRLine(f"gelu{i}", "gelu", [f"ff1_{i}"], {}),
+            IRLine(f"ff2_{i}", "linear", [f"gelu{i}"], {"out_dim": embed, "use_bias": False}),
+            IRLine(f"add{i}_1", "add", [f"ln1_{i}", f"ff2_{i}"], {}),
+            IRLine(f"ln2_{i}", "layer_norm", [f"add{i}_1"], dict(ln)),
+        ]
+        h = f"ln2_{i}"
+    lines.append(IRLine("head", "linear", [h], {"out_dim": vocab, "use_bias": False}))
+    lines.append(IRLine("output", "output", ["head"], {}))
+    return lines
 
 
 def build_flagship_pcg(

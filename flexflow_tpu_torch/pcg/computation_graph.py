@@ -6,7 +6,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
-from flexflow_tpu_torch.op_attrs.core import OpAttrs
+from flexflow_tpu_torch.op_attrs.core import OpAttrs, op_type_of
 from flexflow_tpu_torch.op_attrs.tensor_shape import TensorShape
 from flexflow_tpu_torch.utils.graph import DataflowGraph, DataflowOutput, Node
 
@@ -42,3 +42,16 @@ class ComputationGraph(DataflowGraph):
 
     def tensor_shape(self, v: DataflowOutput) -> TensorShape:
         return self.value_label(v).shape
+
+    def as_dot(self) -> str:
+        """Graphviz dot export (reference: as_dot in pcg)."""
+        lines = ["digraph computation_graph {"]
+        for n in sorted(self.nodes):
+            label = self.node_label(n)
+            op = op_type_of(label.attrs).value
+            name = f"\\n{label.name}" if label.name else ""
+            lines.append(f'  {n.idx} [label="{op}{name}"];')
+        for e in self.edges():
+            lines.append(f"  {e.src.node.idx} -> {e.dst.node.idx};")
+        lines.append("}")
+        return "\n".join(lines)

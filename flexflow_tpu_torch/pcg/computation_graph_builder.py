@@ -7,9 +7,10 @@ element-wise unary, scalar and binary ops (a binary op on operands of
 different shapes gets the Broadcast ops the JAX builder inserts), cast,
 the shape ops, top_k, and the mixture-of-experts ops: group_by, aggregate,
 experts and moe (which records its load-balance output in
-`aux_loss_tensors`). Each op creates its weight nodes first and then the op
-node, in the JAX builder's order, so that parameter keys `n{idx}` name the
-same weights in both packages.
+`aux_loss_tensors`); `weight_log` and `reuse_weights` give the Keras
+frontend its shared layers. Each op creates its weight nodes first and then
+the op node, in the JAX builder's order, so that parameter keys `n{idx}`
+name the same weights in both packages.
 """
 
 from __future__ import annotations
@@ -70,6 +71,33 @@ class ComputationGraphBuilder:
         self.graph = ComputationGraph()
         # outputs whose sums join the training loss (moe's load balance)
         self.aux_loss_tensors: List[Tensor] = []
+        # every weight tensor created, in creation order: a frontend slices
+        # it to find the weights one layer's build made, which
+        # reuse_weights binds again at the layer's next call site
+        self.weight_log: List[Tensor] = []
+        self._reuse_queue: Optional[List[Tensor]] = None
+
+    def reuse_weights(self, weights: Sequence[Tensor]):
+        """Context manager: the ops built inside bind the given weight
+        tensors, in order, instead of creating new ones (the Keras shared-
+        layer contract: a layer applied at several call sites owns one set
+        of parameters, and the gradients of its uses add up through the
+        weight node's fan-out)."""
+        import contextlib
+
+        @contextlib.contextmanager
+        def scope():
+            assert self._reuse_queue is None, "reuse_weights scopes nest"
+            self._reuse_queue = list(weights)
+            try:
+                yield
+                assert not self._reuse_queue, (
+                    f"{len(self._reuse_queue)} shared weight(s) left unbound"
+                )
+            finally:
+                self._reuse_queue = None
+
+        return scope()
 
     def add_layer(
         self,
@@ -78,12 +106,24 @@ class ComputationGraphBuilder:
         weight_initializers: Sequence[Optional[InitializerAttrs]] = (),
         name: Optional[str] = None,
     ) -> List[Tensor]:
-        """Create weight nodes for the op (if any), then the op node."""
+        """Create weight nodes for the op (if any), then the op node. Inside
+        a reuse_weights scope the weight tensors come from the scope."""
         input_shapes = [self.graph.tensor_shape(t) for t in inputs]
         weight_shapes = get_weight_shapes(attrs, input_shapes)
         op_defaults = get_default_weight_initializers(attrs, len(weight_shapes))
         weight_tensors: List[Tensor] = []
         for i, ws in enumerate(weight_shapes):
+            if self._reuse_queue is not None:
+                assert self._reuse_queue, "shared-weight queue exhausted"
+                w = self._reuse_queue.pop(0)
+                have = self.graph.tensor_shape(w)
+                assert have.dims == ws.dims, (
+                    f"shared weight {i} has shape {have.dims}, op needs "
+                    f"{ws.dims}: a layer can only be reused on inputs of "
+                    "the same shape"
+                )
+                weight_tensors.append(w)
+                continue
             init = (
                 weight_initializers[i]
                 if i < len(weight_initializers) and weight_initializers[i] is not None
@@ -97,6 +137,7 @@ class ComputationGraphBuilder:
                 [TensorAttrs(ws, create_grad=True, initializer=init)],
             )
             weight_tensors.append(w)
+            self.weight_log.append(w)
         out_shapes = get_output_shapes(attrs, input_shapes)
         _, outs = self.graph.add_node(
             LayerAttrs(attrs, name),
