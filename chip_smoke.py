@@ -273,7 +273,8 @@ flash and ring launch count must stay at 0):
 then a searched plan served across ranks, and the plan ops the executor
 lowers on whole values:
 
-32. plan_serve    the serving search (serving/plan.py) plans serve's LM at
+32. plan_serve    the serving search (serving/plan.py) plans serve's LM,
+                  cut to 10 of its 12 layers (PLAN_SERVE_LM), at
                   its 64 slots of 1024 for a node of 8 H100s (prompts at
                   serve's median prefill width, generations at the
                   traffic's mean budget), analytically at the H100
@@ -283,8 +284,8 @@ lowers on whole values:
                   estimates, the serial ones, leaves and seconds; the
                   budgeted winners pass verify_memory at that budget with
                   a smaller per-device cache than the serial plan's; the
-                  1-device estimates over serve's measured decode step and
-                  prefill (printed, no bound);
+                  1-device estimates (10 layers) over serve's measured
+                  decode step and prefill (12 layers; printed, no bound);
 33. serve_ranks   serve's widths at 2 layers on 2 and 4 gloo ranks sharing
                   the card (f32, TF32 off) under a 4-device budgeted search
                   winner, tp2 and dp2 x tp2: on every rank greedy tokens
@@ -505,16 +506,34 @@ RING_TPU_KERNELS = "flexflow_tpu/kernels/ring_flash.py"
 # registers), the forward's of csrc/flash_fwd_sm90.cuh or the backward
 # pair's of csrc/flash_bwd_sm90.cuh
 DELTA_DESIGN = "16-byte loads, rows in flight, coalesced stores"
-# rows 1-3 at head dim 256 (BERT's heads): the forward mainloop of
-# csrc/flash_fwd_sm90.cuh at 64-key tiles, the head-split dK/dV and dQ
-# mainloops of csrc/flash_bwd_sm90.cuh, and delta_body for the delta
-D256_KERNELS = {
-    "flash_fwd_d256": ("ff_flash_fwd_d256_kernel",),
-    "flash_delta_d256": ("ff_flash_delta_d256_kernel",),
-    "flash_bwd_d256": ("ff_flash_bwd_dkv_d256_kernel", "ff_flash_bwd_dq_d256_kernel"),
-}
+# rows 1-3 at head dim 256 (BERT's heads), which flash_fwd, flash_delta and
+# flash_bwd launch at d=256: the forward mainloop of csrc/flash_fwd_sm90.cuh
+# at 64-key tiles, the head-split dK/dV and dQ mainloops of
+# csrc/flash_bwd_sm90.cuh, and delta_body for the delta
+D256_KERNELS = ("ff_flash_fwd_d256_kernel", "ff_flash_delta_d256_kernel",
+                "ff_flash_bwd_dkv_d256_kernel", "ff_flash_bwd_dq_d256_kernel")
 D256_DESIGN = ("wgmma+tma: forward at 64-key tiles; backward pair of 64-row blocks, the head "
                "dim split between warpgroups, score tiles shared through shared memory")
+# the kernels of the padded widths past the flagship's (every head dim
+# d % 8 == 0 up to 256 runs at the width 64, 128, 192 or 256 it rounds up
+# to): the seq-major p64, p192 and d256, the per-head p192 and d256, and the
+# ring's p192 and d256, by the wrapper that launches each
+WIDTH_KERNELS = {
+    "flash_fwd": ("ff_flash_fwd_p64_kernel", "ff_flash_fwd_p192_kernel",
+                  "ff_flash_fwd_d256_kernel"),
+    "flash_delta": ("ff_flash_delta_p64_kernel", "ff_flash_delta_p192_kernel",
+                    "ff_flash_delta_d256_kernel"),
+    "flash_bwd": ("ff_flash_bwd_dkv_p64_kernel", "ff_flash_bwd_dq_p64_kernel",
+                  "ff_flash_bwd_dkv_p192_kernel", "ff_flash_bwd_dq_p192_kernel",
+                  "ff_flash_bwd_dkv_d256_kernel", "ff_flash_bwd_dq_d256_kernel"),
+    "flash_fwd_bhsd": ("ff_flash_fwd_bhsd_p192_kernel", "ff_flash_fwd_bhsd_d256_kernel"),
+    "flash_delta_bhsd": ("ff_flash_delta_bhsd_p192_kernel", "ff_flash_delta_bhsd_d256_kernel"),
+    "flash_bwd_bhsd": ("ff_flash_bwd_dkv_bhsd_p192_kernel", "ff_flash_bwd_dq_bhsd_p192_kernel",
+                       "ff_flash_bwd_dkv_bhsd_d256_kernel", "ff_flash_bwd_dq_bhsd_d256_kernel"),
+    "ring_fwd_step": ("ff_ring_fwd_step_p192_kernel", "ff_ring_fwd_step_d256_kernel"),
+    "ring_dq_step": ("ff_ring_dq_step_p192_kernel", "ff_ring_dq_step_d256_kernel"),
+    "ring_dkv_step": ("ff_ring_dkv_step_p192_kernel", "ff_ring_dkv_step_d256_kernel"),
+}
 DELTA_WRAPPERS = ("flash_delta", "flash_delta_d64", "flash_delta_bhsd")
 REDESIGNED = {
     "flash_delta": ("ff_flash_delta_kernel",),
@@ -579,10 +598,11 @@ def phase_build() -> dict:
         ptxas.update(build.parse_ptxas(info.ptxas_log))
     warnings = [line.strip() for info in infos.values() for line in info.ptxas_log.splitlines()
                 if "warning" in line.lower()]
-    for names in (*REDESIGNED.values(), *D256_KERNELS.values()):
-        for name in names:
-            if ptxas[name].get("spill_store_bytes", 0) or ptxas[name].get("spill_load_bytes", 0):
-                raise AssertionError(f"{name} spills: {ptxas[name]}")
+    # every kernel of both libraries, those of every padded width included
+    for name in (*(n for names in REDESIGNED.values() for n in names),
+                 *(n for names in WIDTH_KERNELS.values() for n in names)):
+        if ptxas[name].get("spill_store_bytes", 0) or ptxas[name].get("spill_load_bytes", 0):
+            raise AssertionError(f"{name} spills: {ptxas[name]}")
     lib = fa.library()
     # ff_flash_smem_bytes gives the forward's, dK/dV's and dQ's at d=128
     # (0-2) and d=64 (3-5); the ring kernels run the same mainloops
@@ -592,13 +612,16 @@ def phase_build() -> dict:
         for suffix, which in (("", i), ("_d64", i + 3)):
             smem[f"ff_flash_{flash}{suffix}_kernel"] = smem[f"ff_ring_{ring}{suffix}_kernel"] = \
                 lib.ff_flash_smem_bytes(which)
-    # 6-8: the d=256 forward, dK/dV and dQ kernels
+    # 6-8: the d=256 forward, dK/dV and dQ kernels; 9-11 those of width 192
     for which, name in enumerate(("fwd", "bwd_dkv", "bwd_dq"), start=6):
         smem[f"ff_flash_{name}_d256_kernel"] = lib.ff_flash_smem_bytes(which)
+        smem[f"ff_flash_{name}_p192_kernel"] = lib.ff_flash_smem_bytes(which + 3)
+    if max(smem.values()) > 232448:
+        raise AssertionError(f"a kernel asks for more shared memory than a block has: {smem}")
     # rows 1 and 3 at d=256 (the forward mainloop and the head-split backward
     # pair): ptxas's registers and spills beside each kernel's shared memory
     d256 = {name: dict(ptxas[name], dynamic_smem_bytes=smem[name])
-            for wrapper in ("flash_fwd_d256", "flash_bwd_d256") for name in D256_KERNELS[wrapper]}
+            for name in D256_KERNELS if "delta" not in name}
     emit({
         "phase": "build", "seconds": seconds,
         "sources": {
@@ -607,6 +630,8 @@ def phase_build() -> dict:
         },
         "dynamic_smem_bytes": smem,
         "d256_kernels": {"design": D256_DESIGN, **d256},
+        "padded_width_kernels": {wrapper: {name: ptxas[name] for name in names}
+                                 for wrapper, names in WIDTH_KERNELS.items()},
         "ptxas_warnings": warnings,
     })
     return ptxas
@@ -645,16 +670,18 @@ def _check(name: str, errs: dict, key: str, bound: float) -> dict:
 
 class Flash:
     """One kernel family at one layout: `x` is the tuple of operands, three
-    [b, s, h*d] tensors (d=128 or 256, or d=64 separate) or one interleaved
-    [b, s, 3*h*64] projection (d=64, qkv); `grads` turns what bwd returns
-    into (dq, dk, dv) either way."""
+    [b, s, h*d] tensors (any head dim; at d=64 with an even head count the
+    pair's lane groups) or one interleaved [b, s, 3*h*64] projection (d=64,
+    qkv); `grads` turns what bwd returns into (dq, dk, dv) either way."""
 
     def __init__(self, h: int, d: int, interleaved: bool = False):
         from flexflow_tpu_torch.kernels import flash_attention as fa
 
         self.fa, self.h, self.d, self.interleaved = fa, h, d, interleaved
-        # the contiguous [b, s, h*d] wrappers (forward, delta, backward), or None at d=64
-        self.dense = fa._BSHF_KERNELS.get(d)
+        # the contiguous [b, s, h*d] wrappers (forward, delta, backward), or
+        # None for the d=64 head pair's lane groups
+        self.dense = None if fa._pairs_heads(d, h) else (fa.flash_fwd, fa.flash_delta,
+                                                         fa.flash_bwd)
 
     def operands(self, b, s, gen):
         import torch
@@ -829,21 +856,38 @@ def _library_bwd_ms(q, k, v, do, causal: bool, iters: int) -> dict:
     import torch
 
     aten = torch.ops.aten
-    out, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = \
-        aten._scaled_dot_product_flash_attention(q, k, v, 0.0, causal)
-    flash_ms = time_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
-        do, q, k, v, out, lse, cum_q, cum_k, max_q, max_k, 0.0, causal, seed, offset), iters)
-    out, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = \
-        aten._scaled_dot_product_cudnn_attention(q, k, v, None, True, 0.0, causal, False)
-    cudnn_ms = time_ms(lambda: aten._scaled_dot_product_cudnn_attention_backward(
-        do, q, k, v, out, lse, seed, offset, None, cum_q, cum_k, max_q, max_k, 0.0, causal), iters)
-    return {ATEN_BWD: flash_ms, CUDNN_BWD: cudnn_ms}
+
+    def flash():
+        out, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = \
+            aten._scaled_dot_product_flash_attention(q, k, v, 0.0, causal)
+        return time_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
+            do, q, k, v, out, lse, cum_q, cum_k, max_q, max_k, 0.0, causal, seed, offset), iters)
+
+    def cudnn():
+        out, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = \
+            aten._scaled_dot_product_cudnn_attention(q, k, v, None, True, 0.0, causal, False)
+        return time_ms(lambda: aten._scaled_dot_product_cudnn_attention_backward(
+            do, q, k, v, out, lse, seed, offset, None, cum_q, cum_k, max_q, max_k, 0.0, causal),
+            iters)
+
+    # a backend that does not take this head dim is left out (None)
+    times = {}
+    for call, fn in ((ATEN_BWD, flash), (CUDNN_BWD, cudnn)):
+        try:
+            times[call] = fn()
+        except RuntimeError:
+            times[call] = None
+    return times
 
 
 def _fastest(times: dict):
-    """(ms, call) of the fastest of {call: ms}."""
-    call = min(times, key=times.get)
-    return times[call], call
+    """(ms, call) of the fastest of {call: ms}, leaving out calls that did
+    not run (None); (None, None) if none ran."""
+    ran = {c: t for c, t in times.items() if t is not None}
+    if not ran:
+        return None, None
+    call = min(ran, key=ran.get)
+    return ran[call], call
 
 
 def _bound_ms(nbytes: float, ops: float, peak_ops: float):
@@ -1018,17 +1062,19 @@ def phase_kernels():
     ms, bounds, checks = _measure(Flash(12, 256), 64, 512, seed=7, iters=10)
     msc, boundsc, checksc = _measure(Flash(12, 256), 64, 512, seed=17, iters=10, causal=True)
     bert_causal = dict(b=64, h=12, s=512, d=256, causal=True, bound="unmasked pairs only")
+    d256 = dict(head_dim=256, padded_width=256, shape=BERT_ATTENTION)
     kernels += [
-        _entry("flash_fwd_d256", 674, ms, bounds, checks, "fwd", ms["sdpa_fwd"], sdpa_f,
-               shape=BERT_ATTENTION,
+        _entry("flash_fwd@d256", 674, ms, bounds, checks, "fwd", ms["sdpa_fwd"], sdpa_f,
+               wrapper="flash_fwd", **d256,
                causal=_side(msc, boundsc, checksc, "fwd", msc["sdpa_fwd"], bert_causal)),
-        _entry("flash_delta_d256", 1203, ms, bounds, checks, "delta", ms["einsum_delta"], einsum,
-               shape=BERT_ATTENTION),
-        _bwd_entry("flash_bwd_d256", 976, ms, bounds, checks, shape=BERT_ATTENTION,
+        _entry("flash_delta@d256", 1203, ms, bounds, checks, "delta", ms["einsum_delta"], einsum,
+               wrapper="flash_delta", **d256),
+        _bwd_entry("flash_bwd@d256", 976, ms, bounds, checks, wrapper="flash_bwd", **d256,
                    causal=_bwd_side(msc, boundsc, checksc, bert_causal)),
     ]
     kernels += _per_head_kernels(causal)
     kernels += _ring_kernels()
+    kernels += _head_dim_kernels()
     emit({"phase": "kernels",
           "shapes": {"d128": {"b": 64, "h": 8, "s": 512}, "d128_seq2048": s2k,
                      "d64": {"b": 64, "h": 16, "s": 512}, "d256": BERT_ATTENTION,
@@ -1396,20 +1442,166 @@ def _ring_kernels():
     return entries
 
 
+# The head dims the padded widths added (every d % 8 == 0 up to 256 rides the
+# kernels of width 64, 128, 192 or 256 that it rounds up to), each held
+# against its plain version on the card beside the widths' own 64, 128, 256.
+NEW_HEAD_DIMS = (8, 32, 40, 96, 160, 192)
+HEAD_DIM_TIMED = {  # the seq-major shapes timed at the new head dims: d -> (b, h, s)
+    32: (64, 32, 512),  # the flagship at bench.py --heads 32 (train_heads32)
+    96: (64, 8, 512),
+    192: (64, 4, 512),
+}
+BERT_BHSD = dict(b=64, h=12, s=512, d=256)  # fit_bert_dp's per-head attention
+RING_D96 = dict(b=4, h=8, s=8192, d=96)  # a ring step at train_sp's shape, heads of 96
+
+
+def _head_dim_kernels() -> list:
+    """Rows 1-3 (seq-major), 9-12 (per-head) and 13-15 (the ring steps) at
+    the head dims the padded widths added. Each against its plain version,
+    full and causal, repeating bitwise, at b=2, h=2, s=256 for d in
+    NEW_HEAD_DIMS, and per-head (on the einsum's view) and ring steps at
+    d=256; a carried, partly masked ring step with s_blk = 320 != t_blk =
+    192 at d = 32, 96, 192 and 256; the s = 192 and 320 tiling edges at
+    d = 32 and 96; the delta's tails (a last head tile of fewer heads, rows
+    past a pass) at d = 40, 96 and 160, whose rows take 5, 12 and 20 of
+    their 8, 16 and 32 lanes. Then timed beside their bounds and library
+    calls: the seq-major kernels at HEAD_DIM_TIMED's shapes, the per-head
+    ones at BERT_BHSD on the einsum's view (fit_bert_dp's layout), and the
+    ring steps at RING_D96 causal (on the einsum's view, empty carry). The
+    per-head ones also at s = 2048 (16×12×2048×256), past the JAX
+    package's 1024-row block, where it runs its _fwd loop and tiled _bwd
+    (rows 9 and 12)."""
+    import torch
+    import torch.nn.functional as F
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    checks = {}
+    for i, d in enumerate(NEW_HEAD_DIMS):
+        for c in (False, True):
+            tag, seed = f"d{d}_{'causal' if c else 'full'}", 100 + 10 * i + 2 * c
+            checks[tag] = _compare(Flash(2, d), 2, 256, causal=c, seed=seed)[1]
+            checks[f"bhsd_{tag}"] = _compare(FlashBHSD(2, d), 2, 256, causal=c, seed=seed + 1)[1]
+            checks[f"ring_{tag}"] = RingCase(2, 2, 256, 256, d, 0, 0, c,
+                                             seed=seed + 5).check(measure=False)
+    for c in (False, True):
+        tag = f"d256_{'causal' if c else 'full'}"
+        checks[f"bhsd_{tag}_strided"] = _compare(FlashBHSD(2, 256, strided=True), 2, 256,
+                                                 causal=c, seed=170 + c)[1]
+        checks[f"ring_{tag}"] = RingCase(2, 2, 256, 256, 256, 0, 0, c,
+                                         seed=172 + c).check(measure=False)
+    for d in (32, 96, 192, 256):
+        carry = RingCase(2, 4, 320, 192, d, 192, 0, True, seed=180 + d).fwd()
+        checks[f"ring_uneven_d{d}"] = RingCase(2, 4, 320, 192, d, 192, 64, True, seed=181 + d,
+                                               carry=carry).check(measure=False)
+    edges = {f"s{s}_{name}_{'causal' if c else 'full'}":
+             _compare(flash, 2, s, causal=c, seed=200 + s + d + c)[1]
+             for s in (192, 320) for d in (32, 96)
+             for name, flash in ((f"d{d}", Flash(2, d)),
+                                 (f"bhsd_d{d}_h3_strided", FlashBHSD(3, d, strided=True)))
+             for c in (False, True)}
+    tails = {}
+    for i, (name, flash, s) in enumerate((("d40_h18_s192", Flash(18, 40), 192),
+                                          ("d96_h3_s320", Flash(3, 96), 320),
+                                          ("bhsd_d160_h19_s320_strided",
+                                           FlashBHSD(19, 160, strided=True), 320),
+                                          ("bhsd_d96_h20_s192", FlashBHSD(20, 96), 192))):
+        gen = torch.Generator(device="cuda").manual_seed(230 + i)
+        do, o = flash.grad_out(1, s, gen), flash.grad_out(1, s, gen)
+        delta = flash.delta(do, o)
+        tails[name] = _check(name, _errors(delta, flash.delta_plain(do, o)), "rel_err",
+                             DELTA_BOUND)
+        if not torch.equal(flash.delta(do, o), delta):
+            raise AssertionError(f"{name}: delta does not repeat bitwise")
+
+    sdpa_f = "F.scaled_dot_product_attention forward"
+    entries = []
+    for d, (b, h, s) in HEAD_DIM_TIMED.items():
+        ms, bounds, ck = _measure(Flash(h, d), b, s, seed=190 + d, iters=10)
+        extra = dict(head_dim=d, padded_width=fa.padded_dim(d), shape=dict(b=b, h=h, s=s, d=d))
+        entries += [
+            _entry(f"flash_fwd@d{d}", 674, ms, bounds, ck, "fwd", ms["sdpa_fwd"], sdpa_f,
+                   wrapper="flash_fwd", **extra),
+            _entry(f"flash_delta@d{d}", 1203, ms, bounds, ck, "delta", ms["einsum_delta"],
+                   Flash.EINSUM_DELTA, wrapper="flash_delta", **extra),
+            _bwd_entry(f"flash_bwd@d{d}", 976, ms, bounds, ck, wrapper="flash_bwd", **extra),
+        ]
+    bb, view = BERT_BHSD, "einsum view of [b, s, h, d]"
+    ms, bounds, ck = _measure(FlashBHSD(bb["h"], bb["d"], strided=True), bb["b"], bb["s"],
+                              seed=195, iters=10)
+    # and past the JAX package's 1024-row block (its _fwd loop and tiled _bwd,
+    # rows 9 and 12): the same kernels at s = 2048
+    ms2, bounds2, ck2 = _measure(FlashBHSD(bb["h"], bb["d"], strided=True), 16, 2048,
+                                 seed=197, iters=5)
+    s2k = dict(b=16, h=bb["h"], s=2048, d=256, layout=view)
+    extra = dict(head_dim=256, padded_width=256, shape=dict(bb, layout=view))
+    entries += [
+        _entry("flash_fwd_bhsd@d256", 258, ms, bounds, ck, "fwd", ms["sdpa_fwd"], sdpa_f,
+               wrapper="flash_fwd_bhsd", **extra,
+               seq2048=_side(ms2, bounds2, ck2, "fwd", ms2["sdpa_fwd"], s2k,
+                             replaces=f"{TPU_KERNELS}:164")),
+        _entry("flash_delta_bhsd@d256", 433, ms, bounds, ck, "delta", ms["einsum_delta"],
+               FlashBHSD.EINSUM_DELTA, wrapper="flash_delta_bhsd", **extra,
+               seq2048=_side(ms2, bounds2, ck2, "delta", ms2["einsum_delta"], s2k)),
+        _bwd_entry("flash_bwd_bhsd@d256", 454, ms, bounds, ck, wrapper="flash_bwd_bhsd", **extra,
+                   seq2048=_bwd_side(ms2, bounds2, ck2, s2k,
+                                     replaces=[f"{TPU_KERNELS}:492", f"{TPU_KERNELS}:324",
+                                               f"{TPU_KERNELS}:375"])),
+    ]
+    r = RING_D96
+    main = RingCase(r["b"], r["h"], r["s"], r["s"], r["d"], 0, 0, True, seed=196, strided=True)
+    main.check(measure=True, iters=5)
+    sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(main.q, main.k, main.v,
+                                                             is_causal=True), 5)
+    library_bwd = _library_bwd_ms(main.q, main.k, main.v, main.do, True, 5)
+    bwd_ms, bwd_call = _fastest(library_bwd)
+    library = {"fwd": (sdpa_ms, "F.scaled_dot_product_attention(is_causal=True), with the "
+                                "finalisation acc / l"),
+               "dq": (bwd_ms, f"{bwd_call}(is_causal=True): dq, dk and dv in one call, "
+                              "against the dq + dk/dv pair")}
+    library["dkv"] = library["dq"]
+    for kind, line, name in (("fwd", 58, "ring_fwd_step"), ("dq", 121, "ring_dq_step"),
+                             ("dkv", 177, "ring_dkv_step")):
+        lib_ms, lib_call = library[kind]
+        extra = {} if kind == "fwd" else {"pair_ms": main.ms["dq"] + main.ms["dkv"],
+                                          "aten_flash_bwd_ms": library_bwd[ATEN_BWD],
+                                          "cudnn_bwd_ms": library_bwd[CUDNN_BWD]}
+        entries.append(dict(
+            name=f"{name}@d96", wrapper=name, route="cuda", source=RING_SOURCE,
+            replaces=f"{RING_TPU_KERNELS}:{line}", head_dim=96, padded_width=128,
+            shape=main.shape, **main.numbers(kind, lib_ms), library_call=lib_call, **extra))
+    emit({"phase": "kernels_head_dims", "head_dims": list(NEW_HEAD_DIMS),
+          "checks": {"shape": {"b": 2, "h": 2, "s": 256}, **checks},
+          "tiling_edges": edges, "delta_tails": {"shape": {"b": 1}, **tails},
+          "repeat_bitwise": True})
+    return entries
+
+
 def phase_ring_replay():
     """The ring schedule of 4 ranks on one card (16 forward steps,
     finalisation, delta, then 16 dq and 16 dk/dv steps, each at its global
     offsets) against the full-sequence per-head kernels on the same inputs:
-    b=4, h=8, s=8192, d=128 causal, and b=1 non-causal."""
+    b=4, h=8, s=8192, d=128 causal, b=1 non-causal, and b=4 causal at
+    d=96 (rows 13-15 at width 128 with the columns past 96 padding).
+    Returns the d=96 replay's launches: one replay with the counts set to
+    0 just before it."""
     import torch
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels import ring_flash as rf
 
-    for b, causal in ((4, True), (1, False)):
-        gen = torch.Generator(device="cuda").manual_seed(30 + b)
-        q, k, v, do = (torch.randn(b, 8, 8192, 128, generator=gen, device="cuda")
+    d96 = {}
+    for b, causal, d in ((4, True, 128), (1, False, 128), (4, True, 96)):
+        gen = torch.Generator(device="cuda").manual_seed(30 + b + d)
+        q, k, v, do = (torch.randn(b, 8, 8192, d, generator=gen, device="cuda")
                        .to(torch.bfloat16) for _ in range(4))
+        fa.reset_launch_counts()
         got = rf.replay_ring(q, k, v, do, 4, causal)
+        if d == 96:
+            d96 = {f"{fn.__name__}@d96": fn.launches for fn in fa.KERNEL_WRAPPERS
+                   if fn.launches}
+            want = {"ring_fwd_step@d96": 16, "ring_dq_step@d96": 16, "ring_dkv_step@d96": 16,
+                    "flash_delta_bhsd@d96": 4}
+            if d96 != want:
+                raise AssertionError(f"ring_replay d=96: launches {d96}, expected {want}")
         o, lse = fa.flash_fwd_bhsd(q, k, v, causal)
         delta = fa.flash_delta_bhsd(do, o)
         want = (o, *fa.flash_bwd_bhsd(q, k, v, do, lse, delta, causal))
@@ -1421,10 +1613,11 @@ def phase_ring_replay():
             o, lse = fa.flash_fwd_bhsd(q, k, v, causal)
             fa.flash_bwd_bhsd(q, k, v, do, lse, fa.flash_delta_bhsd(do, o), causal)
 
-        emit({"phase": "ring_replay", "shape": dict(b=b, h=8, s=8192, d=128, causal=causal),
+        emit({"phase": "ring_replay", "shape": dict(b=b, h=8, s=8192, d=d, causal=causal),
               "ranks": 4, "shard": 2048, "checks": checks,
               "replay_ms": time_ms(lambda: rf.replay_ring(q, k, v, do, 4, causal), 3, 1),
               "full_sequence_kernels_ms": time_ms(full, 3, 1)})
+    return {k: v for k, v in d96.items() if k.startswith("ring_")}
 
 
 def _sp_model(heads: int, **kw):
@@ -1491,15 +1684,15 @@ def _train(inst, params, opt_state, x, y, steps, input_name="x"):
 
 def phase_parity():
     """Small flagships on the card (bf16, kernels) and on the CPU (f32,
-    plain versions) from the same parameters and batch: heads of 128, and
-    heads of 64 (the 16-head config's attention)."""
+    plain versions) from the same parameters and batch: heads of 128, of 64
+    (the 16-head config's attention) and of 32 (bench.py --heads 32's)."""
     import torch
     from flexflow_tpu_torch.local_execution import ModelTrainingInstance
     from flexflow_tpu_torch.models import build_flagship_cg
     from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
     from flexflow_tpu_torch.pcg import AdamOptimizerAttrs
 
-    for name, heads in (("d128", 2), ("d64", 4)):
+    for name, heads in (("d128", 2), ("d64", 4), ("d32", 8)):
         cfg = dict(batch=2, seq=128, embed=256, heads=heads, layers=2, vocab=512)
         graph, logits = build_flagship_cg(**cfg)
         gen = torch.Generator().manual_seed(1)
@@ -1619,14 +1812,30 @@ def phase_train_sp(smi: str, steps: int = STEPS):
                         flops_note="causal attention counted as half of the s^2 term")
 
 
+def _dense_attentions() -> int:
+    """Runs of the port's plain attention since the last reset: the
+    materialized softmax (kernels/ops.py _dense_context) and the dense ring
+    (kernels/ring_attention.py ring_attention_block)."""
+    from flexflow_tpu_torch.kernels import ops, ring_attention
+
+    return ops._dense_context.calls + ring_attention.ring_attention_block.calls
+
+
+def _reset_dense_attentions() -> None:
+    from flexflow_tpu_torch.kernels import ops, ring_attention
+
+    ops._dense_context.calls = ring_attention.ring_attention_block.calls = 0
+
+
 def _train_phase(smi, phase, inst, config, x_shape, vocab, layers, flops, on_path, steps,
                  distributed, **extra):
     """One warm-up step, then `steps` timed ones with every launch count
     set to 0 just before and read just after; the wrappers named in
     `on_path` must each launch once per layer per step, every other one
-    never, and a distributed trainer must issue the all-reduces of its plan
-    (the data-parallel one: one a gradient bucket of its plan, which the
-    parameters' sizes and the bucket cap give, and one of the loss)."""
+    never, no attention may run dense, and a distributed trainer must issue
+    the all-reduces of its plan (the data-parallel one: one a gradient
+    bucket of its plan, which the parameters' sizes and the bucket cap
+    give, and one of the loss)."""
     import torch
     from flexflow_tpu_torch.kernels import flash_attention as fa
 
@@ -1641,12 +1850,15 @@ def _train_phase(smi, phase, inst, config, x_shape, vocab, layers, flops, on_pat
     params, opt_state, warm_losses, warm_ms = _train(inst, params, opt_state, x, y, 1)
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
+    _reset_dense_attentions()
     all_reduces = inst.all_reduces if distributed else 0
     params, opt_state, losses, step_ms = _train(inst, params, opt_state, x, y, steps)
     launches = {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS}
     want = {name: layers * steps if name in on_path else 0 for name in launches}
     if launches != want:
         raise AssertionError(f"{phase}: launches {launches}, expected {want}")
+    if _dense_attentions():
+        raise AssertionError(f"{phase}: {_dense_attentions()} attentions ran dense")
     if distributed:
         # what the plan implies: the data-parallel trainer's gradient
         # buckets and the loss's bucket; the PCG trainer's collectives (none
@@ -1673,14 +1885,14 @@ def _train_phase(smi, phase, inst, config, x_shape, vocab, layers, flops, on_pat
         "tokens_per_s": x_shape[0] * x_shape[1] / (median_ms / 1e3),
         "step_flops": flops, "mfu": flops / (median_ms / 1e3) / PEAK_BF16,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-        "launches": launches, "launches_per_step_each": layers, **extra,
+        "launches": launches, "launches_per_step_each": layers, "dense_attentions": 0, **extra,
     })
     del params, opt_state
     torch.cuda.empty_cache()
     return {name: n for name, n in launches.items() if name in on_path}
 
 
-FLASH_WRAPPERS = ("flash_fwd", "flash_delta", "flash_bwd")  # the d=128 bshf path's
+FLASH_WRAPPERS = ("flash_fwd", "flash_delta", "flash_bwd")  # the bshf path's (not d=64 or 256)
 MEDIAN_STEP_MS = {}  # train phase -> its median step ms, read by the search phase
 
 # The Unity search's planning problem: the flagship on one node of 8 H100s
@@ -3034,7 +3246,6 @@ def phase_serve(smi: str) -> None:
     torch.cuda.empty_cache()
 
 
-D256_WRAPPERS = tuple(D256_KERNELS)  # the d=256 path's wrappers: BERT's attention
 ZOO_CNN_BOUND = 1e-4  # relative, loss and parameters, f32 card (TF32 off) vs f32 CPU
 # relative, each attention piece's two-step update, bf16 card vs f32 CPU; every
 # control (a broken d=256 forward or backward, run on the CPU) must exceed it
@@ -3134,8 +3345,8 @@ def phase_parity_zoo():
     losses, updates = run("cpu", None)
     fa.reset_launch_counts()
     card_losses, card_updates = run("cuda", torch.bfloat16)
-    launches = {n: getattr(fa, n).launches for n in D256_WRAPPERS}
-    if launches != {n: 2 * cfg.num_encoder_layers for n in D256_WRAPPERS}:
+    launches = {n: getattr(fa, n).launches for n in FLASH_WRAPPERS}
+    if launches != {n: 2 * cfg.num_encoder_layers for n in FLASH_WRAPPERS}:
         raise AssertionError(f"parity_zoo bert: d=256 launches {launches}")
     rel = [abs(a - b) / abs(b) for a, b in zip(card_losses, losses)]
     update_rel = rel_errs(card_updates, updates)
@@ -3145,21 +3356,21 @@ def phase_parity_zoo():
 
     # controls, on the CPU in f32: a d=256 path that drops dS (dq = dk = 0)
     # and one whose forward scores at twice the scale must each fail the bound
-    fwd, delta, bwd = fa._BSHF_KERNELS[256]
+    fwd, bwd = fa.flash_fwd, fa.flash_bwd
 
     def bwd_without_ds(q, k, v, do, lse, dl, h, causal):
         dq, dk, dv = bwd(q, k, v, do, lse, dl, h, causal)
         return torch.zeros_like(dq), torch.zeros_like(dk), dv
 
     controls = {}
-    for name, broken in (("dS dropped", (fwd, delta, bwd_without_ds)),
+    for name, broken in (("dS dropped", (fwd, bwd_without_ds)),
                          ("scores at twice the scale",
-                          (lambda q, k, v, h, causal: fwd(2 * q, k, v, h, causal), delta, bwd))):
-        fa._BSHF_KERNELS[256] = broken
+                          (lambda q, k, v, h, causal: fwd(2 * q, k, v, h, causal), bwd))):
+        fa.flash_fwd, fa.flash_bwd = broken
         try:
             controls[name] = max(rel_errs(run("cpu", None)[1], updates).values())
         finally:
-            fa._BSHF_KERNELS[256] = (fwd, delta, bwd)
+            fa.flash_fwd, fa.flash_bwd = fwd, bwd
     if not min(controls.values()) > ZOO_BERT_UPDATE_BOUND:
         raise AssertionError(f"parity_zoo bert: a broken d=256 path passes the bound: "
                              f"{controls}")
@@ -3238,6 +3449,7 @@ def phase_fit_bert(smi: str, steps: int = STEPS):
     warm_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
+    _reset_dense_attentions()
     t0 = time.perf_counter()
     perf = m.fit(x[b:], y[b:], epochs=1, shuffle=False, verbose=False)
     elapsed = time.perf_counter() - t0
@@ -3245,9 +3457,10 @@ def phase_fit_bert(smi: str, steps: int = STEPS):
     peak = {"allocated": torch.cuda.max_memory_allocated(),
             "reserved": torch.cuda.max_memory_reserved()}
     layers = bcfg.num_encoder_layers
-    want = {n: layers * steps if n in D256_WRAPPERS else 0 for n in launches}
-    if launches != want:
-        raise AssertionError(f"fit_bert: launches {launches}, expected {want}")
+    want = {n: layers * steps if n in FLASH_WRAPPERS else 0 for n in launches}
+    if launches != want or _dense_attentions():
+        raise AssertionError(f"fit_bert: launches {launches}, expected {want}; "
+                             f"{_dense_attentions()} dense attentions")
     tokens = b * seq
     # the training loss (Dropout on) at the fitted parameters, read once
     with torch.no_grad():
@@ -3256,11 +3469,12 @@ def phase_fit_bert(smi: str, steps: int = STEPS):
     if perf.train_all != steps * tokens or not math.isfinite(loss):
         raise AssertionError(f"fit_bert: loss {loss}, {perf}")
     trace = _profiled_fit(m, x[b:], y[b:])
-    expected = {k: layers * steps for names in D256_KERNELS.values() for k in names}
+    expected = {k: layers * steps for k in D256_KERNELS}
     if trace["flash"] != expected:
         raise AssertionError(f"fit_bert: profiled launches {trace['flash']}, expected {expected}")
     step_ms = elapsed * 1e3 / steps
     flops = 3 * _graph_forward_flops(graph)
+    FIT_BERT_RUN.update(step_ms=step_ms, mfu=flops / (step_ms / 1e3) / PEAK_BF16)
     emit({
         "phase": "fit_bert", "card": smi,
         "config": dataclasses.asdict(bcfg) | {"hidden_act": bcfg.hidden_act.name},
@@ -3279,11 +3493,114 @@ def phase_fit_bert(smi: str, steps: int = STEPS):
                          "d256_kernel_ms_per_step": {k: v / steps
                                                      for k, v in trace["flash_ms"].items()},
                          "top_kernels": trace["top_kernels"]},
-        "launches": launches, "launches_per_step_each": layers,
+        "launches": launches, "launches_per_step_each": layers, "dense_attentions": 0,
     })
     del m
     torch.cuda.empty_cache()
-    return {n: launches[n] for n in D256_WRAPPERS}
+    return {f"{n}@d256": launches[n] for n in FLASH_WRAPPERS}
+
+
+FIT_BERT_RUN = {}  # fit_bert's step ms and MFU, printed beside fit_bert_dp's
+BERT_DP_PARITY_STEPS = 2  # the first losses held against the single-device trainer's
+
+
+def phase_fit_bert_dp(smi: str, steps: int = STEPS, cfg=None, device: str = "cuda"):
+    """BERT-base (models.build_bert(BertConfig()): 12 heads of 256) trained
+    by DataParallelTrainingInstance over the one-rank NCCL group, as
+    train_dp trains the flagship: attention under flash_mesh on the
+    per-head kernels at d=256 (rows 9-12). fit_bert's seeded host batches
+    and SGD(0.01), bf16. First the same two batches through the
+    single-device trainer (what FFModel compiles on one card, fit_bert's
+    backend) and through the data-parallel one from the same parameters and
+    Dropout generator: the losses within PARITY_BOUND, and each attention
+    piece's two-step update (the seq-major d=256 kernels against the
+    per-head ones, both bf16) within ZOO_BERT_UPDATE_BOUND, since at BERT's
+    initial near-uniform output the loss alone barely moves. Then one warm-up
+    step and `steps` timed ones with every launch count and the dense count
+    set to 0 just before and read just after: each per-head wrapper 12
+    times a step, no other flash or ring kernel, no dense attention; step
+    ms and MFU beside fit_bert's of this run, and a profiled step."""
+    import numpy as np
+    import torch
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.local_execution import ModelTrainingInstance
+    from flexflow_tpu_torch.models import BertConfig, build_bert
+    from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
+    from flexflow_tpu_torch.parallel import DataParallelTrainingInstance
+    from flexflow_tpu_torch.pcg import SGDOptimizerAttrs
+
+    bcfg = cfg or BertConfig()  # cfg, device: a CPU rehearsal at a small config
+    b, seq, layers = bcfg.batch_size, bcfg.sequence_length, bcfg.num_encoder_layers
+    graph, out = build_bert(bcfg)
+    rng = np.random.default_rng(0)  # fit_bert's batches
+    x = rng.standard_normal(((steps + 1) * b, seq, bcfg.hidden_size), dtype=np.float32)
+    y = rng.integers(0, bcfg.vocab_size, ((steps + 1) * b, seq), dtype=np.int32)
+    xs = [torch.from_numpy(x[i * b:(i + 1) * b]).to(device) for i in range(steps + 1)]
+    ys = [torch.from_numpy(y[i * b:(i + 1) * b]).long().to(device) for i in range(steps + 1)]
+    args = (graph, out, SparseCategoricalCrossEntropyLossAttrs(), SGDOptimizerAttrs(lr=0.01))
+
+    def run(trainer, batches, timed=False):
+        inst = trainer(*args, compute_dtype=torch.bfloat16, device=device)
+        params, opt_state = inst.initialize(seed=0)
+        init = {k: p.detach().to("cpu", torch.float32, copy=True)  # SGD steps in place
+                for k, p in params.items()}
+        gen = torch.Generator(device=device).manual_seed(0)
+        losses, step_ms, updates = [], [], None
+        for i in batches:
+            if timed and i == 1:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                fa.reset_launch_counts()
+                _reset_dense_attentions()
+            start = time.perf_counter()
+            params, opt_state, loss, _ = inst.train_step(params, opt_state, {"input": xs[i]},
+                                                         ys[i], gen)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - start) * 1e3)
+            if i == BERT_DP_PARITY_STEPS - 1:
+                updates = _attention_updates(graph, init, params)
+        return inst, params, opt_state, gen, losses, step_ms, updates
+
+    _, _, _, _, single, _, single_updates = run(ModelTrainingInstance,
+                                                range(BERT_DP_PARITY_STEPS))
+    torch.cuda.empty_cache()
+    inst, params, opt_state, gen, losses, step_ms, updates = run(
+        DataParallelTrainingInstance, range(steps + 1), timed=True)
+    launches = {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS}
+    peak = torch.cuda.max_memory_allocated()
+    want = {n: layers * steps if n in BHSD_WRAPPERS else 0 for n in launches}
+    if (device != "cpu" and launches != want) or _dense_attentions():
+        raise AssertionError(f"fit_bert_dp: launches {launches}, expected {want}; "
+                             f"{_dense_attentions()} dense attentions")
+    rel = [abs(a - w) / abs(w) for a, w in zip(losses, single)]
+    update_rel = {k: float(torch.linalg.norm(v - single_updates[k])
+                           / torch.linalg.norm(single_updates[k])) for k, v in updates.items()}
+    if (not all(math.isfinite(v) for v in losses) or not max(rel) < PARITY_BOUND
+            or not max(update_rel.values()) < ZOO_BERT_UPDATE_BOUND):
+        raise AssertionError(f"fit_bert_dp: losses {losses} against the single-device "
+                             f"trainer's {single}; attention updates {update_rel}")
+    trace = _profiled(lambda: inst.train_step(params, opt_state, {"input": xs[1]}, ys[1], gen))
+    median_ms = statistics.median(step_ms[1:])
+    flops = 3 * _graph_forward_flops(graph)
+    emit({
+        "phase": "fit_bert_dp", "card": smi, "head_dim": bcfg.dim_feedforward // bcfg.num_heads,
+        "trainer": "DataParallelTrainingInstance", "world_size": 1, "backend": "nccl",
+        "compute_dtype": "bf16", "optimizer": "sgd(lr=0.01)", "batch": b, "seq": seq,
+        "losses": losses, "single_device_losses": single, "loss_rel_err": rel,
+        "bound": PARITY_BOUND, "attention_update_rel_err": update_rel,
+        "attention_update_bound": ZOO_BERT_UPDATE_BOUND, "warmup_step_ms": step_ms[0], "step_ms": step_ms[1:],
+        "median_step_ms": median_ms, "tokens_per_s": b * seq / (median_ms / 1e3),
+        "step_flops": flops, "mfu": flops / (median_ms / 1e3) / PEAK_BF16,
+        "fit_bert": dict(FIT_BERT_RUN), "peak_memory_bytes": peak,
+        "profiled_step": {"host_ms": trace["host_ms"], "kernel_ms": trace["kernel_ms"],
+                          "idle_share": 1.0 - trace["kernel_ms"] / trace["host_ms"],
+                          "flash_launches": trace["flash"], "nccl": trace["nccl"]},
+        "launches": launches, "launches_per_step_each": layers, "dense_attentions": 0,
+    })
+    del inst, params, opt_state
+    torch.cuda.empty_cache()
+    return {f"{n}@d256": launches[n] for n in BHSD_WRAPPERS}
 
 
 DP_WINDOW_K = 8
@@ -4657,6 +4974,13 @@ def phase_examples():
 
 SERVE_MEASURED = {}  # serve's measured decode step and prefill, read by plan_serve
 PLAN_SERVE_BUDGET = 2
+# plan_serve plans SERVE_LM cut to 10 of its 12 layers: its searches build a
+# problem tree of every candidate, and at 12 layers took 117-134 s, the
+# largest share of the script's time limit. 10 is the least depth at which a
+# budget lies below the serial decode plan's peak and cache and still admits
+# a seed of the prefill (whose trailing Combine gathers the whole logits,
+# whatever the depth)
+PLAN_SERVE_LM = dict(SERVE_LM, num_layers=10)
 PLAN_SERVE_GEN = sum(SERVE_TRAFFIC["max_new_tokens"]) // 2  # the traffic's mean budget
 SERVE_RANKS_LM = dict(SERVE_LM, num_layers=2)
 SERVE_RANKS_TRAFFIC = dict(slots=SERVE_TRAFFIC["slots"], max_seq_len=SERVE_TRAFFIC["max_seq_len"],
@@ -5115,7 +5439,8 @@ print(json.dumps(c._plan_serve_rows(*json.loads(sys.argv[1]))))
 
 
 def phase_plan_serve(smi: str, device: str = "cuda", cfg: dict = SERVE_LM) -> None:
-    """The serving search (serving/plan.py) plans SERVE_LM at SERVE_TRAFFIC's
+    """The serving search (serving/plan.py) plans `cfg` (the script passes
+    PLAN_SERVE_LM, SERVE_LM at 10 of its layers) at SERVE_TRAFFIC's
     slots and max_seq_len for a node of 8 H100s (prompts at serve's median
     prefill width, generations at the traffic's mean budget): with each
     leaf's forward timed on the card (f32, CUDA events around graph
@@ -5126,8 +5451,8 @@ def phase_plan_serve(smi: str, device: str = "cuda", cfg: dict = SERVE_LM) -> No
     no device). Each search prints its decode and prefill phases' ms. The
     budgeted winners pass verify_memory at that budget with a smaller
     per-device cache than the serial plan's; the 1-device estimates are
-    printed beside serve's measured decode step and prefill, with their
-    ratios (no bound)."""
+    printed beside serve's measured decode step and prefill (of all of
+    SERVE_LM's layers), with their ratios (no bound)."""
     from flexflow_tpu_torch.compiler.calibration import H100_NVLINK_GBPS, NDR_INFINIBAND_GBPS
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels.profiling import ProfilingSettings
@@ -5189,6 +5514,8 @@ def phase_plan_serve(smi: str, device: str = "cuda", cfg: dict = SERVE_LM) -> No
           "leaves_measured": local.profile_calls,
           "leaves_inf": len(local.inf_leaves),
           "serve_measured": SERVE_MEASURED, "one_device_ratios": ratios,
+          "ratios_are": f"estimates at {cfg['num_layers']} layers over serve's measured step at "
+                        f"{SERVE_LM['num_layers']}",
           "launches": _flash_launches(), "seconds": time.perf_counter() - start})
 
 
@@ -8355,6 +8682,19 @@ def phase_ab(smi: str, tmp: str, device: str = "cuda:0", subjects: dict = AB_SUB
     return launches
 
 
+_WIDTH_SUFFIXES = {64: ("_p64_kernel", "_d64_kernel"), 192: ("_p192_kernel",),
+                   256: ("_d256_kernel",)}
+
+
+def _width_ptxas(ptxas: dict, wrapper: str, width: int) -> dict:
+    """ptxas's report of the kernels through which `wrapper` runs the head
+    dims of padded width `width`."""
+    names = {*REDESIGNED.get(wrapper, ()), *WIDTH_KERNELS.get(wrapper, ())}
+    others = tuple(x for sfx in _WIDTH_SUFFIXES.values() for x in sfx)
+    return {n: ptxas[n] for n in sorted(names)
+            if (not n.endswith(others) if width == 128 else n.endswith(_WIDTH_SUFFIXES[width]))}
+
+
 def _phases(smi: str, kernels: list, launches: dict, ptxas: dict):
     """The phases in order, as groups: (a context manager factory or None,
     [(name, fn)]), where fn takes the context's value (a temporary
@@ -8368,10 +8708,11 @@ def _phases(smi: str, kernels: list, launches: dict, ptxas: dict):
                 entry["design"] = (DELTA_DESIGN if entry["name"] in DELTA_WRAPPERS
                                    else "wgmma+tma")
                 entry["ptxas"] = {k: ptxas[k] for k in REDESIGNED[entry["name"]]}
-            if entry["name"] in D256_KERNELS:
-                entry["design"] = (DELTA_DESIGN if entry["name"] == "flash_delta_d256"
-                                   else D256_DESIGN)
-                entry["ptxas"] = {k: ptxas[k] for k in D256_KERNELS[entry["name"]]}
+            if "wrapper" in entry:  # a head dim the padded widths added
+                wrapper, width = entry["wrapper"], entry["padded_width"]
+                entry["design"] = (DELTA_DESIGN if wrapper in DELTA_WRAPPERS else
+                                   D256_DESIGN if width > 128 else "wgmma+tma")
+                entry["ptxas"] = _width_ptxas(ptxas, wrapper, width)
 
     def train_step_ms(phase):
         if "train" not in MEDIAN_STEP_MS:
@@ -8396,6 +8737,11 @@ def _phases(smi: str, kernels: list, launches: dict, ptxas: dict):
             ("train_heads16", rec("train_heads16", lambda: phase_train(
                 smi, REF_HEADS16, "train_heads16",
                 ("flash_fwd_d64", "flash_delta_d64", "flash_bwd_d64")), STEPS)),
+            # bench.py --heads 32: rows 1-3 at d=32, counted apart from d=128's
+            ("train_heads32", rec("train_heads32", lambda: {
+                f"{n}@d32": c for n, c in phase_train(
+                    smi, dict(FLAGSHIP, heads=32), "train_heads32", FLASH_WRAPPERS).items()},
+                STEPS)),
             ("search", rec("search", lambda: phase_search(smi, train_step_ms("search")), 1)),
             # a fresh process plans from search's store; MCMC and the
             # foreign-kind run ride it
@@ -8420,7 +8766,10 @@ def _phases(smi: str, kernels: list, launches: dict, ptxas: dict):
                 smi, FLAGSHIP, "train_dp", BHSD_WRAPPERS, dp=True), STEPS)),
             ("train_dp_seq2048", rec("train_dp_seq2048", lambda _: phase_train(
                 smi, LONGCTX, "train_dp_seq2048", BHSD_WRAPPERS, dp=True), STEPS)),
-            ("ring_replay", lambda _: phase_ring_replay()),
+            # rows 9-12 at d=256, counted apart from d=128's
+            ("fit_bert_dp", rec("fit_bert_dp", lambda _: phase_fit_bert_dp(smi), STEPS)),
+            # its d=96 replay's counts: one replay a step
+            ("ring_replay", rec("ring_replay", lambda _: phase_ring_replay(), 1)),
             ("parity_sp", lambda _: phase_parity_sp()),
             ("train_sp", rec("train_sp", lambda _: phase_train_sp(smi), STEPS)),
             # the window's count is the profiler's
@@ -8449,7 +8798,7 @@ def _phases(smi: str, kernels: list, launches: dict, ptxas: dict):
             ("serve", lambda: phase_serve(smi)),
             # serving a searched plan (no kernel of the table runs: serving
             # attention is dense, each phase checks no flash launch)
-            ("plan_serve", lambda: phase_plan_serve(smi)),
+            ("plan_serve", lambda: phase_plan_serve(smi, cfg=PLAN_SERVE_LM)),
         ]),
         (tempfile.TemporaryDirectory, [
             ("serve_ranks", lambda tmp: phase_serve_ranks(smi, tmp)),

@@ -8,9 +8,12 @@
 // flash epilogue writes the gradients as bf16 through a Layout
 // (flash_attention.cu: ff_flash_bwd_{dkv,dq}[_d64|_bhsd|_bhsd_d64]_kernel);
 // the ring epilogue adds them into the f32 accumulators that a ring step
-// carries (ring_flash.cu: ff_ring_{dq,dkv}_step[_d64]_kernel). At head dim
-// 256 (ff_flash_bwd_{dkv,dq}_d256_kernel) the pair is the head-split
-// mainloops at the end of this file, with the flash epilogue's bf16 stores.
+// carries (ring_flash.cu: ff_ring_{dq,dkv}_step[_d64]_kernel). At padded
+// widths 192 and 256 (ff_flash_bwd_{dkv,dq}_{p192,d256}_kernel and their
+// per-head and ring kernels) the pair is the head-split mainloops at the end
+// of this file, with the same epilogues. Head dims below the padded width
+// load as zeros past d (flash_fwd_sm90.cuh's note), so every product is
+// exact and the epilogues store only the columns below d.
 //
 // Replaces, through those kernels, the Pallas kernels _bwd_fused_kernel_b
 // (:976), _bwd_onepass_kernel (:1286), _bwd_dq_kernel (:324),
@@ -101,7 +104,7 @@ constexpr int BWD_THREADS = 3 * 128;     // two consumer warpgroups, then the pr
 // (BWD_BN f32 each); then the barriers.
 template <int D>
 struct BwdTiles {
-  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static_assert(D == 64 || D == 128, "padded width 64 or 128 (wider: SplitTiles)");
   static constexpr int PANELS = D / PANEL;
   static constexpr int STAGES = 3;
   static constexpr uint32_t BLOCK_PANEL = BWD_BM * ROW_BYTES;
@@ -129,7 +132,9 @@ __device__ __forceinline__ int bwd_first_q_tile(const FwdShape& sh, int r0) {
 // -- epilogues ---------------------------------------------------------------------
 // load() sets a thread's accumulator rows before the loop and store() writes
 // them, times mul, after it; row is the thread's first row of the block.
-// store() runs only in a warpgroup that ran at least one tile.
+// store() writes the accumulator's W columns from column col0 (all D at
+// once, or a head-split warpgroup's part), those below the head dim only,
+// and runs only in a warpgroup that ran at least one tile.
 
 template <int D>
 struct FlashGradEpilogue {
@@ -141,14 +146,15 @@ struct FlashGradEpilogue {
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   }
 
-  __device__ __forceinline__ void store(const FwdShape&, int bi, int hi, int row,
-                                        const float (&acc)[D / 2], float mul) const {
+  template <int W = D>
+  __device__ __forceinline__ void store(const FwdShape& sh, int bi, int hi, int row,
+                                        const float (&acc)[W / 2], float mul, int col0 = 0) const {
     const float both[2] = {mul, mul};
-    store_bf16_rows<D>(g + head_base<D>(grad, bi, hi), grad.ld, row, acc, both);
+    store_bf16_rows<W>(g + head_base(grad, bi, hi) + col0, grad.ld, row, acc, both, sh.d - col0);
   }
 };
 
-// A ring step: g is a contiguous f32 accumulator [b, h, rows, D] (dq: S
+// A ring step: g is a contiguous f32 accumulator [b, h, rows, d] (dq: S
 // rows; dk, dv: T rows). The registers start at 0 and store() adds mul
 // times them into the thread's rows: the carried values are read once and
 // never divided by the scale.
@@ -162,15 +168,17 @@ struct RingGradEpilogue {
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   }
 
+  template <int W = D>
   __device__ __forceinline__ void store(const FwdShape& sh, int bi, int hi, int row,
-                                        const float (&acc)[D / 2], float mul) const {
+                                        const float (&acc)[W / 2], float mul, int col0 = 0) const {
     const int c = (threadIdx.x % 4) * 2;
     const size_t r = ((size_t)bi * sh.H + hi) * rows + row;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float* dst = g + (r + 8 * h) * D + c;
+      float* dst = g + (r + 8 * h) * sh.d + col0 + c;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < W / 8; ++j) {
+        if (col0 + 8 * j >= sh.d) continue;
         float2 x = *reinterpret_cast<const float2*>(dst + 8 * j);
         x.x += mul * acc[4 * j + 2 * h];
         x.y += mul * acc[4 * j + 2 * h + 1];
@@ -192,7 +200,6 @@ __device__ __forceinline__ void dkv_mainloop(const CUtensorMap* tq, const CUtens
                                              const float* __restrict__ delta, const Epi& dk_epi,
                                              const Epi& dv_epi, const FwdShape& sh) {
   typedef BwdTiles<D> F;
-  constexpr int PER = group_heads<D>();
   const int k0 = blockIdx.x * BWD_BM;  // causal: the first blocks see the most query tiles
   const int hi = blockIdx.y, bi = blockIdx.z;
   const int tiles = (sh.S + BWD_BN - 1) / BWD_BN;
@@ -217,7 +224,7 @@ __device__ __forceinline__ void dkv_mainloop(const CUtensorMap* tq, const CUtens
     // producer: one thread loads K and V once and keeps the stages full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 256) {
-      const int hs = hi % PER, hg = hi / PER;
+      const int hs = hi % sh.per, hg = hi / sh.per;
       const size_t rows = ((size_t)bi * sh.H + hi) * sh.S;
       mbar_expect_tx(kv_bar, 2 * kv_boxes * F::PANELS * F::TILE_PANEL);
 #pragma unroll
@@ -348,7 +355,6 @@ __device__ __forceinline__ void dq_mainloop(const CUtensorMap* tq, const CUtenso
                                             const float* __restrict__ delta, const Epi& epi,
                                             const FwdShape& sh) {
   typedef BwdTiles<D> F;
-  constexpr int PER = group_heads<D>();
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BWD_BM;  // the longest causal rows first
   const int hi = blockIdx.y, bi = blockIdx.z;
   static_assert(BWD_WG_ROWS == FWD_WG_ROWS, "fwd_k_tiles counts for 64-row warpgroups");
@@ -371,7 +377,7 @@ __device__ __forceinline__ void dq_mainloop(const CUtensorMap* tq, const CUtenso
     // producer: one thread loads Q and dO once and keeps the stages full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 256) {
-      const int hs = hi % PER, hg = hi / PER;
+      const int hs = hi % sh.per, hg = hi / sh.per;
       mbar_expect_tx(q_bar, 2 * q_boxes * F::PANELS * F::TILE_PANEL);
 #pragma unroll
       for (int p = 0; p < F::PANELS; ++p)
@@ -471,45 +477,50 @@ __device__ __forceinline__ void dq_mainloop(const CUtensorMap* tq, const CUtenso
   }
 }
 
-// -- head dim 256: the head dim split between the consumer warpgroups ---------------
-// At D = 256 the mainloops above break: a warpgroup would hold dK and dV of
-// 64 rows over all of d, 256 f32 a thread, beside its scores. So a block owns
-// SPLIT_ROWS = 64 rows and streams tiles of 64 rows, and its two consumer
-// warpgroups split the head dim: warpgroup w accumulates output columns
-// [128 w, 128 w + 128) of all 64 rows. They split a streamed tile's scores
-// too: w computes the tile's score columns [32 w, 32 w + 32) over all of d
-// (SS m64n32k16: S^T = K Q^T and dP^T = V dO^T in dK/dV, S = Q K^T and
-// dP = dO V^T in dQ), forms its part of P^T and dS^T (or of dS) in
-// registers and stores it, rounded to bf16, into a 128-byte-swizzled K-major
-// [64 x 64] tile in shared memory. A named barrier joins the two; then each
-// runs its column half of dV += P^T dO and dK += dS^T Q (or dQ += dS K) as
-// SS m64n128k16 with the whole score tile as A and the streamed operand's two
-// panels of its half as the MN-major B. Every product is computed once, so
-// the pair does 14 s*t*d flops per (b, h) as at d <= 128; a second barrier
-// before the next stores keeps a warpgroup from overwriting the tile while
-// the other's products still read it. Loads, barriers, masking and the
-// bitwise repeat are as in the mainloops above.
+// -- padded widths 192 and 256: the head dim split between the warpgroups --------
+// At D > 128 the mainloops above break: a warpgroup would hold dK and dV of
+// 64 rows over all of d, 192 or 256 f32 a thread, beside its scores. So a
+// block owns SPLIT_ROWS = 64 rows and streams tiles of 64 rows, and its two
+// consumer warpgroups split the head dim: warpgroup 0 accumulates output
+// columns [0, 128) of all 64 rows, warpgroup 1 columns [128, D) (128 at
+// D=256, 64 at D=192: the panel boundary, so each warpgroup's B operand
+// starts on a panel). They split a streamed tile's scores too: w computes
+// the tile's score columns [32 w, 32 w + 32) over all of d (SS m64n32k16:
+// S^T = K Q^T and dP^T = V dO^T in dK/dV, S = Q K^T and dP = dO V^T in dQ),
+// forms its part of P^T and dS^T (or of dS) in registers and stores it,
+// rounded to bf16, into a 128-byte-swizzled K-major [64 x 64] tile in shared
+// memory. A named barrier joins the two; then each runs its columns of
+// dV += P^T dO and dK += dS^T Q (or dQ += dS K) as SS m64n128k16 (or
+// m64n64k16) with the whole score tile as A and the streamed operand's
+// panels of its columns as the MN-major B. Every product is computed once,
+// so the pair does 14 s*t*D flops per (b, h) as at D <= 128; a second
+// barrier before the next stores keeps a warpgroup from overwriting the
+// tile while the other's products still read it. Loads, barriers, masking,
+// the epilogues (flash: bf16 stores; ring: adds into the f32 accumulators)
+// and the bitwise repeat are as in the mainloops above.
 // What holds it back is the consumers, not the loads: the exchange keeps the
 // two warpgroups in step, so both run their element-wise passes, stores
 // and barriers at once with no product in flight, and each m64n32k16 reads
 // 3 KB of shared memory in its 16 clocks. Keeping a tile's products in
 // flight across the next tile's exchange would need a third stage, which
-// the 227 KB do not hold.
+// the 227 KB do not hold at D=256.
 
 constexpr int SPLIT_ROWS = 64;   // rows a block owns and rows of a streamed tile
 constexpr int SPLIT_COLS = 32;   // a warpgroup's columns of a streamed tile's scores
-constexpr int SPLIT_HALF = 128;  // a warpgroup's columns of the outputs
+constexpr int SPLIT_HALF = 128;  // warpgroup 0's columns of the outputs (1's: D - 128)
 
-// Shared memory at D = 256: the block's two operands [64 x 256], STAGES
-// stages of two streamed tiles [64 x 256], each as four panels of [64 x 64];
+// Shared memory at padded width D: the block's two operands [64 x D], STAGES
+// stages of two streamed tiles [64 x D], each as D/64 panels of [64 x 64];
 // the score tiles (dK/dV: P^T and dS^T; dQ: dS), [64 x 64] bf16 each; in
 // dK/dV the stages' lse and delta; then the barriers.
+template <int DP>
 struct SplitTiles {
-  static constexpr int D = 256;
+  static_assert(DP == 192 || DP == 256, "the head-split mainloops take padded widths 192 and 256");
+  static constexpr int D = DP;
   static constexpr int PANELS = D / PANEL;
   static constexpr int STAGES = 2;
   static constexpr uint32_t TILE_PANEL = SPLIT_ROWS * ROW_BYTES;
-  static constexpr uint32_t TILE_BYTES = PANELS * TILE_PANEL;  // one [64 x 256] operand
+  static constexpr uint32_t TILE_BYTES = PANELS * TILE_PANEL;  // one [64 x D] operand
   static constexpr uint32_t STAGE_BYTES = 2 * TILE_BYTES;
   static constexpr uint32_t SCORE_BYTES = SPLIT_ROWS * ROW_BYTES;  // one bf16 [64 x 64] tile
   static constexpr uint32_t ROWS_BYTES = SPLIT_ROWS * 4;  // lse or delta of a query tile
@@ -518,11 +529,10 @@ struct SplitTiles {
   static constexpr size_t DKV_SMEM =
       1024 + OPERANDS + 2 * SCORE_BYTES + STAGES * 2 * ROWS_BYTES + BARS;
   static constexpr size_t DQ_SMEM = 1024 + OPERANDS + SCORE_BYTES + BARS;
+  static_assert(DKV_SMEM <= 232448 && DQ_SMEM <= 232448, "a block's shared memory");
 };
 static_assert(SPLIT_ROWS == BWD_BN && SPLIT_ROWS == FWD_WG_ROWS,
               "bwd_first_q_tile and fwd_k_tiles count 64-row tiles and warpgroups");
-static_assert(SplitTiles::DKV_SMEM <= 232448 && SplitTiles::DQ_SMEM <= 232448,
-              "a block's shared memory");
 
 // D[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B from shared memory (K-major).
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
@@ -533,6 +543,11 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The first 64 columns of a 128-column accumulator: warpgroup 1's at D=192.
+__device__ __forceinline__ float (&low_cols(float (&acc)[SPLIT_HALF / 2]))[32] {
+  return *reinterpret_cast<float(*)[32]>(&acc[0]);
 }
 
 // The two consumer warpgroups (256 threads) meet at named barrier 1.
@@ -569,19 +584,19 @@ __device__ __forceinline__ void store_scores(uint32_t dst, const float (&x)[16],
     }
 }
 
-// dK and dV of 64 key rows at D = 256. Grid split_grid(T, H, B), BWD_THREADS
-// threads, SplitTiles::DKV_SMEM bytes of dynamic shared memory; tq, tk, tv
-// and tdo are tensor maps of 64-row boxes; lse and delta contiguous
-// [B, H, S] f32 (lse in natural log). dk and dv go out as bf16 through
-// `grad`, dK times sh.scale.
-__device__ __forceinline__ void dkv_mainloop_d256(const CUtensorMap* tq, const CUtensorMap* tk,
-                                                  const CUtensorMap* tv, const CUtensorMap* tdo,
-                                                  const float* __restrict__ lse,
-                                                  const float* __restrict__ delta,
-                                                  bf16* __restrict__ dk, bf16* __restrict__ dv,
-                                                  Layout grad, const FwdShape& sh) {
-  typedef SplitTiles F;
-  constexpr int PER = group_heads<F::D>();
+// dK and dV of 64 key rows at padded width D > 128. Grid split_grid(T, H,
+// B), BWD_THREADS threads, SplitTiles<D>::DKV_SMEM bytes of dynamic shared
+// memory; tq, tk, tv and tdo are tensor maps of 64-row boxes; lse and delta
+// contiguous [B, H, S] f32 (lse in natural log). dK goes out times
+// sh.scale, each warpgroup's columns through the epilogues.
+template <int D, class Epi>
+__device__ __forceinline__ void dkv_mainloop_split(const CUtensorMap* tq, const CUtensorMap* tk,
+                                                   const CUtensorMap* tv, const CUtensorMap* tdo,
+                                                   const float* __restrict__ lse,
+                                                   const float* __restrict__ delta,
+                                                   const Epi& dk_epi, const Epi& dv_epi,
+                                                   const FwdShape& sh) {
+  typedef SplitTiles<D> F;
   const int k0 = blockIdx.x * SPLIT_ROWS;  // causal: the first blocks see the most query tiles
   const int hi = blockIdx.y, bi = blockIdx.z;
   const int tiles = (sh.S + SPLIT_ROWS - 1) / SPLIT_ROWS;
@@ -606,7 +621,7 @@ __device__ __forceinline__ void dkv_mainloop_d256(const CUtensorMap* tq, const C
     // producer: one thread loads K and V once and keeps the stages full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 256) {
-      const int hs = hi % PER, hg = hi / PER;
+      const int hs = hi % sh.per, hg = hi / sh.per;
       const size_t rows = ((size_t)bi * sh.H + hi) * sh.S;
       mbar_expect_tx(kv_bar, 2 * F::TILE_BYTES);
 #pragma unroll
@@ -630,15 +645,16 @@ __device__ __forceinline__ void dkv_mainloop_d256(const CUtensorMap* tq, const C
       }
     }
   } else {
-    // consumer warpgroup wg: output columns [128 wg, 128 wg + 128) of the
+    // consumer warpgroup wg: output columns [128 wg, 128 wg + width) of the
     // block's 64 key rows, score columns [32 wg, 32 wg + 32) of each tile
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     const int t = threadIdx.x % 128, lane = t % 32;
     const int row = k0 + (t / 32) * 16 + lane / 4;  // the thread's key rows: row and row + 8
     const int c = (lane % 4) * 2;
     const int col0 = wg * SPLIT_COLS;
+    const bool wide = wg == 0 || D == 256;            // 128 output columns, else 64
     const uint32_t cols = col0 * ROW_BYTES;           // those query rows in the tile's panels
-    const uint32_t half = wg * 2 * F::TILE_PANEL;     // the two panels of its output columns
+    const uint32_t half = wg * 2 * F::TILE_PANEL;     // the panels of its output columns
     const float scale2 = sh.scale * LOG2E;
     float dk_acc[SPLIT_HALF / 2], dv_acc[SPLIT_HALF / 2];
 #pragma unroll
@@ -698,16 +714,27 @@ __device__ __forceinline__ void dkv_mainloop_d256(const CUtensorMap* tq, const C
       store_scores(sdS, dpt, col0);
       fence_to_wgmma();
       consumers_sync();  // P^T and dS^T are whole
-      // dV[:, half] += P^T dO[:, half]; dK[:, half] += dS^T Q[:, half]
+      // dV[:, cols] += P^T dO[:, cols]; dK[:, cols] += dS^T Q[:, cols]
       wgmma_fence();
+      if (wide) {
 #pragma unroll
-      for (int kb = 0; kb < SPLIT_ROWS / 16; ++kb)
-        wgmma_ss_n128<1>(dv_acc, kmajor(sP, F::SCORE_BYTES, 0, kb),
-                         mnmajor(sdO + half, F::TILE_PANEL, kb), 1);
+        for (int kb = 0; kb < SPLIT_ROWS / 16; ++kb)
+          wgmma_ss_n128<1>(dv_acc, kmajor(sP, F::SCORE_BYTES, 0, kb),
+                           mnmajor(sdO + half, F::TILE_PANEL, kb), 1);
 #pragma unroll
-      for (int kb = 0; kb < SPLIT_ROWS / 16; ++kb)
-        wgmma_ss_n128<1>(dk_acc, kmajor(sdS, F::SCORE_BYTES, 0, kb),
-                         mnmajor(sQ + half, F::TILE_PANEL, kb), 1);
+        for (int kb = 0; kb < SPLIT_ROWS / 16; ++kb)
+          wgmma_ss_n128<1>(dk_acc, kmajor(sdS, F::SCORE_BYTES, 0, kb),
+                           mnmajor(sQ + half, F::TILE_PANEL, kb), 1);
+      } else {
+#pragma unroll
+        for (int kb = 0; kb < SPLIT_ROWS / 16; ++kb)
+          wgmma_ss_n64<1>(low_cols(dv_acc), kmajor(sP, F::SCORE_BYTES, 0, kb),
+                          mnmajor(sdO + half, F::TILE_PANEL, kb), 1);
+#pragma unroll
+        for (int kb = 0; kb < SPLIT_ROWS / 16; ++kb)
+          wgmma_ss_n64<1>(low_cols(dk_acc), kmajor(sdS, F::SCORE_BYTES, 0, kb),
+                          mnmajor(sQ + half, F::TILE_PANEL, kb), 1);
+      }
       wgmma_commit();
       wgmma_wait_all();
       hold(dv_acc);
@@ -715,24 +742,22 @@ __device__ __forceinline__ void dkv_mainloop_d256(const CUtensorMap* tq, const C
       __syncwarp();
       if (lane == 0) mbar_arrive(bars + 8 * (F::STAGES + s));  // this warp is done with stage s
     }
-    const size_t head = head_base<F::D>(grad, bi, hi) + wg * SPLIT_HALF;
-    const float dk_mul[2] = {sh.scale, sh.scale}, dv_mul[2] = {1.f, 1.f};
-    store_bf16_rows<SPLIT_HALF>(dk + head, grad.ld, row, dk_acc, dk_mul);
-    store_bf16_rows<SPLIT_HALF>(dv + head, grad.ld, row, dv_acc, dv_mul);
+    dk_epi.template store<SPLIT_HALF>(sh, bi, hi, row, dk_acc, sh.scale, wg * SPLIT_HALF);
+    dv_epi.template store<SPLIT_HALF>(sh, bi, hi, row, dv_acc, 1.f, wg * SPLIT_HALF);
   }
 }
 
-// dQ of 64 query rows at D = 256. Grid split_grid(S, H, B), BWD_THREADS
-// threads, SplitTiles::DQ_SMEM bytes of dynamic shared memory; maps and
-// lse/delta as dkv_mainloop_d256's. dQ goes out times sh.scale.
-__device__ __forceinline__ void dq_mainloop_d256(const CUtensorMap* tq, const CUtensorMap* tk,
-                                                 const CUtensorMap* tv, const CUtensorMap* tdo,
-                                                 const float* __restrict__ lse,
-                                                 const float* __restrict__ delta,
-                                                 bf16* __restrict__ dq, Layout grad,
-                                                 const FwdShape& sh) {
-  typedef SplitTiles F;
-  constexpr int PER = group_heads<F::D>();
+// dQ of 64 query rows at padded width D > 128. Grid split_grid(S, H, B),
+// BWD_THREADS threads, SplitTiles<D>::DQ_SMEM bytes of dynamic shared
+// memory; maps and lse/delta as dkv_mainloop_split's. dQ goes out times
+// sh.scale, each warpgroup's columns through the epilogue.
+template <int D, class Epi>
+__device__ __forceinline__ void dq_mainloop_split(const CUtensorMap* tq, const CUtensorMap* tk,
+                                                  const CUtensorMap* tv, const CUtensorMap* tdo,
+                                                  const float* __restrict__ lse,
+                                                  const float* __restrict__ delta, const Epi& epi,
+                                                  const FwdShape& sh) {
+  typedef SplitTiles<D> F;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * SPLIT_ROWS;  // the longest causal rows first
   const int hi = blockIdx.y, bi = blockIdx.z;
   const int nk = fwd_k_tiles<SPLIT_ROWS>(sh, q0);
@@ -752,7 +777,7 @@ __device__ __forceinline__ void dq_mainloop_d256(const CUtensorMap* tq, const CU
     // producer: one thread loads Q and dO once and keeps the stages full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 256) {
-      const int hs = hi % PER, hg = hi / PER;
+      const int hs = hi % sh.per, hg = hi / sh.per;
       mbar_expect_tx(q_bar, 2 * F::TILE_BYTES);
 #pragma unroll
       for (int p = 0; p < F::PANELS; ++p) {
@@ -773,15 +798,16 @@ __device__ __forceinline__ void dq_mainloop_d256(const CUtensorMap* tq, const CU
       }
     }
   } else {
-    // consumer warpgroup wg: output columns [128 wg, 128 wg + 128) of the
+    // consumer warpgroup wg: output columns [128 wg, 128 wg + width) of the
     // block's 64 query rows, score columns [32 wg, 32 wg + 32) of each tile
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     const int t = threadIdx.x % 128, lane = t % 32;
     const int row = q0 + (t / 32) * 16 + lane / 4;  // the thread's query rows: row and row + 8
     const int c = (lane % 4) * 2;
     const int col0 = wg * SPLIT_COLS;
+    const bool wide = wg == 0 || D == 256;         // 128 output columns, else 64
     const uint32_t cols = col0 * ROW_BYTES;        // those key rows in the tile's panels
-    const uint32_t half = wg * 2 * F::TILE_PANEL;  // the two panels of its output columns
+    const uint32_t half = wg * 2 * F::TILE_PANEL;  // the panels of its output columns
     const float scale2 = sh.scale * LOG2E;
     float dq_acc[SPLIT_HALF / 2], lse2[2], dl[2];
 #pragma unroll
@@ -837,21 +863,26 @@ __device__ __forceinline__ void dq_mainloop_d256(const CUtensorMap* tq, const CU
       store_scores(sdS, sc, col0);
       fence_to_wgmma();
       consumers_sync();  // dS is whole
-      // dQ[:, half] += dS K[:, half]
+      // dQ[:, cols] += dS K[:, cols]
       wgmma_fence();
+      if (wide) {
 #pragma unroll
-      for (int kb = 0; kb < SPLIT_ROWS / 16; ++kb)
-        wgmma_ss_n128<1>(dq_acc, kmajor(sdS, F::SCORE_BYTES, 0, kb),
-                         mnmajor(sK + half, F::TILE_PANEL, kb), 1);
+        for (int kb = 0; kb < SPLIT_ROWS / 16; ++kb)
+          wgmma_ss_n128<1>(dq_acc, kmajor(sdS, F::SCORE_BYTES, 0, kb),
+                           mnmajor(sK + half, F::TILE_PANEL, kb), 1);
+      } else {
+#pragma unroll
+        for (int kb = 0; kb < SPLIT_ROWS / 16; ++kb)
+          wgmma_ss_n64<1>(low_cols(dq_acc), kmajor(sdS, F::SCORE_BYTES, 0, kb),
+                          mnmajor(sK + half, F::TILE_PANEL, kb), 1);
+      }
       wgmma_commit();
       wgmma_wait_all();
       hold(dq_acc);
       __syncwarp();
       if (lane == 0) mbar_arrive(bars + 8 * (F::STAGES + s));  // this warp is done with stage s
     }
-    const float mul[2] = {sh.scale, sh.scale};
-    store_bf16_rows<SPLIT_HALF>(dq + head_base<F::D>(grad, bi, hi) + wg * SPLIT_HALF, grad.ld, row,
-                                dq_acc, mul);
+    epi.template store<SPLIT_HALF>(sh, bi, hi, row, dq_acc, sh.scale, wg * SPLIT_HALF);
   }
 }
 
@@ -868,14 +899,27 @@ static inline dim3 split_grid(int rows, int H, int B) {
   return dim3((rows + SPLIT_ROWS - 1) / SPLIT_ROWS, H, B);
 }
 
-// The tensor maps of q and dout (S rows) and of k and v (T rows), in the
-// backward's 64-row boxes.
+// The grid of the dK/dV or dQ kernel at padded width D over `rows` rows
+// (T or S): the 128-row mainloops', or at D > 128 the head-split ones'.
 template <int D>
-static bool bwd_tensor_maps(CUtensorMap (&maps)[4], const void* q, Layout lq, const void* k,
-                            Layout lk, const void* v, Layout lv, const void* dout, Layout lo,
-                            int S, int T, int H, int B) {
-  return fwd_tensor_map<D>(&maps[0], q, lq, S, H, B, BWD_BN) &&
-         fwd_tensor_map<D>(&maps[1], k, lk, T, H, B, BWD_BN) &&
-         fwd_tensor_map<D>(&maps[2], v, lv, T, H, B, BWD_BN) &&
-         fwd_tensor_map<D>(&maps[3], dout, lo, S, H, B, BWD_BN);
+static inline dim3 bwd_grid_of(int rows, int H, int B) {
+  return D > 128 ? split_grid(rows, H, B) : bwd_grid(rows, H, B);
+}
+
+// Dynamic shared memory of the dK/dV (dkv) or dQ kernel at padded width D.
+template <int D>
+static constexpr size_t bwd_smem_bytes(bool dkv) {
+  if constexpr (D > 128) return dkv ? SplitTiles<D>::DKV_SMEM : SplitTiles<D>::DQ_SMEM;
+  else return dkv ? BwdTiles<D>::DKV_SMEM : BwdTiles<D>::DQ_SMEM;
+}
+
+// The tensor maps of q and dout (S rows) and of k and v (T rows), head dim
+// d, in the backward's 64-row boxes.
+static bool bwd_tensor_maps(CUtensorMap (&maps)[4], int d, const void* q, Layout lq,
+                            const void* k, Layout lk, const void* v, Layout lv, const void* dout,
+                            Layout lo, int S, int T, int H, int B) {
+  return fwd_tensor_map(&maps[0], q, lq, d, S, H, B, BWD_BN) &&
+         fwd_tensor_map(&maps[1], k, lk, d, T, H, B, BWD_BN) &&
+         fwd_tensor_map(&maps[2], v, lv, d, T, H, B, BWD_BN) &&
+         fwd_tensor_map(&maps[3], dout, lo, d, S, H, B, BWD_BN);
 }

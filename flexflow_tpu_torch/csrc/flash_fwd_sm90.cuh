@@ -19,14 +19,24 @@
 // 989 TFLOP/s). At d=256, BERT-base's b=64, h=12, s=512 does 2.1e11 flops on
 // 805 MB: 0.208 ms of products against 0.241 ms of bytes.
 //
+// Head dims. The body is a template on a padded width D of 64, 128, 192 or
+// 256 (every head dim d with d % 8 == 0 up to 256, the Pallas kernels'
+// range, rounds up to one): a head is kept as D/64 panels of 64 columns,
+// and the tensor maps give the column extent as the real d, so the panel
+// columns at d and beyond load as zeros. Q K^T over the padded columns is
+// exact, P V's padded columns are zero, and the epilogues store only the
+// columns below d; the scale is 1/sqrt(d). Below D the padded columns cost
+// products: d=32 does half its tensor-core work on zeros.
+//
 // Design. A block owns FWD_BM = 128 query rows of one (batch, head) and runs
 // three warpgroups: two consumers of 64 rows each (wgmma's M) and one
 // producer. What each piece does about the shared-tile design it replaced:
 // - Products on wgmma. S = Q K^T is wgmma m64nBNk16 (BN = 128 key rows a
 //   tile, 64 at d=256) with Q and the K tile read from shared memory through
 //   descriptors over 128-byte-swizzled panels (64 columns of 128 bytes
-//   each); O += P V is m64nDk16 (at d=256 two m64n128k16 on V's column
-//   halves, each over two of V's four panels) with P as the register A
+//   each); O += P V is m64nDk16 (at D=256 two m64n128k16 on V's column
+//   halves, each over two of V's four panels; at D=192 an m64n128k16 on
+//   V's first two panels and an m64n64k16 on its third) with P as the register A
 //   operand and V from shared memory as the MN-major B operand (transpose
 //   bit set).
 // - Registers, not shared memory, hold S, P and O. The score tile stays in
@@ -76,16 +86,16 @@ constexpr uint32_t ROW_BYTES = 128;      // one panel row
 constexpr uint32_t SWIZZLE_ATOM = 8 * ROW_BYTES;
 constexpr int CONSUMER_REGS = 232, PRODUCER_REGS = 40;
 
-// Shared memory of head dim D: Q [FWD_BM x D] and STAGES stages of K
+// Shared memory of padded width D: Q [FWD_BM x D] and STAGES stages of K
 // and V [BN x D], each as D/64 panels of [rows x 64], 1024-byte aligned;
 // then the barriers. A key tile is BN = 128 rows (S is wgmma's N = 128),
-// but 64 at D = 256, where S and P for 128 keys beside O's 128 f32 a
-// thread would pass the consumers' registers and one 128-row stage of K and
-// V (128 KB) beside Q (64 KB) would leave no room for a second stage.
+// but 64 at D > 128, where S and P for 128 keys beside O's 96 or 128 f32 a
+// thread would pass the consumers' registers, and two 128-row stages of K
+// and V (192 or 256 KB) beside Q would pass the 227 KB a block can have.
 template <int D>
 struct FwdTiles {
-  static_assert(D == 64 || D == 128 || D == 256, "head dim 64, 128 or 256");
-  static constexpr int BN = D == 256 ? 64 : 128;  // key rows of a streamed tile
+  static_assert(D == 64 || D == 128 || D == 192 || D == 256, "padded width 64, 128, 192 or 256");
+  static constexpr int BN = D > 128 ? 64 : 128;  // key rows of a streamed tile
   static constexpr int PANELS = D / PANEL;
   static constexpr int STAGES = D == 64 ? 3 : 2;
   static constexpr uint32_t Q_PANEL = FWD_BM * ROW_BYTES;
@@ -100,7 +110,9 @@ struct FwdShape {
   int S, T, H;       // query rows, key rows, heads
   int q_off, k_off;  // global positions of query row 0 and key row 0
   int causal;
-  float scale;
+  float scale;       // 1/sqrt(d)
+  int d;             // head dim: the columns below it are real, the rest padding
+  int per;           // heads in a group of the operands' Layout (the maps' head coordinates)
 };
 
 // Key tiles of BN rows that the rows [r0, r0 + FWD_WG_ROWS) of the query
@@ -255,17 +267,19 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory (K-major).
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory: A
+// K-major, B K-major or, with TRANS_B, MN-major.
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
 }
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory: A
@@ -306,13 +320,17 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 
 // D[64 x N] += A[64 x 16] B[16 x N], A from registers, B from shared memory
 // (MN-major, descriptor b). N = 256 is two m64n128k16 on B's column halves,
-// the second `half` bytes past the first.
+// N = 192 an m64n128k16 on its first two panels and an m64n64k16 on its
+// third; the second product's columns start `half` bytes past the first's.
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
                                          uint32_t half = 0) {
   if constexpr (N == 256) {
     wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[0]), a, b);
     wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[64]), a, b + (half >> 4));
+  } else if constexpr (N == 192) {
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[0]), a, b);
+    wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(&d[64]), a, b + (half >> 4));
   } else if constexpr (N == 128) {
     wgmma_rs_n128(d, a, b);
   } else {
@@ -362,18 +380,21 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&x
 
 // The thread's rows row and row + 8 of an accumulator of D columns, times
 // mul[0] and mul[1], as bf16 pairs into dst (row 0 of a head, rows ld
-// elements apart).
+// elements apart); only the columns below `cols` (a multiple of 8: a
+// pair's two columns lie on one side of it) are stored.
 template <int D>
 __device__ __forceinline__ void store_bf16_rows(bf16* dst, int ld, int row,
-                                                const float (&acc)[D / 2], const float (&mul)[2]) {
+                                                const float (&acc)[D / 2], const float (&mul)[2],
+                                                int cols) {
   const int c = (threadIdx.x % 4) * 2;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     bf16* r = dst + (size_t)(row + 8 * h) * ld + c;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(r + 8 * j) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * h] * mul[h], acc[4 * j + 2 * h + 1] * mul[h]);
+      if (8 * j < cols)
+        *reinterpret_cast<__nv_bfloat162*>(r + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h] * mul[h], acc[4 * j + 2 * h + 1] * mul[h]);
   }
 }
 
@@ -448,14 +469,15 @@ struct FlashEpilogue {
                                         const float (&acc)[D / 2], const float (&m)[2],
                                         const float (&l)[2]) const {
     const float inv[2] = {1.f / l[0], 1.f / l[1]};
-    store_bf16_rows<D>(o + head_base<D>(out, bi, hi), out.ld, row, acc, inv);
+    store_bf16_rows<D>(o + head_base(out, bi, hi), out.ld, row, acc, inv, sh.d);
     if (threadIdx.x % 4 == 0)
       for (int h = 0; h < 2; ++h) lse[((size_t)bi * sh.H + hi) * sh.S + row + 8 * h] = m[h] + logf(l[h]);
   }
 };
 
-// A ring step: the f32 state acc [b, h, S, D], m and l [b, h, S] is read
-// before the loop and written back after it.
+// A ring step: the f32 state acc [b, h, S, d], m and l [b, h, S] is read
+// before the loop and written back after it; the padded columns start at 0
+// and are not written.
 template <int D>
 struct RingEpilogue {
   float* acc;
@@ -468,10 +490,11 @@ struct RingEpilogue {
     const size_t rows = ((size_t)bi * sh.H + hi) * sh.S + row;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float* src = acc + (rows + 8 * h) * D + c;
+      const float* src = acc + (rows + 8 * h) * sh.d + c;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
-        const float2 x = *reinterpret_cast<const float2*>(src + 8 * j);
+        const float2 x =
+            8 * j < sh.d ? *reinterpret_cast<const float2*>(src + 8 * j) : make_float2(0.f, 0.f);
         a[4 * j + 2 * h] = x.x;
         a[4 * j + 2 * h + 1] = x.y;
       }
@@ -487,10 +510,12 @@ struct RingEpilogue {
     const size_t rows = ((size_t)bi * sh.H + hi) * sh.S + row;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float* dst = acc + (rows + 8 * h) * D + c;
+      float* dst = acc + (rows + 8 * h) * sh.d + c;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(a[4 * j + 2 * h], a[4 * j + 2 * h + 1]);
+        if (8 * j < sh.d)
+          *reinterpret_cast<float2*>(dst + 8 * j) =
+              make_float2(a[4 * j + 2 * h], a[4 * j + 2 * h + 1]);
       if (c == 0) {
         m[rows + 8 * h] = mr[h];
         l[rows + 8 * h] = lr[h];
@@ -508,7 +533,7 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
                                              const CUtensorMap* tv, const Epi& epi,
                                              const FwdShape& sh) {
   typedef FwdTiles<D> F;
-  constexpr int BN = F::BN, PER = group_heads<D>();
+  constexpr int BN = F::BN;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * FWD_BM;  // the longest causal rows first
   const int hi = blockIdx.y, bi = blockIdx.z;
   const int n0 = fwd_k_tiles<BN>(sh, q0), n1 = fwd_k_tiles<BN>(sh, q0 + FWD_WG_ROWS);
@@ -527,7 +552,7 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
     // producer: one thread keeps the stages full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 256) {
-      const int hs = hi % PER, hg = hi / PER;
+      const int hs = hi % sh.per, hg = hi / sh.per;
       mbar_expect_tx(q_bar, F::Q_BYTES);
 #pragma unroll
       for (int p = 0; p < F::PANELS; ++p)
@@ -620,19 +645,18 @@ static EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// The tensor map of a bf16 operand of Layout l with `rows` rows per head:
-// 5-D (column, row, head in its group, group, batch), boxes of 64 columns
-// by box_rows rows (the forward's FWD_BM for Q and FwdTiles<D>::BN for K
-// and V; the backward's 64), 128-byte swizzle; rows past `rows` read as
-// zeros.
-template <int D>
-static bool fwd_tensor_map(CUtensorMap* map, const void* base, Layout l, int rows, int H, int B,
-                           int box_rows) {
+// The tensor map of a bf16 operand of Layout l, head dim d and `rows` rows
+// per head: 5-D (column, row, head in its group, group, batch), boxes of 64
+// columns by box_rows rows (the forward's FWD_BM for Q and FwdTiles<D>::BN
+// for K and V; the backward's 64), 128-byte swizzle; columns past d and
+// rows past `rows` read as zeros.
+static bool fwd_tensor_map(CUtensorMap* map, const void* base, Layout l, int d, int rows, int H,
+                           int B, int box_rows) {
   EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
-  constexpr int PER = group_heads<D>();
-  const cuuint64_t dims[5] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)PER,
-                              (cuuint64_t)((H + PER - 1) / PER), (cuuint64_t)B};
+  const int per = l.per;
+  const cuuint64_t dims[5] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)per,
+                              (cuuint64_t)((H + per - 1) / per), (cuuint64_t)B};
   const long long el[4] = {l.ld, l.sub, l.group, l.batch};
   cuuint64_t strides[4];
   for (int i = 0; i < 4; ++i)  // a stride of 0 (a dim of one) is not a valid map stride
@@ -644,15 +668,15 @@ static bool fwd_tensor_map(CUtensorMap* map, const void* base, Layout l, int row
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The maps of q (S rows) and of k and v (T rows).
+// The maps of q (S rows) and of k and v (T rows), head dim d.
 template <int D>
-static cudaError_t fwd_tensor_maps(CUtensorMap (&maps)[3], const void* q, Layout lq, int S,
+static cudaError_t fwd_tensor_maps(CUtensorMap (&maps)[3], int d, const void* q, Layout lq, int S,
                                    const void* k, Layout lk, const void* v, Layout lv, int T, int H,
                                    int B) {
   constexpr int BN = FwdTiles<D>::BN;
-  const bool ok = fwd_tensor_map<D>(&maps[0], q, lq, S, H, B, FWD_BM) &&
-                  fwd_tensor_map<D>(&maps[1], k, lk, T, H, B, BN) &&
-                  fwd_tensor_map<D>(&maps[2], v, lv, T, H, B, BN);
+  const bool ok = fwd_tensor_map(&maps[0], q, lq, d, S, H, B, FWD_BM) &&
+                  fwd_tensor_map(&maps[1], k, lk, d, T, H, B, BN) &&
+                  fwd_tensor_map(&maps[2], v, lv, d, T, H, B, BN);
   return ok ? cudaSuccess : cudaErrorInvalidValue;
 }
 

@@ -15,47 +15,43 @@ typedef __nv_bfloat16 bf16;
 
 struct Layout {
   int ld;     // elements between consecutive rows
-  int group;  // elements between consecutive groups of 128 / D heads
+  int group;  // elements between consecutive groups of `per` heads
   int sub;    // elements between consecutive heads of one group
   int batch;  // elements between consecutive batch entries
+  int per;    // heads in a group: two in the d=64 pair's 128-lane groups, else one
 };
 
 namespace {
 
-constexpr int LANES = 128;  // width of a lane group
+constexpr int LANES = 128;  // width of the d=64 pair's lane groups: two heads each
 constexpr float NEG_INF = -1e30f;
 
-// Heads of dim D in one 128-lane group: a head of D > 128 spans groups and
-// is a group of its own.
-template <int D>
-__host__ __device__ constexpr int group_heads() {
-  return D > LANES ? 1 : LANES / D;
-}
-
-// Offset of row 0 of head h of batch b in an operand of layout l. A head
-// of D > 128 spans groups: its heads lie `sub` apart and `group` is unused.
-template <int D>
+// Offset of row 0 of head h of batch b in an operand of layout l.
 __device__ __forceinline__ size_t head_base(const Layout& l, int b, int h) {
-  if constexpr (D > LANES) {
-    return (size_t)b * l.batch + (size_t)h * l.sub;
-  } else {
-    constexpr int PER = group_heads<D>();
-    return (size_t)b * l.batch + (size_t)(h / PER) * l.group + (size_t)(h % PER) * l.sub;
-  }
+  return (size_t)b * l.batch + (size_t)(h / l.per) * l.group + (size_t)(h % l.per) * l.sub;
 }
 
-// The layout of a per-head [b, h, s, D] operand with unit stride along D
-// and the given row, head and batch strides (contiguous: D, S*D, H*S*D).
-template <int D>
+// The layout of a per-head [b, h, s, d] operand with unit stride along d
+// and the given row, head and batch strides (contiguous: d, S*d, H*S*d).
 __host__ __device__ __forceinline__ Layout per_head(int ld, int head, int batch) {
-  return Layout{ld, group_heads<D>() * head, head, batch};
+  return Layout{ld, head, head, batch, 1};
+}
+
+// The padded width of head dim d (8 <= d <= 256, d % 8 == 0): the kernels
+// keep a head as 64-column panels, so d is padded to 64, 128, 192 or 256;
+// the panels' columns at d and beyond load as zeros and are never stored.
+__host__ __device__ __forceinline__ int padded_dim(int d) {
+  return (d + 63) / 64 * 64;
+}
+
+__host__ __device__ __forceinline__ bool head_dim_ok(int d) {
+  return d >= 8 && d <= 256 && d % 8 == 0;
 }
 
 }  // namespace
 
-template <int D>
-static inline float softmax_scale() {
-  return 1.0f / sqrtf((float)D);
+static inline float softmax_scale(int d) {
+  return 1.0f / sqrtf((float)d);
 }
 
 template <typename K>

@@ -12,17 +12,18 @@ Replaces the bshf Pallas path of flexflow_tpu/kernels/flash_attention.py:
                      the same two kernels take any s that is a multiple of 64,
                      so they also compute what _bwd_onepass_kernel and
                      _bwd_dq_kernel/_bwd_dkv_kernel compute for s > block
+                     (these three take every head dim the kernels take)
 - flash_fwd_d64   <- _fwd_kernel_pair via _fwd_bshf_pair and _fwd_bshf_pair_qkv
 - flash_delta_d64 <- the delta _bwd_pair_core computes inline
 - flash_bwd_d64   <- _bwd_pair_core via _bwd_bshf_pair_fused and
                      _bwd_bshf_pair_fused_qkv, split as flash_bwd is
-- flash_fwd_d256, flash_delta_d256, flash_bwd_d256
-                  <- the same three as flash_fwd, flash_delta and flash_bwd,
-                     at head dim 256 (BERT's heads: kdim = 3072 / 12), where
-                     the JAX package runs them too
+
+(at head dim 256, BERT's heads with kdim = 3072 / 12, flash_fwd, flash_delta
+and flash_bwd launch the kernels of width 256, where the JAX package runs
+the same three Pallas kernels)
 
 and the per-head path (`flash_attention`, the counterpart of the JAX
-package's entry of that name), at d = 64 or 128:
+package's entry of that name), at every head dim the kernels take:
 
 - flash_fwd_bhsd   <- _fwd_kernel_b (batch-folded) and _fwd_kernel (the
                       online-softmax loop) via _fwd
@@ -31,8 +32,17 @@ package's entry of that name), at d = 64 or 128:
                       and _bwd_dq_kernel/_bwd_dkv_kernel via _bwd (s >
                       block), split as flash_bwd is
 
-The d=128 and d=256 wrappers take contiguous [b, s, h*d] operands. The d=64 ones
-take q, k and v (and write dq, dk and dv) as lane-group views
+Head dims. The kernels take every head dim d with d % 8 == 0 and
+8 <= d <= 256, the range the Pallas kernels take up to 256
+(`head_dim_supported`): each runs at a padded width of 64, 128, 192 or 256
+(`padded_dim`) whose columns past d load as zeros and are never stored
+(csrc/flash_fwd_sm90.cuh's note). Head dims past 256, which the JAX
+per-head kernel also takes (and its seq-major one at 384 and 512), have
+no kernel here: the gates refuse them and they run dense on the card.
+
+flash_fwd, flash_delta and flash_bwd take contiguous [b, s, h*d] operands.
+The d=64 ones (the head pair, an even head count) take q, k and v (and
+write dq, dk and dv) as lane-group views
 [b, s, h/2, 128] with free row and group strides: `lane_groups` of separate
 [b, s, h*64] tensors, or `qkv_views` of the interleaved projection
 [b, s, 3*h*64] that `ops.mha_project_qkv_bshf_fused` makes, whose pair-group
@@ -48,8 +58,8 @@ only when the kernels cannot read it as it is.
 
 Each wrapper runs its plain version for tensors on the CPU, and launches its
 kernel for tensors on a CUDA device, or raises: there is no fallback. The
-kernels take bf16, head dim 64 or 128 (the seq-major ones also 256), and a
-sequence that is a multiple of 64; `flash_attention_bshf_supported` and
+kernels take bf16, a head dim `head_dim_supported` admits, and a sequence
+that is a multiple of 64; `flash_attention_bshf_supported` and
 `flash_attention_supported` are the gates callers use. What bounds each
 kernel on the card, and what its design does about it, is in the note at
 the top of csrc/flash_attention.cu and of the mainloops it names.
@@ -75,16 +85,17 @@ import torch
 
 from flexflow_tpu_torch.kernels import build
 
-HEAD_DIMS = (64, 128)  # the per-head kernels' head dims
-BSHF_HEAD_DIMS = (64, 128, 256)  # the seq-major kernels' head dims
-LANES = 128  # width of the lane groups the d=64 kernels read (two heads each)
+HEAD_DIM_STEP = 8  # the kernels take head dims that are multiples of 8 ...
+MAX_HEAD_DIM = 256  # ... up to 256
+PADDED_WIDTHS = (64, 128, 192, 256)  # the kernels' widths: d rounds up to one
+LANES = 128  # width of the lane groups the d=64 pair kernels read (two heads each)
 TILE = 64  # the kernels' sequence tile
 _SOURCE = "flash_attention.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "ff_flash_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "ff_flash_delta": ([_P, _P, _P, _I, _I, _I, _P], _I),
-    "ff_flash_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "ff_flash_fwd": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "ff_flash_delta": ([_I, _P, _P, _P, _I, _I, _I, _P], _I),
+    "ff_flash_bwd": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "ff_flash_fwd_d64": ([_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P], _I),
     "ff_flash_delta_d64": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "ff_flash_bwd_d64": (
@@ -96,9 +107,6 @@ _SIGNATURES = {
         [_I, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
          _I, _I, _I, _I, _P], _I
     ),
-    "ff_flash_fwd_d256": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "ff_flash_delta_d256": ([_P, _P, _P, _I, _I, _I, _P], _I),
-    "ff_flash_bwd_d256": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "ff_flash_smem_bytes": ([_I], _I),
     "ff_error_string": ([_I], ctypes.c_char_p),
 }
@@ -127,26 +135,42 @@ def _dtype_ok(dtype: torch.dtype, device) -> bool:
     return kind == "cpu" and dtype.is_floating_point
 
 
+def head_dim_supported(d: int) -> bool:
+    """Do the kernels take head dim d? Every multiple of 8 up to 256, the
+    range of the Pallas kernels' d % 8 == 0 test up to 256. Past 256 (the
+    JAX per-head kernel takes any such d, its seq-major one 384 and 512)
+    attention runs dense on the card until a kernel takes it."""
+    return HEAD_DIM_STEP <= d <= MAX_HEAD_DIM and d % HEAD_DIM_STEP == 0
+
+
+def padded_dim(d: int) -> int:
+    """The width (of PADDED_WIDTHS) of the kernels that take head dim d."""
+    return -(-d // 64) * 64
+
+
 def flash_attention_bshf_supported(shape, num_heads: int, dtype: torch.dtype, device) -> bool:
     """Can the seq-major flash path take self-attention operands of this
-    [b, s, h*d] shape? The kernels need d of 128 or 256, or of 64 with an
-    even head count, and s a multiple of the 64-row tile."""
+    [b, s, h*d] shape? The kernels need a head dim head_dim_supported
+    admits (d % 8 == 0, 8 <= d <= 256; any head count) and s a multiple of
+    the 64-row tile, in bf16 on a CUDA device.
+    d > 256 is refused: no kernel takes it yet, so it runs dense."""
     if len(shape) != 3 or shape[1] % TILE or shape[2] % num_heads:
         return False
-    d = shape[2] // num_heads
-    if d not in BSHF_HEAD_DIMS or (d == 64 and num_heads % 2):
+    if not head_dim_supported(shape[2] // num_heads):
         return False
     return _dtype_ok(dtype, device)
 
 
 def flash_attention_supported(q_shape, k_shape, v_shape, dtype: torch.dtype, device) -> bool:
     """Can the per-head flash path take q, k and v of these [b, h, s, d]
-    shapes? The kernels need one shape for all three, d of 64 or 128, and s
-    a multiple of the 64-row tile."""
+    shapes? The kernels need one shape for all three, a head dim
+    head_dim_supported admits (d % 8 == 0, 8 <= d <= 256) and s a multiple
+    of the 64-row tile, in bf16 on a CUDA device.
+    d > 256 is refused: no kernel takes it yet, so it runs dense."""
     q_shape = tuple(q_shape)
     if len(q_shape) != 4 or tuple(k_shape) != q_shape or tuple(v_shape) != q_shape:
         return False
-    if q_shape[3] not in HEAD_DIMS or q_shape[2] % TILE:
+    if not head_dim_supported(q_shape[3]) or q_shape[2] % TILE:
         return False
     return _dtype_ok(dtype, device)
 
@@ -154,15 +178,17 @@ def flash_attention_supported(q_shape, k_shape, v_shape, dtype: torch.dtype, dev
 def _check_cuda(name: str, num_heads: int, d: int, *tensors: torch.Tensor) -> Tuple[int, int, int]:
     """Raise unless every tensor is a contiguous bf16 [b, s, h*d] on the
     CUDA device of the first, starting 16-byte aligned (tile and delta
-    loads of 16 bytes); return (b, s, h)."""
+    loads of 16 bytes), with d a head dim the kernels take; return
+    (b, s, h)."""
     b, s, f = tensors[0].shape
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: tensors must lie on the CPU or a CUDA device, got {dev}")
-    if f != num_heads * d or s % TILE:
+    if f != num_heads * d or s % TILE or not head_dim_supported(d):
         raise ValueError(
-            f"{name}: kernel takes [b, s, h*{d}] with s a multiple of {TILE}, "
-            f"got {tuple(tensors[0].shape)} with {num_heads} heads"
+            f"{name}: kernel takes [b, s, h*{d}] with s a multiple of {TILE} and d % "
+            f"{HEAD_DIM_STEP} == 0 up to {MAX_HEAD_DIM}, got {tuple(tensors[0].shape)} with "
+            f"{num_heads} heads"
         )
     for t in tensors:
         if t.shape != (b, s, f) or t.dtype != torch.bfloat16 or t.device != dev:
@@ -215,13 +241,14 @@ def bhsd_readable(t: torch.Tensor) -> bool:
 
 
 def _check_bhsd(name: str, shape, *tensors: torch.Tensor) -> Tuple[int, int, int]:
-    """Raise unless the tensors are bf16 [b, h, s, d] of `shape` with d in
-    HEAD_DIMS and s a multiple of the tile, readable in place, sharing one
-    set of strides, on the CUDA device of the first; return its (row, head,
-    batch) strides in elements."""
-    if shape[3] not in HEAD_DIMS or shape[2] % TILE:
-        raise ValueError(f"{name}: kernel takes [b, h, s, d] with d in {HEAD_DIMS} and s a "
-                         f"multiple of {TILE}, got {tuple(shape)}")
+    """Raise unless the tensors are bf16 [b, h, s, d] of `shape` with d a
+    head dim the kernels take and s a multiple of the tile, readable in
+    place, sharing one set of strides, on the CUDA device of the first;
+    return its (row, head, batch) strides in elements."""
+    if not head_dim_supported(shape[3]) or shape[2] % TILE:
+        raise ValueError(f"{name}: kernel takes [b, h, s, d] with d in [{HEAD_DIM_STEP}, "
+                         f"{MAX_HEAD_DIM}] a multiple of {HEAD_DIM_STEP} and s a multiple of "
+                         f"{TILE}, got {tuple(shape)}")
     strides = tensors[0].stride()
     for t in tensors:
         if tuple(t.shape) != tuple(shape) or t.dtype != torch.bfloat16:
@@ -372,14 +399,20 @@ def flash_bwd_qkv_plain(qkv, do, lse, delta, num_heads: int, causal: bool = Fals
 # -- wrappers ---------------------------------------------------------------
 
 
+def _head_dim(x: torch.Tensor, num_heads: int) -> int:
+    return x.shape[-1] // num_heads
+
+
 def flash_fwd(q, k, v, num_heads: int, causal: bool = False):
-    """(o, lse) of softmax(q k^T / sqrt(d)) v per head, d = 128."""
+    """(o, lse) of softmax(q k^T / sqrt(d)) v per head, at any head dim the
+    kernels take (head_dim_supported)."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, num_heads, causal)
-    b, s, h = _check_cuda("flash_fwd", num_heads, 128, q, k, v)
+    d = _head_dim(q, num_heads)
+    b, s, h = _check_cuda("flash_fwd", num_heads, d, q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _launch("ff_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    _launch("ff_flash_fwd", d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, s, h, int(causal), _stream(q))
     flash_fwd.launches += 1
     return o, lse
@@ -389,12 +422,14 @@ flash_fwd.launches = 0
 
 
 def flash_delta(do, o, num_heads: int):
-    """delta [b, h, s] f32 = rowsum(dO * O) per head, d = 128."""
+    """delta [b, h, s] f32 = rowsum(dO * O) per head, at any head dim the
+    kernels take."""
     if do.device.type == "cpu":
         return flash_delta_plain(do, o, num_heads)
-    b, s, h = _check_cuda("flash_delta", num_heads, 128, do, o)
+    d = _head_dim(do, num_heads)
+    b, s, h = _check_cuda("flash_delta", num_heads, d, do, o)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=do.device)
-    _launch("ff_flash_delta", do.data_ptr(), o.data_ptr(), delta.data_ptr(), b, s, h,
+    _launch("ff_flash_delta", d, do.data_ptr(), o.data_ptr(), delta.data_ptr(), b, s, h,
             _stream(do))
     flash_delta.launches += 1
     return delta
@@ -404,14 +439,16 @@ flash_delta.launches = 0
 
 
 def flash_bwd(q, k, v, do, lse, delta, num_heads: int, causal: bool = False):
-    """(dq, dk, dv) from the saved forward and delta, d = 128."""
+    """(dq, dk, dv) from the saved forward and delta, at any head dim the
+    kernels take."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, do, lse, delta, num_heads, causal)
-    b, s, h = _check_cuda("flash_bwd", num_heads, 128, q, k, v, do)
+    d = _head_dim(q, num_heads)
+    b, s, h = _check_cuda("flash_bwd", num_heads, d, q, k, v, do)
     _check_rows("flash_bwd lse", lse, b, h, s, q.device)
     _check_rows("flash_bwd delta", delta, b, h, s, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _launch("ff_flash_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+    _launch("ff_flash_bwd", d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, s, h, int(causal), _stream(q))
     flash_bwd.launches += 1
@@ -479,54 +516,6 @@ def flash_bwd_d64(q, k, v, do, lse, delta, dq, dk, dv, num_heads: int, causal: b
 
 flash_bwd_d64.launches = 0
 
-
-def flash_fwd_d256(q, k, v, num_heads: int, causal: bool = False):
-    """(o, lse) of softmax(q k^T / sqrt(d)) v per head, d = 256."""
-    if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, num_heads, causal)
-    b, s, h = _check_cuda("flash_fwd_d256", num_heads, 256, q, k, v)
-    o = torch.empty_like(q)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _launch("ff_flash_fwd_d256", q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, s, h, int(causal), _stream(q))
-    flash_fwd_d256.launches += 1
-    return o, lse
-
-
-flash_fwd_d256.launches = 0
-
-
-def flash_delta_d256(do, o, num_heads: int):
-    """delta [b, h, s] f32 = rowsum(dO * O) per head, d = 256."""
-    if do.device.type == "cpu":
-        return flash_delta_plain(do, o, num_heads)
-    b, s, h = _check_cuda("flash_delta_d256", num_heads, 256, do, o)
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=do.device)
-    _launch("ff_flash_delta_d256", do.data_ptr(), o.data_ptr(), delta.data_ptr(), b, s, h,
-            _stream(do))
-    flash_delta_d256.launches += 1
-    return delta
-
-
-flash_delta_d256.launches = 0
-
-
-def flash_bwd_d256(q, k, v, do, lse, delta, num_heads: int, causal: bool = False):
-    """(dq, dk, dv) from the saved forward and delta, d = 256."""
-    if q.device.type == "cpu":
-        return flash_bwd_plain(q, k, v, do, lse, delta, num_heads, causal)
-    b, s, h = _check_cuda("flash_bwd_d256", num_heads, 256, q, k, v, do)
-    _check_rows("flash_bwd_d256 lse", lse, b, h, s, q.device)
-    _check_rows("flash_bwd_d256 delta", delta, b, h, s, q.device)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _launch("ff_flash_bwd_d256", q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, s, h, int(causal), _stream(q))
-    flash_bwd_d256.launches += 1
-    return dq, dk, dv
-
-
-flash_bwd_d256.launches = 0
 
 def _strides(t: torch.Tensor) -> Tuple[int, int, int]:
     """(row, head, batch) strides of a [b, h, s, d] tensor."""
@@ -597,8 +586,7 @@ flash_bwd_bhsd.launches = 0
 # Every kernel wrapper of the port, each with its launch count: these, and
 # the ring-flash step wrappers, which kernels/ring_flash.py registers.
 KERNEL_WRAPPERS = (flash_fwd, flash_delta, flash_bwd, flash_fwd_d64, flash_delta_d64, flash_bwd_d64,
-                   flash_fwd_bhsd, flash_delta_bhsd, flash_bwd_bhsd, flash_fwd_d256,
-                   flash_delta_d256, flash_bwd_d256)
+                   flash_fwd_bhsd, flash_delta_bhsd, flash_bwd_bhsd)
 
 
 def register_wrappers(*fns) -> None:
@@ -614,21 +602,22 @@ def reset_launch_counts() -> None:
 # -- autograd ---------------------------------------------------------------
 
 
-# The contiguous [b, s, h*d] wrappers of each head dim: forward, delta, backward.
-_BSHF_KERNELS = {128: (flash_fwd, flash_delta, flash_bwd),
-                 256: (flash_fwd_d256, flash_delta_d256, flash_bwd_d256)}
+def _pairs_heads(d: int, num_heads: int) -> bool:
+    """Does the d=64 head pair (two heads to a 128-lane group) take these heads?"""
+    return d == 64 and num_heads % 2 == 0
 
 
 class FlashAttentionBSHF(torch.autograd.Function):
-    """Attention on separate [b, s, h*d] operands (d = 64, 128 or 256) whose
-    gradient runs the delta and backward kernels. The forward saves
-    (q, k, v, o, lse)."""
+    """Attention on separate [b, s, h*d] operands (any head dim the kernels
+    take) whose gradient runs the delta and backward kernels: the d=64 head
+    pair's at d=64 with an even head count, flash_fwd, flash_delta and
+    flash_bwd otherwise. The forward saves (q, k, v, o, lse)."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads: int, causal: bool = False):
         d = q.shape[-1] // num_heads
-        if d in _BSHF_KERNELS:
-            o, lse = _BSHF_KERNELS[d][0](q, k, v, num_heads, causal)
+        if not _pairs_heads(d, num_heads):
+            o, lse = flash_fwd(q, k, v, num_heads, causal)
         else:
             o, lse = flash_fwd_d64(*map(lane_groups, (q, k, v)), num_heads, causal)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -641,10 +630,9 @@ class FlashAttentionBSHF(torch.autograd.Function):
         h, causal = ctx.num_heads, ctx.causal
         do = do.contiguous()
         d = q.shape[-1] // h
-        if d in _BSHF_KERNELS:
-            _, delta_fn, bwd_fn = _BSHF_KERNELS[d]
-            delta = delta_fn(do, o, h)
-            dq, dk, dv = bwd_fn(q, k, v, do, lse, delta, h, causal)
+        if not _pairs_heads(d, h):
+            delta = flash_delta(do, o, h)
+            dq, dk, dv = flash_bwd(q, k, v, do, lse, delta, h, causal)
         else:
             delta = flash_delta_d64(do, o, h)
             dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -691,8 +679,8 @@ def flash_attention_bshf_qkv(qkv, num_heads: int, causal: bool = False):
 
 
 class FlashAttentionBHSD(torch.autograd.Function):
-    """Attention on per-head [b, h, s, d] operands (d = 64 or 128) whose
-    gradient runs the delta and backward kernels. On a CUDA device an
+    """Attention on per-head [b, h, s, d] operands (any head dim the kernels
+    take) whose gradient runs the delta and backward kernels. On a CUDA device an
     operand the kernels cannot read in place (`bhsd_readable`), or q, k and
     v of differing strides, costs one contiguous copy. The forward saves
     (q, k, v, o, lse)."""
@@ -750,7 +738,9 @@ def current_flash_mesh():
 
 def sharded_flash_supported(q_shape, k_shape, v_shape, dtype: torch.dtype, device) -> bool:
     """The gate of sharded_flash_attention. Each rank already holds its
-    local block of the batch, so the local shape is the shape it is given."""
+    local block of the batch, so the local shape is the shape it is given;
+    the per-head kernels take it as flash_attention_supported says.
+    d > 256 is refused: no kernel takes it yet, so it runs dense."""
     return flash_attention_supported(q_shape, k_shape, v_shape, dtype, device)
 
 

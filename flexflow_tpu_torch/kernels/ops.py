@@ -210,13 +210,19 @@ def mha_project_qkv_bshf_fused(attrs: MultiHeadAttentionAttrs, x, weight, input_
 
 def _dense_context(qp, kp, vp, causal=False):
     """softmax(qp kp^T / sqrt(d)) vp on per-head tensors, through a
-    materialized [s, t] softmax in the operands' dtype."""
+    materialized [s, t] softmax in the operands' dtype. `calls` counts its
+    runs, so a run on the card can show that no attention the flash
+    kernels take ran dense."""
+    _dense_context.calls += 1
     scores = torch.einsum("bhsk,bhtk->bhst", qp, kp) / math.sqrt(qp.shape[-1])
     if causal:
         s, t = scores.shape[-2:]
         mask = torch.ones(s, t, dtype=torch.bool, device=scores.device).tril()
         scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     return torch.einsum("bhst,bhtv->bhsv", torch.softmax(scores, dim=-1), vp)
+
+
+_dense_context.calls = 0
 
 
 def dense_attention(attrs: MultiHeadAttentionAttrs, q, k, v, weight, input_bias=None,
@@ -231,11 +237,22 @@ def _mha_forward(attrs: MultiHeadAttentionAttrs, q, k, v, weight, input_bias=Non
                  causal=False):
     """Under a flash_mesh (the data-parallel trainer), as in the JAX
     package, the per-head projections feed sharded_flash_attention on the
-    rank's own block, or the dense path where the kernels do not take the
-    shapes. Otherwise self-attention-shaped operands the kernels take ride
-    the seq-major flash path, and everything else the dense path. At d=64
-    with q, k and v one tensor, one fused projection feeds the
-    interleaved-QKV entry and one dqkv flows back."""
+    rank's own block (at every head dim the kernels take), or the dense
+    path where the kernels do not take the shapes. Otherwise
+    self-attention-shaped operands the kernels take ride the seq-major
+    flash path, at every head dim they take, and everything else the dense
+    path. At d=64 with an even head count and q, k and v one tensor, one
+    fused projection feeds the interleaved-QKV entry and one dqkv flows
+    back.
+
+    This routing differs from the JAX package's off a mesh in two places.
+    The JAX package takes its per-head [b, h, s, d] entry at every d with
+    d % 128 != 0 but the d=64 pair (its seq-major blocks must be 128-lane
+    aligned); the port's seq-major kernels read any d through their tensor
+    maps, so every d rides them and no transposes are paid. And at d=64
+    with s > 1024 the JAX package's pair path, whose backward fits one
+    block, yields to the per-head entry; the port's pair kernels stream
+    any s. Either way the function computed is the same."""
     if current_flash_mesh() is not None:
         qp, kp, vp, wo = mha_project_qkv(attrs, q, k, v, weight, input_bias)
         if sharded_flash_supported(qp.shape, kp.shape, vp.shape, qp.dtype, qp.device):
@@ -250,7 +267,7 @@ def _mha_forward(attrs: MultiHeadAttentionAttrs, q, k, v, weight, input_bias=Non
         and q.shape == k.shape == v.shape
         and flash_attention_bshf_supported(proj_shape, H, q.dtype, q.device)
     ):
-        if kd % 128 and q is k and k is v:
+        if kd == 64 and H % 2 == 0 and q is k and k is v:
             qkv, wo2 = mha_project_qkv_bshf_fused(attrs, q, weight, input_bias)
             return flash_attention_bshf_qkv(qkv, H, causal) @ wo2
         qp, kp, vp, wo2 = mha_project_qkv_bshf(attrs, q, k, v, weight, input_bias)

@@ -44,7 +44,9 @@ def ring_attention_block(qp, kp, vp, ring: SequenceRing, causal: bool):
     """This rank's output block [b, h, s_blk, vd] of ring attention on its
     projected blocks qp [b, h, s_blk, kd], kp, vp [b, h, t_blk, {kd, vd}],
     through dense per-step scores; autograd differentiates it, rotations
-    included. The accumulators stay f32 whatever the compute dtype."""
+    included. The accumulators stay f32 whatever the compute dtype. `calls`
+    counts its runs, as kernels/ops.py's _dense_context counts its own."""
+    ring_attention_block.calls += 1
     b, h, s_blk, kd = qp.shape
     t_blk = kp.shape[2]
     scale = 1.0 / math.sqrt(kd)
@@ -69,6 +71,9 @@ def ring_attention_block(qp, kp, vp, ring: SequenceRing, causal: bool):
         if i + 1 < ring.size:
             k_c, v_c = _Rotate.apply(k_c, ring), _Rotate.apply(v_c, ring)
     return (o / l[..., None]).to(qp.dtype)
+
+
+ring_attention_block.calls = 0
 
 
 def ring_mha_forward(attrs: RingAttentionAttrs, q, k, v, weight, ring: Optional[SequenceRing] = None,

@@ -13,8 +13,10 @@ each a hand-written CUDA kernel in csrc/ring_flash.cu (whose note says what
 bounds it on the card) beside a plain PyTorch version. A wrapper runs its
 plain version for tensors on the CPU, and launches its kernel for tensors on
 a CUDA device, or raises. The kernels take bf16 per-head [b, h, rows, d]
-operands by their strides (d of 64 or 128, rows a multiple of 64) and f32
-contiguous state; `ring_flash_supported` is the gate.
+operands by their strides (any head dim d with d % 8 == 0 up to 256, each
+at the padded width of kernels/flash_attention.py's `padded_dim`; rows a
+multiple of 64) and f32 contiguous state; `ring_flash_supported` is the
+gate. Past d = 256 the ring runs dense (kernels/ring_attention.py).
 
 Where the JAX package returns fresh per-step dq, dk and dv and adds them in
 XLA, the port's dq and dk/dv steps add into the caller's f32 accumulators in
@@ -46,12 +48,14 @@ import torch.distributed as dist
 
 from flexflow_tpu_torch.kernels import build
 from flexflow_tpu_torch.kernels.flash_attention import (
-    HEAD_DIMS,
+    HEAD_DIM_STEP,
+    MAX_HEAD_DIM,
     TILE,
     _dtype_ok,
     _stream,
     bhsd_readable,
     flash_delta_bhsd,
+    head_dim_supported,
     register_wrappers,
 )
 
@@ -80,8 +84,8 @@ def _operand(t: torch.Tensor):
 
 def _check_operands(name: str, q, k, v, do=None) -> None:
     """Raise unless q (and do) are bf16 [b, h, S, d] and k, v bf16 [b, h, T, d]
-    on one CUDA device, readable in place, with d in HEAD_DIMS and S, T
-    multiples of the tile."""
+    on one CUDA device, readable in place, with d a head dim the kernels
+    take (head_dim_supported) and S, T multiples of the tile."""
     b, h, s, d = q.shape
     t = k.shape[2]
     dev = q.device
@@ -96,9 +100,10 @@ def _check_operands(name: str, q, k, v, do=None) -> None:
         if not bhsd_readable(x):
             raise ValueError(f"{name}: {label} must have unit stride along d, the other strides "
                              f"multiples of 8 and a 16-byte aligned start, got {x.stride()}")
-    if d not in HEAD_DIMS or s % TILE or t % TILE:
-        raise ValueError(f"{name}: kernel takes d in {HEAD_DIMS} and blocks a multiple of {TILE} "
-                         f"rows, got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if not head_dim_supported(d) or s % TILE or t % TILE:
+        raise ValueError(f"{name}: kernel takes d % {HEAD_DIM_STEP} == 0 up to {MAX_HEAD_DIM} "
+                         f"and blocks a multiple of {TILE} rows, got q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
 
 
 def _check_f32(name: str, t: torch.Tensor, shape, dev) -> None:
@@ -242,16 +247,18 @@ register_wrappers(ring_fwd_step, ring_dq_step, ring_dkv_step)
 
 def ring_flash_supported(qp_shape, kp_shape, vp_shape, dtype: torch.dtype, device) -> bool:
     """Can the ring steps take these per-rank [b, h, rows, d] blocks? The
-    kernels need k and v of one shape, the head dim of q, d of 64 or 128
-    and blocks a multiple of the 64-row tile, in bf16; the plain versions
-    take the same shapes in any float dtype on the CPU."""
+    kernels need k and v of one shape, the head dim of q, a head dim
+    head_dim_supported admits (d % 8 == 0, 8 <= d <= 256) and blocks a
+    multiple of the 64-row tile, in bf16; the plain versions take the same
+    shapes in any float dtype on the CPU.
+    d > 256 is refused: no kernel takes it yet, so the ring runs dense."""
     qp_shape, kp_shape = tuple(qp_shape), tuple(kp_shape)
     if len(qp_shape) != 4 or len(kp_shape) != 4 or tuple(vp_shape) != kp_shape:
         return False
     b, h, s_blk, d = qp_shape
     if kp_shape[:2] != (b, h) or kp_shape[3] != d:
         return False
-    if d not in HEAD_DIMS or s_blk % TILE or kp_shape[2] % TILE:
+    if not head_dim_supported(d) or s_blk % TILE or kp_shape[2] % TILE:
         return False
     return _dtype_ok(dtype, device)
 

@@ -43,6 +43,18 @@ class ComputationGraph(DataflowGraph):
     def tensor_shape(self, v: DataflowOutput) -> TensorShape:
         return self.value_label(v).shape
 
+    def layers_by_name(self) -> dict:
+        return {
+            self.node_label(n).name: n
+            for n in self.nodes
+            if self.node_label(n).name is not None
+        }
+
+    def get_layer_by_name(self, name: str) -> Node:
+        matches = [n for n in self.nodes if self.node_label(n).name == name]
+        assert len(matches) == 1, f"layer name {name!r} matched {len(matches)} nodes"
+        return matches[0]
+
     def as_dot(self) -> str:
         """Graphviz dot export (reference: as_dot in pcg)."""
         lines = ["digraph computation_graph {"]

@@ -3,8 +3,8 @@ flexflow_tpu/pcg/parallel_computation_graph_builder.py).
 
 Covers create_input_tensor, create_weight_tensor, the parallel ops
 parallel_partition / parallel_combine / parallel_replicate /
-parallel_reduce, dense, experts, multihead_attention, ring_attention,
-gelu, layer_norm and add. Each op creates its weight nodes first and then the op
+parallel_reduce, dense, experts, embedding, multihead_attention,
+ring_attention, element_unary, relu, gelu, layer_norm, add and softmax. Each op creates its weight nodes first and then the op
 node, in the JAX builder's order, so that parameter keys `n{idx}` name the
 same weights in both packages.
 """
@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 from flexflow_tpu_torch.op_attrs.activation import Activation
+from flexflow_tpu_torch.op_attrs.datatype import DataType
 from flexflow_tpu_torch.op_attrs.core import (
     OpAttrs,
     get_default_weight_initializers,
@@ -21,11 +22,13 @@ from flexflow_tpu_torch.op_attrs.core import (
     get_parallel_weight_shapes,
 )
 from flexflow_tpu_torch.op_attrs.ops import (
+    AggregateSpec,
     CombineAttrs,
     ElementBinaryAttrs,
     ElementBinaryOpType,
     ElementUnaryAttrs,
     ElementUnaryOpType,
+    EmbeddingAttrs,
     InputAttrs,
     LayerNormAttrs,
     LinearAttrs,
@@ -34,6 +37,7 @@ from flexflow_tpu_torch.op_attrs.ops import (
     RepartitionAttrs,
     ReplicateAttrs,
     RingAttentionAttrs,
+    SoftmaxAttrs,
     StageMergeAttrs,
     StagePartitionAttrs,
     WeightAttrs,
@@ -192,6 +196,13 @@ class ParallelComputationGraphBuilder:
                              capacity_factor, use_bias, lambda_bal)
         return self.add_layer(attrs, [input], [], name)
 
+    def embedding(self, input: Tensor, num_entries: int, out_channels: int,
+                  aggr: AggregateSpec = AggregateSpec.NONE, dtype: DataType = DataType.FLOAT,
+                  name: Optional[str] = None) -> Tensor:
+        (out,) = self.add_layer(EmbeddingAttrs(num_entries, out_channels, aggr, dtype), [input],
+                                [], name)
+        return out
+
     def multihead_attention(self, query: Tensor, key: Tensor, value: Tensor, embed_dim: int,
                             num_heads: int, name: Optional[str] = None) -> Tensor:
         attrs = MultiHeadAttentionAttrs(embed_dim, num_heads)
@@ -206,9 +217,16 @@ class ParallelComputationGraphBuilder:
         (out,) = self.add_layer(attrs, [query, key, value], [], name)
         return out
 
-    def gelu(self, x: Tensor, name: Optional[str] = None) -> Tensor:
-        (out,) = self.add_layer(ElementUnaryAttrs(ElementUnaryOpType.GELU), [x], [], name)
+    def element_unary(self, op: ElementUnaryOpType, x: Tensor,
+                      name: Optional[str] = None) -> Tensor:
+        (out,) = self.add_layer(ElementUnaryAttrs(op), [x], [], name)
         return out
+
+    def relu(self, x: Tensor, name: Optional[str] = None) -> Tensor:
+        return self.element_unary(ElementUnaryOpType.RELU, x, name)
+
+    def gelu(self, x: Tensor, name: Optional[str] = None) -> Tensor:
+        return self.element_unary(ElementUnaryOpType.GELU, x, name)
 
     def layer_norm(self, x: Tensor, axes: Sequence[int], elementwise_affine: bool = True,
                    eps: float = 1e-5, name: Optional[str] = None) -> Tensor:
@@ -219,4 +237,8 @@ class ParallelComputationGraphBuilder:
 
     def add(self, a: Tensor, b: Tensor, name: Optional[str] = None) -> Tensor:
         (out,) = self.add_layer(ElementBinaryAttrs(ElementBinaryOpType.ADD), [a, b], [], name)
+        return out
+
+    def softmax(self, x: Tensor, dim: int = -1, name: Optional[str] = None) -> Tensor:
+        (out,) = self.add_layer(SoftmaxAttrs(dim), [x], [], name)
         return out

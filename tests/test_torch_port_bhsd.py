@@ -199,9 +199,12 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
         ((2, 3, 512, 64), torch.bfloat16, "cuda", True),  # any head count per head
         ((2, 8, 512, 128), torch.float32, "cuda", False),  # kernels take bf16
         ((2, 8, 100, 128), torch.bfloat16, "cuda", False),  # s not a tile multiple
-        ((2, 8, 512, 32), torch.bfloat16, "cuda", False),  # d=32
+        ((2, 8, 512, 264), torch.bfloat16, "cuda", False),  # d=264: no kernel past 256
         ((2, 512, 1024), torch.bfloat16, "cuda", False),  # not per-head
         ((2, 8, 512, 128), torch.float32, "cpu", True),  # plain versions
+        ((2, 8, 512, 32), torch.bfloat16, "cuda", True),  # d=32, padded to 64
+        ((2, 12, 512, 256), torch.bfloat16, "cuda", True),  # BERT-base's heads
+        ((2, 8, 512, 12), torch.bfloat16, "cuda", False),  # d=12, no multiple of 8
     ],
 )
 def test_per_head_gate_follows_the_kernels(shape, dtype, device, ok):
@@ -225,7 +228,7 @@ def _meta(*shape, dtype=torch.bfloat16):
         (lambda: _meta(2, 2, 128, 64).transpose(-1, -2), "unit stride"),
         (lambda: _meta(2, 2, 64, 130)[..., :128], "multiples of 8"),
         (lambda: _meta(2, 2, 64, 128, dtype=torch.float32), "bf16"),
-        (lambda: _meta(2, 2, 64, 32), "d in"),
+        (lambda: _meta(2, 2, 64, 264), "d in"),
         (lambda: _meta(2, 2, 100, 128), "multiple of 64"),
         (lambda: _meta(2, 2, 64, 128), "CPU or a CUDA device"),
     ],
@@ -270,6 +273,5 @@ def test_c_interface_matches_the_declared_signatures():
         m = re.search(r'extern "C" [\w\s\*]+?\b' + name + r"\(([^)]*)\)", src)
         assert m, name
         assert len(m.group(1).split(",")) == len(argtypes), name
-    for d in tfa.HEAD_DIMS:
-        suffix = "" if d == 128 else "_d64"
+    for d, suffix in zip(tfa.PADDED_WIDTHS, ("_d64", "", "_p192", "_d256")):
         assert f"FLASH_DELTA_KERNEL(ff_flash_delta_bhsd{suffix}_kernel, {d})" in src

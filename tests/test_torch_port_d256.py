@@ -52,19 +52,19 @@ def test_forward_delta_backward_match_pallas(causal):
     q, k, v, do = _inputs(s, seed=causal)
     o_j, lse2_j = _jax_fwd(q, k, v, s, causal)
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
-    o, lse = tfa.flash_fwd_d256(tq, tk, tv, H, causal)
+    o, lse = tfa.flash_fwd(tq, tk, tv, H, causal)
     np.testing.assert_allclose(o.numpy(), np.asarray(o_j), atol=1e-5)
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse2_j)[:, :, 0, :] * LN2, atol=1e-5)
 
     to = torch.from_numpy(np.array(o_j))
-    delta = tfa.flash_delta_d256(tdo, to, H)
+    delta = tfa.flash_delta(tdo, to, H)
     ref_delta = jfa._delta_bshf(jnp.asarray(do), o_j, B, s, H, D, interpret=True)
     np.testing.assert_allclose(delta.numpy(), np.asarray(ref_delta)[:, :, 0, :], atol=1e-5)
 
     ref = jfa._bwd_bshf_fused(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), o_j, lse2_j,
                               jnp.asarray(do), H, causal, interpret=True)
     lse_nat = torch.from_numpy(np.asarray(lse2_j)[:, :, 0, :] * LN2)
-    got = tfa.flash_bwd_d256(tq, tk, tv, tdo, lse_nat, delta, H, causal)
+    got = tfa.flash_bwd(tq, tk, tv, tdo, lse_nat, delta, H, causal)
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-4)
 
@@ -144,13 +144,13 @@ def test_d256_kernels_are_the_hopper_mainloops():
     assert not (build.CSRC_DIR / "flash_d256.cuh").exists()
     assert "FLASH_FWD_KERNEL(ff_flash_fwd_d256_kernel, 256)" in src
     assert "FLASH_BWD_KERNELS(ff_flash_bwd_dkv_d256_kernel, ff_flash_bwd_dq_d256_kernel, 256)" in src
-    assert re.search(r"static constexpr int BN = D == 256 \? 64 : 128;", src)
+    assert re.search(r"static constexpr int BN = D > 128 \? 64 : 128;", src)
     assert f"constexpr int SPLIT_ROWS = {tfa.TILE};" in src
     assert "constexpr int SPLIT_COLS = 32;" in src and "constexpr int SPLIT_HALF = 128;" in src
-    for body, mainloop in (("dkv_body", "dkv_mainloop_d256"), ("dq_body", "dq_mainloop_d256")):
+    for body, mainloop in (("dkv_body", "dkv_mainloop_split"), ("dq_body", "dq_mainloop_split")):
         head = src[src.index(f"__device__ __forceinline__ void {body}("):]
-        assert mainloop + "(tq, tk, tv, tdo, lse, delta," in head[:head.index("\n}")], body
-    for mainloop in ("dkv_mainloop_d256", "dq_mainloop_d256"):
+        assert mainloop + "<D>(tq, tk, tv, tdo, lse, delta," in head[:head.index("\n}")], body
+    for mainloop in ("dkv_mainloop_split", "dq_mainloop_split"):
         body = src[src.index(f"__device__ __forceinline__ void {mainloop}("):]
         body = body[:body.index("\n}\n")]
         assert body.count("consumers_sync();") == 2, mainloop

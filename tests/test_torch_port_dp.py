@@ -1,6 +1,9 @@
-"""The data-parallel slice as a whole: a small flagship trained three Adam
-steps in f32 on the CPU from the same numpy parameters and global batch by
-three runs,
+"""The data-parallel slice as a whole: a small flagship (heads of 128 and
+of 64), and a small BERT whose heads are 256 wide (hidden 64 over 2 heads,
+FFN 512: kdim = 512 / 2, the head dim of BERT-base; Dropout at 0, so that
+no random mask separates the two packages), each trained three Adam steps
+in f32 on the CPU from the same numpy parameters and global batch by three
+runs,
 
 - the JAX package's DataParallelTrainingInstance on 2 virtual CPU devices,
   whose attention runs the per-head Pallas kernels in interpret mode
@@ -30,6 +33,8 @@ import torch.distributed as dist
 
 from bench import build_flagship_cg as jax_build_flagship_cg
 from flexflow_tpu.kernels import flash_attention as jfa
+from flexflow_tpu.models import BertConfig as JaxBertConfig
+from flexflow_tpu.models import build_bert as jax_build_bert
 from flexflow_tpu.op_attrs.ops.loss_functions import (
     SparseCategoricalCrossEntropyLossAttrs as JaxSCCE,
 )
@@ -39,7 +44,7 @@ from flexflow_tpu_torch.interop import params_from_numpy, params_to_numpy
 from flexflow_tpu_torch.kernels import flash_attention as tfa
 from flexflow_tpu_torch.kernels import ops as tops
 from flexflow_tpu_torch.local_execution import ModelTrainingInstance
-from flexflow_tpu_torch.models import build_flagship_cg
+from flexflow_tpu_torch.models import BertConfig, build_bert, build_flagship_cg
 from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
 from flexflow_tpu_torch.parallel import DataParallelTrainingInstance, init_file_group
 from flexflow_tpu_torch.pcg import AdamOptimizerAttrs
@@ -47,6 +52,12 @@ from test_torch_port_once import once_per_session
 
 REPO = Path(__file__).resolve().parent.parent
 SMALL = dict(batch=4, seq=128, embed=256, heads=2, layers=2, vocab=512)
+# the small BERT: BertConfig's fields, then the widths the fixture reads
+SMALL_BERT = dict(vocab_size=512, hidden_size=64, num_encoder_layers=2, num_heads=2,
+                  dim_feedforward=512, hidden_dropout_prob=0.0,
+                  attention_probs_dropout_prob=0.0, classifier_dropout=0.0,
+                  sequence_length=128, batch_size=4)
+BERT = dict(model="bert", bert=SMALL_BERT, batch=4, seq=128, embed=64, layers=2, vocab=512)
 STEPS = 3
 RANKS = 2
 
@@ -58,7 +69,7 @@ WORKER = textwrap.dedent(
     import torch
     import torch.distributed as dist
     from flexflow_tpu_torch.interop import params_from_numpy, params_to_numpy
-    from flexflow_tpu_torch.models import build_flagship_cg
+    from flexflow_tpu_torch.models import BertConfig, build_bert, build_flagship_cg
     from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
     from flexflow_tpu_torch.parallel import DataParallelTrainingInstance, init_file_group
     from flexflow_tpu_torch.pcg import AdamOptimizerAttrs
@@ -66,7 +77,10 @@ WORKER = textwrap.dedent(
     torch.set_num_threads(2)
     rank, work, cfg = int(sys.argv[1]), sys.argv[2], json.loads(sys.argv[3])
     init_file_group(os.path.join(work, "store"), rank, int(sys.argv[4]), device="cpu")
-    graph, logits = build_flagship_cg(**cfg)
+    if cfg.get("model") == "bert":
+        (graph, logits), name = build_bert(BertConfig(**cfg["bert"])), "input"
+    else:
+        (graph, logits), name = build_flagship_cg(**cfg), "x"
     inst = DataParallelTrainingInstance(graph, logits, SparseCategoricalCrossEntropyLossAttrs(),
                                         AdamOptimizerAttrs(alpha=1e-3), device="cpu")
     opt = inst.initialize(seed=0)[1]
@@ -74,15 +88,15 @@ WORKER = textwrap.dedent(
     params = params_from_numpy(graph, {k: data[k] for k in data.files if k.startswith("n")}, "cpu")
     x, y = data["x"], data["y"]
     try:
-        inst.train_step(params, opt, {"x": x[:3]}, y[:3])
+        inst.train_step(params, opt, {name: x[:3]}, y[:3])
         refused = ""
     except ValueError as e:
         refused = str(e)
-    _, grads = inst.loss_and_grads(params, {"x": x}, y)
+    _, grads = inst.loss_and_grads(params, {name: x}, y)
     out = {f"grad_{k}": g.numpy() for k, g in grads.items()}
     losses = []
     for _ in range(3):
-        params, opt, loss, _ = inst.train_step(params, opt, {"x": x}, y)
+        params, opt, loss, _ = inst.train_step(params, opt, {name: x}, y)
         losses.append(float(loss))
     out.update({f"param_{k}": v for k, v in params_to_numpy(params).items()})
     np.savez(os.path.join(work, f"rank{rank}.npz"), losses=np.array(losses),
@@ -97,10 +111,19 @@ def _rel(a, b):
     return np.linalg.norm(a - b) / np.linalg.norm(b)
 
 
+def _graphs(cfg):
+    """(JAX graph and logits, port graph and logits, input name) of a
+    fixture config: the small BERT, or the small flagship."""
+    if cfg.get("model") == "bert":
+        return (jax_build_bert(JaxBertConfig(**cfg["bert"])),
+                build_bert(BertConfig(**cfg["bert"])), "input")
+    return jax_build_flagship_cg(**cfg), build_flagship_cg(**cfg), "x"
+
+
 def _jax_dp(cfg, init, x, y):
     """Losses, first-step gradients and final parameters of the JAX DP
     trainer on 2 CPU devices, with the count of sharded flash calls."""
-    graph, logits = jax_build_flagship_cg(**cfg)
+    (graph, logits), _, name = _graphs(cfg)
     inst = JaxDP(graph, logits, JaxSCCE(), JaxAdam(alpha=1e-3), devices=jax.devices()[:RANKS])
     params, opt = inst.initialize(seed=0)
     params = {k: jnp.asarray(init[k]) for k in params}
@@ -113,12 +136,12 @@ def _jax_dp(cfg, init, x, y):
         mp.setattr(jfa, "sharded_flash_attention", lambda *a, **k: calls.append(1) or sharded(*a, **k))
         with jfa.flash_mesh(inst.mesh, "data", None, True):
             grads = jax.jit(
-                jax.grad(lambda p, x, y: inst.loss_fn(p, {"x": x}, y)[0]),
+                jax.grad(lambda p, x, y: inst.loss_fn(p, {name: x}, y)[0]),
                 in_shardings=(inst.replicated, inst.batch_sharded, inst.batch_sharded),
             )(params, xj, yj)
         losses = []
         for _ in range(STEPS):
-            params, opt, loss, _ = inst.train_step(params, opt, {"x": xj}, yj)
+            params, opt, loss, _ = inst.train_step(params, opt, {name: xj}, yj)
             losses.append(float(loss))
     return dict(losses=losses, grads={k: np.asarray(g) for k, g in grads.items()},
                 params={k: np.asarray(v) for k, v in params.items()}, sharded_calls=len(calls))
@@ -138,40 +161,39 @@ def _port_dp(work: Path, cfg):
     return [dict(np.load(work / f"rank{r}.npz")) for r in range(RANKS)]
 
 
-def _port_single(graph, logits, init, x, y):
+def _port_single(graph, logits, init, x, y, name="x"):
     inst = ModelTrainingInstance(graph, logits, SparseCategoricalCrossEntropyLossAttrs(),
                                  AdamOptimizerAttrs(alpha=1e-3), device="cpu")
     params = params_from_numpy(graph, init, "cpu")
     opt = inst.initialize(seed=0)[1]
-    _, grads = inst.loss_and_grads(params, {"x": x}, y)
+    _, grads = inst.loss_and_grads(params, {name: x}, y)
     losses = []
     for _ in range(STEPS):
-        params, opt, loss, _ = inst.train_step(params, opt, {"x": x}, y)
+        params, opt, loss, _ = inst.train_step(params, opt, {name: x}, y)
         losses.append(float(loss))
     return dict(losses=losses, grads={k: g.numpy() for k, g in grads.items()},
                 params=params_to_numpy(params))
 
 
-@pytest.fixture(scope="module", params=[2, 4], ids=["heads128", "heads64"])
+@pytest.fixture(scope="module", params=[2, 4, "bert"], ids=["heads128", "heads64", "bert_d256"])
 def runs(request, tmp_path_factory):
-    return once_per_session(tmp_path_factory, f"dp_heads{request.param}",
-                            lambda work: _runs(work, request.param))
+    key = "dp_bert_d256" if request.param == "bert" else f"dp_heads{request.param}"
+    return once_per_session(tmp_path_factory, key, lambda work: _runs(work, request.param))
 
 
 def _runs(work, heads):
-    cfg = dict(SMALL, heads=heads)
-    jinst = JaxDP(*jax_build_flagship_cg(**cfg), JaxSCCE(), JaxAdam(alpha=1e-3),
-                  devices=jax.devices()[:RANKS])
+    cfg = BERT if heads == "bert" else dict(SMALL, heads=heads)
+    (jgraph, jlogits), (graph, logits), name = _graphs(cfg)
+    jinst = JaxDP(jgraph, jlogits, JaxSCCE(), JaxAdam(alpha=1e-3), devices=jax.devices()[:RANKS])
     init = {k: np.array(v) for k, v in jinst.initialize(seed=0)[0].items()}
     rs = np.random.RandomState(0)
     x = rs.randn(cfg["batch"], cfg["seq"], cfg["embed"]).astype(np.float32)
     y = rs.randint(0, cfg["vocab"], (cfg["batch"], cfg["seq"])).astype(np.int32)
     np.savez(work / "inputs.npz", x=x, y=y, **init)
     ranks = _port_dp(work, cfg)
-    graph, logits = build_flagship_cg(**cfg)
     return dict(
         cfg=cfg, init=init, jax=_jax_dp(cfg, init, x, y),
-        single=_port_single(graph, logits, init, x, y),
+        single=_port_single(graph, logits, init, x, y, name),
         ranks=[dict(losses=list(r["losses"]),
                     grads={k[5:]: v for k, v in r.items() if k.startswith("grad_")},
                     params={k[6:]: v for k, v in r.items() if k.startswith("param_")},

@@ -145,8 +145,12 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
         ((2, 512, 1024), 16, torch.bfloat16, "cuda", True),  # d=64 kernels
         ((2, 100, 256), 2, torch.bfloat16, "cuda", False),  # s not a tile multiple
         ((2, 512, 1024), 8, torch.float32, "cpu", True),  # plain versions
-        ((2, 512, 1024), 32, torch.bfloat16, "cuda", False),  # d=32
-        ((2, 512, 192), 3, torch.bfloat16, "cuda", False),  # d=64, odd head count
+        ((2, 512, 16384), 32, torch.bfloat16, "cuda", False),  # d=512: no kernel past 256
+        ((2, 512, 792), 3, torch.bfloat16, "cuda", False),  # d=264: past 256
+        ((2, 512, 1024), 32, torch.bfloat16, "cuda", True),  # d=32, padded to 64
+        ((2, 512, 192), 3, torch.bfloat16, "cuda", True),  # d=64, odd head count: no pair
+        ((2, 512, 768), 8, torch.bfloat16, "cuda", True),  # d=96
+        ((2, 512, 36), 3, torch.bfloat16, "cuda", False),  # d=12, no multiple of 8
     ],
 )
 def test_flash_gate_follows_the_kernels(shape, heads, dtype, device, ok):
@@ -157,14 +161,14 @@ def test_gate_constants_match_the_cuda_source():
     src = "".join((build.CSRC_DIR / f).read_text()
                   for f in ("flash_attention.cu", "flash_tiles.cuh", "flash_fwd_sm90.cuh",
                             "flash_bwd_sm90.cuh"))
-    for d in tfa.HEAD_DIMS:
+    for d in tfa.PADDED_WIDTHS:
         assert re.search(rf"FLASH_FWD_KERNEL\(ff_flash_fwd_\w*kernel, {d}\)", src), d
         assert re.search(rf"FLASH_BWD_KERNELS\(ff_flash_bwd_dkv_\w*kernel, "
                          rf"ff_flash_bwd_dq_\w*kernel, {d}\)", src), d
         assert re.search(rf"FLASH_DELTA_KERNEL\(ff_flash_delta_\w*kernel, {d}\)", src), d
     # one delta body for all four delta kernels; its s tile is the gate's
     # tile, so no delta tile has a ragged s
-    assert src.count("delta_body<D>(dout, od, o, ol, delta, S, H);") == 1
+    assert src.count("delta_body<D>(dout, od, o, ol, delta, S, H, d);") == 1
     assert "delta_rows_body" not in src
     assert f"constexpr int DELTA_S_TILE = {tfa.TILE};" in src
     # each FLASH_BWD_KERNELS pair calls the two bodies at its head dim
@@ -186,8 +190,8 @@ def test_gate_constants_match_the_cuda_source():
     for pre in ("FWD", "BWD"):
         assert f"constexpr int {pre}_WG_ROWS = {tfa.TILE};" in src
         assert f"constexpr int {pre}_BM = 2 * {pre}_WG_ROWS;" in src
-    # the forward's key tile (FwdTiles<D>::BN) is 64 rows at d=256, else 128
-    fwd_bn = re.search(r"static constexpr int BN = D == 256 \? (\d+) : (\d+);", src)
+    # the forward's key tile (FwdTiles<D>::BN) is 64 rows past width 128, else 128
+    fwd_bn = re.search(r"static constexpr int BN = D > 128 \? (\d+) : (\d+);", src)
     bn = {"FWD_D256": int(fwd_bn.group(1)), "FWD": int(fwd_bn.group(2)),
           "BWD": int(re.search(r"constexpr int BWD_BN = (\d+);", src).group(1))}
     for pre, rows in bn.items():

@@ -175,7 +175,12 @@ def test_gate_follows_the_kernels():
     assert trf.ring_flash_supported(q, kv, kv, f32, cpu)
     assert trf.ring_flash_supported(q, kv, kv, bf16, "cuda")
     assert not trf.ring_flash_supported(q, kv, kv, f32, "cuda")  # the kernels are bf16
-    assert not trf.ring_flash_supported((2, 4, 256, 32), (2, 4, 256, 32), (2, 4, 256, 32), f32, cpu)
+    assert not trf.ring_flash_supported((2, 4, 256, 264), (2, 4, 256, 264), (2, 4, 256, 264), f32,
+                                        cpu)  # no kernel past d=256
+    for d in (8, 32, 96, 192, 256):  # every multiple of 8 up to 256
+        assert trf.ring_flash_supported((2, 4, 256, d), (2, 4, 256, d), (2, 4, 256, d), bf16, "cuda")
+    assert not trf.ring_flash_supported((2, 4, 256, 12), (2, 4, 256, 12), (2, 4, 256, 12), bf16,
+                                        "cuda")
     assert not trf.ring_flash_supported((2, 4, 96, 64), (2, 4, 96, 64), (2, 4, 96, 64), f32, cpu)
     assert not trf.ring_flash_supported(q, kv, (2, 4, 512, 64), f32, cpu)  # vd != kd
 
@@ -218,22 +223,27 @@ def test_c_interface_matches_the_declared_signatures():
         assert m, name
         assert len(m.group(1).split(",")) == len(argtypes), name
     for kind in ("FWD", "DQ", "DKV"):
-        for d in tfa.HEAD_DIMS:
+        for d in tfa.PADDED_WIDTHS:
             assert re.search(rf"RING_{kind}_KERNEL\(ff_ring_\w+, {d}\)", src), (kind, d)
     assert "fwd_mainloop<D>(tq, tk, tv, RingEpilogue<D>" in src
     assert re.search(r"RING_FWD_KERNEL\(NAME, D\)[^}]*__grid_constant__ CUtensorMap tq", src)
-    assert "dq_mainloop<D>(tq, tk, tv, tdo, lse, delta, RingGradEpilogue<D>{dq, S}," in src
-    assert ("dkv_mainloop<D>(tq, tk, tv, tdo, lse, delta, RingGradEpilogue<D>{dk, T},\n"
-            "                  RingGradEpilogue<D>{dv, T}, FwdShape{S, T, H, q_off, k_off") in src
+    # up to width 128 the 128-row mainloops, past it the head-split ones
+    for split in ("", "_split"):
+        assert f"dq_mainloop{split}<D>(tq, tk, tv, tdo, lse, delta, RingGradEpilogue<D>{{dq, S}}, sh)" in src
+        assert (f"dkv_mainloop{split}<D>(tq, tk, tv, tdo, lse, delta, RingGradEpilogue<D>{{dk, T}},"
+                in src)
+    assert "const FwdShape sh{S, T, H, q_off, k_off, causal, scale, d, 1};" in src
     for kind in ("DQ", "DKV"):
         macro = re.search(rf"#define RING_{kind}_KERNEL\(NAME, D\)(.*?)\n\n", src, re.S).group(1)
         assert "__launch_bounds__(BWD_THREADS, 1)" in macro, kind
         assert macro.count("const __grid_constant__ CUtensorMap") == 4, kind
         assert "__grid_constant__ CUtensorMap tdo" in macro, kind
     # q and dout map S rows, k and v T rows; dQ's grid covers S, dK/dV's T
-    for i, operand in enumerate(("q, lq, S", "k, lk, T", "v, lv, T", "dout, lo, S")):
-        assert f"fwd_tensor_map<D>(&maps[{i}], {operand}, H, B, BWD_BN)" in src
-    assert src.count("bwd_tensor_maps<D>(maps, q, lq, k, lk, v, lv, dout, lo, S, T, H, B)") == 2
-    assert "bwd_grid(S, H, B), BWD_THREADS, BwdTiles<D>::DQ_SMEM" in src
-    assert "bwd_grid(T, H, B), BWD_THREADS, BwdTiles<D>::DKV_SMEM" in src
+    for i, (operand, rows) in enumerate((("q, lq", "S"), ("k, lk", "T"), ("v, lv", "T"),
+                                         ("dout, lo", "S"))):
+        assert f"fwd_tensor_map(&maps[{i}], {operand}, d, {rows}, H, B, BWD_BN)" in src
+    assert src.count("bwd_tensor_maps(maps, d, q, lq, k, lk, v, lv, dout, lo, S, T, H, B)") == 2
+    assert "bwd_grid_of<D>(S, H, B), BWD_THREADS, smem" in src
+    assert "bwd_grid_of<D>(T, H, B), BWD_THREADS, smem" in src
+    assert "return D > 128 ? split_grid(rows, H, B) : bwd_grid(rows, H, B);" in src
     assert "ring_flash.cu" in build.SOURCES
