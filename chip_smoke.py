@@ -31,17 +31,26 @@ Phases, each printing one JSON line:
                   the d=64 interleaved pair causal at seq 512, the d=256
                   kernels at BERT-base's attention (b=64, h=12, s=512), plus
                   small causal cases, the tiling edges (s=192 and 320) and
-                  the delta kernels' tails (delta_tails);
-4. parity         two small flagships (heads of 128, and heads of 64) trained
-                  two steps on the card (bf16, through the kernels) and on
-                  the CPU (f32, plain versions) from the same parameters: the
-                  losses must agree;
+                  the delta kernels' tails (delta_tails); then every head
+                  dim the padded widths added (kernels_head_dims) and every
+                  head dim past 256 on the wide kernels (kernels_wide_dims:
+                  d = 264-2048 against the plain versions, carried uneven
+                  ring steps, timed at bench.py --heads 2's, BERT-base at
+                  num_heads=8's and --heads 1's attention, per-head and
+                  ring shapes beside SDPA);
+4. parity         small flagships (heads of 128, 64, 32 and, on the wide
+                  kernels, 384) trained two steps on the card (bf16,
+                  through the kernels) and on the CPU (f32, plain versions)
+                  from the same parameters: the losses must agree;
 5. train          the full-width flagship (12 layers, hidden 1024, 8 heads of
                   128, seq 512, vocab 32000, batch 64), bf16 compute,
                   Adam(1e-4): one warm-up step, then five timed steps with
                   every launch count set to 0 just before and read just after;
 6. train_heads16  the same for the 16-head config (16 heads of 64), whose
                   attention runs the d=64 kernels on the fused projection;
+                  train_heads32 and train_heads2 for bench.py --heads 32
+                  (rows 1-3 at d=32) and --heads 2 (heads of 512: rows 1-3
+                  on the wide kernels, each 12 times a step);
 7. search         the Unity search (flexflow_tpu_torch.compiler) plans the
                   full flagship for one node of 8 H100s (NVLink and
                   InfiniBand at datasheet rates): the card's calibrated bf16
@@ -155,10 +164,14 @@ then, in a one-rank NCCL process group opened over a file:// store:
                   attention runs the per-head [b, h, s, d] kernels;
 18. train_dp_seq2048  the same for the seq-2048 flagship (batch 16, seq 2048),
                   whose attention runs the same kernels at s > block;
+    (fit_bert_dp BERT-base and train_heads2_dp bench.py --heads 2's
+    flagship through the same trainer: rows 9-12 at d=256, rows 9-11 on
+    the wide kernels, the first two losses within 1e-2 of train_heads2's)
 19. ring_replay   the ring schedule of 4 ranks replayed on the card through
                   the ring-flash step kernels at the long-context shape (b=4,
-                  h=8, s=8192, d=128, causal; and b=1 non-causal), held
-                  against the full-sequence per-head kernels;
+                  h=8, s=8192, d=128, causal; and b=1 non-causal; d=96; and
+                  h=2 at d=384 on the wide step kernels), held against the
+                  full-sequence per-head kernels;
 20. parity_sp     two small causal parallel transformers (seq 1024, heads of
                   128 and of 64) trained two steps by the sequence-parallel
                   trainer on the card (bf16, ring kernels) and on the CPU
@@ -535,6 +548,25 @@ WIDTH_KERNELS = {
     "ring_dkv_step": ("ff_ring_dkv_step_p192_kernel", "ff_ring_dkv_step_d256_kernel"),
 }
 DELTA_WRAPPERS = ("flash_delta", "flash_delta_d64", "flash_delta_bhsd")
+# the wide kernels of head dims past 256 (csrc/flash_wide.cu), by the
+# wrapper that launches each: rows 1-3 (seq-major), 9-12 (per-head) and
+# 13-15 (the ring steps), whose narrow wrappers hand them every d > 256
+WIDE_SOURCE = "flexflow_tpu_torch/csrc/flash_wide.cu"
+WIDE_KERNELS = {
+    "flash_fwd_wide": ("ff_flash_fwd_wide_kernel",),
+    "flash_delta_wide": ("ff_flash_delta_wide_kernel",),
+    "flash_bwd_wide": ("ff_flash_bwd_dkv_wide_kernel", "ff_flash_bwd_dq_wide_kernel"),
+    "flash_fwd_bhsd_wide": ("ff_flash_fwd_bhsd_wide_kernel",),
+    "flash_delta_bhsd_wide": ("ff_flash_delta_bhsd_wide_kernel",),
+    "flash_bwd_bhsd_wide": ("ff_flash_bwd_dkv_bhsd_wide_kernel",
+                            "ff_flash_bwd_dq_bhsd_wide_kernel"),
+    "ring_fwd_step_wide": ("ff_ring_fwd_step_wide_kernel",),
+    "ring_dq_step_wide": ("ff_ring_dq_step_wide_kernel",),
+    "ring_dkv_step_wide": ("ff_ring_dkv_step_wide_kernel",),
+}
+WIDE_DESIGN = ("wgmma+tma: a block owns a chunk of 256 output columns and streams the head dim "
+               "in 64-column panels (the scores over all of d, once per chunk)")
+WIDE_DELTA_DESIGN = DELTA_DESIGN + ", 32 lanes a row and a 16-byte load a lane per 256 columns"
 REDESIGNED = {
     "flash_delta": ("ff_flash_delta_kernel",),
     "flash_delta_d64": ("ff_flash_delta_d64_kernel",),
@@ -598,9 +630,11 @@ def phase_build() -> dict:
         ptxas.update(build.parse_ptxas(info.ptxas_log))
     warnings = [line.strip() for info in infos.values() for line in info.ptxas_log.splitlines()
                 if "warning" in line.lower()]
-    # every kernel of both libraries, those of every padded width included
+    # every kernel of the three libraries, those of every padded width and
+    # the wide ones included
     for name in (*(n for names in REDESIGNED.values() for n in names),
-                 *(n for names in WIDTH_KERNELS.values() for n in names)):
+                 *(n for names in WIDTH_KERNELS.values() for n in names),
+                 *(n for names in WIDE_KERNELS.values() for n in names)):
         if ptxas[name].get("spill_store_bytes", 0) or ptxas[name].get("spill_load_bytes", 0):
             raise AssertionError(f"{name} spills: {ptxas[name]}")
     lib = fa.library()
@@ -616,6 +650,13 @@ def phase_build() -> dict:
     for which, name in enumerate(("fwd", "bwd_dkv", "bwd_dq"), start=6):
         smem[f"ff_flash_{name}_d256_kernel"] = lib.ff_flash_smem_bytes(which)
         smem[f"ff_flash_{name}_p192_kernel"] = lib.ff_flash_smem_bytes(which + 3)
+    # the wide kernels: 0 the forward (flash and ring), 1 dK/dV, 2 dQ
+    wide_lib = fa.wide_library()
+    for names in WIDE_KERNELS.values():
+        for name in names:
+            if "delta" not in name:
+                kind = 1 if "dkv" in name else 2 if "dq" in name else 0
+                smem[name] = wide_lib.ff_wide_smem_bytes(kind)
     if max(smem.values()) > 232448:
         raise AssertionError(f"a kernel asks for more shared memory than a block has: {smem}")
     # rows 1 and 3 at d=256 (the forward mainloop and the head-split backward
@@ -632,6 +673,12 @@ def phase_build() -> dict:
         "d256_kernels": {"design": D256_DESIGN, **d256},
         "padded_width_kernels": {wrapper: {name: ptxas[name] for name in names}
                                  for wrapper, names in WIDTH_KERNELS.items()},
+        # the head dims past 256: ptxas's registers and spills beside each
+        # kernel's shared memory
+        "wide_kernels": {"design": WIDE_DESIGN, **{
+            wrapper: {name: dict(ptxas[name], dynamic_smem_bytes=smem.get(name, 0))
+                      for name in names}
+            for wrapper, names in WIDE_KERNELS.items()}},
         "ptxas_warnings": warnings,
     })
     return ptxas
@@ -899,11 +946,26 @@ def _grad_err(checks) -> float:
     return max(checks[g]["max_abs_err"] for g in ("dq", "dk", "dv"))
 
 
+def _sdpa_backend(q, k, v, causal: bool) -> str:
+    """The backend F.scaled_dot_product_attention picks for these operands
+    (flash and cuDNN refuse head dims past 256)."""
+    import torch
+
+    try:
+        from torch.nn.attention import SDPBackend
+
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, None, 0.0, causal)).name
+    except (AttributeError, ImportError, RuntimeError, TypeError, ValueError) as e:
+        return f"unknown ({type(e).__name__})"
+
+
 def _measure(flash, b: int, s: int, seed: int = 0, iters: int = 20, plain_iters: int = 3,
-             causal: bool = False):
+             causal: bool = False, library_bwd: bool = True):
     """Compare, then time each kernel of `flash` beside its plain version,
     its bound and the library yardstick at (b, h, s, d). The bound of a
-    causal run counts the unmasked pairs only."""
+    causal run counts the unmasked pairs only. `library_bwd`: also time
+    aten's flash and cuDNN's backward (which refuse head dims past 256);
+    ms["sdpa_backend"] names the backend SDPA picks."""
     import torch.nn.functional as F
 
     h, d = flash.h, flash.d
@@ -927,8 +989,10 @@ def _measure(flash, b: int, s: int, seed: int = 0, iters: int = 20, plain_iters:
         F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal).backward(do4)
 
     ms["sdpa_fwd_bwd"] = time_ms(sdpa_fwd_bwd, iters)
-    library_bwd = _library_bwd_ms(q, k, v, do4, causal, iters)
-    ms["aten_bwd"], ms["cudnn_bwd"] = library_bwd[ATEN_BWD], library_bwd[CUDNN_BWD]
+    ms["sdpa_backend"] = _sdpa_backend(q, k, v, causal)
+    times = (_library_bwd_ms(q, k, v, do4, causal, iters) if library_bwd else
+             {ATEN_BWD: None, CUDNN_BWD: None})
+    ms["aten_bwd"], ms["cudnn_bwd"] = times[ATEN_BWD], times[CUDNN_BWD]
     ms["einsum_delta"] = time_ms(lambda: flash.einsum_delta(do, o), iters)
 
     elems = b * s * h * d  # one [b, s, h*d] operand
@@ -1075,6 +1139,7 @@ def phase_kernels():
     kernels += _per_head_kernels(causal)
     kernels += _ring_kernels()
     kernels += _head_dim_kernels()
+    kernels += _wide_dim_kernels()
     emit({"phase": "kernels",
           "shapes": {"d128": {"b": 64, "h": 8, "s": 512}, "d128_seq2048": s2k,
                      "d64": {"b": 64, "h": 16, "s": 512}, "d256": BERT_ATTENTION,
@@ -1576,32 +1641,195 @@ def _head_dim_kernels() -> list:
     return entries
 
 
+# Head dims past 256, the wide kernels' (every d % 8 == 0 there): a panel
+# across d (264, 520), whole chunks (512, 768, 1024, 2048) and a last chunk
+# of one, two or three panels (264 and 520, 320, 384).
+WIDE_HEAD_DIMS = (264, 320, 384, 512, 520, 768, 1024, 2048)
+WIDE_TIMED = {  # the seq-major shapes timed past 256: name -> (b, h, s, d)
+    "heads2": (64, 2, 512, 512),  # bench.py --heads 2 (train_heads2)
+    "bert_heads8": (64, 8, 512, 384),  # BERT-base at num_heads=8: kdim = 3072 / 8
+    "heads1": (64, 1, 512, 1024),  # bench.py --heads 1
+}
+WIDE_BHSD = dict(b=64, h=2, s=512, d=512)  # train_heads2_dp's per-head attention
+WIDE_RING = dict(b=4, h=2, s=8192, d=512)  # a ring step at train_sp's shape, heads of 512
+
+
+def _wide_entry(name, replaces, ms, bounds, checks, which, flash, **extra):
+    """A wide kernel's entry: its library call is SDPA's forward (fwd), its
+    forward+backward (bwd; aten's flash and cuDNN backwards refuse d > 256),
+    or the einsum (delta), with the backend SDPA picks named."""
+    backend = ms["sdpa_backend"]
+    library = {"fwd": (ms["sdpa_fwd"], f"F.scaled_dot_product_attention forward ({backend})"),
+               "delta": (ms["einsum_delta"], flash.EINSUM_DELTA),
+               "bwd": (ms["sdpa_fwd_bwd"], "F.scaled_dot_product_attention forward+backward "
+                                          f"({backend}), against the port's fwd+delta+bwd")}
+    lib_ms, call = library[which]
+    if which == "bwd":
+        extra.update(port_fwd_delta_bwd_ms=ms["fwd"] + ms["delta"] + ms["bwd"],
+                     sdpa_fwd_ms=ms["sdpa_fwd"])
+    return dict(name=name, route="cuda", source=WIDE_SOURCE,
+                replaces=replaces if isinstance(replaces, list) else f"{TPU_KERNELS}:{replaces}",
+                **_numbers(ms, bounds, checks, which, lib_ms), library_call=call,
+                sdpa_backend=backend, checks={k: checks[k] for k in _OUTPUTS[which]}, **extra)
+
+
+def _wide_side(ms, bounds, checks, which, shape, **extra):
+    lib = {"fwd": "sdpa_fwd", "delta": "einsum_delta", "bwd": "sdpa_fwd_bwd"}[which]
+    if which == "bwd":
+        extra.update(port_fwd_delta_bwd_ms=ms["fwd"] + ms["delta"] + ms["bwd"])
+    return _side(ms, bounds, checks, which, ms[lib], shape, sdpa_backend=ms["sdpa_backend"],
+                 **extra)
+
+
+def _wide_dim_kernels() -> list:
+    """Rows 1-3 (seq-major), 9-12 (per-head, contiguous and on the einsum's
+    view) and 13-15 (the ring steps) at head dims past 256, on the wide
+    kernels. Each against its plain version, full and causal, repeating
+    bitwise, at b=2, h=2, s=256 for d in WIDE_HEAD_DIMS; a carried, partly
+    masked ring step with s_blk = 320 != t_blk = 192 at d = 264, 384 and
+    520, and at d=384 a step whose first 64 rows see no key and a fully
+    masked one (the rows' carried (m, l) copied across, bitwise); the
+    s = 192 and 320 edges at d = 264 and 384; the delta's tails at d = 264
+    and 520. Then timed beside their bounds and
+    SDPA (the backend it picks named): the seq-major kernels at WIDE_TIMED's
+    shapes, the per-head ones at WIDE_BHSD on the einsum's view and at
+    16x2x2048x512 (past the JAX package's 1024-row block: its _fwd loop and
+    tiled _bwd), the ring steps at WIDE_RING causal on the einsum's view."""
+    import torch
+    import torch.nn.functional as F
+
+    checks = {}
+    for i, d in enumerate(WIDE_HEAD_DIMS):
+        for c in (False, True):
+            tag, seed = f"d{d}_{'causal' if c else 'full'}", 300 + 10 * i + 2 * c
+            checks[tag] = _compare(Flash(2, d), 2, 256, causal=c, seed=seed)[1]
+            checks[f"bhsd_{tag}"] = _compare(FlashBHSD(2, d), 2, 256, causal=c, seed=seed + 1)[1]
+            checks[f"bhsd_{tag}_strided"] = _compare(FlashBHSD(2, d, strided=True), 2, 256,
+                                                     causal=c, seed=seed + 3)[1]
+            checks[f"ring_{tag}"] = RingCase(2, 2, 256, 256, d, 0, 0, c,
+                                             seed=seed + 5).check(measure=False)
+    for d in (264, 384, 520):
+        carry = RingCase(2, 4, 320, 192, d, 192, 0, True, seed=400 + d).fwd()
+        checks[f"ring_uneven_d{d}"] = RingCase(2, 4, 320, 192, d, 192, 64, True, seed=401 + d,
+                                               carry=carry).check(measure=False)
+    # the tiling edges: s % 128 == 64 leaves the forward's last block a
+    # warpgroup without rows, at s = 192 and after two full blocks at 320
+    edges = {f"s{s}_{name}_{'causal' if c else 'full'}":
+             _compare(flash, 2, s, causal=c, seed=420 + s + d + c)[1]
+             for s in (192, 320) for d in (264, 384)
+             for name, flash in ((f"d{d}", Flash(2, d)),
+                                 (f"bhsd_d{d}_h3_strided", FlashBHSD(3, d, strided=True)))
+             for c in (False, True)}
+    carry = RingCase(2, 4, 320, 192, 384, 192, 0, True, seed=410).fwd()
+    for name, k_off in (("ring_blind_rows_d384", 64), ("ring_masked_d384", 320)):
+        checks[name] = RingCase(2, 4, 320, 192, 384, 0, k_off, True, seed=411 + k_off,
+                                carry=carry).check(measure=False)
+    tails = {}
+    for i, (name, flash, s) in enumerate((("d264_h18_s192", Flash(18, 264), 192),
+                                          ("bhsd_d520_h19_s320_strided",
+                                           FlashBHSD(19, 520, strided=True), 320))):
+        gen = torch.Generator(device="cuda").manual_seed(430 + i)
+        do, o = flash.grad_out(1, s, gen), flash.grad_out(1, s, gen)
+        delta = flash.delta(do, o)
+        tails[name] = _check(name, _errors(delta, flash.delta_plain(do, o)), "rel_err",
+                             DELTA_BOUND)
+        if not torch.equal(flash.delta(do, o), delta):
+            raise AssertionError(f"{name}: delta does not repeat bitwise")
+
+    runs = {key: (_measure(Flash(h, d), b, s, seed=440 + i, iters=10, library_bwd=False),
+                  dict(b=b, h=h, s=s, d=d))
+            for i, (key, (b, h, s, d)) in enumerate(WIDE_TIMED.items())}
+    (ms, bounds, ck), shape = runs["heads2"]
+
+    def sides(which):
+        return {key: _wide_side(*runs[key][0], which, runs[key][1])
+                for key in ("bert_heads8", "heads1")}
+
+    entries = [
+        _wide_entry("flash_fwd_wide", 674, ms, bounds, ck, "fwd", Flash, shape=shape,
+                    **sides("fwd")),
+        _wide_entry("flash_delta_wide", 1203, ms, bounds, ck, "delta", Flash, shape=shape,
+                    **sides("delta")),
+        _wide_entry("flash_bwd_wide", 976, ms, bounds, ck, "bwd", Flash, shape=shape,
+                    **sides("bwd")),
+    ]
+    wb, view = WIDE_BHSD, "einsum view of [b, s, h, d]"
+    ms, bounds, ck = _measure(FlashBHSD(wb["h"], wb["d"], strided=True), wb["b"], wb["s"],
+                              seed=450, iters=10, library_bwd=False)
+    ms2, bounds2, ck2 = _measure(FlashBHSD(wb["h"], wb["d"], strided=True), 16, 2048,
+                                 seed=451, iters=5, library_bwd=False)
+    shape, s2k = dict(wb, layout=view), dict(b=16, h=wb["h"], s=2048, d=wb["d"], layout=view)
+    entries += [
+        _wide_entry("flash_fwd_bhsd_wide", 258, ms, bounds, ck, "fwd", FlashBHSD, shape=shape,
+                    seq2048=_wide_side(ms2, bounds2, ck2, "fwd", s2k,
+                                       replaces=f"{TPU_KERNELS}:164")),
+        _wide_entry("flash_delta_bhsd_wide", 433, ms, bounds, ck, "delta", FlashBHSD,
+                    shape=shape, seq2048=_wide_side(ms2, bounds2, ck2, "delta", s2k)),
+        _wide_entry("flash_bwd_bhsd_wide", 454, ms, bounds, ck, "bwd", FlashBHSD, shape=shape,
+                    seq2048=_wide_side(ms2, bounds2, ck2, "bwd", s2k,
+                                       replaces=[f"{TPU_KERNELS}:1286", f"{TPU_KERNELS}:324",
+                                                 f"{TPU_KERNELS}:375"])),
+    ]
+    r = WIDE_RING
+    main = RingCase(r["b"], r["h"], r["s"], r["s"], r["d"], 0, 0, True, seed=460, strided=True)
+    main.check(measure=True, iters=5)
+    sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(main.q, main.k, main.v,
+                                                             is_causal=True), 5)
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (main.q, main.k, main.v))
+    sdpa_bwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        ql, kl, vl, is_causal=True).backward(main.do), 5)
+    backend = _sdpa_backend(main.q, main.k, main.v, True)
+    library = {"fwd": (sdpa_ms, f"F.scaled_dot_product_attention(is_causal=True) ({backend}), "
+                                "with the finalisation acc / l"),
+               "dq": (sdpa_bwd_ms, f"F.scaled_dot_product_attention(is_causal=True) forward+"
+                                   f"backward ({backend}), against the dq + dk/dv pair")}
+    library["dkv"] = library["dq"]
+    for kind, line, name in (("fwd", 58, "ring_fwd_step_wide"), ("dq", 121, "ring_dq_step_wide"),
+                             ("dkv", 177, "ring_dkv_step_wide")):
+        lib_ms, lib_call = library[kind]
+        extra = {} if kind == "fwd" else {"pair_ms": main.ms["dq"] + main.ms["dkv"]}
+        entries.append(dict(
+            name=name, route="cuda", source=WIDE_SOURCE, replaces=f"{RING_TPU_KERNELS}:{line}",
+            shape=main.shape, **main.numbers(kind, lib_ms), library_call=lib_call,
+            sdpa_backend=backend, **extra))
+    emit({"phase": "kernels_wide_dims", "head_dims": list(WIDE_HEAD_DIMS),
+          "checks": {"shape": {"b": 2, "h": 2, "s": 256}, **checks}, "tiling_edges": edges,
+          "delta_tails": {"shape": {"b": 1}, **tails}, "repeat_bitwise": True})
+    return entries
+
+
 def phase_ring_replay():
     """The ring schedule of 4 ranks on one card (16 forward steps,
     finalisation, delta, then 16 dq and 16 dk/dv steps, each at its global
     offsets) against the full-sequence per-head kernels on the same inputs:
-    b=4, h=8, s=8192, d=128 causal, b=1 non-causal, and b=4 causal at
-    d=96 (rows 13-15 at width 128 with the columns past 96 padding).
-    Returns the d=96 replay's launches: one replay with the counts set to
-    0 just before it."""
+    b=4, h=8, s=8192, d=128 causal, b=1 non-causal, b=4 causal at d=96
+    (rows 13-15 at width 128 with the columns past 96 padding), and b=4,
+    h=2 causal at d=384 (the wide step kernels, whose forward ping-pongs
+    the carried (m, l)). Returns the d=96 and d=384 replays' ring launches:
+    one replay each with the counts set to 0 just before it."""
     import torch
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels import ring_flash as rf
 
-    d96 = {}
-    for b, causal, d in ((4, True, 128), (1, False, 128), (4, True, 96)):
+    counted = {}
+    for b, h, causal, d in ((4, 8, True, 128), (1, 8, False, 128), (4, 8, True, 96),
+                            (4, 2, True, 384)):
         gen = torch.Generator(device="cuda").manual_seed(30 + b + d)
-        q, k, v, do = (torch.randn(b, 8, 8192, d, generator=gen, device="cuda")
+        q, k, v, do = (torch.randn(b, h, 8192, d, generator=gen, device="cuda")
                        .to(torch.bfloat16) for _ in range(4))
         fa.reset_launch_counts()
         got = rf.replay_ring(q, k, v, do, 4, causal)
+        launches = {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS if fn.launches}
         if d == 96:
-            d96 = {f"{fn.__name__}@d96": fn.launches for fn in fa.KERNEL_WRAPPERS
-                   if fn.launches}
-            want = {"ring_fwd_step@d96": 16, "ring_dq_step@d96": 16, "ring_dkv_step@d96": 16,
-                    "flash_delta_bhsd@d96": 4}
-            if d96 != want:
-                raise AssertionError(f"ring_replay d=96: launches {d96}, expected {want}")
+            want = {"ring_fwd_step": 16, "ring_dq_step": 16, "ring_dkv_step": 16,
+                    "flash_delta_bhsd": 4}
+            counted.update({f"{n}@d96": c for n, c in launches.items()})
+        elif d == 384:
+            want = {"ring_fwd_step_wide": 16, "ring_dq_step_wide": 16, "ring_dkv_step_wide": 16,
+                    "flash_delta_bhsd_wide": 4}
+            counted.update(launches)
+        if d in (96, 384) and launches != want:
+            raise AssertionError(f"ring_replay d={d}: launches {launches}, expected {want}")
         o, lse = fa.flash_fwd_bhsd(q, k, v, causal)
         delta = fa.flash_delta_bhsd(do, o)
         want = (o, *fa.flash_bwd_bhsd(q, k, v, do, lse, delta, causal))
@@ -1613,11 +1841,12 @@ def phase_ring_replay():
             o, lse = fa.flash_fwd_bhsd(q, k, v, causal)
             fa.flash_bwd_bhsd(q, k, v, do, lse, fa.flash_delta_bhsd(do, o), causal)
 
-        emit({"phase": "ring_replay", "shape": dict(b=b, h=8, s=8192, d=d, causal=causal),
+        emit({"phase": "ring_replay", "shape": dict(b=b, h=h, s=8192, d=d, causal=causal),
               "ranks": 4, "shard": 2048, "checks": checks,
+              "launches": launches if d in (96, 384) else None,
               "replay_ms": time_ms(lambda: rf.replay_ring(q, k, v, do, 4, causal), 3, 1),
               "full_sequence_kernels_ms": time_ms(full, 3, 1)})
-    return {k: v for k, v in d96.items() if k.startswith("ring_")}
+    return {k: v for k, v in counted.items() if k.startswith("ring_")}
 
 
 def _sp_model(heads: int, **kw):
@@ -1682,18 +1911,28 @@ def _train(inst, params, opt_state, x, y, steps, input_name="x"):
     return params, opt_state, losses, step_ms
 
 
+PARITY_WIDE = dict(embed=768, heads=2)  # heads of 384, on the wide kernels
+WIDE_FLASH_WRAPPERS = ("flash_fwd_wide", "flash_delta_wide", "flash_bwd_wide")  # rows 1-3 past 256
+WIDE_BHSD_WRAPPERS = ("flash_fwd_bhsd_wide", "flash_delta_bhsd_wide", "flash_bwd_bhsd_wide")
+
+
 def phase_parity():
     """Small flagships on the card (bf16, kernels) and on the CPU (f32,
     plain versions) from the same parameters and batch: heads of 128, of 64
-    (the 16-head config's attention) and of 32 (bench.py --heads 32's)."""
+    (the 16-head config's attention), of 32 (bench.py --heads 32's) and of
+    384 (embed 768 over 2 heads), whose card run must go through the wide
+    kernels, each once a layer a pass."""
     import torch
+    from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.local_execution import ModelTrainingInstance
     from flexflow_tpu_torch.models import build_flagship_cg
     from flexflow_tpu_torch.op_attrs.ops import SparseCategoricalCrossEntropyLossAttrs
     from flexflow_tpu_torch.pcg import AdamOptimizerAttrs
 
-    for name, heads in (("d128", 2), ("d64", 4), ("d32", 8)):
+    for name, heads in (("d128", 2), ("d64", 4), ("d32", 8), ("d384", None)):
         cfg = dict(batch=2, seq=128, embed=256, heads=heads, layers=2, vocab=512)
+        if heads is None:
+            cfg.update(PARITY_WIDE)
         graph, logits = build_flagship_cg(**cfg)
         gen = torch.Generator().manual_seed(1)
         x = torch.randn(cfg["batch"], cfg["seq"], cfg["embed"], generator=gen)
@@ -1705,12 +1944,17 @@ def phase_parity():
                 AdamOptimizerAttrs(alpha=1e-3), compute_dtype=dtype, device=device,
             )
             params, opt_state = inst.initialize(seed=0)
+            fa.reset_launch_counts()
             losses[device] = _train(inst, params, opt_state, x.to(device), y.to(device), 2)[2]
+        launches = {fn.__name__: fn.launches for fn in fa.KERNEL_WRAPPERS if fn.launches}
+        if heads is None and launches != {n: 2 * cfg["layers"] for n in WIDE_FLASH_WRAPPERS}:
+            raise AssertionError(f"parity {name}: launches {launches}, expected each of "
+                                 f"{WIDE_FLASH_WRAPPERS} {2 * cfg['layers']} times")
         rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
         if not max(rel) < PARITY_BOUND:
             raise AssertionError(f"{name}: card losses {losses['cuda']} vs CPU {losses['cpu']}")
-        emit({"phase": "parity", "head_dim": 256 // heads, "config": cfg, "losses": losses,
-              "rel_err": rel, "bound": PARITY_BOUND})
+        emit({"phase": "parity", "head_dim": cfg["embed"] // cfg["heads"], "config": cfg,
+              "losses": losses, "rel_err": rel, "bound": PARITY_BOUND, "launches": launches})
 
 
 @contextlib.contextmanager
@@ -1877,6 +2121,7 @@ def _train_phase(smi, phase, inst, config, x_shape, vocab, layers, flops, on_pat
 
     median_ms = statistics.median(step_ms)
     MEDIAN_STEP_MS[phase] = median_ms
+    TRAIN_LOSSES[phase] = [warm_losses[0], *losses]
     emit({
         "phase": phase, "config": config, "card": smi, "compute_dtype": "bf16",
         "optimizer": "adam(alpha=1e-4)", "params": sum(p.numel() for p in params.values()),
@@ -1894,6 +2139,27 @@ def _train_phase(smi, phase, inst, config, x_shape, vocab, layers, flops, on_pat
 
 FLASH_WRAPPERS = ("flash_fwd", "flash_delta", "flash_bwd")  # the bshf path's (not d=64 or 256)
 MEDIAN_STEP_MS = {}  # train phase -> its median step ms, read by the search phase
+TRAIN_LOSSES = {}  # train phase -> its warm-up loss and timed losses
+HEADS2_DP_BOUND = 1e-2  # relative, the first two losses, per-head kernels vs seq-major ones
+
+
+def phase_train_heads2_dp(smi: str, cfg: dict, steps: int = STEPS):
+    """bench.py --heads 2's flagship (cfg) through the data-parallel trainer at
+    world size 1: rows 9-11's wide per-head kernels on the einsum's view,
+    each once a layer a step, none dense; the first two losses (the warm-up
+    step's and the first timed one) within HEADS2_DP_BOUND of train_heads2's,
+    which ran the seq-major wide kernels from the same parameters and batch."""
+    if "train_heads2" not in TRAIN_LOSSES:
+        raise AssertionError("train_heads2_dp reads train_heads2's losses: add train_heads2 to "
+                             "--phases")
+    launched = phase_train(smi, cfg, "train_heads2_dp", WIDE_BHSD_WRAPPERS, steps, dp=True)
+    want, got = TRAIN_LOSSES["train_heads2"][:2], TRAIN_LOSSES["train_heads2_dp"][:2]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    if not max(rel) < HEADS2_DP_BOUND:
+        raise AssertionError(f"train_heads2_dp: losses {got} against train_heads2's {want}")
+    emit({"phase": "train_heads2_dp_losses", "losses": got, "train_heads2_losses": want,
+          "rel_err": rel, "bound": HEADS2_DP_BOUND})
+    return launched
 
 # The Unity search's planning problem: the flagship on one node of 8 H100s
 # (the links are calibration.py's datasheet figures), rules at the node's
@@ -8713,6 +8979,10 @@ def _phases(smi: str, kernels: list, launches: dict, ptxas: dict):
                 entry["design"] = (DELTA_DESIGN if wrapper in DELTA_WRAPPERS else
                                    D256_DESIGN if width > 128 else "wgmma+tma")
                 entry["ptxas"] = _width_ptxas(ptxas, wrapper, width)
+            if entry["name"] in WIDE_KERNELS:  # a head dim past 256
+                entry["design"] = (WIDE_DELTA_DESIGN if "delta" in entry["name"]
+                                   else WIDE_DESIGN)
+                entry["ptxas"] = {k: ptxas[k] for k in WIDE_KERNELS[entry["name"]]}
 
     def train_step_ms(phase):
         if "train" not in MEDIAN_STEP_MS:
@@ -8742,6 +9012,9 @@ def _phases(smi: str, kernels: list, launches: dict, ptxas: dict):
                 f"{n}@d32": c for n, c in phase_train(
                     smi, dict(FLAGSHIP, heads=32), "train_heads32", FLASH_WRAPPERS).items()},
                 STEPS)),
+            # bench.py --heads 2: rows 1-3 at d=512, on the wide kernels
+            ("train_heads2", rec("train_heads2", lambda: phase_train(
+                smi, dict(FLAGSHIP, heads=2), "train_heads2", WIDE_FLASH_WRAPPERS), STEPS)),
             ("search", rec("search", lambda: phase_search(smi, train_step_ms("search")), 1)),
             # a fresh process plans from search's store; MCMC and the
             # foreign-kind run ride it
@@ -8768,6 +9041,9 @@ def _phases(smi: str, kernels: list, launches: dict, ptxas: dict):
                 smi, LONGCTX, "train_dp_seq2048", BHSD_WRAPPERS, dp=True), STEPS)),
             # rows 9-12 at d=256, counted apart from d=128's
             ("fit_bert_dp", rec("fit_bert_dp", lambda _: phase_fit_bert_dp(smi), STEPS)),
+            # rows 9-11 at d=512, on the wide kernels
+            ("train_heads2_dp", rec("train_heads2_dp", lambda _: phase_train_heads2_dp(
+                smi, dict(FLAGSHIP, heads=2)), STEPS)),
             # its d=96 replay's counts: one replay a step
             ("ring_replay", rec("ring_replay", lambda _: phase_ring_replay(), 1)),
             ("parity_sp", lambda _: phase_parity_sp()),

@@ -1,9 +1,9 @@
 // Flash attention on seq-major and per-head bf16 operands for Hopper
-// (sm_90a), at every head dim d with d % 8 == 0 up to 256 (the range the
-// Pallas kernels take). Each body is instantiated at a padded width of 64,
-// 128, 192 or 256 and takes the real d at run time: the tensor maps load
-// the columns past d as zeros and the epilogues store only those below it
-// (flash_fwd_sm90.cuh's note). Head dims past 256 have no kernel here.
+// (sm_90a), at every head dim d with d % 8 == 0 up to 256 (narrow_dim_ok).
+// Each body is instantiated at a padded width of 64, 128, 192 or 256 and
+// takes the real d at run time: the tensor maps load the columns past d as
+// zeros and the epilogues store only those below it (flash_fwd_sm90.cuh's
+// note). Head dims past 256 run the wide kernels of flash_wide.cu.
 //
 // Replaces these Pallas kernels of flexflow_tpu/kernels/flash_attention.py:
 //   ff_flash_fwd_kernel          <- _fwd_kernel_b (via _fwd_bshf), single-k-block
@@ -109,12 +109,14 @@
 // backward turn the Layout into 5-D tensor maps (fwd_tensor_map).
 //
 // The Layout lives in flash_tiles.cuh, the forward's mainloop in
-// flash_fwd_sm90.cuh and the backward's in flash_bwd_sm90.cuh (ring_flash.cu
-// shares all three). Each exported C function
+// flash_fwd_sm90.cuh, the backward's in flash_bwd_sm90.cuh and delta_body in
+// flash_delta.cuh (ring_flash.cu and flash_wide.cu share them). Each
+// exported C function
 // launches on the given stream and returns cudaGetLastError() (0 on
 // success).
 
 #include "flash_bwd_sm90.cuh"
+#include "flash_delta.cuh"
 
 namespace {
 
@@ -165,167 +167,6 @@ __device__ __forceinline__ void dq_body(const CUtensorMap* tq, const CUtensorMap
     dq_mainloop_split<D>(tq, tk, tv, tdo, lse, delta, FlashGradEpilogue<D>{dq, grad}, sh);
   else
     dq_mainloop<D>(tq, tk, tv, tdo, lse, delta, FlashGradEpilogue<D>{dq, grad}, sh);
-}
-
-// Delta: delta[b, h, s] = sum_d dO * O, the bf16 products summed in f32.
-//
-// Replaces _delta_kernel (flexflow_tpu/kernels/flash_attention.py:1203) via
-// _delta_bshf (:1222) and _delta_rows (:433), and the delta that
-// _bwd_pair_core (:1105) computes inline; every delta kernel of this
-// file runs delta_body. The port's backward pair needs every row's delta
-// before its dK/dV mainloop streams, so delta stays a pass of its own.
-//
-// What bounds it on an H100: bytes. It reads 2*b*s*h*d*2 bytes, writes
-// b*h*s*4 and does 2*b*s*h*d flops: at the flagship's attention shape
-// 136 MB in 41 us at 3.35 TB/s against 67 MFLOP in 1 us at 67 TFLOP/s f32.
-// So it is fast exactly when the card has enough bytes in flight and every
-// sector it touches is used whole. The design:
-// - 16-byte loads: a thread loads 8 bf16 of dO and 8 of O with one
-//   16-byte load each, through the read-only path and not kept in L1, so
-//   a row is a power-of-two group of neighbouring lanes, 8 at padded width
-//   64, 16 at 128 and 32 at 192 and 256 (192/8 = 24 lanes would not divide
-//   a warp), and a warp covers 32/lanes rows at once; the lanes whose 8
-//   columns lie at or past d load nothing and add 0.
-// - Several rows a thread: each thread issues the loads of DELTA_ROWS rows
-//   before any arithmetic (2*DELTA_ROWS loads, 128 bytes, in flight), then
-//   reduces each row's partial sums within its lane group in log2(lanes)
-//   xor shuffles.
-// - Few blocks, each with a large tile: a block owns (one b, DELTA_S_TILE
-//   consecutive s, up to DELTA_HEAD_TILE heads), at most 1024 rows, 128 KB
-//   (d=64) or 256 KB (d=128) of operands, and walks it in passes of
-//   DELTA_THREADS * DELTA_ROWS / lanes rows. At the train paths' shapes that
-//   is 512 blocks of 256 threads, which the card holds in one wave, and
-//   some 16 MB in flight at once. A persistent grid would add a loop over
-//   tiles and change nothing at these shapes, so the grid is one block a
-//   tile.
-// - Coalesced stores: the block stages its sums in shared memory as
-//   [head][s] and writes each head's run of DELTA_S_TILE floats as 16-byte
-//   stores into [b, h, s], whether the rows came in (b, s, h) order (bshf,
-//   and the per-head einsum view) or in (b, h, s) order (contiguous
-//   per-head operands). Only the load walk follows the layout: heads
-//   fastest where heads of one row lie closer than rows of one head, so a
-//   pass reads the tile's memory in order.
-// - Tails are masked, not padded: s is a multiple of 64 = DELTA_S_TILE, so
-//   no tile has a ragged s; a last head tile of fewer heads (H > 16, no
-//   multiple of 16) and a pass past the tile's rows (d=64 with an odd head
-//   count in the tile) load nothing and store nothing.
-// Every output is written by one thread, with no atomics, so results repeat
-// bitwise. Every 16-byte load is aligned because every operand starts
-// 16-byte aligned and all its strides are multiples of 8 elements (the
-// wrappers check both).
-constexpr int DELTA_THREADS = 256;
-constexpr int DELTA_ROWS = 4;        // rows a thread has in flight
-constexpr int DELTA_S_TILE = 64;     // consecutive s a block owns
-constexpr int DELTA_HEAD_TILE = 16;  // heads a block owns, at most
-constexpr int DELTA_SUMS_LD = DELTA_S_TILE + 4;  // padded: no bank conflicts, 16-byte rows
-
-template <int D>
-struct DeltaTile {
-  static constexpr int LANES_PER_ROW = D <= 64 ? 8 : D <= 128 ? 16 : 32;  // 8 bf16, 16 bytes, a lane
-  static constexpr int SLOTS = DELTA_THREADS / LANES_PER_ROW;  // rows a block covers at once
-  static constexpr int PASS = SLOTS * DELTA_ROWS;            // rows a pass of the block
-  static_assert(32 % LANES_PER_ROW == 0 && 8 * LANES_PER_ROW >= D,
-                "a row's lanes lie within one warp and cover the padded width");
-};
-
-__host__ __device__ __forceinline__ int delta_head_tile(int H) {
-  return H < DELTA_HEAD_TILE ? H : DELTA_HEAD_TILE;
-}
-
-// One block a (s tile, head tile, batch) triple, s tiles fastest.
-static inline dim3 delta_grid(int B, int S, int H) {
-  const int ht = delta_head_tile(H);
-  return dim3((unsigned)((long)B * (S / DELTA_S_TILE) * ((H + ht - 1) / ht)));
-}
-
-// acc + the 8 products of two 16-byte words of bf16 pairs, in f32 (each
-// product of two bf16 values is exact in f32).
-__device__ __forceinline__ float dot8(const uint4& a, const uint4& b, float acc) {
-  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    acc = fmaf(__uint_as_float(x[i] << 16), __uint_as_float(y[i] << 16), acc);
-    acc = fmaf(__uint_as_float(x[i] & 0xffff0000u), __uint_as_float(y[i] & 0xffff0000u), acc);
-  }
-  return acc;
-}
-
-// 16 bytes at p (16-byte aligned) through the read-only path, not kept in
-// L1: delta reads every byte once.
-__device__ __forceinline__ uint4 ld_once16(const bf16* p) {
-  uint4 r;
-  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
-      : "l"(p));
-  return r;
-}
-
-// delta[b, h, s] of one tile, dO and O each read through its own layout,
-// head dim d. Grid delta_grid(B, S, H), DELTA_THREADS threads.
-template <int D>
-__device__ __forceinline__ void delta_body(const bf16* __restrict__ dout, Layout od,
-                                           const bf16* __restrict__ o, Layout ol,
-                                           float* __restrict__ delta, int S, int H, int d) {
-  using T = DeltaTile<D>;
-  __shared__ __align__(16) float sums[DELTA_HEAD_TILE * DELTA_SUMS_LD];
-  const int ht = delta_head_tile(H);
-  const int s_tiles = S / DELTA_S_TILE, h_tiles = (H + ht - 1) / ht;
-  const int s0 = (blockIdx.x % s_tiles) * DELTA_S_TILE;
-  const int h0 = (blockIdx.x / s_tiles % h_tiles) * ht;
-  const int b = blockIdx.x / s_tiles / h_tiles;
-  const int heads = min(ht, H - h0);
-  const int rows = heads * DELTA_S_TILE;
-  const bool heads_fastest = od.sub < od.ld;  // walk the rows in memory order
-  const int lane = threadIdx.x % T::LANES_PER_ROW, slot = threadIdx.x / T::LANES_PER_ROW;
-  const int col = lane * 8;
-
-  for (int pass = 0; pass < rows; pass += T::PASS) {
-    uint4 x[DELTA_ROWS], y[DELTA_ROWS];
-    int at[DELTA_ROWS];  // where each row's sum goes in `sums`, or -1 past the tile
-#pragma unroll
-    for (int r = 0; r < DELTA_ROWS; ++r) {
-      const int t = pass + r * T::SLOTS + slot;  // uniform across the row's lanes
-      x[r] = y[r] = make_uint4(0u, 0u, 0u, 0u);
-      at[r] = -1;
-      if (t < rows) {
-        const int hl = heads_fastest ? t % heads : t / DELTA_S_TILE;
-        const int sl = heads_fastest ? t / heads : t % DELTA_S_TILE;
-        const int h = h0 + hl, s = s0 + sl;
-        if (col < d) {
-          x[r] = ld_once16(dout + head_base(od, b, h) + (size_t)s * od.ld + col);
-          y[r] = ld_once16(o + head_base(ol, b, h) + (size_t)s * ol.ld + col);
-        }
-        at[r] = hl * DELTA_SUMS_LD + sl;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < DELTA_ROWS; ++r) {
-      float acc = dot8(x[r], y[r], 0.f);
-#pragma unroll
-      for (int off = T::LANES_PER_ROW / 2; off > 0; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0 && at[r] >= 0) sums[at[r]] = acc;
-    }
-  }
-  __syncthreads();
-
-  constexpr int VECS = DELTA_S_TILE / 4;  // float4s a head's run
-  for (int i = threadIdx.x; i < heads * VECS; i += DELTA_THREADS) {
-    const int hl = i / VECS, v = i % VECS;
-    float4* out = reinterpret_cast<float4*>(delta + ((size_t)b * H + h0 + hl) * S + s0);
-    out[v] = *reinterpret_cast<const float4*>(&sums[hl * DELTA_SUMS_LD + 4 * v]);
-  }
-}
-
-// The layout of contiguous [b, s, h*d] operands.
-__host__ __device__ __forceinline__ Layout dense(int d, int S, int H) {
-  return Layout{H * d, d, d, S * H * d, 1};
-}
-
-// The layout of the d=64 pair's lane-group operands (rows `ld` apart,
-// 128-lane groups of two heads `group` apart, rows packed by batch).
-__host__ __device__ __forceinline__ Layout lane_grouped(int ld, int group, int S) {
-  return Layout{ld, group, 64, S * ld, 2};
 }
 
 }  // namespace
@@ -409,7 +250,7 @@ FLASH_BWD_KERNELS(ff_flash_bwd_dkv_bhsd_d256_kernel, ff_flash_bwd_dq_bhsd_d256_k
 
 // ---------------------------------------------------------------------------
 // C interface (ctypes). lse and delta are contiguous [B, H, S] f32; S is a
-// multiple of 64; d is a head dim the kernels take (head_dim_ok: d % 8 == 0,
+// multiple of 64; d is a head dim the kernels take (narrow_dim_ok: d % 8 == 0,
 // 8 <= d <= 256), else an entry returns cudaErrorInvalidValue. The seq-major
 // entries (ff_flash_fwd, _delta, _bwd) take contiguous
 // [B, S, H*d] bf16 operands. The d=64 pair's entries read q/k/v (and write
@@ -439,7 +280,7 @@ template <int D, typename K>
 static int launch_fwd(K kernel, int d, const void* q, const void* k, const void* v, Layout in,
                       void* o, Layout out, void* lse, int B, int S, int H, int causal,
                       cudaStream_t stream) {
-  if (!head_dim_ok(d) || padded_dim(d) != D) return (int)cudaErrorInvalidValue;
+  if (!narrow_dim_ok(d) || padded_dim(d) != D) return (int)cudaErrorInvalidValue;
   CUtensorMap maps[3];
   cudaError_t err = fwd_tensor_maps<D>(maps, d, q, in, S, k, in, v, in, S, H, B);
   if (err != cudaSuccess) return (int)err;
@@ -455,7 +296,7 @@ static int launch_fwd(K kernel, int d, const void* q, const void* k, const void*
 static int fwd_by_width(int d, const void* q, const void* k, const void* v, Layout in, void* o,
                         Layout out, void* lse, int B, int S, int H, int causal, cudaStream_t s,
                         const FwdKernel (&kernels)[4]) {
-  if (!head_dim_ok(d)) return (int)cudaErrorInvalidValue;
+  if (!narrow_dim_ok(d)) return (int)cudaErrorInvalidValue;
   const FwdKernel kernel = by_width(d, kernels);
   switch (padded_dim(d)) {
     case 64: return launch_fwd<64>(kernel, d, q, k, v, in, o, out, lse, B, S, H, causal, s);
@@ -494,7 +335,7 @@ extern "C" int ff_flash_fwd_bhsd(int d, const void* q, const void* k, const void
 // [B, H, S] f32.
 static int launch_delta(DeltaKernel kernel, int d, const void* dout, Layout od, const void* o,
                         Layout ol, void* delta, int B, int S, int H, cudaStream_t stream) {
-  if (!head_dim_ok(d)) return (int)cudaErrorInvalidValue;
+  if (!narrow_dim_ok(d)) return (int)cudaErrorInvalidValue;
   kernel<<<delta_grid(B, S, H), DELTA_THREADS, 0, stream>>>((const bf16*)dout, od, (const bf16*)o,
                                                             ol, (float*)delta, S, H, d);
   return (int)cudaGetLastError();
@@ -534,7 +375,7 @@ static int launch_bwd(KDKV dkv, KDQ dqk, int d, const void* q, const void* k, co
                       void* dq, void* dk, void* dv, Layout grad, int B, int S, int H, int causal,
                       cudaStream_t s) {
   // the mainloops give every map the same head coordinates: one grouping
-  if (!head_dim_ok(d) || padded_dim(d) != D || od.per != in.per) return (int)cudaErrorInvalidValue;
+  if (!narrow_dim_ok(d) || padded_dim(d) != D || od.per != in.per) return (int)cudaErrorInvalidValue;
   CUtensorMap maps[4];
   if (!bwd_tensor_maps(maps, d, q, in, k, in, v, in, dout, od, S, S, H, B))
     return (int)cudaErrorInvalidValue;
@@ -561,7 +402,7 @@ static int bwd_by_width(int d, const void* q, const void* k, const void* v, Layo
                         const void* dout, Layout od, const void* lse, const void* delta, void* dq,
                         void* dk, void* dv, Layout grad, int B, int S, int H, int causal,
                         cudaStream_t s, const DkvKernel (&dkv)[4], const DqKernel (&dqk)[4]) {
-  if (!head_dim_ok(d)) return (int)cudaErrorInvalidValue;
+  if (!narrow_dim_ok(d)) return (int)cudaErrorInvalidValue;
   switch (padded_dim(d)) {
     case 64:
       return launch_bwd<64>(dkv[0], dqk[0], d, q, k, v, in, dout, od, lse, delta, dq, dk, dv,

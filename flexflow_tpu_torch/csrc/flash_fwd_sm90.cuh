@@ -449,6 +449,12 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BN / 2], float (&o)[D
 // load() sets a thread's rows' (o, m, l) before the key loop and store()
 // writes them after it; rows are the thread's first row of the q block.
 
+// col0 is the first of the D columns the registers hold: 0, or in the wide
+// kernels (flash_wide_sm90.cuh) the block's column chunk, whose row state
+// (m, l) every chunk computes alike and chunk 0 alone writes. keep() runs
+// for a thread's rows that see no key in a block that computes their
+// chunk.
+
 // Self-attention: the state starts empty; o (bf16, o / l) goes out through
 // `out` and lse[b, h, s] = m + log l.
 template <int D>
@@ -458,7 +464,7 @@ struct FlashEpilogue {
   float* lse;
 
   __device__ __forceinline__ void load(const FwdShape&, int, int, int, float (&acc)[D / 2],
-                                       float (&m)[2], float (&l)[2]) const {
+                                       float (&m)[2], float (&l)[2], int = 0) const {
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     m[0] = m[1] = NEG_INF;
@@ -467,12 +473,15 @@ struct FlashEpilogue {
 
   __device__ __forceinline__ void store(const FwdShape& sh, int bi, int hi, int row,
                                         const float (&acc)[D / 2], const float (&m)[2],
-                                        const float (&l)[2]) const {
+                                        const float (&l)[2], int col0 = 0) const {
     const float inv[2] = {1.f / l[0], 1.f / l[1]};
-    store_bf16_rows<D>(o + head_base(out, bi, hi), out.ld, row, acc, inv, sh.d);
-    if (threadIdx.x % 4 == 0)
+    store_bf16_rows<D>(o + head_base(out, bi, hi) + col0, out.ld, row, acc, inv, sh.d - col0);
+    if (col0 == 0 && threadIdx.x % 4 == 0)
       for (int h = 0; h < 2; ++h) lse[((size_t)bi * sh.H + hi) * sh.S + row + 8 * h] = m[h] + logf(l[h]);
   }
+
+  // every row of self-attention sees its own key: nothing to keep
+  __device__ __forceinline__ void keep(const FwdShape&, int, int, int, int) const {}
 };
 
 // A ring step: the f32 state acc [b, h, S, d], m and l [b, h, S] is read
@@ -485,16 +494,17 @@ struct RingEpilogue {
   float* l;
 
   __device__ __forceinline__ void load(const FwdShape& sh, int bi, int hi, int row,
-                                       float (&a)[D / 2], float (&mr)[2], float (&lr)[2]) const {
+                                       float (&a)[D / 2], float (&mr)[2], float (&lr)[2],
+                                       int col0 = 0) const {
     const int c = (threadIdx.x % 4) * 2;
     const size_t rows = ((size_t)bi * sh.H + hi) * sh.S + row;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float* src = acc + (rows + 8 * h) * sh.d + c;
+      const float* src = acc + (rows + 8 * h) * sh.d + col0 + c;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
-        const float2 x =
-            8 * j < sh.d ? *reinterpret_cast<const float2*>(src + 8 * j) : make_float2(0.f, 0.f);
+        const float2 x = col0 + 8 * j < sh.d ? *reinterpret_cast<const float2*>(src + 8 * j)
+                                             : make_float2(0.f, 0.f);
         a[4 * j + 2 * h] = x.x;
         a[4 * j + 2 * h + 1] = x.y;
       }
@@ -505,18 +515,18 @@ struct RingEpilogue {
 
   __device__ __forceinline__ void store(const FwdShape& sh, int bi, int hi, int row,
                                         const float (&a)[D / 2], const float (&mr)[2],
-                                        const float (&lr)[2]) const {
+                                        const float (&lr)[2], int col0 = 0) const {
     const int c = (threadIdx.x % 4) * 2;
     const size_t rows = ((size_t)bi * sh.H + hi) * sh.S + row;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float* dst = acc + (rows + 8 * h) * sh.d + c;
+      float* dst = acc + (rows + 8 * h) * sh.d + col0 + c;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        if (8 * j < sh.d)
+        if (col0 + 8 * j < sh.d)
           *reinterpret_cast<float2*>(dst + 8 * j) =
               make_float2(a[4 * j + 2 * h], a[4 * j + 2 * h + 1]);
-      if (c == 0) {
+      if (c == 0 && col0 == 0) {
         m[rows + 8 * h] = mr[h];
         l[rows + 8 * h] = lr[h];
       }

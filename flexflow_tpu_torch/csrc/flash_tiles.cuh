@@ -1,6 +1,7 @@
-// What the port's attention kernels (flash_attention.cu and ring_flash.cu)
-// share beneath their Hopper mainloops: the operand Layout, the head offsets
-// it gives, and the host-side launch helpers. Every kernel's products and
+// What the port's attention kernels (flash_attention.cu, ring_flash.cu and
+// flash_wide.cu) share beneath their Hopper mainloops: the operand Layout,
+// the head offsets it gives, the head dims each route takes, and the
+// host-side launch helpers. Every kernel's products and
 // tile loads live in the mainloops: the forward's in flash_fwd_sm90.cuh,
 // the backward's in flash_bwd_sm90.cuh.
 
@@ -37,15 +38,41 @@ __host__ __device__ __forceinline__ Layout per_head(int ld, int head, int batch)
   return Layout{ld, head, head, batch, 1};
 }
 
-// The padded width of head dim d (8 <= d <= 256, d % 8 == 0): the kernels
-// keep a head as 64-column panels, so d is padded to 64, 128, 192 or 256;
-// the panels' columns at d and beyond load as zeros and are never stored.
+// The layout of contiguous [b, s, h*d] operands.
+__host__ __device__ __forceinline__ Layout dense(int d, int S, int H) {
+  return Layout{H * d, d, d, S * H * d, 1};
+}
+
+// The layout of the d=64 pair's lane-group operands (rows `ld` apart,
+// 128-lane groups of two heads `group` apart, rows packed by batch).
+__host__ __device__ __forceinline__ Layout lane_grouped(int ld, int group, int S) {
+  return Layout{ld, group, 64, S * ld, 2};
+}
+
+// The padded width of head dim d (d % 8 == 0): the kernels keep a head as
+// 64-column panels, so d is padded to a multiple of 64 (64, 128, 192 or 256
+// for the narrow kernels); the panels' columns at d and beyond load as
+// zeros and are never stored.
 __host__ __device__ __forceinline__ int padded_dim(int d) {
   return (d + 63) / 64 * 64;
 }
 
+// Every head dim a route takes: the Pallas kernels' d % 8 == 0.
 __host__ __device__ __forceinline__ bool head_dim_ok(int d) {
-  return d >= 8 && d <= 256 && d % 8 == 0;
+  return d >= 8 && d % 8 == 0;
+}
+
+// The narrow kernels (flash_attention.cu, ring_flash.cu) take head dims up
+// to NARROW_MAX, each at its padded width; past it the wide kernels
+// (flash_wide.cu) take every head dim, in column chunks.
+constexpr int NARROW_MAX = 256;
+
+__host__ __device__ __forceinline__ bool narrow_dim_ok(int d) {
+  return head_dim_ok(d) && d <= NARROW_MAX;
+}
+
+__host__ __device__ __forceinline__ bool wide_dim_ok(int d) {
+  return head_dim_ok(d) && d > NARROW_MAX;
 }
 
 }  // namespace

@@ -1,9 +1,10 @@
 // One ring step of flash attention for Hopper (sm_90a): the forward, the dQ
 // and the dK/dV of one query block against one streamed key/value block, at
-// every head dim d with d % 8 == 0 up to 256 (the Pallas kernels' range):
-// each step kernel is instantiated at a padded width of 64 (the _d64
-// kernels), 128, 192 (_p192) and 256 (_d256) and takes the real d at run
-// time, as flash_attention.cu's kernels do.
+// every head dim d with d % 8 == 0 up to 256 (narrow_dim_ok; past it the
+// wide step kernels of flash_wide.cu): each step kernel is instantiated at
+// a padded width of 64 (the _d64 kernels), 128, 192 (_p192) and 256
+// (_d256) and takes the real d at run time, as flash_attention.cu's
+// kernels do.
 //
 // Replaces these Pallas kernels of flexflow_tpu/kernels/ring_flash.py:
 //   ff_ring_fwd_step[_d64]_kernel  <- _ring_fwd_step_kernel (via _ring_fwd_step)
@@ -191,7 +192,7 @@ extern "C" int ff_ring_fwd_step(int d, const void* q, int q_ld, int q_head, int 
                                 int B, int S, int T, int H, int q_off, int k_off, int causal,
                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (!head_dim_ok(d)) return (int)cudaErrorInvalidValue;
+  if (!narrow_dim_ok(d)) return (int)cudaErrorInvalidValue;
   switch (padded_dim(d)) {
     case 64:
       return ring_fwd<64>(ff_ring_fwd_step_d64_kernel, d, q, PER_HEAD(q), k, PER_HEAD(k), v,
@@ -232,7 +233,7 @@ extern "C" int ff_ring_dq_step(int d, const void* q, int q_ld, int q_head, int q
                                void* dq, int B, int S, int T, int H, int q_off, int k_off,
                                int causal, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (!head_dim_ok(d)) return (int)cudaErrorInvalidValue;
+  if (!narrow_dim_ok(d)) return (int)cudaErrorInvalidValue;
   switch (padded_dim(d)) {
     case 64:
       return ring_dq<64>(ff_ring_dq_step_d64_kernel, d, q, PER_HEAD(q), k, PER_HEAD(k), v,
@@ -277,7 +278,7 @@ extern "C" int ff_ring_dkv_step(int d, const void* q, int q_ld, int q_head, int 
                                 void* dk, void* dv, int B, int S, int T, int H, int q_off,
                                 int k_off, int causal, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (!head_dim_ok(d)) return (int)cudaErrorInvalidValue;
+  if (!narrow_dim_ok(d)) return (int)cudaErrorInvalidValue;
   switch (padded_dim(d)) {
     case 64:
       return ring_dkv<64>(ff_ring_dkv_step_d64_kernel, d, q, PER_HEAD(q), k, PER_HEAD(k), v,

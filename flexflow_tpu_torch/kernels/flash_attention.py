@@ -20,7 +20,8 @@ Replaces the bshf Pallas path of flexflow_tpu/kernels/flash_attention.py:
 
 (at head dim 256, BERT's heads with kdim = 3072 / 12, flash_fwd, flash_delta
 and flash_bwd launch the kernels of width 256, where the JAX package runs
-the same three Pallas kernels)
+the same three Pallas kernels; past 256 they hand over to flash_fwd_wide,
+flash_delta_wide and flash_bwd_wide, the kernels of csrc/flash_wide.cu)
 
 and the per-head path (`flash_attention`, the counterpart of the JAX
 package's entry of that name), at every head dim the kernels take:
@@ -32,13 +33,20 @@ package's entry of that name), at every head dim the kernels take:
                       and _bwd_dq_kernel/_bwd_dkv_kernel via _bwd (s >
                       block), split as flash_bwd is
 
-Head dims. The kernels take every head dim d with d % 8 == 0 and
-8 <= d <= 256, the range the Pallas kernels take up to 256
-(`head_dim_supported`): each runs at a padded width of 64, 128, 192 or 256
-(`padded_dim`) whose columns past d load as zeros and are never stored
-(csrc/flash_fwd_sm90.cuh's note). Head dims past 256, which the JAX
-per-head kernel also takes (and its seq-major one at 384 and 512), have
-no kernel here: the gates refuse them and they run dense on the card.
+(past 256 they hand over to flash_fwd_bhsd_wide, flash_delta_bhsd_wide and
+flash_bwd_bhsd_wide).
+
+Head dims. The kernels take every head dim d with d % 8 == 0 from 8 up,
+the range of the JAX per-head and ring kernels (`head_dim_supported`; the
+JAX seq-major entry takes 384 and 512 past 256). Up to 256 (NARROW_MAX)
+the kernels of csrc/flash_attention.cu run at a padded width of 64, 128,
+192 or 256 (`padded_dim`) whose columns past d load as zeros and are never
+stored (csrc/flash_fwd_sm90.cuh's note). Past 256 the wide kernels of
+csrc/flash_wide.cu take every such d: a block owns a chunk of 256 output
+columns and streams the head dim in 64-column panels
+(csrc/flash_wide_sm90.cuh's note). Each wrapper above hands a head dim past
+256 over to its `_wide` counterpart, which counts its own launches; no
+attention the gates admit runs dense.
 
 flash_fwd, flash_delta and flash_bwd take contiguous [b, s, h*d] operands.
 The d=64 ones (the head pair, an even head count) take q, k and v (and
@@ -85,12 +93,13 @@ import torch
 
 from flexflow_tpu_torch.kernels import build
 
-HEAD_DIM_STEP = 8  # the kernels take head dims that are multiples of 8 ...
-MAX_HEAD_DIM = 256  # ... up to 256
-PADDED_WIDTHS = (64, 128, 192, 256)  # the kernels' widths: d rounds up to one
+HEAD_DIM_STEP = 8  # the kernels take every head dim that is a multiple of 8
+NARROW_MAX = 256  # up to it the narrow kernels take a head dim, past it the wide ones
+PADDED_WIDTHS = (64, 128, 192, 256)  # the narrow kernels' widths: d rounds up to one
 LANES = 128  # width of the lane groups the d=64 pair kernels read (two heads each)
 TILE = 64  # the kernels' sequence tile
 _SOURCE = "flash_attention.cu"
+_WIDE_SOURCE = "flash_wide.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "ff_flash_fwd": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
@@ -110,6 +119,20 @@ _SIGNATURES = {
     "ff_flash_smem_bytes": ([_I], _I),
     "ff_error_string": ([_I], ctypes.c_char_p),
 }
+# the wide library's entries take the narrow ones' arguments
+_WIDE_SIGNATURES = {
+    "ff_flash_wide_fwd": _SIGNATURES["ff_flash_fwd"],
+    "ff_flash_wide_delta": _SIGNATURES["ff_flash_delta"],
+    "ff_flash_wide_bwd": _SIGNATURES["ff_flash_bwd"],
+    "ff_flash_wide_fwd_bhsd": _SIGNATURES["ff_flash_fwd_bhsd"],
+    "ff_flash_wide_delta_bhsd": _SIGNATURES["ff_flash_delta_bhsd"],
+    "ff_flash_wide_bwd_bhsd": _SIGNATURES["ff_flash_bwd_bhsd"],
+    "ff_ring_wide_fwd_step": ([_I] + 3 * [_P, _I, _I, _I] + 5 * [_P] + 7 * [_I] + [_P], _I),
+    "ff_ring_wide_dq_step": ([_I] + 4 * [_P, _I, _I, _I] + 3 * [_P] + 7 * [_I] + [_P], _I),
+    "ff_ring_wide_dkv_step": ([_I] + 4 * [_P, _I, _I, _I] + 4 * [_P] + 7 * [_I] + [_P], _I),
+    "ff_wide_smem_bytes": ([_I], _I),
+    "ff_error_string": ([_I], ctypes.c_char_p),
+}
 
 
 def library() -> ctypes.CDLL:
@@ -117,8 +140,17 @@ def library() -> ctypes.CDLL:
     return build.load(_SOURCE, _SIGNATURES)
 
 
+def wide_library() -> ctypes.CDLL:
+    """The wide kernels' library (head dims past 256), built at first use."""
+    return build.load(_WIDE_SOURCE, _WIDE_SIGNATURES)
+
+
 def _launch(name: str, *args) -> None:
     build.launch(library(), name, *args)
+
+
+def _launch_wide(name: str, *args) -> None:
+    build.launch(wide_library(), name, *args)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -136,24 +168,28 @@ def _dtype_ok(dtype: torch.dtype, device) -> bool:
 
 
 def head_dim_supported(d: int) -> bool:
-    """Do the kernels take head dim d? Every multiple of 8 up to 256, the
-    range of the Pallas kernels' d % 8 == 0 test up to 256. Past 256 (the
-    JAX per-head kernel takes any such d, its seq-major one 384 and 512)
-    attention runs dense on the card until a kernel takes it."""
-    return HEAD_DIM_STEP <= d <= MAX_HEAD_DIM and d % HEAD_DIM_STEP == 0
+    """Do the kernels take head dim d? Every multiple of 8, the range of the
+    JAX per-head and ring kernels' d % 8 == 0 test: the narrow kernels up
+    to 256, the wide ones past it."""
+    return d >= HEAD_DIM_STEP and d % HEAD_DIM_STEP == 0
+
+
+def wide_head_dim(d: int) -> bool:
+    """Does head dim d run on the wide kernels (csrc/flash_wide.cu)?"""
+    return d > NARROW_MAX
 
 
 def padded_dim(d: int) -> int:
-    """The width (of PADDED_WIDTHS) of the kernels that take head dim d."""
+    """The width (of PADDED_WIDTHS) of the narrow kernels that take head dim
+    d; past 256, the multiple of 64 that the wide kernels' panels pad d to."""
     return -(-d // 64) * 64
 
 
 def flash_attention_bshf_supported(shape, num_heads: int, dtype: torch.dtype, device) -> bool:
     """Can the seq-major flash path take self-attention operands of this
     [b, s, h*d] shape? The kernels need a head dim head_dim_supported
-    admits (d % 8 == 0, 8 <= d <= 256; any head count) and s a multiple of
-    the 64-row tile, in bf16 on a CUDA device.
-    d > 256 is refused: no kernel takes it yet, so it runs dense."""
+    admits (d % 8 == 0, d >= 8; any head count) and s a multiple of the
+    64-row tile, in bf16 on a CUDA device."""
     if len(shape) != 3 or shape[1] % TILE or shape[2] % num_heads:
         return False
     if not head_dim_supported(shape[2] // num_heads):
@@ -164,9 +200,8 @@ def flash_attention_bshf_supported(shape, num_heads: int, dtype: torch.dtype, de
 def flash_attention_supported(q_shape, k_shape, v_shape, dtype: torch.dtype, device) -> bool:
     """Can the per-head flash path take q, k and v of these [b, h, s, d]
     shapes? The kernels need one shape for all three, a head dim
-    head_dim_supported admits (d % 8 == 0, 8 <= d <= 256) and s a multiple
-    of the 64-row tile, in bf16 on a CUDA device.
-    d > 256 is refused: no kernel takes it yet, so it runs dense."""
+    head_dim_supported admits (d % 8 == 0, d >= 8) and s a multiple of the
+    64-row tile, in bf16 on a CUDA device."""
     q_shape = tuple(q_shape)
     if len(q_shape) != 4 or tuple(k_shape) != q_shape or tuple(v_shape) != q_shape:
         return False
@@ -187,7 +222,7 @@ def _check_cuda(name: str, num_heads: int, d: int, *tensors: torch.Tensor) -> Tu
     if f != num_heads * d or s % TILE or not head_dim_supported(d):
         raise ValueError(
             f"{name}: kernel takes [b, s, h*{d}] with s a multiple of {TILE} and d % "
-            f"{HEAD_DIM_STEP} == 0 up to {MAX_HEAD_DIM}, got {tuple(tensors[0].shape)} with "
+            f"{HEAD_DIM_STEP} == 0, d >= {HEAD_DIM_STEP}, got {tuple(tensors[0].shape)} with "
             f"{num_heads} heads"
         )
     for t in tensors:
@@ -246,9 +281,9 @@ def _check_bhsd(name: str, shape, *tensors: torch.Tensor) -> Tuple[int, int, int
     place, sharing one set of strides, on the CUDA device of the first;
     return its (row, head, batch) strides in elements."""
     if not head_dim_supported(shape[3]) or shape[2] % TILE:
-        raise ValueError(f"{name}: kernel takes [b, h, s, d] with d in [{HEAD_DIM_STEP}, "
-                         f"{MAX_HEAD_DIM}] a multiple of {HEAD_DIM_STEP} and s a multiple of "
-                         f"{TILE}, got {tuple(shape)}")
+        raise ValueError(f"{name}: kernel takes [b, h, s, d] with d in the multiples of "
+                         f"{HEAD_DIM_STEP} from {HEAD_DIM_STEP} and s a multiple of {TILE}, "
+                         f"got {tuple(shape)}")
     strides = tensors[0].stride()
     for t in tensors:
         if tuple(t.shape) != tuple(shape) or t.dtype != torch.bfloat16:
@@ -403,12 +438,19 @@ def _head_dim(x: torch.Tensor, num_heads: int) -> int:
     return x.shape[-1] // num_heads
 
 
+def _check_wide(name: str, d: int) -> None:
+    if not wide_head_dim(d):
+        raise ValueError(f"{name}: the wide kernels take head dims past {NARROW_MAX}, got {d}")
+
+
 def flash_fwd(q, k, v, num_heads: int, causal: bool = False):
     """(o, lse) of softmax(q k^T / sqrt(d)) v per head, at any head dim the
-    kernels take (head_dim_supported)."""
+    kernels take (head_dim_supported); past 256 through flash_fwd_wide."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, num_heads, causal)
     d = _head_dim(q, num_heads)
+    if wide_head_dim(d):
+        return flash_fwd_wide(q, k, v, num_heads, causal)
     b, s, h = _check_cuda("flash_fwd", num_heads, d, q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -423,10 +465,12 @@ flash_fwd.launches = 0
 
 def flash_delta(do, o, num_heads: int):
     """delta [b, h, s] f32 = rowsum(dO * O) per head, at any head dim the
-    kernels take."""
+    kernels take; past 256 through flash_delta_wide."""
     if do.device.type == "cpu":
         return flash_delta_plain(do, o, num_heads)
     d = _head_dim(do, num_heads)
+    if wide_head_dim(d):
+        return flash_delta_wide(do, o, num_heads)
     b, s, h = _check_cuda("flash_delta", num_heads, d, do, o)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=do.device)
     _launch("ff_flash_delta", d, do.data_ptr(), o.data_ptr(), delta.data_ptr(), b, s, h,
@@ -440,10 +484,12 @@ flash_delta.launches = 0
 
 def flash_bwd(q, k, v, do, lse, delta, num_heads: int, causal: bool = False):
     """(dq, dk, dv) from the saved forward and delta, at any head dim the
-    kernels take."""
+    kernels take; past 256 through flash_bwd_wide."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, do, lse, delta, num_heads, causal)
     d = _head_dim(q, num_heads)
+    if wide_head_dim(d):
+        return flash_bwd_wide(q, k, v, do, lse, delta, num_heads, causal)
     b, s, h = _check_cuda("flash_bwd", num_heads, d, q, k, v, do)
     _check_rows("flash_bwd lse", lse, b, h, s, q.device)
     _check_rows("flash_bwd delta", delta, b, h, s, q.device)
@@ -456,6 +502,61 @@ def flash_bwd(q, k, v, do, lse, delta, num_heads: int, causal: bool = False):
 
 
 flash_bwd.launches = 0
+
+
+def flash_fwd_wide(q, k, v, num_heads: int, causal: bool = False):
+    """flash_fwd at a head dim past 256: the wide forward kernel."""
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, num_heads, causal)
+    d = _head_dim(q, num_heads)
+    _check_wide("flash_fwd_wide", d)
+    b, s, h = _check_cuda("flash_fwd_wide", num_heads, d, q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    _launch_wide("ff_flash_wide_fwd", d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), b, s, h, int(causal), _stream(q))
+    flash_fwd_wide.launches += 1
+    return o, lse
+
+
+flash_fwd_wide.launches = 0
+
+
+def flash_delta_wide(do, o, num_heads: int):
+    """flash_delta at a head dim past 256: delta_body's wide instance."""
+    if do.device.type == "cpu":
+        return flash_delta_plain(do, o, num_heads)
+    d = _head_dim(do, num_heads)
+    _check_wide("flash_delta_wide", d)
+    b, s, h = _check_cuda("flash_delta_wide", num_heads, d, do, o)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=do.device)
+    _launch_wide("ff_flash_wide_delta", d, do.data_ptr(), o.data_ptr(), delta.data_ptr(), b, s, h,
+                 _stream(do))
+    flash_delta_wide.launches += 1
+    return delta
+
+
+flash_delta_wide.launches = 0
+
+
+def flash_bwd_wide(q, k, v, do, lse, delta, num_heads: int, causal: bool = False):
+    """flash_bwd at a head dim past 256: the wide dK/dV and dQ kernels."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, do, lse, delta, num_heads, causal)
+    d = _head_dim(q, num_heads)
+    _check_wide("flash_bwd_wide", d)
+    b, s, h = _check_cuda("flash_bwd_wide", num_heads, d, q, k, v, do)
+    _check_rows("flash_bwd_wide lse", lse, b, h, s, q.device)
+    _check_rows("flash_bwd_wide delta", delta, b, h, s, q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _launch_wide("ff_flash_wide_bwd", d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 b, s, h, int(causal), _stream(q))
+    flash_bwd_wide.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd_wide.launches = 0
 
 
 def flash_fwd_d64(q, k, v, num_heads: int, causal: bool = False):
@@ -528,6 +629,8 @@ def flash_fwd_bhsd(q, k, v, causal: bool = False):
     if q.device.type == "cpu":
         return flash_fwd_bhsd_plain(q, k, v, causal)
     b, h, s, d = q.shape
+    if wide_head_dim(d):
+        return flash_fwd_bhsd_wide(q, k, v, causal)
     layout = _check_bhsd("flash_fwd_bhsd", q.shape, q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -546,6 +649,8 @@ def flash_delta_bhsd(do, o):
     if do.device.type == "cpu":
         return flash_delta_bhsd_plain(do, o)
     b, h, s, d = do.shape
+    if wide_head_dim(d):
+        return flash_delta_bhsd_wide(do, o)
     do_layout = _check_bhsd("flash_delta_bhsd do", do.shape, do)
     o_layout = _check_bhsd("flash_delta_bhsd o", do.shape, o)
     if o.device != do.device:
@@ -567,6 +672,8 @@ def flash_bwd_bhsd(q, k, v, do, lse, delta, causal: bool = False):
     if q.device.type == "cpu":
         return flash_bwd_bhsd_plain(q, k, v, do, lse, delta, causal)
     b, h, s, d = q.shape
+    if wide_head_dim(d):
+        return flash_bwd_bhsd_wide(q, k, v, do, lse, delta, causal)
     layout = _check_bhsd("flash_bwd_bhsd", q.shape, q, k, v)
     do_layout = _check_bhsd("flash_bwd_bhsd do", q.shape, do)
     if do.device != q.device:
@@ -583,10 +690,73 @@ def flash_bwd_bhsd(q, k, v, do, lse, delta, causal: bool = False):
 
 flash_bwd_bhsd.launches = 0
 
+
+def flash_fwd_bhsd_wide(q, k, v, causal: bool = False):
+    """flash_fwd_bhsd at a head dim past 256: the wide forward kernel."""
+    if q.device.type == "cpu":
+        return flash_fwd_bhsd_plain(q, k, v, causal)
+    b, h, s, d = q.shape
+    _check_wide("flash_fwd_bhsd_wide", d)
+    layout = _check_bhsd("flash_fwd_bhsd_wide", q.shape, q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    _launch_wide("ff_flash_wide_fwd_bhsd", d, q.data_ptr(), k.data_ptr(), v.data_ptr(), *layout,
+                 o.data_ptr(), *_strides(o), lse.data_ptr(), b, s, h, int(causal), _stream(q))
+    flash_fwd_bhsd_wide.launches += 1
+    return o, lse
+
+
+flash_fwd_bhsd_wide.launches = 0
+
+
+def flash_delta_bhsd_wide(do, o):
+    """flash_delta_bhsd at a head dim past 256: delta_body's wide instance."""
+    if do.device.type == "cpu":
+        return flash_delta_bhsd_plain(do, o)
+    b, h, s, d = do.shape
+    _check_wide("flash_delta_bhsd_wide", d)
+    do_layout = _check_bhsd("flash_delta_bhsd_wide do", do.shape, do)
+    o_layout = _check_bhsd("flash_delta_bhsd_wide o", do.shape, o)
+    if o.device != do.device:
+        raise ValueError(f"flash_delta_bhsd_wide: do on {do.device}, o on {o.device}")
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=do.device)
+    _launch_wide("ff_flash_wide_delta_bhsd", d, do.data_ptr(), *do_layout, o.data_ptr(),
+                 *o_layout, delta.data_ptr(), b, s, h, _stream(do))
+    flash_delta_bhsd_wide.launches += 1
+    return delta
+
+
+flash_delta_bhsd_wide.launches = 0
+
+
+def flash_bwd_bhsd_wide(q, k, v, do, lse, delta, causal: bool = False):
+    """flash_bwd_bhsd at a head dim past 256: the wide dK/dV and dQ kernels."""
+    if q.device.type == "cpu":
+        return flash_bwd_bhsd_plain(q, k, v, do, lse, delta, causal)
+    b, h, s, d = q.shape
+    _check_wide("flash_bwd_bhsd_wide", d)
+    layout = _check_bhsd("flash_bwd_bhsd_wide", q.shape, q, k, v)
+    do_layout = _check_bhsd("flash_bwd_bhsd_wide do", q.shape, do)
+    if do.device != q.device:
+        raise ValueError(f"flash_bwd_bhsd_wide: do on {do.device}, q on {q.device}")
+    _check_rows("flash_bwd_bhsd_wide lse", lse, b, h, s, q.device)
+    _check_rows("flash_bwd_bhsd_wide delta", delta, b, h, s, q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _launch_wide("ff_flash_wide_bwd_bhsd", d, q.data_ptr(), k.data_ptr(), v.data_ptr(), *layout,
+                 do.data_ptr(), *do_layout, lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), *_strides(dq), b, s, h, int(causal), _stream(q))
+    flash_bwd_bhsd_wide.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd_bhsd_wide.launches = 0
+
 # Every kernel wrapper of the port, each with its launch count: these, and
 # the ring-flash step wrappers, which kernels/ring_flash.py registers.
 KERNEL_WRAPPERS = (flash_fwd, flash_delta, flash_bwd, flash_fwd_d64, flash_delta_d64, flash_bwd_d64,
-                   flash_fwd_bhsd, flash_delta_bhsd, flash_bwd_bhsd)
+                   flash_fwd_bhsd, flash_delta_bhsd, flash_bwd_bhsd, flash_fwd_wide,
+                   flash_delta_wide, flash_bwd_wide, flash_fwd_bhsd_wide, flash_delta_bhsd_wide,
+                   flash_bwd_bhsd_wide)
 
 
 def register_wrappers(*fns) -> None:
@@ -739,8 +909,7 @@ def current_flash_mesh():
 def sharded_flash_supported(q_shape, k_shape, v_shape, dtype: torch.dtype, device) -> bool:
     """The gate of sharded_flash_attention. Each rank already holds its
     local block of the batch, so the local shape is the shape it is given;
-    the per-head kernels take it as flash_attention_supported says.
-    d > 256 is refused: no kernel takes it yet, so it runs dense."""
+    the per-head kernels take it as flash_attention_supported says."""
     return flash_attention_supported(q_shape, k_shape, v_shape, dtype, device)
 
 

@@ -10,13 +10,22 @@ Replaces the Pallas kernels of that module:
 - ring_dkv_step <- _ring_dkv_step_kernel via _ring_dkv_step
 
 each a hand-written CUDA kernel in csrc/ring_flash.cu (whose note says what
-bounds it on the card) beside a plain PyTorch version. A wrapper runs its
-plain version for tensors on the CPU, and launches its kernel for tensors on
-a CUDA device, or raises. The kernels take bf16 per-head [b, h, rows, d]
-operands by their strides (any head dim d with d % 8 == 0 up to 256, each
-at the padded width of kernels/flash_attention.py's `padded_dim`; rows a
-multiple of 64) and f32 contiguous state; `ring_flash_supported` is the
-gate. Past d = 256 the ring runs dense (kernels/ring_attention.py).
+bounds it on the card) beside a plain PyTorch version, and past head dim
+256 ring_fwd_step_wide, ring_dq_step_wide and ring_dkv_step_wide, the wide
+step kernels of csrc/flash_wide.cu. A wrapper runs its plain version for
+tensors on the CPU, and launches its kernel for tensors on a CUDA device,
+or raises. The kernels take bf16 per-head [b, h, rows, d] operands by their
+strides (any head dim d with d % 8 == 0: up to 256 at the padded width of
+kernels/flash_attention.py's `padded_dim`, past it in 256-column chunks;
+rows a multiple of 64) and f32 contiguous state; `ring_flash_supported` is
+the gate.
+
+The wide forward step reads the carried (m, l) from one pair of buffers and
+writes them to another: each of a row tile's column chunks runs in a block
+of its own and rescales its acc columns by the old m, so an update in place
+would race. The ring's driver ping-pongs the pair (`_fwd_step`);
+ring_fwd_step keeps its in-place contract at every head dim by copying the
+new pair back.
 
 Where the JAX package returns fresh per-step dq, dk and dv and adds them in
 XLA, the port's dq and dk/dv steps add into the caller's f32 accumulators in
@@ -49,14 +58,16 @@ import torch.distributed as dist
 from flexflow_tpu_torch.kernels import build
 from flexflow_tpu_torch.kernels.flash_attention import (
     HEAD_DIM_STEP,
-    MAX_HEAD_DIM,
+    NARROW_MAX,
     TILE,
     _dtype_ok,
+    _launch_wide,
     _stream,
     bhsd_readable,
     flash_delta_bhsd,
     head_dim_supported,
     register_wrappers,
+    wide_head_dim,
 )
 
 NEG_INF = -1e30
@@ -82,12 +93,17 @@ def _operand(t: torch.Tensor):
     return t.data_ptr(), t.stride(2), t.stride(1), t.stride(0)
 
 
-def _check_operands(name: str, q, k, v, do=None) -> None:
+def _check_operands(name: str, q, k, v, do=None, wide: bool = False) -> None:
     """Raise unless q (and do) are bf16 [b, h, S, d] and k, v bf16 [b, h, T, d]
     on one CUDA device, readable in place, with d a head dim the kernels
-    take (head_dim_supported) and S, T multiples of the tile."""
+    take (head_dim_supported; `wide` kernels: past 256, else up to it) and
+    S, T multiples of the tile."""
     b, h, s, d = q.shape
     t = k.shape[2]
+    if not head_dim_supported(d) or wide_head_dim(d) != wide or s % TILE or t % TILE:
+        span = f"past {NARROW_MAX}" if wide else f"up to {NARROW_MAX}"
+        raise ValueError(f"{name}: kernel takes d % {HEAD_DIM_STEP} == 0 {span} and blocks a "
+                         f"multiple of {TILE} rows, got q {tuple(q.shape)}, k {tuple(k.shape)}")
     dev = q.device
     named = [("q", q, s), ("k", k, t), ("v", v, t)] + ([("do", do, s)] if do is not None else [])
     for label, x, rows in named:
@@ -100,10 +116,6 @@ def _check_operands(name: str, q, k, v, do=None) -> None:
         if not bhsd_readable(x):
             raise ValueError(f"{name}: {label} must have unit stride along d, the other strides "
                              f"multiples of 8 and a 16-byte aligned start, got {x.stride()}")
-    if not head_dim_supported(d) or s % TILE or t % TILE:
-        raise ValueError(f"{name}: kernel takes d % {HEAD_DIM_STEP} == 0 up to {MAX_HEAD_DIM} "
-                         f"and blocks a multiple of {TILE} rows, got q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}")
 
 
 def _check_f32(name: str, t: torch.Tensor, shape, dev) -> None:
@@ -191,6 +203,13 @@ def ring_fwd_step(q, k, v, acc, m, l, q_off: int, k_off: int, causal: bool = Fal
     if q.device.type == "cpu":
         return ring_fwd_step_plain(q, k, v, acc, m, l, q_off, k_off, causal)
     b, h, s, d = q.shape
+    if wide_head_dim(d):
+        # the wide step writes the new (m, l) elsewhere: copy them back
+        m_out, l_out = torch.empty_like(m), torch.empty_like(l)
+        ring_fwd_step_wide(q, k, v, acc, m, l, m_out, l_out, q_off, k_off, causal)
+        m.copy_(m_out)
+        l.copy_(l_out)
+        return
     _check_operands("ring_fwd_step", q, k, v)
     _check_f32("ring_fwd_step acc", acc, (b, h, s, d), q.device)
     _check_f32("ring_fwd_step m", m, (b, h, s), q.device)
@@ -209,6 +228,8 @@ def ring_dq_step(q, k, v, do, lse, delta, dq, q_off: int, k_off: int, causal: bo
     if q.device.type == "cpu":
         return ring_dq_step_plain(q, k, v, do, lse, delta, dq, q_off, k_off, causal)
     b, h, s, d = q.shape
+    if wide_head_dim(d):
+        return ring_dq_step_wide(q, k, v, do, lse, delta, dq, q_off, k_off, causal)
     _check_operands("ring_dq_step", q, k, v, do)
     for name, t in (("lse", lse), ("delta", delta)):
         _check_f32(f"ring_dq_step {name}", t, (b, h, s), q.device)
@@ -228,6 +249,8 @@ def ring_dkv_step(q, k, v, do, lse, delta, dk, dv, q_off: int, k_off: int, causa
     if q.device.type == "cpu":
         return ring_dkv_step_plain(q, k, v, do, lse, delta, dk, dv, q_off, k_off, causal)
     b, h, s, d = q.shape
+    if wide_head_dim(d):
+        return ring_dkv_step_wide(q, k, v, do, lse, delta, dk, dv, q_off, k_off, causal)
     t = k.shape[2]
     _check_operands("ring_dkv_step", q, k, v, do)
     for name, x in (("lse", lse), ("delta", delta)):
@@ -242,16 +265,98 @@ def ring_dkv_step(q, k, v, do, lse, delta, dk, dv, q_off: int, k_off: int, causa
 
 ring_dkv_step.launches = 0
 
-register_wrappers(ring_fwd_step, ring_dq_step, ring_dkv_step)
+
+def ring_fwd_step_wide(q, k, v, acc, m, l, m_out, l_out, q_off: int, k_off: int,
+                       causal: bool = False):
+    """One ring step of the flash forward at a head dim past 256: acc in
+    place, the carried (m, l) read from m, l and written to m_out, l_out
+    (which must be other buffers); see ring_fwd_step_plain."""
+    if q.device.type == "cpu":
+        m_out.copy_(m)
+        l_out.copy_(l)
+        return ring_fwd_step_plain(q, k, v, acc, m_out, l_out, q_off, k_off, causal)
+    b, h, s, d = q.shape
+    _check_operands("ring_fwd_step_wide", q, k, v, wide=True)
+    _check_f32("ring_fwd_step_wide acc", acc, (b, h, s, d), q.device)
+    for name, x in (("m", m), ("l", l), ("m_out", m_out), ("l_out", l_out)):
+        _check_f32(f"ring_fwd_step_wide {name}", x, (b, h, s), q.device)
+    if {m_out.data_ptr(), l_out.data_ptr()} & {m.data_ptr(), l.data_ptr()}:
+        raise ValueError("ring_fwd_step_wide: m_out and l_out must be other buffers than m and l")
+    _launch_wide("ff_ring_wide_fwd_step", d, *_operand(q), *_operand(k), *_operand(v),
+                 acc.data_ptr(), m.data_ptr(), l.data_ptr(), m_out.data_ptr(), l_out.data_ptr(),
+                 b, s, k.shape[2], h, q_off, k_off, int(causal), _stream(q))
+    ring_fwd_step_wide.launches += 1
+
+
+ring_fwd_step_wide.launches = 0
+
+
+def ring_dq_step_wide(q, k, v, do, lse, delta, dq, q_off: int, k_off: int,
+                      causal: bool = False):
+    """ring_dq_step at a head dim past 256: the wide dQ step kernel."""
+    if q.device.type == "cpu":
+        return ring_dq_step_plain(q, k, v, do, lse, delta, dq, q_off, k_off, causal)
+    b, h, s, d = q.shape
+    _check_operands("ring_dq_step_wide", q, k, v, do, wide=True)
+    for name, t in (("lse", lse), ("delta", delta)):
+        _check_f32(f"ring_dq_step_wide {name}", t, (b, h, s), q.device)
+    _check_f32("ring_dq_step_wide dq", dq, (b, h, s, d), q.device)
+    _launch_wide("ff_ring_wide_dq_step", d, *_operand(q), *_operand(k), *_operand(v),
+                 *_operand(do), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, s,
+                 k.shape[2], h, q_off, k_off, int(causal), _stream(q))
+    ring_dq_step_wide.launches += 1
+
+
+ring_dq_step_wide.launches = 0
+
+
+def ring_dkv_step_wide(q, k, v, do, lse, delta, dk, dv, q_off: int, k_off: int,
+                       causal: bool = False):
+    """ring_dkv_step at a head dim past 256: the wide dK/dV step kernel."""
+    if q.device.type == "cpu":
+        return ring_dkv_step_plain(q, k, v, do, lse, delta, dk, dv, q_off, k_off, causal)
+    b, h, s, d = q.shape
+    t = k.shape[2]
+    _check_operands("ring_dkv_step_wide", q, k, v, do, wide=True)
+    for name, x in (("lse", lse), ("delta", delta)):
+        _check_f32(f"ring_dkv_step_wide {name}", x, (b, h, s), q.device)
+    for name, x in (("dk", dk), ("dv", dv)):
+        _check_f32(f"ring_dkv_step_wide {name}", x, (b, h, t, d), q.device)
+    _launch_wide("ff_ring_wide_dkv_step", d, *_operand(q), *_operand(k), *_operand(v),
+                 *_operand(do), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 b, s, t, h, q_off, k_off, int(causal), _stream(q))
+    ring_dkv_step_wide.launches += 1
+
+
+ring_dkv_step_wide.launches = 0
+
+register_wrappers(ring_fwd_step, ring_dq_step, ring_dkv_step, ring_fwd_step_wide,
+                  ring_dq_step_wide, ring_dkv_step_wide)
+
+
+def _fwd_step(q, k, v, acc, state, spare, q_off: int, k_off: int, causal: bool):
+    """One forward step of the ring's driver on the carried (acc, state =
+    (m, l)): in place up to head dim 256; past it the wide step writes the
+    new (m, l) into `spare` and the two pairs swap. Returns (state, spare)."""
+    if spare is None:
+        ring_fwd_step(q, k, v, acc, *state, q_off, k_off, causal)
+        return state, spare
+    ring_fwd_step_wide(q, k, v, acc, *state, *spare, q_off, k_off, causal)
+    return spare, state
+
+
+def _spare(d: int, m, l):
+    """The second (m, l) pair of a ring's forward at head dim d past 256,
+    else None."""
+    return (torch.empty_like(m), torch.empty_like(l)) if wide_head_dim(d) else None
 
 
 def ring_flash_supported(qp_shape, kp_shape, vp_shape, dtype: torch.dtype, device) -> bool:
     """Can the ring steps take these per-rank [b, h, rows, d] blocks? The
     kernels need k and v of one shape, the head dim of q, a head dim
-    head_dim_supported admits (d % 8 == 0, 8 <= d <= 256) and blocks a
-    multiple of the 64-row tile, in bf16; the plain versions take the same
-    shapes in any float dtype on the CPU.
-    d > 256 is refused: no kernel takes it yet, so the ring runs dense."""
+    head_dim_supported admits (d % 8 == 0, d >= 8) and blocks a multiple of
+    the 64-row tile, in bf16; the plain versions take the same shapes in
+    any float dtype on the CPU."""
     qp_shape, kp_shape = tuple(qp_shape), tuple(kp_shape)
     if len(qp_shape) != 4 or len(kp_shape) != 4 or tuple(vp_shape) != kp_shape:
         return False
@@ -319,13 +424,15 @@ def _ring_flash_fwd_impl(qp, kp, vp, ring: SequenceRing, causal: bool):
     acc = torch.zeros((b, h, s_blk, d), dtype=torch.float32, device=qp.device)
     m = torch.full((b, h, s_blk), NEG_INF, dtype=torch.float32, device=qp.device)
     l = torch.zeros((b, h, s_blk), dtype=torch.float32, device=qp.device)
+    state, spare = (m, l), _spare(d, m, l)
     q_off = ring.rank * s_blk
     kv, k_c, v_c = None, kp, vp
     for i in range(ring.size):
         src = (ring.rank - i) % ring.size
-        ring_fwd_step(qp, k_c, v_c, acc, m, l, q_off, src * t_blk, causal)
+        state, spare = _fwd_step(qp, k_c, v_c, acc, state, spare, q_off, src * t_blk, causal)
         if i + 1 < ring.size:
             kv, k_c, v_c = _next_kv(ring, kv, k_c, v_c)
+    m, l = state
     o = (acc / l[..., None]).to(qp.dtype)
     return o, m + torch.log(l)
 
@@ -394,15 +501,16 @@ def replay_ring(q, k, v, do, sp: int, causal: bool):
         return x[:, :, r * blk:(r + 1) * blk]
 
     acc = [torch.zeros((b, h, blk, d), **f32) for _ in range(sp)]
-    m = [torch.full((b, h, blk), NEG_INF, **f32) for _ in range(sp)]
-    l = [torch.zeros((b, h, blk), **f32) for _ in range(sp)]
+    state = [(torch.full((b, h, blk), NEG_INF, **f32), torch.zeros((b, h, blk), **f32))
+             for _ in range(sp)]
+    spare = [_spare(d, *st) for st in state]
     for i in range(sp):
         for r in range(sp):
             src = (r - i) % sp
-            ring_fwd_step(shard(q, r), shard(k, src), shard(v, src), acc[r], m[r], l[r],
-                          r * blk, src * blk, causal)
-    o = [(acc[r] / l[r][..., None]).to(q.dtype) for r in range(sp)]
-    lse = [m[r] + torch.log(l[r]) for r in range(sp)]
+            state[r], spare[r] = _fwd_step(shard(q, r), shard(k, src), shard(v, src), acc[r],
+                                           state[r], spare[r], r * blk, src * blk, causal)
+    o = [(acc[r] / state[r][1][..., None]).to(q.dtype) for r in range(sp)]
+    lse = [state[r][0] + torch.log(state[r][1]) for r in range(sp)]
     delta = [flash_delta_bhsd(shard(do, r), o[r]) for r in range(sp)]
     dq = [torch.zeros((b, h, blk, d), **f32) for _ in range(sp)]
     dk = [torch.zeros((b, h, blk, d), **f32) for _ in range(sp)]

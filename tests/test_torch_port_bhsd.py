@@ -199,12 +199,14 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
         ((2, 3, 512, 64), torch.bfloat16, "cuda", True),  # any head count per head
         ((2, 8, 512, 128), torch.float32, "cuda", False),  # kernels take bf16
         ((2, 8, 100, 128), torch.bfloat16, "cuda", False),  # s not a tile multiple
-        ((2, 8, 512, 264), torch.bfloat16, "cuda", False),  # d=264: no kernel past 256
+        ((2, 8, 512, 268), torch.bfloat16, "cuda", False),  # d=268, no multiple of 8
         ((2, 512, 1024), torch.bfloat16, "cuda", False),  # not per-head
         ((2, 8, 512, 128), torch.float32, "cpu", True),  # plain versions
         ((2, 8, 512, 32), torch.bfloat16, "cuda", True),  # d=32, padded to 64
         ((2, 12, 512, 256), torch.bfloat16, "cuda", True),  # BERT-base's heads
         ((2, 8, 512, 12), torch.bfloat16, "cuda", False),  # d=12, no multiple of 8
+        ((2, 8, 512, 264), torch.bfloat16, "cuda", True),  # d=264: the wide kernels
+        ((2, 2, 512, 512), torch.bfloat16, "cuda", True),  # bench.py --heads 2's heads
     ],
 )
 def test_per_head_gate_follows_the_kernels(shape, dtype, device, ok):
@@ -228,7 +230,7 @@ def _meta(*shape, dtype=torch.bfloat16):
         (lambda: _meta(2, 2, 128, 64).transpose(-1, -2), "unit stride"),
         (lambda: _meta(2, 2, 64, 130)[..., :128], "multiples of 8"),
         (lambda: _meta(2, 2, 64, 128, dtype=torch.float32), "bf16"),
-        (lambda: _meta(2, 2, 64, 264), "d in"),
+        (lambda: _meta(2, 2, 64, 268), "d in"),
         (lambda: _meta(2, 2, 100, 128), "multiple of 64"),
         (lambda: _meta(2, 2, 64, 128), "CPU or a CUDA device"),
     ],

@@ -145,12 +145,14 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
         ((2, 512, 1024), 16, torch.bfloat16, "cuda", True),  # d=64 kernels
         ((2, 100, 256), 2, torch.bfloat16, "cuda", False),  # s not a tile multiple
         ((2, 512, 1024), 8, torch.float32, "cpu", True),  # plain versions
-        ((2, 512, 16384), 32, torch.bfloat16, "cuda", False),  # d=512: no kernel past 256
-        ((2, 512, 792), 3, torch.bfloat16, "cuda", False),  # d=264: past 256
+        ((2, 512, 16416), 32, torch.bfloat16, "cuda", False),  # d=513, no multiple of 8
+        ((2, 512, 804), 3, torch.bfloat16, "cuda", False),  # d=268, no multiple of 8
         ((2, 512, 1024), 32, torch.bfloat16, "cuda", True),  # d=32, padded to 64
         ((2, 512, 192), 3, torch.bfloat16, "cuda", True),  # d=64, odd head count: no pair
         ((2, 512, 768), 8, torch.bfloat16, "cuda", True),  # d=96
         ((2, 512, 36), 3, torch.bfloat16, "cuda", False),  # d=12, no multiple of 8
+        ((2, 512, 1024), 2, torch.bfloat16, "cuda", True),  # d=512: the wide kernels
+        ((2, 512, 792), 3, torch.bfloat16, "cuda", True),  # d=264: the wide kernels
     ],
 )
 def test_flash_gate_follows_the_kernels(shape, heads, dtype, device, ok):
@@ -160,7 +162,7 @@ def test_flash_gate_follows_the_kernels(shape, heads, dtype, device, ok):
 def test_gate_constants_match_the_cuda_source():
     src = "".join((build.CSRC_DIR / f).read_text()
                   for f in ("flash_attention.cu", "flash_tiles.cuh", "flash_fwd_sm90.cuh",
-                            "flash_bwd_sm90.cuh"))
+                            "flash_bwd_sm90.cuh", "flash_delta.cuh"))
     for d in tfa.PADDED_WIDTHS:
         assert re.search(rf"FLASH_FWD_KERNEL\(ff_flash_fwd_\w*kernel, {d}\)", src), d
         assert re.search(rf"FLASH_BWD_KERNELS\(ff_flash_bwd_dkv_\w*kernel, "

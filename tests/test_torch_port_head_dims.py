@@ -1,6 +1,7 @@
 """The flash and ring kernels at every head dim the Pallas kernels take
 (d % 8 == 0), up to 256: each runs at a padded width of 64, 128, 192 or
-256 whose columns past d load as zeros and are never stored.
+256 whose columns past d load as zeros and are never stored (past 256 the
+wide kernels take over: tests/test_torch_port_wide_heads.py).
 
 - The port's plain forward, delta and backward, seq-major [b, s, h*d] and
   per-head [b, h, s, d], against the JAX package's per-head
@@ -9,12 +10,15 @@
   1x2x256xd, full and causal, from the same numpy inputs in f32.
 - The ring steps against ring_flash.py's Pallas kernels in interpret mode
   at d = 96 and 256 (the cases and helpers of test_torch_port_ring.py).
-- The gates: they admit exactly d % 8 == 0 with 8 <= d <= 256 (d = 12 and
-  264 refused), in bf16 on a CUDA device; the CUDA source's head_dim_ok and
-  padded_dim say the same; a wrapper handed a head dim past 256 raises.
+- The gates: they admit exactly d % 8 == 0 with d >= 8 (d = 12 and 268
+  refused; 264, 384, 512, 1024 and 2048 admitted, on the wide kernels), in
+  bf16 on a CUDA device; the CUDA source's head_dim_ok, narrow_dim_ok and
+  padded_dim say the same; a wrapper handed a head dim no kernel takes
+  raises.
 - The routes on the CPU: _mha_forward off a mesh at d = 32 and 96 reaches
   the seq-major wrappers, under flash_mesh at d=256 the per-head wrappers,
-  never the dense path, and matches the JAX package's forward.
+  at d=264 the seq-major wrappers too, never the dense path, and matches
+  the JAX package's forward.
 
 Tolerance: f32 on both sides with the same arithmetic in another order,
 values of order one, 1e-5.
@@ -126,9 +130,10 @@ def test_ring_steps_match_the_pallas_kernels(d, case):
         np.testing.assert_allclose(g, w, err_msg=name, **RING_TOL)
 
 
-@pytest.mark.parametrize("d", [8, 12, 32, 40, 64, 96, 120, 160, 192, 200, 248, 256, 264, 384, 512])
-def test_gates_admit_every_multiple_of_8_up_to_256(d):
-    ok = d % 8 == 0 and 8 <= d <= 256
+@pytest.mark.parametrize("d", [8, 12, 32, 40, 64, 96, 120, 160, 192, 200, 248, 256, 264, 268, 384,
+                               512, 1024, 2048])
+def test_gates_admit_every_multiple_of_8(d):
+    ok = d % 8 == 0 and 8 <= d
     bf16 = torch.bfloat16
     bhsd = (2, 3, 256, d)
     assert tfa.head_dim_supported(d) is ok
@@ -141,15 +146,20 @@ def test_gates_admit_every_multiple_of_8_up_to_256(d):
     assert not tfa.flash_attention_supported((2, 3, 100, d), (2, 3, 100, d), (2, 3, 100, d),
                                              bf16, "cuda")
     if ok:
-        assert tfa.padded_dim(d) in tfa.PADDED_WIDTHS and tfa.padded_dim(d) - 64 < d
+        assert tfa.padded_dim(d) - 64 < d <= tfa.padded_dim(d)
+        assert (tfa.padded_dim(d) in tfa.PADDED_WIDTHS) is (not tfa.wide_head_dim(d))
+        assert tfa.wide_head_dim(d) is (d > tfa.NARROW_MAX)
 
 
 def test_cuda_source_takes_the_gates_head_dims():
     """The C entries refuse what the gates refuse and pick the width the
-    Python side names: head_dim_ok and padded_dim in csrc/flash_tiles.cuh."""
+    Python side names: head_dim_ok, narrow_dim_ok, wide_dim_ok and
+    padded_dim in csrc/flash_tiles.cuh."""
     src = (build.CSRC_DIR / "flash_tiles.cuh").read_text()
-    assert (f"return d >= {tfa.HEAD_DIM_STEP} && d <= {tfa.MAX_HEAD_DIM} && "
-            f"d % {tfa.HEAD_DIM_STEP} == 0;") in src
+    assert f"return d >= {tfa.HEAD_DIM_STEP} && d % {tfa.HEAD_DIM_STEP} == 0;" in src
+    assert f"constexpr int NARROW_MAX = {tfa.NARROW_MAX};" in src
+    assert "return head_dim_ok(d) && d <= NARROW_MAX;" in src
+    assert "return head_dim_ok(d) && d > NARROW_MAX;" in src
     assert "return (d + 63) / 64 * 64;" in src
     assert all(tfa.padded_dim(d) == (d + 63) // 64 * 64 for d in range(8, 257, 8))
     flash = (build.CSRC_DIR / "flash_attention.cu").read_text()
@@ -158,9 +168,14 @@ def test_cuda_source_takes_the_gates_head_dims():
     ring = (build.CSRC_DIR / "ring_flash.cu").read_text()
     for width in tfa.PADDED_WIDTHS:
         assert re.search(rf"RING_DKV_KERNEL\(ff_ring_dkv_step\w*kernel, {width}\)", ring), width
+    # the narrow sources take d up to 256, the wide one past it
+    assert "narrow_dim_ok(d)" in flash and "narrow_dim_ok(d)" in ring
+    assert "head_dim_ok(d)" not in flash.replace("narrow_dim_ok(d)", "")
+    wide = (build.CSRC_DIR / "flash_wide.cu").read_text()
+    assert wide.count("if (!wide_dim_ok(d)) return (int)cudaErrorInvalidValue;") == 6
 
 
-@pytest.mark.parametrize("d", [12, 264])
+@pytest.mark.parametrize("d", [12, 268])
 def test_wrappers_raise_on_a_head_dim_the_kernels_do_not_take(d):
     """On a device other than the CPU a wrapper launches its kernel or
     raises; it never falls back to its plain version."""
@@ -234,11 +249,18 @@ def test_mha_forward_under_flash_mesh_takes_the_per_head_kernels_at_d256(monkeyp
     np.testing.assert_allclose(got.detach().numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
-def test_head_dims_past_256_run_dense(monkeypatch):
-    """d = 264 has no kernel: the gate refuses it and attention runs dense,
-    counted, and still matches the JAX package's forward."""
+def test_head_dims_past_256_take_the_kernels_wrappers(monkeypatch):
+    """d = 264 rides the seq-major wrappers off a mesh, as every narrower d
+    does (the wide kernels take it on the card), forward and backward, with
+    no dense attention, and matches the JAX package's forward."""
     ta, x, weights, ref = _attention_case(264, 2, seed=11)
-    tops._dense_context.calls = 0
-    got = tops.forward(ta, [torch.from_numpy(x)] * 3, [torch.from_numpy(a) for a in weights])[0]
-    assert tops._dense_context.calls == 1
-    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+    calls = []
+    _record(monkeypatch, ("flash_fwd_plain", "flash_delta_plain", "flash_bwd_plain",
+                          "flash_fwd_bhsd_plain"), calls)
+    tops._dense_context.calls = tra.ring_attention_block.calls = 0
+    tx = torch.tensor(x, requires_grad=True)
+    got = tops.forward(ta, [tx] * 3, [torch.from_numpy(a) for a in weights])[0]
+    got.sum().backward()
+    assert calls == ["flash_fwd_plain", "flash_delta_plain", "flash_bwd_plain"]
+    assert tops._dense_context.calls == 0 and tra.ring_attention_block.calls == 0
+    np.testing.assert_allclose(got.detach().numpy(), ref, rtol=1e-5, atol=1e-5)

@@ -175,9 +175,9 @@ def test_gate_follows_the_kernels():
     assert trf.ring_flash_supported(q, kv, kv, f32, cpu)
     assert trf.ring_flash_supported(q, kv, kv, bf16, "cuda")
     assert not trf.ring_flash_supported(q, kv, kv, f32, "cuda")  # the kernels are bf16
-    assert not trf.ring_flash_supported((2, 4, 256, 264), (2, 4, 256, 264), (2, 4, 256, 264), f32,
-                                        cpu)  # no kernel past d=256
-    for d in (8, 32, 96, 192, 256):  # every multiple of 8 up to 256
+    assert not trf.ring_flash_supported((2, 4, 256, 268), (2, 4, 256, 268), (2, 4, 256, 268), f32,
+                                        cpu)  # no multiple of 8
+    for d in (8, 32, 96, 192, 256, 264, 512):  # every multiple of 8, past 256 the wide kernels
         assert trf.ring_flash_supported((2, 4, 256, d), (2, 4, 256, d), (2, 4, 256, d), bf16, "cuda")
     assert not trf.ring_flash_supported((2, 4, 256, 12), (2, 4, 256, 12), (2, 4, 256, 12), bf16,
                                         "cuda")
